@@ -1,0 +1,216 @@
+"""AzulEngine: the public solve API of the port (local mode).
+
+Port of ``repro.core.engine`` for one device.  Given a square sparse
+matrix, the engine
+
+  1. runs the host-side "task compiler": padded-ELL packing (row_pad and
+     width_pad 8), the Jacobi inverse diagonal, and the per-matrix storage
+     format choice;
+  2. pins the packed operator on the device once (``device="cuda"`` by
+     default; ``device="cpu"`` runs the kernels' plain versions);
+  3. lowers ``SolveSpec``s into cached ``SolvePlan``s
+     (``engine.plan(spec)(b)``) whose fused substrate runs the hand-written
+     kernels: ``ell_spmv`` for the initial residual, then
+     ``ell_spmv_pfold_dot`` and ``cg_update`` once per iteration.
+
+Not ported yet, and refused with NotImplementedError naming the ROADMAP
+item: distributed meshes, block-IC(0), formats other than padded ELL
+(including an ``format="auto"`` choice of SELL or HYB), batched RHS.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from . import registry
+from ..device import DEFAULT_DEVICE, resolve_device, resolve_dtype
+from ..kernels.autotune import choose_format, modeled_format_words
+from .formats import CSR, ELL, ell_arrays_from_csr
+from .plan import PlanCache, SolvePlan, SolveSpec, canonicalize, check_format
+from .solvers import ensure_status
+from .spops import spmv_ell_padded
+from .substrate import fused_local_substrate
+
+__all__ = ["AzulEngine"]
+
+
+def _host_diag(m: CSR, r0: int, r1: int) -> np.ndarray:
+    """Diagonal entries of rows [r0, r1) (0.0 where absent), host side,
+    by one vectorised compare over the rows' nnz slice."""
+    indptr = np.asarray(m.indptr)
+    lo, hi = int(indptr[r0]), int(indptr[r1])
+    rows = np.repeat(np.arange(r0, r1), np.diff(indptr[r0 : r1 + 1]))
+    idx = np.asarray(m.indices)[lo:hi]
+    sel = idx == rows
+    d = np.zeros(r1 - r0, dtype=np.float64)
+    d[rows[sel] - r0] = np.asarray(m.data)[lo:hi][sel]
+    return d
+
+
+class AzulEngine:
+    """Single-device sparse iterative-solver engine (module docstring).
+
+    Parameters
+    ----------
+    a : CSR                 square sparse matrix (host side)
+    mesh : None             distributed meshes are not ported yet
+    precond : "jacobi" | "none"
+    dtype : float32 | float64 (numpy or torch spelling); default float32
+    row_pad / width_pad :   ELL padding multiples (8, as the JAX engine)
+    fused : "auto" | True | False
+        Fused-kernel substrate wherever the method/preconditioner pair
+        supports it ("auto"/True); False runs the reference substrate --
+        plain PyTorch, one op per solver line -- on the same device.
+    format : "auto" | "ell"
+        "auto" runs the JAX package's per-matrix format rule; a choice of
+        SELL or HYB raises NotImplementedError.
+    device : "cuda" (default) | "cpu"
+    """
+
+    def __init__(self, a: CSR, mesh=None, precond: str = "jacobi",
+                 dtype=np.float32, row_pad: int = 8, width_pad: int = 8,
+                 fused="auto", format: str = "auto",
+                 device=DEFAULT_DEVICE):
+        if mesh is not None:
+            raise NotImplementedError(
+                "distributed meshes are not ported yet (ROADMAP Queue 1 "
+                "item 11)")
+        if a.shape[0] != a.shape[1]:
+            raise ValueError("engine expects a square matrix")
+        self._configure(precond, fused, dtype, device)
+        if format == "auto":
+            choice, words = choose_format(a, slice_height=row_pad,
+                                          row_pad=row_pad)
+        else:
+            choice = format
+            words = modeled_format_words(a, slice_height=row_pad,
+                                         row_pad=row_pad)
+        check_format(choice)
+        self.format, self.format_choice, self.format_words = format, choice, words
+        self.a = a
+        n = a.shape[0]
+        cols, vals = ell_arrays_from_csr(a, row_pad=row_pad,
+                                         width_pad=width_pad, dtype=self.dtype)
+        dg = _host_diag(a, 0, n)
+        dg[dg == 0] = 1.0
+        di = np.zeros(cols.shape[0], self.dtype)
+        di[:n] = 1.0 / dg
+        self._set_operator(cols, vals, di, n)
+
+    @classmethod
+    def from_state(cls, cols: np.ndarray, vals: np.ndarray, dinv: np.ndarray,
+                   n: int, precond: str = "jacobi", fused="auto",
+                   device=DEFAULT_DEVICE) -> "AzulEngine":
+        """An engine over an already packed operator: (n_pad, w) ELL
+        ``cols``/``vals`` and the (n_pad,) inverse diagonal, as host
+        arrays (see ``repro_torch.convert``)."""
+        eng = cls.__new__(cls)
+        eng._configure(precond, fused, vals.dtype, device)
+        eng.format, eng.format_choice, eng.format_words = "ell", "ell", None
+        eng.a = None
+        eng._set_operator(cols, vals, dinv, n)
+        return eng
+
+    def _configure(self, precond, fused, dtype, device) -> None:
+        if fused not in ("auto", True, False):
+            raise ValueError(f"fused must be 'auto', True or False, got {fused!r}")
+        if precond == "block_ic0":
+            raise NotImplementedError(
+                "precond='block_ic0' is not ported yet (ROADMAP Queue 1 "
+                "items 1 and 3: ic0 and the fused IC(0) substrate)")
+        registry.get_precond(precond)      # fail fast on unknown names
+        self.precond = precond
+        self.fused = fused
+        self.dtype, self.torch_dtype = resolve_dtype(dtype)
+        self.device = resolve_device(device)
+        self.mode = "local"
+        self.plans = PlanCache()
+        self.last_solve_info: dict = {}
+
+    def _set_operator(self, cols, vals, dinv, n: int) -> None:
+        # torch.tensor copies: the engine never aliases a caller's array
+        dev, dt = self.device, self.torch_dtype
+        self.ell = ELL(torch.tensor(cols, dtype=torch.int32, device=dev),
+                       torch.tensor(vals, dtype=dt, device=dev), n, n)
+        self.n = n
+        self.n_pad = self.ell.rows_padded
+        self._dinv_pad = torch.tensor(dinv, dtype=dt, device=dev)
+
+    # -- vector embedding ---------------------------------------------------
+
+    def to_device_vec(self, v: np.ndarray) -> torch.Tensor:
+        """Embed a global (n,) vector into the padded (n_pad,) device
+        layout (zeros past n)."""
+        v = np.asarray(v)
+        out = np.zeros(v.shape[:-1] + (self.n_pad,), self.dtype)
+        out[..., : self.n] = v
+        return torch.from_numpy(out).to(self.device)
+
+    def from_device_vec(self, v: torch.Tensor) -> np.ndarray:
+        """Extract the global (n,) vector from the padded layout."""
+        return v[..., : self.n].cpu().numpy()
+
+    # -- public ops ---------------------------------------------------------
+
+    def spmv(self, x) -> np.ndarray:
+        """y = A @ x on a global (n,) vector (plain PyTorch matvec)."""
+        xd = self.to_device_vec(np.asarray(x))
+        return self.from_device_vec(
+            spmv_ell_padded(self.ell.cols, self.ell.vals, xd))
+
+    def device_bytes(self) -> int:
+        """Device-resident operator footprint: ELL cols/vals and the
+        inverse diagonal."""
+        return sum(t.numel() * t.element_size()
+                   for t in (self.ell.cols, self.ell.vals, self._dinv_pad))
+
+    def substrate_kind(self, method: str = "pcg", fused=None) -> str:
+        """The substrate a plan for ``method`` runs on: "reference" or
+        "fused"."""
+        sdef = registry.get_solver(method)
+        pdef = registry.get_precond(self.precond)
+        knob = self.fused if fused is None else fused
+        return registry.substrate_kind(registry.resolve_fused(sdef, pdef, knob))
+
+    # -- plan/execute API ---------------------------------------------------
+
+    def plan(self, spec: SolveSpec | None = None, **kwargs) -> SolvePlan:
+        """Lower a :class:`SolveSpec` into a cached :class:`SolvePlan`
+        (``plan(method="pcg_tol", tol=1e-8)`` is shorthand for the spec)."""
+        if spec is None:
+            spec = SolveSpec(**kwargs)
+        return self.plans.get(canonicalize(spec, self), self._lower)
+
+    def _lower(self, spec: SolveSpec) -> SolvePlan:
+        """Pick the substrate by capability lookup and close the program
+        over the device operands."""
+        sdef = registry.get_solver(spec.method)
+        pdef = registry.get_precond(self.precond)
+        kind = registry.substrate_kind(spec.fused)
+        cols, vals, dinv = self.ell.cols, self.ell.vals, self._dinv_pad
+        sub = None
+        if kind == "fused":
+            sub = fused_local_substrate(cols, vals,
+                                        dinv=dinv if pdef.uses_dinv else None)
+        ctx = registry.SolveContext(
+            matvec=lambda x: spmv_ell_padded(cols, vals, x),
+            psolve=pdef.local_apply(self), substrate=sub,
+            iters=spec.iters, tol=spec.tol, max_iters=spec.max_iters,
+            guard=spec.guard,
+        )
+
+        def prog(b_pad, x0_pad):
+            return ensure_status(sdef.run(ctx, b_pad, x0_pad), b_pad)
+
+        info = {
+            "method": spec.method,
+            "precond": spec.precond,
+            "fused": spec.fused,
+            "substrate": kind,
+            "batch": spec.batch,
+            "layout": "dense",          # one device: no NoC
+            "reorder": "none",
+            "format": spec.format,
+        }
+        return SolvePlan(self, spec, prog, info)

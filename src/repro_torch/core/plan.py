@@ -1,0 +1,187 @@
+"""Plan/execute API: a frozen ``SolveSpec`` lowered once into a
+``SolvePlan`` (port of ``repro.core.plan`` for local solves).
+
+* :class:`SolveSpec` -- the frozen, hashable description of one solve
+  configuration.  ``AzulEngine.plan(spec)`` canonicalizes it (registry
+  names, engine preconditioner, resolved fused bool, tolerance fields
+  nulled on fixed-iteration methods) so equal configurations share one
+  plan.
+* :class:`SolvePlan` -- the callable result: ``x, norms = plan(b)``.  It
+  owns its substrate selection and the device operands it closes over.
+* :class:`PlanCache` -- the engine's spec-keyed plan store: one build per
+  canonical spec.
+
+PyTorch runs eagerly, so there is no compile step to count; "build once"
+is the cache's miss count.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, replace
+from typing import Any, Callable
+
+import numpy as np
+
+from . import registry
+
+__all__ = ["SolveSpec", "SolvePlan", "PlanCache", "canonicalize",
+           "check_format"]
+
+_FORMATS = ("ell", "sell", "hyb", "bcsr", "stencil")
+
+
+def check_format(fmt: str) -> None:
+    """Accept 'ell'; raise NotImplementedError for the JAX package's other
+    storage formats and ValueError for unknown names."""
+    if fmt not in _FORMATS:
+        raise ValueError(f"format must be 'auto' or one of "
+                         f"{', '.join(_FORMATS)}, got {fmt!r}")
+    if fmt != "ell":
+        raise NotImplementedError(
+            f"format {fmt!r} is not ported yet: only padded ELL runs so far "
+            "(ROADMAP Queue 1 item 6)")
+
+
+@dataclass(frozen=True)
+class SolveSpec:
+    """Frozen description of one solve configuration.
+
+    method     registered solver name (``pcg`` | ``pcg_tol``)
+    precond    None = the engine's; a different name is rejected (the
+               preconditioner is built with the engine)
+    iters      fixed iteration count (fixed-iteration methods)
+    tol        relative residual target (tolerance methods; None means
+               1e-8, forced to None on fixed-iteration methods)
+    max_iters  iteration cap for tolerance methods (None -> ``iters``)
+    batch      None for one (n,) RHS; batched RHS wait for their slice
+    fused      None/'auto' (engine knob) | True | False
+    guard      in-loop numerical health guards (default True)
+    format     None/'auto' (the engine's choice) | 'ell'
+    """
+
+    method: str = "pcg"
+    precond: str | None = None
+    iters: int = 200
+    tol: float | None = None
+    max_iters: int | None = None
+    batch: int | None = None
+    fused: Any = "auto"
+    guard: bool = True
+    format: str | None = None
+
+
+def canonicalize(spec: SolveSpec, engine) -> SolveSpec:
+    """Resolve a user spec against an engine into the canonical cache key."""
+    sdef = registry.get_solver(spec.method)
+    pdef = registry.get_precond(engine.precond)
+    if spec.precond is not None:
+        want = registry.get_precond(spec.precond)
+        if want.name != pdef.name:
+            raise ValueError(
+                f"spec precond {want.name!r} != engine precond {pdef.name!r}"
+                " (the preconditioner is built with the engine -- build an"
+                " engine with precond=...)")
+    if spec.batch is not None:
+        raise NotImplementedError(
+            "batched right-hand sides are not ported yet (ROADMAP Queue 1 "
+            "item 5)")
+    fused_knob = engine.fused if spec.fused in (None, "auto") else spec.fused
+    fused = registry.resolve_fused(sdef, pdef, fused_knob)
+    if sdef.tolerance:
+        tol = 1e-8 if spec.tol is None else float(spec.tol)
+        max_iters = spec.iters if spec.max_iters is None else int(spec.max_iters)
+        iters = max_iters          # one budget field: iters mirrors the cap
+    else:
+        tol, max_iters, iters = None, None, int(spec.iters)
+    if spec.guard not in (True, False):
+        raise ValueError(f"guard must be True or False, got {spec.guard!r}")
+    guard = bool(spec.guard) and sdef.guarded
+    if spec.format not in (None, "auto"):
+        check_format(spec.format)
+    return replace(spec, method=sdef.name, precond=pdef.name, iters=iters,
+                   tol=tol, max_iters=max_iters, fused=fused, guard=guard,
+                   format=engine.format_choice)
+
+
+class SolvePlan:
+    """A lowered solve: spec + program + operand buffers + info.
+
+    Built by ``AzulEngine.plan(spec)``; execute with ``plan(b, x0=None)``.
+
+    Attributes
+    ----------
+    spec        the canonical :class:`SolveSpec`
+    info        {"method", "precond", "fused", "substrate", "batch",
+                 "layout", "reorder", "format"}
+    executions  times the plan was called
+    last_iters  iteration count of the most recent execution
+    last_status structured status code (int32 STATUS_*) of the most
+                recent execution; ``last_status_names`` spells it
+    last_bad_iter  first guard-tripped iteration (-1 = none)
+    """
+
+    def __init__(self, engine, spec: SolveSpec, fn: Callable, info: dict):
+        self.engine = engine
+        self.spec = spec
+        self._fn = fn
+        self.info = info
+        self.executions = 0
+        self.last_iters = None
+        self.last_status = None
+        self.last_bad_iter = None
+
+    @property
+    def last_status_names(self):
+        """``last_status`` spelled via ``solvers.status_name``; None before
+        any execution."""
+        if self.last_status is None:
+            return None
+        from . import solvers
+
+        return solvers.status_name(int(self.last_status))
+
+    def __call__(self, b, x0=None):
+        """Execute: returns (x, res_norms) as numpy; the iteration count,
+        status and bad_iter land in ``last_*`` and in
+        ``engine.last_solve_info``."""
+        b = np.asarray(b)
+        n = self.engine.n
+        if b.shape != (n,):
+            raise ValueError(f"plan expects an RHS of shape {(n,)}, got "
+                             f"{b.shape}")
+        x0 = np.zeros(b.shape) if x0 is None else np.asarray(x0)
+        eng = self.engine
+        res = self._fn(eng.to_device_vec(b), eng.to_device_vec(x0))
+        self.executions += 1
+        self.last_iters = res.iters
+        self.last_status = res.status
+        self.last_bad_iter = res.bad_iter
+        info = dict(self.info)
+        info["iters"] = self.last_iters
+        info["status"] = self.last_status
+        info["status_names"] = self.last_status_names
+        info["bad_iter"] = self.last_bad_iter
+        eng.last_solve_info = info
+        return eng.from_device_vec(res.x), res.res_norms
+
+
+class PlanCache:
+    """Spec-keyed store of lowered plans (the engine's ``plans``): equal
+    canonical specs hit, anything else misses and builds exactly once."""
+
+    def __init__(self):
+        self._plans: dict = {}
+        self.hits = 0
+        self.misses = 0
+
+    def get(self, spec: SolveSpec, build: Callable):
+        plan = self._plans.get(spec)
+        if plan is None:
+            self.misses += 1
+            plan = self._plans[spec] = build(spec)
+        else:
+            self.hits += 1
+        return plan
+
+    def __len__(self) -> int:
+        return len(self._plans)

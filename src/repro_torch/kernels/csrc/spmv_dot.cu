@@ -1,0 +1,102 @@
+// ell_spmv_pfold_dot: p' = z + beta*p, y = A p', pap = dot(p', y).
+//
+// Replaces the Pallas TPU kernel src/repro/kernels/spmv_dot.py:217
+// (ell_spmv_pfold_dot), the matrix half of every PCG iteration.
+//
+// What bounds it on the H100: memory.  Per call it streams the padded ELL
+// matrix once (12 bytes per slot in float64), reads z and p and writes p'
+// and y (32 bytes per row in float64); three flops per slot plus the fold.
+// At the main-path shape (1,048,576 x 8, float64) that is 134 MB: about
+// 40 us at 3.35 TB/s.
+//
+// Design.  The Pallas body writes all of p' on grid step (0, 0) into a
+// resident output block that later steps gather from
+// (spmv_dot.py:193-197).  Hopper blocks run in no order, so no block can
+// rely on another having written p' first.  This kernel therefore
+// recomputes z[c] + beta*p[c] at each gather, and each row's owner writes
+// p'[r] once.  The alternative, a separate fold pass, would write p' and
+// read it back (16 bytes per row more); the recompute costs one extra
+// gather per slot, which hits L2 for the banded and stencil matrices the
+// solver runs.  The fold rounds product then sum (repro::fold), so the
+// gathered and the stored p' are the same bits.
+//
+// pap: each block sums p'[r] * y[r] over its rows in a fixed order into
+// partials[block]; a second one-block launch sums the partials in index
+// order.  No float atomics: a run repeats bit for bit.  Row groups of G
+// lanes read the matrix coalesced, as in ell_spmv.cu.
+
+#include "common.cuh"
+
+namespace {
+
+template <typename T>
+__global__ void __launch_bounds__(repro::kThreads)
+pfold_kernel(const int32_t* __restrict__ cols, const T* __restrict__ vals,
+             const T* __restrict__ z, const T* __restrict__ p,
+             const T* __restrict__ beta_ptr, T* __restrict__ pn,
+             T* __restrict__ y, T* __restrict__ partials, int64_t rows, int w,
+             int group) {
+  __shared__ T sh[32];
+  const T beta = *beta_ptr;
+  const int64_t t = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  const int64_t r = t / group;
+  const int g = (int)(t % group);
+  T acc = T(0);
+  if (r < rows) {
+    const int64_t base = r * w;
+    for (int j = g; j < w; j += group) {
+      const int c = cols[base + j];
+      acc = repro::fma_rn(vals[base + j],
+                          repro::fold(__ldg(z + c), beta, __ldg(p + c)), acc);
+    }
+  }
+  acc = repro::group_sum(acc, group);
+  T contrib = T(0);
+  if (r < rows && g == 0) {
+    const T pr = repro::fold(z[r], beta, p[r]);
+    pn[r] = pr;
+    y[r] = acc;
+    contrib = repro::mul_rn(pr, acc);
+  }
+  contrib = repro::block_sum(contrib, sh);
+  if (threadIdx.x == 0) partials[blockIdx.x] = contrib;
+}
+
+template <typename T>
+int launch(const void* cols, const void* vals, const void* z, const void* p,
+           const void* beta, void* pn, void* y, void* partials, void* pap,
+           int64_t rows, int32_t w, int32_t group, int64_t nblocks,
+           void* stream) {
+  if (rows <= 0 || w <= 0 || group < 1 || group > 32 || (group & (group - 1)))
+    return (int)cudaErrorInvalidValue;
+  const int64_t rows_per_block = repro::kThreads / group;
+  const int64_t blocks = (rows + rows_per_block - 1) / rows_per_block;
+  if (blocks != nblocks) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  pfold_kernel<T><<<(unsigned)blocks, repro::kThreads, 0, s>>>(
+      (const int32_t*)cols, (const T*)vals, (const T*)z, (const T*)p,
+      (const T*)beta, (T*)pn, (T*)y, (T*)partials, rows, w, group);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  repro::sum_partials_kernel<T><<<1, repro::kFinalThreads, 0, s>>>(
+      (const T*)partials, blocks, (T*)pap);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" int repro_ell_spmv_pfold_dot_f32(
+    const void* cols, const void* vals, const void* z, const void* p,
+    const void* beta, void* pn, void* y, void* partials, void* pap,
+    int64_t rows, int32_t w, int32_t group, int64_t nblocks, void* stream) {
+  return launch<float>(cols, vals, z, p, beta, pn, y, partials, pap, rows, w,
+                       group, nblocks, stream);
+}
+
+extern "C" int repro_ell_spmv_pfold_dot_f64(
+    const void* cols, const void* vals, const void* z, const void* p,
+    const void* beta, void* pn, void* y, void* partials, void* pap,
+    int64_t rows, int32_t w, int32_t group, int64_t nblocks, void* stream) {
+  return launch<double>(cols, vals, z, p, beta, pn, y, partials, pap, rows, w,
+                        group, nblocks, stream);
+}

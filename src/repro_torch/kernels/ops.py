@@ -1,0 +1,61 @@
+"""Device dispatch for the kernels on the first slice's path.
+
+A tensor on a CUDA device launches the hand-written kernel (or the wrapper
+raises: there is no fallback on the card).  A tensor on the CPU takes the
+kernel's plain PyTorch version.  That is the whole rule: no mode switch and
+no environment variable, so on the card nothing can route around a kernel.
+
+Each kernel wrapper counts its launches in a plain integer attribute
+(``ell_spmv.ell_spmv.launches``, ...); :func:`launch_counts` reads them and
+:func:`reset_launch_counts` sets them to 0.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from . import ref
+from . import ell_spmv as _ell_spmv
+from . import spmv_dot as _spmv_dot
+from . import vecops as _vecops
+
+__all__ = ["ell_spmv", "ell_spmv_pfold_dot", "cg_update", "KERNELS",
+           "launch_counts", "reset_launch_counts"]
+
+# name -> the wrapper that launches it
+KERNELS = {
+    "ell_spmv": _ell_spmv.ell_spmv,
+    "ell_spmv_pfold_dot": _spmv_dot.ell_spmv_pfold_dot,
+    "cg_update": _vecops.cg_update,
+}
+
+
+def ell_spmv(cols: torch.Tensor, vals: torch.Tensor, x: torch.Tensor):
+    """y = A @ x over padded ELL."""
+    if x.is_cuda:
+        return _ell_spmv.ell_spmv(cols, vals, x)
+    return ref.ell_spmv_ref(cols, vals, x)
+
+
+def ell_spmv_pfold_dot(cols, vals, z, p, beta):
+    """(p', A @ p', dot(p', A @ p')) with p' = z + beta*p."""
+    if z.is_cuda:
+        return _spmv_dot.ell_spmv_pfold_dot(cols, vals, z, p, beta)
+    return ref.ell_spmv_pfold_dot_ref(cols, vals, z, p, beta)
+
+
+def cg_update(alpha, x, r, p, ap, dinv=None):
+    """One-pass CG update -> (x', r', z, rr, rz)."""
+    if x.is_cuda:
+        return _vecops.cg_update(alpha, x, r, p, ap, dinv)
+    return ref.cg_update_ref(alpha, x, r, p, ap, dinv)
+
+
+def launch_counts() -> dict:
+    """Kernel launches per wrapper since the last reset."""
+    return {name: fn.launches for name, fn in KERNELS.items()}
+
+
+def reset_launch_counts() -> None:
+    for fn in KERNELS.values():
+        fn.launches = 0

@@ -1,0 +1,143 @@
+"""The port's plain kernel versions held against the JAX package.
+
+For each kernel on the first slice's path (``ell_spmv``,
+``ell_spmv_pfold_dot``, ``cg_update``) the port's plain PyTorch version --
+what ``repro_torch.kernels.ops`` runs for CPU tensors -- must match both
+``repro.kernels.ref`` and the Pallas kernel run in interpret mode, on the
+same float64 inputs made with numpy.  Tolerance rtol = atol = 1e-12: only
+the summation order differs.
+
+The CUDA kernels themselves run only on a card; ``chip_smoke.py`` holds
+them against these plain versions there.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import ref as jref
+from repro.kernels.ell_spmv import ell_spmv as pallas_ell_spmv
+from repro.kernels.spmv_dot import ell_spmv_pfold_dot as pallas_pfold_dot
+from repro.kernels.vecops import cg_update as pallas_cg_update
+from repro_torch.kernels import ell_spmv, ops, spmv_dot, vecops
+
+TOL = dict(rtol=1e-12, atol=1e-12)
+
+# (true rows n, ELL width, Pallas row tile dividing the padded rows)
+ELL_CASES = [(1003, 5, 16), (64, 8, 64), (4099, 3, 216)]
+
+
+def _ell(n, width, seed):
+    """Random square padded ELL (rows padded to 8) as numpy: padded rows and
+    a share of the slots hold col 0 / val 0.0, like the engine's packing."""
+    rng = np.random.default_rng(seed)
+    rows_p = -(-n // 8) * 8
+    cols = rng.integers(0, n, (rows_p, width)).astype(np.int32)
+    vals = rng.standard_normal((rows_p, width))
+    pad = rng.random((rows_p, width)) < 0.2
+    pad[n:] = True
+    cols[pad], vals[pad] = 0, 0.0
+    return rng, cols, vals
+
+
+def _t(a):
+    return torch.from_numpy(np.ascontiguousarray(a))
+
+
+def _close(got, *wants):
+    for w in wants:
+        np.testing.assert_allclose(np.asarray(got), np.asarray(w), **TOL)
+
+
+@pytest.mark.parametrize("n,width,tm", ELL_CASES)
+def test_ell_spmv_plain_matches_jax(n, width, tm):
+    rng, cols, vals = _ell(n, width, seed=n)
+    x = rng.standard_normal(cols.shape[0])
+    got = ops.ell_spmv(_t(cols), _t(vals), _t(x)).numpy()
+    _close(got,
+           jref.ell_spmv_ref(jnp.asarray(cols), jnp.asarray(vals), jnp.asarray(x)),
+           pallas_ell_spmv(jnp.asarray(cols), jnp.asarray(vals), jnp.asarray(x),
+                           tm=tm, tw=width, interpret=True))
+
+
+@pytest.mark.parametrize("beta", [0.0, 0.37])
+@pytest.mark.parametrize("n,width,tm", ELL_CASES)
+def test_ell_spmv_pfold_dot_plain_matches_jax(n, width, tm, beta):
+    rng, cols, vals = _ell(n, width, seed=n + 1)
+    z, p = rng.standard_normal((2, cols.shape[0]))
+    got = ops.ell_spmv_pfold_dot(_t(cols), _t(vals), _t(z), _t(p),
+                                 torch.tensor(beta, dtype=torch.float64))
+    jargs = (jnp.asarray(cols), jnp.asarray(vals), jnp.asarray(z), jnp.asarray(p))
+    want_ref = jref.ell_spmv_pfold_dot_ref(*jargs, jnp.float64(beta))
+    want_pl = pallas_pfold_dot(*jargs, beta, tm=tm, tw=width, interpret=True)
+    for g, wr, wp in zip(got, want_ref, want_pl):
+        _close(g.numpy(), wr, wp)
+
+
+@pytest.mark.parametrize("use_dinv", [True, False])
+@pytest.mark.parametrize("n,tn", [(1000, 128), (4099, 512), (256, 256)])
+def test_cg_update_plain_matches_jax(n, tn, use_dinv):
+    """Ragged n with a masked tail tile (n % tn != 0), an exact fit, and
+    both bodies (with the Jacobi diagonal, and identity with dinv=None)."""
+    rng = np.random.default_rng(n + tn)
+    x, r, p, ap = rng.standard_normal((4, n))
+    dinv = rng.random(n) + 0.5 if use_dinv else None
+    alpha = 0.61
+    got = ops.cg_update(torch.tensor(alpha, dtype=torch.float64), _t(x), _t(r),
+                        _t(p), _t(ap), None if dinv is None else _t(dinv))
+    jargs = [jnp.asarray(v) for v in (x, r, p, ap)]
+    jd = None if dinv is None else jnp.asarray(dinv)
+    want_ref = jref.cg_update_ref(jnp.float64(alpha), *jargs, jd)
+    want_pl = pallas_cg_update(alpha, *jargs, jd, tn=tn, interpret=True)
+    for g, wr, wp in zip(got, want_ref, want_pl):
+        _close(g.numpy(), wr, wp)
+
+
+def test_plain_versions_sit_beside_the_kernels():
+    """Each kernel module carries its plain version, and the CPU dispatch
+    runs exactly that function."""
+    assert ell_spmv.ell_spmv_plain is ops.ref.ell_spmv_ref
+    assert spmv_dot.ell_spmv_pfold_dot_plain is ops.ref.ell_spmv_pfold_dot_ref
+    assert vecops.cg_update_plain is ops.ref.cg_update_ref
+
+
+def test_cpu_tensors_never_count_as_launches():
+    _, cols, vals = _ell(64, 8, seed=3)
+    v = torch.ones(64, dtype=torch.float64)
+    before = ops.launch_counts()
+    ops.ell_spmv(_t(cols), _t(vals), v)
+    ops.ell_spmv_pfold_dot(_t(cols), _t(vals), v, v, 0.5)
+    ops.cg_update(0.5, v, v, v, v, v)
+    assert ops.launch_counts() == before
+    assert set(before) == {"ell_spmv", "ell_spmv_pfold_dot", "cg_update"}
+
+
+def test_kernel_wrappers_refuse_cpu_tensors():
+    """A kernel wrapper launches on a CUDA device or raises: it never runs
+    the plain version itself."""
+    _, cols, vals = _ell(64, 8, seed=4)
+    c, v = _t(cols), _t(vals)
+    x = torch.ones(64, dtype=torch.float64)
+    before = ops.launch_counts()
+    with pytest.raises(ValueError, match="CUDA"):
+        ell_spmv.ell_spmv(c, v, x)
+    with pytest.raises(ValueError, match="CUDA"):
+        spmv_dot.ell_spmv_pfold_dot(c, v, x, x, 0.5)
+    with pytest.raises(ValueError, match="CUDA"):
+        vecops.cg_update(0.5, x, x, x, x)
+    assert ops.launch_counts() == before
+
+
+def test_kernel_wrappers_validate_shapes():
+    _, cols, vals = _ell(64, 8, seed=5)
+    x = torch.ones(63, dtype=torch.float64)
+    with pytest.raises(ValueError, match="square padded"):
+        spmv_dot.ell_spmv_pfold_dot(_t(cols), _t(vals), x, x, 0.5)
+    with pytest.raises(ValueError, match="cg_update"):
+        vecops.cg_update(0.5, x, x, x, torch.ones(64, dtype=torch.float64))
+
+
+def test_group_size_covers_the_row():
+    assert [ell_spmv.group_size(w) for w in (1, 2, 3, 5, 8, 9, 32, 100)] == \
+        [1, 2, 4, 8, 8, 16, 32, 32]
