@@ -11,12 +11,19 @@ prints no result line):
                card's name and power limit.
 2. kernels  -- hold each kernel against its plain PyTorch version on the
                card, in float64 and float32, at ragged sizes and at the
-               main-path shape (1,048,576 x 8).  Tolerance, because only the
-               summation order differs: max |kernel - plain| <= rtol *
-               max |plain| with rtol 1e-12 (float64) and 1e-5 (float32).
+               main-path shape (1,048,576 x 8); the batched kernels at
+               k = 1, 3 and 8 (k = 8 at the main shape).  Tolerance,
+               because only the summation order differs: max |kernel -
+               plain| <= rtol * max |plain| with rtol 1e-12 (float64) and
+               1e-5 (float32); p', x', r' and z bitwise equal.  Lane
+               independence: lane j of a k = 8 batched call equals the
+               k = 1 call on lane j's inputs bit for bit, every output.
 3. parity   -- lap2d_32 and banded_1k, float64 Jacobi pcg_tol at tol 1e-8,
                against the JAX package's iteration counts (94 and 9); the
                card may sum in another order, so +-1 iteration passes.
+               Then the same batched at k = 4 against the JAX package's
+               per-lane counts (PARITY_BATCHED), +-1 a lane, every lane
+               converged.
 4. main     -- the full-size main path through the normal entry points:
                laplacian_2d(1024) (n = 1,048,576), ``AzulEngine`` ->
                ``plan(SolveSpec(method="pcg_tol", tol=1e-8,
@@ -32,11 +39,27 @@ prints no result line):
                the iterations.  Where the guarded solve stops on the stall
                guard (no new best residual for STALL_WINDOW iterations),
                the unguarded solve must reach the tolerance.
-5. times    -- each kernel at the main-path shape: CUDA-event time (median
-               of five windows), the plain version's time, the least time
-               the card could take (bytes / 3.35 TB/s, or operations /
-               peak rate), and one PyTorch CSR matvec as the library
-               yardstick where there is one.
+               Then the batched main path: k = 8 right-hand sides
+               ``B = X_true A^T``, ``X_true = default_rng(0)
+               .standard_normal((8, n))`` (so lane 0 solves the b above),
+               through ``plan(SolveSpec(method="pcg_tol", batch=8, ...))``,
+               launch counts zeroed just before and read just after: the
+               two batched per-iteration kernels once per loop step,
+               ell_spmm at least once, no 1-D kernel.  Every lane's true
+               relative residual <= 1e-7; lanes 0 and 5 solved again as
+               k = 1 plans end with the same count, status and bad_iter
+               and a bitwise-equal trace; lane 0 ends as the 1-D solve
+               did, within 1% of its iterations; the reference substrate
+               gives the same statuses within 1%.
+5. times    -- each kernel at the main-path shape (k = 8 for the batched
+               ones): CUDA-event time of a CUDA-graph replay (median of
+               five windows), the time when launched from Python, the
+               plain version's time, the least time the card could take
+               (bytes / 3.35 TB/s, or operations / peak rate), and one
+               PyTorch CSR product as the library yardstick where there
+               is one.  Then fixed-iteration pcg (100 iterations) at
+               lap2d_1024 for k = 1, 4, 8, 16: us per iteration and per
+               right-hand side per iteration.
 
 The last three lines are the kernels JSON, the card's
 ``nvidia-smi --query-gpu=name,power.limit`` line, and the result JSON.
@@ -57,6 +80,13 @@ HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
 PEAK_FLOPS = {"float64": 34e12, "float32": 67e12}   # non-tensor-core peaks
 RTOL = {"float64": 1e-12, "float32": 1e-5}
 PARITY = {"lap2d_32": 94, "banded_1k": 9}           # JAX package, CPU f64
+# per-lane counts of the JAX package (CPU, f64, Jacobi pcg_tol, tol 1e-8)
+# for B = default_rng(0).standard_normal((4, n)), one fresh rng per matrix
+PARITY_BATCHED = {"lap2d_32": (102, 98, 102, 102), "banded_1k": (9, 9, 9, 9)}
+MAIN_BATCH = 8                     # launch/serve.py --coalesce default
+BATCH_LANES_AGAIN = (0, 5)         # lanes re-solved as k = 1 plans
+SWEEP_BATCHES = (1, 4, 8, 16)
+SWEEP_ITERS = 100
 MAIN_GRID = 1024                   # laplacian_2d(1024): n = 1,048,576
 MAIN_TOL = 1e-8
 MAIN_MAX_ITERS = 10000
@@ -69,7 +99,14 @@ SOURCES = {
                            "src/repro/kernels/spmv_dot.py:217"),
     "cg_update": ("src/repro_torch/kernels/csrc/vecops.cu",
                   "src/repro/kernels/vecops.py:157"),
+    "ell_spmm": ("src/repro_torch/kernels/csrc/ell_spmv.cu",
+                 "src/repro/kernels/ell_spmv.py:106"),
+    "ell_spmm_pfold_dot": ("src/repro_torch/kernels/csrc/spmv_dot.cu",
+                           "src/repro/kernels/spmv_dot.py:296"),
+    "cg_update_batched": ("src/repro_torch/kernels/csrc/vecops.cu",
+                          "src/repro/kernels/vecops.py:124"),
 }
+SOURCES_BATCHED = ("ell_spmm", "ell_spmm_pfold_dot", "cg_update_batched")
 
 
 def say(*parts) -> None:
@@ -212,6 +249,66 @@ def check_kernels(cols, vals, dtype: str, gen, label: str) -> dict:
     return errs
 
 
+def check_batched_kernels(cols, vals, dtype: str, gen, label: str,
+                          ks=(1, 3, 8)) -> dict:
+    """Each batched kernel against its plain version at each k, then lane
+    independence at the widest k: lane j equals the k = 1 call on lane j's
+    inputs bit for bit, every output.  Returns the max abs error per
+    kernel."""
+    import torch
+    from repro_torch.kernels import ell_spmv, spmv_dot, vecops
+
+    rows = cols.shape[0]
+    td, dev = vals.dtype, vals.device
+    lanes = lambda k: torch.randn(k, rows, generator=gen, device=dev, dtype=td)
+    dinv = torch.randn(rows, generator=gen, device=dev, dtype=td).abs() + 0.5
+    errs = {"ell_spmm": 0.0, "ell_spmm_pfold_dot": 0.0, "cg_update_batched": 0.0}
+    for k in ks:
+        x, z, p, r, ap = (lanes(k) for _ in range(5))
+        beta = torch.linspace(0.0, 0.9, k, dtype=td, device=dev)   # holds a 0
+        alpha = torch.linspace(0.1, 0.9, k, dtype=td, device=dev).reshape(k, 1)
+        tag = f"{label} k={k}"
+        errs["ell_spmm"] = max(errs["ell_spmm"], compare(
+            f"ell_spmm {tag}", (ell_spmv.ell_spmm(cols, vals, x),),
+            (ell_spmv.ell_spmm_plain(cols, vals, x),), dtype))
+        got = spmv_dot.ell_spmm_pfold_dot(cols, vals, z, p, beta)
+        want = spmv_dot.ell_spmm_pfold_dot_plain(cols, vals, z, p, beta)
+        errs["ell_spmm_pfold_dot"] = max(errs["ell_spmm_pfold_dot"], compare(
+            f"ell_spmm_pfold_dot {tag}", got, want, dtype))
+        if not torch.equal(got[0], want[0]):
+            raise AssertionError(f"ell_spmm_pfold_dot {tag}: P' differs from "
+                                 "Z + beta*P")
+        for dv in (dinv, None):
+            got = vecops.cg_update_batched(alpha, x, r, p, ap, dv)
+            want = vecops.cg_update_plain(alpha, x, r, p, ap, dv)
+            errs["cg_update_batched"] = max(errs["cg_update_batched"], compare(
+                f"cg_update_batched {tag} dinv={dv is not None}", got, want,
+                dtype))
+            for i in range(3):
+                if not torch.equal(got[i], want[i]):
+                    raise AssertionError(f"cg_update_batched {tag}: output {i} "
+                                         "is not bitwise equal to the plain "
+                                         "version")
+    k = ks[-1]              # lane independence on the last, widest inputs
+
+    def outputs(sl):
+        return (ell_spmv.ell_spmm(cols, vals, x[sl]),
+                *spmv_dot.ell_spmm_pfold_dot(cols, vals, z[sl], p[sl], beta[sl]),
+                *vecops.cg_update_batched(alpha[sl], x[sl], r[sl], p[sl],
+                                          ap[sl], dinv),
+                *vecops.cg_update_batched(alpha[sl], x[sl], r[sl], p[sl],
+                                          ap[sl]))
+
+    wide = outputs(slice(0, k))
+    for j in range(k):
+        sl = slice(j, j + 1)
+        for i, (w, one) in enumerate(zip(wide, outputs(sl))):
+            if not torch.equal(w[sl], one):
+                raise AssertionError(f"lane independence {label}: lane {j} of "
+                                     f"k={k}, output {i}, differs from k=1")
+    return errs
+
+
 def main() -> int:
     import torch
 
@@ -257,18 +354,24 @@ def main() -> int:
                 cols, vals = random_ell(rows, width, k, td, gen)
                 errs = check_kernels(cols, vals, dname, gen,
                                      f"{dname} {rows}x{width}")
+                errs |= check_batched_kernels(cols, vals, dname, gen,
+                                              f"{dname} {rows}x{width}")
                 say(f"kernels {dname} {rows}x{width}: max abs err "
                     + json.dumps({k2: float(v) for k2, v in errs.items()}))
             eng = AzulEngine(m_main, dtype=np_dt)
             errs = check_kernels(eng.ell.cols, eng.ell.vals, dname, gen,
                                  f"{dname} main")
+            errs |= check_batched_kernels(eng.ell.cols, eng.ell.vals, dname,
+                                          gen, f"{dname} main",
+                                          ks=(MAIN_BATCH,))
             say(f"kernels {dname} main {tuple(eng.ell.cols.shape)}: max abs "
                 "err " + json.dumps({k2: float(v) for k2, v in errs.items()}))
             if dname == "float64":
                 main_errs = errs
             del eng
-        say("kernels ok (rtol f64 1e-12, f32 1e-5: summation order); "
-            "launches so far " + json.dumps(ops.launch_counts()))
+        say("kernels ok (rtol f64 1e-12, f32 1e-5: summation order; batched "
+            "lanes independent of k, bitwise); launches so far "
+            + json.dumps(ops.launch_counts()))
     except Exception:
         traceback.print_exc()
         failed.append("kernels")
@@ -290,6 +393,20 @@ def main() -> int:
             if abs(got - want) > 1 or plan.last_status_names != "converged":
                 raise AssertionError(f"parity {name}: {got} iterations, "
                                      f"status {plan.last_status_names}")
+        for name, want in PARITY_BATCHED.items():
+            m = mats[name]
+            b = np.random.default_rng(0).standard_normal((len(want), m.shape[0]))
+            eng = AzulEngine(m, dtype=np.float64)
+            plan = eng.plan(SolveSpec(method="pcg_tol", tol=1e-8, max_iters=400,
+                                      batch=len(want)))
+            plan(b)
+            got = [int(i) for i in plan.last_iters]
+            say(f"parity batched {name} k={len(want)}: {got} iterations (JAX "
+                f"package: {list(want)}), status {plan.last_status_names}")
+            if (any(abs(g - w) > 1 for g, w in zip(got, want))
+                    or plan.last_status_names != ["converged"] * len(want)):
+                raise AssertionError(f"parity batched {name}: {got}, "
+                                     f"{plan.last_status_names}")
     except Exception:
         traceback.print_exc()
         failed.append("parity")
@@ -364,6 +481,85 @@ def main() -> int:
         traceback.print_exc()
         failed.append("main")
 
+    # -- 4b. the full-size batched main path --------------------------------
+    launches_b, us_per_iter_b = {}, None
+    try:
+        k = MAIN_BATCH
+        x_lanes = np.random.default_rng(0).standard_normal((k, m_main.shape[0]))
+        B = (a @ x_lanes.T).T                # lane j: b_j = A x_lanes[j]
+        say(f"main batched: k={k}; lane 0 is the 1-D solve's x_true: "
+            f"{np.array_equal(x_lanes[0], x_true)}, its b: "
+            f"{np.array_equal(B[0], b)}")
+
+        def solve_batched(label: str, lanes=None, **knobs):
+            """One batched plan(B) on the main path (the rows ``lanes`` of B,
+            or all); launch counts zeroed just before, read just after."""
+            Bk = B if lanes is None else B[list(lanes)]
+            plan = eng.plan(SolveSpec(method="pcg_tol", tol=MAIN_TOL,
+                                      max_iters=MAIN_MAX_ITERS,
+                                      batch=Bk.shape[0], **knobs))
+            torch.cuda.synchronize()
+            ops.reset_launch_counts()
+            t0 = now()
+            X, norms = plan(Bk)
+            torch.cuda.synchronize()
+            wall = now() - t0
+            iters = np.asarray(plan.last_iters)
+            steps = int(iters.max())
+            res = (np.linalg.norm(Bk - (a @ X.T).T, axis=1)
+                   / np.linalg.norm(Bk, axis=1))
+            out = {
+                "substrate": plan.info["substrate"], "k": Bk.shape[0],
+                "iters_run": iters.tolist(), "loop_steps": steps,
+                "status": plan.last_status_names,
+                "bad_iter": np.asarray(plan.last_bad_iter).tolist(),
+                "true_rel_residual": res.tolist(),
+                "wall_s": wall, "us_per_iter": wall / max(steps, 1) * 1e6,
+                "us_per_iter_per_rhs": wall / max(steps, 1) * 1e6 / Bk.shape[0],
+                "launches": ops.launch_counts(),
+            }
+            say(f"main batched {label}: " + json.dumps(out))
+            if not np.all(res <= MAIN_MAX_TRUE_RESIDUAL):
+                raise AssertionError(f"main batched {label}: true relative "
+                                     f"residuals {res}")
+            return out, iters, norms
+
+        fb, iters_b, norms_b = solve_batched("fused")
+        launches_b, steps = fb["launches"], fb["loop_steps"]
+        us_per_iter_b = fb["us_per_iter"]
+        one_d = ("ell_spmv", "ell_spmv_pfold_dot", "cg_update")
+        if (launches_b["ell_spmm_pfold_dot"] != steps
+                or launches_b["cg_update_batched"] != steps
+                or launches_b["ell_spmm"] < 1
+                or any(launches_b[nm] for nm in one_d)):
+            raise AssertionError(f"batched launch counts {launches_b} for "
+                                 f"{steps} loop steps")
+        for j in BATCH_LANES_AGAIN:
+            solo, it1, norms1 = solve_batched(f"lane {j} alone", lanes=(j,))
+            it = int(iters_b[j])
+            if (it1[0] != it or solo["status"][0] != fb["status"][j]
+                    or solo["bad_iter"][0] != fb["bad_iter"][j]
+                    or not np.array_equal(norms1[: it + 1, 0],
+                                          norms_b[: it + 1, j])):
+                raise AssertionError(f"lane {j}: k={k} gives {it} iterations, "
+                                     f"{fb['status'][j]}; alone {solo}")
+        if (fb["status"][0] != fused["status"]
+                or abs(int(iters_b[0]) - iters) > 0.01 * iters):
+            raise AssertionError(f"lane 0: {iters_b[0]} iterations, "
+                                 f"{fb['status'][0]}; 1-D solve {iters}, "
+                                 f"{fused['status']}")
+        ref_b, iters_ref, _ = solve_batched("reference", fused=False)
+        if (ref_b["status"] != fb["status"]
+                or np.any(np.abs(iters_ref - iters_b) > 0.01 * iters_b)
+                or any(ref_b["launches"].values())):
+            raise AssertionError(f"batched reference substrate: {ref_b}")
+        say(f"main batched ok: {us_per_iter_b:.1f} us per iteration, "
+            f"{us_per_iter_b / k:.1f} us per RHS per iteration (1-D: "
+            f"{us_per_iter:.1f})")
+    except Exception:
+        traceback.print_exc()
+        failed.append("main batched")
+
     # -- 5. times at the main-path shape ------------------------------------
     rows_out = []
     try:
@@ -371,13 +567,18 @@ def main() -> int:
         cols, vals = eng.ell.cols, eng.ell.vals
         rows, w = cols.shape
         e = vals.element_size()
+        k = MAIN_BATCH
         gen = torch.Generator(device="cuda").manual_seed(1)
-        vec = lambda: torch.randn(rows, generator=gen, device="cuda",
-                                  dtype=torch.float64)
+        vec = lambda *lead: torch.randn(*lead, rows, generator=gen,
+                                        device="cuda", dtype=torch.float64)
         x, z, p, r, ap = vec(), vec(), vec(), vec(), vec()
+        X, Z, P, R, AP = (vec(k) for _ in range(5))
         dinv = eng._dinv_pad
         beta = torch.tensor(0.37, dtype=torch.float64, device="cuda")
         alpha = torch.tensor(0.61, dtype=torch.float64, device="cuda")
+        betas = torch.linspace(0.1, 0.9, k, dtype=torch.float64, device="cuda")
+        alphas = torch.linspace(0.2, 0.8, k, dtype=torch.float64,
+                                device="cuda").reshape(k, 1)
         a = sp.csr_matrix((m_main.data, m_main.indices, m_main.indptr),
                           shape=m_main.shape)
         a_lib = torch.sparse_csr_tensor(
@@ -385,55 +586,112 @@ def main() -> int:
             torch.as_tensor(a.indices, dtype=torch.int64),
             torch.as_tensor(a.data, dtype=torch.float64),
             size=a.shape).to("cuda")
+        X_nk = X[:, : a.shape[0]].T.contiguous()      # the (n, k) dense operand
         mat_bytes = rows * w * (4 + e)
+        # name -> (kernel, plain, bytes, flops, library call or None)
         work = {
             "ell_spmv": (lambda: ell_spmv.ell_spmv(cols, vals, x),
                          lambda: ell_spmv.ell_spmv_plain(cols, vals, x),
-                         mat_bytes + 2 * rows * e, 2 * rows * w, True),
+                         mat_bytes + 2 * rows * e, 2 * rows * w, "csr @ x"),
             "ell_spmv_pfold_dot": (
                 lambda: spmv_dot.ell_spmv_pfold_dot(cols, vals, z, p, beta),
                 lambda: spmv_dot.ell_spmv_pfold_dot_plain(cols, vals, z, p, beta),
                 mat_bytes + 4 * rows * e + 2 * e, 2 * rows * w + 4 * rows,
-                True),
+                "csr @ x"),
             "cg_update": (
                 lambda: vecops.cg_update(alpha, x, r, p, ap, dinv),
                 lambda: vecops.cg_update_plain(alpha, x, r, p, ap, dinv),
-                8 * rows * e + 3 * e, 9 * rows, False),
+                8 * rows * e + 3 * e, 9 * rows, None),
+            "ell_spmm": (
+                lambda: ell_spmv.ell_spmm(cols, vals, X),
+                lambda: ell_spmv.ell_spmm_plain(cols, vals, X),
+                mat_bytes + 2 * k * rows * e, 2 * rows * w * k, "csr @ X"),
+            "ell_spmm_pfold_dot": (
+                lambda: spmv_dot.ell_spmm_pfold_dot(cols, vals, Z, P, betas),
+                lambda: spmv_dot.ell_spmm_pfold_dot_plain(cols, vals, Z, P, betas),
+                mat_bytes + 4 * k * rows * e + 2 * k * e,
+                2 * rows * w * k + 4 * k * rows, "csr @ X"),
+            "cg_update_batched": (
+                lambda: vecops.cg_update_batched(alphas, X, R, P, AP, dinv),
+                lambda: vecops.cg_update_plain(alphas, X, R, P, AP, dinv),
+                (7 * k + 1) * rows * e + 3 * k * e, 9 * k * rows, None),
         }
         times = {name: (device_ms(kern), eager_ms(kern), device_ms(plain))
                  for name, (kern, plain, *_) in work.items()}
-        # the library yardstick (never called by the port): one CSR matvec,
-        # timed last because a capture it refuses may leave the stream
-        # unusable for further captures
-        try:
-            lib_ms = device_ms(lambda: a_lib @ x)
-        except RuntimeError as exc:
-            say(f"library CSR matvec not capturable ({exc}); timed eagerly")
-            torch.cuda.synchronize()
-            lib_ms = eager_ms(lambda: a_lib @ x)
-        for name, (_, _, nbytes, flops, has_lib) in work.items():
+        # the library yardsticks (never called by the port): one CSR matvec
+        # and one CSR @ (n, k) dense product, timed last because a capture
+        # they refuse may leave the stream unusable for further captures
+        lib = {}
+        for tag, fn in (("csr @ x", lambda: a_lib @ x[: a.shape[0]]),
+                        ("csr @ X", lambda: a_lib @ X_nk)):
+            try:
+                lib[tag] = device_ms(fn)
+            except RuntimeError as exc:
+                say(f"library {tag} not capturable ({exc}); timed eagerly")
+                torch.cuda.synchronize()
+                lib[tag] = eager_ms(fn)
+        for name, (_, _, nbytes, flops, lib_tag) in work.items():
             ms, ms_eager, plain_ms = times[name]
-            lib = lib_ms if has_lib else None
             t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
             t_ops = flops / PEAK_FLOPS["float64"] * 1e3
             src, replaces = SOURCES[name]
+            counts = launches_b if name in SOURCES_BATCHED else launches
             rows_out.append({
                 "name": name, "route": "cuda", "source": src,
-                "replaces": replaces, "launches": launches.get(name, 0),
+                "replaces": replaces, "launches": counts.get(name, 0),
                 "max_abs_err": main_errs.get(name),
                 "ms": ms, "plain_ms": plain_ms,
                 "bound_ms": max(t_bytes, t_ops),
                 "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-                "library_ms": lib,
+                "library_ms": lib.get(lib_tag),
             })
-            say(f"time {name}: {ms:.4f} ms on the card, {ms_eager:.4f} ms "
-                f"launched from Python (plain {plain_ms:.4f} ms, bound "
-                f"{max(t_bytes, t_ops):.4f} ms, library {lib})")
-        per_iter = 1e3 * (times["ell_spmv_pfold_dot"][0] + times["cg_update"][0])
-        say(f"per iteration: {per_iter:.1f} us in the two kernels on the card "
-            f"against {us_per_iter:.1f} us of wall time in the main solve: "
-            f"{100 * (1 - per_iter / us_per_iter):.0f}% of the wall time is "
-            "outside them (host loop, scalar ops, the per-iteration sync)")
+            say(f"time {name}{f' k={k}' if name in SOURCES_BATCHED else ''}: "
+                f"{ms:.4f} ms on the card, {ms_eager:.4f} ms launched from "
+                f"Python (plain {plain_ms:.4f} ms, bound "
+                f"{max(t_bytes, t_ops):.4f} ms, library "
+                f"{lib_tag and lib[lib_tag]})")
+        for label, names, wall_us, lanes in (
+                ("1-D", ("ell_spmv_pfold_dot", "cg_update"), us_per_iter, 1),
+                (f"k={k}", ("ell_spmm_pfold_dot", "cg_update_batched"),
+                 us_per_iter_b, k)):
+            dev_us = 1e3 * sum(times[nm][0] for nm in names)
+            say(f"per iteration {label}: {dev_us:.1f} us in the two kernels on "
+                f"the card against {wall_us:.1f} us of wall time in the main "
+                f"solve ({wall_us / lanes:.1f} us per RHS): "
+                f"{100 * (1 - dev_us / wall_us):.0f}% of the wall time is "
+                "outside them (host loop, scalar ops, the per-iteration sync)")
+
+        # fixed-iteration pcg at each batch width: us per iteration, and per
+        # RHS, against the per-iteration kernels' byte bound per RHS.  A
+        # plan call also copies B in and X out; timing SWEEP_ITERS and 0
+        # iterations and taking the difference leaves the iterations alone.
+        B_sweep = np.random.default_rng(1).standard_normal(
+            (max(SWEEP_BATCHES), eng.n))
+
+        def wall(plan, bk) -> float:
+            plan(bk)                             # warm the allocator
+            torch.cuda.synchronize()
+            t0 = now()
+            plan(bk)
+            torch.cuda.synchronize()
+            return now() - t0
+
+        for kk in SWEEP_BATCHES:
+            bk = B_sweep[:kk]
+            plan = eng.plan(SolveSpec(method="pcg", iters=SWEEP_ITERS, batch=kk))
+            run_s = wall(plan, bk)
+            setup_s = wall(eng.plan(SolveSpec(method="pcg", iters=0, batch=kk)), bk)
+            us = (run_s - setup_s) / SWEEP_ITERS * 1e6
+            # one matrix stream; 4k vectors in the p-fold, 7k + 1 in the update
+            bound_us = (mat_bytes + (11 * kk + 1) * rows * e) \
+                / HBM_BYTES_PER_S * 1e6
+            statuses = sorted(set(plan.last_status_names))
+            say(f"sweep pcg k={kk}: {us:.1f} us per iteration, {us / kk:.1f} "
+                f"us per RHS per iteration (bound {bound_us / kk:.1f} us per "
+                f"RHS; {1e3 * run_s:.1f} ms for {SWEEP_ITERS} iterations, "
+                f"{1e3 * setup_s:.1f} ms for 0), status {statuses}")
+            if statuses != ["maxiter"]:
+                raise AssertionError(f"sweep k={kk}: status {statuses}")
     except Exception:
         traceback.print_exc()
         failed.append("times")

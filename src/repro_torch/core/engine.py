@@ -11,11 +11,14 @@ matrix, the engine
   3. lowers ``SolveSpec``s into cached ``SolvePlan``s
      (``engine.plan(spec)(b)``) whose fused substrate runs the hand-written
      kernels: ``ell_spmv`` for the initial residual, then
-     ``ell_spmv_pfold_dot`` and ``cg_update`` once per iteration.
+     ``ell_spmv_pfold_dot`` and ``cg_update`` once per iteration; for a
+     batched plan (``SolveSpec(batch=k)``, ``plan(B)`` with B (k, n))
+     their multi-RHS twins ``ell_spmm``, ``ell_spmm_pfold_dot`` and the
+     batched ``cg_update``.
 
 Not ported yet, and refused with NotImplementedError naming the ROADMAP
 item: distributed meshes, block-IC(0), formats other than padded ELL
-(including an ``format="auto"`` choice of SELL or HYB), batched RHS.
+(including an ``format="auto"`` choice of SELL or HYB).
 """
 
 from __future__ import annotations
@@ -29,7 +32,7 @@ from ..kernels.autotune import choose_format, modeled_format_words
 from .formats import CSR, ELL, ell_arrays_from_csr
 from .plan import PlanCache, SolvePlan, SolveSpec, canonicalize, check_format
 from .solvers import ensure_status
-from .spops import spmv_ell_padded
+from .spops import spmm_ell_padded, spmv_ell_padded
 from .substrate import fused_local_substrate
 
 __all__ = ["AzulEngine"]
@@ -46,6 +49,13 @@ def _host_diag(m: CSR, r0: int, r1: int) -> np.ndarray:
     d = np.zeros(r1 - r0, dtype=np.float64)
     d[rows[sel] - r0] = np.asarray(m.data)[lo:hi][sel]
     return d
+
+
+def _matvec(cols, vals, x: torch.Tensor) -> torch.Tensor:
+    """The plain padded-ELL matvec for (n_pad,) or (k, n_pad) vectors."""
+    if x.dim() == 2:
+        return spmm_ell_padded(cols, vals, x)
+    return spmv_ell_padded(cols, vals, x)
 
 
 class AzulEngine:
@@ -140,24 +150,25 @@ class AzulEngine:
     # -- vector embedding ---------------------------------------------------
 
     def to_device_vec(self, v: np.ndarray) -> torch.Tensor:
-        """Embed a global (n,) vector into the padded (n_pad,) device
-        layout (zeros past n)."""
+        """Embed a global (n,) vector, or a (k, n) batch, into the padded
+        (n_pad,) / (k, n_pad) device layout (zeros past n)."""
         v = np.asarray(v)
         out = np.zeros(v.shape[:-1] + (self.n_pad,), self.dtype)
         out[..., : self.n] = v
         return torch.from_numpy(out).to(self.device)
 
     def from_device_vec(self, v: torch.Tensor) -> np.ndarray:
-        """Extract the global (n,) vector from the padded layout."""
+        """Extract the global (n,) / (k, n) vectors from the padded
+        layout."""
         return v[..., : self.n].cpu().numpy()
 
     # -- public ops ---------------------------------------------------------
 
     def spmv(self, x) -> np.ndarray:
-        """y = A @ x on a global (n,) vector (plain PyTorch matvec)."""
+        """y = A @ x on a global (n,) vector, or a (k, n) batch through the
+        multi-RHS matvec (plain PyTorch, one matrix gather for all k)."""
         xd = self.to_device_vec(np.asarray(x))
-        return self.from_device_vec(
-            spmv_ell_padded(self.ell.cols, self.ell.vals, xd))
+        return self.from_device_vec(_matvec(self.ell.cols, self.ell.vals, xd))
 
     def device_bytes(self) -> int:
         """Device-resident operator footprint: ELL cols/vals and the
@@ -194,7 +205,7 @@ class AzulEngine:
             sub = fused_local_substrate(cols, vals,
                                         dinv=dinv if pdef.uses_dinv else None)
         ctx = registry.SolveContext(
-            matvec=lambda x: spmv_ell_padded(cols, vals, x),
+            matvec=lambda x: _matvec(cols, vals, x),
             psolve=pdef.local_apply(self), substrate=sub,
             iters=spec.iters, tol=spec.tol, max_iters=spec.max_iters,
             guard=spec.guard,

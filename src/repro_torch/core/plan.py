@@ -25,7 +25,7 @@ import numpy as np
 from . import registry
 
 __all__ = ["SolveSpec", "SolvePlan", "PlanCache", "canonicalize",
-           "check_format"]
+           "chunk_spec", "check_format"]
 
 _FORMATS = ("ell", "sell", "hyb", "bcsr", "stencil")
 
@@ -53,7 +53,9 @@ class SolveSpec:
     tol        relative residual target (tolerance methods; None means
                1e-8, forced to None on fixed-iteration methods)
     max_iters  iteration cap for tolerance methods (None -> ``iters``)
-    batch      None for one (n,) RHS; batched RHS wait for their slice
+    batch      None for one (n,) RHS; k for a stacked (k, n) batch that
+               shares the matrix stream (every lane its own alpha/beta,
+               iteration count and status)
     fused      None/'auto' (engine knob) | True | False
     guard      in-loop numerical health guards (default True)
     format     None/'auto' (the engine's choice) | 'ell'
@@ -81,10 +83,11 @@ def canonicalize(spec: SolveSpec, engine) -> SolveSpec:
                 f"spec precond {want.name!r} != engine precond {pdef.name!r}"
                 " (the preconditioner is built with the engine -- build an"
                 " engine with precond=...)")
-    if spec.batch is not None:
-        raise NotImplementedError(
-            "batched right-hand sides are not ported yet (ROADMAP Queue 1 "
-            "item 5)")
+    if spec.batch is not None and (not isinstance(spec.batch, int)
+                                   or spec.batch < 1):
+        raise ValueError(f"batch must be None or a positive int, got {spec.batch!r}")
+    if spec.batch is not None and not sdef.batched:
+        raise ValueError(f"solver {sdef.name!r} does not support batched RHS")
     fused_knob = engine.fused if spec.fused in (None, "auto") else spec.fused
     fused = registry.resolve_fused(sdef, pdef, fused_knob)
     if sdef.tolerance:
@@ -103,6 +106,31 @@ def canonicalize(spec: SolveSpec, engine) -> SolveSpec:
                    format=engine.format_choice)
 
 
+def chunk_spec(spec: SolveSpec, chunk: int, batch: int | None = None,
+               fixed_length: bool = True) -> SolveSpec:
+    """Derive the chunk spec continuous serving ticks between re-buckets.
+
+    A chunk is ``spec`` cut down to ``chunk`` iterations so a serving loop
+    can warm-start it repeatedly (``plan(b, x0=x)``) and re-bucket the
+    cohort at every boundary.  With ``fixed_length=True`` tolerance methods
+    run with ``tol=0.0``, so EVERY lane executes exactly ``chunk``
+    iterations whoever shares the batch -- a lane's trajectory then does
+    not depend on its cohort; with ``fixed_length=False`` the chunk keeps
+    the real tolerance and stops once every lane converges.
+    Fixed-iteration methods just get ``iters=chunk``.  Keep ``chunk`` under
+    the stall window (100): a converged lane riding a fixed-length chunk
+    replays a flat residual."""
+    if chunk < 1:
+        raise ValueError(f"chunk must be >= 1, got {chunk}")
+    sdef = registry.get_solver(spec.method)
+    if sdef.tolerance:
+        return replace(spec, batch=batch, iters=int(chunk),
+                       max_iters=int(chunk),
+                       tol=0.0 if fixed_length else spec.tol)
+    return replace(spec, batch=batch, iters=int(chunk), max_iters=None,
+                   tol=None)
+
+
 class SolvePlan:
     """A lowered solve: spec + program + operand buffers + info.
 
@@ -114,10 +142,10 @@ class SolvePlan:
     info        {"method", "precond", "fused", "substrate", "batch",
                  "layout", "reorder", "format"}
     executions  times the plan was called
-    last_iters  iteration count of the most recent execution
-    last_status structured status code (int32 STATUS_*) of the most
-                recent execution; ``last_status_names`` spells it
-    last_bad_iter  first guard-tripped iteration (-1 = none)
+    last_iters  per-RHS iteration counts of the most recent execution
+    last_status per-RHS structured status codes (int32 STATUS_*) of the
+                most recent execution; ``last_status_names`` spells them
+    last_bad_iter  per-RHS first guard-tripped iteration (-1 = none)
     """
 
     def __init__(self, engine, spec: SolveSpec, fn: Callable, info: dict):
@@ -132,24 +160,38 @@ class SolvePlan:
 
     @property
     def last_status_names(self):
-        """``last_status`` spelled via ``solvers.status_name``; None before
-        any execution."""
+        """``last_status`` spelled via ``solvers.status_name`` (str for a
+        single RHS, list of str for a batch); None before any execution."""
         if self.last_status is None:
             return None
         from . import solvers
 
-        return solvers.status_name(int(self.last_status))
+        st = np.asarray(self.last_status)
+        if st.ndim == 0:
+            return solvers.status_name(int(st))
+        return [solvers.status_name(int(c)) for c in st]
+
+    def _check(self, b: np.ndarray) -> None:
+        n = self.engine.n
+        want = (n,) if self.spec.batch is None else (self.spec.batch, n)
+        if b.shape != want:
+            raise ValueError(
+                f"plan built for RHS shape {want}, got {b.shape} -- plans "
+                "are shape-specialized; build a spec with the matching batch")
 
     def __call__(self, b, x0=None):
-        """Execute: returns (x, res_norms) as numpy; the iteration count,
-        status and bad_iter land in ``last_*`` and in
-        ``engine.last_solve_info``."""
+        """Execute: returns (x, res_norms) as numpy, mirroring the RHS
+        shape; the per-RHS iteration counts, status and bad_iter land in
+        ``last_*`` and in ``engine.last_solve_info``.  A shared (n,) ``x0``
+        is broadcast over a (k, n) batch."""
         b = np.asarray(b)
-        n = self.engine.n
-        if b.shape != (n,):
-            raise ValueError(f"plan expects an RHS of shape {(n,)}, got "
-                             f"{b.shape}")
-        x0 = np.zeros(b.shape) if x0 is None else np.asarray(x0)
+        self._check(b)
+        if x0 is None:
+            x0 = np.zeros(b.shape)
+        else:
+            x0 = np.asarray(x0)
+            if b.ndim == 2 and x0.ndim == 1:
+                x0 = np.broadcast_to(x0, b.shape)
         eng = self.engine
         res = self._fn(eng.to_device_vec(b), eng.to_device_vec(x0))
         self.executions += 1

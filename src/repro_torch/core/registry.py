@@ -36,11 +36,13 @@ class SolverDef:
 
     ``fused_local`` lists the preconditioner names the method runs a fused
     substrate with; ``tolerance`` marks methods that read ``tol``/
-    ``max_iters``; ``guarded`` marks methods with in-loop health guards."""
+    ``max_iters``; ``batched`` marks methods that take a stacked (k, n)
+    RHS; ``guarded`` marks methods with in-loop health guards."""
 
     name: str
     run: Callable[[SolveContext, Any, Any], Any]   # (ctx, b, x0) -> SolveResult
     tolerance: bool = False
+    batched: bool = True
     fused_local: frozenset = frozenset()
     guarded: bool = False
 

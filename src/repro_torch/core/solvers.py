@@ -1,24 +1,32 @@
 """Preconditioned CG with fixed-iteration and tolerance stopping.
 
 Port of ``repro.core.solvers`` (``pcg`` and ``pcg_tol``, guarded and
-unguarded) for one (n,) right-hand side.  The recurrence is the JAX
-package's folded, substrate-phrased one: ``p = z + beta*p`` runs at the top
-of each step inside ``fold_matvec_dot``, and ``update`` returns x, r, z and
-both dots from one pass.
+unguarded) for one (n,) right-hand side or a stacked (k, n) batch.  The
+recurrence is the JAX package's folded, substrate-phrased one: ``p = z +
+beta*p`` runs at the top of each step inside ``fold_matvec_dot``, and
+``update`` returns x, r, z and both dots from one pass.  Batched vector
+updates broadcast over the leading axis; ``dot`` reduces the last axis to
+(k, 1), so the per-RHS alpha and beta broadcast back.
 
 ``lax.scan``/``lax.while_loop`` become Python loops.  The vectors and the
-recurrence scalars (alpha, beta, rz and the dots) stay 0-d tensors on the
+recurrence scalars (alpha, beta, rz and the dots) stay tensors on the
 vectors' device -- the kernels read alpha and beta through pointers.  Each
 iteration makes ONE device-to-host copy, of the dots the step already
-reduced (``[pAp, rr, rz]``); the stopping test, the guards and the
-residual trace then run on the host in numpy scalars of the vectors'
-dtype, with the JAX package's arithmetic (its float32 casts included), so
-the iteration count, ``status``, ``bad_iter`` and the ``(max_iters + 1,)``
-trace ring equal the JAX package's.  A faulted step keeps the pre-step
-state, as ``solvers._sel`` does on the TPU.
+reduced (``[pAp, rr, rz]``, one slot per lane); the stopping test, the
+guards and the residual trace then run on the host in numpy arrays of the
+vectors' dtype, one entry per lane, with the JAX package's per-lane
+arithmetic (its float32 casts included), so the iteration counts,
+``status``, ``bad_iter`` and the trace ring equal the JAX package's.
 
-Results: ``x`` is a tensor on the vectors' device; ``res_norms``,
-``iters``, ``status`` and ``bad_iter`` are host numpy values.
+A faulted lane keeps its pre-step state, as ``solvers._sel`` does on the
+TPU.  ``_sel`` is a full select over six vectors every iteration; here
+nothing is selected while no lane has faulted (a select on an all-true
+mask returns the new values bit for bit), and afterwards only the faulted
+lanes' rows are copied back.
+
+Results: ``x`` is a tensor on the vectors' device; ``res_norms``
+((T,) or (T, k)), ``iters``, ``status`` and ``bad_iter`` (() or (k,)) are
+host numpy values.
 """
 
 from __future__ import annotations
@@ -30,6 +38,7 @@ import torch
 
 from ..device import resolve_dtype
 from .substrate import SolverSubstrate, reference_substrate
+from .substrate import _dot as _default_dot   # () for (n,), (k, 1) for (k, n)
 
 __all__ = ["SolveResult", "pcg", "pcg_tol", "status_name", "ensure_status",
            "STATUS_CONVERGED", "STATUS_MAXITER", "STATUS_BREAKDOWN",
@@ -77,33 +86,35 @@ def status_name(code: int) -> str:
 
 
 class SolveResult(NamedTuple):
-    x: Vec                      # (n,) tensor on the vectors' device
-    res_norms: np.ndarray       # (iters + 1,) or (max_iters + 1,) trace
-    iters: np.ndarray           # int32 () -- iterations applied
-    status: np.ndarray | None = None   # int32 () STATUS_*
-    bad_iter: np.ndarray | None = None  # int32 () first faulted step, -1
+    x: Vec                      # (n,) or (k, n) tensor on the vectors' device
+    res_norms: np.ndarray       # (T,) or (T, k) trace, T = iters + 1
+    iters: np.ndarray           # int32 () or (k,) -- iterations applied
+    status: np.ndarray | None = None   # int32 () or (k,) STATUS_*
+    bad_iter: np.ndarray | None = None  # int32 () or (k,) first faulted step
 
 
-def _i32(v: int) -> np.ndarray:
-    return np.asarray(v, dtype=np.int32)
+def _per_rhs(b: Vec, v) -> np.ndarray:
+    """int32 per-RHS values: shape () for (n,) b, (k,) for (k, n) b; ``v``
+    is one value for every RHS or one per lane."""
+    lanes = tuple(b.shape[:-1])
+    v = np.asarray(v, np.int32)
+    return np.broadcast_to(v.reshape(lanes) if v.ndim else v, lanes).copy()
 
 
 def ensure_status(res: SolveResult, b: Vec) -> SolveResult:
     """Fill a missing status/bad_iter with UNGUARDED / -1."""
     if res.status is not None and res.bad_iter is not None:
         return res
-    status = res.status if res.status is not None else _i32(STATUS_UNGUARDED)
-    bad = res.bad_iter if res.bad_iter is not None else _i32(-1)
+    status = (res.status if res.status is not None
+              else _per_rhs(b, STATUS_UNGUARDED))
+    bad = res.bad_iter if res.bad_iter is not None else _per_rhs(b, -1)
     return SolveResult(res.x, res.res_norms, res.iters, status, bad)
 
 
-def _default_dot(u: Vec, v: Vec) -> Vec:
-    return torch.sum(u * v)
-
-
-def _fetch(*scalars: Vec) -> np.ndarray:
-    """One device-to-host copy of several 0-d tensors."""
-    return torch.stack(scalars).cpu().numpy()
+def _fetch(*dots: Vec) -> np.ndarray:
+    """One device-to-host copy of several dot results: (len(dots), lanes)
+    with one lane for an (n,) solve."""
+    return torch.stack([d.reshape(-1) for d in dots]).cpu().numpy()
 
 
 def _safe_div(num: Vec, den: Vec) -> Vec:
@@ -112,22 +123,23 @@ def _safe_div(num: Vec, den: Vec) -> Vec:
     return num / torch.where(den == 0, 1.0, den)
 
 
-def _nonfinite(*vals) -> bool:
-    return not all(np.isfinite(v) for v in vals)
+def _nonfinite(*vals) -> np.ndarray:
+    bad = ~np.isfinite(vals[0])
+    for v in vals[1:]:
+        bad = bad | ~np.isfinite(v)
+    return bad
 
 
-def _sign_live(rn_prev, r0, dt) -> bool:
-    """Whether the pre-step residual is above the sign-guard floor."""
-    return bool(rn_prev > (dt(SIGN_GUARD_FLOOR) * np.finfo(dt).eps) * r0)
+def _sign_live(rn_prev, r0, dt) -> np.ndarray:
+    """Lanes whose pre-step residual is above the sign-guard floor."""
+    return rn_prev > (dt(SIGN_GUARD_FLOOR) * np.finfo(dt).eps) * r0
 
 
-def _fault_code(breakdown: bool, diverged: bool, stalled: bool = False) -> int:
+def _fault_code(breakdown, diverged, stalled=False) -> np.ndarray:
     """Priority breakdown > diverged > stagnated; 0 where no fault."""
-    if breakdown:
-        return STATUS_BREAKDOWN
-    if diverged:
-        return STATUS_DIVERGED
-    return STATUS_STAGNATED if stalled else 0
+    code = np.where(stalled, STATUS_STAGNATED, 0)
+    code = np.where(diverged, STATUS_DIVERGED, code)
+    return np.where(breakdown, STATUS_BREAKDOWN, code).astype(np.int32)
 
 
 def _step(sub: SolverSubstrate, x, r, z, p, rz, beta):
@@ -139,12 +151,27 @@ def _step(sub: SolverSubstrate, x, r, z, p, rz, beta):
     return x2, r2, z2, p2, rz2, beta2, denom, rr
 
 
-def _breakdown(rn, denom, rz_prev, rz_new, rn_prev, r0, dt) -> bool:
-    """NaN/Inf in a reduced slot, or (above the sign floor) pAp < 0 with
-    rz > 0, or rz' < 0: an indefinite A or M."""
-    sign_bad = (denom < 0 and rz_prev > 0) or rz_new < 0
+def _breakdown(rn, denom, rz_prev, rz_new, rn_prev, r0, dt) -> np.ndarray:
+    """Per lane: NaN/Inf in a reduced slot, or (above the sign floor)
+    pAp < 0 with rz > 0, or rz' < 0: an indefinite A or M."""
+    sign_bad = ((denom < 0) & (rz_prev > 0)) | (rz_new < 0)
     return (_nonfinite(rn, denom, rz_new)
-            or (_sign_live(rn_prev, r0, dt) and sign_bad))
+            | (_sign_live(rn_prev, r0, dt) & sign_bad))
+
+
+def _freeze(good: np.ndarray, new: tuple, old: tuple) -> tuple:
+    """The step's state with every faulted lane (``~good``) put back to its
+    pre-step values: ``new`` untouched while all lanes are good, else the
+    faulted rows copied from ``old`` in place (``new`` holds fresh tensors
+    the step made; for an (n,) solve, ``old`` itself)."""
+    if good.all():
+        return new
+    if new[0].dim() == 1:
+        return old
+    rows = torch.from_numpy(np.flatnonzero(~good)).to(new[0].device)
+    for n_, o in zip(new, old):
+        n_[rows] = o[rows]
+    return new
 
 
 def _start(sub, b, x0):
@@ -153,6 +180,14 @@ def _start(sub, b, x0):
     z = sub.psolve(r)
     rz = sub.dot(r, z)
     return x, r, z, rz, torch.zeros_like(b), torch.zeros_like(rz)
+
+
+def _result(b, x, trace, iters, status, bad) -> SolveResult:
+    """Per-RHS host arrays shaped for ``b``: (T,) and () for an (n,) b."""
+    lanes = tuple(b.shape[:-1])
+    return SolveResult(x, trace.reshape(trace.shape[:1] + lanes),
+                       _per_rhs(b, iters), _per_rhs(b, status),
+                       _per_rhs(b, bad))
 
 
 def pcg(
@@ -170,8 +205,9 @@ def pcg(
     With ``substrate=None`` a reference substrate wraps ``matvec``/
     ``psolve``/``dot``.  With ``guard=True`` each step checks the dots it
     already reduced (NaN/Inf, ``pAp < 0`` with ``rz > 0`` or ``rz' < 0`` =>
-    breakdown; residual blow-up => diverged) and freezes the solve at its
-    last good iterate; a clean run equals ``guard=False``."""
+    breakdown; residual blow-up => diverged) and freezes a faulted lane at
+    its last good iterate while the others go on; a clean run equals
+    ``guard=False``."""
     sub = substrate if substrate is not None else reference_substrate(
         matvec, psolve, dot)
     dt = resolve_dtype(b.dtype)[0].type
@@ -179,37 +215,40 @@ def pcg(
     r0 = torch.sqrt(sub.dot(r, r))
 
     if not guard:
-        norms = [r0]
+        norms = [r0.reshape(-1)]
         for _ in range(iters):
             x, r, z, p, rz, beta, _, rr = _step(sub, x, r, z, p, rz, beta)
-            norms.append(torch.sqrt(rr))
-        return SolveResult(x, torch.stack(norms).cpu().numpy(), _i32(iters),
-                           _i32(STATUS_UNGUARDED), _i32(-1))
+            norms.append(torch.sqrt(rr).reshape(-1))
+        return _result(b, x, torch.stack(norms).cpu().numpy(), iters,
+                       STATUS_UNGUARDED, -1)
 
     r0_h, rz_h = _fetch(r0, rz)
-    fault = STATUS_BREAKDOWN if _nonfinite(r0_h, rz_h) else 0
-    bad = 0 if fault else -1
-    trace = np.empty(iters + 1, dt)
+    fault = np.where(_nonfinite(r0_h, rz_h), STATUS_BREAKDOWN, 0)
+    bad = np.where(fault != 0, 0, -1)
+    trace = np.empty((iters + 1,) + r0_h.shape, dt)
     trace[0] = r0_h
     rn_prev = r0_h
+    state = (x, r, z, p, rz, beta)
     with np.errstate(all="ignore"):
         for i in range(iters):
-            if fault:                       # frozen for the rest of the run
+            if fault.all():                 # every lane frozen for good
                 trace[i + 1:] = rn_prev
                 break
-            new = _step(sub, x, r, z, p, rz, beta)
+            new = _step(sub, *state)
             denom_h, rr_h, rzn_h = _fetch(new[6], new[7], new[4])
             rn = np.sqrt(rr_h)
             breakdown = _breakdown(rn, denom_h, rz_h, rzn_h, rn_prev, r0_h, dt)
-            diverged = bool(rn > dt(DIVERGENCE_FACTOR) * r0_h)
-            if breakdown or diverged:
-                fault, bad = _fault_code(breakdown, diverged), i + 1
-            else:
-                x, r, z, p, rz, beta = new[:6]
-                rz_h, rn_prev = rzn_h, rn
+            diverged = rn > dt(DIVERGENCE_FACTOR) * r0_h
+            newly = (fault == 0) & (breakdown | diverged)
+            fault = np.where(newly, _fault_code(breakdown, diverged), fault)
+            bad = np.where(newly, i + 1, bad)
+            good = fault == 0
+            state = _freeze(good, new[:6], state)
+            rz_h = np.where(good, rzn_h, rz_h)
+            rn_prev = np.where(good, rn, rn_prev)
             trace[i + 1] = rn_prev
-    status = fault if fault else STATUS_MAXITER
-    return SolveResult(x, trace, _i32(iters), _i32(status), _i32(bad))
+    status = np.where(fault != 0, fault, STATUS_MAXITER)
+    return _result(b, state[0], trace, iters, status, bad)
 
 
 def pcg_tol(
@@ -227,12 +266,18 @@ def pcg_tol(
 
     Same folded recurrence as :func:`pcg`; the stopping test reuses the
     ``rr`` the update already produced.  The residual trace is a
-    ``(max_iters + 1,)`` ring: slot i holds the residual norm after
-    iteration i, and slots past the stop hold the final residual.
+    ``(max_iters + 1,)`` ring (``(max_iters + 1, k)`` batched): slot i
+    holds the residual norm after iteration i, and slots past the stop hold
+    the final residual.
+
+    Batched: the loop runs while any lane is active and under
+    ``max_iters``; lanes that have converged keep stepping, and ``iters``
+    counts, per lane, the steps it was active.
 
     Guards (``guard=True``): breakdown/divergence as in :func:`pcg`, plus
-    stagnation -- no new best residual for ``STALL_WINDOW`` iterations.  A
-    faulted solve stops and keeps its last good iterate."""
+    stagnation -- an active lane with no new best residual for
+    ``STALL_WINDOW`` iterations.  A faulted lane deactivates and keeps its
+    last good iterate."""
     sub = substrate if substrate is not None else reference_substrate(
         matvec, psolve, dot)
     dt = resolve_dtype(b.dtype)[0].type
@@ -240,55 +285,55 @@ def pcg_tol(
     bnorm = torch.sqrt(sub.dot(b, b))
     r0n = torch.sqrt(sub.dot(r, r))
     rz_h, bnorm_h, r0n_h = _fetch(rz, bnorm, r0n)
-    if bnorm_h == 0:
-        bnorm_h = dt(1.0)
+    bnorm_h = np.where(bnorm_h == 0, dt(1.0), bnorm_h)
     tol_h = dt(tol)
-    trace = np.zeros(max_iters + 1, dt)
+    trace = np.zeros((max_iters + 1,) + r0n_h.shape, dt)
     trace[0] = r0n_h
-    it = k = 0
+    it = np.zeros(r0n_h.shape, np.int32)
+    k = 0
+    state = (x, r, z, p, rz, beta)
 
     with np.errstate(all="ignore"):
-        act = bool(r0n_h / bnorm_h > tol_h)
+        act = r0n_h / bnorm_h > tol_h
         if not guard:
-            while act and k < max_iters:
-                it += 1
-                x, r, z, p, rz, beta, _, rr = _step(sub, x, r, z, p, rz, beta)
+            while act.any() and k < max_iters:
+                it += act
+                *state, _, rr = _step(sub, *state)
                 rn = np.sqrt(_fetch(rr)[0])
                 trace[k + 1] = rn
-                act = bool(rn / bnorm_h > tol_h)
+                act = rn / bnorm_h > tol_h
                 k += 1
             trace[k + 1:] = trace[k]
-            return SolveResult(x, trace, _i32(it), _i32(STATUS_UNGUARDED),
-                               _i32(-1))
+            return _result(b, state[0], trace, it, STATUS_UNGUARDED, -1)
 
         init_bad = _nonfinite(r0n_h, rz_h, bnorm_h)
-        fault = STATUS_BREAKDOWN if init_bad else 0
-        bad = 0 if init_bad else -1
-        act = act and not fault
-        best, since, rn_prev = r0n_h, 0, r0n_h
-        while act and k < max_iters:
-            it += 1
-            new = _step(sub, x, r, z, p, rz, beta)
+        fault = np.where(init_bad, STATUS_BREAKDOWN, 0)
+        bad = np.where(init_bad, 0, -1)
+        act = act & (fault == 0)
+        best, since, rn_prev = r0n_h, np.zeros_like(it), r0n_h
+        while act.any() and k < max_iters:
+            it += act
+            new = _step(sub, *state)
             denom_h, rr_h, rzn_h = _fetch(new[6], new[7], new[4])
             rn = np.sqrt(rr_h)
             breakdown = _breakdown(rn, denom_h, rz_h, rzn_h, rn_prev, r0n_h, dt)
-            diverged = bool(rn > dt(DIVERGENCE_FACTOR) * r0n_h)
-            improved = bool(rn < best)
+            diverged = rn > dt(DIVERGENCE_FACTOR) * r0n_h
+            improved = rn < best
             best = np.minimum(rn, best)
-            since = 0 if improved else since + 1
-            stalled = since >= STALL_WINDOW
-            if breakdown or diverged or stalled:
-                fault, bad = _fault_code(breakdown, diverged, stalled), k + 1
+            since = np.where(improved, 0, since + 1)
+            stalled = act & (since >= STALL_WINDOW)
+            newly = (fault == 0) & (breakdown | diverged | stalled)
+            fault = np.where(newly, _fault_code(breakdown, diverged, stalled),
+                             fault)
+            bad = np.where(newly, k + 1, bad)
             good = fault == 0
-            if good:
-                x, r, z, p, rz, beta = new[:6]
-                rz_h, rn_prev = rzn_h, rn
+            state = _freeze(good, new[:6], state)
+            rz_h = np.where(good, rzn_h, rz_h)
+            rn_prev = np.where(good, rn, rn_prev)
             trace[k + 1] = rn_prev
-            act = good and bool(rn / bnorm_h > tol_h)
+            act = good & (rn / bnorm_h > tol_h)
             k += 1
         trace[k + 1:] = trace[k]
-    if fault:
-        status = fault
-    else:
-        status = STATUS_MAXITER if act else STATUS_CONVERGED
-    return SolveResult(x, trace, _i32(it), _i32(status), _i32(bad))
+    status = np.where(fault != 0, fault,
+                      np.where(act, STATUS_MAXITER, STATUS_CONVERGED))
+    return _result(b, state[0], trace, it, status, bad)

@@ -1,12 +1,15 @@
 """Solver substrates: the fused-kernel and reference implementations of the
 PCG iteration's hot ops.
 
-Port of ``repro.core.substrate`` for local (single-device) 1-D solves.  A
-substrate bundles what one PCG iteration consumes:
+Port of ``repro.core.substrate`` for local (single-device) solves of one
+(n,) right-hand side or a (k, n) batch.  A substrate bundles what one PCG
+iteration consumes:
 
   ``matvec(v)``                 -- y = A v
   ``psolve(r)``                 -- z = M^-1 r
-  ``dot(u, v)``                 -- dot product (a 0-d tensor)
+  ``dot(u, v)``                 -- dot product: () for (n,), (k, 1) for
+                                   (k, n), so per-RHS scalars broadcast
+                                   back against the vectors
   ``fold_matvec_dot(z, p, b)``  -- (p', A p', dot(p', A p')) with the
                                    p-update p' = z + b*p folded into the
                                    matrix stream
@@ -16,11 +19,13 @@ substrate bundles what one PCG iteration consumes:
 * :func:`reference_substrate` composes the caller's matvec/psolve/dot with
   plain PyTorch ops, one per solver line -- the verification oracle.
 * :func:`fused_local_substrate` runs the hand-written kernels through
-  ``kernels.ops``: on a CUDA device every call launches a kernel, on the
-  CPU the kernels' plain versions run the same arithmetic.
+  ``kernels.ops``: on a CUDA device every call launches a kernel (the 1-D
+  ones for (n,) vectors, the batched ones for (k, n), which take the
+  solver layout as it is), on the CPU the kernels' plain versions run the
+  same arithmetic.
 
-Batched (k, n) vectors, IC(0), the pipelined recurrence and the shard
-flavors wait for their slices.
+IC(0), the pipelined recurrence and the shard flavors wait for their
+slices.
 """
 
 from __future__ import annotations
@@ -35,8 +40,10 @@ __all__ = ["SolverSubstrate", "reference_substrate", "fused_local_substrate"]
 
 
 def _dot(u: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-    """Solver dot convention for (n,) vectors: a 0-d tensor."""
-    return torch.sum(u * v)
+    """Solver dot convention: () for (n,), (k, 1) for (k, n) batches."""
+    if u.dim() == 1:
+        return torch.sum(u * v)
+    return torch.sum(u * v, dim=-1, keepdim=True)
 
 
 class SolverSubstrate(NamedTuple):
@@ -73,16 +80,35 @@ def reference_substrate(matvec, psolve, dot=None) -> SolverSubstrate:
 
 
 def _ell_stream_ops(cols, vals):
-    """The ELL operator's (matvec, fold_matvec_dot) pair: ``ell_spmv`` and
-    ``ell_spmv_pfold_dot`` through the device dispatch (1-D vectors)."""
+    """The ELL operator's (matvec, fold_matvec_dot) pair through the device
+    dispatch: ``ell_spmv``/``ell_spmv_pfold_dot`` for (n,) vectors,
+    ``ell_spmm``/``ell_spmm_pfold_dot`` for (k, n) batches (beta goes in as
+    (k,), pap comes back as the (k, 1) dot)."""
 
     def matvec(v):
+        if v.dim() == 2:
+            return ops.ell_spmm(cols, vals, v)
         return ops.ell_spmv(cols, vals, v)
 
     def fold_matvec_dot(z, p, beta):
+        if z.dim() == 2:
+            pn, y, pap = ops.ell_spmm_pfold_dot(cols, vals, z, p,
+                                                beta.reshape(-1))
+            return pn, y, pap.reshape(-1, 1)
         return ops.ell_spmv_pfold_dot(cols, vals, z, p, beta)
 
     return matvec, fold_matvec_dot
+
+
+def _lane_dot(u: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """The solver dot with each lane reduced on its own, as an (n,) solve
+    reduces its vector.  One reduction over the last axis of a (k, n)
+    block is laid out by the block's shape, so on the card its bits would
+    depend on k; this way lane j's dot -- and so its whole solve, since
+    the kernels' dots are lane-independent too -- is the same at any k."""
+    if u.dim() == 1:
+        return torch.sum(u * v)
+    return torch.stack([torch.sum(a * b) for a, b in zip(u, v)]).reshape(-1, 1)
 
 
 def fused_local_substrate(cols, vals, dinv=None) -> SolverSubstrate:
@@ -90,7 +116,7 @@ def fused_local_substrate(cols, vals, dinv=None) -> SolverSubstrate:
 
     ``cols``/``vals``: (rows_p, w) square padded ELL; ``dinv``: (rows_p,)
     Jacobi inverse diagonal, or None for the identity preconditioner.
-    Vectors are (rows_p,)."""
+    Vectors are (rows_p,) or (k, rows_p)."""
     matvec, fold_matvec_dot = _ell_stream_ops(cols, vals)
 
     def psolve(r):
@@ -99,5 +125,5 @@ def fused_local_substrate(cols, vals, dinv=None) -> SolverSubstrate:
     def update(alpha, x, r, p, ap):
         return ops.cg_update(alpha, x, r, p, ap, dinv)
 
-    return SolverSubstrate("fused", matvec, psolve, _dot,
+    return SolverSubstrate("fused", matvec, psolve, _lane_dot,
                            fold_matvec_dot, update)

@@ -25,7 +25,8 @@ from pathlib import Path
 import torch
 
 __all__ = ["CSRC", "BUILD_ROOT", "NVCC_FLAGS", "library", "build_key",
-           "check", "entry", "require_cuda", "device_scalar", "stream_handle"]
+           "check", "entry", "require_cuda", "device_scalar", "device_lanes",
+           "stream_handle"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
@@ -44,6 +45,11 @@ _SIGNATURES = {
                                  _I64, _I32, _I32, _I64, _P),
     "repro_cg_update": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                         _I64, _I64, _P),
+    "repro_ell_spmm": (_P, _P, _P, _P, _I64, _I64, _I32, _I32, _I32, _P),
+    "repro_ell_spmm_pfold_dot": (_P, _P, _P, _P, _P, _P, _P, _P, _P,
+                                 _I64, _I32, _I32, _I64, _I32, _P),
+    "repro_cg_update_batched": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                                _I64, _I64, _I32, _P),
 }
 
 _LIB = None
@@ -180,6 +186,19 @@ def device_scalar(v, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
             raise ValueError(f"expected a scalar tensor, got shape {tuple(v.shape)}")
         return v.reshape(())
     return torch.full((), v, dtype=dtype, device=device)
+
+
+def device_lanes(v, k: int, dtype: torch.dtype,
+                 device: torch.device) -> torch.Tensor:
+    """A (k,) tensor for a per-lane argument of a batched kernel: a tensor
+    of k values (the solver's (k, 1) alpha and beta) is reshaped in place,
+    a number is copied to ``device`` for every lane."""
+    if isinstance(v, torch.Tensor):
+        if v.numel() != k:
+            raise ValueError(f"expected {k} per-lane values, got shape "
+                             f"{tuple(v.shape)}")
+        return v.reshape(k)
+    return torch.full((k,), v, dtype=dtype, device=device)
 
 
 def stream_handle(device: torch.device) -> int:

@@ -67,6 +67,43 @@ __device__ T block_sum(T v, T* sh) {
   return v;
 }
 
+// block_sum for K lanes at once: lane jj's sum runs exactly the additions
+// block_sum runs on one value (the same warp trees, the warp sums in warp
+// order), so a lane's sum does not depend on how many lanes share the
+// block.  Results are valid in thread 0; `sh` holds 32 * K slots.  Every
+// thread of the block must call it; it ends with a barrier.
+template <typename T, int K>
+__device__ void block_sum_lanes(T (&v)[K], T* sh) {
+  const int lane = threadIdx.x & 31;
+  const int wid = threadIdx.x >> 5;
+  const int nwarps = blockDim.x >> 5;
+#pragma unroll
+  for (int jj = 0; jj < K; ++jj) {
+    v[jj] = warp_sum(v[jj]);
+    if (lane == 0) sh[jj * 32 + wid] = v[jj];
+  }
+  __syncthreads();
+#pragma unroll
+  for (int jj = 0; jj < K; ++jj) {
+    v[jj] = (threadIdx.x < nwarps) ? sh[jj * 32 + threadIdx.x] : T(0);
+    if (wid == 0) v[jj] = warp_sum(v[jj]);
+  }
+  __syncthreads();
+}
+
+// Right-hand sides a batched kernel's thread carries in registers: the
+// power of two >= k, at most kMaxLanes.  A batch wider than that runs in
+// gridDim.y chunks of kMaxLanes lanes, each chunk reading the matrix
+// again.  At 16 lanes the float64 p-fold kernel needs 136 registers (one
+// block an SM) and the SpMM spills; 8 keeps every kernel at <= 80.
+constexpr int kMaxLanes = 8;
+
+inline int lane_chunk(int k) {
+  int c = 1;
+  while (c < k && c < kMaxLanes) c <<= 1;
+  return c;
+}
+
 namespace {  // internal linkage: each .cu registers its own copy
 
 // Second pass of every dot: block b sums sequence b of `partials`

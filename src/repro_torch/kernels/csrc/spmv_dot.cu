@@ -25,6 +25,28 @@
 // order.  No float atomics: a run repeats bit for bit.  Row groups of G
 // lanes read the matrix coalesced, as in ell_spmv.cu.
 
+// ell_spmm_pfold_dot: the same for k right-hand sides in the solver layout:
+// P' = Z + beta * P per lane, Y = A P', pap[j] = dot(P'[j], Y[j]); Z, P,
+// P' and Y are (k, rows) row-major, beta and pap (k,).
+//
+// Replaces the Pallas TPU kernel src/repro/kernels/spmv_dot.py:296
+// (ell_spmm_pfold_dot, body :267), the matrix half of every batched PCG
+// iteration.  That body folds all of P' on grid step (0, 0) into a
+// resident block later steps gather from (:273-275) -- the hazard above,
+// met the same way: recompute at each gather, the row's owner stores.
+//
+// What bounds it: memory.  The matrix once for all k lanes, Z and P read,
+// P' and Y written: at 1,048,576 x 8 with k = 8 in float64, 100.7 +
+// 4 x 67.1 MB = 369.1 MB, about 110 us at 3.35 TB/s.
+//
+// Design: ell_spmm's K lanes a thread, with pfold_kernel's arithmetic per
+// lane.  Each lane's pap runs pfold_kernel's reduction exactly: the
+// contribution sits in the row group's lane 0, block_sum_lanes sums it as
+// block_sum does, and the per-block partials, (k, nblocks) so that a
+// lane's sequence is contiguous, are summed by a second launch of k
+// blocks in index order.  The blocks' rows depend on W alone, so lane j's
+// P', Y and pap do not depend on k and equal pfold_kernel's on lane j.
+
 #include "common.cuh"
 
 namespace {
@@ -83,6 +105,95 @@ int launch(const void* cols, const void* vals, const void* z, const void* p,
   return (int)cudaGetLastError();
 }
 
+template <typename T, int K>
+__global__ void __launch_bounds__(repro::kThreads)
+spmm_pfold_kernel(const int32_t* __restrict__ cols, const T* __restrict__ vals,
+                  const T* __restrict__ z, const T* __restrict__ p,
+                  const T* __restrict__ beta_ptr, T* __restrict__ pn,
+                  T* __restrict__ y, T* __restrict__ partials, int64_t rows,
+                  int w, int group, int k) {
+  __shared__ T sh[32 * K];
+  const int j0 = blockIdx.y * K;
+  T beta[K], acc[K];
+#pragma unroll
+  for (int jj = 0; jj < K; ++jj) {
+    beta[jj] = (j0 + jj < k) ? beta_ptr[j0 + jj] : T(0);
+    acc[jj] = T(0);
+  }
+  const int64_t t = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  const int64_t r = t / group;
+  const int g = (int)(t % group);
+  if (r < rows) {
+    const int64_t base = r * w;
+    for (int s = g; s < w; s += group) {
+      const T v = vals[base + s];
+      const int64_t c = cols[base + s];
+#pragma unroll
+      for (int jj = 0; jj < K; ++jj)
+        if (j0 + jj < k) {
+          const int64_t o = (int64_t)(j0 + jj) * rows + c;
+          acc[jj] = repro::fma_rn(
+              v, repro::fold(__ldg(z + o), beta[jj], __ldg(p + o)), acc[jj]);
+        }
+    }
+  }
+#pragma unroll
+  for (int jj = 0; jj < K; ++jj) {
+    const T sum = repro::group_sum(acc[jj], group);
+    acc[jj] = T(0);                       // now lane jj's pap contribution
+    if (r < rows && g == 0 && j0 + jj < k) {
+      const int64_t o = (int64_t)(j0 + jj) * rows + r;
+      const T pr = repro::fold(z[o], beta[jj], p[o]);
+      pn[o] = pr;
+      y[o] = sum;
+      acc[jj] = repro::mul_rn(pr, sum);
+    }
+  }
+  repro::block_sum_lanes<T, K>(acc, sh);
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int jj = 0; jj < K; ++jj)
+      if (j0 + jj < k) partials[(int64_t)(j0 + jj) * gridDim.x + blockIdx.x] = acc[jj];
+  }
+}
+
+template <typename T, int K>
+int launch_spmm_chunk(const void* cols, const void* vals, const void* z,
+                      const void* p, const void* beta, void* pn, void* y,
+                      void* partials, int64_t rows, int32_t w, int32_t group,
+                      int64_t blocks, int32_t k, cudaStream_t s) {
+  const dim3 grid((unsigned)blocks, (unsigned)((k + K - 1) / K));
+  spmm_pfold_kernel<T, K><<<grid, repro::kThreads, 0, s>>>(
+      (const int32_t*)cols, (const T*)vals, (const T*)z, (const T*)p,
+      (const T*)beta, (T*)pn, (T*)y, (T*)partials, rows, w, group, k);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_spmm(const void* cols, const void* vals, const void* z,
+                const void* p, const void* beta, void* pn, void* y,
+                void* partials, void* pap, int64_t rows, int32_t w,
+                int32_t group, int64_t nblocks, int32_t k, void* stream) {
+  if (rows <= 0 || w <= 0 || k <= 0 || group < 1 || group > 32 ||
+      (group & (group - 1)))
+    return (int)cudaErrorInvalidValue;
+  const int64_t rows_per_block = repro::kThreads / group;
+  const int64_t blocks = (rows + rows_per_block - 1) / rows_per_block;
+  if (blocks != nblocks) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  int err;
+  switch (repro::lane_chunk(k)) {
+    case 1: err = launch_spmm_chunk<T, 1>(cols, vals, z, p, beta, pn, y, partials, rows, w, group, blocks, k, s); break;
+    case 2: err = launch_spmm_chunk<T, 2>(cols, vals, z, p, beta, pn, y, partials, rows, w, group, blocks, k, s); break;
+    case 4: err = launch_spmm_chunk<T, 4>(cols, vals, z, p, beta, pn, y, partials, rows, w, group, blocks, k, s); break;
+    default: err = launch_spmm_chunk<T, 8>(cols, vals, z, p, beta, pn, y, partials, rows, w, group, blocks, k, s); break;
+  }
+  if (err != (int)cudaSuccess) return err;
+  repro::sum_partials_kernel<T><<<(unsigned)k, repro::kFinalThreads, 0, s>>>(
+      (const T*)partials, blocks, (T*)pap);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" int repro_ell_spmv_pfold_dot_f32(
@@ -99,4 +210,22 @@ extern "C" int repro_ell_spmv_pfold_dot_f64(
     int64_t rows, int32_t w, int32_t group, int64_t nblocks, void* stream) {
   return launch<double>(cols, vals, z, p, beta, pn, y, partials, pap, rows, w,
                         group, nblocks, stream);
+}
+
+extern "C" int repro_ell_spmm_pfold_dot_f32(
+    const void* cols, const void* vals, const void* z, const void* p,
+    const void* beta, void* pn, void* y, void* partials, void* pap,
+    int64_t rows, int32_t w, int32_t group, int64_t nblocks, int32_t k,
+    void* stream) {
+  return launch_spmm<float>(cols, vals, z, p, beta, pn, y, partials, pap, rows,
+                            w, group, nblocks, k, stream);
+}
+
+extern "C" int repro_ell_spmm_pfold_dot_f64(
+    const void* cols, const void* vals, const void* z, const void* p,
+    const void* beta, void* pn, void* y, void* partials, void* pap,
+    int64_t rows, int32_t w, int32_t group, int64_t nblocks, int32_t k,
+    void* stream) {
+  return launch_spmm<double>(cols, vals, z, p, beta, pn, y, partials, pap,
+                             rows, w, group, nblocks, k, stream);
 }

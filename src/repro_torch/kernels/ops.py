@@ -1,4 +1,4 @@
-"""Device dispatch for the kernels on the first slice's path.
+"""Device dispatch for the kernels on the ported paths.
 
 A tensor on a CUDA device launches the hand-written kernel (or the wrapper
 raises: there is no fallback on the card).  A tensor on the CPU takes the
@@ -19,14 +19,18 @@ from . import ell_spmv as _ell_spmv
 from . import spmv_dot as _spmv_dot
 from . import vecops as _vecops
 
-__all__ = ["ell_spmv", "ell_spmv_pfold_dot", "cg_update", "KERNELS",
-           "launch_counts", "reset_launch_counts"]
+__all__ = ["ell_spmv", "ell_spmm", "ell_spmv_pfold_dot", "ell_spmm_pfold_dot",
+           "cg_update", "KERNELS", "launch_counts", "reset_launch_counts"]
 
-# name -> the wrapper that launches it
+# name -> the wrapper that launches it; the 1-D and the batched (k, n)
+# kernels are counted apart
 KERNELS = {
     "ell_spmv": _ell_spmv.ell_spmv,
     "ell_spmv_pfold_dot": _spmv_dot.ell_spmv_pfold_dot,
     "cg_update": _vecops.cg_update,
+    "ell_spmm": _ell_spmv.ell_spmm,
+    "ell_spmm_pfold_dot": _spmv_dot.ell_spmm_pfold_dot,
+    "cg_update_batched": _vecops.cg_update_batched,
 }
 
 
@@ -37,6 +41,13 @@ def ell_spmv(cols: torch.Tensor, vals: torch.Tensor, x: torch.Tensor):
     return ref.ell_spmv_ref(cols, vals, x)
 
 
+def ell_spmm(cols: torch.Tensor, vals: torch.Tensor, x: torch.Tensor):
+    """Y = A @ X over padded ELL for X (k, n) in the solver layout."""
+    if x.is_cuda:
+        return _ell_spmv.ell_spmm(cols, vals, x)
+    return ref.ell_spmm_ref(cols, vals, x)
+
+
 def ell_spmv_pfold_dot(cols, vals, z, p, beta):
     """(p', A @ p', dot(p', A @ p')) with p' = z + beta*p."""
     if z.is_cuda:
@@ -44,10 +55,20 @@ def ell_spmv_pfold_dot(cols, vals, z, p, beta):
     return ref.ell_spmv_pfold_dot_ref(cols, vals, z, p, beta)
 
 
+def ell_spmm_pfold_dot(cols, vals, z, p, beta):
+    """Per lane of (k, n) z/p: (P', A @ P', pap (k,)) with P' = z + beta*p,
+    beta (k,)."""
+    if z.is_cuda:
+        return _spmv_dot.ell_spmm_pfold_dot(cols, vals, z, p, beta)
+    return ref.ell_spmm_pfold_dot_ref(cols, vals, z, p, beta)
+
+
 def cg_update(alpha, x, r, p, ap, dinv=None):
-    """One-pass CG update -> (x', r', z, rr, rz)."""
+    """One-pass CG update -> (x', r', z, rr, rz), for (n,) vectors or (k, n)
+    batches (alpha (k, 1))."""
     if x.is_cuda:
-        return _vecops.cg_update(alpha, x, r, p, ap, dinv)
+        fn = _vecops.cg_update_batched if x.dim() == 2 else _vecops.cg_update
+        return fn(alpha, x, r, p, ap, dinv)
     return ref.cg_update_ref(alpha, x, r, p, ap, dinv)
 
 

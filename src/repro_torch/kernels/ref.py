@@ -1,22 +1,34 @@
-"""Plain PyTorch versions of the kernels on the first slice's path.
+"""Plain PyTorch versions of the kernels on the ported paths.
 
 Port of the matching oracles in ``repro.kernels.ref``.  Each function is
 the mathematical contract its CUDA kernel implements: ``kernels.ops`` runs
 it for tensors on the CPU, the CPU tests hold it against the JAX package,
 and ``chip_smoke.py`` holds each kernel against it on the card.
+
+The batched versions take the solver layout, (k, n) with one right-hand
+side a row, as the kernels do; the JAX oracles take the Pallas kernels'
+(n, k) layout, so the tests transpose on the JAX side.
 """
 
 from __future__ import annotations
 
 import torch
 
-__all__ = ["ell_spmv_ref", "ell_spmv_pfold_dot_ref", "cg_update_ref"]
+__all__ = ["ell_spmv_ref", "ell_spmm_ref", "ell_spmv_pfold_dot_ref",
+           "ell_spmm_pfold_dot_ref", "cg_update_ref"]
 
 
 def ell_spmv_ref(cols: torch.Tensor, vals: torch.Tensor,
                  x: torch.Tensor) -> torch.Tensor:
     """y[r] = sum_k vals[r, k] * x[cols[r, k]].  Padding: vals == 0."""
     return torch.sum(vals * x[cols], dim=1)
+
+
+def ell_spmm_ref(cols: torch.Tensor, vals: torch.Tensor,
+                 x: torch.Tensor) -> torch.Tensor:
+    """Multi-RHS SpMM in the solver layout: x (k, n) -> Y (k, rows_p),
+    Y[j, r] = sum_w vals[r, w] * x[j, cols[r, w]]."""
+    return torch.sum(vals * x[:, cols], dim=-1)
 
 
 def ell_spmv_pfold_dot_ref(cols, vals, z, p, beta):
@@ -27,16 +39,33 @@ def ell_spmv_pfold_dot_ref(cols, vals, z, p, beta):
     return pn, y, torch.sum(pn * y)
 
 
+def ell_spmm_pfold_dot_ref(cols, vals, z, p, beta):
+    """Multi-RHS p-fold in the solver layout: z/p (k, rows_p), beta k
+    per-lane values.  Returns (p', Y, pap) with p' = z + beta*p per lane,
+    Y = A p' and pap[j] = dot(p'[j], Y[j]), pap of shape (k,)."""
+    pn = z + torch.reshape(beta, (-1, 1)) * p
+    y = torch.sum(vals * pn[:, cols], dim=-1)
+    return pn, y, torch.sum(pn * y, dim=-1)
+
+
+def _dot(u, v):
+    """The solvers' dot convention: () for (n,), (k, 1) for (k, n)."""
+    if u.dim() == 1:
+        return torch.sum(u * v)
+    return torch.sum(u * v, dim=-1, keepdim=True)
+
+
 def cg_update_ref(alpha, x, r, p, ap, dinv=None):
-    """One-pass CG update contract for (n,) vectors:
+    """One-pass CG update contract for (n,) vectors, or (k, n) batches with
+    alpha (k, 1) and dinv (n,) shared by the lanes:
 
         x' = x + alpha p;  r' = r - alpha ap;  z = dinv r' (or r');
-        rr = dot(r', r');  rz = dot(r', z).
+        rr = dot(r', r');  rz = dot(r', z)   (() or (k, 1)).
     """
     xo = x + alpha * p
     ro = r - alpha * ap
-    rr = torch.sum(ro * ro)
+    rr = _dot(ro, ro)
     if dinv is None:
         return xo, ro, ro, rr, rr
     z = ro * dinv
-    return xo, ro, z, rr, torch.sum(ro * z)
+    return xo, ro, z, rr, _dot(ro, z)

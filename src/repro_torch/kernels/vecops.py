@@ -1,11 +1,14 @@
-"""CUDA kernel for the one-pass CG vector update, with its launch wrapper.
+"""CUDA kernels for the one-pass CG vector update, with their launch
+wrappers.
 
 ``x' = x + alpha*p``, ``r' = r - alpha*ap``, ``z = dinv*r'`` (or ``r'``),
-``rr = dot(r', r')`` and ``rz = dot(r', z)`` in one pass.  Replaces the 1-D
-bodies of the Pallas TPU kernel ``repro.kernels.vecops.cg_update``
-(``src/repro/kernels/vecops.py:157``, bodies ``:89`` and ``:105``); the
-kernel is ``csrc/vecops.cu``, whose header gives its bound and design.
-The plain PyTorch version is :func:`cg_update_plain`.
+``rr = dot(r', r')`` and ``rz = dot(r', z)`` in one pass, per lane for a
+batch.  Replace the Pallas TPU kernel ``repro.kernels.vecops.cg_update``
+(``src/repro/kernels/vecops.py:157``): :func:`cg_update` its 1-D bodies
+(``:89``, ``:105``), :func:`cg_update_batched` its batched ones (``:124``,
+``:140``).  The kernels are ``csrc/vecops.cu``, whose header gives their
+bounds and design.  The plain PyTorch version of both is
+:func:`cg_update_plain`.
 """
 
 from __future__ import annotations
@@ -15,7 +18,7 @@ import torch
 from . import build
 from .ref import cg_update_ref as cg_update_plain
 
-__all__ = ["cg_update", "cg_update_plain"]
+__all__ = ["cg_update", "cg_update_batched", "cg_update_plain"]
 
 _PER_BLOCK = 256 * 4      # csrc: kThreads * kElems
 
@@ -33,7 +36,7 @@ def cg_update(alpha, x, r, p, ap, dinv=None):
                              f"{tuple(x.shape)}")
     if n <= 0:
         raise ValueError(f"cg_update expects non-empty (n,) vectors, got "
-                         f"{tuple(x.shape)} (batched bodies: batched slice)")
+                         f"{tuple(x.shape)} (cg_update_batched takes (k, n))")
     dt, dev = x.dtype, x.device
     alpha = build.device_scalar(alpha, dt, dev)
     vecs = dict(alpha=alpha, x=x, r=r, p=p, ap=ap)
@@ -61,3 +64,50 @@ def cg_update(alpha, x, r, p, ap, dinv=None):
 
 
 cg_update.launches = 0
+
+
+def cg_update_batched(alpha, x, r, p, ap, dinv=None):
+    """Returns ``(x', r', z, rr, rz)`` on the card for k right-hand sides in
+    the solver layout: ``x``/``r``/``p``/``ap`` (k, n) row-major,
+    ``alpha`` k per-lane values (the solver's (k, 1) device tensor),
+    ``dinv`` the (n,) Jacobi inverse diagonal shared by the lanes or None
+    (then ``z`` is ``r'`` and ``rz`` is ``rr``).  ``rr``/``rz`` are (k, 1),
+    the solvers' dot convention."""
+    if x.dim() != 2 or x.shape[0] == 0 or x.shape[1] == 0:
+        raise ValueError(f"cg_update_batched expects non-empty (k, n) "
+                         f"vectors, got {tuple(x.shape)}")
+    k, n = x.shape
+    for name, v in (("r", r), ("p", p), ("ap", ap)):
+        if v.shape != x.shape:
+            raise ValueError(f"cg_update_batched: {name} {tuple(v.shape)} vs "
+                             f"x {tuple(x.shape)}")
+    if dinv is not None and dinv.shape != (n,):
+        raise ValueError(f"cg_update_batched: dinv {tuple(dinv.shape)} vs "
+                         f"n {n}")
+    dt, dev = x.dtype, x.device
+    alpha = build.device_lanes(alpha, k, dt, dev)
+    vecs = dict(alpha=alpha, x=x, r=r, p=p, ap=ap)
+    if dinv is not None:
+        vecs["dinv"] = dinv
+    build.require_cuda("cg_update_batched", dt, dev, **vecs)
+    nblocks = -(-n // _PER_BLOCK)
+    nsums = 1 if dinv is None else 2
+    xo = torch.empty(k, n, dtype=dt, device=dev)
+    ro = torch.empty(k, n, dtype=dt, device=dev)
+    zo = None if dinv is None else torch.empty(k, n, dtype=dt, device=dev)
+    partials = torch.empty(nsums * k, nblocks, dtype=dt, device=dev)
+    out = torch.empty(nsums, k, 1, dtype=dt, device=dev)
+    fn = build.entry("repro_cg_update_batched", dt)
+    build.check(fn(alpha.data_ptr(), x.data_ptr(), r.data_ptr(), p.data_ptr(),
+                   ap.data_ptr(), None if dinv is None else dinv.data_ptr(),
+                   xo.data_ptr(), ro.data_ptr(),
+                   None if zo is None else zo.data_ptr(), partials.data_ptr(),
+                   out.data_ptr(), n, nblocks, k, build.stream_handle(dev)),
+                "cg_update_batched")
+    cg_update_batched.launches += 1
+    if dinv is None:
+        return xo, ro, ro, out[0], out[0]
+    return xo, ro, zo, out[0], out[1]
+
+
+cg_update_batched.launches = 0

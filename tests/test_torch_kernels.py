@@ -98,7 +98,9 @@ def test_plain_versions_sit_beside_the_kernels():
     """Each kernel module carries its plain version, and the CPU dispatch
     runs exactly that function."""
     assert ell_spmv.ell_spmv_plain is ops.ref.ell_spmv_ref
+    assert ell_spmv.ell_spmm_plain is ops.ref.ell_spmm_ref
     assert spmv_dot.ell_spmv_pfold_dot_plain is ops.ref.ell_spmv_pfold_dot_ref
+    assert spmv_dot.ell_spmm_pfold_dot_plain is ops.ref.ell_spmm_pfold_dot_ref
     assert vecops.cg_update_plain is ops.ref.cg_update_ref
 
 
@@ -109,8 +111,14 @@ def test_cpu_tensors_never_count_as_launches():
     ops.ell_spmv(_t(cols), _t(vals), v)
     ops.ell_spmv_pfold_dot(_t(cols), _t(vals), v, v, 0.5)
     ops.cg_update(0.5, v, v, v, v, v)
+    vb = torch.ones(3, 64, dtype=torch.float64)
+    ops.ell_spmm(_t(cols), _t(vals), vb)
+    ops.ell_spmm_pfold_dot(_t(cols), _t(vals), vb, vb, torch.ones(3))
+    ops.cg_update(torch.ones(3, 1), vb, vb, vb, vb, v)
     assert ops.launch_counts() == before
-    assert set(before) == {"ell_spmv", "ell_spmv_pfold_dot", "cg_update"}
+    assert set(before) == {"ell_spmv", "ell_spmv_pfold_dot", "cg_update",
+                           "ell_spmm", "ell_spmm_pfold_dot",
+                           "cg_update_batched"}
 
 
 def test_kernel_wrappers_refuse_cpu_tensors():
@@ -126,6 +134,13 @@ def test_kernel_wrappers_refuse_cpu_tensors():
         spmv_dot.ell_spmv_pfold_dot(c, v, x, x, 0.5)
     with pytest.raises(ValueError, match="CUDA"):
         vecops.cg_update(0.5, x, x, x, x)
+    xb = torch.ones(3, 64, dtype=torch.float64)
+    with pytest.raises(ValueError, match="CUDA"):
+        ell_spmv.ell_spmm(c, v, xb)
+    with pytest.raises(ValueError, match="CUDA"):
+        spmv_dot.ell_spmm_pfold_dot(c, v, xb, xb, 0.5)
+    with pytest.raises(ValueError, match="CUDA"):
+        vecops.cg_update_batched(0.5, xb, xb, xb, xb)
     assert ops.launch_counts() == before
 
 
@@ -136,6 +151,11 @@ def test_kernel_wrappers_validate_shapes():
         spmv_dot.ell_spmv_pfold_dot(_t(cols), _t(vals), x, x, 0.5)
     with pytest.raises(ValueError, match="cg_update"):
         vecops.cg_update(0.5, x, x, x, torch.ones(64, dtype=torch.float64))
+    xb = torch.ones(3, 63, dtype=torch.float64)
+    with pytest.raises(ValueError, match="square padded"):
+        spmv_dot.ell_spmm_pfold_dot(_t(cols), _t(vals), xb, xb, 0.5)
+    with pytest.raises(ValueError, match="cg_update_batched"):
+        vecops.cg_update_batched(0.5, xb, xb, xb, xb, torch.ones(64))
 
 
 def test_group_size_covers_the_row():

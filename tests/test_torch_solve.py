@@ -201,8 +201,10 @@ def test_unported_options_raise(problems):
     with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
         AzulEngine(matrices.suite("small")["skew_1k"], device="cpu")
     eng = AzulEngine(pm, device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-        eng.plan(SolveSpec(method="pcg", batch=4))
+    # batched RHS are ported: only the JAX package's bad batch values raise
+    for batch in (0, -2, "4", 2.0):
+        with pytest.raises(ValueError, match="positive int"):
+            eng.plan(SolveSpec(method="pcg", batch=batch))
     with pytest.raises(ValueError, match="engine precond"):
         eng.plan(SolveSpec(method="pcg", precond="none"))
     with pytest.raises(ValueError, match="unknown solver"):
