@@ -18,12 +18,19 @@ prints no result line):
                1e-5 (float32); p', x', r' and z bitwise equal.  Lane
                independence: lane j of a k = 8 batched call equals the
                k = 1 call on lane j's inputs bit for bit, every output.
+               ``sptrsv_solve_dot`` in both types on random lower-triangular
+               matrices (n = 1000 and 4099, two densities), a 2047-row
+               chain, a diagonal, and lap2d_1024's two IC(0) factors, with
+               and without the dot weight: x and pp within the same
+               tolerance, padded rows of x exactly 0, a second run bitwise
+               equal.
 3. parity   -- lap2d_32 and banded_1k, float64 Jacobi pcg_tol at tol 1e-8,
                against the JAX package's iteration counts (94 and 9); the
                card may sum in another order, so +-1 iteration passes.
                Then the same batched at k = 4 against the JAX package's
                per-lane counts (PARITY_BATCHED), +-1 a lane, every lane
-               converged.
+               converged.  Then both again with ``precond="block_ic0"``
+               (PARITY_IC0: 32 and 1; PARITY_IC0_BATCHED at k = 4).
 4. main     -- the full-size main path through the normal entry points:
                laplacian_2d(1024) (n = 1,048,576), ``AzulEngine`` ->
                ``plan(SolveSpec(method="pcg_tol", tol=1e-8,
@@ -51,6 +58,19 @@ prints no result line):
                and a bitwise-equal trace; lane 0 ends as the 1-D solve
                did, within 1% of its iterations; the reference substrate
                gives the same statuses within 1%.
+               Then the block-IC(0) main path: the same b through
+               ``AzulEngine(m, precond="block_ic0", dtype=float64)`` (the
+               engine build, host IC(0) and both level schedules, printed
+               on its own line) -> ``plan(SolveSpec(method="pcg_tol",
+               tol=1e-8, max_iters=10000))`` -> ``plan(b)``, counts zeroed
+               just before and read just after: sptrsv_solve_dot
+               2 x (loop steps + 1), the p-fold and the update once a
+               step, ell_spmv at least once; converged within 1% of the
+               JAX package's 457 iterations; true relative residual
+               <= 1e-7.  Then lap2d_256 on the fused and on the reference
+               substrate (plain torch, a Python loop over the levels):
+               the same status, iterations within 1% of each other and of
+               the JAX package's 164.
 5. times    -- each kernel at the main-path shape (k = 8 for the batched
                ones): CUDA-event time of a CUDA-graph replay (median of
                five windows), the time when launched from Python, the
@@ -59,7 +79,12 @@ prints no result line):
                PyTorch CSR product as the library yardstick where there
                is one.  Then fixed-iteration pcg (100 iterations) at
                lap2d_1024 for k = 1, 4, 8, 16: us per iteration and per
-               right-hand side per iteration.
+               right-hand side per iteration.  Then sptrsv_solve_dot at
+               the lap2d_1024 factor shape (each factor, the 2047-row
+               chain, its plain version, torch's sparse CSR
+               ``triangular_solve`` as the library yardstick) and the
+               block-IC(0) main path's us per iteration split into the two
+               solves, the p-fold, the update and the rest.
 
 The last three lines are the kernels JSON, the card's
 ``nvidia-smi --query-gpu=name,power.limit`` line, and the result JSON.
@@ -83,6 +108,10 @@ PARITY = {"lap2d_32": 94, "banded_1k": 9}           # JAX package, CPU f64
 # per-lane counts of the JAX package (CPU, f64, Jacobi pcg_tol, tol 1e-8)
 # for B = default_rng(0).standard_normal((4, n)), one fresh rng per matrix
 PARITY_BATCHED = {"lap2d_32": (102, 98, 102, 102), "banded_1k": (9, 9, 9, 9)}
+# block_ic0 counts of the JAX package (CPU, f64, pcg_tol, tol 1e-8), for the
+# same b as PARITY (1-D) and as PARITY_BATCHED (k = 4)
+PARITY_IC0 = {"lap2d_32": 32, "banded_1k": 1}
+PARITY_IC0_BATCHED = {"lap2d_32": (35, 35, 35, 34), "banded_1k": (1, 1, 1, 1)}
 MAIN_BATCH = 8                     # launch/serve.py --coalesce default
 BATCH_LANES_AGAIN = (0, 5)         # lanes re-solved as k = 1 plans
 SWEEP_BATCHES = (1, 4, 8, 16)
@@ -91,6 +120,11 @@ MAIN_GRID = 1024                   # laplacian_2d(1024): n = 1,048,576
 MAIN_TOL = 1e-8
 MAIN_MAX_ITERS = 10000
 MAIN_MAX_TRUE_RESIDUAL = 1e-7      # ||b - A x|| / ||b|| in f64 on the host
+# block_ic0 pcg_tol counts of the JAX package (CPU, f64, tol 1e-8, the main
+# path's b): lap2d_1024 on the kernels, lap2d_256 on both substrates
+MAIN_IC0_ITERS = 457
+REF_IC0_GRID, REF_IC0_ITERS = 256, 164
+CHAIN_ROWS = 2047                  # the levels of lap2d_1024's factors
 
 SOURCES = {
     "ell_spmv": ("src/repro_torch/kernels/csrc/ell_spmv.cu",
@@ -105,6 +139,8 @@ SOURCES = {
                            "src/repro/kernels/spmv_dot.py:296"),
     "cg_update_batched": ("src/repro_torch/kernels/csrc/vecops.cu",
                           "src/repro/kernels/vecops.py:124"),
+    "sptrsv_solve_dot": ("src/repro_torch/kernels/csrc/sptrsv.cu",
+                         "src/repro/kernels/sptrsv.py:132"),
 }
 SOURCES_BATCHED = ("ell_spmm", "ell_spmm_pfold_dot", "cg_update_batched")
 
@@ -309,6 +345,115 @@ def check_batched_kernels(cols, vals, dtype: str, gen, label: str,
     return errs
 
 
+def triangular_cases():
+    """Host CSR lower-triangular matrices for the sptrsv_solve_dot checks:
+    random ones with a dominant diagonal (n = 1000 and 4099, two
+    densities), a CHAIN_ROWS-row bidiagonal chain (one row a level), a
+    diagonal (one level)."""
+    import numpy as np
+    import scipy.sparse as sp
+    from repro_torch.core.formats import csr_from_scipy
+
+    out = {}
+    for n in (1000, 4099):
+        for dens in (0.003, 0.01):
+            a = sp.random(n, n, density=dens, random_state=n, format="csr")
+            low = sp.tril(a, -1).tocsr()
+            diag = np.asarray(abs(low).sum(axis=1)).ravel() + 1.0
+            out[f"random {n} density {dens}"] = csr_from_scipy(
+                (low + sp.diags(diag)).tocsr())
+    out[f"chain {CHAIN_ROWS}"] = csr_from_scipy(sp.diags(
+        [np.full(CHAIN_ROWS - 1, -0.5), np.ones(CHAIN_ROWS)], [-1, 0]).tocsr())
+    out["diagonal 1000"] = csr_from_scipy(sp.diags(
+        np.linspace(1.0, 3.0, 1000)).tocsr())
+    return out
+
+
+def factor_inputs(ell, rows, n: int, dtype: str, gen):
+    """(ELL in ``dtype``, schedule rows, dinv, b, wdot, pack) for one
+    lower-triangular factor on the card: random b and wdot, zero in the
+    padded rows."""
+    import torch
+    from repro_torch.core.formats import ELL
+    from repro_torch.core.precond import _inv_diag
+    from repro_torch.kernels import ops
+
+    td = getattr(torch, dtype)
+    ell = ELL(ell.cols, ell.vals.to(td), ell.n_rows, ell.n_cols)
+    dev = ell.vals.device
+    rp = ell.cols.shape[0]
+    b = torch.zeros(rp, dtype=td, device=dev)
+    w = torch.zeros(rp, dtype=td, device=dev)
+    b[:n] = torch.randn(n, generator=gen, device=dev, dtype=td)
+    w[:n] = torch.randn(n, generator=gen, device=dev, dtype=td)
+    return (ell, rows, _inv_diag(ell, td), b, w,
+            ops.sptrsv_solve_pack(ell.cols, rows, n))
+
+
+def check_sptrsv(ell, rows, n: int, dtype: str, gen, label: str) -> float:
+    """sptrsv_solve_dot against its plain version on one factor, with and
+    without the dot weight: x and pp within the tolerance, padded rows of
+    x exactly 0, a second launch bitwise equal.  Returns the max abs
+    error."""
+    import torch
+    from repro_torch.kernels import sptrsv
+
+    ell, rows, dinv, b, w, pack = factor_inputs(ell, rows, n, dtype, gen)
+    cols, vals = ell.cols, ell.vals
+    err = 0.0
+    for wd in (w, None):
+        tag = f"sptrsv_solve_dot {label} {'with' if wd is not None else 'no'} dot"
+        x, pp = sptrsv.sptrsv_solve_dot(cols, vals, dinv, b, pack, wd)
+        x2, pp2 = sptrsv.sptrsv_solve_dot(cols, vals, dinv, b, pack, wd)
+        if not (torch.equal(x, x2) and torch.equal(pp, pp2)):
+            raise AssertionError(f"{tag}: two launches differ")
+        if bool((x[n:] != 0).any()):
+            raise AssertionError(f"{tag}: a padded row of x is not 0")
+        want = sptrsv.sptrsv_solve_dot_plain(
+            cols, vals, dinv, b, rows, torch.zeros_like(w) if wd is None else w, n)
+        err = max(err, compare(tag, (x, pp.reshape(1)),
+                               (want[0], want[1].reshape(1)), dtype))
+    return err
+
+
+def solve_main(eng, a, b, x_true, label: str, **knobs) -> dict:
+    """One ``plan(b)`` of a main-path pcg_tol solve on ``eng``; launch
+    counts are zeroed just before it and read just after.  Raises past
+    MAIN_MAX_TRUE_RESIDUAL (``a`` is the scipy matrix)."""
+    import numpy as np
+    import torch
+    from repro_torch.core.plan import SolveSpec
+    from repro_torch.kernels import ops
+    from repro_torch.obs.clock import now
+
+    plan = eng.plan(SolveSpec(method="pcg_tol", tol=MAIN_TOL,
+                              max_iters=MAIN_MAX_ITERS, **knobs))
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = now()
+    x, norms = plan(b)
+    torch.cuda.synchronize()
+    wall = now() - t0
+    iters = int(plan.last_iters)
+    out = {
+        "substrate": plan.info["substrate"], "guard": plan.spec.guard,
+        "iters_run": iters, "status": plan.last_status_names,
+        "bad_iter": int(plan.last_bad_iter),
+        "rel_error": float(np.linalg.norm(x - x_true)
+                           / np.linalg.norm(x_true)),
+        "true_rel_residual": float(np.linalg.norm(b - a @ x)
+                                   / np.linalg.norm(b)),
+        "longest_stall": longest_stall(norms[: iters + 1]),
+        "wall_s": wall, "us_per_iter": wall / max(iters, 1) * 1e6,
+        "launches": ops.launch_counts(),
+    }
+    say(f"main {label}: " + json.dumps(out))
+    if not out["true_rel_residual"] <= MAIN_MAX_TRUE_RESIDUAL:
+        raise AssertionError(f"main {label}: true relative residual "
+                             f"{out['true_rel_residual']:.3e}")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -323,8 +468,10 @@ def main() -> int:
     from repro_torch.core.plan import SolveSpec
     from repro_torch.core.solvers import STALL_WINDOW
     from repro_torch.data.matrices import laplacian_2d, suite
+    from repro_torch.core.formats import ell_from_csr
+    from repro_torch.core.levels import build_schedule
     from repro_torch.kernels import build, ops
-    from repro_torch.kernels import ell_spmv, spmv_dot, vecops
+    from repro_torch.kernels import ell_spmv, spmv_dot, sptrsv, vecops
     from repro_torch.obs.clock import now
 
     failed: list[str] = []
@@ -376,6 +523,46 @@ def main() -> int:
         traceback.print_exc()
         failed.append("kernels")
 
+    ic0_state: dict = {}
+
+    def ic0_engine():
+        """The lap2d_1024 block-IC(0) engine, built once: its host IC(0)
+        and level schedules take tens of seconds.  Phase 4 prints the
+        build time."""
+        if "eng" not in ic0_state:
+            t0 = now()
+            ic0_state["eng"] = AzulEngine(m_main, precond="block_ic0",
+                                          dtype=np.float64)
+            ic0_state["build_s"] = now() - t0
+        return ic0_state["eng"]
+
+    # -- 2b. sptrsv_solve_dot against its plain version ---------------------
+    try:
+        tri = triangular_cases()
+        f = ic0_engine()._ic0
+        for dname in ("float64", "float32"):
+            errs = {}
+            for label, m in tri.items():
+                sched = build_schedule(m)
+                ell = ell_from_csr(m, row_pad=8, width_pad=8, dtype=np.float64)
+                errs[f"{label} ({sched.n_levels} levels)"] = check_sptrsv(
+                    ell, torch.from_numpy(sched.rows).cuda(), m.shape[0],
+                    dname, gen, f"{dname} {label}")
+            for label, ell, sched in (("L", f.ell_l, f.sched_l),
+                                      ("reversed U", f.ell_u_rev, f.sched_u_rev)):
+                key = f"lap2d_1024 {label} ({sched.n_levels} levels)"
+                errs[key] = check_sptrsv(ell, sched.rows, f.n, dname, gen,
+                                         f"{dname} lap2d_1024 {label}")
+                if dname == "float64":
+                    main_errs["sptrsv_solve_dot"] = max(
+                        main_errs.get("sptrsv_solve_dot", 0.0), errs[key])
+            say(f"sptrsv_solve_dot {dname}: max abs err " + json.dumps(errs))
+        say("sptrsv_solve_dot ok (rtol f64 1e-12, f32 1e-5; padded rows 0; "
+            "second launch bitwise equal)")
+    except Exception:
+        traceback.print_exc()
+        failed.append("kernels sptrsv_solve_dot")
+
     # -- 3. parity on the small suite ---------------------------------------
     try:
         rng = np.random.default_rng(0)
@@ -411,6 +598,42 @@ def main() -> int:
         traceback.print_exc()
         failed.append("parity")
 
+    # -- 3b. block-IC(0) parity ---------------------------------------------
+    try:
+        rng = np.random.default_rng(0)
+        mats = suite("small")
+        for name, want in PARITY_IC0.items():
+            m = mats[name]
+            a = sp.csr_matrix((m.data, m.indices, m.indptr), shape=m.shape)
+            b = a @ rng.standard_normal(m.shape[0])
+            eng = AzulEngine(m, precond="block_ic0", dtype=np.float64)
+            plan = eng.plan(SolveSpec(method="pcg_tol", tol=1e-8, max_iters=400))
+            plan(b)
+            got = int(plan.last_iters)
+            say(f"parity block_ic0 {name}: {got} iterations (JAX package: "
+                f"{want}), status {plan.last_status_names}, substrate "
+                f"{plan.info['substrate']}")
+            if (abs(got - want) > 1 or plan.last_status_names != "converged"
+                    or plan.info["substrate"] != "fused_ic0"):
+                raise AssertionError(f"parity block_ic0 {name}: {got}")
+        for name, want in PARITY_IC0_BATCHED.items():
+            m = mats[name]
+            b = np.random.default_rng(0).standard_normal((len(want), m.shape[0]))
+            eng = AzulEngine(m, precond="block_ic0", dtype=np.float64)
+            plan = eng.plan(SolveSpec(method="pcg_tol", tol=1e-8, max_iters=400,
+                                      batch=len(want)))
+            plan(b)
+            got = [int(i) for i in plan.last_iters]
+            say(f"parity block_ic0 batched {name} k={len(want)}: {got} "
+                f"iterations (JAX package: {list(want)}), status "
+                f"{plan.last_status_names}")
+            if (any(abs(g - w) > 1 for g, w in zip(got, want))
+                    or plan.last_status_names != ["converged"] * len(want)):
+                raise AssertionError(f"parity block_ic0 batched {name}: {got}")
+    except Exception:
+        traceback.print_exc()
+        failed.append("parity block_ic0")
+
     # -- 4. the full-size main path -----------------------------------------
     launches, us_per_iter = {}, None
     try:
@@ -425,34 +648,7 @@ def main() -> int:
             f"resident={eng.device_bytes()} bytes, engine build {setup_s:.2f} s")
 
         def solve(label: str, **knobs) -> dict:
-            """One plan(b) on the main path; launch counts are zeroed just
-            before it and read just after."""
-            plan = eng.plan(SolveSpec(method="pcg_tol", tol=MAIN_TOL,
-                                      max_iters=MAIN_MAX_ITERS, **knobs))
-            torch.cuda.synchronize()
-            ops.reset_launch_counts()
-            t0 = now()
-            x, norms = plan(b)
-            torch.cuda.synchronize()
-            wall = now() - t0
-            iters = int(plan.last_iters)
-            out = {
-                "substrate": plan.info["substrate"], "guard": plan.spec.guard,
-                "iters_run": iters, "status": plan.last_status_names,
-                "bad_iter": int(plan.last_bad_iter),
-                "rel_error": float(np.linalg.norm(x - x_true)
-                                   / np.linalg.norm(x_true)),
-                "true_rel_residual": float(np.linalg.norm(b - a @ x)
-                                           / np.linalg.norm(b)),
-                "longest_stall": longest_stall(norms[: iters + 1]),
-                "wall_s": wall, "us_per_iter": wall / max(iters, 1) * 1e6,
-                "launches": ops.launch_counts(),
-            }
-            say(f"main {label}: " + json.dumps(out))
-            if not out["true_rel_residual"] <= MAIN_MAX_TRUE_RESIDUAL:
-                raise AssertionError(f"main {label}: true relative residual "
-                                     f"{out['true_rel_residual']:.3e}")
-            return out
+            return solve_main(eng, a, b, x_true, label, **knobs)
 
         fused = solve("fused")
         launches, iters = fused["launches"], fused["iters_run"]
@@ -559,6 +755,62 @@ def main() -> int:
     except Exception:
         traceback.print_exc()
         failed.append("main batched")
+
+    # -- 4c. the block-IC(0) main path --------------------------------------
+    launches_ic0, ic0_main = {}, None
+    try:
+        m = m_main
+        a = sp.csr_matrix((m.data, m.indices, m.indptr), shape=m.shape)
+        x_true = np.random.default_rng(0).standard_normal(m.shape[0])
+        b = a @ x_true
+        eng_ic0 = ic0_engine()
+        f = eng_ic0._ic0
+        say(f"main block_ic0: engine build {ic0_state['build_s']:.2f} s "
+            "(host IC(0) and both level schedules)")
+        say(f"main block_ic0: n={f.n}, L factor ell "
+            f"{tuple(f.ell_l.cols.shape)}, {f.sched_l.n_levels} levels of L "
+            f"and {f.sched_u_rev.n_levels} of reversed U, widest "
+            f"{int(f.sched_l.counts.max())}; resident={eng_ic0.device_bytes()} "
+            "bytes")
+        ic0_main = solve_main(eng_ic0, a, b, x_true, "block_ic0 fused")
+        launches_ic0, steps = ic0_main["launches"], ic0_main["iters_run"]
+        if (launches_ic0["sptrsv_solve_dot"] != 2 * (steps + 1)
+                or launches_ic0["ell_spmv_pfold_dot"] != steps
+                or launches_ic0["cg_update"] != steps
+                or launches_ic0["ell_spmv"] < 1
+                or ic0_main["substrate"] != "fused_ic0"):
+            raise AssertionError(f"block_ic0 launch counts {launches_ic0} for "
+                                 f"{steps} steps on {ic0_main['substrate']}")
+        if (ic0_main["status"] != "converged"
+                or abs(steps - MAIN_IC0_ITERS) > 0.01 * MAIN_IC0_ITERS):
+            raise AssertionError(f"block_ic0 main path: {steps} iterations, "
+                                 f"{ic0_main['status']} (JAX package: "
+                                 f"{MAIN_IC0_ITERS}, converged)")
+        # the reference substrate loops over the levels in Python: at
+        # lap2d_1024 that is minutes, so it runs at lap2d_256
+        m = laplacian_2d(REF_IC0_GRID)
+        a = sp.csr_matrix((m.data, m.indices, m.indptr), shape=m.shape)
+        x_true = np.random.default_rng(0).standard_normal(m.shape[0])
+        b = a @ x_true
+        t0 = now()
+        eng = AzulEngine(m, precond="block_ic0", dtype=np.float64)
+        say(f"main block_ic0 lap2d_{REF_IC0_GRID}: engine build "
+            f"{now() - t0:.2f} s")
+        fz = solve_main(eng, a, b, x_true, f"block_ic0 lap2d_{REF_IC0_GRID} fused")
+        rf = solve_main(eng, a, b, x_true,
+                        f"block_ic0 lap2d_{REF_IC0_GRID} reference", fused=False)
+        if (rf["status"] != fz["status"] or fz["status"] != "converged"
+                or abs(rf["iters_run"] - fz["iters_run"]) > 0.01 * fz["iters_run"]
+                or abs(fz["iters_run"] - REF_IC0_ITERS) > 0.01 * REF_IC0_ITERS
+                or abs(rf["iters_run"] - REF_IC0_ITERS) > 0.01 * REF_IC0_ITERS
+                or rf["substrate"] != "reference" or any(rf["launches"].values())):
+            raise AssertionError(f"lap2d_{REF_IC0_GRID}: fused {fz}, "
+                                 f"reference {rf} (JAX package: {REF_IC0_ITERS})")
+        say(f"main block_ic0 ok: {steps} iterations (JAX package: "
+            f"{MAIN_IC0_ITERS}), {ic0_main['us_per_iter']:.1f} us per iteration")
+    except Exception:
+        traceback.print_exc()
+        failed.append("main block_ic0")
 
     # -- 5. times at the main-path shape ------------------------------------
     rows_out = []
@@ -695,6 +947,132 @@ def main() -> int:
     except Exception:
         traceback.print_exc()
         failed.append("times")
+
+    # -- 5b. sptrsv_solve_dot times at the lap2d_1024 factor shape ----------
+    try:
+        f = ic0_engine()._ic0
+        gen = torch.Generator(device="cuda").manual_seed(2)
+        e = 8                                          # float64
+        solves = {}
+        for label, ell, sched, with_dot in (
+                ("L", f.ell_l, f.sched_l, False),
+                ("reversed U", f.ell_u_rev, f.sched_u_rev, True)):
+            ell, rows, dinv, bb, w, pack = factor_inputs(ell, sched.rows, f.n,
+                                                         "float64", gen)
+            wd = w if with_dot else None
+            rp, wf = ell.cols.shape
+            nbytes = (rp * wf * (4 + e) + (3 + with_dot) * rp * e
+                      + 4 * (pack.level_rows.numel() + pack.level_ptr.numel()))
+            solves[label] = dict(
+                run=lambda ell=ell, dinv=dinv, bb=bb, pack=pack, wd=wd:
+                    sptrsv.sptrsv_solve_dot(ell.cols, ell.vals, dinv, bb, pack, wd),
+                plain=lambda ell=ell, dinv=dinv, bb=bb, rows=rows, w=w, wd=wd:
+                    sptrsv.sptrsv_solve_dot_plain(
+                        ell.cols, ell.vals, dinv, bb, rows,
+                        torch.zeros_like(w) if wd is None else w, f.n),
+                ell=ell, bb=bb, levels=pack.n_levels,
+                blocks=sptrsv.grid_blocks(pack, torch.float64, bb.device),
+                bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, nbytes=nbytes)
+        chain = triangular_cases()[f"chain {CHAIN_ROWS}"]
+        cell = ell_from_csr(chain, row_pad=8, width_pad=8, dtype=np.float64)
+        cargs = factor_inputs(cell, torch.from_numpy(
+            build_schedule(chain).rows).cuda(), CHAIN_ROWS, "float64", gen)
+        chain_run = lambda: sptrsv.sptrsv_solve_dot(
+            cargs[0].cols, cargs[0].vals, cargs[2], cargs[3], cargs[5], cargs[4])
+        # a launch runs for milliseconds, so events around eager launches
+        # hold the device time; the graph replay below is tried last
+        for label, sv in solves.items():
+            sv["events_ms"] = eager_ms(sv["run"], reps=10, windows=5)
+            sv["plain_ms"] = eager_ms(sv["plain"], reps=1, windows=3)
+        chain_ms = eager_ms(chain_run, reps=10, windows=5)
+        # the library yardstick (never called by the port): torch's sparse
+        # CSR triangular solve of the same factor (no dot), timed eagerly
+        u = solves["reversed U"]
+        cols_h = u["ell"].cols[: f.n].cpu().numpy()
+        vals_h = u["ell"].vals[: f.n].cpu().numpy()
+        keep = vals_h != 0
+        u_csr = sp.csr_matrix((vals_h[keep], cols_h[keep],
+                               np.concatenate([[0], np.cumsum(keep.sum(1))])),
+                              shape=(f.n, f.n))
+        lib_ms = None
+        try:
+            a_lib = torch.sparse_csr_tensor(
+                torch.as_tensor(u_csr.indptr, dtype=torch.int64),
+                torch.as_tensor(u_csr.indices, dtype=torch.int64),
+                torch.as_tensor(u_csr.data), size=u_csr.shape).to("cuda")
+            b_col = u["bb"][: f.n].reshape(-1, 1).contiguous()
+            lib = lambda: torch.triangular_solve(b_col, a_lib, upper=False)
+            x_lib = lib().solution[:, 0]
+            x_k, _ = u["run"]()
+            say(f"library triangular_solve vs kernel: max abs diff "
+                f"{float((x_lib - x_k[: f.n]).abs().max()):.3e}")
+            lib_ms = eager_ms(lib, reps=3, windows=3)
+        except Exception as exc:           # a yardstick only: report it
+            torch.cuda.synchronize()
+            say(f"library triangular_solve on sparse CSR not available: {exc!r}")
+        # the block-IC(0) step's other two kernels: the p-fold and the
+        # identity update (no dinv) at the operator's shape
+        eng_ic0 = ic0_engine()
+        acols, avals = eng_ic0.ell.cols, eng_ic0.ell.vals
+        vec = lambda: torch.randn(acols.shape[0], generator=gen,
+                                  device="cuda", dtype=torch.float64)
+        x, z, p, r, ap = vec(), vec(), vec(), vec(), vec()
+        beta = torch.tensor(0.37, dtype=torch.float64, device="cuda")
+        alpha = torch.tensor(0.61, dtype=torch.float64, device="cuda")
+        step_us = {
+            "p-fold": 1e3 * device_ms(lambda: spmv_dot.ell_spmv_pfold_dot(
+                acols, avals, z, p, beta)),
+            "update": 1e3 * device_ms(lambda: vecops.cg_update(
+                alpha, x, r, p, ap, None)),
+        }
+        # last, since a refused capture may leave the stream unusable for
+        # further captures: the solves as a CUDA-graph replay
+        how = "CUDA events around eager launches"
+        for label, sv in solves.items():
+            sv["ms"] = sv["events_ms"]
+        try:
+            graph_ms = {label: device_ms(sv["run"], reps=10, windows=5)
+                        for label, sv in solves.items()}
+            for label, sv in solves.items():
+                sv["ms"] = graph_ms[label]
+            how = "CUDA-graph replay"
+        except Exception as exc:
+            torch.cuda.synchronize()
+            say(f"sptrsv_solve_dot: a cooperative launch was not captured in "
+                f"a CUDA graph ({exc!r}); times are {how}")
+        for label, sv in solves.items():
+            say(f"time sptrsv_solve_dot lap2d_1024 {label}: {sv['ms']:.4f} ms "
+                f"({how}), {sv['events_ms']:.4f} ms launched from Python, "
+                f"{sv['levels']} levels on {sv['blocks']} blocks "
+                f"({1e3 * sv['ms'] / sv['levels']:.3f} us a level); plain "
+                f"{sv['plain_ms']:.4f} ms, bound {sv['bound_ms']:.4f} ms "
+                f"({sv['nbytes']} bytes)")
+        say(f"time sptrsv_solve_dot chain of {CHAIN_ROWS} one-row levels: "
+            f"{chain_ms:.4f} ms ({1e3 * chain_ms / CHAIN_ROWS:.3f} us a "
+            "level, events around eager launches)")
+        say(f"library torch.triangular_solve (sparse CSR, reversed U, no dot): "
+            f"{lib_ms} ms")
+        rows_out.append({
+            "name": "sptrsv_solve_dot", "route": "cuda",
+            "source": SOURCES["sptrsv_solve_dot"][0],
+            "replaces": SOURCES["sptrsv_solve_dot"][1],
+            "launches": launches_ic0.get("sptrsv_solve_dot", 0),
+            "max_abs_err": main_errs.get("sptrsv_solve_dot"),
+            "ms": u["ms"], "plain_ms": u["plain_ms"], "bound_ms": u["bound_ms"],
+            "bound_by": "bytes", "library_ms": lib_ms,
+        })
+        if ic0_main is not None:
+            # the block-IC(0) step: two solves, the p-fold, the update, and
+            # the rest (flips, pads, the host loop and its sync)
+            parts = {"two solves": 1e3 * sum(sv["ms"] for sv in solves.values()),
+                     **step_us}
+            wall_us = ic0_main["us_per_iter"]
+            parts["rest"] = wall_us - sum(parts.values())
+            say("per iteration block_ic0 (us): " + json.dumps(parts)
+                + f" of {wall_us:.1f} us wall per iteration")
+    except Exception:
+        traceback.print_exc()
+        failed.append("times sptrsv_solve_dot")
 
     if failed:
         say("FAILED phases: " + ", ".join(failed))

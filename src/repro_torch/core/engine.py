@@ -14,11 +14,15 @@ matrix, the engine
      ``ell_spmv_pfold_dot`` and ``cg_update`` once per iteration; for a
      batched plan (``SolveSpec(batch=k)``, ``plan(B)`` with B (k, n))
      their multi-RHS twins ``ell_spmm``, ``ell_spmm_pfold_dot`` and the
-     batched ``cg_update``.
+     batched ``cg_update``.  With ``precond="block_ic0"`` the engine also
+     factors A on the host (IC(0) and both level schedules) and pins the
+     factors on the device; the fused IC(0) substrate then runs two
+     ``sptrsv_solve_dot`` launches per iteration (per lane of a batch) in
+     place of the Jacobi scaling.
 
 Not ported yet, and refused with NotImplementedError naming the ROADMAP
-item: distributed meshes, block-IC(0), formats other than padded ELL
-(including an ``format="auto"`` choice of SELL or HYB).
+item: distributed meshes, formats other than padded ELL (including an
+``format="auto"`` choice of SELL or HYB).
 """
 
 from __future__ import annotations
@@ -31,9 +35,10 @@ from ..device import DEFAULT_DEVICE, resolve_device, resolve_dtype
 from ..kernels.autotune import choose_format, modeled_format_words
 from .formats import CSR, ELL, ell_arrays_from_csr
 from .plan import PlanCache, SolvePlan, SolveSpec, canonicalize, check_format
+from .precond import ic0, make_fused_ic0_apply
 from .solvers import ensure_status
 from .spops import spmm_ell_padded, spmv_ell_padded
-from .substrate import fused_local_substrate
+from .substrate import fused_ic0_local_substrate, fused_local_substrate
 
 __all__ = ["AzulEngine"]
 
@@ -65,13 +70,15 @@ class AzulEngine:
     ----------
     a : CSR                 square sparse matrix (host side)
     mesh : None             distributed meshes are not ported yet
-    precond : "jacobi" | "none"
+    precond : "jacobi" | "block_ic0" | "none"
     dtype : float32 | float64 (numpy or torch spelling); default float32
     row_pad / width_pad :   ELL padding multiples (8, as the JAX engine)
     fused : "auto" | True | False
         Fused-kernel substrate wherever the method/preconditioner pair
         supports it ("auto"/True); False runs the reference substrate --
         plain PyTorch, one op per solver line -- on the same device.
+        For block_ic0, "auto" takes the fused IC(0) substrate on a CUDA
+        device only, where its kernel launches (True forces it).
     format : "auto" | "ell"
         "auto" runs the JAX package's per-matrix format rule; a choice of
         SELL or HYB raises NotImplementedError.
@@ -107,28 +114,32 @@ class AzulEngine:
         di = np.zeros(cols.shape[0], self.dtype)
         di[:n] = 1.0 / dg
         self._set_operator(cols, vals, di, n)
+        if precond == "block_ic0":
+            self._set_ic0(ic0(a, dtype=self.dtype, device=self.device))
 
     @classmethod
     def from_state(cls, cols: np.ndarray, vals: np.ndarray, dinv: np.ndarray,
                    n: int, precond: str = "jacobi", fused="auto",
-                   device=DEFAULT_DEVICE) -> "AzulEngine":
+                   device=DEFAULT_DEVICE, ic0_factors=None) -> "AzulEngine":
         """An engine over an already packed operator: (n_pad, w) ELL
         ``cols``/``vals`` and the (n_pad,) inverse diagonal, as host
-        arrays (see ``repro_torch.convert``)."""
+        arrays, and for ``precond="block_ic0"`` its ``IC0Factors`` on the
+        engine's device (see ``repro_torch.convert``)."""
         eng = cls.__new__(cls)
         eng._configure(precond, fused, vals.dtype, device)
         eng.format, eng.format_choice, eng.format_words = "ell", "ell", None
         eng.a = None
         eng._set_operator(cols, vals, dinv, n)
+        if (ic0_factors is not None) != (precond == "block_ic0"):
+            raise ValueError("ic0_factors go with precond='block_ic0', and "
+                             "only with it")
+        if ic0_factors is not None:
+            eng._set_ic0(ic0_factors)
         return eng
 
     def _configure(self, precond, fused, dtype, device) -> None:
         if fused not in ("auto", True, False):
             raise ValueError(f"fused must be 'auto', True or False, got {fused!r}")
-        if precond == "block_ic0":
-            raise NotImplementedError(
-                "precond='block_ic0' is not ported yet (ROADMAP Queue 1 "
-                "items 1 and 3: ic0 and the fused IC(0) substrate)")
         registry.get_precond(precond)      # fail fast on unknown names
         self.precond = precond
         self.fused = fused
@@ -146,6 +157,14 @@ class AzulEngine:
         self.n = n
         self.n_pad = self.ell.rows_padded
         self._dinv_pad = torch.tensor(dinv, dtype=dt, device=dev)
+        self._ic0 = self._ic0_apply = None
+
+    def _set_ic0(self, factors) -> None:
+        """Pin the IC(0) factors and, once, the fused application's inverse
+        diagonals and level lists."""
+        self._ic0 = factors
+        self._ic0_apply = make_fused_ic0_apply(factors, self.n, self.n_pad,
+                                               self.torch_dtype)
 
     # -- vector embedding ---------------------------------------------------
 
@@ -171,18 +190,25 @@ class AzulEngine:
         return self.from_device_vec(_matvec(self.ell.cols, self.ell.vals, xd))
 
     def device_bytes(self) -> int:
-        """Device-resident operator footprint: ELL cols/vals and the
-        inverse diagonal."""
-        return sum(t.numel() * t.element_size()
-                   for t in (self.ell.cols, self.ell.vals, self._dinv_pad))
+        """Device-resident operator footprint: ELL cols/vals, the inverse
+        diagonal and, for block-IC(0), both factors with their schedules
+        and the fused application's inverse diagonals and level lists."""
+        tensors = [self.ell.cols, self.ell.vals, self._dinv_pad]
+        if self._ic0 is not None:
+            f = self._ic0
+            tensors += [f.ell_l.cols, f.ell_l.vals, f.sched_l.rows,
+                        f.ell_u_rev.cols, f.ell_u_rev.vals, f.sched_u_rev.rows,
+                        *self._ic0_apply.resident]
+        return sum(t.numel() * t.element_size() for t in tensors)
 
     def substrate_kind(self, method: str = "pcg", fused=None) -> str:
-        """The substrate a plan for ``method`` runs on: "reference" or
-        "fused"."""
+        """The substrate a plan for ``method`` runs on: "reference",
+        "fused" or "fused_ic0"."""
         sdef = registry.get_solver(method)
         pdef = registry.get_precond(self.precond)
         knob = self.fused if fused is None else fused
-        return registry.substrate_kind(registry.resolve_fused(sdef, pdef, knob))
+        use = registry.resolve_fused(sdef, pdef, knob, self.device)
+        return registry.substrate_kind(sdef, pdef, use)
 
     # -- plan/execute API ---------------------------------------------------
 
@@ -198,10 +224,12 @@ class AzulEngine:
         over the device operands."""
         sdef = registry.get_solver(spec.method)
         pdef = registry.get_precond(self.precond)
-        kind = registry.substrate_kind(spec.fused)
+        kind = registry.substrate_kind(sdef, pdef, spec.fused)
         cols, vals, dinv = self.ell.cols, self.ell.vals, self._dinv_pad
         sub = None
-        if kind == "fused":
+        if kind == "fused_ic0":
+            sub = fused_ic0_local_substrate(cols, vals, self._ic0_apply)
+        elif kind == "fused":
             sub = fused_local_substrate(cols, vals,
                                         dinv=dinv if pdef.uses_dinv else None)
         ctx = registry.SolveContext(

@@ -89,7 +89,7 @@ def canonicalize(spec: SolveSpec, engine) -> SolveSpec:
     if spec.batch is not None and not sdef.batched:
         raise ValueError(f"solver {sdef.name!r} does not support batched RHS")
     fused_knob = engine.fused if spec.fused in (None, "auto") else spec.fused
-    fused = registry.resolve_fused(sdef, pdef, fused_knob)
+    fused = registry.resolve_fused(sdef, pdef, fused_knob, engine.device)
     if sdef.tolerance:
         tol = 1e-8 if spec.tol is None else float(spec.tol)
         max_iters = spec.iters if spec.max_iters is None else int(spec.max_iters)

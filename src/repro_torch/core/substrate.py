@@ -23,9 +23,11 @@ iteration consumes:
   ones for (n,) vectors, the batched ones for (k, n), which take the
   solver layout as it is), on the CPU the kernels' plain versions run the
   same arithmetic.
+* :func:`fused_ic0_local_substrate` is the same for block-IC(0): the
+  preconditioner is two ``sptrsv_solve_dot`` calls, the second with rz
+  in-stream.
 
-IC(0), the pipelined recurrence and the shard flavors wait for their
-slices.
+The pipelined recurrence and the shard flavors wait for their slices.
 """
 
 from __future__ import annotations
@@ -36,7 +38,8 @@ import torch
 
 from ..kernels import ops
 
-__all__ = ["SolverSubstrate", "reference_substrate", "fused_local_substrate"]
+__all__ = ["SolverSubstrate", "reference_substrate", "fused_local_substrate",
+           "fused_ic0_local_substrate"]
 
 
 def _dot(u: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
@@ -126,4 +129,36 @@ def fused_local_substrate(cols, vals, dinv=None) -> SolverSubstrate:
         return ops.cg_update(alpha, x, r, p, ap, dinv)
 
     return SolverSubstrate("fused", matvec, psolve, _lane_dot,
+                           fold_matvec_dot, update)
+
+
+def fused_ic0_local_substrate(cols, vals, apply_dot) -> SolverSubstrate:
+    """Fused kernels over a local padded-ELL operator, for
+    ``precond="block_ic0"``.
+
+    ``cols``/``vals``: the engine's (n_pad, w) padded ELL of A;
+    ``apply_dot``: ``precond.make_fused_ic0_apply`` of its factors, (n_pad,)
+    residual -> (z, rz) by two ``sptrsv_solve_dot`` calls.  ``update`` runs
+    ``cg_update`` with the identity (its z and rz are discarded), then the
+    application with rz = dot(r', z) in-stream.  A (k, n_pad) batch runs
+    lane by lane through the 1-D application, where the JAX package
+    vmaps: the factors are shared, each lane is its own solve, and lane
+    j's bits do not depend on k.  rz comes back as (k, 1).
+    """
+    matvec, fold_matvec_dot = _ell_stream_ops(cols, vals)
+
+    def psolve(r):
+        if r.dim() == 2:
+            return torch.stack([apply_dot(v)[0] for v in r])
+        return apply_dot(r)[0]
+
+    def update(alpha, x, r, p, ap):
+        xo, ro, _, rr, _ = ops.cg_update(alpha, x, r, p, ap, None)
+        if ro.dim() == 2:
+            zs, rzs = zip(*(apply_dot(v) for v in ro))
+            return xo, ro, torch.stack(zs), rr, torch.stack(rzs).reshape(-1, 1)
+        z, rz = apply_dot(ro)
+        return xo, ro, z, rr, rz
+
+    return SolverSubstrate("fused_ic0", matvec, psolve, _lane_dot,
                            fold_matvec_dot, update)

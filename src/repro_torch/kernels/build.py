@@ -50,6 +50,9 @@ _SIGNATURES = {
                                  _I64, _I32, _I32, _I64, _I32, _P),
     "repro_cg_update_batched": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                                 _I64, _I64, _I32, _P),
+    "repro_sptrsv_solve_dot": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                               _I32, _I32, _I32, _P),
+    "repro_sptrsv_coresident": (),     # -> blocks, or minus the CUDA error
 }
 
 _LIB = None
@@ -162,13 +165,14 @@ def entry(base: str, dtype: torch.dtype):
 def require_cuda(name: str, dtype: torch.dtype, device: torch.device,
                  **tensors: torch.Tensor) -> None:
     """Check that every tensor lies on ``device`` (a CUDA device), is
-    contiguous and has ``dtype`` (int32 for names starting with 'cols')."""
+    contiguous and has ``dtype`` (int32 for names starting with 'cols' or
+    'level')."""
     if device.type != "cuda":
         raise ValueError(f"{name} launches a CUDA kernel; got tensors on "
                          f"{device} (ops.{name} runs the plain version on "
                          "the CPU)")
     for arg, t in tensors.items():
-        want = torch.int32 if arg.startswith("cols") else dtype
+        want = torch.int32 if arg.startswith(("cols", "level")) else dtype
         if t.device != device:
             raise ValueError(f"{name}: {arg} is on {t.device}, expected {device}")
         if t.dtype != want:

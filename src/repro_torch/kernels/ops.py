@@ -17,10 +17,12 @@ import torch
 from . import ref
 from . import ell_spmv as _ell_spmv
 from . import spmv_dot as _spmv_dot
+from . import sptrsv as _sptrsv
 from . import vecops as _vecops
 
 __all__ = ["ell_spmv", "ell_spmm", "ell_spmv_pfold_dot", "ell_spmm_pfold_dot",
-           "cg_update", "KERNELS", "launch_counts", "reset_launch_counts"]
+           "cg_update", "sptrsv_solve_pack", "sptrsv_solve_dot", "KERNELS",
+           "launch_counts", "reset_launch_counts"]
 
 # name -> the wrapper that launches it; the 1-D and the batched (k, n)
 # kernels are counted apart
@@ -31,6 +33,7 @@ KERNELS = {
     "ell_spmm": _ell_spmv.ell_spmm,
     "ell_spmm_pfold_dot": _spmv_dot.ell_spmm_pfold_dot,
     "cg_update_batched": _vecops.cg_update_batched,
+    "sptrsv_solve_dot": _sptrsv.sptrsv_solve_dot,
 }
 
 
@@ -70,6 +73,35 @@ def cg_update(alpha, x, r, p, ap, dinv=None):
         fn = _vecops.cg_update_batched if x.dim() == 2 else _vecops.cg_update
         return fn(alpha, x, r, p, ap, dinv)
     return ref.cg_update_ref(alpha, x, r, p, ap, dinv)
+
+
+def sptrsv_solve_pack(cols: torch.Tensor, sched_rows,
+                      n_rows: int) -> _sptrsv.SptrsvPack:
+    """The call-invariant inputs of :func:`sptrsv_solve_dot` for one
+    factor (``cols`` (rows_p, w) on its device): the schedule as compact
+    level lists.  Build it once per factor; a solver loop passes it to
+    every call."""
+    return _sptrsv.solve_pack(sched_rows, n_rows, cols.shape[0], cols.device)
+
+
+def sptrsv_solve_dot(cols, vals, dinv, b, sched_rows, wdot=None,
+                     n_rows: int | None = None, pack=None):
+    """Whole level-scheduled lower solve with dot(wdot, x) in-stream:
+    (x (rows_p,), pp).  cols/vals: (rows_p, w) padded ELL; dinv:
+    (rows_p,) inverse diagonal; b/wdot: (rows_p,); sched_rows:
+    (n_levels, W) padded with a sentinel >= ``n_rows`` (default rows_p).
+    ``pack``: :func:`sptrsv_solve_pack` of the same schedule (built here
+    when None)."""
+    rows_p = cols.shape[0]
+    n_rows = rows_p if n_rows is None else n_rows
+    if b.is_cuda:
+        if pack is None:
+            pack = sptrsv_solve_pack(cols, sched_rows, n_rows)
+        return _sptrsv.sptrsv_solve_dot(cols, vals, dinv, b, pack, wdot)
+    if wdot is None:
+        wdot = torch.zeros(rows_p, dtype=vals.dtype)
+    return ref.sptrsv_solve_dot_ref(cols, vals, dinv, b, sched_rows, wdot,
+                                    n_rows)
 
 
 def launch_counts() -> dict:

@@ -15,7 +15,7 @@ from __future__ import annotations
 import torch
 
 __all__ = ["ell_spmv_ref", "ell_spmm_ref", "ell_spmv_pfold_dot_ref",
-           "ell_spmm_pfold_dot_ref", "cg_update_ref"]
+           "ell_spmm_pfold_dot_ref", "cg_update_ref", "sptrsv_solve_dot_ref"]
 
 
 def ell_spmv_ref(cols: torch.Tensor, vals: torch.Tensor,
@@ -69,3 +69,31 @@ def cg_update_ref(alpha, x, r, p, ap, dinv=None):
         return xo, ro, ro, rr, rr
     z = ro * dinv
     return xo, ro, z, rr, _dot(ro, z)
+
+
+def sptrsv_solve_dot_ref(cols, vals, dinv, b, sched_rows, wdot, n_rows: int):
+    """Whole level-scheduled lower solve plus dot(wdot, x), the contract of
+    the ``sptrsv_solve_dot`` kernel.
+
+    cols/vals: (rows_p, w) padded ELL of L; dinv: (rows_p,) inverse
+    diagonal (1.0 in padded rows); b/wdot: (rows_p,); sched_rows:
+    (n_levels, W) row ids padded with a sentinel >= n_rows.  Level by
+    level, for each real row r of the level:
+
+        x[r] = (b[r] - sum_slots (c != r ? v : 0) * x[c]) * dinv[r]
+
+    Padded rows of x are 0.  Returns (x (rows_p,), pp 0-d tensor).
+    """
+    rows_p = cols.shape[0]
+    x = torch.zeros(rows_p + 1, dtype=vals.dtype, device=vals.device)
+    for level_rows in torch.as_tensor(sched_rows, device=vals.device).long():
+        lr = torch.clamp(level_rows, max=rows_p - 1)
+        c = cols[lr].long()
+        off = torch.where(c != lr[:, None], vals[lr], 0.0)
+        contrib = torch.sum(off * x[c], dim=1)
+        xr = (b[lr] - contrib) * dinv[lr]
+        xr = torch.where(level_rows < n_rows, xr, 0.0)
+        # sentinel slots -> the absorber slot rows_p (they add 0.0)
+        x.index_add_(0, torch.clamp(level_rows, max=rows_p), xr)
+    x = x[:rows_p]
+    return x, torch.sum(wdot * x)

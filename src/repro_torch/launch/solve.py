@@ -23,7 +23,8 @@ def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--matrix", default="lap2d_32")
     ap.add_argument("--method", default="pcg", choices=("pcg", "pcg_tol"))
-    ap.add_argument("--precond", default="jacobi", choices=("jacobi", "none"))
+    ap.add_argument("--precond", default="jacobi",
+                    choices=("jacobi", "block_ic0", "none"))
     ap.add_argument("--iters", type=int, default=100)
     ap.add_argument("--tol", type=float, default=1e-8,
                     help="relative residual target (pcg_tol)")

@@ -10,7 +10,10 @@ Tolerances, because only the summation order differs: max |kernel -
 plain| <= rtol * max |plain| with rtol 1e-12 in float64 and 1e-5 in
 float32; the elementwise outputs (p', x', r', z) are bitwise equal.  The
 batched kernels' lane j does not depend on k: it equals a k = 1 call on
-lane j's inputs bit for bit, in every output.
+lane j's inputs bit for bit, in every output.  ``sptrsv_solve_dot`` is
+held to its plain version on random lower-triangular matrices, a chain, a
+diagonal and IC(0) factors, is bitwise the same on a second run, and
+leaves padded rows 0.
 """
 
 import numpy as np
@@ -21,7 +24,11 @@ import torch
 from repro_torch.core.engine import AzulEngine
 from repro_torch.core.plan import SolveSpec
 from repro_torch.data.matrices import suite
-from repro_torch.kernels import ell_spmv, ops, spmv_dot, vecops
+from repro_torch.core.formats import csr_from_scipy, ell_from_csr
+from repro_torch.core.levels import build_schedule
+from repro_torch.core.precond import _inv_diag, ic0
+from repro_torch.data.matrices import laplacian_2d
+from repro_torch.kernels import ell_spmv, ops, spmv_dot, sptrsv, vecops
 
 pytestmark = pytest.mark.gpu
 
@@ -131,7 +138,7 @@ def test_pcg_tol_on_the_card(cuda, name, iters):
     assert abs(got - iters) <= 1 and plan.last_status_names == "converged"
     assert counts == {"ell_spmv": 1, "ell_spmv_pfold_dot": got, "cg_update": got,
                       "ell_spmm": 0, "ell_spmm_pfold_dot": 0,
-                      "cg_update_batched": 0}
+                      "cg_update_batched": 0, "sptrsv_solve_dot": 0}
     assert np.isfinite(x).all() and norms.shape == (401,)
 
 
@@ -255,8 +262,133 @@ def test_batched_plan_on_the_card(cuda, precond):
     assert plan.last_status_names == ["converged"] * 4
     assert counts == {"ell_spmv": 0, "ell_spmv_pfold_dot": 0, "cg_update": 0,
                       "ell_spmm": 1, "ell_spmm_pfold_dot": steps,
-                      "cg_update_batched": steps}
+                      "cg_update_batched": steps, "sptrsv_solve_dot": 0}
     assert x.shape == (4, m.shape[0]) and norms.shape == (401, 4)
     a = sp.csr_matrix((m.data, m.indices, m.indptr), shape=m.shape)
     res = np.linalg.norm(b - (a @ x.T).T, axis=1) / np.linalg.norm(b, axis=1)
+    assert np.all(res <= 1e-7)
+
+
+# -- sptrsv_solve_dot ---------------------------------------------------------
+
+
+def _triangular(case):
+    """A lower-triangular CSR for each card case: random with a dominant
+    diagonal (two densities), a 2047-row bidiagonal chain (2047 levels of
+    one row), a diagonal (one level), and lap2d_64's IC(0) factors."""
+    if case.startswith("rand"):
+        n, dens = {"rand1000": (1000, 0.01), "rand4099": (4099, 0.002)}[case]
+        a = sp.random(n, n, density=dens, random_state=n, format="csr")
+        low = sp.tril(a, -1).tocsr()
+        return csr_from_scipy(low + sp.diags(np.asarray(abs(low).sum(1)).ravel() + 1))
+    if case == "chain":
+        return csr_from_scipy(sp.diags([np.full(2046, -0.5), np.ones(2047)],
+                                       [-1, 0]).tocsr())
+    return csr_from_scipy(sp.diags(np.arange(1.0, 101.0)).tocsr())
+
+
+def _solve_inputs(case, dtype, device):
+    if case in ("ic0_L", "ic0_U"):
+        f = ic0(laplacian_2d(64), dtype=np.float64 if dtype == torch.float64
+                else np.float32, device=device)
+        ell, rows = ((f.ell_l, f.sched_l.rows) if case == "ic0_L"
+                     else (f.ell_u_rev, f.sched_u_rev.rows))
+        n = f.n
+    else:
+        m = _triangular(case)
+        n = m.shape[0]
+        ell = ell_from_csr(m, row_pad=8, width_pad=8,
+                           dtype=np.float64 if dtype == torch.float64
+                           else np.float32, device=device)
+        rows = torch.from_numpy(build_schedule(m).rows).to(device)
+    g = torch.Generator(device=device).manual_seed(n)
+    b = torch.zeros(ell.rows_padded, dtype=dtype, device=device)
+    b[:n] = torch.randn(n, generator=g, device=device, dtype=dtype)
+    w = torch.zeros_like(b)
+    w[:n] = torch.randn(n, generator=g, device=device, dtype=dtype)
+    return ell, rows, _inv_diag(ell, dtype), b, w, n
+
+
+SOLVE_CASES = ["rand1000", "rand4099", "chain", "diag", "ic0_L", "ic0_U"]
+
+
+@pytest.mark.parametrize("with_dot", [True, False])
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+@pytest.mark.parametrize("case", SOLVE_CASES)
+def test_sptrsv_kernel_matches_plain(cuda, case, dtype, with_dot):
+    ell, rows, dinv, b, w, n = _solve_inputs(case, dtype, cuda)
+    wd = w if with_dot else None
+    pack = ops.sptrsv_solve_pack(ell.cols, rows, n)
+    before = sptrsv.sptrsv_solve_dot.launches
+    x, pp = sptrsv.sptrsv_solve_dot(ell.cols, ell.vals, dinv, b, pack, wd)
+    x2, pp2 = sptrsv.sptrsv_solve_dot(ell.cols, ell.vals, dinv, b, pack, wd)
+    torch.cuda.synchronize()
+    assert sptrsv.sptrsv_solve_dot.launches == before + 2
+    assert torch.equal(x, x2) and torch.equal(pp, pp2)        # deterministic
+    assert bool((x[n:] == 0).all())
+    want = sptrsv.sptrsv_solve_dot_plain(ell.cols, ell.vals, dinv, b, rows,
+                                         torch.zeros_like(w) if wd is None
+                                         else w, n)
+    _close((x, pp.reshape(1)), (want[0], want[1].reshape(1)), dtype)
+    if wd is None:
+        assert float(pp) == 0.0
+
+
+def test_sptrsv_wrapper_checks_operands(cuda):
+    ell, rows, dinv, b, w, n = _solve_inputs("rand1000", torch.float64, cuda)
+    pack = ops.sptrsv_solve_pack(ell.cols, rows, n)
+    with pytest.raises(TypeError, match="b"):
+        sptrsv.sptrsv_solve_dot(ell.cols, ell.vals, dinv, b.float(), pack)
+    with pytest.raises(TypeError, match="cols"):
+        sptrsv.sptrsv_solve_dot(ell.cols.long(), ell.vals, dinv, b, pack)
+    with pytest.raises(ValueError, match="wdot"):
+        sptrsv.sptrsv_solve_dot(ell.cols, ell.vals, dinv, b, pack, w[:-8])
+    with pytest.raises(ValueError, match="cpu"):
+        sptrsv.sptrsv_solve_dot(ell.cols, ell.vals, dinv, b.cpu(), pack)
+    # a grid the card cannot hold co-resident: the cooperative launch is
+    # refused, and the wrapper raises instead of running another path
+    before = sptrsv.sptrsv_solve_dot.launches
+    too_many = sptrsv.grid_blocks(pack._replace(max_width=1 << 30),
+                                  torch.float64, b.device) + 1
+    with pytest.raises(RuntimeError, match="sptrsv_solve_dot: CUDA error"):
+        sptrsv.sptrsv_solve_dot(ell.cols, ell.vals, dinv, b, pack, w,
+                                blocks=too_many)
+    assert sptrsv.sptrsv_solve_dot.launches == before
+    x, _ = sptrsv.sptrsv_solve_dot(ell.cols, ell.vals, dinv, b, pack, w)
+    torch.cuda.synchronize()
+    assert torch.isfinite(x).all()
+
+
+@pytest.mark.parametrize("batch", [None, 4])
+@pytest.mark.parametrize("name", ["lap2d_32", "banded_1k"])
+def test_block_ic0_plan_on_the_card(cuda, name, batch):
+    """block_ic0 pcg_tol on the card through the fused IC(0) substrate:
+    the JAX package's counts within one iteration a lane (1-D 32 and 1;
+    k = 4 as chip_smoke.py's PARITY_IC0_BATCHED), two sptrsv_solve_dot
+    launches per lane per loop step plus two per lane at start-up."""
+    want = {("lap2d_32", None): [32], ("banded_1k", None): [1],
+            ("lap2d_32", 4): [35, 35, 35, 34], ("banded_1k", 4): [1] * 4}
+    m = suite("small")[name]
+    a = sp.csr_matrix((m.data, m.indices, m.indptr), shape=m.shape)
+    rng = np.random.default_rng(0)
+    b = (rng.standard_normal((4, m.shape[0])) if batch
+         else a @ rng.standard_normal(m.shape[0]))
+    eng = AzulEngine(m, precond="block_ic0", dtype=np.float64)
+    plan = eng.plan(SolveSpec(method="pcg_tol", tol=1e-8, max_iters=400,
+                              batch=batch))
+    assert plan.info["substrate"] == "fused_ic0"
+    ops.reset_launch_counts()
+    x, _ = plan(b)
+    counts = ops.launch_counts()
+    iters = np.atleast_1d(plan.last_iters)
+    steps, lanes = int(iters.max()), len(iters)
+    assert np.all(np.abs(iters - want[(name, batch)]) <= 1)
+    assert np.all(np.atleast_1d(plan.last_status_names) == "converged")
+    assert counts["sptrsv_solve_dot"] == 2 * lanes * (steps + 1)
+    pfold = "ell_spmm_pfold_dot" if batch else "ell_spmv_pfold_dot"
+    update = "cg_update_batched" if batch else "cg_update"
+    assert counts[pfold] == counts[update] == steps
+    xs = np.atleast_2d(x)
+    bs = np.atleast_2d(b)
+    res = np.linalg.norm(bs - (a @ xs.T).T, axis=1) / np.linalg.norm(bs, axis=1)
     assert np.all(res <= 1e-7)

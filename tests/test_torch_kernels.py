@@ -20,7 +20,7 @@ from repro.kernels import ref as jref
 from repro.kernels.ell_spmv import ell_spmv as pallas_ell_spmv
 from repro.kernels.spmv_dot import ell_spmv_pfold_dot as pallas_pfold_dot
 from repro.kernels.vecops import cg_update as pallas_cg_update
-from repro_torch.kernels import ell_spmv, ops, spmv_dot, vecops
+from repro_torch.kernels import ell_spmv, ops, spmv_dot, sptrsv, vecops
 
 TOL = dict(rtol=1e-12, atol=1e-12)
 
@@ -102,6 +102,7 @@ def test_plain_versions_sit_beside_the_kernels():
     assert spmv_dot.ell_spmv_pfold_dot_plain is ops.ref.ell_spmv_pfold_dot_ref
     assert spmv_dot.ell_spmm_pfold_dot_plain is ops.ref.ell_spmm_pfold_dot_ref
     assert vecops.cg_update_plain is ops.ref.cg_update_ref
+    assert sptrsv.sptrsv_solve_dot_plain is ops.ref.sptrsv_solve_dot_ref
 
 
 def test_cpu_tensors_never_count_as_launches():
@@ -115,10 +116,12 @@ def test_cpu_tensors_never_count_as_launches():
     ops.ell_spmm(_t(cols), _t(vals), vb)
     ops.ell_spmm_pfold_dot(_t(cols), _t(vals), vb, vb, torch.ones(3))
     ops.cg_update(torch.ones(3, 1), vb, vb, vb, vb, v)
+    sched = torch.arange(64).reshape(64, 1)        # a diagonal: one row a level
+    ops.sptrsv_solve_dot(_t(cols), _t(vals), v, v, sched, v)
     assert ops.launch_counts() == before
     assert set(before) == {"ell_spmv", "ell_spmv_pfold_dot", "cg_update",
                            "ell_spmm", "ell_spmm_pfold_dot",
-                           "cg_update_batched"}
+                           "cg_update_batched", "sptrsv_solve_dot"}
 
 
 def test_kernel_wrappers_refuse_cpu_tensors():
@@ -141,6 +144,9 @@ def test_kernel_wrappers_refuse_cpu_tensors():
         spmv_dot.ell_spmm_pfold_dot(c, v, xb, xb, 0.5)
     with pytest.raises(ValueError, match="CUDA"):
         vecops.cg_update_batched(0.5, xb, xb, xb, xb)
+    pack = sptrsv.solve_pack(np.arange(64).reshape(64, 1), 64, 64, "cpu")
+    with pytest.raises(ValueError, match="CUDA"):
+        sptrsv.sptrsv_solve_dot(c, v, x, x, pack, x)
     assert ops.launch_counts() == before
 
 
@@ -156,6 +162,19 @@ def test_kernel_wrappers_validate_shapes():
         spmv_dot.ell_spmm_pfold_dot(_t(cols), _t(vals), xb, xb, 0.5)
     with pytest.raises(ValueError, match="cg_update_batched"):
         vecops.cg_update_batched(0.5, xb, xb, xb, xb, torch.ones(64))
+    pack = sptrsv.solve_pack(np.arange(64).reshape(8, 8), 64, 64, "cpu")
+    x64 = torch.ones(64, dtype=torch.float64)
+    with pytest.raises(ValueError, match="sptrsv_solve_dot: b"):
+        sptrsv.sptrsv_solve_dot(_t(cols), _t(vals), x64, x, pack)
+    with pytest.raises(ValueError, match="pack rows_p"):
+        sptrsv.sptrsv_solve_dot(_t(cols[:56]), _t(vals[:56]), x64, x64, pack)
+    # the schedule: a row listed twice, a negative id, n_rows past rows_p
+    with pytest.raises(ValueError, match="twice"):
+        sptrsv.solve_pack(np.zeros((2, 8), np.int32), 64, 64, "cpu")
+    with pytest.raises(ValueError, match="negative"):
+        sptrsv.solve_pack(-np.ones((2, 8), np.int32), 64, 64, "cpu")
+    with pytest.raises(ValueError, match="n_rows"):
+        sptrsv.solve_pack(np.arange(64).reshape(8, 8), 65, 64, "cpu")
 
 
 def test_group_size_covers_the_row():

@@ -190,8 +190,6 @@ def test_unported_options_raise(problems):
     _, pm, _ = problems["lap2d_32"]
     with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
         AzulEngine(pm, mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 items 1 and 3"):
-        AzulEngine(pm, precond="block_ic0", device="cpu")
     for fmt in ("sell", "hyb", "bcsr"):
         with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
             AzulEngine(pm, format=fmt, device="cpu")
