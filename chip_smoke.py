@@ -23,7 +23,12 @@ prints no result line):
                chain, a diagonal, and lap2d_1024's two IC(0) factors, with
                and without the dot weight: x and pp within the same
                tolerance, padded rows of x exactly 0, a second run bitwise
-               equal.
+               equal.  ``bcsr_spmm`` in both types at the JAX kernel tests'
+               (bm, bn, R) sweep on random matrices and at lap2d_1024's
+               8 x 8 blocks with R = 1 and 8: within the tolerance; a
+               second launch, the row-major and the lanes-major layout, and
+               lane j against the R = 1 call bitwise equal; an x one block
+               column short must raise.
 3. parity   -- lap2d_32 and banded_1k, float64 Jacobi pcg_tol at tol 1e-8,
                against the JAX package's iteration counts (94 and 9); the
                card may sum in another order, so +-1 iteration passes.
@@ -31,6 +36,13 @@ prints no result line):
                per-lane counts (PARITY_BATCHED), +-1 a lane, every lane
                converged.  Then both again with ``precond="block_ic0"``
                (PARITY_IC0: 32 and 1; PARITY_IC0_BATCHED at k = 4).
+               Then the format portfolio (PARITY_FORMATS): lap2d_32,
+               skew_1k, rmat_1k and skew_spd(96, hubs=3, hub_nnz=30) under
+               format="auto" (the JAX package's choice) and each of ell,
+               sell, hyb, bcsr, on the fused and the reference substrate:
+               within one iteration of the JAX package's count, converged,
+               bcsr_spmm launched once per matvec on BCSR and no ELL kernel
+               off ELL; block_ic0 streaming A from HYB (PARITY_IC0_HYB).
 4. main     -- the full-size main path through the normal entry points:
                laplacian_2d(1024) (n = 1,048,576), ``AzulEngine`` ->
                ``plan(SolveSpec(method="pcg_tol", tol=1e-8,
@@ -71,6 +83,19 @@ prints no result line):
                substrate (plain torch, a Python loop over the levels):
                the same status, iterations within 1% of each other and of
                the JAX package's 164.
+               Then the BCSR main path: the same b through
+               ``AzulEngine(m, format="bcsr")`` (8 x 8 blocks), one RHS and
+               k = 8: bcsr_spmm launched loop steps + 1 times (every
+               matvec, the initial residual included), no ELL kernel, the
+               true relative residual <= 1e-7 on every lane; its count
+               printed beside the ELL main path's.  Then the skewed main
+               path: skew_spd(2^20, hubs=8, hub_nnz=256, seed=3) under
+               format="auto" (which must pick HYB), SolveSpec(format="ell")
+               and ``AzulEngine(m, format="sell")``, the same b, counts
+               within one of each other, wall per step of each; the SELL
+               and HYB matvecs repeat bit for bit and lane j of k = 8
+               equals its solo call; k = 8 on HYB.  Then the matrix-free
+               ``lap2d_stencil(1024)`` with the same b.
 5. times    -- each kernel at the main-path shape (k = 8 for the batched
                ones): CUDA-event time of a CUDA-graph replay (median of
                five windows), the time when launched from Python, the
@@ -84,7 +109,15 @@ prints no result line):
                chain, its plain version, torch's sparse CSR
                ``triangular_solve`` as the library yardstick) and the
                block-IC(0) main path's us per iteration split into the two
-               solves, the p-fold, the update and the rest.
+               solves, the p-fold, the update and the rest.  Then
+               bcsr_spmm at lap2d_1024's 8 x 8 blocks, R = 1 and 8: graph
+               replay, eager, plain, bound, and torch's sparse BSR @ dense
+               (else CSR @ dense) as the library yardstick.  Last, the warm
+               cost of a loop step on each format (unguarded fixed-iteration
+               pcg, 100 steps minus 0, k = 1 and 8, two passes in reversed
+               order): lap2d_1024 on ell, bcsr, sell, hyb and the stencil,
+               the skewed matrix on hyb, sell and ell; and each plain
+               format matvec's time on the card.
 
 The last three lines are the kernels JSON, the card's
 ``nvidia-smi --query-gpu=name,power.limit`` line, and the result JSON.
@@ -125,6 +158,22 @@ MAIN_MAX_TRUE_RESIDUAL = 1e-7      # ||b - A x|| / ||b|| in f64 on the host
 MAIN_IC0_ITERS = 457
 REF_IC0_GRID, REF_IC0_ITERS = 256, 164
 CHAIN_ROWS = 2047                  # the levels of lap2d_1024's factors
+# the format portfolio.  Per-format parity: the JAX package's pcg_tol count
+# (CPU, f64, tol 1e-8, Jacobi) and its format="auto" choice, b = A x with x
+# from a fresh default_rng(0) per matrix; every format reaches the count.
+# skew_96 is skew_spd(96, hubs=3, hub_nnz=30, seed=1).
+PARITY_FORMATS = {"lap2d_32": ("ell", 94), "skew_1k": ("hyb", 19),
+                  "rmat_1k": ("hyb", 16), "skew_96": ("hyb", 19)}
+PARITY_IC0_HYB = {"skew_1k": 4}    # block_ic0 streaming A from HYB
+FORMATS = ("ell", "sell", "hyb", "bcsr")
+ELL_KERNELS = ("ell_spmv", "ell_spmv_pfold_dot", "ell_spmm",
+               "ell_spmm_pfold_dot")
+# bcsr_spmm's checks: the JAX kernel tests' (bm, bn, R) sweep
+BCSR_SWEEP = ((8, 16, 4), (8, 128, 8), (16, 32, 16))
+# the skewed main path: the suite's skew_* family at 2^20 rows, hub_nnz cut
+# from the generator's default 2n/5 to 256 so that the padded ELL the
+# engine always builds (1,048,576 x 264) fits
+SKEW_N, SKEW_HUBS, SKEW_HUB_NNZ, SKEW_SEED = 1 << 20, 8, 256, 3
 
 SOURCES = {
     "ell_spmv": ("src/repro_torch/kernels/csrc/ell_spmv.cu",
@@ -141,6 +190,8 @@ SOURCES = {
                           "src/repro/kernels/vecops.py:124"),
     "sptrsv_solve_dot": ("src/repro_torch/kernels/csrc/sptrsv.cu",
                          "src/repro/kernels/sptrsv.py:132"),
+    "bcsr_spmm": ("src/repro_torch/kernels/csrc/bcsr_spmm.cu",
+                  "src/repro/kernels/bcsr_spmm.py:45"),
 }
 SOURCES_BATCHED = ("ell_spmm", "ell_spmm_pfold_dot", "cg_update_batched")
 
@@ -416,6 +467,92 @@ def check_sptrsv(ell, rows, n: int, dtype: str, gen, label: str) -> float:
     return err
 
 
+def random_bcsr(n: int, density: float, bm: int, bn: int, seed: int):
+    """A random square matrix with a unit diagonal as BCSR of (bm, bn)
+    blocks on the card (float64), and its block-column count."""
+    import numpy as np
+    import scipy.sparse as sp
+    from repro_torch.core.formats import bcsr_from_csr, csr_from_scipy
+
+    a = sp.random(n, n, density=density, random_state=seed, format="csr")
+    a.setdiag(1.0)
+    m = bcsr_from_csr(csr_from_scipy(a.tocsr()), bm=bm, bn=bn,
+                      dtype=np.float64, device="cuda")
+    return m.block_cols, m.blocks, -(-n // bn)
+
+
+def check_bcsr(bc, blocks, nbc: int, r: int, dtype: str, gen,
+               label: str) -> float:
+    """bcsr_spmm against its plain version on one operator at R lanes:
+    within the tolerance; a second launch and the lanes-major layout (the
+    solver's (R, n) seen through .T) bitwise equal; lane j bitwise the
+    R = 1 call on lane j.  Returns the max abs error."""
+    import torch
+    from repro_torch.kernels import bcsr_spmm
+
+    bl = blocks.to(getattr(torch, dtype))
+    bn = bl.shape[3]
+    x = torch.randn(r, nbc * bn, generator=gen, device="cuda",
+                    dtype=bl.dtype).T                 # lanes-major view
+    y = bcsr_spmm.bcsr_spmm(bc, bl, x, nbc=nbc)
+    err = compare(f"bcsr_spmm {label}", (y,),
+                  (bcsr_spmm.bcsr_spmm_plain(bc, bl, x),), dtype)
+    if not torch.equal(y, bcsr_spmm.bcsr_spmm(bc, bl, x, nbc=nbc)):
+        raise AssertionError(f"bcsr_spmm {label}: two launches differ")
+    if not torch.equal(y, bcsr_spmm.bcsr_spmm(bc, bl, x.contiguous(), nbc=nbc)):
+        raise AssertionError(f"bcsr_spmm {label}: the row-major layout differs")
+    for j in range(r if r > 1 else 0):
+        one = bcsr_spmm.bcsr_spmm(bc, bl, x[:, j: j + 1].contiguous(), nbc=nbc)
+        if not torch.equal(y[:, j: j + 1], one):
+            raise AssertionError(f"bcsr_spmm {label}: lane {j} of R={r} "
+                                 "differs from the R = 1 call")
+    return err
+
+
+def check_row_sums(obj, mv, mm, k: int, gen, label: str) -> None:
+    """A SELL/HYB matvec on the card uses no float atomics: two calls are
+    bitwise equal and lane j of a k-wide call is bitwise its (n,) call."""
+    import torch
+
+    x = torch.randn(k, obj.rows_padded, generator=gen, device="cuda",
+                    dtype=obj.vals.dtype)
+    wide = mm(obj, x)
+    if not torch.equal(wide, mm(obj, x)):
+        raise AssertionError(f"{label}: two calls differ")
+    for j in range(k):
+        if not torch.equal(wide[j], mv(obj, x[j])):
+            raise AssertionError(f"{label}: lane {j} of k={k} differs from "
+                                 "its solo call")
+
+
+def warm_wall(plan, b) -> float:
+    """Seconds of one ``plan(b)`` after a warm-up call, ended by a sync."""
+    import torch
+    from repro_torch.obs.clock import now
+
+    plan(b)                                  # warm the allocator
+    torch.cuda.synchronize()
+    t0 = now()
+    plan(b)
+    torch.cuda.synchronize()
+    return now() - t0
+
+
+def warm_step_us(eng, b, fmt: str, steps: int = SWEEP_ITERS) -> float:
+    """Warm microseconds a loop step of unguarded fixed-iteration pcg on
+    ``eng`` with ``SolveSpec(format=fmt)``: the wall of ``steps`` steps
+    minus the wall of 0 steps (which leaves the copies in and out and the
+    initial residual out)."""
+    from repro_torch.core.plan import SolveSpec
+
+    k = None if b.ndim == 1 else b.shape[0]
+    run = warm_wall(eng.plan(SolveSpec(method="pcg", iters=steps, batch=k,
+                                       format=fmt, guard=False)), b)
+    zero = warm_wall(eng.plan(SolveSpec(method="pcg", iters=0, batch=k,
+                                        format=fmt, guard=False)), b)
+    return (run - zero) / steps * 1e6
+
+
 def solve_main(eng, a, b, x_true, label: str, **knobs) -> dict:
     """One ``plan(b)`` of a main-path pcg_tol solve on ``eng``; launch
     counts are zeroed just before it and read just after.  Raises past
@@ -436,8 +573,8 @@ def solve_main(eng, a, b, x_true, label: str, **knobs) -> dict:
     wall = now() - t0
     iters = int(plan.last_iters)
     out = {
-        "substrate": plan.info["substrate"], "guard": plan.spec.guard,
-        "iters_run": iters, "status": plan.last_status_names,
+        "substrate": plan.info["substrate"], "format": plan.info["format"],
+        "guard": plan.spec.guard, "iters_run": iters, "status": plan.last_status_names,
         "bad_iter": int(plan.last_bad_iter),
         "rel_error": float(np.linalg.norm(x - x_true)
                            / np.linalg.norm(x_true)),
@@ -454,6 +591,48 @@ def solve_main(eng, a, b, x_true, label: str, **knobs) -> dict:
     return out
 
 
+def solve_main_batched(eng, a, B, label: str, lanes=None, **knobs):
+    """One batched ``plan(B)`` of a main-path pcg_tol solve on ``eng`` (the
+    rows ``lanes`` of B, or all); launch counts zeroed just before, read
+    just after.  Raises past MAIN_MAX_TRUE_RESIDUAL on any lane.  Returns
+    (summary, per-lane iterations, trace)."""
+    import numpy as np
+    import torch
+    from repro_torch.core.plan import SolveSpec
+    from repro_torch.kernels import ops
+    from repro_torch.obs.clock import now
+
+    Bk = B if lanes is None else B[list(lanes)]
+    plan = eng.plan(SolveSpec(method="pcg_tol", tol=MAIN_TOL,
+                              max_iters=MAIN_MAX_ITERS,
+                              batch=Bk.shape[0], **knobs))
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = now()
+    X, norms = plan(Bk)
+    torch.cuda.synchronize()
+    wall = now() - t0
+    iters = np.asarray(plan.last_iters)
+    steps = int(iters.max())
+    res = (np.linalg.norm(Bk - (a @ X.T).T, axis=1)
+           / np.linalg.norm(Bk, axis=1))
+    out = {
+        "substrate": plan.info["substrate"], "format": plan.info["format"],
+        "k": Bk.shape[0], "iters_run": iters.tolist(), "loop_steps": steps,
+        "status": plan.last_status_names,
+        "bad_iter": np.asarray(plan.last_bad_iter).tolist(),
+        "true_rel_residual": res.tolist(),
+        "wall_s": wall, "us_per_iter": wall / max(steps, 1) * 1e6,
+        "us_per_iter_per_rhs": wall / max(steps, 1) * 1e6 / Bk.shape[0],
+        "launches": ops.launch_counts(),
+    }
+    say(f"main batched {label}: " + json.dumps(out))
+    if not np.all(res <= MAIN_MAX_TRUE_RESIDUAL):
+        raise AssertionError(f"main batched {label}: true relative "
+                             f"residuals {res}")
+    return out, iters, norms
+
+
 def main() -> int:
     import torch
 
@@ -464,14 +643,18 @@ def main() -> int:
     import numpy as np
     import scipy.sparse as sp
 
+    from repro_torch.core import spops
     from repro_torch.core.engine import AzulEngine
     from repro_torch.core.plan import SolveSpec
     from repro_torch.core.solvers import STALL_WINDOW
-    from repro_torch.data.matrices import laplacian_2d, suite
+    from repro_torch.core.stencil import lap2d_stencil
+    from repro_torch.core.substrate import format_stream_ops
+    from repro_torch.data.matrices import laplacian_2d, rmat_spd, skew_spd, suite
+    from repro_torch.kernels.autotune import modeled_format_words
     from repro_torch.core.formats import ell_from_csr
     from repro_torch.core.levels import build_schedule
     from repro_torch.kernels import build, ops
-    from repro_torch.kernels import ell_spmv, spmv_dot, sptrsv, vecops
+    from repro_torch.kernels import bcsr_spmm, ell_spmv, spmv_dot, sptrsv, vecops
     from repro_torch.obs.clock import now
 
     failed: list[str] = []
@@ -563,6 +746,52 @@ def main() -> int:
         traceback.print_exc()
         failed.append("kernels sptrsv_solve_dot")
 
+    # -- 2c. bcsr_spmm against its plain version ----------------------------
+    bcsr_state: dict = {}
+
+    def bcsr_engine():
+        """The lap2d_1024 BCSR engine, built once: the engine (padded ELL,
+        inverse diagonal), then its 8 x 8 blocks at the first plan."""
+        if "eng" not in bcsr_state:
+            t0 = now()
+            eng = AzulEngine(m_main, dtype=np.float64, format="bcsr")
+            t1 = now()
+            eng.plan(SolveSpec(method="pcg_tol", tol=MAIN_TOL,
+                               max_iters=MAIN_MAX_ITERS))
+            bcsr_state.update(eng=eng, build_s=t1 - t0, blocks_s=now() - t1)
+        return bcsr_state["eng"]
+
+    try:
+        obj = bcsr_engine()._format_obj("bcsr")
+        nbc_main = -(-obj.n_cols // obj.bn)
+        for dname in ("float64", "float32"):
+            errs = {}
+            for bm, bn, r in BCSR_SWEEP:
+                bc, bl, nbc = random_bcsr(4099, 0.003, bm, bn, seed=bm * bn + r)
+                key = f"random 4099 {bm}x{bn} R={r}"
+                errs[key] = check_bcsr(bc, bl, nbc, r, dname, gen,
+                                       f"{dname} {key}")
+            for r in (1, MAIN_BATCH):
+                key = f"lap2d_1024 8x8 R={r}"
+                errs[key] = check_bcsr(obj.block_cols, obj.blocks, nbc_main, r,
+                                       dname, gen, f"{dname} {key}")
+                if dname == "float64" and r == 1:
+                    main_errs["bcsr_spmm"] = errs[key]
+            say(f"bcsr_spmm {dname}: max abs err " + json.dumps(errs))
+        short = torch.zeros((nbc_main - 1) * obj.bn, 1, dtype=torch.float64,
+                            device="cuda")
+        try:
+            bcsr_spmm.bcsr_spmm(obj.block_cols, obj.blocks, short, nbc=nbc_main)
+        except ValueError as exc:
+            say(f"bcsr_spmm with x one block column short raised: {exc}")
+        else:
+            raise AssertionError("bcsr_spmm took x with a wrong nbc")
+        say("bcsr_spmm ok (rtol f64 1e-12, f32 1e-5; two launches, both "
+            "layouts and lane j vs R = 1 bitwise equal)")
+    except Exception:
+        traceback.print_exc()
+        failed.append("kernels bcsr_spmm")
+
     # -- 3. parity on the small suite ---------------------------------------
     try:
         rng = np.random.default_rng(0)
@@ -634,8 +863,79 @@ def main() -> int:
         traceback.print_exc()
         failed.append("parity block_ic0")
 
+    # -- 3c. the format portfolio at suite size ------------------------------
+    try:
+        mats = dict(suite("small"))
+        mats["skew_96"] = skew_spd(96, hubs=3, hub_nnz=30, seed=1)
+        for name, (auto_fmt, want) in PARITY_FORMATS.items():
+            m = mats[name]
+            a = sp.csr_matrix((m.data, m.indices, m.indptr), shape=m.shape)
+            b = a @ np.random.default_rng(0).standard_normal(m.shape[0])
+            got = {}
+            for fmt in ("auto",) + FORMATS:
+                eng = AzulEngine(m, dtype=np.float64, format=fmt)
+                res = {}
+                for fused in (True, False):
+                    plan = eng.plan(SolveSpec(method="pcg_tol", tol=1e-8,
+                                              max_iters=400, fused=fused))
+                    ops.reset_launch_counts()
+                    x, _ = plan(b)
+                    lc = ops.launch_counts()
+                    steps = int(plan.last_iters)
+                    res[fused] = (steps, plan.last_status_names, x)
+                    resolved = plan.info["format"]
+                    if resolved != (auto_fmt if fmt == "auto" else fmt):
+                        raise AssertionError(f"{name} format={fmt}: resolved "
+                                             f"{resolved}")
+                    # the matvec closure is the format's on both substrates:
+                    # bcsr_spmm once per matvec; ELL kernels only on ELL
+                    want_bcsr = steps + 1 if resolved == "bcsr" else 0
+                    if (lc["bcsr_spmm"] != want_bcsr
+                            or (fused and lc["cg_update"] != steps)
+                            or (not fused and lc["cg_update"])
+                            or ((resolved != "ell" or not fused)
+                                and any(lc[k] for k in ELL_KERNELS))):
+                        raise AssertionError(f"{name} {resolved} fused={fused}: "
+                                             f"launches {lc} for {steps} steps")
+                (sf, stf, xf), (sr, sr_status, xr) = res[True], res[False]
+                got[fmt] = sf
+                say(f"parity formats {name} format={fmt} -> {resolved}: {sf} "
+                    f"iterations fused, {sr} reference (JAX package: {want}), "
+                    f"status {stf}/{sr_status}, x bitwise equal across "
+                    f"substrates: {bool(np.array_equal(xf, xr))}")
+                if (abs(sf - want) > 1 or abs(sr - want) > 1
+                        or stf != "converged" or sr_status != "converged"):
+                    raise AssertionError(f"parity formats {name} {fmt}: {sf}, "
+                                         f"{sr} vs {want}")
+        for name, want in PARITY_IC0_HYB.items():
+            m = mats[name]
+            a = sp.csr_matrix((m.data, m.indices, m.indptr), shape=m.shape)
+            b = a @ np.random.default_rng(0).standard_normal(m.shape[0])
+            eng = AzulEngine(m, precond="block_ic0", dtype=np.float64,
+                             format="hyb")
+            plan = eng.plan(SolveSpec(method="pcg_tol", tol=1e-8, max_iters=400))
+            ops.reset_launch_counts()
+            plan(b)
+            lc = ops.launch_counts()
+            steps = int(plan.last_iters)
+            say(f"parity block_ic0 x hyb {name}: {steps} iterations (JAX "
+                f"package: {want}), status {plan.last_status_names}, "
+                f"substrate {plan.info['substrate']}, launches {json.dumps(lc)}")
+            if (abs(steps - want) > 1 or plan.last_status_names != "converged"
+                    or plan.info["substrate"] != "fused_ic0"
+                    or plan.info["format"] != "hyb"
+                    or lc["sptrsv_solve_dot"] != 2 * (steps + 1)
+                    or any(lc[k] for k in ELL_KERNELS)):
+                raise AssertionError(f"block_ic0 x hyb {name}: {steps}, {lc}")
+        say("parity formats ok (every format within one iteration of the JAX "
+            "package's count on both substrates; the card's dots sum in "
+            "another order than the CPU's)")
+    except Exception:
+        traceback.print_exc()
+        failed.append("parity formats")
+
     # -- 4. the full-size main path -----------------------------------------
-    launches, us_per_iter = {}, None
+    launches, us_per_iter, main_runs = {}, None, {}
     try:
         m = m_main
         a = sp.csr_matrix((m.data, m.indices, m.indptr), shape=m.shape)
@@ -651,6 +951,7 @@ def main() -> int:
             return solve_main(eng, a, b, x_true, label, **knobs)
 
         fused = solve("fused")
+        main_runs["ell"] = fused
         launches, iters = fused["launches"], fused["iters_run"]
         us_per_iter = fused["us_per_iter"]
         if (launches["ell_spmv_pfold_dot"] != iters
@@ -688,37 +989,7 @@ def main() -> int:
             f"{np.array_equal(B[0], b)}")
 
         def solve_batched(label: str, lanes=None, **knobs):
-            """One batched plan(B) on the main path (the rows ``lanes`` of B,
-            or all); launch counts zeroed just before, read just after."""
-            Bk = B if lanes is None else B[list(lanes)]
-            plan = eng.plan(SolveSpec(method="pcg_tol", tol=MAIN_TOL,
-                                      max_iters=MAIN_MAX_ITERS,
-                                      batch=Bk.shape[0], **knobs))
-            torch.cuda.synchronize()
-            ops.reset_launch_counts()
-            t0 = now()
-            X, norms = plan(Bk)
-            torch.cuda.synchronize()
-            wall = now() - t0
-            iters = np.asarray(plan.last_iters)
-            steps = int(iters.max())
-            res = (np.linalg.norm(Bk - (a @ X.T).T, axis=1)
-                   / np.linalg.norm(Bk, axis=1))
-            out = {
-                "substrate": plan.info["substrate"], "k": Bk.shape[0],
-                "iters_run": iters.tolist(), "loop_steps": steps,
-                "status": plan.last_status_names,
-                "bad_iter": np.asarray(plan.last_bad_iter).tolist(),
-                "true_rel_residual": res.tolist(),
-                "wall_s": wall, "us_per_iter": wall / max(steps, 1) * 1e6,
-                "us_per_iter_per_rhs": wall / max(steps, 1) * 1e6 / Bk.shape[0],
-                "launches": ops.launch_counts(),
-            }
-            say(f"main batched {label}: " + json.dumps(out))
-            if not np.all(res <= MAIN_MAX_TRUE_RESIDUAL):
-                raise AssertionError(f"main batched {label}: true relative "
-                                     f"residuals {res}")
-            return out, iters, norms
+            return solve_main_batched(eng, a, B, label, lanes, **knobs)
 
         fb, iters_b, norms_b = solve_batched("fused")
         launches_b, steps = fb["launches"], fb["loop_steps"]
@@ -811,6 +1082,165 @@ def main() -> int:
     except Exception:
         traceback.print_exc()
         failed.append("main block_ic0")
+
+    # -- 4d. the BCSR main path at lap2d_1024 --------------------------------
+    launches_bcsr, bcsr_main = {}, None
+    try:
+        m = m_main
+        a = sp.csr_matrix((m.data, m.indices, m.indptr), shape=m.shape)
+        x_true = np.random.default_rng(0).standard_normal(m.shape[0])
+        b = a @ x_true
+        eng_b = bcsr_engine()
+        obj = eng_b._format_obj("bcsr")
+        say(f"main bcsr: engine build {bcsr_state['build_s']:.2f} s (padded "
+            f"ELL, inverse diagonal), 8x8 blocks {bcsr_state['blocks_s']:.2f} s "
+            f"at the first plan; blocks {tuple(obj.blocks.shape)}, "
+            f"{obj.blocks.numel()} stored values for {m.nnz} nonzeros; "
+            f"resident={eng_b.device_bytes()} bytes")
+        bcsr_main = solve_main(eng_b, a, b, x_true, "bcsr fused")
+        launches_bcsr, steps = bcsr_main["launches"], bcsr_main["iters_run"]
+        others = {k: v for k, v in launches_bcsr.items()
+                  if v and k not in ("bcsr_spmm", "cg_update")}
+        if (launches_bcsr["bcsr_spmm"] != steps + 1
+                or launches_bcsr["cg_update"] != steps or others
+                or bcsr_main["format"] != "bcsr"):
+            raise AssertionError(f"bcsr launch counts {launches_bcsr} for "
+                                 f"{steps} steps")
+        ell = main_runs.get("ell", {})
+        say(f"main bcsr: {steps} iterations, {bcsr_main['status']} (ELL "
+            f"main path: {ell.get('iters_run')}, {ell.get('status')}); "
+            f"{bcsr_main['us_per_iter']:.1f} us per step (ELL "
+            f"{ell.get('us_per_iter', float('nan')):.1f}), bcsr_spmm "
+            f"launches {launches_bcsr['bcsr_spmm']} = steps + 1")
+        x_lanes = np.random.default_rng(0).standard_normal((MAIN_BATCH,
+                                                            m.shape[0]))
+        B = (a @ x_lanes.T).T
+        fb, _, _ = solve_main_batched(eng_b, a, B, "bcsr fused")
+        lb, steps_b = fb["launches"], fb["loop_steps"]
+        if (lb["bcsr_spmm"] != steps_b + 1
+                or lb["cg_update_batched"] != steps_b
+                or any(lb[k] for k in ELL_KERNELS + ("cg_update",))):
+            raise AssertionError(f"bcsr batched launch counts {lb} for "
+                                 f"{steps_b} loop steps")
+        say(f"main bcsr ok: k={MAIN_BATCH} {fb['us_per_iter_per_rhs']:.1f} us "
+            "per RHS per loop step")
+    except Exception:
+        traceback.print_exc()
+        failed.append("main bcsr")
+
+    # -- 4e. the skewed main path: format="auto" (HYB), sell, ell ------------
+    skew_state: dict = {}
+    try:
+        t0 = now()
+        m = skew_spd(SKEW_N, hubs=SKEW_HUBS, hub_nnz=SKEW_HUB_NNZ, seed=SKEW_SEED)
+        gen_s = now() - t0
+        a = sp.csr_matrix((m.data, m.indices, m.indptr), shape=m.shape)
+        rn = np.diff(m.indptr)
+        x_true = np.random.default_rng(0).standard_normal(m.shape[0])
+        b = a @ x_true
+        say(f"skew: skew_spd({SKEW_N}, hubs={SKEW_HUBS}, hub_nnz={SKEW_HUB_NNZ}, "
+            f"seed={SKEW_SEED}): nnz={m.nnz}, longest row {int(rn.max())}, "
+            f"median row {float(np.median(rn))}, generated in {gen_s:.2f} s")
+        t0 = now()
+        eng_auto = AzulEngine(m, dtype=np.float64)
+        t1 = now()
+        eng_auto.plan(SolveSpec(method="pcg_tol", tol=MAIN_TOL,
+                                max_iters=MAIN_MAX_ITERS))
+        t2 = now()
+        hyb = eng_auto._format_obj("hyb")
+        say(f"skew auto: format_choice {eng_auto.format_choice}, modeled words "
+            f"{json.dumps(eng_auto.format_words)}; engine build {t1 - t0:.2f} s "
+            f"(padded ELL {tuple(eng_auto.ell.cols.shape)}), HYB at the first "
+            f"plan {t2 - t1:.2f} s (core width {hyb.core_width}, tail "
+            f"{hyb.n_tail}); resident={eng_auto.device_bytes()} bytes")
+        if eng_auto.format_choice != "hyb":
+            raise AssertionError(f"format rule chose {eng_auto.format_choice}")
+        # the ELL the engine would build eagerly for the power-law family
+        # at the same size (host only: it is not built)
+        rm = rmat_spd(SKEW_N, 8.0, seed=4)
+        rw = modeled_format_words(rm)
+        say(f"rmat_spd({SKEW_N}, 8.0, seed=4), not built: nnz={rm.nnz}, "
+            f"longest row {int(np.diff(rm.indptr).max())}; modeled words "
+            f"{json.dumps(rw)}: its padded ELL would hold {rw['ell'] // 2} "
+            f"slots ({rw['ell'] // 2 * 12} bytes in f64)")
+        del rm
+        runs = {"hyb": solve_main(eng_auto, a, b, x_true, "skew auto (hyb)")}
+        runs["ell"] = solve_main(eng_auto, a, b, x_true,
+                                 "skew ell (SolveSpec format)", format="ell")
+        t0 = now()
+        eng_sell = AzulEngine(m, dtype=np.float64, format="sell")
+        eng_sell.plan(SolveSpec(method="pcg_tol", tol=MAIN_TOL,
+                                max_iters=MAIN_MAX_ITERS))
+        sell = eng_sell._format_obj("sell")
+        say(f"skew sell: engine build and SELL {now() - t0:.2f} s "
+            f"({sell.n_stored} stored entries)")
+        runs["sell"] = solve_main(eng_sell, a, b, x_true, "skew sell")
+        for fmt, run in runs.items():
+            lc, steps = run["launches"], run["iters_run"]
+            if fmt == "ell":
+                bad = (lc["ell_spmv_pfold_dot"] != steps or lc["ell_spmv"] < 1)
+            else:
+                bad = any(lc[k] for k in ELL_KERNELS + ("bcsr_spmm",))
+            if bad or lc["cg_update"] != steps or run["format"] != fmt:
+                raise AssertionError(f"skew {fmt}: launches {lc} for {steps}")
+        its = {fmt: run["iters_run"] for fmt, run in runs.items()}
+        say("skew per step (us, wall of the solve over its steps): "
+            + json.dumps({fmt: {"iters": run["iters_run"],
+                                "status": run["status"],
+                                "us_per_iter": run["us_per_iter"],
+                                "wall_s": run["wall_s"]}
+                          for fmt, run in runs.items()}))
+        if max(its.values()) - min(its.values()) > 1:
+            raise AssertionError(f"skew iteration counts differ: {its}")
+        gen_r = torch.Generator(device="cuda").manual_seed(3)
+        check_row_sums(hyb, spops.spmv_hyb_padded, spops.spmm_hyb_padded,
+                       MAIN_BATCH, gen_r, "hyb matvec skew")
+        check_row_sums(sell, spops.spmv_sell_flat, spops.spmm_sell_flat,
+                       MAIN_BATCH, gen_r, "sell matvec skew")
+        say(f"skew: SELL and HYB matvecs repeat bit for bit, lane j of "
+            f"k={MAIN_BATCH} equals its solo call")
+        del eng_sell, sell
+        X = np.random.default_rng(0).standard_normal((MAIN_BATCH, m.shape[0]))
+        fb, _, _ = solve_main_batched(eng_auto, a, (a @ X.T).T,
+                                      "skew auto (hyb)")
+        lb = fb["launches"]
+        if (lb["cg_update_batched"] != fb["loop_steps"] or fb["format"] != "hyb"
+                or any(lb[k] for k in ELL_KERNELS + ("bcsr_spmm",))):
+            raise AssertionError(f"skew hyb batched launches {lb}")
+        say(f"main skew ok: {its} iterations; k={MAIN_BATCH} on hyb "
+            f"{fb['us_per_iter_per_rhs']:.1f} us per RHS per loop step (a "
+            "solve this short carries its plan's first-call costs; phase 5d "
+            "times warm steps)")
+        skew_state.update(eng=eng_auto, m=m)
+        del hyb
+    except Exception:
+        traceback.print_exc()
+        failed.append("main skew")
+
+    # -- 4f. the matrix-free stencil at lap2d_1024 ---------------------------
+    try:
+        m = m_main
+        a = sp.csr_matrix((m.data, m.indices, m.indptr), shape=m.shape)
+        x_true = np.random.default_rng(0).standard_normal(m.shape[0])
+        b = a @ x_true
+        t0 = now()
+        eng_st = AzulEngine(lap2d_stencil(MAIN_GRID), dtype=np.float64)
+        say(f"main stencil: engine build {now() - t0:.3f} s, resident="
+            f"{eng_st.device_bytes()} bytes; A x_true through the stencil vs "
+            f"the stored matrix: max abs diff "
+            f"{float(np.abs(eng_st.spmv(x_true) - b).max()):.3e}")
+        st = solve_main(eng_st, a, b, x_true, "stencil")
+        lc = st["launches"]
+        if (st["format"] != "stencil" or lc["cg_update"] != st["iters_run"]
+                or any(v for k, v in lc.items() if k != "cg_update")):
+            raise AssertionError(f"stencil launches {lc}")
+        ell = main_runs.get("ell", {})
+        say(f"main stencil ok: {st['iters_run']} iterations, {st['status']} "
+            f"(stored lap2d_1024 on ELL: {ell.get('iters_run')}, "
+            f"{ell.get('status')}); {st['us_per_iter']:.1f} us per step")
+    except Exception:
+        traceback.print_exc()
+        failed.append("main stencil")
 
     # -- 5. times at the main-path shape ------------------------------------
     rows_out = []
@@ -920,19 +1350,12 @@ def main() -> int:
         B_sweep = np.random.default_rng(1).standard_normal(
             (max(SWEEP_BATCHES), eng.n))
 
-        def wall(plan, bk) -> float:
-            plan(bk)                             # warm the allocator
-            torch.cuda.synchronize()
-            t0 = now()
-            plan(bk)
-            torch.cuda.synchronize()
-            return now() - t0
-
         for kk in SWEEP_BATCHES:
             bk = B_sweep[:kk]
             plan = eng.plan(SolveSpec(method="pcg", iters=SWEEP_ITERS, batch=kk))
-            run_s = wall(plan, bk)
-            setup_s = wall(eng.plan(SolveSpec(method="pcg", iters=0, batch=kk)), bk)
+            run_s = warm_wall(plan, bk)
+            setup_s = warm_wall(eng.plan(SolveSpec(method="pcg", iters=0,
+                                                   batch=kk)), bk)
             us = (run_s - setup_s) / SWEEP_ITERS * 1e6
             # one matrix stream; 4k vectors in the p-fold, 7k + 1 in the update
             bound_us = (mat_bytes + (11 * kk + 1) * rows * e) \
@@ -1073,6 +1496,137 @@ def main() -> int:
     except Exception:
         traceback.print_exc()
         failed.append("times sptrsv_solve_dot")
+
+    # -- 5c. bcsr_spmm times at lap2d_1024's 8 x 8 blocks -------------------
+    try:
+        obj = bcsr_engine()._format_obj("bcsr")
+        bc, bl = obj.block_cols, obj.blocks
+        nbr, w, bm, bn = bl.shape
+        nbc = -(-obj.n_cols // bn)
+        e = bl.element_size()
+        gen = torch.Generator(device="cuda").manual_seed(4)
+        n = m_main.shape[0]
+        a = sp.csr_matrix((m_main.data, m_main.indices, m_main.indptr),
+                          shape=m_main.shape)
+        cases = {}
+        for r in (1, MAIN_BATCH):
+            X = torch.randn(r, nbc * bn, generator=gen, device="cuda",
+                            dtype=bl.dtype).T          # the solver layout
+            kern = lambda X=X: bcsr_spmm.bcsr_spmm(bc, bl, X, nbc=nbc)
+            plain = lambda X=X: bcsr_spmm.bcsr_spmm_plain(bc, bl, X)
+            nbytes = (bl.numel() * e + bc.numel() * 4 + nbc * bn * r * e
+                      + nbr * bm * r * e)
+            flops = 2 * bl.numel() * r
+            t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+            t_ops = flops / PEAK_FLOPS["float64"] * 1e3
+            cases[r] = dict(X=X, kern=kern, ms=device_ms(kern),
+                            eager=eager_ms(kern), plain_ms=device_ms(plain),
+                            nbytes=nbytes, bound_ms=max(t_bytes, t_ops),
+                            bound_by="bytes" if t_bytes >= t_ops
+                            else "operations")
+        # the library yardsticks (never called by the port), timed last: a
+        # capture they refuse may leave the stream unusable for captures
+        libs = {}
+        try:
+            bsr = a.tobsr(blocksize=(bm, bn))
+            libs["torch sparse BSR @ dense"] = torch.sparse_bsr_tensor(
+                torch.as_tensor(bsr.indptr, dtype=torch.int64),
+                torch.as_tensor(bsr.indices, dtype=torch.int64),
+                torch.as_tensor(bsr.data), size=a.shape).to("cuda")
+        except Exception as exc:
+            say(f"library: no sparse BSR tensor on the card ({exc!r})")
+        libs["torch sparse CSR @ dense"] = torch.sparse_csr_tensor(
+            torch.as_tensor(a.indptr, dtype=torch.int64),
+            torch.as_tensor(a.indices, dtype=torch.int64),
+            torch.as_tensor(a.data), size=a.shape).to("cuda")
+        for r, c in cases.items():
+            Xd = c["X"][:n].contiguous()
+            c["lib_ms"] = c["lib"] = None
+            for tag, mat in libs.items():
+                try:
+                    fn = lambda mat=mat, Xd=Xd: mat @ Xd
+                    diff = float((fn() - c["kern"]()[:n]).abs().max())
+                    torch.cuda.synchronize()
+                    c["lib_ms"], c["lib"] = eager_ms(fn), tag
+                    say(f"library {tag} R={r}: runs in float64, max abs diff "
+                        f"to the kernel {diff:.3e}")
+                    break
+                except Exception as exc:
+                    torch.cuda.synchronize()
+                    say(f"library {tag} R={r} not available: {exc!r}")
+        for r, c in cases.items():
+            try:
+                c["lib_ms"] = device_ms(lambda: libs[c["lib"]] @ c["X"][:n]
+                                        .contiguous()) if c["lib"] else None
+                c["lib_how"] = "CUDA-graph replay"
+            except Exception as exc:
+                torch.cuda.synchronize()
+                c["lib_how"] = f"eager, not capturable ({type(exc).__name__})"
+            say(f"time bcsr_spmm lap2d_1024 {bm}x{bn} R={r}: {c['ms']:.4f} ms "
+                f"on the card, {c['eager']:.4f} ms launched from Python (plain "
+                f"{c['plain_ms']:.4f} ms, bound {c['bound_ms']:.4f} ms by "
+                f"{c['bound_by']} ({c['nbytes']} bytes), library {c['lib']}: "
+                f"{c['lib_ms']} ms, {c.get('lib_how')})")
+        c = cases[1]
+        rows_out.append({
+            "name": "bcsr_spmm", "route": "cuda",
+            "source": SOURCES["bcsr_spmm"][0],
+            "replaces": SOURCES["bcsr_spmm"][1],
+            "launches": launches_bcsr.get("bcsr_spmm", 0),
+            "max_abs_err": main_errs.get("bcsr_spmm"),
+            "ms": c["ms"], "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],
+            "bound_by": c["bound_by"], "library_ms": c["lib_ms"],
+        })
+        if bcsr_main is not None:
+            wall_us = bcsr_main["us_per_iter"]
+            dev_us = 1e3 * c["ms"]
+            say(f"per iteration bcsr: {dev_us:.1f} us in bcsr_spmm on the card "
+                f"against {wall_us:.1f} us of wall time per step (the fold's "
+                "torch ops, cg_update, the host loop and its sync are the rest)")
+    except Exception:
+        traceback.print_exc()
+        failed.append("times bcsr_spmm")
+
+    # -- 5d. warm per-step cost of each format ------------------------------
+    try:
+        gen = torch.Generator(device="cuda").manual_seed(5)
+        eng_ell = AzulEngine(m_main, dtype=np.float64)
+        eng_st = AzulEngine(lap2d_stencil(MAIN_GRID), dtype=np.float64)
+        cells = [("lap2d_1024", eng_ell, "ell"), ("lap2d_1024", bcsr_engine(), "bcsr"),
+                 ("lap2d_1024", eng_ell, "sell"), ("lap2d_1024", eng_ell, "hyb"),
+                 ("lap2d_1024", eng_st, "stencil")]
+        if "eng" in skew_state:
+            cells += [("skew_2^20", skew_state["eng"], f)
+                      for f in ("hyb", "sell", "ell")]
+        per_step = {}
+        for k in (1, MAIN_BATCH):
+            for order in (cells, cells[::-1]):       # two passes, reversed
+                for mat, eng, fmt in order:
+                    bk = np.random.default_rng(1).standard_normal(
+                        (k, eng.n) if k > 1 else (eng.n,))
+                    per_step.setdefault(f"{mat} {fmt} k={k}", []).append(
+                        warm_step_us(eng, bk, fmt))
+        say("per step by format (us, warm unguarded pcg, "
+            f"{SWEEP_ITERS} steps minus 0, two passes): "
+            + json.dumps(per_step))
+        # the plain matvecs of the format layer on the card (graph replay)
+        mv = {}
+        for mat, eng, fmt in cells:
+            if fmt in ("ell", "bcsr"):
+                continue
+            fobj = eng.stencil if fmt == "stencil" else eng._format_obj(fmt)
+            matvec = format_stream_ops(fobj, fmt, eng.n_pad)[0]
+            for k in (1, MAIN_BATCH):
+                x = torch.randn(*((k,) if k > 1 else ()), eng.n_pad,
+                                generator=gen, device="cuda",
+                                dtype=torch.float64)
+                mv[f"{mat} {fmt} k={k}"] = device_ms(lambda: matvec(x))
+        say("plain matvec by format on the card (ms, CUDA-graph replay): "
+            + json.dumps(mv))
+        skew_state.clear()
+    except Exception:
+        traceback.print_exc()
+        failed.append("times formats")
 
     if failed:
         say("FAILED phases: " + ", ".join(failed))

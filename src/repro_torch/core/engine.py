@@ -1,28 +1,33 @@
 """AzulEngine: the public solve API of the port (local mode).
 
 Port of ``repro.core.engine`` for one device.  Given a square sparse
-matrix, the engine
+matrix (or a matrix-free ``Stencil``), the engine
 
   1. runs the host-side "task compiler": padded-ELL packing (row_pad and
      width_pad 8), the Jacobi inverse diagonal, and the per-matrix storage
-     format choice;
+     format choice (``format="auto"``: the JAX package's rule over modeled
+     matrix-stream words, cached on disk by ``kernels.autotune``);
   2. pins the packed operator on the device once (``device="cuda"`` by
-     default; ``device="cpu"`` runs the kernels' plain versions);
+     default; ``device="cpu"`` runs the kernels' plain versions), and
+     builds a SELL, HYB or BCSR container on the first plan that streams
+     it;
   3. lowers ``SolveSpec``s into cached ``SolvePlan``s
      (``engine.plan(spec)(b)``) whose fused substrate runs the hand-written
-     kernels: ``ell_spmv`` for the initial residual, then
+     kernels.  On padded ELL: ``ell_spmv`` for the initial residual, then
      ``ell_spmv_pfold_dot`` and ``cg_update`` once per iteration; for a
      batched plan (``SolveSpec(batch=k)``, ``plan(B)`` with B (k, n))
      their multi-RHS twins ``ell_spmm``, ``ell_spmm_pfold_dot`` and the
-     batched ``cg_update``.  With ``precond="block_ic0"`` the engine also
-     factors A on the host (IC(0) and both level schedules) and pins the
-     factors on the device; the fused IC(0) substrate then runs two
+     batched ``cg_update``.  On BCSR every matvec is a ``bcsr_spmm``
+     launch; SELL, HYB and the stencil stream the operator through plain
+     PyTorch matvecs (``spops``, ``stencil``); ``cg_update`` runs for
+     every format.  With ``precond="block_ic0"`` the engine also factors A
+     on the host (IC(0) and both level schedules) and pins the factors on
+     the device; the fused IC(0) substrate then runs two
      ``sptrsv_solve_dot`` launches per iteration (per lane of a batch) in
-     place of the Jacobi scaling.
+     place of the Jacobi scaling, with any stored format.
 
 Not ported yet, and refused with NotImplementedError naming the ROADMAP
-item: distributed meshes, formats other than padded ELL (including an
-``format="auto"`` choice of SELL or HYB).
+item: distributed meshes.
 """
 
 from __future__ import annotations
@@ -33,12 +38,17 @@ import torch
 from . import registry
 from ..device import DEFAULT_DEVICE, resolve_device, resolve_dtype
 from ..kernels.autotune import choose_format, modeled_format_words
-from .formats import CSR, ELL, ell_arrays_from_csr
-from .plan import PlanCache, SolvePlan, SolveSpec, canonicalize, check_format
+from .formats import (CSR, ELL, bcsr_from_csr, ell_arrays_from_csr,
+                      hyb_from_csr, pad_to, sell_from_csr)
+from .plan import PlanCache, SolvePlan, SolveSpec, canonicalize
 from .precond import ic0, make_fused_ic0_apply
 from .solvers import ensure_status
 from .spops import spmm_ell_padded, spmv_ell_padded
-from .substrate import fused_ic0_local_substrate, fused_local_substrate
+from .stencil import Stencil, stencil_diag, stencil_matvec
+from .substrate import (format_stream_ops, fused_ic0_local_substrate,
+                        fused_local_substrate)
+
+_FORMAT_KNOBS = ("auto", "ell", "sell", "hyb", "bcsr", "stencil")
 
 __all__ = ["AzulEngine"]
 
@@ -68,24 +78,32 @@ class AzulEngine:
 
     Parameters
     ----------
-    a : CSR                 square sparse matrix (host side)
+    a : CSR | Stencil       square sparse matrix (host side), or a
+                            matrix-free stencil operator
     mesh : None             distributed meshes are not ported yet
-    precond : "jacobi" | "block_ic0" | "none"
+    precond : "jacobi" | "block_ic0" | "none"  (a stencil takes "jacobi"
+                            or "none": block_ic0 needs stored nonzeros)
     dtype : float32 | float64 (numpy or torch spelling); default float32
-    row_pad / width_pad :   ELL padding multiples (8, as the JAX engine)
+    row_pad / width_pad :   ELL padding multiples (8, as the JAX engine);
+                            row_pad is also the SELL slice height and the
+                            BCSR block size
     fused : "auto" | True | False
         Fused-kernel substrate wherever the method/preconditioner pair
         supports it ("auto"/True); False runs the reference substrate --
         plain PyTorch, one op per solver line -- on the same device.
         For block_ic0, "auto" takes the fused IC(0) substrate on a CUDA
         device only, where its kernel launches (True forces it).
-    format : "auto" | "ell"
-        "auto" runs the JAX package's per-matrix format rule; a choice of
-        SELL or HYB raises NotImplementedError.
+    format : "auto" | "ell" | "sell" | "hyb" | "bcsr" | "stencil"
+        Operator storage format.  "auto" runs the per-matrix format rule
+        (``kernels.autotune.choose_format``): uniform rows stay on padded
+        ELL, skewed rows take SELL or HYB.  Explicit names pin the format;
+        "bcsr" is explicit only.  A ``Stencil`` operator is "stencil".
+        Per-plan override via ``SolveSpec(format=...)``.  The padded ELL
+        always builds for a stored matrix (it backs ``spmv`` and IC(0)).
     device : "cuda" (default) | "cpu"
     """
 
-    def __init__(self, a: CSR, mesh=None, precond: str = "jacobi",
+    def __init__(self, a: CSR | Stencil, mesh=None, precond: str = "jacobi",
                  dtype=np.float32, row_pad: int = 8, width_pad: int = 8,
                  fused="auto", format: str = "auto",
                  device=DEFAULT_DEVICE):
@@ -95,18 +113,45 @@ class AzulEngine:
                 "item 11)")
         if a.shape[0] != a.shape[1]:
             raise ValueError("engine expects a square matrix")
+        if format not in _FORMAT_KNOBS:
+            raise ValueError(
+                "format must be 'auto', 'ell', 'sell', 'hyb', 'bcsr' or "
+                f"'stencil', got {format!r}")
         self._configure(precond, fused, dtype, device)
+        is_stencil = isinstance(a, Stencil)
+        if is_stencil:
+            if registry.get_precond(precond).factorized:
+                raise ValueError(
+                    f"precond {precond!r} needs stored nonzeros to factor; "
+                    "stencil engines support 'jacobi' or 'identity'")
+            if format not in ("auto", "stencil"):
+                raise ValueError(
+                    f"format={format!r} conflicts with a matrix-free "
+                    "stencil operator")
+        elif format == "stencil":
+            raise ValueError("format='stencil' needs a Stencil operator")
+        self.a = a
+        self.stencil = a if is_stencil else None
+        self.format = format
+        self._row_pad = row_pad
+        n = a.shape[0]
+        if is_stencil:
+            # matrix-free: no stored nonzeros, no ELL; device state is the
+            # padded inverse diagonal (the stencil's diagonal is constant)
+            self.format_choice, self.format_words = "stencil", None
+            di = np.zeros(pad_to(max(n, 1), row_pad), self.dtype)
+            di[:n] = 1.0 / stencil_diag(a)
+            self._set_operator(None, None, di, n)
+            return
         if format == "auto":
-            choice, words = choose_format(a, slice_height=row_pad,
+            choice, words = choose_format(a, dtype=self.dtype,
+                                          slice_height=row_pad,
                                           row_pad=row_pad)
         else:
             choice = format
             words = modeled_format_words(a, slice_height=row_pad,
                                          row_pad=row_pad)
-        check_format(choice)
-        self.format, self.format_choice, self.format_words = format, choice, words
-        self.a = a
-        n = a.shape[0]
+        self.format_choice, self.format_words = choice, words
         cols, vals = ell_arrays_from_csr(a, row_pad=row_pad,
                                          width_pad=width_pad, dtype=self.dtype)
         dg = _host_diag(a, 0, n)
@@ -120,16 +165,24 @@ class AzulEngine:
     @classmethod
     def from_state(cls, cols: np.ndarray, vals: np.ndarray, dinv: np.ndarray,
                    n: int, precond: str = "jacobi", fused="auto",
-                   device=DEFAULT_DEVICE, ic0_factors=None) -> "AzulEngine":
+                   device=DEFAULT_DEVICE, ic0_factors=None,
+                   fmt_objs: dict | None = None) -> "AzulEngine":
         """An engine over an already packed operator: (n_pad, w) ELL
         ``cols``/``vals`` and the (n_pad,) inverse diagonal, as host
         arrays, and for ``precond="block_ic0"`` its ``IC0Factors`` on the
-        engine's device (see ``repro_torch.convert``)."""
+        engine's device (see ``repro_torch.convert``).  ``fmt_objs`` maps
+        "sell" / "hyb" / "bcsr" to containers of the same operator on the
+        engine's device, for plans with ``SolveSpec(format=...)``; the
+        engine has no host matrix to pack others from."""
         eng = cls.__new__(cls)
         eng._configure(precond, fused, vals.dtype, device)
         eng.format, eng.format_choice, eng.format_words = "ell", "ell", None
-        eng.a = None
+        eng.a = eng.stencil = None
         eng._set_operator(cols, vals, dinv, n)
+        for fmt, obj in (fmt_objs or {}).items():
+            if fmt not in ("sell", "hyb", "bcsr"):
+                raise ValueError(f"no format container for {fmt!r}")
+            eng._fmt_objs[fmt] = obj
         if (ic0_factors is not None) != (precond == "block_ic0"):
             raise ValueError("ic0_factors go with precond='block_ic0', and "
                              "only with it")
@@ -148,14 +201,19 @@ class AzulEngine:
         self.mode = "local"
         self.plans = PlanCache()
         self.last_solve_info: dict = {}
+        self._fmt_objs: dict = {}
 
     def _set_operator(self, cols, vals, dinv, n: int) -> None:
-        # torch.tensor copies: the engine never aliases a caller's array
+        """Pin the padded ELL (None for a stencil) and the inverse
+        diagonal; torch.tensor copies, so the engine never aliases a
+        caller's array."""
         dev, dt = self.device, self.torch_dtype
-        self.ell = ELL(torch.tensor(cols, dtype=torch.int32, device=dev),
-                       torch.tensor(vals, dtype=dt, device=dev), n, n)
+        self.ell = None
+        if cols is not None:
+            self.ell = ELL(torch.tensor(cols, dtype=torch.int32, device=dev),
+                           torch.tensor(vals, dtype=dt, device=dev), n, n)
         self.n = n
-        self.n_pad = self.ell.rows_padded
+        self.n_pad = len(dinv)
         self._dinv_pad = torch.tensor(dinv, dtype=dt, device=dev)
         self._ic0 = self._ic0_apply = None
 
@@ -165,6 +223,31 @@ class AzulEngine:
         self._ic0 = factors
         self._ic0_apply = make_fused_ic0_apply(factors, self.n, self.n_pad,
                                                self.torch_dtype)
+
+    def _format_obj(self, fmt: str):
+        """The device container of a non-ELL stored format, built on first
+        use and cached: plans that stay on ELL never pay the second
+        packing."""
+        obj = self._fmt_objs.get(fmt)
+        if obj is not None:
+            return obj
+        if not isinstance(self.a, CSR):
+            raise ValueError(f"format {fmt!r}: this engine has no host matrix "
+                             "to pack (pass the container to from_state)")
+        rp, dt, dev = self._row_pad, self.dtype, self.device
+        if fmt == "sell":
+            obj = sell_from_csr(self.a, slice_height=rp, row_pad=rp, dtype=dt,
+                                device=dev)
+            assert obj.rows_padded == self.n_pad
+        elif fmt == "hyb":
+            obj = hyb_from_csr(self.a, row_pad=rp, dtype=dt, device=dev)
+            assert obj.rows_padded == self.n_pad
+        elif fmt == "bcsr":
+            obj = bcsr_from_csr(self.a, bm=rp, bn=rp, dtype=dt, device=dev)
+        else:
+            raise ValueError(f"no format container for {fmt!r}")
+        self._fmt_objs[fmt] = obj
+        return obj
 
     # -- vector embedding ---------------------------------------------------
 
@@ -185,15 +268,29 @@ class AzulEngine:
 
     def spmv(self, x) -> np.ndarray:
         """y = A @ x on a global (n,) vector, or a (k, n) batch through the
-        multi-RHS matvec (plain PyTorch, one matrix gather for all k)."""
+        multi-RHS matvec (plain PyTorch, one matrix gather for all k; the
+        shifted adds for a stencil)."""
         xd = self.to_device_vec(np.asarray(x))
+        if self.stencil is not None:
+            return self.from_device_vec(stencil_matvec(self.stencil, xd,
+                                                       self.n_pad))
         return self.from_device_vec(_matvec(self.ell.cols, self.ell.vals, xd))
 
     def device_bytes(self) -> int:
-        """Device-resident operator footprint: ELL cols/vals, the inverse
-        diagonal and, for block-IC(0), both factors with their schedules
-        and the fused application's inverse diagonals and level lists."""
-        tensors = [self.ell.cols, self.ell.vals, self._dinv_pad]
+        """Device-resident operator footprint: ELL cols/vals (none for a
+        stencil), the inverse diagonal, the SELL/HYB/BCSR containers built
+        so far (their row-reduction plans included) and, for block-IC(0),
+        both factors with their schedules and the fused application's
+        inverse diagonals and level lists."""
+        tensors = [self._dinv_pad]
+        if self.ell is not None:
+            tensors += [self.ell.cols, self.ell.vals]
+        for obj in self._fmt_objs.values():
+            for field in obj:
+                if isinstance(field, torch.Tensor):
+                    tensors.append(field)
+                elif isinstance(field, tuple):      # row_groups
+                    tensors += [t for pair in field for t in pair]
         if self._ic0 is not None:
             f = self._ic0
             tensors += [f.ell_l.cols, f.ell_l.vals, f.sched_l.rows,
@@ -221,19 +318,36 @@ class AzulEngine:
 
     def _lower(self, spec: SolveSpec) -> SolvePlan:
         """Pick the substrate by capability lookup and close the program
-        over the device operands."""
+        over the device operands.  A non-ELL format streams the operator
+        through its own (matvec, fold) pair: ONE matvec closure serves
+        the fused substrate and the reference one."""
         sdef = registry.get_solver(spec.method)
         pdef = registry.get_precond(self.precond)
         kind = registry.substrate_kind(sdef, pdef, spec.fused)
-        cols, vals, dinv = self.ell.cols, self.ell.vals, self._dinv_pad
+        cols = vals = None
+        if self.ell is not None:
+            cols, vals = self.ell.cols, self.ell.vals
+        dinv = self._dinv_pad
+        stream = None
+        if spec.format != "ell":
+            fobj = (self.stencil if spec.format == "stencil"
+                    else self._format_obj(spec.format))
+            stream = format_stream_ops(fobj, spec.format, self.n_pad)
         sub = None
         if kind == "fused_ic0":
-            sub = fused_ic0_local_substrate(cols, vals, self._ic0_apply)
+            sub = fused_ic0_local_substrate(cols, vals, self._ic0_apply,
+                                            stream_ops=stream)
         elif kind == "fused":
             sub = fused_local_substrate(cols, vals,
-                                        dinv=dinv if pdef.uses_dinv else None)
+                                        dinv=dinv if pdef.uses_dinv else None,
+                                        stream_ops=stream)
+        if stream is not None:
+            matvec = stream[0]
+        else:
+            def matvec(x):
+                return _matvec(cols, vals, x)
         ctx = registry.SolveContext(
-            matvec=lambda x: _matvec(cols, vals, x),
+            matvec=matvec,
             psolve=pdef.local_apply(self), substrate=sub,
             iters=spec.iters, tol=spec.tol, max_iters=spec.max_iters,
             guard=spec.guard,

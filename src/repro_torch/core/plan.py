@@ -25,21 +25,7 @@ import numpy as np
 from . import registry
 
 __all__ = ["SolveSpec", "SolvePlan", "PlanCache", "canonicalize",
-           "chunk_spec", "check_format"]
-
-_FORMATS = ("ell", "sell", "hyb", "bcsr", "stencil")
-
-
-def check_format(fmt: str) -> None:
-    """Accept 'ell'; raise NotImplementedError for the JAX package's other
-    storage formats and ValueError for unknown names."""
-    if fmt not in _FORMATS:
-        raise ValueError(f"format must be 'auto' or one of "
-                         f"{', '.join(_FORMATS)}, got {fmt!r}")
-    if fmt != "ell":
-        raise NotImplementedError(
-            f"format {fmt!r} is not ported yet: only padded ELL runs so far "
-            "(ROADMAP Queue 1 item 6)")
+           "chunk_spec"]
 
 
 @dataclass(frozen=True)
@@ -58,7 +44,8 @@ class SolveSpec:
                iteration count and status)
     fused      None/'auto' (engine knob) | True | False
     guard      in-loop numerical health guards (default True)
-    format     None/'auto' (the engine's choice) | 'ell'
+    format     None/'auto' (the engine's format) | 'ell' | 'sell' |
+               'hyb' | 'bcsr' | 'stencil' (a stencil engine's only one)
     """
 
     method: str = "pcg"
@@ -99,11 +86,17 @@ def canonicalize(spec: SolveSpec, engine) -> SolveSpec:
     if spec.guard not in (True, False):
         raise ValueError(f"guard must be True or False, got {spec.guard!r}")
     guard = bool(spec.guard) and sdef.guarded
-    if spec.format not in (None, "auto"):
-        check_format(spec.format)
+    # None and 'auto' defer to the engine's format knob, which (when
+    # itself 'auto') resolved to the per-matrix choice at engine build
+    fmt_knob = spec.format
+    if fmt_knob in (None, "auto"):
+        fmt_knob = None if engine.format == "auto" else engine.format
+    fmt = registry.resolve_format(sdef, fmt_knob,
+                                  engine_choice=engine.format_choice,
+                                  stencil=engine.stencil is not None)
     return replace(spec, method=sdef.name, precond=pdef.name, iters=iters,
                    tol=tol, max_iters=max_iters, fused=fused, guard=guard,
-                   format=engine.format_choice)
+                   format=fmt)
 
 
 def chunk_spec(spec: SolveSpec, chunk: int, batch: int | None = None,

@@ -17,7 +17,11 @@ from typing import Any, Callable
 import torch
 
 __all__ = ["SolverDef", "PrecondDef", "SolveContext", "get_solver",
-           "get_precond", "resolve_fused", "substrate_kind"]
+           "get_precond", "resolve_fused", "resolve_format", "substrate_kind"]
+
+# Storage formats a solver's substrate can stream the operator from: the
+# substrate-phrased methods take any (matvec, fold) pair.
+_ALL_FORMATS = frozenset({"ell", "sell", "hyb", "bcsr", "stencil"})
 
 
 @dataclass
@@ -42,7 +46,8 @@ class SolverDef:
     update applies M^-1 in-stream (so a factorized preconditioner reaches
     its own fused kind); ``tolerance`` marks methods that read ``tol``/
     ``max_iters``; ``batched`` marks methods that take a stacked (k, n)
-    RHS; ``guarded`` marks methods with in-loop health guards."""
+    RHS; ``guarded`` marks methods with in-loop health guards;
+    ``formats`` lists the storage formats the method streams."""
 
     name: str
     run: Callable[[SolveContext, Any, Any], Any]   # (ctx, b, x0) -> SolveResult
@@ -51,6 +56,7 @@ class SolverDef:
     fused_local: frozenset = frozenset()
     fused_precond_apply: bool = False
     guarded: bool = False
+    formats: frozenset = _ALL_FORMATS
 
 
 @dataclass(frozen=True)
@@ -123,6 +129,32 @@ def resolve_fused(sdef: SolverDef, pdef: PrecondDef, knob,
             and pdef.fused_local_needs_kernels):
         supported = device.type == "cuda"
     return supported if knob in ("auto", True) else False
+
+
+def resolve_format(sdef: SolverDef, knob, engine_choice: str = "ell", *,
+                   stencil: bool = False) -> str:
+    """Resolve the storage-format knob (None/'auto' | a format name) to the
+    format a local plan streams the operator from: 'auto' takes the
+    engine's per-matrix choice (``engine_choice``, from
+    ``kernels.autotune.choose_format``).  A stencil engine has no stored
+    nonzeros, so 'stencil' is its only format; 'stencil' needs one."""
+    if knob not in (None, "auto") and knob not in _ALL_FORMATS:
+        raise ValueError(
+            f"format must be 'auto' or one of "
+            f"{', '.join(sorted(_ALL_FORMATS))}, got {knob!r}")
+    if stencil:
+        if knob not in (None, "auto", "stencil"):
+            raise ValueError(
+                f"format={knob!r} conflicts with a matrix-free stencil "
+                "engine (no stored nonzeros to re-lay-out)")
+        return "stencil"
+    if knob == "stencil":
+        raise ValueError("format='stencil' needs a stencil operator engine")
+    fmt = engine_choice if knob in (None, "auto") else knob
+    if fmt not in sdef.formats:
+        raise ValueError(
+            f"solver {sdef.name!r} does not support format {fmt!r}")
+    return fmt
 
 
 def substrate_kind(sdef: SolverDef, pdef: PrecondDef, fused: bool) -> str:

@@ -26,6 +26,13 @@ iteration consumes:
 * :func:`fused_ic0_local_substrate` is the same for block-IC(0): the
   preconditioner is two ``sptrsv_solve_dot`` calls, the second with rz
   in-stream.
+* :func:`format_stream_ops` gives the (matvec, fold_matvec_dot) pair of a
+  non-ELL storage format (SELL, HYB, BCSR, a matrix-free stencil); both
+  fused substrates take it as ``stream_ops`` in place of the ELL pair.
+  The engine hands the same matvec closure to the reference substrate, so
+  within a format the two differ only where the fused update's kernel
+  sums its dots in another order than PyTorch (on the CPU, nowhere: they
+  are bitwise equal).
 
 The pipelined recurrence and the shard flavors wait for their slices.
 """
@@ -39,7 +46,7 @@ import torch
 from ..kernels import ops
 
 __all__ = ["SolverSubstrate", "reference_substrate", "fused_local_substrate",
-           "fused_ic0_local_substrate"]
+           "fused_ic0_local_substrate", "format_stream_ops"]
 
 
 def _dot(u: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
@@ -114,13 +121,103 @@ def _lane_dot(u: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     return torch.stack([torch.sum(a * b) for a, b in zip(u, v)]).reshape(-1, 1)
 
 
-def fused_local_substrate(cols, vals, dinv=None) -> SolverSubstrate:
-    """Fused kernels over a local padded-ELL operator.
+def _fold_from_matvec(matvec):
+    """The p-fold around any matvec: p' = z + beta*p, one matrix pass, the
+    in-stream denominator dot(p', A p') reduced lane by lane.  The fold
+    of the non-ELL formats (a gather-time fold kernel for them is not
+    written)."""
+
+    def fold_matvec_dot(z, p, beta):
+        pn = z + beta * p
+        y = matvec(pn)
+        return pn, y, _lane_dot(pn, y)
+
+    return fold_matvec_dot
+
+
+def _bcsr_matvec(m, n_pad: int):
+    """The BCSR matvec on padded solver vectors through ``ops.bcsr_spmm``
+    (the kernel on a CUDA device, its plain version on the CPU).
+
+    The kernel reads x through its strides and reads rows past ``n_cols``
+    as 0, so the JAX substrate's zero embedding of x into the (nbc*bn,)
+    block rows becomes a view: ``v[:, None]`` for an (n_pad,) vector, the
+    transposed view ``v.T`` of a (k, n_pad) batch, cut to nbc*bn rows.
+    Where the engine builds the blocks (bm = bn = its row padding) nbc*bn
+    and nbr*bm both equal n_pad, and the result is a view too; otherwise
+    one small copy pads x or y."""
+    nbc = (m.n_cols + m.bn - 1) // m.bn
+    rows_x, rows_y = nbc * m.bn, m.block_cols.shape[0] * m.bm
+
+    def matvec(v):
+        xk = v.T if v.dim() == 2 else v[:, None]
+        if rows_x <= n_pad:
+            xk = xk[:rows_x]
+        else:
+            pad = xk.new_zeros(rows_x - n_pad, xk.shape[1])
+            xk = torch.cat([xk, pad])
+        y = ops.bcsr_spmm(m.block_cols, m.blocks, xk, nbc=nbc,
+                          x_valid=m.n_cols)
+        if rows_y >= n_pad:
+            y = y[:n_pad]
+        else:
+            y = torch.cat([y, y.new_zeros(n_pad - rows_y, y.shape[1])])
+        return y.T.contiguous() if v.dim() == 2 else y[:, 0]
+
+    return matvec
+
+
+def format_stream_ops(fmt_obj, fmt: str, n_pad: int):
+    """The (matvec, fold_matvec_dot) pair of a non-ELL storage format.
+
+    ``fmt_obj`` is the built container (``formats.SELL``/``HYB``/``BCSR``,
+    or a matrix-free ``stencil.Stencil``); vectors are padded solver
+    layout, (n_pad,) or (k, n_pad).  SELL, HYB and the stencil run their
+    plain PyTorch matvecs (``spops``, ``stencil``); BCSR runs the
+    ``bcsr_spmm`` kernel on a CUDA device.  The fold is
+    :func:`_fold_from_matvec` around the format's own matvec.
+    """
+    from . import spops
+
+    if fmt == "stencil":
+        from .stencil import stencil_matvec
+
+        def matvec(v):
+            return stencil_matvec(fmt_obj, v, n_pad)
+
+    elif fmt == "sell":
+
+        def matvec(v):
+            if v.dim() == 2:
+                return spops.spmm_sell_flat(fmt_obj, v)
+            return spops.spmv_sell_flat(fmt_obj, v)
+
+    elif fmt == "hyb":
+
+        def matvec(v):
+            if v.dim() == 2:
+                return spops.spmm_hyb_padded(fmt_obj, v)
+            return spops.spmv_hyb_padded(fmt_obj, v)
+
+    elif fmt == "bcsr":
+        matvec = _bcsr_matvec(fmt_obj, n_pad)
+    else:
+        raise ValueError(f"unknown stream format {fmt!r}")
+    return matvec, _fold_from_matvec(matvec)
+
+
+def fused_local_substrate(cols, vals, dinv=None,
+                          stream_ops=None) -> SolverSubstrate:
+    """Fused kernels over a local operator.
 
     ``cols``/``vals``: (rows_p, w) square padded ELL; ``dinv``: (rows_p,)
     Jacobi inverse diagonal, or None for the identity preconditioner.
-    Vectors are (rows_p,) or (k, rows_p)."""
-    matvec, fold_matvec_dot = _ell_stream_ops(cols, vals)
+    Vectors are (rows_p,) or (k, rows_p).  ``stream_ops`` replaces the ELL
+    matrix stream with a non-ELL format's pair
+    (:func:`format_stream_ops`); ``cg_update`` does not depend on the
+    format."""
+    matvec, fold_matvec_dot = (stream_ops if stream_ops is not None
+                               else _ell_stream_ops(cols, vals))
 
     def psolve(r):
         return r * dinv if dinv is not None else r
@@ -132,7 +229,8 @@ def fused_local_substrate(cols, vals, dinv=None) -> SolverSubstrate:
                            fold_matvec_dot, update)
 
 
-def fused_ic0_local_substrate(cols, vals, apply_dot) -> SolverSubstrate:
+def fused_ic0_local_substrate(cols, vals, apply_dot,
+                              stream_ops=None) -> SolverSubstrate:
     """Fused kernels over a local padded-ELL operator, for
     ``precond="block_ic0"``.
 
@@ -144,8 +242,11 @@ def fused_ic0_local_substrate(cols, vals, apply_dot) -> SolverSubstrate:
     lane by lane through the 1-D application, where the JAX package
     vmaps: the factors are shared, each lane is its own solve, and lane
     j's bits do not depend on k.  rz comes back as (k, 1).
+    ``stream_ops`` replaces the ELL matrix stream as in
+    :func:`fused_local_substrate`.
     """
-    matvec, fold_matvec_dot = _ell_stream_ops(cols, vals)
+    matvec, fold_matvec_dot = (stream_ops if stream_ops is not None
+                               else _ell_stream_ops(cols, vals))
 
     def psolve(r):
         if r.dim() == 2:

@@ -53,6 +53,8 @@ _SIGNATURES = {
     "repro_sptrsv_solve_dot": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                                _I32, _I32, _I32, _P),
     "repro_sptrsv_coresident": (),     # -> blocks, or minus the CUDA error
+    "repro_bcsr_spmm": (_P, _P, _P, _P, _I64, _I32, _I32, _I32, _I32,
+                        _I64, _I64, _I64, _I64, _I64, _P),
 }
 
 _LIB = None

@@ -15,13 +15,15 @@ from __future__ import annotations
 import torch
 
 from . import ref
+from . import bcsr_spmm as _bcsr_spmm
 from . import ell_spmv as _ell_spmv
 from . import spmv_dot as _spmv_dot
 from . import sptrsv as _sptrsv
 from . import vecops as _vecops
 
 __all__ = ["ell_spmv", "ell_spmm", "ell_spmv_pfold_dot", "ell_spmm_pfold_dot",
-           "cg_update", "sptrsv_solve_pack", "sptrsv_solve_dot", "KERNELS",
+           "cg_update", "sptrsv_solve_pack", "sptrsv_solve_dot", "bcsr_spmm",
+           "KERNELS",
            "launch_counts", "reset_launch_counts"]
 
 # name -> the wrapper that launches it; the 1-D and the batched (k, n)
@@ -34,6 +36,7 @@ KERNELS = {
     "ell_spmm_pfold_dot": _spmv_dot.ell_spmm_pfold_dot,
     "cg_update_batched": _vecops.cg_update_batched,
     "sptrsv_solve_dot": _sptrsv.sptrsv_solve_dot,
+    "bcsr_spmm": _bcsr_spmm.bcsr_spmm,
 }
 
 
@@ -102,6 +105,21 @@ def sptrsv_solve_dot(cols, vals, dinv, b, sched_rows, wdot=None,
         wdot = torch.zeros(rows_p, dtype=vals.dtype)
     return ref.sptrsv_solve_dot_ref(cols, vals, dinv, b, sched_rows, wdot,
                                     n_rows)
+
+
+def bcsr_spmm(block_cols, blocks, x, nbc: int | None = None,
+              x_valid: int | None = None):
+    """Block-sparse x dense multi-RHS: blocks (nbr, w, bm, bn), x
+    (nbc*bn, R) -> (nbr*bm, R); ``nbc`` asserts x is exactly (nbc*bn, R).
+    Rows of x at or past ``x_valid`` read as 0 (default: all rows)."""
+    if x.is_cuda:
+        return _bcsr_spmm.bcsr_spmm(block_cols, blocks, x, nbc=nbc,
+                                    x_valid=x_valid)
+    _bcsr_spmm.check_nbc(blocks, x, nbc)
+    if x_valid is not None and x_valid < x.shape[0]:
+        x = torch.cat([x[:x_valid], x.new_zeros(x.shape[0] - x_valid,
+                                                x.shape[1])])
+    return ref.bcsr_spmm_ref(block_cols, blocks, x)
 
 
 def launch_counts() -> dict:

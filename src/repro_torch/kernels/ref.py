@@ -15,7 +15,8 @@ from __future__ import annotations
 import torch
 
 __all__ = ["ell_spmv_ref", "ell_spmm_ref", "ell_spmv_pfold_dot_ref",
-           "ell_spmm_pfold_dot_ref", "cg_update_ref", "sptrsv_solve_dot_ref"]
+           "ell_spmm_pfold_dot_ref", "cg_update_ref", "sptrsv_solve_dot_ref",
+           "bcsr_spmm_ref"]
 
 
 def ell_spmv_ref(cols: torch.Tensor, vals: torch.Tensor,
@@ -29,6 +30,22 @@ def ell_spmm_ref(cols: torch.Tensor, vals: torch.Tensor,
     """Multi-RHS SpMM in the solver layout: x (k, n) -> Y (k, rows_p),
     Y[j, r] = sum_w vals[r, w] * x[j, cols[r, w]]."""
     return torch.sum(vals * x[:, cols], dim=-1)
+
+
+def bcsr_spmm_ref(block_cols: torch.Tensor, blocks: torch.Tensor,
+                  x: torch.Tensor) -> torch.Tensor:
+    """Block-sparse (BCSR) times multi-RHS dense.
+
+    block_cols: (nbr, w) int32
+    blocks:     (nbr, w, bm, bn)
+    x:          (nbc * bn, R)
+    returns     (nbr * bm, R)
+    """
+    nbr, w, bm, bn = blocks.shape
+    xr = x.reshape(-1, bn, x.shape[-1])          # (nbc, bn, R)
+    xg = xr[block_cols]                          # (nbr, w, bn, R)
+    y = torch.einsum("iwmn,iwnr->imr", blocks, xg)
+    return y.reshape(nbr * bm, x.shape[-1])
 
 
 def ell_spmv_pfold_dot_ref(cols, vals, z, p, beta):

@@ -4,10 +4,13 @@
         --method pcg_tol --tol 1e-8
 
 runs on the card (``--device cuda``, the default); ``--device cpu`` runs
-the kernels' plain versions on the host.  The flags and the printed JSON
-fields are those of ``repro.launch.solve`` for the options ported so far
-(``device`` is added); ``b = A x_true`` with ``x_true`` from
-``default_rng(0)``, the solve in float64.
+the kernels' plain versions on the host.  ``--format`` picks the storage
+format (``auto`` runs the per-matrix rule); ``--matrix stencil:lap2d_1024``
+(or ``stencil:lap3d_64``) solves a matrix-free stencil operator.  The
+flags and the printed JSON fields are those of ``repro.launch.solve`` for
+the options ported so far (``device`` is added); ``b = A x_true`` with
+``x_true`` from ``default_rng(0)`` (``b = engine.spmv(x_true)`` for a
+stencil), the solve in float64.
 """
 
 from __future__ import annotations
@@ -33,7 +36,7 @@ def main(argv=None):
     ap.add_argument("--fused", default="auto", choices=("auto", "on", "off"),
                     help="fused-substrate knob (auto = on where supported)")
     ap.add_argument("--format", default="auto", dest="fmt",
-                    choices=("auto", "ell"),
+                    choices=("auto", "ell", "sell", "hyb", "bcsr"),
                     help="operator storage format (auto = per-matrix rule)")
     ap.add_argument("--no-guard", action="store_true",
                     help="disable in-loop numerical health guards (status "
@@ -47,18 +50,29 @@ def main(argv=None):
     from ..core.plan import SolveSpec
     from ..data.matrices import suite
 
-    mats = suite("small")
-    if args.matrix not in mats:
-        mats.update(suite("large"))
-    m = mats[args.matrix]
+    if args.matrix.startswith("stencil:"):
+        # a matrix-free operator, e.g. stencil:lap2d_1024: no assembled CSR
+        from ..core.stencil import lap2d_stencil, lap3d_stencil
+        kind, _, size = args.matrix[len("stencil:"):].partition("_")
+        m = {"lap2d": lap2d_stencil, "lap3d": lap3d_stencil}[kind](int(size))
+    else:
+        mats = suite("small")
+        if args.matrix not in mats:
+            mats.update(suite("large"))
+        m = mats[args.matrix]
 
     rng = np.random.default_rng(0)
     x_true = rng.standard_normal(m.shape[0])
     fused = {"auto": "auto", "on": True, "off": False}[args.fused]
     eng = AzulEngine(m, precond=args.precond, dtype=np.float64, fused=fused,
                      format=args.fmt, device=args.device)
-    a = sp.csr_matrix((m.data, m.indices, m.indptr), shape=m.shape)
-    b = a @ x_true
+    if hasattr(m, "indptr"):
+        a = sp.csr_matrix((m.data, m.indices, m.indptr), shape=m.shape)
+        b = a @ x_true
+        nnz = m.nnz
+    else:
+        b = np.asarray(eng.spmv(x_true))   # matrix-free: no CSR to multiply
+        nnz = m.nnz_equiv
 
     spec = SolveSpec(method=args.method, iters=args.iters, tol=args.tol,
                      max_iters=args.max_iters, fused=fused,
@@ -67,7 +81,7 @@ def main(argv=None):
     x, norms = plan(b)
     rel = float(np.linalg.norm(x - x_true) / np.linalg.norm(x_true))
     out = {
-        "matrix": args.matrix, "n": m.shape[0], "nnz": m.nnz,
+        "matrix": args.matrix, "n": m.shape[0], "nnz": nnz,
         "method": args.method, "precond": args.precond,
         "iters": args.iters, "mode": eng.mode,
         "substrate": plan.info["substrate"],

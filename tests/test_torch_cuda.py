@@ -13,7 +13,11 @@ batched kernels' lane j does not depend on k: it equals a k = 1 call on
 lane j's inputs bit for bit, in every output.  ``sptrsv_solve_dot`` is
 held to its plain version on random lower-triangular matrices, a chain, a
 diagonal and IC(0) factors, is bitwise the same on a second run, and
-leaves padded rows 0.
+leaves padded rows 0.  ``bcsr_spmm`` is held to its plain version at the
+JAX sweep shapes and the engine's 8 x 8 blocks, lane by lane bitwise
+independent of R; the SELL and HYB matvecs (plain PyTorch, fixed-order
+row sums) repeat bit for bit, lane j of a batch equals its solo call, and
+both equal the CPU's bits; plans on every format reach the CPU's counts.
 """
 
 import numpy as np
@@ -28,7 +32,9 @@ from repro_torch.core.formats import csr_from_scipy, ell_from_csr
 from repro_torch.core.levels import build_schedule
 from repro_torch.core.precond import _inv_diag, ic0
 from repro_torch.data.matrices import laplacian_2d
-from repro_torch.kernels import ell_spmv, ops, spmv_dot, sptrsv, vecops
+from repro_torch.core import formats, spops
+from repro_torch.data.matrices import skew_spd
+from repro_torch.kernels import bcsr_spmm, ell_spmv, ops, spmv_dot, sptrsv, vecops
 
 pytestmark = pytest.mark.gpu
 
@@ -138,7 +144,8 @@ def test_pcg_tol_on_the_card(cuda, name, iters):
     assert abs(got - iters) <= 1 and plan.last_status_names == "converged"
     assert counts == {"ell_spmv": 1, "ell_spmv_pfold_dot": got, "cg_update": got,
                       "ell_spmm": 0, "ell_spmm_pfold_dot": 0,
-                      "cg_update_batched": 0, "sptrsv_solve_dot": 0}
+                      "cg_update_batched": 0, "sptrsv_solve_dot": 0,
+                      "bcsr_spmm": 0}
     assert np.isfinite(x).all() and norms.shape == (401,)
 
 
@@ -262,7 +269,8 @@ def test_batched_plan_on_the_card(cuda, precond):
     assert plan.last_status_names == ["converged"] * 4
     assert counts == {"ell_spmv": 0, "ell_spmv_pfold_dot": 0, "cg_update": 0,
                       "ell_spmm": 1, "ell_spmm_pfold_dot": steps,
-                      "cg_update_batched": steps, "sptrsv_solve_dot": 0}
+                      "cg_update_batched": steps, "sptrsv_solve_dot": 0,
+                      "bcsr_spmm": 0}
     assert x.shape == (4, m.shape[0]) and norms.shape == (401, 4)
     a = sp.csr_matrix((m.data, m.indices, m.indptr), shape=m.shape)
     res = np.linalg.norm(b - (a @ x.T).T, axis=1) / np.linalg.norm(b, axis=1)
@@ -392,3 +400,122 @@ def test_block_ic0_plan_on_the_card(cuda, name, batch):
     bs = np.atleast_2d(b)
     res = np.linalg.norm(bs - (a @ xs.T).T, axis=1) / np.linalg.norm(bs, axis=1)
     assert np.all(res <= 1e-7)
+
+
+# -- the format portfolio: bcsr_spmm, SELL and HYB matvecs, plans ------------
+
+
+def _bcsr(n, density, bm, bn, dtype, seed, device):
+    a = sp.random(n, n, density=density, random_state=seed, format="csr")
+    a.setdiag(2.0)
+    b = formats.bcsr_from_csr(csr_from_scipy(a.tocsr()), bm=bm, bn=bn,
+                              dtype=np.float64, device=device)
+    return b.block_cols, b.blocks.to(dtype), -(-n // bn)
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+@pytest.mark.parametrize("bm,bn,r", [(8, 16, 4), (8, 128, 8), (16, 32, 16),
+                                     (8, 8, 1), (8, 8, 8), (4, 8, 17)])
+def test_bcsr_spmm_kernel_matches_plain(cuda, bm, bn, r, dtype):
+    bc, bl, nbc = _bcsr(1003, 0.01, bm, bn, dtype, bm * bn + r, cuda)
+    g = torch.Generator(device=cuda).manual_seed(r)
+    x = torch.randn(nbc * bn, r, generator=g, device=cuda, dtype=dtype)
+    before = bcsr_spmm.bcsr_spmm.launches
+    y = bcsr_spmm.bcsr_spmm(bc, bl, x, nbc=nbc)
+    torch.cuda.synchronize()
+    assert bcsr_spmm.bcsr_spmm.launches == before + 1
+    _close((y,), (bcsr_spmm.bcsr_spmm_plain(bc, bl, x),), dtype)
+    # a second launch and the lanes-major layout give the same bits
+    assert torch.equal(y, bcsr_spmm.bcsr_spmm(bc, bl, x, nbc=nbc))
+    xt = x.T.contiguous().T
+    yt = bcsr_spmm.bcsr_spmm(bc, bl, xt, nbc=nbc)
+    assert yt.stride(0) == 1 or r == 1
+    assert torch.equal(yt, y)
+    # lane j of the R-wide call is the R = 1 call on lane j
+    for j in range(r):
+        assert torch.equal(y[:, j: j + 1],
+                           bcsr_spmm.bcsr_spmm(bc, bl, x[:, j: j + 1].contiguous()))
+    # rows past x_valid read as 0
+    xv = x.clone()
+    xv[nbc * bn // 2:] = 0
+    assert torch.equal(bcsr_spmm.bcsr_spmm(bc, bl, x, x_valid=nbc * bn // 2),
+                       bcsr_spmm.bcsr_spmm(bc, bl, xv))
+
+
+def test_bcsr_wrapper_checks_operands(cuda):
+    bc, bl, nbc = _bcsr(200, 0.05, 8, 8, torch.float64, 1, cuda)
+    x = torch.ones(nbc * 8, 2, dtype=torch.float64, device=cuda)
+    with pytest.raises(ValueError, match="incompatible with nbc"):
+        bcsr_spmm.bcsr_spmm(bc, bl, x, nbc=nbc + 1)
+    with pytest.raises(ValueError, match="incompatible with nbc"):
+        ops.bcsr_spmm(bc, bl, x[:-8], nbc=nbc)
+    with pytest.raises(ValueError, match="float32"):
+        bcsr_spmm.bcsr_spmm(bc, bl, x.float())
+    with pytest.raises(TypeError, match="cols_block"):
+        bcsr_spmm.bcsr_spmm(bc.long(), bl, x)
+    with pytest.raises(ValueError, match="strides"):
+        bcsr_spmm.bcsr_spmm(bc, bl, torch.ones(nbc * 8, 4, dtype=torch.float64,
+                                               device=cuda)[:, ::2])
+    with pytest.raises(ValueError, match="bn <= 128"):
+        bcsr_spmm.bcsr_spmm(bc[:, :1].contiguous(),
+                            torch.ones(bc.shape[0], 1, 8, 256,
+                                       dtype=torch.float64, device=cuda),
+                            torch.ones(256, 1, dtype=torch.float64, device=cuda))
+
+
+@pytest.mark.parametrize("name", ["skew_1k", "rmat_1k"])
+def test_sell_hyb_matvecs_deterministic_on_card(cuda, name):
+    """No float atomics: two calls are bitwise equal, lane j of k = 8 is
+    the solo call on lane j, and the bits equal the CPU's (elementwise
+    multiplies and adds in a fixed order give the same IEEE results)."""
+    m = suite("small")[name]
+    x = torch.from_numpy(np.random.default_rng(5).standard_normal((8, 1000)))
+    for build, mv, mm in ((formats.sell_from_csr, spops.spmv_sell_flat,
+                           spops.spmm_sell_flat),
+                          (formats.hyb_from_csr, spops.spmv_hyb_padded,
+                           spops.spmm_hyb_padded)):
+        on_card = build(m, dtype=np.float64, device=cuda)
+        on_cpu = build(m, dtype=np.float64, device="cpu")
+        xc = x.to(cuda)
+        wide = mm(on_card, xc)
+        assert torch.equal(wide, mm(on_card, xc))
+        for j in range(8):
+            assert torch.equal(wide[j], mv(on_card, xc[j]))
+            assert torch.equal(wide[j], mm(on_card, xc[j: j + 1])[0])
+        assert torch.equal(wide.cpu(), mm(on_cpu, x))
+
+
+@pytest.mark.parametrize("name,fmt", [
+    ("skew_1k", "auto"), ("skew_1k", "sell"), ("skew_1k", "bcsr"),
+    ("rmat_1k", "auto"), ("lap2d_32", "bcsr"), ("skew_96", "hyb")])
+def test_format_plans_on_the_card(cuda, name, fmt):
+    """pcg_tol on each format on the card: the CPU's count within one (the
+    dots sum in another order), the same status on both substrates, and
+    the launches of the format's path: bcsr_spmm once per matvec (loop
+    steps + 1), no ELL kernel; SELL/HYB only cg_update."""
+    m = (skew_spd(96, hubs=3, hub_nnz=30, seed=1) if name == "skew_96"
+         else suite("small")[name])
+    a = sp.csr_matrix((m.data, m.indices, m.indptr), shape=m.shape)
+    b = a @ np.random.default_rng(0).standard_normal(m.shape[0])
+    spec = SolveSpec(method="pcg_tol", tol=1e-8, max_iters=400)
+    cpu = AzulEngine(m, dtype=np.float64, format=fmt, device="cpu").plan(spec)
+    cpu(b)
+    eng = AzulEngine(m, dtype=np.float64, format=fmt)
+    plan = eng.plan(spec)
+    ops.reset_launch_counts()
+    x, _ = plan(b)
+    counts = ops.launch_counts()
+    steps = int(plan.last_iters)
+    assert plan.info["format"] == cpu.info["format"]
+    assert abs(steps - int(cpu.last_iters)) <= 1
+    assert plan.last_status_names == "converged"
+    assert counts["cg_update"] == steps
+    bcsr = plan.info["format"] == "bcsr"
+    assert counts["bcsr_spmm"] == (steps + 1 if bcsr else 0)
+    assert counts["ell_spmv"] == counts["ell_spmv_pfold_dot"] == 0
+    assert np.linalg.norm(b - a @ x) / np.linalg.norm(b) <= 1e-7
+    ref = eng.plan(SolveSpec(method="pcg_tol", tol=1e-8, max_iters=400,
+                             fused=False))
+    ref(b)
+    assert ref.last_status_names == "converged"
+    assert abs(int(ref.last_iters) - steps) <= 1

@@ -20,6 +20,7 @@ import torch
 from repro_torch import convert
 from repro_torch.core import formats
 from repro_torch.core.engine import AzulEngine
+from repro_torch.core.stencil import lap2d_stencil
 from repro_torch.data.matrices import laplacian_2d
 from repro_torch.device import resolve_device
 from repro_torch.launch import solve as solve_cli
@@ -46,7 +47,7 @@ for name in names:
     importlib.import_module(name)
 bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "repro"))
 assert not bad, bad
-print(len(names))
+print(" ".join(names), len(names))
 """
 
 
@@ -55,7 +56,10 @@ def test_port_imports_without_jax_or_repro():
     r = subprocess.run([sys.executable, "-c", _IMPORT_ALL], env=env,
                        capture_output=True, text=True, timeout=300)
     assert r.returncode == 0, r.stderr[-3000:]
-    assert int(r.stdout.split()[-1]) >= 15      # every module was imported
+    assert int(r.stdout.split()[-1]) >= 17      # every module was imported
+    for name in ("repro_torch.core.stencil", "repro_torch.kernels.bcsr_spmm",
+                 "repro_torch.kernels.autotune", "repro_torch.convert"):
+        assert name in r.stdout.split(), name
 
 
 def _imported_modules(path: Path):
@@ -87,8 +91,9 @@ def test_no_wall_clock_reads(path):
 
 def test_entry_points_default_to_cuda():
     for fn in (AzulEngine.__init__, AzulEngine.from_state,
-               convert.engine_state_from_numpy, formats.ell_from_csr,
-               resolve_device):
+               convert.engine_state_from_numpy, convert.format_from_numpy,
+               formats.ell_from_csr, formats.sell_from_csr,
+               formats.hyb_from_csr, formats.bcsr_from_csr, resolve_device):
         assert inspect.signature(fn).parameters["device"].default == "cuda", fn
     m = laplacian_2d(4)
     if torch.cuda.is_available():
@@ -98,7 +103,11 @@ def test_entry_points_default_to_cuda():
     with pytest.raises(RuntimeError, match="cuda"):
         AzulEngine(m)
     with pytest.raises(RuntimeError, match="cuda"):
-        formats.ell_from_csr(m)
+        AzulEngine(lap2d_stencil(4))
+    for build in (formats.ell_from_csr, formats.sell_from_csr,
+                  formats.hyb_from_csr, formats.bcsr_from_csr):
+        with pytest.raises(RuntimeError, match="cuda"):
+            build(m)
     with pytest.raises(RuntimeError, match="cuda"):
         convert.engine_state_from_numpy(np.zeros((8, 1), np.int32),
                                         np.zeros((8, 1)), np.ones(8), 8, 8)

@@ -20,7 +20,7 @@ from repro.kernels import ref as jref
 from repro.kernels.ell_spmv import ell_spmv as pallas_ell_spmv
 from repro.kernels.spmv_dot import ell_spmv_pfold_dot as pallas_pfold_dot
 from repro.kernels.vecops import cg_update as pallas_cg_update
-from repro_torch.kernels import ell_spmv, ops, spmv_dot, sptrsv, vecops
+from repro_torch.kernels import bcsr_spmm, ell_spmv, ops, spmv_dot, sptrsv, vecops
 
 TOL = dict(rtol=1e-12, atol=1e-12)
 
@@ -103,6 +103,7 @@ def test_plain_versions_sit_beside_the_kernels():
     assert spmv_dot.ell_spmm_pfold_dot_plain is ops.ref.ell_spmm_pfold_dot_ref
     assert vecops.cg_update_plain is ops.ref.cg_update_ref
     assert sptrsv.sptrsv_solve_dot_plain is ops.ref.sptrsv_solve_dot_ref
+    assert bcsr_spmm.bcsr_spmm_plain is ops.ref.bcsr_spmm_ref
 
 
 def test_cpu_tensors_never_count_as_launches():
@@ -118,10 +119,14 @@ def test_cpu_tensors_never_count_as_launches():
     ops.cg_update(torch.ones(3, 1), vb, vb, vb, vb, v)
     sched = torch.arange(64).reshape(64, 1)        # a diagonal: one row a level
     ops.sptrsv_solve_dot(_t(cols), _t(vals), v, v, sched, v)
+    bc = torch.zeros(8, 2, dtype=torch.int32)
+    ops.bcsr_spmm(bc, torch.ones(8, 2, 8, 8, dtype=torch.float64),
+                  torch.ones(64, 3, dtype=torch.float64), nbc=8)
     assert ops.launch_counts() == before
     assert set(before) == {"ell_spmv", "ell_spmv_pfold_dot", "cg_update",
                            "ell_spmm", "ell_spmm_pfold_dot",
-                           "cg_update_batched", "sptrsv_solve_dot"}
+                           "cg_update_batched", "sptrsv_solve_dot",
+                           "bcsr_spmm"}
 
 
 def test_kernel_wrappers_refuse_cpu_tensors():
@@ -147,6 +152,10 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     pack = sptrsv.solve_pack(np.arange(64).reshape(64, 1), 64, 64, "cpu")
     with pytest.raises(ValueError, match="CUDA"):
         sptrsv.sptrsv_solve_dot(c, v, x, x, pack, x)
+    with pytest.raises(ValueError, match="CUDA"):
+        bcsr_spmm.bcsr_spmm(torch.zeros(8, 2, dtype=torch.int32),
+                            torch.ones(8, 2, 8, 8, dtype=torch.float64),
+                            torch.ones(64, 3, dtype=torch.float64))
     assert ops.launch_counts() == before
 
 
@@ -175,6 +184,15 @@ def test_kernel_wrappers_validate_shapes():
         sptrsv.solve_pack(-np.ones((2, 8), np.int32), 64, 64, "cpu")
     with pytest.raises(ValueError, match="n_rows"):
         sptrsv.solve_pack(np.arange(64).reshape(8, 8), 65, 64, "cpu")
+    bc = torch.zeros(8, 2, dtype=torch.int32)
+    bl = torch.ones(8, 2, 8, 8, dtype=torch.float64)
+    with pytest.raises(ValueError, match="incompatible with bn"):
+        bcsr_spmm.bcsr_spmm(bc, bl, torch.ones(63, 3, dtype=torch.float64))
+    with pytest.raises(ValueError, match="incompatible with nbc"):
+        bcsr_spmm.bcsr_spmm(bc, bl, torch.ones(64, 3, dtype=torch.float64),
+                            nbc=7)
+    with pytest.raises(ValueError, match="block_cols"):
+        bcsr_spmm.bcsr_spmm(bc[:4], bl, torch.ones(64, 3, dtype=torch.float64))
 
 
 def test_group_size_covers_the_row():

@@ -28,6 +28,7 @@ from repro_torch.core.engine import AzulEngine
 from repro_torch.core.formats import csr_from_scipy as tcsr
 from repro_torch.core.plan import SolveSpec
 from repro_torch.data import matrices
+from repro_torch.kernels import autotune
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # the JAX package's pcg_tol counts on these (ROADMAP Recent, BENCH_pcg.json)
@@ -186,18 +187,24 @@ def test_plan_builds_once_per_canonical_spec(problems):
     assert eng.substrate_kind("pcg_tol", fused=False) == "reference"
 
 
-def test_unported_options_raise(problems):
+def test_unported_options_raise(problems, tmp_path, monkeypatch):
+    monkeypatch.setenv("REPRO_TORCH_AUTOTUNE_CACHE", str(tmp_path / "at.json"))
+    autotune.clear_memo()
     _, pm, _ = problems["lap2d_32"]
     with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
         AzulEngine(pm, mesh=object(), device="cpu")
+    # the storage formats are ported: each builds and resolves
     for fmt in ("sell", "hyb", "bcsr"):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-            AzulEngine(pm, format=fmt, device="cpu")
+        eng = AzulEngine(pm, format=fmt, device="cpu")
+        assert eng.format_choice == fmt
+        assert eng.plan(SolveSpec(method="pcg", iters=2)).info["format"] == fmt
     with pytest.raises(ValueError, match="format"):
         AzulEngine(pm, format="coo", device="cpu")
     # the format rule picks HYB for the skewed matrix, as the JAX one does
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        AzulEngine(matrices.suite("small")["skew_1k"], device="cpu")
+    eng = AzulEngine(matrices.suite("small")["skew_1k"], device="cpu")
+    assert eng.format_choice == "hyb"
+    assert eng.plan(SolveSpec(method="pcg", iters=2)).info["format"] == "hyb"
+    autotune.clear_memo()
     eng = AzulEngine(pm, device="cpu")
     # batched RHS are ported: only the JAX package's bad batch values raise
     for batch in (0, -2, "4", 2.0):
