@@ -28,7 +28,21 @@ prints no result line):
                8 x 8 blocks with R = 1 and 8: within the tolerance; a
                second launch, the row-major and the lanes-major layout, and
                lane j against the R = 1 call bitwise equal; an x one block
-               column short must raise.
+               column short must raise.  The four kernels that only
+               ``kernels.ops`` reaches, in both types: ``ell_spmv_dot``,
+               ``ell_spmm_dot`` (k = 3, and k = 8 at the main shape; the
+               JAX layout (rows_p, k) and the transposed view of the
+               solver's (k, rows_p), Y in x's layout) and ``axpy_dot`` at
+               the ragged sizes and the main shape: within the tolerance,
+               axpy_dot's z bitwise y + a*x, the two layouts, lane j vs
+               the k = 1 call and a second launch bitwise equal.
+               ``sptrsv_level_step``: tests/test_kernels.py's level-by-
+               level solves (n = 24 and 72) against scipy; on every
+               triangular case above and lap2d_1024's L factor (2047
+               levels) each level against its plain version from the same
+               x, the functional and in-place solves bitwise equal, and
+               the solved x against sptrsv_solve_dot's, within the
+               tolerance.
 3. parity   -- lap2d_32 and banded_1k, float64 Jacobi pcg_tol at tol 1e-8,
                against the JAX package's iteration counts (94 and 9); the
                card may sum in another order, so +-1 iteration passes.
@@ -36,6 +50,14 @@ prints no result line):
                per-lane counts (PARITY_BATCHED), +-1 a lane, every lane
                converged.  Then both again with ``precond="block_ic0"``
                (PARITY_IC0: 32 and 1; PARITY_IC0_BATCHED at k = 4).
+               Then pcg_pipelined_tol with Jacobi and block_ic0, 1-D and
+               k = 4, against the same tables (the JAX package's
+               pipelined counts equal pcg_tol's), +-1 a lane: the matvec
+               kernel launched loop steps + 2 times (two matvecs at
+               start-up), block_ic0's sptrsv_solve_dot twice per psolve;
+               cg and jacobi (100 iterations) on lap2d_32: trace and x on
+               the fused substrate allclose to the reference one's and to
+               the CPU's.
                Then the format portfolio (PARITY_FORMATS): lap2d_32,
                skew_1k, rmat_1k and skew_spd(96, hubs=3, hub_nnz=30) under
                format="auto" (the JAX package's choice) and each of ell,
@@ -96,6 +118,19 @@ prints no result line):
                and HYB matvecs repeat bit for bit and lane j of k = 8
                equals its solo call; k = 8 on HYB.  Then the matrix-free
                ``lap2d_stencil(1024)`` with the same b.
+               Then the pipelined main path: ``plan(SolveSpec(method=
+               "pcg_pipelined_tol", tol=1e-8, max_iters=10000))`` at
+               lap2d_1024 with the same b, counts zeroed just before and
+               read just after: ell_spmv loop steps + 2 times and no other
+               kernel; the same status rule as pcg_tol's (converged with
+               the true residual <= 1e-7, or stagnated with the unguarded
+               solve reaching the tolerance); the reference substrate the
+               same status within 1% of the iterations; us per iteration
+               and wall beside pcg_tol's from this run.  Then the
+               ``kernels.ops`` API at the main-path shapes, counts zeroed
+               just before and read just after: ell_spmv_dot, ell_spmm_dot
+               (k = 8), axpy_dot once each, and the level-by-level solve
+               of lap2d_1024's L factor (one sptrsv_level_step a level).
 5. times    -- each kernel at the main-path shape (k = 8 for the batched
                ones): CUDA-event time of a CUDA-graph replay (median of
                five windows), the time when launched from Python, the
@@ -117,7 +152,14 @@ prints no result line):
                pcg, 100 steps minus 0, k = 1 and 8, two passes in reversed
                order): lap2d_1024 on ell, bcsr, sell, hyb and the stencil,
                the skewed matrix on hyb, sell and ell; and each plain
-               format matvec's time on the card.
+               format matvec's time on the card.  Last, the kernels.ops
+               kernels at the main shape (graph replay, eager, plain,
+               bound, and one PyTorch call of the same function: CSR @ x
+               then torch.dot; CSR @ dense (n, 8) then (X * Y).sum(0);
+               torch.add then torch.dot), sptrsv_level_step at the widest
+               level of lap2d_1024's L and the whole 2047-launch solve
+               eager and as one graph beside sptrsv_solve_dot's, and one
+               Jacobi pipelined step by part (graph replays).
 
 The last three lines are the kernels JSON, the card's
 ``nvidia-smi --query-gpu=name,power.limit`` line, and the result JSON.
@@ -193,7 +235,22 @@ SOURCES = {
     "bcsr_spmm": ("src/repro_torch/kernels/csrc/bcsr_spmm.cu",
                   "src/repro/kernels/bcsr_spmm.py:45"),
 }
+SOURCES.update({
+    "ell_spmv_dot": ("src/repro_torch/kernels/csrc/spmv_dot.cu",
+                     "src/repro/kernels/spmv_dot.py:67"),
+    "ell_spmm_dot": ("src/repro_torch/kernels/csrc/spmv_dot.cu",
+                     "src/repro/kernels/spmv_dot.py:134"),
+    "axpy_dot": ("src/repro_torch/kernels/csrc/vecops.cu",
+                 "src/repro/kernels/vecops.py:49"),
+    "sptrsv_level_step": ("src/repro_torch/kernels/csrc/sptrsv.cu",
+                          "src/repro/kernels/sptrsv.py:64"),
+})
 SOURCES_BATCHED = ("ell_spmm", "ell_spmm_pfold_dot", "cg_update_batched")
+# the kernels no solver path launches: the kernels.ops API reaches them
+OPS_ONLY = ("ell_spmv_dot", "ell_spmm_dot", "axpy_dot", "sptrsv_level_step")
+# tests/test_kernels.py's level-step solves: n, density, random_state
+LEVEL_JAX_CASES = ((24, 0.2, 3), (72, 0.2, 3))
+PIPE_METHOD = "pcg_pipelined_tol"
 
 
 def say(*parts) -> None:
@@ -264,6 +321,19 @@ def device_ms(fn, reps: int = 20, windows: int = 5) -> float:
     graph.replay()
     torch.cuda.synchronize()
     return _median_ms(graph.replay, reps, windows)
+
+
+def rotating(fn, arg_sets):
+    """A call that runs ``fn`` on the next of ``arg_sets`` each time: the
+    timed calls read inputs that the previous calls left out of L2."""
+    state = {"i": 0}
+
+    def call():
+        args = arg_sets[state["i"] % len(arg_sets)]
+        state["i"] += 1
+        return fn(*args)
+
+    return call
 
 
 def compare(name: str, got, want, dtype: str) -> float:
@@ -467,6 +537,154 @@ def check_sptrsv(ell, rows, n: int, dtype: str, gen, label: str) -> float:
     return err
 
 
+def check_ops_only_kernels(cols, vals, dtype: str, gen, label: str,
+                           k: int) -> dict:
+    """ell_spmv_dot, ell_spmm_dot (k lanes, in the JAX layout (rows_p, k)
+    and as the transposed view of the solver's (k, rows_p)) and axpy_dot
+    against their plain versions on one operator: within the tolerance;
+    axpy_dot's z bitwise the plain z; the two layouts, lane j against the
+    k = 1 call and a second launch bitwise equal.  Returns the max abs
+    error per kernel."""
+    import torch
+    from repro_torch.kernels import spmv_dot, vecops
+
+    rows = cols.shape[0]
+    td, dev = vals.dtype, vals.device
+    vec = lambda *lead: torch.randn(*lead, rows, generator=gen, device=dev,
+                                    dtype=td)
+    x, y = vec(), vec()
+    errs = {}
+    got = spmv_dot.ell_spmv_dot(cols, vals, x)
+    want = spmv_dot.ell_spmv_dot_plain(cols, vals, x)
+    errs["ell_spmv_dot"] = compare(f"ell_spmv_dot {label}",
+                                   (got[0], got[1].reshape(1)),
+                                   (want[0], want[1].reshape(1)), dtype)
+    again = spmv_dot.ell_spmv_dot(cols, vals, x)
+    if not (torch.equal(got[0], again[0]) and torch.equal(got[1], again[1])):
+        raise AssertionError(f"ell_spmv_dot {label}: two launches differ")
+    xs = vec(k)                                  # (k, rows): solver layout
+    outs = []
+    errs["ell_spmm_dot"] = 0.0
+    for tag, xk in (("row-major", xs.T.contiguous()), ("transposed view", xs.T)):
+        got = spmv_dot.ell_spmm_dot(cols, vals, xk)
+        want = spmv_dot.ell_spmm_dot_plain(cols, vals, xk)
+        errs["ell_spmm_dot"] = max(errs["ell_spmm_dot"], compare(
+            f"ell_spmm_dot {label} k={k} {tag}", got, want, dtype))
+        again = spmv_dot.ell_spmm_dot(cols, vals, xk)
+        if not (torch.equal(got[0], again[0]) and torch.equal(got[1], again[1])):
+            raise AssertionError(f"ell_spmm_dot {label} {tag}: two launches "
+                                 "differ")
+        if k > 1 and got[0].stride() != xk.stride():
+            raise AssertionError(f"ell_spmm_dot {label} {tag}: Y strides "
+                                 f"{got[0].stride()} vs x {xk.stride()}")
+        outs.append(got)
+    if not (torch.equal(outs[0][0], outs[1][0])
+            and torch.equal(outs[0][1], outs[1][1])):
+        raise AssertionError(f"ell_spmm_dot {label}: the layouts differ")
+    for j in range(k):
+        yj, pj = spmv_dot.ell_spmm_dot(cols, vals, xs[j: j + 1].T)
+        if not (torch.equal(yj, outs[0][0][:, j: j + 1])
+                and torch.equal(pj, outs[0][1][j: j + 1])):
+            raise AssertionError(f"ell_spmm_dot {label}: lane {j} of k={k} "
+                                 "differs from the k = 1 call")
+    a = torch.tensor(0.61, dtype=td, device=dev)
+    got = vecops.axpy_dot(a, x, y)
+    want = vecops.axpy_dot_plain(a, x, y)
+    if not torch.equal(got[0], want[0]):
+        raise AssertionError(f"axpy_dot {label}: z is not bitwise y + a*x")
+    errs["axpy_dot"] = compare(f"axpy_dot {label}", (got[1].reshape(1),),
+                               (want[1].reshape(1),), dtype)
+    if not torch.equal(got[1], vecops.axpy_dot(a, x, y)[1]):
+        raise AssertionError(f"axpy_dot {label}: two launches differ")
+    return errs
+
+
+def factor_diag(ell):
+    """A factor's diagonal (n_rows,), 1.0 where absent: what
+    sptrsv_level_step divides by."""
+    import torch
+    from repro_torch.core.spops import extract_diag_ell
+
+    d = extract_diag_ell(ell)
+    return torch.where(d == 0, 1.0, d)
+
+
+def level_solve(cols, vals, diag, b, rows, n: int, inplace: bool):
+    """x (n + 1,) solved level by level with sptrsv_level_step: through
+    ``ops`` (a new x each level), or in place (``out=x``)."""
+    import torch
+    from repro_torch.kernels import ops, sptrsv
+
+    x = torch.zeros(n + 1, dtype=vals.dtype, device=vals.device)
+    for lv in rows:
+        if inplace:
+            sptrsv.sptrsv_level_step(cols, vals, diag, b, x, lv, out=x)
+        else:
+            x = ops.sptrsv_level_step(cols, vals, diag, b, x, lv)
+    return x
+
+
+def check_level_step(ell, rows, n: int, dtype: str, gen, label: str):
+    """sptrsv_level_step on one factor: each level against its plain
+    version from the same x, within the tolerance; the functional and the
+    in-place solves, and a second in-place solve, bitwise equal; the
+    solved x within RTOL x max|x| of sptrsv_solve_dot's (which multiplies
+    by the inverse diagonal).  Returns (max abs error of a level, of the
+    solve)."""
+    import torch
+    from repro_torch.kernels import ops, sptrsv
+
+    ell, rows, dinv, b, _, pack = factor_inputs(ell, rows, n, dtype, gen)
+    cols, vals = ell.cols, ell.vals
+    diag = factor_diag(ell)
+    x = torch.zeros(n + 1, dtype=vals.dtype, device=vals.device)
+    err = 0.0
+    for lv in torch.as_tensor(rows, device=vals.device):
+        got = ops.sptrsv_level_step(cols, vals, diag, b, x, lv)
+        err = max(err, compare(f"sptrsv_level_step {label}", (got,),
+                               (sptrsv.sptrsv_level_step_plain(
+                                   cols, vals, diag, b, x, lv),), dtype))
+        x = got
+    rows = torch.as_tensor(rows, device=vals.device)
+    x_in = level_solve(cols, vals, diag, b, rows, n, inplace=True)
+    if not (torch.equal(x, x_in)
+            and torch.equal(x_in, level_solve(cols, vals, diag, b, rows, n,
+                                              inplace=True))):
+        raise AssertionError(f"sptrsv_level_step {label}: the functional and "
+                             "in-place solves, or two solves, differ")
+    xs, _ = sptrsv.sptrsv_solve_dot(cols, vals, dinv, b, pack)
+    solve_err = compare(f"sptrsv_level_step {label} solve vs sptrsv_solve_dot",
+                        (x[:n],), (xs[:n],), dtype)
+    return err, solve_err
+
+
+def level_jax_case(n: int, density: float, seed: int, dtype: str):
+    """tests/test_kernels.py's level-step solve on the card: the same
+    lower-triangular matrix and b, solved level by level through ops,
+    against scipy's solve_triangular.  Returns the max abs error."""
+    import numpy as np
+    import scipy.sparse as sp
+    import torch
+    from scipy.linalg import solve_triangular
+    from repro_torch.core.formats import csr_from_scipy, ell_from_csr
+    from repro_torch.core.levels import build_schedule
+
+    a = sp.random(n, n, density=density, random_state=seed, format="csr")
+    low = (sp.tril(a, k=-1) + sp.eye(n) * 2.0).tocsr()
+    m = csr_from_scipy(low)
+    ell = ell_from_csr(m, row_pad=8, width_pad=8,
+                       dtype=getattr(np, dtype), device="cuda")
+    b = np.random.default_rng(4).standard_normal(n)
+    bp = torch.zeros(ell.rows_padded, dtype=ell.vals.dtype, device="cuda")
+    bp[:n] = torch.from_numpy(b).to(bp)
+    rows = torch.from_numpy(build_schedule(m).rows).cuda()
+    x = level_solve(ell.cols, ell.vals, factor_diag(ell), bp, rows, n,
+                    inplace=False)
+    want = torch.from_numpy(solve_triangular(low.toarray(), b, lower=True))
+    return compare(f"sptrsv_level_step {dtype} n={n} vs scipy",
+                   (x[:n].double().cpu(),), (want,), dtype)
+
+
 def random_bcsr(n: int, density: float, bm: int, bn: int, seed: int):
     """A random square matrix with a unit diagonal as BCSR of (bm, bn)
     blocks on the card (float64), and its block-column count."""
@@ -553,17 +771,19 @@ def warm_step_us(eng, b, fmt: str, steps: int = SWEEP_ITERS) -> float:
     return (run - zero) / steps * 1e6
 
 
-def solve_main(eng, a, b, x_true, label: str, **knobs) -> dict:
-    """One ``plan(b)`` of a main-path pcg_tol solve on ``eng``; launch
-    counts are zeroed just before it and read just after.  Raises past
-    MAIN_MAX_TRUE_RESIDUAL (``a`` is the scipy matrix)."""
+def solve_main(eng, a, b, x_true, label: str, method: str = "pcg_tol",
+               **knobs) -> dict:
+    """One ``plan(b)`` of a main-path tolerance solve (``method``, pcg_tol
+    by default) on ``eng``; launch counts are zeroed just before it and
+    read just after.  Raises past MAIN_MAX_TRUE_RESIDUAL (``a`` is the
+    scipy matrix)."""
     import numpy as np
     import torch
     from repro_torch.core.plan import SolveSpec
     from repro_torch.kernels import ops
     from repro_torch.obs.clock import now
 
-    plan = eng.plan(SolveSpec(method="pcg_tol", tol=MAIN_TOL,
+    plan = eng.plan(SolveSpec(method=method, tol=MAIN_TOL,
                               max_iters=MAIN_MAX_ITERS, **knobs))
     torch.cuda.synchronize()
     ops.reset_launch_counts()
@@ -573,6 +793,7 @@ def solve_main(eng, a, b, x_true, label: str, **knobs) -> dict:
     wall = now() - t0
     iters = int(plan.last_iters)
     out = {
+        "method": plan.spec.method,
         "substrate": plan.info["substrate"], "format": plan.info["format"],
         "guard": plan.spec.guard, "iters_run": iters, "status": plan.last_status_names,
         "bad_iter": int(plan.last_bad_iter),
@@ -792,6 +1013,48 @@ def main() -> int:
         traceback.print_exc()
         failed.append("kernels bcsr_spmm")
 
+    # -- 2d. the kernels reached through kernels.ops only ---------------------
+    try:
+        tri = triangular_cases()
+        f = ic0_engine()._ic0
+        for dname, np_dt in (("float64", np.float64), ("float32", np.float32)):
+            td = getattr(torch, dname)
+            for rows, width, k in ((1000, 5, 5), (4099, 8, 7)):
+                cols, vals = random_ell(rows, width, k, td, gen)
+                errs = check_ops_only_kernels(cols, vals, dname, gen,
+                                              f"{dname} {rows}x{width}", k=3)
+                say(f"ops kernels {dname} {rows}x{width}: max abs err "
+                    + json.dumps(errs))
+            eng = AzulEngine(m_main, dtype=np_dt)
+            errs = check_ops_only_kernels(eng.ell.cols, eng.ell.vals, dname,
+                                          gen, f"{dname} main", k=MAIN_BATCH)
+            say(f"ops kernels {dname} main {tuple(eng.ell.cols.shape)} "
+                f"k={MAIN_BATCH}: max abs err " + json.dumps(errs))
+            if dname == "float64":
+                main_errs.update(errs)
+            del eng
+            errs = {f"n={n} vs scipy": level_jax_case(n, dens, seed, dname)
+                    for n, dens, seed in LEVEL_JAX_CASES}
+            for label, m in tri.items():
+                sched = build_schedule(m)
+                ell = ell_from_csr(m, row_pad=8, width_pad=8, dtype=np.float64)
+                errs[f"{label} ({sched.n_levels} levels)"] = check_level_step(
+                    ell, torch.from_numpy(sched.rows).cuda(), m.shape[0],
+                    dname, gen, f"{dname} {label}")
+            key = f"lap2d_1024 L ({f.sched_l.n_levels} levels)"
+            errs[key] = check_level_step(f.ell_l, f.sched_l.rows, f.n, dname,
+                                         gen, f"{dname} lap2d_1024 L")
+            if dname == "float64":
+                main_errs["sptrsv_level_step"] = errs[key][0]
+            say(f"sptrsv_level_step {dname}: max abs err (a level, the solve "
+                "vs sptrsv_solve_dot) " + json.dumps(errs))
+        say("ops kernels ok (rtol f64 1e-12, f32 1e-5; axpy_dot's z, the "
+            "layouts, lane j vs k = 1, second launches and the in-place solve "
+            "bitwise equal)")
+    except Exception:
+        traceback.print_exc()
+        failed.append("kernels ops-only")
+
     # -- 3. parity on the small suite ---------------------------------------
     try:
         rng = np.random.default_rng(0)
@@ -933,6 +1196,94 @@ def main() -> int:
     except Exception:
         traceback.print_exc()
         failed.append("parity formats")
+
+    # -- 3d. the rest of the registry: pipelined, cg, jacobi ---------------
+    try:
+        mats = suite("small")
+        for precond, table, table_b in (
+                ("jacobi", PARITY, PARITY_BATCHED),
+                ("block_ic0", PARITY_IC0, PARITY_IC0_BATCHED)):
+            rng = np.random.default_rng(0)
+            for name, want in table.items():
+                m = mats[name]
+                a = sp.csr_matrix((m.data, m.indices, m.indptr), shape=m.shape)
+                b = a @ rng.standard_normal(m.shape[0])
+                eng = AzulEngine(m, precond=precond, dtype=np.float64)
+                plan = eng.plan(SolveSpec(method=PIPE_METHOD, tol=1e-8,
+                                          max_iters=400))
+                ops.reset_launch_counts()
+                plan(b)
+                lc = ops.launch_counts()
+                got = int(plan.last_iters)
+                say(f"parity {PIPE_METHOD} {precond} {name}: {got} iterations "
+                    f"(JAX package: {want}), status {plan.last_status_names}, "
+                    f"substrate {plan.info['substrate']}, launches "
+                    + json.dumps({k2: v for k2, v in lc.items() if v}))
+                ic0 = precond == "block_ic0"
+                if (abs(got - want) > 1 or plan.last_status_names != "converged"
+                        or lc["ell_spmv"] != got + 2
+                        or lc["sptrsv_solve_dot"] != (2 * (got + 2) if ic0 else 0)
+                        or lc["ell_spmv_pfold_dot"] or lc["cg_update"]):
+                    raise AssertionError(f"parity {PIPE_METHOD} {precond} "
+                                         f"{name}: {got}, {lc}")
+            for name, want in table_b.items():
+                m = mats[name]
+                b = np.random.default_rng(0).standard_normal((len(want),
+                                                              m.shape[0]))
+                eng = AzulEngine(m, precond=precond, dtype=np.float64)
+                plan = eng.plan(SolveSpec(method=PIPE_METHOD, tol=1e-8,
+                                          max_iters=400, batch=len(want)))
+                ops.reset_launch_counts()
+                plan(b)
+                lc = ops.launch_counts()
+                got = [int(i) for i in plan.last_iters]
+                say(f"parity {PIPE_METHOD} {precond} batched {name} "
+                    f"k={len(want)}: {got} iterations (JAX package: "
+                    f"{list(want)}), status {plan.last_status_names}")
+                if (any(abs(g - w) > 1 for g, w in zip(got, want))
+                        or plan.last_status_names != ["converged"] * len(want)
+                        or lc["ell_spmm"] != max(got) + 2):
+                    raise AssertionError(f"parity {PIPE_METHOD} {precond} "
+                                         f"batched {name}: {got}, {lc}")
+        # cg and jacobi, 100 iterations on lap2d_32: the fused substrate
+        # (jacobi: the reference one, its only) against the reference one
+        # on the card and against the CPU
+        m = mats["lap2d_32"]
+        a = sp.csr_matrix((m.data, m.indices, m.indptr), shape=m.shape)
+        b = a @ np.random.default_rng(0).standard_normal(m.shape[0])
+        eng = AzulEngine(m, dtype=np.float64)
+        cpu = AzulEngine(m, dtype=np.float64, device="cpu")
+        for method, status in (("cg", "maxiter"), ("jacobi", "unguarded")):
+            spec = dict(method=method, iters=SWEEP_ITERS)
+            xc, nc = cpu.plan(SolveSpec(**spec))(b)
+            runs = {}
+            for fused in (True, False):
+                plan = eng.plan(SolveSpec(**spec, fused=fused))
+                ops.reset_launch_counts()
+                x, norms = plan(b)
+                runs[fused] = (x, norms, plan.last_status_names,
+                               plan.info["substrate"], ops.launch_counts())
+            (xf, nf, sf, kf, lf), (xr, nr, sr, kr, lr) = runs[True], runs[False]
+            diff = float(np.abs(xf - xr).max())
+            say(f"{method} lap2d_32 iters={SWEEP_ITERS}: substrates {kf}/{kr}, "
+                f"status {sf}/{sr}, final residual {nf[-1]:.6e} / {nr[-1]:.6e} "
+                f"(CPU {nc[-1]:.6e}), max |x_fused - x_ref| {diff:.3e}, "
+                f"max |x_card - x_cpu| {float(np.abs(xf - xc).max()):.3e}")
+            want_kind = "fused" if method == "cg" else "reference"
+            want_lf = ({"ell_spmv": 1, "ell_spmv_pfold_dot": SWEEP_ITERS,
+                        "cg_update": SWEEP_ITERS} if method == "cg" else {})
+            if (sf != status or sr != status or kf != want_kind
+                    or {k2: v for k2, v in lf.items() if v} != want_lf
+                    or any(lr.values())):
+                raise AssertionError(f"{method}: {kf}, {sf}/{sr}, {lf}, {lr}")
+            for x_, n_ in ((xr, nr), (xc, nc)):
+                np.testing.assert_allclose(xf, x_, rtol=1e-8, atol=1e-10)
+                np.testing.assert_allclose(nf, n_, rtol=0,
+                                           atol=1e-8 * np.linalg.norm(b))
+        say("parity pipelined, cg, jacobi ok")
+    except Exception:
+        traceback.print_exc()
+        failed.append("parity pipelined, cg, jacobi")
 
     # -- 4. the full-size main path -----------------------------------------
     launches, us_per_iter, main_runs = {}, None, {}
@@ -1242,6 +1593,94 @@ def main() -> int:
         traceback.print_exc()
         failed.append("main stencil")
 
+    # -- 4g. the pipelined main path ------------------------------------------
+    pipe_main = None
+    try:
+        m = m_main
+        a = sp.csr_matrix((m.data, m.indices, m.indptr), shape=m.shape)
+        x_true = np.random.default_rng(0).standard_normal(m.shape[0])
+        b = a @ x_true
+        eng = AzulEngine(m, dtype=np.float64)
+
+        def solve_pipe(label: str, **knobs) -> dict:
+            return solve_main(eng, a, b, x_true, f"{PIPE_METHOD} {label}",
+                              method=PIPE_METHOD, **knobs)
+
+        pipe_main = solve_pipe("fused")
+        lc, steps = pipe_main["launches"], pipe_main["iters_run"]
+        if (lc["ell_spmv"] != steps + 2
+                or any(v for k2, v in lc.items() if k2 != "ell_spmv")):
+            raise AssertionError(f"{PIPE_METHOD} launches {lc} for {steps} "
+                                 "steps")
+        ref = solve_pipe("reference", fused=False)
+        if (ref["status"] != pipe_main["status"]
+                or abs(ref["iters_run"] - steps) > 0.01 * steps
+                or any(ref["launches"].values())):
+            raise AssertionError(f"{PIPE_METHOD} reference: {ref['iters_run']}"
+                                 f", {ref['status']} vs {steps}, "
+                                 f"{pipe_main['status']}")
+        if pipe_main["status"] != "converged":
+            # the rule of pcg_tol's main path: a stall-guard stop must be a
+            # plateau the unguarded solve gets past to the tolerance
+            lean = solve_pipe("unguarded", guard=False)
+            if not (lean["iters_run"] < MAIN_MAX_ITERS
+                    and pipe_main["status"] == "stagnated"
+                    and lean["longest_stall"] >= STALL_WINDOW):
+                raise AssertionError(f"{PIPE_METHOD}: status "
+                                     f"{pipe_main['status']}, unguarded {lean}")
+        pcg = main_runs.get("ell", {})
+        say(f"main {PIPE_METHOD} ok: {steps} iterations, {pipe_main['status']}, "
+            f"{pipe_main['us_per_iter']:.1f} us per iteration, "
+            f"{pipe_main['wall_s']:.3f} s; pcg_tol in this run: "
+            f"{pcg.get('iters_run')} iterations, {pcg.get('status')}, "
+            f"{pcg.get('us_per_iter', float('nan')):.1f} us per iteration, "
+            f"{pcg.get('wall_s', float('nan')):.3f} s")
+    except Exception:
+        traceback.print_exc()
+        failed.append("main pipelined")
+
+    # -- 4h. the kernels.ops API at the main-path shapes ---------------------
+    ops_launches = {}
+    try:
+        eng = AzulEngine(m_main, dtype=np.float64)
+        cols, vals = eng.ell.cols, eng.ell.vals
+        f = ic0_engine()._ic0
+        gen = torch.Generator(device="cuda").manual_seed(6)
+        vec = lambda *lead: torch.randn(*lead, cols.shape[0], generator=gen,
+                                        device="cuda", dtype=torch.float64)
+        x, y = vec(), vec()
+        X = vec(MAIN_BATCH).T.contiguous()           # the JAX layout (n, k)
+        bl = torch.zeros(f.ell_l.rows_padded, dtype=torch.float64,
+                         device="cuda")
+        bl[: f.n] = vec()[: f.n]
+        diag = factor_diag(f.ell_l)
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        t0 = now()
+        yv, pap = ops.ell_spmv_dot(cols, vals, x)
+        Y, paps = ops.ell_spmm_dot(cols, vals, X)
+        z, zz = ops.axpy_dot(0.61, x, y)
+        xl = level_solve(f.ell_l.cols, f.ell_l.vals, diag, bl, f.sched_l.rows,
+                         f.n, inplace=False)
+        torch.cuda.synchronize()
+        wall = now() - t0
+        ops_launches = ops.launch_counts()
+        want = {"ell_spmv_dot": 1, "ell_spmm_dot": 1, "axpy_dot": 1,
+                "sptrsv_level_step": f.sched_l.n_levels}
+        got = {k2: v for k2, v in ops_launches.items() if v}
+        finite = all(bool(torch.isfinite(t).all())
+                     for t in (yv, pap, Y, paps, z, zz, xl))
+        say(f"main ops: ell_spmv_dot, ell_spmm_dot (k={MAIN_BATCH}), axpy_dot "
+            f"at {tuple(cols.shape)} and the level-by-level solve over "
+            f"lap2d_1024's L factor through kernels.ops: launches "
+            f"{json.dumps(got)}, {wall:.3f} s, outputs finite {finite}, "
+            f"shapes {tuple(Y.shape)} {tuple(paps.shape)} {tuple(xl.shape)}")
+        if got != want or not finite or Y.shape != X.shape:
+            raise AssertionError(f"main ops: launches {got}, want {want}")
+    except Exception:
+        traceback.print_exc()
+        failed.append("main ops")
+
     # -- 5. times at the main-path shape ------------------------------------
     rows_out = []
     try:
@@ -1372,6 +1811,7 @@ def main() -> int:
         failed.append("times")
 
     # -- 5b. sptrsv_solve_dot times at the lap2d_1024 factor shape ----------
+    sptrsv_times: dict = {}            # phase 5e sets the level step beside
     try:
         f = ic0_engine()._ic0
         gen = torch.Generator(device="cuda").manual_seed(2)
@@ -1475,6 +1915,8 @@ def main() -> int:
             "level, events around eager launches)")
         say(f"library torch.triangular_solve (sparse CSR, reversed U, no dot): "
             f"{lib_ms} ms")
+        sptrsv_times.update({label: sv["ms"] for label, sv in solves.items()},
+                            how=how, library=lib_ms)
         rows_out.append({
             "name": "sptrsv_solve_dot", "route": "cuda",
             "source": SOURCES["sptrsv_solve_dot"][0],
@@ -1627,6 +2069,176 @@ def main() -> int:
     except Exception:
         traceback.print_exc()
         failed.append("times formats")
+
+    # -- 5e. the kernels.ops kernels' times; the pipelined step -----------
+    try:
+        from repro_torch.core import solvers, substrate
+
+        eng = AzulEngine(m_main, dtype=np.float64)
+        cols, vals = eng.ell.cols, eng.ell.vals
+        rows, w = cols.shape
+        e = vals.element_size()
+        k = MAIN_BATCH
+        mat_bytes = rows * w * (4 + e)
+        gen = torch.Generator(device="cuda").manual_seed(7)
+        vec = lambda *lead: torch.randn(*lead, rows, generator=gen,
+                                        device="cuda", dtype=torch.float64)
+        x, y = vec(), vec()
+        Xs = vec(k)                                  # the solver layout
+        X = Xs.T.contiguous()                        # the JAX layout
+        a = sp.csr_matrix((m_main.data, m_main.indices, m_main.indptr),
+                          shape=m_main.shape)
+        a_lib = torch.sparse_csr_tensor(
+            torch.as_tensor(a.indptr, dtype=torch.int64),
+            torch.as_tensor(a.indices, dtype=torch.int64),
+            torch.as_tensor(a.data, dtype=torch.float64),
+            size=a.shape).to("cuda")
+        alpha = torch.tensor(0.61, dtype=torch.float64, device="cuda")
+        pairs = [(vec(), vec()) for _ in range(4)]
+        # name -> (kernel, plain, bytes, flops, library call): bytes read
+        # each input once and write each output once; the library call
+        # computes the same function with PyTorch's own operators
+        work = {
+            "ell_spmv_dot": (
+                lambda: spmv_dot.ell_spmv_dot(cols, vals, x),
+                lambda: spmv_dot.ell_spmv_dot_plain(cols, vals, x),
+                mat_bytes + 2 * rows * e + e, 2 * rows * w + 2 * rows,
+                lambda: torch.dot(x, a_lib @ x)),
+            "ell_spmm_dot": (
+                lambda: spmv_dot.ell_spmm_dot(cols, vals, X),
+                lambda: spmv_dot.ell_spmm_dot_plain(cols, vals, X),
+                mat_bytes + 2 * k * rows * e + k * e,
+                2 * rows * w * k + 2 * k * rows,
+                lambda: (X * (a_lib @ X)).sum(0)),
+            # x, y and z (25 MB) would stay in the 50 MB L2 across
+            # back-to-back calls: each call takes the next of four (x, y)
+            # pairs, 101 MB in all, so that it reads them from memory
+            "axpy_dot": (
+                rotating(lambda u, v: vecops.axpy_dot(alpha, u, v), pairs),
+                rotating(lambda u, v: vecops.axpy_dot_plain(alpha, u, v), pairs),
+                3 * rows * e + 2 * e, 4 * rows,
+                rotating(lambda u, v: (lambda zv: torch.dot(zv, zv))(
+                    torch.add(v, u, alpha=0.61)), pairs)),
+        }
+        times = {name: (device_ms(kern), eager_ms(kern), device_ms(plain))
+                 for name, (kern, plain, *_) in work.items()}
+        view_ms = device_ms(lambda: spmv_dot.ell_spmm_dot(cols, vals, Xs.T))
+        lib = {}
+        for name, (*_, lib_fn) in work.items():      # timed last, as in 5
+            try:
+                lib[name] = device_ms(lib_fn)
+            except RuntimeError as exc:
+                say(f"library for {name} not capturable ({exc}); timed eagerly")
+                torch.cuda.synchronize()
+                lib[name] = eager_ms(lib_fn)
+        for name, (_, _, nbytes, flops, _) in work.items():
+            ms, ms_eager, plain_ms = times[name]
+            t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+            t_ops = flops / PEAK_FLOPS["float64"] * 1e3
+            src_file, replaces = SOURCES[name]
+            rows_out.append({
+                "name": name, "route": "cuda", "source": src_file,
+                "replaces": replaces, "launches": ops_launches.get(name, 0),
+                "max_abs_err": main_errs.get(name),
+                "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": max(t_bytes, t_ops),
+                "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                "library_ms": lib[name],
+            })
+            say(f"time {name}{f' k={k}' if name == 'ell_spmm_dot' else ''}: "
+                f"{ms:.4f} ms on the card, {ms_eager:.4f} ms launched from "
+                f"Python (plain {plain_ms:.4f} ms, bound "
+                f"{max(t_bytes, t_ops):.4f} ms ({nbytes} bytes), library "
+                f"{lib[name]:.4f} ms)")
+        say(f"time ell_spmm_dot k={k} on the transposed view of the solver's "
+            f"(k, n): {view_ms:.4f} ms on the card (row-major: "
+            f"{times['ell_spmm_dot'][0]:.4f} ms)")
+
+        # sptrsv_level_step: one level at the widest of lap2d_1024's L
+        # factor, then the whole solve, one launch a level
+        f = ic0_engine()._ic0
+        ell, sched = f.ell_l, f.sched_l
+        lcols, lvals, n = ell.cols, ell.vals, f.n
+        diag = factor_diag(ell)
+        bl = torch.zeros(ell.rows_padded, dtype=torch.float64, device="cuda")
+        bl[:n] = vec()[:n]
+        srows = torch.as_tensor(sched.rows, device="cuda")
+        widest = int(np.argmax(sched.counts))
+        lv = srows[widest]
+        xs = torch.zeros(n + 1, dtype=torch.float64, device="cuda")
+        one = lambda: sptrsv.sptrsv_level_step(lcols, lvals, diag, bl, xs, lv,
+                                               out=xs)
+        one_ms, one_eager = device_ms(one), eager_ms(one)
+        one_plain = eager_ms(lambda: sptrsv.sptrsv_level_step_plain(
+            lcols, lvals, diag, bl, xs, lv), reps=10, windows=3)
+        # what one level needs: its distinct factor rows (cols, vals, b,
+        # diag), the x entries they gather, the ids, the values written
+        w_l = lcols.shape[1]
+        lr = torch.clamp(lv.long(), max=lcols.shape[0] - 1)
+        u_rows = torch.unique(lr)
+        u_x = torch.unique(torch.clamp(lcols[u_rows].long(), max=n))
+        u_out = torch.unique(lv[lv <= n])
+        nbytes = (u_rows.numel() * w_l * (4 + e) + 2 * u_rows.numel() * e
+                  + lv.numel() * 4 + u_x.numel() * e + u_out.numel() * e)
+        one_bound = nbytes / HBM_BYTES_PER_S * 1e3
+
+        def full():
+            xs.zero_()
+            for lvl in srows:
+                sptrsv.sptrsv_level_step(lcols, lvals, diag, bl, xs, lvl, out=xs)
+
+        full_eager = eager_ms(full, reps=2, windows=3)
+        try:
+            full_graph, full_how = device_ms(full, reps=1, windows=5), "one graph"
+        except RuntimeError as exc:
+            torch.cuda.synchronize()
+            full_graph, full_how = None, f"not capturable ({exc!r})"
+        say(f"time sptrsv_level_step lap2d_1024 L, widest level {widest} "
+            f"({int(sched.counts[widest])} rows of {lv.numel()} ids, w={w_l}): "
+            f"{one_ms:.5f} ms on the card, {one_eager:.5f} ms launched from "
+            f"Python (plain {one_plain:.4f} ms, eager: its boolean scatter "
+            f"syncs; bound {one_bound:.6f} ms, {nbytes} bytes)")
+        say(f"time level-by-level solve of lap2d_1024's L ({sched.n_levels} "
+            f"launches): {full_eager:.4f} ms launched from Python, "
+            f"{full_graph} ms as {full_how}; sptrsv_solve_dot on the same "
+            f"factor: {sptrsv_times.get('L')} ms ({sptrsv_times.get('how')}), "
+            f"torch triangular_solve (reversed U): "
+            f"{sptrsv_times.get('library')} ms")
+        rows_out.append({
+            "name": "sptrsv_level_step", "route": "cuda",
+            "source": SOURCES["sptrsv_level_step"][0],
+            "replaces": SOURCES["sptrsv_level_step"][1],
+            "launches": ops_launches.get("sptrsv_level_step", 0),
+            "max_abs_err": main_errs.get("sptrsv_level_step"),
+            "ms": one_ms, "plain_ms": one_plain, "bound_ms": one_bound,
+            "bound_by": "bytes", "library_ms": None,
+        })
+
+        # one Jacobi pipelined step at lap2d_1024 on the card, by part
+        sub = substrate.fused_local_substrate(cols, vals, eng._dinv_pad)
+        state, _ = solvers._pipe_start(sub, vec(), None)
+        vs = [vec() for _ in range(10)]
+        beta = torch.tensor(0.3, dtype=torch.float64, device="cuda")
+        parts = {
+            "step": device_ms(lambda: solvers._pipe_step(sub, False, state)),
+            "matvec (ell_spmv)": device_ms(lambda: sub.matvec(vs[0])),
+            "psolve (r * dinv)": device_ms(lambda: sub.psolve(vs[0])),
+            "pipe_update": device_ms(lambda: substrate.pipe_update(
+                beta, alpha, *vs)),
+            "pipe_dots": device_ms(lambda: sub.pipe_dots(*vs[:3])),
+        }
+        parts_us = {k2: 1e3 * v for k2, v in parts.items()}
+        parts_us["scalars and the rest on the card"] = parts_us["step"] - sum(
+            v for k2, v in parts_us.items() if k2 != "step")
+        if pipe_main is not None:
+            parts_us["wall per step"] = pipe_main["us_per_iter"]
+            parts_us["host (wall - step on the card)"] = (
+                pipe_main["us_per_iter"] - parts_us["step"])
+        say(f"per iteration {PIPE_METHOD} jacobi (us, CUDA-graph replays at "
+            f"{tuple(cols.shape)}): " + json.dumps(parts_us))
+    except Exception:
+        traceback.print_exc()
+        failed.append("times ops-only")
 
     if failed:
         say("FAILED phases: " + ", ".join(failed))

@@ -24,7 +24,13 @@ matrix (or a matrix-free ``Stencil``), the engine
      on the host (IC(0) and both level schedules) and pins the factors on
      the device; the fused IC(0) substrate then runs two
      ``sptrsv_solve_dot`` launches per iteration (per lane of a batch) in
-     place of the Jacobi scaling, with any stored format.
+     place of the Jacobi scaling, with any stored format.  The other
+     registered methods lower through the same plans: ``cg`` on the fused
+     substrate with no preconditioner; ``pcg_pipelined``/``_tol`` with
+     the format's matvec (``ell_spmv`` a step on ELL) and the engine's
+     preconditioner (two ``sptrsv_solve_dot`` a step under block_ic0),
+     the pipelined update and its stacked reduction in plain PyTorch; the
+     ``jacobi`` smoother in plain PyTorch over the reference matvec.
 
 Not ported yet, and refused with NotImplementedError naming the ROADMAP
 item: distributed meshes.
@@ -324,6 +330,9 @@ class AzulEngine:
         sdef = registry.get_solver(spec.method)
         pdef = registry.get_precond(self.precond)
         kind = registry.substrate_kind(sdef, pdef, spec.fused)
+        # the preconditioner the method's psolve is built from: identity
+        # for cg, jacobi for the jacobi smoother, else the engine's
+        eff = registry.effective_precond(sdef, self.precond)
         cols = vals = None
         if self.ell is not None:
             cols, vals = self.ell.cols, self.ell.vals
@@ -339,7 +348,7 @@ class AzulEngine:
                                             stream_ops=stream)
         elif kind == "fused":
             sub = fused_local_substrate(cols, vals,
-                                        dinv=dinv if pdef.uses_dinv else None,
+                                        dinv=dinv if eff.uses_dinv else None,
                                         stream_ops=stream)
         if stream is not None:
             matvec = stream[0]
@@ -348,7 +357,7 @@ class AzulEngine:
                 return _matvec(cols, vals, x)
         ctx = registry.SolveContext(
             matvec=matvec,
-            psolve=pdef.local_apply(self), substrate=sub,
+            psolve=eff.local_apply(self), dinv=dinv, substrate=sub,
             iters=spec.iters, tol=spec.tol, max_iters=spec.max_iters,
             guard=spec.guard,
         )

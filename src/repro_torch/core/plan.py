@@ -32,7 +32,10 @@ __all__ = ["SolveSpec", "SolvePlan", "PlanCache", "canonicalize",
 class SolveSpec:
     """Frozen description of one solve configuration.
 
-    method     registered solver name (``pcg`` | ``pcg_tol``)
+    method     registered solver name or alias (``pcg`` | ``pcg_tol`` |
+               ``cg`` | ``pcg_pipelined`` (``pcg_pipe``) |
+               ``pcg_pipelined_tol`` | ``jacobi``); an alias canonicalizes
+               to its solver's name, so both spellings share one plan
     precond    None = the engine's; a different name is rejected (the
                preconditioner is built with the engine)
     iters      fixed iteration count (fixed-iteration methods)

@@ -4,9 +4,10 @@ lowering (port of ``repro.core.registry`` for local solves).
 A :class:`SolverDef` names an iteration and declares what it supports; a
 :class:`PrecondDef` names a preconditioner and how its local apply is
 built.  ``canonicalize`` and the engine's lowering read these instead of
-branching on names.  Registered: ``pcg`` and ``pcg_tol`` with the
-``jacobi``, ``identity`` (alias ``none``) and ``block_ic0``
-preconditioners.
+branching on names.  Registered: the solvers ``pcg``, ``pcg_tol``,
+``cg``, ``pcg_pipelined`` (alias ``pcg_pipe``), ``pcg_pipelined_tol``
+and ``jacobi``; the preconditioners ``jacobi``, ``identity`` (alias
+``none``) and ``block_ic0``.
 """
 
 from __future__ import annotations
@@ -17,7 +18,8 @@ from typing import Any, Callable
 import torch
 
 __all__ = ["SolverDef", "PrecondDef", "SolveContext", "get_solver",
-           "get_precond", "resolve_fused", "resolve_format", "substrate_kind"]
+           "get_precond", "solver_names", "resolve_fused", "resolve_format",
+           "substrate_kind", "effective_precond"]
 
 # Storage formats a solver's substrate can stream the operator from: the
 # substrate-phrased methods take any (matvec, fold) pair.
@@ -30,6 +32,7 @@ class SolveContext:
 
     matvec: Callable
     psolve: Callable
+    dinv: Any = None                  # padded inverse diagonal (jacobi)
     substrate: Any = None             # SolverSubstrate or None (reference)
     iters: int = 0
     tol: float | None = None
@@ -46,17 +49,25 @@ class SolverDef:
     update applies M^-1 in-stream (so a factorized preconditioner reaches
     its own fused kind); ``tolerance`` marks methods that read ``tol``/
     ``max_iters``; ``batched`` marks methods that take a stacked (k, n)
-    RHS; ``guarded`` marks methods with in-loop health guards;
-    ``formats`` lists the storage formats the method streams."""
+    RHS; ``preconditioned`` marks methods that consume the engine's
+    preconditioner at all (``cg`` does not); ``needs_dinv`` marks methods
+    whose iteration itself reads the inverse diagonal (the ``jacobi``
+    smoother); ``guarded`` marks methods with in-loop health guards;
+    ``formats`` lists the storage formats the method streams; ``aliases``
+    are other spellings :func:`get_solver` resolves to this entry (and
+    ``canonicalize`` rewrites, so they share one plan)."""
 
     name: str
     run: Callable[[SolveContext, Any, Any], Any]   # (ctx, b, x0) -> SolveResult
     tolerance: bool = False
     batched: bool = True
+    preconditioned: bool = True
+    needs_dinv: bool = False
     fused_local: frozenset = frozenset()
     fused_precond_apply: bool = False
     guarded: bool = False
     formats: frozenset = _ALL_FORMATS
+    aliases: tuple = ()
 
 
 @dataclass(frozen=True)
@@ -80,12 +91,15 @@ class PrecondDef:
 
 
 _SOLVERS: dict[str, SolverDef] = {}
+_SOLVER_ALIASES: dict[str, str] = {}
 _PRECONDS: dict[str, PrecondDef] = {}
 _PRECOND_ALIASES: dict[str, str] = {}
 
 
 def _register_solver(sdef: SolverDef) -> None:
     _SOLVERS[sdef.name] = sdef
+    for a in sdef.aliases:
+        _SOLVER_ALIASES[a] = sdef.name
 
 
 def _register_precond(pdef: PrecondDef) -> None:
@@ -95,12 +109,19 @@ def _register_precond(pdef: PrecondDef) -> None:
 
 
 def get_solver(name: str) -> SolverDef:
+    name = _SOLVER_ALIASES.get(name, name)
     try:
         return _SOLVERS[name]
     except KeyError:
         raise ValueError(
             f"unknown solver {name!r}; registered: {', '.join(sorted(_SOLVERS))}"
         ) from None
+
+
+def solver_names() -> tuple:
+    """Every spelling :func:`get_solver` takes: the registered names, then
+    their aliases, each sorted."""
+    return tuple(sorted(_SOLVERS) + sorted(_SOLVER_ALIASES))
 
 
 def get_precond(name: str) -> PrecondDef:
@@ -167,6 +188,15 @@ def substrate_kind(sdef: SolverDef, pdef: PrecondDef, fused: bool) -> str:
     return pdef.fused_local_kind if sdef.fused_precond_apply else "fused"
 
 
+def effective_precond(sdef: SolverDef, engine_precond: str) -> PrecondDef:
+    """The preconditioner a solver's ``psolve`` is built from: the
+    engine's, except that an unpreconditioned method gets identity, or
+    jacobi when the iteration itself needs the diagonal."""
+    if not sdef.preconditioned:
+        return get_precond("jacobi" if sdef.needs_dinv else "identity")
+    return get_precond(engine_precond)
+
+
 # ---------------------------------------------------------------------------
 # built-in solvers (adapters over repro_torch.core.solvers)
 # ---------------------------------------------------------------------------
@@ -189,12 +219,53 @@ def _run_pcg_tol(c: SolveContext, b, x0):
                            guard=c.guard)
 
 
+def _run_cg(c: SolveContext, b, x0):
+    from . import solvers
+
+    return solvers.cg(c.matvec, b, x0=x0, iters=c.iters,
+                      substrate=c.substrate, guard=c.guard)
+
+
+def _run_pcg_pipelined(c: SolveContext, b, x0):
+    from . import solvers
+
+    return solvers.pcg_pipelined(c.matvec, b, psolve=c.psolve, x0=x0,
+                                 iters=c.iters, substrate=c.substrate,
+                                 guard=c.guard)
+
+
+def _run_pcg_pipelined_tol(c: SolveContext, b, x0):
+    from . import solvers
+
+    return solvers.pcg_pipelined_tol(c.matvec, b, psolve=c.psolve, x0=x0,
+                                     tol=c.tol, max_iters=c.max_iters,
+                                     substrate=c.substrate, guard=c.guard)
+
+
+def _run_jacobi(c: SolveContext, b, x0):
+    from . import solvers
+
+    return solvers.jacobi(c.matvec, c.dinv, b, x0=x0, iters=c.iters)
+
+
 _register_solver(SolverDef(name="pcg", run=_run_pcg,
                            fused_local=_LOCAL_PRECONDS,
                            fused_precond_apply=True, guarded=True))
 _register_solver(SolverDef(name="pcg_tol", run=_run_pcg_tol, tolerance=True,
                            fused_local=_LOCAL_PRECONDS,
                            fused_precond_apply=True, guarded=True))
+_register_solver(SolverDef(name="cg", run=_run_cg, preconditioned=False,
+                           fused_local=_LOCAL_PRECONDS, guarded=True))
+_register_solver(SolverDef(name="pcg_pipelined", run=_run_pcg_pipelined,
+                           fused_local=_LOCAL_PRECONDS,
+                           fused_precond_apply=True, guarded=True,
+                           aliases=("pcg_pipe",)))
+_register_solver(SolverDef(name="pcg_pipelined_tol",
+                           run=_run_pcg_pipelined_tol, tolerance=True,
+                           fused_local=_LOCAL_PRECONDS,
+                           fused_precond_apply=True, guarded=True))
+_register_solver(SolverDef(name="jacobi", run=_run_jacobi,
+                           preconditioned=False, needs_dinv=True))
 
 
 # ---------------------------------------------------------------------------

@@ -15,6 +15,11 @@ iteration consumes:
                                    matrix stream
   ``update(alpha, x, r, p, ap)``-- (x', r', z, rr, rz), the one-pass CG
                                    vector update
+  ``pipe_dots(r, u, w)``        -- stacked [gamma=(r,u), delta=(w,u),
+                                   rr=(r,r)]: the pipelined iteration's
+                                   ONE reduction
+  ``pipe_update(beta, alpha, x, r, u, w, z, q, s, p, m, n)``
+                                -- the Chronopoulos-Gear 8-vector update
 
 * :func:`reference_substrate` composes the caller's matvec/psolve/dot with
   plain PyTorch ops, one per solver line -- the verification oracle.
@@ -34,7 +39,10 @@ iteration consumes:
   sums its dots in another order than PyTorch (on the CPU, nowhere: they
   are bitwise equal).
 
-The pipelined recurrence and the shard flavors wait for their slices.
+Every substrate carries the pipelined recurrence's ``pipe_dots`` (a stack
+of its own dot) and ``pipe_update`` (plain PyTorch, as the JAX package's
+jnp composition: it has no Pallas kernel).  The shard flavors wait for
+their slice.
 """
 
 from __future__ import annotations
@@ -46,7 +54,8 @@ import torch
 from ..kernels import ops
 
 __all__ = ["SolverSubstrate", "reference_substrate", "fused_local_substrate",
-           "fused_ic0_local_substrate", "format_stream_ops"]
+           "fused_ic0_local_substrate", "format_stream_ops", "pipe_update",
+           "modeled_vector_traffic", "modeled_ic0_traffic"]
 
 
 def _dot(u: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
@@ -65,6 +74,35 @@ class SolverSubstrate(NamedTuple):
     dot: Callable
     fold_matvec_dot: Callable
     update: Callable
+    pipe_dots: Callable
+    pipe_update: Callable
+
+
+def pipe_update(beta, alpha, x, r, u, w, z, q, s, p, m, n):
+    """The Chronopoulos-Gear one-pass 8-vector update.
+
+    Inputs are the carried vectors plus the two per-step products
+    m = M^-1 w and n = A m; returns the new (x, r, u, w, z, q, s, p).
+    Reduction-free: every dot the recurrence needs is in ``pipe_dots``,
+    so one iteration has exactly ONE stacked reduction."""
+    z = n + beta * z
+    q = m + beta * q
+    s = w + beta * s
+    p = u + beta * p
+    x = x + alpha * p
+    r = r - alpha * s
+    u = u - alpha * q
+    w = w - alpha * z
+    return x, r, u, w, z, q, s, p
+
+
+def _pipe_dots_local(dot):
+    """Stacked [gamma, delta, rr] from the substrate's own dot."""
+
+    def pipe_dots(r, u, w):
+        return torch.stack([dot(r, u), dot(w, u), dot(r, r)])
+
+    return pipe_dots
 
 
 def reference_substrate(matvec, psolve, dot=None) -> SolverSubstrate:
@@ -86,7 +124,8 @@ def reference_substrate(matvec, psolve, dot=None) -> SolverSubstrate:
         return x, r, z, rr, rz
 
     return SolverSubstrate("reference", matvec, psolve, dot,
-                           fold_matvec_dot, update)
+                           fold_matvec_dot, update, _pipe_dots_local(dot),
+                           pipe_update)
 
 
 def _ell_stream_ops(cols, vals):
@@ -226,7 +265,8 @@ def fused_local_substrate(cols, vals, dinv=None,
         return ops.cg_update(alpha, x, r, p, ap, dinv)
 
     return SolverSubstrate("fused", matvec, psolve, _lane_dot,
-                           fold_matvec_dot, update)
+                           fold_matvec_dot, update,
+                           _pipe_dots_local(_lane_dot), pipe_update)
 
 
 def fused_ic0_local_substrate(cols, vals, apply_dot,
@@ -262,4 +302,61 @@ def fused_ic0_local_substrate(cols, vals, apply_dot,
         return xo, ro, z, rr, rz
 
     return SolverSubstrate("fused_ic0", matvec, psolve, _lane_dot,
-                           fold_matvec_dot, update)
+                           fold_matvec_dot, update,
+                           _pipe_dots_local(_lane_dot), pipe_update)
+
+
+def modeled_vector_traffic(ell_width: float) -> dict:
+    """Vector words moved per Jacobi-PCG iteration, per RHS, in units of n
+    (the JAX package's model; the matrix stream is excluded).
+
+    Unfused (one op per solver line, x gathered per nonzero):
+      SpMV gather w + ap write 1; dot(p,ap) 2; x-axpy 3; r-axpy 3;
+      z = dinv*r 3; dot(r,z) 2; dot(r,r) 1; p-update 3   -> 18 + w.
+    Fused (x resident in the SpMV kernel, dots in-stream):
+      spmv_dot 2 (p in, ap out); cg_update 8 (x,r,p,ap,dinv in; x,r,z
+      out); p-update 3                                     -> 13.
+    Fused + p-fold (p = z + beta*p at gather time): the fold pass streams
+      z in, p in, p' out, ap out = 4; cg_update 8           -> 12.
+    """
+    unfused = 18.0 + float(ell_width)
+    fused = 13.0
+    fused_fold = 12.0
+    return {
+        "ell_width": float(ell_width),
+        "unfused_words_per_n": unfused,
+        "fused_words_per_n": fused,
+        "fused_fold_words_per_n": fused_fold,
+        "reduction": round(unfused / fused_fold, 3),
+    }
+
+
+def modeled_ic0_traffic(ell_width: float, n_levels_l: int,
+                        n_levels_u: int) -> dict:
+    """Vector words per IC(0)-PCG iteration, per RHS, in units of n (the
+    JAX package's model).
+
+    Reference (one op per wavefront): every level gathers the solution
+    vector and scatters it back, 2n a level, plus b in, x out and the two
+    ordering flips per solve, on top of the Jacobi model's non-psolve
+    terms (18 + w - 3):
+
+      unfused = (15 + w) + 2*(2 + 2) + 2 * (L_l + L_u)
+
+    Fused (``sptrsv_solve_dot``): each solve reads b and writes x once,
+    plus the dot weight of the second solve and the two flips, ~7 words
+    whatever the level count; with the p-fold SpMV (12 - 3 words):
+
+      fused = 9 + 7 = 16
+    """
+    levels = float(n_levels_l + n_levels_u)
+    unfused = (15.0 + float(ell_width)) + 8.0 + 2.0 * levels
+    fused = 16.0
+    return {
+        "ell_width": float(ell_width),
+        "n_levels_l": int(n_levels_l),
+        "n_levels_u": int(n_levels_u),
+        "unfused_words_per_n": unfused,
+        "fused_words_per_n": fused,
+        "reduction": round(unfused / fused, 3),
+    }

@@ -55,6 +55,13 @@ _SIGNATURES = {
     "repro_sptrsv_coresident": (),     # -> blocks, or minus the CUDA error
     "repro_bcsr_spmm": (_P, _P, _P, _P, _I64, _I32, _I32, _I32, _I32,
                         _I64, _I64, _I64, _I64, _I64, _P),
+    "repro_ell_spmv_dot": (_P, _P, _P, _P, _P, _P, _I64, _I32, _I32, _I64,
+                           _P),
+    "repro_ell_spmm_dot": (_P, _P, _P, _P, _P, _P, _I64, _I32, _I32, _I64,
+                           _I32, _I64, _I64, _P),
+    "repro_axpy_dot": (_P, _P, _P, _P, _P, _P, _I64, _I64, _P),
+    "repro_sptrsv_level_step": (_P, _P, _P, _P, _P, _P, _P, _I32, _I64, _I32,
+                                _I64, _P),
 }
 
 _LIB = None

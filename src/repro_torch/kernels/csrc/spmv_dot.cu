@@ -1,4 +1,5 @@
 // ell_spmv_pfold_dot: p' = z + beta*p, y = A p', pap = dot(p', y).
+// ell_spmv_dot: its unfolded twin, y = A x, pap = dot(x, y).
 //
 // Replaces the Pallas TPU kernel src/repro/kernels/spmv_dot.py:217
 // (ell_spmv_pfold_dot), the matrix half of every PCG iteration.
@@ -39,27 +40,52 @@
 // P' and Y written: at 1,048,576 x 8 with k = 8 in float64, 100.7 +
 // 4 x 67.1 MB = 369.1 MB, about 110 us at 3.35 TB/s.
 //
-// Design: ell_spmm's K lanes a thread, with pfold_kernel's arithmetic per
-// lane.  Each lane's pap runs pfold_kernel's reduction exactly: the
+// Design: ell_spmm's K lanes a thread, with spmv_dot_kernel's arithmetic per
+// lane.  Each lane's pap runs spmv_dot_kernel's reduction exactly: the
 // contribution sits in the row group's lane 0, block_sum_lanes sums it as
 // block_sum does, and the per-block partials, (k, nblocks) so that a
 // lane's sequence is contiguous, are summed by a second launch of k
 // blocks in index order.  The blocks' rows depend on W alone, so lane j's
-// P', Y and pap do not depend on k and equal pfold_kernel's on lane j.
+// P', Y and pap do not depend on k and equal spmv_dot_kernel's on lane j.
+
+// ell_spmv_dot and ell_spmm_dot: the same kernels with the fold compiled
+// out (the template flag kFold), so they share the gather, the row
+// groups, the per-block partials and the second pass.  Without the fold
+// the gather reads x itself: no beta = 0 stands in for it, because
+// 0 * p is not 0 where p holds an inf or a NaN.
+//
+// ell_spmv_dot replaces the Pallas TPU kernel
+// src/repro/kernels/spmv_dot.py:67 (pallas_call :90): y = A x and
+// pap = dot(x, y) for a square padded operator, x (rows_p,).  Bound:
+// memory, the matrix once plus x in and y out, 117.4 MB at 1,048,576 x 8
+// in float64: about 35 us at 3.35 TB/s.
+//
+// ell_spmm_dot replaces spmv_dot.py:134 (pallas_call :158): Y = A X and
+// pap[j] = dot(X[:, j], Y[:, j]) in the Pallas kernel's layout, X
+// (rows_p, k).  The kernel addresses X and Y through one pair of strides
+// (row stride sr, lane stride sl): a row-major (rows_p, k) X and the
+// transposed view of a contiguous (k, rows_p) tensor both pass without a
+// copy, and Y is written in X's layout.  Bound: the matrix once, X in
+// and Y out, 234.9 MB at k = 8 in float64: about 70 us.  Lane j's
+// arithmetic does not depend on k, nor on the strides: lane j of a k = 8
+// call is bitwise the k = 1 call on lane j.
 
 #include "common.cuh"
 
 namespace {
 
-template <typename T>
+// One row per group of `group` lanes.  kFold: the gathered vector is
+// z + beta * p, recomputed at each gather, and the row's owner stores
+// p'[r]; otherwise it is z itself (p, beta and pn are unused).
+template <typename T, bool kFold>
 __global__ void __launch_bounds__(repro::kThreads)
-pfold_kernel(const int32_t* __restrict__ cols, const T* __restrict__ vals,
-             const T* __restrict__ z, const T* __restrict__ p,
-             const T* __restrict__ beta_ptr, T* __restrict__ pn,
-             T* __restrict__ y, T* __restrict__ partials, int64_t rows, int w,
-             int group) {
+spmv_dot_kernel(const int32_t* __restrict__ cols, const T* __restrict__ vals,
+                const T* __restrict__ z, const T* __restrict__ p,
+                const T* __restrict__ beta_ptr, T* __restrict__ pn,
+                T* __restrict__ y, T* __restrict__ partials, int64_t rows,
+                int w, int group) {
   __shared__ T sh[32];
-  const T beta = *beta_ptr;
+  const T beta = kFold ? *beta_ptr : T(0);
   const int64_t t = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   const int64_t r = t / group;
   const int g = (int)(t % group);
@@ -68,15 +94,16 @@ pfold_kernel(const int32_t* __restrict__ cols, const T* __restrict__ vals,
     const int64_t base = r * w;
     for (int j = g; j < w; j += group) {
       const int c = cols[base + j];
-      acc = repro::fma_rn(vals[base + j],
-                          repro::fold(__ldg(z + c), beta, __ldg(p + c)), acc);
+      const T v = kFold ? repro::fold(__ldg(z + c), beta, __ldg(p + c))
+                        : __ldg(z + c);
+      acc = repro::fma_rn(vals[base + j], v, acc);
     }
   }
   acc = repro::group_sum(acc, group);
   T contrib = T(0);
   if (r < rows && g == 0) {
-    const T pr = repro::fold(z[r], beta, p[r]);
-    pn[r] = pr;
+    const T pr = kFold ? repro::fold(z[r], beta, p[r]) : z[r];
+    if (kFold) pn[r] = pr;
     y[r] = acc;
     contrib = repro::mul_rn(pr, acc);
   }
@@ -84,7 +111,7 @@ pfold_kernel(const int32_t* __restrict__ cols, const T* __restrict__ vals,
   if (threadIdx.x == 0) partials[blockIdx.x] = contrib;
 }
 
-template <typename T>
+template <typename T, bool kFold>
 int launch(const void* cols, const void* vals, const void* z, const void* p,
            const void* beta, void* pn, void* y, void* partials, void* pap,
            int64_t rows, int32_t w, int32_t group, int64_t nblocks,
@@ -95,7 +122,7 @@ int launch(const void* cols, const void* vals, const void* z, const void* p,
   const int64_t blocks = (rows + rows_per_block - 1) / rows_per_block;
   if (blocks != nblocks) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  pfold_kernel<T><<<(unsigned)blocks, repro::kThreads, 0, s>>>(
+  spmv_dot_kernel<T, kFold><<<(unsigned)blocks, repro::kThreads, 0, s>>>(
       (const int32_t*)cols, (const T*)vals, (const T*)z, (const T*)p,
       (const T*)beta, (T*)pn, (T*)y, (T*)partials, rows, w, group);
   cudaError_t err = cudaGetLastError();
@@ -105,19 +132,20 @@ int launch(const void* cols, const void* vals, const void* z, const void* p,
   return (int)cudaGetLastError();
 }
 
-template <typename T, int K>
+// Lane j0 + jj of every vector sits at row * sr + lane * sl.
+template <typename T, int K, bool kFold>
 __global__ void __launch_bounds__(repro::kThreads)
-spmm_pfold_kernel(const int32_t* __restrict__ cols, const T* __restrict__ vals,
-                  const T* __restrict__ z, const T* __restrict__ p,
-                  const T* __restrict__ beta_ptr, T* __restrict__ pn,
-                  T* __restrict__ y, T* __restrict__ partials, int64_t rows,
-                  int w, int group, int k) {
+spmm_dot_kernel(const int32_t* __restrict__ cols, const T* __restrict__ vals,
+                const T* __restrict__ z, const T* __restrict__ p,
+                const T* __restrict__ beta_ptr, T* __restrict__ pn,
+                T* __restrict__ y, T* __restrict__ partials, int64_t rows,
+                int w, int group, int k, int64_t sr, int64_t sl) {
   __shared__ T sh[32 * K];
   const int j0 = blockIdx.y * K;
   T beta[K], acc[K];
 #pragma unroll
   for (int jj = 0; jj < K; ++jj) {
-    beta[jj] = (j0 + jj < k) ? beta_ptr[j0 + jj] : T(0);
+    beta[jj] = (kFold && j0 + jj < k) ? beta_ptr[j0 + jj] : T(0);
     acc[jj] = T(0);
   }
   const int64_t t = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
@@ -131,9 +159,10 @@ spmm_pfold_kernel(const int32_t* __restrict__ cols, const T* __restrict__ vals,
 #pragma unroll
       for (int jj = 0; jj < K; ++jj)
         if (j0 + jj < k) {
-          const int64_t o = (int64_t)(j0 + jj) * rows + c;
-          acc[jj] = repro::fma_rn(
-              v, repro::fold(__ldg(z + o), beta[jj], __ldg(p + o)), acc[jj]);
+          const int64_t o = c * sr + (int64_t)(j0 + jj) * sl;
+          const T xv = kFold ? repro::fold(__ldg(z + o), beta[jj], __ldg(p + o))
+                             : __ldg(z + o);
+          acc[jj] = repro::fma_rn(v, xv, acc[jj]);
         }
     }
   }
@@ -142,9 +171,9 @@ spmm_pfold_kernel(const int32_t* __restrict__ cols, const T* __restrict__ vals,
     const T sum = repro::group_sum(acc[jj], group);
     acc[jj] = T(0);                       // now lane jj's pap contribution
     if (r < rows && g == 0 && j0 + jj < k) {
-      const int64_t o = (int64_t)(j0 + jj) * rows + r;
-      const T pr = repro::fold(z[o], beta[jj], p[o]);
-      pn[o] = pr;
+      const int64_t o = r * sr + (int64_t)(j0 + jj) * sl;
+      const T pr = kFold ? repro::fold(z[o], beta[jj], p[o]) : z[o];
+      if (kFold) pn[o] = pr;
       y[o] = sum;
       acc[jj] = repro::mul_rn(pr, sum);
     }
@@ -157,25 +186,27 @@ spmm_pfold_kernel(const int32_t* __restrict__ cols, const T* __restrict__ vals,
   }
 }
 
-template <typename T, int K>
+template <typename T, int K, bool kFold>
 int launch_spmm_chunk(const void* cols, const void* vals, const void* z,
                       const void* p, const void* beta, void* pn, void* y,
                       void* partials, int64_t rows, int32_t w, int32_t group,
-                      int64_t blocks, int32_t k, cudaStream_t s) {
+                      int64_t blocks, int32_t k, int64_t sr, int64_t sl,
+                      cudaStream_t s) {
   const dim3 grid((unsigned)blocks, (unsigned)((k + K - 1) / K));
-  spmm_pfold_kernel<T, K><<<grid, repro::kThreads, 0, s>>>(
+  spmm_dot_kernel<T, K, kFold><<<grid, repro::kThreads, 0, s>>>(
       (const int32_t*)cols, (const T*)vals, (const T*)z, (const T*)p,
-      (const T*)beta, (T*)pn, (T*)y, (T*)partials, rows, w, group, k);
+      (const T*)beta, (T*)pn, (T*)y, (T*)partials, rows, w, group, k, sr, sl);
   return (int)cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, bool kFold>
 int launch_spmm(const void* cols, const void* vals, const void* z,
                 const void* p, const void* beta, void* pn, void* y,
                 void* partials, void* pap, int64_t rows, int32_t w,
-                int32_t group, int64_t nblocks, int32_t k, void* stream) {
+                int32_t group, int64_t nblocks, int32_t k, int64_t sr,
+                int64_t sl, void* stream) {
   if (rows <= 0 || w <= 0 || k <= 0 || group < 1 || group > 32 ||
-      (group & (group - 1)))
+      (group & (group - 1)) || sr < 0 || sl < 0)
     return (int)cudaErrorInvalidValue;
   const int64_t rows_per_block = repro::kThreads / group;
   const int64_t blocks = (rows + rows_per_block - 1) / rows_per_block;
@@ -183,10 +214,10 @@ int launch_spmm(const void* cols, const void* vals, const void* z,
   cudaStream_t s = (cudaStream_t)stream;
   int err;
   switch (repro::lane_chunk(k)) {
-    case 1: err = launch_spmm_chunk<T, 1>(cols, vals, z, p, beta, pn, y, partials, rows, w, group, blocks, k, s); break;
-    case 2: err = launch_spmm_chunk<T, 2>(cols, vals, z, p, beta, pn, y, partials, rows, w, group, blocks, k, s); break;
-    case 4: err = launch_spmm_chunk<T, 4>(cols, vals, z, p, beta, pn, y, partials, rows, w, group, blocks, k, s); break;
-    default: err = launch_spmm_chunk<T, 8>(cols, vals, z, p, beta, pn, y, partials, rows, w, group, blocks, k, s); break;
+    case 1: err = launch_spmm_chunk<T, 1, kFold>(cols, vals, z, p, beta, pn, y, partials, rows, w, group, blocks, k, sr, sl, s); break;
+    case 2: err = launch_spmm_chunk<T, 2, kFold>(cols, vals, z, p, beta, pn, y, partials, rows, w, group, blocks, k, sr, sl, s); break;
+    case 4: err = launch_spmm_chunk<T, 4, kFold>(cols, vals, z, p, beta, pn, y, partials, rows, w, group, blocks, k, sr, sl, s); break;
+    default: err = launch_spmm_chunk<T, 8, kFold>(cols, vals, z, p, beta, pn, y, partials, rows, w, group, blocks, k, sr, sl, s); break;
   }
   if (err != (int)cudaSuccess) return err;
   repro::sum_partials_kernel<T><<<(unsigned)k, repro::kFinalThreads, 0, s>>>(
@@ -200,25 +231,27 @@ extern "C" int repro_ell_spmv_pfold_dot_f32(
     const void* cols, const void* vals, const void* z, const void* p,
     const void* beta, void* pn, void* y, void* partials, void* pap,
     int64_t rows, int32_t w, int32_t group, int64_t nblocks, void* stream) {
-  return launch<float>(cols, vals, z, p, beta, pn, y, partials, pap, rows, w,
-                       group, nblocks, stream);
+  return launch<float, true>(cols, vals, z, p, beta, pn, y, partials, pap,
+                             rows, w, group, nblocks, stream);
 }
 
 extern "C" int repro_ell_spmv_pfold_dot_f64(
     const void* cols, const void* vals, const void* z, const void* p,
     const void* beta, void* pn, void* y, void* partials, void* pap,
     int64_t rows, int32_t w, int32_t group, int64_t nblocks, void* stream) {
-  return launch<double>(cols, vals, z, p, beta, pn, y, partials, pap, rows, w,
-                        group, nblocks, stream);
+  return launch<double, true>(cols, vals, z, p, beta, pn, y, partials, pap,
+                              rows, w, group, nblocks, stream);
 }
 
+// The solver layout: Z, P, P' and Y (k, rows) row-major.
 extern "C" int repro_ell_spmm_pfold_dot_f32(
     const void* cols, const void* vals, const void* z, const void* p,
     const void* beta, void* pn, void* y, void* partials, void* pap,
     int64_t rows, int32_t w, int32_t group, int64_t nblocks, int32_t k,
     void* stream) {
-  return launch_spmm<float>(cols, vals, z, p, beta, pn, y, partials, pap, rows,
-                            w, group, nblocks, k, stream);
+  return launch_spmm<float, true>(cols, vals, z, p, beta, pn, y, partials,
+                                  pap, rows, w, group, nblocks, k, 1, rows,
+                                  stream);
 }
 
 extern "C" int repro_ell_spmm_pfold_dot_f64(
@@ -226,6 +259,42 @@ extern "C" int repro_ell_spmm_pfold_dot_f64(
     const void* beta, void* pn, void* y, void* partials, void* pap,
     int64_t rows, int32_t w, int32_t group, int64_t nblocks, int32_t k,
     void* stream) {
-  return launch_spmm<double>(cols, vals, z, p, beta, pn, y, partials, pap,
-                             rows, w, group, nblocks, k, stream);
+  return launch_spmm<double, true>(cols, vals, z, p, beta, pn, y, partials,
+                                   pap, rows, w, group, nblocks, k, 1, rows,
+                                   stream);
+}
+
+extern "C" int repro_ell_spmv_dot_f32(
+    const void* cols, const void* vals, const void* x, void* y,
+    void* partials, void* pap, int64_t rows, int32_t w, int32_t group,
+    int64_t nblocks, void* stream) {
+  return launch<float, false>(cols, vals, x, nullptr, nullptr, nullptr, y,
+                              partials, pap, rows, w, group, nblocks, stream);
+}
+
+extern "C" int repro_ell_spmv_dot_f64(
+    const void* cols, const void* vals, const void* x, void* y,
+    void* partials, void* pap, int64_t rows, int32_t w, int32_t group,
+    int64_t nblocks, void* stream) {
+  return launch<double, false>(cols, vals, x, nullptr, nullptr, nullptr, y,
+                               partials, pap, rows, w, group, nblocks, stream);
+}
+
+// X and Y (rows, k) addressed as row * sr + lane * sl.
+extern "C" int repro_ell_spmm_dot_f32(
+    const void* cols, const void* vals, const void* x, void* y,
+    void* partials, void* pap, int64_t rows, int32_t w, int32_t group,
+    int64_t nblocks, int32_t k, int64_t sr, int64_t sl, void* stream) {
+  return launch_spmm<float, false>(cols, vals, x, nullptr, nullptr, nullptr,
+                                   y, partials, pap, rows, w, group, nblocks,
+                                   k, sr, sl, stream);
+}
+
+extern "C" int repro_ell_spmm_dot_f64(
+    const void* cols, const void* vals, const void* x, void* y,
+    void* partials, void* pap, int64_t rows, int32_t w, int32_t group,
+    int64_t nblocks, int32_t k, int64_t sr, int64_t sl, void* stream) {
+  return launch_spmm<double, false>(cols, vals, x, nullptr, nullptr, nullptr,
+                                    y, partials, pap, rows, w, group, nblocks,
+                                    k, sr, sl, stream);
 }

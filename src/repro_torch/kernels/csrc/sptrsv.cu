@@ -44,6 +44,42 @@
 //     partials in index order.  The same inputs on the same card give the
 //     same bits.
 
+
+// sptrsv_level_step: ONE wavefront of the level-scheduled lower solve.
+//
+// Replaces the Pallas TPU kernel src/repro/kernels/sptrsv.py:64
+// (sptrsv_level_step, pallas_call :81) together with the gather and the
+// scatter its wrapper runs around it (src/repro/kernels/ops.py:181-204).
+// It computes what that op computes, not its block structure: x has n + 1
+// slots (the last, n, is the sentinel slot), and for each entry id of the
+// level's row list (W,):
+//   lr = min(id, rows_p - 1)
+//   xr = (b[lr] - sum_s (cols[lr,s] != lr ? vals[lr,s] : 0)
+//                       * x[min(cols[lr,s], n)]) / diag[min(id, n - 1)]
+//   x_out[id] = xr  where id <= n; ids past n are dropped.
+// The clamps are the JAX op's: its gathers clamp out-of-range ids, and a
+// padded row of a factor whose rows_p >= n + 2 holds columns past n.  It
+// divides by diag where sptrsv_solve_dot multiplies by dinv, and sums
+// every slot (a masked slot adds 0 * x, as the JAX op's does).
+//
+// What bounds it on the H100: the launch.  A level of lap2d_1024's IC(0)
+// factor has at most 1024 rows: ~100 KB of factor rows, b, diag and x
+// gathers, 30 ns at 3.35 TB/s, against a few microseconds to launch and
+// drain a kernel.  A whole solve is one launch a level (2047 at
+// lap2d_1024), where sptrsv_solve_dot keeps one cooperative launch and
+// pays a grid barrier a level instead.
+//
+// Design: one thread a row of the level, the slots summed in order
+// (product, then sum, each rounded), the quotient by div_rn.  The kernel
+// reads x_in and writes x_out.  The wrapper makes x_out a copy of x_in,
+// so the op stays functional; x_out may also be x_in itself (a solve
+// that updates x level by level).  That is legal: a level's rows read
+// only x of earlier levels, never of their own (the masked diagonal slot
+// reads x[r] but multiplies it by 0, and x[r] is finite before and
+// after), and the sentinel slot is read only through zero-valued
+// padding.  So x is read through a plain pointer, not a const
+// __restrict__ one: no read depends on a write of the same launch.
+
 #include <cooperative_groups.h>
 
 #include "common.cuh"
@@ -141,6 +177,45 @@ int launch(const void* cols, const void* vals, const void* dinv,
   return (int)cudaGetLastError();
 }
 
+template <typename T>
+__global__ void __launch_bounds__(repro::kThreads)
+sptrsv_level_step_kernel(const int* __restrict__ cols,
+                         const T* __restrict__ vals,
+                         const T* __restrict__ diag, const T* __restrict__ b,
+                         const int* __restrict__ level_rows, const T* x_in,
+                         T* x_out, int wl, int64_t rows_p, int w, int64_t n) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= wl) return;
+  const int64_t id = level_rows[i];
+  if (id < 0) return;                  // schedules hold ids >= 0
+  const int64_t lr = id < rows_p - 1 ? id : rows_p - 1;
+  const int64_t base = lr * w;
+  T sum = T(0);
+  for (int s = 0; s < w; ++s) {
+    const int64_t c = cols[base + s];
+    const T v = c != lr ? vals[base + s] : T(0);
+    sum = repro::add_rn(sum, repro::mul_rn(v, x_in[c < n ? c : n]));
+  }
+  const T xr = repro::div_rn(repro::sub_rn(b[lr], sum),
+                             diag[id < n - 1 ? id : n - 1]);
+  if (id <= n) x_out[id] = xr;
+}
+
+template <typename T>
+int launch_level_step(const void* cols, const void* vals, const void* diag,
+                      const void* b, const void* level_rows, const void* x_in,
+                      void* x_out, int32_t wl, int64_t rows_p, int32_t w,
+                      int64_t n, void* stream) {
+  if (wl <= 0 || rows_p <= 0 || w <= 0 || n <= 0)
+    return (int)cudaErrorInvalidValue;
+  const unsigned blocks = (unsigned)((wl + repro::kThreads - 1) / repro::kThreads);
+  sptrsv_level_step_kernel<T><<<blocks, repro::kThreads, 0,
+                                (cudaStream_t)stream>>>(
+      (const int*)cols, (const T*)vals, (const T*)diag, (const T*)b,
+      (const int*)level_rows, (const T*)x_in, (T*)x_out, wl, rows_p, w, n);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // Blocks of sptrsv_solve_dot_kernel that can be co-resident on the current
@@ -164,4 +239,20 @@ extern "C" int repro_sptrsv_solve_dot_f64(
     void* stream) {
   return launch<double>(cols, vals, dinv, b, wdot, level_ptr, level_rows, x,
                         partials, pp, n_levels, w, blocks, stream);
+}
+
+extern "C" int repro_sptrsv_level_step_f32(
+    const void* cols, const void* vals, const void* diag, const void* b,
+    const void* level_rows, const void* x_in, void* x_out, int32_t wl,
+    int64_t rows_p, int32_t w, int64_t n, void* stream) {
+  return launch_level_step<float>(cols, vals, diag, b, level_rows, x_in, x_out,
+                                  wl, rows_p, w, n, stream);
+}
+
+extern "C" int repro_sptrsv_level_step_f64(
+    const void* cols, const void* vals, const void* diag, const void* b,
+    const void* level_rows, const void* x_in, void* x_out, int32_t wl,
+    int64_t rows_p, int32_t w, int64_t n, void* stream) {
+  return launch_level_step<double>(cols, vals, diag, b, level_rows, x_in,
+                                   x_out, wl, rows_p, w, n, stream);
 }

@@ -1,4 +1,5 @@
-"""Device dispatch for the kernels on the ported paths.
+"""Device dispatch for the port's kernels (the JAX package's
+``repro.kernels.ops`` API, without its tile arguments).
 
 A tensor on a CUDA device launches the hand-written kernel (or the wrapper
 raises: there is no fallback on the card).  A tensor on the CPU takes the
@@ -21,9 +22,10 @@ from . import spmv_dot as _spmv_dot
 from . import sptrsv as _sptrsv
 from . import vecops as _vecops
 
-__all__ = ["ell_spmv", "ell_spmm", "ell_spmv_pfold_dot", "ell_spmm_pfold_dot",
-           "cg_update", "sptrsv_solve_pack", "sptrsv_solve_dot", "bcsr_spmm",
-           "KERNELS",
+__all__ = ["ell_spmv", "ell_spmm", "ell_spmv_dot", "ell_spmm_dot",
+           "ell_spmv_pfold_dot", "ell_spmm_pfold_dot", "axpy_dot",
+           "cg_update", "sptrsv_level_step", "sptrsv_solve_pack",
+           "sptrsv_solve_dot", "bcsr_spmm", "KERNELS",
            "launch_counts", "reset_launch_counts"]
 
 # name -> the wrapper that launches it; the 1-D and the batched (k, n)
@@ -37,6 +39,10 @@ KERNELS = {
     "cg_update_batched": _vecops.cg_update_batched,
     "sptrsv_solve_dot": _sptrsv.sptrsv_solve_dot,
     "bcsr_spmm": _bcsr_spmm.bcsr_spmm,
+    "ell_spmv_dot": _spmv_dot.ell_spmv_dot,
+    "ell_spmm_dot": _spmv_dot.ell_spmm_dot,
+    "axpy_dot": _vecops.axpy_dot,
+    "sptrsv_level_step": _sptrsv.sptrsv_level_step,
 }
 
 
@@ -54,6 +60,24 @@ def ell_spmm(cols: torch.Tensor, vals: torch.Tensor, x: torch.Tensor):
     return ref.ell_spmm_ref(cols, vals, x)
 
 
+def ell_spmv_dot(cols: torch.Tensor, vals: torch.Tensor, x: torch.Tensor):
+    """SpMV + dot: (y, pap) = (A @ x, dot(x, y)) in one matrix pass, for a
+    square padded operator and x (rows_p,)."""
+    if x.is_cuda:
+        return _spmv_dot.ell_spmv_dot(cols, vals, x)
+    _spmv_dot.check_square(cols, x, batched=False)
+    return ref.ell_spmv_dot_ref(cols, vals, x)
+
+
+def ell_spmm_dot(cols: torch.Tensor, vals: torch.Tensor, x: torch.Tensor):
+    """Multi-RHS SpMM + dot in the JAX kernel's layout: x (rows_p, k) ->
+    (Y (rows_p, k), pap (k,)), one matrix stream for all k."""
+    if x.is_cuda:
+        return _spmv_dot.ell_spmm_dot(cols, vals, x)
+    _spmv_dot.check_square(cols, x, batched=True)
+    return ref.ell_spmm_dot_ref(cols, vals, x)
+
+
 def ell_spmv_pfold_dot(cols, vals, z, p, beta):
     """(p', A @ p', dot(p', A @ p')) with p' = z + beta*p."""
     if z.is_cuda:
@@ -69,6 +93,13 @@ def ell_spmm_pfold_dot(cols, vals, z, p, beta):
     return ref.ell_spmm_pfold_dot_ref(cols, vals, z, p, beta)
 
 
+def axpy_dot(a, x: torch.Tensor, y: torch.Tensor):
+    """z = y + a*x and dot(z, z) in one pass, (n,) vectors of any n."""
+    if x.is_cuda:
+        return _vecops.axpy_dot(a, x, y)
+    return ref.axpy_dot_ref(a, x, y)
+
+
 def cg_update(alpha, x, r, p, ap, dinv=None):
     """One-pass CG update -> (x', r', z, rr, rz), for (n,) vectors or (k, n)
     batches (alpha (k, 1))."""
@@ -76,6 +107,16 @@ def cg_update(alpha, x, r, p, ap, dinv=None):
         fn = _vecops.cg_update_batched if x.dim() == 2 else _vecops.cg_update
         return fn(alpha, x, r, p, ap, dinv)
     return ref.cg_update_ref(alpha, x, r, p, ap, dinv)
+
+
+def sptrsv_level_step(cols, vals, diag, b, x, level_rows):
+    """One level wavefront of the lower solve: gathers the level's rows,
+    solves them (dividing by ``diag``) and scatters them into a new x
+    (n + 1,) whose slot n is the sentinel slot; ids past n are dropped
+    (the JAX op's ``mode="drop"``).  ``x`` itself is left untouched."""
+    if x.is_cuda:
+        return _sptrsv.sptrsv_level_step(cols, vals, diag, b, x, level_rows)
+    return ref.sptrsv_level_step_ref(cols, vals, diag, b, x, level_rows)
 
 
 def sptrsv_solve_pack(cols: torch.Tensor, sched_rows,

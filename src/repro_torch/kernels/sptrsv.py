@@ -1,5 +1,6 @@
-"""CUDA kernel for the whole level-scheduled lower-triangular solve with an
-in-stream dot, with its pack and launch wrapper.
+"""CUDA kernels for the level-scheduled lower-triangular solve: the whole
+solve with an in-stream dot, and one wavefront; with the pack and the
+launch wrappers.
 
 ``x = L^-1 b`` over a padded ELL factor, walked level by level, and
 ``pp = dot(wdot, x)``.  Replaces the Pallas TPU kernel
@@ -10,6 +11,11 @@ design.  The plain PyTorch version is :func:`sptrsv_solve_dot_plain`.
 The kernel takes the schedule as compact level lists, not the Pallas
 kernel's pre-gathered (levels, width, w) planes: :func:`solve_pack` builds
 them once per factor.
+
+:func:`sptrsv_level_step` solves one level and replaces
+``repro.kernels.sptrsv.sptrsv_level_step`` (``:64``) with the gather and
+scatter of its ``ops`` wrapper; its plain version is
+:func:`sptrsv_level_step_plain`.
 """
 
 from __future__ import annotations
@@ -20,10 +26,12 @@ import numpy as np
 import torch
 
 from . import build
+from .ref import sptrsv_level_step_ref as sptrsv_level_step_plain
 from .ref import sptrsv_solve_dot_ref as sptrsv_solve_dot_plain
 
 __all__ = ["SptrsvPack", "solve_pack", "sptrsv_solve_dot",
-           "sptrsv_solve_dot_plain", "grid_blocks"]
+           "sptrsv_solve_dot_plain", "grid_blocks", "sptrsv_level_step",
+           "sptrsv_level_step_plain"]
 
 _THREADS = 256      # csrc/common.cuh kThreads
 
@@ -136,3 +144,50 @@ def sptrsv_solve_dot(cols: torch.Tensor, vals: torch.Tensor,
 
 
 sptrsv_solve_dot.launches = 0
+
+
+def sptrsv_level_step(cols: torch.Tensor, vals: torch.Tensor,
+                      diag: torch.Tensor, b: torch.Tensor, x: torch.Tensor,
+                      level_rows: torch.Tensor,
+                      out: torch.Tensor | None = None) -> torch.Tensor:
+    """One level of the lower solve on the card (the contract of
+    :func:`sptrsv_level_step_plain`): ``cols``/``vals`` (rows_p, w) padded
+    ELL of L, ``diag`` its diagonal (at least n entries), ``b`` (rows_p,),
+    ``x`` (n + 1,) with the sentinel slot n, ``level_rows`` (W,) int32 ids
+    >= 0.  The solved values are written into ``out`` and ``out`` is
+    returned: by default a copy of ``x``, which stays untouched.  ``out``
+    may be ``x`` itself (a solve that updates x level by level; the
+    kernel's header says why that is legal)."""
+    if cols.dim() != 2 or cols.shape != vals.shape:
+        raise ValueError(f"sptrsv_level_step: cols {tuple(cols.shape)} vs "
+                         f"vals {tuple(vals.shape)}")
+    rows_p, w = cols.shape
+    n = x.shape[0] - 1 if x.dim() == 1 else 0
+    if rows_p == 0 or w == 0 or n < 1:
+        raise ValueError(f"sptrsv_level_step: factor {tuple(cols.shape)}, x "
+                         f"{tuple(x.shape)} (n + 1 slots, n >= 1)")
+    if b.shape != (rows_p,) or diag.dim() != 1 or diag.shape[0] < n:
+        raise ValueError(f"sptrsv_level_step: b {tuple(b.shape)} vs rows_p "
+                         f"{rows_p}, diag {tuple(diag.shape)} vs n {n}")
+    if level_rows.dim() != 1 or level_rows.numel() == 0:
+        raise ValueError(f"sptrsv_level_step: level_rows "
+                         f"{tuple(level_rows.shape)}")
+    dt, dev = vals.dtype, vals.device
+    build.require_cuda("sptrsv_level_step", dt, dev, cols=cols, vals=vals,
+                       diag=diag, b=b, x=x, level_rows=level_rows)
+    if out is None:
+        out = x.clone()
+    build.require_cuda("sptrsv_level_step", dt, dev, out=out)
+    if out.shape != x.shape:
+        raise ValueError(f"sptrsv_level_step: out {tuple(out.shape)} vs x "
+                         f"{tuple(x.shape)}")
+    fn = build.entry("repro_sptrsv_level_step", dt)
+    build.check(fn(cols.data_ptr(), vals.data_ptr(), diag.data_ptr(),
+                   b.data_ptr(), level_rows.data_ptr(), x.data_ptr(),
+                   out.data_ptr(), level_rows.numel(), rows_p, w, n,
+                   build.stream_handle(dev)), "sptrsv_level_step")
+    sptrsv_level_step.launches += 1
+    return out
+
+
+sptrsv_level_step.launches = 0

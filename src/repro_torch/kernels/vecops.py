@@ -1,14 +1,15 @@
-"""CUDA kernels for the one-pass CG vector update, with their launch
-wrappers.
+"""CUDA kernels for the one-pass CG vector update and the axpy + dot
+stage, with their launch wrappers.
 
 ``x' = x + alpha*p``, ``r' = r - alpha*ap``, ``z = dinv*r'`` (or ``r'``),
 ``rr = dot(r', r')`` and ``rz = dot(r', z)`` in one pass, per lane for a
 batch.  Replace the Pallas TPU kernel ``repro.kernels.vecops.cg_update``
 (``src/repro/kernels/vecops.py:157``): :func:`cg_update` its 1-D bodies
 (``:89``, ``:105``), :func:`cg_update_batched` its batched ones (``:124``,
-``:140``).  The kernels are ``csrc/vecops.cu``, whose header gives their
-bounds and design.  The plain PyTorch version of both is
-:func:`cg_update_plain`.
+``:140``).  :func:`axpy_dot` (z = y + a*x and dot(z, z)) replaces
+``vecops.axpy_dot`` (``:49``).  The kernels are ``csrc/vecops.cu``, whose
+header gives their bounds and design.  The plain PyTorch versions are
+:func:`cg_update_plain` and :func:`axpy_dot_plain`.
 """
 
 from __future__ import annotations
@@ -16,9 +17,11 @@ from __future__ import annotations
 import torch
 
 from . import build
+from .ref import axpy_dot_ref as axpy_dot_plain
 from .ref import cg_update_ref as cg_update_plain
 
-__all__ = ["cg_update", "cg_update_batched", "cg_update_plain"]
+__all__ = ["cg_update", "cg_update_batched", "cg_update_plain", "axpy_dot",
+           "axpy_dot_plain"]
 
 _PER_BLOCK = 256 * 4      # csrc: kThreads * kElems
 
@@ -111,3 +114,29 @@ def cg_update_batched(alpha, x, r, p, ap, dinv=None):
 
 
 cg_update_batched.launches = 0
+
+
+def axpy_dot(a, x: torch.Tensor, y: torch.Tensor):
+    """Returns ``(z, zz)`` on the card: z = y + a*x and zz = dot(z, z), a
+    0-d tensor, for (n,) vectors of any n; ``a`` is a number or a 0-d
+    device tensor (read through a pointer: no host sync)."""
+    if x.dim() != 1 or x.numel() == 0 or y.shape != x.shape:
+        raise ValueError(f"axpy_dot expects two non-empty (n,) vectors, got "
+                         f"x {tuple(x.shape)}, y {tuple(y.shape)}")
+    dt, dev = x.dtype, x.device
+    a = build.device_scalar(a, dt, dev)
+    build.require_cuda("axpy_dot", dt, dev, a=a, x=x, y=y)
+    n = x.shape[0]
+    nblocks = -(-n // _PER_BLOCK)
+    z = torch.empty(n, dtype=dt, device=dev)
+    partials = torch.empty(nblocks, dtype=dt, device=dev)
+    zz = torch.empty(1, dtype=dt, device=dev)
+    fn = build.entry("repro_axpy_dot", dt)
+    build.check(fn(a.data_ptr(), x.data_ptr(), y.data_ptr(), z.data_ptr(),
+                   partials.data_ptr(), zz.data_ptr(), n, nblocks,
+                   build.stream_handle(dev)), "axpy_dot")
+    axpy_dot.launches += 1
+    return z, zz.reshape(())
+
+
+axpy_dot.launches = 0

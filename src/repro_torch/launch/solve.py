@@ -21,18 +21,22 @@ import json
 import numpy as np
 import scipy.sparse as sp
 
+from ..core import registry
+
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--matrix", default="lap2d_32")
-    ap.add_argument("--method", default="pcg", choices=("pcg", "pcg_tol"))
+    ap.add_argument("--method", default="pcg",
+                    choices=registry.solver_names())
     ap.add_argument("--precond", default="jacobi",
                     choices=("jacobi", "block_ic0", "none"))
     ap.add_argument("--iters", type=int, default=100)
     ap.add_argument("--tol", type=float, default=1e-8,
-                    help="relative residual target (pcg_tol)")
+                    help="relative residual target (the *_tol methods)")
     ap.add_argument("--max-iters", type=int, default=None,
-                    help="iteration cap for pcg_tol (default: --iters)")
+                    help="iteration cap of the *_tol methods (default: "
+                         "--iters)")
     ap.add_argument("--fused", default="auto", choices=("auto", "on", "off"),
                     help="fused-substrate knob (auto = on where supported)")
     ap.add_argument("--format", default="auto", dest="fmt",

@@ -39,6 +39,9 @@ from repro_torch.kernels import bcsr_spmm, ell_spmv, ops, spmv_dot, sptrsv, veco
 pytestmark = pytest.mark.gpu
 
 RTOL = {torch.float64: 1e-12, torch.float32: 1e-5}
+# the kernels no solver path launches (reached through kernels.ops only)
+OFF_PATH = {"ell_spmv_dot": 0, "ell_spmm_dot": 0, "axpy_dot": 0,
+            "sptrsv_level_step": 0}
 DTYPES = [torch.float64, torch.float32]
 # (rows, ELL width, stored entries per row): ragged rows, widths that are
 # and are not a power of two, a single-lane group
@@ -145,7 +148,7 @@ def test_pcg_tol_on_the_card(cuda, name, iters):
     assert counts == {"ell_spmv": 1, "ell_spmv_pfold_dot": got, "cg_update": got,
                       "ell_spmm": 0, "ell_spmm_pfold_dot": 0,
                       "cg_update_batched": 0, "sptrsv_solve_dot": 0,
-                      "bcsr_spmm": 0}
+                      "bcsr_spmm": 0, **OFF_PATH}
     assert np.isfinite(x).all() and norms.shape == (401,)
 
 
@@ -270,7 +273,7 @@ def test_batched_plan_on_the_card(cuda, precond):
     assert counts == {"ell_spmv": 0, "ell_spmv_pfold_dot": 0, "cg_update": 0,
                       "ell_spmm": 1, "ell_spmm_pfold_dot": steps,
                       "cg_update_batched": steps, "sptrsv_solve_dot": 0,
-                      "bcsr_spmm": 0}
+                      "bcsr_spmm": 0, **OFF_PATH}
     assert x.shape == (4, m.shape[0]) and norms.shape == (401, 4)
     a = sp.csr_matrix((m.data, m.indices, m.indptr), shape=m.shape)
     res = np.linalg.norm(b - (a @ x.T).T, axis=1) / np.linalg.norm(b, axis=1)
@@ -519,3 +522,171 @@ def test_format_plans_on_the_card(cuda, name, fmt):
     ref(b)
     assert ref.last_status_names == "converged"
     assert abs(int(ref.last_iters) - steps) <= 1
+
+
+# -- the kernels reached through kernels.ops only ------------------------------
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+@pytest.mark.parametrize("rows,width,k", SHAPES)
+def test_ell_spmv_dot_kernel_matches_plain(cuda, rows, width, k, dtype):
+    """Within the tolerance of the plain version, bitwise on a second
+    launch, and y bitwise ell_spmv's (the same gather and row sums)."""
+    cols, vals, vec = _operator(rows, width, k, dtype, rows + 11, cuda)
+    x = vec()
+    before = spmv_dot.ell_spmv_dot.launches
+    y, pap = spmv_dot.ell_spmv_dot(cols, vals, x)
+    assert spmv_dot.ell_spmv_dot.launches == before + 1 and pap.shape == ()
+    want = spmv_dot.ell_spmv_dot_plain(cols, vals, x)
+    _close((y, pap.reshape(1)), (want[0], want[1].reshape(1)), dtype)
+    y2, pap2 = spmv_dot.ell_spmv_dot(cols, vals, x)
+    assert torch.equal(y, y2) and torch.equal(pap, pap2)
+    assert torch.equal(y, ell_spmv.ell_spmv(cols, vals, x))
+    got = ops.ell_spmv_dot(cols, vals, x)
+    assert torch.equal(got[0], y) and torch.equal(got[1], pap)
+
+
+@pytest.mark.parametrize("k", LANES)
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+@pytest.mark.parametrize("rows,width,nnz", SHAPES)
+def test_ell_spmm_dot_kernel_matches_plain(cuda, rows, width, nnz, dtype, k):
+    """The JAX layout X (rows_p, k), row-major and as the transposed view
+    of the solver's (k, rows_p): Y in x's layout, within the tolerance,
+    the two layouts and lane j vs the k = 1 call bitwise equal, Y bitwise
+    ell_spmm's."""
+    cols, vals, vec = _operator(rows, width, nnz, dtype, rows + 3 * k, cuda)
+    xs = _lanes(vec, k)                      # (k, rows), the solver layout
+    y, pap = spmv_dot.ell_spmm_dot(cols, vals, xs.T.contiguous())
+    yv, papv = spmv_dot.ell_spmm_dot(cols, vals, xs.T)
+    assert y.shape == yv.shape == (rows, k) and pap.shape == (k,)
+    if k > 1:
+        assert y.is_contiguous() and yv.stride() == xs.T.stride()
+    want = spmv_dot.ell_spmm_dot_plain(cols, vals, xs.T)
+    _close((y, pap), want, dtype)
+    assert torch.equal(y, yv) and torch.equal(pap, papv)
+    assert torch.equal(yv.T, ell_spmv.ell_spmm(cols, vals, xs))
+    for j in range(k):
+        yj, pj = spmv_dot.ell_spmm_dot(cols, vals, xs[j: j + 1].T)
+        assert torch.equal(yj, y[:, j: j + 1]) and torch.equal(pj, pap[j: j + 1])
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+@pytest.mark.parametrize("n", [1, 1000, 1024, 4099])
+def test_axpy_dot_kernel_matches_plain(cuda, n, dtype):
+    """z bitwise the plain version's (a a number or a 0-d device tensor),
+    zz within the tolerance and bitwise on a second launch."""
+    _, _, vec = _operator(n, 1, 1, dtype, n + 13, cuda)
+    x, y = vec(), vec()
+    for a in (0.7, torch.tensor(-1.3, dtype=dtype, device=cuda)):
+        before = vecops.axpy_dot.launches
+        z, zz = vecops.axpy_dot(a, x, y)
+        assert vecops.axpy_dot.launches == before + 1 and zz.shape == ()
+        want = vecops.axpy_dot_plain(a, x, y)
+        assert torch.equal(z, want[0])
+        _close((zz.reshape(1),), (want[1].reshape(1),), dtype)
+        assert torch.equal(zz, vecops.axpy_dot(a, x, y)[1])
+
+
+def _level_inputs(case, dtype, device):
+    """(cols, vals, diag, b, schedule rows (L, W) int32, n) of a factor;
+    "sentinel": a random factor with n = 1003 (rows_p = 1008), its padded
+    rows holding columns past n, and level lists that also carry ids past
+    n (dropped)."""
+    if case != "sentinel":
+        ell, rows, _, b, _, n = _solve_inputs(case, dtype, device)
+        cols, vals = ell.cols, ell.vals
+    else:
+        a = sp.random(1003, 1003, density=0.004, random_state=5, format="csr")
+        low = sp.tril(a, -1).tocsr()
+        m = csr_from_scipy(low + sp.diags(np.asarray(abs(low).sum(1)).ravel() + 1))
+        n = 1003
+        ell = ell_from_csr(m, row_pad=8, width_pad=8, dtype=np.float64,
+                           device=device)
+        cols, vals = ell.cols.clone(), ell.vals.to(dtype)
+        cols[n:] = cols.shape[0] - 1        # past n: read through the clamp
+        r = build_schedule(m).rows
+        rows = torch.from_numpy(np.concatenate(
+            [r, np.full((r.shape[0], 8), n + 3, np.int32)], 1)).to(device)
+        g = torch.Generator(device=device).manual_seed(n)
+        b = torch.zeros(cols.shape[0], dtype=dtype, device=device)
+        b[:n] = torch.randn(n, generator=g, device=device, dtype=dtype)
+    diag = torch.sum(torch.where(cols == torch.arange(
+        cols.shape[0], device=device)[:, None], vals, 0.0), dim=1)
+    diag = torch.where(diag == 0, 1.0, diag)
+    return cols, vals, diag, b, torch.as_tensor(rows, device=device), n
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+@pytest.mark.parametrize("case", ["rand1000", "chain", "diag", "ic0_L",
+                                  "sentinel"])
+def test_sptrsv_level_step_kernel_matches_plain(cuda, case, dtype):
+    """Level by level from the same x: the kernel within the tolerance of
+    the plain version, x untouched, the in-place form (out=x) bitwise the
+    functional one; the solved x within the tolerance of
+    sptrsv_solve_dot's (which multiplies by the inverse diagonal)."""
+    cols, vals, diag, b, rows, n = _level_inputs(case, dtype, cuda)
+    x = torch.zeros(n + 1, dtype=dtype, device=cuda)
+    inplace = x.clone()
+    for lv in rows:
+        keep = x.clone()
+        got = sptrsv.sptrsv_level_step(cols, vals, diag, b, x, lv)
+        assert torch.equal(x, keep)
+        _close((got,), (sptrsv.sptrsv_level_step_plain(cols, vals, diag, b,
+                                                       x, lv),), dtype)
+        sptrsv.sptrsv_level_step(cols, vals, diag, b, inplace, lv, out=inplace)
+        assert torch.equal(inplace, got)
+        x = got
+    pack = ops.sptrsv_solve_pack(cols, rows, n)
+    xs, _ = sptrsv.sptrsv_solve_dot(cols, vals, 1.0 / diag, b, pack)
+    _close((x[:n],), (xs[:n],), dtype)
+
+
+def test_off_path_wrappers_check_operands(cuda):
+    cols, vals, vec = _operator(64, 8, 8, torch.float64, 6, cuda)
+    x = vec()
+    with pytest.raises(ValueError, match="square padded"):
+        spmv_dot.ell_spmv_dot(cols, vals, x[:63])
+    with pytest.raises(ValueError, match="square padded"):
+        ops.ell_spmm_dot(cols, vals, torch.stack([x, x], 1)[:63])
+    with pytest.raises(ValueError, match=r"shape \(n, k\)"):
+        spmv_dot.ell_spmm_dot(cols, vals, x)
+    with pytest.raises(ValueError, match="strides"):
+        spmv_dot.ell_spmm_dot(cols, vals, torch.stack([x] * 4, 1)[:, ::2])
+    with pytest.raises(ValueError, match="axpy_dot"):
+        vecops.axpy_dot(0.5, x, x[:63])
+    with pytest.raises(TypeError, match="level_rows"):
+        sptrsv.sptrsv_level_step(cols, vals, x, x, torch.zeros(65, dtype=x.dtype,
+                                 device=cuda), torch.zeros(8, device=cuda,
+                                                           dtype=torch.int64))
+
+
+@pytest.mark.parametrize("batch", [None, 4])
+@pytest.mark.parametrize("precond", ["jacobi", "block_ic0"])
+def test_pipelined_plan_on_the_card(cuda, precond, batch):
+    """pcg_pipelined_tol on the card: the JAX package's counts within one a
+    lane (those of pcg_tol), the matvec kernel loop steps + 2 times (two
+    matvecs at start-up), block_ic0's two triangular solves per lane per
+    psolve (loop steps + 2 of them)."""
+    want = {("jacobi", None): [94], ("jacobi", 4): [102, 98, 102, 102],
+            ("block_ic0", None): [32], ("block_ic0", 4): [35, 35, 35, 34]}
+    m = suite("small")["lap2d_32"]
+    a = sp.csr_matrix((m.data, m.indices, m.indptr), shape=m.shape)
+    rng = np.random.default_rng(0)
+    b = (rng.standard_normal((4, m.shape[0])) if batch
+         else a @ rng.standard_normal(m.shape[0]))
+    eng = AzulEngine(m, precond=precond, dtype=np.float64)
+    plan = eng.plan(SolveSpec(method="pcg_pipelined_tol", tol=1e-8,
+                              max_iters=400, batch=batch))
+    ops.reset_launch_counts()
+    x, _ = plan(b)
+    counts = ops.launch_counts()
+    iters = np.atleast_1d(plan.last_iters)
+    steps, lanes = int(iters.max()), len(iters)
+    assert np.all(np.abs(iters - want[(precond, batch)]) <= 1)
+    assert np.all(np.atleast_1d(plan.last_status_names) == "converged")
+    assert counts["ell_spmm" if batch else "ell_spmv"] == steps + 2
+    assert counts["sptrsv_solve_dot"] == (2 * lanes * (steps + 2)
+                                          if precond == "block_ic0" else 0)
+    xs, bs = np.atleast_2d(x), np.atleast_2d(b)
+    res = np.linalg.norm(bs - (a @ xs.T).T, axis=1) / np.linalg.norm(bs, axis=1)
+    assert np.all(res <= 1e-7)

@@ -104,6 +104,10 @@ def test_plain_versions_sit_beside_the_kernels():
     assert vecops.cg_update_plain is ops.ref.cg_update_ref
     assert sptrsv.sptrsv_solve_dot_plain is ops.ref.sptrsv_solve_dot_ref
     assert bcsr_spmm.bcsr_spmm_plain is ops.ref.bcsr_spmm_ref
+    assert spmv_dot.ell_spmv_dot_plain is ops.ref.ell_spmv_dot_ref
+    assert spmv_dot.ell_spmm_dot_plain is ops.ref.ell_spmm_dot_ref
+    assert vecops.axpy_dot_plain is ops.ref.axpy_dot_ref
+    assert sptrsv.sptrsv_level_step_plain is ops.ref.sptrsv_level_step_ref
 
 
 def test_cpu_tensors_never_count_as_launches():
@@ -126,7 +130,8 @@ def test_cpu_tensors_never_count_as_launches():
     assert set(before) == {"ell_spmv", "ell_spmv_pfold_dot", "cg_update",
                            "ell_spmm", "ell_spmm_pfold_dot",
                            "cg_update_batched", "sptrsv_solve_dot",
-                           "bcsr_spmm"}
+                           "bcsr_spmm", "ell_spmv_dot", "ell_spmm_dot",
+                           "axpy_dot", "sptrsv_level_step"}
 
 
 def test_kernel_wrappers_refuse_cpu_tensors():
