@@ -12,7 +12,10 @@ prints no result line):
 2. kernels  -- hold each kernel against its plain PyTorch version on the
                card, in float64 and float32, at ragged sizes and at the
                main-path shape (1,048,576 x 8); the batched kernels at
-               k = 1, 3 and 8 (k = 8 at the main shape).  Tolerance,
+               k = 1, 3 and 8 (k = 8 at the main shape); ell_spmv's y
+               bitwise equal across its variants (the first slice's
+               group design among them) and to lane 0 of ell_spmm.
+               Tolerance,
                because only the summation order differs: max |kernel -
                plain| <= rtol * max |plain| with rtol 1e-12 (float64) and
                1e-5 (float32); p', x', r' and z bitwise equal.  Lane
@@ -21,9 +24,10 @@ prints no result line):
                ``sptrsv_solve_dot`` in both types on random lower-triangular
                matrices (n = 1000 and 4099, two densities), a 2047-row
                chain, a diagonal, and lap2d_1024's two IC(0) factors, with
-               and without the dot weight: x and pp within the same
-               tolerance, padded rows of x exactly 0, a second run bitwise
-               equal.  ``bcsr_spmm`` in both types at the JAX kernel tests'
+               and without the dot weight, both variants (cluster where
+               the shape admits it, cooperative): x and pp within
+               the same tolerance, padded rows of x exactly 0, a second run
+               bitwise equal.  ``bcsr_spmm`` in both types at the JAX kernel tests'
                (bm, bn, R) sweep on random matrices and at lap2d_1024's
                8 x 8 blocks with R = 1 and 8: within the tolerance; a
                second launch, the row-major and the lanes-major layout, and
@@ -160,6 +164,14 @@ prints no result line):
                level of lap2d_1024's L and the whole 2047-launch solve
                eager and as one graph beside sptrsv_solve_dot's, and one
                Jacobi pipelined step by part (graph replays).
+               The A/B phases: ell_spmv at 1,048,576 x 8 (f64, f32) and at
+               the skewed 2^20 ELL (W = 264), the first slice's group design
+               against the kept variant, each timed twice in mirrored order
+               beside torch's CSR @ x, y bitwise equal; sptrsv_solve_dot's
+               variants on lap2d_1024's two factors, the 2047-row chain,
+               the random cases and striped factors of 128 levels 256 to
+               8192 rows wide (the cluster/cooperative threshold), in
+               mirrored order, beside torch's sparse CSR triangular_solve.
 
 The last three lines are the kernels JSON, the card's
 ``nvidia-smi --query-gpu=name,power.limit`` line, and the result JSON.
@@ -378,9 +390,19 @@ def check_kernels(cols, vals, dtype: str, gen, label: str) -> dict:
     x, z, p, r, ap = vec(), vec(), vec(), vec(), vec()
     dinv = vec().abs() + 0.5
     errs = {}
-    errs["ell_spmv"] = compare(
-        f"ell_spmv {label}", (ell_spmv.ell_spmv(cols, vals, x),),
-        (ell_spmv.ell_spmv_plain(cols, vals, x),), dtype)
+    y = ell_spmv.ell_spmv(cols, vals, x)
+    errs["ell_spmv"] = compare(f"ell_spmv {label}", (y,),
+                               (ell_spmv.ell_spmv_plain(cols, vals, x),), dtype)
+    # every variant the width admits, the first slice's group design among
+    # them, and lane 0 of ell_spmm: the same bits
+    same = {"ell_spmm lane 0": ell_spmv.ell_spmm(cols, vals, x[None])[0]}
+    for variant in (ell_spmv.SPMV_VARIANTS
+                    if ell_spmv.spmv_variant(cols.shape[1]) == "rows"
+                    else ("group",)):
+        same[variant] = ell_spmv.ell_spmv(cols, vals, x, variant=variant)
+    for name, other in same.items():
+        if not torch.equal(y, other):
+            raise AssertionError(f"ell_spmv {label}: y differs from {name}")
     e = 0.0
     for beta in (0.0, 0.37):
         bt = torch.tensor(beta, dtype=td, device=vals.device)
@@ -522,19 +544,42 @@ def check_sptrsv(ell, rows, n: int, dtype: str, gen, label: str) -> float:
     ell, rows, dinv, b, w, pack = factor_inputs(ell, rows, n, dtype, gen)
     cols, vals = ell.cols, ell.vals
     err = 0.0
+    kept = sptrsv.solve_variant(pack.n_levels, pack.max_width, cols.shape[1])
     for wd in (w, None):
-        tag = f"sptrsv_solve_dot {label} {'with' if wd is not None else 'no'} dot"
-        x, pp = sptrsv.sptrsv_solve_dot(cols, vals, dinv, b, pack, wd)
-        x2, pp2 = sptrsv.sptrsv_solve_dot(cols, vals, dinv, b, pack, wd)
-        if not (torch.equal(x, x2) and torch.equal(pp, pp2)):
-            raise AssertionError(f"{tag}: two launches differ")
-        if bool((x[n:] != 0).any()):
-            raise AssertionError(f"{tag}: a padded row of x is not 0")
         want = sptrsv.sptrsv_solve_dot_plain(
             cols, vals, dinv, b, rows, torch.zeros_like(w) if wd is None else w, n)
-        err = max(err, compare(tag, (x, pp.reshape(1)),
-                               (want[0], want[1].reshape(1)), dtype))
+        for variant in sptrsv.SOLVE_VARIANTS:
+            if variant == "cluster" and kept != "cluster":
+                continue                # the schedule or the width is too wide
+            tag = (f"sptrsv_solve_dot {label} {variant} "
+                   f"{'with' if wd is not None else 'no'} dot")
+            x, pp = sptrsv.sptrsv_solve_dot(cols, vals, dinv, b, pack, wd,
+                                            variant=variant)
+            x2, pp2 = sptrsv.sptrsv_solve_dot(cols, vals, dinv, b, pack, wd,
+                                              variant=variant)
+            if not (torch.equal(x, x2) and torch.equal(pp, pp2)):
+                raise AssertionError(f"{tag}: two launches differ")
+            if bool((x[n:] != 0).any()):
+                raise AssertionError(f"{tag}: a padded row of x is not 0")
+            e = compare(tag, (x, pp.reshape(1)), (want[0], want[1].reshape(1)),
+                        dtype)
+            if variant == kept:
+                err = max(err, e)
     return err
+
+
+def launch_shape(pack, width: int, device) -> str:
+    """The sptrsv_solve_dot variant the wrapper picks for a pack, and its
+    grid."""
+    import torch
+    from repro_torch.kernels import sptrsv
+
+    kept = sptrsv.solve_variant(pack.n_levels, pack.max_width, width)
+    if kept == "cluster":
+        blocks, threads = sptrsv.cluster_geometry(pack.max_width, width=width)
+        return f"cluster of {blocks} blocks x {threads} threads"
+    return (f"cooperative, {sptrsv.grid_blocks(pack, torch.float64, device)}"
+            " blocks")
 
 
 def check_ops_only_kernels(cols, vals, dtype: str, gen, label: str,
@@ -872,7 +917,7 @@ def main() -> int:
     from repro_torch.core.substrate import format_stream_ops
     from repro_torch.data.matrices import laplacian_2d, rmat_spd, skew_spd, suite
     from repro_torch.kernels.autotune import modeled_format_words
-    from repro_torch.core.formats import ell_from_csr
+    from repro_torch.core.formats import csr_from_scipy, ell_from_csr
     from repro_torch.core.levels import build_schedule
     from repro_torch.kernels import build, ops
     from repro_torch.kernels import bcsr_spmm, ell_spmv, spmv_dot, sptrsv, vecops
@@ -1834,7 +1879,7 @@ def main() -> int:
                         ell.cols, ell.vals, dinv, bb, rows,
                         torch.zeros_like(w) if wd is None else w, f.n),
                 ell=ell, bb=bb, levels=pack.n_levels,
-                blocks=sptrsv.grid_blocks(pack, torch.float64, bb.device),
+                blocks=launch_shape(pack, ell.cols.shape[1], bb.device),
                 bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, nbytes=nbytes)
         chain = triangular_cases()[f"chain {CHAIN_ROWS}"]
         cell = ell_from_csr(chain, row_pad=8, width_pad=8, dtype=np.float64)
@@ -1906,7 +1951,7 @@ def main() -> int:
         for label, sv in solves.items():
             say(f"time sptrsv_solve_dot lap2d_1024 {label}: {sv['ms']:.4f} ms "
                 f"({how}), {sv['events_ms']:.4f} ms launched from Python, "
-                f"{sv['levels']} levels on {sv['blocks']} blocks "
+                f"{sv['levels']} levels, {sv['blocks']} "
                 f"({1e3 * sv['ms'] / sv['levels']:.3f} us a level); plain "
                 f"{sv['plain_ms']:.4f} ms, bound {sv['bound_ms']:.4f} ms "
                 f"({sv['nbytes']} bytes)")
@@ -2028,6 +2073,145 @@ def main() -> int:
     except Exception:
         traceback.print_exc()
         failed.append("times bcsr_spmm")
+
+    # -- 5f. ell_spmv: the first slice's design against the redesign ------
+    try:
+        gen = torch.Generator(device="cuda").manual_seed(8)
+
+        def csr_on_card(m, dtype):
+            return torch.sparse_csr_tensor(
+                torch.as_tensor(m.indptr, dtype=torch.int64),
+                torch.as_tensor(m.indices, dtype=torch.int64),
+                torch.as_tensor(m.data, dtype=dtype), size=m.shape).to("cuda")
+
+        eng = AzulEngine(m_main, dtype=np.float64)
+        cases = [("lap2d_1024 f64", eng.ell.cols, eng.ell.vals, m_main),
+                 ("lap2d_1024 f32", eng.ell.cols, eng.ell.vals.float(), m_main)]
+        if "eng" in skew_state:
+            se = skew_state["eng"]
+            cases.append(("skew_2^20 f64", se.ell.cols, se.ell.vals,
+                          skew_state["m"]))
+        ab = {}
+        for label, cols, vals, m in cases:
+            rows, w = cols.shape
+            x = torch.randn(rows, generator=gen, device="cuda", dtype=vals.dtype)
+            lib = csr_on_card(m, vals.dtype)
+            kept = ell_spmv.spmv_variant(w)
+            old = ell_spmv.ell_spmv(cols, vals, x, variant="group")
+            runs = {"old (group)": lambda: ell_spmv.ell_spmv(
+                        cols, vals, x, variant="group"),
+                    f"new ({kept}, kept)": lambda: ell_spmv.ell_spmv(cols, vals, x)}
+            for name, fn in runs.items():
+                if not torch.equal(fn(), old):
+                    raise AssertionError(f"ell_spmv {label} {name}: y differs "
+                                         "from the first slice's design")
+            e = vals.element_size()
+            nbytes = rows * w * (4 + e) + 2 * rows * e
+            order = list(runs) + ["torch CSR @ x"]
+            t = {k: [] for k in order}
+            runs["torch CSR @ x"] = lambda: lib @ x[: m.shape[0]]
+            for name in order + order[::-1]:          # in turns, both ways
+                t[name].append(device_ms(runs[name]))
+            ab[label] = dict(W=w, bound_ms=nbytes / HBM_BYTES_PER_S * 1e3,
+                             ms=t)
+        say("A/B ell_spmv (ms, CUDA-graph replays, each timed twice in "
+            "mirrored order; bound = bytes / 3.35 TB/s): " + json.dumps(ab))
+        del eng
+    except Exception:
+        traceback.print_exc()
+        failed.append("A/B ell_spmv")
+
+    # -- 5g. sptrsv_solve_dot: every variant on every factor ----------------
+    try:
+        gen = torch.Generator(device="cuda").manual_seed(9)
+        f = ic0_engine()._ic0
+        factors = [("lap2d_1024 L", f.ell_l, f.sched_l.rows, f.n, False),
+                   ("lap2d_1024 reversed U", f.ell_u_rev, f.sched_u_rev.rows,
+                    f.n, True)]
+        for label, m in triangular_cases().items():
+            if label.startswith("diagonal"):
+                continue
+            ell = ell_from_csr(m, row_pad=8, width_pad=8, dtype=np.float64)
+            factors.append((label, ell, torch.from_numpy(
+                build_schedule(m).rows).cuda(), m.shape[0], True))
+        # the threshold sweep: striped factors of `levels` levels of `width`
+        # rows, row (i, j) reading (i - 1, j) and (i - 1, (j + 1) % width)
+        levels = 128
+        for width in (256, 1024, 2048, 4096, 8192):
+            n = levels * width
+            i = np.arange(width, n)
+            lo = i - width
+            hi = (i // width - 1) * width + (i % width + 1) % width
+            low = sp.csr_matrix((np.concatenate([np.full(n, 2.0),
+                                                 np.full(2 * (n - width), -0.4)]),
+                                 (np.concatenate([np.arange(n), i, i]),
+                                  np.concatenate([np.arange(n), lo, hi]))),
+                                shape=(n, n))
+            ell = ell_from_csr(csr_from_scipy(low), row_pad=8, width_pad=8,
+                               dtype=np.float64)
+            sched = np.arange(n, dtype=np.int32).reshape(levels, width)
+            factors.append((f"striped {levels} x {width}", ell,
+                            torch.from_numpy(sched).cuda(), n, True))
+        table = {}
+        for label, ell, rows, n, with_dot in factors:
+            ell, rows, dinv, bb, w, pack = factor_inputs(ell, rows, n,
+                                                         "float64", gen)
+            wd = w if with_dot else None
+            cols, vals = ell.cols, ell.vals
+            kept = sptrsv.solve_variant(pack.n_levels, pack.max_width,
+                                        cols.shape[1])
+            names = ["cooperative"] + (["cluster"] if kept == "cluster"
+                                       else [])
+            want = sptrsv.sptrsv_solve_dot(cols, vals, dinv, bb, pack, wd,
+                                           variant="cooperative")
+            for v in names[1:]:
+                got = sptrsv.sptrsv_solve_dot(cols, vals, dinv, bb, pack, wd,
+                                              variant=v)
+                compare(f"sptrsv_solve_dot {label} {v} vs cooperative",
+                        (got[0], got[1].reshape(1)),
+                        (want[0], want[1].reshape(1)), "float64")
+            t = {v: [] for v in names}
+            for v in names + names[::-1]:             # in turns, both ways
+                fn = lambda v=v: sptrsv.sptrsv_solve_dot(cols, vals, dinv, bb,
+                                                         pack, wd, variant=v)
+                try:
+                    t[v].append(device_ms(fn, reps=3, windows=3))
+                except RuntimeError:
+                    torch.cuda.synchronize()
+                    t[v].append(eager_ms(fn, reps=3, windows=3))
+            lib_ms = None
+            try:
+                keep = ell.vals[:n].cpu().numpy() != 0
+                low = sp.csr_matrix(
+                    (ell.vals[:n].cpu().numpy()[keep],
+                     ell.cols[:n].cpu().numpy()[keep],
+                     np.concatenate([[0], np.cumsum(keep.sum(1))])), shape=(n, n))
+                a_lib = torch.sparse_csr_tensor(
+                    torch.as_tensor(low.indptr, dtype=torch.int64),
+                    torch.as_tensor(low.indices, dtype=torch.int64),
+                    torch.as_tensor(low.data), size=low.shape).to("cuda")
+                b_col = bb[:n].reshape(-1, 1).contiguous()
+                lib_ms = eager_ms(lambda: torch.triangular_solve(
+                    b_col, a_lib, upper=False), reps=2, windows=3)
+            except Exception as exc:         # a yardstick only: report it
+                torch.cuda.synchronize()
+                lib_ms = repr(exc)[:80]
+            table[label] = dict(
+                levels=pack.n_levels, widest=pack.max_width, W=cols.shape[1],
+                kept=kept, dot=with_dot,
+                us_per_level={v: [1e3 * ms / pack.n_levels for ms in t[v]]
+                              for v in names},
+                ms=t, torch_triangular_solve_ms=lib_ms)
+        say("A/B sptrsv_solve_dot (ms a solve, CUDA-graph replays, each timed "
+            "twice in mirrored order; f64): " + json.dumps(table))
+        for label, row in table.items():
+            say(f"  {label}: {row['levels']} levels, widest {row['widest']}, "
+                f"kept {row['kept']}: " + ", ".join(
+                    f"{v} {min(us):.3f} us a level"
+                    for v, us in row["us_per_level"].items()))
+    except Exception:
+        traceback.print_exc()
+        failed.append("A/B sptrsv_solve_dot")
 
     # -- 5d. warm per-step cost of each format ------------------------------
     try:

@@ -287,7 +287,8 @@ class AzulEngine:
         stencil), the inverse diagonal, the SELL/HYB/BCSR containers built
         so far (their row-reduction plans included) and, for block-IC(0),
         both factors with their schedules and the fused application's
-        inverse diagonals and level lists."""
+        inverse diagonals and solve packs (level lists, level grids,
+        dependency codes)."""
         tensors = [self._dinv_pad]
         if self.ell is not None:
             tensors += [self.ell.cols, self.ell.vals]

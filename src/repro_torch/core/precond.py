@@ -196,5 +196,6 @@ def make_fused_ic0_apply(f: IC0Factors, n: int, n_pad: int, dtype):
         z[:n] = torch.flip(z_rev[:n], (0,))
         return z, rz
 
-    apply_dot.resident = (dinv_l, dinv_u, *pack_l[:2], *pack_u[:2])
+    apply_dot.resident = (dinv_l, dinv_u, *(
+        t for t in (*pack_l, *pack_u) if isinstance(t, torch.Tensor)))
     return apply_dot

@@ -93,6 +93,79 @@ __device__ void block_sum_lanes(T (&v)[K], T* sh) {
   __syncthreads();
 }
 
+// The sum of one padded-ELL row in the lane order of the group kernels.
+// A thread holds the whole row (W <= G slots, W a multiple of 4, G a power
+// of two): virtual lane g runs its fma chain from 0 over its one slot g,
+// lanes g >= W stay 0, and the lanes are folded in the pairs and the order
+// of group_sum's xor butterfly (lane 0's view: s[g] + s[g + off], offsets
+// G/2 down to 1).  The result is the bits a group of G lanes running
+// group_sum leaves in its lane 0.  cols and vals point at the row in
+// global memory; they are 16-byte aligned and read with 16-byte streaming
+// loads (__ldcs, evict-first).
+template <typename T, int G>
+__device__ __forceinline__ T row_sum(const int32_t* cols, const T* vals,
+                                     const T* __restrict__ x, int w) {
+  static_assert(G >= 4 && G <= 16 && (G & (G - 1)) == 0, "G");
+  int c[G];
+  T v[G];
+#pragma unroll
+  for (int q = 0; q < G; q += 4) {
+    if (q < w) {
+      const int4 c4 = __ldcs(reinterpret_cast<const int4*>(cols + q));
+      c[q] = c4.x; c[q + 1] = c4.y; c[q + 2] = c4.z; c[q + 3] = c4.w;
+      if constexpr (sizeof(T) == 8) {
+        const double2 a = __ldcs(reinterpret_cast<const double2*>(vals + q));
+        const double2 b = __ldcs(reinterpret_cast<const double2*>(vals + q + 2));
+        v[q] = a.x; v[q + 1] = a.y; v[q + 2] = b.x; v[q + 3] = b.y;
+      } else {
+        const float4 a = __ldcs(reinterpret_cast<const float4*>(vals + q));
+        v[q] = a.x; v[q + 1] = a.y; v[q + 2] = a.z; v[q + 3] = a.w;
+      }
+    } else {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) { c[q + i] = 0; v[q + i] = T(0); }
+    }
+  }
+  T s[G];
+#pragma unroll
+  for (int g = 0; g < G; ++g) s[g] = g < w ? __ldg(x + c[g]) : T(0);
+#pragma unroll
+  for (int g = 0; g < G; ++g) s[g] = g < w ? fma_rn(v[g], s[g], T(0)) : T(0);
+#pragma unroll
+  for (int off = G >> 1; off > 0; off >>= 1) {
+#pragma unroll
+    for (int g = 0; g < off; ++g) s[g] = add_rn(s[g], s[g + off]);
+  }
+  return s[0];
+}
+
+// Per-thread asynchronous copies global -> shared (cp.async, sm_80+): a
+// thread's copies complete in the groups it commits, and
+// cp_async_wait<N>() waits until at most N of its groups are pending.
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async(void* dst, const void* src) {
+  static_assert(N == 4 || N == 8 || N == 16, "cp.async copies 4, 8 or 16 bytes");
+  if constexpr (N == 16)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;"
+                 ::"r"(smem_addr(dst)), "l"(src) : "memory");
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2;"
+                 ::"r"(smem_addr(dst)), "l"(src), "n"(N) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
+}
+
 // Right-hand sides a batched kernel's thread carries in registers: the
 // power of two >= k, at most kMaxLanes.  A batch wider than that runs in
 // gridDim.y chunks of kMaxLanes lanes, each chunk reading the matrix

@@ -1,21 +1,45 @@
 // ell_spmv: y = A x over padded ELL.
 //
 // Replaces the Pallas TPU kernel src/repro/kernels/ell_spmv.py:53
-// (ell_spmv), which forms the initial residual r = b - A x0 of every solve.
+// (ell_spmv, pallas_call :69), which forms the initial residual r = b - A x0
+// of every solve and is the matvec of every pipelined-PCG step.
 //
 // What bounds it on the H100: memory.  A call streams the (rows_p, W)
 // int32 cols and float vals once -- 12 bytes per slot in float64, 8 in
-// float32 -- for two flops per slot, far below the ~10 flops per byte at
-// which float64 arithmetic would start to matter.  At the main-path shape
-// (1,048,576 x 8, float64) the matrix is 100.7 MB: about 30 us at 3.35 TB/s.
+// float32 -- reads x and writes y, for two flops per slot, far below the
+// ~10 flops per byte at which float64 arithmetic would start to matter.
+// At the main-path shape (1,048,576 x 8, float64) that is 100.7 MB of
+// matrix plus 8.4 MB each of x and y, 117.4 MB: 35.1 us at 3.35 TB/s.
 //
-// Design: the TPU kernel keeps all of x resident in VMEM and streams
-// (TM, TW) matrix tiles past it.  Here x (8.4 MB at the main-path size) is
-// gathered through the 50 MB L2, and the matrix stream is made coalesced by
-// giving each row a group of G consecutive lanes (G = the power of two
-// >= W, at most 32): lane g reads slots g, g+G, ..., so a warp reads 32
-// consecutive slots of cols and vals per step.  The group then sums its
-// lanes with shuffles in a fixed order -- no shared memory, no atomics.
+// The sum.  The TPU kernel keeps x resident in VMEM and streams (TM, TW)
+// matrix tiles past it.  Here every variant computes one fixed sum: a
+// row's G = group_size(W) virtual lanes (the power of two >= W, at most
+// 32), lane g running an fma chain from 0 over slots g, g + G, ..., and the
+// lanes combined by the xor butterfly of repro::group_sum (offsets G/2
+// down to 1).  So y is the same bits whichever variant ran, and equals
+// lane 0 of ell_spmm (which runs that sum per lane) bit for bit.
+//
+// Two variants of the same sum:
+//   * rows, the wrapper's choice for W a multiple of 4 up to 16 (the
+//     engine's widths 8 and 16) with 16-byte aligned cols and vals
+//     (ell_spmv.py spmv_variant).  A thread owns whole rows.  It reads a
+//     row's cols and vals with 16-byte streaming loads (__ldcs: evict-first,
+//     so the 100 MB matrix stream does not push the 8.4 MB x out of the
+//     50 MB L2), issues all of the row's x gathers (__ldg) before any add,
+//     and folds the virtual lanes in registers in the butterfly's pairs and
+//     order (repro::row_sum).  Blocks stride over the rows: in float64 a
+//     persistent grid of two blocks an SM, in float32 a row a thread
+//     (ell_spmv.py spmv_grid; the A/B is in PERF.md).
+//   * group, the wrapper's choice for every other operand (the wide skewed
+//     ELL, W = 264, among them), and the design of the first slice: a row
+//     gets G consecutive lanes; lane g reads slots g, g + G, ..., so a warp
+//     reads 32 consecutive slots of cols and vals a step, and the group
+//     sums its lanes with shuffles.
+// A third design, a producer warp streaming (128, W) tiles into a
+// shared-memory ring with cp.async.bulk under mbarriers, lost the A/B to
+// rows and was removed (its times are in PERF.md).
+// The wrapper's choice is a function of the operands' shape, type and
+// alignment, never of a launch.
 
 // ell_spmm: Y = A X for k right-hand sides in the solver layout, X (k,
 // ncols) and Y (k, rows), row-major.
@@ -71,6 +95,40 @@ int launch(const void* cols, const void* vals, const void* x, void* y,
                        (cudaStream_t)stream>>>(
       (const int32_t*)cols, (const T*)vals, (const T*)x, (T*)y, rows, w, group);
   return (int)cudaGetLastError();
+}
+
+// The rows variant: a thread a row, the grid striding over the rows.
+template <typename T, int G>
+__global__ void __launch_bounds__(repro::kThreads)
+ell_spmv_rows_kernel(const int32_t* __restrict__ cols,
+                     const T* __restrict__ vals, const T* __restrict__ x,
+                     T* __restrict__ y, int64_t rows, int w) {
+  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
+  for (int64_t r = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; r < rows;
+       r += stride)
+    y[r] = repro::row_sum<T, G>(cols + r * w, vals + r * w, x, w);
+}
+
+// The rows variant on a grid of `blocks` blocks (ell_spmv.py spmv_grid),
+// striding over the rows.
+template <typename T, int G>
+int launch_vec(const void* cols, const void* vals, const void* x, void* y,
+               int64_t rows, int32_t w, int32_t blocks, cudaStream_t stream) {
+  ell_spmv_rows_kernel<T, G><<<(unsigned)blocks, repro::kThreads, 0, stream>>>(
+      (const int32_t*)cols, (const T*)vals, (const T*)x, (T*)y, rows, w);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_rows(const void* cols, const void* vals, const void* x, void* y,
+                int64_t rows, int32_t w, int32_t blocks, void* stream) {
+  if (rows <= 0 || w <= 0 || w > 16 || w % 4 || blocks <= 0 ||
+      ((uintptr_t)cols | (uintptr_t)vals) % 16)
+    return (int)cudaErrorInvalidValue;
+  auto s = (cudaStream_t)stream;
+  if (w == 4) return launch_vec<T, 4>(cols, vals, x, y, rows, w, blocks, s);
+  if (w == 8) return launch_vec<T, 8>(cols, vals, x, y, rows, w, blocks, s);
+  return launch_vec<T, 16>(cols, vals, x, y, rows, w, blocks, s);
 }
 
 template <typename T, int K>
@@ -159,4 +217,16 @@ extern "C" int repro_ell_spmm_f64(const void* cols, const void* vals,
                                   int64_t ldx, int32_t w, int32_t group,
                                   int32_t k, void* stream) {
   return launch_spmm<double>(cols, vals, x, y, rows, ldx, w, group, k, stream);
+}
+
+extern "C" int repro_ell_spmv_rows_f32(const void* cols, const void* vals,
+                                       const void* x, void* y, int64_t rows,
+                                       int32_t w, int32_t blocks, void* stream) {
+  return launch_rows<float>(cols, vals, x, y, rows, w, blocks, stream);
+}
+
+extern "C" int repro_ell_spmv_rows_f64(const void* cols, const void* vals,
+                                       const void* x, void* y, int64_t rows,
+                                       int32_t w, int32_t blocks, void* stream) {
+  return launch_rows<double>(cols, vals, x, y, rows, w, blocks, stream);
 }

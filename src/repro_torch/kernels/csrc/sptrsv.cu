@@ -7,42 +7,52 @@
 //
 // For each level in order, and each real row r of the level:
 //   x[r] = (b[r] - sum_slots (c != r ? v : 0) * x[c]) * dinv[r]
-// Padded rows of x stay 0 (the wrapper allocates x zeroed).
+// Padded rows of x stay 0 (the wrapper allocates x zeroed).  Every variant
+// runs this arithmetic: the products, then the sum in slot order, each
+// rounded, the diagonal slot skipped, then the multiply by dinv (as the
+// plain version's elementwise product and row sum: a row with at most two
+// off-diagonal entries comes out bitwise equal to the plain version).
 //
 // What bounds it on the H100.  Bytes: at lap2d_1024 in float64 the
 // factor's padded ELL is 1,048,576 x 8 slots x 12 B = 100.7 MB, b, dinv
 // and wdot in and x out 33.6 MB, the level list 4.2 MB: about 138 MB, or
 // ~41 us at 3.35 TB/s.  That is not what bounds it.  The chain of levels
 // does: 2047 levels at lap2d_1024, each of which needs the x values of
-// earlier levels, so each level costs one grid-wide barrier plus one
-// dependent round trip (level list -> row -> x[c] -> x[r]) to memory,
-// whatever the width of the level.
+// earlier levels, so each level costs one synchronisation plus the
+// dependent round trips to memory that follow it, whatever its width.
 //
-// Design.  The Pallas body's one-hot compare/select scatter is O(rows_p)
-// work per solved row; here a direct indexed store replaces it.
-//   * One cooperative launch per solve (cudaLaunchCooperativeKernel), with
-//     cooperative_groups::this_grid().sync() after each level.  The grid
-//     is what can be co-resident (occupancy x SMs), cut to the blocks the
-//     widest level can use: a block with no row in any level would only
-//     add to every barrier.  A refused cooperative launch returns its
-//     error; the wrapper raises.
-//   * Compact level lists: level_ptr (L+1) and level_rows (n), the
-//     schedule's rows in its order.  A grid-stride loop over a level's
-//     rows gives one thread a row; the thread reads cols[r]/vals[r]
-//     directly and sums the w slots in slot order (product, then sum,
-//     each rounded, as the plain version's elementwise product and row
-//     sum are: a row with at most two off-diagonal entries comes out
-//     bitwise equal to the plain version).
-//   * x is written and read in the same launch.  L1 is not coherent
-//     across SMs, so a cached read after a barrier could return a stale
-//     line: x is read with __ldcg (L2 only) and never through a const
-//     __restrict__ pointer.  Everything else is read-only in the launch.
-//   * The in-stream dot is deterministic, with no float atomics: each
-//     thread accumulates wdot[r] * x[r] over its rows in a fixed
-//     row-to-thread assignment, each block reduces its threads into
-//     partials[block], and after a final barrier block 0 sums the
-//     partials in index order.  The same inputs on the same card give the
-//     same bits.
+// Two variants; the wrapper picks one from the schedule's and the
+// factor's shape and the alignment of vals (sptrsv.py solve_variant), and
+// chip_smoke.py times both.
+//   * cluster (the widest level fits one cluster of at most 16 blocks at
+//     one row a thread, W is a multiple of 4 up to 16, vals 16-byte
+//     aligned, and the pack holds this factor's dependency codes): one
+//     thread-block cluster walks the levels with its hardware barrier
+//     (barrier.cluster arrive.release / wait.acquire) in place of a
+//     grid-wide software barrier, keeps the last levels' x in distributed
+//     shared memory, and prefetches each thread's rows with cp.async
+//     levels ahead (see sptrsv_cluster_kernel).  The dot: per-thread sums
+//     over a fixed slot, block sums, per-block partials summed by block 0
+//     in rank order.
+//   * cooperative (the first design; wide schedules, and every factor the
+//     cluster does not take): one cooperative launch
+//     (cudaLaunchCooperativeKernel) with
+//     cooperative_groups::this_grid().sync() after each level; the grid
+//     is what can be co-resident, cut to the blocks the widest level can
+//     use; a grid-stride loop over a level's compact row list gives one
+//     thread a row.  The dot: each thread accumulates over its rows in a
+//     fixed row-to-thread assignment, each block reduces into
+//     partials[block], and block 0 sums the partials in index order.
+// A third design, per-row ready flags with no barrier at all (persistent
+// blocks taking schedule chunks in ticket order), lost the A/B to both and
+// was removed (its times are in PERF.md).
+// A refused launch returns its error; the wrapper raises.
+//
+// x is written and read in the same launch.  L1 is not coherent across
+// SMs, so a cached read after a barrier could return a stale line: x is
+// read with __ldcg (L2 only) and never through a const __restrict__
+// pointer.  Everything else is read-only in the launch.  No variant uses
+// float atomics: the same inputs on the same card give the same bits.
 
 
 // sptrsv_level_step: ONE wavefront of the level-scheduled lower solve.
@@ -131,6 +141,280 @@ sptrsv_solve_dot_kernel(const int* __restrict__ cols,
     s += __ldcg(partials + i);
   s = repro::block_sum(s, sh);
   if (threadIdx.x == 0) *pp = s;
+}
+
+// -- the cluster variant: one thread-block cluster, the next levels prefetched
+//
+// A thread owns slot s of every level (s = block rank x blockDim + thread):
+// the level grid (n_levels, grid_w) gives its row, or -1.  Its rows' data
+// (dependency codes, values, b, dinv, wdot) move into a ring of kRing
+// shared-memory stages with cp.async, kDepth levels ahead, and the row ids
+// 2 x kDepth levels ahead.  The stages are laid out field-major
+// ([stage][chunk][thread]), so a warp's reads of one field are contiguous
+// and free of bank conflicts.
+//
+// The x values of the last kWindow levels stay in distributed shared
+// memory: the thread of slot s writes x of its level-l row to its own
+// block's window[l % kWindow][s % blockDim].  A row reads each column
+// through the pack's dependency code (dep, (rows_p, W), built from the
+// factor's columns and the schedule): the diagonal slot is skipped
+// (kDepSkip); a column not solved before the row's level reads 0, as the
+// plain version's x still holds 0 there (kDepZero); a column solved fewer
+// than kWindow levels earlier is read from the owner block's window
+// (code = (level % kWindow) << kSlotBits | slot); an older one from x in
+// global memory (code = -(c + 2)), loaded one level ahead (__ldcg: L2,
+// coherent across the SMs) into registers where the pack has such codes.
+//
+// The barrier is the cluster's hardware barrier, split: the window store,
+// arrive (release), then the store to global x of the row solved two
+// levels earlier (kept in registers), the next copies and loads, then wait
+// (acquire).  So after a barrier only shared-memory reads, the sum and the
+// window store remain on the chain.  A global x store is read only kWindow
+// levels later, after barriers that order it.
+constexpr int kDepth = 3;
+constexpr int kRing = kDepth + 1;
+constexpr int kWindow = 8;
+constexpr int kSlotBits = 12;              // slots a level: 16 x 256 = 4096
+constexpr int kDepSkip = -1;
+constexpr int kDepZero = INT32_MIN;
+constexpr int kClusterThreads = 256;       // the most threads a block
+
+template <typename T>
+struct Vec16;                              // the 16-byte vector of T
+template <> struct Vec16<double> { using type = double2; };
+template <> struct Vec16<float> { using type = float4; };
+
+template <typename T, int WMAX>
+constexpr size_t cluster_smem(int threads) {
+  return (size_t)threads *
+         (kRing * (WMAX * 4 + WMAX * sizeof(T) + 3 * sizeof(T) + 8) +
+          kWindow * sizeof(T));
+}
+
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release;" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire;" ::: "memory");
+}
+
+template <typename T, int WMAX>
+__global__ void __launch_bounds__(kClusterThreads)
+sptrsv_cluster_kernel(const int* __restrict__ dep, const T* __restrict__ vals,
+                      const T* __restrict__ dinv, const T* __restrict__ b,
+                      const T* __restrict__ wdot,
+                      const int* __restrict__ level_grid, int n_levels,
+                      int grid_w, int w, int has_global, T* x, T* partials,
+                      T* pp) {
+  using V = typename Vec16<T>::type;
+  constexpr int kDq = WMAX / 4;                        // int4 chunks a row
+  constexpr int kPer = 16 / (int)sizeof(T);            // values a V
+  constexpr int kVq = WMAX / kPer;                     // V chunks a row
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ T sh[32];
+  const int tb = blockDim.x, t = threadIdx.x;
+  const int tb_log2 = __ffs(tb) - 1;                   // tb is a power of two
+  int4* dep_s = reinterpret_cast<int4*>(smem);         // [kRing][kDq][tb]
+  V* val_s = reinterpret_cast<V*>(dep_s + kRing * kDq * tb);   // [kRing][kVq][tb]
+  T* b_s = reinterpret_cast<T*>(val_s + kRing * kVq * tb);     // [kRing][tb]
+  T* d_s = b_s + kRing * tb;
+  T* w_s = d_s + kRing * tb;
+  T* win = w_s + kRing * tb;                                   // [kWindow][tb]
+  int* id_s = reinterpret_cast<int*>(win + kWindow * tb);      // [kRing][tb]
+  int* next_s = id_s + kRing * tb;                             // [kRing][tb]
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank();
+  const int slot = rank * tb + t;
+  const bool has_slot = slot < grid_w;
+
+  auto fetch_id = [&](int l) {           // row id of level l, asynchronously
+    int* dst = next_s + (l % kRing) * tb + t;
+    if (has_slot && l < n_levels)
+      repro::cp_async<4>(dst, level_grid + (int64_t)l * grid_w + slot);
+    else
+      *dst = -1;
+  };
+  auto fetch_row = [&](int l, int r) {   // row r's data for level l
+    const int st = l % kRing;
+    id_s[st * tb + t] = r;
+    if (r < 0) return;
+    const int64_t base = (int64_t)r * w;
+    for (int q = 0; q * 4 < w; ++q)
+      repro::cp_async<16>(dep_s + (st * kDq + q) * tb + t, dep + base + 4 * q);
+    for (int q = 0; q * kPer < w; ++q)
+      repro::cp_async<16>(val_s + (st * kVq + q) * tb + t, vals + base + kPer * q);
+    repro::cp_async<(int)sizeof(T)>(b_s + st * tb + t, b + r);
+    repro::cp_async<(int)sizeof(T)>(d_s + st * tb + t, dinv + r);
+    if (wdot != nullptr) repro::cp_async<(int)sizeof(T)>(w_s + st * tb + t, wdot + r);
+  };
+  auto codes_of = [&](int st, int (&code)[WMAX]) {
+#pragma unroll
+    for (int q = 0; q < kDq; ++q) {
+      const int4 d = q * 4 < w ? dep_s[(st * kDq + q) * tb + t]
+                               : make_int4(kDepSkip, kDepSkip, kDepSkip, kDepSkip);
+      code[4 * q] = d.x; code[4 * q + 1] = d.y;
+      code[4 * q + 2] = d.z; code[4 * q + 3] = d.w;
+    }
+  };
+  auto is_global = [](int c) { return c < kDepSkip && c != kDepZero; };
+
+  T acc = T(0), x_prev[2] = {T(0), T(0)};
+  int r_prev[2] = {-1, -1};              // rows solved one and two levels ago
+  // one level of the solve; xg holds this level's global x values (loaded
+  // a level ago) and the next level's are loaded into xn
+  auto level = [&](int l, T (&xg)[WMAX], T (&xn)[WMAX]) {
+    repro::cp_async_wait<kDepth - 2>();
+    const int st = l % kRing;
+    const int r = id_s[st * tb + t];
+    T xr = T(0);
+    if (r >= 0) {
+      int code[WMAX];
+      T v[WMAX], xc[WMAX];
+      codes_of(st, code);
+#pragma unroll
+      for (int q = 0; q < kVq; ++q) {
+        V a = {};
+        if (q * kPer < w) a = val_s[(st * kVq + q) * tb + t];
+        const T* av = reinterpret_cast<const T*>(&a);
+#pragma unroll
+        for (int i = 0; i < kPer; ++i) v[q * kPer + i] = av[i];
+      }
+#pragma unroll
+      for (int k = 0; k < WMAX; ++k) {
+        const int c = code[k];
+        if (c >= 0) {
+          const int sc = c & ((1 << kSlotBits) - 1);
+          const T* remote = cluster.map_shared_rank(win, sc >> tb_log2);
+          xc[k] = remote[(c >> kSlotBits) * tb + (sc & (tb - 1))];
+        } else {
+          xc[k] = is_global(c) ? xg[k] : T(0);
+        }
+      }
+      T sum = T(0);
+#pragma unroll
+      for (int k = 0; k < WMAX; ++k)
+        if (code[k] != kDepSkip)
+          sum = repro::add_rn(sum, repro::mul_rn(v[k], xc[k]));
+      xr = repro::mul_rn(repro::sub_rn(b_s[st * tb + t], sum), d_s[st * tb + t]);
+      win[(l % kWindow) * tb + t] = xr;
+    }
+    cluster_arrive();
+    if (r >= 0 && wdot != nullptr)
+      acc = repro::add_rn(acc, repro::mul_rn(w_s[st * tb + t], xr));
+    if (r_prev[1] >= 0) x[r_prev[1]] = x_prev[1];
+    r_prev[1] = r_prev[0]; x_prev[1] = x_prev[0];
+    r_prev[0] = r; x_prev[0] = xr;
+    const int st1 = (l + 1) % kRing;     // the next level: its data is here
+    if (has_global && l + 1 < n_levels && id_s[st1 * tb + t] >= 0) {
+      int code[WMAX];
+      codes_of(st1, code);
+#pragma unroll
+      for (int k = 0; k < WMAX; ++k)
+        if (is_global(code[k])) xn[k] = __ldcg(x + (-(int64_t)code[k] - 2));
+    }
+    const int l3 = l + kDepth;
+    fetch_row(l3, next_s[(l3 % kRing) * tb + t]);
+    fetch_id(l3 + kDepth);
+    repro::cp_async_commit();
+    cluster_wait();
+  };
+
+  for (int l = 0; l < kDepth; ++l) {
+    const int r = (has_slot && l < n_levels)
+                      ? level_grid[(int64_t)l * grid_w + slot] : -1;
+    fetch_row(l, r);
+    fetch_id(l + kDepth);
+    repro::cp_async_commit();
+  }
+  T xa[WMAX], xb[WMAX];                  // level 0 reads no global x
+#pragma unroll
+  for (int k = 0; k < WMAX; ++k) xa[k] = xb[k] = T(0);
+  for (int l = 0; l < n_levels; l += 2) {
+    level(l, xa, xb);
+    if (l + 1 < n_levels) level(l + 1, xb, xa);
+  }
+  repro::cp_async_wait<0>();
+  for (int i = 0; i < 2; ++i)
+    if (r_prev[i] >= 0) x[r_prev[i]] = x_prev[i];
+  // no block may leave while others can still read its window
+  cluster.sync();
+  if (wdot == nullptr) {
+    if (rank == 0 && t == 0) *pp = T(0);
+    return;
+  }
+  acc = repro::block_sum(acc, sh);
+  if (t == 0) partials[rank] = acc;
+  cluster.sync();
+  if (rank != 0 || t != 0) return;
+  T total = T(0);
+  for (int i = 0; i < (int)cluster.num_blocks(); ++i)
+    total = repro::add_rn(total, __ldcg(partials + i));
+  *pp = total;
+}
+
+template <typename T, int WMAX>
+int launch_cluster_w(const void* dep, const void* vals, const void* dinv,
+                     const void* b, const void* wdot, const void* level_grid,
+                     void* x, void* partials, void* pp, int32_t n_levels,
+                     int32_t grid_w, int32_t w, int32_t has_global,
+                     int32_t cluster, int32_t threads, cudaStream_t stream) {
+  auto kern = sptrsv_cluster_kernel<T, WMAX>;
+  const size_t smem = cluster_smem<T, WMAX>(threads);
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err == cudaSuccess && cluster > 8)
+    err = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  if (err != cudaSuccess) return (int)err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)cluster);
+  cfg.blockDim = dim3((unsigned)threads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = (unsigned)cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  int fits = 0;
+  err = cudaOccupancyMaxActiveClusters(&fits, kern, &cfg);
+  if (err != cudaSuccess) return (int)err;
+  if (fits < 1) return (int)cudaErrorInvalidConfiguration;
+  err = cudaLaunchKernelEx(&cfg, kern, (const int*)dep, (const T*)vals,
+                           (const T*)dinv, (const T*)b, (const T*)wdot,
+                           (const int*)level_grid, (int)n_levels, (int)grid_w,
+                           (int)w, (int)has_global, (T*)x, (T*)partials,
+                           (T*)pp);
+  if (err != cudaSuccess) {
+    (void)cudaGetLastError();
+    return (int)err;
+  }
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_cluster(const void* dep, const void* vals, const void* dinv,
+                   const void* b, const void* wdot, const void* level_grid,
+                   void* x, void* partials, void* pp, int32_t n_levels,
+                   int32_t grid_w, int32_t w, int32_t has_global,
+                   int32_t cluster, int32_t threads, void* stream) {
+  if (n_levels <= 0 || grid_w <= 0 || grid_w > (1 << kSlotBits) || w <= 0 ||
+      w > 16 || w % 4 || cluster < 1 || cluster > 16 || threads < 32 ||
+      (threads & (threads - 1)) || threads > kClusterThreads ||
+      (int64_t)cluster * threads < grid_w ||
+      ((uintptr_t)dep | (uintptr_t)vals) % 16)
+    return (int)cudaErrorInvalidValue;
+  auto s = (cudaStream_t)stream;
+  if (w <= 8)
+    return launch_cluster_w<T, 8>(dep, vals, dinv, b, wdot, level_grid, x,
+                                  partials, pp, n_levels, grid_w, w,
+                                  has_global, cluster, threads, s);
+  return launch_cluster_w<T, 16>(dep, vals, dinv, b, wdot, level_grid, x,
+                                 partials, pp, n_levels, grid_w, w,
+                                 has_global, cluster, threads, s);
 }
 
 template <typename T>
@@ -255,4 +539,24 @@ extern "C" int repro_sptrsv_level_step_f64(
     int64_t rows_p, int32_t w, int64_t n, void* stream) {
   return launch_level_step<double>(cols, vals, diag, b, level_rows, x_in,
                                    x_out, wl, rows_p, w, n, stream);
+}
+
+extern "C" int repro_sptrsv_cluster_f32(
+    const void* dep, const void* vals, const void* dinv, const void* b,
+    const void* wdot, const void* level_grid, void* x, void* partials,
+    void* pp, int32_t n_levels, int32_t grid_w, int32_t w, int32_t has_global,
+    int32_t cluster, int32_t threads, void* stream) {
+  return launch_cluster<float>(dep, vals, dinv, b, wdot, level_grid, x, partials,
+                               pp, n_levels, grid_w, w, has_global, cluster,
+                               threads, stream);
+}
+
+extern "C" int repro_sptrsv_cluster_f64(
+    const void* dep, const void* vals, const void* dinv, const void* b,
+    const void* wdot, const void* level_grid, void* x, void* partials,
+    void* pp, int32_t n_levels, int32_t grid_w, int32_t w, int32_t has_global,
+    int32_t cluster, int32_t threads, void* stream) {
+  return launch_cluster<double>(dep, vals, dinv, b, wdot, level_grid, x, partials,
+                               pp, n_levels, grid_w, w, has_global, cluster,
+                               threads, stream);
 }

@@ -6,6 +6,10 @@ Replace the Pallas TPU kernels ``repro.kernels.ell_spmv.ell_spmv`` and
 kernels are ``csrc/ell_spmv.cu``, whose header gives their bounds and
 design.  The plain PyTorch versions beside them are :func:`ell_spmv_plain`
 and :func:`ell_spmm_plain` (``ref.ell_spmv_ref``, ``ref.ell_spmm_ref``).
+
+``ell_spmv`` has two variants that compute the same bits
+(:data:`SPMV_VARIANTS`); :func:`spmv_variant` picks one from the ELL width
+and the operands' alignment.
 """
 
 from __future__ import annotations
@@ -17,7 +21,14 @@ from .ref import ell_spmm_ref as ell_spmm_plain
 from .ref import ell_spmv_ref as ell_spmv_plain
 
 __all__ = ["ell_spmv", "ell_spmv_plain", "ell_spmm", "ell_spmm_plain",
-           "group_size"]
+           "group_size", "spmv_variant", "spmv_grid", "SPMV_VARIANTS"]
+
+# "rows": a thread a row, 16-byte streaming loads (W a multiple of 4, at
+# most 16, 16-byte aligned cols and vals); "group": G = group_size(W) lanes
+# a row, any W
+SPMV_VARIANTS = ("rows", "group")
+_THREADS = 256                   # csrc/common.cuh kThreads
+_ROWS_BLOCKS_PER_SM = 2          # the rows variant's float64 grid, per SM
 
 
 def group_size(width: int) -> int:
@@ -25,12 +36,38 @@ def group_size(width: int) -> int:
     return min(32, 1 << max(int(width) - 1, 0).bit_length())
 
 
-def ell_spmv(cols: torch.Tensor, vals: torch.Tensor,
-             x: torch.Tensor) -> torch.Tensor:
+def spmv_variant(width: int, aligned: bool = True) -> str:
+    """The ``ell_spmv`` kernel for ELL width ``width``: "rows" where a row
+    is whole 16-byte vectors of at most 16 slots (the engine pads widths
+    to multiples of 8) and the operands are ``aligned`` to 16 bytes, else
+    "group"."""
+    return ("rows" if aligned and 0 < width <= 16 and width % 4 == 0
+            else "group")
+
+
+def spmv_grid(rows: int, sms: int = 132, itemsize: int = 8) -> int:
+    """Blocks the "rows" kernel launches for ``rows`` rows of
+    ``itemsize``-byte values: a persistent grid of ``_ROWS_BLOCKS_PER_SM``
+    blocks an SM in float64 and one row a thread in float32 (the fastest
+    of the A/B in PERF.md), never more than the rows need.  The kernel
+    strides its grid over the rows, so any grid covers every row."""
+    need = max(-(-int(rows) // _THREADS), 1)
+    if itemsize == 8:
+        return min(_ROWS_BLOCKS_PER_SM * int(sms), need)
+    return need
+
+
+def ell_spmv(cols: torch.Tensor, vals: torch.Tensor, x: torch.Tensor,
+             variant: str | None = None) -> torch.Tensor:
     """y = A @ x on the card.  ``cols`` (rows_p, W) int32 and ``vals``
     (rows_p, W) float32/float64 are padded ELL whose columns index into the
     1-D ``x``; padding slots hold value 0.  Raises for tensors that are not
-    on one CUDA device."""
+    on one CUDA device.
+
+    ``variant`` overrides :func:`spmv_variant` (one of
+    :data:`SPMV_VARIANTS`; "rows" needs W a multiple of 4 up to 16 and
+    16-byte aligned cols and vals, and raises otherwise).  Every variant
+    gives the same bits."""
     if cols.dim() != 2 or cols.shape != vals.shape or x.dim() != 1:
         raise ValueError(f"ell_spmv: cols {tuple(cols.shape)}, vals "
                          f"{tuple(vals.shape)}, x {tuple(x.shape)}")
@@ -39,11 +76,27 @@ def ell_spmv(cols: torch.Tensor, vals: torch.Tensor,
     rows, w = cols.shape
     if rows == 0 or w == 0 or x.numel() == 0:
         raise ValueError("ell_spmv: empty operator")
+    aligned = (cols.data_ptr() | vals.data_ptr()) % 16 == 0
+    if variant is None:
+        variant = spmv_variant(w, aligned)
+    if variant not in SPMV_VARIANTS:
+        raise ValueError(f"ell_spmv: variant {variant!r} not in {SPMV_VARIANTS}")
     y = torch.empty(rows, dtype=vals.dtype, device=vals.device)
-    fn = build.entry("repro_ell_spmv", vals.dtype)
-    build.check(fn(cols.data_ptr(), vals.data_ptr(), x.data_ptr(),
-                   y.data_ptr(), rows, w, group_size(w),
-                   build.stream_handle(vals.device)), "ell_spmv")
+    stream = build.stream_handle(vals.device)
+    if variant == "group":
+        fn = build.entry("repro_ell_spmv", vals.dtype)
+        err = fn(cols.data_ptr(), vals.data_ptr(), x.data_ptr(), y.data_ptr(),
+                 rows, w, group_size(w), stream)
+    else:
+        if spmv_variant(w, aligned) != "rows":
+            raise ValueError(f"ell_spmv: the rows variant takes W a multiple "
+                             f"of 4 up to 16 and 16-byte aligned cols and "
+                             f"vals; got W = {w}")
+        sms = torch.cuda.get_device_properties(vals.device).multi_processor_count
+        fn = build.entry("repro_ell_spmv_rows", vals.dtype)
+        err = fn(cols.data_ptr(), vals.data_ptr(), x.data_ptr(), y.data_ptr(),
+                 rows, w, spmv_grid(rows, sms, vals.element_size()), stream)
+    build.check(err, "ell_spmv")
     ell_spmv.launches += 1
     return y
 

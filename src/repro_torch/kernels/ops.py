@@ -125,7 +125,8 @@ def sptrsv_solve_pack(cols: torch.Tensor, sched_rows,
     factor (``cols`` (rows_p, w) on its device): the schedule as compact
     level lists.  Build it once per factor; a solver loop passes it to
     every call."""
-    return _sptrsv.solve_pack(sched_rows, n_rows, cols.shape[0], cols.device)
+    return _sptrsv.solve_pack(sched_rows, n_rows, cols.shape[0], cols.device,
+                              cols)
 
 
 def sptrsv_solve_dot(cols, vals, dinv, b, sched_rows, wdot=None,

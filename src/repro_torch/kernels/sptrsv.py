@@ -10,7 +10,11 @@ design.  The plain PyTorch version is :func:`sptrsv_solve_dot_plain`.
 
 The kernel takes the schedule as compact level lists, not the Pallas
 kernel's pre-gathered (levels, width, w) planes: :func:`solve_pack` builds
-them once per factor.
+them once per factor, with the per-level grid and (given the factor's
+columns) the dependency codes that the cluster variant reads.  The solve
+has two variants (:data:`SOLVE_VARIANTS`); :func:`solve_variant` picks one
+from the schedule's and the factor's shape and the alignment of its
+values.
 
 :func:`sptrsv_level_step` solves one level and replaces
 ``repro.kernels.sptrsv.sptrsv_level_step`` (``:64``) with the gather and
@@ -29,11 +33,23 @@ from . import build
 from .ref import sptrsv_level_step_ref as sptrsv_level_step_plain
 from .ref import sptrsv_solve_dot_ref as sptrsv_solve_dot_plain
 
-__all__ = ["SptrsvPack", "solve_pack", "sptrsv_solve_dot",
-           "sptrsv_solve_dot_plain", "grid_blocks", "sptrsv_level_step",
+__all__ = ["SptrsvPack", "solve_pack", "dependency_codes",
+           "sptrsv_solve_dot", "sptrsv_solve_dot_plain", "grid_blocks",
+           "solve_variant", "cluster_geometry", "cluster_max_threads",
+           "SOLVE_VARIANTS", "sptrsv_level_step",
            "sptrsv_level_step_plain"]
 
 _THREADS = 256      # csrc/common.cuh kThreads
+
+# "cluster": one thread-block cluster, hardware barrier, rows prefetched;
+# "cooperative": a grid barrier
+SOLVE_VARIANTS = ("cluster", "cooperative")
+CLUSTER_MAX_BLOCKS = 16          # non-portable cluster size on the H100
+CLUSTER_BLOCK_THREADS = 32       # the fewest threads a cluster block has
+CLUSTER_MAX_THREADS = 256        # csrc/sptrsv.cu kClusterThreads
+# csrc/sptrsv.cu: the cluster kernel's dependency codes
+DEP_SKIP, DEP_ZERO = -1, -(1 << 31)
+DEP_WINDOW, DEP_SLOT_BITS = 8, 12
 
 
 class SptrsvPack(NamedTuple):
@@ -44,24 +60,84 @@ class SptrsvPack(NamedTuple):
     ``level_rows``: (rows solved,) int32 row ids in the schedule's order.
     ``rows_p``:     the factor's padded row count.
     ``max_width``:  rows in the widest level.
+    ``level_grid``: (n_levels, max_width) int32; level l's rows in order,
+                    then -1: slot s of every level is one cluster thread's.
+    ``dep``:        (rows_p, w) int32 dependency codes of the cluster
+                    variant (:func:`dependency_codes`), or None for a pack
+                    built without the factor's columns;
+    ``dep_global``: whether a code reads x from global memory;
+    ``cols_key``:   the identity of the cols tensor ``dep`` was built from
+                    (its address, version and shape), or None: the codes
+                    hold for that tensor only (:meth:`built_from`).
     """
 
     level_ptr: torch.Tensor
     level_rows: torch.Tensor
     rows_p: int
     max_width: int
+    level_grid: torch.Tensor
+    dep: torch.Tensor | None = None
+    dep_global: bool = False
+    cols_key: tuple | None = None
 
     @property
     def n_levels(self) -> int:
         return self.level_ptr.shape[0] - 1
 
+    def built_from(self, cols: torch.Tensor) -> bool:
+        """Whether ``dep`` holds for ``cols``: the pack was built from this
+        very tensor, unmodified since."""
+        return (self.dep is not None and self.cols_key is not None
+                and self.cols_key == _cols_key(cols))
 
-def solve_pack(sched_rows, n_rows: int, rows_p: int,
-               device) -> SptrsvPack:
+
+def _cols_key(cols: torch.Tensor) -> tuple:
+    return (cols.data_ptr(), cols._version, tuple(cols.shape))
+
+
+def dependency_codes(cols: np.ndarray, level_grid: np.ndarray) -> np.ndarray:
+    """The cluster kernel's code for each slot of a factor's padded ELL
+    ``cols`` (rows_p, w) under the schedule's ``level_grid``, as int32:
+
+    * DEP_SKIP (-1): the diagonal slot (col == row): no product;
+    * DEP_ZERO (int32 min): the column is not solved before the row's level
+      (padding, an unscheduled row, the row's own level): x there is 0;
+    * (level % DEP_WINDOW) << DEP_SLOT_BITS | slot: solved fewer than
+      DEP_WINDOW levels earlier, at that slot: read from the window of
+      x the kernel keeps in distributed shared memory;
+    * -(col + 2): solved earlier still: read from x in global memory.
+
+    Rows the schedule does not list get DEP_SKIP throughout."""
+    rows_p = cols.shape[0]
+    level_of = np.full(rows_p, -1, np.int64)
+    slot_of = np.zeros(rows_p, np.int64)
+    lv, sl = np.nonzero(level_grid >= 0)
+    ids = level_grid[lv, sl]
+    level_of[ids], slot_of[ids] = lv, sl
+    c = cols.astype(np.int64)
+    inside = (c >= 0) & (c < rows_p)
+    cc = np.where(inside, c, 0)
+    lr = level_of[:, None]
+    lc = np.where(inside, level_of[cc], -1)
+    earlier = (lc >= 0) & (lc < lr)
+    near = earlier & (lr - lc < DEP_WINDOW)
+    code = np.full(c.shape, DEP_ZERO, np.int64)
+    code[earlier] = -(c[earlier] + 2)
+    code[near] = ((lc % DEP_WINDOW) << DEP_SLOT_BITS | slot_of[cc])[near]
+    code[c == np.arange(rows_p)[:, None]] = DEP_SKIP
+    code[level_of < 0] = DEP_SKIP
+    return code.astype(np.int32)
+
+
+def solve_pack(sched_rows, n_rows: int, rows_p: int, device,
+               cols=None) -> SptrsvPack:
     """Compact level lists from a (n_levels, W) schedule padded with a
-    sentinel >= ``n_rows`` (a numpy array or a tensor), on ``device``.
-    Raises for a row id outside [0, n_rows) that is not the sentinel, or a
-    row scheduled twice: the kernel writes x[r] for every listed row."""
+    sentinel >= ``n_rows`` (a numpy array or a tensor), on ``device``;
+    with the factor's ``cols`` (rows_p, w), also the cluster variant's
+    dependency codes, which bind the pack to that cols tensor (a numpy
+    ``cols`` gives codes bound to no tensor).  Raises for a row id outside
+    [0, n_rows) that is not the sentinel, or a row scheduled twice: the
+    kernel writes x[r] for every listed row."""
     rows = (sched_rows.cpu().numpy() if isinstance(sched_rows, torch.Tensor)
             else np.asarray(sched_rows))
     if rows.ndim != 2 or rows.shape[0] == 0:
@@ -77,9 +153,64 @@ def solve_pack(sched_rows, n_rows: int, rows_p: int,
     counts = real.sum(axis=1)
     level_ptr = np.zeros(rows.shape[0] + 1, np.int32)
     np.cumsum(counts, out=level_ptr[1:])
-    return SptrsvPack(torch.from_numpy(level_ptr).to(device),
-                      torch.from_numpy(level_rows).to(device), rows_p,
-                      int(counts.max()))
+    width = max(int(counts.max()), 1)
+    grid = np.full((rows.shape[0], width), -1, np.int32)
+    grid[np.arange(width)[None, :] < counts[:, None]] = level_rows
+    dev = torch.device(device)
+    dep, far, key = None, False, None
+    if cols is not None and width <= 1 << DEP_SLOT_BITS:
+        host = (cols.cpu().numpy() if isinstance(cols, torch.Tensor)
+                else np.asarray(cols))
+        if host.shape[0] != rows_p:
+            raise ValueError(f"cols {host.shape} vs rows_p {rows_p}")
+        codes = dependency_codes(host, grid)
+        far = bool(((codes < DEP_SKIP) & (codes != DEP_ZERO)).any())
+        dep = torch.from_numpy(codes).to(dev)
+        if isinstance(cols, torch.Tensor):
+            key = _cols_key(cols)
+    return SptrsvPack(torch.from_numpy(level_ptr).to(dev),
+                      torch.from_numpy(level_rows).to(dev), rows_p,
+                      int(counts.max()), torch.from_numpy(grid).to(dev), dep,
+                      far, key)
+
+
+def cluster_max_threads(width: int) -> int:
+    """The most threads a cluster block can have for a factor of ELL width
+    ``width``: its four stages of rows and its window fit the 227 KB of
+    shared memory a block has (csrc/sptrsv.cu cluster_smem)."""
+    return CLUSTER_MAX_THREADS if width <= 8 else CLUSTER_MAX_THREADS // 2
+
+
+def cluster_geometry(max_width: int, width: int = 8):
+    """(blocks, threads) of the cluster variant for a widest level of
+    ``max_width`` rows of a factor of ELL width ``width``: one row a
+    thread, spread over as many blocks (SMs) as whole warps allow, at most
+    CLUSTER_MAX_BLOCKS (a level's scattered loads cost each SM time in
+    proportion to its rows: PERF.md), a power of two threads a block.
+    Raises if the level does not fit."""
+    rows = max(int(max_width), 1)
+    blocks = min(CLUSTER_MAX_BLOCKS, -(-rows // CLUSTER_BLOCK_THREADS))
+    threads = max(32, 1 << (-(-rows // blocks) - 1).bit_length())
+    if threads > cluster_max_threads(width):
+        raise ValueError(f"a level of {rows} rows does not fit a cluster of "
+                         f"{blocks} blocks of at most "
+                         f"{cluster_max_threads(width)} threads")
+    return blocks, threads
+
+
+def solve_variant(n_levels: int, max_width: int, width: int,
+                  aligned: bool = True) -> str:
+    """The ``sptrsv_solve_dot`` kernel for a schedule of ``n_levels``
+    levels whose widest has ``max_width`` rows, over a factor of ELL width
+    ``width`` whose values are ``aligned`` to 16 bytes: "cluster" where the
+    widest level fits one cluster at a row a thread and the rows are whole
+    aligned 16-byte vectors of at most 16 slots, else "cooperative".  A
+    pure function of its arguments."""
+    fits = CLUSTER_MAX_BLOCKS * cluster_max_threads(width)
+    if aligned and n_levels >= 1 and 0 < width <= 16 and width % 4 == 0 \
+            and 1 <= max_width <= fits:
+        return "cluster"
+    return "cooperative"
 
 
 _CORESIDENT: dict = {}
@@ -103,14 +234,23 @@ def grid_blocks(pack: SptrsvPack, dtype: torch.dtype,
 
 def sptrsv_solve_dot(cols: torch.Tensor, vals: torch.Tensor,
                      dinv: torch.Tensor, b: torch.Tensor, pack: SptrsvPack,
-                     wdot: torch.Tensor | None = None, blocks: int | None = None):
+                     wdot: torch.Tensor | None = None, blocks: int | None = None,
+                     variant: str | None = None):
     """Returns ``(x, pp)`` on the card: ``x`` (rows_p,) solves the
     lower-triangular padded ELL factor ``cols``/``vals`` (rows_p, w) with
     inverse diagonal ``dinv`` (rows_p,) for ``b`` (rows_p,) in the level
     order of ``pack``; padded rows of x are 0.  ``pp`` is dot(wdot, x), a
-    0-d tensor, or 0 for ``wdot=None``.  ``blocks`` overrides the grid
-    (:func:`grid_blocks`); a grid the card cannot hold co-resident is
-    refused by the driver, and then this raises."""
+    0-d tensor, or 0 for ``wdot=None``.
+
+    By default the variant is :func:`solve_variant`'s where ``pack`` was
+    built from this ``cols`` tensor (:meth:`SptrsvPack.built_from`), and
+    "cooperative" otherwise: the cluster variant reads the pack's
+    dependency codes in place of ``cols``.  ``variant`` forces one of
+    :data:`SOLVE_VARIANTS` (the cluster variant raises where the shape,
+    the alignment or the pack does not admit it).  ``blocks`` selects the
+    cooperative variant with that grid (:func:`grid_blocks` by default): a
+    grid the card cannot hold co-resident is refused by CUDA, and then
+    this raises."""
     if cols.dim() != 2 or cols.shape != vals.shape:
         raise ValueError(f"sptrsv_solve_dot: cols {tuple(cols.shape)} vs "
                          f"vals {tuple(vals.shape)}")
@@ -126,19 +266,51 @@ def sptrsv_solve_dot(cols: torch.Tensor, vals: torch.Tensor,
     dt, dev = vals.dtype, vals.device
     build.require_cuda("sptrsv_solve_dot", dt, dev, cols=cols, vals=vals,
                        level_ptr=pack.level_ptr, level_rows=pack.level_rows,
-                       **vecs)
-    if blocks is None:
-        blocks = grid_blocks(pack, dt, dev)
+                       level_grid=pack.level_grid, **vecs)
+    aligned = vals.data_ptr() % 16 == 0
+    if variant is None:
+        variant = ("cooperative" if blocks is not None
+                   or not pack.built_from(cols)
+                   else solve_variant(pack.n_levels, pack.max_width, w,
+                                      aligned))
+    if variant not in SOLVE_VARIANTS:
+        raise ValueError(f"sptrsv_solve_dot: variant {variant!r} not in "
+                         f"{SOLVE_VARIANTS}")
+    if blocks is not None and variant != "cooperative":
+        raise ValueError("sptrsv_solve_dot: blocks sets the cooperative "
+                         "variant's grid")
+    wptr = None if wdot is None else wdot.data_ptr()
     x = torch.zeros(rows_p, dtype=dt, device=dev)
-    partials = torch.empty(blocks, dtype=dt, device=dev)
     pp = torch.empty(1, dtype=dt, device=dev)
-    fn = build.entry("repro_sptrsv_solve_dot", dt)
-    build.check(fn(cols.data_ptr(), vals.data_ptr(), dinv.data_ptr(),
-                   b.data_ptr(), None if wdot is None else wdot.data_ptr(),
-                   pack.level_ptr.data_ptr(), pack.level_rows.data_ptr(),
-                   x.data_ptr(), partials.data_ptr(), pp.data_ptr(),
-                   pack.n_levels, w, blocks, build.stream_handle(dev)),
-                "sptrsv_solve_dot")
+    stream = build.stream_handle(dev)
+    head = (cols.data_ptr(), vals.data_ptr(), dinv.data_ptr(), b.data_ptr(),
+            wptr)
+    if variant == "cluster":
+        if solve_variant(1, 1, w, aligned) != "cluster":
+            raise ValueError(f"sptrsv_solve_dot: the cluster variant takes W "
+                             f"a multiple of 4 up to 16 and 16-byte aligned "
+                             f"vals; got W = {w}")
+        if not pack.built_from(cols):
+            raise ValueError("sptrsv_solve_dot: the cluster variant needs a "
+                             "pack built from this cols tensor")
+        build.require_cuda("sptrsv_solve_dot", torch.int32, dev,
+                           level_dep=pack.dep)
+        blocks, threads = cluster_geometry(pack.max_width, w)
+        partials = torch.empty(blocks, dtype=dt, device=dev)
+        err = build.entry("repro_sptrsv_cluster", dt)(
+            pack.dep.data_ptr(), *head[1:], pack.level_grid.data_ptr(),
+            x.data_ptr(), partials.data_ptr(), pp.data_ptr(), pack.n_levels,
+            pack.level_grid.shape[1], w, int(pack.dep_global), blocks,
+            threads, stream)
+    else:
+        if blocks is None:
+            blocks = grid_blocks(pack, dt, dev)
+        partials = torch.empty(blocks, dtype=dt, device=dev)
+        err = build.entry("repro_sptrsv_solve_dot", dt)(
+            *head, pack.level_ptr.data_ptr(), pack.level_rows.data_ptr(),
+            x.data_ptr(), partials.data_ptr(), pp.data_ptr(), pack.n_levels,
+            w, blocks, stream)
+    build.check(err, "sptrsv_solve_dot")
     sptrsv_solve_dot.launches += 1
     return x, pp.reshape(())
 

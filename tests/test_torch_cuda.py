@@ -690,3 +690,108 @@ def test_pipelined_plan_on_the_card(cuda, precond, batch):
     xs, bs = np.atleast_2d(x), np.atleast_2d(b)
     res = np.linalg.norm(bs - (a @ xs.T).T, axis=1) / np.linalg.norm(bs, axis=1)
     assert np.all(res <= 1e-7)
+
+
+# -- the redesigned kernels' variants --------------------------------------
+
+# SHAPES, one more row wider than a warp's group, and a W = 8 operator of
+# 2^16 rows (many blocks of the rows variant)
+SPMV_VARIANT_SHAPES = SHAPES + [(1000, 40, 36), (1 << 16, 8, 5)]
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+@pytest.mark.parametrize("rows,width,k", SPMV_VARIANT_SHAPES)
+def test_ell_spmv_variants_equal_spmm_lane0(cuda, rows, width, k, dtype):
+    """Every ell_spmv variant the width admits gives y bitwise equal to
+    lane 0 of ell_spmm (the group kernels' lane order), and the wrapper's
+    own choice is one of them.  Values off a 16-byte boundary (a view one
+    element in) go to the group kernel by default, and forcing the rows
+    kernel on them raises."""
+    cols, vals, vec = _operator(rows, width, k, dtype, rows + 2 * width, cuda)
+    x = vec()
+    lane0 = ell_spmv.ell_spmm(cols, vals, x[None].contiguous())[0]
+    runs = {"default": ell_spmv.ell_spmv(cols, vals, x),
+            "group": ell_spmv.ell_spmv(cols, vals, x, variant="group")}
+    if ell_spmv.spmv_variant(width) == "rows":
+        runs["rows"] = ell_spmv.ell_spmv(cols, vals, x, variant="rows")
+        off = torch.empty(rows * width + 1, dtype=dtype, device=cuda)
+        moved = off[1:].view(rows, width)
+        moved.copy_(vals)
+        runs["misaligned, default"] = ell_spmv.ell_spmv(cols, moved, x)
+        with pytest.raises(ValueError, match="aligned"):
+            ell_spmv.ell_spmv(cols, moved, x, variant="rows")
+    else:
+        with pytest.raises(ValueError, match="multiple of 4"):
+            ell_spmv.ell_spmv(cols, vals, x, variant="rows")
+    torch.cuda.synchronize()
+    for name, y in runs.items():
+        assert torch.equal(y, lane0), name
+    _close((runs["default"],), (ell_spmv.ell_spmv_plain(cols, vals, x),), dtype)
+
+
+@pytest.mark.parametrize("variant", ["cluster", "cooperative"])
+@pytest.mark.parametrize("with_dot", [True, False])
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+@pytest.mark.parametrize("case", SOLVE_CASES)
+def test_sptrsv_variants_match_plain(cuda, case, dtype, with_dot, variant):
+    """Each sptrsv_solve_dot variant, forced through the wrapper: within
+    the tolerance of the plain version, padded rows 0, a second launch
+    bitwise equal, pp 0 without the dot.  Where the shape does not admit the cluster
+    variant (rand1000's rows are 24 slots wide) forcing it raises."""
+    ell, rows, dinv, b, w, n = _solve_inputs(case, dtype, cuda)
+    wd = w if with_dot else None
+    pack = ops.sptrsv_solve_pack(ell.cols, rows, n)
+    before = sptrsv.sptrsv_solve_dot.launches
+    if variant == "cluster" and sptrsv.solve_variant(
+            pack.n_levels, pack.max_width, ell.cols.shape[1]) != "cluster":
+        # rows wider than 16 slots: the cluster variant refuses them
+        with pytest.raises(ValueError, match="cluster variant"):
+            sptrsv.sptrsv_solve_dot(ell.cols, ell.vals, dinv, b, pack, wd,
+                                    variant=variant)
+        assert sptrsv.sptrsv_solve_dot.launches == before
+        return
+    x, pp = sptrsv.sptrsv_solve_dot(ell.cols, ell.vals, dinv, b, pack, wd,
+                                    variant=variant)
+    x2, pp2 = sptrsv.sptrsv_solve_dot(ell.cols, ell.vals, dinv, b, pack, wd,
+                                      variant=variant)
+    torch.cuda.synchronize()
+    assert sptrsv.sptrsv_solve_dot.launches == before + 2
+    assert torch.equal(x, x2) and torch.equal(pp, pp2)
+    assert bool((x[n:] == 0).all())
+    want = sptrsv.sptrsv_solve_dot_plain(ell.cols, ell.vals, dinv, b, rows,
+                                         torch.zeros_like(w) if wd is None
+                                         else w, n)
+    _close((x, pp.reshape(1)), (want[0], want[1].reshape(1)), dtype)
+    if wd is None:
+        assert float(pp) == 0.0
+
+
+@pytest.mark.parametrize("case", ["ic0_L", "chain"])
+def test_sptrsv_cluster_needs_its_own_pack(cuda, case):
+    """The cluster variant reads the pack's dependency codes in place of
+    cols: with another cols tensor (an equal copy here) the wrapper runs
+    the cooperative kernel by default and refuses a forced cluster launch;
+    misaligned values take the cooperative kernel too.  Each answer is the
+    plain version's within the tolerance."""
+    ell, rows, dinv, b, w, n = _solve_inputs(case, torch.float64, cuda)
+    pack = ops.sptrsv_solve_pack(ell.cols, rows, n)
+    assert sptrsv.solve_variant(pack.n_levels, pack.max_width,
+                                ell.cols.shape[1]) == "cluster"
+    want = sptrsv.sptrsv_solve_dot_plain(ell.cols, ell.vals, dinv, b, rows, w, n)
+    other = ell.cols.clone()
+    off = torch.empty(ell.vals.numel() + 1, dtype=ell.vals.dtype, device=cuda)
+    moved = off[1:].view(ell.vals.shape)
+    moved.copy_(ell.vals)
+    before = sptrsv.sptrsv_solve_dot.launches
+    with pytest.raises(ValueError, match="pack built from this cols"):
+        sptrsv.sptrsv_solve_dot(other, ell.vals, dinv, b, pack, w,
+                                variant="cluster")
+    with pytest.raises(ValueError, match="aligned"):
+        sptrsv.sptrsv_solve_dot(ell.cols, moved, dinv, b, pack, w,
+                                variant="cluster")
+    assert sptrsv.sptrsv_solve_dot.launches == before
+    for c, v in ((other, ell.vals), (ell.cols, moved), (ell.cols, ell.vals)):
+        x, pp = sptrsv.sptrsv_solve_dot(c, v, dinv, b, pack, w)
+        torch.cuda.synchronize()
+        _close((x, pp.reshape(1)), (want[0], want[1].reshape(1)),
+               torch.float64)

@@ -1,0 +1,317 @@
+"""The pure-Python parts of the redesigned ``ell_spmv`` and
+``sptrsv_solve_dot`` kernels, on the CPU.
+
+Each kernel has two variants that the wrapper picks from the operands'
+shape and alignment alone: ``ell_spmv.spmv_variant`` (the ELL width) and
+``sptrsv.solve_variant`` with ``sptrsv.cluster_geometry`` (the schedule's
+levels and widest level, the factor's width).  The tests hold those choices
+to their rules: a function of the shape only, a misaligned operand sent to
+the variant that takes any pointer, every row covered, a cluster of at most
+16 blocks.  ``sptrsv.solve_pack`` now also builds the level grid and the
+dependency codes that the cluster variant reads; both are held against
+``core/levels.py``'s schedule (and the JAX package's) on the lap2d and
+random cases, the codes are bound to the cols tensor they came from, and
+the engine's device footprint counts them.
+
+The row variants of ``ell_spmv`` fold a row's virtual lanes in registers
+where the group variant shuffles between lanes; a numpy model of both sums
+shows they are the same bits, which the card tests then check on the
+kernels themselves (``tests/test_torch_cuda.py``).
+"""
+
+import numpy as np
+import pytest
+import scipy.sparse as sp
+import torch
+
+from repro.core.levels import build_schedule as jax_build_schedule
+from repro_torch.core.engine import AzulEngine
+from repro_torch.core.formats import csr_from_scipy
+from repro_torch.core.levels import build_schedule
+from repro_torch.core.precond import ic0
+from repro_torch.data.matrices import laplacian_2d
+from repro_torch.kernels import ell_spmv, ops, sptrsv
+
+
+def _lower(n, density, seed):
+    a = sp.random(n, n, density=density, random_state=seed, format="csr")
+    low = sp.tril(a, -1).tocsr()
+    return csr_from_scipy(low + sp.diags(np.asarray(abs(low).sum(1)).ravel() + 1))
+
+
+def _schedules():
+    f = ic0(laplacian_2d(16), dtype=np.float64, device="cpu")
+    out = {"lap2d_16 L": (f.sched_l, f.ell_l.rows_padded),
+           "lap2d_16 reversed U": (f.sched_u_rev, f.ell_u_rev.rows_padded)}
+    for n, dens in ((300, 0.02), (1000, 0.005)):
+        m = _lower(n, dens, n)
+        out[f"random {n}"] = (build_schedule(m), -(-n // 8) * 8)
+    return out
+
+
+SCHEDULES = ["lap2d_16 L", "lap2d_16 reversed U", "random 300", "random 1000"]
+
+
+# -- ell_spmv -------------------------------------------------------------
+
+
+@pytest.mark.parametrize("width", list(range(1, 41)) + [64, 100, 264])
+def test_spmv_variant_is_a_function_of_the_width(width):
+    got = ell_spmv.spmv_variant(width)
+    assert got in ell_spmv.SPMV_VARIANTS
+    assert got == ell_spmv.spmv_variant(width)
+    rows = width % 4 == 0 and width <= 16
+    assert got == ("rows" if rows else "group")
+    if rows:
+        # a thread holds the row's group of virtual lanes: W <= G <= 16
+        assert width <= ell_spmv.group_size(width) <= 16
+    # operands off a 16-byte boundary go to the group kernel, which takes
+    # any pointer
+    assert ell_spmv.spmv_variant(width, aligned=False) == "group"
+
+
+@pytest.mark.parametrize("rows", [1, 127, 128, 255, 256, 257, 5000, 1 << 20])
+def test_spmv_grids_cover_every_row(rows):
+    """The rows kernel strides its grid over rows (256 a block): two blocks
+    an SM in float64, a row a thread in float32, never more blocks than
+    the rows need."""
+    need = -(-rows // 256)
+    for sms in (1, 7, 132):
+        for itemsize in (8, 4):
+            grid = ell_spmv.spmv_grid(rows, sms, itemsize)
+            assert 1 <= grid <= need
+            assert grid == ell_spmv.spmv_grid(rows, sms, itemsize)
+            if rows <= 5000:       # the grid-stride loop, block by block
+                owners = {(u % grid) for u in range(need)}
+                assert owners == set(range(grid))
+    assert ell_spmv.spmv_grid(rows, itemsize=4) == need
+    assert ell_spmv.spmv_grid(rows, sms=132) == min(2 * 132, need)
+
+
+def _butterfly(lanes):
+    """The group kernel's sum: every lane adds the xor partner's value,
+    offsets G/2 down to 1 (repro::group_sum); lane 0's result."""
+    v = list(lanes)
+    off = len(v) // 2
+    while off:
+        v = [v[g] + v[g ^ off] for g in range(len(v))]
+        off //= 2
+    return v[0]
+
+
+def _folded(lanes):
+    """The row kernels' sum: virtual lanes folded in registers,
+    s[g] = s[g] + s[g + off] for g < off (common.cuh row_sum)."""
+    s = list(lanes)
+    off = len(s) // 2
+    while off:
+        for g in range(off):
+            s[g] = s[g] + s[g + off]
+        off //= 2
+    return s[0]
+
+
+@pytest.mark.parametrize("dtype", [np.float64, np.float32])
+@pytest.mark.parametrize("width", [4, 8, 12, 16])
+def test_register_fold_is_the_butterfly(width, dtype):
+    rng = np.random.default_rng(width)
+    g = ell_spmv.group_size(width)
+    for _ in range(200):
+        prods = (rng.standard_normal(width) * 10.0 ** rng.integers(-8, 8, width))
+        lanes = [dtype(p) for p in prods.astype(dtype)] + [dtype(0)] * (g - width)
+        a, b = _butterfly(lanes), _folded(lanes)
+        assert a.tobytes() == b.tobytes()
+
+
+# -- sptrsv_solve_dot --------------------------------------------------------
+
+
+@pytest.mark.parametrize("width", [4, 8, 12, 16])
+@pytest.mark.parametrize("max_width", [1, 31, 127, 128, 129, 1000, 1024, 2047,
+                                       2048, 2049, 4095, 4096])
+def test_cluster_geometry_covers_the_widest_level(max_width, width):
+    cap = sptrsv.cluster_max_threads(width)
+    assert cap == (256 if width <= 8 else 128)
+    if max_width > 16 * cap:
+        with pytest.raises(ValueError, match="does not fit"):
+            sptrsv.cluster_geometry(max_width, width=width)
+        return
+    blocks, threads = sptrsv.cluster_geometry(max_width, width=width)
+    assert 1 <= blocks <= 16 and 32 <= threads <= cap
+    assert threads & (threads - 1) == 0 and blocks * threads >= max_width
+    # as many blocks as whole warps allow, the fewest threads that fit
+    assert blocks == 16 or threads == 32
+    assert threads == 32 or blocks * threads // 2 < max_width
+    assert (blocks, threads) == sptrsv.cluster_geometry(max_width, width)
+
+
+def test_cluster_geometry_refuses_what_does_not_fit():
+    with pytest.raises(ValueError, match="does not fit"):
+        sptrsv.cluster_geometry(16 * 256 + 1)
+    with pytest.raises(ValueError, match="does not fit"):
+        sptrsv.cluster_geometry(16 * 128 + 1, width=16)
+
+
+@pytest.mark.parametrize("width", [1, 3, 4, 8, 12, 16, 24])
+def test_solve_variant_is_a_function_of_the_shape(width):
+    for n_levels, max_width in ((1, 1), (2047, 1024), (7, 2048), (7, 2049),
+                                (7, 4096), (7, 4097), (3, 100_000)):
+        got = sptrsv.solve_variant(n_levels, max_width, width)
+        assert got in sptrsv.SOLVE_VARIANTS
+        assert got == sptrsv.solve_variant(n_levels, max_width, width)
+        cluster = (width % 4 == 0 and width <= 16 and max_width
+                   <= 16 * sptrsv.cluster_max_threads(width))
+        assert got == ("cluster" if cluster else "cooperative")
+        if got == "cluster":
+            blocks, threads = sptrsv.cluster_geometry(max_width, width=width)
+            assert blocks <= 16 and blocks * threads >= max_width
+        # misaligned values go to the cooperative kernel
+        assert sptrsv.solve_variant(n_levels, max_width, width,
+                                    aligned=False) == "cooperative"
+
+
+@pytest.mark.parametrize("name", SCHEDULES)
+def test_pack_arrays_follow_the_schedule(name):
+    sched, rows_p = _schedules()[name]
+    rows = np.asarray(sched.rows)
+    n = sched.n
+    pack = sptrsv.solve_pack(rows, n, rows_p, "cpu")
+    counts = np.asarray(sched.counts)
+    assert pack.n_levels == sched.n_levels and pack.max_width == counts.max()
+    np.testing.assert_array_equal(np.diff(pack.level_ptr.numpy()), counts)
+    grid = pack.level_grid.numpy()
+    assert grid.shape == (sched.n_levels, counts.max()) and grid.dtype == np.int32
+    for lv in range(sched.n_levels):
+        c = counts[lv]
+        np.testing.assert_array_equal(grid[lv, :c], rows[lv, :c])
+        assert (grid[lv, c:] == -1).all()
+        np.testing.assert_array_equal(
+            pack.level_rows.numpy()[pack.level_ptr[lv]: pack.level_ptr[lv + 1]],
+            rows[lv, :c])
+    # every row exactly once, in the level the schedule gives it
+    real = grid[grid >= 0]
+    assert sorted(real.tolist()) == list(range(n))
+    lv_of = np.repeat(np.arange(sched.n_levels), counts)
+    np.testing.assert_array_equal(np.asarray(sched.level_of)[real], lv_of)
+    # built without the factor's columns: no codes, bound to no tensor
+    assert pack.dep is None and pack.cols_key is None
+    assert not pack.built_from(torch.zeros(rows_p, 8, dtype=torch.int32))
+
+
+@pytest.mark.parametrize("name", SCHEDULES)
+def test_cluster_slots_cover_each_level(name):
+    """The cluster kernel's thread (rank, t) owns slot rank * threads + t
+    of every level: under the chosen geometry every listed row has a slot,
+    and a level's rows only ever read rows of earlier levels."""
+    sched, rows_p = _schedules()[name]
+    pack = sptrsv.solve_pack(np.asarray(sched.rows), sched.n, rows_p, "cpu")
+    blocks, threads = sptrsv.cluster_geometry(pack.max_width, width=8)
+    grid = pack.level_grid.numpy()
+    slots = np.arange(blocks * threads)
+    owned = [grid[lv, slots[slots < grid.shape[1]]]
+             for lv in range(pack.n_levels)]
+    got = np.concatenate([o[o >= 0] for o in owned])
+    assert sorted(got.tolist()) == list(range(sched.n))
+
+
+@pytest.mark.parametrize("n,density", [(300, 0.02), (1000, 0.005)])
+def test_pack_grid_equals_the_jax_schedule(n, density):
+    """The level grid is the JAX package's schedule with its sentinel
+    replaced by -1 and its width cut to the widest level."""
+    m = _lower(n, density, n)
+    from repro.core.formats import CSR as JCSR
+
+    jm = JCSR(m.indptr, m.indices, m.data, m.shape)
+    js = jax_build_schedule(jm)
+    jrows = np.asarray(js.rows)
+    pack = sptrsv.solve_pack(jrows, n, -(-n // 8) * 8, "cpu")
+    want = np.where(jrows < n, jrows, -1)[:, : pack.max_width]
+    np.testing.assert_array_equal(pack.level_grid.numpy(), want)
+
+
+@pytest.mark.parametrize("name", SCHEDULES)
+def test_dependency_codes_follow_the_schedule(name):
+    """The cluster kernel's code of every slot, row by row against the
+    schedule's levels: the diagonal skipped, a column solved fewer than
+    DEP_WINDOW levels earlier read from its level's window slot, an older
+    one from global x, anything not solved before the row's level as 0."""
+    f = ic0(laplacian_2d(16), dtype=np.float64, device="cpu")
+    sched, rows_p = _schedules()[name]
+    if name.startswith("lap2d"):
+        ell = f.ell_l if name.endswith(" L") else f.ell_u_rev
+    else:
+        n = int(name.split()[1])
+        from repro_torch.core.formats import ell_from_csr
+        ell = ell_from_csr(_lower(n, 0.02 if n == 300 else 0.005, n),
+                           row_pad=8, width_pad=8, device="cpu")
+    cols = ell.cols.numpy()
+    pack = sptrsv.solve_pack(np.asarray(sched.rows), sched.n, rows_p, "cpu",
+                             cols=ell.cols)
+    dep = pack.dep.numpy()
+    assert dep.shape == cols.shape and dep.dtype == np.int32
+    level_of = np.asarray(sched.level_of)
+    slot = {}
+    for lv in range(sched.n_levels):
+        for s, r in enumerate(pack.level_grid.numpy()[lv]):
+            if r >= 0:
+                slot[int(r)] = s
+    win, bits = sptrsv.DEP_WINDOW, sptrsv.DEP_SLOT_BITS
+    kinds = set()
+    for r in range(rows_p):
+        for k, c in enumerate(cols[r]):
+            code = int(dep[r, k])
+            if r >= sched.n or c == r:
+                assert code == sptrsv.DEP_SKIP
+                continue
+            lr, lc = level_of[r], (level_of[c] if c < sched.n else -1)
+            if lc < 0 or lc >= lr:
+                assert code == sptrsv.DEP_ZERO, (r, k)
+                kinds.add("zero")
+            elif lr - lc < win:
+                assert code == (lc % win) << bits | slot[int(c)], (r, k)
+                kinds.add("window")
+            else:
+                assert code == -(int(c) + 2), (r, k)
+                kinds.add("global")
+    assert "window" in kinds
+    assert pack.dep_global == ("global" in kinds)
+
+
+def test_pack_is_bound_to_its_cols():
+    """The cluster variant reads the pack's dependency codes in place of
+    cols, so a pack holds for the cols tensor it was built from, unmodified,
+    and for no other: not an equal copy, not another factor of the same
+    shape and schedule, not the same tensor after an in-place write."""
+    f = ic0(laplacian_2d(16), dtype=np.float64, device="cpu")
+    cols = f.ell_l.cols.clone()
+    pack = ops.sptrsv_solve_pack(cols, f.sched_l.rows, f.n)
+    assert pack.built_from(cols)
+    assert not pack.built_from(cols.clone())
+    assert not pack.built_from(f.ell_u_rev.cols)
+    cols[0, 0] = cols[0, 0]
+    assert not pack.built_from(cols)
+    # numpy columns give codes bound to no tensor
+    loose = sptrsv.solve_pack(f.sched_l.rows, f.n, cols.shape[0], "cpu",
+                              cols=cols.numpy())
+    assert loose.dep is not None and not loose.built_from(cols)
+
+
+def test_device_bytes_counts_every_pack_tensor():
+    """A block-IC(0) engine's footprint counts both solve packs whole: the
+    level lists, the level grid and the dependency codes."""
+    m = laplacian_2d(16)
+    eng = AzulEngine(m, precond="block_ic0", dtype=np.float64, device="cpu")
+    f = eng._ic0
+    packs = [ops.sptrsv_solve_pack(f.ell_l.cols, f.sched_l.rows, f.n),
+             ops.sptrsv_solve_pack(f.ell_u_rev.cols, f.sched_u_rev.rows, f.n)]
+    pack_bytes = sum(t.numel() * t.element_size() for p in packs for t in p
+                     if isinstance(t, torch.Tensor))
+    assert all(p.dep is not None and p.dep.shape == e.cols.shape
+               for p, e in zip(packs, (f.ell_l, f.ell_u_rev)))
+    nbytes = lambda *ts: sum(t.numel() * t.element_size() for t in ts)
+    want = (nbytes(eng._dinv_pad, eng.ell.cols, eng.ell.vals)
+            + nbytes(f.ell_l.cols, f.ell_l.vals, f.sched_l.rows,
+                     f.ell_u_rev.cols, f.ell_u_rev.vals, f.sched_u_rev.rows)
+            + nbytes(f.ell_l.vals[:, 0], f.ell_u_rev.vals[:, 0])   # dinv
+            + pack_bytes)
+    assert eng.device_bytes() == want
