@@ -14,7 +14,8 @@ prints no result line):
                main-path shape (1,048,576 x 8); the batched kernels at
                k = 1, 3 and 8 (k = 8 at the main shape); ell_spmv's y
                bitwise equal across its variants (the first slice's
-               group design among them) and to lane 0 of ell_spmm.
+               group design among them) and to lane 0 of ell_spmm; the
+               p-fold kernels' outputs bitwise equal across their variants.
                Tolerance,
                because only the summation order differs: max |kernel -
                plain| <= rtol * max |plain| with rtol 1e-12 (float64) and
@@ -171,7 +172,17 @@ prints no result line):
                variants on lap2d_1024's two factors, the 2047-row chain,
                the random cases and striped factors of 128 levels 256 to
                8192 rows wide (the cluster/cooperative threshold), in
-               mirrored order, beside torch's sparse CSR triangular_solve.
+               mirrored order, beside torch's sparse CSR triangular_solve;
+               ell_spmv_pfold_dot and ell_spmm_pfold_dot (k = 1, 2, 4, 8,
+               16) at 1,048,576 x 8 (f64, f32) and at the skewed 2^20 ELL
+               (W = 264): the first slice's group design against the kept
+               variant (and, where that is rows, rows on a grid of a row
+               a thread), twice in mirrored order,
+               beside torch's CSR product and the composed library
+               function (add, product, dot), with the byte bound; P', Y
+               and pap bitwise the first design's, every lane bitwise the
+               k = 1 call and the 1-D kernel on that lane, a second launch
+               bitwise equal.
 
 The last three lines are the kernels JSON, the card's
 ``nvidia-smi --query-gpu=name,power.limit`` line, and the result JSON.
@@ -362,6 +373,17 @@ def compare(name: str, got, want, dtype: str) -> float:
     return worst
 
 
+def csr_on_card(m, dtype):
+    """The host CSR matrix ``m`` as a torch sparse CSR tensor on the card:
+    the library yardstick of the A/B phases (never called by the port)."""
+    import torch
+
+    return torch.sparse_csr_tensor(
+        torch.as_tensor(m.indptr, dtype=torch.int64),
+        torch.as_tensor(m.indices, dtype=torch.int64),
+        torch.as_tensor(m.data, dtype=dtype), size=m.shape).to("cuda")
+
+
 def random_ell(rows: int, width: int, nnz_per_row: int, dtype, gen):
     """A random square padded-ELL operator on the card: ``nnz_per_row``
     random columns and values per row, zero padding to ``width``."""
@@ -396,9 +418,10 @@ def check_kernels(cols, vals, dtype: str, gen, label: str) -> dict:
     # every variant the width admits, the first slice's group design among
     # them, and lane 0 of ell_spmm: the same bits
     same = {"ell_spmm lane 0": ell_spmv.ell_spmm(cols, vals, x[None])[0]}
-    for variant in (ell_spmv.SPMV_VARIANTS
-                    if ell_spmv.spmv_variant(cols.shape[1]) == "rows"
-                    else ("group",)):
+    variants = (ell_spmv.SPMV_VARIANTS
+                if ell_spmv.spmv_variant(cols.shape[1]) == "rows"
+                else ("group",))
+    for variant in variants:
         same[variant] = ell_spmv.ell_spmv(cols, vals, x, variant=variant)
     for name, other in same.items():
         if not torch.equal(y, other):
@@ -412,6 +435,13 @@ def check_kernels(cols, vals, dtype: str, gen, label: str) -> dict:
                            got, want, dtype))
         if not torch.equal(got[0], want[0]):
             raise AssertionError("ell_spmv_pfold_dot: p' differs from z + beta*p")
+        # every variant the width admits, the first design among them
+        for variant in variants:
+            other = spmv_dot.ell_spmv_pfold_dot(cols, vals, z, p, bt,
+                                                variant=variant)
+            if not all(torch.equal(a, b) for a, b in zip(got, other)):
+                raise AssertionError(f"ell_spmv_pfold_dot {label}: the "
+                                     f"{variant} variant differs")
     errs["ell_spmv_pfold_dot"] = e
     e = 0.0
     alpha = torch.tensor(0.61, dtype=td, device=vals.device)
@@ -457,6 +487,11 @@ def check_batched_kernels(cols, vals, dtype: str, gen, label: str,
         if not torch.equal(got[0], want[0]):
             raise AssertionError(f"ell_spmm_pfold_dot {tag}: P' differs from "
                                  "Z + beta*P")
+        first = spmv_dot.ell_spmm_pfold_dot(cols, vals, z, p, beta,
+                                            variant="group")
+        if not all(torch.equal(a, b) for a, b in zip(got, first)):
+            raise AssertionError(f"ell_spmm_pfold_dot {tag}: differs from the "
+                                 "first design (variant='group')")
         for dv in (dinv, None):
             got = vecops.cg_update_batched(alpha, x, r, p, ap, dv)
             want = vecops.cg_update_plain(alpha, x, r, p, ap, dv)
@@ -486,6 +521,103 @@ def check_batched_kernels(cols, vals, dtype: str, gen, label: str,
                 raise AssertionError(f"lane independence {label}: lane {j} of "
                                      f"k={k}, output {i}, differs from k=1")
     return errs
+
+
+def mirrored_ms(runs: dict) -> dict:
+    """Each of ``runs`` timed as CUDA-graph replays twice, in turns, the
+    second pass in the reverse order."""
+    order = list(runs)
+    t = {k: [] for k in order}
+    for name in order + order[::-1]:
+        t[name].append(device_ms(runs[name]))
+    return t
+
+
+def pfold_ab_cell(cols, vals, m, gen, label: str) -> dict:
+    """Phase 5h on one operator: ell_spmv_pfold_dot and ell_spmm_pfold_dot
+    at k = 1, 2, 4, 8 and 16, the first slice's design (variant="group")
+    against the kept variant (and the rows kernel on a grid of a row a
+    thread, where rows is kept), each timed twice in mirrored order beside
+    torch's CSR product and the composed library function.  Raises unless P', Y and pap equal the first design's bit for
+    bit, a second launch repeats them, every lane of every batch equals
+    the k = 1 call and the 1-D kernel on that lane, bit for bit."""
+    import torch
+    from repro_torch.kernels import ell_spmv, spmv_dot
+
+    rows, w = cols.shape
+    td, e, n = vals.dtype, vals.element_size(), m.shape[0]
+    lib = csr_on_card(m, td)
+    kept = ell_spmv.spmv_variant(w)
+    mat_bytes = rows * w * (4 + e)
+    vec = lambda *lead: torch.randn(*lead, rows, generator=gen, device="cuda",
+                                    dtype=td)
+
+    def same(got, want, what):
+        for i, (g, x) in enumerate(zip(got, want)):
+            if not torch.equal(g, x):
+                raise AssertionError(f"5h {label} {what}: output {i} differs")
+
+    def row_a_thread(call):
+        """The kept variant on the grid of a row a thread (the first rows
+        design's grid), the A/B of rows_grid."""
+        def run():
+            saved = spmv_dot.rows_grid
+            spmv_dot.rows_grid = lambda r, wd, sms=132: -(-r // 256)
+            try:
+                return call()
+            finally:
+                spmv_dot.rows_grid = saved
+        return run
+
+    out = {"W": w, "kept": kept}
+    z, p = vec(), vec()
+    beta = torch.tensor(0.37, dtype=td, device="cuda")
+    one = lambda v=None: spmv_dot.ell_spmv_pfold_dot(cols, vals, z, p, beta,
+                                                     variant=v)
+    first = one("group")
+    same(one(), first, "1-D kept vs the first design")
+    same(one(), first, "1-D second launch")
+    runs = {"first design (group)": lambda: one("group"),
+            f"kept ({kept})": one}
+    if kept == "rows":
+        runs["rows, a row a thread"] = row_a_thread(one)
+        same(runs["rows, a row a thread"](), first, "1-D a row a thread")
+    zn, pn_ = z[:n], p[:n]
+    runs["torch CSR @ x"] = lambda: lib @ zn
+    runs["composed: torch.add, CSR @ x, torch.dot"] = lambda: (
+        lambda q: torch.dot(q, lib @ q))(torch.add(zn, pn_, alpha=0.37))
+    out["1-D"] = dict(bound_ms=(mat_bytes + 4 * rows * e + 2 * e)
+                      / HBM_BYTES_PER_S * 1e3, ms=mirrored_ms(runs))
+    for k in (1, 2, 4, 8, 16):
+        Z, P = vec(k), vec(k)
+        betas = torch.linspace(0.1, 0.9, k, dtype=td, device="cuda")
+        bat = lambda v=None, Z=Z, P=P, betas=betas: spmv_dot.ell_spmm_pfold_dot(
+            cols, vals, Z, P, betas, variant=v)
+        first = bat("group")
+        got = bat()
+        same(got, first, f"k={k} kept vs the first design")
+        same(bat(), got, f"k={k} second launch")
+        for j in range(k):
+            s = slice(j, j + 1)
+            lane = tuple(t[s] for t in got)
+            same(spmv_dot.ell_spmm_pfold_dot(cols, vals, Z[s], P[s], betas[s]),
+                 lane, f"k={k} lane {j} vs k=1")
+            flat = spmv_dot.ell_spmv_pfold_dot(cols, vals, Z[j], P[j], betas[j])
+            same((flat[0], flat[1], flat[2].reshape(1)), (lane[0][0], lane[1][0],
+                 lane[2]), f"k={k} lane {j} vs the 1-D kernel")
+        runs = {"first design (group)": lambda bat=bat: bat("group"),
+                f"kept ({kept})": bat}
+        if kept == "rows":
+            runs["rows, a row a thread"] = row_a_thread(bat)
+            same(runs["rows, a row a thread"](), got, f"k={k} a row a thread")
+        Zt, Pt = Z[:, :n].T.contiguous(), P[:, :n].T.contiguous()
+        runs["torch CSR @ dense (n, k)"] = lambda Zt=Zt: lib @ Zt
+        runs["composed: torch.addcmul, CSR @ dense, (P' * Y).sum(0)"] = (
+            lambda Zt=Zt, Pt=Pt, b=betas: (lambda q: (q * (lib @ q)).sum(0))(
+                torch.addcmul(Zt, b, Pt)))
+        out[f"k={k}"] = dict(bound_ms=(mat_bytes + 4 * k * rows * e + 2 * k * e)
+                             / HBM_BYTES_PER_S * 1e3, ms=mirrored_ms(runs))
+    return out
 
 
 def triangular_cases():
@@ -2077,13 +2209,6 @@ def main() -> int:
     # -- 5f. ell_spmv: the first slice's design against the redesign ------
     try:
         gen = torch.Generator(device="cuda").manual_seed(8)
-
-        def csr_on_card(m, dtype):
-            return torch.sparse_csr_tensor(
-                torch.as_tensor(m.indptr, dtype=torch.int64),
-                torch.as_tensor(m.indices, dtype=torch.int64),
-                torch.as_tensor(m.data, dtype=dtype), size=m.shape).to("cuda")
-
         eng = AzulEngine(m_main, dtype=np.float64)
         cases = [("lap2d_1024 f64", eng.ell.cols, eng.ell.vals, m_main),
                  ("lap2d_1024 f32", eng.ell.cols, eng.ell.vals.float(), m_main)]
@@ -2107,19 +2232,45 @@ def main() -> int:
                                          "from the first slice's design")
             e = vals.element_size()
             nbytes = rows * w * (4 + e) + 2 * rows * e
-            order = list(runs) + ["torch CSR @ x"]
-            t = {k: [] for k in order}
             runs["torch CSR @ x"] = lambda: lib @ x[: m.shape[0]]
-            for name in order + order[::-1]:          # in turns, both ways
-                t[name].append(device_ms(runs[name]))
             ab[label] = dict(W=w, bound_ms=nbytes / HBM_BYTES_PER_S * 1e3,
-                             ms=t)
+                             ms=mirrored_ms(runs))
         say("A/B ell_spmv (ms, CUDA-graph replays, each timed twice in "
             "mirrored order; bound = bytes / 3.35 TB/s): " + json.dumps(ab))
         del eng
     except Exception:
         traceback.print_exc()
         failed.append("A/B ell_spmv")
+
+    # -- 5h. the p-fold gathers: the first slice's design against the redesign
+    try:
+        gen = torch.Generator(device="cuda").manual_seed(10)
+        eng = AzulEngine(m_main, dtype=np.float64)
+        cases = [("lap2d_1024 f64", eng.ell.cols, eng.ell.vals, m_main),
+                 ("lap2d_1024 f32", eng.ell.cols, eng.ell.vals.float(), m_main)]
+        if "eng" in skew_state:
+            se = skew_state["eng"]
+            cases.append(("skew_2^20 f64", se.ell.cols, se.ell.vals,
+                          skew_state["m"]))
+        ab = {label: pfold_ab_cell(cols, vals, m, gen, label)
+              for label, cols, vals, m in cases}
+        say("A/B p-fold (ms, CUDA-graph replays, each timed twice in mirrored "
+            "order; bound = bytes / 3.35 TB/s; P', Y and pap bitwise the first "
+            "design's, lanes bitwise the k = 1 and 1-D calls): "
+            + json.dumps(ab))
+        for label, cell in ab.items():
+            for key in ("1-D", "k=8"):
+                c = cell[key]
+                kept_ms = min(c["ms"][f"kept ({cell['kept']})"])
+                first_ms = min(c["ms"]["first design (group)"])
+                say(f"  {label} {key}: kept {cell['kept']} {kept_ms:.4f} ms "
+                    f"({100 * c['bound_ms'] / kept_ms:.0f}% of its "
+                    f"{c['bound_ms']:.4f} ms bound), first design "
+                    f"{first_ms:.4f} ms")
+        del eng
+    except Exception:
+        traceback.print_exc()
+        failed.append("A/B p-fold")
 
     # -- 5g. sptrsv_solve_dot: every variant on every factor ----------------
     try:

@@ -62,6 +62,9 @@ _SIGNATURES = {
                            _P),
     "repro_ell_spmm_dot": (_P, _P, _P, _P, _P, _P, _I64, _I32, _I32, _I64,
                            _I32, _I64, _I64, _P),
+    "repro_spmv_dot_rows": (_P, _P, _P, _P, _P, _P, _P, _P, _P,
+                            _I64, _I32, _I64, _I32, _I64, _I64, _I32, _I32,
+                            _P),
     "repro_axpy_dot": (_P, _P, _P, _P, _P, _P, _I64, _I64, _P),
     "repro_sptrsv_level_step": (_P, _P, _P, _P, _P, _P, _P, _I32, _I64, _I32,
                                 _I64, _P),

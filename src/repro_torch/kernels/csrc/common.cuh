@@ -93,21 +93,16 @@ __device__ void block_sum_lanes(T (&v)[K], T* sh) {
   __syncthreads();
 }
 
-// The sum of one padded-ELL row in the lane order of the group kernels.
-// A thread holds the whole row (W <= G slots, W a multiple of 4, G a power
-// of two): virtual lane g runs its fma chain from 0 over its one slot g,
-// lanes g >= W stay 0, and the lanes are folded in the pairs and the order
-// of group_sum's xor butterfly (lane 0's view: s[g] + s[g + off], offsets
-// G/2 down to 1).  The result is the bits a group of G lanes running
-// group_sum leaves in its lane 0.  cols and vals point at the row in
-// global memory; they are 16-byte aligned and read with 16-byte streaming
-// loads (__ldcs, evict-first).
+// One padded-ELL row in registers, for the kernels whose thread owns a row
+// (W <= G slots, W a multiple of 4, G a power of two): load_row reads its
+// cols and vals with 16-byte streaming loads (__ldcs, evict-first, so the
+// matrix stream does not push the gathered vectors out of L2); cols and
+// vals point at the row and are 16-byte aligned.  Slots g >= W read as
+// column 0, value 0.
 template <typename T, int G>
-__device__ __forceinline__ T row_sum(const int32_t* cols, const T* vals,
-                                     const T* __restrict__ x, int w) {
+__device__ __forceinline__ void load_row(const int32_t* cols, const T* vals,
+                                         int w, int (&c)[G], T (&v)[G]) {
   static_assert(G >= 4 && G <= 16 && (G & (G - 1)) == 0, "G");
-  int c[G];
-  T v[G];
 #pragma unroll
   for (int q = 0; q < G; q += 4) {
     if (q < w) {
@@ -126,9 +121,21 @@ __device__ __forceinline__ T row_sum(const int32_t* cols, const T* vals,
       for (int i = 0; i < 4; ++i) { c[q + i] = 0; v[q + i] = T(0); }
     }
   }
+}
+
+// The sum of one row held in registers, in the lane order of the group
+// kernels: virtual lane g runs its fma chain from 0 over its one slot g
+// with the gathered value gather(c[g]), lanes g >= W stay 0, and the lanes
+// are folded in the pairs and the order of group_sum's xor butterfly (lane
+// 0's view: s[g] + s[g + off], offsets G/2 down to 1).  The result is the
+// bits a group of G lanes running group_sum leaves in its lane 0.  Every
+// gather is issued before any add.
+template <typename T, int G, typename Gather>
+__device__ __forceinline__ T row_dot(const int (&c)[G], const T (&v)[G],
+                                     int w, Gather gather) {
   T s[G];
 #pragma unroll
-  for (int g = 0; g < G; ++g) s[g] = g < w ? __ldg(x + c[g]) : T(0);
+  for (int g = 0; g < G; ++g) s[g] = g < w ? gather(c[g]) : T(0);
 #pragma unroll
   for (int g = 0; g < G; ++g) s[g] = g < w ? fma_rn(v[g], s[g], T(0)) : T(0);
 #pragma unroll
@@ -137,6 +144,85 @@ __device__ __forceinline__ T row_sum(const int32_t* cols, const T* vals,
     for (int g = 0; g < off; ++g) s[g] = add_rn(s[g], s[g + off]);
   }
   return s[0];
+}
+
+// row_dot with the row's gathers in two waves, slots g < G/2 and then the
+// rest: the butterfly's first stage pairs exactly these, s[g] + s[g +
+// G/2], so the bits are row_dot's, while the gathers in flight need half
+// the registers (more blocks share an SM).
+template <typename T, int G, typename Gather>
+__device__ __forceinline__ T row_dot_halves(const int (&c)[G], const T (&v)[G],
+                                            int w, Gather gather) {
+  constexpr int H = G / 2;
+  T a[H], b[H];
+#pragma unroll
+  for (int g = 0; g < H; ++g) a[g] = g < w ? gather(c[g]) : T(0);
+#pragma unroll
+  for (int g = 0; g < H; ++g) a[g] = g < w ? fma_rn(v[g], a[g], T(0)) : T(0);
+#pragma unroll
+  for (int g = 0; g < H; ++g) b[g] = g + H < w ? gather(c[g + H]) : T(0);
+#pragma unroll
+  for (int g = 0; g < H; ++g)
+    b[g] = g + H < w ? fma_rn(v[g + H], b[g], T(0)) : T(0);
+#pragma unroll
+  for (int g = 0; g < H; ++g) a[g] = add_rn(a[g], b[g]);
+#pragma unroll
+  for (int off = H >> 1; off > 0; off >>= 1) {
+#pragma unroll
+    for (int g = 0; g < off; ++g) a[g] = add_rn(a[g], a[g + off]);
+  }
+  return a[0];
+}
+
+// row_dot of the row at cols/vals (global memory) against x.
+template <typename T, int G>
+__device__ __forceinline__ T row_sum(const int32_t* cols, const T* vals,
+                                     const T* __restrict__ x, int w) {
+  int c[G];
+  T v[G];
+  load_row<T, G>(cols, vals, w, c, v);
+  return row_dot<T, G>(c, v, w, [x](int col) { return __ldg(x + col); });
+}
+
+// 32-row passes a warp of a rows kernel makes at a time, so that it holds
+// whole virtual blocks of the group kernels (256 / G rows): two at G = 4.
+template <int G>
+__host__ __device__ constexpr int row_passes() { return G == 4 ? 2 : 1; }
+
+// block_sum's additions over one "virtual block" of the group kernels, for
+// a kernel whose thread owns a row.  A group kernel's block of 256 threads
+// holds R = 256 / G rows, row i's value in thread i * G and +0 in the
+// others.  block_sum folds each warp with shfl_down, offsets 16 down to 1:
+// its M = 32 / G rows in the pairs of a fold over M (offsets M/2 down to
+// 1 in rows), then the zero lanes' + 0; then warp 0 folds the 8 warp sums,
+// + 0 twice for the empty slots and a fold over 8.  Here lane l of a warp
+// holds row base + 32q + l's value in c[q] (q < row_passes<G>(): one
+// virtual block a warp at G = 8, two at G = 16, one over two passes at G =
+// 4), and the same additions run on the same operands in the same order,
+// so the result in lanes l % R == 0 is that block's partial, bit for bit
+// (x + 0 + 0 == x + 0, so one + 0 stands for each run of them).  Every lane
+// of the warp must call it.
+template <typename T, int G>
+__device__ __forceinline__ T vblock_sum(const T (&c)[row_passes<G>()]) {
+  constexpr int M = 32 / G;
+  constexpr int P = row_passes<G>();
+  T s[P];
+#pragma unroll
+  for (int q = 0; q < P; ++q) {
+    s[q] = c[q];
+#pragma unroll
+    for (int off = M >> 1; off > 0; off >>= 1)
+      s[q] = add_rn(s[q], __shfl_down_sync(0xffffffffu, s[q], off));
+    s[q] = add_rn(s[q], T(0));
+  }
+  // the fold over the 8 warp sums (v in lanes v * M of the block's rows):
+  // its first pairs (v, v + 4) are the two passes' lanes at G = 4
+  T t = s[0];
+  if constexpr (P == 2) t = add_rn(s[0], s[1]);
+#pragma unroll
+  for (int off = (P == 2 ? 2 : 4) * M; off >= M; off >>= 1)
+    t = add_rn(t, __shfl_down_sync(0xffffffffu, t, off));
+  return t;
 }
 
 // Per-thread asynchronous copies global -> shared (cp.async, sm_80+): a
@@ -182,14 +268,24 @@ inline int lane_chunk(int k) {
 namespace {  // internal linkage: each .cu registers its own copy
 
 // Second pass of every dot: block b sums sequence b of `partials`
-// (`count` values each) in a fixed order and writes out[b].
+// (`count` values each) in a fixed order and writes out[b].  A thread's
+// chain loads 8 of its values at a time before adding them in order.
 template <typename T>
 __global__ void sum_partials_kernel(const T* __restrict__ partials,
                                     int64_t count, T* __restrict__ out) {
   __shared__ T sh[32];
   const T* seq = partials + (int64_t)blockIdx.x * count;
+  const int64_t step = blockDim.x;
   T s = T(0);
-  for (int64_t i = threadIdx.x; i < count; i += blockDim.x) s += seq[i];
+  int64_t i = threadIdx.x;
+  for (; i + 7 * step < count; i += 8 * step) {
+    T v[8];
+#pragma unroll
+    for (int q = 0; q < 8; ++q) v[q] = seq[i + q * step];
+#pragma unroll
+    for (int q = 0; q < 8; ++q) s += v[q];
+  }
+  for (; i < count; i += step) s += seq[i];
   s = block_sum(s, sh);
   if (threadIdx.x == 0) out[blockIdx.x] = s;
 }

@@ -1,82 +1,89 @@
 // ell_spmv_pfold_dot: p' = z + beta*p, y = A p', pap = dot(p', y).
-// ell_spmv_dot: its unfolded twin, y = A x, pap = dot(x, y).
+// ell_spmm_pfold_dot: the same for k right-hand sides in the solver
+// layout: Z, P, P' and Y (k, rows) row-major, beta and pap (k,).
+// ell_spmv_dot and ell_spmm_dot: the unfolded twins, y = A x and
+// pap = dot(x, y); ell_spmm_dot takes the JAX kernel's layout X (rows, k),
+// addressed through a row stride sr and a lane stride sl, so a row-major
+// X and the transposed view of a contiguous (k, rows) one both pass
+// without a copy, and Y is written in X's layout.
 //
-// Replaces the Pallas TPU kernel src/repro/kernels/spmv_dot.py:217
-// (ell_spmv_pfold_dot), the matrix half of every PCG iteration.
+// Replace the Pallas TPU kernels src/repro/kernels/spmv_dot.py:217
+// (ell_spmv_pfold_dot), :296 (ell_spmm_pfold_dot, body :267), :67
+// (ell_spmv_dot, pallas_call :90) and :134 (ell_spmm_dot, pallas_call
+// :158).  The p-fold pair is the matrix half of every PCG iteration, one
+// right-hand side and batched.
 //
-// What bounds it on the H100: memory.  Per call it streams the padded ELL
-// matrix once (12 bytes per slot in float64), reads z and p and writes p'
-// and y (32 bytes per row in float64); three flops per slot plus the fold.
-// At the main-path shape (1,048,576 x 8, float64) that is 134 MB: about
-// 40 us at 3.35 TB/s.
+// What bounds them on the H100: memory.  A call streams the padded ELL
+// matrix once for all k lanes (12 bytes a slot in float64), reads z and p
+// and writes p' and y (32 bytes a row and lane in float64, 16 without the
+// fold); three flops a slot and lane plus the fold.  At the main-path
+// shape (1,048,576 x 8, float64): 134.2 MB, 40.1 us at 3.35 TB/s, for
+// ell_spmv_pfold_dot; 369.1 MB, 110.2 us, for ell_spmm_pfold_dot at k = 8;
+// 117.4 MB (35.1 us) and 234.9 MB (70.1 us) for the dot twins.
 //
-// Design.  The Pallas body writes all of p' on grid step (0, 0) into a
-// resident output block that later steps gather from
-// (spmv_dot.py:193-197).  Hopper blocks run in no order, so no block can
-// rely on another having written p' first.  This kernel therefore
-// recomputes z[c] + beta*p[c] at each gather, and each row's owner writes
-// p'[r] once.  The alternative, a separate fold pass, would write p' and
-// read it back (16 bytes per row more); the recompute costs one extra
-// gather per slot, which hits L2 for the banded and stencil matrices the
-// solver runs.  The fold rounds product then sum (repro::fold), so the
-// gathered and the stored p' are the same bits.
+// The fold.  The Pallas bodies write all of p' on grid step (0, 0) into a
+// resident output block that later steps gather from (spmv_dot.py:193-197,
+// :273-275).  Hopper blocks run in no order, so no block can rely on
+// another having written p' first.  Each gather therefore recomputes
+// z[c] + beta*p[c], and each row's owner writes p'[r] once.  A separate
+// fold pass would write p' and read it back, 16 bytes a row and lane more
+// in float64 (12% of the 1-D bound); the recompute costs a second gather a
+// slot, which hits L2 on the banded and stencil matrices the solver runs.
+// repro::fold rounds product then sum, so the gathered and the stored p'
+// are the same bits.  Without the fold the gather reads x itself: no
+// beta = 0 stands in for it, because 0 * p is not 0 where p holds an inf
+// or a NaN.
 //
-// pap: each block sums p'[r] * y[r] over its rows in a fixed order into
-// partials[block]; a second one-block launch sums the partials in index
-// order.  No float atomics: a run repeats bit for bit.  Row groups of G
-// lanes read the matrix coalesced, as in ell_spmv.cu.
-
-// ell_spmm_pfold_dot: the same for k right-hand sides in the solver layout:
-// P' = Z + beta * P per lane, Y = A P', pap[j] = dot(P'[j], Y[j]); Z, P,
-// P' and Y are (k, rows) row-major, beta and pap (k,).
+// The sums, which every variant computes to the same bits.  y[r]: the
+// row's G = group_size(W) virtual lanes (lane g an fma chain from 0 over
+// slots g, g + G, ...) combined by repro::group_sum's xor butterfly, as in
+// ell_spmv.cu.  pap: the rows' p'[r] * y[r] in "virtual blocks" of 256 / G
+// consecutive rows, each summed in the pairing of repro::block_sum over a
+// 256-thread block of the row-group design, into one partial a block
+// (partials (k, nblocks), a lane's sequence contiguous); a second launch
+// of k blocks sums each lane's partials in index order.  No float atomics:
+// a run repeats bit for bit.  Nothing depends on k or the strides, so lane
+// j of a batched call is bitwise the 1-D call on lane j.
 //
-// Replaces the Pallas TPU kernel src/repro/kernels/spmv_dot.py:296
-// (ell_spmm_pfold_dot, body :267), the matrix half of every batched PCG
-// iteration.  That body folds all of P' on grid step (0, 0) into a
-// resident block later steps gather from (:273-275) -- the hazard above,
-// met the same way: recompute at each gather, the row's owner stores.
-//
-// What bounds it: memory.  The matrix once for all k lanes, Z and P read,
-// P' and Y written: at 1,048,576 x 8 with k = 8 in float64, 100.7 +
-// 4 x 67.1 MB = 369.1 MB, about 110 us at 3.35 TB/s.
-//
-// Design: ell_spmm's K lanes a thread, with spmv_dot_kernel's arithmetic per
-// lane.  Each lane's pap runs spmv_dot_kernel's reduction exactly: the
-// contribution sits in the row group's lane 0, block_sum_lanes sums it as
-// block_sum does, and the per-block partials, (k, nblocks) so that a
-// lane's sequence is contiguous, are summed by a second launch of k
-// blocks in index order.  The blocks' rows depend on W alone, so lane j's
-// P', Y and pap do not depend on k and equal spmv_dot_kernel's on lane j.
-
-// ell_spmv_dot and ell_spmm_dot: the same kernels with the fold compiled
-// out (the template flag kFold), so they share the gather, the row
-// groups, the per-block partials and the second pass.  Without the fold
-// the gather reads x itself: no beta = 0 stands in for it, because
-// 0 * p is not 0 where p holds an inf or a NaN.
-//
-// ell_spmv_dot replaces the Pallas TPU kernel
-// src/repro/kernels/spmv_dot.py:67 (pallas_call :90): y = A x and
-// pap = dot(x, y) for a square padded operator, x (rows_p,).  Bound:
-// memory, the matrix once plus x in and y out, 117.4 MB at 1,048,576 x 8
-// in float64: about 35 us at 3.35 TB/s.
-//
-// ell_spmm_dot replaces spmv_dot.py:134 (pallas_call :158): Y = A X and
-// pap[j] = dot(X[:, j], Y[:, j]) in the Pallas kernel's layout, X
-// (rows_p, k).  The kernel addresses X and Y through one pair of strides
-// (row stride sr, lane stride sl): a row-major (rows_p, k) X and the
-// transposed view of a contiguous (k, rows_p) tensor both pass without a
-// copy, and Y is written in X's layout.  Bound: the matrix once, X in
-// and Y out, 234.9 MB at k = 8 in float64: about 70 us.  Lane j's
-// arithmetic does not depend on k, nor on the strides: lane j of a k = 8
-// call is bitwise the k = 1 call on lane j.
+// Two variants (spmv_dot.py; the rule is ell_spmv.spmv_variant):
+//   * rows, for W a multiple of 4 up to 16 with 16-byte aligned cols and
+//     vals (the engine pads widths to multiples of 8).  A thread owns a
+//     row.  It loads the row's cols and vals once, with 16-byte streaming
+//     loads (__ldcs, evict-first, so the 100 MB matrix stream does not
+//     push the gathered vectors out of the 50 MB L2), keeps them in
+//     registers, and runs the lanes one after another: lane j's gathers go
+//     out in two waves before their adds (repro::row_dot_halves, the
+//     butterfly's first stage), P'[j, r] and Y[j, r] are stored with
+//     streaming stores.  A warp's gather for one slot and lane reads 32
+//     consecutive rows' columns of one plane, coalesced on the stencil and
+//     banded matrices.  pap's virtual blocks are one warp at G = 8 (two at
+//     G = 16, one over two passes at G = 4): repro::vblock_sum runs
+//     block_sum's additions with shuffles alone, no barrier.  The kernel
+//     is compiled for each W and for unit row stride; its registers are
+//     capped so that five blocks share an SM (three at W > 8), and the
+//     warps stride over the rows on that persistent grid (spmv_dot.py
+//     rows_grid).  Occupancy is what moves this kernel: uncapped, it held
+//     96 registers a thread and two blocks an SM, and ran far slower.
+//   * group, the first slice's design, for every other operand (the wide
+//     skewed ELL, W = 264, among them): a row gets G consecutive lanes, so
+//     a warp reads 32 consecutive slots of cols and vals a step; the group
+//     sums its lanes with shuffles and a block_sum (two barriers) sums the
+//     block's rows.  The batched kernel carries K <= 8 lanes a thread in
+//     registers (wider batches run in gridDim.y chunks).
+// The wrapper's choice is a function of the operands' shape, type and
+// alignment, never of a launch.  Both variants leave the partials to a
+// second launch of k blocks, one a lane: summing them in the kernel's
+// last block instead (an integer ticket) was slower at every width and k,
+// since one block then sums the lanes in turn (PERF.md).
 
 #include "common.cuh"
 
 namespace {
 
-// One row per group of `group` lanes.  kFold: the gathered vector is
-// z + beta * p, recomputed at each gather, and the row's owner stores
-// p'[r]; otherwise it is z itself (p, beta and pn are unused).
+// The group variant.  One row per group of `group` lanes.  kFold: the
+// gathered vector is z + beta * p, recomputed at each gather, and the
+// row's owner stores p'[r]; otherwise it is z itself (p, beta and pn are
+// unused).
 template <typename T, bool kFold>
 __global__ void __launch_bounds__(repro::kThreads)
 spmv_dot_kernel(const int32_t* __restrict__ cols, const T* __restrict__ vals,
@@ -132,7 +139,8 @@ int launch(const void* cols, const void* vals, const void* z, const void* p,
   return (int)cudaGetLastError();
 }
 
-// Lane j0 + jj of every vector sits at row * sr + lane * sl.
+// The group variant for K lanes a thread.  Lane j0 + jj of every vector
+// sits at row * sr + lane * sl.
 template <typename T, int K, bool kFold>
 __global__ void __launch_bounds__(repro::kThreads)
 spmm_dot_kernel(const int32_t* __restrict__ cols, const T* __restrict__ vals,
@@ -225,6 +233,145 @@ int launch_spmm(const void* cols, const void* vals, const void* z,
   return (int)cudaGetLastError();
 }
 
+// Blocks of the rows kernel an SM can hold: its registers are capped to
+// fit them (__launch_bounds__), and the wrapper's grid is this many blocks
+// an SM (spmv_dot.py rows_grid; the A/B is in PERF.md).
+__host__ __device__ constexpr int rows_blocks_per_sm(int g) {
+  return g <= 8 ? 5 : 3;
+}
+
+__host__ __device__ constexpr int group_of(int w) {
+  return w <= 4 ? 4 : w <= 8 ? 8 : 16;
+}
+
+// The rows variant for ELL width W (4, 8, 12 or 16; G = group_of(W)
+// virtual lanes): a thread owns a row, a warp 32 * P consecutive rows at a
+// time (P = row_passes<G>(), so that a warp holds whole virtual blocks),
+// the grid's warps striding over them.  Every lane of a warp runs the loop
+// the same number of times, since vblock_sum shuffles; rows past `rows`
+// add +0 to pap, as the group kernels' idle threads do.  Lane j of every
+// vector sits at row * sr + j * sl; kUnit: sr == 1.  The row's gathers go
+// out in two waves (row_dot_halves), and p' and y are stored with
+// streaming stores (__stcs): both let five blocks share an SM.
+template <typename T, int W, bool kFold, bool kUnit>
+__global__ void __launch_bounds__(repro::kThreads,
+                                  rows_blocks_per_sm(group_of(W)))
+spmv_dot_rows_kernel(const int32_t* __restrict__ cols,
+                     const T* __restrict__ vals, const T* __restrict__ z,
+                     const T* __restrict__ p, const T* __restrict__ beta,
+                     T* __restrict__ pn, T* __restrict__ y,
+                     T* __restrict__ partials, int64_t rows,
+                     int64_t nblocks, int k, int64_t sr, int64_t sl) {
+  constexpr int G = group_of(W);
+  constexpr int P = repro::row_passes<G>();
+  constexpr int R = repro::kThreads / G;       // rows of a virtual block
+  constexpr int kWarps = repro::kThreads >> 5;
+  const int lane = threadIdx.x & 31;
+  const int64_t units = (rows + 32 * P - 1) / (32 * P);
+  const int64_t stride = (int64_t)gridDim.x * kWarps;
+  for (int64_t u = (int64_t)blockIdx.x * kWarps + (threadIdx.x >> 5);
+       u < units; u += stride) {
+    const int64_t base = u * 32 * P;
+    int c[P][G];
+    T v[P][G];
+#pragma unroll
+    for (int q = 0; q < P; ++q) {
+      const int64_t r = base + 32 * q + lane;
+      if (r < rows)
+        repro::load_row<T, G>(cols + r * W, vals + r * W, W, c[q], v[q]);
+    }
+    for (int j = 0; j < k; ++j) {
+      const T bj = kFold ? beta[j] : T(0);
+      const T* zj = z + j * sl;
+      const T* pj = kFold ? p + j * sl : nullptr;
+      T contrib[P];
+#pragma unroll
+      for (int q = 0; q < P; ++q) {
+        const int64_t r = base + 32 * q + lane;
+        contrib[q] = T(0);
+        if (r < rows) {
+          const T acc = repro::row_dot_halves<T, G>(c[q], v[q], W, [=](int col) {
+            const int64_t o = kUnit ? (int64_t)col : (int64_t)col * sr;
+            if constexpr (kFold)
+              return repro::fold(__ldg(zj + o), bj, __ldg(pj + o));
+            else
+              return __ldg(zj + o);
+          });
+          const int64_t o = kUnit ? r : r * sr;
+          const T pr = kFold ? repro::fold(zj[o], bj, pj[o]) : zj[o];
+          if (kFold) __stcs(pn + o + j * sl, pr);
+          __stcs(y + o + j * sl, acc);
+          contrib[q] = repro::mul_rn(pr, acc);
+        }
+      }
+      const T part = repro::vblock_sum<T, G>(contrib);
+      if (lane % R == 0) {
+        const int64_t b = (base + lane) / R;
+        if (b < nblocks) partials[j * nblocks + b] = part;
+      }
+    }
+  }
+}
+
+// sr == 1 (the solver layout, the 1-D calls) takes the kernel whose
+// gathers index the lane's vector with the column itself; a second launch
+// of k blocks sums each lane's partials.
+template <typename T, int W, bool kFold>
+int start_rows(const void* cols, const void* vals, const void* z,
+               const void* p, const void* beta, void* pn, void* y,
+               void* partials, void* pap, int64_t rows, int64_t nblocks,
+               int32_t k, int64_t sr, int64_t sl, int32_t grid,
+               cudaStream_t s) {
+  constexpr int64_t rows_per_block = repro::kThreads / group_of(W);
+  if (nblocks != (rows + rows_per_block - 1) / rows_per_block)
+    return (int)cudaErrorInvalidValue;
+  auto kernel = sr == 1 ? spmv_dot_rows_kernel<T, W, kFold, true>
+                        : spmv_dot_rows_kernel<T, W, kFold, false>;
+  kernel<<<(unsigned)grid, repro::kThreads, 0, s>>>(
+      (const int32_t*)cols, (const T*)vals, (const T*)z, (const T*)p,
+      (const T*)beta, (T*)pn, (T*)y, (T*)partials, rows, nblocks, k, sr, sl);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  repro::sum_partials_kernel<T><<<(unsigned)k, repro::kFinalThreads, 0, s>>>(
+      (const T*)partials, nblocks, (T*)pap);
+  return (int)cudaGetLastError();
+}
+
+template <typename T, bool kFold>
+int launch_rows(const void* cols, const void* vals, const void* z,
+                const void* p, const void* beta, void* pn, void* y,
+                void* partials, void* pap, int64_t rows, int32_t w,
+                int64_t nblocks, int32_t k, int64_t sr, int64_t sl,
+                int32_t grid, cudaStream_t s) {
+#define WIDTH(W)                                                             \
+  start_rows<T, W, kFold>(cols, vals, z, p, beta, pn, y, partials, pap,      \
+                          rows, nblocks, k, sr, sl, grid, s)
+  switch (w) {
+    case 4: return WIDTH(4);
+    case 8: return WIDTH(8);
+    case 12: return WIDTH(12);
+    default: return WIDTH(16);
+  }
+#undef WIDTH
+}
+
+template <typename T>
+int launch_rows_any(const void* cols, const void* vals, const void* z,
+                    const void* p, const void* beta, void* pn, void* y,
+                    void* partials, void* pap, int64_t rows, int32_t w,
+                    int64_t nblocks, int32_t k, int64_t sr, int64_t sl,
+                    int32_t grid, int32_t fold, void* stream) {
+  if (rows <= 0 || w <= 0 || w > 16 || w % 4 || k <= 0 || grid <= 0 ||
+      sr < 0 || sl < 0 || ((uintptr_t)cols | (uintptr_t)vals) % 16)
+    return (int)cudaErrorInvalidValue;
+  auto s = (cudaStream_t)stream;
+  return fold ? launch_rows<T, true>(cols, vals, z, p, beta, pn, y, partials,
+                                     pap, rows, w, nblocks, k, sr, sl, grid, s)
+              : launch_rows<T, false>(cols, vals, z, nullptr, nullptr, nullptr,
+                                      y, partials, pap, rows, w, nblocks, k,
+                                      sr, sl, grid, s);
+}
+
 }  // namespace
 
 extern "C" int repro_ell_spmv_pfold_dot_f32(
@@ -297,4 +444,27 @@ extern "C" int repro_ell_spmm_dot_f64(
   return launch_spmm<double, false>(cols, vals, x, nullptr, nullptr, nullptr,
                                     y, partials, pap, rows, w, group, nblocks,
                                     k, sr, sl, stream);
+}
+
+// The rows variant of all four: fold 1 for the p-fold pair (k = 1 and
+// sr = 1 for ell_spmv_pfold_dot), 0 for the dot twins (p, beta and pn
+// unused); `grid` blocks (spmv_dot.py rows_grid).
+extern "C" int repro_spmv_dot_rows_f32(
+    const void* cols, const void* vals, const void* z, const void* p,
+    const void* beta, void* pn, void* y, void* partials, void* pap,
+    int64_t rows, int32_t w, int64_t nblocks, int32_t k, int64_t sr,
+    int64_t sl, int32_t grid, int32_t fold, void* stream) {
+  return launch_rows_any<float>(cols, vals, z, p, beta, pn, y, partials, pap,
+                                rows, w, nblocks, k, sr, sl, grid, fold,
+                                stream);
+}
+
+extern "C" int repro_spmv_dot_rows_f64(
+    const void* cols, const void* vals, const void* z, const void* p,
+    const void* beta, void* pn, void* y, void* partials, void* pap,
+    int64_t rows, int32_t w, int64_t nblocks, int32_t k, int64_t sr,
+    int64_t sl, int32_t grid, int32_t fold, void* stream) {
+  return launch_rows_any<double>(cols, vals, z, p, beta, pn, y, partials,
+                                 pap, rows, w, nblocks, k, sr, sl, grid, fold,
+                                 stream);
 }

@@ -21,7 +21,8 @@ from .ref import ell_spmm_ref as ell_spmm_plain
 from .ref import ell_spmv_ref as ell_spmv_plain
 
 __all__ = ["ell_spmv", "ell_spmv_plain", "ell_spmm", "ell_spmm_plain",
-           "group_size", "spmv_variant", "spmv_grid", "SPMV_VARIANTS"]
+           "group_size", "spmv_variant", "spmv_grid", "pick_variant",
+           "SPMV_VARIANTS"]
 
 # "rows": a thread a row, 16-byte streaming loads (W a multiple of 4, at
 # most 16, 16-byte aligned cols and vals); "group": G = group_size(W) lanes
@@ -57,6 +58,25 @@ def spmv_grid(rows: int, sms: int = 132, itemsize: int = 8) -> int:
     return need
 
 
+def pick_variant(name: str, cols: torch.Tensor, vals: torch.Tensor,
+                 variant: str | None) -> str:
+    """The variant a rows-or-group wrapper (``ell_spmv`` and the
+    ``spmv_dot`` kernels) launches: :func:`spmv_variant` of the width and
+    the 16-byte alignment of ``cols`` and ``vals``, or ``variant`` if one
+    is forced; a forced "rows" on an operand it cannot take raises."""
+    w = cols.shape[1]
+    aligned = (cols.data_ptr() | vals.data_ptr()) % 16 == 0
+    if variant is None:
+        return spmv_variant(w, aligned)
+    if variant not in SPMV_VARIANTS:
+        raise ValueError(f"{name}: variant {variant!r} not in {SPMV_VARIANTS}")
+    if variant == "rows" and spmv_variant(w, aligned) != "rows":
+        raise ValueError(f"{name}: the rows variant takes W a multiple of 4 "
+                         f"up to 16 and 16-byte aligned cols and vals; got "
+                         f"W = {w}")
+    return variant
+
+
 def ell_spmv(cols: torch.Tensor, vals: torch.Tensor, x: torch.Tensor,
              variant: str | None = None) -> torch.Tensor:
     """y = A @ x on the card.  ``cols`` (rows_p, W) int32 and ``vals``
@@ -76,11 +96,7 @@ def ell_spmv(cols: torch.Tensor, vals: torch.Tensor, x: torch.Tensor,
     rows, w = cols.shape
     if rows == 0 or w == 0 or x.numel() == 0:
         raise ValueError("ell_spmv: empty operator")
-    aligned = (cols.data_ptr() | vals.data_ptr()) % 16 == 0
-    if variant is None:
-        variant = spmv_variant(w, aligned)
-    if variant not in SPMV_VARIANTS:
-        raise ValueError(f"ell_spmv: variant {variant!r} not in {SPMV_VARIANTS}")
+    variant = pick_variant("ell_spmv", cols, vals, variant)
     y = torch.empty(rows, dtype=vals.dtype, device=vals.device)
     stream = build.stream_handle(vals.device)
     if variant == "group":
@@ -88,10 +104,6 @@ def ell_spmv(cols: torch.Tensor, vals: torch.Tensor, x: torch.Tensor,
         err = fn(cols.data_ptr(), vals.data_ptr(), x.data_ptr(), y.data_ptr(),
                  rows, w, group_size(w), stream)
     else:
-        if spmv_variant(w, aligned) != "rows":
-            raise ValueError(f"ell_spmv: the rows variant takes W a multiple "
-                             f"of 4 up to 16 and 16-byte aligned cols and "
-                             f"vals; got W = {w}")
         sms = torch.cuda.get_device_properties(vals.device).multi_processor_count
         fn = build.entry("repro_ell_spmv_rows", vals.dtype)
         err = fn(cols.data_ptr(), vals.data_ptr(), x.data_ptr(), y.data_ptr(),

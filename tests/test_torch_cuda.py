@@ -795,3 +795,80 @@ def test_sptrsv_cluster_needs_its_own_pack(cuda, case):
         torch.cuda.synchronize()
         _close((x, pp.reshape(1)), (want[0], want[1].reshape(1)),
                torch.float64)
+
+
+def _spmv_dot_calls(cols, vals, vec, k, dtype, cuda):
+    """The four spmv_dot wrappers on one operator, as functions of the
+    variant: the p-fold pair (1-D and k lanes) and the dot twins (1-D and
+    the JAX layout, row-major and as the transposed solver view)."""
+    z, p = vec(), vec()
+    zs, ps = _lanes(vec, k), _lanes(vec, k)
+    beta = torch.tensor(0.37, dtype=dtype, device=cuda)
+    betas = torch.linspace(0.0, 0.9, k, dtype=dtype, device=cuda)
+    xj = zs.T.contiguous()
+    return {
+        "ell_spmv_pfold_dot": lambda c, v, var: spmv_dot.ell_spmv_pfold_dot(
+            c, v, z, p, beta, variant=var),
+        "ell_spmm_pfold_dot": lambda c, v, var: spmv_dot.ell_spmm_pfold_dot(
+            c, v, zs, ps, betas, variant=var),
+        "ell_spmv_dot": lambda c, v, var: spmv_dot.ell_spmv_dot(
+            c, v, z, variant=var),
+        "ell_spmm_dot": lambda c, v, var: spmv_dot.ell_spmm_dot(
+            c, v, xj, variant=var),
+        "ell_spmm_dot view": lambda c, v, var: spmv_dot.ell_spmm_dot(
+            c, v, zs.T, variant=var),
+    }
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+@pytest.mark.parametrize("rows,width,k", SPMV_VARIANT_SHAPES + [(5000, 4, 4),
+                                                                (1 << 16, 16, 9)])
+def test_spmv_dot_variants_bitwise(cuda, rows, width, k, dtype):
+    """Every spmv_dot wrapper gives the same bits in every output under
+    each variant the width admits: the kept one, the first design
+    (variant="group") and, where W is a multiple of 4 up to 16, "rows";
+    values off a 16-byte boundary take the group kernel by default and a
+    forced "rows" on them, or on a width it does not take, raises."""
+    cols, vals, vec = _operator(rows, width, k, dtype, rows + 3 * width, cuda)
+    rows_ok = ell_spmv.spmv_variant(width) == "rows"
+    off = torch.empty(rows * width + 1, dtype=dtype, device=cuda)
+    moved = off[1:].view(rows, width)
+    moved.copy_(vals)
+    for name, call in _spmv_dot_calls(cols, vals, vec, 5, dtype, cuda).items():
+        first = call(cols, vals, "group")
+        runs = {"default": call(cols, vals, None),
+                "second launch": call(cols, vals, None),
+                "misaligned, default": call(cols, moved, None)}
+        if rows_ok:
+            runs["rows"] = call(cols, vals, "rows")
+            with pytest.raises(ValueError, match="aligned"):
+                call(cols, moved, "rows")
+        else:
+            with pytest.raises(ValueError, match="multiple of 4"):
+                call(cols, vals, "rows")
+        for label, got in runs.items():
+            for i, (g, f) in enumerate(zip(got, first)):
+                assert torch.equal(g, f), (name, label, i)
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+@pytest.mark.parametrize("rows,width,nnz", [(4099, 8, 7), (1000, 16, 13),
+                                            (1001, 4, 4), (777, 33, 20)])
+def test_spmm_pfold_lanes_at_k16(cuda, rows, width, nnz, dtype):
+    """k = 16 (two chunks of the group kernel, one lane loop of the rows
+    kernel): lane j of every output equals the k = 1 call and the 1-D
+    kernel on lane j bit for bit, and pap is within the tolerance of the
+    plain version."""
+    cols, vals, vec = _operator(rows, width, nnz, dtype, rows + 16, cuda)
+    k = 16
+    z, p = _lanes(vec, k), _lanes(vec, k)
+    beta = torch.linspace(0.0, 0.9, k, dtype=dtype, device=cuda)
+    wide = spmv_dot.ell_spmm_pfold_dot(cols, vals, z, p, beta)
+    _close(wide, spmv_dot.ell_spmm_pfold_dot_plain(cols, vals, z, p, beta), dtype)
+    for j in range(k):
+        s = slice(j, j + 1)
+        one = spmv_dot.ell_spmm_pfold_dot(cols, vals, z[s], p[s], beta[s])
+        flat = spmv_dot.ell_spmv_pfold_dot(cols, vals, z[j], p[j], beta[j])
+        for i in range(3):
+            assert torch.equal(wide[i][s], one[i]), (j, i)
+            assert torch.equal(wide[i][j].reshape(-1), flat[i].reshape(-1)), (j, i)

@@ -1,5 +1,5 @@
-"""The pure-Python parts of the redesigned ``ell_spmv`` and
-``sptrsv_solve_dot`` kernels, on the CPU.
+"""The pure-Python parts of the redesigned ``ell_spmv``,
+``sptrsv_solve_dot`` and ``spmv_dot`` kernels, on the CPU.
 
 Each kernel has two variants that the wrapper picks from the operands'
 shape and alignment alone: ``ell_spmv.spmv_variant`` (the ELL width) and
@@ -17,6 +17,13 @@ The row variants of ``ell_spmv`` fold a row's virtual lanes in registers
 where the group variant shuffles between lanes; a numpy model of both sums
 shows they are the same bits, which the card tests then check on the
 kernels themselves (``tests/test_torch_cuda.py``).
+
+The four ``spmv_dot`` wrappers pick their variant with ``ell_spmv``'s rule
+(``pick_variant``) and launch the rows kernel on ``spmv_dot.rows_grid``.
+Their pap sums each lane's rows in the first design's thread blocks; a
+numpy model of that design's ``block_sum`` and of the rows kernel's
+``vblock_sum`` (shuffles within a warp that owns whole blocks) shows the
+two give the same partials bit for bit.
 """
 
 import numpy as np
@@ -30,7 +37,7 @@ from repro_torch.core.formats import csr_from_scipy
 from repro_torch.core.levels import build_schedule
 from repro_torch.core.precond import ic0
 from repro_torch.data.matrices import laplacian_2d
-from repro_torch.kernels import ell_spmv, ops, sptrsv
+from repro_torch.kernels import ell_spmv, ops, spmv_dot, sptrsv
 
 
 def _lower(n, density, seed):
@@ -121,6 +128,164 @@ def test_register_fold_is_the_butterfly(width, dtype):
         lanes = [dtype(p) for p in prods.astype(dtype)] + [dtype(0)] * (g - width)
         a, b = _butterfly(lanes), _folded(lanes)
         assert a.tobytes() == b.tobytes()
+
+
+def _halves(lanes):
+    """row_dot_halves: the first half's and the second half's products
+    added pairwise, then the fold over the first half (common.cuh)."""
+    h = len(lanes) // 2
+    return _folded([a + b for a, b in zip(lanes[:h], lanes[h:])])
+
+
+@pytest.mark.parametrize("dtype", [np.float64, np.float32])
+@pytest.mark.parametrize("width", [4, 8, 12, 16])
+def test_halves_fold_is_the_butterfly(width, dtype):
+    rng = np.random.default_rng(100 + width)
+    g = ell_spmv.group_size(width)
+    for _ in range(200):
+        prods = (rng.standard_normal(width) * 10.0 ** rng.integers(-8, 8, width))
+        lanes = [dtype(p) for p in prods.astype(dtype)] + [dtype(0)] * (g - width)
+        assert _butterfly(lanes).tobytes() == _halves(lanes).tobytes()
+
+
+# -- spmv_dot -------------------------------------------------------------
+
+SPMV_DOT = ["ell_spmv_pfold_dot", "ell_spmm_pfold_dot", "ell_spmv_dot",
+            "ell_spmm_dot"]
+
+
+@pytest.mark.parametrize("name", SPMV_DOT)
+@pytest.mark.parametrize("width", [4, 8, 12, 16, 24, 264])
+def test_spmv_dot_variant_follows_the_ell_spmv_rule(width, name):
+    """The spmv_dot wrappers take ell_spmv's rule: rows for W a multiple of
+    4 up to 16 with 16-byte aligned cols and vals, else group; a forced
+    variant is honoured where the operands admit it and raises where they
+    do not."""
+    cols = torch.zeros(64, width, dtype=torch.int32)
+    vals = torch.zeros(64, width, dtype=torch.float64)
+    moved = torch.zeros(64 * width + 1, dtype=torch.float64)[1:].view(64, width)
+    assert (cols.data_ptr() | vals.data_ptr()) % 16 == 0
+    rows_ok = width % 4 == 0 and width <= 16
+    want = "rows" if rows_ok else "group"
+    assert ell_spmv.pick_variant(name, cols, vals, None) == want
+    assert want == ell_spmv.spmv_variant(width)
+    assert ell_spmv.pick_variant(name, cols, vals, "group") == "group"
+    assert ell_spmv.pick_variant(name, cols, moved, None) == "group"
+    if rows_ok:
+        assert ell_spmv.pick_variant(name, cols, vals, "rows") == "rows"
+    else:
+        with pytest.raises(ValueError, match=f"{name}: the rows variant"):
+            ell_spmv.pick_variant(name, cols, vals, "rows")
+    with pytest.raises(ValueError, match="aligned"):
+        ell_spmv.pick_variant(name, cols, moved, "rows")
+    with pytest.raises(ValueError, match="not in"):
+        ell_spmv.pick_variant(name, cols, vals, "bulk")
+
+
+@pytest.mark.parametrize("width", [4, 8, 12, 16])
+@pytest.mark.parametrize("rows", [1, 255, 256, 257, 511, 513, 5000, 1 << 20])
+def test_spmv_dot_rows_grid_covers_every_row(rows, width):
+    """The rows kernel's warps stride over units of 32 rows (64 at W = 4,
+    a whole block of the first design): the grid is the blocks every SM
+    holds (5 at W <= 8, 3 at W = 16), never more than the rows need, and
+    every unit has a warp."""
+    g = ell_spmv.group_size(width)
+    unit = 64 if g == 4 else 32
+    units = -(-rows // unit)
+    for sms in (1, 7, 132):
+        grid = spmv_dot.rows_grid(rows, width, sms)
+        assert 1 <= grid <= {4: 5, 8: 5, 16: 3}[g] * sms
+        assert grid <= max(-(-units // 8), 1)
+        assert grid == spmv_dot.rows_grid(rows, width, sms)
+        if rows <= 5000:
+            warps = grid * 8
+            assert {u % warps for u in range(units)} <= set(range(warps))
+            assert all(u < units for u in range(min(warps, units)))
+    assert spmv_dot.rows_grid(1 << 20, width) == {4: 5, 8: 5, 16: 3}[g] * 132
+    # the partials do not depend on the variant: the first design's blocks
+    assert spmv_dot.pap_blocks(rows, width) == -(-rows // (256 // g))
+
+
+def _shfl_down(v, off):
+    """__shfl_down_sync over a warp: lane l reads lane l + off, or keeps its
+    own value where l + off is past the warp."""
+    out = v.copy()
+    out[: 32 - off] = v[off:]
+    return out
+
+
+def _warp_sum(v):
+    for off in (16, 8, 4, 2, 1):
+        v = v + _shfl_down(v, off)
+    return v[0]
+
+
+def _first_design_partials(contrib, g):
+    """repro::block_sum over the first design's blocks of 256 threads:
+    block b's row i in thread i * g (+0 in the others and past the rows),
+    each warp's shfl_down tree, then the 8 warp sums in warp order."""
+    r = 256 // g
+    nblocks = -(-len(contrib) // r)
+    out = np.empty(nblocks)
+    for b in range(nblocks):
+        threads = np.zeros(256)
+        rows = contrib[b * r:(b + 1) * r]
+        threads[np.arange(len(rows)) * g] = rows
+        sh = np.zeros(32)
+        sh[:8] = [_warp_sum(threads[32 * w:32 * w + 32]) for w in range(8)]
+        out[b] = _warp_sum(sh)
+    return out
+
+
+def _rows_design_partials(contrib, g):
+    """repro::vblock_sum: a warp owns 32 rows a pass (two passes at G = 4),
+    lane l row base + 32q + l (+0 past the rows): each pass folds its
+    virtual warps of M = 32 / G rows (shfl_down M/2 .. 1) and adds +0,
+    then the 8 virtual-warp sums fold in lanes M apart (the two passes
+    first at G = 4); lanes l % R == 0 hold the partials."""
+    m, passes, r = 32 // g, (2 if g == 4 else 1), 256 // g
+    unit = 32 * passes
+    nblocks = -(-len(contrib) // r)
+    padded = np.zeros(-(-len(contrib) // unit) * unit)
+    padded[: len(contrib)] = contrib
+    out = np.full(nblocks, np.nan)
+    for base in range(0, len(padded), unit):
+        s = []
+        for q in range(passes):
+            v = padded[base + 32 * q: base + 32 * q + 32].copy()
+            off = m // 2
+            while off:
+                v = v + _shfl_down(v, off)
+                off //= 2
+            s.append(v + 0.0)
+        t = s[0] + s[1] if passes == 2 else s[0]
+        off = (2 if passes == 2 else 4) * m
+        while off >= m:
+            t = t + _shfl_down(t, off)
+            off //= 2
+        for lane in range(0, 32, min(r, 32)):
+            b = (base + lane) // r
+            if b < nblocks:
+                out[b] = t[lane]
+    return out
+
+
+@pytest.mark.parametrize("g", [4, 8, 16])
+@pytest.mark.parametrize("rows", [1, 15, 16, 31, 33, 64, 100, 257, 1000])
+def test_pap_partials_equal_the_first_design(rows, g):
+    """The rows kernel's pap partials are the first design's bit for bit,
+    over random float64 contributions of mixed magnitudes, signed zeros
+    and ragged row counts."""
+    rng = np.random.default_rng(rows * 17 + g)
+    for trial in range(20):
+        c = rng.standard_normal(rows) * 10.0 ** rng.integers(-12, 12, rows)
+        if trial % 4 == 1:
+            c[rng.random(rows) < 0.3] = -0.0
+        if trial % 4 == 2:
+            c[:] = -0.0
+        want = _first_design_partials(c, g)
+        got = _rows_design_partials(c, g)
+        assert want.tobytes() == got.tobytes()
 
 
 # -- sptrsv_solve_dot --------------------------------------------------------
