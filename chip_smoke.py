@@ -131,7 +131,14 @@ prints no result line):
                the true residual <= 1e-7, or stagnated with the unguarded
                solve reaching the tolerance); the reference substrate the
                same status within 1% of the iterations; us per iteration
-               and wall beside pcg_tol's from this run.  Then the
+               and wall beside pcg_tol's from this run.  Then the same
+               solve at k = 8 (``B = X_true A^T`` as in the batched main
+               path), counts zeroed just before and read just after:
+               ell_spmm max(iters) + 2 times and no other kernel; lanes 0
+               and 5 solved again as k = 1 plans end with the same count,
+               status and bad_iter and a bitwise-equal trace; lane 0 ends
+               as the one-RHS pipelined solve did, within 1% of its
+               iterations.  Then the
                ``kernels.ops`` API at the main-path shapes, counts zeroed
                just before and read just after: ell_spmv_dot, ell_spmm_dot
                (k = 8), axpy_dot once each, and the level-by-level solve
@@ -182,7 +189,17 @@ prints no result line):
                function (add, product, dot), with the byte bound; P', Y
                and pap bitwise the first design's, every lane bitwise the
                k = 1 call and the 1-D kernel on that lane, a second launch
-               bitwise equal.
+               bitwise equal.  Phase 5i, the batched gathers: bcsr_spmm at
+               lap2d_1024's 8 x 8 blocks, R = 1, 2, 4, 8 and 16, f64 and
+               f32, the first design (variant="first") against each new
+               variant, torch's sparse BSR @ dense beside them; ell_spmm
+               at 1,048,576 x 8 (f64, f32) and the skewed 2^20 ELL
+               (W = 264), k = 1, 2, 4, 8 and 16, the first design
+               (variant="group") against the kept variant, torch's CSR @
+               dense (n, k) beside them; each timed twice in mirrored
+               order, with the byte bound; Y bitwise the first design's, a
+               second launch bitwise equal, every lane bitwise the
+               one-lane call on that lane (and ell_spmv's y).
 
 The last three lines are the kernels JSON, the card's
 ``nvidia-smi --query-gpu=name,power.limit`` line, and the result JSON.
@@ -620,6 +637,113 @@ def pfold_ab_cell(cols, vals, m, gen, label: str) -> dict:
     return out
 
 
+def lanes_bitwise(one_lane, got_lane, lanes: int, what: str) -> None:
+    """For every lane j: the one-lane call ``one_lane(j)`` equals lane j of
+    a multi-lane call's result, ``got_lane(j)``, bit for bit."""
+    import torch
+
+    for j in range(lanes):
+        if not torch.equal(one_lane(j), got_lane(j)):
+            raise AssertionError(f"5i {what}: lane {j} differs from its "
+                                 "one-lane call")
+
+
+def timed_library(fn) -> list:
+    """A library call's time twice (CUDA-graph replays, else eager where
+    the call refuses capture): the yardstick beside an A/B cell."""
+    import torch
+
+    try:
+        return [device_ms(fn), device_ms(fn)]
+    except Exception:
+        torch.cuda.synchronize()
+        return [eager_ms(fn), eager_ms(fn)]
+
+
+def bcsr_ab_cell(bc, bl, nbc: int, lib, n: int, gen, label: str) -> dict:
+    """Phase 5i on one BCSR operator: bcsr_spmm at R = 1, 2, 4, 8 and 16,
+    the first slice's design (variant="first") against each new variant,
+    each timed twice in mirrored order, torch's BSR @ dense beside them.
+    Raises unless every variant's Y equals the first design's bit for
+    bit, a second launch repeats it, and every lane equals the one-lane
+    call on that lane."""
+    import torch
+    from repro_torch.kernels import bcsr_spmm
+
+    nbr, w, bm, bn = bl.shape
+    e = bl.element_size()
+    out = {"kept": None}
+    for r in (1, 2, 4, 8, 16):
+        X = torch.randn(r, nbc * bn, generator=gen, device="cuda",
+                        dtype=bl.dtype).T           # the solver layout
+        call = lambda X, v=None: bcsr_spmm.bcsr_spmm(bc, bl, X, nbc=nbc,
+                                                     variant=v)
+        first = call(X, "first")
+        out["kept"] = bcsr_spmm.pick_variant(
+            bm, bn, bl.dtype, bcsr_spmm.x_vectorized(X),
+            bl.data_ptr() % 16 == 0)
+        runs = {"first design": lambda X=X: call(X, "first")}
+        for v in bcsr_spmm.BCSR_VARIANTS:
+            if v == "first":
+                continue
+            got = call(X, v)
+            if not torch.equal(got, first):
+                raise AssertionError(f"5i bcsr {label} R={r} {v}: Y differs "
+                                     "from the first design's")
+            if not torch.equal(call(X, v), got):
+                raise AssertionError(f"5i bcsr {label} R={r} {v}: a second "
+                                     "launch differs")
+            lanes_bitwise(lambda j, v=v: call(X[:, j: j + 1], v),
+                          lambda j: got[:, j: j + 1], r,
+                          f"bcsr {label} R={r} {v}")
+            runs[v + (" (kept)" if v == out["kept"] else "")] = (
+                lambda X=X, v=v: call(X, v))
+        nbytes = bl.numel() * e + bc.numel() * 4 + (nbc * bn + nbr * bm) * r * e
+        Xd = X[:n].contiguous()
+        out[f"R={r}"] = dict(bound_ms=nbytes / HBM_BYTES_PER_S * 1e3,
+                             ms=mirrored_ms(runs),
+                             library_ms=timed_library(lambda: lib @ Xd))
+    return out
+
+
+def ell_spmm_ab_cell(cols, vals, m, gen, label: str) -> dict:
+    """Phase 5i on one ELL operator: ell_spmm at k = 1, 2, 4, 8 and 16, the
+    first slice's design (variant="group") against the kept variant, each
+    timed twice in mirrored order, torch's CSR @ dense (n, k) beside them.
+    Raises unless Y equals the first design's bit for bit, a second launch
+    repeats it, and every lane equals the k = 1 call and ell_spmv on that
+    lane."""
+    import torch
+    from repro_torch.kernels import ell_spmv
+
+    rows, w = cols.shape
+    e, n = vals.element_size(), m.shape[0]
+    lib = csr_on_card(m, vals.dtype)
+    kept = ell_spmv.spmv_variant(w)
+    out = {"W": w, "kept": kept}
+    for k in (1, 2, 4, 8, 16):
+        X = torch.randn(k, rows, generator=gen, device="cuda", dtype=vals.dtype)
+        call = lambda X, v=None: ell_spmv.ell_spmm(cols, vals, X, variant=v)
+        first = call(X, "group")
+        got = call(X)
+        for what, y in (("kept", got), ("second launch", call(X))):
+            if not torch.equal(y, first):
+                raise AssertionError(f"5i ell_spmm {label} k={k} {what}: Y "
+                                     "differs from the first design's")
+        lanes_bitwise(lambda j: call(X[j: j + 1]), lambda j: got[j: j + 1],
+                      k, f"ell_spmm {label} k={k}")
+        lanes_bitwise(lambda j: ell_spmv.ell_spmv(cols, vals, X[j]),
+                      lambda j: got[j], k, f"ell_spmm {label} k={k} vs ell_spmv")
+        runs = {"first design (group)": lambda X=X: call(X, "group")}
+        if kept != "group":
+            runs[f"kept ({kept})"] = lambda X=X: call(X)
+        Xt = X[:, :n].T.contiguous()
+        runs["torch CSR @ dense (n, k)"] = lambda Xt=Xt: lib @ Xt
+        out[f"k={k}"] = dict(bound_ms=(rows * w * (4 + e) + 2 * k * rows * e)
+                             / HBM_BYTES_PER_S * 1e3, ms=mirrored_ms(runs))
+    return out
+
+
 def triangular_cases():
     """Host CSR lower-triangular matrices for the sptrsv_solve_dot checks:
     random ones with a dominant diagonal (n = 1000 and 4099, two
@@ -989,11 +1113,13 @@ def solve_main(eng, a, b, x_true, label: str, method: str = "pcg_tol",
     return out
 
 
-def solve_main_batched(eng, a, B, label: str, lanes=None, **knobs):
-    """One batched ``plan(B)`` of a main-path pcg_tol solve on ``eng`` (the
-    rows ``lanes`` of B, or all); launch counts zeroed just before, read
-    just after.  Raises past MAIN_MAX_TRUE_RESIDUAL on any lane.  Returns
-    (summary, per-lane iterations, trace)."""
+def solve_main_batched(eng, a, B, label: str, lanes=None,
+                       method: str = "pcg_tol", **knobs):
+    """One batched ``plan(B)`` of a main-path tolerance solve (``method``,
+    pcg_tol by default) on ``eng`` (the rows ``lanes`` of B, or all);
+    launch counts zeroed just before, read just after.  Raises past
+    MAIN_MAX_TRUE_RESIDUAL on any lane.  Returns (summary, per-lane
+    iterations, trace)."""
     import numpy as np
     import torch
     from repro_torch.core.plan import SolveSpec
@@ -1001,7 +1127,7 @@ def solve_main_batched(eng, a, B, label: str, lanes=None, **knobs):
     from repro_torch.obs.clock import now
 
     Bk = B if lanes is None else B[list(lanes)]
-    plan = eng.plan(SolveSpec(method="pcg_tol", tol=MAIN_TOL,
+    plan = eng.plan(SolveSpec(method=method, tol=MAIN_TOL,
                               max_iters=MAIN_MAX_ITERS,
                               batch=Bk.shape[0], **knobs))
     torch.cuda.synchronize()
@@ -1015,6 +1141,7 @@ def solve_main_batched(eng, a, B, label: str, lanes=None, **knobs):
     res = (np.linalg.norm(Bk - (a @ X.T).T, axis=1)
            / np.linalg.norm(Bk, axis=1))
     out = {
+        "method": plan.spec.method,
         "substrate": plan.info["substrate"], "format": plan.info["format"],
         "k": Bk.shape[0], "iters_run": iters.tolist(), "loop_steps": steps,
         "status": plan.last_status_names,
@@ -1816,6 +1943,57 @@ def main() -> int:
         traceback.print_exc()
         failed.append("main pipelined")
 
+    # -- 4g2. the pipelined main path at k = 8: ell_spmm every step ---------
+    pipe_batched = None
+    try:
+        m = m_main
+        a = sp.csr_matrix((m.data, m.indices, m.indptr), shape=m.shape)
+        k = MAIN_BATCH
+        x_lanes = np.random.default_rng(0).standard_normal((k, m.shape[0]))
+        B = (a @ x_lanes.T).T                # lane 0 is the 1-D solve's b
+        eng = AzulEngine(m, dtype=np.float64)
+
+        def solve_pipe_batched(label: str, lanes=None):
+            return solve_main_batched(eng, a, B, f"{PIPE_METHOD} {label}",
+                                      lanes, method=PIPE_METHOD)
+
+        pipe_batched, iters_p, norms_p = solve_pipe_batched("fused")
+        lc, steps = pipe_batched["launches"], pipe_batched["loop_steps"]
+        if (lc["ell_spmm"] != steps + 2
+                or any(v for k2, v in lc.items() if k2 != "ell_spmm")):
+            raise AssertionError(f"{PIPE_METHOD} k={k} launches {lc} for "
+                                 f"{steps} loop steps")
+        for j in BATCH_LANES_AGAIN:
+            solo, it1, norms1 = solve_pipe_batched(f"lane {j} alone", (j,))
+            it = int(iters_p[j])
+            if (it1[0] != it or solo["status"][0] != pipe_batched["status"][j]
+                    or solo["bad_iter"][0] != pipe_batched["bad_iter"][j]
+                    or not np.array_equal(norms1[: it + 1, 0],
+                                          norms_p[: it + 1, j])):
+                raise AssertionError(f"{PIPE_METHOD} lane {j}: k={k} gives "
+                                     f"{it} iterations, "
+                                     f"{pipe_batched['status'][j]}; alone "
+                                     f"{solo}")
+        if pipe_main is not None and (
+                pipe_batched["status"][0] != pipe_main["status"]
+                or abs(int(iters_p[0]) - pipe_main["iters_run"])
+                > 0.01 * pipe_main["iters_run"]):
+            raise AssertionError(f"{PIPE_METHOD} lane 0: {iters_p[0]}, "
+                                 f"{pipe_batched['status'][0]}; one RHS "
+                                 f"{pipe_main['iters_run']}, "
+                                 f"{pipe_main['status']}")
+        say(f"main {PIPE_METHOD} k={k} ok: lanes {iters_p.tolist()} "
+            f"{pipe_batched['status']} (one RHS: "
+            f"{pipe_main and pipe_main['iters_run']}, "
+            f"{pipe_main and pipe_main['status']}); ell_spmm launched "
+            f"{lc['ell_spmm']} = max(iters) + 2 times; "
+            f"{pipe_batched['us_per_iter']:.1f} us per loop step, "
+            f"{pipe_batched['us_per_iter_per_rhs']:.1f} us per RHS")
+        del eng
+    except Exception:
+        traceback.print_exc()
+        failed.append("main pipelined batched")
+
     # -- 4h. the kernels.ops API at the main-path shapes ---------------------
     ops_launches = {}
     try:
@@ -1934,6 +2112,8 @@ def main() -> int:
             t_ops = flops / PEAK_FLOPS["float64"] * 1e3
             src, replaces = SOURCES[name]
             counts = launches_b if name in SOURCES_BATCHED else launches
+            if name == "ell_spmm" and pipe_batched is not None:
+                counts = pipe_batched["launches"]   # every pipelined step
             rows_out.append({
                 "name": name, "route": "cuda", "source": src,
                 "replaces": replaces, "launches": counts.get(name, 0),
@@ -2271,6 +2451,54 @@ def main() -> int:
     except Exception:
         traceback.print_exc()
         failed.append("A/B p-fold")
+
+    # -- 5i. the batched gathers: bcsr_spmm and ell_spmm, first vs redesign
+    try:
+        gen = torch.Generator(device="cuda").manual_seed(12)
+        obj = bcsr_engine()._format_obj("bcsr")
+        nbc = -(-obj.n_cols // obj.bn)
+        a = sp.csr_matrix((m_main.data, m_main.indices, m_main.indptr),
+                          shape=m_main.shape)
+        bsr = a.tobsr(blocksize=(obj.bm, obj.bn))
+        ab = {}
+        for dname in ("float64", "float32"):
+            td = getattr(torch, dname)
+            lib = torch.sparse_bsr_tensor(
+                torch.as_tensor(bsr.indptr, dtype=torch.int64),
+                torch.as_tensor(bsr.indices, dtype=torch.int64),
+                torch.as_tensor(bsr.data).to(td), size=a.shape).to("cuda")
+            ab[f"bcsr lap2d_1024 8x8 f{dname[5:]}"] = bcsr_ab_cell(
+                obj.block_cols, obj.blocks.to(td), nbc, lib, m_main.shape[0],
+                gen, dname)
+            del lib
+        eng = AzulEngine(m_main, dtype=np.float64)
+        cases = [("lap2d_1024 f64", eng.ell.cols, eng.ell.vals, m_main),
+                 ("lap2d_1024 f32", eng.ell.cols, eng.ell.vals.float(), m_main)]
+        if "eng" in skew_state:
+            se = skew_state["eng"]
+            cases.append(("skew_2^20 f64", se.ell.cols, se.ell.vals,
+                          skew_state["m"]))
+        for label, cols, vals, m in cases:
+            ab[f"ell_spmm {label}"] = ell_spmm_ab_cell(cols, vals, m, gen, label)
+        say("A/B batched gathers (ms, CUDA-graph replays, each timed twice in "
+            "mirrored order; bound = bytes / 3.35 TB/s; Y bitwise the first "
+            "design's, lanes bitwise the one-lane calls): " + json.dumps(ab))
+        for label, cell in ab.items():
+            for key, c in cell.items():
+                if not isinstance(c, dict):
+                    continue
+                kept = [v for nm, v in c["ms"].items()
+                        if "kept" in nm] or [c["ms"][next(iter(c["ms"]))]]
+                kept_ms = min(kept[0])
+                first_ms = min(next(iter(c["ms"].values())))
+                say(f"  {label} {key}: kept {cell['kept']} {kept_ms:.4f} ms "
+                    f"({100 * c['bound_ms'] / kept_ms:.0f}% of its "
+                    f"{c['bound_ms']:.4f} ms bound), first design "
+                    f"{first_ms:.4f} ms")
+        del eng
+    except Exception:
+        traceback.print_exc()
+        failed.append("A/B batched gathers")
 
     # -- 5g. sptrsv_solve_dot: every variant on every factor ----------------
     try:

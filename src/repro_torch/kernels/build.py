@@ -41,7 +41,6 @@ _I64 = ctypes.c_int64
 # C signature of every exported function: (argtypes) -> int (cudaError_t)
 _SIGNATURES = {
     "repro_ell_spmv": (_P, _P, _P, _P, _I64, _I32, _I32, _P),
-    "repro_ell_spmv_rows": (_P, _P, _P, _P, _I64, _I32, _I32, _P),
     "repro_ell_spmv_pfold_dot": (_P, _P, _P, _P, _P, _P, _P, _P, _P,
                                  _I64, _I32, _I32, _I64, _P),
     "repro_cg_update": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
@@ -57,7 +56,8 @@ _SIGNATURES = {
     "repro_sptrsv_cluster": (_P, _P, _P, _P, _P, _P, _P, _P, _P,
                              _I32, _I32, _I32, _I32, _I32, _I32, _P),
     "repro_bcsr_spmm": (_P, _P, _P, _P, _I64, _I32, _I32, _I32, _I32,
-                        _I64, _I64, _I64, _I64, _I64, _P),
+                        _I64, _I64, _I64, _I64, _I64, _I32, _I32, _I32, _I32,
+                        _P),
     "repro_ell_spmv_dot": (_P, _P, _P, _P, _P, _P, _I64, _I32, _I32, _I64,
                            _P),
     "repro_ell_spmm_dot": (_P, _P, _P, _P, _P, _P, _I64, _I32, _I32, _I64,
@@ -65,6 +65,7 @@ _SIGNATURES = {
     "repro_spmv_dot_rows": (_P, _P, _P, _P, _P, _P, _P, _P, _P,
                             _I64, _I32, _I64, _I32, _I64, _I64, _I32, _I32,
                             _P),
+    "repro_ell_spmm_rows": (_P, _P, _P, _P, _I64, _I32, _I32, _I64, _I32, _P),
     "repro_axpy_dot": (_P, _P, _P, _P, _P, _P, _I64, _I64, _P),
     "repro_sptrsv_level_step": (_P, _P, _P, _P, _P, _P, _P, _I32, _I64, _I32,
                                 _I64, _P),

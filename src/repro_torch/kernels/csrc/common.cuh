@@ -128,28 +128,11 @@ __device__ __forceinline__ void load_row(const int32_t* cols, const T* vals,
 // with the gathered value gather(c[g]), lanes g >= W stay 0, and the lanes
 // are folded in the pairs and the order of group_sum's xor butterfly (lane
 // 0's view: s[g] + s[g + off], offsets G/2 down to 1).  The result is the
-// bits a group of G lanes running group_sum leaves in its lane 0.  Every
-// gather is issued before any add.
-template <typename T, int G, typename Gather>
-__device__ __forceinline__ T row_dot(const int (&c)[G], const T (&v)[G],
-                                     int w, Gather gather) {
-  T s[G];
-#pragma unroll
-  for (int g = 0; g < G; ++g) s[g] = g < w ? gather(c[g]) : T(0);
-#pragma unroll
-  for (int g = 0; g < G; ++g) s[g] = g < w ? fma_rn(v[g], s[g], T(0)) : T(0);
-#pragma unroll
-  for (int off = G >> 1; off > 0; off >>= 1) {
-#pragma unroll
-    for (int g = 0; g < off; ++g) s[g] = add_rn(s[g], s[g + off]);
-  }
-  return s[0];
-}
-
-// row_dot with the row's gathers in two waves, slots g < G/2 and then the
-// rest: the butterfly's first stage pairs exactly these, s[g] + s[g +
-// G/2], so the bits are row_dot's, while the gathers in flight need half
-// the registers (more blocks share an SM).
+// bits a group of G lanes running group_sum leaves in its lane 0.  The
+// gathers go out in two waves, slots g < G/2 and then the rest, each wave
+// before its adds: the butterfly's first stage pairs exactly these, s[g] +
+// s[g + G/2], while the gathers in flight need half the registers (more
+// blocks share an SM).
 template <typename T, int G, typename Gather>
 __device__ __forceinline__ T row_dot_halves(const int (&c)[G], const T (&v)[G],
                                             int w, Gather gather) {
@@ -172,16 +155,6 @@ __device__ __forceinline__ T row_dot_halves(const int (&c)[G], const T (&v)[G],
     for (int g = 0; g < off; ++g) a[g] = add_rn(a[g], a[g + off]);
   }
   return a[0];
-}
-
-// row_dot of the row at cols/vals (global memory) against x.
-template <typename T, int G>
-__device__ __forceinline__ T row_sum(const int32_t* cols, const T* vals,
-                                     const T* __restrict__ x, int w) {
-  int c[G];
-  T v[G];
-  load_row<T, G>(cols, vals, w, c, v);
-  return row_dot<T, G>(c, v, w, [x](int col) { return __ldg(x + col); });
 }
 
 // 32-row passes a warp of a rows kernel makes at a time, so that it holds

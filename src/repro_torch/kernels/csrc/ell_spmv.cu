@@ -19,27 +19,26 @@
 // down to 1).  So y is the same bits whichever variant ran, and equals
 // lane 0 of ell_spmm (which runs that sum per lane) bit for bit.
 //
-// Two variants of the same sum:
-//   * rows, the wrapper's choice for W a multiple of 4 up to 16 (the
-//     engine's widths 8 and 16) with 16-byte aligned cols and vals
-//     (ell_spmv.py spmv_variant).  A thread owns whole rows.  It reads a
-//     row's cols and vals with 16-byte streaming loads (__ldcs: evict-first,
-//     so the 100 MB matrix stream does not push the 8.4 MB x out of the
-//     50 MB L2), issues all of the row's x gathers (__ldg) before any add,
-//     and folds the virtual lanes in registers in the butterfly's pairs and
-//     order (repro::row_sum).  Blocks stride over the rows: in float64 a
-//     persistent grid of two blocks an SM, in float32 a row a thread
-//     (ell_spmv.py spmv_grid; the A/B is in PERF.md).
-//   * group, the wrapper's choice for every other operand (the wide skewed
-//     ELL, W = 264, among them), and the design of the first slice: a row
-//     gets G consecutive lanes; lane g reads slots g, g + G, ..., so a warp
-//     reads 32 consecutive slots of cols and vals a step, and the group
+// Two variants of the same sum (ell_spmv.py pick_variant, from the width
+// and the operands' alignment, never from a launch):
+//   * rows, for W a multiple of 4 up to 16 (the engine's widths 8 and 16)
+//     with 16-byte aligned cols and vals: the k = 1 call of ell_spmm's rows
+//     kernel (spmv_dot.cu spmv_dot_rows_kernel with the dot compiled out,
+//     below).  A thread owns a row, reads its cols and vals with 16-byte
+//     streaming loads (__ldcs: evict-first, so the 100 MB matrix stream
+//     does not push the 8.4 MB x out of the 50 MB L2), issues the row's x
+//     gathers in two waves before their adds and folds the virtual lanes in
+//     registers in the butterfly's pairs and order (repro::row_dot_halves).
+//     Blocks stride over the rows on a persistent grid (ell_spmv.py
+//     rows_grid).
+//   * group, the path for every other operand (the wide skewed ELL,
+//     W = 264, among them), and the design of the first slice (this file):
+//     a row gets G consecutive lanes; lane g reads slots g, g + G, ..., so a
+//     warp reads 32 consecutive slots of cols and vals a step, and the group
 //     sums its lanes with shuffles.
 // A third design, a producer warp streaming (128, W) tiles into a
 // shared-memory ring with cp.async.bulk under mbarriers, lost the A/B to
 // rows and was removed (its times are in PERF.md).
-// The wrapper's choice is a function of the operands' shape, type and
-// alignment, never of a launch.
 
 // ell_spmm: Y = A X for k right-hand sides in the solver layout, X (k,
 // ncols) and Y (k, rows), row-major.
@@ -54,13 +53,25 @@
 // once for all k lanes, X and Y once each: at 1,048,576 x 8 with k = 8 in
 // float64, 100.7 + 67.1 + 67.1 MB, about 70 us at 3.35 TB/s.
 //
-// Design: the row groups of ell_spmv_kernel.  A thread loads each of its
-// slots' column and value once and applies them to every lane of its chunk
-// (K lanes in registers, K the power of two >= k, at most 8; wider
-// batches run in gridDim.y chunks).  Lane j's sum runs the same fma chain
-// and the same group shuffles as ell_spmv on lane j alone, so Y[j] does
-// not depend on k and equals ell_spmv's y bit for bit.  The group's
-// threads all hold every lane's sum; thread jj % G writes lane jj.
+// Two variants of ell_spmv's sum, lane by lane (ell_spmv.py pick_variant,
+// ell_spmv's rule), so Y[j] does not depend on k or the variant and
+// equals ell_spmv's y on lane j bit for bit:
+//   * rows, for W a multiple of 4 up to 16 with 16-byte aligned cols and
+//     vals: spmv_dot.cu's rows kernel with the fold and the dot compiled
+//     out (repro_ell_spmm_rows there; Y has its own lane stride, so X may
+//     be wider than the rows).  A thread holds its row's cols and vals in
+//     registers after one pass of 16-byte streaming loads and runs the
+//     lanes one after another (no chunk caps k: k = 16 is one launch),
+//     each lane's gathers in two waves (repro::row_dot_halves), Y stored
+//     with streaming stores, on the persistent grid of ell_spmv.py
+//     rows_grid with registers capped for five blocks an SM.
+//   * group, the first design and the path for every other operand: the
+//     row groups of ell_spmv_kernel.  A thread loads each of its slots'
+//     column and value once and applies them to every lane of its chunk
+//     (K lanes in registers, K the power of two >= k, at most 8; wider
+//     batches run in gridDim.y chunks, each reading the matrix again);
+//     the group's threads all hold every lane's sum, thread jj % G writes
+//     lane jj.  At k = 8 it reached 25% of its bound (0.281 ms).
 
 #include "common.cuh"
 
@@ -95,40 +106,6 @@ int launch(const void* cols, const void* vals, const void* x, void* y,
                        (cudaStream_t)stream>>>(
       (const int32_t*)cols, (const T*)vals, (const T*)x, (T*)y, rows, w, group);
   return (int)cudaGetLastError();
-}
-
-// The rows variant: a thread a row, the grid striding over the rows.
-template <typename T, int G>
-__global__ void __launch_bounds__(repro::kThreads)
-ell_spmv_rows_kernel(const int32_t* __restrict__ cols,
-                     const T* __restrict__ vals, const T* __restrict__ x,
-                     T* __restrict__ y, int64_t rows, int w) {
-  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
-  for (int64_t r = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; r < rows;
-       r += stride)
-    y[r] = repro::row_sum<T, G>(cols + r * w, vals + r * w, x, w);
-}
-
-// The rows variant on a grid of `blocks` blocks (ell_spmv.py spmv_grid),
-// striding over the rows.
-template <typename T, int G>
-int launch_vec(const void* cols, const void* vals, const void* x, void* y,
-               int64_t rows, int32_t w, int32_t blocks, cudaStream_t stream) {
-  ell_spmv_rows_kernel<T, G><<<(unsigned)blocks, repro::kThreads, 0, stream>>>(
-      (const int32_t*)cols, (const T*)vals, (const T*)x, (T*)y, rows, w);
-  return (int)cudaGetLastError();
-}
-
-template <typename T>
-int launch_rows(const void* cols, const void* vals, const void* x, void* y,
-                int64_t rows, int32_t w, int32_t blocks, void* stream) {
-  if (rows <= 0 || w <= 0 || w > 16 || w % 4 || blocks <= 0 ||
-      ((uintptr_t)cols | (uintptr_t)vals) % 16)
-    return (int)cudaErrorInvalidValue;
-  auto s = (cudaStream_t)stream;
-  if (w == 4) return launch_vec<T, 4>(cols, vals, x, y, rows, w, blocks, s);
-  if (w == 8) return launch_vec<T, 8>(cols, vals, x, y, rows, w, blocks, s);
-  return launch_vec<T, 16>(cols, vals, x, y, rows, w, blocks, s);
 }
 
 template <typename T, int K>
@@ -217,16 +194,4 @@ extern "C" int repro_ell_spmm_f64(const void* cols, const void* vals,
                                   int64_t ldx, int32_t w, int32_t group,
                                   int32_t k, void* stream) {
   return launch_spmm<double>(cols, vals, x, y, rows, ldx, w, group, k, stream);
-}
-
-extern "C" int repro_ell_spmv_rows_f32(const void* cols, const void* vals,
-                                       const void* x, void* y, int64_t rows,
-                                       int32_t w, int32_t blocks, void* stream) {
-  return launch_rows<float>(cols, vals, x, y, rows, w, blocks, stream);
-}
-
-extern "C" int repro_ell_spmv_rows_f64(const void* cols, const void* vals,
-                                       const void* x, void* y, int64_t rows,
-                                       int32_t w, int32_t blocks, void* stream) {
-  return launch_rows<double>(cols, vals, x, y, rows, w, blocks, stream);
 }

@@ -61,7 +61,7 @@
 //     block_sum's additions with shuffles alone, no barrier.  The kernel
 //     is compiled for each W and for unit row stride; its registers are
 //     capped so that five blocks share an SM (three at W > 8), and the
-//     warps stride over the rows on that persistent grid (spmv_dot.py
+//     warps stride over the rows on that persistent grid (ell_spmv.py
 //     rows_grid).  Occupancy is what moves this kernel: uncapped, it held
 //     96 registers a thread and two blocks an SM, and ran far slower.
 //   * group, the first slice's design, for every other operand (the wide
@@ -235,7 +235,7 @@ int launch_spmm(const void* cols, const void* vals, const void* z,
 
 // Blocks of the rows kernel an SM can hold: its registers are capped to
 // fit them (__launch_bounds__), and the wrapper's grid is this many blocks
-// an SM (spmv_dot.py rows_grid; the A/B is in PERF.md).
+// an SM (ell_spmv.py rows_grid; the A/B is in PERF.md).
 __host__ __device__ constexpr int rows_blocks_per_sm(int g) {
   return g <= 8 ? 5 : 3;
 }
@@ -250,10 +250,12 @@ __host__ __device__ constexpr int group_of(int w) {
 // the grid's warps striding over them.  Every lane of a warp runs the loop
 // the same number of times, since vblock_sum shuffles; rows past `rows`
 // add +0 to pap, as the group kernels' idle threads do.  Lane j of every
-// vector sits at row * sr + j * sl; kUnit: sr == 1.  The row's gathers go
-// out in two waves (row_dot_halves), and p' and y are stored with
-// streaming stores (__stcs): both let five blocks share an SM.
-template <typename T, int W, bool kFold, bool kUnit>
+// vector sits at row * sr + j * sl, but y's lane j at row * sr + j * syl;
+// kUnit: sr == 1.  The row's gathers go out in two waves
+// (row_dot_halves), and p' and y are stored with streaming stores
+// (__stcs): both let five blocks share an SM.  kDot false compiles the
+// dot out (ell_spmm: y alone, no pap, no partials, no second launch).
+template <typename T, int W, bool kFold, bool kUnit, bool kDot = true>
 __global__ void __launch_bounds__(repro::kThreads,
                                   rows_blocks_per_sm(group_of(W)))
 spmv_dot_rows_kernel(const int32_t* __restrict__ cols,
@@ -261,7 +263,8 @@ spmv_dot_rows_kernel(const int32_t* __restrict__ cols,
                      const T* __restrict__ p, const T* __restrict__ beta,
                      T* __restrict__ pn, T* __restrict__ y,
                      T* __restrict__ partials, int64_t rows,
-                     int64_t nblocks, int k, int64_t sr, int64_t sl) {
+                     int64_t nblocks, int k, int64_t sr, int64_t sl,
+                     int64_t syl) {
   constexpr int G = group_of(W);
   constexpr int P = repro::row_passes<G>();
   constexpr int R = repro::kThreads / G;       // rows of a virtual block
@@ -298,16 +301,20 @@ spmv_dot_rows_kernel(const int32_t* __restrict__ cols,
               return __ldg(zj + o);
           });
           const int64_t o = kUnit ? r : r * sr;
-          const T pr = kFold ? repro::fold(zj[o], bj, pj[o]) : zj[o];
-          if (kFold) __stcs(pn + o + j * sl, pr);
-          __stcs(y + o + j * sl, acc);
-          contrib[q] = repro::mul_rn(pr, acc);
+          __stcs(y + o + j * syl, acc);
+          if constexpr (kDot) {
+            const T pr = kFold ? repro::fold(zj[o], bj, pj[o]) : zj[o];
+            if (kFold) __stcs(pn + o + j * sl, pr);
+            contrib[q] = repro::mul_rn(pr, acc);
+          }
         }
       }
-      const T part = repro::vblock_sum<T, G>(contrib);
-      if (lane % R == 0) {
-        const int64_t b = (base + lane) / R;
-        if (b < nblocks) partials[j * nblocks + b] = part;
+      if constexpr (kDot) {
+        const T part = repro::vblock_sum<T, G>(contrib);
+        if (lane % R == 0) {
+          const int64_t b = (base + lane) / R;
+          if (b < nblocks) partials[j * nblocks + b] = part;
+        }
       }
     }
   }
@@ -329,7 +336,8 @@ int start_rows(const void* cols, const void* vals, const void* z,
                         : spmv_dot_rows_kernel<T, W, kFold, false>;
   kernel<<<(unsigned)grid, repro::kThreads, 0, s>>>(
       (const int32_t*)cols, (const T*)vals, (const T*)z, (const T*)p,
-      (const T*)beta, (T*)pn, (T*)y, (T*)partials, rows, nblocks, k, sr, sl);
+      (const T*)beta, (T*)pn, (T*)y, (T*)partials, rows, nblocks, k, sr, sl,
+      sl);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   repro::sum_partials_kernel<T><<<(unsigned)k, repro::kFinalThreads, 0, s>>>(
@@ -372,7 +380,47 @@ int launch_rows_any(const void* cols, const void* vals, const void* z,
                                       sr, sl, grid, s);
 }
 
+// ell_spmm on the rows kernel: X (k, ldx) and Y (k, rows) row-major, the
+// dot compiled out; `grid` blocks (ell_spmv.py rows_grid).
+template <typename T>
+int launch_spmm_rows(const void* cols, const void* vals, const void* x,
+                     void* y, int64_t rows, int32_t w, int32_t k, int64_t ldx,
+                     int32_t grid, void* stream) {
+  if (rows <= 0 || w <= 0 || w > 16 || w % 4 || k <= 0 || ldx <= 0 ||
+      grid <= 0 || ((uintptr_t)cols | (uintptr_t)vals) % 16)
+    return (int)cudaErrorInvalidValue;
+#define WIDTH(W)                                                             \
+  spmv_dot_rows_kernel<T, W, false, true, false>                             \
+      <<<(unsigned)grid, repro::kThreads, 0, (cudaStream_t)stream>>>(         \
+          (const int32_t*)cols, (const T*)vals, (const T*)x, nullptr,        \
+          nullptr, nullptr, (T*)y, nullptr, rows, 0, k, 1, ldx, rows)
+  switch (w) {
+    case 4: WIDTH(4); break;
+    case 8: WIDTH(8); break;
+    case 12: WIDTH(12); break;
+    default: WIDTH(16); break;
+  }
+#undef WIDTH
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
+
+extern "C" int repro_ell_spmm_rows_f32(const void* cols, const void* vals,
+                                       const void* x, void* y, int64_t rows,
+                                       int32_t w, int32_t k, int64_t ldx,
+                                       int32_t grid, void* stream) {
+  return launch_spmm_rows<float>(cols, vals, x, y, rows, w, k, ldx, grid,
+                                 stream);
+}
+
+extern "C" int repro_ell_spmm_rows_f64(const void* cols, const void* vals,
+                                       const void* x, void* y, int64_t rows,
+                                       int32_t w, int32_t k, int64_t ldx,
+                                       int32_t grid, void* stream) {
+  return launch_spmm_rows<double>(cols, vals, x, y, rows, w, k, ldx, grid,
+                                  stream);
+}
 
 extern "C" int repro_ell_spmv_pfold_dot_f32(
     const void* cols, const void* vals, const void* z, const void* p,
@@ -448,7 +496,7 @@ extern "C" int repro_ell_spmm_dot_f64(
 
 // The rows variant of all four: fold 1 for the p-fold pair (k = 1 and
 // sr = 1 for ell_spmv_pfold_dot), 0 for the dot twins (p, beta and pn
-// unused); `grid` blocks (spmv_dot.py rows_grid).
+// unused); `grid` blocks (ell_spmv.py rows_grid).
 extern "C" int repro_spmv_dot_rows_f32(
     const void* cols, const void* vals, const void* z, const void* p,
     const void* beta, void* pn, void* y, void* partials, void* pap,

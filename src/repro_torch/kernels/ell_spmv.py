@@ -7,9 +7,9 @@ kernels are ``csrc/ell_spmv.cu``, whose header gives their bounds and
 design.  The plain PyTorch versions beside them are :func:`ell_spmv_plain`
 and :func:`ell_spmm_plain` (``ref.ell_spmv_ref``, ``ref.ell_spmm_ref``).
 
-``ell_spmv`` has two variants that compute the same bits
-(:data:`SPMV_VARIANTS`); :func:`spmv_variant` picks one from the ELL width
-and the operands' alignment.
+``ell_spmv`` and ``ell_spmm`` each have two variants that compute the
+same bits (:data:`SPMV_VARIANTS`); :func:`spmv_variant` picks one from the
+ELL width and the operands' alignment.
 """
 
 from __future__ import annotations
@@ -21,7 +21,7 @@ from .ref import ell_spmm_ref as ell_spmm_plain
 from .ref import ell_spmv_ref as ell_spmv_plain
 
 __all__ = ["ell_spmv", "ell_spmv_plain", "ell_spmm", "ell_spmm_plain",
-           "group_size", "spmv_variant", "spmv_grid", "pick_variant",
+           "group_size", "spmv_variant", "rows_grid", "pick_variant",
            "SPMV_VARIANTS"]
 
 # "rows": a thread a row, 16-byte streaming loads (W a multiple of 4, at
@@ -29,7 +29,9 @@ __all__ = ["ell_spmv", "ell_spmv_plain", "ell_spmm", "ell_spmm_plain",
 # a row, any W
 SPMV_VARIANTS = ("rows", "group")
 _THREADS = 256                   # csrc/common.cuh kThreads
-_ROWS_BLOCKS_PER_SM = 2          # the rows variant's float64 grid, per SM
+# blocks of spmv_dot.cu's rows kernel an SM holds, by group_size(W): its
+# registers are capped to fit them (csrc/spmv_dot.cu rows_blocks_per_sm)
+_ROWS_BLOCKS_PER_SM = {4: 5, 8: 5, 16: 3}
 
 
 def group_size(width: int) -> int:
@@ -46,22 +48,22 @@ def spmv_variant(width: int, aligned: bool = True) -> str:
             else "group")
 
 
-def spmv_grid(rows: int, sms: int = 132, itemsize: int = 8) -> int:
-    """Blocks the "rows" kernel launches for ``rows`` rows of
-    ``itemsize``-byte values: a persistent grid of ``_ROWS_BLOCKS_PER_SM``
-    blocks an SM in float64 and one row a thread in float32 (the fastest
-    of the A/B in PERF.md), never more than the rows need.  The kernel
+def rows_grid(rows: int, width: int, sms: int = 132) -> int:
+    """Blocks spmv_dot.cu's rows kernel launches (``ell_spmv``,
+    ``ell_spmm`` and the four ``spmv_dot`` wrappers): a persistent grid of the blocks every SM
+    holds at once (5 at W <= 8, 3 at W <= 16; the fastest of the A/B in
+    PERF.md, float64 and float32 alike), never more than the rows need (a
+    block's warps take 256 rows at a time, 512 at W = 4).  The kernel
     strides its grid over the rows, so any grid covers every row."""
-    need = max(-(-int(rows) // _THREADS), 1)
-    if itemsize == 8:
-        return min(_ROWS_BLOCKS_PER_SM * int(sms), need)
-    return need
+    g = group_size(width)
+    need = max(-(-int(rows) // (_THREADS * (2 if g == 4 else 1))), 1)
+    return min(_ROWS_BLOCKS_PER_SM[g] * int(sms), need)
 
 
 def pick_variant(name: str, cols: torch.Tensor, vals: torch.Tensor,
                  variant: str | None) -> str:
-    """The variant a rows-or-group wrapper (``ell_spmv`` and the
-    ``spmv_dot`` kernels) launches: :func:`spmv_variant` of the width and
+    """The variant a rows-or-group wrapper (``ell_spmv``, ``ell_spmm`` and
+    the ``spmv_dot`` kernels) launches: :func:`spmv_variant` of the width and
     the 16-byte alignment of ``cols`` and ``vals``, or ``variant`` if one
     is forced; a forced "rows" on an operand it cannot take raises."""
     w = cols.shape[1]
@@ -75,6 +77,18 @@ def pick_variant(name: str, cols: torch.Tensor, vals: torch.Tensor,
                          f"up to 16 and 16-byte aligned cols and vals; got "
                          f"W = {w}")
     return variant
+
+
+def _spmm_rows(cols, vals, x, y, k: int, ldx: int) -> int:
+    """One launch of spmv_dot.cu's rows kernel with the dot compiled out:
+    Y (k, rows) = A X for X (k, ldx), row-major, on :func:`rows_grid`
+    (``ell_spmv`` is its k = 1 call).  Returns the CUDA error code."""
+    rows, w = cols.shape
+    sms = torch.cuda.get_device_properties(vals.device).multi_processor_count
+    fn = build.entry("repro_ell_spmm_rows", vals.dtype)
+    return fn(cols.data_ptr(), vals.data_ptr(), x.data_ptr(), y.data_ptr(),
+              rows, w, k, ldx, rows_grid(rows, w, sms),
+              build.stream_handle(vals.device))
 
 
 def ell_spmv(cols: torch.Tensor, vals: torch.Tensor, x: torch.Tensor,
@@ -98,16 +112,12 @@ def ell_spmv(cols: torch.Tensor, vals: torch.Tensor, x: torch.Tensor,
         raise ValueError("ell_spmv: empty operator")
     variant = pick_variant("ell_spmv", cols, vals, variant)
     y = torch.empty(rows, dtype=vals.dtype, device=vals.device)
-    stream = build.stream_handle(vals.device)
     if variant == "group":
         fn = build.entry("repro_ell_spmv", vals.dtype)
         err = fn(cols.data_ptr(), vals.data_ptr(), x.data_ptr(), y.data_ptr(),
-                 rows, w, group_size(w), stream)
+                 rows, w, group_size(w), build.stream_handle(vals.device))
     else:
-        sms = torch.cuda.get_device_properties(vals.device).multi_processor_count
-        fn = build.entry("repro_ell_spmv_rows", vals.dtype)
-        err = fn(cols.data_ptr(), vals.data_ptr(), x.data_ptr(), y.data_ptr(),
-                 rows, w, spmv_grid(rows, sms, vals.element_size()), stream)
+        err = _spmm_rows(cols, vals, x, y, 1, x.numel())
     build.check(err, "ell_spmv")
     ell_spmv.launches += 1
     return y
@@ -116,12 +126,14 @@ def ell_spmv(cols: torch.Tensor, vals: torch.Tensor, x: torch.Tensor,
 ell_spmv.launches = 0
 
 
-def ell_spmm(cols: torch.Tensor, vals: torch.Tensor,
-             x: torch.Tensor) -> torch.Tensor:
+def ell_spmm(cols: torch.Tensor, vals: torch.Tensor, x: torch.Tensor,
+             variant: str | None = None) -> torch.Tensor:
     """Y = A @ X on the card for k right-hand sides in the solver layout:
     ``x`` (k, ncols) -> Y (k, rows_p), both row-major, ``cols``/``vals``
     as for :func:`ell_spmv`.  Raises for tensors that are not on one CUDA
-    device or not contiguous (a transposed view included)."""
+    device or not contiguous (a transposed view included).  ``variant``
+    as for :func:`ell_spmv`; lane j of Y does not depend on k or the
+    variant and equals :func:`ell_spmv` on lane j bit for bit."""
     if cols.dim() != 2 or cols.shape != vals.shape or x.dim() != 2:
         raise ValueError(f"ell_spmm: cols {tuple(cols.shape)}, vals "
                          f"{tuple(vals.shape)}, x {tuple(x.shape)} (k, n)")
@@ -131,11 +143,16 @@ def ell_spmm(cols: torch.Tensor, vals: torch.Tensor,
     k, ldx = x.shape
     if rows == 0 or w == 0 or k == 0 or ldx == 0:
         raise ValueError("ell_spmm: empty operator or batch")
+    variant = pick_variant("ell_spmm", cols, vals, variant)
     y = torch.empty(k, rows, dtype=vals.dtype, device=vals.device)
-    fn = build.entry("repro_ell_spmm", vals.dtype)
-    build.check(fn(cols.data_ptr(), vals.data_ptr(), x.data_ptr(),
-                   y.data_ptr(), rows, ldx, w, group_size(w), k,
-                   build.stream_handle(vals.device)), "ell_spmm")
+    if variant == "group":
+        fn = build.entry("repro_ell_spmm", vals.dtype)
+        err = fn(cols.data_ptr(), vals.data_ptr(), x.data_ptr(), y.data_ptr(),
+                 rows, ldx, w, group_size(w), k,
+                 build.stream_handle(vals.device))
+    else:
+        err = _spmm_rows(cols, vals, x, y, k, ldx)
+    build.check(err, "ell_spmm")
     ell_spmm.launches += 1
     return y
 

@@ -34,7 +34,7 @@ from __future__ import annotations
 import torch
 
 from . import build
-from .ell_spmv import group_size, pick_variant
+from .ell_spmv import group_size, pick_variant, rows_grid
 from .ref import ell_spmm_dot_ref as ell_spmm_dot_plain
 from .ref import ell_spmm_pfold_dot_ref as ell_spmm_pfold_dot_plain
 from .ref import ell_spmv_dot_ref as ell_spmv_dot_plain
@@ -46,26 +46,12 @@ __all__ = ["ell_spmv_dot", "ell_spmv_dot_plain", "ell_spmm_dot",
            "ell_spmm_pfold_dot", "ell_spmm_pfold_dot_plain"]
 
 _THREADS = 256      # csrc/common.cuh kThreads
-# blocks of the rows kernel an SM holds, by group_size(W): its registers
-# are capped to fit them (csrc/spmv_dot.cu rows_blocks_per_sm)
-_ROWS_BLOCKS_PER_SM = {4: 5, 8: 5, 16: 3}
 
 
 def pap_blocks(rows: int, width: int) -> int:
     """The partials of pap a lane: blocks of ``256 // group_size(width)``
     rows, the first design's thread blocks, under every variant."""
     return -(-int(rows) // (_THREADS // group_size(width)))
-
-
-def rows_grid(rows: int, width: int, sms: int = 132) -> int:
-    """Blocks the "rows" kernels launch: a persistent grid of the blocks
-    every SM holds at once (5 at W <= 8, 3 at W <= 16; the fastest of the
-    A/B in PERF.md, float64 and float32 alike), never more than the rows
-    need (a block's warps take 256 rows at a time, 512 at W = 4).  The
-    kernel strides its grid over the rows, so any grid covers every row."""
-    g = group_size(width)
-    need = max(-(-int(rows) // (_THREADS * (2 if g == 4 else 1))), 1)
-    return min(_ROWS_BLOCKS_PER_SM[g] * int(sms), need)
 
 
 def _launch(name: str, cols, vals, z, p, beta, pn, y, partials, pap,

@@ -18,6 +18,7 @@ JAX sweep shapes and the engine's 8 x 8 blocks, lane by lane bitwise
 independent of R; the SELL and HYB matvecs (plain PyTorch, fixed-order
 row sums) repeat bit for bit, lane j of a batch equals its solo call, and
 both equal the CPU's bits; plans on every format reach the CPU's counts.
+Every variant of a redesigned kernel gives its first design's bits.
 """
 
 import numpy as np
@@ -851,6 +852,45 @@ def test_spmv_dot_variants_bitwise(cuda, rows, width, k, dtype):
                 assert torch.equal(g, f), (name, label, i)
 
 
+@pytest.mark.parametrize("variant", bcsr_spmm.BCSR_VARIANTS)
+def test_bcsr_kernel_refuses_a_grid_that_misses_rows(cuda, variant):
+    """The kernel launches on the grid and lane chunk the wrapper computes
+    (bcsr_spmm.launch_grid, lane_chunk): that grid runs, and one block or
+    one lane chunk short of it, or a chunk wider than the variant carries,
+    is refused with cudaErrorInvalidValue and writes nothing."""
+    from repro_torch.kernels import build
+
+    bm = bn = 8
+    r = 9
+    bc, bl, nbc = _bcsr(1003, 0.01, bm, bn, torch.float64, 7, cuda)
+    nbr, w = bc.shape
+    x = torch.ones(r, nbc * bn, dtype=torch.float64, device=cuda).T
+    fn = build.entry("repro_bcsr_spmm", torch.float64)
+    code = {"first": 0, "smem": 1}[variant]
+    chunk = bcsr_spmm.lane_chunk(r, variant)
+    gx, gy = bcsr_spmm.launch_grid(variant, nbr, bm, r)
+
+    def launch(c, x_blocks, y_chunks):
+        y = torch.full((r, nbr * bm), 7.0, dtype=torch.float64,
+                       device=cuda).T
+        err = fn(bc.data_ptr(), bl.data_ptr(), x.data_ptr(), y.data_ptr(),
+                 nbr, w, bm, bn, r, x.shape[0], x.stride(0), x.stride(1),
+                 y.stride(0), y.stride(1), code, c, x_blocks, y_chunks,
+                 build.stream_handle(x.device))
+        torch.cuda.synchronize()
+        return err, y
+
+    err, y = launch(chunk, gx, gy)
+    assert err == 0
+    assert torch.equal(y, bcsr_spmm.bcsr_spmm(bc, bl, x, variant=variant))
+    wide = 16 if variant == "first" else 32
+    for c, bx, by in ((chunk, gx - 1, gy), (chunk, gx, gy - 1),
+                      (wide, gx, 1), (chunk // 2 + 1, gx, gy + 1)):
+        err, y = launch(c, bx, by)
+        assert err == 1, (c, bx, by)
+        assert torch.all(y == 7.0)
+
+
 @pytest.mark.parametrize("dtype", DTYPES, ids=str)
 @pytest.mark.parametrize("rows,width,nnz", [(4099, 8, 7), (1000, 16, 13),
                                             (1001, 4, 4), (777, 33, 20)])
@@ -872,3 +912,110 @@ def test_spmm_pfold_lanes_at_k16(cuda, rows, width, nnz, dtype):
         for i in range(3):
             assert torch.equal(wide[i][s], one[i]), (j, i)
             assert torch.equal(wide[i][j].reshape(-1), flat[i].reshape(-1)), (j, i)
+
+
+# -- the redesigned batched gathers: bcsr_spmm and ell_spmm -----------------
+
+# the JAX kernel tests' (bm, bn, R) sweep, the engine's 8 x 8 blocks at
+# R = 1, 8 and 16, the other compiled widths, a batch of two chunks, and
+# block heights the smem variant does not take
+BCSR_VARIANT_SHAPES = [(8, 16, 4), (8, 128, 8), (16, 32, 16), (8, 8, 1),
+                       (8, 8, 8), (8, 8, 16), (4, 4, 3), (16, 16, 16),
+                       (4, 16, 5), (8, 4, 17), (2, 8, 5), (3, 16, 2)]
+
+
+def _x_layouts(r, rows, dtype, g, cuda):
+    """x in the solver layout (lanes-major, aligned), the JAX layout
+    (row-major) and lanes-major one element off a 16-byte boundary."""
+    lanes = torch.randn(r, rows, generator=g, device=cuda, dtype=dtype).T
+    buf = torch.randn(r * rows + 1, generator=g, device=cuda, dtype=dtype)
+    return {"lanes-major": lanes, "row-major": lanes.contiguous(),
+            "misaligned": buf[1:].view(r, rows).T}
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+@pytest.mark.parametrize("bm,bn,r", BCSR_VARIANT_SHAPES)
+def test_bcsr_spmm_variants_bitwise(cuda, bm, bn, r, dtype):
+    """Every variant the operands admit gives Y bitwise the first design's,
+    in every x layout and with an x_valid that cuts a block column; a
+    second launch repeats it, lane j equals the one-lane call on lane j,
+    the default is one of them, and a forced smem the operands do not
+    admit raises (misaligned or row-major x takes the first design's
+    scalar loads)."""
+    bc, bl, nbc = _bcsr(1003, 0.01, bm, bn, dtype, bm * bn + r, cuda)
+    g = torch.Generator(device=cuda).manual_seed(bm + bn + r)
+    rows = nbc * bn
+    smem_fits = bcsr_spmm.smem_layout(bm, bn, 16, bl.element_size())[
+        "bytes"] <= 232448                     # two buffers of 16 lanes
+    for layout, x in _x_layouts(r, rows, dtype, g, cuda).items():
+        x_vec = bcsr_spmm.x_vectorized(x)
+        assert x_vec == (layout == "lanes-major" or (layout == "row-major"
+                                                     and r == 1))
+        for valid in (None, rows - bn - bn // 2 - 1):
+            call = lambda v, x=x, valid=valid: bcsr_spmm.bcsr_spmm(
+                bc, bl, x, nbc=nbc, x_valid=valid, variant=v)
+            first = call("first")
+            xv = x if valid is None else torch.where(
+                torch.arange(rows, device=cuda)[:, None] < valid, x, 0)
+            _close((first,), (bcsr_spmm.bcsr_spmm_plain(bc, bl, xv),), dtype)
+            assert torch.equal(call(None), first)
+            for v in bcsr_spmm.BCSR_VARIANTS:
+                admitted = v == "first" or (
+                    bn in bcsr_spmm.COMPILED_BN and bm in bcsr_spmm.SMEM_BM
+                    and x_vec and smem_fits)
+                if not admitted:
+                    with pytest.raises(ValueError, match=f"the {v} variant"):
+                        call(v)
+                    continue
+                got = call(v)
+                assert torch.equal(got, first), (layout, valid, v)
+                assert torch.equal(call(v), got), (layout, valid, v)
+                for j in range(r):
+                    one = bcsr_spmm.bcsr_spmm(bc, bl, x[:, j: j + 1], nbc=nbc,
+                                              x_valid=valid, variant=v)
+                    assert torch.equal(got[:, j: j + 1], one), (layout, v, j)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+@pytest.mark.parametrize("rows,width,nnz", [(4099, 8, 7), (1000, 16, 13),
+                                            (1001, 4, 4), (1000, 12, 11),
+                                            (1 << 16, 8, 5), (1000, 5, 5),
+                                            (777, 33, 20)])
+def test_ell_spmm_variants_bitwise(cuda, rows, width, nnz, dtype):
+    """ell_spmm's rows kernel gives Y bitwise the first design's (the row
+    groups) at k = 1, 3, 8, 16 and 17 (one launch up to 16 on the rows
+    kernel), lane j equals the k = 1 call and ell_spmv on lane j, a second
+    launch repeats, X wider than the rows (ncols > rows_p) passes; values
+    off a 16-byte boundary take the group kernel by default, and forcing
+    the rows kernel on them, or on a width it does not take, raises."""
+    cols, vals, vec = _operator(rows, width, nnz, dtype, rows + width, cuda)
+    rows_ok = ell_spmv.spmv_variant(width) == "rows"
+    off = torch.empty(rows * width + 1, dtype=dtype, device=cuda)
+    moved = off[1:].view(rows, width)
+    moved.copy_(vals)
+    for k in (1, 3, 8, 16, 17):
+        x = _lanes(vec, k)
+        first = ell_spmv.ell_spmm(cols, vals, x, variant="group")
+        _close((first,), (ell_spmv.ell_spmm_plain(cols, vals, x),), dtype)
+        runs = {"default": ell_spmv.ell_spmm(cols, vals, x),
+                "second launch": ell_spmv.ell_spmm(cols, vals, x),
+                "misaligned, default": ell_spmv.ell_spmm(cols, moved, x)}
+        if rows_ok:
+            runs["rows"] = ell_spmv.ell_spmm(cols, vals, x, variant="rows")
+            with pytest.raises(ValueError, match="aligned"):
+                ell_spmv.ell_spmm(cols, moved, x, variant="rows")
+        else:
+            with pytest.raises(ValueError, match="multiple of 4"):
+                ell_spmv.ell_spmm(cols, vals, x, variant="rows")
+        for label, got in runs.items():
+            assert torch.equal(got, first), (k, label)
+        got = runs["default"]
+        for j in range(k):
+            assert torch.equal(got[j: j + 1],
+                               ell_spmv.ell_spmm(cols, vals, x[j: j + 1]))
+            assert torch.equal(got[j], ell_spmv.ell_spmv(cols, vals, x[j]))
+    wide = torch.cat([_lanes(vec, 3), _lanes(vec, 3)[:, :5]], 1)
+    assert torch.equal(ell_spmv.ell_spmm(cols, vals, wide),
+                       ell_spmv.ell_spmm(cols, vals, wide, variant="group"))
+    torch.cuda.synchronize()

@@ -24,6 +24,12 @@ Their pap sums each lane's rows in the first design's thread blocks; a
 numpy model of that design's ``block_sum`` and of the rows kernel's
 ``vblock_sum`` (shuffles within a warp that owns whole blocks) shows the
 two give the same partials bit for bit.
+
+``ell_spmm`` takes the same rule and the same rows grid.  ``bcsr_spmm``
+picks its smem variant from (bm, bn, dtype, x's layout, alignment)
+alone; its grids cover every (row, lane), and a numpy model of the smem
+variant's staging buffers shows them disjoint, complete, and read by the
+block rows of one warp on distinct banks.
 """
 
 import numpy as np
@@ -37,7 +43,7 @@ from repro_torch.core.formats import csr_from_scipy
 from repro_torch.core.levels import build_schedule
 from repro_torch.core.precond import ic0
 from repro_torch.data.matrices import laplacian_2d
-from repro_torch.kernels import ell_spmv, ops, spmv_dot, sptrsv
+from repro_torch.kernels import bcsr_spmm, ell_spmv, ops, spmv_dot, sptrsv
 
 
 def _lower(n, density, seed):
@@ -77,24 +83,6 @@ def test_spmv_variant_is_a_function_of_the_width(width):
     assert ell_spmv.spmv_variant(width, aligned=False) == "group"
 
 
-@pytest.mark.parametrize("rows", [1, 127, 128, 255, 256, 257, 5000, 1 << 20])
-def test_spmv_grids_cover_every_row(rows):
-    """The rows kernel strides its grid over rows (256 a block): two blocks
-    an SM in float64, a row a thread in float32, never more blocks than
-    the rows need."""
-    need = -(-rows // 256)
-    for sms in (1, 7, 132):
-        for itemsize in (8, 4):
-            grid = ell_spmv.spmv_grid(rows, sms, itemsize)
-            assert 1 <= grid <= need
-            assert grid == ell_spmv.spmv_grid(rows, sms, itemsize)
-            if rows <= 5000:       # the grid-stride loop, block by block
-                owners = {(u % grid) for u in range(need)}
-                assert owners == set(range(grid))
-    assert ell_spmv.spmv_grid(rows, itemsize=4) == need
-    assert ell_spmv.spmv_grid(rows, sms=132) == min(2 * 132, need)
-
-
 def _butterfly(lanes):
     """The group kernel's sum: every lane adds the xor partner's value,
     offsets G/2 down to 1 (repro::group_sum); lane 0's result."""
@@ -108,7 +96,7 @@ def _butterfly(lanes):
 
 def _folded(lanes):
     """The row kernels' sum: virtual lanes folded in registers,
-    s[g] = s[g] + s[g + off] for g < off (common.cuh row_sum)."""
+    s[g] = s[g] + s[g + off] for g < off (common.cuh row_dot_halves)."""
     s = list(lanes)
     off = len(s) // 2
     while off:
@@ -286,6 +274,178 @@ def test_pap_partials_equal_the_first_design(rows, g):
         want = _first_design_partials(c, g)
         got = _rows_design_partials(c, g)
         assert want.tobytes() == got.tobytes()
+
+
+# -- ell_spmm ---------------------------------------------------------------
+
+
+@pytest.mark.parametrize("width", [1, 4, 5, 8, 12, 16, 20, 33, 264])
+def test_ell_spmm_variant_follows_spmv_variant(width):
+    """ell_spmm takes ell_spmv's rule: the rows kernel (spmv_dot.cu's, the
+    dot compiled out) for W a multiple of 4 up to 16 with 16-byte aligned
+    cols and vals, the row groups otherwise; a forced rows variant on
+    operands it does not take raises, naming ell_spmm."""
+    cols = torch.zeros(64, width, dtype=torch.int32)
+    vals = torch.zeros(64, width, dtype=torch.float32)
+    moved = torch.zeros(64 * width + 1, dtype=torch.float32)[1:].view(64, width)
+    for v, aligned in ((vals, True), (moved, False)):
+        assert (ell_spmv.pick_variant("ell_spmm", cols, v, None)
+                == ell_spmv.spmv_variant(width, aligned))
+        assert ell_spmv.pick_variant("ell_spmm", cols, v, "group") == "group"
+    if ell_spmv.spmv_variant(width) == "rows":
+        assert ell_spmv.pick_variant("ell_spmm", cols, vals, "rows") == "rows"
+    else:
+        with pytest.raises(ValueError, match="ell_spmm: the rows variant"):
+            ell_spmv.pick_variant("ell_spmm", cols, vals, "rows")
+    with pytest.raises(ValueError, match="ell_spmm: the rows variant"):
+        ell_spmv.pick_variant("ell_spmm", cols, moved, "rows")
+
+
+def test_ell_spmm_rows_grid_is_the_spmv_dot_grid():
+    """ell_spmv and ell_spmm run spmv_dot.cu's rows kernel (the dot compiled
+    out) on the grid the spmv_dot wrappers launch it on: one function,
+    shared by both modules."""
+    assert spmv_dot.rows_grid is ell_spmv.rows_grid
+    for w in (4, 8, 12, 16):
+        assert ell_spmv.rows_grid(1 << 20, w) == {4: 5, 8: 5, 16: 3}[
+            ell_spmv.group_size(w)] * 132
+
+
+# -- bcsr_spmm ---------------------------------------------------------------
+
+BCSR_BM = list(range(1, 17))
+BCSR_BN = [1, 2, 3, 4, 5, 6, 8, 12, 16, 24, 32, 64, 128]
+
+
+def _bcsr_rule(bm, bn, itemsize, x_vec, aligned):
+    """csrc/bcsr_spmm.cu's admission rule, written out: smem takes bn = 4,
+    8 or 16, bm = 4, 8 or 16, 16-byte aligned blocks, lanes-major aligned
+    x and its two buffers of 16 lanes within 227 KB; first takes all."""
+    admits = {"first"}
+    if (bn in (4, 8, 16) and bm in (4, 8, 16) and aligned and x_vec
+            and bcsr_spmm.smem_layout(bm, bn, 16, itemsize)["bytes"]
+            <= 232448):
+        admits.add("smem")
+    return admits
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=str)
+@pytest.mark.parametrize("bn", BCSR_BN)
+def test_bcsr_pick_variant_is_a_function_of_the_shape(bn, dtype):
+    """pick_variant depends on (bm, bn, dtype, x's layout, alignment) and
+    nothing else: the same answer twice, smem where it applies, the first
+    design for every bn that is not compiled; a forced variant is
+    honoured where the operands admit it and raises where they do not."""
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    for bm in BCSR_BM:
+        for x_vec in (True, False):
+            for aligned in (True, False):
+                args = (bm, bn, dtype, x_vec, aligned)
+                admits = _bcsr_rule(bm, bn, itemsize, x_vec, aligned)
+                got = bcsr_spmm.pick_variant(*args)
+                assert got == bcsr_spmm.pick_variant(*args)
+                want = "smem" if "smem" in admits else "first"
+                assert got == want, (args, admits)
+                if bn not in bcsr_spmm.COMPILED_BN:
+                    assert got == "first"
+                for v in bcsr_spmm.BCSR_VARIANTS:
+                    if v in admits:
+                        assert bcsr_spmm.pick_variant(*args, variant=v) == v
+                    else:
+                        with pytest.raises(ValueError, match=f"the {v} variant"):
+                            bcsr_spmm.pick_variant(*args, variant=v)
+    with pytest.raises(ValueError, match="not in"):
+        bcsr_spmm.pick_variant(8, 8, dtype, True, True, variant="mma")
+
+
+def test_bcsr_x_vectorized_follows_layout_and_alignment():
+    """x's 16-byte path: lanes-major (or one lane) with every lane's column
+    on a 16-byte boundary; the JAX layout (row-major, R > 1), a view one
+    element in, and an odd float64 lane stride take the scalar path."""
+    v = torch.zeros(4, 64, dtype=torch.float64)
+    assert bcsr_spmm.x_vectorized(v.T)                   # the solver layout
+    assert bcsr_spmm.x_vectorized(v[0][:, None])         # one RHS
+    assert bcsr_spmm.x_vectorized(v.T[:, 1:2])           # one lane of a batch
+    assert not bcsr_spmm.x_vectorized(v.T.contiguous())  # row-major, R = 4
+    assert not bcsr_spmm.x_vectorized(v.T.contiguous()[:, :1])  # row stride 4
+    moved = torch.zeros(4 * 64 + 1, dtype=torch.float64)[1:].view(4, 64)
+    assert not bcsr_spmm.x_vectorized(moved.T)
+    odd = torch.zeros(4, 65, dtype=torch.float64)[:, :64]
+    assert not bcsr_spmm.x_vectorized(odd.T)
+    assert bcsr_spmm.x_vectorized(torch.zeros(4, 68, dtype=torch.float32)[:, :64].T)
+
+
+@pytest.mark.parametrize("variant", ["smem", "first"])
+@pytest.mark.parametrize("r", [1, 2, 3, 8, 9, 16, 17, 33])
+def test_bcsr_grids_cover_every_row(r, variant):
+    """Every (row, lane) has a thread: a row a thread over blocks of 256
+    (256 / bm block rows a block for smem), and lane chunks of at most 16
+    lanes (8 for the first design), the power of two >= R, so R = 16 is
+    one launch of smem."""
+    chunk = bcsr_spmm.lane_chunk(r, variant)
+    assert chunk & (chunk - 1) == 0
+    assert chunk == min(8 if variant == "first" else 16,
+                        1 << (r - 1).bit_length())
+    for bm in (4, 8, 16) if variant == "smem" else (1, 3, 8, 16):
+        for nbr in (1, 31, 32, 33, 131072):
+            gx, gy = bcsr_spmm.launch_grid(variant, nbr, bm, r)
+            if variant == "smem":
+                assert (gx - 1) * (256 // bm) < nbr <= gx * (256 // bm)
+            else:
+                assert (gx - 1) * 256 < nbr * bm <= gx * 256
+            assert (gy - 1) * chunk < r <= gy * chunk
+    assert bcsr_spmm.launch_grid(variant, 131072, 8, 16)[1] == (
+        2 if variant == "first" else 1)
+
+
+def _smem_staging(bm, bn, k, itemsize, buf):
+    """The smem kernel's staging loop (csrc/bcsr_spmm.cu stage): chunk q of
+    the block's 256 / bm block rows x K lanes x bn / (16 / itemsize)
+    16-byte pieces -> the (block row, lane, first value) it copies and its
+    byte offset in the buffer ``buf``."""
+    vec = 16 // itemsize
+    pieces = bn // vec
+    per_block = 256 // bm
+    lay = bcsr_spmm.smem_layout(bm, bn, k, itemsize)
+    stride = lay["row_stride"] // itemsize
+    for q in range(per_block * k * pieces):
+        piece, jj, b = q % pieces, (q // pieces) % k, q // (pieces * k)
+        dst = buf * per_block * stride + b * stride + jj * bn + piece * vec
+        yield (b, jj, piece * vec), dst * itemsize
+
+
+@pytest.mark.parametrize("itemsize", [8, 4])
+@pytest.mark.parametrize("k", [1, 2, 4, 8, 16])
+@pytest.mark.parametrize("bn", [4, 8, 16])
+@pytest.mark.parametrize("bm", [4, 8, 16])
+def test_bcsr_smem_layout(bm, bn, k, itemsize):
+    """A numpy model of the smem variant's shared memory: the 16-byte
+    pieces of both buffers are disjoint and inside the allocation, every x
+    value a slot needs (block row, lane, column) is staged once, and the
+    block rows of one warp read each 16-byte word from distinct banks."""
+    lay = bcsr_spmm.smem_layout(bm, bn, k, itemsize)
+    if (bcsr_spmm.smem_layout(bm, bn, 16, itemsize)["bytes"] > 232448):
+        assert "smem" not in _bcsr_rule(bm, bn, itemsize, True, True)
+        return
+    spans, covered = [], set()
+    for buf in (0, 1):
+        for (b, jj, n0), off in _smem_staging(bm, bn, k, itemsize, buf):
+            assert off % 16 == 0 and off + 16 <= lay["bytes"]
+            spans.append((off, off + 16))
+            if buf == 0:
+                covered |= {(b, jj, n0 + i) for i in range(16 // itemsize)}
+    spans.sort()
+    assert all(a[1] <= b[0] for a, b in zip(spans, spans[1:]))
+    assert covered == {(b, jj, n) for b in range(256 // bm)
+                       for jj in range(k) for n in range(bn)}
+    # a warp's threads cover 32 / bm block rows, all reading the same
+    # (lane, column) word of their own row at once
+    stride = lay["row_stride"]
+    for b0 in range(0, 256 // bm, 32 // bm):
+        banks = [{(b * stride + w) // 4 % 32 for w in range(0, 16, 4)}
+                 for b in range(b0, b0 + 32 // bm)]
+        assert all(not (x & y) for i, x in enumerate(banks)
+                   for y in banks[i + 1:])
 
 
 # -- sptrsv_solve_dot --------------------------------------------------------
