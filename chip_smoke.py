@@ -75,8 +75,15 @@ prints no result line):
                ``plan(SolveSpec(method="pcg_tol", tol=1e-8,
                max_iters=10000))`` -> ``plan(b)`` in float64, with
                ``b = A x_true`` and ``x_true`` from ``default_rng(0)`` as
-               ``launch/solve.py`` builds it.  Launch counts are zeroed
-               just before and read just after; both per-iteration kernels
+               ``launch/solve.py`` builds it.  Every plan of this phase
+               is called twice: the first call builds it (captures its
+               loop as one CUDA graph; a ``capture`` line gives that
+               call's wall, the capture's, the node count of a step and
+               its launches) and the second, warm call is the one timed.
+               Launch counts -- each kernel adds one to its wrapper's
+               count on the card as it starts, so a replayed launch
+               counts -- are zeroed just before it and read just after,
+               and must equal the first call's; both per-iteration kernels
                must run once per iteration and ell_spmv at least once, and
                the true relative residual ``||b - A x|| / ||b||`` (scipy,
                float64, on the host) must be <= 1e-7.  Then the same solve
@@ -143,6 +150,25 @@ prints no result line):
                just before and read just after: ell_spmv_dot, ell_spmm_dot
                (k = 8), axpy_dot once each, and the level-by-level solve
                of lap2d_1024's L factor (one sptrsv_level_step a level).
+               Then the compiled plans (phase 4i): on each of the slice's
+               paths -- lap2d_1024 on ELL (one RHS and k = 8), block-IC(0),
+               BCSR (one RHS and k = 8), pcg_pipelined_tol (one RHS and
+               k = 8) and the stencil -- a plan called PLAN_CALLS times
+               must have one build (``traces == 1``, ``assert_steady``)
+               and one capture, its capture time unchanged after the
+               first call, replay its captured loop once a call, launch
+               each kernel (as the kernels counted on the card) once per
+               loop step taken (and the start-up matvecs) and nothing in
+               the steps a round skips, reach the iteration counts of the
+               main path (MAIN_LANES; block-IC(0) 457), and equal bit for
+               bit -- x, trace, iters, status, bad_iter -- the same solver
+               function called directly outside the plan, whose rounds run
+               eagerly; wall and us per step of both are printed.  Last,
+               the round length: the same two plans built with loop.CHUNK = 1 (a
+               WHILE pass a step, the state copied back every step)
+               against CHUNK = 32, each on a fresh engine and timed
+               warm twice in mirrored order: capture time, nodes of a
+               step, us a step, and the result bitwise equal.
 5. times    -- each kernel at the main-path shape (k = 8 for the batched
                ones): CUDA-event time of a CUDA-graph replay (median of
                five windows), the time when launched from Python, the
@@ -291,6 +317,11 @@ OPS_ONLY = ("ell_spmv_dot", "ell_spmm_dot", "axpy_dot", "sptrsv_level_step")
 # tests/test_kernels.py's level-step solves: n, density, random_state
 LEVEL_JAX_CASES = ((24, 0.2, 3), (72, 0.2, 3))
 PIPE_METHOD = "pcg_pipelined_tol"
+# the per-lane iteration counts of the lap2d_1024 main path (Jacobi
+# pcg_tol and pcg_pipelined_tol, ELL, BCSR and the stencil alike): lane 0
+# is the one-RHS solve (the same counts as before the loop ran on the card)
+MAIN_LANES = (1190, 1241, 1624, 1301, 1669, 1494, 1658, 1548)
+PLAN_CALLS = 3                     # calls of each plan in phase 4i
 
 
 def say(*parts) -> None:
@@ -1072,10 +1103,32 @@ def warm_step_us(eng, b, fmt: str, steps: int = SWEEP_ITERS) -> float:
     return (run - zero) / steps * 1e6
 
 
+def first_call(plan, b, label: str) -> dict:
+    """The plan's first call, which builds it (captures its loop round):
+    its wall, the capture's, and the launches it counted.  Prints them on
+    a line of their own."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.obs.clock import now
+
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = now()
+    plan(b)
+    torch.cuda.synchronize()
+    out = {"first_call_s": now() - t0, "capture_s": plan.cell.capture_s,
+           "captures": plan.cell.captures,
+           "step_nodes": plan.cell.step_nodes, "traces": plan.traces,
+           "launches": ops.launch_counts()}
+    say(f"capture {label}: " + json.dumps(out))
+    return out
+
+
 def solve_main(eng, a, b, x_true, label: str, method: str = "pcg_tol",
-               **knobs) -> dict:
+               warm: bool = True, **knobs) -> dict:
     """One ``plan(b)`` of a main-path tolerance solve (``method``, pcg_tol
-    by default) on ``eng``; launch counts are zeroed just before it and
+    by default) on ``eng``, after the plan's first call (the capture)
+    unless ``warm`` is False; launch counts are zeroed just before it and
     read just after.  Raises past MAIN_MAX_TRUE_RESIDUAL (``a`` is the
     scipy matrix)."""
     import numpy as np
@@ -1086,8 +1139,10 @@ def solve_main(eng, a, b, x_true, label: str, method: str = "pcg_tol",
 
     plan = eng.plan(SolveSpec(method=method, tol=MAIN_TOL,
                               max_iters=MAIN_MAX_ITERS, **knobs))
+    first = first_call(plan, b, label) if warm else {}
     torch.cuda.synchronize()
     ops.reset_launch_counts()
+    replays = plan.cell.replays
     t0 = now()
     x, norms = plan(b)
     torch.cuda.synchronize()
@@ -1104,8 +1159,15 @@ def solve_main(eng, a, b, x_true, label: str, method: str = "pcg_tol",
                                    / np.linalg.norm(b)),
         "longest_stall": longest_stall(norms[: iters + 1]),
         "wall_s": wall, "us_per_iter": wall / max(iters, 1) * 1e6,
+        "warm": warm, "replays": plan.cell.replays - replays,
+        "traces": plan.traces, "capture_s": plan.cell.capture_s,
+        "step_nodes": plan.cell.step_nodes,
         "launches": ops.launch_counts(),
     }
+    if warm and first["launches"] != out["launches"]:
+        raise AssertionError(f"main {label}: the first call launched "
+                             f"{first['launches']}, the warm one "
+                             f"{out['launches']}")
     say(f"main {label}: " + json.dumps(out))
     if not out["true_rel_residual"] <= MAIN_MAX_TRUE_RESIDUAL:
         raise AssertionError(f"main {label}: true relative residual "
@@ -1130,8 +1192,10 @@ def solve_main_batched(eng, a, B, label: str, lanes=None,
     plan = eng.plan(SolveSpec(method=method, tol=MAIN_TOL,
                               max_iters=MAIN_MAX_ITERS,
                               batch=Bk.shape[0], **knobs))
+    first = first_call(plan, Bk, f"batched {label}")
     torch.cuda.synchronize()
     ops.reset_launch_counts()
+    replays = plan.cell.replays
     t0 = now()
     X, norms = plan(Bk)
     torch.cuda.synchronize()
@@ -1149,8 +1213,15 @@ def solve_main_batched(eng, a, B, label: str, lanes=None,
         "true_rel_residual": res.tolist(),
         "wall_s": wall, "us_per_iter": wall / max(steps, 1) * 1e6,
         "us_per_iter_per_rhs": wall / max(steps, 1) * 1e6 / Bk.shape[0],
+        "replays": plan.cell.replays - replays,
+        "traces": plan.traces, "capture_s": plan.cell.capture_s,
+        "step_nodes": plan.cell.step_nodes,
         "launches": ops.launch_counts(),
     }
+    if first["launches"] != out["launches"]:
+        raise AssertionError(f"main batched {label}: the first call launched "
+                             f"{first['launches']}, the warm one "
+                             f"{out['launches']}")
     say(f"main batched {label}: " + json.dumps(out))
     if not np.all(res <= MAIN_MAX_TRUE_RESIDUAL):
         raise AssertionError(f"main batched {label}: true relative "
@@ -1724,7 +1795,8 @@ def main() -> int:
             f"{now() - t0:.2f} s")
         fz = solve_main(eng, a, b, x_true, f"block_ic0 lap2d_{REF_IC0_GRID} fused")
         rf = solve_main(eng, a, b, x_true,
-                        f"block_ic0 lap2d_{REF_IC0_GRID} reference", fused=False)
+                        f"block_ic0 lap2d_{REF_IC0_GRID} reference",
+                        warm=False, fused=False)
         if (rf["status"] != fz["status"] or fz["status"] != "converged"
                 or abs(rf["iters_run"] - fz["iters_run"]) > 0.01 * fz["iters_run"]
                 or abs(fz["iters_run"] - REF_IC0_ITERS) > 0.01 * REF_IC0_ITERS
@@ -2036,6 +2108,150 @@ def main() -> int:
         traceback.print_exc()
         failed.append("main ops")
 
+    # -- 4i. compiled plans: the captured round against a direct call -------
+    try:
+        from repro_torch.core import registry
+        from repro_torch.core.solvers import ensure_status
+
+        m = m_main
+        a = sp.csr_matrix((m.data, m.indices, m.indptr), shape=m.shape)
+        x_lanes = np.random.default_rng(0).standard_normal((MAIN_BATCH,
+                                                            m.shape[0]))
+        B = (a @ x_lanes.T).T
+        b = B[0]                             # the one-RHS main path's b
+        eng_ell = AzulEngine(m, dtype=np.float64)
+        eng_st = AzulEngine(lap2d_stencil(MAIN_GRID), dtype=np.float64)
+        k = MAIN_BATCH
+        paths = (
+            ("ell", eng_ell, "pcg_tol", None,
+             lambda s: {"ell_spmv": 1, "ell_spmv_pfold_dot": s, "cg_update": s}),
+            (f"ell k={k}", eng_ell, "pcg_tol", k,
+             lambda s: {"ell_spmm": 1, "ell_spmm_pfold_dot": s,
+                        "cg_update_batched": s}),
+            ("block_ic0", ic0_engine(), "pcg_tol", None,
+             lambda s: {"ell_spmv": 1, "ell_spmv_pfold_dot": s, "cg_update": s,
+                        "sptrsv_solve_dot": 2 * (s + 1)}),
+            ("bcsr", bcsr_engine(), "pcg_tol", None,
+             lambda s: {"bcsr_spmm": s + 1, "cg_update": s}),
+            (f"bcsr k={k}", bcsr_engine(), "pcg_tol", k,
+             lambda s: {"bcsr_spmm": s + 1, "cg_update_batched": s}),
+            (PIPE_METHOD, eng_ell, PIPE_METHOD, None,
+             lambda s: {"ell_spmv": s + 2}),
+            (f"{PIPE_METHOD} k={k}", eng_ell, PIPE_METHOD, k,
+             lambda s: {"ell_spmm": s + 2}),
+            ("stencil", eng_st, "pcg_tol", None, lambda s: {"cg_update": s}),
+        )
+        for label, eng, method, batch, want_of in paths:
+            rhs = b if batch is None else B
+            plan = eng.plan(SolveSpec(method=method, tol=MAIN_TOL,
+                                      max_iters=MAIN_MAX_ITERS, batch=batch))
+            built = []                       # (captures, capture_s) a call
+            for _ in range(PLAN_CALLS - 1):
+                plan(rhs)
+                built.append((plan.cell.captures, plan.cell.capture_s))
+            torch.cuda.synchronize()
+            ops.reset_launch_counts()
+            replays = plan.cell.replays
+            t0 = now()
+            x, norms = plan(rhs)
+            torch.cuda.synchronize()
+            wall = now() - t0
+            lc = {k2: v for k2, v in ops.launch_counts().items() if v}
+            replayed = plan.cell.replays - replays
+            built.append((plan.cell.captures, plan.cell.capture_s))
+            plan.assert_steady()
+            # the same solver function called directly, outside the plan:
+            # its rounds run eagerly
+            bd = eng.to_device_vec(rhs)
+            ops.reset_launch_counts()
+            t0 = now()
+            res = ensure_status(registry.get_solver(method).run(
+                plan.context, bd, torch.zeros_like(bd)), bd)
+            xd = eng.from_device_vec(res.x)
+            direct_wall = now() - t0
+            direct_lc = {k2: v for k2, v in ops.launch_counts().items() if v}
+            iters = np.atleast_1d(np.asarray(plan.last_iters))
+            steps = int(iters.max())
+            same = {
+                "x": xd.tobytes() == x.tobytes(),
+                "trace": res.res_norms.tobytes() == norms.tobytes(),
+                "iters": np.array_equal(res.iters, plan.last_iters),
+                "status": np.array_equal(res.status, plan.last_status),
+                "bad_iter": np.array_equal(res.bad_iter, plan.last_bad_iter),
+            }
+            want_iters = (MAIN_IC0_ITERS,) if label == "block_ic0" else (
+                MAIN_LANES[:1] if batch is None else MAIN_LANES)
+            out = {
+                "method": method, "format": plan.info["format"],
+                "substrate": plan.info["substrate"], "k": batch or 1,
+                "iters": iters.tolist(), "status": plan.last_status_names,
+                "executions": plan.executions, "traces": plan.traces,
+                "captures": plan.cell.captures, "replays": replayed,
+                "capture_s": plan.cell.capture_s,
+                "step_nodes": plan.cell.step_nodes, "wall_s": wall,
+                "us_per_iter": wall / max(steps, 1) * 1e6,
+                "direct_wall_s": direct_wall,
+                "direct_us_per_iter": direct_wall / max(steps, 1) * 1e6,
+                "launches": lc, "direct_launches": direct_lc,
+                "bitwise_equal": same,
+            }
+            say(f"plan {label}: " + json.dumps(out))
+            if (not all(same.values()) or plan.traces != 1 or replayed != 1
+                    or built != [(1, built[0][1])] * PLAN_CALLS
+                    or built[0][1] is None
+                    or lc != want_of(steps)
+                    or tuple(iters.tolist()) != tuple(want_iters)):
+                raise AssertionError(f"plan {label}: {out} (launches want "
+                                     f"{want_of(steps)}, iterations want "
+                                     f"{want_iters})")
+        # the round length: the same plans captured with loop.CHUNK = 1 (a
+        # WHILE pass a step: the state copied back every step) on a fresh
+        # engine, against eng_ell's CHUNK plans; each timed warm twice in
+        # mirrored order, the results bitwise equal
+        from repro_torch.core import loop
+        eng_one = AzulEngine(m, dtype=np.float64)
+        for label, batch in (("ell", None), (f"ell k={k}", k)):
+            rhs = b if batch is None else B
+            spec = SolveSpec(method="pcg_tol", tol=MAIN_TOL,
+                             max_iters=MAIN_MAX_ITERS, batch=batch)
+            plans = {loop.CHUNK: eng_ell.plan(spec)}
+            saved, loop.CHUNK = loop.CHUNK, 1
+            try:
+                plans[1] = eng_one.plan(spec)
+                plans[1](rhs)                # the capture, at CHUNK = 1
+            finally:
+                loop.CHUNK = saved
+            walls = {c: [] for c in plans}
+            outs = {}
+            for c in (1, saved, saved, 1):
+                torch.cuda.synchronize()
+                t0 = now()
+                outs[c] = plans[c](rhs)
+                torch.cuda.synchronize()
+                walls[c].append(now() - t0)
+            steps = max(int(np.max(plans[saved].last_iters)), 1)
+            ab = {f"chunk {c}": {
+                "capture_s": p.cell.capture_s,
+                "step_nodes": p.cell.step_nodes,
+                "us_per_step": [w / steps * 1e6 for w in walls[c]]}
+                for c, p in plans.items()}
+            ab["steps"] = steps
+            ab["bitwise_equal"] = all(
+                u.tobytes() == v.tobytes()
+                for u, v in zip(outs[1], outs[saved]))
+            say(f"round length plan {label}: " + json.dumps(ab))
+            if not ab["bitwise_equal"]:
+                raise AssertionError(f"round length {label}: CHUNK 1 and "
+                                     f"{saved} disagree")
+        say(f"compiled plans ok: {len(paths)} paths replay their captured "
+            f"loop (one build and one capture each after {PLAN_CALLS} "
+            "calls), bitwise equal to a direct call of the solver, launches "
+            "per solve as the kernels counted them on the card")
+        del eng_ell, eng_st, eng_one
+    except Exception:
+        traceback.print_exc()
+        failed.append("compiled plans")
+
     # -- 5. times at the main-path shape ------------------------------------
     rows_out = []
     try:
@@ -2137,7 +2353,9 @@ def main() -> int:
                 f"the card against {wall_us:.1f} us of wall time in the main "
                 f"solve ({wall_us / lanes:.1f} us per RHS): "
                 f"{100 * (1 - dev_us / wall_us):.0f}% of the wall time is "
-                "outside them (host loop, scalar ops, the per-iteration sync)")
+                "outside them (the guards' and the stop test's small ops, "
+                "the partial sums, the conditional nodes and the round's "
+                "copies, the copies in and out)")
 
         # fixed-iteration pcg at each batch width: us per iteration, and per
         # RHS, against the per-iteration kernels' byte bound per RHS.  A
@@ -2285,7 +2503,7 @@ def main() -> int:
         })
         if ic0_main is not None:
             # the block-IC(0) step: two solves, the p-fold, the update, and
-            # the rest (flips, pads, the host loop and its sync)
+            # the rest (flips, pads, the guards' small ops, the copies)
             parts = {"two solves": 1e3 * sum(sv["ms"] for sv in solves.values()),
                      **step_us}
             wall_us = ic0_main["us_per_iter"]
@@ -2381,7 +2599,8 @@ def main() -> int:
             dev_us = 1e3 * c["ms"]
             say(f"per iteration bcsr: {dev_us:.1f} us in bcsr_spmm on the card "
                 f"against {wall_us:.1f} us of wall time per step (the fold's "
-                "torch ops, cg_update, the host loop and its sync are the rest)")
+                "torch ops, cg_update, the guards' small ops and the copies "
+                "are the rest)")
     except Exception:
         traceback.print_exc()
         failed.append("times bcsr_spmm")
@@ -2780,10 +2999,11 @@ def main() -> int:
         # one Jacobi pipelined step at lap2d_1024 on the card, by part
         sub = substrate.fused_local_substrate(cols, vals, eng._dinv_pad)
         state, _ = solvers._pipe_start(sub, vec(), None)
+        step1 = torch.ones((), dtype=torch.int32, device="cuda")   # k > 0
         vs = [vec() for _ in range(10)]
         beta = torch.tensor(0.3, dtype=torch.float64, device="cuda")
         parts = {
-            "step": device_ms(lambda: solvers._pipe_step(sub, False, state)),
+            "step": device_ms(lambda: solvers._pipe_step(sub, step1, state)),
             "matvec (ell_spmv)": device_ms(lambda: sub.matvec(vs[0])),
             "psolve (r * dinv)": device_ms(lambda: sub.psolve(vs[0])),
             "pipe_update": device_ms(lambda: substrate.pipe_update(

@@ -31,6 +31,9 @@ matrix (or a matrix-free ``Stencil``), the engine
      preconditioner (two ``sptrsv_solve_dot`` a step under block_ic0),
      the pipelined update and its stacked reduction in plain PyTorch; the
      ``jacobi`` smoother in plain PyTorch over the reference matvec.
+     Each plan owns a ``loop.ProgramCell``: on the card its first call
+     captures the solver's loop as one CUDA graph, and every later call
+     replays it (``plan.traces`` counts the builds).
 
 Not ported yet, and refused with NotImplementedError naming the ROADMAP
 item: distributed meshes.
@@ -46,6 +49,7 @@ from ..device import DEFAULT_DEVICE, resolve_device, resolve_dtype
 from ..kernels.autotune import choose_format, modeled_format_words
 from .formats import (CSR, ELL, bcsr_from_csr, ell_arrays_from_csr,
                       hyb_from_csr, pad_to, sell_from_csr)
+from .loop import ProgramCell
 from .plan import PlanCache, SolvePlan, SolveSpec, canonicalize
 from .precond import ic0, make_fused_ic0_apply
 from .solvers import ensure_status
@@ -356,15 +360,20 @@ class AzulEngine:
         else:
             def matvec(x):
                 return _matvec(cols, vals, x)
+        # the plan's capture cell, as the JAX engine's trace cell: the
+        # program counts its builds there, and the solver's while_loop
+        # captures and replays its loop there
+        cell = ProgramCell()
         ctx = registry.SolveContext(
             matvec=matvec,
             psolve=eff.local_apply(self), dinv=dinv, substrate=sub,
             iters=spec.iters, tol=spec.tol, max_iters=spec.max_iters,
-            guard=spec.guard,
+            guard=spec.guard, cell=cell,
         )
 
         def prog(b_pad, x0_pad):
-            return ensure_status(sdef.run(ctx, b_pad, x0_pad), b_pad)
+            with cell.running(b_pad, x0_pad):
+                return ensure_status(sdef.run(ctx, b_pad, x0_pad), b_pad)
 
         info = {
             "method": spec.method,
@@ -376,4 +385,4 @@ class AzulEngine:
             "reorder": "none",
             "format": spec.format,
         }
-        return SolvePlan(self, spec, prog, info)
+        return SolvePlan(self, spec, prog, info, cell, ctx)

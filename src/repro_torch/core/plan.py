@@ -11,8 +11,12 @@
 * :class:`PlanCache` -- the engine's spec-keyed plan store: one build per
   canonical spec.
 
-PyTorch runs eagerly, so there is no compile step to count; "build once"
-is the cache's miss count.
+"Build once" is the JAX package's contract: a plan's program is built
+once per input signature and every later call reuses it.  On the card the
+build captures the solve loop as one CUDA graph (``core.loop``) and every
+call after it replays the graph; on the CPU it is the one build of the
+loop program, which runs eagerly.  ``SolvePlan.traces`` counts the
+builds and ``assert_steady`` raises once there are two, as in JAX.
 """
 
 from __future__ import annotations
@@ -21,6 +25,7 @@ from dataclasses import dataclass, replace
 from typing import Any, Callable
 
 import numpy as np
+import torch
 
 from . import registry
 
@@ -137,22 +142,61 @@ class SolvePlan:
     spec        the canonical :class:`SolveSpec`
     info        {"method", "precond", "fused", "substrate", "batch",
                  "layout", "reorder", "format"}
+    context     the ``registry.SolveContext`` the program hands the solver
+                (``SolverDef.run(plan.context, b, x0)`` outside the plan
+                runs the same solve eagerly)
     executions  times the plan was called
+    traces      builds of the plan's program (module docstring): 1 in the
+                steady state however often the plan runs
     last_iters  per-RHS iteration counts of the most recent execution
     last_status per-RHS structured status codes (int32 STATUS_*) of the
                 most recent execution; ``last_status_names`` spells them
     last_bad_iter  per-RHS first guard-tripped iteration (-1 = none)
     """
 
-    def __init__(self, engine, spec: SolveSpec, fn: Callable, info: dict):
+    def __init__(self, engine, spec: SolveSpec, fn: Callable, info: dict,
+                 cell, context):
         self.engine = engine
         self.spec = spec
         self._fn = fn
+        self._cell = cell
+        self.context = context
         self.info = info
         self.executions = 0
         self.last_iters = None
         self.last_status = None
         self.last_bad_iter = None
+
+    @property
+    def fn(self):
+        """The program ``fn(b_dev, x0_dev) -> SolveResult`` in the engine's
+        padded device layout; a call with a new input signature builds it
+        again (and counts in ``traces``)."""
+        return self._fn
+
+    @property
+    def cell(self):
+        """The :class:`loop.ProgramCell` of the program: its builds, its
+        captured loops (``captures``, ``capture_s``) and ``replays``."""
+        return self._cell
+
+    @property
+    def traces(self) -> int:
+        return self._cell.traces
+
+    def assert_steady(self) -> None:
+        """Raise RuntimeError if this plan ever retraced.
+
+        The compile-free steady-state contract: a built plan traces exactly
+        once, however many times serving re-enters it (warm starts, cohort
+        changes, value substitution).  A violation is a real serving bug
+        (per-step recompiles), so fail loudly -- RuntimeError survives
+        ``python -O``, unlike ``assert``."""
+        if self.traces > 1:
+            raise RuntimeError(
+                f"plan for spec {self.spec} retraced ({self.traces} traces):"
+                " the compile-free steady-state contract broke"
+            )
 
     @property
     def last_status_names(self):
@@ -182,14 +226,16 @@ class SolvePlan:
         is broadcast over a (k, n) batch."""
         b = np.asarray(b)
         self._check(b)
+        eng = self.engine
+        b_dev = eng.to_device_vec(b)
         if x0 is None:
-            x0 = np.zeros(b.shape)
+            x0_dev = torch.zeros_like(b_dev)
         else:
             x0 = np.asarray(x0)
             if b.ndim == 2 and x0.ndim == 1:
                 x0 = np.broadcast_to(x0, b.shape)
-        eng = self.engine
-        res = self._fn(eng.to_device_vec(b), eng.to_device_vec(x0))
+            x0_dev = eng.to_device_vec(x0)
+        res = self._fn(b_dev, x0_dev)
         self.executions += 1
         self.last_iters = res.iters
         self.last_status = res.status

@@ -4,7 +4,9 @@ lowering (port of ``repro.core.registry`` for local solves).
 A :class:`SolverDef` names an iteration and declares what it supports; a
 :class:`PrecondDef` names a preconditioner and how its local apply is
 built.  ``canonicalize`` and the engine's lowering read these instead of
-branching on names.  Registered: the solvers ``pcg``, ``pcg_tol``,
+branching on names; ``register_solver`` / ``register_precond`` add
+entries (``unregister_solver`` takes one out) with the JAX package's
+signatures.  Registered: the solvers ``pcg``, ``pcg_tol``,
 ``cg``, ``pcg_pipelined`` (alias ``pcg_pipe``), ``pcg_pipelined_tol``
 and ``jacobi``; the preconditioners ``jacobi``, ``identity`` (alias
 ``none``) and ``block_ic0``.
@@ -17,7 +19,8 @@ from typing import Any, Callable
 
 import torch
 
-__all__ = ["SolverDef", "PrecondDef", "SolveContext", "get_solver",
+__all__ = ["SolverDef", "PrecondDef", "SolveContext", "register_solver",
+           "register_precond", "unregister_solver", "get_solver",
            "get_precond", "solver_names", "resolve_fused", "resolve_format",
            "substrate_kind", "effective_precond"]
 
@@ -38,6 +41,7 @@ class SolveContext:
     tol: float | None = None
     max_iters: int | None = None
     guard: bool = True
+    cell: Any = None                  # the plan's loop.ProgramCell
 
 
 @dataclass(frozen=True)
@@ -96,16 +100,26 @@ _PRECONDS: dict[str, PrecondDef] = {}
 _PRECOND_ALIASES: dict[str, str] = {}
 
 
-def _register_solver(sdef: SolverDef) -> None:
+def register_solver(sdef: SolverDef) -> SolverDef:
     _SOLVERS[sdef.name] = sdef
     for a in sdef.aliases:
         _SOLVER_ALIASES[a] = sdef.name
+    return sdef
 
 
-def _register_precond(pdef: PrecondDef) -> None:
+def register_precond(pdef: PrecondDef) -> PrecondDef:
     _PRECONDS[pdef.name] = pdef
     for a in pdef.aliases:
         _PRECOND_ALIASES[a] = pdef.name
+    return pdef
+
+
+def unregister_solver(name: str) -> None:
+    sdef = _SOLVERS.pop(name, None)
+    if sdef is not None:
+        for a in sdef.aliases:
+            _SOLVER_ALIASES.pop(a, None)
+
 
 
 def get_solver(name: str) -> SolverDef:
@@ -248,23 +262,23 @@ def _run_jacobi(c: SolveContext, b, x0):
     return solvers.jacobi(c.matvec, c.dinv, b, x0=x0, iters=c.iters)
 
 
-_register_solver(SolverDef(name="pcg", run=_run_pcg,
+register_solver(SolverDef(name="pcg", run=_run_pcg,
                            fused_local=_LOCAL_PRECONDS,
                            fused_precond_apply=True, guarded=True))
-_register_solver(SolverDef(name="pcg_tol", run=_run_pcg_tol, tolerance=True,
+register_solver(SolverDef(name="pcg_tol", run=_run_pcg_tol, tolerance=True,
                            fused_local=_LOCAL_PRECONDS,
                            fused_precond_apply=True, guarded=True))
-_register_solver(SolverDef(name="cg", run=_run_cg, preconditioned=False,
+register_solver(SolverDef(name="cg", run=_run_cg, preconditioned=False,
                            fused_local=_LOCAL_PRECONDS, guarded=True))
-_register_solver(SolverDef(name="pcg_pipelined", run=_run_pcg_pipelined,
+register_solver(SolverDef(name="pcg_pipelined", run=_run_pcg_pipelined,
                            fused_local=_LOCAL_PRECONDS,
                            fused_precond_apply=True, guarded=True,
                            aliases=("pcg_pipe",)))
-_register_solver(SolverDef(name="pcg_pipelined_tol",
+register_solver(SolverDef(name="pcg_pipelined_tol",
                            run=_run_pcg_pipelined_tol, tolerance=True,
                            fused_local=_LOCAL_PRECONDS,
                            fused_precond_apply=True, guarded=True))
-_register_solver(SolverDef(name="jacobi", run=_run_jacobi,
+register_solver(SolverDef(name="jacobi", run=_run_jacobi,
                            preconditioned=False, needs_dinv=True))
 
 
@@ -282,9 +296,9 @@ def _jacobi_apply(engine):
     return lambda r: r * dinv
 
 
-_register_precond(PrecondDef(name="identity", local_apply=_identity_apply,
+register_precond(PrecondDef(name="identity", local_apply=_identity_apply,
                              aliases=("none",)))
-_register_precond(PrecondDef(name="jacobi", local_apply=_jacobi_apply,
+register_precond(PrecondDef(name="jacobi", local_apply=_jacobi_apply,
                              uses_dinv=True))
 
 
@@ -305,7 +319,7 @@ def _block_ic0_apply(engine):
     return ps
 
 
-_register_precond(PrecondDef(
+register_precond(PrecondDef(
     name="block_ic0", local_apply=_block_ic0_apply, factorized=True,
     fused_local_kind="fused_ic0",
     # "auto" takes the fused substrate where its kernel launches, as the

@@ -12,23 +12,29 @@ reduction ``pipe_dots`` = [gamma, delta, rr] a step.  Batched vector
 updates broadcast over the leading axis; ``dot`` reduces the last axis to
 (k, 1), so the per-RHS alpha and beta broadcast back.
 
-``lax.scan``/``lax.while_loop`` become Python loops.  The vectors and the
-recurrence scalars (alpha, beta, rz and the dots) stay tensors on the
-vectors' device -- the kernels read alpha and beta through pointers.  Each
-iteration makes ONE device-to-host copy, of the dots the step already
-reduced (``[pAp, rr, rz]``, or the pipelined ``[gamma, delta, rr]``, one
-slot per lane); the stopping test, the guards and the residual trace then
-run on the host in numpy arrays of the vectors' dtype, one entry per
-lane, with the JAX package's per-lane arithmetic (its float32 casts
-included), so the iteration counts, ``status``, ``bad_iter`` and the
-trace ring equal the JAX package's.  The unguarded fixed-iteration
-methods and ``jacobi`` keep their trace on the device and copy it once.
+Each ``lax.scan``/``lax.while_loop`` is a :func:`loop.while_loop` with the
+JAX body ported one for one: the vectors, the recurrence scalars, the
+guards (breakdown, divergence, the stall counter), the stop test, ``it``,
+``k``, ``fault``, ``bad``, ``best``, ``since`` and the residual trace ring
+are tensors on the vectors' device, one entry per lane, with the JAX
+package's arithmetic (its float32 casts included), so the iteration
+counts, ``status``, ``bad_iter`` and the trace equal the JAX package's.
+Called on their own they run eagerly and the host reads one flag a round
+of ``loop.CHUNK`` steps; inside a plan on the card the whole loop is one
+CUDA graph that the card runs to its end.  The results reach the host
+once, at the end.
+The fixed-iteration methods loop on ``k < iters``.
 
-A faulted lane keeps its pre-step state, as ``solvers._sel`` does on the
-TPU.  ``_sel`` is a full select over the carried vectors every
-iteration; here nothing is selected while no lane has faulted (a select
-on an all-true mask returns the new values bit for bit), and afterwards
-only the faulted lanes' rows are copied back.
+A faulted lane keeps its last good x, as ``solvers._sel`` does on the
+TPU, without a select over the carried vectors every step: on the step it
+faults (and at the start, for a lane faulted before the loop) its x is put
+back to the pre-step value and its recurrence (r, z, p and the scalars)
+set to 0, which every later step maps to itself -- alpha = beta = 0, x'
+= x + 0 * 0.  That fix-up runs under ``loop.when``: in a captured loop,
+only on a step where a lane faults.  What the result reads -- x, the
+trace (the last good residual), ``it``, ``status``, ``bad_iter`` -- is
+the JAX package's; the frozen lane's other vectors are 0 instead of their
+pre-fault values.
 
 Results: ``x`` is a tensor on the vectors' device; ``res_norms``
 ((T,) or (T, k)), ``iters``, ``status`` and ``bad_iter`` (() or (k,)) are
@@ -43,6 +49,7 @@ import numpy as np
 import torch
 
 from ..device import resolve_dtype
+from .loop import when, while_loop
 from .substrate import SolverSubstrate, reference_substrate
 from .substrate import _dot as _default_dot   # () for (n,), (k, 1) for (k, n)
 
@@ -118,35 +125,139 @@ def ensure_status(res: SolveResult, b: Vec) -> SolveResult:
     return SolveResult(res.x, res.res_norms, res.iters, status, bad)
 
 
-def _fetch(*dots: Vec) -> np.ndarray:
-    """One device-to-host copy of several dot results: (len(dots), lanes)
-    with one lane for an (n,) solve."""
-    return torch.stack([d.reshape(-1) for d in dots]).cpu().numpy()
+# -- per-lane helpers (tensors of shape () or (k,)) ---------------------------
+
+
+def _sq(d: Vec) -> Vec:
+    """A dot result squeezed to the per-lane shape () / (k,)."""
+    return d[..., 0] if d.dim() else d
+
+
+def _norm(d: Vec) -> Vec:
+    return torch.sqrt(_sq(d))
+
+
+def _lanes(b: Vec, v) -> Vec:
+    """One int32 value per lane of ``b``, on its device."""
+    return torch.full(tuple(b.shape[:-1]), v, dtype=torch.int32,
+                      device=b.device)
+
+
+def _lane_mask(m: Vec, t: Vec) -> Vec:
+    """A per-lane mask shaped to broadcast against ``t``."""
+    return m.reshape(m.shape + (1,) * (t.dim() - m.dim()))
+
+
+# A loop step's scalar logic is many tiny ops, each one kernel (one node
+# of a captured loop) on the card: the helpers below spend as few as the
+# JAX package's arithmetic allows (no Python scalar inside torch.where,
+# which costs a fill kernel; the guard thresholds computed once a solve).
 
 
 def _safe_div(num: Vec, den: Vec) -> Vec:
     """num / den with a zero denominator replaced by 1 (converged or zero
-    RHS: the step freezes instead of emitting NaN)."""
-    return num / torch.where(den == 0, 1.0, den)
+    RHS: the step freezes instead of emitting NaN).  ``den + (den == 0)``
+    is ``den`` bit for bit wherever it is not 0."""
+    return num / (den + (den == 0))
 
 
-def _nonfinite(*vals) -> np.ndarray:
-    bad = ~np.isfinite(vals[0])
-    for v in vals[1:]:
-        bad = bad | ~np.isfinite(v)
-    return bad
+def _nonfinite(*vals: Vec) -> Vec:
+    """Per lane: any of ``vals`` NaN or infinite (v - v is 0 exactly for
+    a finite v, NaN otherwise)."""
+    t = torch.stack(vals)
+    return (t - t != 0).any(0)
 
 
-def _sign_live(rn_prev, r0, dt) -> np.ndarray:
-    """Lanes whose pre-step residual is above the sign-guard floor."""
-    return rn_prev > (dt(SIGN_GUARD_FLOOR) * np.finfo(dt).eps) * r0
+def _thresholds(r0: Vec) -> tuple:
+    """(sign floor, divergence) thresholds of the guards against ||r0||:
+    a lane's sign tests apply while its residual is above the first, and
+    it diverged past the second."""
+    dt = resolve_dtype(r0.dtype)[0].type
+    return (r0 * float(dt(SIGN_GUARD_FLOOR) * np.finfo(dt).eps),
+            r0 * DIVERGENCE_FACTOR)
 
 
-def _fault_code(breakdown, diverged, stalled=False) -> np.ndarray:
-    """Priority breakdown > diverged > stagnated; 0 where no fault."""
-    code = np.where(stalled, STATUS_STAGNATED, 0)
-    code = np.where(diverged, STATUS_DIVERGED, code)
-    return np.where(breakdown, STATUS_BREAKDOWN, code).astype(np.int32)
+def _faults(fault: Vec, breakdown: Vec, diverged: Vec, stalled=None):
+    """(fault', newly): the lanes without a fault so far that trip a guard
+    take its status code, priority breakdown > diverged > stagnated."""
+    f0 = fault == 0
+    nb, nd = f0 & breakdown, f0 & diverged
+    newly = nb | nd
+    if stalled is not None:
+        ns = f0 & stalled
+        newly = newly | ns
+        fault = fault.masked_fill(ns, STATUS_STAGNATED)
+        fault.masked_fill_(nd, STATUS_DIVERGED)
+    else:
+        fault = fault.masked_fill(nd, STATUS_DIVERGED)
+    return fault.masked_fill_(nb, STATUS_BREAKDOWN), newly
+
+
+def _start_faults(init_bad: Vec) -> tuple:
+    """(fault, bad) of lanes faulted before the loop (breakdown at 0)."""
+    fault = torch.zeros(init_bad.shape, dtype=torch.int32,
+                        device=init_bad.device)
+    bad = torch.full(init_bad.shape, -1, dtype=torch.int32,
+                     device=init_bad.device)
+    return (fault.masked_fill_(init_bad, STATUS_BREAKDOWN),
+            bad.masked_fill_(init_bad, 0))
+
+
+def _status(fault: Vec, clean: int, act=None) -> Vec:
+    """STATUS_* per lane: the fault, else ``clean`` (or maxiter where a
+    lane is still active)."""
+    st = torch.full(fault.shape, clean, dtype=torch.int32, device=fault.device)
+    if act is not None:
+        st.masked_fill_(act, STATUS_MAXITER)
+    return torch.where(fault != 0, fault, st)
+
+
+def _freeze(newly: Vec, x_new: Vec, x_old: Vec, zero: tuple) -> None:
+    """In place, on the lanes ``newly`` marks: x back to its pre-step
+    value and every tensor in ``zero`` (the recurrence) set to 0 -- a
+    fixed point of the step (module docstring).  Runs only on a step
+    where a lane faults when the loop is captured."""
+
+    def fix():
+        torch.where(_lane_mask(newly, x_new), x_old, x_new, out=x_new)
+        for t in zero:
+            t.masked_fill_(_lane_mask(newly, t), 0)
+
+    when(newly.any(), fix)
+
+
+def _trace(b: Vec, n_steps: int, r0: Vec) -> Vec:
+    """The residual ring: slot i after step i, one column per lane, and a
+    last slot that a step past the budget may write."""
+    t = torch.zeros((n_steps + 2, max(1, int(np.prod(b.shape[:-1])))),
+                    dtype=b.dtype, device=b.device)
+    t[0] = r0.reshape(-1)
+    return t
+
+
+def _record(trace: Vec, k1: Vec, rn: Vec) -> None:
+    """trace[k1] = rn, in place (k1 = the step's k + 1).  A gated step may
+    write past the last step taken; :func:`_finish` fills that tail."""
+    trace.index_copy_(0, k1.long().reshape(1), rn.reshape(1, -1))
+
+
+def _finish(b: Vec, x: Vec, trace: Vec, k: Vec, it: Vec, status: Vec,
+            bad: Vec) -> SolveResult:
+    """Copy the results to the host: the trace up to slot k, its tail
+    filled with slot k, and the per-lane counts shaped for ``b``."""
+    lanes = tuple(b.shape[:-1])
+    ints = torch.cat([it.reshape(-1), status.reshape(-1), bad.reshape(-1),
+                      k.reshape(1)]).cpu().numpy()
+    n = ints.shape[0] // 3
+    kk = int(ints[-1])
+    tr = trace[:-1].cpu().numpy()
+    tr[kk + 1:] = tr[kk]
+    return SolveResult(x, tr.reshape(tr.shape[:1] + lanes),
+                       ints[:n].reshape(lanes), ints[n: 2 * n].reshape(lanes),
+                       ints[2 * n: 3 * n].reshape(lanes))
+
+
+# -- CG / PCG -----------------------------------------------------------------
 
 
 def _step(sub: SolverSubstrate, x, r, z, p, rz, beta):
@@ -158,27 +269,12 @@ def _step(sub: SolverSubstrate, x, r, z, p, rz, beta):
     return x2, r2, z2, p2, rz2, beta2, denom, rr
 
 
-def _breakdown(rn, denom, rz_prev, rz_new, rn_prev, r0, dt) -> np.ndarray:
+def _breakdown(rn, denom, rz_prev, rz_new, rn_prev, floor) -> Vec:
     """Per lane: NaN/Inf in a reduced slot, or (above the sign floor)
     pAp < 0 with rz > 0, or rz' < 0: an indefinite A or M."""
-    sign_bad = ((denom < 0) & (rz_prev > 0)) | (rz_new < 0)
-    return (_nonfinite(rn, denom, rz_new)
-            | (_sign_live(rn_prev, r0, dt) & sign_bad))
-
-
-def _freeze(good: np.ndarray, new: tuple, old: tuple) -> tuple:
-    """The step's state with every faulted lane (``~good``) put back to its
-    pre-step values: ``new`` untouched while all lanes are good, else the
-    faulted rows copied from ``old`` in place (``new`` holds fresh tensors
-    the step made; for an (n,) solve, ``old`` itself)."""
-    if good.all():
-        return new
-    if new[0].dim() == 1:
-        return old
-    rows = torch.from_numpy(np.flatnonzero(~good)).to(new[0].device)
-    for n_, o in zip(new, old):
-        n_[rows] = o[rows]
-    return new
+    dq, rzq, rz2q = _sq(denom), _sq(rz_prev), _sq(rz_new)
+    sign_bad = ((dq < 0) & (rzq > 0)) | (rz2q < 0)
+    return _nonfinite(rn, dq, rz2q) | ((rn_prev > floor) & sign_bad)
 
 
 def _start(sub, b, x0):
@@ -189,12 +285,10 @@ def _start(sub, b, x0):
     return x, r, z, rz, torch.zeros_like(b), torch.zeros_like(rz)
 
 
-def _result(b, x, trace, iters, status, bad) -> SolveResult:
-    """Per-RHS host arrays shaped for ``b``: (T,) and () for an (n,) b."""
-    lanes = tuple(b.shape[:-1])
-    return SolveResult(x, trace.reshape(trace.shape[:1] + lanes),
-                       _per_rhs(b, iters), _per_rhs(b, status),
-                       _per_rhs(b, bad))
+def _freeze_start(init_bad: Vec, r, z, rz) -> None:
+    """Lanes faulted before the loop: the zero fixed point from x0."""
+    for t in (r, z, rz):
+        t.masked_fill_(_lane_mask(init_bad, t), 0)
 
 
 def cg(
@@ -232,47 +326,52 @@ def pcg(
     ``guard=False``."""
     sub = substrate if substrate is not None else reference_substrate(
         matvec, psolve, dot)
-    dt = resolve_dtype(b.dtype)[0].type
     x, r, z, rz, p, beta = _start(sub, b, x0)
+    r0 = _norm(sub.dot(r, r))
+    trace = _trace(b, iters, r0)
+    k0 = torch.zeros((), dtype=torch.int32, device=b.device)
+
+    def cond(s):
+        return s[6] < iters
 
     if not guard:
-        # rr stays on the device; its square root is taken on the host,
-        # as the guarded loop takes it, so that both give the same bits
-        rrs = [sub.dot(r, r).reshape(-1)]
-        for _ in range(iters):
+        def body(s):
+            x, r, z, p, rz, beta, k, trace = s
             x, r, z, p, rz, beta, _, rr = _step(sub, x, r, z, p, rz, beta)
-            rrs.append(rr.reshape(-1))
-        return _result(b, x, np.sqrt(torch.stack(rrs).cpu().numpy()), iters,
-                       STATUS_UNGUARDED, -1)
+            k1 = k + 1
+            _record(trace, k1, _norm(rr))
+            return x, r, z, p, rz, beta, k1, trace
 
-    rr0_h, rz_h = _fetch(sub.dot(r, r), rz)
-    r0_h = np.sqrt(rr0_h)
-    fault = np.where(_nonfinite(r0_h, rz_h), STATUS_BREAKDOWN, 0)
-    bad = np.where(fault != 0, 0, -1)
-    trace = np.empty((iters + 1,) + r0_h.shape, dt)
-    trace[0] = r0_h
-    rn_prev = r0_h
-    state = (x, r, z, p, rz, beta)
-    with np.errstate(all="ignore"):
-        for i in range(iters):
-            if fault.all():                 # every lane frozen for good
-                trace[i + 1:] = rn_prev
-                break
-            new = _step(sub, *state)
-            denom_h, rr_h, rzn_h = _fetch(new[6], new[7], new[4])
-            rn = np.sqrt(rr_h)
-            breakdown = _breakdown(rn, denom_h, rz_h, rzn_h, rn_prev, r0_h, dt)
-            diverged = rn > dt(DIVERGENCE_FACTOR) * r0_h
-            newly = (fault == 0) & (breakdown | diverged)
-            fault = np.where(newly, _fault_code(breakdown, diverged), fault)
-            bad = np.where(newly, i + 1, bad)
-            good = fault == 0
-            state = _freeze(good, new[:6], state)
-            rz_h = np.where(good, rzn_h, rz_h)
-            rn_prev = np.where(good, rn, rn_prev)
-            trace[i + 1] = rn_prev
-    status = np.where(fault != 0, fault, STATUS_MAXITER)
-    return _result(b, state[0], trace, iters, status, bad)
+        x, *_, k, trace = while_loop(cond, body,
+                                     (x, r, z, p, rz, beta, k0, trace))
+        return _finish(b, x, trace, k, _lanes(b, iters),
+                       _lanes(b, STATUS_UNGUARDED), _lanes(b, -1))
+
+    init_bad = _nonfinite(r0, _sq(rz))
+    _freeze_start(init_bad, r, z, rz)
+    fault, bad = _start_faults(init_bad)
+
+    def body(s):
+        x, r, z, p, rz, beta, k, trace, rn_prev, fault, bad, floor, big = s
+        x2, r2, z2, p2, rz2, beta2, denom, rr = _step(sub, x, r, z, p, rz,
+                                                      beta)
+        rn = _norm(rr)
+        fault, newly = _faults(fault,
+                               _breakdown(rn, denom, rz, rz2, rn_prev, floor),
+                               rn > big)
+        k1 = k + 1
+        bad = torch.where(newly, k1, bad)
+        rn_out = torch.where(fault == 0, rn, rn_prev)
+        _record(trace, k1, rn_out)
+        _freeze(newly, x2, x, (r2, z2, p2, rz2, beta2))
+        return (x2, r2, z2, p2, rz2, beta2, k1, trace, rn_out, fault, bad,
+                floor, big)
+
+    x, *_, k, trace, _, fault, bad, _, _ = while_loop(
+        cond, body, (x, r, z, p, rz, beta, k0, trace, r0, fault, bad,
+                     *_thresholds(r0)))
+    return _finish(b, x, trace, k, _lanes(b, iters),
+                   _status(fault, STATUS_MAXITER), bad)
 
 
 def pcg_tol(
@@ -304,63 +403,68 @@ def pcg_tol(
     last good iterate."""
     sub = substrate if substrate is not None else reference_substrate(
         matvec, psolve, dot)
-    dt = resolve_dtype(b.dtype)[0].type
     x, r, z, rz, p, beta = _start(sub, b, x0)
-    bnorm = torch.sqrt(sub.dot(b, b))
-    r0n = torch.sqrt(sub.dot(r, r))
-    rz_h, bnorm_h, r0n_h = _fetch(rz, bnorm, r0n)
-    bnorm_h = np.where(bnorm_h == 0, dt(1.0), bnorm_h)
-    tol_h = dt(tol)
-    trace = np.zeros((max_iters + 1,) + r0n_h.shape, dt)
-    trace[0] = r0n_h
-    it = np.zeros(r0n_h.shape, np.int32)
-    k = 0
-    state = (x, r, z, p, rz, beta)
+    bnorm = _norm(sub.dot(b, b))
+    bnorm = bnorm + (bnorm == 0)
+    r0n = _norm(sub.dot(r, r))
+    trace = _trace(b, max_iters, r0n)
+    act = r0n / bnorm > tol
+    it = _lanes(b, 0)
+    k0 = torch.zeros((), dtype=torch.int32, device=b.device)
 
-    with np.errstate(all="ignore"):
-        act = r0n_h / bnorm_h > tol_h
-        if not guard:
-            while act.any() and k < max_iters:
-                it += act
-                *state, _, rr = _step(sub, *state)
-                rn = np.sqrt(_fetch(rr)[0])
-                trace[k + 1] = rn
-                act = rn / bnorm_h > tol_h
-                k += 1
-            trace[k + 1:] = trace[k]
-            return _result(b, state[0], trace, it, STATUS_UNGUARDED, -1)
+    def cond(s):
+        return s[6].any() & (s[8] < max_iters)
 
-        init_bad = _nonfinite(r0n_h, rz_h, bnorm_h)
-        fault = np.where(init_bad, STATUS_BREAKDOWN, 0)
-        bad = np.where(init_bad, 0, -1)
-        act = act & (fault == 0)
-        best, since, rn_prev = r0n_h, np.zeros_like(it), r0n_h
-        while act.any() and k < max_iters:
-            it += act
-            new = _step(sub, *state)
-            denom_h, rr_h, rzn_h = _fetch(new[6], new[7], new[4])
-            rn = np.sqrt(rr_h)
-            breakdown = _breakdown(rn, denom_h, rz_h, rzn_h, rn_prev, r0n_h, dt)
-            diverged = rn > dt(DIVERGENCE_FACTOR) * r0n_h
-            improved = rn < best
-            best = np.minimum(rn, best)
-            since = np.where(improved, 0, since + 1)
-            stalled = act & (since >= STALL_WINDOW)
-            newly = (fault == 0) & (breakdown | diverged | stalled)
-            fault = np.where(newly, _fault_code(breakdown, diverged, stalled),
-                             fault)
-            bad = np.where(newly, k + 1, bad)
-            good = fault == 0
-            state = _freeze(good, new[:6], state)
-            rz_h = np.where(good, rzn_h, rz_h)
-            rn_prev = np.where(good, rn, rn_prev)
-            trace[k + 1] = rn_prev
-            act = good & (rn / bnorm_h > tol_h)
-            k += 1
-        trace[k + 1:] = trace[k]
-    status = np.where(fault != 0, fault,
-                      np.where(act, STATUS_MAXITER, STATUS_CONVERGED))
-    return _result(b, state[0], trace, it, status, bad)
+    if not guard:
+        def body(s):
+            x, r, z, p, rz, beta, act, it, k, trace, bnorm = s
+            it = it + act
+            x, r, z, p, rz, beta, _, rr = _step(sub, x, r, z, p, rz, beta)
+            rn = _norm(rr)
+            k1 = k + 1
+            _record(trace, k1, rn)
+            return (x, r, z, p, rz, beta, rn / bnorm > tol, it, k1, trace,
+                    bnorm)
+
+        x, *_, it, k, trace, _ = while_loop(
+            cond, body, (x, r, z, p, rz, beta, act, it, k0, trace, bnorm))
+        return _finish(b, x, trace, k, it, _lanes(b, STATUS_UNGUARDED),
+                       _lanes(b, -1))
+
+    init_bad = _nonfinite(r0n, _sq(rz), bnorm)
+    _freeze_start(init_bad, r, z, rz)
+    fault, bad = _start_faults(init_bad)
+    act = act & ~init_bad
+
+    def body(s):
+        (x, r, z, p, rz, beta, act, it, k, trace, rn_prev, fault, bad, best,
+         since, bnorm, floor, big) = s
+        it = it + act
+        x2, r2, z2, p2, rz2, beta2, denom, rr = _step(sub, x, r, z, p, rz,
+                                                      beta)
+        rn = _norm(rr)
+        improved = rn < best
+        best = torch.minimum(rn, best)
+        since = (since + 1).masked_fill_(improved, 0)
+        fault, newly = _faults(fault,
+                               _breakdown(rn, denom, rz, rz2, rn_prev, floor),
+                               rn > big, act & (since >= STALL_WINDOW))
+        k1 = k + 1
+        bad = torch.where(newly, k1, bad)
+        good = fault == 0
+        rn_out = torch.where(good, rn, rn_prev)
+        _record(trace, k1, rn_out)
+        act = good & (rn / bnorm > tol)
+        _freeze(newly, x2, x, (r2, z2, p2, rz2, beta2))
+        return (x2, r2, z2, p2, rz2, beta2, act, it, k1, trace, rn_out,
+                fault, bad, best, since, bnorm, floor, big)
+
+    (x, _, _, _, _, _, act, it, k, trace, _, fault, bad, *_) = while_loop(
+        cond, body, (x, r, z, p, rz, beta, act, it, k0, trace, r0n, fault,
+                     bad, r0n, torch.zeros_like(it), bnorm,
+                     *_thresholds(r0n)))
+    return _finish(b, x, trace, k, it, _status(fault, STATUS_CONVERGED, act),
+                   bad)
 
 
 # -- pipelined PCG (Chronopoulos-Gear) ---------------------------------------
@@ -380,15 +484,14 @@ def _pipe_start(sub, b, x0):
     return (x, r, u, w, zv, zv, zv, zv, m, gd[0], gd[1], one, one), gd
 
 
-def _pipe_step(sub, first: bool, state):
+def _pipe_step(sub, k, state):
     """One pipelined step -> (state', [gamma', delta', rr']).  The scalar
-    recurrence: beta = gamma/gamma_old (0 on the first step), alpha =
-    gamma / (delta - beta*gamma/alpha_old); a zero denominator gives the
-    step a 0 instead of a NaN."""
+    recurrence: beta = gamma/gamma_old (0 on the first step, k == 0),
+    alpha = gamma / (delta - beta*gamma/alpha_old); a zero denominator
+    gives the step a 0 instead of a NaN."""
     x, r, u, w, z, q, s, p, m, gamma, delta, gamma_old, alpha_old = state
     nv = sub.matvec(m)
-    beta = (torch.zeros_like(gamma) if first
-            else _safe_div(gamma, gamma_old))
+    beta = _safe_div(gamma, gamma_old).masked_fill_(k == 0, 0.0)
     alpha = _safe_div(gamma, delta - _safe_div(beta * gamma, alpha_old))
     x, r, u, w, z, q, s, p = sub.pipe_update(beta, alpha, x, r, u, w, z, q,
                                              s, p, m, nv)
@@ -397,24 +500,25 @@ def _pipe_step(sub, first: bool, state):
     return (x, r, u, w, z, q, s, p, m, gd[0], gd[1], gamma, alpha), gd
 
 
-def _pipe_guard(gd_h, rn, rn_prev, r0, dt):
+def _pipe_norm(gd: Vec) -> Vec:
+    return torch.sqrt(torch.clamp_min(_sq(gd[2]), 0.0))
+
+
+def _pipe_guard(gd, rn, rn_prev, floor, big):
     """Per lane, from the one stacked reduction: NaN/Inf, or (above the
     sign floor) gamma = (r, M^-1 r) < 0 (M indefinite) or delta < 0 with
     gamma > 0 (A indefinite) => breakdown; residual blow-up => diverged."""
-    gq, dq = gd_h[0], gd_h[1]
+    gq, dq = _sq(gd[0]), _sq(gd[1])
     sign_bad = (gq < 0) | ((dq < 0) & (gq > 0))
-    breakdown = (_nonfinite(rn, gq, dq)
-                 | (_sign_live(rn_prev, r0, dt) & sign_bad))
-    return breakdown, rn > dt(DIVERGENCE_FACTOR) * r0
+    breakdown = _nonfinite(rn, gq, dq) | ((rn_prev > floor) & sign_bad)
+    return breakdown, rn > big
 
 
-def _pipe_freeze(good: np.ndarray, new: tuple, old: tuple) -> tuple:
-    """:func:`_freeze` over the pipelined state.  The new gamma_old is the
-    old gamma tensor itself, which the row copy would overwrite while the
-    old state still holds it: copy it first."""
-    if not good.all():
-        new = new[:11] + (new[11].clone(),) + new[12:]
-    return _freeze(good, new, old)
+def _pipe_freeze(newly, new, old) -> None:
+    """:func:`_freeze` over the pipelined state: x back, the vectors,
+    gamma, delta and alpha_old to 0 (gamma_old is the pre-step gamma, a
+    tensor of the old state: it stays)."""
+    _freeze(newly, new[0], old[0], new[1:11] + new[12:])
 
 
 def pcg_pipelined(
@@ -435,43 +539,47 @@ def pcg_pipelined(
     lane freezes at its last good iterate."""
     sub = substrate if substrate is not None else reference_substrate(
         matvec, psolve, dot)
-    dt = resolve_dtype(b.dtype)[0].type
     state, gd = _pipe_start(sub, b, x0)
+    r0 = _pipe_norm(gd)
+    trace = _trace(b, iters, r0)
+    k0 = torch.zeros((), dtype=torch.int32, device=b.device)
+
+    def cond(s):
+        return s[13] < iters
 
     if not guard:
-        # as pcg's lean loop: rr on the device, its root on the host
-        rrs = [gd[2].reshape(-1)]
-        for i in range(iters):
-            state, gd = _pipe_step(sub, i == 0, state)
-            rrs.append(gd[2].reshape(-1))
-        rr = torch.stack(rrs).cpu().numpy()
-        return _result(b, state[0], np.sqrt(np.maximum(rr, dt(0))), iters,
-                       STATUS_UNGUARDED, -1)
+        def body(s):
+            k, trace = s[13:]
+            new, gd = _pipe_step(sub, k, s[:13])
+            k1 = k + 1
+            _record(trace, k1, _pipe_norm(gd))
+            return new + (k1, trace)
 
-    gd_h = gd.reshape(3, -1).cpu().numpy()
-    with np.errstate(all="ignore"):
-        r0 = np.sqrt(np.maximum(gd_h[2], dt(0)))
-        fault = np.where(_nonfinite(r0, gd_h[0], gd_h[1]), STATUS_BREAKDOWN, 0)
-        bad = np.where(fault != 0, 0, -1)
-        trace = np.empty((iters + 1,) + r0.shape, dt)
-        trace[0] = rn_prev = r0
-        for i in range(iters):
-            if fault.all():                 # every lane frozen for good
-                trace[i + 1:] = rn_prev
-                break
-            new, gd = _pipe_step(sub, i == 0, state)
-            gd_h = gd.reshape(3, -1).cpu().numpy()
-            rn = np.sqrt(np.maximum(gd_h[2], dt(0)))
-            breakdown, diverged = _pipe_guard(gd_h, rn, rn_prev, r0, dt)
-            newly = (fault == 0) & (breakdown | diverged)
-            fault = np.where(newly, _fault_code(breakdown, diverged), fault)
-            bad = np.where(newly, i + 1, bad)
-            good = fault == 0
-            state = _pipe_freeze(good, new, state)
-            rn_prev = np.where(good, rn, rn_prev)
-            trace[i + 1] = rn_prev
-    status = np.where(fault != 0, fault, STATUS_MAXITER)
-    return _result(b, state[0], trace, iters, status, bad)
+        out = while_loop(cond, body, state + (k0, trace))
+        return _finish(b, out[0], out[14], out[13], _lanes(b, iters),
+                       _lanes(b, STATUS_UNGUARDED), _lanes(b, -1))
+
+    init_bad = _nonfinite(r0, _sq(gd[0]), _sq(gd[1]))
+    _freeze(init_bad, state[0], state[0], state[1:11])
+    fault, bad = _start_faults(init_bad)
+
+    def body(s):
+        old, (k, trace, rn_prev, fault, bad, floor, big) = s[:13], s[13:]
+        new, gd = _pipe_step(sub, k, old)
+        rn = _pipe_norm(gd)
+        fault, newly = _faults(fault, *_pipe_guard(gd, rn, rn_prev, floor,
+                                                   big))
+        k1 = k + 1
+        bad = torch.where(newly, k1, bad)
+        rn_out = torch.where(fault == 0, rn, rn_prev)
+        _record(trace, k1, rn_out)
+        _pipe_freeze(newly, new, old)
+        return new + (k1, trace, rn_out, fault, bad, floor, big)
+
+    out = while_loop(cond, body, state + (k0, trace, r0, fault, bad,
+                                          *_thresholds(r0)))
+    return _finish(b, out[0], out[14], out[13], _lanes(b, iters),
+                   _status(out[16], STATUS_MAXITER), out[17])
 
 
 def pcg_pipelined_tol(
@@ -494,62 +602,66 @@ def pcg_pipelined_tol(
     :func:`pcg_tol`'s."""
     sub = substrate if substrate is not None else reference_substrate(
         matvec, psolve, dot)
-    dt = resolve_dtype(b.dtype)[0].type
     state, gd = _pipe_start(sub, b, x0)
-    # one host copy: the stacked reduction and ||b||^2
-    head = torch.cat([gd.reshape(3, -1), sub.dot(b, b).reshape(1, -1)])
-    gd_h = head.cpu().numpy()
-    tol_h = dt(tol)
-    k = 0
-    with np.errstate(all="ignore"):
-        r0n = np.sqrt(np.maximum(gd_h[2], dt(0)))
-        bnorm = np.sqrt(np.maximum(gd_h[3], dt(0)))
-        bnorm = np.where(bnorm == 0, dt(1.0), bnorm)
-        trace = np.zeros((max_iters + 1,) + r0n.shape, dt)
-        trace[0] = r0n
-        it = np.zeros(r0n.shape, np.int32)
-        act = r0n / bnorm > tol_h
-        if not guard:
-            while act.any() and k < max_iters:
-                it += act
-                state, gd = _pipe_step(sub, k == 0, state)
-                rn = np.sqrt(np.maximum(gd.reshape(3, -1)[2].cpu().numpy(),
-                                        dt(0)))
-                trace[k + 1] = rn
-                act = rn / bnorm > tol_h
-                k += 1
-            trace[k + 1:] = trace[k]
-            return _result(b, state[0], trace, it, STATUS_UNGUARDED, -1)
+    r0n = _pipe_norm(gd)
+    bnorm = torch.sqrt(torch.clamp_min(_sq(sub.dot(b, b)), 0.0))
+    bnorm = bnorm + (bnorm == 0)
+    trace = _trace(b, max_iters, r0n)
+    act = r0n / bnorm > tol
+    it = _lanes(b, 0)
+    k0 = torch.zeros((), dtype=torch.int32, device=b.device)
 
-        init_bad = _nonfinite(r0n, gd_h[0], gd_h[1], bnorm)
-        fault = np.where(init_bad, STATUS_BREAKDOWN, 0)
-        bad = np.where(init_bad, 0, -1)
-        act = act & (fault == 0)
-        best, since, rn_prev = r0n, np.zeros_like(it), r0n
-        while act.any() and k < max_iters:
-            it += act
-            new, gd = _pipe_step(sub, k == 0, state)
-            gd_h = gd.reshape(3, -1).cpu().numpy()
-            rn = np.sqrt(np.maximum(gd_h[2], dt(0)))
-            breakdown, diverged = _pipe_guard(gd_h, rn, rn_prev, r0n, dt)
-            improved = rn < best
-            best = np.minimum(rn, best)
-            since = np.where(improved, 0, since + 1)
-            stalled = act & (since >= STALL_WINDOW)
-            newly = (fault == 0) & (breakdown | diverged | stalled)
-            fault = np.where(newly, _fault_code(breakdown, diverged, stalled),
-                             fault)
-            bad = np.where(newly, k + 1, bad)
-            good = fault == 0
-            state = _pipe_freeze(good, new, state)
-            rn_prev = np.where(good, rn, rn_prev)
-            trace[k + 1] = rn_prev
-            act = good & (rn / bnorm > tol_h)
-            k += 1
-        trace[k + 1:] = trace[k]
-    status = np.where(fault != 0, fault,
-                      np.where(act, STATUS_MAXITER, STATUS_CONVERGED))
-    return _result(b, state[0], trace, it, status, bad)
+    def cond(s):
+        return s[13].any() & (s[15] < max_iters)
+
+    if not guard:
+        def body(s):
+            old, (act, it, k, trace, bnorm) = s[:13], s[13:]
+            it = it + act
+            new, gd = _pipe_step(sub, k, old)
+            rn = _pipe_norm(gd)
+            k1 = k + 1
+            _record(trace, k1, rn)
+            return new + (rn / bnorm > tol, it, k1, trace, bnorm)
+
+        out = while_loop(cond, body, state + (act, it, k0, trace, bnorm))
+        return _finish(b, out[0], out[16], out[15], out[14],
+                       _lanes(b, STATUS_UNGUARDED), _lanes(b, -1))
+
+    init_bad = _nonfinite(r0n, _sq(gd[0]), _sq(gd[1]), bnorm)
+    _freeze(init_bad, state[0], state[0], state[1:11])
+    fault, bad = _start_faults(init_bad)
+    act = act & ~init_bad
+
+    def body(s):
+        old = s[:13]
+        (act, it, k, trace, rn_prev, fault, bad, best, since, bnorm, floor,
+         big) = s[13:]
+        it = it + act
+        new, gd = _pipe_step(sub, k, old)
+        rn = _pipe_norm(gd)
+        improved = rn < best
+        best = torch.minimum(rn, best)
+        since = (since + 1).masked_fill_(improved, 0)
+        fault, newly = _faults(fault, *_pipe_guard(gd, rn, rn_prev, floor, big),
+                               act & (since >= STALL_WINDOW))
+        k1 = k + 1
+        bad = torch.where(newly, k1, bad)
+        good = fault == 0
+        rn_out = torch.where(good, rn, rn_prev)
+        _record(trace, k1, rn_out)
+        act = good & (rn / bnorm > tol)
+        _pipe_freeze(newly, new, old)
+        return new + (act, it, k1, trace, rn_out, fault, bad, best, since,
+                      bnorm, floor, big)
+
+    out = while_loop(cond, body, state + (act, it, k0, trace, r0n, fault, bad,
+                                          r0n, torch.zeros_like(it), bnorm,
+                                          *_thresholds(r0n)))
+    act, it, k, trace, fault, bad = (out[13], out[14], out[15], out[16],
+                                     out[18], out[19])
+    return _finish(b, out[0], trace, k, it,
+                   _status(fault, STATUS_CONVERGED, act), bad)
 
 
 def jacobi(
@@ -567,10 +679,17 @@ def jacobi(
     UNGUARDED."""
     x = torch.zeros_like(b) if x0 is None else x0
     r0 = b - matvec(x)
-    norms = [torch.sqrt(dot(r0, r0)).reshape(-1)]
-    for _ in range(iters):
+    trace = _trace(b, iters, _norm(dot(r0, r0)))
+    k0 = torch.zeros((), dtype=torch.int32, device=b.device)
+
+    def body(s):
+        x, k, trace, b = s
         r = b - matvec(x)
-        x = x + diag_inv * r
-        norms.append(torch.sqrt(dot(r, r)).reshape(-1))
-    return _result(b, x, torch.stack(norms).cpu().numpy(), iters,
-                   STATUS_UNGUARDED, -1)
+        k1 = k + 1
+        _record(trace, k1, _norm(dot(r, r)))
+        return x + diag_inv * r, k1, trace, b
+
+    x, k, trace, _ = while_loop(lambda s: s[1] < iters, body,
+                                (x, k0, trace, b))
+    return _finish(b, x, trace, k, _lanes(b, iters),
+                   _lanes(b, STATUS_UNGUARDED), _lanes(b, -1))

@@ -178,10 +178,7 @@ def bcsr_spmm(block_cols: torch.Tensor, blocks: torch.Tensor,
                    y.data_ptr(), nbr, w, bm, bn, r, valid,
                    x.stride(0), x.stride(1), y.stride(0), y.stride(1),
                    _CODE[variant], lane_chunk(r, variant), gx, gy,
+                   build.launch_counter("bcsr_spmm", blocks.device),
                    build.stream_handle(blocks.device)),
                 "bcsr_spmm")
-    bcsr_spmm.launches += 1
     return y
-
-
-bcsr_spmm.launches = 0

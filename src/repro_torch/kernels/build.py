@@ -10,6 +10,11 @@ The build happens on first use, into ``build/repro_torch/<key>/`` at the
 repository root (``.gitignore`` lists ``build/``).  ``<key>`` hashes the
 sources and the flags, so an edited source rebuilds and an unchanged
 checkout reuses its library.  Nothing here runs at import time.
+
+Launch counts live on the card: every kernel a wrapper launches takes
+the address of the wrapper's count (:func:`launch_counter`) and adds one
+there as it starts (``csrc/common.cuh`` ``count_launch``), so a launch
+that a CUDA graph replays counts as one that Python makes.
 """
 
 from __future__ import annotations
@@ -25,8 +30,9 @@ from pathlib import Path
 import torch
 
 __all__ = ["CSRC", "BUILD_ROOT", "NVCC_FLAGS", "library", "build_key",
-           "check", "entry", "require_cuda", "device_scalar", "device_lanes",
-           "stream_handle"]
+           "check", "entry", "plain_entry", "require_cuda", "device_scalar",
+           "device_lanes", "stream_handle", "prepare", "launch_counter",
+           "launch_counts", "reset_launch_counts"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
@@ -38,37 +44,48 @@ _P = ctypes.c_void_p
 _I32 = ctypes.c_int32
 _I64 = ctypes.c_int64
 
-# C signature of every exported function: (argtypes) -> int (cudaError_t)
+# C signature of every exported function: (argtypes) -> int (cudaError_t);
+# a kernel's last two arguments are its launch count and the stream
 _SIGNATURES = {
-    "repro_ell_spmv": (_P, _P, _P, _P, _I64, _I32, _I32, _P),
+    "repro_ell_spmv": (_P, _P, _P, _P, _I64, _I32, _I32, _P, _P),
     "repro_ell_spmv_pfold_dot": (_P, _P, _P, _P, _P, _P, _P, _P, _P,
-                                 _I64, _I32, _I32, _I64, _P),
+                                 _I64, _I32, _I32, _I64, _P, _P),
     "repro_cg_update": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                        _I64, _I64, _P),
-    "repro_ell_spmm": (_P, _P, _P, _P, _I64, _I64, _I32, _I32, _I32, _P),
+                        _I64, _I64, _P, _P),
+    "repro_ell_spmm": (_P, _P, _P, _P, _I64, _I64, _I32, _I32, _I32, _P, _P),
     "repro_ell_spmm_pfold_dot": (_P, _P, _P, _P, _P, _P, _P, _P, _P,
-                                 _I64, _I32, _I32, _I64, _I32, _P),
+                                 _I64, _I32, _I32, _I64, _I32, _P, _P),
     "repro_cg_update_batched": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                                _I64, _I64, _I32, _P),
+                                _I64, _I64, _I32, _P, _P),
     "repro_sptrsv_solve_dot": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                               _I32, _I32, _I32, _P),
+                               _I32, _I32, _I32, _P, _P),
     "repro_sptrsv_coresident": (),     # -> blocks, or minus the CUDA error
     "repro_sptrsv_cluster": (_P, _P, _P, _P, _P, _P, _P, _P, _P,
-                             _I32, _I32, _I32, _I32, _I32, _I32, _P),
+                             _I32, _I32, _I32, _I32, _I32, _I32, _P, _P),
     "repro_bcsr_spmm": (_P, _P, _P, _P, _I64, _I32, _I32, _I32, _I32,
                         _I64, _I64, _I64, _I64, _I64, _I32, _I32, _I32, _I32,
-                        _P),
+                        _P, _P),
     "repro_ell_spmv_dot": (_P, _P, _P, _P, _P, _P, _I64, _I32, _I32, _I64,
-                           _P),
+                           _P, _P),
     "repro_ell_spmm_dot": (_P, _P, _P, _P, _P, _P, _I64, _I32, _I32, _I64,
-                           _I32, _I64, _I64, _P),
+                           _I32, _I64, _I64, _P, _P),
     "repro_spmv_dot_rows": (_P, _P, _P, _P, _P, _P, _P, _P, _P,
                             _I64, _I32, _I64, _I32, _I64, _I64, _I32, _I32,
-                            _P),
-    "repro_ell_spmm_rows": (_P, _P, _P, _P, _I64, _I32, _I32, _I64, _I32, _P),
-    "repro_axpy_dot": (_P, _P, _P, _P, _P, _P, _I64, _I64, _P),
+                            _P, _P),
+    "repro_ell_spmm_rows": (_P, _P, _P, _P, _I64, _I32, _I32, _I64, _I32,
+                            _P, _P),
+    "repro_axpy_dot": (_P, _P, _P, _P, _P, _P, _I64, _I64, _P, _P),
     "repro_sptrsv_level_step": (_P, _P, _P, _P, _P, _P, _P, _I32, _I64, _I32,
-                                _I64, _P),
+                                _I64, _P, _P),
+}
+
+# entry points with one version for every dtype (csrc/graph.cu)
+_PLAIN_SIGNATURES = {
+    "repro_graph_cond": (_P, _P, _I32, _I32, _P, _P),
+    "repro_graph_set": (_P, ctypes.c_uint64, _P),
+    "repro_graph_body_begin": (_P, _P),
+    "repro_graph_body_end": (_P,),
+    "repro_graph_nodes": (_P, _P),
 }
 
 _LIB = None
@@ -158,6 +175,10 @@ def library() -> ctypes.CDLL:
             fn = getattr(lib, base + suffix)
             fn.argtypes = list(argtypes)
             fn.restype = ctypes.c_int
+    for name, argtypes in _PLAIN_SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = list(argtypes)
+        fn.restype = ctypes.c_int
     _LIB = lib
     return lib
 
@@ -176,6 +197,11 @@ def entry(base: str, dtype: torch.dtype):
     if dtype not in _SUFFIX:
         raise TypeError(f"{base}: dtype must be float32 or float64, got {dtype}")
     return getattr(library(), base + _SUFFIX[dtype])
+
+
+def plain_entry(name: str):
+    """The C entry point ``name`` of a function that takes no dtype."""
+    return getattr(library(), name)
 
 
 def require_cuda(name: str, dtype: torch.dtype, device: torch.device,
@@ -224,3 +250,59 @@ def device_lanes(v, k: int, dtype: torch.dtype,
 def stream_handle(device: torch.device) -> int:
     """The raw handle of PyTorch's current stream on ``device``."""
     return torch.cuda.current_stream(device).cuda_stream
+
+
+# the launch counts: one int64 slot a wrapper name in a tensor on each card
+_SLOTS: dict = {}           # wrapper name -> slot
+_MAX_SLOTS = 32
+_COUNTS: dict = {}          # device index -> (_MAX_SLOTS,) int64 on the card
+
+
+def _index(device: torch.device) -> int:
+    if device.index is None:
+        return torch.cuda.current_device()
+    return device.index
+
+
+def prepare(device: torch.device) -> None:
+    """Load the library and make ``device``'s launch counts: every first-use
+    cost of the wrappers outside their kernels, ahead of a CUDA graph
+    capture (which may launch nothing and allocate nothing itself)."""
+    library()
+    idx = _index(device)
+    if idx not in _COUNTS:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(
+                f"launch counts: the first launch on cuda:{idx} is inside a "
+                "CUDA graph capture; launch once (or call build.prepare) "
+                "before capturing")
+        _COUNTS[idx] = torch.zeros(_MAX_SLOTS, dtype=torch.int64,
+                                   device=torch.device("cuda", idx))
+
+
+def launch_counter(name: str, device: torch.device) -> int:
+    """The address of wrapper ``name``'s launch count on ``device``, which
+    the kernel adds one to each time it runs."""
+    if name not in _SLOTS:
+        if len(_SLOTS) == _MAX_SLOTS:
+            raise RuntimeError(f"launch counts: no slot left for {name}")
+        _SLOTS[name] = len(_SLOTS)
+    prepare(device)
+    return _COUNTS[_index(device)].data_ptr() + 8 * _SLOTS[name]
+
+
+def launch_counts(names) -> dict:
+    """Launches of each wrapper in ``names`` since the last reset, summed
+    over the cards: read from each card once its queued work is done."""
+    total = [0] * _MAX_SLOTS
+    for idx, counts in _COUNTS.items():
+        torch.cuda.synchronize(idx)
+        for i, v in enumerate(counts.tolist()):
+            total[i] += v
+    return {n: total[_SLOTS[n]] if n in _SLOTS else 0 for n in names}
+
+
+def reset_launch_counts() -> None:
+    """Set every launch count to 0, in stream order on each card."""
+    for counts in _COUNTS.values():
+        counts.zero_()

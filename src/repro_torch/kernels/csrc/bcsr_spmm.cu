@@ -87,7 +87,8 @@ bcsr_spmm_kernel(const int32_t* __restrict__ block_cols,
                  const T* __restrict__ blocks, const T* __restrict__ x,
                  T* __restrict__ y, int64_t rows, int w, int bm, int bn,
                  int lanes, int64_t x_valid, int64_t sxr, int64_t sxl,
-                 int64_t syr, int64_t syl) {
+                 int64_t syr, int64_t syl, unsigned long long* launches) {
+  repro::count_launch(launches);
   const int64_t row = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (row >= rows) return;
   const int j0 = blockIdx.y * K;
@@ -123,10 +124,11 @@ template <typename T, int K>
 int launch_chunk(const void* block_cols, const void* blocks, const void* x,
                  void* y, int64_t rows, int32_t w, int32_t bm, int32_t bn,
                  int32_t lanes, int64_t x_valid, int64_t sxr, int64_t sxl,
-                 int64_t syr, int64_t syl, dim3 grid, cudaStream_t stream) {
+                 int64_t syr, int64_t syl, dim3 grid, unsigned long long* launches,
+                 cudaStream_t stream) {
   bcsr_spmm_kernel<T, K><<<grid, repro::kThreads, 0, stream>>>(
       (const int32_t*)block_cols, (const T*)blocks, (const T*)x, (T*)y, rows,
-      w, bm, bn, lanes, x_valid, sxr, sxl, syr, syl);
+      w, bm, bn, lanes, x_valid, sxr, sxl, syr, syl, launches);
   return (int)cudaGetLastError();
 }
 
@@ -136,12 +138,13 @@ template <typename T>
 int launch_first(const void* block_cols, const void* blocks, const void* x,
                  void* y, int64_t rows, int32_t w, int32_t bm, int32_t bn,
                  int32_t lanes, int64_t x_valid, int64_t sxr, int64_t sxl,
-                 int64_t syr, int64_t syl, int chunk, dim3 g, cudaStream_t s) {
+                 int64_t syr, int64_t syl, int chunk, dim3 g,
+                 unsigned long long* launches, cudaStream_t s) {
   switch (chunk) {
-    case 1: return launch_chunk<T, 1>(block_cols, blocks, x, y, rows, w, bm, bn, lanes, x_valid, sxr, sxl, syr, syl, g, s);
-    case 2: return launch_chunk<T, 2>(block_cols, blocks, x, y, rows, w, bm, bn, lanes, x_valid, sxr, sxl, syr, syl, g, s);
-    case 4: return launch_chunk<T, 4>(block_cols, blocks, x, y, rows, w, bm, bn, lanes, x_valid, sxr, sxl, syr, syl, g, s);
-    default: return launch_chunk<T, 8>(block_cols, blocks, x, y, rows, w, bm, bn, lanes, x_valid, sxr, sxl, syr, syl, g, s);
+    case 1: return launch_chunk<T, 1>(block_cols, blocks, x, y, rows, w, bm, bn, lanes, x_valid, sxr, sxl, syr, syl, g, launches, s);
+    case 2: return launch_chunk<T, 2>(block_cols, blocks, x, y, rows, w, bm, bn, lanes, x_valid, sxr, sxl, syr, syl, g, launches, s);
+    case 4: return launch_chunk<T, 4>(block_cols, blocks, x, y, rows, w, bm, bn, lanes, x_valid, sxr, sxl, syr, syl, g, launches, s);
+    default: return launch_chunk<T, 8>(block_cols, blocks, x, y, rows, w, bm, bn, lanes, x_valid, sxr, sxl, syr, syl, g, launches, s);
   }
 }
 
@@ -213,7 +216,8 @@ bcsr_spmm_smem_kernel(const int32_t* __restrict__ block_cols,
                       const T* __restrict__ blocks, const T* __restrict__ x,
                       T* __restrict__ y, int64_t nbr, int w, int bm,
                       int lanes, int64_t x_valid, int64_t sxl, int64_t syr,
-                      int64_t syl) {
+                      int64_t syl, unsigned long long* launches) {
+  repro::count_launch(launches);
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* xs = reinterpret_cast<T*>(smem_raw);
   constexpr int kVecT = 16 / (int)sizeof(T);
@@ -292,7 +296,7 @@ bcsr_spmm_smem_kernel(const int32_t* __restrict__ block_cols,
 struct Args {
   const void* block_cols; const void* blocks; const void* x; void* y;
   int64_t nbr; int32_t w, bm, lanes; int64_t x_valid, sxl, syr, syl;
-  dim3 grid; cudaStream_t s;
+  dim3 grid; unsigned long long* launches; cudaStream_t s;
 };
 
 // Dynamic shared memory past 48 KB is an attribute of a kernel on each
@@ -324,7 +328,8 @@ int launch_smem(const Args& a) {
   if (err != cudaSuccess) return (int)err;
   kernel<<<a.grid, repro::kThreads, bytes, a.s>>>(
       (const int32_t*)a.block_cols, (const T*)a.blocks, (const T*)a.x,
-      (T*)a.y, a.nbr, a.w, a.bm, a.lanes, a.x_valid, a.sxl, a.syr, a.syl);
+      (T*)a.y, a.nbr, a.w, a.bm, a.lanes, a.x_valid, a.sxl, a.syr, a.syl,
+      a.launches);
   return (int)cudaGetLastError();
 }
 
@@ -348,7 +353,8 @@ int launch(const void* block_cols, const void* blocks, const void* x,
            void* y, int64_t nbr, int32_t w, int32_t bm, int32_t bn,
            int32_t lanes, int64_t x_valid, int64_t sxr, int64_t sxl,
            int64_t syr, int64_t syl, int32_t variant, int32_t chunk,
-           int32_t gx, int32_t gy, void* stream) {
+           int32_t gx, int32_t gy, unsigned long long* launches,
+           void* stream) {
   if (nbr <= 0 || w <= 0 || bm <= 0 || bm > 16 || bn <= 0 || bn > 128 ||
       lanes <= 0 || x_valid < 0 || sxr <= 0 || sxl <= 0 || syr <= 0 ||
       syl <= 0 || variant < 0 || variant > 1)
@@ -366,7 +372,7 @@ int launch(const void* block_cols, const void* blocks, const void* x,
   if (variant == 0)
     return launch_first<T>(block_cols, blocks, x, y, nbr * bm, w, bm, bn,
                            lanes, x_valid, sxr, sxl, syr, syl, chunk, grid,
-                           s);
+                           launches, s);
   // what the smem variant takes: a compiled bn and bm, 16-byte aligned
   // blocks, lanes-major x with every lane's column 16-byte aligned
   const bool x_aligned = sxr == 1 && (uintptr_t)x % 16 == 0 &&
@@ -375,7 +381,7 @@ int launch(const void* block_cols, const void* blocks, const void* x,
       (uintptr_t)blocks % 16 || !x_aligned)
     return (int)cudaErrorInvalidValue;
   const Args a{block_cols, blocks, x, y, nbr, w, bm, lanes, x_valid, sxl,
-               syr, syl, grid, s};
+               syr, syl, grid, launches, s};
   switch (bn) {
     case 4: return launch_bn<T, 4>(a, chunk);
     case 8: return launch_bn<T, 8>(a, chunk);
@@ -392,10 +398,10 @@ extern "C" int repro_bcsr_spmm_f32(const void* block_cols, const void* blocks,
                                    int64_t sxr, int64_t sxl, int64_t syr,
                                    int64_t syl, int32_t variant,
                                    int32_t chunk, int32_t gx, int32_t gy,
-                                   void* stream) {
+                                   void* launches, void* stream) {
   return launch<float>(block_cols, blocks, x, y, nbr, w, bm, bn, lanes,
                        x_valid, sxr, sxl, syr, syl, variant, chunk, gx, gy,
-                       stream);
+                       (unsigned long long*)launches, stream);
 }
 
 extern "C" int repro_bcsr_spmm_f64(const void* block_cols, const void* blocks,
@@ -405,8 +411,8 @@ extern "C" int repro_bcsr_spmm_f64(const void* block_cols, const void* blocks,
                                    int64_t sxr, int64_t sxl, int64_t syr,
                                    int64_t syl, int32_t variant,
                                    int32_t chunk, int32_t gx, int32_t gy,
-                                   void* stream) {
+                                   void* launches, void* stream) {
   return launch<double>(block_cols, blocks, x, y, nbr, w, bm, bn, lanes,
                         x_valid, sxr, sxl, syr, syl, variant, chunk, gx, gy,
-                        stream);
+                        (unsigned long long*)launches, stream);
 }

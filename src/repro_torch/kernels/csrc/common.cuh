@@ -232,6 +232,16 @@ __device__ __forceinline__ void cp_async_wait() {
 // block an SM) and the SpMM spills; 8 keeps every kernel at <= 80.
 constexpr int kMaxLanes = 8;
 
+// A wrapper's launch count on the card (kernels/build.py launch_counter):
+// the first thread of the first block adds one as the kernel starts, so a
+// launch from a CUDA graph replay counts as one from Python does.  Every
+// kernel a wrapper launches first calls it once.
+__device__ __forceinline__ void count_launch(unsigned long long* launches) {
+  if ((threadIdx.x | threadIdx.y | threadIdx.z | blockIdx.x | blockIdx.y |
+       blockIdx.z) == 0)
+    atomicAdd(launches, 1ull);
+}
+
 inline int lane_chunk(int k) {
   int c = 1;
   while (c < k && c < kMaxLanes) c <<= 1;

@@ -81,7 +81,8 @@ template <typename T>
 __global__ void __launch_bounds__(repro::kThreads)
 ell_spmv_kernel(const int32_t* __restrict__ cols, const T* __restrict__ vals,
                 const T* __restrict__ x, T* __restrict__ y, int64_t rows,
-                int w, int group) {
+                int w, int group, unsigned long long* launches) {
+  repro::count_launch(launches);
   const int64_t t = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   const int64_t r = t / group;
   const int g = (int)(t % group);
@@ -97,14 +98,16 @@ ell_spmv_kernel(const int32_t* __restrict__ cols, const T* __restrict__ vals,
 
 template <typename T>
 int launch(const void* cols, const void* vals, const void* x, void* y,
-           int64_t rows, int32_t w, int32_t group, void* stream) {
+           int64_t rows, int32_t w, int32_t group, unsigned long long* launches,
+           void* stream) {
   if (rows <= 0 || w <= 0 || group < 1 || group > 32 || (group & (group - 1)))
     return (int)cudaErrorInvalidValue;
   const int64_t rows_per_block = repro::kThreads / group;
   const int64_t blocks = (rows + rows_per_block - 1) / rows_per_block;
   ell_spmv_kernel<T><<<(unsigned)blocks, repro::kThreads, 0,
                        (cudaStream_t)stream>>>(
-      (const int32_t*)cols, (const T*)vals, (const T*)x, (T*)y, rows, w, group);
+      (const int32_t*)cols, (const T*)vals, (const T*)x, (T*)y, rows, w, group,
+      launches);
   return (int)cudaGetLastError();
 }
 
@@ -112,7 +115,8 @@ template <typename T, int K>
 __global__ void __launch_bounds__(repro::kThreads)
 ell_spmm_kernel(const int32_t* __restrict__ cols, const T* __restrict__ vals,
                 const T* __restrict__ x, T* __restrict__ y, int64_t rows,
-                int64_t ldx, int w, int group, int k) {
+                int64_t ldx, int w, int group, int k, unsigned long long* launches) {
+  repro::count_launch(launches);
   const int64_t t = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   const int64_t r = t / group;
   const int g = (int)(t % group);
@@ -143,28 +147,29 @@ ell_spmm_kernel(const int32_t* __restrict__ cols, const T* __restrict__ vals,
 template <typename T, int K>
 int launch_spmm_chunk(const void* cols, const void* vals, const void* x,
                       void* y, int64_t rows, int64_t ldx, int32_t w,
-                      int32_t group, int32_t k, void* stream) {
+                      int32_t group, int32_t k, unsigned long long* launches,
+                      void* stream) {
   const int64_t rows_per_block = repro::kThreads / group;
   const int64_t blocks = (rows + rows_per_block - 1) / rows_per_block;
   const dim3 grid((unsigned)blocks, (unsigned)((k + K - 1) / K));
   ell_spmm_kernel<T, K><<<grid, repro::kThreads, 0, (cudaStream_t)stream>>>(
       (const int32_t*)cols, (const T*)vals, (const T*)x, (T*)y, rows, ldx, w,
-      group, k);
+      group, k, launches);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
 int launch_spmm(const void* cols, const void* vals, const void* x, void* y,
                 int64_t rows, int64_t ldx, int32_t w, int32_t group,
-                int32_t k, void* stream) {
+                int32_t k, unsigned long long* launches, void* stream) {
   if (rows <= 0 || w <= 0 || ldx <= 0 || k <= 0 || group < 1 || group > 32 ||
       (group & (group - 1)))
     return (int)cudaErrorInvalidValue;
   switch (repro::lane_chunk(k)) {
-    case 1: return launch_spmm_chunk<T, 1>(cols, vals, x, y, rows, ldx, w, group, k, stream);
-    case 2: return launch_spmm_chunk<T, 2>(cols, vals, x, y, rows, ldx, w, group, k, stream);
-    case 4: return launch_spmm_chunk<T, 4>(cols, vals, x, y, rows, ldx, w, group, k, stream);
-    default: return launch_spmm_chunk<T, 8>(cols, vals, x, y, rows, ldx, w, group, k, stream);
+    case 1: return launch_spmm_chunk<T, 1>(cols, vals, x, y, rows, ldx, w, group, k, launches, stream);
+    case 2: return launch_spmm_chunk<T, 2>(cols, vals, x, y, rows, ldx, w, group, k, launches, stream);
+    case 4: return launch_spmm_chunk<T, 4>(cols, vals, x, y, rows, ldx, w, group, k, launches, stream);
+    default: return launch_spmm_chunk<T, 8>(cols, vals, x, y, rows, ldx, w, group, k, launches, stream);
   }
 }
 
@@ -172,26 +177,32 @@ int launch_spmm(const void* cols, const void* vals, const void* x, void* y,
 
 extern "C" int repro_ell_spmv_f32(const void* cols, const void* vals,
                                   const void* x, void* y, int64_t rows,
-                                  int32_t w, int32_t group, void* stream) {
-  return launch<float>(cols, vals, x, y, rows, w, group, stream);
+                                  int32_t w, int32_t group, void* launches,
+                                  void* stream) {
+  return launch<float>(cols, vals, x, y, rows, w, group,
+                       (unsigned long long*)launches, stream);
 }
 
 extern "C" int repro_ell_spmv_f64(const void* cols, const void* vals,
                                   const void* x, void* y, int64_t rows,
-                                  int32_t w, int32_t group, void* stream) {
-  return launch<double>(cols, vals, x, y, rows, w, group, stream);
+                                  int32_t w, int32_t group, void* launches,
+                                  void* stream) {
+  return launch<double>(cols, vals, x, y, rows, w, group,
+                        (unsigned long long*)launches, stream);
 }
 
 extern "C" int repro_ell_spmm_f32(const void* cols, const void* vals,
                                   const void* x, void* y, int64_t rows,
                                   int64_t ldx, int32_t w, int32_t group,
-                                  int32_t k, void* stream) {
-  return launch_spmm<float>(cols, vals, x, y, rows, ldx, w, group, k, stream);
+                                  int32_t k, void* launches, void* stream) {
+  return launch_spmm<float>(cols, vals, x, y, rows, ldx, w, group, k,
+                            (unsigned long long*)launches, stream);
 }
 
 extern "C" int repro_ell_spmm_f64(const void* cols, const void* vals,
                                   const void* x, void* y, int64_t rows,
                                   int64_t ldx, int32_t w, int32_t group,
-                                  int32_t k, void* stream) {
-  return launch_spmm<double>(cols, vals, x, y, rows, ldx, w, group, k, stream);
+                                  int32_t k, void* launches, void* stream) {
+  return launch_spmm<double>(cols, vals, x, y, rows, ldx, w, group, k,
+                             (unsigned long long*)launches, stream);
 }

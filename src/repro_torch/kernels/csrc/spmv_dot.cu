@@ -90,7 +90,8 @@ spmv_dot_kernel(const int32_t* __restrict__ cols, const T* __restrict__ vals,
                 const T* __restrict__ z, const T* __restrict__ p,
                 const T* __restrict__ beta_ptr, T* __restrict__ pn,
                 T* __restrict__ y, T* __restrict__ partials, int64_t rows,
-                int w, int group) {
+                int w, int group, unsigned long long* launches) {
+  repro::count_launch(launches);
   __shared__ T sh[32];
   const T beta = kFold ? *beta_ptr : T(0);
   const int64_t t = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
@@ -122,7 +123,7 @@ template <typename T, bool kFold>
 int launch(const void* cols, const void* vals, const void* z, const void* p,
            const void* beta, void* pn, void* y, void* partials, void* pap,
            int64_t rows, int32_t w, int32_t group, int64_t nblocks,
-           void* stream) {
+           unsigned long long* launches, void* stream) {
   if (rows <= 0 || w <= 0 || group < 1 || group > 32 || (group & (group - 1)))
     return (int)cudaErrorInvalidValue;
   const int64_t rows_per_block = repro::kThreads / group;
@@ -131,7 +132,7 @@ int launch(const void* cols, const void* vals, const void* z, const void* p,
   cudaStream_t s = (cudaStream_t)stream;
   spmv_dot_kernel<T, kFold><<<(unsigned)blocks, repro::kThreads, 0, s>>>(
       (const int32_t*)cols, (const T*)vals, (const T*)z, (const T*)p,
-      (const T*)beta, (T*)pn, (T*)y, (T*)partials, rows, w, group);
+      (const T*)beta, (T*)pn, (T*)y, (T*)partials, rows, w, group, launches);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   repro::sum_partials_kernel<T><<<1, repro::kFinalThreads, 0, s>>>(
@@ -147,7 +148,9 @@ spmm_dot_kernel(const int32_t* __restrict__ cols, const T* __restrict__ vals,
                 const T* __restrict__ z, const T* __restrict__ p,
                 const T* __restrict__ beta_ptr, T* __restrict__ pn,
                 T* __restrict__ y, T* __restrict__ partials, int64_t rows,
-                int w, int group, int k, int64_t sr, int64_t sl) {
+                int w, int group, int k, int64_t sr, int64_t sl,
+                unsigned long long* launches) {
+  repro::count_launch(launches);
   __shared__ T sh[32 * K];
   const int j0 = blockIdx.y * K;
   T beta[K], acc[K];
@@ -199,11 +202,12 @@ int launch_spmm_chunk(const void* cols, const void* vals, const void* z,
                       const void* p, const void* beta, void* pn, void* y,
                       void* partials, int64_t rows, int32_t w, int32_t group,
                       int64_t blocks, int32_t k, int64_t sr, int64_t sl,
-                      cudaStream_t s) {
+                      unsigned long long* launches, cudaStream_t s) {
   const dim3 grid((unsigned)blocks, (unsigned)((k + K - 1) / K));
   spmm_dot_kernel<T, K, kFold><<<grid, repro::kThreads, 0, s>>>(
       (const int32_t*)cols, (const T*)vals, (const T*)z, (const T*)p,
-      (const T*)beta, (T*)pn, (T*)y, (T*)partials, rows, w, group, k, sr, sl);
+      (const T*)beta, (T*)pn, (T*)y, (T*)partials, rows, w, group, k, sr, sl,
+      launches);
   return (int)cudaGetLastError();
 }
 
@@ -212,7 +216,7 @@ int launch_spmm(const void* cols, const void* vals, const void* z,
                 const void* p, const void* beta, void* pn, void* y,
                 void* partials, void* pap, int64_t rows, int32_t w,
                 int32_t group, int64_t nblocks, int32_t k, int64_t sr,
-                int64_t sl, void* stream) {
+                int64_t sl, unsigned long long* launches, void* stream) {
   if (rows <= 0 || w <= 0 || k <= 0 || group < 1 || group > 32 ||
       (group & (group - 1)) || sr < 0 || sl < 0)
     return (int)cudaErrorInvalidValue;
@@ -222,10 +226,10 @@ int launch_spmm(const void* cols, const void* vals, const void* z,
   cudaStream_t s = (cudaStream_t)stream;
   int err;
   switch (repro::lane_chunk(k)) {
-    case 1: err = launch_spmm_chunk<T, 1, kFold>(cols, vals, z, p, beta, pn, y, partials, rows, w, group, blocks, k, sr, sl, s); break;
-    case 2: err = launch_spmm_chunk<T, 2, kFold>(cols, vals, z, p, beta, pn, y, partials, rows, w, group, blocks, k, sr, sl, s); break;
-    case 4: err = launch_spmm_chunk<T, 4, kFold>(cols, vals, z, p, beta, pn, y, partials, rows, w, group, blocks, k, sr, sl, s); break;
-    default: err = launch_spmm_chunk<T, 8, kFold>(cols, vals, z, p, beta, pn, y, partials, rows, w, group, blocks, k, sr, sl, s); break;
+    case 1: err = launch_spmm_chunk<T, 1, kFold>(cols, vals, z, p, beta, pn, y, partials, rows, w, group, blocks, k, sr, sl, launches, s); break;
+    case 2: err = launch_spmm_chunk<T, 2, kFold>(cols, vals, z, p, beta, pn, y, partials, rows, w, group, blocks, k, sr, sl, launches, s); break;
+    case 4: err = launch_spmm_chunk<T, 4, kFold>(cols, vals, z, p, beta, pn, y, partials, rows, w, group, blocks, k, sr, sl, launches, s); break;
+    default: err = launch_spmm_chunk<T, 8, kFold>(cols, vals, z, p, beta, pn, y, partials, rows, w, group, blocks, k, sr, sl, launches, s); break;
   }
   if (err != (int)cudaSuccess) return err;
   repro::sum_partials_kernel<T><<<(unsigned)k, repro::kFinalThreads, 0, s>>>(
@@ -264,7 +268,8 @@ spmv_dot_rows_kernel(const int32_t* __restrict__ cols,
                      T* __restrict__ pn, T* __restrict__ y,
                      T* __restrict__ partials, int64_t rows,
                      int64_t nblocks, int k, int64_t sr, int64_t sl,
-                     int64_t syl) {
+                     int64_t syl, unsigned long long* launches) {
+  repro::count_launch(launches);
   constexpr int G = group_of(W);
   constexpr int P = repro::row_passes<G>();
   constexpr int R = repro::kThreads / G;       // rows of a virtual block
@@ -328,7 +333,7 @@ int start_rows(const void* cols, const void* vals, const void* z,
                const void* p, const void* beta, void* pn, void* y,
                void* partials, void* pap, int64_t rows, int64_t nblocks,
                int32_t k, int64_t sr, int64_t sl, int32_t grid,
-               cudaStream_t s) {
+               unsigned long long* launches, cudaStream_t s) {
   constexpr int64_t rows_per_block = repro::kThreads / group_of(W);
   if (nblocks != (rows + rows_per_block - 1) / rows_per_block)
     return (int)cudaErrorInvalidValue;
@@ -337,7 +342,7 @@ int start_rows(const void* cols, const void* vals, const void* z,
   kernel<<<(unsigned)grid, repro::kThreads, 0, s>>>(
       (const int32_t*)cols, (const T*)vals, (const T*)z, (const T*)p,
       (const T*)beta, (T*)pn, (T*)y, (T*)partials, rows, nblocks, k, sr, sl,
-      sl);
+      sl, launches);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   repro::sum_partials_kernel<T><<<(unsigned)k, repro::kFinalThreads, 0, s>>>(
@@ -350,10 +355,10 @@ int launch_rows(const void* cols, const void* vals, const void* z,
                 const void* p, const void* beta, void* pn, void* y,
                 void* partials, void* pap, int64_t rows, int32_t w,
                 int64_t nblocks, int32_t k, int64_t sr, int64_t sl,
-                int32_t grid, cudaStream_t s) {
+                int32_t grid, unsigned long long* launches, cudaStream_t s) {
 #define WIDTH(W)                                                             \
   start_rows<T, W, kFold>(cols, vals, z, p, beta, pn, y, partials, pap,      \
-                          rows, nblocks, k, sr, sl, grid, s)
+                          rows, nblocks, k, sr, sl, grid, launches, s)
   switch (w) {
     case 4: return WIDTH(4);
     case 8: return WIDTH(8);
@@ -368,16 +373,18 @@ int launch_rows_any(const void* cols, const void* vals, const void* z,
                     const void* p, const void* beta, void* pn, void* y,
                     void* partials, void* pap, int64_t rows, int32_t w,
                     int64_t nblocks, int32_t k, int64_t sr, int64_t sl,
-                    int32_t grid, int32_t fold, void* stream) {
+                    int32_t grid, int32_t fold, unsigned long long* launches,
+                    void* stream) {
   if (rows <= 0 || w <= 0 || w > 16 || w % 4 || k <= 0 || grid <= 0 ||
       sr < 0 || sl < 0 || ((uintptr_t)cols | (uintptr_t)vals) % 16)
     return (int)cudaErrorInvalidValue;
   auto s = (cudaStream_t)stream;
   return fold ? launch_rows<T, true>(cols, vals, z, p, beta, pn, y, partials,
-                                     pap, rows, w, nblocks, k, sr, sl, grid, s)
+                                     pap, rows, w, nblocks, k, sr, sl, grid,
+                                     launches, s)
               : launch_rows<T, false>(cols, vals, z, nullptr, nullptr, nullptr,
                                       y, partials, pap, rows, w, nblocks, k,
-                                      sr, sl, grid, s);
+                                      sr, sl, grid, launches, s);
 }
 
 // ell_spmm on the rows kernel: X (k, ldx) and Y (k, rows) row-major, the
@@ -385,7 +392,7 @@ int launch_rows_any(const void* cols, const void* vals, const void* z,
 template <typename T>
 int launch_spmm_rows(const void* cols, const void* vals, const void* x,
                      void* y, int64_t rows, int32_t w, int32_t k, int64_t ldx,
-                     int32_t grid, void* stream) {
+                     int32_t grid, unsigned long long* launches, void* stream) {
   if (rows <= 0 || w <= 0 || w > 16 || w % 4 || k <= 0 || ldx <= 0 ||
       grid <= 0 || ((uintptr_t)cols | (uintptr_t)vals) % 16)
     return (int)cudaErrorInvalidValue;
@@ -393,7 +400,8 @@ int launch_spmm_rows(const void* cols, const void* vals, const void* x,
   spmv_dot_rows_kernel<T, W, false, true, false>                             \
       <<<(unsigned)grid, repro::kThreads, 0, (cudaStream_t)stream>>>(         \
           (const int32_t*)cols, (const T*)vals, (const T*)x, nullptr,        \
-          nullptr, nullptr, (T*)y, nullptr, rows, 0, k, 1, ldx, rows)
+          nullptr, nullptr, (T*)y, nullptr, rows, 0, k, 1, ldx, rows,      \
+          launches)
   switch (w) {
     case 4: WIDTH(4); break;
     case 8: WIDTH(8); break;
@@ -409,33 +417,33 @@ int launch_spmm_rows(const void* cols, const void* vals, const void* x,
 extern "C" int repro_ell_spmm_rows_f32(const void* cols, const void* vals,
                                        const void* x, void* y, int64_t rows,
                                        int32_t w, int32_t k, int64_t ldx,
-                                       int32_t grid, void* stream) {
+                                       int32_t grid, void* launches, void* stream) {
   return launch_spmm_rows<float>(cols, vals, x, y, rows, w, k, ldx, grid,
-                                 stream);
+                                 (unsigned long long*)launches, stream);
 }
 
 extern "C" int repro_ell_spmm_rows_f64(const void* cols, const void* vals,
                                        const void* x, void* y, int64_t rows,
                                        int32_t w, int32_t k, int64_t ldx,
-                                       int32_t grid, void* stream) {
+                                       int32_t grid, void* launches, void* stream) {
   return launch_spmm_rows<double>(cols, vals, x, y, rows, w, k, ldx, grid,
-                                  stream);
+                                  (unsigned long long*)launches, stream);
 }
 
 extern "C" int repro_ell_spmv_pfold_dot_f32(
     const void* cols, const void* vals, const void* z, const void* p,
     const void* beta, void* pn, void* y, void* partials, void* pap,
-    int64_t rows, int32_t w, int32_t group, int64_t nblocks, void* stream) {
+    int64_t rows, int32_t w, int32_t group, int64_t nblocks, void* launches, void* stream) {
   return launch<float, true>(cols, vals, z, p, beta, pn, y, partials, pap,
-                             rows, w, group, nblocks, stream);
+                             rows, w, group, nblocks, (unsigned long long*)launches, stream);
 }
 
 extern "C" int repro_ell_spmv_pfold_dot_f64(
     const void* cols, const void* vals, const void* z, const void* p,
     const void* beta, void* pn, void* y, void* partials, void* pap,
-    int64_t rows, int32_t w, int32_t group, int64_t nblocks, void* stream) {
+    int64_t rows, int32_t w, int32_t group, int64_t nblocks, void* launches, void* stream) {
   return launch<double, true>(cols, vals, z, p, beta, pn, y, partials, pap,
-                              rows, w, group, nblocks, stream);
+                              rows, w, group, nblocks, (unsigned long long*)launches, stream);
 }
 
 // The solver layout: Z, P, P' and Y (k, rows) row-major.
@@ -443,55 +451,55 @@ extern "C" int repro_ell_spmm_pfold_dot_f32(
     const void* cols, const void* vals, const void* z, const void* p,
     const void* beta, void* pn, void* y, void* partials, void* pap,
     int64_t rows, int32_t w, int32_t group, int64_t nblocks, int32_t k,
-    void* stream) {
+    void* launches, void* stream) {
   return launch_spmm<float, true>(cols, vals, z, p, beta, pn, y, partials,
                                   pap, rows, w, group, nblocks, k, 1, rows,
-                                  stream);
+                                  (unsigned long long*)launches, stream);
 }
 
 extern "C" int repro_ell_spmm_pfold_dot_f64(
     const void* cols, const void* vals, const void* z, const void* p,
     const void* beta, void* pn, void* y, void* partials, void* pap,
     int64_t rows, int32_t w, int32_t group, int64_t nblocks, int32_t k,
-    void* stream) {
+    void* launches, void* stream) {
   return launch_spmm<double, true>(cols, vals, z, p, beta, pn, y, partials,
                                    pap, rows, w, group, nblocks, k, 1, rows,
-                                   stream);
+                                   (unsigned long long*)launches, stream);
 }
 
 extern "C" int repro_ell_spmv_dot_f32(
     const void* cols, const void* vals, const void* x, void* y,
     void* partials, void* pap, int64_t rows, int32_t w, int32_t group,
-    int64_t nblocks, void* stream) {
+    int64_t nblocks, void* launches, void* stream) {
   return launch<float, false>(cols, vals, x, nullptr, nullptr, nullptr, y,
-                              partials, pap, rows, w, group, nblocks, stream);
+                              partials, pap, rows, w, group, nblocks, (unsigned long long*)launches, stream);
 }
 
 extern "C" int repro_ell_spmv_dot_f64(
     const void* cols, const void* vals, const void* x, void* y,
     void* partials, void* pap, int64_t rows, int32_t w, int32_t group,
-    int64_t nblocks, void* stream) {
+    int64_t nblocks, void* launches, void* stream) {
   return launch<double, false>(cols, vals, x, nullptr, nullptr, nullptr, y,
-                               partials, pap, rows, w, group, nblocks, stream);
+                               partials, pap, rows, w, group, nblocks, (unsigned long long*)launches, stream);
 }
 
 // X and Y (rows, k) addressed as row * sr + lane * sl.
 extern "C" int repro_ell_spmm_dot_f32(
     const void* cols, const void* vals, const void* x, void* y,
     void* partials, void* pap, int64_t rows, int32_t w, int32_t group,
-    int64_t nblocks, int32_t k, int64_t sr, int64_t sl, void* stream) {
+    int64_t nblocks, int32_t k, int64_t sr, int64_t sl, void* launches, void* stream) {
   return launch_spmm<float, false>(cols, vals, x, nullptr, nullptr, nullptr,
                                    y, partials, pap, rows, w, group, nblocks,
-                                   k, sr, sl, stream);
+                                   k, sr, sl, (unsigned long long*)launches, stream);
 }
 
 extern "C" int repro_ell_spmm_dot_f64(
     const void* cols, const void* vals, const void* x, void* y,
     void* partials, void* pap, int64_t rows, int32_t w, int32_t group,
-    int64_t nblocks, int32_t k, int64_t sr, int64_t sl, void* stream) {
+    int64_t nblocks, int32_t k, int64_t sr, int64_t sl, void* launches, void* stream) {
   return launch_spmm<double, false>(cols, vals, x, nullptr, nullptr, nullptr,
                                     y, partials, pap, rows, w, group, nblocks,
-                                    k, sr, sl, stream);
+                                    k, sr, sl, (unsigned long long*)launches, stream);
 }
 
 // The rows variant of all four: fold 1 for the p-fold pair (k = 1 and
@@ -501,18 +509,18 @@ extern "C" int repro_spmv_dot_rows_f32(
     const void* cols, const void* vals, const void* z, const void* p,
     const void* beta, void* pn, void* y, void* partials, void* pap,
     int64_t rows, int32_t w, int64_t nblocks, int32_t k, int64_t sr,
-    int64_t sl, int32_t grid, int32_t fold, void* stream) {
+    int64_t sl, int32_t grid, int32_t fold, void* launches, void* stream) {
   return launch_rows_any<float>(cols, vals, z, p, beta, pn, y, partials, pap,
                                 rows, w, nblocks, k, sr, sl, grid, fold,
-                                stream);
+                                (unsigned long long*)launches, stream);
 }
 
 extern "C" int repro_spmv_dot_rows_f64(
     const void* cols, const void* vals, const void* z, const void* p,
     const void* beta, void* pn, void* y, void* partials, void* pap,
     int64_t rows, int32_t w, int64_t nblocks, int32_t k, int64_t sr,
-    int64_t sl, int32_t grid, int32_t fold, void* stream) {
+    int64_t sl, int32_t grid, int32_t fold, void* launches, void* stream) {
   return launch_rows_any<double>(cols, vals, z, p, beta, pn, y, partials,
                                  pap, rows, w, nblocks, k, sr, sl, grid, fold,
-                                 stream);
+                                 (unsigned long long*)launches, stream);
 }

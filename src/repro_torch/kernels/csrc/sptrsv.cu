@@ -90,6 +90,7 @@
 // padding.  So x is read through a plain pointer, not a const
 // __restrict__ one: no read depends on a write of the same launch.
 
+#include <atomic>
 #include <cooperative_groups.h>
 
 #include "common.cuh"
@@ -106,7 +107,9 @@ sptrsv_solve_dot_kernel(const int* __restrict__ cols,
                         const T* __restrict__ wdot,
                         const int* __restrict__ level_ptr,
                         const int* __restrict__ level_rows, int n_levels,
-                        int w, T* x, T* partials, T* pp) {
+                        int w, T* x, T* partials, T* pp,
+                        unsigned long long* launches) {
+  repro::count_launch(launches);
   __shared__ T sh[32];
   cg::grid_group grid = cg::this_grid();
   const int tid = blockIdx.x * blockDim.x + threadIdx.x;
@@ -206,7 +209,8 @@ sptrsv_cluster_kernel(const int* __restrict__ dep, const T* __restrict__ vals,
                       const T* __restrict__ wdot,
                       const int* __restrict__ level_grid, int n_levels,
                       int grid_w, int w, int has_global, T* x, T* partials,
-                      T* pp) {
+                      T* pp, unsigned long long* launches) {
+  repro::count_launch(launches);
   using V = typename Vec16<T>::type;
   constexpr int kDq = WMAX / 4;                        // int4 chunks a row
   constexpr int kPer = 16 / (int)sizeof(T);            // values a V
@@ -353,20 +357,37 @@ sptrsv_cluster_kernel(const int* __restrict__ dep, const T* __restrict__ vals,
   *pp = total;
 }
 
+constexpr int kDevices = 64;
+constexpr int kThreadShapes = 4;      // 32, 64, 128, 256 threads a block
+
 template <typename T, int WMAX>
 int launch_cluster_w(const void* dep, const void* vals, const void* dinv,
                      const void* b, const void* wdot, const void* level_grid,
                      void* x, void* partials, void* pp, int32_t n_levels,
                      int32_t grid_w, int32_t w, int32_t has_global,
-                     int32_t cluster, int32_t threads, cudaStream_t stream) {
+                     int32_t cluster, int32_t threads, unsigned long long* launches,
+                     cudaStream_t stream) {
   auto kern = sptrsv_cluster_kernel<T, WMAX>;
   const size_t smem = cluster_smem<T, WMAX>(threads);
-  cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err == cudaSuccess && cluster > 8)
-    err = cudaFuncSetAttribute(
-        kern, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  // The attributes are set, and the occupancy checked, once per device
+  // and shape: a launch captured into a CUDA graph makes neither call.
+  static std::atomic<size_t> granted[kDevices];
+  static std::atomic<int> fits_known[kDevices][kThreadShapes][17];
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return (int)err;
+  const bool cached = dev < kDevices;
+  if (!cached || granted[dev].load() < smem) {
+    err = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(
+          kern, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (err != cudaSuccess) return (int)err;
+    if (cached) granted[dev].store(smem);
+  }
+  int shape = 0;
+  while ((32 << shape) < threads) ++shape;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3((unsigned)cluster);
   cfg.blockDim = dim3((unsigned)threads);
@@ -379,15 +400,18 @@ int launch_cluster_w(const void* dep, const void* vals, const void* dinv,
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  int fits = 0;
-  err = cudaOccupancyMaxActiveClusters(&fits, kern, &cfg);
-  if (err != cudaSuccess) return (int)err;
-  if (fits < 1) return (int)cudaErrorInvalidConfiguration;
+  if (!cached || fits_known[dev][shape][cluster].load() == 0) {
+    int fits = 0;
+    err = cudaOccupancyMaxActiveClusters(&fits, kern, &cfg);
+    if (err != cudaSuccess) return (int)err;
+    if (fits < 1) return (int)cudaErrorInvalidConfiguration;
+    if (cached) fits_known[dev][shape][cluster].store(1);
+  }
   err = cudaLaunchKernelEx(&cfg, kern, (const int*)dep, (const T*)vals,
                            (const T*)dinv, (const T*)b, (const T*)wdot,
                            (const int*)level_grid, (int)n_levels, (int)grid_w,
                            (int)w, (int)has_global, (T*)x, (T*)partials,
-                           (T*)pp);
+                           (T*)pp, launches);
   if (err != cudaSuccess) {
     (void)cudaGetLastError();
     return (int)err;
@@ -400,7 +424,8 @@ int launch_cluster(const void* dep, const void* vals, const void* dinv,
                    const void* b, const void* wdot, const void* level_grid,
                    void* x, void* partials, void* pp, int32_t n_levels,
                    int32_t grid_w, int32_t w, int32_t has_global,
-                   int32_t cluster, int32_t threads, void* stream) {
+                   int32_t cluster, int32_t threads, unsigned long long* launches,
+                   void* stream) {
   if (n_levels <= 0 || grid_w <= 0 || grid_w > (1 << kSlotBits) || w <= 0 ||
       w > 16 || w % 4 || cluster < 1 || cluster > 16 || threads < 32 ||
       (threads & (threads - 1)) || threads > kClusterThreads ||
@@ -411,10 +436,10 @@ int launch_cluster(const void* dep, const void* vals, const void* dinv,
   if (w <= 8)
     return launch_cluster_w<T, 8>(dep, vals, dinv, b, wdot, level_grid, x,
                                   partials, pp, n_levels, grid_w, w,
-                                  has_global, cluster, threads, s);
+                                  has_global, cluster, threads, launches, s);
   return launch_cluster_w<T, 16>(dep, vals, dinv, b, wdot, level_grid, x,
                                  partials, pp, n_levels, grid_w, w,
-                                 has_global, cluster, threads, s);
+                                 has_global, cluster, threads, launches, s);
 }
 
 template <typename T>
@@ -437,7 +462,8 @@ template <typename T>
 int launch(const void* cols, const void* vals, const void* dinv,
            const void* b, const void* wdot, const void* level_ptr,
            const void* level_rows, void* x, void* partials, void* pp,
-           int32_t n_levels, int32_t w, int32_t blocks, void* stream) {
+           int32_t n_levels, int32_t w, int32_t blocks, unsigned long long* launches,
+           void* stream) {
   if (n_levels <= 0 || w <= 0 || blocks <= 0) return (int)cudaErrorInvalidValue;
   const int* c = (const int*)cols;
   const T* v = (const T*)vals;
@@ -450,7 +476,8 @@ int launch(const void* cols, const void* vals, const void* dinv,
   T* part = (T*)partials;
   T* out = (T*)pp;
   int nl = n_levels, ww = w;
-  void* args[] = {&c, &v, &d, &bb, &wd, &lp, &lr, &nl, &ww, &xx, &part, &out};
+  void* args[] = {&c,  &v,  &d,    &bb,  &wd,  &lp,
+                  &lr, &nl, &ww, &xx, &part, &out, &launches};
   cudaError_t err = cudaLaunchCooperativeKernel(
       (const void*)sptrsv_solve_dot_kernel<T>, dim3((unsigned)blocks),
       dim3(repro::kThreads), args, 0, (cudaStream_t)stream);
@@ -467,7 +494,9 @@ sptrsv_level_step_kernel(const int* __restrict__ cols,
                          const T* __restrict__ vals,
                          const T* __restrict__ diag, const T* __restrict__ b,
                          const int* __restrict__ level_rows, const T* x_in,
-                         T* x_out, int wl, int64_t rows_p, int w, int64_t n) {
+                         T* x_out, int wl, int64_t rows_p, int w, int64_t n,
+                         unsigned long long* launches) {
+  repro::count_launch(launches);
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= wl) return;
   const int64_t id = level_rows[i];
@@ -489,14 +518,15 @@ template <typename T>
 int launch_level_step(const void* cols, const void* vals, const void* diag,
                       const void* b, const void* level_rows, const void* x_in,
                       void* x_out, int32_t wl, int64_t rows_p, int32_t w,
-                      int64_t n, void* stream) {
+                      int64_t n, unsigned long long* launches, void* stream) {
   if (wl <= 0 || rows_p <= 0 || w <= 0 || n <= 0)
     return (int)cudaErrorInvalidValue;
   const unsigned blocks = (unsigned)((wl + repro::kThreads - 1) / repro::kThreads);
   sptrsv_level_step_kernel<T><<<blocks, repro::kThreads, 0,
                                 (cudaStream_t)stream>>>(
       (const int*)cols, (const T*)vals, (const T*)diag, (const T*)b,
-      (const int*)level_rows, (const T*)x_in, (T*)x_out, wl, rows_p, w, n);
+      (const int*)level_rows, (const T*)x_in, (T*)x_out, wl, rows_p, w, n,
+      launches);
   return (int)cudaGetLastError();
 }
 
@@ -511,52 +541,52 @@ extern "C" int repro_sptrsv_solve_dot_f32(
     const void* cols, const void* vals, const void* dinv, const void* b,
     const void* wdot, const void* level_ptr, const void* level_rows, void* x,
     void* partials, void* pp, int32_t n_levels, int32_t w, int32_t blocks,
-    void* stream) {
+    void* launches, void* stream) {
   return launch<float>(cols, vals, dinv, b, wdot, level_ptr, level_rows, x,
-                       partials, pp, n_levels, w, blocks, stream);
+                       partials, pp, n_levels, w, blocks, (unsigned long long*)launches, stream);
 }
 
 extern "C" int repro_sptrsv_solve_dot_f64(
     const void* cols, const void* vals, const void* dinv, const void* b,
     const void* wdot, const void* level_ptr, const void* level_rows, void* x,
     void* partials, void* pp, int32_t n_levels, int32_t w, int32_t blocks,
-    void* stream) {
+    void* launches, void* stream) {
   return launch<double>(cols, vals, dinv, b, wdot, level_ptr, level_rows, x,
-                        partials, pp, n_levels, w, blocks, stream);
+                        partials, pp, n_levels, w, blocks, (unsigned long long*)launches, stream);
 }
 
 extern "C" int repro_sptrsv_level_step_f32(
     const void* cols, const void* vals, const void* diag, const void* b,
     const void* level_rows, const void* x_in, void* x_out, int32_t wl,
-    int64_t rows_p, int32_t w, int64_t n, void* stream) {
+    int64_t rows_p, int32_t w, int64_t n, void* launches, void* stream) {
   return launch_level_step<float>(cols, vals, diag, b, level_rows, x_in, x_out,
-                                  wl, rows_p, w, n, stream);
+                                  wl, rows_p, w, n, (unsigned long long*)launches, stream);
 }
 
 extern "C" int repro_sptrsv_level_step_f64(
     const void* cols, const void* vals, const void* diag, const void* b,
     const void* level_rows, const void* x_in, void* x_out, int32_t wl,
-    int64_t rows_p, int32_t w, int64_t n, void* stream) {
+    int64_t rows_p, int32_t w, int64_t n, void* launches, void* stream) {
   return launch_level_step<double>(cols, vals, diag, b, level_rows, x_in,
-                                   x_out, wl, rows_p, w, n, stream);
+                                   x_out, wl, rows_p, w, n, (unsigned long long*)launches, stream);
 }
 
 extern "C" int repro_sptrsv_cluster_f32(
     const void* dep, const void* vals, const void* dinv, const void* b,
     const void* wdot, const void* level_grid, void* x, void* partials,
     void* pp, int32_t n_levels, int32_t grid_w, int32_t w, int32_t has_global,
-    int32_t cluster, int32_t threads, void* stream) {
+    int32_t cluster, int32_t threads, void* launches, void* stream) {
   return launch_cluster<float>(dep, vals, dinv, b, wdot, level_grid, x, partials,
                                pp, n_levels, grid_w, w, has_global, cluster,
-                               threads, stream);
+                               threads, (unsigned long long*)launches, stream);
 }
 
 extern "C" int repro_sptrsv_cluster_f64(
     const void* dep, const void* vals, const void* dinv, const void* b,
     const void* wdot, const void* level_grid, void* x, void* partials,
     void* pp, int32_t n_levels, int32_t grid_w, int32_t w, int32_t has_global,
-    int32_t cluster, int32_t threads, void* stream) {
+    int32_t cluster, int32_t threads, void* launches, void* stream) {
   return launch_cluster<double>(dep, vals, dinv, b, wdot, level_grid, x, partials,
                                pp, n_levels, grid_w, w, has_global, cluster,
-                               threads, stream);
+                               threads, (unsigned long long*)launches, stream);
 }

@@ -65,7 +65,9 @@ cg_update_kernel(const T* __restrict__ alpha_ptr, const T* __restrict__ x,
                  const T* __restrict__ r, const T* __restrict__ p,
                  const T* __restrict__ ap, const T* __restrict__ dinv,
                  T* __restrict__ xo, T* __restrict__ ro, T* __restrict__ zo,
-                 T* __restrict__ partials, int64_t n) {
+                 T* __restrict__ partials, int64_t n,
+                 unsigned long long* launches) {
+  repro::count_launch(launches);
   __shared__ T sh[32];
   const T a = *alpha_ptr;
   T srr = T(0), srz = T(0);
@@ -97,7 +99,7 @@ template <typename T>
 int launch(const void* alpha, const void* x, const void* r, const void* p,
            const void* ap, const void* dinv, void* xo, void* ro, void* zo,
            void* partials, void* out, int64_t n, int64_t nblocks,
-           void* stream) {
+           unsigned long long* launches, void* stream) {
   if (n <= 0) return (int)cudaErrorInvalidValue;
   const int64_t per_block = (int64_t)repro::kThreads * kElems;
   const int64_t blocks = (n + per_block - 1) / per_block;
@@ -108,11 +110,11 @@ int launch(const void* alpha, const void* x, const void* r, const void* p,
   if (has_dinv)
     cg_update_kernel<T, true><<<(unsigned)blocks, repro::kThreads, 0, s>>>(
         (const T*)alpha, (const T*)x, (const T*)r, (const T*)p, (const T*)ap,
-        (const T*)dinv, (T*)xo, (T*)ro, (T*)zo, (T*)partials, n);
+        (const T*)dinv, (T*)xo, (T*)ro, (T*)zo, (T*)partials, n, launches);
   else
     cg_update_kernel<T, false><<<(unsigned)blocks, repro::kThreads, 0, s>>>(
         (const T*)alpha, (const T*)x, (const T*)r, (const T*)p, (const T*)ap,
-        nullptr, (T*)xo, (T*)ro, nullptr, (T*)partials, n);
+        nullptr, (T*)xo, (T*)ro, nullptr, (T*)partials, n, launches);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   repro::sum_partials_kernel<T><<<has_dinv ? 2 : 1, repro::kFinalThreads, 0, s>>>(
@@ -126,7 +128,9 @@ cg_update_b_kernel(const T* __restrict__ alpha_ptr, const T* __restrict__ x,
                    const T* __restrict__ r, const T* __restrict__ p,
                    const T* __restrict__ ap, const T* __restrict__ dinv,
                    T* __restrict__ xo, T* __restrict__ ro, T* __restrict__ zo,
-                   T* __restrict__ partials, int64_t n, int k) {
+                   T* __restrict__ partials, int64_t n, int k,
+                   unsigned long long* launches) {
+  repro::count_launch(launches);
   __shared__ T sh[32 * K];
   const int j0 = blockIdx.y * K;
   T a[K], srr[K], srz[K];
@@ -177,16 +181,18 @@ template <typename T, int K>
 int launch_b_chunk(const void* alpha, const void* x, const void* r,
                    const void* p, const void* ap, const void* dinv, void* xo,
                    void* ro, void* zo, void* partials, int64_t n,
-                   int64_t blocks, int32_t k, cudaStream_t s) {
+                   int64_t blocks, int32_t k, unsigned long long* launches,
+                   cudaStream_t s) {
   const dim3 grid((unsigned)blocks, (unsigned)((k + K - 1) / K));
   if (dinv != nullptr)
     cg_update_b_kernel<T, true, K><<<grid, repro::kThreads, 0, s>>>(
         (const T*)alpha, (const T*)x, (const T*)r, (const T*)p, (const T*)ap,
-        (const T*)dinv, (T*)xo, (T*)ro, (T*)zo, (T*)partials, n, k);
+        (const T*)dinv, (T*)xo, (T*)ro, (T*)zo, (T*)partials, n, k,
+        launches);
   else
     cg_update_b_kernel<T, false, K><<<grid, repro::kThreads, 0, s>>>(
         (const T*)alpha, (const T*)x, (const T*)r, (const T*)p, (const T*)ap,
-        nullptr, (T*)xo, (T*)ro, nullptr, (T*)partials, n, k);
+        nullptr, (T*)xo, (T*)ro, nullptr, (T*)partials, n, k, launches);
   return (int)cudaGetLastError();
 }
 
@@ -194,7 +200,7 @@ template <typename T>
 int launch_b(const void* alpha, const void* x, const void* r, const void* p,
              const void* ap, const void* dinv, void* xo, void* ro, void* zo,
              void* partials, void* out, int64_t n, int64_t nblocks, int32_t k,
-             void* stream) {
+             unsigned long long* launches, void* stream) {
   if (n <= 0 || k <= 0) return (int)cudaErrorInvalidValue;
   const int64_t per_block = (int64_t)repro::kThreads * kElems;
   const int64_t blocks = (n + per_block - 1) / per_block;
@@ -204,10 +210,10 @@ int launch_b(const void* alpha, const void* x, const void* r, const void* p,
   cudaStream_t s = (cudaStream_t)stream;
   int err;
   switch (repro::lane_chunk(k)) {
-    case 1: err = launch_b_chunk<T, 1>(alpha, x, r, p, ap, dinv, xo, ro, zo, partials, n, blocks, k, s); break;
-    case 2: err = launch_b_chunk<T, 2>(alpha, x, r, p, ap, dinv, xo, ro, zo, partials, n, blocks, k, s); break;
-    case 4: err = launch_b_chunk<T, 4>(alpha, x, r, p, ap, dinv, xo, ro, zo, partials, n, blocks, k, s); break;
-    default: err = launch_b_chunk<T, 8>(alpha, x, r, p, ap, dinv, xo, ro, zo, partials, n, blocks, k, s); break;
+    case 1: err = launch_b_chunk<T, 1>(alpha, x, r, p, ap, dinv, xo, ro, zo, partials, n, blocks, k, launches, s); break;
+    case 2: err = launch_b_chunk<T, 2>(alpha, x, r, p, ap, dinv, xo, ro, zo, partials, n, blocks, k, launches, s); break;
+    case 4: err = launch_b_chunk<T, 4>(alpha, x, r, p, ap, dinv, xo, ro, zo, partials, n, blocks, k, launches, s); break;
+    default: err = launch_b_chunk<T, 8>(alpha, x, r, p, ap, dinv, xo, ro, zo, partials, n, blocks, k, launches, s); break;
   }
   if (err != (int)cudaSuccess) return err;
   const unsigned sums = (unsigned)((has_dinv ? 2 : 1) * k);
@@ -220,7 +226,9 @@ template <typename T>
 __global__ void __launch_bounds__(repro::kThreads)
 axpy_dot_kernel(const T* __restrict__ a_ptr, const T* __restrict__ x,
                 const T* __restrict__ y, T* __restrict__ z,
-                T* __restrict__ partials, int64_t n) {
+                T* __restrict__ partials, int64_t n,
+                unsigned long long* launches) {
+  repro::count_launch(launches);
   __shared__ T sh[32];
   const T a = *a_ptr;
   T szz = T(0);
@@ -241,14 +249,14 @@ axpy_dot_kernel(const T* __restrict__ a_ptr, const T* __restrict__ x,
 template <typename T>
 int launch_axpy_dot(const void* a, const void* x, const void* y, void* z,
                     void* partials, void* out, int64_t n, int64_t nblocks,
-                    void* stream) {
+                    unsigned long long* launches, void* stream) {
   if (n <= 0) return (int)cudaErrorInvalidValue;
   const int64_t per_block = (int64_t)repro::kThreads * kElems;
   const int64_t blocks = (n + per_block - 1) / per_block;
   if (blocks != nblocks) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   axpy_dot_kernel<T><<<(unsigned)blocks, repro::kThreads, 0, s>>>(
-      (const T*)a, (const T*)x, (const T*)y, (T*)z, (T*)partials, n);
+      (const T*)a, (const T*)x, (const T*)y, (T*)z, (T*)partials, n, launches);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   repro::sum_partials_kernel<T><<<1, repro::kFinalThreads, 0, s>>>(
@@ -263,9 +271,9 @@ extern "C" int repro_cg_update_f32(const void* alpha, const void* x,
                                    const void* ap, const void* dinv, void* xo,
                                    void* ro, void* zo, void* partials,
                                    void* out, int64_t n, int64_t nblocks,
-                                   void* stream) {
+                                   void* launches, void* stream) {
   return launch<float>(alpha, x, r, p, ap, dinv, xo, ro, zo, partials, out, n,
-                       nblocks, stream);
+                       nblocks, (unsigned long long*)launches, stream);
 }
 
 extern "C" int repro_cg_update_f64(const void* alpha, const void* x,
@@ -273,37 +281,43 @@ extern "C" int repro_cg_update_f64(const void* alpha, const void* x,
                                    const void* ap, const void* dinv, void* xo,
                                    void* ro, void* zo, void* partials,
                                    void* out, int64_t n, int64_t nblocks,
-                                   void* stream) {
+                                   void* launches, void* stream) {
   return launch<double>(alpha, x, r, p, ap, dinv, xo, ro, zo, partials, out,
-                        n, nblocks, stream);
+                        n, nblocks, (unsigned long long*)launches, stream);
 }
 
 extern "C" int repro_cg_update_batched_f32(
     const void* alpha, const void* x, const void* r, const void* p,
     const void* ap, const void* dinv, void* xo, void* ro, void* zo,
     void* partials, void* out, int64_t n, int64_t nblocks, int32_t k,
-    void* stream) {
+    void* launches, void* stream) {
   return launch_b<float>(alpha, x, r, p, ap, dinv, xo, ro, zo, partials, out,
-                         n, nblocks, k, stream);
+                         n, nblocks, k, (unsigned long long*)launches,
+                         stream);
 }
 
 extern "C" int repro_cg_update_batched_f64(
     const void* alpha, const void* x, const void* r, const void* p,
     const void* ap, const void* dinv, void* xo, void* ro, void* zo,
     void* partials, void* out, int64_t n, int64_t nblocks, int32_t k,
-    void* stream) {
+    void* launches, void* stream) {
   return launch_b<double>(alpha, x, r, p, ap, dinv, xo, ro, zo, partials, out,
-                          n, nblocks, k, stream);
+                          n, nblocks, k, (unsigned long long*)launches,
+                          stream);
 }
 
 extern "C" int repro_axpy_dot_f32(const void* a, const void* x, const void* y,
                                   void* z, void* partials, void* out,
-                                  int64_t n, int64_t nblocks, void* stream) {
-  return launch_axpy_dot<float>(a, x, y, z, partials, out, n, nblocks, stream);
+                                  int64_t n, int64_t nblocks, void* launches,
+                                  void* stream) {
+  return launch_axpy_dot<float>(a, x, y, z, partials, out, n, nblocks,
+                                (unsigned long long*)launches, stream);
 }
 
 extern "C" int repro_axpy_dot_f64(const void* a, const void* x, const void* y,
                                   void* z, void* partials, void* out,
-                                  int64_t n, int64_t nblocks, void* stream) {
-  return launch_axpy_dot<double>(a, x, y, z, partials, out, n, nblocks, stream);
+                                  int64_t n, int64_t nblocks, void* launches,
+                                  void* stream) {
+  return launch_axpy_dot<double>(a, x, y, z, partials, out, n, nblocks,
+                                 (unsigned long long*)launches, stream);
 }

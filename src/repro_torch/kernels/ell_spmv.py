@@ -79,15 +79,17 @@ def pick_variant(name: str, cols: torch.Tensor, vals: torch.Tensor,
     return variant
 
 
-def _spmm_rows(cols, vals, x, y, k: int, ldx: int) -> int:
+def _spmm_rows(name: str, cols, vals, x, y, k: int, ldx: int) -> int:
     """One launch of spmv_dot.cu's rows kernel with the dot compiled out:
     Y (k, rows) = A X for X (k, ldx), row-major, on :func:`rows_grid`
-    (``ell_spmv`` is its k = 1 call).  Returns the CUDA error code."""
+    (``ell_spmv`` is its k = 1 call), counted as ``name``'s launch.
+    Returns the CUDA error code."""
     rows, w = cols.shape
     sms = torch.cuda.get_device_properties(vals.device).multi_processor_count
     fn = build.entry("repro_ell_spmm_rows", vals.dtype)
     return fn(cols.data_ptr(), vals.data_ptr(), x.data_ptr(), y.data_ptr(),
               rows, w, k, ldx, rows_grid(rows, w, sms),
+              build.launch_counter(name, vals.device),
               build.stream_handle(vals.device))
 
 
@@ -115,15 +117,13 @@ def ell_spmv(cols: torch.Tensor, vals: torch.Tensor, x: torch.Tensor,
     if variant == "group":
         fn = build.entry("repro_ell_spmv", vals.dtype)
         err = fn(cols.data_ptr(), vals.data_ptr(), x.data_ptr(), y.data_ptr(),
-                 rows, w, group_size(w), build.stream_handle(vals.device))
+                 rows, w, group_size(w),
+                 build.launch_counter("ell_spmv", vals.device),
+                 build.stream_handle(vals.device))
     else:
-        err = _spmm_rows(cols, vals, x, y, 1, x.numel())
+        err = _spmm_rows("ell_spmv", cols, vals, x, y, 1, x.numel())
     build.check(err, "ell_spmv")
-    ell_spmv.launches += 1
     return y
-
-
-ell_spmv.launches = 0
 
 
 def ell_spmm(cols: torch.Tensor, vals: torch.Tensor, x: torch.Tensor,
@@ -149,12 +149,9 @@ def ell_spmm(cols: torch.Tensor, vals: torch.Tensor, x: torch.Tensor,
         fn = build.entry("repro_ell_spmm", vals.dtype)
         err = fn(cols.data_ptr(), vals.data_ptr(), x.data_ptr(), y.data_ptr(),
                  rows, ldx, w, group_size(w), k,
+                 build.launch_counter("ell_spmm", vals.device),
                  build.stream_handle(vals.device))
     else:
-        err = _spmm_rows(cols, vals, x, y, k, ldx)
+        err = _spmm_rows("ell_spmm", cols, vals, x, y, k, ldx)
     build.check(err, "ell_spmm")
-    ell_spmm.launches += 1
     return y
-
-
-ell_spmm.launches = 0

@@ -6,16 +6,18 @@ raises: there is no fallback on the card).  A tensor on the CPU takes the
 kernel's plain PyTorch version.  That is the whole rule: no mode switch and
 no environment variable, so on the card nothing can route around a kernel.
 
-Each kernel wrapper counts its launches in a plain integer attribute
-(``ell_spmv.ell_spmv.launches``, ...); :func:`launch_counts` reads them and
-:func:`reset_launch_counts` sets them to 0.
+Each kernel counts its own launches on the card, as it starts, in its
+wrapper's slot (``build.launch_counter``), so a launch a CUDA graph
+replays counts too: :func:`launch_counts` reads the counts from the card
+and :func:`reset_launch_counts` sets them to 0.  A tensor on the CPU
+launches nothing and counts nothing.
 """
 
 from __future__ import annotations
 
 import torch
 
-from . import ref
+from . import build, ref
 from . import bcsr_spmm as _bcsr_spmm
 from . import ell_spmv as _ell_spmv
 from . import spmv_dot as _spmv_dot
@@ -165,10 +167,10 @@ def bcsr_spmm(block_cols, blocks, x, nbc: int | None = None,
 
 
 def launch_counts() -> dict:
-    """Kernel launches per wrapper since the last reset."""
-    return {name: fn.launches for name, fn in KERNELS.items()}
+    """Kernel launches per wrapper since the last reset, as the kernels
+    counted them on the card (a read that waits for the queued work)."""
+    return build.launch_counts(KERNELS)
 
 
 def reset_launch_counts() -> None:
-    for fn in KERNELS.values():
-        fn.launches = 0
+    build.reset_launch_counts()

@@ -63,21 +63,22 @@ def _launch(name: str, cols, vals, z, p, beta, pn, y, partials, pap,
     nblocks = partials.shape[-1]
     ptr = lambda t: 0 if t is None else t.data_ptr()
     head = (cols.data_ptr(), vals.data_ptr(), z.data_ptr())
-    stream = build.stream_handle(dev)
+    tail = (build.launch_counter(name, dev), build.stream_handle(dev))
     if variant == "rows":
         sms = torch.cuda.get_device_properties(dev).multi_processor_count
         fn = build.entry("repro_spmv_dot_rows", dt)
         err = fn(*head, ptr(p), ptr(beta), ptr(pn), y.data_ptr(),
                  partials.data_ptr(), pap.data_ptr(), rows, w, nblocks, k,
                  sr, sl, rows_grid(rows, w, sms),
-                 int(p is not None), stream)
+                 int(p is not None), *tail)
     else:
         fn = build.entry(f"repro_{name}", dt)
         fold = (p.data_ptr(), beta.data_ptr(), pn.data_ptr()) if p is not None else ()
-        tail = (k,) if name == "ell_spmm_pfold_dot" else \
+        lanes = (k,) if name == "ell_spmm_pfold_dot" else \
             (k, sr, sl) if name == "ell_spmm_dot" else ()
         err = fn(*head, *fold, y.data_ptr(), partials.data_ptr(),
-                 pap.data_ptr(), rows, w, group_size(w), nblocks, *tail, stream)
+                 pap.data_ptr(), rows, w, group_size(w), nblocks, *lanes,
+                 *tail)
     build.check(err, name)
 
 
@@ -110,11 +111,7 @@ def ell_spmv_pfold_dot(cols: torch.Tensor, vals: torch.Tensor,
     pap = torch.empty(1, dtype=dt, device=dev)
     _launch("ell_spmv_pfold_dot", cols, vals, z, p, beta, pn, y, partials,
             pap, 1, 1, rows, variant)
-    ell_spmv_pfold_dot.launches += 1
     return pn, y, pap.reshape(())
-
-
-ell_spmv_pfold_dot.launches = 0
 
 
 def ell_spmm_pfold_dot(cols: torch.Tensor, vals: torch.Tensor,
@@ -148,11 +145,7 @@ def ell_spmm_pfold_dot(cols: torch.Tensor, vals: torch.Tensor,
     pap = torch.empty(k, dtype=dt, device=dev)
     _launch("ell_spmm_pfold_dot", cols, vals, z, p, beta, pn, y, partials,
             pap, k, 1, rows, variant)
-    ell_spmm_pfold_dot.launches += 1
     return pn, y, pap
-
-
-ell_spmm_pfold_dot.launches = 0
 
 
 def check_square(cols: torch.Tensor, x: torch.Tensor, batched: bool) -> None:
@@ -191,11 +184,7 @@ def ell_spmv_dot(cols: torch.Tensor, vals: torch.Tensor, x: torch.Tensor,
     pap = torch.empty(1, dtype=dt, device=dev)
     _launch("ell_spmv_dot", cols, vals, x, None, None, None, y, partials, pap,
             1, 1, rows, variant)
-    ell_spmv_dot.launches += 1
     return y, pap.reshape(())
-
-
-ell_spmv_dot.launches = 0
 
 
 def ell_spmm_dot(cols: torch.Tensor, vals: torch.Tensor, x: torch.Tensor,
@@ -233,8 +222,4 @@ def ell_spmm_dot(cols: torch.Tensor, vals: torch.Tensor, x: torch.Tensor,
     pap = torch.empty(k, dtype=dt, device=dev)
     _launch("ell_spmm_dot", cols, vals, x, None, None, None, y, partials, pap,
             k, sr, sl, variant)
-    ell_spmm_dot.launches += 1
     return y, pap
-
-
-ell_spmm_dot.launches = 0

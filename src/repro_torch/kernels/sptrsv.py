@@ -282,7 +282,8 @@ def sptrsv_solve_dot(cols: torch.Tensor, vals: torch.Tensor,
     wptr = None if wdot is None else wdot.data_ptr()
     x = torch.zeros(rows_p, dtype=dt, device=dev)
     pp = torch.empty(1, dtype=dt, device=dev)
-    stream = build.stream_handle(dev)
+    tail = (build.launch_counter("sptrsv_solve_dot", dev),
+            build.stream_handle(dev))
     head = (cols.data_ptr(), vals.data_ptr(), dinv.data_ptr(), b.data_ptr(),
             wptr)
     if variant == "cluster":
@@ -301,7 +302,7 @@ def sptrsv_solve_dot(cols: torch.Tensor, vals: torch.Tensor,
             pack.dep.data_ptr(), *head[1:], pack.level_grid.data_ptr(),
             x.data_ptr(), partials.data_ptr(), pp.data_ptr(), pack.n_levels,
             pack.level_grid.shape[1], w, int(pack.dep_global), blocks,
-            threads, stream)
+            threads, *tail)
     else:
         if blocks is None:
             blocks = grid_blocks(pack, dt, dev)
@@ -309,13 +310,9 @@ def sptrsv_solve_dot(cols: torch.Tensor, vals: torch.Tensor,
         err = build.entry("repro_sptrsv_solve_dot", dt)(
             *head, pack.level_ptr.data_ptr(), pack.level_rows.data_ptr(),
             x.data_ptr(), partials.data_ptr(), pp.data_ptr(), pack.n_levels,
-            w, blocks, stream)
+            w, blocks, *tail)
     build.check(err, "sptrsv_solve_dot")
-    sptrsv_solve_dot.launches += 1
     return x, pp.reshape(())
-
-
-sptrsv_solve_dot.launches = 0
 
 
 def sptrsv_level_step(cols: torch.Tensor, vals: torch.Tensor,
@@ -357,9 +354,6 @@ def sptrsv_level_step(cols: torch.Tensor, vals: torch.Tensor,
     build.check(fn(cols.data_ptr(), vals.data_ptr(), diag.data_ptr(),
                    b.data_ptr(), level_rows.data_ptr(), x.data_ptr(),
                    out.data_ptr(), level_rows.numel(), rows_p, w, n,
+                   build.launch_counter("sptrsv_level_step", dev),
                    build.stream_handle(dev)), "sptrsv_level_step")
-    sptrsv_level_step.launches += 1
     return out
-
-
-sptrsv_level_step.launches = 0

@@ -58,15 +58,12 @@ def cg_update(alpha, x, r, p, ap, dinv=None):
                    ap.data_ptr(), None if dinv is None else dinv.data_ptr(),
                    xo.data_ptr(), ro.data_ptr(),
                    None if zo is None else zo.data_ptr(), partials.data_ptr(),
-                   out.data_ptr(), n, nblocks, build.stream_handle(dev)),
-                "cg_update")
-    cg_update.launches += 1
+                   out.data_ptr(), n, nblocks,
+                   build.launch_counter("cg_update", dev),
+                   build.stream_handle(dev)), "cg_update")
     if dinv is None:
         return xo, ro, ro, out[0], out[0]
     return xo, ro, zo, out[0], out[1]
-
-
-cg_update.launches = 0
 
 
 def cg_update_batched(alpha, x, r, p, ap, dinv=None):
@@ -105,15 +102,12 @@ def cg_update_batched(alpha, x, r, p, ap, dinv=None):
                    ap.data_ptr(), None if dinv is None else dinv.data_ptr(),
                    xo.data_ptr(), ro.data_ptr(),
                    None if zo is None else zo.data_ptr(), partials.data_ptr(),
-                   out.data_ptr(), n, nblocks, k, build.stream_handle(dev)),
-                "cg_update_batched")
-    cg_update_batched.launches += 1
+                   out.data_ptr(), n, nblocks, k,
+                   build.launch_counter("cg_update_batched", dev),
+                   build.stream_handle(dev)), "cg_update_batched")
     if dinv is None:
         return xo, ro, ro, out[0], out[0]
     return xo, ro, zo, out[0], out[1]
-
-
-cg_update_batched.launches = 0
 
 
 def axpy_dot(a, x: torch.Tensor, y: torch.Tensor):
@@ -134,9 +128,6 @@ def axpy_dot(a, x: torch.Tensor, y: torch.Tensor):
     fn = build.entry("repro_axpy_dot", dt)
     build.check(fn(a.data_ptr(), x.data_ptr(), y.data_ptr(), z.data_ptr(),
                    partials.data_ptr(), zz.data_ptr(), n, nblocks,
+                   build.launch_counter("axpy_dot", dev),
                    build.stream_handle(dev)), "axpy_dot")
-    axpy_dot.launches += 1
     return z, zz.reshape(())
-
-
-axpy_dot.launches = 0

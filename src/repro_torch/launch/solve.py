@@ -3,8 +3,10 @@
     PYTHONPATH=src python -m repro_torch.launch.solve --matrix lap2d_32 \
         --method pcg_tol --tol 1e-8
 
-runs on the card (``--device cuda``, the default); ``--device cpu`` runs
-the kernels' plain versions on the host.  ``--format`` picks the storage
+runs on the card (``--device cuda``, the default), where the solve is a
+plan whose loop round is captured as a CUDA graph and replayed
+(``core.loop``); ``--device cpu`` runs the kernels' plain versions on the
+host.  ``--format`` picks the storage
 format (``auto`` runs the per-matrix rule); ``--matrix stencil:lap2d_1024``
 (or ``stencil:lap3d_64``) solves a matrix-free stencil operator.  The
 flags and the printed JSON fields are those of ``repro.launch.solve`` for

@@ -18,7 +18,10 @@ JAX sweep shapes and the engine's 8 x 8 blocks, lane by lane bitwise
 independent of R; the SELL and HYB matvecs (plain PyTorch, fixed-order
 row sums) repeat bit for bit, lane j of a batch equals its solo call, and
 both equal the CPU's bits; plans on every format reach the CPU's counts.
-Every variant of a redesigned kernel gives its first design's bits.
+Every variant of a redesigned kernel gives its first design's bits.  A
+plan captures its loop once and its replays equal a direct call of the
+same solver bit for bit, with the launches its kernels counted on the
+card.
 """
 
 import numpy as np
@@ -78,9 +81,9 @@ def _close(got, want, dtype):
 def test_ell_spmv_kernel_matches_plain(cuda, rows, width, k, dtype):
     cols, vals, vec = _operator(rows, width, k, dtype, rows + width, cuda)
     x = vec()
-    before = ell_spmv.ell_spmv.launches
+    before = ops.launch_counts()["ell_spmv"]
     y = ell_spmv.ell_spmv(cols, vals, x)
-    assert ell_spmv.ell_spmv.launches == before + 1
+    assert ops.launch_counts()["ell_spmv"] == before + 1
     _close((y,), (ell_spmv.ell_spmv_plain(cols, vals, x),), dtype)
 
 
@@ -167,9 +170,10 @@ def _lanes(vec, k):
 def test_ell_spmm_kernel_matches_plain(cuda, rows, width, nnz, dtype, k):
     cols, vals, vec = _operator(rows, width, nnz, dtype, rows + k, cuda)
     x = _lanes(vec, k)
-    before = ell_spmv.ell_spmm.launches
+    before = ops.launch_counts()["ell_spmm"]
     y = ell_spmv.ell_spmm(cols, vals, x)
-    assert ell_spmv.ell_spmm.launches == before + 1 and y.shape == (k, rows)
+    assert ops.launch_counts()["ell_spmm"] == before + 1
+    assert y.shape == (k, rows)
     _close((y,), (ell_spmv.ell_spmm_plain(cols, vals, x),), dtype)
 
 
@@ -331,11 +335,11 @@ def test_sptrsv_kernel_matches_plain(cuda, case, dtype, with_dot):
     ell, rows, dinv, b, w, n = _solve_inputs(case, dtype, cuda)
     wd = w if with_dot else None
     pack = ops.sptrsv_solve_pack(ell.cols, rows, n)
-    before = sptrsv.sptrsv_solve_dot.launches
+    before = ops.launch_counts()["sptrsv_solve_dot"]
     x, pp = sptrsv.sptrsv_solve_dot(ell.cols, ell.vals, dinv, b, pack, wd)
     x2, pp2 = sptrsv.sptrsv_solve_dot(ell.cols, ell.vals, dinv, b, pack, wd)
     torch.cuda.synchronize()
-    assert sptrsv.sptrsv_solve_dot.launches == before + 2
+    assert ops.launch_counts()["sptrsv_solve_dot"] == before + 2
     assert torch.equal(x, x2) and torch.equal(pp, pp2)        # deterministic
     assert bool((x[n:] == 0).all())
     want = sptrsv.sptrsv_solve_dot_plain(ell.cols, ell.vals, dinv, b, rows,
@@ -359,13 +363,13 @@ def test_sptrsv_wrapper_checks_operands(cuda):
         sptrsv.sptrsv_solve_dot(ell.cols, ell.vals, dinv, b.cpu(), pack)
     # a grid the card cannot hold co-resident: the cooperative launch is
     # refused, and the wrapper raises instead of running another path
-    before = sptrsv.sptrsv_solve_dot.launches
+    before = ops.launch_counts()["sptrsv_solve_dot"]
     too_many = sptrsv.grid_blocks(pack._replace(max_width=1 << 30),
                                   torch.float64, b.device) + 1
     with pytest.raises(RuntimeError, match="sptrsv_solve_dot: CUDA error"):
         sptrsv.sptrsv_solve_dot(ell.cols, ell.vals, dinv, b, pack, w,
                                 blocks=too_many)
-    assert sptrsv.sptrsv_solve_dot.launches == before
+    assert ops.launch_counts()["sptrsv_solve_dot"] == before
     x, _ = sptrsv.sptrsv_solve_dot(ell.cols, ell.vals, dinv, b, pack, w)
     torch.cuda.synchronize()
     assert torch.isfinite(x).all()
@@ -424,10 +428,10 @@ def test_bcsr_spmm_kernel_matches_plain(cuda, bm, bn, r, dtype):
     bc, bl, nbc = _bcsr(1003, 0.01, bm, bn, dtype, bm * bn + r, cuda)
     g = torch.Generator(device=cuda).manual_seed(r)
     x = torch.randn(nbc * bn, r, generator=g, device=cuda, dtype=dtype)
-    before = bcsr_spmm.bcsr_spmm.launches
+    before = ops.launch_counts()["bcsr_spmm"]
     y = bcsr_spmm.bcsr_spmm(bc, bl, x, nbc=nbc)
     torch.cuda.synchronize()
-    assert bcsr_spmm.bcsr_spmm.launches == before + 1
+    assert ops.launch_counts()["bcsr_spmm"] == before + 1
     _close((y,), (bcsr_spmm.bcsr_spmm_plain(bc, bl, x),), dtype)
     # a second launch and the lanes-major layout give the same bits
     assert torch.equal(y, bcsr_spmm.bcsr_spmm(bc, bl, x, nbc=nbc))
@@ -535,9 +539,10 @@ def test_ell_spmv_dot_kernel_matches_plain(cuda, rows, width, k, dtype):
     launch, and y bitwise ell_spmv's (the same gather and row sums)."""
     cols, vals, vec = _operator(rows, width, k, dtype, rows + 11, cuda)
     x = vec()
-    before = spmv_dot.ell_spmv_dot.launches
+    before = ops.launch_counts()["ell_spmv_dot"]
     y, pap = spmv_dot.ell_spmv_dot(cols, vals, x)
-    assert spmv_dot.ell_spmv_dot.launches == before + 1 and pap.shape == ()
+    assert ops.launch_counts()["ell_spmv_dot"] == before + 1
+    assert pap.shape == ()
     want = spmv_dot.ell_spmv_dot_plain(cols, vals, x)
     _close((y, pap.reshape(1)), (want[0], want[1].reshape(1)), dtype)
     y2, pap2 = spmv_dot.ell_spmv_dot(cols, vals, x)
@@ -579,9 +584,10 @@ def test_axpy_dot_kernel_matches_plain(cuda, n, dtype):
     _, _, vec = _operator(n, 1, 1, dtype, n + 13, cuda)
     x, y = vec(), vec()
     for a in (0.7, torch.tensor(-1.3, dtype=dtype, device=cuda)):
-        before = vecops.axpy_dot.launches
+        before = ops.launch_counts()["axpy_dot"]
         z, zz = vecops.axpy_dot(a, x, y)
-        assert vecops.axpy_dot.launches == before + 1 and zz.shape == ()
+        assert ops.launch_counts()["axpy_dot"] == before + 1
+        assert zz.shape == ()
         want = vecops.axpy_dot_plain(a, x, y)
         assert torch.equal(z, want[0])
         _close((zz.reshape(1),), (want[1].reshape(1),), dtype)
@@ -742,21 +748,21 @@ def test_sptrsv_variants_match_plain(cuda, case, dtype, with_dot, variant):
     ell, rows, dinv, b, w, n = _solve_inputs(case, dtype, cuda)
     wd = w if with_dot else None
     pack = ops.sptrsv_solve_pack(ell.cols, rows, n)
-    before = sptrsv.sptrsv_solve_dot.launches
+    before = ops.launch_counts()["sptrsv_solve_dot"]
     if variant == "cluster" and sptrsv.solve_variant(
             pack.n_levels, pack.max_width, ell.cols.shape[1]) != "cluster":
         # rows wider than 16 slots: the cluster variant refuses them
         with pytest.raises(ValueError, match="cluster variant"):
             sptrsv.sptrsv_solve_dot(ell.cols, ell.vals, dinv, b, pack, wd,
                                     variant=variant)
-        assert sptrsv.sptrsv_solve_dot.launches == before
+        assert ops.launch_counts()["sptrsv_solve_dot"] == before
         return
     x, pp = sptrsv.sptrsv_solve_dot(ell.cols, ell.vals, dinv, b, pack, wd,
                                     variant=variant)
     x2, pp2 = sptrsv.sptrsv_solve_dot(ell.cols, ell.vals, dinv, b, pack, wd,
                                       variant=variant)
     torch.cuda.synchronize()
-    assert sptrsv.sptrsv_solve_dot.launches == before + 2
+    assert ops.launch_counts()["sptrsv_solve_dot"] == before + 2
     assert torch.equal(x, x2) and torch.equal(pp, pp2)
     assert bool((x[n:] == 0).all())
     want = sptrsv.sptrsv_solve_dot_plain(ell.cols, ell.vals, dinv, b, rows,
@@ -783,14 +789,14 @@ def test_sptrsv_cluster_needs_its_own_pack(cuda, case):
     off = torch.empty(ell.vals.numel() + 1, dtype=ell.vals.dtype, device=cuda)
     moved = off[1:].view(ell.vals.shape)
     moved.copy_(ell.vals)
-    before = sptrsv.sptrsv_solve_dot.launches
+    before = ops.launch_counts()["sptrsv_solve_dot"]
     with pytest.raises(ValueError, match="pack built from this cols"):
         sptrsv.sptrsv_solve_dot(other, ell.vals, dinv, b, pack, w,
                                 variant="cluster")
     with pytest.raises(ValueError, match="aligned"):
         sptrsv.sptrsv_solve_dot(ell.cols, moved, dinv, b, pack, w,
                                 variant="cluster")
-    assert sptrsv.sptrsv_solve_dot.launches == before
+    assert ops.launch_counts()["sptrsv_solve_dot"] == before
     for c, v in ((other, ell.vals), (ell.cols, moved), (ell.cols, ell.vals)):
         x, pp = sptrsv.sptrsv_solve_dot(c, v, dinv, b, pack, w)
         torch.cuda.synchronize()
@@ -857,7 +863,8 @@ def test_bcsr_kernel_refuses_a_grid_that_misses_rows(cuda, variant):
     """The kernel launches on the grid and lane chunk the wrapper computes
     (bcsr_spmm.launch_grid, lane_chunk): that grid runs, and one block or
     one lane chunk short of it, or a chunk wider than the variant carries,
-    is refused with cudaErrorInvalidValue and writes nothing."""
+    is refused with cudaErrorInvalidValue, writes nothing and counts no
+    launch."""
     from repro_torch.kernels import build
 
     bm = bn = 8
@@ -876,6 +883,7 @@ def test_bcsr_kernel_refuses_a_grid_that_misses_rows(cuda, variant):
         err = fn(bc.data_ptr(), bl.data_ptr(), x.data_ptr(), y.data_ptr(),
                  nbr, w, bm, bn, r, x.shape[0], x.stride(0), x.stride(1),
                  y.stride(0), y.stride(1), code, c, x_blocks, y_chunks,
+                 build.launch_counter("bcsr_spmm", x.device),
                  build.stream_handle(x.device))
         torch.cuda.synchronize()
         return err, y
@@ -884,11 +892,13 @@ def test_bcsr_kernel_refuses_a_grid_that_misses_rows(cuda, variant):
     assert err == 0
     assert torch.equal(y, bcsr_spmm.bcsr_spmm(bc, bl, x, variant=variant))
     wide = 16 if variant == "first" else 32
+    before = ops.launch_counts()["bcsr_spmm"]
     for c, bx, by in ((chunk, gx - 1, gy), (chunk, gx, gy - 1),
                       (wide, gx, 1), (chunk // 2 + 1, gx, gy + 1)):
         err, y = launch(c, bx, by)
         assert err == 1, (c, bx, by)
         assert torch.all(y == 7.0)
+    assert ops.launch_counts()["bcsr_spmm"] == before
 
 
 @pytest.mark.parametrize("dtype", DTYPES, ids=str)
@@ -1019,3 +1029,55 @@ def test_ell_spmm_variants_bitwise(cuda, rows, width, nnz, dtype):
     assert torch.equal(ell_spmv.ell_spmm(cols, vals, wide),
                        ell_spmv.ell_spmm(cols, vals, wide, variant="group"))
     torch.cuda.synchronize()
+
+
+# -- compiled plans: the captured loop ----------------------------------------
+
+
+@pytest.mark.parametrize("method,precond,fmt,batch", [
+    ("pcg_tol", "jacobi", "ell", None), ("pcg_tol", "jacobi", "ell", 4),
+    ("pcg_tol", "block_ic0", "ell", None), ("pcg_tol", "jacobi", "bcsr", 4),
+    ("pcg_pipelined_tol", "jacobi", "ell", 4), ("pcg", "jacobi", "hyb", None),
+    ("jacobi", "jacobi", "ell", None)])
+def test_replayed_plan_equals_a_direct_call(cuda, method, precond, fmt, batch):
+    """A plan on the card captures its loop once and replays it: 20 calls
+    make one build (one capture, its time unchanged after the first call,
+    one replay a call), and the result equals the same solver function
+    called directly (its rounds run eagerly) bit for bit -- x, the trace,
+    iters, status and bad_iter -- with the kernels' own launch counts the
+    same every call and those of the step count."""
+    from repro_torch.core import registry
+    from repro_torch.core.solvers import ensure_status
+
+    m = suite("small")["lap2d_32"]
+    a = sp.csr_matrix((m.data, m.indices, m.indptr), shape=m.shape)
+    rng = np.random.default_rng(0)
+    b = (rng.standard_normal((batch, m.shape[0])) if batch
+         else a @ rng.standard_normal(m.shape[0]))
+    eng = AzulEngine(m, precond=precond, dtype=np.float64, format=fmt)
+    plan = eng.plan(SolveSpec(method=method, tol=1e-8, max_iters=400,
+                              iters=150, batch=batch))
+    counts, captured = [], []
+    for _ in range(20):
+        ops.reset_launch_counts()
+        x, norms = plan(b)
+        counts.append(ops.launch_counts())
+        captured.append((plan.cell.captures, plan.cell.capture_s))
+    assert plan.traces == 1 and plan.executions == 20
+    plan.assert_steady()
+    assert captured == [(1, captured[0][1])] * 20
+    assert captured[0][1] is not None and plan.cell.replays == 20
+    assert all(c == counts[0] for c in counts)
+    bd = eng.to_device_vec(b)
+    res = ensure_status(registry.get_solver(method).run(
+        plan.context, bd, torch.zeros_like(bd)), bd)
+    assert eng.from_device_vec(res.x).tobytes() == x.tobytes()
+    assert res.res_norms.tobytes() == norms.tobytes()
+    for got, want in ((res.iters, plan.last_iters),
+                      (res.status, plan.last_status),
+                      (res.bad_iter, plan.last_bad_iter)):
+        np.testing.assert_array_equal(got, want)
+    steps = int(np.max(plan.last_iters))
+    if method == "pcg_tol" and fmt == "ell":
+        fold = "ell_spmm_pfold_dot" if batch else "ell_spmv_pfold_dot"
+        assert counts[0][fold] == steps
