@@ -227,6 +227,51 @@ prints no result line):
                second launch bitwise equal, every lane bitwise the
                one-lane call on that lane (and ell_spmv's y).
 
+6. service -- the solve service (``repro_torch.serve.SolveService``) on
+               captured plans.  6a: the SERVICE_PARITY scripts (lap2d_32,
+               banded_1k, lap3d_22: some requests, a few ticks, the rest
+               joining mid-solve) against the JAX service's per-request
+               iterations (+-1) and statuses, no chunk degraded; one
+               injected chunk failure raised to the caller, with no
+               plain (reference) plan built and ``degraded_batches``
+               still 0.  6b: laplacian_3d(100)
+               (n = 1,000,000), f64 Jacobi pcg_tol at tol 1e-8, max_batch
+               8, chunk 25, budget 20,000: drain SERVE_DRAIN requests
+               ``b = A x_true`` (x_true from default_rng(0)), then
+               ``run_load`` open loop (Poisson) at half the drained
+               solves/s for SERVE_LOAD requests on the same right-hand
+               sides: every request converged, true relative residual
+               <= 1e-7 (scipy, host), every load outcome bitwise the
+               drained solve of its b, every pool plan built and captured
+               once, ``degraded_batches`` 0; one tick's launches (a k_pad
+               = 8 chunk) equal a direct call of the same chunk plan;
+               solves/s, latency from submit (p50 and max over the
+               requests, too few for a p99), the chunk's wall against the plan's
+               time on the card (CUDA events) and the copies, the
+               iterations of one uninterrupted solve, plans and capture
+               seconds, resident bytes.  6e: the ``repro_serve_*`` and
+               ``repro_plan_*`` families in ``render_prometheus()`` and
+               the metrics server's /metrics, /metrics.json, /trace.json;
+               their counts against ``stats`` and the plans' executions;
+               a chunk under ``obs.disabled()`` bitwise the instrumented
+               one.  6c: a request joining a running cohort equals its
+               solo solve bit for bit (x, res_norms) on laplacian_3d(100)
+               (after two ticks) and on laplacian_2d(1024) under a budget
+               of 200 (buckets 1 -> 2 -> 4, both ``maxiter``); a (1, n)
+               chunk launches the batched kernels and no 1-D one; the
+               batched kernels' lanes independent of k at k = 2 and 4.
+               6d: both full-size operators under a memory limit that
+               holds one, requests alternating: evictions and reloads,
+               reserved memory lower after every eviction (empty_cache),
+               each reloaded plan captured once, the same bits after a
+               reload.  6f: ``python -m repro_torch.launch.serve --solver
+               --operators lap2d_96,banded_10k --requests 12 --iters 2000
+               --tol 1e-10`` as a subprocess (exit 0, verify_maxerr <=
+               1e-6), and again with ``--load-gen open --rate 50
+               --requests 40`` (40 converged, no retrace, the outcomes'
+               largest true relative residual <= 1e-8); both with
+               ``degraded_batches`` 0.
+
 The last three lines are the kernels JSON, the card's
 ``nvidia-smi --query-gpu=name,power.limit`` line, and the result JSON.
 """
@@ -322,6 +367,51 @@ PIPE_METHOD = "pcg_pipelined_tol"
 # is the one-RHS solve (the same counts as before the loop ran on the card)
 MAIN_LANES = (1190, 1241, 1624, 1301, 1669, 1494, 1658, 1548)
 PLAN_CALLS = 3                     # calls of each plan in phase 4i
+# phase 6, the solve service.  SERVICE_PARITY: the JAX package's service
+# (CPU, f64, SERVICE_OPERATOR) on fixed scripts -- submit `first` requests,
+# tick `ticks` times, submit the rest mid-solve, drain -- per request its
+# iterations and status; b = A x with the x rows from default_rng(0)
+SERVICE_OPERATOR = dict(method="pcg_tol", tol=1e-8, iters=400,
+                        precond="jacobi", dtype="float64")
+SERVICE_PARITY = {
+    "lap2d_32": dict(chunk=8, max_batch=4, first=2, ticks=3, rest=4,
+                     iters=(308, 285, 319, 330, 313, 321),
+                     status=("converged",) * 6),
+    "banded_1k": dict(chunk=8, max_batch=4, first=3, ticks=1, rest=3,
+                      iters=(9, 9, 9, 9, 9, 9), status=("converged",) * 6),
+    "lap3d_22": dict(chunk=25, max_batch=8, first=3, ticks=2, rest=5,
+                     iters=(107, 107, 84, 109, 101, 106, 107, 101),
+                     status=("converged",) * 8),
+}
+# the full-size service: laplacian_3d(100), n = 1,000,000 (an HPCG local
+# grid), Jacobi pcg_tol at tol 1e-8, launch/serve.py's chunk
+SERVE_GRID = 100
+SERVE_BATCH, SERVE_CHUNK, SERVE_BUDGET = 8, 25, 20000
+# requests drained, then run_load's: cut from 64 each to keep phase 6 near
+# 90 s on the card (64 and 64 took 30.3 s and 63.0 s; 32 and 32, 17.3 s
+# and 40.2 s)
+SERVE_DRAIN, SERVE_LOAD = 32, 16
+JOIN_BUDGET = 200                    # lap2d_1024's bitwise join: maxiter
+
+
+def service_script(svc, m, script: dict) -> list:
+    """Run one SERVICE_PARITY script on ``svc`` (either package's service,
+    with ``m`` registered as its only operator); the outcomes in submit
+    order."""
+    import numpy as np
+    import scipy.sparse as sp
+
+    a = sp.csr_matrix((m.data, m.indices, m.indptr), shape=m.shape)
+    first = script["first"]
+    xs = np.random.default_rng(0).standard_normal(
+        (first + script["rest"], m.shape[0]))
+    ids = [svc.submit(a @ x) for x in xs[:first]]
+    done = {}
+    for _ in range(script["ticks"]):
+        done.update(svc.tick())
+    ids += [svc.submit(a @ x) for x in xs[first:]]
+    done.update(svc.drain())
+    return [done[r] for r in ids]
 
 
 def say(*parts) -> None:
@@ -551,7 +641,20 @@ def check_batched_kernels(cols, vals, dtype: str, gen, label: str,
                     raise AssertionError(f"cg_update_batched {tag}: output {i} "
                                          "is not bitwise equal to the plain "
                                          "version")
-    k = ks[-1]              # lane independence on the last, widest inputs
+    # lane independence on the last, widest inputs
+    check_lanes(cols, vals, (x, z, p, r, ap, beta, alpha), dinv, label)
+    return errs
+
+
+def check_lanes(cols, vals, inputs, dinv, label: str) -> None:
+    """Lane independence of the batched kernels: on ``inputs`` (x, z, p,
+    r, ap of shape (k, rows), beta (k,), alpha (k, 1)) lane j of each
+    output equals the k = 1 call on lane j's inputs bit for bit."""
+    import torch
+    from repro_torch.kernels import ell_spmv, spmv_dot, vecops
+
+    x, z, p, r, ap, beta, alpha = inputs
+    k = x.shape[0]
 
     def outputs(sl):
         return (ell_spmv.ell_spmm(cols, vals, x[sl]),
@@ -568,7 +671,6 @@ def check_batched_kernels(cols, vals, dtype: str, gen, label: str,
             if not torch.equal(w[sl], one):
                 raise AssertionError(f"lane independence {label}: lane {j} of "
                                      f"k={k}, output {i}, differs from k=1")
-    return errs
 
 
 def mirrored_ms(runs: dict) -> dict:
@@ -1227,6 +1329,504 @@ def solve_main_batched(eng, a, B, label: str, lanes=None,
         raise AssertionError(f"main batched {label}: true relative "
                              f"residuals {res}")
     return out, iters, norms
+
+
+def service_phase(m_main, failed: list) -> None:
+    """Phase 6: the solve service on the card (module docstring).  Each
+    sub-phase that fails adds its name to ``failed``."""
+    import gc
+    import os
+    import urllib.request
+
+    import numpy as np
+    import scipy.sparse as sp
+    import torch
+
+    from repro_torch import obs
+    from repro_torch.core.engine import AzulEngine
+    from repro_torch.core.plan import SolveSpec
+    from repro_torch.data.matrices import laplacian_3d, suite
+    from repro_torch.kernels import ops
+    from repro_torch.obs.clock import now
+    from repro_torch.serve import SolveService, run_load
+
+    t_phase = now()
+    op_kw = dict(SERVICE_OPERATOR, dtype=np.float64)
+
+    def pool_plans(svc):
+        return [(flavor, k, plan) for op in svc._operators.values()
+                for flavor, pool in op.pools.items()
+                for k, plan in sorted(pool.items())]
+
+    def steady(svc, label: str) -> dict:
+        """Every pool plan built and captured once; the bucket -> capture
+        seconds of the continuous-batching plans."""
+        caps = {}
+        for flavor, k, plan in pool_plans(svc):
+            plan.assert_steady()
+            captures = int(plan.engine.device.type == "cuda")
+            if plan.traces != 1 or plan.cell.captures != captures:
+                raise AssertionError(
+                    f"{label}: {flavor} plan k_pad={k} traces {plan.traces}, "
+                    f"captures {plan.cell.captures}")
+            caps[f"{flavor}{k}"] = plan.cell.capture_s
+        if svc.stats["degraded_batches"]:
+            raise AssertionError(f"{label}: degraded_batches "
+                                 f"{svc.stats['degraded_batches']}")
+        return caps
+
+    def csr(m):
+        return sp.csr_matrix((m.data, m.indices, m.indptr), shape=m.shape)
+
+    def true_rel(a, b, x) -> float:
+        return float(np.linalg.norm(b - a @ x) / np.linalg.norm(b))
+
+    # -- 6a. parity with the JAX service ------------------------------------
+    try:
+        t0 = now()
+        mats = suite("small")
+        mats["lap3d_22"] = suite("large")["lap3d_22"]
+        for name, script in SERVICE_PARITY.items():
+            svc = SolveService(max_batch=script["max_batch"],
+                               chunk=script["chunk"])
+            svc.register_operator(name, mats[name], **op_kw)
+            outs = service_script(svc, mats[name], script)
+            iters = tuple(o.iters for o in outs)
+            status = tuple(o.status for o in outs)
+            caps = steady(svc, f"service parity {name}")
+            say(f"service parity {name}: iters {list(iters)} (JAX "
+                f"{list(script['iters'])}), status {sorted(set(status))}, "
+                f"rebuckets {svc.stats['rebuckets']}, chunks "
+                f"{svc.stats['chunks']}, plans {sorted(caps)}, degraded "
+                f"{svc.stats['degraded_batches']}")
+            if status != script["status"] or any(
+                    abs(a - b) > 1 for a, b in zip(iters, script["iters"])):
+                raise AssertionError(f"service parity {name}: {iters} "
+                                     f"{status} vs {script}")
+        # one deliberate fault: a fused chunk that raises on the card
+        # raises to the caller; no plain plan is built to answer it
+        class Boom:
+            info, traces, calls = {"fused": True}, 1, 0
+
+            def __call__(self, batch, x0=None):
+                Boom.calls += 1
+                raise RuntimeError("injected fused-chunk failure")
+
+        svc = SolveService(max_batch=4, chunk=8)
+        svc.register_operator("banded_1k", mats["banded_1k"], **op_kw)
+        op = svc._operators["banded_1k"]
+        op.pools["cb"][1] = Boom()
+        svc.submit(csr(mats["banded_1k"]) @ np.ones(mats["banded_1k"].shape[0]))
+        try:
+            svc.drain()
+            raised = "nothing"
+        except RuntimeError as e:
+            raised = str(e)
+        plain = {f: sorted(op.pools[f]) for f in ("ref", "cb_ref")}
+        say(f"service injected fault: raised {raised!r} after {Boom.calls} "
+            f"call(s), plain plans built {plain}, degraded_batches "
+            f"{svc.stats['degraded_batches']}")
+        if ("injected" not in raised or Boom.calls != 1 or any(plain.values())
+                or svc.stats["degraded_batches"]):
+            raise AssertionError("service injected fault")
+        say(f"service parity ok ({now() - t0:.1f} s; +-1 iteration a request, "
+            "statuses equal, no degraded chunk)")
+    except Exception:
+        traceback.print_exc()
+        failed.append("service parity")
+
+    # -- 6b. full size: laplacian_3d(100), n = 1,000,000 ---------------------
+    m3 = laplacian_3d(SERVE_GRID)
+    a3 = csr(m3)
+    n3 = m3.shape[0]
+    t0 = now()
+    eng3 = AzulEngine(m3, dtype=np.float64)
+    build3 = now() - t0
+    spec3 = SolveSpec(method="pcg_tol", tol=MAIN_TOL, max_iters=SERVE_BUDGET)
+    xs3 = np.random.default_rng(0).standard_normal((SERVE_DRAIN, n3))
+    B3 = np.ascontiguousarray((a3 @ xs3.T).T)
+    say(f"service lap3d_{SERVE_GRID}: n={n3} nnz={m3.nnz} ell="
+        f"{tuple(eng3.ell.cols.shape)} resident={eng3.device_bytes()} bytes, "
+        f"engine build {build3:.2f} s")
+    svc = None
+    drained = {}
+    try:
+        svc = SolveService(max_batch=SERVE_BATCH, chunk=SERVE_CHUNK,
+                           queue_max=None)
+        svc.register_operator("lap3d_100", engine=eng3, spec=spec3)
+        label = svc._obs_label
+        fam = obs.REGISTRY.get
+        ex0 = fam("repro_solve_executions_total").value(method="pcg_tol")
+        cold0 = fam("repro_plan_compile_seconds").labels(method="pcg_tol").count
+        warm0 = fam("repro_solve_seconds").labels(method="pcg_tol").count
+        retr0 = fam("repro_plan_retraces_total").value()
+        submitted = {}
+        for i in range(SERVE_DRAIN):
+            submitted[svc.submit(B3[i])] = now()
+        ops.reset_launch_counts()
+        t0 = now()
+        done = svc.tick()               # one chunk at k_pad = 8 (a capture)
+        tick_launches = ops.launch_counts()
+        finished = {rid: now() for rid in done}
+        while svc.pending() or svc.active():
+            out = svc.tick()
+            done.update(out)
+            finished.update({rid: now() for rid in out})
+        drain_s = now() - t0
+        drained = {i: done[rid] for i, rid in enumerate(submitted)}
+        waits = np.array([finished[r] - submitted[r] for r in submitted])
+        its = [o.iters for o in drained.values()]
+        rel = [true_rel(a3, B3[i], o.x) for i, o in drained.items()]
+        bad = [i for i, o in drained.items() if o.status != "converged"]
+        lat = fam("repro_serve_request_seconds").labels(service=label)
+        say(f"service drain: {SERVE_DRAIN} requests in {drain_s:.3f} s "
+            f"({SERVE_DRAIN / drain_s:.2f} solves/s), iters {min(its)}-"
+            f"{max(its)} (mean {np.mean(its):.1f}), true rel residual max "
+            f"{max(rel):.3e}, chunks {svc.stats['chunks']}, ticks "
+            f"{svc.stats['ticks']}, rebuckets {svc.stats['rebuckets']}; "
+            f"latency from submit over {len(waits)} requests: p50 "
+            f"{np.percentile(waits, 50) * 1e3:.1f} ms, max "
+            f"{waits.max() * 1e3:.1f} ms")
+        if bad or max(rel) > MAIN_MAX_TRUE_RESIDUAL:
+            raise AssertionError(f"service drain: not converged {bad}, "
+                                 f"max true rel residual {max(rel)}")
+
+        # open loop at half the drained rate; every outcome kept
+        seen: dict = {}
+        sent_at: dict = {}
+        done_at: dict = {}
+        tick, submit = svc.tick, svc.submit
+
+        def recording_submit(*a, **kw):
+            rid = submit(*a, **kw)
+            sent_at[rid] = now()
+            return rid
+
+        def recording_tick():
+            out = tick()
+            seen.update(out)
+            done_at.update({rid: now() for rid in out})
+            return out
+
+        svc.tick, svc.submit = recording_tick, recording_submit
+        base = svc._next_id
+        rate = 0.5 * SERVE_DRAIN / drain_s
+        load = run_load(svc, lambda i: B3[i % SERVE_DRAIN], mode="open",
+                        requests=SERVE_LOAD, rate=rate, seed=0)
+        del svc.tick, svc.submit
+        # a p99 of SERVE_LOAD samples is not one: the tail is the max
+        waits = np.array([done_at[r] - sent_at[r] for r in seen])
+        say("service load (run_load, latency from the scheduled arrival; "
+            "its p99_ms left out): " + json.dumps(
+                {k: v for k, v in load.items() if k != "p99_ms"}))
+        say(f"service load latency from submit over {len(waits)} requests: "
+            f"p50 {np.percentile(waits, 50) * 1e3:.1f} ms, max "
+            f"{waits.max() * 1e3:.1f} ms")
+        for rid, o in seen.items():
+            i = (rid - base) % SERVE_DRAIN
+            if o.status != "converged" or not np.array_equal(
+                    o.x, drained[i].x) or not np.array_equal(
+                    o.res_norms, drained[i].res_norms):
+                raise AssertionError(
+                    f"service load: request {rid} ({o.status}) differs from "
+                    f"the drained solve of the same b")
+        if (load["completed"] != SERVE_LOAD or load["rejected"]
+                or load["retraces"] or len(seen) != SERVE_LOAD):
+            raise AssertionError(f"service load: {load}")
+        caps = steady(svc, "service lap3d_100")
+
+        # 6e (counts): the metric families against stats and the plans
+        execs = sum(p.executions for _, _, p in pool_plans(svc))
+        ev = fam("repro_serve_events_total")
+        counts = {
+            "executions": (fam("repro_solve_executions_total")
+                           .value(method="pcg_tol") - ex0, execs,
+                           svc.stats["chunks"]),
+            "captured calls": (fam("repro_plan_compile_seconds").labels(
+                method="pcg_tol").count - cold0, len(caps)),
+            "warm calls": (fam("repro_solve_seconds").labels(
+                method="pcg_tol").count - warm0, execs - len(caps)),
+            "retraces": (fam("repro_plan_retraces_total").value() - retr0, 0),
+            "chunk histogram": (fam("repro_serve_chunk_seconds").labels(
+                service=label).count, svc.stats["chunks"]),
+            "latency histogram": (lat.count, svc.stats["completed"],
+                                  SERVE_DRAIN + SERVE_LOAD),
+        }
+        for key in ("requests", "admitted", "completed", "ticks", "chunks"):
+            counts[f"events {key}"] = (ev.value(service=label, event=key),
+                                       svc.stats[key])
+        say("service metrics vs stats and plans: " + json.dumps(counts))
+        if any(len(set(v)) != 1 for v in counts.values()):
+            raise AssertionError(f"service metrics disagree: {counts}")
+
+        # one chunk in the service launched what a direct call launches
+        plan8 = svc.plan_for("lap3d_100", SERVE_BATCH, "cb")
+        x0 = np.stack([drained[i].x for i in range(SERVE_BATCH)])
+        batch = B3[:SERVE_BATCH]
+        ops.reset_launch_counts()
+        plan8(batch, x0=x0)
+        direct = ops.launch_counts()
+        say(f"service chunk launches: one tick {json.dumps(tick_launches)}; "
+            f"direct call of the k_pad={SERVE_BATCH} chunk plan "
+            f"{json.dumps(direct)}")
+        batched = ("ell_spmm", "ell_spmm_pfold_dot", "cg_update_batched")
+        if (tick_launches != direct or direct["ell_spmm"] < 1
+                or direct["ell_spmm_pfold_dot"] != SERVE_CHUNK
+                or direct["cg_update_batched"] != SERVE_CHUNK
+                or any(v for k, v in direct.items() if k not in batched)):
+            raise AssertionError("service chunk launches")
+
+        # where a chunk's wall goes: the plan on the card, the copies
+        x0z = np.zeros_like(batch)
+        walls, dev, copies = [], [], []
+        for _ in range(3):
+            t0 = now()
+            plan8(batch, x0=x0z)
+            walls.append(now() - t0)
+            t0 = now()
+            bd, xd = eng3.to_device_vec(batch), eng3.to_device_vec(x0z)
+            torch.cuda.synchronize()
+            t_in = now() - t0
+            start = torch.cuda.Event(enable_timing=True)
+            stop = torch.cuda.Event(enable_timing=True)
+            start.record()
+            res = plan8.fn(bd, xd)
+            stop.record()
+            stop.synchronize()
+            dev.append(start.elapsed_time(stop) * 1e-3)
+            t0 = now()
+            eng3.from_device_vec(res.x)
+            copies.append(t_in + now() - t0)
+        chunk_hist = fam("repro_serve_chunk_seconds").labels(service=label)
+        wall, on_card, cp = (float(np.median(v)) for v in (walls, dev, copies))
+        say(f"service chunk (k_pad={SERVE_BATCH}, {SERVE_CHUNK} steps, "
+            f"n={n3}), medians of 3: plan call wall {wall * 1e3:.2f} ms; "
+            f"measured apart, the plan on the card {on_card * 1e3:.2f} ms "
+            f"and the copies in and out {cp * 1e3:.2f} ms ({cp / wall:.1%} "
+            f"of the call); the service's mean chunk wall "
+            f"{chunk_hist.sum / chunk_hist.count * 1e3:.2f} ms over "
+            f"{chunk_hist.count} chunks (captures included)")
+
+        # the restarts: one uninterrupted solve of request 0
+        plain = eng3.plan(spec3)
+        plain(B3[0])
+        t0 = now()
+        plain(B3[0])
+        plain_s = now() - t0
+        say(f"service restarts: request 0 takes {drained[0].iters} "
+            f"iterations in chunks of {SERVE_CHUNK}, {int(plain.last_iters)} "
+            f"as one solve ({plain.last_status_names}, {plain_s:.3f} s warm "
+            f"on the card)")
+        say(f"service plans: {len(caps)} ({', '.join(caps)}), capture s "
+            f"{json.dumps({k: round(v or 0.0, 4) for k, v in caps.items()})}; "
+            f"resident_bytes {svc.resident_bytes()}")
+
+        # 6e: the endpoint and the bits of an instrumented chunk
+        srv = obs.start_metrics_server(port=0)
+        try:
+            got = {}
+            for path in ("/metrics", "/metrics.json", "/trace.json"):
+                with urllib.request.urlopen(
+                        f"http://{srv.host}:{srv.port}{path}",
+                        timeout=30) as r:
+                    got[path] = r.read().decode()
+        finally:
+            srv.close()
+        text = obs.render_prometheus()
+        families = [f"repro_{f}" for f in (
+            "serve_events_total", "serve_rejects_total",
+            "serve_outcomes_total", "serve_queue_depth", "serve_queue_peak",
+            "serve_resident_bytes", "serve_operators_resident",
+            "serve_tick_seconds", "serve_chunk_seconds",
+            "serve_request_seconds", "plan_cache_hits_total",
+            "plan_cache_misses_total", "plan_retraces_total",
+            "plan_build_seconds", "solve_executions_total",
+            "plan_compile_seconds", "solve_seconds", "plan_format_total",
+            "engine_device_bytes", "ft_straggler_flags_total")]
+        missing = [f for f in families
+                   if f"# TYPE {f} " not in text
+                   or f"# TYPE {f} " not in got["/metrics"]]
+        snap = json.loads(got["/metrics.json"])
+        spans = json.loads(got["/trace.json"])["traceEvents"]
+        kinds = sorted({e["cat"] for e in spans})
+        with obs.disabled():
+            x_bare, n_bare = plan8(batch, x0=x0)
+        x_inst, n_inst = plan8(batch, x0=x0)
+        same = np.array_equal(x_bare, x_inst) and np.array_equal(n_bare,
+                                                                 n_inst)
+        say(f"service observability: {len(families)} families in "
+            f"render_prometheus and /metrics (missing {missing}), "
+            f"/metrics.json {len(snap)} families, /trace.json {len(spans)} "
+            f"spans of kinds {kinds}; instrumented chunk == bare chunk "
+            f"bitwise: {same}")
+        if missing or not same or "chunk" not in kinds or "tick" not in kinds:
+            raise AssertionError("service observability")
+    except Exception:
+        traceback.print_exc()
+        failed.append("service full size")
+
+    # -- 6c. bitwise join at full width ---------------------------------------
+    eng2 = None
+    a2 = csr(m_main)
+    try:
+        rng = np.random.default_rng(1)
+        eng2 = AzulEngine(m_main, dtype=np.float64)
+        rhs2 = (a2 @ rng.standard_normal((4, m_main.shape[0])).T).T
+        cases = (
+            ("lap3d_100", eng3, spec3, B3[:2], (1, 2)),
+            ("lap2d_1024", eng2,
+             SolveSpec(method="pcg_tol", tol=MAIN_TOL, max_iters=JOIN_BUDGET),
+             rhs2, (1, 2, 4)))
+        for name, eng, spec, rhs, buckets in cases:
+            solo = SolveService(max_batch=SERVE_BATCH, chunk=SERVE_CHUNK)
+            solo.register_operator(name, engine=eng, spec=spec)
+            solo.submit(rhs[1])
+            ops.reset_launch_counts()
+            ref = solo.drain()[0]
+            one = ops.launch_counts()
+            svc_j = SolveService(max_batch=SERVE_BATCH, chunk=SERVE_CHUNK)
+            svc_j.register_operator(name, engine=eng, spec=spec)
+            ids = [svc_j.submit(rhs[0])]
+            svc_j.tick()
+            if len(buckets) == 2:
+                svc_j.tick()                      # joins after two ticks
+                ids.append(svc_j.submit(rhs[1]))
+            else:
+                ids.append(svc_j.submit(rhs[1]))  # k_pad 1 -> 2
+                svc_j.tick()
+                ids += [svc_j.submit(r) for r in rhs[2:]]   # -> 4
+            done = svc_j.drain()
+            got = done[ids[1]]
+            used = sorted(svc_j._operators[name].pools["cb"])
+            steady(solo, f"join {name} solo")
+            steady(svc_j, f"join {name}")
+            bits = (np.array_equal(got.x, ref.x)
+                    and np.array_equal(got.res_norms, ref.res_norms))
+            say(f"service join {name}: joined request {got.iters} iters "
+                f"{got.status}, solo {ref.iters} {ref.status}, buckets "
+                f"{used}; x and res_norms bitwise equal: {bits}; the solo "
+                f"(1, n) chunks launched {json.dumps({k: v for k, v in one.items() if v})}")
+            if (not bits or got.iters != ref.iters or used != list(buckets)
+                    or one.get("ell_spmv_pfold_dot") or one.get("cg_update")
+                    or one.get("ell_spmv") or not one.get("ell_spmm_pfold_dot")
+                    or one.get("cg_update_batched") != one.get(
+                        "ell_spmm_pfold_dot")):
+                raise AssertionError(f"service join {name}")
+            if name == "lap3d_100" and drained and not np.array_equal(
+                    ref.x, drained[1].x):
+                raise AssertionError("service join lap3d_100: the solo solve "
+                                     "differs from the drained cohort's")
+            if name == "lap2d_1024" and {o.status for o in done.values()} != {
+                    "maxiter"}:
+                raise AssertionError("service join lap2d_1024: statuses")
+        # the batched kernels' lanes at k = 2 and 4 on lap3d_100's operator
+        gen = torch.Generator(device="cuda").manual_seed(6)
+        cols, vals = eng3.ell.cols, eng3.ell.vals
+        rows = cols.shape[0]
+        for k in (2, 4):
+            lanes = [torch.randn(k, rows, generator=gen, device="cuda",
+                                 dtype=torch.float64) for _ in range(5)]
+            beta = torch.linspace(0.0, 0.9, k, dtype=torch.float64,
+                                  device="cuda")
+            alpha = torch.linspace(0.1, 0.9, k, dtype=torch.float64,
+                                   device="cuda").reshape(k, 1)
+            check_lanes(cols, vals, (*lanes, beta, alpha), eng3._dinv_pad,
+                        f"lap3d_100 k={k}")
+        say(f"service join ok: bits equal to the solo solves; batched "
+            f"kernels' lanes independent of k at k = 2 and 4 ({rows} rows)")
+    except Exception:
+        traceback.print_exc()
+        failed.append("service join")
+
+    # -- 6d. eviction under a memory budget -----------------------------------
+    try:
+        sizes = {"lap3d_100": eng3.device_bytes(),
+                 "lap2d_1024": (eng2 or AzulEngine(m_main, dtype=np.float64)
+                                ).device_bytes()}
+        limit = max(sizes.values()) + min(sizes.values()) // 2
+        svc_e = SolveService(max_batch=SERVE_BATCH, chunk=SERVE_CHUNK,
+                             memory_limit=limit)
+        drops = []
+        evict = svc_e._evict
+
+        def measured_evict(op):
+            plans = op.plan_count()
+            gc.collect()
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            before = torch.cuda.memory_reserved()
+            evict(op)
+            gc.collect()
+            torch.cuda.empty_cache()
+            drops.append({"operator": op.name, "plans": plans,
+                          "reserved_before": before,
+                          "reserved_after": torch.cuda.memory_reserved(),
+                          "operator_bytes": op.bytes})
+
+        svc_e._evict = measured_evict
+        reg = dict(op_kw, iters=SERVE_BUDGET)
+        svc_e.register_operator("lap3d_100", m3, **reg)
+        svc_e.register_operator("lap2d_1024", m_main, **reg)
+        b2 = a2 @ np.random.default_rng(0).standard_normal(m_main.shape[0])
+        outs = []
+        for name, b, cap in (("lap2d_1024", b2, JOIN_BUDGET),
+                             ("lap3d_100", B3[0], None),
+                             ("lap2d_1024", b2, JOIN_BUDGET)):
+            rid = svc_e.submit(b, name, max_iters=cap)
+            out = svc_e.drain()[rid]
+            steady(svc_e, f"eviction {name}")
+            outs.append(out)
+        del svc_e._evict
+        say(f"service eviction: limit {limit} bytes for {json.dumps(sizes)}; "
+            f"evictions {svc_e.stats['evictions']}, reloads "
+            f"{svc_e.stats['reloads']}; " + json.dumps(drops))
+        say("service eviction outcomes: " + json.dumps(
+            [(o.operator, o.iters, o.status) for o in outs]))
+        freed = [d for d in drops if d["plans"]]
+        if (svc_e.stats["evictions"] < 1 or svc_e.stats["reloads"] < 1
+                or not freed or any(d["reserved_after"] >= d["reserved_before"]
+                                    for d in drops)
+                or outs[0].status != "maxiter" or outs[1].status != "converged"
+                or not np.array_equal(outs[0].x, outs[2].x)
+                or (drained and not np.array_equal(outs[1].x, drained[0].x))):
+            raise AssertionError("service eviction")
+    except Exception:
+        traceback.print_exc()
+        failed.append("service eviction")
+    del eng2
+    say(f"service phases 6a-6e: {now() - t_phase:.1f} s")
+
+    # -- 6f. the CLI -----------------------------------------------------------
+    try:
+        env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+        cmd = [sys.executable, "-m", "repro_torch.launch.serve", "--solver",
+               "--operators", "lap2d_96,banded_10k", "--requests", "12",
+               "--iters", "2000", "--tol", "1e-10"]
+        for extra in ([], ["--load-gen", "open", "--rate", "50",
+                           "--requests", "40"]):
+            t0 = now()
+            r = subprocess.run(cmd + extra, env=env, capture_output=True,
+                               text=True, timeout=600, cwd=ROOT)
+            if r.returncode != 0:
+                raise AssertionError(f"launch.serve {extra}: exit "
+                                     f"{r.returncode}\n{r.stderr[-3000:]}")
+            out = json.loads(r.stdout)
+            say(f"service CLI {' '.join(extra) or 'drain'} ({now() - t0:.1f} "
+                f"s): " + json.dumps(out))
+            if extra:
+                ok = (out["completed"] == 40 and not out["rejected"]
+                      and not out["retraces"]
+                      and out["statuses"] == {"converged": 40}
+                      and 0 < out["verify_rel_residual"] <= 1e-8)
+            else:
+                ok = out["verify_maxerr"] <= 1e-6
+            ok = ok and out["degraded_batches"] == 0
+            if not ok:
+                raise AssertionError(f"launch.serve {extra}: {out}")
+    except Exception:
+        traceback.print_exc()
+        failed.append("service CLI")
+    say(f"service phase: {now() - t_phase:.1f} s")
 
 
 def main() -> int:
@@ -3022,6 +3622,9 @@ def main() -> int:
     except Exception:
         traceback.print_exc()
         failed.append("times ops-only")
+
+    # -- 6. the solve service ------------------------------------------------
+    service_phase(m_main, failed)
 
     if failed:
         say("FAILED phases: " + ", ".join(failed))

@@ -35,6 +35,13 @@ matrix (or a matrix-free ``Stencil``), the engine
      captures the solver's loop as one CUDA graph, and every later call
      replays it (``plan.traces`` counts the builds).
 
+``reorder="rcm"`` packs the reverse Cuthill-McKee permuted matrix (ELL,
+the format containers, the IC(0) factors and ``device_bytes`` all see it)
+and permutes every vector on the way in and back on the way out
+(``to_device_vec`` / ``from_device_vec``), so callers speak the original
+ordering.  ``layout`` is the distributed communication knob: one device
+has no NoC, so plans lower "dense" and "halo" raises.
+
 Not ported yet, and refused with NotImplementedError naming the ROADMAP
 item: distributed meshes.
 """
@@ -47,10 +54,13 @@ import torch
 from . import registry
 from ..device import DEFAULT_DEVICE, resolve_device, resolve_dtype
 from ..kernels.autotune import choose_format, modeled_format_words
+from ..obs import REGISTRY as _OBS
 from .formats import (CSR, ELL, bcsr_from_csr, ell_arrays_from_csr,
                       hyb_from_csr, pad_to, sell_from_csr)
 from .loop import ProgramCell
-from .plan import PlanCache, SolvePlan, SolveSpec, canonicalize
+from .partition import permute_csr, rcm_permutation
+from .plan import (PlanCache, SolvePlan, SolveSpec, canonicalize,
+                   warn_deprecated)
 from .precond import ic0, make_fused_ic0_apply
 from .solvers import ensure_status
 from .spops import spmm_ell_padded, spmv_ell_padded
@@ -91,6 +101,7 @@ class AzulEngine:
     a : CSR | Stencil       square sparse matrix (host side), or a
                             matrix-free stencil operator
     mesh : None             distributed meshes are not ported yet
+                            (ROADMAP Queue 1 item 10)
     precond : "jacobi" | "block_ic0" | "none"  (a stencil takes "jacobi"
                             or "none": block_ic0 needs stored nonzeros)
     dtype : float32 | float64 (numpy or torch spelling); default float32
@@ -103,6 +114,12 @@ class AzulEngine:
         plain PyTorch, one op per solver line -- on the same device.
         For block_ic0, "auto" takes the fused IC(0) substrate on a CUDA
         device only, where its kernel launches (True forces it).
+    layout : "auto" | "halo" | "dense"
+        Distributed communication layout; a local engine lowers "dense"
+        and rejects "halo" (it needs a mesh).
+    reorder : "none" | "rcm"
+        Bandwidth-reducing row/column reordering applied at build (module
+        docstring); vectors round-trip it transparently.
     format : "auto" | "ell" | "sell" | "hyb" | "bcsr" | "stencil"
         Operator storage format.  "auto" runs the per-matrix format rule
         (``kernels.autotune.choose_format``): uniform rows stay on padded
@@ -115,21 +132,33 @@ class AzulEngine:
 
     def __init__(self, a: CSR | Stencil, mesh=None, precond: str = "jacobi",
                  dtype=np.float32, row_pad: int = 8, width_pad: int = 8,
-                 fused="auto", format: str = "auto",
-                 device=DEFAULT_DEVICE):
+                 fused="auto", layout: str = "auto", reorder: str = "none",
+                 format: str = "auto", device=DEFAULT_DEVICE):
         if mesh is not None:
             raise NotImplementedError(
                 "distributed meshes are not ported yet (ROADMAP Queue 1 "
-                "item 11)")
+                "item 10)")
         if a.shape[0] != a.shape[1]:
             raise ValueError("engine expects a square matrix")
+        if layout not in ("auto", "halo", "dense"):
+            raise ValueError(
+                f"layout must be 'auto', 'halo' or 'dense', got {layout!r}")
+        if reorder not in ("none", "rcm"):
+            raise ValueError(f"reorder must be 'none' or 'rcm', got {reorder!r}")
+        if layout == "halo":
+            raise ValueError("layout='halo' needs a mesh (no NoC locally)")
         if format not in _FORMAT_KNOBS:
             raise ValueError(
                 "format must be 'auto', 'ell', 'sell', 'hyb', 'bcsr' or "
                 f"'stencil', got {format!r}")
         self._configure(precond, fused, dtype, device)
+        self.layout = layout
         is_stencil = isinstance(a, Stencil)
         if is_stencil:
+            if reorder != "none":
+                raise ValueError(
+                    "reorder needs a stored matrix; stencil operators have "
+                    "a fixed grid ordering")
             if registry.get_precond(precond).factorized:
                 raise ValueError(
                     f"precond {precond!r} needs stored nonzeros to factor; "
@@ -140,7 +169,13 @@ class AzulEngine:
                     "stencil operator")
         elif format == "stencil":
             raise ValueError("format='stencil' needs a Stencil operator")
-        self.a = a
+        self.reorder = reorder
+        if reorder == "rcm":
+            self._row_perm = rcm_permutation(a)
+            self._row_iperm = np.empty_like(self._row_perm)
+            self._row_iperm[self._row_perm] = np.arange(a.shape[0])
+            a = permute_csr(a, self._row_perm)
+        self.a = a                     # the working (reordered) matrix
         self.stencil = a if is_stencil else None
         self.format = format
         self._row_pad = row_pad
@@ -186,6 +221,7 @@ class AzulEngine:
         engine has no host matrix to pack others from."""
         eng = cls.__new__(cls)
         eng._configure(precond, fused, vals.dtype, device)
+        eng.layout, eng.reorder = "auto", "none"
         eng.format, eng.format_choice, eng.format_words = "ell", "ell", None
         eng.a = eng.stencil = None
         eng._set_operator(cols, vals, dinv, n)
@@ -209,6 +245,7 @@ class AzulEngine:
         self.dtype, self.torch_dtype = resolve_dtype(dtype)
         self.device = resolve_device(device)
         self.mode = "local"
+        self._row_perm = self._row_iperm = None
         self.plans = PlanCache()
         self.last_solve_info: dict = {}
         self._fmt_objs: dict = {}
@@ -263,16 +300,24 @@ class AzulEngine:
 
     def to_device_vec(self, v: np.ndarray) -> torch.Tensor:
         """Embed a global (n,) vector, or a (k, n) batch, into the padded
-        (n_pad,) / (k, n_pad) device layout (zeros past n)."""
+        (n_pad,) / (k, n_pad) device layout (zeros past n).  With
+        ``reorder`` active the engine's row permutation applies here (and
+        inverts in :meth:`from_device_vec`), so callers always speak the
+        original ordering."""
         v = np.asarray(v)
+        if self._row_perm is not None:
+            v = v[..., self._row_perm]
         out = np.zeros(v.shape[:-1] + (self.n_pad,), self.dtype)
         out[..., : self.n] = v
         return torch.from_numpy(out).to(self.device)
 
     def from_device_vec(self, v: torch.Tensor) -> np.ndarray:
         """Extract the global (n,) / (k, n) vectors from the padded
-        layout."""
-        return v[..., : self.n].cpu().numpy()
+        layout (waits for the device: the copy to the host)."""
+        out = v[..., : self.n].cpu().numpy()
+        if self._row_iperm is not None:
+            out = out[..., self._row_iperm]
+        return out
 
     # -- public ops ---------------------------------------------------------
 
@@ -286,13 +331,37 @@ class AzulEngine:
                                                        self.n_pad))
         return self.from_device_vec(_matvec(self.ell.cols, self.ell.vals, xd))
 
+    def solve(self, b, method: str = "pcg", iters: int = 200, x0=None,
+              fused=None, tol: float = 1e-8, max_iters: int | None = None):
+        """DEPRECATED: build a :class:`SolveSpec` and use :meth:`plan`.
+
+        Thin shim kept for compatibility with the JAX package's surface: it
+        builds the equivalent spec, hits the plan cache and executes -- bit
+        for bit the plan's result (``b`` may be (n,) or stacked (k, n)).
+        Emits one DeprecationWarning per process."""
+        warn_deprecated(
+            "AzulEngine.solve",
+            "AzulEngine.solve(**knobs) is deprecated: build a SolveSpec "
+            "and use AzulEngine.plan(spec) (see README 'The plan/execute "
+            "API').",
+        )
+        b = np.asarray(b)
+        spec = SolveSpec(
+            method=method, iters=iters, tol=tol, max_iters=max_iters,
+            batch=b.shape[0] if b.ndim == 2 else None,
+            fused="auto" if fused is None else fused,
+        )
+        return self.plan(spec)(b, x0=x0)
+
     def device_bytes(self) -> int:
         """Device-resident operator footprint: ELL cols/vals (none for a
         stencil), the inverse diagonal, the SELL/HYB/BCSR containers built
         so far (their row-reduction plans included) and, for block-IC(0),
         both factors with their schedules and the fused application's
         inverse diagonals and solve packs (level lists, level grids,
-        dependency codes)."""
+        dependency codes).  The plans' captured graphs and their memory
+        pools are not counted (the JAX package counts no compiled
+        program either)."""
         tensors = [self._dinv_pad]
         if self.ell is not None:
             tensors += [self.ell.cols, self.ell.vals]
@@ -381,8 +450,16 @@ class AzulEngine:
             "fused": spec.fused,
             "substrate": kind,
             "batch": spec.batch,
-            "layout": "dense",          # one device: no NoC
-            "reorder": "none",
+            "layout": spec.layout,
+            "reorder": spec.reorder,
             "format": spec.format,
         }
+        _OBS.counter(
+            "repro_plan_format_total",
+            "plans lowered by operator storage format", ("format",),
+        ).inc(format=spec.format)
+        _OBS.gauge(
+            "repro_engine_device_bytes",
+            "device-resident operator footprint of the last-planned engine",
+        ).set(float(self.device_bytes()))
         return SolvePlan(self, spec, prog, info, cell, ctx)

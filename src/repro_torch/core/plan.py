@@ -17,6 +17,16 @@ build captures the solve loop as one CUDA graph (``core.loop``) and every
 call after it replays the graph; on the CPU it is the one build of the
 loop program, which runs eagerly.  ``SolvePlan.traces`` counts the
 builds and ``assert_steady`` raises once there are two, as in JAX.
+
+Observability (``repro_torch.obs``, the JAX package's families): plan
+cache hits and misses, build time (a ``plan_build`` span), executions,
+and a ``solve`` span around every call, whose wall goes to
+``repro_plan_compile_seconds`` when the call built (on the card: captured
+the loop) and to ``repro_solve_seconds`` otherwise.  A build beyond a
+plan's first counts in ``repro_plan_retraces_total``.  The timing adds no
+device sync and nothing to the captured graph: the call already waits
+for the device where it copies the results to numpy, and the span closes
+after that copy.
 """
 
 from __future__ import annotations
@@ -24,13 +34,39 @@ from __future__ import annotations
 from dataclasses import dataclass, replace
 from typing import Any, Callable
 
+import warnings
+
 import numpy as np
 import torch
 
 from . import registry
+from ..obs import REGISTRY as _OBS
+from ..obs import clock as _clock
+from ..obs import span as _span
+from ..obs.metrics import enabled as _obs_enabled
 
 __all__ = ["SolveSpec", "SolvePlan", "PlanCache", "canonicalize",
-           "chunk_spec"]
+           "chunk_spec", "warn_deprecated"]
+
+# -- observability (host-side only: never enters a captured graph) ----------
+_M_CACHE_HITS = _OBS.counter(
+    "repro_plan_cache_hits_total", "PlanCache lookups served by a warm plan")
+_M_CACHE_MISSES = _OBS.counter(
+    "repro_plan_cache_misses_total", "PlanCache lookups that lowered a plan")
+_M_RETRACES = _OBS.counter(
+    "repro_plan_retraces_total",
+    "jit retraces beyond a plan's first trace (steady-state violations)")
+_M_BUILD_S = _OBS.histogram(
+    "repro_plan_build_seconds", "plan lowering wall time on a cache miss")
+_M_EXECUTIONS = _OBS.counter(
+    "repro_solve_executions_total", "SolvePlan executions", ("method",))
+_M_COMPILE_S = _OBS.histogram(
+    "repro_plan_compile_seconds",
+    "wall time of executions that (re)traced: trace + compile + run",
+    ("method",))
+_M_SOLVE_S = _OBS.histogram(
+    "repro_solve_seconds",
+    "steady-state execution wall time (block_until_ready)", ("method",))
 
 
 @dataclass(frozen=True)
@@ -51,6 +87,12 @@ class SolveSpec:
                shares the matrix stream (every lane its own alpha/beta,
                iteration count and status)
     fused      None/'auto' (engine knob) | True | False
+    layout     communication layout: None/'auto' (the engine's knob) |
+               'dense'; a local engine has no NoC, so it resolves to
+               'dense' and 'halo' raises
+    reorder    row/column reordering; None = the engine's (the matrix is
+               packed under the permutation at engine build, so a spec
+               naming another reorder than the engine's is rejected)
     guard      in-loop numerical health guards (default True)
     format     None/'auto' (the engine's format) | 'ell' | 'sell' |
                'hyb' | 'bcsr' | 'stencil' (a stencil engine's only one)
@@ -63,6 +105,8 @@ class SolveSpec:
     max_iters: int | None = None
     batch: int | None = None
     fused: Any = "auto"
+    layout: str | None = None
+    reorder: str | None = None
     guard: bool = True
     format: str | None = None
 
@@ -85,6 +129,13 @@ def canonicalize(spec: SolveSpec, engine) -> SolveSpec:
         raise ValueError(f"solver {sdef.name!r} does not support batched RHS")
     fused_knob = engine.fused if spec.fused in (None, "auto") else spec.fused
     fused = registry.resolve_fused(sdef, pdef, fused_knob, engine.device)
+    if spec.reorder is not None and spec.reorder != engine.reorder:
+        raise ValueError(
+            f"spec reorder {spec.reorder!r} != engine reorder "
+            f"{engine.reorder!r} (the matrix is packed under the permutation"
+            " at engine build -- build an engine with reorder=...)")
+    layout = registry.resolve_layout(
+        engine.layout if spec.layout in (None, "auto") else spec.layout)
     if sdef.tolerance:
         tol = 1e-8 if spec.tol is None else float(spec.tol)
         max_iters = spec.iters if spec.max_iters is None else int(spec.max_iters)
@@ -103,8 +154,8 @@ def canonicalize(spec: SolveSpec, engine) -> SolveSpec:
                                   engine_choice=engine.format_choice,
                                   stencil=engine.stencil is not None)
     return replace(spec, method=sdef.name, precond=pdef.name, iters=iters,
-                   tol=tol, max_iters=max_iters, fused=fused, guard=guard,
-                   format=fmt)
+                   tol=tol, max_iters=max_iters, fused=fused, layout=layout,
+                   reorder=engine.reorder, guard=guard, format=fmt)
 
 
 def chunk_spec(spec: SolveSpec, chunk: int, batch: int | None = None,
@@ -235,6 +286,27 @@ class SolvePlan:
             if b.ndim == 2 and x0.ndim == 1:
                 x0 = np.broadcast_to(x0, b.shape)
             x0_dev = eng.to_device_vec(x0)
+        if _obs_enabled():
+            tr0 = self.traces
+            t0 = _clock.now()
+            with _span("solve", kind="solve", method=self.spec.method):
+                out = self._run(b_dev, x0_dev)
+            dt = _clock.now() - t0
+            built = self.traces - tr0
+            _M_EXECUTIONS.inc(method=self.spec.method)
+            if built:
+                _M_COMPILE_S.observe(dt, method=self.spec.method)
+                retraces = built - (1 if tr0 == 0 else 0)
+                if retraces > 0:
+                    _M_RETRACES.inc(retraces)
+            else:
+                _M_SOLVE_S.observe(dt, method=self.spec.method)
+            return out
+        return self._run(b_dev, x0_dev)
+
+    def _run(self, b_dev, x0_dev):
+        """One execution and its bookkeeping; the results as numpy (the
+        copy waits for the device)."""
         res = self._fn(b_dev, x0_dev)
         self.executions += 1
         self.last_iters = res.iters
@@ -245,27 +317,89 @@ class SolvePlan:
         info["status"] = self.last_status
         info["status_names"] = self.last_status_names
         info["bad_iter"] = self.last_bad_iter
+        eng = self.engine
         eng.last_solve_info = info
         return eng.from_device_vec(res.x), res.res_norms
 
+    def hlo_summary(self, refresh: bool = False) -> dict:
+        """Collective summary of the plan's program, as the JAX package's
+        (``count_by_op`` by collective name, ``total_count``).  A local plan
+        has no collectives: ``{"count_by_op": {}, "total_count": 0.0}``;
+        the counts arrive with the distributed engine (ROADMAP Queue 1
+        item 10).  Cached in ``info["hlo"]``; never builds the program, so
+        it does not count in ``traces``."""
+        if refresh or "hlo" not in self.info:
+            self.info["hlo"] = {"count_by_op": {}, "total_count": 0.0}
+        return self.info["hlo"]
+
+    def __repr__(self) -> str:
+        s = self.spec
+        return (f"SolvePlan({s.method}, precond={s.precond}, "
+                f"substrate={self.info['substrate']}, batch={s.batch}, "
+                f"traces={self.traces}, executions={self.executions})")
+
 
 class PlanCache:
-    """Spec-keyed store of lowered plans (the engine's ``plans``): equal
-    canonical specs hit, anything else misses and builds exactly once."""
+    """Spec-keyed store of lowered plans (the engine's ``plans``).
+
+    Keys are (canonical SolveSpec, env), ``env`` being the global state a
+    build depends on besides the spec (the JAX package keys its kernel
+    dispatch mode there; the port's engines pass ``()``): equal keys hit,
+    anything else misses and builds exactly once.  Membership tests take
+    a canonical spec."""
 
     def __init__(self):
         self._plans: dict = {}
         self.hits = 0
         self.misses = 0
 
-    def get(self, spec: SolveSpec, build: Callable):
-        plan = self._plans.get(spec)
+    def get(self, spec: SolveSpec, build: Callable, env: tuple = ()):
+        key = (spec, env)
+        plan = self._plans.get(key)
         if plan is None:
             self.misses += 1
-            plan = self._plans[spec] = build(spec)
+            _M_CACHE_MISSES.inc()
+            t0 = _clock.now()
+            with _span("plan_build", kind="plan_build", method=spec.method):
+                plan = build(spec)
+            _M_BUILD_S.observe(_clock.now() - t0)
+            self._plans[key] = plan
         else:
             self.hits += 1
+            _M_CACHE_HITS.inc()
         return plan
 
     def __len__(self) -> int:
         return len(self._plans)
+
+    def __contains__(self, spec: SolveSpec) -> bool:
+        return any(k[0] == spec for k in self._plans)
+
+    def specs(self) -> list:
+        return [k[0] for k in self._plans]
+
+    def clear(self) -> None:
+        """Drop every plan; a plan no one else holds is freed with its
+        captured graph and its memory pool."""
+        self._plans.clear()
+
+
+# ---------------------------------------------------------------------------
+# deprecation bookkeeping for the legacy surfaces
+# ---------------------------------------------------------------------------
+
+_WARNED: set = set()
+
+
+def warn_deprecated(key: str, message: str) -> None:
+    """Emit ``message`` as a DeprecationWarning ONCE per process per key
+    (legacy call sites keep working; they just say so, once)."""
+    if key in _WARNED:
+        return
+    _WARNED.add(key)
+    warnings.warn(message, DeprecationWarning, stacklevel=3)
+
+
+def _reset_deprecation_warnings() -> None:
+    """Test hook: make the next legacy call warn again."""
+    _WARNED.clear()

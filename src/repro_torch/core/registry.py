@@ -5,8 +5,8 @@ A :class:`SolverDef` names an iteration and declares what it supports; a
 :class:`PrecondDef` names a preconditioner and how its local apply is
 built.  ``canonicalize`` and the engine's lowering read these instead of
 branching on names; ``register_solver`` / ``register_precond`` add
-entries (``unregister_solver`` takes one out) with the JAX package's
-signatures.  Registered: the solvers ``pcg``, ``pcg_tol``,
+entries (``unregister_solver`` / ``unregister_precond`` take one out)
+with the JAX package's signatures.  Registered: the solvers ``pcg``, ``pcg_tol``,
 ``cg``, ``pcg_pipelined`` (alias ``pcg_pipe``), ``pcg_pipelined_tol``
 and ``jacobi``; the preconditioners ``jacobi``, ``identity`` (alias
 ``none``) and ``block_ic0``.
@@ -20,8 +20,9 @@ from typing import Any, Callable
 import torch
 
 __all__ = ["SolverDef", "PrecondDef", "SolveContext", "register_solver",
-           "register_precond", "unregister_solver", "get_solver",
-           "get_precond", "solver_names", "resolve_fused", "resolve_format",
+           "register_precond", "unregister_solver", "unregister_precond",
+           "get_solver", "get_precond", "solver_names", "precond_names",
+           "resolve_fused", "resolve_layout", "resolve_format",
            "substrate_kind", "effective_precond"]
 
 # Storage formats a solver's substrate can stream the operator from: the
@@ -121,6 +122,12 @@ def unregister_solver(name: str) -> None:
             _SOLVER_ALIASES.pop(a, None)
 
 
+def unregister_precond(name: str) -> None:
+    pdef = _PRECONDS.pop(name, None)
+    if pdef is not None:
+        for a in pdef.aliases:
+            _PRECOND_ALIASES.pop(a, None)
+
 
 def get_solver(name: str) -> SolverDef:
     name = _SOLVER_ALIASES.get(name, name)
@@ -145,8 +152,12 @@ def get_precond(name: str) -> PrecondDef:
     except KeyError:
         raise ValueError(
             f"unknown preconditioner {name!r}; "
-            f"registered: {', '.join(sorted(_PRECONDS))}"
+            f"registered: {', '.join(precond_names())}"
         ) from None
+
+
+def precond_names() -> tuple:
+    return tuple(sorted(_PRECONDS))
 
 
 def resolve_fused(sdef: SolverDef, pdef: PrecondDef, knob,
@@ -164,6 +175,21 @@ def resolve_fused(sdef: SolverDef, pdef: PrecondDef, knob,
             and pdef.fused_local_needs_kernels):
         supported = device.type == "cuda"
     return supported if knob in ("auto", True) else False
+
+
+def resolve_layout(knob) -> str:
+    """Resolve the communication-layout knob (None/'auto' | 'halo' |
+    'dense') for a local engine: one device has no NoC, so every plan
+    lowers 'dense', and 'halo' raises, as the JAX package's local rule
+    does.  The distributed rule arrives with the tile grid (ROADMAP
+    Queue 1 item 10)."""
+    if knob not in (None, "auto", "halo", "dense"):
+        raise ValueError(
+            f"layout must be 'auto', 'halo' or 'dense', got {knob!r}")
+    if knob == "halo":
+        raise ValueError("layout='halo' needs a distributed engine "
+                         "(single-device engines have no NoC)")
+    return "dense"
 
 
 def resolve_format(sdef: SolverDef, knob, engine_choice: str = "ell", *,

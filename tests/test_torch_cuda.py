@@ -21,7 +21,12 @@ both equal the CPU's bits; plans on every format reach the CPU's counts.
 Every variant of a redesigned kernel gives its first design's bits.  A
 plan captures its loop once and its replays equal a direct call of the
 same solver bit for bit, with the launches its kernels counted on the
-card.
+card.  The solve service: a request that joins a running cohort while
+the bucket moves k_pad 1 -> 2 -> 4 -> 8 equals its solo solve bit for
+bit, the batched kernels' lanes are independent of k at the service's
+buckets 2 and 4, an eviction frees the plans' memory pools (reserved
+memory falls) and a reload captures each plan once, and a fused chunk
+that fails on the card raises, with no plain plan built.
 """
 
 import numpy as np
@@ -209,13 +214,14 @@ def test_cg_update_batched_kernel_matches_plain(cuda, n, dtype, k, use_dinv):
     _close(got[3:], want[3:], dtype)
 
 
+@pytest.mark.parametrize("k", [2, 4, 8])
 @pytest.mark.parametrize("dtype", DTYPES, ids=str)
 @pytest.mark.parametrize("rows,width,nnz", SHAPES)
-def test_batched_lanes_do_not_depend_on_k(cuda, rows, width, nnz, dtype):
-    """Lane j of a k = 8 call equals the k = 1 call on lane j's inputs bit
-    for bit, every output; a k = 1 call equals the 1-D kernel."""
+def test_batched_lanes_do_not_depend_on_k(cuda, rows, width, nnz, dtype, k):
+    """Lane j of a k-lane call (k = 2 and 4 are the service's buckets
+    below 8) equals the k = 1 call on lane j's inputs bit for bit, every
+    output; a k = 1 call equals the 1-D kernel."""
     cols, vals, vec = _operator(rows, width, nnz, dtype, rows + 5, cuda)
-    k = 8
     x, z, p, r, ap = (_lanes(vec, k) for _ in range(5))
     dinv = vec().abs() + 0.5
     beta = torch.linspace(0.0, 0.7, k, dtype=dtype, device=cuda)
@@ -1081,3 +1087,117 @@ def test_replayed_plan_equals_a_direct_call(cuda, method, precond, fmt, batch):
     if method == "pcg_tol" and fmt == "ell":
         fold = "ell_spmm_pfold_dot" if batch else "ell_spmv_pfold_dot"
         assert counts[0][fold] == steps
+
+
+# -- the solve service on the card ---------------------------------------------
+
+
+def _service_pair(name="lap2d_32", chunk=8, **kw):
+    from repro_torch.serve import SolveService
+
+    out = []
+    for _ in range(2):
+        svc = SolveService(max_batch=8, chunk=chunk, **kw)
+        svc.register_operator(name, suite("small")[name], method="pcg_tol",
+                              tol=1e-8, iters=2000, dtype=np.float64)
+        out.append(svc)
+    return out
+
+
+def _pool_plans(svc):
+    return [p for op in svc._operators.values() for pool in op.pools.values()
+            for p in pool.values()]
+
+
+def test_service_join_bitwise_across_buckets(cuda):
+    """A request that joins a running cohort while the bucket moves
+    k_pad 1 -> 2 -> 4 -> 8 ends with its solo solve's bits, x and
+    res_norms; every pool plan captured once; no chunk degraded."""
+    m = suite("small")["lap2d_32"]
+    a = sp.csr_matrix((m.data, m.indices, m.indptr), shape=m.shape)
+    bs = a @ np.random.default_rng(8).standard_normal((8, m.shape[0])).T
+    bs = np.ascontiguousarray(bs.T)
+    solo, svc = _service_pair()
+    solo.submit(bs[1])
+    ref = solo.drain()[0]
+    ids = [svc.submit(bs[0])]
+    svc.tick()                                      # k_pad 1
+    ids.append(svc.submit(bs[1]))
+    svc.tick()                                      # 2
+    ids += [svc.submit(b) for b in bs[2:4]]
+    svc.tick()                                      # 4
+    ids += [svc.submit(b) for b in bs[4:]]
+    done = svc.drain()                              # 8
+    assert sorted(svc._operators["lap2d_32"].pools["cb"]) == [1, 2, 4, 8]
+    got = done[ids[1]]
+    assert got.status == ref.status == "converged"
+    assert got.iters == ref.iters
+    assert np.array_equal(got.x, ref.x)
+    assert np.array_equal(got.res_norms, ref.res_norms)
+    assert all(o.status == "converged" for o in done.values())
+    for s in (solo, svc):
+        assert s.stats["degraded_batches"] == 0
+        for plan in _pool_plans(s):
+            assert plan.traces == 1 and plan.cell.captures == 1
+
+
+def test_service_eviction_frees_the_plans_pools(cuda):
+    """Evicting an operator frees its engine and its captured plans'
+    memory pools: after the eviction and ``empty_cache`` the reserved
+    memory falls by more than the operator's own bytes; a reload captures
+    each plan once again and gives the same bits."""
+    import gc
+
+    from repro_torch.serve import SolveService
+
+    big = laplacian_2d(256)
+    svc = SolveService(max_batch=8, chunk=8)
+    info = svc.register_operator("big", big, method="pcg_tol", tol=1e-8,
+                                 iters=100, dtype=np.float64)
+    b = np.random.default_rng(3).standard_normal((4, big.shape[0]))
+    ids = [svc.submit(v) for v in b]
+    first = svc.drain()
+    assert {k for k in svc._operators["big"].pools["cb"]} == {4}
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_reserved()
+    svc._evict(svc._operators["big"])
+    gc.collect()
+    torch.cuda.empty_cache()
+    after = torch.cuda.memory_reserved()
+    assert before - after > info.bytes
+    ids2 = [svc.submit(v) for v in b]
+    again = svc.drain()
+    assert svc.stats["reloads"] == 1 and svc.stats["degraded_batches"] == 0
+    for r1, r2 in zip(ids, ids2):
+        assert np.array_equal(first[r1].x, again[r2].x)
+    for plan in _pool_plans(svc):
+        assert plan.traces == 1 and plan.cell.captures == 1
+
+
+def test_service_raises_a_kernel_failure_on_the_card(cuda):
+    """degraded_batches stays 0 on the kernels; a fused chunk that raises
+    on the card raises to the caller, and no plain (reference) plan is
+    built to answer it."""
+    svc, boom_svc = _service_pair("banded_1k")
+    m = suite("small")["banded_1k"]
+    b = np.random.default_rng(4).standard_normal(m.shape[0])
+    svc.submit(b)
+    ref = svc.drain()[0]
+    assert ref.status == "converged" and svc.stats["degraded_batches"] == 0
+
+    class Boom:
+        info, traces, calls = {"fused": True}, 1, 0
+
+        def __call__(self, batch, x0=None):
+            Boom.calls += 1
+            raise RuntimeError("injected fused-kernel failure")
+
+    op = boom_svc._operators["banded_1k"]
+    op.pools["cb"][1] = Boom()
+    boom_svc.submit(b)
+    with pytest.raises(RuntimeError, match="injected"):
+        boom_svc.drain()
+    assert Boom.calls == 1 and boom_svc.stats["degraded_batches"] == 0
+    assert not op.pools["cb_ref"] and not op.pools["ref"]

@@ -23,7 +23,9 @@ from repro_torch.core.engine import AzulEngine
 from repro_torch.core.stencil import lap2d_stencil
 from repro_torch.data.matrices import laplacian_2d
 from repro_torch.device import resolve_device
+from repro_torch.launch import serve as serve_cli
 from repro_torch.launch import solve as solve_cli
+from repro_torch.serve import SolveService
 
 REPO = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((REPO / "src" / "repro_torch").rglob("*.py")) + [
@@ -56,9 +58,16 @@ def test_port_imports_without_jax_or_repro():
     r = subprocess.run([sys.executable, "-c", _IMPORT_ALL], env=env,
                        capture_output=True, text=True, timeout=300)
     assert r.returncode == 0, r.stderr[-3000:]
-    assert int(r.stdout.split()[-1]) >= 17      # every module was imported
+    assert int(r.stdout.split()[-1]) >= 30      # every module was imported
     for name in ("repro_torch.core.stencil", "repro_torch.kernels.bcsr_spmm",
-                 "repro_torch.kernels.autotune", "repro_torch.convert"):
+                 "repro_torch.kernels.autotune", "repro_torch.convert",
+                 "repro_torch.core.partition", "repro_torch.obs.clock",
+                 "repro_torch.obs.metrics", "repro_torch.obs.trace",
+                 "repro_torch.obs.export", "repro_torch.ft",
+                 "repro_torch.ft.straggler", "repro_torch.serve",
+                 "repro_torch.serve.service", "repro_torch.serve.loadgen",
+                 "repro_torch.serve.solve_server",
+                 "repro_torch.launch.serve"):
         assert name in r.stdout.split(), name
 
 
@@ -93,7 +102,8 @@ def test_entry_points_default_to_cuda():
     for fn in (AzulEngine.__init__, AzulEngine.from_state,
                convert.engine_state_from_numpy, convert.format_from_numpy,
                formats.ell_from_csr, formats.sell_from_csr,
-               formats.hyb_from_csr, formats.bcsr_from_csr, resolve_device):
+               formats.hyb_from_csr, formats.bcsr_from_csr, resolve_device,
+               SolveService.__init__):
         assert inspect.signature(fn).parameters["device"].default == "cuda", fn
     m = laplacian_2d(4)
     if torch.cuda.is_available():
@@ -113,4 +123,8 @@ def test_entry_points_default_to_cuda():
                                         np.zeros((8, 1)), np.ones(8), 8, 8)
     with pytest.raises(RuntimeError, match="cuda"):
         solve_cli.main(["--matrix", "lap2d_32"])
+    with pytest.raises(RuntimeError, match="cuda"):
+        serve_cli.main(["--solver", "--matrix", "lap2d_32"])
+    with pytest.raises(RuntimeError, match="cuda"):
+        SolveService()
     assert AzulEngine(m, device="cpu").device.type == "cpu"

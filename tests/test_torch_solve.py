@@ -191,7 +191,7 @@ def test_unported_options_raise(problems, tmp_path, monkeypatch):
     monkeypatch.setenv("REPRO_TORCH_AUTOTUNE_CACHE", str(tmp_path / "at.json"))
     autotune.clear_memo()
     _, pm, _ = problems["lap2d_32"]
-    with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
+    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
         AzulEngine(pm, mesh=object(), device="cpu")
     # the storage formats are ported: each builds and resolves
     for fmt in ("sell", "hyb", "bcsr"):
