@@ -272,6 +272,41 @@ prints no result line):
                largest true relative residual <= 1e-8); both with
                ``degraded_batches`` 0.
 
+7. ft      -- fault-tolerant solves (``repro_torch.ft``) on the service's
+               operator, laplacian_3d(100) (n = 1,000,000), f64 Jacobi
+               pcg_tol at tol 1e-8, budget 20,000, chunks of 25, b = A
+               x_true (x_true from default_rng(0)).  7a: the chunk-sized
+               injectable plan against the plain one: a clean call bitwise
+               the plain plan's (x, trace; a warm start too) with its
+               launch counts; a NaN operand breaks down at iteration 0;
+               the next clean call bitwise the clean result; engine.spmv
+               and the engine's values unchanged; one value buffer,
+               16-byte aligned, not the engine's; one build, one capture.
+               Times: a clean and a corrupted chunk's wall, the plan on the
+               card (CUDA events), the value copy-in from the host and
+               device to device, the vectors' copies, the host audit.  7b:
+               a clean chunked solve, then a nan and a bitflip fault at
+               iteration 100 (seed 1), each detected in its chunk, rolled
+               back and converged, true relative residual <= 100 x tol
+               (scipy, host); launch counts zeroed just before and read
+               just after each: ell_spmv once a chunk, the p-fold and the
+               update once a loop step, no other kernel.  7c: a stuck-at
+               nan gives up after max_restarts + 1 = 4 restarts with the
+               fault's label.  7d: checkpoints in a temporary directory
+               and a nan at iteration 150: converged, and a fresh manager
+               resumes (resumed_from > 0); a checkpoint save's time.  7e:
+               a 0.5 s delay at iteration 100 is flagged by StepTimer, with
+               no restart.  7f: ``python -m repro_torch.launch.solve``
+               with FT_CLI (lap2d_96, --inject nan --inject-at 10
+               --ft-chunk 25 --max-iters 2000) exits 0, converged, with a
+               restart.  7g: the FT_PARITY scenarios at lap2d_16 against
+               the JAX package's reports: statuses, restarts and fault
+               labels equal, iterations and chunks +-1.  Last, the
+               injectable plan's traces and captures (1 and 1) over the
+               whole phase, and the times beside the card's name and power
+               limit, the fault-tolerant solve's wall and iterations
+               against one uninterrupted warm plan(b) among them.
+
 The last three lines are the kernels JSON, the card's
 ``nvidia-smi --query-gpu=name,power.limit`` line, and the result JSON.
 """
@@ -392,6 +427,75 @@ SERVE_BATCH, SERVE_CHUNK, SERVE_BUDGET = 8, 25, 20000
 # and 40.2 s)
 SERVE_DRAIN, SERVE_LOAD = 32, 16
 JOIN_BUDGET = 200                    # lap2d_1024's bitwise join: maxiter
+# phase 7, fault-tolerant solves: the service's operator, f64 Jacobi pcg_tol
+# at tol 1e-8 in chunks of launch/serve.py's 25, the faults at iteration 100
+# (150 with checkpoints) with seed 1
+FT_CHUNK, FT_AT, FT_AT_CKPT, FT_DELAY_S = 25, 100, 150, 0.5
+FT_CLI = ["--matrix", "lap2d_96", "--method", "pcg_tol", "--max-iters", "2000",
+          "--inject", "nan", "--inject-at", "10", "--ft-chunk", "25"]
+# FT_PARITY: the CPU tests' SolveRestartManager scenarios at lap2d_16 (tol
+# 1e-8, max_iters 400, b = A x with x from default_rng(0)) and the JAX
+# package's reports (CPU, f64): status, iterations, chunks, restarts and each
+# fault's (label, global_iter, bad_iter).  fault None runs clean.
+_NAN, _FLIP = dict(kind="nan", seed=1), dict(kind="bitflip", seed=1)
+_J, _IC = dict(precond="jacobi", chunk=20), dict(precond="block_ic0", chunk=5)
+_AT25, _AT12 = dict(iteration=25), dict(iteration=12)
+FT_PARITY = (
+    (dict(method="pcg_tol", **_J, fault=None),
+     ("converged", 73, 4, 0, ())),
+    (dict(method="pcg_tol", **_J, fault=dict(**_NAN, **_AT25)),
+     ("converged", 73, 5, 1, (("breakdown", 20, 0),))),
+    (dict(method="pcg_tol", **_J, fault=dict(**_FLIP, **_AT25)),
+     ("converged", 73, 5, 1, (("breakdown", 20, 0),))),
+    (dict(method="pcg_pipelined_tol", **_J, fault=dict(**_NAN, **_AT25)),
+     ("converged", 73, 5, 1, (("breakdown", 20, 0),))),
+    (dict(method="pcg_pipelined_tol", **_J, fault=dict(**_FLIP, **_AT25)),
+     ("converged", 73, 5, 1, (("breakdown", 20, 0),))),
+    (dict(method="pcg_tol", **_IC, fault=dict(**_NAN, **_AT12)),
+     ("converged", 27, 7, 1, (("breakdown", 10, 0),))),
+    (dict(method="pcg_tol", **_IC, fault=dict(**_FLIP, **_AT12)),
+     ("converged", 27, 7, 1, (("breakdown", 10, 0),))),
+    (dict(method="pcg_pipelined_tol", **_IC, fault=dict(**_NAN, **_AT12)),
+     ("converged", 27, 7, 1, (("breakdown", 10, 0),))),
+    (dict(method="pcg_pipelined_tol", **_IC, fault=dict(**_FLIP, **_AT12)),
+     ("converged", 27, 7, 1, (("breakdown", 10, 0),))),
+    # an exponent flip that stays finite: the audit's silent corruption
+    (dict(method="pcg_tol", **_J, fault=dict(**_FLIP, bit=60, count=2, **_AT25)),
+     ("converged", 73, 5, 1, (("silent_corruption", 20, None),))),
+    (dict(method="pcg_pipelined_tol", **_J,
+          fault=dict(**_FLIP, bit=60, count=2, **_AT25)),
+     ("converged", 99, 5, 0, ())),
+    # a low exponent flip: slower, and no fault
+    (dict(method="pcg_tol", **_J,
+          fault=dict(kind="bitflip", seed=2, bit=53, count=2, **_AT25)),
+     ("converged", 119, 6, 0, ())),
+    # stuck at NaN: max_restarts 2, then the fault's label
+    (dict(method="pcg_tol", **_J, max_restarts=2,
+          fault=dict(**_NAN, iteration=0, transient=False)),
+     ("breakdown", 0, 3, 3, (("breakdown", 0, 0),) * 3)),
+)
+FT_LABELS = ("breakdown", "diverged", "stagnated", "silent_corruption",
+             "nonfinite_x")
+
+
+def ft_scenario(engines: dict, case: dict, b):
+    """Run one FT_PARITY scenario with either package (``engines`` maps a
+    precond to its lap2d_16 engine; ``ft``/``SolveSpec`` from its
+    package); the FTSolveReport."""
+    eng, ft, spec_cls = engines[case["precond"]]
+    mgr = ft.SolveRestartManager(
+        eng, spec_cls(method=case["method"], tol=1e-8, max_iters=400),
+        chunk=case["chunk"], max_restarts=case.get("max_restarts", 3))
+    inj = (None if case["fault"] is None
+           else ft.FaultInjector(eng, ft.FaultSpec(**case["fault"])))
+    return mgr.solve(b, injector=inj)
+
+
+def ft_summary(rep) -> tuple:
+    """The FT_PARITY fields of a report."""
+    return (rep.status, rep.iterations, rep.chunks, rep.restarts,
+            tuple((f["label"], f["global_iter"], f["bad_iter"])
+                  for f in rep.faults))
 
 
 def service_script(svc, m, script: dict) -> list:
@@ -412,6 +516,296 @@ def service_script(svc, m, script: dict) -> list:
     ids += [svc.submit(a @ x) for x in xs[first:]]
     done.update(svc.drain())
     return [done[r] for r in ids]
+
+
+def ft_phase(failed: list) -> None:
+    """Phase 7: fault-tolerant solves on the card (module docstring).
+    Each sub-phase that fails adds its name to ``failed``."""
+    import os
+    import tempfile
+
+    import numpy as np
+    import scipy.sparse as sp
+    import torch
+
+    from repro_torch import ft
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.core.engine import AzulEngine
+    from repro_torch.core.plan import SolveSpec
+    from repro_torch.data.matrices import laplacian_2d, laplacian_3d
+    from repro_torch.kernels import ops
+    from repro_torch.obs.clock import now
+
+    t_phase = now()
+    m = laplacian_3d(SERVE_GRID)
+    a = sp.csr_matrix((m.data, m.indices, m.indptr), shape=m.shape)
+    n = m.shape[0]
+    x_true = np.random.default_rng(0).standard_normal(n)
+    b = a @ x_true
+    bnorm = float(np.linalg.norm(b))
+    t0 = now()
+    eng = AzulEngine(m, dtype=np.float64)
+    say(f"ft engine laplacian_3d({SERVE_GRID}) (n={n}, ELL "
+        f"{tuple(eng.ell.vals.shape)}): {now() - t0:.2f} s")
+    spec = SolveSpec(method="pcg_tol", tol=MAIN_TOL, max_iters=SERVE_BUDGET)
+    slack = ft.SolveRestartManager.TRUE_RESIDUAL_SLACK * MAIN_TOL
+    chunk_kw = dict(method="pcg_tol", tol=MAIN_TOL, max_iters=FT_CHUNK)
+    times: dict = {}
+
+    def true_rel(x) -> float:
+        return float(np.linalg.norm(b - a @ x) / bnorm)
+
+    def manager(**kw):
+        return ft.SolveRestartManager(eng, spec, chunk=FT_CHUNK, **kw)
+
+    def injector(kind, at=FT_AT, **kw):
+        return ft.FaultInjector(eng, ft.FaultSpec(kind=kind, iteration=at,
+                                                  seed=1, **kw))
+
+    def summary(rep) -> dict:
+        return {"status": rep.status, "iterations": rep.iterations,
+                "chunks": rep.chunks, "restarts": rep.restarts,
+                "faults": rep.faults, "resumed_from": rep.resumed_from,
+                "straggler_chunks": rep.straggler_chunks,
+                "rel_residual": rep.rel_residual}
+
+    def med_wall(fn, reps=3) -> float:
+        walls = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = now()
+            fn()
+            torch.cuda.synchronize()
+            walls.append(now() - t0)
+        return float(np.median(walls))
+
+    # -- 7a. the injectable plan's contract ----------------------------------
+    plan = None
+    try:
+        plain = eng.plan(SolveSpec(**chunk_kw))
+        plan = eng.plan(SolveSpec(injectable=True, **chunk_kw))
+        bad = injector("nan").vals_for(FT_AT, FT_AT + FT_CHUNK)
+        xs = np.random.default_rng(1).standard_normal(n)
+        y0, vals0, ptr = eng.spmv(xs), eng.ell.vals.clone(), plan.vals.data_ptr()
+        plain(b)
+        ops.reset_launch_counts()
+        x_ref, n_ref = plain(b)
+        want = ops.launch_counts()
+        t0 = now()
+        plan(b)                                    # builds: captures once
+        build_s = now() - t0
+        ops.reset_launch_counts()
+        x1, n1 = plan(b)
+        got = ops.launch_counts()
+        plan(b, vals=bad)
+        st_bad, bad_it = plan.last_status_names, int(plan.last_bad_iter)
+        x2, n2 = plan(b)
+        xw_ref, nw_ref = plain(b, x0=x_ref)
+        xw, nw = plan(b, x0=x_ref)
+        checks = {
+            "clean == plain (x, trace)": x1.tobytes() == x_ref.tobytes()
+            and n1.tobytes() == n_ref.tobytes(),
+            "launches == plain": got == want,
+            "corrupted: breakdown at 0": (st_bad, bad_it) == ("breakdown", 0),
+            "clean after corrupt == plain": x2.tobytes() == x_ref.tobytes()
+            and n2.tobytes() == n_ref.tobytes(),
+            "warm start == plain": xw.tobytes() == xw_ref.tobytes()
+            and nw.tobytes() == nw_ref.tobytes(),
+            "engine.spmv unchanged": eng.spmv(xs).tobytes() == y0.tobytes(),
+            "engine values unchanged": bool(torch.equal(eng.ell.vals, vals0)),
+            "one buffer, 16-byte aligned, not the engine's":
+                plan.vals.data_ptr() == ptr and ptr % 16 == 0
+                and ptr != eng.ell.vals.data_ptr(),
+            "traces 1, captures 1": (plan.traces, plan.cell.captures) == (1, 1),
+        }
+        say(f"ft 7a injectable chunk plan ({FT_CHUNK} steps; first call "
+            f"{build_s:.3f} s, capture {plan.cell.capture_s} s): "
+            f"launches a call {json.dumps(got)} (plain {json.dumps(want)}); "
+            + json.dumps(checks))
+        if not all(checks.values()):
+            raise AssertionError(f"injectable plan contract: {checks}")
+        # where a chunk's time goes
+        bd, xd = eng.to_device_vec(b), eng.to_device_vec(x_ref)
+        times["chunk_clean_ms"] = 1e3 * med_wall(lambda: plan(b, x0=x_ref))
+        times["plan_on_card_ms"] = _median_ms(lambda: plan.fn(bd, xd), 1, 3)
+        times["plan_on_card_steps"] = int(plan.fn(bd, xd).iters)
+        # a corrupted chunk breaks down before its loop: no steps
+        times["chunk_corrupted_ms"] = 1e3 * med_wall(
+            lambda: plan(b, x0=x_ref, vals=bad))
+        times["copy_in_host_ms"] = 1e3 * med_wall(lambda: plan._load_vals(bad))
+
+        def d2d():
+            plan._vals_clean = False
+            plan._load_vals(None)
+
+        times["copy_in_d2d_ms"] = _median_ms(d2d, 1, 3)
+        times["vectors_in_out_ms"] = 1e3 * med_wall(
+            lambda: (eng.to_device_vec(b),
+                     eng.from_device_vec(eng.to_device_vec(x_ref))))
+        mgr = manager()
+        times["audit_ms"] = 1e3 * med_wall(lambda: mgr._true_rel(x_ref, b, bnorm))
+        plan(b)                                    # leave the buffer clean
+    except Exception:
+        traceback.print_exc()
+        failed.append("ft injectable plan")
+
+    # -- 7b. transient faults recover ----------------------------------------
+    try:
+        plain = eng.plan(spec)
+        plain(b)
+        t0 = now()
+        xu, _ = plain(b)
+        times["uninterrupted_s"] = now() - t0
+        times["uninterrupted_iters"] = int(plain.last_iters)
+        times["uninterrupted_status"] = plain.last_status_names
+        t0 = now()
+        rep = manager().solve(b)
+        times["ft_clean_s"] = now() - t0
+        times["ft_clean_iters"] = rep.iterations
+        times["ft_clean_chunks"] = rep.chunks
+        say("ft 7b clean chunked solve: " + json.dumps(summary(rep)))
+        if rep.status != "converged" or rep.restarts or true_rel(rep.x) > slack:
+            raise AssertionError(f"clean chunked solve: {summary(rep)}")
+        for kind in ("nan", "bitflip"):
+            inj = injector(kind)
+            ops.reset_launch_counts()
+            t0 = now()
+            rep = manager(timer=ft.StepTimer()).solve(b, injector=inj)
+            wall = now() - t0
+            counts = ops.launch_counts()
+            times[f"ft_{kind}_s"] = wall
+            say(f"ft 7b {kind} at {FT_AT} ({wall:.3f} s, fired {inj.fired}, "
+                f"true rel residual {true_rel(rep.x):.4g}, launches "
+                f"{json.dumps(counts)}): " + json.dumps(summary(rep)))
+            steps = counts.get("ell_spmv_pfold_dot", 0)
+            # ell_spmv once a chunk (its initial residual), the step
+            # kernels once a loop step: the good chunks' iterations, and
+            # at most a chunk's for each faulted one
+            ok = (inj.fired >= 1 and rep.restarts >= 1
+                  and rep.faults[0]["global_iter"] == FT_AT // FT_CHUNK * FT_CHUNK
+                  and rep.faults[0]["label"] in FT_LABELS
+                  and rep.status == "converged" and rep.rel_residual <= slack
+                  and true_rel(rep.x) <= slack
+                  and counts.get("ell_spmv", 0) == rep.chunks
+                  and rep.iterations <= steps
+                  <= rep.iterations + FT_CHUNK * rep.restarts
+                  and counts.get("cg_update", 0) == steps
+                  and not any(v for k, v in counts.items() if k not in (
+                      "ell_spmv", "ell_spmv_pfold_dot", "cg_update")))
+            if not ok:
+                raise AssertionError(f"{kind} fault: {summary(rep)} {counts}")
+    except Exception:
+        traceback.print_exc()
+        failed.append("ft transient faults")
+
+    # -- 7c. a persistent fault gives up --------------------------------------
+    try:
+        rep = manager().solve(b, injector=injector("nan", transient=False))
+        say("ft 7c persistent nan: " + json.dumps(summary(rep)))
+        if (rep.restarts != 3 + 1 or rep.status not in FT_LABELS
+                or len(rep.faults) != 4):
+            raise AssertionError(f"persistent fault: {summary(rep)}")
+    except Exception:
+        traceback.print_exc()
+        failed.append("ft persistent fault")
+
+    # -- 7d. checkpoints survive ----------------------------------------------
+    try:
+        with tempfile.TemporaryDirectory() as d:
+            ckdir = os.path.join(d, "solve")
+            t0 = now()
+            rep = manager(checkpoint_dir=ckdir).solve(
+                b, injector=injector("nan", at=FT_AT_CKPT))
+            times["ft_checkpointed_s"] = now() - t0
+            rep2 = manager(checkpoint_dir=ckdir).solve(b)
+            say(f"ft 7d checkpointed, nan at {FT_AT_CKPT}: "
+                + json.dumps(summary(rep)) + "; a fresh manager: "
+                + json.dumps(summary(rep2)))
+            if (rep.status != "converged" or rep.restarts < 1
+                    or true_rel(rep.x) > slack or rep2.status != "converged"
+                    or not rep2.resumed_from or true_rel(rep2.x) > slack):
+                raise AssertionError(f"checkpoints: {summary(rep)} "
+                                     f"{summary(rep2)}")
+            cm = CheckpointManager(os.path.join(d, "timed"))
+            snap, total = [], []
+            for k in range(3):
+                t0 = now()
+                cm.save_async({"x": rep.x, "r": b - eng.spmv(rep.x),
+                               "k": np.int64(k)}, k)
+                snap.append(now() - t0)
+                cm.wait()
+                total.append(now() - t0)
+            times["checkpoint_save_call_ms"] = 1e3 * float(np.median(snap))
+            times["checkpoint_save_ms"] = 1e3 * float(np.median(total))
+    except Exception:
+        traceback.print_exc()
+        failed.append("ft checkpoints")
+
+    # -- 7e. a delay is flagged ------------------------------------------------
+    try:
+        inj = injector("delay", delay_s=FT_DELAY_S)
+        rep = manager(timer=ft.StepTimer()).solve(b, injector=inj)
+        say(f"ft 7e delay {FT_DELAY_S} s at {FT_AT}: " + json.dumps(summary(rep)))
+        if (not rep.straggler_chunks or rep.restarts or inj.fired != 1
+                or rep.status != "converged"):
+            raise AssertionError(f"delay: {summary(rep)}")
+    except Exception:
+        traceback.print_exc()
+        failed.append("ft delay")
+
+    # -- 7f. the CLI -------------------------------------------------------------
+    try:
+        env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+        t0 = now()
+        r = subprocess.run([sys.executable, "-m", "repro_torch.launch.solve",
+                            *FT_CLI], env=env, capture_output=True, text=True,
+                           timeout=600, cwd=ROOT)
+        say(f"ft 7f launch.solve {' '.join(FT_CLI)} ({now() - t0:.1f} s): exit "
+            f"{r.returncode} " + r.stdout.replace("\n", " "))
+        out = json.loads(r.stdout) if r.returncode == 0 else {}
+        if (r.returncode != 0 or out["status"] != "converged"
+                or out["restarts"] < 1 or out["device"] != "cuda"):
+            raise AssertionError(f"launch.solve --inject: {r.stderr[-3000:]}")
+    except Exception:
+        traceback.print_exc()
+        failed.append("ft CLI")
+
+    # -- 7g. parity with the JAX package's reports at lap2d_16 ----------------
+    try:
+        m16 = laplacian_2d(16)
+        a16 = sp.csr_matrix((m16.data, m16.indices, m16.indptr), shape=m16.shape)
+        b16 = a16 @ np.random.default_rng(0).standard_normal(m16.shape[0])
+        engines = {pre: (AzulEngine(m16, precond=pre, dtype=np.float64,
+                                    format="ell"), ft, SolveSpec)
+                   for pre in ("jacobi", "block_ic0")}
+        bad_cases = []
+        for case, want in FT_PARITY:
+            got = ft_summary(ft_scenario(engines, case, b16))
+            ok = (got[0] == want[0] and got[3] == want[3]
+                  and abs(got[1] - want[1]) <= 1 and abs(got[2] - want[2]) <= 1
+                  and [f[0] for f in got[4]] == [f[0] for f in want[4]])
+            if not ok:
+                bad_cases.append((case, got, want))
+        say(f"ft 7g parity: {len(FT_PARITY) - len(bad_cases)} of "
+            f"{len(FT_PARITY)} lap2d_16 scenarios as the JAX package's "
+            "(status, restarts, fault labels equal; iterations, chunks +-1)")
+        if bad_cases:
+            raise AssertionError(f"ft parity: {bad_cases}")
+    except Exception:
+        traceback.print_exc()
+        failed.append("ft parity")
+
+    if plan is not None:
+        say(f"ft injectable chunk plan after phase 7: traces {plan.traces}, "
+            f"captures {plan.cell.captures}, replays {plan.cell.replays}")
+        if plan.traces != 1 or plan.cell.captures != 1:
+            failed.append("ft one capture")
+    if "ft_clean_s" in times and "uninterrupted_s" in times:
+        times["ft_clean_over_uninterrupted"] = (times["ft_clean_s"]
+                                                / times["uninterrupted_s"])
+    say(f"ft times (laplacian_3d({SERVE_GRID}), f64, chunk {FT_CHUNK}; "
+        f"{smi_line()}): " + json.dumps(times))
+    say(f"ft phase: {now() - t_phase:.1f} s")
 
 
 def say(*parts) -> None:
@@ -3625,6 +4019,9 @@ def main() -> int:
 
     # -- 6. the solve service ------------------------------------------------
     service_phase(m_main, failed)
+
+    # -- 7. fault-tolerant solves ---------------------------------------------
+    ft_phase(failed)
 
     if failed:
         say("FAILED phases: " + ", ".join(failed))

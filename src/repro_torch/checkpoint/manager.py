@@ -1,0 +1,257 @@
+"""Atomic, async checkpointing of nested host/device state (port of
+``repro.checkpoint.manager``).
+
+Layout:  <dir>/step_<N>/
+             manifest.json      -- leaf shapes, dtypes, sums, checksum
+             <flat_key>.npy     -- one file per leaf (the full array)
+
+The JAX package flattens its trees with ``jax.tree_util``; this module
+flattens nested dicts (keys sorted, as jax sorts them), lists and tuples
+itself, with numpy arrays, numpy scalars and tensors as leaves and None as
+an empty node.  Flat keys, file names, manifests and checksums are
+therefore the JAX package's, and a checkpoint written by either package
+restores in the other.
+
+Guarantees:
+  * atomic: written to ``step_<N>.tmp`` then os.rename'd -- a crash mid-save
+    never corrupts the latest checkpoint (restore scans for the newest
+    directory with a valid manifest);
+  * verified: every leaf is checked against the manifest (shape, dtype,
+    content sum) on restore; an unpinned restore falls back past a damaged
+    step;
+  * async: ``CheckpointManager.save_async`` snapshots the leaves to host
+    arrays, then writes on a background thread, so a solve overlaps
+    checkpoint I/O with compute.
+
+Leaves restore as numpy arrays, or as tensors on the device of the
+matching leaf of ``tree_like`` where that leaf is a tensor.  Placement
+onto a mesh (``sharding_tree``) waits for the distributed engine.
+"""
+
+from __future__ import annotations
+
+import hashlib
+import json
+import os
+import re
+import shutil
+import threading
+
+import numpy as np
+import torch
+
+__all__ = ["save", "restore", "latest_step", "CheckpointManager",
+           "CorruptCheckpointError"]
+
+_SEP = "/"
+
+
+def _leaves(tree, path=()):
+    """(path, leaf) pairs in jax's flattening order."""
+    if tree is None:
+        return
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _leaves(tree[k], path + (str(k),))
+    elif type(tree) in (list, tuple):
+        for i, v in enumerate(tree):
+            yield from _leaves(v, path + (str(i),))
+    else:
+        yield path, tree
+
+
+def _flatten(tree) -> dict:
+    return {_SEP.join(path): leaf for path, leaf in _leaves(tree)}
+
+
+def _unflatten(tree, flat: dict, path=()):
+    """``tree``'s structure with each leaf taken from ``flat``."""
+    if tree is None:
+        return None
+    if isinstance(tree, dict):
+        return {k: _unflatten(v, flat, path + (str(k),))
+                for k, v in tree.items()}
+    if type(tree) in (list, tuple):
+        return type(tree)(_unflatten(v, flat, path + (str(i),))
+                          for i, v in enumerate(tree))
+    return flat[_SEP.join(path)]
+
+
+def _host(leaf) -> np.ndarray:
+    """A host copy of one leaf (a snapshot: later writes to the leaf do
+    not reach it)."""
+    if isinstance(leaf, torch.Tensor):
+        return leaf.detach().cpu().numpy().copy()
+    return np.array(leaf, copy=True)
+
+
+def save(tree, directory: str, step: int, keep: int | None = 3) -> str:
+    flat = _flatten(tree)
+    final = os.path.join(directory, f"step_{step:08d}")
+    tmp = final + ".tmp"
+    os.makedirs(tmp, exist_ok=True)
+    manifest = {"step": step, "leaves": {}}
+    for key, leaf in flat.items():
+        arr = (leaf.detach().cpu().numpy() if isinstance(leaf, torch.Tensor)
+               else np.asarray(leaf))
+        fname = re.sub(r"[^A-Za-z0-9_.-]", "_", key) + ".npy"
+        np.save(os.path.join(tmp, fname), arr)
+        manifest["leaves"][key] = {
+            "file": fname,
+            "shape": list(arr.shape),
+            "dtype": str(arr.dtype),
+            "sum": float(np.sum(arr.astype(np.float64))) if arr.size else 0.0,
+        }
+    manifest["checksum"] = hashlib.sha256(
+        json.dumps(manifest["leaves"], sort_keys=True).encode()
+    ).hexdigest()
+    with open(os.path.join(tmp, "manifest.json"), "w") as f:
+        json.dump(manifest, f)
+        # the rename below is the commit point: the manifest must be on
+        # disk before the directory becomes visible as a valid checkpoint
+        f.flush()
+        os.fsync(f.fileno())
+    if os.path.exists(final):
+        shutil.rmtree(final)
+    os.rename(tmp, final)
+    if keep:
+        _gc(directory, keep)
+    return final
+
+
+def _gc(directory: str, keep: int):
+    steps = sorted(_all_steps(directory))
+    for s in steps[:-keep]:
+        shutil.rmtree(os.path.join(directory, f"step_{s:08d}"), ignore_errors=True)
+
+
+def _all_steps(directory: str) -> list[int]:
+    if not os.path.isdir(directory):
+        return []
+    out = []
+    for d in os.listdir(directory):
+        m = re.fullmatch(r"step_(\d+)", d)
+        if m and os.path.exists(os.path.join(directory, d, "manifest.json")):
+            out.append(int(m.group(1)))
+    return out
+
+
+def latest_step_valid(directory: str, s: int) -> bool:
+    """Does step ``s`` have a manifest whose self-checksum holds?"""
+    try:
+        with open(os.path.join(directory, f"step_{s:08d}", "manifest.json")) as f:
+            man = json.load(f)
+        chk = hashlib.sha256(
+            json.dumps(man["leaves"], sort_keys=True).encode()
+        ).hexdigest()
+        return chk == man["checksum"]
+    except (json.JSONDecodeError, KeyError, OSError):
+        return False
+
+
+def latest_step(directory: str) -> int | None:
+    for s in sorted(_all_steps(directory), reverse=True):
+        if latest_step_valid(directory, s):
+            return s
+    return None  # partial/corrupt dirs fall through to older steps
+
+
+class CorruptCheckpointError(RuntimeError):
+    """A step directory failed leaf verification (truncated/flipped data)."""
+
+
+def _load_step(directory: str, step: int, flat: dict):
+    """Load and VERIFY one step's leaves against its manifest: shape,
+    dtype, and content sum must match what was recorded at save time.
+    Raises CorruptCheckpointError on any mismatch -- a torn write or
+    bit-rotted .npy must not restore silently."""
+    d = os.path.join(directory, f"step_{step:08d}")
+    try:
+        with open(os.path.join(d, "manifest.json")) as f:
+            man = json.load(f)
+        out = {}
+        for key in flat:
+            meta = man["leaves"][key]
+            arr = np.load(os.path.join(d, meta["file"]))
+            if list(arr.shape) != meta["shape"] or str(arr.dtype) != meta["dtype"]:
+                raise CorruptCheckpointError(
+                    f"{d}/{meta['file']}: shape/dtype mismatch vs manifest")
+            got = float(np.sum(arr.astype(np.float64))) if arr.size else 0.0
+            want = meta["sum"]
+            ok = (got == want) or (
+                np.isfinite(want)
+                and abs(got - want) <= 1e-9 * max(1.0, abs(want)))
+            if not ok:
+                raise CorruptCheckpointError(
+                    f"{d}/{meta['file']}: content sum {got!r} != recorded "
+                    f"{want!r} (corrupted or truncated leaf)")
+            out[key] = arr
+        return out
+    except CorruptCheckpointError:
+        raise
+    except (OSError, ValueError, KeyError, json.JSONDecodeError) as e:
+        raise CorruptCheckpointError(f"{d}: unreadable ({e})") from e
+
+
+def restore(tree_like, directory: str, step: int | None = None,
+            sharding_tree=None):
+    """Restore into the structure of ``tree_like``; returns (tree, step).
+
+    Every leaf is verified against the manifest (shape/dtype/content sum).
+    With ``step=None`` the scan walks valid steps newest-to-oldest and
+    falls back past any step whose LEAVES fail verification even though
+    its manifest checksum holds -- a partially-written or corrupted
+    checkpoint costs one interval of progress, never a bad restore.  An
+    explicit ``step`` raises CorruptCheckpointError instead.
+    ``sharding_tree`` (placement onto a mesh) is not ported yet."""
+    if sharding_tree is not None:
+        raise NotImplementedError(
+            "restore(sharding_tree=...) places leaves onto a mesh: the "
+            "distributed engine is not ported yet (ROADMAP Queue 1 item 10)")
+    flat = _flatten(tree_like)
+    if step is not None:
+        out, used = _load_step(directory, step, flat), step
+    else:
+        candidates = [s for s in sorted(_all_steps(directory), reverse=True)
+                      if latest_step_valid(directory, s)]
+        out = used = None
+        for s in candidates:
+            try:
+                out, used = _load_step(directory, s, flat), s
+                break
+            except CorruptCheckpointError:
+                continue       # torn step: fall back to the previous one
+        if out is None:
+            raise FileNotFoundError(f"no valid checkpoint under {directory}")
+    for key, like in flat.items():
+        if isinstance(like, torch.Tensor):
+            out[key] = torch.from_numpy(out[key]).to(like.device)
+    return _unflatten(tree_like, out), used
+
+
+class CheckpointManager:
+    """Async wrapper with a single in-flight writer thread."""
+
+    def __init__(self, directory: str, keep: int = 3):
+        self.dir = directory
+        self.keep = keep
+        self._thread: threading.Thread | None = None
+
+    def save_async(self, tree, step: int):
+        """Snapshot ``tree`` to host arrays now, write it on a thread."""
+        self.wait()
+        host = _unflatten(tree, {k: _host(v) for k, v in _flatten(tree).items()})
+        self._thread = threading.Thread(
+            target=save, args=(host, self.dir, step, self.keep), daemon=True)
+        self._thread.start()
+
+    def wait(self):
+        if self._thread is not None:
+            self._thread.join()
+            self._thread = None
+
+    def restore(self, tree_like, sharding_tree=None, step=None):
+        return restore(tree_like, self.dir, step, sharding_tree)
+
+    def latest_step(self):
+        return latest_step(self.dir)

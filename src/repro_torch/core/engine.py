@@ -35,6 +35,13 @@ matrix (or a matrix-free ``Stencil``), the engine
      captures the solver's loop as one CUDA graph, and every later call
      replays it (``plan.traces`` counts the builds).
 
+``SolveSpec(injectable=True)`` lowers a plan that reads the packed ELL
+values from a buffer of its own (``plan.vals``) and copies each call's
+``vals`` operand into it (``SolvePlan.__call__``): the fault-injection
+surface of ``repro_torch.ft``.  ``vals_template`` / ``cols_template``
+give the host layout of that operand; the engine's own values, which
+``spmv`` reads, stay clean.
+
 ``reorder="rcm"`` packs the reverse Cuthill-McKee permuted matrix (ELL,
 the format containers, the IC(0) factors and ``device_bytes`` all see it)
 and permutes every vector on the way in and back on the way out
@@ -319,6 +326,57 @@ class AzulEngine:
             out = out[..., self._row_iperm]
         return out
 
+    # -- fault-injection surface --------------------------------------------
+
+    def vals_template(self) -> np.ndarray:
+        """Host copy of the packed (n_pad, w) ELL value buffer, the layout
+        an injectable plan's ``vals`` operand takes.  Corrupt a copy (see
+        ``repro_torch.ft.inject``) and pass it: ``plan(b, vals=bad)``."""
+        if self.stencil is not None:
+            raise ValueError("matrix-free stencil engines store no values "
+                             "(coefficients are generated in-kernel)")
+        return self.ell.vals.cpu().numpy().copy()
+
+    def cols_template(self) -> np.ndarray:
+        """Host copy of the packed ELL column indices matching
+        :meth:`vals_template` (padded-global ids)."""
+        if self.stencil is not None:
+            raise ValueError("matrix-free stencil engines store no columns "
+                             "(structure is implicit in the grid)")
+        return self.ell.cols.cpu().numpy().copy()
+
+    def halo_entry_mask(self) -> np.ndarray:
+        """The stored entries whose contribution depends on remote vector
+        shards -- the words a dropped or corrupted halo exchange poisons.
+        A local engine has no exchange, so this raises, as in the JAX
+        package; the distributed engine is ROADMAP Queue 1 item 10."""
+        raise ValueError("halo faults need a distributed engine "
+                         "(single-device engines have no exchange)")
+
+    def _host_vals(self, vals) -> np.ndarray:
+        """A caller's value buffer as a contiguous host array of the
+        engine's dtype, shape-checked against the packed layout."""
+        vals = np.ascontiguousarray(vals, dtype=self.dtype)
+        want = tuple(self.ell.vals.shape)
+        if vals.shape != want:
+            raise ValueError(
+                f"vals must match the packed value-buffer shape {want}, "
+                f"got {vals.shape}")
+        return vals
+
+    def vals_operand(self, vals=None) -> torch.Tensor:
+        """The value buffer for an injectable plan on the engine's device:
+        the engine's clean resident one when None, else the caller's host
+        buffer uploaded (shape-checked against the packed layout).  A plan
+        copies the operand into its own buffer, the one its program (and
+        its captured graph) reads (``SolvePlan.__call__``)."""
+        if self.stencil is not None:
+            raise ValueError("matrix-free stencil engines store no values "
+                             "(no injectable surface)")
+        if vals is None:
+            return self.ell.vals
+        return torch.from_numpy(self._host_vals(vals)).to(self.device)
+
     # -- public ops ---------------------------------------------------------
 
     def spmv(self, x) -> np.ndarray:
@@ -410,6 +468,14 @@ class AzulEngine:
         cols = vals = None
         if self.ell is not None:
             cols, vals = self.ell.cols, self.ell.vals
+        if spec.injectable:
+            # the plan's own value buffer, with the layout and alignment of
+            # the engine's: the program (and its captured graph) reads it,
+            # each call copies the operand into it, and the engine's
+            # buffer -- engine.spmv, the audits' clean operator -- stays
+            # clean.  The preconditioner's operands stay clean too:
+            # faults target the streamed matrix.
+            vals = vals.clone()
         dinv = self._dinv_pad
         stream = None
         if spec.format != "ell":
@@ -462,4 +528,5 @@ class AzulEngine:
             "repro_engine_device_bytes",
             "device-resident operator footprint of the last-planned engine",
         ).set(float(self.device_bytes()))
-        return SolvePlan(self, spec, prog, info, cell, ctx)
+        return SolvePlan(self, spec, prog, info, cell, ctx,
+                         vals=vals if spec.injectable else None)

@@ -94,8 +94,16 @@ class SolveSpec:
                packed under the permutation at engine build, so a spec
                naming another reorder than the engine's is rejected)
     guard      in-loop numerical health guards (default True)
+    injectable the matrix values become a per-call operand:
+               ``plan(b, vals=...)`` substitutes a (corrupted) value buffer
+               for one call with no new build -- the fault-injection
+               surface (``repro_torch.ft.inject``).  The plan owns a copy
+               of the packed values that its program reads, and each call
+               copies the operand into it.  Pins the format to 'ell'.
+               Default False.
     format     None/'auto' (the engine's format) | 'ell' | 'sell' |
-               'hyb' | 'bcsr' | 'stencil' (a stencil engine's only one)
+               'hyb' | 'bcsr' | 'stencil' (a stencil engine's only one);
+               injectable plans are 'ell'
     """
 
     method: str = "pcg"
@@ -108,6 +116,7 @@ class SolveSpec:
     layout: str | None = None
     reorder: str | None = None
     guard: bool = True
+    injectable: bool = False
     format: str | None = None
 
 
@@ -144,18 +153,26 @@ def canonicalize(spec: SolveSpec, engine) -> SolveSpec:
         tol, max_iters, iters = None, None, int(spec.iters)
     if spec.guard not in (True, False):
         raise ValueError(f"guard must be True or False, got {spec.guard!r}")
+    if spec.injectable not in (True, False):
+        raise ValueError(
+            f"injectable must be True or False, got {spec.injectable!r}")
     guard = bool(spec.guard) and sdef.guarded
     # None and 'auto' defer to the engine's format knob, which (when
-    # itself 'auto') resolved to the per-matrix choice at engine build
+    # itself 'auto') resolved to the per-matrix choice at engine build;
+    # an engine's knob yields to injectable plans (ELL by construction),
+    # only an explicit spec-level format conflicts
     fmt_knob = spec.format
     if fmt_knob in (None, "auto"):
-        fmt_knob = None if engine.format == "auto" else engine.format
+        fmt_knob = (None if engine.format == "auto" or spec.injectable
+                    else engine.format)
     fmt = registry.resolve_format(sdef, fmt_knob,
                                   engine_choice=engine.format_choice,
-                                  stencil=engine.stencil is not None)
+                                  stencil=engine.stencil is not None,
+                                  injectable=bool(spec.injectable))
     return replace(spec, method=sdef.name, precond=pdef.name, iters=iters,
                    tol=tol, max_iters=max_iters, fused=fused, layout=layout,
-                   reorder=engine.reorder, guard=guard, format=fmt)
+                   reorder=engine.reorder, guard=guard,
+                   injectable=bool(spec.injectable), format=fmt)
 
 
 def chunk_spec(spec: SolveSpec, chunk: int, batch: int | None = None,
@@ -203,16 +220,20 @@ class SolvePlan:
     last_status per-RHS structured status codes (int32 STATUS_*) of the
                 most recent execution; ``last_status_names`` spells them
     last_bad_iter  per-RHS first guard-tripped iteration (-1 = none)
+    vals        the plan's own (n_pad, w) value buffer, the one its
+                program reads (injectable plans; None otherwise)
     """
 
     def __init__(self, engine, spec: SolveSpec, fn: Callable, info: dict,
-                 cell, context):
+                 cell, context, vals=None):
         self.engine = engine
         self.spec = spec
         self._fn = fn
         self._cell = cell
         self.context = context
         self.info = info
+        self.vals = vals
+        self._vals_clean = True
         self.executions = 0
         self.last_iters = None
         self.last_status = None
@@ -270,13 +291,23 @@ class SolvePlan:
                 f"plan built for RHS shape {want}, got {b.shape} -- plans "
                 "are shape-specialized; build a spec with the matching batch")
 
-    def __call__(self, b, x0=None):
+    def __call__(self, b, x0=None, vals=None):
         """Execute: returns (x, res_norms) as numpy, mirroring the RHS
         shape; the per-RHS iteration counts, status and bad_iter land in
         ``last_*`` and in ``engine.last_solve_info``.  A shared (n,) ``x0``
-        is broadcast over a (k, n) batch."""
+        is broadcast over a (k, n) batch.
+
+        ``vals`` (injectable plans only) substitutes the matrix value
+        buffer for THIS call -- the engine's packed shape, as a host array;
+        None runs the clean operator."""
         b = np.asarray(b)
         self._check(b)
+        if self.spec.injectable:
+            self._load_vals(vals)
+        elif vals is not None:
+            raise ValueError(
+                "this plan closes over the matrix values as constants; "
+                "build the spec with injectable=True to pass vals per call")
         eng = self.engine
         b_dev = eng.to_device_vec(b)
         if x0 is None:
@@ -303,6 +334,21 @@ class SolvePlan:
                 _M_SOLVE_S.observe(dt, method=self.spec.method)
             return out
         return self._run(b_dev, x0_dev)
+
+    def _load_vals(self, vals) -> None:
+        """Copy this call's value operand into the plan's buffer, in place
+        and on the current stream, so the program (on the card, the
+        captured graph, which holds the buffer's address) reads it after
+        the copy: the engine's clean values, skipped where the buffer
+        already holds them, or the caller's host array, uploaded."""
+        if vals is None:
+            if not self._vals_clean:
+                self.vals.copy_(self.engine.vals_operand(None))
+                self._vals_clean = True
+            return
+        host = self.engine._host_vals(vals)
+        self._vals_clean = False
+        self.vals.copy_(torch.from_numpy(host))
 
     def _run(self, b_dev, x0_dev):
         """One execution and its bookkeeping; the results as numpy (the

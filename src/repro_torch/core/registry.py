@@ -193,12 +193,15 @@ def resolve_layout(knob) -> str:
 
 
 def resolve_format(sdef: SolverDef, knob, engine_choice: str = "ell", *,
-                   stencil: bool = False) -> str:
+                   stencil: bool = False, injectable: bool = False) -> str:
     """Resolve the storage-format knob (None/'auto' | a format name) to the
     format a local plan streams the operator from: 'auto' takes the
     engine's per-matrix choice (``engine_choice``, from
-    ``kernels.autotune.choose_format``).  A stencil engine has no stored
-    nonzeros, so 'stencil' is its only format; 'stencil' needs one."""
+    ``kernels.autotune.choose_format``).  Two modes pin the format and
+    reject a conflicting explicit request: a stencil engine has no stored
+    nonzeros, so 'stencil' is its only format (and 'stencil' needs one),
+    and an injectable plan takes the values as an ELL-shaped per-call
+    operand, so it is 'ell'."""
     if knob not in (None, "auto") and knob not in _ALL_FORMATS:
         raise ValueError(
             f"format must be 'auto' or one of "
@@ -208,9 +211,19 @@ def resolve_format(sdef: SolverDef, knob, engine_choice: str = "ell", *,
             raise ValueError(
                 f"format={knob!r} conflicts with a matrix-free stencil "
                 "engine (no stored nonzeros to re-lay-out)")
+        if injectable:
+            raise ValueError(
+                "injectable=True needs stored matrix values; a stencil "
+                "operator generates its coefficients in-kernel")
         return "stencil"
     if knob == "stencil":
         raise ValueError("format='stencil' needs a stencil operator engine")
+    if injectable:
+        if knob not in (None, "auto", "ell"):
+            raise ValueError(
+                f"format={knob!r} conflicts with injectable=True "
+                "(injected values are an ELL-shaped runtime operand)")
+        return "ell"
     fmt = engine_choice if knob in (None, "auto") else knob
     if fmt not in sdef.formats:
         raise ValueError(

@@ -1,7 +1,12 @@
-"""Fault tolerance of the port: the straggler watchdog the solve service
-reads (``StepTimer``).  Fault injection and the restart manager are
-ROADMAP Queue 1 item 8."""
+"""Fault tolerance of the port: deterministic fault injection for solves
+(``inject``), the chunked restart driver (``restart``) and the straggler
+watchdog (``straggler``).  The exports are the JAX package's ``repro.ft``
+less the training loop (``RestartManager``, ``TrainLoopResult``: ROADMAP
+Queue 1 item 11)."""
 
-from .straggler import StepTimer, StragglerReport
+from .inject import FaultInjector, FaultSpec, corrupt_vals
+from .restart import FTSolveReport, SolveRestartManager
+from .straggler import StepTimer
 
-__all__ = ["StepTimer", "StragglerReport"]
+__all__ = ["FaultInjector", "FaultSpec", "corrupt_vals", "FTSolveReport",
+           "SolveRestartManager", "StepTimer"]

@@ -13,6 +13,21 @@ flags and the printed JSON fields are those of ``repro.launch.solve`` for
 the options ported so far (``device`` is added); ``b = A x_true`` with
 ``x_true`` from ``default_rng(0)`` (``b = engine.spmv(x_true)`` for a
 stencil), the solve in float64.
+
+Fault tolerance, as in ``repro.launch.solve``:
+
+    # inject a NaN into the streamed values at iteration 15 and let the
+    # chunked restart driver detect it, roll back, and reconverge:
+    PYTHONPATH=src python -m repro_torch.launch.solve --matrix lap2d_32 \
+        --method pcg_tol --max-iters 400 --inject nan --inject-at 15 \
+        --ft-chunk 20
+
+``--inject`` runs ``ft.SolveRestartManager`` with a ``ft.FaultInjector``
+(chunks of ``--ft-chunk`` iterations of one injectable plan; a ``delay``
+fault sleeps 0.5 s) and prints its report; ``--checkpoint-dir`` persists
+the solver state every chunk, and a rerun resumes from it.  The exit code
+is 1 unless the report says ``converged``.  The ``halo_*`` kinds need a
+distributed engine and raise.
 """
 
 from __future__ import annotations
@@ -47,6 +62,19 @@ def main(argv=None):
     ap.add_argument("--no-guard", action="store_true",
                     help="disable in-loop numerical health guards (status "
                          "reports 'unguarded')")
+    ap.add_argument("--inject", default="",
+                    choices=("", "nan", "bitflip", "halo_drop",
+                             "halo_perturb", "delay"),
+                    help="inject a deterministic fault (ft.inject) and "
+                         "recover via the chunked restart driver")
+    ap.add_argument("--inject-at", type=int, default=10,
+                    help="global solver iteration the fault fires at")
+    ap.add_argument("--inject-seed", type=int, default=0)
+    ap.add_argument("--ft-chunk", type=int, default=25,
+                    help="restart-driver chunk size (iterations between "
+                         "verify/checkpoint points)")
+    ap.add_argument("--checkpoint-dir", default="",
+                    help="persist solver state every chunk; reruns resume")
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
                     help="cuda runs the hand-written kernels; cpu runs "
                          "their plain PyTorch versions")
@@ -83,6 +111,34 @@ def main(argv=None):
     spec = SolveSpec(method=args.method, iters=args.iters, tol=args.tol,
                      max_iters=args.max_iters, fused=fused,
                      guard=not args.no_guard)
+    if args.inject:
+        # the fault-injected solve through the chunked restart driver:
+        # detect, roll back to the last verified state, reconverge
+        from ..ft import (FaultInjector, FaultSpec, SolveRestartManager,
+                          StepTimer)
+        mgr = SolveRestartManager(
+            eng, spec, chunk=args.ft_chunk,
+            checkpoint_dir=args.checkpoint_dir or None, timer=StepTimer())
+        inj = FaultInjector(eng, FaultSpec(
+            kind=args.inject, iteration=args.inject_at,
+            seed=args.inject_seed, delay_s=0.5))
+        rep = mgr.solve(b, injector=inj)
+        rel = float(np.linalg.norm(rep.x - x_true) / np.linalg.norm(x_true))
+        out = {
+            "matrix": args.matrix, "n": m.shape[0], "nnz": nnz,
+            "method": args.method, "precond": args.precond,
+            "mode": eng.mode, "injected": args.inject,
+            "injected_at": args.inject_at,
+            "status": rep.status, "iterations": rep.iterations,
+            "chunks": rep.chunks, "restarts": rep.restarts,
+            "faults": rep.faults, "resumed_from": rep.resumed_from,
+            "straggler_chunks": rep.straggler_chunks,
+            "rel_residual": rep.rel_residual, "rel_error": rel,
+            "device": str(eng.device),
+        }
+        print(json.dumps(out, indent=1))
+        return 0 if rep.status == "converged" else 1
+
     plan = eng.plan(spec)
     x, norms = plan(b)
     rel = float(np.linalg.norm(x - x_true) / np.linalg.norm(x_true))

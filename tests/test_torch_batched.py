@@ -294,7 +294,7 @@ def test_engine_spmv_takes_a_batch(suite_pair):
 
 
 _SPEC_FIELDS = ("method", "precond", "iters", "tol", "max_iters", "batch",
-                "fused", "layout", "reorder", "guard", "format")
+                "fused", "layout", "reorder", "guard", "injectable", "format")
 
 
 @pytest.mark.parametrize("fixed_length", [True, False])

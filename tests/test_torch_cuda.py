@@ -26,7 +26,10 @@ the bucket moves k_pad 1 -> 2 -> 4 -> 8 equals its solo solve bit for
 bit, the batched kernels' lanes are independent of k at the service's
 buckets 2 and 4, an eviction frees the plans' memory pools (reserved
 memory falls) and a reload captures each plan once, and a fused chunk
-that fails on the card raises, with no plain plan built.
+that fails on the card raises, with no plain plan built.  An injectable
+plan's clean call equals the plain plan's bit for bit, with its launches;
+a corrupted call breaks down and the next clean call is clean again, in
+one capture; the restart manager recovers a corrupted chunk.
 """
 
 import numpy as np
@@ -1201,3 +1204,68 @@ def test_service_raises_a_kernel_failure_on_the_card(cuda):
         boom_svc.drain()
     assert Boom.calls == 1 and boom_svc.stats["degraded_batches"] == 0
     assert not op.pools["cb_ref"] and not op.pools["ref"]
+
+
+# -- fault injection on the card -----------------------------------------------
+
+
+@pytest.mark.parametrize("precond,batch", [("jacobi", None), ("jacobi", 4),
+                                           ("block_ic0", None)])
+def test_injectable_plan_on_the_card(cuda, precond, batch):
+    """An injectable plan's clean call equals the plain plan's bit for bit
+    with the same kernel launches; a corrupted call breaks down before the
+    loop; the next clean call is the clean result again; one build, one
+    capture; the engine's values and engine.spmv stay clean."""
+    from repro_torch.ft import FaultSpec, corrupt_vals
+
+    m = suite("small")["lap2d_32"]
+    a = sp.csr_matrix((m.data, m.indices, m.indptr), shape=m.shape)
+    rng = np.random.default_rng(0)
+    b = (rng.standard_normal((batch, m.shape[0])) if batch
+         else a @ rng.standard_normal(m.shape[0]))
+    eng = AzulEngine(m, precond=precond, dtype=np.float64)
+    kw = dict(method="pcg_tol", tol=1e-8, max_iters=400, batch=batch)
+    plain, plan = eng.plan(SolveSpec(**kw)), eng.plan(SolveSpec(injectable=True, **kw))
+    assert plan.vals.data_ptr() % 16 == 0
+    assert plan.vals.data_ptr() != eng.ell.vals.data_ptr()
+    xs = rng.standard_normal(m.shape[0])
+    y0, vals0 = eng.spmv(xs), eng.ell.vals.clone()
+    x_ref, n_ref = plain(b)
+    ops.reset_launch_counts()
+    plain(b)
+    want = ops.launch_counts()
+    ops.reset_launch_counts()
+    x, nrm = plan(b)
+    assert ops.launch_counts() == want
+    assert x.tobytes() == x_ref.tobytes() and nrm.tobytes() == n_ref.tobytes()
+    bad = corrupt_vals(eng.vals_template(), FaultSpec(kind="nan", seed=1))
+    plan(b, vals=bad)
+    assert set(np.atleast_1d(plan.last_status_names)) == {"breakdown"}
+    assert set(np.atleast_1d(plan.last_bad_iter).tolist()) == {0}
+    x2, n2 = plan(b)
+    assert x2.tobytes() == x_ref.tobytes() and n2.tobytes() == n_ref.tobytes()
+    assert plan.traces == 1 and plan.cell.captures == 1
+    assert torch.equal(eng.ell.vals, vals0)
+    assert eng.spmv(xs).tobytes() == y0.tobytes()
+
+
+def test_restart_manager_recovers_a_corrupted_chunk_on_the_card(cuda):
+    """A transient NaN and a bit-flip at iteration 30 are each detected in
+    their chunk, rolled back and rerun, and the solve converges; every
+    chunk replays the one captured graph."""
+    from repro_torch.ft import FaultInjector, FaultSpec, SolveRestartManager
+
+    m = suite("small")["lap2d_32"]
+    a = sp.csr_matrix((m.data, m.indices, m.indptr), shape=m.shape)
+    x_true = np.random.default_rng(0).standard_normal(m.shape[0])
+    b = a @ x_true
+    eng = AzulEngine(m, dtype=np.float64)
+    mgr = SolveRestartManager(eng, SolveSpec(method="pcg_tol", tol=1e-8,
+                                             max_iters=2000), chunk=25)
+    for kind in ("nan", "bitflip"):
+        rep = mgr.solve(b, injector=FaultInjector(
+            eng, FaultSpec(kind=kind, iteration=30, seed=1)))
+        assert rep.restarts >= 1 and rep.faults[0]["global_iter"] == 25
+        assert rep.status == "converged" and rep.rel_residual <= 1e-6
+        assert np.allclose(rep.x, x_true, atol=1e-5)
+    assert mgr._plan.traces == 1 and mgr._plan.cell.captures == 1

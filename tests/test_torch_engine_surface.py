@@ -1,11 +1,13 @@
 """The engine and plan surface serving needs, held to the JAX package.
 
-* ``__all__`` of ``repro_torch.core``, ``.serve`` and ``.obs`` equals the
-  JAX package's, less what is not ported (``CommPlan``, the LM demo's
-  ``generate`` / ``SlotServer``; ``set_torch_bridge`` in place of
-  ``set_jax_bridge``), and every public signature equals ``repro``'s by
-  ``inspect.signature``, less the parameters of features not ported yet,
-  with a trailing ``device`` where the port takes one.
+* ``__all__`` of ``repro_torch.core``, ``.serve``, ``.obs``, ``.ft`` and
+  ``.checkpoint`` equals the JAX package's exports, less what is not
+  ported (``CommPlan``, the LM demo's ``generate`` / ``SlotServer``, the
+  training loop's ``RestartManager`` / ``TrainLoopResult``;
+  ``set_torch_bridge`` in place of ``set_jax_bridge``), and every public
+  signature equals ``repro``'s by ``inspect.signature``, less the
+  parameters of features not ported yet, with a trailing ``device`` where
+  the port takes one.
 * ``reorder="rcm"``: the permutation and the permuted matrix equal the
   JAX package's, solves reach its counts (Jacobi and block-IC(0)) and
   agree with ``reorder="none"``; vectors round-trip the permutation.
@@ -29,7 +31,9 @@ import pytest
 import scipy.sparse as sp
 import torch
 
+import repro.checkpoint as jcheckpoint
 import repro.core as jcore
+import repro.ft as jft
 import repro.obs as jobs
 import repro.serve as jserve
 from repro.core.partition import permute_csr as jax_permute
@@ -37,7 +41,7 @@ from repro.core.partition import rcm_permutation as jax_rcm
 from repro.data.matrices import laplacian_2d as jax_lap2d
 from repro.data.matrices import suite as jax_suite
 from repro.launch import serve as jax_serve_cli
-from repro_torch import core, obs, serve
+from repro_torch import checkpoint, core, ft, obs, serve
 from repro_torch.core import registry
 from repro_torch.core.partition import permute_csr, rcm_permutation
 from repro_torch.core.plan import _reset_deprecation_warnings, warn_deprecated
@@ -49,14 +53,20 @@ NOT_PORTED = {
     "core": {"CommPlan"},                     # ROADMAP Queue 1 item 10
     "serve": {"generate", "SlotServer"},      # item 11
     "obs": {"set_jax_bridge"},
+    "ft": {"RestartManager", "TrainLoopResult"},   # the trainer, item 11
+    "checkpoint": set(),
 }
 ADDED = {"obs": {"set_torch_bridge"}}
 
-# the public callables of tests/test_api_surface.py and the parameters of
-# features the port does not have yet: the distributed engine (item 10),
-# injectable plans (item 8)
+# the public callables of tests/test_api_surface.py and of the fault
+# tolerance layer, and the parameters of features the port does not have
+# yet: the distributed engine (item 10)
 SIGNATURES = {
     "core.AzulEngine.__init__": {"mode", "row_axes", "col_axes", "balance"},
+    "core.AzulEngine.vals_template": set(),
+    "core.AzulEngine.cols_template": set(),
+    "core.AzulEngine.halo_entry_mask": set(),
+    "core.AzulEngine.vals_operand": set(),
     "core.AzulEngine.plan": set(),
     "core.AzulEngine.solve": set(),
     "core.AzulEngine.spmv": set(),
@@ -64,8 +74,8 @@ SIGNATURES = {
     "core.AzulEngine.to_device_vec": set(),
     "core.AzulEngine.from_device_vec": set(),
     "core.AzulEngine.device_bytes": set(),
-    "core.SolveSpec.__init__": {"injectable"},
-    "core.SolvePlan.__call__": {"vals"},
+    "core.SolveSpec.__init__": set(),
+    "core.SolvePlan.__call__": set(),
     "core.SolvePlan.hlo_summary": set(),
     "core.PlanCache.get": set(),
     "core.register_solver": set(),
@@ -95,10 +105,31 @@ SIGNATURES = {
     "obs.snapshot": set(),
     "obs.start_metrics_server": set(),
     "obs.clock.override": set(),
+    "ft.FaultSpec.__init__": set(),
+    "ft.FaultInjector.__init__": set(),
+    "ft.FaultInjector.fires_in": set(),
+    "ft.FaultInjector.vals_for": set(),
+    "ft.FaultInjector.on_chunk": set(),
+    "ft.FaultInjector.restart": set(),
+    "ft.corrupt_vals": set(),
+    "ft.SolveRestartManager.__init__": set(),
+    "ft.SolveRestartManager.solve": set(),
+    "ft.FTSolveReport.__init__": set(),
+    "ft.StepTimer.__init__": set(),
+    "checkpoint.save": set(),
+    "checkpoint.restore": set(),
+    "checkpoint.latest_step": set(),
+    "checkpoint.CheckpointManager.__init__": set(),
+    "checkpoint.CheckpointManager.save_async": set(),
+    "checkpoint.CheckpointManager.wait": set(),
+    "checkpoint.CheckpointManager.restore": set(),
+    "checkpoint.CheckpointManager.latest_step": set(),
 }
 
-PORT = {"core": core, "serve": serve, "obs": obs}
-JAX = {"core": jcore, "serve": jserve, "obs": jobs}
+PORT = {"core": core, "serve": serve, "obs": obs, "ft": ft,
+        "checkpoint": checkpoint}
+JAX = {"core": jcore, "serve": jserve, "obs": jobs, "ft": jft,
+       "checkpoint": jcheckpoint}
 
 
 def _resolve(mods, path):
@@ -108,9 +139,18 @@ def _resolve(mods, path):
     return obj
 
 
-@pytest.mark.parametrize("pkg", ["core", "serve", "obs"])
+def _exports(mod) -> set:
+    """``__all__``, or where a package has none (``repro.ft``,
+    ``repro.checkpoint``), the public names it imports, less modules."""
+    if hasattr(mod, "__all__"):
+        return set(mod.__all__)
+    return {n for n, v in vars(mod).items()
+            if not n.startswith("_") and not inspect.ismodule(v)}
+
+
+@pytest.mark.parametrize("pkg", ["core", "serve", "obs", "ft", "checkpoint"])
 def test_exports_are_the_jax_packages(pkg):
-    want = (set(JAX[pkg].__all__) - NOT_PORTED[pkg]) | ADDED.get(pkg, set())
+    want = (_exports(JAX[pkg]) - NOT_PORTED[pkg]) | ADDED.get(pkg, set())
     assert set(PORT[pkg].__all__) == want
     for name in want:
         assert hasattr(PORT[pkg], name), name

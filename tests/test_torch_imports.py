@@ -67,7 +67,9 @@ def test_port_imports_without_jax_or_repro():
                  "repro_torch.ft.straggler", "repro_torch.serve",
                  "repro_torch.serve.service", "repro_torch.serve.loadgen",
                  "repro_torch.serve.solve_server",
-                 "repro_torch.launch.serve"):
+                 "repro_torch.launch.serve", "repro_torch.ft.inject",
+                 "repro_torch.ft.restart", "repro_torch.checkpoint",
+                 "repro_torch.checkpoint.manager"):
         assert name in r.stdout.split(), name
 
 
