@@ -306,6 +306,37 @@ prints no result line):
                whole phase, and the times beside the card's name and power
                limit, the fault-tolerant solve's wall and iterations
                against one uninterrupted warm plan(b) among them.
+8. grid     -- the tile grid (``AzulEngine(mesh=make_mesh(...))``, every
+               tile on the card) at laplacian_3d(100), n = 1,000,000, f64
+               Jacobi pcg_tol, tol 1e-8: a 2x2 2d grid and a 4-tile 1d grid
+               (4x1, mode "1d"), each with layout halo and dense.  8a: the
+               stacked-tile ``ell_spmv`` (the (4*rows_p, 8) blocks with
+               columns offset into the (4, m) buffer), ``ell_spmm`` (k =
+               8) and ``cg_update`` (1-D and k = 8) against their plain
+               versions, rtol 1e-12.  8b: ``spmv`` against the local
+               engine's within 1e-12 x max|y|; halo == dense bitwise.
+               8c: each grid plan's iterations and status within one of
+               the local engine's on the card, true relative residual <=
+               1e-7 (scipy, host), traces == 1 over 3 calls, its launch
+               counts per solve (zeroed just before the third call, read
+               just after: the kernels of the path, each > 0) and
+               ``hlo_summary()``.  8d: k = 8 on the 2x2 grid, per-lane
+               counts within one of the local k = 8's; lane 0 solved alone
+               (a k = 1 batch, as phase 4) with lane 0's count and status
+               and its residual trace bitwise.  8e:
+               ``pcg_pipelined_tol`` on the 1d halo grid (the overlapped
+               interior/frontier matvec) and dense: equal counts, bitwise
+               equal x; ``hlo_summary`` all-reduce 2 for ``pcg_pipelined``
+               against pcg's 4.  8f: block-IC(0) on the 2x2 grid at
+               laplacian_2d(512) (cut from 1024: the host IC(0) of the
+               tiles' blocks): converged, true residual <= 1e-7, two
+               ``sptrsv_solve_dot`` a step.  8g: DIST_PARITY within one.
+               8h: microseconds a loop step, grid against local, one RHS
+               and k = 8 (warm unguarded pcg, 300 steps minus 0, medians
+               of 3 calls), the guarded pcg_tol wall over its iterations,
+               the step's graph nodes and the NoC gathers' words, each NoC
+               stage's time on the card, beside the card's name and power
+               limit.
 
 The last three lines are the kernels JSON, the card's
 ``nvidia-smi --query-gpu=name,power.limit`` line, and the result JSON.
@@ -331,6 +362,22 @@ PARITY = {"lap2d_32": 94, "banded_1k": 9}           # JAX package, CPU f64
 PARITY_BATCHED = {"lap2d_32": (102, 98, 102, 102), "banded_1k": (9, 9, 9, 9)}
 # block_ic0 counts of the JAX package (CPU, f64, pcg_tol, tol 1e-8), for the
 # same b as PARITY (1-D) and as PARITY_BATCHED (k = 4)
+# phase 8, the tile grid.  DIST_PARITY: the JAX package's distributed
+# engine (CPU, f64, 8 forced host devices; Jacobi pcg_tol, tol 1e-8,
+# max_iters 2000, layout auto, b = A x with x from default_rng(0)) on
+# (matrix, mesh, mode); tests/test_torch_dist_serve.py computes them anew
+# and checks these constants.  DIST_MESHES: shape, axes, row_axes, col_axes.
+DIST_MESHES = {
+    "2x2": ((2, 2), ("data", "model"), ("data",), ("model",)),
+    "4x1": ((4, 1), ("data", "model"), ("data",), ("model",)),
+    "mp": ((2, 2, 2), ("pod", "data", "model"), ("pod", "data"), ("model",)),
+}
+DIST_PARITY = {
+    ("lap2d_32", "2x2", "2d"): 94, ("lap2d_32", "4x1", "2d"): 94,
+    ("lap2d_32", "4x1", "1d"): 94, ("banded_1k", "2x2", "2d"): 9,
+    ("banded_1k", "4x1", "2d"): 9, ("banded_1k", "4x1", "1d"): 9,
+    ("lap2d_32", "mp", "2d"): 94,
+}
 PARITY_IC0 = {"lap2d_32": 32, "banded_1k": 1}
 PARITY_IC0_BATCHED = {"lap2d_32": (35, 35, 35, 34), "banded_1k": (1, 1, 1, 1)}
 MAIN_BATCH = 8                     # launch/serve.py --coalesce default
@@ -806,6 +853,354 @@ def ft_phase(failed: list) -> None:
     say(f"ft times (laplacian_3d({SERVE_GRID}), f64, chunk {FT_CHUNK}; "
         f"{smi_line()}): " + json.dumps(times))
     say(f"ft phase: {now() - t_phase:.1f} s")
+
+
+GRID_MESHES = (("2x2", "2d"), ("4x1", "1d"))
+GRID_IC0 = 512                      # laplacian_2d(512) block-IC(0) grid
+GRID_STEPS = 300                    # loop steps of phase 8's step timing
+GRID_KERNELS = ("ell_spmv", "ell_spmm", "cg_update", "cg_update_batched",
+                "sptrsv_solve_dot")
+
+
+def noc_words(eng, layout: str) -> int:
+    """Words the NoC stages of one grid matvec write on the card (the
+    index gathers, the halo concatenation, the reduce-scatter's gather
+    and adds), for one RHS; the dense 2d one includes the mesh
+    transpose."""
+    n_pad, tiles, h = eng.n_pad, eng.tiles, eng.comm_plan.halo_width
+    words = 0
+    if eng.mode == "2d" and eng.pr > 1 and eng.pc > 1:
+        words += n_pad                                    # mesh transpose
+    if layout == "halo":
+        words += h * n_pad + (1 + h) * n_pad              # pulls, the cat
+    else:
+        words += tiles * eng._buffer_len("dense")         # all-gather
+    if eng.mode == "2d":
+        words += eng.pc * n_pad + (eng.pc - 1) * n_pad    # scatter, adds
+    return words
+
+
+def grid_phase(failed: list) -> None:
+    """Phase 8: the tile grid on the card (module docstring).  Each
+    sub-phase that fails adds its name to ``failed``."""
+    import numpy as np
+    import scipy.sparse as sp
+    import torch
+
+    from repro_torch.core.engine import AzulEngine, _block_apply
+    from repro_torch.core.plan import SolveSpec
+    from repro_torch.data.matrices import laplacian_2d, laplacian_3d, suite
+    from repro_torch.kernels import ops, ref
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.obs.clock import now
+
+    t_phase = now()
+    m = laplacian_3d(SERVE_GRID)
+    a = sp.csr_matrix((m.data, m.indices, m.indptr), shape=m.shape)
+    n = m.shape[0]
+    rng = np.random.default_rng(0)
+    x_true = rng.standard_normal(n)
+    b = a @ x_true
+    B = a @ rng.standard_normal((MAIN_BATCH, n)).T
+    B = np.ascontiguousarray(B.T)
+    bnorm = float(np.linalg.norm(b))
+    spec = dict(method="pcg_tol", tol=MAIN_TOL, max_iters=SERVE_BUDGET)
+    meshes = {name: make_mesh(*DIST_MESHES[name][:2])
+              for name, _ in GRID_MESHES}
+    t0 = now()
+    loc = AzulEngine(m, dtype=np.float64, format="ell")
+    engs = {}
+    for name, mode in GRID_MESHES:
+        _, _, ra, ca = DIST_MESHES[name]
+        engs[name] = AzulEngine(m, mesh=meshes[name], mode=mode, row_axes=ra,
+                                col_axes=ca, dtype=np.float64)
+    say(f"grid engines laplacian_3d({SERVE_GRID}) (n={n}): local and "
+        + ", ".join(f"{k} {e.mode} (blocks {tuple(e.vals.shape)}, halo "
+                    f"deltas {e.comm_plan.deltas}, auto layout "
+                    f"{e._op_layout()})" for k, e in engs.items())
+        + f": {now() - t0:.2f} s")
+
+    # -- 8a. the kernels at the stacked-tile shapes ---------------------------
+    try:
+        gen = torch.Generator(device="cuda").manual_seed(8)
+        errs = {}
+        for name, eng in engs.items():
+            for lay in ("dense", "halo"):
+                cols = eng._kernel_cols(lay)
+                vals = eng._flat_vals(eng.vals)
+                m_buf = eng._buffer_len(lay)
+                xb = torch.randn(eng.tiles * m_buf, dtype=torch.float64,
+                                 device="cuda", generator=gen)
+                want = ref.ell_spmv_ref(cols, vals, xb)
+                errs[f"ell_spmv {name} {lay} {tuple(cols.shape)} x "
+                     f"{eng.tiles}x{m_buf}"] = compare(
+                    "ell_spmv", (ops.ell_spmv(cols, vals, xb),), (want,),
+                    "float64")
+                xk = torch.randn(MAIN_BATCH, eng.tiles * m_buf,
+                                 dtype=torch.float64, device="cuda",
+                                 generator=gen)
+                got = ops.ell_spmm(cols, vals, xk)
+                errs[f"ell_spmm {name} {lay} k={MAIN_BATCH}"] = compare(
+                    "ell_spmm", (got,), (ref.ell_spmm_ref(cols, vals, xk),),
+                    "float64")
+                lane = ops.ell_spmv(cols, vals, xk[0].contiguous())
+                if not torch.equal(lane, got[0]):
+                    raise AssertionError("grid ell_spmm lane 0 != ell_spmv")
+        eng = engs["2x2"]
+        vs = [torch.randn(eng.n_pad, dtype=torch.float64, device="cuda",
+                          generator=gen) for _ in range(4)]
+        alpha = torch.tensor(0.37, dtype=torch.float64, device="cuda")
+        got = ops.cg_update(alpha, *vs, eng._dinv_pad)
+        want = ref.cg_update_ref(alpha, *vs, eng._dinv_pad)
+        errs["cg_update grid n_pad"] = compare("cg_update", got, want,
+                                               "float64")
+        vk = [torch.randn(MAIN_BATCH, eng.n_pad, dtype=torch.float64,
+                          device="cuda", generator=gen) for _ in range(4)]
+        ak = torch.rand(MAIN_BATCH, 1, dtype=torch.float64, device="cuda",
+                        generator=gen)
+        got = ops.cg_update(ak, *vk, eng._dinv_pad)
+        want = ref.cg_update_ref(ak, *vk, eng._dinv_pad)
+        errs[f"cg_update_batched grid k={MAIN_BATCH}"] = compare(
+            "cg_update_batched", got, want, "float64")
+        say("grid 8a kernels at the stacked-tile shapes (max abs err, rtol "
+            "1e-12): " + json.dumps(errs))
+    except Exception:
+        traceback.print_exc()
+        failed.append("grid kernels")
+
+    # -- 8b. spmv -------------------------------------------------------------
+    try:
+        y_loc = loc.spmv(x_true)
+        scale = float(np.abs(y_loc).max())
+        for name, eng in engs.items():
+            ys = {}
+            for lay in ("dense", "halo"):
+                eng.layout = lay
+                ys[lay] = eng.spmv(x_true)
+            eng.layout = "auto"
+            err = float(np.abs(ys["dense"] - y_loc).max())
+            if err > 1e-12 * scale:
+                raise AssertionError(f"grid {name} spmv err {err}")
+            if not np.array_equal(ys["dense"], ys["halo"]):
+                raise AssertionError(f"grid {name} spmv halo != dense")
+            say(f"grid 8b spmv {name}: max |y - y_local| {err:.3e} "
+                f"(<= 1e-12 x {scale:.3e}), halo == dense bitwise")
+    except Exception:
+        traceback.print_exc()
+        failed.append("grid spmv")
+
+    def true_rel(x) -> float:
+        return float(np.linalg.norm(b - a @ x) / bnorm)
+
+    def step_us(eng, rhs, lay=None) -> float:
+        """Warm µs a step of unguarded ``pcg`` on ``lay`` (None: the
+        engine's): the median wall of GRID_STEPS steps minus the median
+        wall of 0 steps (the copies in and out), three calls each."""
+        k = None if rhs.ndim == 1 else rhs.shape[0]
+        kw = dict(method="pcg", batch=k, guard=False, layout=lay)
+        run = eng.plan(SolveSpec(iters=GRID_STEPS, **kw))
+        zero = eng.plan(SolveSpec(iters=0, **kw))
+        walls = {p: float(np.median([warm_wall(p, rhs) for _ in range(3)]))
+                 for p in (run, zero)}
+        return (walls[run] - walls[zero]) / GRID_STEPS * 1e6
+
+    # -- 8c. solves, 8h times --------------------------------------------------
+    times: dict = {}
+    try:
+        lplan = loc.plan(SolveSpec(**spec))
+        lplan(b)
+        want_it = int(lplan.last_iters)
+        times["local"] = step_us(loc, b)
+        times["local pcg_tol us/iter"] = warm_wall(lplan, b) / want_it * 1e6
+        times["local nodes"] = lplan.cell.step_nodes
+        say(f"grid 8c local: {want_it} iterations, "
+            f"{lplan.last_status_names}")
+        for name, eng in engs.items():
+            for lay in ("dense", "halo"):
+                plan = eng.plan(SolveSpec(layout=lay, **spec))
+                first = first_call(plan, b, f"grid {name} {lay}")
+                plan(b)
+                torch.cuda.synchronize()
+                ops.reset_launch_counts()
+                x, _ = plan(b)
+                launches = ops.launch_counts()
+                it = int(plan.last_iters)
+                rel = true_rel(x)
+                hlo = plan.hlo_summary()["count_by_op"]
+                say(f"grid 8c {name} {lay}: {it} iterations (local {want_it}),"
+                    f" {plan.last_status_names}, true rel residual {rel:.3e},"
+                    f" traces {plan.traces}, captures {plan.cell.captures}, "
+                    f"launches per solve {json.dumps(launches)}, hlo "
+                    f"{json.dumps(hlo)}, step nodes {first['step_nodes']}")
+                if (abs(it - want_it) > 1
+                        or plan.last_status_names != "converged"
+                        or rel > MAIN_MAX_TRUE_RESIDUAL or plan.traces != 1):
+                    raise AssertionError(f"grid {name} {lay} solve")
+                if launches.get("ell_spmv", 0) < 1 or launches.get(
+                        "cg_update", 0) < it:
+                    raise AssertionError(f"grid {name} {lay} launches")
+                if lay == "halo" and "all-gather" in hlo:
+                    raise AssertionError("a halo plan gathered")
+                times[f"{name} {lay}"] = step_us(eng, b, lay)
+                times[f"{name} {lay} pcg_tol us/iter"] = (
+                    warm_wall(plan, b) / it * 1e6)
+                times[f"{name} {lay} nodes"] = first["step_nodes"]
+                times[f"{name} {lay} noc words"] = noc_words(eng, lay)
+    except Exception:
+        traceback.print_exc()
+        failed.append("grid solves")
+
+    # -- 8d. k = 8 --------------------------------------------------------------
+    try:
+        lplan = loc.plan(SolveSpec(batch=MAIN_BATCH, **spec))
+        lplan(B)
+        want_k = np.asarray(lplan.last_iters)
+        times[f"local k={MAIN_BATCH}"] = step_us(loc, B)
+        eng = engs["2x2"]
+        plan = eng.plan(SolveSpec(batch=MAIN_BATCH, **spec))
+        first_call(plan, B, f"grid 2x2 k={MAIN_BATCH}")
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        X, nk = plan(B)
+        launches = ops.launch_counts()
+        got_k = np.asarray(plan.last_iters)
+        # lane 0 alone, a k = 1 batch, as phase 4 re-solves its lanes: its
+        # count, status and residual trace up to its count bitwise lane
+        # 0's (the batch steps on while any lane is active, so x moves on)
+        solo = eng.plan(SolveSpec(batch=1, **spec))
+        _, n1 = solo(B[:1])
+        it0 = int(got_k[0])
+        alone = (int(solo.last_iters[0]) == it0
+                 and solo.last_status_names == plan.last_status_names[:1]
+                 and np.array_equal(n1[: it0 + 1, 0], nk[: it0 + 1, 0]))
+        say(f"grid 8d 2x2 k={MAIN_BATCH}: iterations {got_k.tolist()} "
+            f"(local {want_k.tolist()}), statuses {plan.last_status_names}, "
+            f"launches {json.dumps(launches)}, lane 0 alone (k = 1): "
+            f"{int(solo.last_iters[0])} iterations, trace bitwise {alone}")
+        if (np.abs(got_k - want_k).max() > 1 or plan.traces != 1
+                or set(plan.last_status_names) != {"converged"}
+                or not alone
+                or launches.get("ell_spmm", 0) < 1
+                or launches.get("cg_update_batched", 0) < 1):
+            raise AssertionError("grid k = 8")
+        times[f"2x2 dense k={MAIN_BATCH}"] = step_us(eng, B, "dense")
+        times[f"2x2 halo k={MAIN_BATCH}"] = step_us(eng, B, "halo")
+    except Exception:
+        traceback.print_exc()
+        failed.append("grid batched")
+
+    # -- 8e. the overlapped pipelined plan --------------------------------------
+    try:
+        eng = engs["4x1"]
+        out = {}
+        for lay in ("halo", "dense"):
+            plan = eng.plan(SolveSpec(method=PIPE_METHOD, tol=MAIN_TOL,
+                                      max_iters=SERVE_BUDGET, layout=lay))
+            plan(b)
+            x, _ = plan(b)
+            out[lay] = (x, int(plan.last_iters), plan.last_status_names,
+                        plan.info["noc"]["comm_overlap"])
+        ar = {meth: eng.plan(SolveSpec(method=meth, iters=60, layout="halo"))
+              .hlo_summary()["count_by_op"] for meth in ("pcg_pipelined",
+                                                         "pcg")}
+        say(f"grid 8e {PIPE_METHOD} 1d: halo (overlap "
+            f"{out['halo'][3]}) {out['halo'][1]} iterations, dense "
+            f"{out['dense'][1]}, x bitwise {np.array_equal(out['halo'][0], out['dense'][0])}; "
+            f"hlo pcg_pipelined {json.dumps(ar['pcg_pipelined'])}, pcg "
+            f"{json.dumps(ar['pcg'])}")
+        if (out["halo"][1] != out["dense"][1] or not out["halo"][3]
+                or not np.array_equal(out["halo"][0], out["dense"][0])
+                or out["halo"][2] != "converged"
+                or ar["pcg_pipelined"].get("all-reduce") != 2
+                or ar["pcg"].get("all-reduce") != 4
+                or "all-gather" in ar["pcg_pipelined"]):
+            raise AssertionError("grid pipelined overlap")
+    except Exception:
+        traceback.print_exc()
+        failed.append("grid pipelined")
+
+    # -- 8f. block-IC(0) on the 2x2 grid ----------------------------------------
+    try:
+        mi = laplacian_2d(GRID_IC0)
+        ai = sp.csr_matrix((mi.data, mi.indices, mi.indptr), shape=mi.shape)
+        bi = ai @ np.random.default_rng(1).standard_normal(mi.shape[0])
+        t0 = now()
+        eng = AzulEngine(mi, mesh=meshes["2x2"], precond="block_ic0",
+                         dtype=np.float64)
+        build_s = now() - t0
+        plan = eng.plan(SolveSpec(**spec))
+        plan(bi)
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        x, _ = plan(bi)
+        launches = ops.launch_counts()
+        it = int(plan.last_iters)
+        rel = float(np.linalg.norm(bi - ai @ x) / np.linalg.norm(bi))
+        say(f"grid 8f block_ic0 laplacian_2d({GRID_IC0}) 2x2: engine "
+            f"{build_s:.2f} s, {it} iterations, {plan.last_status_names}, "
+            f"true rel residual {rel:.3e}, substrate "
+            f"{plan.info['substrate']}, launches {json.dumps(launches)}")
+        if (plan.last_status_names != "converged"
+                or rel > MAIN_MAX_TRUE_RESIDUAL
+                or launches.get("sptrsv_solve_dot", 0) < 2 * it):
+            raise AssertionError("grid block_ic0")
+        times["2x2 block_ic0 laplacian_2d(512)"] = step_us(eng, bi)
+    except Exception:
+        traceback.print_exc()
+        failed.append("grid block_ic0")
+
+    # -- 8g. DIST_PARITY ---------------------------------------------------------
+    try:
+        mats = suite("small")
+        bad = []
+        for (mat, mname, mode), want in DIST_PARITY.items():
+            mm = mats[mat]
+            am = sp.csr_matrix((mm.data, mm.indices, mm.indptr),
+                               shape=mm.shape)
+            bm = am @ np.random.default_rng(0).standard_normal(mm.shape[0])
+            shape, axes, ra, ca = DIST_MESHES[mname]
+            eng = AzulEngine(mm, mesh=make_mesh(shape, axes), mode=mode,
+                             row_axes=ra, col_axes=ca, dtype=np.float64)
+            plan = eng.plan(SolveSpec(method="pcg_tol", tol=1e-8,
+                                      max_iters=2000))
+            plan(bm)
+            got = int(plan.last_iters)
+            if abs(got - want) > 1 or plan.last_status_names != "converged":
+                bad.append((mat, mname, mode, got))
+        say(f"grid 8g DIST_PARITY: {len(DIST_PARITY) - len(bad)} of "
+            f"{len(DIST_PARITY)} within one of the JAX package's counts")
+        if bad:
+            raise AssertionError(f"DIST_PARITY {bad}")
+    except Exception:
+        traceback.print_exc()
+        failed.append("grid parity")
+
+    # -- 8h. NoC stage times -------------------------------------------------------
+    try:
+        for name, eng in engs.items():
+            for lay in ("dense", "halo"):
+                gather, scatter = eng._comm(lay)
+                xv = torch.randn(eng.n_pad, dtype=torch.float64,
+                                 device="cuda")
+                yp = torch.randn(eng.tiles * eng.br, dtype=torch.float64,
+                                 device="cuda")
+                cols = eng._kernel_cols(lay)
+                vals = eng._flat_vals(eng.vals)
+                xb = gather(xv)
+                times[f"{name} {lay} gather us"] = 1e3 * device_ms(
+                    lambda: gather(xv))
+                times[f"{name} {lay} block apply us"] = 1e3 * device_ms(
+                    lambda: _block_apply(cols, vals, xb))
+                if eng.mode == "2d":            # 1d: no scatter stage
+                    times[f"{name} {lay} scatter us"] = 1e3 * device_ms(
+                        lambda: scatter(yp))
+        say(f"grid 8h microseconds a loop step (unguarded pcg, warm) and "
+            f"per NoC stage on {smi_line()}: " + json.dumps(times))
+    except Exception:
+        traceback.print_exc()
+        failed.append("grid times")
+    say(f"grid phase: {now() - t_phase:.1f} s")
+
 
 
 def say(*parts) -> None:
@@ -4022,6 +4417,9 @@ def main() -> int:
 
     # -- 7. fault-tolerant solves ---------------------------------------------
     ft_phase(failed)
+
+    # -- 8. the tile grid ------------------------------------------------------
+    grid_phase(failed)
 
     if failed:
         say("FAILED phases: " + ", ".join(failed))

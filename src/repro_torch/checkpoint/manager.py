@@ -24,8 +24,12 @@ Guarantees:
     checkpoint I/O with compute.
 
 Leaves restore as numpy arrays, or as tensors on the device of the
-matching leaf of ``tree_like`` where that leaf is a tensor.  Placement
-onto a mesh (``sharding_tree``) waits for the distributed engine.
+matching leaf of ``tree_like`` where that leaf is a tensor.
+``restore(..., sharding_tree=)`` places leaves directly: a matching tree
+whose leaves are a ``launch.mesh.TileMesh`` (the leaf goes onto the
+mesh's device, where every tile of the grid lives -- the port's
+placement of a JAX ``NamedSharding``), a ``torch.device`` or device
+string, or None (the leaf keeps the placement above).
 """
 
 from __future__ import annotations
@@ -203,11 +207,8 @@ def restore(tree_like, directory: str, step: int | None = None,
     its manifest checksum holds -- a partially-written or corrupted
     checkpoint costs one interval of progress, never a bad restore.  An
     explicit ``step`` raises CorruptCheckpointError instead.
-    ``sharding_tree`` (placement onto a mesh) is not ported yet."""
-    if sharding_tree is not None:
-        raise NotImplementedError(
-            "restore(sharding_tree=...) places leaves onto a mesh: the "
-            "distributed engine is not ported yet (ROADMAP Queue 1 item 10)")
+    ``sharding_tree``: an optional matching tree of placements (module
+    docstring) for direct placement onto a mesh."""
     flat = _flatten(tree_like)
     if step is not None:
         out, used = _load_step(directory, step, flat), step
@@ -226,6 +227,13 @@ def restore(tree_like, directory: str, step: int | None = None,
     for key, like in flat.items():
         if isinstance(like, torch.Tensor):
             out[key] = torch.from_numpy(out[key]).to(like.device)
+    if sharding_tree is not None:
+        for key, where in _flatten(sharding_tree).items():
+            if key not in out:
+                raise KeyError(f"sharding_tree leaf {key!r} is not a leaf "
+                               "of tree_like")
+            dev = getattr(where, "device", where)
+            out[key] = torch.as_tensor(out[key]).to(torch.device(dev))
     return _unflatten(tree_like, out), used
 
 

@@ -20,6 +20,15 @@ The JAX package's SELL, HYB and BCSR containers and its matrix-free
 their row-reduction plans), :func:`format_to_numpy` reads one back.  An
 engine built by :func:`engine_state_from_numpy` takes them as
 ``formats={"hyb": {...}}`` for plans with ``SolveSpec(format=...)``.
+
+A distributed (tile-grid) engine's state is the partition and its NoC
+plan: the stacked ``partition_plan.cols``/``vals`` (the 1d mode's padded
+layout columns, ``eng._cols_pad_host``), the inverse diagonal, ``pad2g``,
+the comm plan's fields and, for block-IC(0), the per-tile factor planes
+(``eng._pc_l``, ``eng._pc_u``, ``eng._pc_k``, ``eng._pc_rows_p``), all as
+numpy -- the dict :func:`dist_engine_state_to_numpy` returns for a port
+engine.  :func:`dist_engine_state_from_numpy` builds the port's engine on
+a ``TileMesh`` over it.
 """
 
 from __future__ import annotations
@@ -36,6 +45,7 @@ from .core.stencil import Stencil
 from .device import DEFAULT_DEVICE, resolve_device, resolve_dtype
 
 __all__ = ["engine_state_from_numpy", "engine_state_to_numpy",
+           "dist_engine_state_from_numpy", "dist_engine_state_to_numpy",
            "ic0_factors_from_numpy", "ic0_factors_to_numpy",
            "format_from_numpy", "format_to_numpy"]
 
@@ -248,3 +258,61 @@ def engine_state_to_numpy(engine: AzulEngine) -> dict:
         out["formats"] = {fmt: format_to_numpy(obj)[1]
                           for fmt, obj in engine._fmt_objs.items()}
     return out
+
+
+_COMM_FIELDS = ("mode", "deltas", "cols_halo", "pull_axis_size", "u",
+                "itemsize", "fixed_words", "use_halo", "interior_mask",
+                "interior_nnz", "total_nnz")
+_PLANES = ("cols", "vals", "dinv", "rows")
+
+
+def dist_engine_state_to_numpy(engine: AzulEngine) -> dict:
+    """The host arrays of a tile-grid engine (module docstring): ``mode``,
+    the axes, the sizes, ``cols``/``vals`` (tiles, rows_p, w), ``dinv``
+    (n_pad,), ``pad2g``, ``comm_plan`` (its fields) and, for block-IC(0),
+    ``block_ic0`` (``rows_p``, ``ks`` and the ``l_*``/``u_*`` planes)."""
+    if engine.mode == "local":
+        raise ValueError("a local engine: use engine_state_to_numpy")
+    out = {
+        "mode": engine.mode, "row_axes": engine.row_axes,
+        "col_axes": engine.col_axes, "n": engine.n, "n_pad": engine.n_pad,
+        "u": engine.u, "br": engine.br,
+        "bc": engine.bc if engine.mode == "2d" else engine.n_pad,
+        "cols": engine.cols_template(), "vals": engine.vals_template(),
+        "dinv": engine._dinv_pad.cpu().numpy(),
+        "pad2g": None if engine._pad2g is None else engine._pad2g.copy(),
+        "comm_plan": {k: getattr(engine.comm_plan, k) for k in _COMM_FIELDS},
+    }
+    if engine._pc_blocks is not None:
+        rows_p, lp, up, ks = engine._pc_blocks
+        blk = {"rows_p": rows_p, "ks": np.asarray(ks)}
+        for pre, planes in (("l", lp), ("u", up)):
+            blk.update({f"{pre}_{k}": np.asarray(a)
+                        for k, a in zip(_PLANES, planes)})
+        out["block_ic0"] = blk
+    return out
+
+
+def dist_engine_state_from_numpy(mesh, state: dict, precond: str = "jacobi",
+                                 fused="auto",
+                                 layout: str = "auto") -> AzulEngine:
+    """The port's tile-grid engine on ``mesh`` over ``state`` (the dict of
+    :func:`dist_engine_state_to_numpy`, or the same arrays read out of a
+    JAX distributed engine).  The stacked columns are validated here
+    against the layouts they index."""
+    cols = np.asarray(state["cols"])
+    vals = np.asarray(state["vals"])
+    if cols.ndim != 3 or cols.shape != vals.shape:
+        raise ValueError(f"cols {cols.shape} / vals {vals.shape} must both "
+                         "be (tiles, rows_p, w)")
+    bound = int(state["bc"]) if state["mode"] == "2d" else int(state["n_pad"])
+    if cols.size and (cols.min() < 0 or cols.max() >= bound):
+        raise ValueError(f"cols index outside [0, {bound})")
+    halo = np.asarray(state["comm_plan"]["cols_halo"])
+    h = len(state["comm_plan"]["deltas"])
+    if halo.shape != cols.shape or (halo.size and (
+            halo.min() < 0 or halo.max() >= (1 + h) * int(state["u"]))):
+        raise ValueError("comm plan cols_halo does not match the blocks")
+    return AzulEngine.from_dist_state(mesh, state, precond=precond,
+                                      fused=fused, layout=layout)
+

@@ -1,8 +1,8 @@
 """Host operator build, solvers, substrates and the plan/execute engine.
 
-The public surface is the JAX package's ``repro.core`` exports, less
-``CommPlan`` (the distributed tile grid, ROADMAP Queue 1 item 10)."""
+The public surface is the JAX package's ``repro.core`` exports."""
 
+from .commplan import CommPlan
 from .engine import AzulEngine
 from .formats import BCSR, CSR, ELL
 from .plan import PlanCache, SolvePlan, SolveSpec, chunk_spec
@@ -21,7 +21,7 @@ __all__ = [
     # formats
     "CSR", "ELL", "BCSR",
     # engine + plan/execute API
-    "AzulEngine", "SolveSpec", "SolvePlan", "PlanCache", "chunk_spec",
+    "AzulEngine", "CommPlan", "SolveSpec", "SolvePlan", "PlanCache", "chunk_spec",
     # registry
     "SolverDef", "PrecondDef",
     "register_solver", "register_precond",

@@ -43,7 +43,7 @@ import torch
 
 from ..obs.clock import now
 
-__all__ = ["CHUNK", "while_loop", "when", "ProgramCell"]
+__all__ = ["CHUNK", "while_loop", "when", "ProgramCell", "tracing"]
 
 # Steps a round runs: eagerly the host reads the loop's flag once a round;
 # captured, a round is one pass of the WHILE node's body, which copies the
@@ -51,6 +51,21 @@ __all__ = ["CHUNK", "while_loop", "when", "ProgramCell"]
 CHUNK = 32
 
 _ACTIVE = contextvars.ContextVar("repro_torch_program", default=None)
+_TRACING = contextvars.ContextVar("repro_torch_tracing", default=False)
+
+
+@contextmanager
+def tracing():
+    """Inside the block every :func:`while_loop` runs its body exactly
+    once, whatever ``cond`` says, and returns that state: a program run
+    this way passes through its set-up, one body of each loop and its
+    tail once each, as a lowered JAX program holds them
+    (``SolvePlan.hlo_summary`` counts the collectives of such a run)."""
+    token = _TRACING.set(True)
+    try:
+        yield
+    finally:
+        _TRACING.reset(token)
 
 
 def _signature(tensors) -> tuple:
@@ -137,6 +152,8 @@ def while_loop(cond, body, state):
     is false, as ``lax.while_loop`` does; see the module docstring for the
     rounds and the capture."""
     state = tuple(state)
+    if _TRACING.get():
+        return _check(body(state), state)
     cell = _ACTIVE.get()
     if cell is not None and state[0].is_cuda:
         graph = cell._loop(cond, body, state)

@@ -1,5 +1,5 @@
 """Plan/execute API: a frozen ``SolveSpec`` lowered once into a
-``SolvePlan`` (port of ``repro.core.plan`` for local solves).
+``SolvePlan`` (port of ``repro.core.plan``).
 
 * :class:`SolveSpec` -- the frozen, hashable description of one solve
   configuration.  ``AzulEngine.plan(spec)`` canonicalizes it (registry
@@ -88,7 +88,9 @@ class SolveSpec:
                iteration count and status)
     fused      None/'auto' (engine knob) | True | False
     layout     communication layout: None/'auto' (the engine's knob) |
-               'dense'; a local engine has no NoC, so it resolves to
+               'halo' | 'dense'; a tile-grid engine's 'auto' takes the
+               compiled halo schedule where its comm plan moves fewer
+               bytes; a local engine has no NoC, so it resolves to
                'dense' and 'halo' raises
     reorder    row/column reordering; None = the engine's (the matrix is
                packed under the permutation at engine build, so a spec
@@ -124,6 +126,7 @@ def canonicalize(spec: SolveSpec, engine) -> SolveSpec:
     """Resolve a user spec against an engine into the canonical cache key."""
     sdef = registry.get_solver(spec.method)
     pdef = registry.get_precond(engine.precond)
+    local = engine.mode == "local"
     if spec.precond is not None:
         want = registry.get_precond(spec.precond)
         if want.name != pdef.name:
@@ -137,14 +140,20 @@ def canonicalize(spec: SolveSpec, engine) -> SolveSpec:
     if spec.batch is not None and not sdef.batched:
         raise ValueError(f"solver {sdef.name!r} does not support batched RHS")
     fused_knob = engine.fused if spec.fused in (None, "auto") else spec.fused
-    fused = registry.resolve_fused(sdef, pdef, fused_knob, engine.device)
+    fused = registry.resolve_fused(sdef, pdef, fused_knob, engine.device,
+                                   local=local)
     if spec.reorder is not None and spec.reorder != engine.reorder:
         raise ValueError(
             f"spec reorder {spec.reorder!r} != engine reorder "
             f"{engine.reorder!r} (the matrix is packed under the permutation"
             " at engine build -- build an engine with reorder=...)")
+    # None and 'auto' defer to the engine's knob; only then does the
+    # compiled comm plan decide profitability
     layout = registry.resolve_layout(
-        engine.layout if spec.layout in (None, "auto") else spec.layout)
+        engine.layout if spec.layout in (None, "auto") else spec.layout,
+        sdef, pdef, local,
+        halo_profitable=engine.comm_plan is not None
+        and engine.comm_plan.use_halo)
     if sdef.tolerance:
         tol = 1e-8 if spec.tol is None else float(spec.tol)
         max_iters = spec.iters if spec.max_iters is None else int(spec.max_iters)
@@ -168,7 +177,8 @@ def canonicalize(spec: SolveSpec, engine) -> SolveSpec:
     fmt = registry.resolve_format(sdef, fmt_knob,
                                   engine_choice=engine.format_choice,
                                   stencil=engine.stencil is not None,
-                                  injectable=bool(spec.injectable))
+                                  injectable=bool(spec.injectable),
+                                  local=local)
     return replace(spec, method=sdef.name, precond=pdef.name, iters=iters,
                    tol=tol, max_iters=max_iters, fused=fused, layout=layout,
                    reorder=engine.reorder, guard=guard,
@@ -220,15 +230,17 @@ class SolvePlan:
     last_status per-RHS structured status codes (int32 STATUS_*) of the
                 most recent execution; ``last_status_names`` spells them
     last_bad_iter  per-RHS first guard-tripped iteration (-1 = none)
-    vals        the plan's own (n_pad, w) value buffer, the one its
-                program reads (injectable plans; None otherwise)
+    vals        the plan's own value buffer, the one its program reads
+                (injectable plans; None otherwise): (n_pad, w) locally,
+                (tiles, rows_p, w) on a tile grid
     """
 
     def __init__(self, engine, spec: SolveSpec, fn: Callable, info: dict,
-                 cell, context, vals=None):
+                 cell, context, vals=None, trace_fn: Callable | None = None):
         self.engine = engine
         self.spec = spec
         self._fn = fn
+        self._trace_fn = trace_fn
         self._cell = cell
         self.context = context
         self.info = info
@@ -369,13 +381,33 @@ class SolvePlan:
 
     def hlo_summary(self, refresh: bool = False) -> dict:
         """Collective summary of the plan's program, as the JAX package's
-        (``count_by_op`` by collective name, ``total_count``).  A local plan
-        has no collectives: ``{"count_by_op": {}, "total_count": 0.0}``;
-        the counts arrive with the distributed engine (ROADMAP Queue 1
-        item 10).  Cached in ``info["hlo"]``; never builds the program, so
-        it does not count in ``traces``."""
+        (``count_by_op`` by collective name, ``total_count``), cached in
+        ``info["hlo"]``.
+
+        A tile-grid plan runs its program once on a zero right-hand side
+        with the NoC recording (``noc.recording``) and each solve loop
+        taking one pass of its body (``loop.tracing``): the collectives
+        of the set-up, one loop body and the tail, the way the JAX
+        package's lowered program holds a ``scan`` or ``while`` body once
+        -- not the 32 steps of a captured round.  That run is eager and
+        outside the plan's cell, so it does not count in ``traces`` (its
+        kernels launch once each).  A local plan has no collectives:
+        ``{"count_by_op": {}, "total_count": 0.0}``."""
         if refresh or "hlo" not in self.info:
-            self.info["hlo"] = {"count_by_op": {}, "total_count": 0.0}
+            if self._trace_fn is None:
+                self.info["hlo"] = {"count_by_op": {}, "total_count": 0.0}
+            else:
+                from . import loop, noc
+
+                eng = self.engine
+                shape = ((eng.n,) if self.spec.batch is None
+                         else (self.spec.batch, eng.n))
+                b = eng.to_device_vec(np.zeros(shape))
+                if self.spec.injectable:
+                    self._load_vals(None)
+                with noc.recording() as rec, loop.tracing():
+                    self._trace_fn(b, torch.zeros_like(b))
+                self.info["hlo"] = rec.summary()
         return self.info["hlo"]
 
     def __repr__(self) -> str:

@@ -468,36 +468,64 @@ def pcg_tol(
 
 
 # -- pipelined PCG (Chronopoulos-Gear) ---------------------------------------
+#
+# The loop state is the 13 recurrence entries (x, r, u, w, z, q, s, p, m,
+# gamma, delta, gamma_old, alpha_old), then the in-flight halo of the next
+# matvec operand when the substrate splits its matvec (``matvec_start`` /
+# ``matvec_finish``, a tuple of tile-stacked tensors, empty otherwise),
+# then the method's own entries.
 
 
-def _pipe_start(sub, b, x0):
-    """The pre-loop state (x, r, u, w, z, q, s, p, m, gamma, delta,
-    gamma_old, alpha_old) and its stacked reduction [gamma, delta, rr]."""
+def _pipe_dots(sub, dot2, explicit: bool):
+    """The stacked [gamma, delta, rr] reduction: an explicit substrate's
+    ``pipe_dots``, else the injected ``dot2`` (one stacked reduction even
+    on the reference path), else the reference substrate's."""
+    if explicit or dot2 is None:
+        return sub.pipe_dots
+
+    def pdots(r, u, w):
+        return dot2(r, u, w, u, r, r)
+
+    return pdots
+
+
+def _pipe_start(sub, b, x0, pdots=None):
+    """The pre-loop state (the 13 recurrence entries, then the halo of
+    the first operand where the substrate splits its matvec) and its
+    stacked reduction [gamma, delta, rr] (``pdots``, default the
+    substrate's)."""
+    pdots = pdots or sub.pipe_dots
+    overlapped = sub.matvec_start is not None
     x = torch.zeros_like(b) if x0 is None else x0
     r = b - sub.matvec(x)
     u = sub.psolve(r)
     w = sub.matvec(u)
-    gd = sub.pipe_dots(r, u, w)
+    gd = pdots(r, u, w)
     m = sub.psolve(w)              # the first step's matvec operand
+    h = tuple(sub.matvec_start(m)) if overlapped else ()
     zv = torch.zeros_like(b)
     one = torch.ones_like(gd[0])
-    return (x, r, u, w, zv, zv, zv, zv, m, gd[0], gd[1], one, one), gd
+    return (x, r, u, w, zv, zv, zv, zv, m, gd[0], gd[1], one, one) + h, gd
 
 
-def _pipe_step(sub, k, state):
+def _pipe_step(sub, k, state, pdots=None):
     """One pipelined step -> (state', [gamma', delta', rr']).  The scalar
     recurrence: beta = gamma/gamma_old (0 on the first step, k == 0),
     alpha = gamma / (delta - beta*gamma/alpha_old); a zero denominator
-    gives the step a 0 instead of a NaN."""
-    x, r, u, w, z, q, s, p, m, gamma, delta, gamma_old, alpha_old = state
-    nv = sub.matvec(m)
+    gives the step a 0 instead of a NaN.  With the split matvec the step
+    finishes the halo issued by the previous one and issues the next."""
+    pdots = pdots or sub.pipe_dots
+    overlapped = sub.matvec_start is not None
+    x, r, u, w, z, q, s, p, m, gamma, delta, gamma_old, alpha_old = state[:13]
+    nv = sub.matvec_finish(state[13:]) if overlapped else sub.matvec(m)
     beta = _safe_div(gamma, gamma_old).masked_fill_(k == 0, 0.0)
     alpha = _safe_div(gamma, delta - _safe_div(beta * gamma, alpha_old))
     x, r, u, w, z, q, s, p = sub.pipe_update(beta, alpha, x, r, u, w, z, q,
                                              s, p, m, nv)
-    gd = sub.pipe_dots(r, u, w)    # the iteration's ONE stacked reduction
+    gd = pdots(r, u, w)            # the iteration's ONE stacked reduction
     m = sub.psolve(w)
-    return (x, r, u, w, z, q, s, p, m, gd[0], gd[1], gamma, alpha), gd
+    h = tuple(sub.matvec_start(m)) if overlapped else ()
+    return (x, r, u, w, z, q, s, p, m, gd[0], gd[1], gamma, alpha) + h, gd
 
 
 def _pipe_norm(gd: Vec) -> Vec:
@@ -516,8 +544,8 @@ def _pipe_guard(gd, rn, rn_prev, floor, big):
 
 def _pipe_freeze(newly, new, old) -> None:
     """:func:`_freeze` over the pipelined state: x back, the vectors,
-    gamma, delta and alpha_old to 0 (gamma_old is the pre-step gamma, a
-    tensor of the old state: it stays)."""
+    gamma, delta, alpha_old and the halo to 0 (gamma_old is the pre-step
+    gamma, a tensor of the old state: it stays)."""
     _freeze(newly, new[0], old[0], new[1:11] + new[12:])
 
 
@@ -527,6 +555,7 @@ def pcg_pipelined(
     psolve: Callable,
     x0: Vec | None = None,
     iters: int = 100,
+    dot2: Callable | None = None,
     dot: Callable = _default_dot,
     substrate: SolverSubstrate | None = None,
     guard: bool = True,
@@ -534,38 +563,45 @@ def pcg_pipelined(
     """Chronopoulos-Gear pipelined PCG, fixed iteration count: ONE stacked
     reduction [gamma, delta, rr] an iteration, where PCG has three dots.
     rr makes the trace the TRUE residual norm, comparable with
-    :func:`pcg`'s.  Guards (``guard=True``) read the same reduction:
-    NaN/Inf, gamma < 0, delta < 0 with gamma > 0, divergence; a faulted
-    lane freezes at its last good iterate."""
+    :func:`pcg`'s.  ``dot2(a1, b1, a2, b2, ...)`` stacks dot(ai, bi) pairs
+    under one reduction (the distributed engine injects its psum of a
+    stack); a ``substrate`` brings its own ``pipe_dots`` and, on a halo
+    layout, the split matvec whose exchange for the next operand is
+    issued at the tail of each step -- the same values either way.
+    Guards (``guard=True``) read the same reduction: NaN/Inf, gamma < 0,
+    delta < 0 with gamma > 0, divergence; a faulted lane freezes at its
+    last good iterate."""
     sub = substrate if substrate is not None else reference_substrate(
         matvec, psolve, dot)
-    state, gd = _pipe_start(sub, b, x0)
+    pdots = _pipe_dots(sub, dot2, substrate is not None)
+    state, gd = _pipe_start(sub, b, x0, pdots)
+    nc = len(state)
     r0 = _pipe_norm(gd)
     trace = _trace(b, iters, r0)
     k0 = torch.zeros((), dtype=torch.int32, device=b.device)
 
     def cond(s):
-        return s[13] < iters
+        return s[nc] < iters
 
     if not guard:
         def body(s):
-            k, trace = s[13:]
-            new, gd = _pipe_step(sub, k, s[:13])
+            k, trace = s[nc:]
+            new, gd = _pipe_step(sub, k, s[:nc], pdots)
             k1 = k + 1
             _record(trace, k1, _pipe_norm(gd))
             return new + (k1, trace)
 
         out = while_loop(cond, body, state + (k0, trace))
-        return _finish(b, out[0], out[14], out[13], _lanes(b, iters),
+        return _finish(b, out[0], out[nc + 1], out[nc], _lanes(b, iters),
                        _lanes(b, STATUS_UNGUARDED), _lanes(b, -1))
 
     init_bad = _nonfinite(r0, _sq(gd[0]), _sq(gd[1]))
-    _freeze(init_bad, state[0], state[0], state[1:11])
+    _freeze(init_bad, state[0], state[0], state[1:11] + state[13:])
     fault, bad = _start_faults(init_bad)
 
     def body(s):
-        old, (k, trace, rn_prev, fault, bad, floor, big) = s[:13], s[13:]
-        new, gd = _pipe_step(sub, k, old)
+        old, (k, trace, rn_prev, fault, bad, floor, big) = s[:nc], s[nc:]
+        new, gd = _pipe_step(sub, k, old, pdots)
         rn = _pipe_norm(gd)
         fault, newly = _faults(fault, *_pipe_guard(gd, rn, rn_prev, floor,
                                                    big))
@@ -578,8 +614,8 @@ def pcg_pipelined(
 
     out = while_loop(cond, body, state + (k0, trace, r0, fault, bad,
                                           *_thresholds(r0)))
-    return _finish(b, out[0], out[14], out[13], _lanes(b, iters),
-                   _status(out[16], STATUS_MAXITER), out[17])
+    return _finish(b, out[0], out[nc + 1], out[nc], _lanes(b, iters),
+                   _status(out[nc + 3], STATUS_MAXITER), out[nc + 4])
 
 
 def pcg_pipelined_tol(
@@ -589,6 +625,7 @@ def pcg_pipelined_tol(
     x0: Vec | None = None,
     tol: float = 1e-8,
     max_iters: int = 1000,
+    dot2: Callable | None = None,
     dot: Callable = _default_dot,
     substrate: SolverSubstrate | None = None,
     guard: bool = True,
@@ -602,7 +639,9 @@ def pcg_pipelined_tol(
     :func:`pcg_tol`'s."""
     sub = substrate if substrate is not None else reference_substrate(
         matvec, psolve, dot)
-    state, gd = _pipe_start(sub, b, x0)
+    pdots = _pipe_dots(sub, dot2, substrate is not None)
+    state, gd = _pipe_start(sub, b, x0, pdots)
+    nc = len(state)
     r0n = _pipe_norm(gd)
     bnorm = torch.sqrt(torch.clamp_min(_sq(sub.dot(b, b)), 0.0))
     bnorm = bnorm + (bnorm == 0)
@@ -612,33 +651,33 @@ def pcg_pipelined_tol(
     k0 = torch.zeros((), dtype=torch.int32, device=b.device)
 
     def cond(s):
-        return s[13].any() & (s[15] < max_iters)
+        return s[nc].any() & (s[nc + 2] < max_iters)
 
     if not guard:
         def body(s):
-            old, (act, it, k, trace, bnorm) = s[:13], s[13:]
+            old, (act, it, k, trace, bnorm) = s[:nc], s[nc:]
             it = it + act
-            new, gd = _pipe_step(sub, k, old)
+            new, gd = _pipe_step(sub, k, old, pdots)
             rn = _pipe_norm(gd)
             k1 = k + 1
             _record(trace, k1, rn)
             return new + (rn / bnorm > tol, it, k1, trace, bnorm)
 
         out = while_loop(cond, body, state + (act, it, k0, trace, bnorm))
-        return _finish(b, out[0], out[16], out[15], out[14],
+        return _finish(b, out[0], out[nc + 3], out[nc + 2], out[nc + 1],
                        _lanes(b, STATUS_UNGUARDED), _lanes(b, -1))
 
     init_bad = _nonfinite(r0n, _sq(gd[0]), _sq(gd[1]), bnorm)
-    _freeze(init_bad, state[0], state[0], state[1:11])
+    _freeze(init_bad, state[0], state[0], state[1:11] + state[13:])
     fault, bad = _start_faults(init_bad)
     act = act & ~init_bad
 
     def body(s):
-        old = s[:13]
+        old = s[:nc]
         (act, it, k, trace, rn_prev, fault, bad, best, since, bnorm, floor,
-         big) = s[13:]
+         big) = s[nc:]
         it = it + act
-        new, gd = _pipe_step(sub, k, old)
+        new, gd = _pipe_step(sub, k, old, pdots)
         rn = _pipe_norm(gd)
         improved = rn < best
         best = torch.minimum(rn, best)
@@ -658,8 +697,8 @@ def pcg_pipelined_tol(
     out = while_loop(cond, body, state + (act, it, k0, trace, r0n, fault, bad,
                                           r0n, torch.zeros_like(it), bnorm,
                                           *_thresholds(r0n)))
-    act, it, k, trace, fault, bad = (out[13], out[14], out[15], out[16],
-                                     out[18], out[19])
+    act, it, k, trace, fault, bad = (out[nc], out[nc + 1], out[nc + 2],
+                                     out[nc + 3], out[nc + 5], out[nc + 6])
     return _finish(b, out[0], trace, k, it,
                    _status(fault, STATUS_CONVERGED, act), bad)
 

@@ -39,10 +39,20 @@ iteration consumes:
   sums its dots in another order than PyTorch (on the CPU, nowhere: they
   are bitwise equal).
 
+* :func:`fused_shard_substrate` and :func:`fused_shard_ic0_substrate` are
+  the tile grid's (the JAX package's ``shard_map`` flavors, run once over
+  every tile of the grid): the matvec is the engine's NoC-composed SpMV,
+  the update is ``cg_update`` on the whole tile-stacked vector, whose
+  [rr, rz] come out of the kernel as one reduction (the JAX program's one
+  stacked psum), and every other dot is the engine's reducing dot (tile
+  partials added in tile order).  The p-fold stays a plain composition
+  around the NoC matvec, as in the JAX package.
+
 Every substrate carries the pipelined recurrence's ``pipe_dots`` (a stack
-of its own dot) and ``pipe_update`` (plain PyTorch, as the JAX package's
-jnp composition: it has no Pallas kernel).  The shard flavors wait for
-their slice.
+of its own dot; the shard flavors' is one stacked reduction) and
+``pipe_update`` (plain PyTorch, as the JAX package's jnp composition: it
+has no Pallas kernel).  On a halo layout the engine adds the split
+communication-hiding matvec (``matvec_start`` / ``matvec_finish``).
 """
 
 from __future__ import annotations
@@ -54,7 +64,8 @@ import torch
 from ..kernels import ops
 
 __all__ = ["SolverSubstrate", "reference_substrate", "fused_local_substrate",
-           "fused_ic0_local_substrate", "format_stream_ops", "pipe_update",
+           "fused_ic0_local_substrate", "fused_shard_substrate",
+           "fused_shard_ic0_substrate", "format_stream_ops", "pipe_update",
            "modeled_vector_traffic", "modeled_ic0_traffic"]
 
 
@@ -66,7 +77,10 @@ def _dot(u: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
 
 
 class SolverSubstrate(NamedTuple):
-    """The per-iteration op bundle PCG runs against (module docstring)."""
+    """The per-iteration op bundle PCG runs against (module docstring).
+    ``matvec_start(v)`` issues the exchange of v's halo and returns it in
+    flight (a tuple of tile-stacked tensors); ``matvec_finish(halo)``
+    computes A v from it.  Both are None off a tile grid's halo layout."""
 
     kind: str
     matvec: Callable
@@ -76,6 +90,8 @@ class SolverSubstrate(NamedTuple):
     update: Callable
     pipe_dots: Callable
     pipe_update: Callable
+    matvec_start: Callable | None = None
+    matvec_finish: Callable | None = None
 
 
 def pipe_update(beta, alpha, x, r, u, w, z, q, s, p, m, n):
@@ -304,6 +320,73 @@ def fused_ic0_local_substrate(cols, vals, apply_dot,
     return SolverSubstrate("fused_ic0", matvec, psolve, _lane_dot,
                            fold_matvec_dot, update,
                            _pipe_dots_local(_lane_dot), pipe_update)
+
+
+def _shard_stream_ops(matvec, tdot):
+    """The tile grid's (dot, fold_matvec_dot, pipe_dots).  ``tdot(u, v)``
+    is the engine's dot without its collective record: tile partials
+    added in tile order.  Each of these stands for one psum of the JAX
+    program and records it (``noc.record``); the fold is p' = z + beta*p
+    around the NoC matvec, a plain composition (JAX ``substrate.py``)."""
+    from . import noc
+
+    def dot(u, v):
+        noc.record("all-reduce")
+        return tdot(u, v)
+
+    def fold_matvec_dot(z, p, beta):
+        p = z + beta * p
+        ap = matvec(p)
+        return p, ap, dot(p, ap)
+
+    def pipe_dots(r, u, w):
+        noc.record("all-reduce")           # ONE stacked reduction
+        return torch.stack([tdot(r, u), tdot(w, u), tdot(r, r)])
+
+    return dot, fold_matvec_dot, pipe_dots
+
+
+def fused_shard_substrate(matvec, dinv, tdot) -> SolverSubstrate:
+    """The tile grid's fused substrate.  ``matvec`` is the engine's
+    NoC-composed SpMV over the padded global vector, ``dinv`` the (n_pad,)
+    Jacobi inverse diagonal (or None), ``tdot`` the engine's dot (tile
+    partials in tile order, unrecorded).  ``update`` is ``cg_update`` over
+    every tile at once: its [rr, rz] are one reduction, where the JAX
+    program psums one stack of the tiles' partials."""
+    from . import noc
+
+    dot, fold_matvec_dot, pipe_dots = _shard_stream_ops(matvec, tdot)
+
+    def psolve(r):
+        return r * dinv if dinv is not None else r
+
+    def update(alpha, x, r, p, ap):
+        out = ops.cg_update(alpha, x, r, p, ap, dinv)
+        noc.record("all-reduce")           # [rr, rz]: one reduction
+        return out
+
+    return SolverSubstrate("fused_shard", matvec, psolve, dot,
+                           fold_matvec_dot, update, pipe_dots, pipe_update)
+
+
+def fused_shard_ic0_substrate(matvec, psolve_local, tdot) -> SolverSubstrate:
+    """The tile grid's substrate for ``precond="block_ic0"``: the tiles'
+    block-IC(0) solves (``psolve_local``, no collective: each tile factors
+    its own diagonal block) after a ``cg_update`` with the identity, and
+    [rr, rz] as one reduction, as in :func:`fused_shard_substrate`."""
+    from . import noc
+
+    dot, fold_matvec_dot, pipe_dots = _shard_stream_ops(matvec, tdot)
+
+    def update(alpha, x, r, p, ap):
+        xo, ro, _, rr, _ = ops.cg_update(alpha, x, r, p, ap, None)
+        z = psolve_local(ro)
+        rz = tdot(ro, z)
+        noc.record("all-reduce")           # [rr, rz]: one reduction
+        return xo, ro, z, rr, rz
+
+    return SolverSubstrate("fused_shard_ic0", matvec, psolve_local, dot,
+                           fold_matvec_dot, update, pipe_dots, pipe_update)
 
 
 def modeled_vector_traffic(ell_width: float) -> dict:

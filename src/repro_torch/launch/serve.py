@@ -13,14 +13,19 @@
     PYTHONPATH=src python -m repro_torch.launch.serve --solver \
         --matrix lap2d_32 --load-gen open --rate 50 --requests 40
 
+    # on a 2x2 tile grid (every tile on the one device)
+    PYTHONPATH=src python -m repro_torch.launch.serve --solver \
+        --matrix lap2d_32 --mesh-shape 2x2 --requests 12
+
 The ``--solver`` path of ``repro.launch.serve``, with its flags and its
 printed JSON fields, plus ``degraded_batches`` (always 0 on the card,
 where a kernel failure raises) and, under ``--load-gen``,
 ``verify_rel_residual``: the largest true relative residual
 ``||b - A x|| / ||b||`` of the outcomes.  ``--device cpu`` runs the kernels' plain versions
-(the default ``cuda`` raises without a card).  The LM generation demo
-(``--arch``) and distributed meshes (``--mesh-shape``) are not ported:
-both exit non-zero naming their ROADMAP item.
+(the default ``cuda`` raises without a card).  ``--mesh-shape RxC``
+serves every operator on an R x C tile grid (``launch.mesh.make_mesh``
+over ("data", "model") on the ``--device``).  The LM generation demo
+(``--arch``) is not ported: it exits non-zero naming its ROADMAP item.
 """
 
 from __future__ import annotations
@@ -59,6 +64,13 @@ def _solver_main(args) -> int:
         # scrape target up BEFORE any work so a poller sees the whole run
         metrics_srv = start_metrics_server(port=args.metrics_port)
         print(f"metrics: {metrics_srv.url}")
+    mesh = None
+    if args.mesh_shape:
+        from .mesh import make_mesh
+        shape = tuple(int(x) for x in args.mesh_shape.split("x"))
+        if len(shape) != 2:
+            raise SystemExit("--mesh-shape must be RxC, e.g. 2x2")
+        mesh = make_mesh(shape, ("data", "model"), device=args.device)
     try:
         # one frozen spec drives every operator's warm pool; the service
         # builds per-(operator, bucket) plans from it
@@ -69,7 +81,8 @@ def _solver_main(args) -> int:
         for name in names:
             svc.register_operator(name, mats[name], spec=spec,
                                   precond=args.precond, dtype=np.float64,
-                                  layout=args.layout, reorder=args.reorder)
+                                  layout=args.layout, reorder=args.reorder,
+                                  mesh=mesh)
 
         rng = np.random.default_rng(0)
         if args.load_gen:
@@ -175,11 +188,11 @@ def main(argv=None):
     ap.add_argument("--tol", type=float, default=1e-8,
                     help="relative residual target for --method pcg_tol")
     ap.add_argument("--mesh-shape", default="",
-                    help="distributed meshes: not ported (ROADMAP Queue 1 "
-                         "item 10)")
+                    help="e.g. 2x2 -- a tile grid; empty = one device")
     ap.add_argument("--layout", default="auto",
                     choices=("auto", "halo", "dense"),
-                    help="distributed comm layout (one device: dense)")
+                    help="tile-grid comm layout (halo = the compiled pull "
+                         "schedule; one device: dense)")
     ap.add_argument("--reorder", default="none", choices=("none", "rcm"),
                     help="bandwidth-reducing RCM reordering")
     ap.add_argument("--metrics-port", type=int, default=None,
@@ -191,9 +204,6 @@ def main(argv=None):
                          "their plain PyTorch versions")
     args = ap.parse_args(argv)
 
-    if args.mesh_shape:
-        ap.error("--mesh-shape: distributed meshes are not ported yet "
-                 "(ROADMAP Queue 1 item 10)")
     if args.arch is not None:
         ap.error("--arch: the LM generation demo is not ported yet "
                  "(ROADMAP Queue 1 item 11)")

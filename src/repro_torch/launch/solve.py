@@ -1,7 +1,12 @@
-"""Sparse-solver driver of the port: one local solve end to end.
+"""Sparse-solver driver of the port: one solve end to end.
 
     PYTHONPATH=src python -m repro_torch.launch.solve --matrix lap2d_32 \
         --method pcg_tol --tol 1e-8
+
+    # on a 2x2 tile grid (2d blocks, the compiled halo schedule where it
+    # pays; every tile on the one device)
+    PYTHONPATH=src python -m repro_torch.launch.solve --matrix lap2d_32 \
+        --method pcg_tol --mesh-shape 2x2 --mode 2d --layout auto
 
 runs on the card (``--device cuda``, the default), where the solve is a
 plan whose loop round is captured as a CUDA graph and replayed
@@ -12,7 +17,10 @@ format (``auto`` runs the per-matrix rule); ``--matrix stencil:lap2d_1024``
 flags and the printed JSON fields are those of ``repro.launch.solve`` for
 the options ported so far (``device`` is added); ``b = A x_true`` with
 ``x_true`` from ``default_rng(0)`` (``b = engine.spmv(x_true)`` for a
-stencil), the solve in float64.
+stencil), the solve in float64.  ``--mesh-shape RxC`` solves on a tile
+grid (``launch.mesh.make_mesh`` over ("data", "model") on ``--device``)
+with ``--mode``, ``--layout``, ``--reorder`` and ``--balance``, and the
+JSON adds the plan's modeled NoC record (``noc``).
 
 Fault tolerance, as in ``repro.launch.solve``:
 
@@ -27,7 +35,7 @@ Fault tolerance, as in ``repro.launch.solve``:
 fault sleeps 0.5 s) and prints its report; ``--checkpoint-dir`` persists
 the solver state every chunk, and a rerun resumes from it.  The exit code
 is 1 unless the report says ``converged``.  The ``halo_*`` kinds need a
-distributed engine and raise.
+tile grid (``--mesh-shape``) and raise without one.
 """
 
 from __future__ import annotations
@@ -58,7 +66,20 @@ def main(argv=None):
                     help="fused-substrate knob (auto = on where supported)")
     ap.add_argument("--format", default="auto", dest="fmt",
                     choices=("auto", "ell", "sell", "hyb", "bcsr"),
-                    help="operator storage format (auto = per-matrix rule)")
+                    help="operator storage format (auto = per-matrix "
+                         "rule; a tile grid streams padded ELL)")
+    ap.add_argument("--mode", default="2d", choices=("1d", "2d"))
+    ap.add_argument("--mesh-shape", default="",
+                    help="e.g. 2x2 -- a tile grid; empty = one device")
+    ap.add_argument("--layout", default="auto",
+                    choices=("auto", "halo", "dense"),
+                    help="tile-grid comm layout: halo = the compiled pull "
+                         "schedule, dense = blanket collectives, auto = "
+                         "halo where it moves fewer bytes")
+    ap.add_argument("--reorder", default="none", choices=("none", "rcm"),
+                    help="bandwidth-reducing RCM reordering (shrinks halos)")
+    ap.add_argument("--balance", default="nnz", choices=("nnz", "rows"),
+                    help="row-block load balance (nnz = prefix-sum splits)")
     ap.add_argument("--no-guard", action="store_true",
                     help="disable in-loop numerical health guards (status "
                          "reports 'unguarded')")
@@ -95,10 +116,19 @@ def main(argv=None):
             mats.update(suite("large"))
         m = mats[args.matrix]
 
+    mesh = None
+    if args.mesh_shape:
+        from .mesh import make_mesh
+        shape = tuple(int(x) for x in args.mesh_shape.split("x"))
+        mesh = make_mesh(shape, ("data", "model")[: len(shape)],
+                         device=args.device)
+
     rng = np.random.default_rng(0)
     x_true = rng.standard_normal(m.shape[0])
     fused = {"auto": "auto", "on": True, "off": False}[args.fused]
-    eng = AzulEngine(m, precond=args.precond, dtype=np.float64, fused=fused,
+    eng = AzulEngine(m, mesh=mesh, mode=args.mode, precond=args.precond,
+                     balance=args.balance, dtype=np.float64, fused=fused,
+                     layout=args.layout, reorder=args.reorder,
                      format=args.fmt, device=args.device)
     if hasattr(m, "indptr"):
         a = sp.csr_matrix((m.data, m.indices, m.indptr), shape=m.shape)
@@ -110,7 +140,7 @@ def main(argv=None):
 
     spec = SolveSpec(method=args.method, iters=args.iters, tol=args.tol,
                      max_iters=args.max_iters, fused=fused,
-                     guard=not args.no_guard)
+                     layout=args.layout, guard=not args.no_guard)
     if args.inject:
         # the fault-injected solve through the chunked restart driver:
         # detect, roll back to the last verified state, reconverge
@@ -157,6 +187,8 @@ def main(argv=None):
         "bad_iter": int(plan.last_bad_iter),
         "device": str(eng.device),
     }
+    if "noc" in plan.info:
+        out["noc"] = plan.info["noc"]
     if plan.spec.tol is not None:
         out["tol"] = plan.spec.tol
         out["iters_run"] = int(plan.last_iters)

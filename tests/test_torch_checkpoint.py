@@ -32,6 +32,7 @@ from repro_torch import checkpoint as ck
 from repro_torch import ft
 from repro_torch.core import AzulEngine, SolveSpec
 from repro_torch.data.matrices import laplacian_2d
+from repro_torch.launch.mesh import make_mesh
 
 pytestmark = pytest.mark.faults
 
@@ -155,8 +156,11 @@ def test_tensor_leaves_and_async_snapshot(tmp_path):
         mgr.save_async(tree, s)
     mgr.wait()
     assert sorted(os.listdir(d)) == ["step_00000002", "step_00000003"]
-    with pytest.raises(NotImplementedError, match="item 10"):
-        mgr.restore(tree, sharding_tree={"x": None})
+    # sharding_tree places the leaves it names (None keeps the placement)
+    mesh = make_mesh((2, 2), ("data", "model"), device="cpu")
+    got, _ = mgr.restore(tree, sharding_tree={"x": mesh, "n": [None, "cpu"]})
+    assert isinstance(got["x"], torch.Tensor) and got["x"].device == mesh.device
+    assert isinstance(got["n"][1], torch.Tensor)
 
 
 def test_solve_resumes_from_the_other_packages_checkpoints(tmp_path):

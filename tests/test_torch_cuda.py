@@ -1269,3 +1269,72 @@ def test_restart_manager_recovers_a_corrupted_chunk_on_the_card(cuda):
         assert rep.status == "converged" and rep.rel_residual <= 1e-6
         assert np.allclose(rep.x, x_true, atol=1e-5)
     assert mgr._plan.traces == 1 and mgr._plan.cell.captures == 1
+
+
+# -- the tile grid (every tile on the card) ----------------------------------
+
+
+@pytest.mark.parametrize("shape,mode", [((2, 2), "2d"), ((4, 1), "1d")])
+def test_stacked_tile_kernels_against_plain(cuda, shape, mode):
+    """The grid's one-launch block apply: ``ell_spmv`` / ``ell_spmm`` over
+    the stacked (tiles*rows_p, w) blocks with columns offset into the
+    tile-stacked x buffer, and ``cg_update`` over the padded global
+    vector, each against its plain version; lane 0 of ``ell_spmm`` equals
+    ``ell_spmv`` bit for bit."""
+    from repro_torch.kernels import ref
+    from repro_torch.launch.mesh import make_mesh
+
+    m = laplacian_2d(48)
+    eng = AzulEngine(m, mesh=make_mesh(shape, ("data", "model")), mode=mode,
+                     dtype=np.float64)
+    g = torch.Generator(device=cuda).manual_seed(3)
+    vals = eng._flat_vals(eng.vals)
+    for lay in ("dense", "halo"):
+        cols = eng._kernel_cols(lay)
+        buf = eng.tiles * eng._buffer_len(lay)
+        x = torch.randn(buf, dtype=torch.float64, device=cuda, generator=g)
+        want = ref.ell_spmv_ref(cols, vals, x)
+        got = ops.ell_spmv(cols, vals, x)
+        assert (got - want).abs().max() <= 1e-12 * want.abs().max()
+        xk = torch.randn(4, buf, dtype=torch.float64, device=cuda, generator=g)
+        yk = ops.ell_spmm(cols, vals, xk)
+        wk = ref.ell_spmm_ref(cols, vals, xk)
+        assert (yk - wk).abs().max() <= 1e-12 * wk.abs().max()
+        assert torch.equal(yk[0], ops.ell_spmv(cols, vals, xk[0].contiguous()))
+    vs = [torch.randn(eng.n_pad, dtype=torch.float64, device=cuda,
+                      generator=g) for _ in range(4)]
+    alpha = torch.tensor(0.5, dtype=torch.float64, device=cuda)
+    for got, want in zip(ops.cg_update(alpha, *vs, eng._dinv_pad),
+                         ref.cg_update_ref(alpha, *vs, eng._dinv_pad)):
+        assert (got - want).abs().max() <= 1e-12 * want.abs().max()
+
+
+def test_grid_plan_launch_counts_and_capture(cuda):
+    """A 2x2 grid plan captures once and launches, per solve, one
+    ``ell_spmv`` a step plus the initial residual's and one ``cg_update``
+    a step; its counts are the CPU's within one; halo == dense bitwise."""
+    from repro_torch.launch.mesh import make_mesh
+
+    m = laplacian_2d(64)
+    a = sp.csr_matrix((m.data, m.indices, m.indptr), shape=m.shape)
+    b = a @ np.random.default_rng(0).standard_normal(m.shape[0])
+    kw = dict(method="pcg_tol", tol=1e-8, max_iters=1000)
+    cpu = AzulEngine(m, mesh=make_mesh((2, 2), ("data", "model"),
+                                       device="cpu"), dtype=np.float64)
+    cpu_plan = cpu.plan(SolveSpec(**kw))
+    cpu_plan(b)
+    eng = AzulEngine(m, mesh=make_mesh((2, 2), ("data", "model")),
+                     dtype=np.float64)
+    xs = {}
+    for lay in ("dense", "halo"):
+        plan = eng.plan(SolveSpec(layout=lay, **kw))
+        plan(b)
+        ops.reset_launch_counts()
+        xs[lay], _ = plan(b)
+        got = ops.launch_counts()
+        it = int(plan.last_iters)
+        assert abs(it - int(cpu_plan.last_iters)) <= 1
+        assert got["ell_spmv"] == it + 1 and got["cg_update"] == it
+        assert got["ell_spmv_pfold_dot"] == 0
+        assert plan.traces == 1 and plan.cell.captures == 1
+    assert xs["dense"].tobytes() == xs["halo"].tobytes()

@@ -2,7 +2,7 @@
 
 * ``__all__`` of ``repro_torch.core``, ``.serve``, ``.obs``, ``.ft`` and
   ``.checkpoint`` equals the JAX package's exports, less what is not
-  ported (``CommPlan``, the LM demo's ``generate`` / ``SlotServer``, the
+  ported (the LM demo's ``generate`` / ``SlotServer``, the
   training loop's ``RestartManager`` / ``TrainLoopResult``;
   ``set_torch_bridge`` in place of ``set_jax_bridge``), and every public
   signature equals ``repro``'s by ``inspect.signature``, less the
@@ -11,13 +11,15 @@
 * ``reorder="rcm"``: the permutation and the permuted matrix equal the
   JAX package's, solves reach its counts (Jacobi and block-IC(0)) and
   agree with ``reorder="none"``; vectors round-trip the permutation.
-* ``layout``: a local engine lowers "dense" and "halo" raises, as in JAX.
+* ``layout``: a local engine lowers "dense" and "halo" raises, as in JAX;
+  a mesh that is not a ``TileMesh`` raises TypeError, a 2x2 one builds
+  the tile grid.
 * ``PlanCache`` membership / ``specs`` / ``clear``, ``SolvePlan``'s repr
   and local ``hlo_summary``, ``warn_deprecated`` and the deprecated
   ``engine.solve`` shim, ``precond_names`` / ``unregister_precond``.
 * ``python -m repro_torch.launch.serve --device cpu --solver`` prints the
-  JAX CLI's keys; ``--arch`` and ``--mesh-shape`` refuse, naming their
-  ROADMAP items.
+  JAX CLI's keys; ``--arch`` refuses, naming its ROADMAP item, and
+  ``--mesh-shape 2x2`` serves on a tile grid.
 """
 
 import contextlib
@@ -48,10 +50,11 @@ from repro_torch.core.plan import _reset_deprecation_warnings, warn_deprecated
 from repro_torch.data.matrices import laplacian_2d
 from repro_torch.data.matrices import suite as torch_suite
 from repro_torch.launch import serve as serve_cli
+from repro_torch.launch.mesh import make_mesh
 
 NOT_PORTED = {
-    "core": {"CommPlan"},                     # ROADMAP Queue 1 item 10
-    "serve": {"generate", "SlotServer"},      # item 11
+    "core": set(),
+    "serve": {"generate", "SlotServer"},      # ROADMAP Queue 1 item 11
     "obs": {"set_jax_bridge"},
     "ft": {"RestartManager", "TrainLoopResult"},   # the trainer, item 11
     "checkpoint": set(),
@@ -60,9 +63,9 @@ ADDED = {"obs": {"set_torch_bridge"}}
 
 # the public callables of tests/test_api_surface.py and of the fault
 # tolerance layer, and the parameters of features the port does not have
-# yet: the distributed engine (item 10)
+# yet (none left among these)
 SIGNATURES = {
-    "core.AzulEngine.__init__": {"mode", "row_axes", "col_axes", "balance"},
+    "core.AzulEngine.__init__": set(),
     "core.AzulEngine.vals_template": set(),
     "core.AzulEngine.cols_template": set(),
     "core.AzulEngine.halo_entry_mask": set(),
@@ -252,8 +255,13 @@ def test_reorder_and_layout_validation():
         core.AzulEngine(m, layout="halo", device="cpu")
     with pytest.raises(ValueError, match="halo"):
         jcore.AzulEngine(m, layout="halo")               # the same rule
-    with pytest.raises(NotImplementedError, match="item 10"):
+    # a mesh must be the port's TileMesh; a 2x2 one builds the tile grid
+    with pytest.raises(TypeError, match="TileMesh.*got object"):
         core.AzulEngine(m, mesh=object(), device="cpu")
+    mesh = make_mesh((2, 2), ("data", "model"), device="cpu")
+    grid = core.AzulEngine(m, mesh=mesh, device="cpu")
+    assert grid.mode == "2d" and grid.mesh is mesh and grid.tiles == 4
+    assert isinstance(grid.comm_plan, core.CommPlan)
     from repro_torch.core.stencil import lap2d_stencil
     with pytest.raises(ValueError, match="stored matrix"):
         core.AzulEngine(lap2d_stencil(8), reorder="rcm", device="cpu")
@@ -380,13 +388,17 @@ def test_serve_cli_prints_the_jax_clis_keys(extra):
 
 
 def test_serve_cli_refuses_what_is_not_ported(capsys):
-    for argv, item in ((["--arch", "gemma"], "item 11"),
-                       (["--solver", "--mesh-shape", "2x2"], "item 10"),
-                       ([], "item 11")):
+    for argv, item in ((["--arch", "gemma"], "item 11"), ([], "item 11")):
         with pytest.raises(SystemExit) as ei:
             serve_cli.main(argv)
         assert ei.value.code != 0
         assert item in capsys.readouterr().err
+    # a tile grid is ported: --mesh-shape 2x2 serves
+    assert serve_cli.main(["--solver", "--mesh-shape", "2x2", "--requests",
+                           "2", "--device", "cpu"]) == 0
+    got = json.loads(capsys.readouterr().out)
+    assert got["requests"] == 2 and got["bucket_plans"] >= 1
+    assert got["verify_maxerr"] < 1e-5 and got["iters_max"] <= 200
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="cuda"):
             serve_cli.main(["--solver", "--requests", "1"])

@@ -25,6 +25,7 @@ from repro_torch.data.matrices import laplacian_2d
 from repro_torch.device import resolve_device
 from repro_torch.launch import serve as serve_cli
 from repro_torch.launch import solve as solve_cli
+from repro_torch.launch.mesh import make_mesh, make_production_mesh
 from repro_torch.serve import SolveService
 
 REPO = Path(__file__).resolve().parents[1]
@@ -69,7 +70,9 @@ def test_port_imports_without_jax_or_repro():
                  "repro_torch.serve.solve_server",
                  "repro_torch.launch.serve", "repro_torch.ft.inject",
                  "repro_torch.ft.restart", "repro_torch.checkpoint",
-                 "repro_torch.checkpoint.manager"):
+                 "repro_torch.checkpoint.manager", "repro_torch.core.noc",
+                 "repro_torch.core.commplan", "repro_torch.launch.mesh",
+                 "repro_torch.launch.solve"):
         assert name in r.stdout.split(), name
 
 
@@ -105,7 +108,7 @@ def test_entry_points_default_to_cuda():
                convert.engine_state_from_numpy, convert.format_from_numpy,
                formats.ell_from_csr, formats.sell_from_csr,
                formats.hyb_from_csr, formats.bcsr_from_csr, resolve_device,
-               SolveService.__init__):
+               SolveService.__init__, make_mesh, make_production_mesh):
         assert inspect.signature(fn).parameters["device"].default == "cuda", fn
     m = laplacian_2d(4)
     if torch.cuda.is_available():
@@ -129,4 +132,10 @@ def test_entry_points_default_to_cuda():
         serve_cli.main(["--solver", "--matrix", "lap2d_32"])
     with pytest.raises(RuntimeError, match="cuda"):
         SolveService()
+    # a tile grid lives on its mesh's device: a cuda mesh raises here,
+    # and the CLIs' --mesh-shape follows --device
+    with pytest.raises(RuntimeError, match="cuda"):
+        make_mesh((2, 2), ("data", "model"))
+    with pytest.raises(RuntimeError, match="cuda"):
+        solve_cli.main(["--matrix", "lap2d_32", "--mesh-shape", "2x2"])
     assert AzulEngine(m, device="cpu").device.type == "cpu"

@@ -191,7 +191,8 @@ def test_unported_options_raise(problems, tmp_path, monkeypatch):
     monkeypatch.setenv("REPRO_TORCH_AUTOTUNE_CACHE", str(tmp_path / "at.json"))
     autotune.clear_memo()
     _, pm, _ = problems["lap2d_32"]
-    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
+    # the tile grid is ported: a mesh that is not a TileMesh is a type error
+    with pytest.raises(TypeError, match="TileMesh"):
         AzulEngine(pm, mesh=object(), device="cpu")
     # the storage formats are ported: each builds and resolves
     for fmt in ("sell", "hyb", "bcsr"):
