@@ -337,6 +337,31 @@ prints no result line):
                the step's graph nodes and the NoC gathers' words, each NoC
                stage's time on the card, beside the card's name and power
                limit.
+9. lm       -- LM serving (``repro_torch.models``, ``serve.generate``,
+               ``SlotServer``, ``launch.serve --arch``); no CUDA kernel of
+               the port's own (attention, MoE dispatch and the scans are
+               plain torch, as plain jnp in the JAX package).  9a: every
+               architecture's smoke config in f32, weights from LM_SEED
+               converted to the card (``convert.lm_params_*``): prefill
+               logits and LM_DECODE_STEPS greedy decode steps on the card
+               within LM_RTOL x max|cpu| of the port's CPU run, the tokens
+               equal.  9b: ``launch.serve --arch granite-3-8b --batch 4
+               --prompt-len 32 --gen 16 --slots`` in process (the
+               published config, 40 layers, bf16; exit 0,
+               slot_server_completed 4, peak memory); then the same
+               model: weight bytes, peak memory, prefill ms (host clock,
+               synced), decode ms a step (median of 15) against the
+               weights' bytes bound, tokens/s, the kernels one decode step
+               launches (``torch.profiler``) and their time on the card,
+               decode logits against forward on the same tokens.  9d: the
+               same weights decoding into an int8 KV cache: each of
+               LM_INT8_STEPS decode steps' logits within LM_INT8_BOUND x
+               max|ref| of forward on the same tokens.  9c: dbrx-132b's
+               published config cut to 2 layers (16 experts of d_ff 10752
+               at d_model 6144), bf16: prefill and decode times, the
+               prefill's drops, decode drop-free (every assignment kept);
+               then the same weights in f32 prefill on the card and on the
+               CPU with the same experts and the same drops in both layers.
 
 The last three lines are the kernels JSON, the card's
 ``nvidia-smi --query-gpu=name,power.limit`` line, and the result JSON.
@@ -523,6 +548,19 @@ FT_PARITY = (
 )
 FT_LABELS = ("breakdown", "diverged", "stagnated", "silent_corruption",
              "nonfinite_x")
+
+# phase 9, LM serving.  Weights from LM_SEED (torch.Generator), prompts
+# from default_rng(LM_SEED) as launch/serve.py --arch draws them.
+LM_SEED = 0
+LM_DECODE_STEPS = 8                 # 9a: greedy decode steps on both devices
+LM_PARITY_SHAPE = (2, 24)           # 9a: prompts (batch, length)
+LM_RTOL = 1e-4                      # 9a: max |card - cpu| <= LM_RTOL max |cpu|
+LM_FULL = "granite-3-8b"            # 9b: the published config, bf16
+LM_FULL_ARGV = ["--arch", LM_FULL, "--batch", "4", "--prompt-len", "32",
+                "--gen", "16", "--slots", "--seed", str(LM_SEED)]
+LM_MOE = "dbrx-132b"                # 9c: the published config, n_layers 2
+LM_INT8_BOUND = 6e-2                # 9d: tests/test_models.py::test_int8_kv_cache_close
+LM_INT8_STEPS = 4
 
 
 def ft_scenario(engines: dict, case: dict, b):
@@ -1201,6 +1239,333 @@ def grid_phase(failed: list) -> None:
         failed.append("grid times")
     say(f"grid phase: {now() - t_phase:.1f} s")
 
+
+
+def lm_prompts(cfg, shape, seed: int = LM_SEED):
+    """Prompt ids from default_rng(seed), and for a prefix-LM config its
+    precomputed prefix embeddings (normal, f32), as numpy."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    toks = rng.integers(1, cfg.vocab_size, size=shape)
+    pfx = (rng.standard_normal((shape[0], cfg.n_prefix_tokens, cfg.d_model))
+           .astype(np.float32) if cfg.prefix_lm else None)
+    return toks, pfx
+
+
+def lm_greedy(M, params, cfg, toks, pfx, steps: int, device: str):
+    """Prefill then ``steps`` greedy decode steps on ``device``: (prefill
+    logits, [decode logits], tokens (B, steps + 1)), all on the host."""
+    import torch
+
+    t = torch.as_tensor(toks, device=device)
+    f = None if pfx is None else torch.as_tensor(pfx, device=device)
+    npfx = 0 if pfx is None else pfx.shape[1]
+    lg, caches, pos = M.prefill(params, cfg, tokens=t, prefix_embeds=f,
+                                max_len=npfx + toks.shape[1] + steps)
+    first = lg.float().cpu()
+    tok = lg[:, -1].argmax(-1)[:, None]
+    out, dec = [tok.cpu()], []
+    for i in range(steps):
+        lg, caches = M.decode_step(params, cfg, caches, tok, pos + i)
+        dec.append(lg.float().cpu())
+        tok = lg[:, -1].argmax(-1)[:, None]
+        out.append(tok.cpu())
+    return first, dec, torch.cat(out, 1)
+
+
+def rel_err(got, want) -> float:
+    return float((got - want).abs().max()) / max(float(want.abs().max()), 1e-30)
+
+
+def lm_phase(failed: list) -> None:
+    """Phase 9: LM serving (``repro_torch.models``, ``serve.generate``,
+    ``SlotServer``, ``launch.serve --arch``).  Each sub-phase that fails
+    adds its name to ``failed``."""
+    import contextlib
+    import io
+
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch import convert
+    from repro_torch.configs import get, get_smoke, names
+    from repro_torch.launch import serve as serve_cli
+    from repro_torch.models import model as M
+    from repro_torch.models.blocks import Init
+    from repro_torch.models.moe import capacity, route
+    from repro_torch.obs.clock import now
+
+    t_phase = now()
+    smi = smi_line()
+
+    # -- 9a: every architecture's smoke config in f32, card against CPU ----
+    try:
+        with torch.inference_mode():
+            for name in names():
+                cfg = get_smoke(name).replace(param_dtype="float32",
+                                              compute_dtype="float32")
+                cpu = M.init_params(cfg, torch.Generator().manual_seed(LM_SEED),
+                                    "cpu")
+                card = convert.lm_params_from_numpy(
+                    cfg, convert.lm_params_to_numpy(cpu), "cuda")
+                toks, pfx = lm_prompts(cfg, LM_PARITY_SHAPE)
+                want = lm_greedy(M, cpu, cfg, toks, pfx, LM_DECODE_STEPS, "cpu")
+                got = lm_greedy(M, card, cfg, toks, pfx, LM_DECODE_STEPS, "cuda")
+                e_pre = rel_err(got[0], want[0])
+                e_dec = max(rel_err(g, w) for g, w in zip(got[1], want[1]))
+                if not (e_pre <= LM_RTOL and e_dec <= LM_RTOL):
+                    raise AssertionError(f"{name}: prefill {e_pre:.3e}, decode "
+                                         f"{e_dec:.3e} (rtol {LM_RTOL})")
+                if not torch.equal(got[2], want[2]):
+                    raise AssertionError(f"{name}: greedy tokens differ: card "
+                                         f"{got[2].tolist()} cpu {want[2].tolist()}")
+                say(f"lm parity {name}: prefill logits {e_pre:.2e}, decode "
+                    f"{e_dec:.2e} of max|cpu|; {LM_DECODE_STEPS} greedy tokens "
+                    f"equal ({M.param_count(card)} params, f32)")
+                del cpu, card
+    except Exception:
+        traceback.print_exc()
+        failed.append("lm parity")
+
+    # -- 9b: granite-3-8b at its published width, through launch.serve ----
+    full = {}
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        # what the earlier phases still hold; peaks below are above it
+        base = torch.cuda.memory_allocated()
+        buf = io.StringIO()
+        t0 = now()
+        with contextlib.redirect_stdout(buf):
+            rc = serve_cli.main(LM_FULL_ARGV)
+        cli_s = now() - t0
+        text = buf.getvalue()
+        res = json.loads(text[text.index("{"):])
+        peak_cli = torch.cuda.max_memory_allocated() - base
+        if rc != 0 or res["slot_server_completed"] != 4 or res["batch"] != 4 \
+                or res["gen"] != 16 or res["arch"] != LM_FULL:
+            raise AssertionError(f"launch.serve {LM_FULL_ARGV}: rc {rc}, {res}")
+        say(f"lm serve {' '.join(LM_FULL_ARGV)}: {json.dumps(res)}; "
+            f"{cli_s:.1f} s of command, peak {peak_cli / 1e9:.2f} GB above "
+            f"the {base / 1e9:.2f} GB the earlier phases hold")
+
+        cfg = get(LM_FULL)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = now()
+        params = M.init_params(
+            cfg, torch.Generator(device="cuda").manual_seed(LM_SEED), "cuda")
+        torch.cuda.synchronize()
+        init_s = now() - t0
+        wbytes = sum(p.numel() * p.element_size() for p in params.parameters())
+        bound_ms = wbytes / HBM_BYTES_PER_S * 1e3
+        toks, _ = lm_prompts(cfg, (4, 32))
+        t = torch.as_tensor(toks, device="cuda")
+        steps = 16
+        with torch.inference_mode():
+            pre_ms = []
+            for _ in range(3):
+                torch.cuda.synchronize()
+                t0 = now()
+                lg, caches, pos = M.prefill(params, cfg, tokens=t,
+                                            max_len=32 + steps)
+                torch.cuda.synchronize()
+                pre_ms.append((now() - t0) * 1e3)
+            tok = lg[:, -1].argmax(-1)[:, None]
+            seq, dec_ms, dec_logits = [tok], [], []
+            for i in range(steps - 1):
+                torch.cuda.synchronize()
+                t0 = now()
+                lg, caches = M.decode_step(params, cfg, caches, tok, pos + i)
+                torch.cuda.synchronize()
+                dec_ms.append((now() - t0) * 1e3)
+                dec_logits.append(lg.float())
+                tok = lg[:, -1].argmax(-1)[:, None]
+                seq.append(tok)
+            # one more step under the profiler: kernels launched, their time
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                lg, caches = M.decode_step(params, cfg, caches, tok,
+                                           pos + steps - 1)
+                torch.cuda.synchronize()
+            evs = prof.events()
+            kern = [e for e in evs
+                    if e.device_type == torch.autograd.DeviceType.CUDA
+                    and not e.name.startswith(("Memcpy", "Memset"))]
+            api = sum(1 for e in evs if e.name in (
+                "cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
+                "cuLaunchKernelEx"))
+            kern_ms = sum(e.time_range.elapsed_us() for e in kern) / 1e3
+            if not kern and not api:
+                raise AssertionError("the profiler saw no launch in a decode step")
+            # decode against forward on the same tokens (bf16, not a gate)
+            all_toks = torch.cat([t] + seq[:-1], 1)
+            h, _ = M.forward(params, cfg, tokens=all_toks)
+            ref = M.logits_from_hidden(params, cfg, h[:, 32:]).float()
+            e_bf16 = max(rel_err(d[:, 0], ref[:, i])
+                         for i, d in enumerate(dec_logits))
+        peak = torch.cuda.max_memory_allocated() - base
+        med = float(np.median(dec_ms))
+        full = {"weight_bytes": wbytes, "params": M.param_count(params),
+                "peak_bytes": peak, "peak_bytes_cli": peak_cli,
+                "earlier_phases_bytes": base,
+                "init_s": init_s, "prefill_ms": pre_ms,
+                "decode_ms_median": med, "decode_ms": dec_ms,
+                "bound_ms": bound_ms,
+                "decode_tokens_per_s": 4 / med * 1e3,
+                "cli_tokens_per_s": res["tokens_per_s"],
+                "kernels_per_step": len(kern), "launch_calls_per_step": api,
+                "kernel_ms_per_step": kern_ms,
+                "decode_vs_forward_bf16": e_bf16}
+        say(f"lm full {LM_FULL} (40 layers, d_model 4096, 32/8 heads, d_ff "
+            f"12800, vocab 49155, bf16; batch 4, prompt 32): "
+            + json.dumps(full))
+        say(f"lm full: decode {med:.3f} ms a step (median of {len(dec_ms)}) "
+            f"against the {bound_ms:.3f} ms bytes bound ({wbytes} weight "
+            f"bytes / 3.35 TB/s; {bound_ms / med:.1%}); {len(kern)} kernels "
+            f"({api} launch calls) a step, {kern_ms:.3f} ms of them on the "
+            f"card; prefill {min(pre_ms):.3f} ms (warm); peak "
+            f"{peak / 1e9:.3f} GB; on {smi}")
+
+        # -- 9d: the same weights decoding into an int8 KV cache ------------
+        cfg8 = cfg.replace(kv_cache_dtype="int8")
+        with torch.inference_mode():
+            lg, caches, pos = M.prefill(params, cfg8, tokens=t,
+                                        max_len=32 + LM_INT8_STEPS)
+            if caches[0][0]["k"].dtype != torch.int8:
+                raise AssertionError("int8 cache not int8")
+            tok = lg[:, -1].argmax(-1)[:, None]
+            seq8, dl8 = [], []
+            for i in range(LM_INT8_STEPS):
+                seq8.append(tok)
+                lg, caches = M.decode_step(params, cfg8, caches, tok, pos + i)
+                dl8.append(lg.float())
+                tok = lg[:, -1].argmax(-1)[:, None]
+            h, _ = M.forward(params, cfg, tokens=torch.cat([t] + seq8, 1))
+            ref = M.logits_from_hidden(params, cfg, h[:, 32:]).float()
+            e8 = [rel_err(d[:, 0], ref[:, i]) for i, d in enumerate(dl8)]
+        if not max(e8) < LM_INT8_BOUND:
+            raise AssertionError(f"int8 KV decode vs forward {e8} "
+                                 f"(bound {LM_INT8_BOUND})")
+        say(f"lm int8 kv {LM_FULL}: decode logits vs forward on the same "
+            f"tokens, max err / max|ref| {[round(e, 5) for e in e8]} over "
+            f"{LM_INT8_STEPS} steps (< {LM_INT8_BOUND}; the bf16 cache: "
+            f"{e_bf16:.5f})")
+        del params, caches, h, ref
+    except Exception:
+        traceback.print_exc()
+        failed.append("lm full width")
+
+    # -- 9c: dbrx-132b at its published width, 2 layers -------------------
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        cfg = get(LM_MOE).replace(n_layers=2)
+        params = M.init_params(
+            cfg, torch.Generator(device="cuda").manual_seed(LM_SEED), "cuda")
+        wbytes = sum(p.numel() * p.element_size() for p in params.parameters())
+        seen = []                       # each MoE router's logits, in order
+
+        def keep_logits(mod, inp, out):
+            seen.append(out.float().cpu())
+
+        def record(layers):
+            for layer in layers:
+                if layer.kind == "attn_moe":
+                    layer.ffn.router.register_forward_hook(keep_logits)
+
+        record([lay for group in params.groups for lay in group])
+        n_moe = sum(lay.kind == "attn_moe" for g in params.groups for lay in g)
+        toks, _ = lm_prompts(cfg, (4, 32))
+        t = torch.as_tensor(toks, device="cuda")
+        k, e = cfg.top_k, cfg.n_experts
+        cap = capacity(32, k, e, cfg.moe_capacity_factor)
+        steps = 8
+        with torch.inference_mode():
+            torch.cuda.synchronize()
+            t0 = now()
+            lg, caches, pos = M.prefill(params, cfg, tokens=t, max_len=32 + steps)
+            torch.cuda.synchronize()
+            moe_pre_ms = (now() - t0) * 1e3
+            drops = [int((~route(l, k, cap)["keep"]).sum()) for l in seen]
+            seen.clear()
+            tok = lg[:, -1].argmax(-1)[:, None]
+            moe_dec = []
+            for i in range(steps):
+                torch.cuda.synchronize()
+                t0 = now()
+                lg, caches = M.decode_step(params, cfg, caches, tok, pos + i)
+                torch.cuda.synchronize()
+                moe_dec.append((now() - t0) * 1e3)
+                tok = lg[:, -1].argmax(-1)[:, None]
+            dec_routes = [route(l, k, l.shape[1]) for l in seen]
+            seen.clear()
+        if not all(r["keep"].all() and r["idx"].shape[:2] == (1, 4)
+                   for r in dec_routes):
+            raise AssertionError("decode dropped an assignment")
+        peak = torch.cuda.max_memory_allocated() - base
+
+        # prefill's assignments in f32, card against CPU, the same weights
+        # (the bf16 ones upcast).  The CPU holds the f32 model (31 GB); the
+        # card runs the same prefill a layer at a time, one layer's f32
+        # weights (12.7 GB) on it at once: the plans phases 1-8 keep leave
+        # too little room for the whole f32 model
+        cfg32 = cfg.replace(param_dtype="float32", compute_dtype="float32")
+        cpu = M.init_params(cfg32, None, "cpu")
+        with torch.no_grad():
+            for pc, pg in zip(cpu.parameters(), params.parameters()):
+                pc.copy_(pg)
+        del params, caches
+        torch.cuda.empty_cache()
+        record([lay for group in cpu.groups for lay in group])
+        with torch.inference_mode():
+            t0 = now()
+            M.prefill(cpu, cfg32, tokens=torch.as_tensor(toks), max_len=32)
+            cpu_s = now() - t0
+            on_cpu = [route(l, k, cap) for l in seen]
+            seen.clear()
+            x = cpu.embed.table.to("cuda")[t]
+            for group in cpu.groups:
+                for layer in group:
+                    lay = M.Layer(layer.kind, cfg32,
+                                  Init(None, "cuda", torch.float32))
+                    for pg, pc in zip(lay.parameters(), layer.parameters()):
+                        pg.copy_(pc)
+                    record([lay])
+                    x, _ = lay.prefill(x, cfg32, 32)
+                    del lay
+                    torch.cuda.empty_cache()
+            on_card = [route(l, k, cap) for l in seen]
+        if len(on_card) != n_moe or len(on_cpu) != n_moe:
+            raise AssertionError(f"routes seen: {len(on_card)}, {len(on_cpu)}")
+        for li, (a, b) in enumerate(zip(on_card, on_cpu)):
+            if not (torch.equal(a["idx"], b["idx"])
+                    and torch.equal(a["keep"], b["keep"])):
+                raise AssertionError(f"MoE layer {li}: f32 prefill assignments "
+                                     "differ between the card and the CPU")
+        drops32 = [int((~r["keep"]).sum()) for r in on_card]
+        say(f"lm moe {LM_MOE} (published width, n_layers 2: 16 experts of "
+            f"d_ff 10752 at d_model 6144, top-4; bf16, {wbytes} weight bytes, "
+            f"peak {peak / 1e9:.3f} GB above the earlier phases): prefill "
+            f"4 x 32 {moe_pre_ms:.3f} ms "
+            f"(first call; capacity {cap} a sequence, dropped {drops} of "
+            f"{4 * 32 * k} assignments a layer), decode "
+            f"{float(np.median(moe_dec)):.3f} ms a step (median of {steps}; "
+            f"bound {wbytes / HBM_BYTES_PER_S * 1e3:.3f} ms), drop-free; f32 "
+            f"prefill on the card and the CPU ({cpu_s:.1f} s): the same "
+            f"experts and the same drops ({drops32}) in both layers")
+        del cpu, x
+    except Exception:
+        traceback.print_exc()
+        failed.append("lm moe")
+    torch.cuda.empty_cache()
+    say(f"lm phase: {now() - t_phase:.1f} s")
 
 
 def say(*parts) -> None:
@@ -4420,6 +4785,9 @@ def main() -> int:
 
     # -- 8. the tile grid ------------------------------------------------------
     grid_phase(failed)
+
+    # -- 9. LM serving -----------------------------------------------------------
+    lm_phase(failed)
 
     if failed:
         say("FAILED phases: " + ", ".join(failed))

@@ -29,6 +29,15 @@ the comm plan's fields and, for block-IC(0), the per-tile factor planes
 numpy -- the dict :func:`dist_engine_state_to_numpy` returns for a port
 engine.  :func:`dist_engine_state_from_numpy` builds the port's engine on
 a ``TileMesh`` over it.
+
+An LM's params carry over as the JAX package's tree with numpy leaves
+(``jax.tree.map(np.asarray, M.init_params(key, cfg))``): ``embed``,
+``final_norm``, ``head``, ``mtp`` and ``groups``, one tree a layer group
+with the group's layers stacked on a leading axis.
+:func:`lm_params_from_numpy` builds the port's ``Model`` over it and
+:func:`lm_params_to_numpy` reads one back (bfloat16 leaves as float32, which
+holds them exactly); :func:`lm_caches_to_numpy` stacks the port's
+``[group][layer]`` caches into the JAX package's layout.
 """
 
 from __future__ import annotations
@@ -43,11 +52,13 @@ from .core.levels import LevelSchedule
 from .core.precond import IC0Factors
 from .core.stencil import Stencil
 from .device import DEFAULT_DEVICE, resolve_device, resolve_dtype
+from .models import model as lm
 
 __all__ = ["engine_state_from_numpy", "engine_state_to_numpy",
            "dist_engine_state_from_numpy", "dist_engine_state_to_numpy",
            "ic0_factors_from_numpy", "ic0_factors_to_numpy",
-           "format_from_numpy", "format_to_numpy"]
+           "format_from_numpy", "format_to_numpy",
+           "lm_params_from_numpy", "lm_params_to_numpy", "lm_caches_to_numpy"]
 
 _FACTORS = (("l", "ell_l", "sched_l"), ("u_rev", "ell_u_rev", "sched_u_rev"))
 
@@ -316,3 +327,120 @@ def dist_engine_state_from_numpy(mesh, state: dict, precond: str = "jacobi",
     return AzulEngine.from_dist_state(mesh, state, precond=precond,
                                       fused=fused, layout=layout)
 
+
+
+# -- LM params ----------------------------------------------------------------
+
+
+def _lm_path(name: str):
+    """(path into the JAX tree, layer index on the leaf's leading axis or
+    None) of a ``Model`` parameter name: ``groups.<g>.<i>.<rest>`` is
+    ``tree["groups"][g][rest...][i]``."""
+    parts = name.split(".")
+    if parts[0] == "groups":
+        return ["groups", int(parts[1])] + parts[3:], int(parts[2])
+    return [int(q) if q.isdigit() else q for q in parts], None
+
+
+def _leaves(tree, prefix=()):
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _leaves(v, prefix + (k,))
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            yield from _leaves(v, prefix + (i,))
+    else:
+        yield prefix, tree
+
+
+def _host(a) -> np.ndarray:
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":           # ml_dtypes: no torch view of it
+        a = a.astype(np.float32)
+    return a
+
+
+def lm_params_from_numpy(cfg, tree: dict, device=DEFAULT_DEVICE) -> lm.Model:
+    """The port's ``Model`` of ``cfg`` on ``device`` holding exactly the
+    arrays of ``tree`` (the JAX package's param tree, numpy leaves), cast to
+    ``cfg.param_dtype``.  Every leaf must be used, with its shape."""
+    dev = resolve_device(device)
+    model = lm.init_params(cfg, None, dev)
+    want = set()
+    for name, prm in model.named_parameters():
+        path, layer = _lm_path(name)
+        want.add(tuple(path))
+        node = tree
+        try:
+            for q in path:
+                node = node[q]
+        except (KeyError, IndexError, TypeError):
+            raise ValueError(f"param tree has no {'/'.join(map(str, path))}")
+        a = _host(node)
+        if layer is not None:
+            a = a[layer]
+        if tuple(a.shape) != tuple(prm.shape):
+            raise ValueError(f"{name}: tree shape {a.shape}, model {tuple(prm.shape)}")
+        with torch.no_grad():
+            prm.copy_(torch.from_numpy(np.array(a)))
+    extra = {p for p, _ in _leaves(tree)} - want
+    if extra:
+        raise ValueError(f"param tree leaves the model has no place for: "
+                         f"{sorted('/'.join(map(str, p)) for p in extra)}")
+    return model
+
+
+def _set(tree: dict, path, value) -> None:
+    node = tree
+    for q, nxt in zip(path[:-1], path[1:]):
+        if isinstance(node, list):
+            while len(node) <= q:
+                node.append([] if isinstance(nxt, int) else {})
+            node = node[q]
+        else:
+            node = node.setdefault(q, [] if isinstance(nxt, int) else {})
+    if isinstance(node, list):
+        while len(node) <= path[-1]:
+            node.append(None)
+    node[path[-1]] = value
+
+
+def _numpy(t: torch.Tensor) -> np.ndarray:
+    t = t.detach()
+    if t.dtype == torch.bfloat16:
+        t = t.float()
+    return t.cpu().numpy()
+
+
+def lm_params_to_numpy(model: lm.Model) -> dict:
+    """``model``'s params as the JAX package's tree with numpy leaves, each
+    group's layers stacked on a leading axis (bfloat16 as float32)."""
+    tree: dict = {}
+    stacks: dict = {}
+    for name, prm in model.named_parameters():
+        path, layer = _lm_path(name)
+        if layer is None:
+            _set(tree, path, _numpy(prm))
+        else:
+            stacks.setdefault(tuple(path), {})[layer] = _numpy(prm)
+    for path, by_layer in stacks.items():
+        _set(tree, list(path), np.stack([by_layer[i] for i in range(len(by_layer))]))
+    return tree
+
+
+def lm_caches_to_numpy(caches) -> list:
+    """The port's ``[group][layer]`` caches as the JAX package's: one tree a
+    group, each leaf stacked over the group's layers, numpy."""
+    out = []
+    for group in caches:
+        tree: dict = {}
+        for path, _ in _leaves(group[0]):
+            leaves = []
+            for layer in group:
+                node = layer
+                for q in path:
+                    node = node[q]
+                leaves.append(_numpy(node))
+            _set(tree, list(path), np.stack(leaves))
+        out.append(tree)
+    return out

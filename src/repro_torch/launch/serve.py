@@ -1,4 +1,9 @@
-"""Serving entry point of the port: the always-on sparse-solve service.
+"""Serving entry point of the port: the always-on sparse-solve service,
+and LM generation over the model zoo.
+
+    # LM generation: prefill + greedy decode, then the slot server
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch granite-3-8b \
+        --batch 4 --prompt-len 32 --gen 16 --slots
 
     # submit RHS against registered operators, drain the continuous-
     # batching tick loop (on the card: one captured plan per bucket)
@@ -24,8 +29,14 @@ where a kernel failure raises) and, under ``--load-gen``,
 ``||b - A x|| / ||b||`` of the outcomes.  ``--device cpu`` runs the kernels' plain versions
 (the default ``cuda`` raises without a card).  ``--mesh-shape RxC``
 serves every operator on an R x C tile grid (``launch.mesh.make_mesh``
-over ("data", "model") on the ``--device``).  The LM generation demo
-(``--arch``) is not ported: it exits non-zero naming its ROADMAP item.
+over ("data", "model") on the ``--device``).
+
+``--arch NAME`` (any of ``repro_torch.configs.names()``; ``--smoke`` for
+the reduced same-family config) builds the model on ``--device`` from
+``--seed``, generates ``--gen`` tokens for ``--batch`` random prompts of
+``--prompt-len`` tokens and prints the JAX package's JSON keys (``arch``,
+``batch``, ``gen``, ``wall_s``, ``tokens_per_s``, and with ``--slots``
+``slot_server_completed``).
 """
 
 from __future__ import annotations
@@ -34,6 +45,7 @@ import argparse
 import json
 
 import numpy as np
+import torch
 
 
 def _solver_main(args) -> int:
@@ -159,11 +171,67 @@ def _solver_main(args) -> int:
             metrics_srv.close()
 
 
+def _arch_main(args, ap) -> int:
+    """Generate for ``--batch`` prompts with the ``--arch`` model (and with
+    ``--slots`` drain them through a ``SlotServer``); print the JSON."""
+    from ..configs import get, get_smoke, names
+    from ..device import resolve_device
+    from ..models import model as M
+    from ..obs import clock
+    from ..serve import SlotServer, generate
+
+    if args.arch not in names():
+        ap.error(f"--arch {args.arch!r}: unknown architecture; available: "
+                 f"{', '.join(names())}")
+    dev = resolve_device(args.device)
+    cfg = get_smoke(args.arch) if args.smoke else get(args.arch)
+    params = M.init_params(cfg, torch.Generator(device=dev).manual_seed(args.seed),
+                           dev)
+    rng = np.random.default_rng(0)
+    prompts = rng.integers(1, cfg.vocab_size, size=(args.batch, args.prompt_len))
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+    sync()
+    t0 = clock.now()
+    out = generate(params, cfg, torch.as_tensor(prompts, device=dev),
+                   steps=args.gen)
+    sync()
+    dt = clock.now() - t0
+    print("generated:", out[:, :8].cpu().numpy(), "...")
+    result = {
+        "arch": cfg.name, "batch": args.batch, "gen": args.gen,
+        "wall_s": round(dt, 3),
+        "tokens_per_s": round(args.batch * args.gen / dt, 1),
+    }
+    if args.slots:
+        srv = SlotServer(params, cfg, batch_slots=args.batch,
+                         max_len=args.prompt_len + args.gen + 8)
+        ids = [srv.submit(prompts[i], args.gen) for i in range(args.batch)]
+        done = {}
+        while len(done) < len(ids):
+            done.update(srv.step())
+        result["slot_server_completed"] = len(done)
+    print(json.dumps(result, indent=1))
+    return 0
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default=None,
-                    help="LM generation demo: not ported (ROADMAP Queue 1 "
-                         "item 11)")
+                    help="LM generation with this architecture "
+                         "(repro_torch.configs.names())")
+    ap.add_argument("--smoke", action="store_true",
+                    help="--arch: the reduced same-family config")
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--prompt-len", type=int, default=32)
+    ap.add_argument("--gen", type=int, default=16)
+    ap.add_argument("--slots", action="store_true",
+                    help="exercise the SlotServer continuous-batching path")
+    ap.add_argument("--seed", type=int, default=0,
+                    help="--arch: seed of the random weights")
     ap.add_argument("--solver", action="store_true",
                     help="serve sparse solves (continuous-batching service)")
     ap.add_argument("--matrix", default="lap2d_32")
@@ -204,13 +272,11 @@ def main(argv=None):
                          "their plain PyTorch versions")
     args = ap.parse_args(argv)
 
-    if args.arch is not None:
-        ap.error("--arch: the LM generation demo is not ported yet "
-                 "(ROADMAP Queue 1 item 11)")
-    if not args.solver:
-        ap.error("--solver is required (the LM demo, --arch, is ROADMAP "
-                 "Queue 1 item 11)")
-    return _solver_main(args)
+    if args.solver:
+        return _solver_main(args)
+    if args.arch is None:
+        ap.error("--arch is required unless --solver is given")
+    return _arch_main(args, ap)
 
 
 if __name__ == "__main__":

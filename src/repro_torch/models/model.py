@@ -1,0 +1,335 @@
+"""The composable LM stack (port of ``repro.models.model``): init, forward,
+prefill and decode for every assigned architecture, built from the family
+blocks.
+
+``init_params(cfg, generator, device)`` returns a ``Model``: an
+``nn.Module`` whose ``groups`` hold one ``ModuleList`` of ``Layer``s per
+``cfg.layer_groups()`` entry -- the ``unit:`` groups of recurrentgemma
+(each ``Layer`` holds its sub-blocks ``l0``, ``l1``, ...), deepseek's
+``first_dense_layers`` then its MoE layers -- where the JAX package stacks
+each group's params on a leading axis and runs ``lax.scan`` over it.  The
+functions below take ``(params, cfg, ...)`` as the JAX ones do, so one
+``Model`` serves any config of its shapes (``cfg.replace(kv_cache_dtype=
+"int8")`` decodes the same weights into an int8 cache).
+
+Caches are ``[group][layer]`` lists of dicts (a ``unit:`` layer's dict is
+keyed by sub-block); attention caches are written in place, so
+``decode_step`` returns the list it was given, updated.  The same layer
+code serves forward, prefill and decode, so prefill + decode reproduces
+forward (tests/test_torch_models.py).
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+from torch import nn
+
+from . import shard
+from .attention import (
+    MLA, Attention, _mla_qkv, _positions, _prime_kv_cache, attn_decode,
+    attn_forward, init_kv_cache, init_mla_cache, mla_decode, mla_forward,
+)
+from .blocks import MLP, Embed, Init, Linear, Norm, dtype_of
+from .config import ModelConfig
+from .moe import MoE, moe_apply
+from .rglru import RGLRU, init_rglru_state, rglru_decode, rglru_forward
+from .ssm import SSM, init_ssm_state, ssm_decode, ssm_forward
+
+__all__ = [
+    "Model", "Layer", "init_params", "forward",
+    "logits_from_hidden", "prefill", "decode_step", "init_caches",
+    "param_count",
+]
+
+
+# ---------------------------------------------------------------------------
+# per-layer modules: init / apply / prefill / decode
+# ---------------------------------------------------------------------------
+
+
+def _split_kinds(kind: str) -> list[str]:
+    return kind[5:].split(",") if kind.startswith("unit:") else [kind]
+
+
+class Layer(nn.Module):
+    """One block of ``kind``: ``{"norm1", "mix"[, "norm2", "ffn"]}``, or for
+    a ``unit:`` kind its sub-blocks ``{"l0", "l1", ...}``."""
+
+    def __init__(self, kind: str, cfg: ModelConfig, init: Init):
+        super().__init__()
+        self.kind = kind
+        if kind.startswith("unit:"):
+            for i, s in enumerate(_split_kinds(kind)):
+                self.add_module(f"l{i}", Layer(s, cfg, init))
+            return
+        d = cfg.d_model
+        self.norm1 = Norm(d, cfg.norm, init)
+        if kind == "ssm":
+            self.mix = SSM(cfg, init)
+            return
+        if kind == "rec":
+            self.mix = RGLRU(cfg, init)
+        elif kind in ("attn_mlp", "attn_moe", "attn"):
+            self.mix = (MLA if cfg.use_mla else Attention)(cfg, init)
+        else:
+            raise ValueError(kind)
+        self.norm2 = Norm(d, cfg.norm, init)
+        if kind == "attn_moe":
+            self.ffn = MoE(cfg, init)
+        else:
+            self.ffn = MLP(d, cfg.d_ff, cfg.act, init)
+
+    def subs(self) -> list["Layer"]:
+        return [getattr(self, f"l{i}")
+                for i in range(len(_split_kinds(self.kind)))]
+
+    def _ffn(self, x, cfg):
+        h2 = self.norm2(x)
+        if self.kind == "attn_moe":
+            y, aux = moe_apply(self.ffn, h2, cfg)
+        else:
+            y, aux = self.ffn(h2), None
+        return x + y, aux
+
+    def forward(self, x, cfg: ModelConfig):
+        """Full-sequence application -> (x, aux)."""
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        if self.kind.startswith("unit:"):
+            for sub in self.subs():
+                x, a = sub(x, cfg)
+                aux = aux + a
+            return x, aux
+        h = self.norm1(x)
+        if self.kind == "ssm":
+            return x + ssm_forward(self.mix, h, cfg), aux
+        if self.kind == "rec":
+            x = x + rglru_forward(self.mix, h, cfg)
+        else:
+            x = x + (mla_forward if cfg.use_mla else attn_forward)(self.mix, h, cfg)
+        x, a = self._ffn(x, cfg)
+        return x, (aux if a is None else a)
+
+    def decode(self, x, cfg: ModelConfig, cache, pos: int):
+        """One-token step -> (x, cache)."""
+        if self.kind.startswith("unit:"):
+            new = {}
+            for i, sub in enumerate(self.subs()):
+                x, new[f"l{i}"] = sub.decode(x, cfg, cache[f"l{i}"], pos)
+            return x, new
+        h = self.norm1(x)
+        if self.kind == "ssm":
+            y, cache = ssm_decode(self.mix, h, cfg, cache)
+            return x + y, cache
+        if self.kind == "rec":
+            y, cache = rglru_decode(self.mix, h, cfg, cache)
+        elif cfg.use_mla:
+            y, cache = mla_decode(self.mix, h, cfg, cache, pos)
+        else:
+            y, cache = attn_decode(self.mix, h, cfg, cache, pos)
+        x, _ = self._ffn(x + y, cfg)
+        return x, cache
+
+    def prefill(self, x, cfg: ModelConfig, max_len: int):
+        """Full-sequence application that also returns the primed cache."""
+        if self.kind.startswith("unit:"):
+            caches = {}
+            for i, sub in enumerate(self.subs()):
+                x, caches[f"l{i}"] = sub.prefill(x, cfg, max_len)
+            return x, caches
+        b, sq, _ = x.shape
+        h = self.norm1(x)
+        if self.kind == "ssm":
+            y, state = ssm_forward(self.mix, h, cfg, return_state=True)
+            din = cfg.ssm_expand * cfg.d_model
+            conv_dim = din + 2 * cfg.ssm_d_state
+            xbc = self.mix.in_proj(h)[..., din:din + conv_dim]
+            conv = _last_rows(xbc, cfg.ssm_d_conv - 1)
+            return x + y, {"ssd": state, "conv": conv.float()}
+        if self.kind == "rec":
+            y, state = rglru_forward(self.mix, h, cfg, return_state=True)
+            conv = _last_rows(self.mix.in_x(h), cfg.conv1d_width - 1)
+            x = x + y
+            cache = {"h": state["h"], "conv": conv}
+        elif cfg.use_mla:
+            pos = _positions(b, sq, x.device)
+            y = mla_forward(self.mix, h, cfg)
+            _, _, c_kv, k_rope = _mla_qkv(self.mix, h, cfg, pos)
+            cache = init_layer_cache(self.kind, cfg, b, max_len, x.dtype, x.device)
+            cache["ckv"][:, :sq] = c_kv.to(cache["ckv"].dtype)
+            cache["kr"][:, :sq] = k_rope[:, :, 0].to(cache["kr"].dtype)
+            x = x + y
+        else:
+            y, (k, v) = attn_forward(self.mix, h, cfg, return_kv=True)
+            cache = _prime_kv_cache(
+                init_layer_cache(self.kind, cfg, b, max_len, x.dtype, x.device),
+                k, v)
+            x = x + y
+        x, _ = self._ffn(x, cfg)
+        return x, cache
+
+
+def init_layer_cache(kind: str, cfg: ModelConfig, batch: int, max_len: int,
+                     dtype, device):
+    if kind.startswith("unit:"):
+        return {f"l{i}": init_layer_cache(s, cfg, batch, max_len, dtype, device)
+                for i, s in enumerate(_split_kinds(kind))}
+    if kind == "ssm":
+        return init_ssm_state(batch, cfg, torch.float32, device)
+    if kind == "rec":
+        return init_rglru_state(batch, cfg, dtype, device)
+    if cfg.use_mla:
+        return init_mla_cache(batch, max_len, cfg, dtype, device)
+    w = min(max_len, cfg.sliding_window) if cfg.sliding_window else max_len
+    return init_kv_cache(batch, w, cfg.n_kv_heads, cfg.hd, dtype,
+                         quant=cfg.kv_cache_dtype == "int8", device=device)
+
+
+def _last_rows(t, kw: int):
+    """The last ``kw`` rows of dim 1, zero-padded in front when shorter."""
+    sq = t.shape[1]
+    if sq >= kw:
+        return t[:, sq - kw:, :]
+    return torch.cat([t.new_zeros((t.shape[0], kw - sq, t.shape[2])), t], 1)
+
+
+class _MTPHead(nn.Module):
+    """``{"proj", "block", "norm"}``: a next^2-token head (deepseek-v3).  Its
+    params are built so the tree (and ``param_count``) is the JAX
+    package's; its loss belongs to training, which the port lacks yet."""
+
+    def __init__(self, cfg: ModelConfig, init: Init):
+        super().__init__()
+        self.proj = Linear(2 * cfg.d_model, cfg.d_model, init, scale=0.02)
+        self.block = Layer("attn_mlp", cfg, init)
+        self.norm = Norm(cfg.d_model, cfg.norm, init)
+
+
+class Model(nn.Module):
+    """``{"embed", "groups", "final_norm"[, "head"][, "mtp"]}``."""
+
+    def __init__(self, cfg: ModelConfig, init: Init):
+        super().__init__()
+        self.embed = Embed(cfg.vocab_size, cfg.d_model, init)
+        self.groups = nn.ModuleList(
+            nn.ModuleList(Layer(kind, cfg, init) for _ in range(count))
+            for kind, count in cfg.layer_groups())
+        self.final_norm = Norm(cfg.d_model, cfg.norm, init)
+        if not cfg.tie_embeddings:
+            self.head = Embed(cfg.vocab_size, cfg.d_model, init)
+        if cfg.mtp_depth:
+            self.mtp = nn.ModuleList(_MTPHead(cfg, init)
+                                     for _ in range(cfg.mtp_depth))
+
+    @property
+    def device(self) -> torch.device:
+        return self.embed.table.device
+
+
+# ---------------------------------------------------------------------------
+# whole-model init / apply
+# ---------------------------------------------------------------------------
+
+
+def init_params(cfg: ModelConfig, generator: torch.Generator | None = None,
+                device="cuda") -> Model:
+    """The model of ``cfg`` in ``cfg.param_dtype`` on ``device``, drawn from
+    ``generator`` (a ``torch.Generator`` on that device) with the JAX init's
+    distributions and scales.  ``generator=None`` leaves the values
+    uninitialised; on ``device="meta"`` that builds the shapes alone."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device {device!r} requested but torch.cuda.is_available() is "
+            "False; pass device='cpu' to run on the CPU")
+    if generator is not None and generator.device.type != dev.type:
+        raise ValueError(f"generator on {generator.device}, params on {dev}")
+    return Model(cfg, Init(generator, dev, dtype_of(cfg.param_dtype)))
+
+
+def _embed_tokens(params: Model, cfg, tokens):
+    cdt = dtype_of(cfg.compute_dtype)
+    emb = params.embed.table.to(cdt)[tokens]
+    if cfg.norm == "rmsnorm" and cfg.family in ("vlm",):
+        emb = emb * torch.tensor(math.sqrt(float(cfg.d_model)), dtype=cdt)
+    return emb
+
+
+def _embed_inputs(params, cfg, tokens=None, input_embeds=None,
+                  prefix_embeds=None):
+    cdt = dtype_of(cfg.compute_dtype)
+    parts = []
+    if prefix_embeds is not None:
+        parts.append(prefix_embeds.to(cdt))
+    if input_embeds is not None:
+        parts.append(input_embeds.to(cdt))
+    if tokens is not None:
+        parts.append(_embed_tokens(params, cfg, tokens))
+    x = parts[0] if len(parts) == 1 else torch.cat(parts, dim=1)
+    return shard.constrain(x, "act_bsd")
+
+
+def forward(params: Model, cfg: ModelConfig, tokens=None, input_embeds=None,
+            prefix_embeds=None):
+    """Full-sequence forward -> (hidden (B,S,D), aux)."""
+    x = _embed_inputs(params, cfg, tokens, input_embeds, prefix_embeds)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for group in params.groups:
+        for layer in group:
+            x, a = layer(x, cfg)
+            x = shard.constrain(x, "act_bsd")
+            aux = aux + a
+    x = params.final_norm(x)
+    return x, aux
+
+
+def logits_from_hidden(params: Model, cfg, x):
+    table = (params.embed if cfg.tie_embeddings else params.head).table
+    return shard.constrain(x @ table.to(x.dtype).T, "logits")
+
+
+# ---------------------------------------------------------------------------
+# serving: prefill + decode
+# ---------------------------------------------------------------------------
+
+
+def init_caches(cfg: ModelConfig, batch: int, max_len: int, device="cuda"):
+    """Empty caches for ``batch`` sequences of up to ``max_len`` tokens, in
+    the compute dtype, on ``device``."""
+    dtype = dtype_of(cfg.compute_dtype)
+    return [[init_layer_cache(kind, cfg, batch, max_len, dtype, device)
+             for _ in range(count)] for kind, count in cfg.layer_groups()]
+
+
+def prefill(params: Model, cfg: ModelConfig, tokens=None, input_embeds=None,
+            prefix_embeds=None, max_len: int | None = None):
+    """Run the prompt; return (last-token logits (B, 1, V), caches, next
+    position)."""
+    x = _embed_inputs(params, cfg, tokens, input_embeds, prefix_embeds)
+    s = x.shape[1]
+    max_len = max_len or cfg.max_seq_len
+    caches = []
+    for group in params.groups:
+        cg = []
+        for layer in group:
+            x, c = layer.prefill(x, cfg, max_len)
+            cg.append(c)
+        caches.append(cg)
+    x = params.final_norm(x)
+    return logits_from_hidden(params, cfg, x[:, -1:]), caches, s
+
+
+def decode_step(params: Model, cfg: ModelConfig, caches, tokens, pos: int):
+    """One decode step.  tokens: (B, 1) integer ids; pos: the index being
+    written.  Returns (logits (B, 1, V), caches)."""
+    x = _embed_tokens(params, cfg, tokens)
+    for group, cg in zip(params.groups, caches):
+        for i, layer in enumerate(group):
+            x, cg[i] = layer.decode(x, cfg, cg[i], pos)
+    x = params.final_norm(x)
+    return logits_from_hidden(params, cfg, x), caches
+
+
+def param_count(params: Model) -> int:
+    return sum(p.numel() for p in params.parameters())

@@ -1,0 +1,195 @@
+"""Mamba-2 (SSD, state-space duality) block (port of ``repro.models.ssm``).
+
+The chunked SSD algorithm of Dao & Gu (arXiv:2405.21060): within
+length-Q chunks the recurrence is a masked matmul (the dual quadratic
+form); across chunks a loop carries the (H, P, N) state.  Decode is the
+O(1) recurrent step on the same state, kept in f32.
+
+Layer I/O matches mamba_ssm's Mamba2: in_proj -> [z | xBC | dt], causal
+conv1d over xBC, SSD core, gated RMSNorm, out_proj.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from . import shard
+from .blocks import Init, Linear, Norm, pad_dim1
+
+__all__ = ["SSM", "ssm_forward", "ssm_decode", "init_ssm_state", "ssd_chunked"]
+
+
+def _dims(cfg):
+    din = cfg.ssm_expand * cfg.d_model
+    nheads = din // cfg.ssm_headdim
+    return din, nheads, cfg.ssm_headdim, cfg.ssm_d_state
+
+
+class SSM(nn.Module):
+    """``{"in_proj", "conv_w", "conv_b", "dt_bias", "A_log", "D", "norm",
+    "out_proj"}``."""
+
+    def __init__(self, cfg, init: Init):
+        super().__init__()
+        d = cfg.d_model
+        din, nh, hp, n = _dims(cfg)
+        conv_dim = din + 2 * n
+        self.in_proj = Linear(d, 2 * din + 2 * n + nh, init)
+        self.conv_w = init.normal((cfg.ssm_d_conv, conv_dim), 0.2)
+        self.conv_b = init.zeros((conv_dim,))
+        self.dt_bias = init.zeros((nh,))
+        self.A_log = init.const(torch.log(torch.linspace(1.0, 16.0, nh)))
+        self.D = init.ones((nh,))
+        self.norm = Norm(din, "rmsnorm", init)
+        self.out_proj = Linear(din, d, init)
+
+
+def _split_proj(p: SSM, x, cfg):
+    din, nh, hp, n = _dims(cfg)
+    zxbcdt = p.in_proj(x)
+    z = zxbcdt[..., :din]
+    xbc = zxbcdt[..., din:2 * din + 2 * n]
+    dt = zxbcdt[..., 2 * din + 2 * n:]
+    return z, xbc, dt
+
+
+def _segsum(a):
+    """Stable 'segment sum' producing the lower-triangular cumulative-decay
+    matrix: out[i, j] = sum_{j < k <= i} a[k] (=-inf above diagonal)."""
+    q = a.shape[-1]
+    cs = torch.cumsum(a, dim=-1)
+    d = cs[..., :, None] - cs[..., None, :]
+    mask = torch.tril(torch.ones((q, q), dtype=torch.bool, device=a.device))
+    return torch.where(mask, d, -math.inf)
+
+
+def ssd_chunked(x, dt, a, b, c, chunk, init_state=None):
+    """SSD core.  x: (B,L,H,P); dt: (B,L,H); a: (H,) (negative);
+    b, c: (B,L,N) (ngroups=1, broadcast over heads).
+    Returns y: (B,L,H,P), final state (B,H,P,N)."""
+    bb, l, h, p = x.shape
+    n = b.shape[-1]
+    q = min(chunk, l)
+    l_pad = -(-l // q) * q
+    # zero-pad: dt == 0 on padding makes it state-neutral (decay 1, input
+    # contribution 0), so the final state and y[:l] are exact.
+    x, dt, b, c = (pad_dim1(t, l_pad - l) for t in (x, dt, b, c))
+    l_true, l = l, l_pad
+    nc = l // q
+
+    a_dt = a[None, None, :] * dt                        # (B,L,H) negative decay
+    xr = x.reshape(bb, nc, q, h, p)
+    br = b.reshape(bb, nc, q, n)
+    cr = c.reshape(bb, nc, q, n)
+    ar = a_dt.reshape(bb, nc, q, h).permute(0, 1, 3, 2)  # (B,C,H,Q)
+    dtr = dt.reshape(bb, nc, q, h)
+
+    a_cs = torch.cumsum(ar, dim=-1)                     # (B,C,H,Q)
+    ell = torch.exp(_segsum(ar))                        # (B,C,H,Q,Q) intra decay
+
+    # 1) intra-chunk (dual quadratic form)
+    y_diag = torch.einsum("bcln,bcsn,bchls,bcsh,bcshp->bclhp",
+                          cr, br, ell, dtr, xr)
+
+    # 2) chunk states (input contribution to end-of-chunk state)
+    decay_states = torch.exp(a_cs[..., -1:] - a_cs)     # (B,C,H,Q)
+    states = torch.einsum("bcln,bchl,bclh,bclhp->bchpn",
+                          br, decay_states, dtr, xr)
+
+    # 3) inter-chunk recurrence (a loop over chunks)
+    chunk_decay = torch.exp(a_cs[..., -1])              # (B,C,H)
+    s = (x.new_zeros((bb, h, p, n)) if init_state is None
+         else init_state.to(x.dtype))
+    prev = []
+    for ci in range(nc):
+        prev.append(s)
+        s = s * chunk_decay[:, ci, :, None, None] + states[:, ci]
+    prev = torch.stack(prev, 1)                         # (B,C,H,P,N) state before chunk
+
+    # 4) state -> output within chunk
+    state_decay = torch.exp(a_cs)                       # (B,C,H,Q)
+    y_off = torch.einsum("bcln,bchpn,bchl->bclhp", cr, prev, state_decay)
+
+    y = (y_diag + y_off).reshape(bb, l, h, p)[:, :l_true]
+    return y, s
+
+
+def _conv1d_causal(w, bias, x, state=None):
+    """Depthwise causal conv.  x: (B, L, C); w: (K, C).  With ``state``
+    (B, K-1, C) runs one decode step (L == 1) and returns the new state."""
+    k = w.shape[0]
+    if state is not None:
+        xw = torch.cat([state, x], dim=1)               # (B, K, C)
+        y = torch.einsum("bkc,kc->bc", xw, w)[:, None, :] + bias
+        return y, xw[:, 1:]
+    xp = torch.cat([x.new_zeros((x.shape[0], k - 1, x.shape[2])), x], dim=1)
+    y = sum(xp[:, i:i + x.shape[1], :] * w[i] for i in range(k)) + bias
+    return y, None
+
+
+def _ssd_inputs(p: SSM, xbc, dt, cfg):
+    din, nh, hp, n = _dims(cfg)
+    xbc = F.silu(xbc)
+    xs = xbc[..., :din]
+    b = xbc[..., din:din + n]
+    c = xbc[..., din + n:]
+    dt = F.softplus(dt.float() + p.dt_bias.float())
+    a = -torch.exp(p.A_log.float())
+    return xs, b, c, dt, a
+
+
+def ssm_forward(p: SSM, x, cfg, return_state=False):
+    """Full-sequence Mamba-2 block.  x: (B, S, D)."""
+    din, nh, hp, n = _dims(cfg)
+    z, xbc, dt = _split_proj(p, x, cfg)
+    xbc, _ = _conv1d_causal(p.conv_w.to(x.dtype), p.conv_b.to(x.dtype), xbc)
+    xs, b, c, dt, a = _ssd_inputs(p, xbc, dt, cfg)
+
+    xh = shard.constrain(xs.reshape(*xs.shape[:-1], nh, hp), "ssd_heads")
+    y, state = ssd_chunked(xh.float(), dt, a, b.float(), c.float(),
+                           cfg.ssm_chunk)
+    y = shard.constrain(y, "ssd_heads")
+    y = y + xh.float() * p.D.float()[:, None]
+    y = y.reshape(*xs.shape[:-1], din).to(x.dtype)
+    y = p.norm(y * F.silu(z))
+    out = p.out_proj(y)
+    if return_state:
+        return out, state
+    return out
+
+
+def init_ssm_state(batch, cfg, dtype=torch.float32, device="cuda"):
+    din, nh, hp, n = _dims(cfg)
+    return {
+        "ssd": torch.zeros((batch, nh, hp, n), dtype=dtype, device=device),
+        "conv": torch.zeros((batch, cfg.ssm_d_conv - 1, din + 2 * n),
+                            dtype=dtype, device=device),
+    }
+
+
+def ssm_decode(p: SSM, x, cfg, state):
+    """One-token recurrent step.  x: (B, 1, D)."""
+    din, nh, hp, n = _dims(cfg)
+    z, xbc, dt = _split_proj(p, x, cfg)
+    xbc, conv_state = _conv1d_causal(
+        p.conv_w.to(x.dtype), p.conv_b.to(x.dtype), xbc,
+        state["conv"].to(x.dtype))
+    xs, b, c, dt, a = _ssd_inputs(p, xbc, dt, cfg)
+
+    xh = xs.reshape(-1, nh, hp).float()                 # (B,H,P)
+    dt1 = dt[:, 0]                                      # (B,H)
+    dec = torch.exp(a[None] * dt1)                      # (B,H)
+    # state update: s = dec*s + dt * x (outer) b
+    upd = torch.einsum("bh,bhp,bn->bhpn", dt1, xh, b[:, 0].float())
+    s_new = state["ssd"].float() * dec[..., None, None] + upd
+    y = torch.einsum("bn,bhpn->bhp", c[:, 0].float(), s_new)
+    y = y + xh * p.D.float()[:, None]
+    y = y.reshape(-1, 1, din).to(x.dtype)
+    y = p.norm(y * F.silu(z))
+    out = p.out_proj(y)
+    return out, {"ssd": s_new.to(state["ssd"].dtype),
+                 "conv": conv_state.to(state["conv"].dtype)}

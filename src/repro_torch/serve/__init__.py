@@ -1,8 +1,7 @@
 """Serving: the management plane over the plans (port of
 ``repro.serve``).
 
-Public surface, the JAX package's less the LM generation demo
-(``generate``, ``SlotServer``: ROADMAP Queue 1 item 11):
+Public surface, the JAX package's:
 
 * :class:`SolveService` -- the always-on, multi-tenant solve service
   (operator registry, admission control, continuous batching).
@@ -11,8 +10,11 @@ Public surface, the JAX package's less the LM generation demo
   over ``SolveService``.
 * ``SolveOutcome`` / ``SolveRequest`` / ``SolveRequestError`` /
   ``OperatorInfo`` -- the request/response records.
+* :func:`generate` / :class:`SlotServer` -- the LM generation loop and
+  its slot-based continuous batching.
 """
 
+from .engine import SlotServer, generate
 from .loadgen import run_load
 from .service import (
     OperatorInfo,
@@ -25,10 +27,12 @@ from .solve_server import SolveServer
 
 __all__ = [
     "OperatorInfo",
+    "SlotServer",
     "SolveOutcome",
     "SolveRequest",
     "SolveRequestError",
     "SolveServer",
     "SolveService",
+    "generate",
     "run_load",
 ]

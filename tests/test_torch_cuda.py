@@ -29,8 +29,14 @@ memory falls) and a reload captures each plan once, and a fused chunk
 that fails on the card raises, with no plain plan built.  An injectable
 plan's clean call equals the plain plan's bit for bit, with its launches;
 a corrupted call breaks down and the next clean call is clean again, in
-one capture; the restart manager recovers a corrupted chunk.
+one capture; the restart manager recovers a corrupted chunk.  The LM zoo:
+every architecture's f32 smoke config on the card within 1e-4 x max|cpu|
+of its CPU run on the same weights (prefill and eight greedy decode
+steps, the tokens equal), and ``launch.serve --arch --smoke --slots
+--device cuda`` completing every request.
 """
+
+import json
 
 import numpy as np
 import pytest
@@ -47,6 +53,9 @@ from repro_torch.data.matrices import laplacian_2d
 from repro_torch.core import formats, spops
 from repro_torch.data.matrices import skew_spd
 from repro_torch.kernels import bcsr_spmm, ell_spmv, ops, spmv_dot, sptrsv, vecops
+from repro_torch import configs, convert
+from repro_torch.launch import serve as serve_cli
+from repro_torch.models import model as M
 
 pytestmark = pytest.mark.gpu
 
@@ -1338,3 +1347,54 @@ def test_grid_plan_launch_counts_and_capture(cuda):
         assert got["ell_spmv_pfold_dot"] == 0
         assert plan.traces == 1 and plan.cell.captures == 1
     assert xs["dense"].tobytes() == xs["halo"].tobytes()
+
+
+# -- LM serving: the model zoo on the card against its CPU run ---------------
+
+LM_ARCHS = ["dbrx-132b", "deepseek-v3-671b", "granite-3-8b", "h2o-danube-1.8b",
+            "mamba2-370m", "musicgen-large", "paligemma-3b", "qwen1.5-32b",
+            "qwen2-72b", "recurrentgemma-9b"]
+
+
+def _lm_greedy(params, cfg, toks, pfx, steps, device):
+    t = torch.as_tensor(toks, device=device)
+    f = None if pfx is None else torch.as_tensor(pfx, device=device)
+    with torch.inference_mode():
+        lg, caches, pos = M.prefill(params, cfg, tokens=t, prefix_embeds=f,
+                                    max_len=t.shape[1] + (0 if f is None else
+                                                          f.shape[1]) + steps)
+        logits, picks = [lg.float().cpu()], [lg[:, -1].argmax(-1)[:, None]]
+        for i in range(steps):
+            lg, caches = M.decode_step(params, cfg, caches, picks[-1], pos + i)
+            logits.append(lg.float().cpu())
+            picks.append(lg[:, -1].argmax(-1)[:, None])
+    return logits, torch.cat(picks, 1).cpu()
+
+
+@pytest.mark.parametrize("name", LM_ARCHS)
+def test_lm_smoke_matches_cpu(cuda, name):
+    """An f32 smoke config on the card: prefill and eight greedy decode
+    steps within 1e-4 x max|cpu| of the CPU run on the same weights, the
+    tokens equal."""
+    cfg = configs.get_smoke(name).replace(param_dtype="float32",
+                                          compute_dtype="float32")
+    cpu = M.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    card = convert.lm_params_from_numpy(cfg, convert.lm_params_to_numpy(cpu),
+                                        cuda)
+    rng = np.random.default_rng(0)
+    toks = rng.integers(1, cfg.vocab_size, (2, 24))
+    pfx = (rng.standard_normal((2, cfg.n_prefix_tokens, cfg.d_model))
+           .astype(np.float32) if cfg.prefix_lm else None)
+    want, wt = _lm_greedy(cpu, cfg, toks, pfx, 8, "cpu")
+    got, gt = _lm_greedy(card, cfg, toks, pfx, 8, cuda)
+    for g, w in zip(got, want):
+        assert float((g - w).abs().max()) <= 1e-4 * float(w.abs().max())
+    assert torch.equal(gt, wt)
+
+
+def test_serve_cli_arch_on_card(cuda, capsys):
+    assert serve_cli.main(["--arch", "granite-3-8b", "--smoke", "--slots",
+                           "--device", "cuda", "--batch", "3"]) == 0
+    out = capsys.readouterr().out
+    got = json.loads(out[out.index("{"):])
+    assert got["slot_server_completed"] == 3 and got["arch"] == "granite-3-8b"

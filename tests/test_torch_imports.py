@@ -17,7 +17,7 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch import convert
+from repro_torch import configs, convert
 from repro_torch.core import formats
 from repro_torch.core.engine import AzulEngine
 from repro_torch.core.stencil import lap2d_stencil
@@ -26,6 +26,7 @@ from repro_torch.device import resolve_device
 from repro_torch.launch import serve as serve_cli
 from repro_torch.launch import solve as solve_cli
 from repro_torch.launch.mesh import make_mesh, make_production_mesh
+from repro_torch.models import model as lm
 from repro_torch.serve import SolveService
 
 REPO = Path(__file__).resolve().parents[1]
@@ -72,7 +73,16 @@ def test_port_imports_without_jax_or_repro():
                  "repro_torch.ft.restart", "repro_torch.checkpoint",
                  "repro_torch.checkpoint.manager", "repro_torch.core.noc",
                  "repro_torch.core.commplan", "repro_torch.launch.mesh",
-                 "repro_torch.launch.solve"):
+                 "repro_torch.launch.solve", "repro_torch.configs",
+                 "repro_torch.configs.base", "repro_torch.configs.dbrx_132b",
+                 "repro_torch.configs.granite_3_8b",
+                 "repro_torch.configs.recurrentgemma_9b",
+                 "repro_torch.models", "repro_torch.models.config",
+                 "repro_torch.models.blocks", "repro_torch.models.shard",
+                 "repro_torch.models.attention", "repro_torch.models.moe",
+                 "repro_torch.models.ssm", "repro_torch.models.rglru",
+                 "repro_torch.models.frontends", "repro_torch.models.model",
+                 "repro_torch.serve.engine"):
         assert name in r.stdout.split(), name
 
 
@@ -108,7 +118,8 @@ def test_entry_points_default_to_cuda():
                convert.engine_state_from_numpy, convert.format_from_numpy,
                formats.ell_from_csr, formats.sell_from_csr,
                formats.hyb_from_csr, formats.bcsr_from_csr, resolve_device,
-               SolveService.__init__, make_mesh, make_production_mesh):
+               SolveService.__init__, make_mesh, make_production_mesh,
+               lm.init_params, lm.init_caches, convert.lm_params_from_numpy):
         assert inspect.signature(fn).parameters["device"].default == "cuda", fn
     m = laplacian_2d(4)
     if torch.cuda.is_available():
@@ -138,4 +149,12 @@ def test_entry_points_default_to_cuda():
         make_mesh((2, 2), ("data", "model"))
     with pytest.raises(RuntimeError, match="cuda"):
         solve_cli.main(["--matrix", "lap2d_32", "--mesh-shape", "2x2"])
+    # the LM zoo: a model, its caches' host, the CLI's --arch
+    smoke = configs.get_smoke("granite-3-8b")
+    with pytest.raises(RuntimeError, match="cuda"):
+        lm.init_params(smoke)
+    with pytest.raises(RuntimeError, match="cuda"):
+        serve_cli.main(["--arch", "granite-3-8b", "--smoke"])
+    with pytest.raises(RuntimeError, match="cuda"):
+        convert.lm_params_from_numpy(smoke, {})
     assert AzulEngine(m, device="cpu").device.type == "cpu"
