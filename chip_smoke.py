@@ -362,6 +362,45 @@ prints no result line):
                prefill's drops, decode drop-free (every assignment kept);
                then the same weights in f32 prefill on the card and on the
                CPU with the same experts and the same drops in both layers.
+10. train   -- LM training (``models.model.loss_fn``, ``train``,
+               ``ft.RestartManager``, ``launch.train``), after phases 1-9
+               have released what they hold (their plans, graphs and pools:
+               ``memory_reserved`` is printed first); autograd over the
+               plain-torch layers, no CUDA kernel of the port's own.  10a:
+               every smoke config in f32 with the same params on the card
+               and the CPU (``convert``) and the same ``TokenPipeline``
+               batch: loss and grad_norm within TRAIN_RTOL relative, every
+               grad within TRAIN_RTOL x max|grad| of its leaf; then two
+               ``build_train_step`` steps (step 0 has lr 0 under the
+               warmup; step 1 is the first update) with AdamW and with
+               Adafactor: losses within TRAIN_RTOL; each optimizer's
+               update on identical grads (the CPU's, from the CPU's state
+               copied to the card) within TRAIN_RTOL x max|p|; the params
+               after step 1 TRAIN_PARAM_SHARE of the elements within it
+               and every one within 2 lr (both updates normalise the
+               gradient, so f32 noise in a near-zero grad moves its
+               element differently); granite's
+               smoke config with
+               grad_accum 2 and with int8 compression by loss and
+               grad_norm.  10b: ``launch.train --arch granite-3-8b
+               --optimizer adafactor --batch 4 --seq 1024 --steps 5`` in
+               process (the published config, 8,372,187,136 params, bf16,
+               remat on): every loss finite, loss_first near ln(vocab),
+               the warm step (median of steps 2-5), tokens/s, the share of
+               the 989.4 TFLOP/s bf16 peak (6 N T model FLOPs a step),
+               peak memory; then the same step in parts on the card (CUDA
+               events: forward+backward, clip, optimizer) and under
+               ``torch.profiler`` (kernels a step, their time); then
+               h2o-danube-1.8b with AdamW at the same shape.  10c:
+               tests/test_substrates.py's restart scenario on the card
+               (granite smoke in f32: a failure at step 9, a checkpoint
+               every 4 steps, a second run: resumed_from 8, step 12, the
+               params bit for bit an uninterrupted run's) and a NaN loss
+               reported once at step 6: one rollback in
+               ``repro_ft_rollbacks_total``, the loop on to step 11.  10d:
+               granite-3-8b's published width cut to 4 layers, bf16, 4 x
+               1024: the grads with remat bit for bit those without, and
+               the peak memory of each.
 
 The last three lines are the kernels JSON, the card's
 ``nvidia-smi --query-gpu=name,power.limit`` line, and the result JSON.
@@ -561,6 +600,30 @@ LM_FULL_ARGV = ["--arch", LM_FULL, "--batch", "4", "--prompt-len", "32",
 LM_MOE = "dbrx-132b"                # 9c: the published config, n_layers 2
 LM_INT8_BOUND = 6e-2                # 9d: tests/test_models.py::test_int8_kv_cache_close
 LM_INT8_STEPS = 4
+
+# phase 10, LM training.  Weights from TRAIN_SEED (torch.Generator, as
+# launch/train.py draws them), batches from TokenPipeline(seed=0).
+TRAIN_SEED = 0
+TRAIN_RTOL = 1e-4                   # 10a: card against CPU, f32
+TRAIN_LR = 3e-3                     # 10a: warmup_cosine(TRAIN_LR, 1, 10)
+# 10a: the params after the first update.  Both optimizers normalise the
+# gradient (AdamW's first update is sign-like, m^/sqrt(v^) ~ sign(g);
+# Adafactor divides by the factored RMS), so an element whose grad sits in
+# f32 noise moves by a different amount on each device, up to 2 lr; and a
+# leaf that starts at zero (the QKV biases) has max|p| ~ lr after it.  The
+# optimizer's arithmetic is held on identical grads instead (TRAIN_RTOL);
+# the params TRAIN_PARAM_SHARE of the elements within TRAIN_RTOL x max|p|
+# of their leaf, every one within 2 lr
+TRAIN_PARAM_SHARE = 0.999
+TRAIN_SHAPE = (2, 32)               # 10a: (batch, seq)
+TRAIN_FULL = "granite-3-8b"         # 10b: the published config, bf16
+TRAIN_FULL_ARGV = ["--arch", TRAIN_FULL, "--optimizer", "adafactor",
+                   "--batch", "4", "--seq", "1024", "--steps", "5"]
+TRAIN_ADAMW = "h2o-danube-1.8b"     # 10b: the launcher's default AdamW
+TRAIN_ADAMW_ARGV = ["--arch", TRAIN_ADAMW, "--batch", "4", "--seq", "1024",
+                    "--steps", "5"]
+TRAIN_REMAT_LAYERS = 4              # 10d: granite's width, 4 layers
+BF16_PEAK_FLOPS = 989.4e12          # H100 SXM dense bf16 (data sheet)
 
 
 def ft_scenario(engines: dict, case: dict, b):
@@ -1566,6 +1629,421 @@ def lm_phase(failed: list) -> None:
         failed.append("lm moe")
     torch.cuda.empty_cache()
     say(f"lm phase: {now() - t_phase:.1f} s")
+
+
+def train_batch(cfg, shape, step: int = 0, seed: int = TRAIN_SEED) -> dict:
+    """``TokenPipeline(seed)``'s batch ``step`` at (batch, seq), and for a
+    prefix-LM config prefix embeddings from default_rng(seed), numpy."""
+    import numpy as np
+
+    from repro_torch.data import TokenPipeline
+
+    b = TokenPipeline(cfg.vocab_size, shape[0], shape[1], seed=seed).batch_at(step)
+    if cfg.prefix_lm:
+        b["prefix_embeds"] = np.random.default_rng(seed).standard_normal(
+            (shape[0], cfg.n_prefix_tokens, cfg.d_model)).astype(np.float32)
+    return b
+
+
+def leaf_errs(got: dict, want: dict) -> float:
+    """The largest over leaves of max|got - want| / max|want| (a stack's
+    layers together), ``got`` on any device, ``want`` on the CPU."""
+    from repro_torch.train.optim import rows
+
+    worst = 0.0
+    for path, leaf in want.items():
+        w = [t.detach().float() for t in rows(leaf)]
+        g = [t.detach().float().cpu() for t in rows(got[path])]
+        scale = max(max(float(t.abs().max()) for t in w), 1e-30)
+        err = max(float((a - b).abs().max()) for a, b in zip(g, w))
+        worst = max(worst, err / scale)
+    return worst
+
+
+def same_grads_update(cfg, opt, state, batch) -> float:
+    """The optimizer's update on identical grads: the CPU's clipped grads
+    of ``batch`` and the CPU ``state`` (a copy of it on the card) through
+    ``opt.update`` on both devices; the largest leaf's max|card - cpu| /
+    max|cpu| of the new params."""
+    from repro_torch import convert
+    from repro_torch import train as T
+    from repro_torch.models import model as M
+    from repro_torch.models.model import LayerStack
+    from repro_torch.train.step import as_batch, value_and_grad
+
+    _, grads = value_and_grad(cfg, state.params, as_batch(batch, "cpu"))
+    grads, _ = T.clip_by_global_norm(grads, 1.0)
+    want, _ = opt.update(grads, state.opt_state, M.param_leaves(state.params),
+                         state.step)
+    card = convert.train_state_from_numpy(
+        cfg, convert.train_state_to_numpy(state), "cuda")
+    grads = {k: LayerStack(t.cuda() for t in v) if isinstance(v, LayerStack)
+             else v.cuda() for k, v in grads.items()}
+    got, _ = opt.update(grads, card.opt_state, M.param_leaves(card.params),
+                        card.step)
+    return leaf_errs(got, want)
+
+
+def param_diffs(got, want) -> tuple:
+    """(largest leaf's max|got - want| / max|want|, the largest absolute
+    difference, the share of elements within TRAIN_RTOL x max|want| of
+    their leaf) of two models' params."""
+    from repro_torch.models import model as M
+    from repro_torch.train.optim import rows
+
+    worst, d_max, close, total = 0.0, 0.0, 0, 0
+    g_leaves = M.param_leaves(got)
+    for path, leaf in M.param_leaves(want).items():
+        w = [t.detach().float() for t in rows(leaf)]
+        g = [t.detach().float().cpu() for t in rows(g_leaves[path])]
+        scale = max(max(float(t.abs().max()) for t in w), 1e-30)
+        for a, b in zip(g, w):
+            d = (a - b).abs()
+            worst = max(worst, float(d.max()) / scale)
+            d_max = max(d_max, float(d.max()))
+            close += int((d <= TRAIN_RTOL * scale).sum())
+            total += d.numel()
+    return worst, d_max, close / total
+
+
+def cli_json(main, argv) -> tuple:
+    """(exit code, closing JSON, seconds) of an in-process CLI run."""
+    import contextlib
+    import io
+
+    from repro_torch.obs.clock import now
+
+    buf = io.StringIO()
+    t0 = now()
+    with contextlib.redirect_stdout(buf):
+        rc = main(argv)
+    text = buf.getvalue()
+    return rc, json.loads(text[text.index("{"):]), now() - t0
+
+
+def train_phase(failed: list) -> None:
+    """Phase 10: LM training (``models.model.loss_fn``, ``train``,
+    ``ft.RestartManager``, ``launch.train``).  Each sub-phase that fails
+    adds its name to ``failed``."""
+    import math
+    import tempfile
+
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch import convert, obs
+    from repro_torch import train as T
+    from repro_torch.configs import get, get_smoke, names
+    from repro_torch.data import TokenPipeline
+    from repro_torch.ft import RestartManager
+    from repro_torch.launch import train as train_cli
+    from repro_torch.models import model as M
+    from repro_torch.obs.clock import now
+    from repro_torch.train.step import as_batch, value_and_grad
+
+    t_phase = now()
+    smi = smi_line()
+    torch.cuda.synchronize()
+    say(f"train phase: {torch.cuda.memory_allocated() / 2**30:.2f} GiB "
+        f"allocated, {torch.cuda.memory_reserved() / 2**30:.2f} GiB reserved "
+        "after phases 1-9 released theirs")
+    f32 = lambda c: c.replace(param_dtype="float32", compute_dtype="float32")
+
+    # -- 10a: every smoke config in f32, card against CPU ------------------
+    try:
+        for name in names():
+            cfg = f32(get_smoke(name))
+            cpu = M.init_params(cfg, torch.Generator().manual_seed(TRAIN_SEED),
+                                "cpu")
+            card = convert.lm_params_from_numpy(
+                cfg, convert.lm_params_to_numpy(cpu), "cuda")
+            b = train_batch(cfg, TRAIN_SHAPE)
+            out = {}
+            for dev, params in (("cpu", cpu), ("cuda", card)):
+                loss, grads = value_and_grad(cfg, params, as_batch(b, dev))
+                _, gn = T.clip_by_global_norm(grads, 1.0)
+                out[dev] = (float(loss), float(gn), grads)
+            e_loss = abs(out["cuda"][0] - out["cpu"][0]) / abs(out["cpu"][0])
+            e_gn = abs(out["cuda"][1] - out["cpu"][1]) / abs(out["cpu"][1])
+            e_g = leaf_errs(out["cuda"][2], out["cpu"][2])
+            if not (e_loss <= TRAIN_RTOL and e_gn <= TRAIN_RTOL
+                    and e_g <= TRAIN_RTOL):
+                raise AssertionError(f"{name}: loss {e_loss:.3e}, grad_norm "
+                                     f"{e_gn:.3e}, grads {e_g:.3e}")
+            steps = {}
+            for opt_name in ("adamw", "adafactor"):
+                opt = getattr(T, opt_name)(T.warmup_cosine(TRAIN_LR, 1, 10))
+                step = T.build_train_step(cfg, opt)
+                st = {"cpu": T.init_train_state(cpu, opt),
+                      "cuda": T.init_train_state(card, opt)}
+                for i in range(2):
+                    bi = train_batch(cfg, TRAIN_SHAPE, i)
+                    if i == 1:
+                        e_same = same_grads_update(cfg, opt, st["cpu"], bi)
+                    m = {}
+                    for dev in st:
+                        st[dev], m[dev] = step(st[dev], bi)
+                    e = abs(float(m["cuda"]["loss"]) - float(m["cpu"]["loss"]))
+                    if e > TRAIN_RTOL * abs(float(m["cpu"]["loss"])):
+                        raise AssertionError(f"{name} {opt_name} step {i}: loss "
+                                             f"{float(m['cuda']['loss'])} vs "
+                                             f"{float(m['cpu']['loss'])}")
+                e_p, d_max, share = param_diffs(st["cuda"].params, st["cpu"].params)
+                ok = (e_same <= TRAIN_RTOL and share >= TRAIN_PARAM_SHARE
+                      and d_max <= 2 * TRAIN_LR)
+                if not ok:
+                    raise AssertionError(
+                        f"{name} {opt_name}: update on identical grads "
+                        f"{e_same:.3e} of max|p|; params after step 1 {e_p:.3e} "
+                        f"of max|p|, {share:.5f} of them within {TRAIN_RTOL}, "
+                        f"largest difference {d_max:.3e} (2 lr = {2 * TRAIN_LR})")
+                steps[opt_name] = (e_same, e_p, share)
+            aw, af = steps["adamw"], steps["adafactor"]
+            say(f"train parity {name}: loss {e_loss:.2e}, grad_norm {e_gn:.2e}, "
+                f"grads {e_g:.2e} of max|cpu| (leaf by leaf); the update on "
+                f"identical grads: adamw {aw[0]:.2e}, adafactor {af[0]:.2e}; "
+                f"params after step 1: adafactor {af[1]:.2e} ({af[2]:.5f} "
+                f"within {TRAIN_RTOL}), adamw {aw[1]:.2e} ({aw[2]:.5f}) "
+                f"({M.param_count(card)} params, f32)")
+            del cpu, card, out
+        cfg = f32(get_smoke(TRAIN_FULL))
+        cpu = M.init_params(cfg, torch.Generator().manual_seed(TRAIN_SEED), "cpu")
+        card = convert.lm_params_from_numpy(cfg, convert.lm_params_to_numpy(cpu),
+                                            "cuda")
+        for kw in ({"grad_accum": 2}, {"compress_grads": True}):
+            opt = T.adamw(T.warmup_cosine(3e-3, 1, 10))
+            step = T.build_train_step(cfg, opt, **kw)
+            comp = kw.get("compress_grads", False)
+            st = {"cpu": T.init_train_state(cpu, opt, compress=comp),
+                  "cuda": T.init_train_state(card, opt, compress=comp)}
+            errs = []
+            for i in range(3):
+                bi = train_batch(cfg, (4, 32), i)
+                m = {}
+                for dev in st:
+                    st[dev], m[dev] = step(st[dev], bi)
+                e = [abs(float(m["cuda"][k]) - float(m["cpu"][k]))
+                     / abs(float(m["cpu"][k])) for k in ("loss", "grad_norm")]
+                if max(e) > TRAIN_RTOL:
+                    raise AssertionError(f"{TRAIN_FULL} {kw} step {i}: loss, "
+                                         f"grad_norm rel err {e}")
+                errs.append(max(e))
+            say(f"train parity {TRAIN_FULL} {kw}: loss and grad_norm over 3 "
+                f"steps within {max(errs):.2e}")
+        del cpu, card, st
+    except Exception:
+        traceback.print_exc()
+        failed.append("train parity")
+
+    # -- 10b: granite-3-8b at its published config, through launch.train --
+    def full_run(arch, argv, label):
+        cfg = get(arch)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        rc, res, cli_s = cli_json(train_cli.main, argv)
+        peak = torch.cuda.max_memory_allocated() - base
+        losses = res["losses"]
+        if rc != 0 or res["arch"] != arch or res["steps"] != 5 \
+                or not all(math.isfinite(x) for x in losses):
+            raise AssertionError(f"launch.train {argv}: rc {rc}, {res}")
+        n = M.param_count(M.init_params(cfg, None, "meta"))
+        batch, seq = int(argv[argv.index("--batch") + 1]), int(argv[argv.index("--seq") + 1])
+        tokens = batch * seq
+        warm = float(np.median(res["step_ms"][1:]))
+        flops = 6 * n * tokens
+        floor_ms = flops / BF16_PEAK_FLOPS * 1e3
+        out = {"params": n, "tokens_per_step": tokens, "losses": losses,
+               "loss_first": res["loss_first"], "loss_last": res["loss_last"],
+               "ln_vocab": math.log(cfg.vocab_size), "step_ms": res["step_ms"],
+               "warm_step_ms": warm, "tokens_per_s": tokens / warm * 1e3,
+               "cli_mean_step_ms": res["mean_step_ms"],
+               "model_flops_per_step": flops, "bf16_floor_ms": floor_ms,
+               "bf16_floor_ms_with_recompute": floor_ms * 8 / 6 if cfg.remat else floor_ms,
+               "peak_share": floor_ms / warm, "peak_bytes": peak,
+               "cli_s": cli_s}
+        say(f"train {label} {' '.join(argv)}: " + json.dumps(out))
+        say(f"train {label}: warm step {warm:.1f} ms (median of steps 2-5), "
+            f"{tokens / warm * 1e3:.0f} tokens/s, {floor_ms / warm:.1%} of the "
+            f"989.4 TFLOP/s bf16 peak (6 N T = {flops:.3e} FLOPs, floor "
+            f"{floor_ms:.1f} ms), loss {losses[0]:.4f} -> {losses[-1]:.4f} "
+            f"(ln V = {math.log(cfg.vocab_size):.4f}), peak "
+            f"{peak / 1e9:.2f} GB; on {smi}")
+        return cfg, out
+
+    def step_parts(cfg, opt, argv, label):
+        """The launcher's donated step in its parts, timed by CUDA events
+        (median of 4 steps after one warm-up), then one step under the
+        profiler."""
+        batch, seq = int(argv[argv.index("--batch") + 1]), int(argv[argv.index("--seq") + 1])
+        params = M.init_params(
+            cfg, torch.Generator(device="cuda").manual_seed(TRAIN_SEED), "cuda")
+        state = T.init_train_state(params, opt)
+        del params
+        pipe = TokenPipeline(cfg.vocab_size, batch, seq, seed=0)
+        leaves = M.param_leaves(state.params)
+        parts = {"forward+backward": [], "clip": [], "optimizer": [], "step": []}
+        for i in range(5):
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+            b = as_batch(pipe.batch_at(i), "cuda")
+            ev[0].record()
+            loss, grads = value_and_grad(cfg, state.params, b, leaves)
+            ev[1].record()
+            with torch.no_grad():
+                grads, _ = T.clip_by_global_norm(grads, 1.0, inplace=True)
+                ev[2].record()
+                _, opt_state = opt.update(grads, state.opt_state, leaves,
+                                          state.step, inplace=True)
+            ev[3].record()
+            del grads
+            state = state._replace(opt_state=opt_state, step=state.step + 1)
+            torch.cuda.synchronize()
+            if i:
+                for k, (a, z) in zip(("forward+backward", "clip", "optimizer"),
+                                     zip(ev, ev[1:])):
+                    parts[k].append(a.elapsed_time(z))
+                parts["step"].append(ev[0].elapsed_time(ev[3]))
+        med = {k: float(np.median(v)) for k, v in parts.items()}
+        step = T.build_train_step(cfg, opt, donate=True)
+        b = pipe.batch_at(5)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            state, m = step(state, b)
+            torch.cuda.synchronize()
+        kern = [e for e in prof.events()
+                if e.device_type == torch.autograd.DeviceType.CUDA]
+        by_name: dict = {}
+        for e in kern:
+            by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
+        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+        kern_ms = sum(by_name.values())
+        if not kern:
+            raise AssertionError("the profiler saw no kernel in a train step")
+        say(f"train {label} step parts on the card (ms, CUDA events, median of "
+            f"4): " + json.dumps(med) + f"; under the profiler one step "
+            f"launched {len(kern)} kernels, {kern_ms:.1f} ms of them on the "
+            f"card; the largest: "
+            + json.dumps([(k[:60], round(v, 2)) for k, v in top]))
+        del state
+
+    try:
+        cfg, full = full_run(TRAIN_FULL, TRAIN_FULL_ARGV, "full")
+        if abs(full["loss_first"] - full["ln_vocab"]) > 1.0:
+            raise AssertionError(f"loss_first {full['loss_first']} is not near "
+                                 f"ln V = {full['ln_vocab']}")
+        step_parts(cfg, T.adafactor(T.warmup_cosine(3e-3, 2, 5)),
+                   TRAIN_FULL_ARGV, "full")
+    except Exception:
+        traceback.print_exc()
+        failed.append("train full width")
+    torch.cuda.empty_cache()
+    try:
+        cfg, _ = full_run(TRAIN_ADAMW, TRAIN_ADAMW_ARGV, "adamw")
+        step_parts(cfg, T.adamw(T.warmup_cosine(3e-3, 2, 5)),
+                   TRAIN_ADAMW_ARGV, "adamw")
+    except Exception:
+        traceback.print_exc()
+        failed.append("train adamw")
+    torch.cuda.empty_cache()
+
+    # -- 10c: the training RestartManager on the card --------------------
+    try:
+        cfg = f32(get_smoke(TRAIN_FULL))
+        params = M.init_params(
+            cfg, torch.Generator(device="cuda").manual_seed(TRAIN_SEED), "cuda")
+        opt = T.adamw(T.warmup_cosine(3e-3, 5, 100))
+        state = T.init_train_state(params, opt)
+        step = T.build_train_step(cfg, opt, grad_accum=2)
+        pipe = TokenPipeline(cfg.vocab_size, batch=8, seq_len=16, seed=0)
+        with tempfile.TemporaryDirectory() as d:
+            rm = RestartManager(f"{d}/run", save_every=4)
+            try:
+                rm.run(state, step, pipe, total_steps=12, inject_failure_at=9)
+                raise AssertionError("the injected failure did not raise")
+            except RuntimeError as exc:
+                if "injected failure at step 9" not in str(exc):
+                    raise
+            res = rm.run(state, step, pipe, total_steps=12)
+            clean = RestartManager(f"{d}/clean", save_every=4).run(
+                state, step, pipe, total_steps=12)
+            bad = pipe.batch_at(6)["tokens"]
+            seen = []
+
+            def nan_once(st, batch):
+                new, m = step(st, batch)
+                if not seen and np.array_equal(batch["tokens"], bad):
+                    seen.append(1)
+                    m = dict(m, loss=m["loss"] * float("nan"))
+                return new, m
+
+            rollbacks = obs.REGISTRY.get("repro_ft_rollbacks_total")
+            r0 = rollbacks.value()
+            nres = RestartManager(f"{d}/nan", save_every=4).run(
+                state, nan_once, pipe, total_steps=12)
+        got = (res.resumed_from, int(res.state.step), len(res.losses))
+        if got != (8, 12, 4):
+            raise AssertionError(f"resume: (resumed_from, step, losses) {got}")
+        same = all(torch.equal(a, b) for a, b in zip(
+            res.state.params.parameters(), clean.state.params.parameters()))
+        if not same or res.losses != clean.losses[8:]:
+            raise AssertionError("the resumed run differs from an "
+                                 "uninterrupted one")
+        ngot = (nres.nan_rollbacks, int(nres.state.step), len(nres.losses),
+                rollbacks.value() - r0)
+        if ngot != (1, 11, 13, 1):
+            raise AssertionError(f"NaN rollback: (rollbacks, step, losses, "
+                                 f"counter) {ngot}")
+        say(f"train restart {TRAIN_FULL} smoke f32 on the card: resumed_from 8, "
+            f"step 12, params bit for bit an uninterrupted run's; NaN at step "
+            f"6: 1 rollback (repro_ft_rollbacks_total +1), restored to step 4, "
+            f"on to step 11 with 13 losses; steps "
+            f"{1e3 * float(np.median(clean.step_times)):.2f} ms (median)")
+        del params, state, res, clean, nres
+    except Exception:
+        traceback.print_exc()
+        failed.append("train restart")
+
+    # -- 10d: remat at granite's width, 4 layers ---------------------------
+    try:
+        cfg = get(TRAIN_FULL).replace(n_layers=TRAIN_REMAT_LAYERS)
+        params = M.init_params(
+            cfg, torch.Generator(device="cuda").manual_seed(TRAIN_SEED), "cuda")
+        b = as_batch(TokenPipeline(cfg.vocab_size, 4, 1024, seed=0).batch_at(0),
+                     "cuda")
+        out = {}
+        for remat in (True, False):
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            loss, grads = value_and_grad(cfg.replace(remat=remat), params, b)
+            torch.cuda.synchronize()
+            out[remat] = (float(loss), grads,
+                          torch.cuda.max_memory_allocated() - base)
+            del grads
+        same = out[True][0] == out[False][0] and all(
+            torch.equal(a, c) for path in out[True][1]
+            for a, c in zip(T.optim.rows(out[True][1][path]),
+                            T.optim.rows(out[False][1][path])))
+        if not same:
+            e = max(float((a - c).abs().max()) / max(float(c.abs().max()), 1e-30)
+                    for path in out[True][1]
+                    for a, c in zip(T.optim.rows(out[True][1][path]),
+                                    T.optim.rows(out[False][1][path])))
+            raise AssertionError(f"remat grads differ from no remat: loss "
+                                 f"{out[True][0]} vs {out[False][0]}, grads "
+                                 f"{e:.3e} of max|grad|")
+        say(f"train remat {TRAIN_FULL} width, {TRAIN_REMAT_LAYERS} layers, bf16, "
+            f"4 x 1024: loss {out[True][0]:.4f}, grads with remat bit for bit "
+            f"those without; peak above the weights: remat "
+            f"{out[True][2] / 1e9:.2f} GB, no remat {out[False][2] / 1e9:.2f} GB")
+        del params, out
+    except Exception:
+        traceback.print_exc()
+        failed.append("train remat")
+    torch.cuda.empty_cache()
+    say(f"train phase: {now() - t_phase:.1f} s")
 
 
 def say(*parts) -> None:
@@ -2984,12 +3462,38 @@ def service_phase(m_main, failed: list) -> None:
 
 
 def main() -> int:
+    import gc
+
     import torch
 
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
               "needs an NVIDIA card", file=sys.stderr)
         return 2
+    failed: list[str] = []
+    card, smi, rows_out = earlier_phases(failed)
+    # phases 1-9's engines, plans, graphs and pools go with their frame
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+    # -- 10. LM training ----------------------------------------------------------
+    train_phase(failed)
+
+    if failed:
+        say("FAILED phases: " + ", ".join(failed))
+        return 1
+    say(json.dumps({"kernels": rows_out}))
+    say(smi)
+    say(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": card, "count": torch.cuda.device_count()}}))
+    return 0
+
+
+def earlier_phases(failed: list) -> tuple:
+    """Phases 1-9; returns (card name, nvidia-smi line, the kernels JSON
+    rows).  Everything they build lives in this frame and goes with it."""
+    import torch
     import numpy as np
     import scipy.sparse as sp
 
@@ -3007,7 +3511,6 @@ def main() -> int:
     from repro_torch.kernels import bcsr_spmm, ell_spmv, spmv_dot, sptrsv, vecops
     from repro_torch.obs.clock import now
 
-    failed: list[str] = []
     card = torch.cuda.get_device_name(0)
     smi = smi_line()
     say(f"torch {torch.__version__} cuda {torch.version.cuda} on {card}")
@@ -4788,15 +5291,7 @@ def main() -> int:
 
     # -- 9. LM serving -----------------------------------------------------------
     lm_phase(failed)
-
-    if failed:
-        say("FAILED phases: " + ", ".join(failed))
-        return 1
-    say(json.dumps({"kernels": rows_out}))
-    say(smi)
-    say(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": card, "count": torch.cuda.device_count()}}))
-    return 0
+    return card, smi, rows_out
 
 
 if __name__ == "__main__":

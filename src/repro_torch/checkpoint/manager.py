@@ -6,11 +6,19 @@ Layout:  <dir>/step_<N>/
              <flat_key>.npy     -- one file per leaf (the full array)
 
 The JAX package flattens its trees with ``jax.tree_util``; this module
-flattens nested dicts (keys sorted, as jax sorts them), lists and tuples
-itself, with numpy arrays, numpy scalars and tensors as leaves and None as
-an empty node.  Flat keys, file names, manifests and checksums are
-therefore the JAX package's, and a checkpoint written by either package
-restores in the other.
+flattens nested dicts (keys sorted, as jax sorts them), lists, tuples and
+NamedTuples (a field is the path step ``.<name>``, as ``jax.tree_util``'s
+attribute key prints) itself, with numpy arrays, numpy scalars and
+tensors as leaves and None as an empty node.  A ``models.model.Model``
+flattens to the JAX param tree's leaves (``param_leaves``): a layer
+group's leaf is written as the stack of its layers, the array the JAX
+tree holds, and restores as a new ``Model`` over views of it.  A
+``train.TrainState`` therefore writes the keys ``.params/...``,
+``.opt_state/...``, ``.step`` and ``.ef/...`` (none when ``ef`` is None).
+Flat keys, file names, manifests and checksums are the JAX package's, and
+a checkpoint written by either package restores in the other.  bfloat16
+leaves are written as the JAX package writes them (two raw bytes an
+element, manifest dtype ``bfloat16``) and restore as bfloat16 tensors.
 
 Guarantees:
   * atomic: written to ``step_<N>.tmp`` then os.rename'd -- a crash mid-save
@@ -44,10 +52,16 @@ import threading
 import numpy as np
 import torch
 
+from ..models.model import LayerStack, Model, param_leaves, replace_params
+
 __all__ = ["save", "restore", "latest_step", "CheckpointManager",
            "CorruptCheckpointError"]
 
 _SEP = "/"
+
+
+def _is_namedtuple(tree) -> bool:
+    return isinstance(tree, tuple) and hasattr(tree, "_fields")
 
 
 def _leaves(tree, path=()):
@@ -57,6 +71,12 @@ def _leaves(tree, path=()):
     if isinstance(tree, dict):
         for k in sorted(tree):
             yield from _leaves(tree[k], path + (str(k),))
+    elif _is_namedtuple(tree):
+        for name in tree._fields:
+            yield from _leaves(getattr(tree, name), path + ("." + name,))
+    elif isinstance(tree, Model):
+        for p, leaf in param_leaves(tree).items():
+            yield path + tuple(str(q) for q in p), leaf
     elif type(tree) in (list, tuple):
         for i, v in enumerate(tree):
             yield from _leaves(v, path + (str(i),))
@@ -69,42 +89,79 @@ def _flatten(tree) -> dict:
 
 
 def _unflatten(tree, flat: dict, path=()):
-    """``tree``'s structure with each leaf taken from ``flat``."""
+    """``tree``'s structure with each leaf taken from ``flat`` (a
+    ``Model`` becomes a new one over the leaves' tensors)."""
     if tree is None:
         return None
     if isinstance(tree, dict):
         return {k: _unflatten(v, flat, path + (str(k),))
                 for k, v in tree.items()}
+    if _is_namedtuple(tree):
+        return type(tree)(*(_unflatten(getattr(tree, n), flat, path + ("." + n,))
+                            for n in tree._fields))
+    if isinstance(tree, Model):
+        return replace_params(tree, {
+            p: flat[_SEP.join(path + tuple(str(q) for q in p))]
+            for p in param_leaves(tree)})
     if type(tree) in (list, tuple):
         return type(tree)(_unflatten(v, flat, path + (str(i),))
                           for i, v in enumerate(tree))
     return flat[_SEP.join(path)]
 
 
+_BF16 = np.dtype("V2")      # bfloat16's two bytes, as numpy stores them
+
+
 def _host(leaf) -> np.ndarray:
     """A host copy of one leaf (a snapshot: later writes to the leaf do
-    not reach it)."""
+    not reach it); a ``LayerStack`` stacked on a leading axis, bfloat16
+    as its raw two bytes an element."""
+    if isinstance(leaf, LayerStack):
+        return np.stack([_host(t) for t in leaf])
     if isinstance(leaf, torch.Tensor):
-        return leaf.detach().cpu().numpy().copy()
+        t = leaf.detach()
+        if t.dtype == torch.bfloat16:
+            return t.view(torch.int16).cpu().numpy().copy().view(_BF16)
+        return t.cpu().numpy().copy()
     return np.array(leaf, copy=True)
 
 
+def _meta(arr: np.ndarray) -> tuple:
+    """(dtype name, f64 content sum) of a host leaf, as the manifest
+    records them."""
+    if arr.dtype == _BF16:
+        f32 = (arr.view(np.uint16).astype(np.uint32) << 16).view(np.float32)
+        return "bfloat16", float(np.sum(f32.astype(np.float64))) if arr.size else 0.0
+    return str(arr.dtype), float(np.sum(arr.astype(np.float64))) if arr.size else 0.0
+
+
+def _to_tensor(arr: np.ndarray, like) -> torch.Tensor:
+    if arr.dtype.kind == "V" and arr.dtype.itemsize == 2:
+        t = torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
+    else:
+        t = torch.from_numpy(arr)
+    return t.to(like.device)
+
+
 def save(tree, directory: str, step: int, keep: int | None = 3) -> str:
-    flat = _flatten(tree)
+    return _save_flat({k: _host(v) for k, v in _flatten(tree).items()},
+                      directory, step, keep)
+
+
+def _save_flat(flat: dict, directory: str, step: int, keep: int | None) -> str:
     final = os.path.join(directory, f"step_{step:08d}")
     tmp = final + ".tmp"
     os.makedirs(tmp, exist_ok=True)
     manifest = {"step": step, "leaves": {}}
-    for key, leaf in flat.items():
-        arr = (leaf.detach().cpu().numpy() if isinstance(leaf, torch.Tensor)
-               else np.asarray(leaf))
+    for key, arr in flat.items():
         fname = re.sub(r"[^A-Za-z0-9_.-]", "_", key) + ".npy"
         np.save(os.path.join(tmp, fname), arr)
+        dtype, total = _meta(arr)
         manifest["leaves"][key] = {
             "file": fname,
             "shape": list(arr.shape),
-            "dtype": str(arr.dtype),
-            "sum": float(np.sum(arr.astype(np.float64))) if arr.size else 0.0,
+            "dtype": dtype,
+            "sum": total,
         }
     manifest["checksum"] = hashlib.sha256(
         json.dumps(manifest["leaves"], sort_keys=True).encode()
@@ -177,10 +234,12 @@ def _load_step(directory: str, step: int, flat: dict):
         for key in flat:
             meta = man["leaves"][key]
             arr = np.load(os.path.join(d, meta["file"]))
-            if list(arr.shape) != meta["shape"] or str(arr.dtype) != meta["dtype"]:
+            if arr.dtype.kind == "V" and arr.dtype.itemsize == 2:
+                arr = arr.view(_BF16)
+            dtype, got = _meta(arr)
+            if list(arr.shape) != meta["shape"] or dtype != meta["dtype"]:
                 raise CorruptCheckpointError(
                     f"{d}/{meta['file']}: shape/dtype mismatch vs manifest")
-            got = float(np.sum(arr.astype(np.float64))) if arr.size else 0.0
             want = meta["sum"]
             ok = (got == want) or (
                 np.isfinite(want)
@@ -225,8 +284,10 @@ def restore(tree_like, directory: str, step: int | None = None,
         if out is None:
             raise FileNotFoundError(f"no valid checkpoint under {directory}")
     for key, like in flat.items():
-        if isinstance(like, torch.Tensor):
-            out[key] = torch.from_numpy(out[key]).to(like.device)
+        if isinstance(like, LayerStack):
+            out[key] = LayerStack(_to_tensor(out[key], like[0]).unbind(0))
+        elif isinstance(like, torch.Tensor):
+            out[key] = _to_tensor(out[key], like)
     if sharding_tree is not None:
         for key, where in _flatten(sharding_tree).items():
             if key not in out:
@@ -248,9 +309,10 @@ class CheckpointManager:
     def save_async(self, tree, step: int):
         """Snapshot ``tree`` to host arrays now, write it on a thread."""
         self.wait()
-        host = _unflatten(tree, {k: _host(v) for k, v in _flatten(tree).items()})
+        host = {k: _host(v) for k, v in _flatten(tree).items()}
         self._thread = threading.Thread(
-            target=save, args=(host, self.dir, step, self.keep), daemon=True)
+            target=_save_flat, args=(host, self.dir, step, self.keep),
+            daemon=True)
         self._thread.start()
 
     def wait(self):

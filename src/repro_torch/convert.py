@@ -38,6 +38,15 @@ with the group's layers stacked on a leading axis.
 :func:`lm_params_to_numpy` reads one back (bfloat16 leaves as float32, which
 holds them exactly); :func:`lm_caches_to_numpy` stacks the port's
 ``[group][layer]`` caches into the JAX package's layout.
+
+A training state carries over in the JAX ``TrainState``'s layout: its
+``params`` (the tree above), ``opt_state`` (AdamW's ``{"m", "v"}`` or
+Adafactor's ``{"f"}``, trees of the params' paths, a group's state stacked
+on a leading axis), ``step`` and ``ef`` (the error-feedback residuals, or
+None), numpy leaves -- ``jax.tree.map(np.asarray, state)`` or a dict of the
+four fields.  :func:`train_state_from_numpy` builds the port's
+``train.TrainState`` over it, :func:`train_state_to_numpy` reads one back
+as that dict.
 """
 
 from __future__ import annotations
@@ -53,11 +62,13 @@ from .core.precond import IC0Factors
 from .core.stencil import Stencil
 from .device import DEFAULT_DEVICE, resolve_device, resolve_dtype
 from .models import model as lm
+from .train.step import TrainState
 
 __all__ = ["engine_state_from_numpy", "engine_state_to_numpy",
            "dist_engine_state_from_numpy", "dist_engine_state_to_numpy",
            "ic0_factors_from_numpy", "ic0_factors_to_numpy",
            "format_from_numpy", "format_to_numpy",
+           "train_state_from_numpy", "train_state_to_numpy",
            "lm_params_from_numpy", "lm_params_to_numpy", "lm_caches_to_numpy"]
 
 _FACTORS = (("l", "ell_l", "sched_l"), ("u_rev", "ell_u_rev", "sched_u_rev"))
@@ -332,16 +343,6 @@ def dist_engine_state_from_numpy(mesh, state: dict, precond: str = "jacobi",
 # -- LM params ----------------------------------------------------------------
 
 
-def _lm_path(name: str):
-    """(path into the JAX tree, layer index on the leaf's leading axis or
-    None) of a ``Model`` parameter name: ``groups.<g>.<i>.<rest>`` is
-    ``tree["groups"][g][rest...][i]``."""
-    parts = name.split(".")
-    if parts[0] == "groups":
-        return ["groups", int(parts[1])] + parts[3:], int(parts[2])
-    return [int(q) if q.isdigit() else q for q in parts], None
-
-
 def _leaves(tree, prefix=()):
     if isinstance(tree, dict):
         for k, v in tree.items():
@@ -368,7 +369,7 @@ def lm_params_from_numpy(cfg, tree: dict, device=DEFAULT_DEVICE) -> lm.Model:
     model = lm.init_params(cfg, None, dev)
     want = set()
     for name, prm in model.named_parameters():
-        path, layer = _lm_path(name)
+        path, layer = lm.jax_path(name)
         want.add(tuple(path))
         node = tree
         try:
@@ -418,7 +419,7 @@ def lm_params_to_numpy(model: lm.Model) -> dict:
     tree: dict = {}
     stacks: dict = {}
     for name, prm in model.named_parameters():
-        path, layer = _lm_path(name)
+        path, layer = lm.jax_path(name)
         if layer is None:
             _set(tree, path, _numpy(prm))
         else:
@@ -444,3 +445,44 @@ def lm_caches_to_numpy(caches) -> list:
             _set(tree, list(path), np.stack(leaves))
         out.append(tree)
     return out
+
+
+# -- training state -----------------------------------------------------------
+
+
+def _map_leaves(fn, tree):
+    if tree is None:
+        return None
+    if isinstance(tree, dict):
+        return {k: _map_leaves(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_map_leaves(fn, v) for v in tree]
+    return fn(tree)
+
+
+def _field(state, name: str):
+    return state[name] if isinstance(state, dict) else getattr(state, name)
+
+
+def train_state_from_numpy(cfg, tree, device=DEFAULT_DEVICE) -> TrainState:
+    """The port's ``TrainState`` on ``device`` holding exactly the arrays of
+    ``tree`` (a JAX ``TrainState`` with numpy leaves, or a dict of its
+    four fields): the params cast to ``cfg.param_dtype``, the optimizer
+    state and ``ef`` as they are, ``step`` as int32."""
+    dev = resolve_device(device)
+    to_dev = lambda a: torch.from_numpy(np.array(_host(a))).to(dev)
+    return TrainState(
+        lm_params_from_numpy(cfg, _field(tree, "params"), dev),
+        _map_leaves(to_dev, _field(tree, "opt_state")),
+        torch.tensor(int(np.asarray(_field(tree, "step"))), dtype=torch.int32,
+                     device=dev),
+        _map_leaves(to_dev, _field(tree, "ef")))
+
+
+def train_state_to_numpy(state: TrainState) -> dict:
+    """``state`` as a dict of the JAX ``TrainState``'s fields with numpy
+    leaves (bfloat16 params as float32)."""
+    return {"params": lm_params_to_numpy(state.params),
+            "opt_state": _map_leaves(_numpy, state.opt_state),
+            "step": np.asarray(int(state.step), np.int32),
+            "ef": _map_leaves(_numpy, state.ef)}

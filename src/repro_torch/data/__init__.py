@@ -1,1 +1,6 @@
-"""Sparse matrix generators (numpy/scipy, no device state)."""
+"""Data substrate: the deterministic token pipeline (``pipeline``) and the
+sparse matrix generators (``matrices``), numpy/scipy, no device state."""
+
+from .pipeline import TokenPipeline
+
+__all__ = ["TokenPipeline"]

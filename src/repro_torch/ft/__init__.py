@@ -1,12 +1,12 @@
-"""Fault tolerance of the port: deterministic fault injection for solves
-(``inject``), the chunked restart driver (``restart``) and the straggler
-watchdog (``straggler``).  The exports are the JAX package's ``repro.ft``
-less the training loop (``RestartManager``, ``TrainLoopResult``: ROADMAP
-Queue 1 item 11)."""
+"""Fault tolerance of the port: the training loop's restart manager and
+the chunked restart manager for solves (``restart``), deterministic fault
+injection for solves (``inject``) and the straggler watchdog
+(``straggler``).  The exports are the JAX package's ``repro.ft``
+(``TrainLoopResult`` stays in ``ft.restart``, as there)."""
 
 from .inject import FaultInjector, FaultSpec, corrupt_vals
-from .restart import FTSolveReport, SolveRestartManager
+from .restart import FTSolveReport, RestartManager, SolveRestartManager
 from .straggler import StepTimer
 
 __all__ = ["FaultInjector", "FaultSpec", "corrupt_vals", "FTSolveReport",
-           "SolveRestartManager", "StepTimer"]
+           "RestartManager", "SolveRestartManager", "StepTimer"]

@@ -1,5 +1,13 @@
-"""Fault-tolerant solves: the chunked, checkpointed, fault-detecting
-restart driver (port of the solve half of ``repro.ft.restart``).
+"""Fault-tolerant training loops and solves (port of ``repro.ft.restart``).
+
+``RestartManager`` runs (or resumes) a training loop: periodic async
+checkpoints, resume from the newest *valid* checkpoint, deterministic data
+replay (the pipeline is a pure function of (seed, step)), and a NaN guard
+that rolls back to the previous checkpoint and skips the offending batch.
+The loop is orchestration only: the math stays in the train step.  With a
+donating step (``build_train_step(..., donate=True)``) a NaN loss has
+already been written into the state, so a rollback with no checkpoint to
+restore raises instead of carrying on.
 
 ``SolveRestartManager`` drives a tolerance-mode plan in fixed-size chunks
 (restarted CG: each chunk warm-starts from the current iterate -- a few
@@ -23,10 +31,6 @@ Every chunk is one call of ONE chunk-sized injectable plan,
 and replayed for clean and corrupted chunks alike (the plan copies ``v``
 into its own value buffer).  As in the JAX package, the iterate comes back
 to the host every chunk and the audit runs ``engine.spmv`` on it.
-
-The training-loop ``RestartManager`` / ``TrainLoopResult`` and
-``repro_ft_rollbacks_total`` wait for the trainer (ROADMAP Queue 1
-item 11).
 """
 
 from __future__ import annotations
@@ -40,7 +44,8 @@ from ..obs import REGISTRY as _OBS
 from ..obs import clock as _clock
 from ..obs import span as _span
 
-__all__ = ["SolveRestartManager", "FTSolveReport"]
+__all__ = ["RestartManager", "TrainLoopResult",
+           "SolveRestartManager", "FTSolveReport"]
 
 # -- observability (host-side; see repro_torch.obs) ---------------------------
 _M_FT_FAULTS = _OBS.counter(
@@ -50,6 +55,87 @@ _M_FT_FAULTS = _OBS.counter(
 _M_FT_RESTARTS = _OBS.counter(
     "repro_ft_restarts_total",
     "rollback-and-retry recoveries taken by SolveRestartManager")
+_M_FT_ROLLBACKS = _OBS.counter(
+    "repro_ft_rollbacks_total",
+    "NaN-guard rollbacks taken by the training RestartManager")
+
+
+@dataclass
+class TrainLoopResult:
+    state: object
+    losses: list
+    resumed_from: int | None
+    nan_rollbacks: int
+    step_times: list
+
+
+class RestartManager:
+    def __init__(self, ckpt_dir: str, save_every: int = 50, keep: int = 3,
+                 guard_nan: bool = True, skip_bad_batch: bool = True):
+        self.mgr = CheckpointManager(ckpt_dir, keep=keep)
+        self.save_every = save_every
+        self.guard_nan = guard_nan
+        self.skip_bad_batch = skip_bad_batch
+
+    def run(self, state, train_step, pipeline, total_steps: int,
+            inject_failure_at: int | None = None) -> TrainLoopResult:
+        """Run (or resume) training to ``total_steps``.
+
+        ``inject_failure_at``: test hook -- raises RuntimeError at the given
+        step to exercise the restart path (tests call run() twice).  Each
+        step's loss is read back to the host (the NaN guard needs it), so
+        ``step_times`` are the steps' times on the device.
+        """
+        resumed = self.mgr.latest_step()
+        if resumed is not None:
+            state, _ = self.mgr.restore(state)
+            start = int(state.step)
+        else:
+            start = 0
+
+        losses, times = [], []
+        rollbacks = 0
+        step = start
+        while step < total_steps:
+            if inject_failure_at is not None and step == inject_failure_at:
+                self.mgr.wait()
+                raise RuntimeError(f"injected failure at step {step}")
+            batch = pipeline.batch_at(step)
+            t0 = _clock.now()
+            new_state, metrics = train_step(state, batch)
+            loss = float(metrics["loss"])
+            times.append(_clock.now() - t0)
+
+            if self.guard_nan and not np.isfinite(loss):
+                rollbacks += 1
+                _M_FT_ROLLBACKS.inc()
+                self.mgr.wait()     # an in-flight save counts as the last
+                prev = self.mgr.latest_step()
+                if prev is not None:
+                    state, _ = self.mgr.restore(state)
+                    step = int(state.step)
+                elif getattr(train_step, "donate", False):
+                    raise RuntimeError(
+                        f"NaN loss at step {step}: the donating step has "
+                        "written it into the state and there is no "
+                        "checkpoint to roll back to")
+                if self.skip_bad_batch:
+                    step += 1   # skip-ahead past the poisoned batch
+                continue
+
+            state = new_state
+            losses.append(loss)
+            step += 1
+            if step % self.save_every == 0 or step == total_steps:
+                self.mgr.save_async(state, step)
+        self.mgr.wait()
+        return TrainLoopResult(state, losses, resumed, rollbacks, times)
+
+
+# -- fault-tolerant solves -----------------------------------------------------
+#
+# The training RestartManager above recovers a *training loop*; the solve
+# counterpart below recovers a *linear solve*.
 
 
 @dataclass

@@ -6,8 +6,9 @@ package's param-tree keys (``Linear.w``/``b``, ``Norm.scale``/``bias``,
 ``Embed.table``), so a JAX tree maps onto ``named_parameters()`` one to one
 (``convert.lm_params_from_numpy``).  Weights keep the JAX layout: a
 linear's ``w`` is (d_in, d_out) and applies as ``x @ w``.  Parameters are
-created with ``requires_grad=False``: the zoo serves; a trainer turns
-gradients on.
+created with ``requires_grad=False``, so serving builds no graph; the
+train step (``repro_torch.train.step``) turns gradients on for the
+parameters it differentiates, for the length of its backward pass.
 
 The arithmetic follows the JAX functions step for step (f32 statistics in
 the norms, f32 RoPE angles, ``gelu`` in its tanh form as ``jax.nn.gelu``),
@@ -24,7 +25,7 @@ from torch import nn
 
 __all__ = [
     "dtype_of", "Init", "pad_dim1", "rms_norm", "layer_norm", "Norm",
-    "Linear", "MLP", "rope_freqs", "apply_rope", "Embed",
+    "Linear", "MLP", "rope_freqs", "apply_rope", "Embed", "cross_entropy",
 ]
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
@@ -188,7 +189,7 @@ def apply_rope(x: torch.Tensor, pos: torch.Tensor, theta: float) -> torch.Tensor
     return out.to(x.dtype)
 
 
-# -- embedding --------------------------------------------------------------
+# -- embedding / loss -------------------------------------------------------
 
 
 class Embed(nn.Module):
@@ -197,3 +198,16 @@ class Embed(nn.Module):
     def __init__(self, vocab: int, d: int, init: Init):
         super().__init__()
         self.table = init.normal((vocab, d), 0.02)
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                  mask: torch.Tensor | None = None) -> torch.Tensor:
+    """Mean token NLL; logits (..., V) f32-upcast for the softmax; with
+    ``mask`` the masked mean over ``max(sum(mask), 1)``."""
+    logits = logits.float()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    nll = logz - gold
+    if mask is not None:
+        return torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)
+    return torch.mean(nll)

@@ -17,30 +17,42 @@ keyed by sub-block); attention caches are written in place, so
 ``decode_step`` returns the list it was given, updated.  The same layer
 code serves forward, prefill and decode, so prefill + decode reproduces
 forward (tests/test_torch_models.py).
+
+Training: ``forward(..., train=True)`` runs each ``Layer`` under
+``torch.utils.checkpoint`` when ``cfg.remat`` (the port of the JAX
+package's per-layer ``jax.checkpoint``), and ``loss_fn`` is the JAX
+package's next-token loss, chunked over the sequence, with the MoE aux and
+the MTP heads' losses; autograd takes its gradients.
+:func:`param_leaves` names a model's tensors by the JAX tree's leaves (a
+group's layers together, as the ``LayerStack`` the JAX tree stacks on a
+leading axis), which the optimizers and checkpoints work in, and
+:func:`replace_params` builds a model over new tensors.
 """
 
 from __future__ import annotations
 
+import copy
 import math
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from . import shard
 from .attention import (
     MLA, Attention, _mla_qkv, _positions, _prime_kv_cache, attn_decode,
     attn_forward, init_kv_cache, init_mla_cache, mla_decode, mla_forward,
 )
-from .blocks import MLP, Embed, Init, Linear, Norm, dtype_of
+from .blocks import MLP, Embed, Init, Linear, Norm, cross_entropy, dtype_of
 from .config import ModelConfig
 from .moe import MoE, moe_apply
 from .rglru import RGLRU, init_rglru_state, rglru_decode, rglru_forward
 from .ssm import SSM, init_ssm_state, ssm_decode, ssm_forward
 
 __all__ = [
-    "Model", "Layer", "init_params", "forward",
+    "Model", "Layer", "LayerStack", "init_params", "forward", "loss_fn",
     "logits_from_hidden", "prefill", "decode_step", "init_caches",
-    "param_count",
+    "param_count", "jax_path", "param_leaves", "replace_params",
 ]
 
 
@@ -195,9 +207,9 @@ def _last_rows(t, kw: int):
 
 
 class _MTPHead(nn.Module):
-    """``{"proj", "block", "norm"}``: a next^2-token head (deepseek-v3).  Its
-    params are built so the tree (and ``param_count``) is the JAX
-    package's; its loss belongs to training, which the port lacks yet."""
+    """``{"proj", "block", "norm"}``: a next^2-token head (deepseek-v3).
+    Serving leaves it unused; ``loss_fn`` adds its loss, 0.3 times the CE
+    of the token ``k`` further on, as the JAX package does."""
 
     def __init__(self, cfg: ModelConfig, init: Init):
         super().__init__()
@@ -271,13 +283,20 @@ def _embed_inputs(params, cfg, tokens=None, input_embeds=None,
 
 
 def forward(params: Model, cfg: ModelConfig, tokens=None, input_embeds=None,
-            prefix_embeds=None):
-    """Full-sequence forward -> (hidden (B,S,D), aux)."""
+            prefix_embeds=None, train=False):
+    """Full-sequence forward -> (hidden (B,S,D), aux).  With ``train`` and
+    ``cfg.remat`` each layer keeps only its input for the backward pass and
+    runs again there (no layer draws random numbers, so the recompute
+    gives the same values)."""
     x = _embed_inputs(params, cfg, tokens, input_embeds, prefix_embeds)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    remat = train and cfg.remat
     for group in params.groups:
         for layer in group:
-            x, a = layer(x, cfg)
+            if remat:
+                x, a = checkpoint(layer, x, cfg, use_reentrant=False)
+            else:
+                x, a = layer(x, cfg)
             x = shard.constrain(x, "act_bsd")
             aux = aux + a
     x = params.final_norm(x)
@@ -287,6 +306,54 @@ def forward(params: Model, cfg: ModelConfig, tokens=None, input_embeds=None,
 def logits_from_hidden(params: Model, cfg, x):
     table = (params.embed if cfg.tie_embeddings else params.head).table
     return shard.constrain(x @ table.to(x.dtype).T, "logits")
+
+
+def _shift(t, k: int):
+    """``t[:, k:]`` zero-padded back to its length at the end of dim 1."""
+    return torch.cat([t[:, k:], t.new_zeros((t.shape[0], k))], 1)
+
+
+def loss_fn(params: Model, cfg: ModelConfig, tokens, labels, mask=None,
+            prefix_embeds=None, loss_chunk: int = 1024):
+    """Next-token CE (+ MoE aux + MTP losses) -> (loss, {"aux": aux}).
+
+    The CE runs in sequence chunks, so the (B, S, V) f32 logits never
+    exist at once: ``c = min(loss_chunk, S)`` tokens a chunk when that
+    divides S, else one chunk; each chunk gives ``[sum nll, sum mask]``,
+    the chunks are summed in order, and the loss is ``sum nll / max(sum
+    mask, 1)``.  A vision prefix is dropped before the CE."""
+    x, aux = forward(params, cfg, tokens=tokens, prefix_embeds=prefix_embeds,
+                     train=True)
+    npfx = prefix_embeds.shape[1] if prefix_embeds is not None else 0
+    x_txt = x[:, npfx:] if npfx else x
+    b, s, _ = x_txt.shape
+    c = min(loss_chunk, s)
+    nc = s // c if s % c == 0 else 1
+    c = s // nc
+    labels = labels.long()
+    if mask is None:
+        mask = torch.ones((b, s), dtype=torch.float32, device=x.device)
+    tot = torch.zeros(2, dtype=torch.float32, device=x.device)
+    for i in range(nc):
+        lc, mc = labels[:, i * c:(i + 1) * c], mask[:, i * c:(i + 1) * c]
+        lg = logits_from_hidden(params, cfg, x_txt[:, i * c:(i + 1) * c]).float()
+        gold = torch.gather(lg, -1, lc[..., None])[..., 0]
+        nll = (torch.logsumexp(lg, dim=-1) - gold) * mc
+        tot = tot + torch.stack([nll.sum(), mc.sum()])
+    loss = tot[0] / torch.clamp(tot[1], min=1.0)
+
+    if cfg.mtp_depth and hasattr(params, "mtp"):
+        # MTP: predict token t+1+k from [h_t ; emb(tok_{t+k})] (deepseek-v3)
+        h = x_txt
+        for k, mp in enumerate(params.mtp, start=1):
+            emb_next = params.embed.table.to(h.dtype)[_shift(tokens, k)]
+            h = mp.proj(torch.cat([h, emb_next], dim=-1))
+            h, _ = mp.block(h, cfg)
+            h = mp.norm(h)
+            lg = logits_from_hidden(params, cfg, h)
+            loss = loss + 0.3 * cross_entropy(lg, _shift(labels, k),
+                                              _shift(mask, k))
+    return loss + aux, {"aux": aux}
 
 
 # ---------------------------------------------------------------------------
@@ -333,3 +400,51 @@ def decode_step(params: Model, cfg: ModelConfig, caches, tokens, pos: int):
 
 def param_count(params: Model) -> int:
     return sum(p.numel() for p in params.parameters())
+
+
+# ---------------------------------------------------------------------------
+# the JAX tree's leaves of a Model
+# ---------------------------------------------------------------------------
+
+
+class LayerStack(list):
+    """One leaf of the JAX param tree that stacks a layer group on a
+    leading axis: the group's tensors, one a layer, in layer order.  Tree
+    walkers that expand plain lists and tuples take it as one leaf."""
+
+
+def jax_path(name: str):
+    """(path into the JAX tree, layer index on the leaf's leading axis or
+    None) of a ``Model`` parameter name: ``groups.<g>.<i>.<rest>`` is
+    ``tree["groups"][g][rest...][i]``."""
+    parts = name.split(".")
+    if parts[0] == "groups":
+        return ["groups", int(parts[1])] + parts[3:], int(parts[2])
+    return [int(q) if q.isdigit() else q for q in parts], None
+
+
+def param_leaves(params: Model) -> dict:
+    """``params``' tensors as the JAX tree's leaves, in its leaf order: path
+    (a tuple) -> the parameter, or for a layer group's leaf the
+    ``LayerStack`` of its layers' parameters."""
+    out: dict = {}
+    for name, prm in params.named_parameters():
+        path, layer = jax_path(name)
+        if layer is None:
+            out[tuple(path)] = prm
+        else:
+            out.setdefault(tuple(path), LayerStack()).append(prm)
+    return {k: out[k] for k in sorted(out)}
+
+
+def replace_params(params: Model, leaves: dict) -> Model:
+    """A new ``Model`` of ``params``' structure over the tensors of
+    ``leaves`` (keyed as :func:`param_leaves` returns them), which are
+    used, not copied.  ``params`` is left as it is."""
+    memo = {}
+    for name, prm in params.named_parameters():
+        path, layer = jax_path(name)
+        t = leaves[tuple(path)]
+        memo[id(prm)] = nn.Parameter(t if layer is None else t[layer],
+                                     requires_grad=prm.requires_grad)
+    return copy.deepcopy(params, memo)

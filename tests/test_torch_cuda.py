@@ -33,7 +33,13 @@ one capture; the restart manager recovers a corrupted chunk.  The LM zoo:
 every architecture's f32 smoke config on the card within 1e-4 x max|cpu|
 of its CPU run on the same weights (prefill and eight greedy decode
 steps, the tokens equal), and ``launch.serve --arch --smoke --slots
---device cuda`` completing every request.
+--device cuda`` completing every request.  Training: two smoke train steps
+on the card (the second with lr > 0) against the CPU's from the same
+state and batches: loss and grad_norm within 1e-4 relative; Adafactor's
+params within 1e-4 x max|p|; AdamW's first update is sign-like
+(m^/sqrt(v^) ~ sign(g)), so an element whose grad is near zero in f32
+noise may move by up to 2 lr more on one device: 99.9% of its params
+within 1e-4 x max|p|, every one within 2 lr.
 """
 
 import json
@@ -54,6 +60,8 @@ from repro_torch.core import formats, spops
 from repro_torch.data.matrices import skew_spd
 from repro_torch.kernels import bcsr_spmm, ell_spmv, ops, spmv_dot, sptrsv, vecops
 from repro_torch import configs, convert
+from repro_torch import train as T
+from repro_torch.data import TokenPipeline
 from repro_torch.launch import serve as serve_cli
 from repro_torch.models import model as M
 
@@ -1398,3 +1406,36 @@ def test_serve_cli_arch_on_card(cuda, capsys):
     out = capsys.readouterr().out
     got = json.loads(out[out.index("{"):])
     assert got["slot_server_completed"] == 3 and got["arch"] == "granite-3-8b"
+
+
+@pytest.mark.parametrize("opt_name", ["adamw", "adafactor"])
+def test_lm_train_step_matches_cpu(cuda, opt_name):
+    cfg = configs.get_smoke("granite-3-8b").replace(param_dtype="float32",
+                                                    compute_dtype="float32")
+    cpu = M.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    card = convert.lm_params_from_numpy(cfg, convert.lm_params_to_numpy(cpu),
+                                        cuda)
+    opt = getattr(T, opt_name)(T.warmup_cosine(3e-3, 1, 10))
+    states = {"cpu": T.init_train_state(cpu, opt),
+              "cuda": T.init_train_state(card, opt)}
+    step = T.build_train_step(cfg, opt)
+    pipe = TokenPipeline(cfg.vocab_size, 4, 32, seed=0)
+    for i in range(2):
+        m = {}
+        for dev in states:
+            states[dev], m[dev] = step(states[dev], pipe.batch_at(i))
+        for k in ("loss", "grad_norm"):
+            want = float(m["cpu"][k])
+            assert abs(float(m["cuda"][k]) - want) <= 1e-4 * abs(want), k
+    close = total = 0
+    for a, b in zip(states["cuda"].params.parameters(),
+                    states["cpu"].params.parameters()):
+        assert a.device.type == "cuda"
+        d, tol = (a.cpu() - b).abs(), 1e-4 * float(b.abs().max())
+        if opt_name == "adafactor":
+            assert float(d.max()) <= tol
+        else:
+            assert float(d.max()) <= 2 * 3e-3
+        close += int((d <= tol).sum())
+        total += d.numel()
+    assert close / total >= 0.999

@@ -2,9 +2,7 @@
 
 * ``__all__`` of ``repro_torch.core``, ``.serve``, ``.obs``, ``.ft`` and
   ``.checkpoint`` equals the JAX package's exports, less what is not
-  ported (the LM demo's ``generate`` / ``SlotServer``, the
-  training loop's ``RestartManager`` / ``TrainLoopResult``;
-  ``set_torch_bridge`` in place of ``set_jax_bridge``), and every public
+  ported (``set_torch_bridge`` in place of ``set_jax_bridge``), and every public
   signature equals ``repro``'s by ``inspect.signature``, less the
   parameters of features not ported yet, with a trailing ``device`` where
   the port takes one.
@@ -56,7 +54,7 @@ NOT_PORTED = {
     "core": set(),
     "serve": set(),
     "obs": {"set_jax_bridge"},
-    "ft": {"RestartManager", "TrainLoopResult"},   # the trainer, item 11
+    "ft": set(),
     "checkpoint": set(),
 }
 ADDED = {"obs": {"set_torch_bridge"}}
@@ -118,6 +116,9 @@ SIGNATURES = {
     "ft.SolveRestartManager.__init__": set(),
     "ft.SolveRestartManager.solve": set(),
     "ft.FTSolveReport.__init__": set(),
+    "ft.RestartManager.__init__": set(),
+    "ft.RestartManager.run": set(),
+    "ft.restart.TrainLoopResult.__init__": set(),
     "ft.StepTimer.__init__": set(),
     "checkpoint.save": set(),
     "checkpoint.restore": set(),

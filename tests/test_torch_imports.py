@@ -25,6 +25,7 @@ from repro_torch.data.matrices import laplacian_2d
 from repro_torch.device import resolve_device
 from repro_torch.launch import serve as serve_cli
 from repro_torch.launch import solve as solve_cli
+from repro_torch.launch import train as train_cli
 from repro_torch.launch.mesh import make_mesh, make_production_mesh
 from repro_torch.models import model as lm
 from repro_torch.serve import SolveService
@@ -82,7 +83,10 @@ def test_port_imports_without_jax_or_repro():
                  "repro_torch.models.attention", "repro_torch.models.moe",
                  "repro_torch.models.ssm", "repro_torch.models.rglru",
                  "repro_torch.models.frontends", "repro_torch.models.model",
-                 "repro_torch.serve.engine"):
+                 "repro_torch.serve.engine", "repro_torch.data",
+                 "repro_torch.data.pipeline", "repro_torch.train",
+                 "repro_torch.train.optim", "repro_torch.train.step",
+                 "repro_torch.launch.train"):
         assert name in r.stdout.split(), name
 
 
@@ -119,7 +123,8 @@ def test_entry_points_default_to_cuda():
                formats.ell_from_csr, formats.sell_from_csr,
                formats.hyb_from_csr, formats.bcsr_from_csr, resolve_device,
                SolveService.__init__, make_mesh, make_production_mesh,
-               lm.init_params, lm.init_caches, convert.lm_params_from_numpy):
+               lm.init_params, lm.init_caches, convert.lm_params_from_numpy,
+               convert.train_state_from_numpy):
         assert inspect.signature(fn).parameters["device"].default == "cuda", fn
     m = laplacian_2d(4)
     if torch.cuda.is_available():
@@ -157,4 +162,8 @@ def test_entry_points_default_to_cuda():
         serve_cli.main(["--arch", "granite-3-8b", "--smoke"])
     with pytest.raises(RuntimeError, match="cuda"):
         convert.lm_params_from_numpy(smoke, {})
+    with pytest.raises(RuntimeError, match="cuda"):
+        convert.train_state_from_numpy(smoke, {})
+    with pytest.raises(RuntimeError, match="cuda"):
+        train_cli.main(["--arch", "granite-3-8b", "--smoke", "--steps", "1"])
     assert AzulEngine(m, device="cpu").device.type == "cpu"

@@ -1,0 +1,287 @@
+"""The port's fault-tolerant training loop (``ft.RestartManager``) and its
+training checkpoints, held to the JAX package on the CPU.
+
+The restart scenarios are tests/test_substrates.py's (a failure injected
+at step 9 with a checkpoint every 4 steps, then a second ``run``) and a
+train step wrapped to report a NaN loss once, at step 6: both packages
+take the same counts (``resumed_from``, the final step, the losses kept,
+the rollbacks, ``repro_ft_rollbacks_total``).  On the CPU the port's
+resumed run equals an uninterrupted one bit for bit.  Training
+checkpoints cross-restore: a ``TrainState`` written by either package
+restores in the other (manifests equal, leaf for leaf) and trains on as
+the writer does, within the tolerances of tests/test_torch_train.py
+(loss rtol 1e-5; Adafactor's params within 1e-5 of max|p|, and with int8
+compression as ``_params_close`` says).
+"""
+
+import json
+import os
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro import checkpoint as JC
+from repro import train as JT
+from repro.data import TokenPipeline as JPipe
+from repro.ft import RestartManager as JRestartManager
+from repro.models import model as JM
+from repro.models.config import ModelConfig as JModelConfig
+from repro_torch import checkpoint as C
+from repro_torch import configs, convert, obs
+from repro_torch import train as T
+from repro_torch.data import TokenPipeline
+from repro_torch.ft import RestartManager
+from repro_torch.ft.restart import TrainLoopResult
+from repro_torch.models import model as M
+from repro_torch.models.config import ModelConfig
+
+pytestmark = pytest.mark.faults
+
+SUB = dict(n_layers=2, d_model=32, n_heads=4, n_kv_heads=2, head_dim=8,
+           d_ff=64, vocab_size=64, param_dtype="float32",
+           compute_dtype="float32", remat=True)
+NAN_AT = 6
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    was = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(was)
+
+
+@pytest.fixture(scope="module")
+def jax_side():
+    """tests/test_substrates.py's setup in the JAX package."""
+    cfg = JModelConfig(**SUB)
+    params = JM.init_params(jax.random.PRNGKey(0), cfg)
+    opt = JT.adamw(JT.warmup_cosine(3e-3, 5, 100))
+    state = JT.init_train_state(params, opt)
+    step = jax.jit(JT.build_train_step(cfg, opt, grad_accum=2))
+    return state, step, JPipe(cfg.vocab_size, batch=8, seq_len=16, seed=0)
+
+
+def port_side(donate=False):
+    cfg = ModelConfig(**SUB)
+    params = M.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    opt = T.adamw(T.warmup_cosine(3e-3, 5, 100))
+    state = T.init_train_state(params, opt)
+    step = T.build_train_step(cfg, opt, grad_accum=2, donate=donate)
+    return state, step, TokenPipeline(cfg.vocab_size, batch=8, seq_len=16, seed=0)
+
+
+def nan_once(step_fn, pipe, at: int, wait=None):
+    """``step_fn`` reporting a NaN loss the first time it is given batch
+    ``at`` (after ``wait()``, so a save in flight has landed)."""
+    bad = pipe.batch_at(at)["tokens"]
+    seen = []
+
+    def step(state, batch):
+        new, m = step_fn(state, batch)
+        if not seen and np.array_equal(np.asarray(batch["tokens"]), bad):
+            seen.append(1)
+            if wait is not None:
+                wait()
+            m = dict(m, loss=m["loss"] * float("nan"))
+        return new, m
+
+    step.donate = getattr(step_fn, "donate", False)
+    return step
+
+
+def counts(res) -> tuple:
+    return (res.resumed_from, int(np.asarray(res.state.step)), len(res.losses),
+            res.nan_rollbacks)
+
+
+def test_restart_resumes_like_jax(jax_side, tmp_path):
+    jstate, jstep, jpipe = jax_side
+    jrm = JRestartManager(str(tmp_path / "jax"), save_every=4)
+    with pytest.raises(RuntimeError):
+        jrm.run(jstate, jstep, jpipe, total_steps=12, inject_failure_at=9)
+    jres = jrm.run(jstate, jstep, jpipe, total_steps=12)
+
+    state, step, pipe = port_side()
+    rm = RestartManager(str(tmp_path / "port"), save_every=4)
+    with pytest.raises(RuntimeError, match="injected failure at step 9"):
+        rm.run(state, step, pipe, total_steps=12, inject_failure_at=9)
+    res = rm.run(state, step, pipe, total_steps=12)
+    assert isinstance(res, TrainLoopResult)
+    assert counts(res) == counts(jres) == (8, 12, 4, 0)
+    assert np.isfinite(res.losses).all() and len(res.step_times) == 4
+
+    # the resumed run ends where an uninterrupted one does, bit for bit
+    clean = RestartManager(str(tmp_path / "clean"), save_every=4).run(
+        state, step, pipe, total_steps=12)
+    for a, b in zip(res.state.params.parameters(), clean.state.params.parameters()):
+        assert torch.equal(a, b)
+    assert res.losses == clean.losses[8:]
+    # state, the template restores were made from, is untouched
+    assert int(state.step) == 0
+
+
+@pytest.mark.parametrize("donate", [False, True])
+def test_nan_rollback_like_jax(jax_side, tmp_path, donate):
+    jstate, jstep, jpipe = jax_side
+    jrm = JRestartManager(str(tmp_path / "jax"), save_every=4)
+    jres = jrm.run(jstate, nan_once(jstep, jpipe, NAN_AT, jrm.mgr.wait), jpipe,
+                   total_steps=12)
+
+    rollbacks = obs.REGISTRY.get("repro_ft_rollbacks_total")
+    r0 = rollbacks.value()
+    state, step, pipe = port_side(donate)
+    rm = RestartManager(str(tmp_path / "port"), save_every=4)
+    res = rm.run(state, nan_once(step, pipe, NAN_AT), pipe, total_steps=12)
+    # restored to step 4, batch 4 skipped, then on to the end
+    assert counts(res) == counts(jres) == (None, 11, 13, 1)
+    assert rollbacks.value() == r0 + 1
+    assert np.isfinite(res.losses).all()
+
+
+def test_nan_rollback_with_donation_and_no_checkpoint_raises(tmp_path):
+    state, step, pipe = port_side(donate=True)
+    rm = RestartManager(str(tmp_path), save_every=100)
+    with pytest.raises(RuntimeError, match="no checkpoint"):
+        rm.run(state, nan_once(step, pipe, 2), pipe, total_steps=5)
+    # without donation the loop keeps the state it had and goes on
+    state, step, pipe = port_side()
+    res = RestartManager(str(tmp_path / "kept"), save_every=100).run(
+        state, nan_once(step, pipe, 2), pipe, total_steps=5)
+    assert res.nan_rollbacks == 1 and int(res.state.step) == 4
+
+
+# -- training checkpoints across the packages ------------------------------------
+
+
+def _cfg(name="granite-3-8b"):
+    return configs.get_smoke(name).replace(param_dtype="float32",
+                                           compute_dtype="float32")
+
+
+def _jax_state(cfg, compress):
+    opt = JT.adafactor(JT.warmup_cosine(1e-2, 1, 10))
+    params = jax.jit(JM.init_params, static_argnums=1)(jax.random.PRNGKey(0), cfg)
+    state = JT.init_train_state(params, opt, compress=compress)
+    step = jax.jit(JT.build_train_step(cfg, opt, compress_grads=compress))
+    return state, step
+
+
+def _port_step(cfg, compress):
+    opt = T.adafactor(T.warmup_cosine(1e-2, 1, 10))
+    return T.build_train_step(cfg, opt, compress_grads=compress)
+
+
+def _manifest(d, step):
+    with open(os.path.join(d, f"step_{step:08d}", "manifest.json")) as f:
+        return json.load(f)
+
+
+def _pairs(port_state, jax_state):
+    """(path, port array, JAX array) over every leaf of the JAX state."""
+    got = convert.train_state_to_numpy(port_state)
+    got = jax_state._replace(params=got["params"], opt_state=got["opt_state"],
+                             step=got["step"], ef=got["ef"])
+    for (path, want), mine in zip(jax.tree_util.tree_leaves_with_path(jax_state),
+                                  jax.tree.leaves(got)):
+        yield path, np.asarray(mine), np.asarray(want)
+
+
+def _params_close(port_state, jax_state, compress):
+    """Params after training on: within 1e-5 of max|p|.  With int8
+    compression an element near a rounding boundary may take the
+    neighbouring code in the other package and its param moves by up to
+    lr (1e-2) a step: there 99% of the elements are held within 1e-5 and
+    every one within 2 lr."""
+    for path, a, w in _pairs(port_state, jax_state):
+        if path[0].name != "params":
+            continue
+        d = np.abs(a - w)
+        tol = 1e-5 * max(np.abs(w).max(), 1e-30)
+        if compress:
+            assert (d <= tol).mean() >= 0.99 and d.max() <= 2e-2, path
+        else:
+            assert d.max() <= tol, path
+
+
+@pytest.mark.parametrize("name,compress", [("deepseek-v3-671b", False),
+                                           ("granite-3-8b", True)],
+                         ids=["plain", "ef"])
+def test_jax_checkpoint_restores_in_the_port(tmp_path, name, compress):
+    """JAX trains 2 steps and saves; the port restores exactly those arrays
+    into its own state's structure and trains 2 more, as JAX does."""
+    cfg = _cfg(name)
+    jstate, jstep = _jax_state(cfg, compress)
+    pipe = TokenPipeline(cfg.vocab_size, 2, 16, seed=1)
+    jb = lambda i: {k: jnp.asarray(v) for k, v in pipe.batch_at(i).items()}
+    for i in range(2):
+        jstate, _ = jstep(jstate, jb(i))
+    JC.save(jstate, str(tmp_path), 2)
+
+    template = convert.train_state_from_numpy(
+        cfg, jax.tree.map(np.asarray, _jax_state(cfg, compress)[0]), "cpu")
+    state, used = C.restore(template, str(tmp_path))
+    assert used == 2 and int(state.step) == 2
+    assert state.params is not template.params
+    assert (state.ef is None) == (not compress)
+    for path, a, w in _pairs(state, jstate):
+        assert np.array_equal(a, w), path
+    # the port writes the same manifest for the state it restored
+    C.save(state, str(tmp_path / "port"), 2)
+    assert _manifest(tmp_path / "port", 2)["leaves"] == _manifest(tmp_path, 2)["leaves"]
+
+    step = _port_step(cfg, compress)
+    for i in range(2, 4):
+        jstate, jm = jstep(jstate, jb(i))
+        state, m = step(state, pipe.batch_at(i))
+        np.testing.assert_allclose(float(m["loss"]), float(jm["loss"]), rtol=1e-5)
+    _params_close(state, jstate, compress)
+
+
+def test_port_checkpoint_restores_in_jax(tmp_path):
+    cfg = _cfg()
+    jstate0, jstep = _jax_state(cfg, True)
+    state = convert.train_state_from_numpy(cfg, jax.tree.map(np.asarray, jstate0),
+                                           "cpu")
+    step = _port_step(cfg, True)
+    pipe = TokenPipeline(cfg.vocab_size, 2, 16, seed=1)
+    for i in range(2):
+        state, _ = step(state, pipe.batch_at(i))
+    mgr = C.CheckpointManager(str(tmp_path))
+    mgr.save_async(state, 2)
+    mgr.wait()
+    jstate, used = JC.restore(jstate0, str(tmp_path))
+    assert used == 2 and int(jstate.step) == 2
+    for path, a, w in _pairs(state, jstate):
+        assert np.array_equal(a, w), path
+    jstate = jax.tree.map(jnp.asarray, jstate)
+    for i in range(2, 4):
+        jstate, jm = jstep(jstate, {k: jnp.asarray(v)
+                                    for k, v in pipe.batch_at(i).items()})
+        state, m = step(state, pipe.batch_at(i))
+        np.testing.assert_allclose(float(m["loss"]), float(jm["loss"]), rtol=1e-5)
+    _params_close(state, jstate, True)
+
+
+def test_bf16_train_state_checkpoint(tmp_path):
+    """bfloat16 params: the port writes them as the JAX package does (raw
+    two bytes, manifest dtype bfloat16; the manifests are equal) and
+    restores both packages' files bit for bit."""
+    cfg = configs.get_smoke("granite-3-8b")
+    assert cfg.param_dtype == "bfloat16"
+    opt = JT.adamw(JT.warmup_cosine(1e-3, 1, 10))
+    jstate = JT.init_train_state(JM.init_params(jax.random.PRNGKey(0), cfg), opt)
+    JC.save(jstate, str(tmp_path / "jax"), 1)
+    state = convert.train_state_from_numpy(cfg, jax.tree.map(np.asarray, jstate),
+                                           "cpu")
+    assert state.params.embed.table.dtype == torch.bfloat16
+    C.save(state, str(tmp_path / "port"), 1)
+    assert _manifest(tmp_path / "port", 1)["leaves"] == _manifest(tmp_path / "jax", 1)["leaves"]
+    for src in ("jax", "port"):
+        got, _ = C.restore(state, str(tmp_path / src))
+        for a, b in zip(got.params.parameters(), state.params.parameters()):
+            assert a.dtype == torch.bfloat16 and torch.equal(a, b)
+        assert int(got.step) == 0
