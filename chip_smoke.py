@@ -401,6 +401,33 @@ prints no result line):
                granite-3-8b's published width cut to 4 layers, bf16, 4 x
                1024: the grads with remat bit for bit those without, and
                the peak memory of each.
+11. roofline -- after phase 10, in a frame of its own; the card's name,
+               power limit and ``total_memory`` on its first line.  11a:
+               ``roofline.analyze`` rows (the H100's figures: 989.4
+               TFLOP/s bf16, 3.35 TB/s, 80 GB) of the LM cells 9b and 10b
+               measure: granite-3-8b decode at batch 4 over 9b's 48-slot
+               cache and prefill 4 x 32, granite-3-8b training 4 x 1024
+               (Adafactor, remat) and h2o-danube-1.8b training 4 x 1024
+               (AdamW): analytic FLOPs, bytes, each term, the bound, the
+               measured time, the share of the bf16 peak (model FLOPs over
+               time x peak) and the roofline fraction; the training floor
+               (6 N T at the peak) must be 208.0 ms and the decode bound
+               5.00 ms, within 1%.  11b: ``launch.dryrun`` of both
+               training cells on the card's 1 x 1 mesh (the meta device):
+               argument bytes of params, optimizer state and step equal to
+               what phase 10's state holds on the card; counted over
+               analytic FLOPs inside [0.85, 1.00]; the peak estimate
+               (arguments plus the step's peak of live bytes) within 3% of
+               10b's ``max_memory_allocated``.  11c: ``kernels.autotune``
+               (CUDA events, 20 calls after a warm one; the cache in a
+               temporary directory) on ``ell_spmv`` and ``ell_spmm``
+               (k = 8) at 1,048,576 x W, W = 12 and 16 ("rows" against
+               "group"), and on ``bcsr_spmm`` over lap2d_1024's 4 x 4 and
+               16 x 16 blocks at R = 1 and 8 ("smem" against "first"):
+               each candidate's µs, the winner, the bytes bound; every
+               candidate must run, ``lookup`` return the winner and
+               ``ell_spmv.pick_variant`` (the rows-or-group wrappers'
+               rule, which consults the cache) pick it.
 
 The last three lines are the kernels JSON, the card's
 ``nvidia-smi --query-gpu=name,power.limit`` line, and the result JSON.
@@ -624,6 +651,21 @@ TRAIN_ADAMW_ARGV = ["--arch", TRAIN_ADAMW, "--batch", "4", "--seq", "1024",
                     "--steps", "5"]
 TRAIN_REMAT_LAYERS = 4              # 10d: granite's width, 4 layers
 BF16_PEAK_FLOPS = 989.4e12          # H100 SXM dense bf16 (data sheet)
+
+# phase 11, the roofline, the dry run and the timer.  11a: the floors
+# PERF.md reached by hand, reproduced by roofline.analyze to ROOF_TOL;
+# 11b: the dry run on "card" (meta device) against phase 10: counted over
+# analytic FLOPs inside DRY_FLOP_BAND (what the count leaves out:
+# launch/dryrun.py), its peak estimate within DRY_PEAK_TOL of
+# max_memory_allocated; 11c: kernels.autotune at the two cases PERF.md
+# had not measured
+ROOF_FLOORS_MS = {("train", TRAIN_FULL): 208.0, ("decode", LM_FULL): 5.00}
+ROOF_TOL = 0.01
+DRY_FLOP_BAND = (0.85, 1.00)
+DRY_PEAK_TOL = 0.03
+TIMER_WIDTHS = (12, 16)             # the rows kernels' W
+TIMER_BLOCKS = (4, 16)              # bcsr_spmm's bm = bn, on lap2d_1024
+TIMER_REPS = 20
 
 
 def ft_scenario(engines: dict, case: dict, b):
@@ -1341,10 +1383,11 @@ def rel_err(got, want) -> float:
     return float((got - want).abs().max()) / max(float(want.abs().max()), 1e-30)
 
 
-def lm_phase(failed: list) -> None:
+def lm_phase(failed: list) -> dict:
     """Phase 9: LM serving (``repro_torch.models``, ``serve.generate``,
     ``SlotServer``, ``launch.serve --arch``).  Each sub-phase that fails
-    adds its name to ``failed``."""
+    adds its name to ``failed``.  Returns 9b's measurements of
+    granite-3-8b (empty where 9b failed)."""
     import contextlib
     import io
 
@@ -1629,6 +1672,7 @@ def lm_phase(failed: list) -> None:
         failed.append("lm moe")
     torch.cuda.empty_cache()
     say(f"lm phase: {now() - t_phase:.1f} s")
+    return full
 
 
 def train_batch(cfg, shape, step: int = 0, seed: int = TRAIN_SEED) -> dict:
@@ -1721,10 +1765,12 @@ def cli_json(main, argv) -> tuple:
     return rc, json.loads(text[text.index("{"):]), now() - t0
 
 
-def train_phase(failed: list) -> None:
+def train_phase(failed: list) -> dict:
     """Phase 10: LM training (``models.model.loss_fn``, ``train``,
     ``ft.RestartManager``, ``launch.train``).  Each sub-phase that fails
-    adds its name to ``failed``."""
+    adds its name to ``failed``.  Returns 10b's measurements by arch:
+    ``full_run``'s dict and ``held``, the bytes the step's state holds
+    on the card (params, optimizer state, step)."""
     import math
     import tempfile
 
@@ -1738,6 +1784,7 @@ def train_phase(failed: list) -> None:
     from repro_torch.data import TokenPipeline
     from repro_torch.ft import RestartManager
     from repro_torch.launch import train as train_cli
+    from repro_torch.launch.sharding import tree_leaves
     from repro_torch.models import model as M
     from repro_torch.obs.clock import now
     from repro_torch.train.step import as_batch, value_and_grad
@@ -1882,6 +1929,10 @@ def train_phase(failed: list) -> None:
             cfg, torch.Generator(device="cuda").manual_seed(TRAIN_SEED), "cuda")
         state = T.init_train_state(params, opt)
         del params
+        nbytes = lambda ts: sum(t.numel() * t.element_size() for t in ts)
+        held = {"params": nbytes(state.params.parameters()),
+                "opt_state": nbytes(tree_leaves(state.opt_state).values()),
+                "step": nbytes([state.step])}
         pipe = TokenPipeline(cfg.vocab_size, batch, seq, seed=0)
         leaves = M.param_leaves(state.params)
         parts = {"forward+backward": [], "clip": [], "optimizer": [], "step": []}
@@ -1926,22 +1977,26 @@ def train_phase(failed: list) -> None:
             f"card; the largest: "
             + json.dumps([(k[:60], round(v, 2)) for k, v in top]))
         del state
+        return held
 
+    trained = {}
     try:
         cfg, full = full_run(TRAIN_FULL, TRAIN_FULL_ARGV, "full")
         if abs(full["loss_first"] - full["ln_vocab"]) > 1.0:
             raise AssertionError(f"loss_first {full['loss_first']} is not near "
                                  f"ln V = {full['ln_vocab']}")
-        step_parts(cfg, T.adafactor(T.warmup_cosine(3e-3, 2, 5)),
-                   TRAIN_FULL_ARGV, "full")
+        held = step_parts(cfg, T.adafactor(T.warmup_cosine(3e-3, 2, 5)),
+                          TRAIN_FULL_ARGV, "full")
+        trained[TRAIN_FULL] = dict(full, held=held)
     except Exception:
         traceback.print_exc()
         failed.append("train full width")
     torch.cuda.empty_cache()
     try:
-        cfg, _ = full_run(TRAIN_ADAMW, TRAIN_ADAMW_ARGV, "adamw")
-        step_parts(cfg, T.adamw(T.warmup_cosine(3e-3, 2, 5)),
-                   TRAIN_ADAMW_ARGV, "adamw")
+        cfg, out = full_run(TRAIN_ADAMW, TRAIN_ADAMW_ARGV, "adamw")
+        held = step_parts(cfg, T.adamw(T.warmup_cosine(3e-3, 2, 5)),
+                          TRAIN_ADAMW_ARGV, "adamw")
+        trained[TRAIN_ADAMW] = dict(out, held=held)
     except Exception:
         traceback.print_exc()
         failed.append("train adamw")
@@ -2044,6 +2099,218 @@ def train_phase(failed: list) -> None:
         failed.append("train remat")
     torch.cuda.empty_cache()
     say(f"train phase: {now() - t_phase:.1f} s")
+    return trained
+
+
+def roofline_phase(failed: list, lm: dict, trained: dict) -> None:
+    """Phase 11: ``roofline.analyze`` on the LM cells phases 9b and 10b
+    measured (11a), ``launch.dryrun`` on the card's 1 x 1 mesh against
+    phase 10 (11b) and ``kernels.autotune`` at the rows kernels' W = 12
+    and 16 and ``bcsr_spmm``'s bn = 4 and 16 (11c).  Each sub-phase that
+    fails adds its name to ``failed``."""
+    import os
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get
+    from repro_torch.core.formats import bcsr_arrays_from_csr
+    from repro_torch.data.matrices import laplacian_2d
+    from repro_torch.kernels import autotune, bcsr_spmm, ell_spmv
+    from repro_torch.launch import dryrun
+    from repro_torch.obs.clock import now
+    from repro_torch.roofline import analyze as RA
+
+    t_phase = now()
+    smi = smi_line()
+    total = torch.cuda.get_device_properties(0).total_memory
+    say(f"roofline phase: {torch.cuda.get_device_name(0)}, total_memory "
+        f"{total} bytes ({total / 1e9:.2f} GB; the model's HBM_BYTES "
+        f"{RA.HBM_BYTES / 1e9:.0f} GB); peaks {RA.PEAK_FLOPS / 1e12:.1f} "
+        f"TFLOP/s bf16, {RA.HBM_BW / 1e12:.2f} TB/s, link "
+        f"{RA.LINK_BW / 1e9:.0f} GB/s; on {smi}")
+
+    # -- 11a: roofline rows of the measured LM cells -------------------------
+    try:
+        cells = [
+            ("decode", LM_FULL, 48, 4, lm.get("decode_ms_median"),
+             "9b decode, median"),
+            ("prefill", LM_FULL, 32, 4,
+             min(lm["prefill_ms"]) if lm.get("prefill_ms") else None,
+             "9b prefill, warm"),
+            ("train", TRAIN_FULL, 1024, 4,
+             trained.get(TRAIN_FULL, {}).get("warm_step_ms"),
+             "10b adafactor, remat"),
+            ("train", TRAIN_ADAMW, 1024, 4,
+             trained.get(TRAIN_ADAMW, {}).get("warm_step_ms"),
+             "10b adamw, remat"),
+        ]
+        bad = []
+        for kind, arch, seq, batch, ms, what in cells:
+            cfg = get(arch)
+            row = RA.roofline_row({"arch": arch, "shape": f"{kind}_{batch}x{seq}",
+                                   "mesh": "card", "devices": 1, "kind": kind,
+                                   "seq": seq, "global_batch": batch}, cfg)
+            ana = RA.analytic_cell(cfg, kind, seq, batch)
+            floor_ms = row.model_flops / RA.PEAK_FLOPS * 1e3
+            bound_ms = row.t_bound() * 1e3
+            out = {"arch": arch, "kind": kind, "batch": batch, "seq": seq,
+                   "analytic_flops": ana["flops"], "model_flops": ana["model_flops"],
+                   "hbm_bytes": ana["hbm_bytes"],
+                   "t_compute_ms": row.t_compute * 1e3,
+                   "t_memory_ms": row.t_memory * 1e3,
+                   "t_collective_ms": row.t_collective * 1e3,
+                   "dominant": row.dominant, "bound_ms": bound_ms,
+                   "model_floor_ms": floor_ms,
+                   "frac_of_roofline": row.frac_of_roofline(),
+                   "measured_ms": ms, "measured": what}
+            if ms is not None:
+                out["bf16_peak_share"] = row.model_flops / (ms * 1e-3 * RA.PEAK_FLOPS)
+                out["bound_over_measured"] = bound_ms / ms
+            else:
+                bad.append(f"{arch} {kind}: not measured (its phase failed)")
+            want = ROOF_FLOORS_MS.get((kind, arch))
+            if want is not None:
+                got = floor_ms if kind == "train" else bound_ms
+                out["perf_md_floor_ms"] = want
+                if abs(got - want) > ROOF_TOL * want:
+                    bad.append(f"{arch} {kind}: floor {got:.3f} ms, PERF.md {want}")
+            say("roofline " + json.dumps(out) + f"; on {smi}")
+        if bad:
+            raise AssertionError("; ".join(bad))
+        say(f"roofline ok: the {ROOF_FLOORS_MS[('train', TRAIN_FULL)]} ms "
+            f"training floor and the {ROOF_FLOORS_MS[('decode', LM_FULL)]} ms "
+            f"decode floor reproduced within {ROOF_TOL:.0%}")
+    except Exception:
+        traceback.print_exc()
+        failed.append("roofline")
+
+    # -- 11b: the dry run on the card's mesh against phase 10 ----------------
+    try:
+        bad = []
+        for arch, opt in ((TRAIN_FULL, "adafactor"), (TRAIN_ADAMW, "adamw")):
+            res = dryrun.run_cell(arch, ("train", 1024, 4), "card",
+                                  variant="ga1", optimizer=opt)
+            mem, parts = res["memory_analysis"], res["argument_bytes_by_part"]
+            row = RA.roofline_row(res, get(arch))
+            ratio = res["counted_flops"] / row.analytic_flops
+            state = parts["params"] + parts["opt_state"] + parts["step"]
+            got = trained.get(arch, {})
+            held = got.get("held")
+            peak = got.get("peak_bytes")
+            out = {"arch": arch, "optimizer": opt, "argument_bytes": parts,
+                   "state_bytes": state, "held_on_card": held,
+                   "counted_flops": res["counted_flops"],
+                   "analytic_flops": row.analytic_flops,
+                   "counted_over_analytic": ratio,
+                   "temp_bytes": mem["temp_size_in_bytes"],
+                   "peak_estimate_bytes": row.hbm_used,
+                   "max_memory_allocated": peak,
+                   "peak_estimate_over_measured":
+                       row.hbm_used / peak if peak else None,
+                   "fits_hbm": row.fits_hbm, "meta_run_s": res["run_s"]}
+            say("dryrun card " + json.dumps(out) + f"; on {smi}")
+            if held is None or peak is None:
+                bad.append(f"{arch}: phase 10 did not measure it")
+                continue
+            if sum(held.values()) != state or held["params"] != parts["params"] \
+                    or held["opt_state"] != parts["opt_state"]:
+                bad.append(f"{arch}: argument bytes {parts} vs held {held}")
+            if not DRY_FLOP_BAND[0] <= ratio <= DRY_FLOP_BAND[1]:
+                bad.append(f"{arch}: counted / analytic FLOPs {ratio:.4f} "
+                           f"outside {DRY_FLOP_BAND}")
+            if abs(row.hbm_used / peak - 1) > DRY_PEAK_TOL:
+                bad.append(f"{arch}: peak estimate {row.hbm_used} vs "
+                           f"max_memory_allocated {peak}")
+        if bad:
+            raise AssertionError("; ".join(bad))
+        say(f"dryrun ok: argument bytes equal the state on the card, counted "
+            f"FLOPs inside {DRY_FLOP_BAND} of analytic_cell, peak estimates "
+            f"within {DRY_PEAK_TOL:.0%} of max_memory_allocated")
+    except Exception:
+        traceback.print_exc()
+        failed.append("dryrun")
+
+    # -- 11c: the timer at the rows kernels' W = 12, 16 and bcsr bn = 4, 16 --
+    prev = os.environ.get("REPRO_TORCH_AUTOTUNE_CACHE")
+    try:
+        with tempfile.TemporaryDirectory() as d:
+            os.environ["REPRO_TORCH_AUTOTUNE_CACHE"] = os.path.join(d, "autotune.json")
+            autotune.clear_memo()
+            gen = torch.Generator(device="cuda").manual_seed(0)
+            results = []
+
+            def tune(op, shape, cands, build, bytes_):
+                timings = []
+                best = autotune.autotune(op, shape, torch.float64, cands, build,
+                                         reps=TIMER_REPS, timings=timings)
+                us = {c["variant"]: t for c, t in timings}
+                if best is None or any(t is None for t in us.values()):
+                    raise AssertionError(f"{op} {shape}: a variant failed: {us}")
+                if autotune.lookup(op, shape, torch.float64) != best:
+                    raise AssertionError(f"{op} {shape}: lookup != {best}")
+                results.append({"op": op, "shape": list(shape), "us": us,
+                                "winner": best["variant"],
+                                "bound_us": bytes_ / HBM_BYTES_PER_S * 1e6})
+                say("timer " + json.dumps(results[-1]) + f"; on {smi}")
+                return best["variant"]
+
+            n = MAIN_GRID * MAIN_GRID
+            for w in TIMER_WIDTHS:
+                cols, vals = random_ell(n, w, w, torch.float64, gen)
+                x = torch.randn(n, generator=gen, device="cuda", dtype=torch.float64)
+                X = torch.randn(MAIN_BATCH, n, generator=gen, device="cuda",
+                                dtype=torch.float64)
+                mat = cols.numel() * 4 + vals.numel() * 8
+                cands = [{"variant": v} for v in ell_spmv.SPMV_VARIANTS]
+                won = tune("ell_spmv", (n, w), cands,
+                           lambda variant: lambda: ell_spmv.ell_spmv(cols, vals, x, variant),
+                           mat + 2 * n * 8)
+                won_k = tune("ell_spmm", (n, w, MAIN_BATCH), cands,
+                             lambda variant: lambda: ell_spmv.ell_spmm(cols, vals, X, variant),
+                             mat + 2 * MAIN_BATCH * n * 8)
+                # the wrappers now launch the recorded winners
+                picked = (ell_spmv.pick_variant("ell_spmv", cols, vals, None),
+                          ell_spmv.pick_variant("ell_spmm", cols, vals, None,
+                                                MAIN_BATCH))
+                if picked != (won, won_k):
+                    raise AssertionError(f"W = {w}: the wrappers pick {picked}, "
+                                         f"the timer recorded {(won, won_k)}")
+                del cols, vals, x, X
+            m = laplacian_2d(MAIN_GRID)
+            for b in TIMER_BLOCKS:
+                bc, bl = bcsr_arrays_from_csr(m, bm=b, bn=b, dtype=np.float64)
+                bc, bl = torch.from_numpy(bc).cuda(), torch.from_numpy(bl).cuda()
+                nbr, w = bc.shape
+                nbc = -(-n // b)
+                for r in (1, MAIN_BATCH):
+                    X = torch.randn(r, nbc * b, generator=gen, device="cuda",
+                                    dtype=torch.float64).T   # the solver layout
+                    cands = [{"variant": v} for v in bcsr_spmm.BCSR_VARIANTS]
+                    tune("bcsr_spmm", (nbr, w, b, b, r), cands,
+                         lambda variant, X=X: lambda: bcsr_spmm.bcsr_spmm(
+                             bc, bl, X, nbc=nbc, variant=variant),
+                         bl.numel() * 8 + bc.numel() * 4 + (nbc * b + nbr * b) * r * 8)
+                del bc, bl
+            losers = [r for r in results if r["winner"] != (
+                "rows" if r["op"] != "bcsr_spmm" else "smem")]
+            say(f"timer ok: {len(results)} cases, the cache in a temporary "
+                f"directory; the variant the shape rule picks lost in "
+                f"{len(losers)}: " + json.dumps(
+                    [(r["op"], r["shape"], r["winner"]) for r in losers])
+                + "; ell_spmv and ell_spmm pick the recorded winners")
+    except Exception:
+        traceback.print_exc()
+        failed.append("timer")
+    finally:
+        if prev is None:
+            os.environ.pop("REPRO_TORCH_AUTOTUNE_CACHE", None)
+        else:
+            os.environ["REPRO_TORCH_AUTOTUNE_CACHE"] = prev
+        autotune.clear_memo()
+    torch.cuda.empty_cache()
+    say(f"roofline phase: {now() - t_phase:.1f} s")
 
 
 def say(*parts) -> None:
@@ -3471,14 +3738,19 @@ def main() -> int:
               "needs an NVIDIA card", file=sys.stderr)
         return 2
     failed: list[str] = []
-    card, smi, rows_out = earlier_phases(failed)
+    card, smi, rows_out, lm = earlier_phases(failed)
     # phases 1-9's engines, plans, graphs and pools go with their frame
     gc.collect()
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
 
     # -- 10. LM training ----------------------------------------------------------
-    train_phase(failed)
+    trained = train_phase(failed)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- 11. the roofline, the dry run and the timer -----------------------------
+    roofline_phase(failed, lm, trained)
 
     if failed:
         say("FAILED phases: " + ", ".join(failed))
@@ -3492,7 +3764,8 @@ def main() -> int:
 
 def earlier_phases(failed: list) -> tuple:
     """Phases 1-9; returns (card name, nvidia-smi line, the kernels JSON
-    rows).  Everything they build lives in this frame and goes with it."""
+    rows, phase 9b's measurements).  Everything they build lives in this
+    frame and goes with it."""
     import torch
     import numpy as np
     import scipy.sparse as sp
@@ -5290,8 +5563,8 @@ def earlier_phases(failed: list) -> tuple:
     grid_phase(failed)
 
     # -- 9. LM serving -----------------------------------------------------------
-    lm_phase(failed)
-    return card, smi, rows_out
+    lm = lm_phase(failed)
+    return card, smi, rows_out, lm
 
 
 if __name__ == "__main__":

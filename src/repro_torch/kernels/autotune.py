@@ -1,10 +1,22 @@
-"""Per-matrix storage-format choice by modeled matrix-stream words, with a
-persistent JSON cache.
+"""Kernel-variant autotuner and per-matrix storage-format choice, with a
+persistent JSON cache (port of ``repro.kernels.autotune``).
 
-Port of the format half of ``repro.kernels.autotune``: ``row_stats``,
-``modeled_format_words``, ``choose_format`` and the cache it reads and
-records (``lookup_format``, ``record_format``).  The timing tile
-autotuner of the JAX package is not ported.
+The timing half: :func:`autotune` times candidate launch settings of an
+op at a concrete shape and records the winner keyed by ``(op, shape,
+dtype, backend)`` (:func:`make_key`; the backend is ``cuda`` where the
+card is, else ``cpu``); :func:`lookup` reads it back, :func:`record`
+writes it, :func:`tile_candidates` lists an axis's tile sizes.  The port's
+kernels take no tile sizes: a candidate is a dict of the keyword arguments
+a wrapper takes, which are its forced variants -- ``variant=`` of
+``ell_spmv``/``ell_spmm`` and the ``spmv_dot`` wrappers (``rows`` or
+``group``, ``ell_spmv.pick_variant``) and of ``bcsr_spmm`` (``smem`` or
+``first``, at the block widths ``bcsr_spmm.COMPILED_BN``).  A record keeps
+the JAX entry's format, ``{"tiles": {...}, "us": float}``: a variant's
+name is stored as its string, every other entry as an int.
+
+The format half: ``row_stats``, ``modeled_format_words``, ``choose_format``
+and the cache entries it reads and records (``lookup_format``,
+``record_format``; backend ``host``).
 
 Cache location: ``$REPRO_TORCH_AUTOTUNE_CACHE`` if set, else
 ``~/.cache/repro_torch/autotune.json`` -- the port's own file, never the
@@ -21,13 +33,17 @@ from __future__ import annotations
 import json
 import os
 import tempfile
-from typing import Iterable
+from typing import Callable, Iterable
 
 import numpy as np
+import torch
+
+from ..obs import clock
 
 __all__ = ["FORMAT_HYSTERESIS", "cache_path", "clear_memo", "make_key",
-           "row_stats", "modeled_format_words", "lookup_format",
-           "record_format", "choose_format"]
+           "lookup", "record", "tile_candidates", "autotune",
+           "default_backend", "row_stats", "modeled_format_words",
+           "lookup_format", "record_format", "choose_format"]
 
 _ENV = "REPRO_TORCH_AUTOTUNE_CACHE"
 _AUTO_FORMATS = ("ell", "sell", "hyb")
@@ -85,10 +101,32 @@ def _save(cache: dict) -> None:
             pass
 
 
+def default_backend() -> str:
+    """``cuda`` where a card is visible, else ``cpu``."""
+    return "cuda" if torch.cuda.is_available() else "cpu"
+
+
+def _dtype_name(dtype) -> str:
+    if isinstance(dtype, torch.dtype):
+        return str(dtype).removeprefix("torch.")
+    return np.dtype(dtype).name   # np.dtype / numpy scalar types / strs
+
+
 def make_key(op: str, shape: Iterable[int], dtype,
-             backend: str = "host") -> str:
-    dt = np.dtype(dtype).name
-    return f"{op}|{'x'.join(str(int(s)) for s in shape)}|{dt}|{backend}"
+             backend: str | None = None) -> str:
+    backend = backend or default_backend()
+    return f"{op}|{'x'.join(str(int(s)) for s in shape)}|{_dtype_name(dtype)}|{backend}"
+
+
+def lookup(op: str, shape: Iterable[int], dtype,
+           backend: str | None = None) -> dict | None:
+    """Cached candidate dict for this op/shape/dtype/backend, or None."""
+    ent = _load().get(make_key(op, shape, dtype, backend))
+    if not isinstance(ent, dict) or "tiles" not in ent:
+        # format entries (and hand-edited junk) share the file but carry
+        # no candidate dict
+        return None
+    return dict(ent["tiles"])
 
 
 class _cache_lock:
@@ -115,6 +153,92 @@ class _cache_lock:
             fcntl.flock(self._fd, fcntl.LOCK_UN)
             os.close(self._fd)
         return False
+
+
+def record(op: str, shape, dtype, tiles: dict, us: float,
+           backend: str | None = None) -> None:
+    """Persist one winner (locked read-merge-replace against the disk
+    state).  A variant name stays a string; every other entry is cast to
+    int, as the JAX package casts its tiles."""
+    global _memo, _memo_path
+    path = cache_path()
+    with _cache_lock(path):
+        cache = dict(_load())            # entries this process knows...
+        cache.update(_read_disk(path))   # ...but the disk state is newer
+        cache[make_key(op, shape, dtype, backend)] = {
+            "tiles": {k: v if isinstance(v, str) else int(v)
+                      for k, v in tiles.items()},
+            "us": round(float(us), 3),
+        }
+        _memo, _memo_path = cache, path
+        _save(cache)
+
+
+def tile_candidates(total: int, quantum: int = 8, cap: int = 512) -> list[int]:
+    """Divisors of ``total`` that are multiples of ``quantum`` (plus
+    ``total`` itself if none) -- the valid tile sizes for one axis."""
+    out = [d for d in range(quantum, min(total, cap) + 1, quantum) if total % d == 0]
+    if not out:
+        out = [total]
+    return out
+
+
+def _timed_us(f, reps: int, cuda: bool) -> float:
+    """µs a call of ``f`` after a warm call: CUDA events around ``reps``
+    calls on the card, ``obs.clock`` on the CPU."""
+    if cuda:
+        torch.cuda.synchronize()
+        f()
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            f()
+        stop.record()
+        stop.synchronize()
+        return start.elapsed_time(stop) / reps * 1e3
+    f()
+    t0 = clock.now()
+    for _ in range(reps):
+        f()
+    return (clock.now() - t0) / reps * 1e6
+
+
+def autotune(
+    op: str,
+    shape: Iterable[int],
+    dtype,
+    candidates: Iterable[dict],
+    build: Callable[..., Callable[[], object]],
+    reps: int = 5,
+    backend: str | None = None,
+    timings: list | None = None,
+) -> dict | None:
+    """Time each candidate and persist the winner.
+
+    ``build(**candidate)`` returns a zero-arg callable running the op with
+    that candidate (a forced variant); candidates that fail to build or
+    run (a variant the operands do not admit) are skipped.  On ``cuda``
+    each is timed by CUDA events over ``reps`` calls after a warm call, on
+    ``cpu`` by ``obs.clock`` (``time.perf_counter``).  Returns the winning dict (also
+    recorded in the cache) or None if nothing ran.  A ``timings`` list
+    gets (candidate, µs) for each, µs None where it failed."""
+    backend = backend or default_backend()
+    best, best_us = None, float("inf")
+    timings = [] if timings is None else timings
+    for cand in candidates:
+        try:
+            us = _timed_us(build(**cand), reps, backend == "cuda")
+        except Exception:
+            timings.append((cand, None))
+            continue
+        timings.append((cand, us))
+        if us < best_us:
+            best, best_us = cand, us
+    if best is not None:
+        record(op, shape, dtype, best, best_us, backend=backend)
+    return best
+
 
 # a compact format must save at least 1 - FORMAT_HYSTERESIS of the padded
 # ELL words to replace it
@@ -178,7 +302,7 @@ def modeled_format_words(csr, slice_height: int = 8, row_pad: int = 8) -> dict:
 
 def _format_key(stats: dict, dtype) -> str:
     shape = (stats["n_rows"], stats["n_cols"], stats["nnz"], stats["w_max"])
-    return make_key("format", shape, dtype)
+    return make_key("format", shape, dtype, backend="host")
 
 
 def lookup_format(csr, dtype=np.float32) -> str | None:

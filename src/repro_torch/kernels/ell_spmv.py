@@ -8,15 +8,16 @@ design.  The plain PyTorch versions beside them are :func:`ell_spmv_plain`
 and :func:`ell_spmm_plain` (``ref.ell_spmv_ref``, ``ref.ell_spmm_ref``).
 
 ``ell_spmv`` and ``ell_spmm`` each have two variants that compute the
-same bits (:data:`SPMV_VARIANTS`); :func:`spmv_variant` picks one from the
-ELL width and the operands' alignment.
+same bits (:data:`SPMV_VARIANTS`); :func:`pick_variant` takes a forced
+one, else the winner ``kernels.autotune`` recorded at the shape, else
+:func:`spmv_variant`'s from the ELL width and the operands' alignment.
 """
 
 from __future__ import annotations
 
 import torch
 
-from . import build
+from . import autotune, build
 from .ref import ell_spmm_ref as ell_spmm_plain
 from .ref import ell_spmv_ref as ell_spmv_plain
 
@@ -61,15 +62,24 @@ def rows_grid(rows: int, width: int, sms: int = 132) -> int:
 
 
 def pick_variant(name: str, cols: torch.Tensor, vals: torch.Tensor,
-                 variant: str | None) -> str:
+                 variant: str | None, k: int | None = None) -> str:
     """The variant a rows-or-group wrapper (``ell_spmv``, ``ell_spmm`` and
-    the ``spmv_dot`` kernels) launches: :func:`spmv_variant` of the width and
-    the 16-byte alignment of ``cols`` and ``vals``, or ``variant`` if one
-    is forced; a forced "rows" on an operand it cannot take raises."""
-    w = cols.shape[1]
+    the ``spmv_dot`` kernels) launches: ``variant`` if one is forced (a
+    forced "rows" on an operand it cannot take raises); else the winner
+    ``kernels.autotune`` recorded for ``name`` at (rows, W) or, for a
+    batch of ``k``, (rows, W, k), in this dtype on this backend, where the
+    operands admit it; else :func:`spmv_variant` of the width and the
+    16-byte alignment of ``cols`` and ``vals``.  Every variant gives the
+    same bits, so a cache entry changes only the time."""
+    rows, w = cols.shape
     aligned = (cols.data_ptr() | vals.data_ptr()) % 16 == 0
     if variant is None:
-        return spmv_variant(w, aligned)
+        rule = spmv_variant(w, aligned)
+        shape = (rows, w) if k is None else (rows, w, k)
+        tuned = (autotune.lookup(name, shape, vals.dtype) or {}).get("variant")
+        if tuned == "group" or (tuned == "rows" and rule == "rows"):
+            return tuned
+        return rule
     if variant not in SPMV_VARIANTS:
         raise ValueError(f"{name}: variant {variant!r} not in {SPMV_VARIANTS}")
     if variant == "rows" and spmv_variant(w, aligned) != "rows":
@@ -143,7 +153,7 @@ def ell_spmm(cols: torch.Tensor, vals: torch.Tensor, x: torch.Tensor,
     k, ldx = x.shape
     if rows == 0 or w == 0 or k == 0 or ldx == 0:
         raise ValueError("ell_spmm: empty operator or batch")
-    variant = pick_variant("ell_spmm", cols, vals, variant)
+    variant = pick_variant("ell_spmm", cols, vals, variant, k)
     y = torch.empty(k, rows, dtype=vals.dtype, device=vals.device)
     if variant == "group":
         fn = build.entry("repro_ell_spmm", vals.dtype)

@@ -14,8 +14,9 @@ gives their bounds and design.  The plain PyTorch versions are the
 
 Each wrapper launches one of two variants, which give the same bits in
 every output (``ell_spmv.SPMV_VARIANTS``, picked by
-``ell_spmv.pick_variant`` from the ELL width and the 16-byte alignment of
-cols and vals, or forced with ``variant=``): "rows", a thread a row with
+``ell_spmv.pick_variant``: forced with ``variant=``, else an autotuned
+winner at the shape, else from the ELL width and the 16-byte alignment
+of cols and vals): "rows", a thread a row with
 16-byte streaming loads, for W a multiple of 4 up to 16, on the grid of
 :func:`rows_grid`; "group", the first slice's row groups, for any W.
 The kernels are bound by memory: the matrix once for all lanes, plus z
@@ -138,7 +139,7 @@ def ell_spmm_pfold_dot(cols: torch.Tensor, vals: torch.Tensor,
     beta = build.device_lanes(beta, k, dt, dev)
     build.require_cuda("ell_spmm_pfold_dot", dt, dev, cols=cols, vals=vals,
                        z=z, p=p, beta=beta)
-    variant = pick_variant("ell_spmm_pfold_dot", cols, vals, variant)
+    variant = pick_variant("ell_spmm_pfold_dot", cols, vals, variant, k)
     pn = torch.empty(k, rows, dtype=dt, device=dev)
     y = torch.empty(k, rows, dtype=dt, device=dev)
     partials = torch.empty(k, pap_blocks(rows, w), dtype=dt, device=dev)
@@ -216,7 +217,7 @@ def ell_spmm_dot(cols: torch.Tensor, vals: torch.Tensor, x: torch.Tensor,
         raise ValueError(f"ell_spmm_dot: x strides {x.stride()}: need a "
                          "row-major (rows_p, k) tensor or the transposed view "
                          "of a contiguous (k, rows_p) one")
-    variant = pick_variant("ell_spmm_dot", cols, vals, variant)
+    variant = pick_variant("ell_spmm_dot", cols, vals, variant, k)
     sr, sl = y.stride()                # equal to x's where its size > 1
     partials = torch.empty(k, pap_blocks(rows, w), dtype=dt, device=dev)
     pap = torch.empty(k, dtype=dt, device=dev)

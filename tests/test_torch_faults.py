@@ -36,6 +36,7 @@ import pytest
 import scipy.sparse as sp
 
 import repro.ft as jft
+from repro.obs import clock as jax_clock
 from repro.core import AzulEngine as JaxEngine
 from repro.core import SolveSpec as JaxSpec
 from repro.data.matrices import laplacian_2d as jax_lap2d
@@ -45,6 +46,7 @@ from repro_torch.core import AzulEngine, SolveSpec
 from repro_torch.core.stencil import lap2d_stencil
 from repro_torch.data.matrices import laplacian_2d
 from repro_torch.launch import solve as solve_cli
+from repro_torch.obs import clock
 
 pytestmark = pytest.mark.faults
 
@@ -446,7 +448,14 @@ def test_fault_metrics_and_span():
 
 
 def _cli_json(main, argv, capsys):
-    rc = main(argv)
+    """(exit code, JSON) of a CLI run under both packages' fake clocks: the
+    FT loops time their chunks with ``clock.now()``, so ``straggler_chunks``
+    does not depend on the machine's load (a ``delay`` fault's
+    ``time.sleep`` is not seen; ``test_delay_fault_lands_in_straggler_report``
+    holds that on the real clock)."""
+    with clock.override(clock.FakeClock()), \
+            jax_clock.override(jax_clock.FakeClock()):
+        rc = main(argv)
     return rc, json.loads(capsys.readouterr().out)
 
 

@@ -86,7 +86,9 @@ def test_port_imports_without_jax_or_repro():
                  "repro_torch.serve.engine", "repro_torch.data",
                  "repro_torch.data.pipeline", "repro_torch.train",
                  "repro_torch.train.optim", "repro_torch.train.step",
-                 "repro_torch.launch.train"):
+                 "repro_torch.launch.train", "repro_torch.roofline",
+                 "repro_torch.roofline.analyze", "repro_torch.launch.sharding",
+                 "repro_torch.launch.dryrun", "repro_torch.ft.remesh"):
         assert name in r.stdout.split(), name
 
 

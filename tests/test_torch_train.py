@@ -625,3 +625,120 @@ def test_cli_mesh_exits_2_and_the_default_device_is_cuda(capsys):
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="cuda"):
             train_cli.main(["--arch", "granite-3-8b", "--smoke", "--steps", "1"])
+
+
+def cli_losses(cfg, argv, capsys, monkeypatch):
+    """Both launchers' closing JSON, printed step losses (``printed``) and
+    every step's loss (``losses``) on ``argv`` (``--smoke`` or the arch's
+    name standing for ``cfg``): the JAX CLI as it is, its jitted step
+    wrapped to read each loss; the port's with ``--device cpu``, starting
+    from the JAX CLI's initial params (``init_params(PRNGKey(0))`` through
+    ``convert``), because the two generators differ."""
+    import re
+    import types
+
+    import repro.configs as jconfigs
+    from repro.launch import train as jax_train_cli
+
+    for mod in (jconfigs, configs):
+        monkeypatch.setattr(mod, "get_smoke", lambda name: cfg)
+        monkeypatch.setattr(mod, "get", lambda name: cfg)
+    start = convert.lm_params_from_numpy(
+        cfg, jax.tree.map(np.asarray, jax_params(cfg)), "cpu")
+    monkeypatch.setattr(M, "init_params", lambda c, gen, dev: start)
+    jax_losses = []
+
+    def jit(fn, **kw):
+        step = jax.jit(fn, **kw)
+
+        def run(state, batch):
+            state, m = step(state, batch)
+            jax_losses.append(float(m["loss"]))
+            return state, m
+        return run
+
+    monkeypatch.setattr(jax_train_cli, "jax", types.SimpleNamespace(
+        jit=jit, random=jax.random, device_put=jax.device_put))
+    out = {}
+    for side, main, extra in (("jax", jax_train_cli.main, []),
+                              ("port", train_cli.main, ["--device", "cpu"])):
+        assert main(argv + extra) == 0
+        text = capsys.readouterr().out
+        res = json.loads(text[text.index("{"):])
+        res["printed"] = {int(i): float(v) for i, v in
+                          re.findall(r"^step +(\d+) loss (\S+)", text, re.M)}
+        out[side] = res
+    out["jax"]["losses"] = jax_losses
+    return out["jax"], out["port"]
+
+
+@pytest.mark.parametrize("opt_name", ["adamw", "adafactor"])
+def test_cli_losses_match_jax(opt_name, capsys, monkeypatch):
+    """``launch.train --smoke`` for 6 steps at the launcher's lr 3e-3 in
+    both packages from the same params, f32: loss_first, loss_last, the
+    printed step losses and every step's loss within the loss tolerance,
+    rtol 1e-5."""
+    cfg = f32(configs.get_smoke("granite-3-8b"))
+    argv = ["--arch", "granite-3-8b", "--smoke", "--steps", "6", "--batch", "2",
+            "--seq", "16", "--optimizer", opt_name]
+    jres, res = cli_losses(cfg, argv, capsys, monkeypatch)
+    assert res["steps"] == jres["steps"] == len(jres["losses"]) == 6
+    assert sorted(res["printed"]) == sorted(jres["printed"]) == [0, 5]
+    for k in ("loss_first", "loss_last"):
+        np.testing.assert_allclose(res[k], jres[k], rtol=1e-5, err_msg=k)
+    np.testing.assert_allclose(res["losses"], jres["losses"], rtol=1e-5)
+    for i, want in jres["printed"].items():
+        # both print four decimals of the same loss
+        assert abs(res["printed"][i] - want) <= 1e-4
+
+
+@pytest.mark.parametrize("opt_name", ["adafactor", "adamw"])
+def test_cli_losses_full_width(opt_name, capsys, monkeypatch):
+    """granite-3-8b at its published width and dtype (bf16), cut to 2
+    layers, through both launchers at lr 3e-3 for 5 steps (2 x 32 tokens).
+
+    The first loss (the same params and batch; bf16 arithmetic in another
+    order) agrees within 1e-3.  Adafactor: the JAX CLI's params turn NaN
+    at step 0 (lr 0) because XLA's CPU backend flushes f32 denormals to
+    zero: after clipping, an embedding row whose grads are all 0 has
+    v_est = vr * vc / denom ~ 1e-30 * 3e-10, flushed to 0, so u = 0 / 0.
+    Run under ``torch.set_flush_denormal(True)`` the port's CLI gives the
+    same NaN from step 1 on; with denormals kept (the default on the CPU
+    and on the card) its losses stay finite.  AdamW has no such product:
+    the step losses agree within 5e-3 (bf16 in another order).  At lr
+    3e-3 the loss rises in both packages, to more than twice the first by
+    step 4.  About 10 GB and several minutes on the CPU, so it runs only with
+    REPRO_TORCH_FULL_WIDTH=1."""
+    import os
+
+    if os.environ.get("REPRO_TORCH_FULL_WIDTH") != "1":
+        pytest.skip("full-width CPU run: set REPRO_TORCH_FULL_WIDTH=1")
+    cfg = configs.get("granite-3-8b").replace(n_layers=2)
+    argv = ["--arch", "granite-3-8b", "--steps", "5", "--batch", "2", "--seq",
+            "32", "--optimizer", opt_name]
+    torch.set_num_threads(min(8, os.cpu_count() or 1))
+    try:
+        jres, res = cli_losses(cfg, argv, capsys, monkeypatch)
+        if opt_name == "adafactor":
+            torch.set_flush_denormal(True)
+            _, ftz = cli_losses(cfg, argv, capsys, monkeypatch)
+    finally:
+        torch.set_flush_denormal(False)
+        torch.set_num_threads(1)
+    with capsys.disabled():
+        print(f"\nfull-width granite-3-8b, 2 layers, bf16, {opt_name} lr 3e-3: "
+              f"jax losses {jres['losses']}, port losses {res['losses']}"
+              + (f", port flushing denormals {ftz['losses']}"
+                 if opt_name == "adafactor" else ""))
+    np.testing.assert_allclose(res["loss_first"], jres["loss_first"], rtol=1e-3)
+    assert np.isfinite(res["losses"]).all()
+    if opt_name == "adafactor":
+        assert not np.isfinite(jres["losses"][1:]).any()
+        np.testing.assert_allclose(ftz["loss_first"], jres["loss_first"], rtol=1e-3)
+        assert not np.isfinite(ftz["losses"][1:]).any()
+    else:
+        # bf16 in another summation order: measured within 1.3e-3
+        np.testing.assert_allclose(res["losses"], jres["losses"], rtol=5e-3)
+    # at lr 3e-3 the loss rises in both packages
+    for r in (jres, res) if opt_name == "adamw" else (res,):
+        assert r["losses"][-1] > 2 * r["losses"][0]

@@ -43,7 +43,17 @@ from repro_torch.core.formats import csr_from_scipy
 from repro_torch.core.levels import build_schedule
 from repro_torch.core.precond import ic0
 from repro_torch.data.matrices import laplacian_2d
-from repro_torch.kernels import bcsr_spmm, ell_spmv, ops, spmv_dot, sptrsv
+from repro_torch.kernels import autotune, bcsr_spmm, ell_spmv, ops, spmv_dot, sptrsv
+
+
+@pytest.fixture(autouse=True)
+def _empty_autotune_cache(tmp_path, monkeypatch):
+    # ell_spmv.pick_variant takes a recorded winner before the shape rule:
+    # these tests hold the rule, so no winner is recorded
+    monkeypatch.setenv("REPRO_TORCH_AUTOTUNE_CACHE", str(tmp_path / "autotune.json"))
+    autotune.clear_memo()
+    yield
+    autotune.clear_memo()
 
 
 def _lower(n, density, seed):
