@@ -330,13 +330,38 @@ prints no result line):
                against pcg's 4.  8f: block-IC(0) on the 2x2 grid at
                laplacian_2d(512) (cut from 1024: the host IC(0) of the
                tiles' blocks): converged, true residual <= 1e-7, two
-               ``sptrsv_solve_dot`` a step.  8g: DIST_PARITY within one.
-               8h: microseconds a loop step, grid against local, one RHS
-               and k = 8 (warm unguarded pcg, 300 steps minus 0, medians
-               of 3 calls), the guarded pcg_tol wall over its iterations,
-               the step's graph nodes and the NoC gathers' words, each NoC
-               stage's time on the card, beside the card's name and power
-               limit.
+               ``sptrsv_solve_dot`` a step.  8g: DIST_PARITY and
+               DIST_PARITY_IC0 within one.  8h: microseconds a loop step,
+               grid against local, one RHS and k = 8 (warm unguarded pcg,
+               300 steps minus 0, medians of 3 calls), the guarded pcg_tol
+               wall over its iterations, the step's graph nodes and the NoC
+               gathers' words, each NoC stage's time on the card, beside
+               the card's name and power limit.  Phase 8 also solves 8p's
+               references: ``proc_spec``'s runs and the parity cases' x.
+8p. procgrid -- the tile grid one process a tile (``launch.mesh.
+               ProcessMesh``, ``launch.procs``): the kernel library built,
+               then 4 gloo ranks on the one card (2x2 2d and 4x1 1d meshes
+               over one group) and, beside their start, 8 ranks for the
+               multipod (2, 2, 2) mesh.  The 4 build laplacian_3d(100)'s
+               engines and solve the Jacobi parity cases, wait for the 8,
+               then run the main path with their
+               launch counts zeroed just before and read just after:
+               ``proc_spec``'s PROC_STEPS steps of unguarded ``pcg`` (an
+               eager round) on 2x2 dense, 2x2 halo and 1d-4 halo, one RHS
+               and k = 8, each x within PROC_RTOL of phase 8's one-process
+               solve, and the block-IC(0) parity solve; every rank
+               launches ``ell_spmv``, ``ell_spmm``, ``cg_update``,
+               ``cg_update_batched`` and ``sptrsv_solve_dot``.  Then the
+               DIST_PARITY (+ DIST_PARITY_IC0) cases on every mesh: counts
+               within one of the JAX package's, x within PROC_RTOL of
+               phase 8's.  Every rank's x bitwise equal (digests), every
+               plan eager with traces 1; each halo rank's received pull
+               bytes a step equal to the comm plan's modeled halo words x
+               8 exactly.  The times: µs a step (32 steps minus 0, one
+               call each, rank 0's host clock), its staging and gloo parts
+               and the bytes received by NoC call, beside phase 8's
+               one-process grid and local step, the card's name and power
+               limit.  Any rank's failure fails the phase.
 9. lm       -- LM serving (``repro_torch.models``, ``serve.generate``,
                ``SlotServer``, ``launch.serve --arch``); no CUDA kernel of
                the port's own (attention, MoE dispatch and the scans are
@@ -436,9 +461,12 @@ The last three lines are the kernels JSON, the card's
 from __future__ import annotations
 
 import json
+import os
 import subprocess
 import sys
+import tempfile
 import traceback
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -469,6 +497,10 @@ DIST_PARITY = {
     ("banded_1k", "4x1", "2d"): 9, ("banded_1k", "4x1", "1d"): 9,
     ("lap2d_32", "mp", "2d"): 94,
 }
+# phase 8p: the JAX package's block-IC(0) count on the 2x2 grid (the
+# DIST_PARITY setting, precond block_ic0); tests/test_torch_procmesh.py
+# checks it against JAX's
+DIST_PARITY_IC0 = {("lap2d_32", "2x2", "2d"): 40}
 PARITY_IC0 = {"lap2d_32": 32, "banded_1k": 1}
 PARITY_IC0_BATCHED = {"lap2d_32": (35, 35, 35, 34), "banded_1k": (1, 1, 1, 1)}
 MAIN_BATCH = 8                     # launch/serve.py --coalesce default
@@ -1023,9 +1055,13 @@ def noc_words(eng, layout: str) -> int:
     return words
 
 
-def grid_phase(failed: list) -> None:
+def grid_phase(failed: list) -> dict:
     """Phase 8: the tile grid on the card (module docstring).  Each
-    sub-phase that fails adds its name to ``failed``."""
+    sub-phase that fails adds its name to ``failed``.  Returns phase 8p's
+    references: x of its full-size solves ("<mesh> <layout> k=<lanes>
+    pcg", ``proc_spec``) and of the parity cases ("parity
+    <matrix>|<mesh>|<mode>|<precond>") on the one-process grid, and 8h's
+    times ("times")."""
     import numpy as np
     import scipy.sparse as sp
     import torch
@@ -1149,6 +1185,7 @@ def grid_phase(failed: list) -> None:
 
     # -- 8c. solves, 8h times --------------------------------------------------
     times: dict = {}
+    refs: dict = {"times": times}
     try:
         lplan = loc.plan(SolveSpec(**spec))
         lplan(b)
@@ -1306,17 +1343,37 @@ def grid_phase(failed: list) -> None:
                              row_axes=ra, col_axes=ca, dtype=np.float64)
             plan = eng.plan(SolveSpec(method="pcg_tol", tol=1e-8,
                                       max_iters=2000))
-            plan(bm)
+            refs[f"parity {mat}|{mname}|{mode}|jacobi"] = plan(bm)[0]
             got = int(plan.last_iters)
             if abs(got - want) > 1 or plan.last_status_names != "converged":
                 bad.append((mat, mname, mode, got))
-        say(f"grid 8g DIST_PARITY: {len(DIST_PARITY) - len(bad)} of "
-            f"{len(DIST_PARITY)} within one of the JAX package's counts")
+        for key, want in DIST_PARITY_IC0.items():
+            shape, axes, ra, ca = DIST_MESHES[key[1]]
+            x, plan = parity_solve(make_mesh(shape, axes), key, "block_ic0",
+                                   ra, ca)
+            refs["parity " + "|".join(key + ("block_ic0",))] = x
+            if (abs(int(plan.last_iters) - want) > 1
+                    or plan.last_status_names != "converged"):
+                bad.append(key + (int(plan.last_iters),))
+        say(f"grid 8g DIST_PARITY (+ DIST_PARITY_IC0): "
+            f"{len(DIST_PARITY) + len(DIST_PARITY_IC0) - len(bad)} of "
+            f"{len(DIST_PARITY) + len(DIST_PARITY_IC0)} within one of the "
+            "JAX package's counts")
         if bad:
             raise AssertionError(f"DIST_PARITY {bad}")
     except Exception:
         traceback.print_exc()
         failed.append("grid parity")
+
+    # -- phase 8p's references: its full-size solves on the one-process grid --
+    try:
+        for name, lay in PROC_CASES:
+            for rhs, lanes in ((b, 1), (B, MAIN_BATCH)):
+                plan = engs[name].plan(SolveSpec(**proc_spec(lay, lanes)))
+                refs[f"{name} {lay} k={lanes} pcg"] = plan(rhs)[0]
+    except Exception:
+        traceback.print_exc()
+        failed.append("grid 8p references")
 
     # -- 8h. NoC stage times -------------------------------------------------------
     try:
@@ -1343,7 +1400,310 @@ def grid_phase(failed: list) -> None:
         traceback.print_exc()
         failed.append("grid times")
     say(f"grid phase: {now() - t_phase:.1f} s")
+    return refs
 
+
+
+PROC_CASES = (("2x2", "dense"), ("2x2", "halo"), ("4x1", "halo"))
+PROC_MODES = {"2x2": "2d", "4x1": "1d"}
+PROC_STEPS = 32                     # 8p's full-size solves: a round of pcg
+PROC_DEADLINE_S = 240.0             # the parent's deadline for a spawn
+PROC_RTOL = 1e-10                   # x against the one-process grid's, f64
+PROC_KERNELS = ("ell_spmv", "ell_spmm", "cg_update", "cg_update_batched",
+                "sptrsv_solve_dot")
+
+
+def _digest(x) -> str:
+    import hashlib
+
+    return hashlib.sha1(x.tobytes()).hexdigest()
+
+
+def proc_spec(lay: str, lanes: int) -> dict:
+    """8p's full-size solve (and phase 8's reference of it): PROC_STEPS
+    steps of unguarded ``pcg`` on layout ``lay``, one RHS or a batch."""
+    return dict(method="pcg", iters=PROC_STEPS, guard=False, layout=lay,
+                batch=None if lanes == 1 else lanes)
+
+
+def parity_cases(mname: str) -> list:
+    """((matrix, mesh, mode), precond, the JAX package's count) of
+    DIST_PARITY and DIST_PARITY_IC0 on mesh ``mname``."""
+    return ([(k, "jacobi", v) for k, v in DIST_PARITY.items()
+             if k[1] == mname]
+            + [(k, "block_ic0", v) for k, v in DIST_PARITY_IC0.items()
+               if k[1] == mname])
+
+
+def parity_solve(mesh, key, pc: str, ra, ca) -> tuple:
+    """One parity case on ``mesh``: (x, plan), f64 pcg_tol 1e-8."""
+    import numpy as np
+    import scipy.sparse as sp
+
+    from repro_torch.core.engine import AzulEngine
+    from repro_torch.core.plan import SolveSpec
+    from repro_torch.data.matrices import suite
+
+    mat, _, mode = key
+    mm = suite("small")[mat]
+    am = sp.csr_matrix((mm.data, mm.indices, mm.indptr), shape=mm.shape)
+    bm = am @ np.random.default_rng(0).standard_normal(mm.shape[0])
+    eng = AzulEngine(mm, mesh=mesh, mode=mode, row_axes=ra, col_axes=ca,
+                     precond=pc, dtype=np.float64)
+    plan = eng.plan(SolveSpec(method="pcg_tol", tol=1e-8, max_iters=2000))
+    x, _ = plan(bm)
+    return x, plan
+
+
+def _proc_parity(rank, mname: str, only=None) -> dict:
+    """The parity cases of mesh ``mname`` (preconditioner ``only``, or
+    all) on a rank: {"matrix|mesh|mode|precond": result}."""
+    shape, axes, ra, ca = DIST_MESHES[mname]
+    mesh = rank.mesh(shape, axes)
+    got = {}
+    for key, pc, _ in parity_cases(mname):
+        if only is not None and pc != only:
+            continue
+        x, plan = parity_solve(mesh, key, pc, ra, ca)
+        got["|".join(key + (pc,))] = dict(
+            iters=int(plan.last_iters), status=plan.last_status_names,
+            digest=_digest(x), loop=plan.info["loop"], traces=plan.traces,
+            x=x if rank.rank == 0 else None)
+    return got
+
+
+def _proc_step(eng, rhs, lay: str) -> dict:
+    """A full-size solve on a rank, timed: ``proc_spec``'s PROC_STEPS
+    steps minus 0 (one call each, the 0-step plan's warm call before;
+    each call's wall on the host clock ends in the copy of x to the
+    host), the staging and gloo parts and the bytes the rank received a
+    step, by NoC call (``mesh.stats``, steps minus 0); x's digest, and x
+    on rank 0."""
+    from repro_torch.core.plan import SolveSpec
+    from repro_torch.obs.clock import now
+
+    lanes = 1 if rhs.ndim == 1 else rhs.shape[0]
+    plans = {n: eng.plan(SolveSpec(**dict(proc_spec(lay, lanes), iters=n)))
+             for n in (PROC_STEPS, 0)}
+    plans[0](rhs)                       # the allocator's first calls
+    walls, stats = {}, {}
+    for n, plan in plans.items():
+        eng.mesh.stats.reset()
+        t0 = now()
+        x, _ = plan(rhs)
+        walls[n] = now() - t0
+        stats[n] = eng.mesh.stats.as_dict()
+        if n:
+            got = {"digest": _digest(x), "traces": plan.traces,
+                   "loop": plan.info["loop"],
+                   "x": x if eng.mesh.rank == 0 else None}
+    run, zero = stats[PROC_STEPS], stats[0]
+    step = (walls[PROC_STEPS] - walls[0]) / PROC_STEPS * 1e6
+    stage = (run["stage_s"] - zero["stage_s"]) / PROC_STEPS * 1e6
+    comm = (run["comm_s"] - zero["comm_s"]) / PROC_STEPS * 1e6
+    got["us"], got["staging_us"], got["gloo_us"] = step, stage, comm
+    got["rest_us"] = step - stage - comm
+    got["wire_bytes"] = {op: (v - zero["wire_bytes"].get(op, 0)) / PROC_STEPS
+                         for op, v in run["wire_bytes"].items()}
+    got["calls"] = {op: (v - zero["calls"].get(op, 0)) / PROC_STEPS
+                    for op, v in run["calls"].items()}
+    return got
+
+
+def procgrid_rank(rank, what: str, t_spawn: float, go: str = "") -> dict:
+    """A rank of phase 8p (module docstring).  ``what`` "mp": the
+    multipod DIST_PARITY case on 8 ranks; "main": on 4 ranks, the engines
+    at laplacian_3d(SERVE_GRID) and the Jacobi parity cases on 2x2 and
+    4x1, then, once the file ``go`` exists (the 8 ranks are done: nothing
+    else runs while these are timed), the main path -- ``proc_spec``'s
+    full-size solves, one RHS and k = MAIN_BATCH on each PROC_CASES grid
+    (timed), and the block-IC(0) parity solve, launch counts zeroed just
+    before and read just after."""
+    import time
+    import numpy as np
+    import scipy.sparse as sp
+
+    from repro_torch.core.engine import AzulEngine
+    from repro_torch.data.matrices import laplacian_3d
+    from repro_torch.kernels import ops
+    from repro_torch.obs.clock import now
+
+    out = {"rank": rank.rank, "start_s": now() - t_spawn}
+    if what == "mp":
+        out["parity"] = _proc_parity(rank, "mp")
+        return out
+    t0 = now()
+    m = laplacian_3d(SERVE_GRID)
+    a = sp.csr_matrix((m.data, m.indices, m.indptr), shape=m.shape)
+    n = m.shape[0]
+    rng = np.random.default_rng(0)
+    b = a @ rng.standard_normal(n)
+    B = np.ascontiguousarray((a @ rng.standard_normal((MAIN_BATCH, n)).T).T)
+    engs = {}
+    for name, mode in PROC_MODES.items():
+        shape, axes, ra, ca = DIST_MESHES[name]
+        engs[name] = AzulEngine(m, mesh=rank.mesh(shape, axes), mode=mode,
+                                row_axes=ra, col_axes=ca, dtype=np.float64)
+    out["build_s"] = now() - t0
+    # the Jacobi parity cases, untimed, while the 8 ranks may still run
+    t0 = now()
+    out["parity"] = {}
+    for name in PROC_MODES:
+        out["parity"] |= _proc_parity(rank, name, only="jacobi")
+    out["parity_s"] = now() - t0
+    t0 = now()
+    while not os.path.exists(go):
+        if now() - t0 > PROC_DEADLINE_S:
+            raise TimeoutError(f"no {go} after {PROC_DEADLINE_S} s")
+        time.sleep(0.05)
+    out["wait_s"] = now() - t0
+    # the main path, the launch counts zeroed just before, read just after
+    t0 = now()
+    ops.reset_launch_counts()
+    out["times"] = {}
+    for name, lay in PROC_CASES:
+        eng = engs[name]
+        model = eng.comm_plan.model()
+        for rhs, lanes in ((b, 1), (B, MAIN_BATCH)):
+            got = _proc_step(eng, rhs, lay)
+            got["model_bytes"] = model[f"bytes_per_iter_{lay}"] * lanes
+            got["model_halo_bytes"] = (model["gather_words_halo"]
+                                       * eng.comm_plan.itemsize * lanes)
+            out["times"][f"{name} {lay} k={lanes}"] = got
+    out["parity"] |= _proc_parity(rank, "2x2", only="block_ic0")
+    out["launches"] = ops.launch_counts()
+    out["main_s"] = now() - t0
+    return out
+
+
+def procgrid_phase(failed: list, refs: dict) -> None:
+    """Phase 8p: the tile grid one process a tile (module docstring); the
+    one-process grid's solves and times are phase 8's ``refs``."""
+    import numpy as np
+
+    from repro_torch.launch import procs
+    from repro_torch.obs.clock import now
+
+    t_phase = now()
+    res, bad = [], []
+
+    def check(key: str, got: list, ref, want_it=None) -> str:
+        """Hold rank 0's x to the one-process grid's and every rank's
+        digest, loop and traces to rank 0's; a line for the log."""
+        r0 = got[0]
+        line = f"{key}: loop {r0['loop']}, traces {r0['traces']}"
+        if want_it is not None:
+            line += (f", {r0['iters']} iterations (JAX {want_it}), "
+                     f"{r0['status']}")
+            if abs(r0["iters"] - want_it) > 1 or r0["status"] != "converged":
+                bad.append(f"{key}: counts")
+        if ref is None:
+            bad.append(f"{key}: no one-process reference")
+        else:
+            rel = float(np.abs(r0["x"] - ref).max() / np.abs(ref).max())
+            line += f", max |x - x_grid| / max |x_grid| {rel:.3e}"
+            if rel > PROC_RTOL:
+                bad.append(f"{key}: x")
+        if r0["loop"] != "eager" or r0["traces"] != 1 or any(
+                g[k] != r0[k] for g in got for k in ("digest", "iters")
+                if k in r0):
+            bad.append(f"{key}: ranks differ, or not eager once")
+        return line
+
+    def multipod(go: str) -> list:
+        """The 8 ranks' run, then the file ``go`` (even when it fails)."""
+        try:
+            return procs.run(procgrid_rank, 8, ("mp", now()), backend="gloo",
+                             device="cuda", timeout_s=PROC_DEADLINE_S)
+        finally:
+            Path(go).touch()
+
+    # the 8 ranks run while the 4 start and build their engines; the 4
+    # wait for them before their main path
+    with tempfile.TemporaryDirectory() as tmp, ThreadPoolExecutor(1) as ex:
+        go = os.path.join(tmp, "go")
+        t0 = now()
+        mp_run = ex.submit(multipod, go)
+        try:
+            res = procs.run(procgrid_rank, 4, ("main", now(), go),
+                            backend="gloo", device="cuda",
+                            timeout_s=2 * PROC_DEADLINE_S)
+            say(f"procgrid 8p 4 gloo ranks on the card: {now() - t0:.1f} s "
+                "(slowest rank: " + ", ".join(
+                    f"{k} {max(r[k + '_s'] for r in res):.1f} s" for k in (
+                        "start", "build", "parity", "wait", "main")) + ")")
+            for key in res[0]["times"]:
+                say("procgrid 8p " + check(
+                    key, [r["times"][key] for r in res],
+                    refs.get(f"{key} pcg")))
+            for r in res:
+                missing = [k for k in PROC_KERNELS
+                           if r["launches"].get(k, 0) < 1]
+                if missing:
+                    bad.append(f"rank {r['rank']} launched no {missing}")
+            say("procgrid 8p launches per rank on the main path: "
+                + json.dumps([{k: r["launches"][k] for k in PROC_KERNELS}
+                              for r in res]))
+        except Exception:
+            traceback.print_exc()
+            failed.append("procgrid main path")
+        try:
+            res8 = mp_run.result()
+        except Exception:
+            traceback.print_exc()
+            failed.append("procgrid multipod")
+            res8 = []
+
+    try:
+        say(f"procgrid 8p 8 gloo ranks on the card (beside the 4's start): "
+            f"slowest start {max(r['start_s'] for r in res8):.1f} s")
+        for ranks in (res, res8):
+            for key in (ranks[0]["parity"] if ranks else ()):
+                mat, mname, mode, pc = key.split("|")
+                table = DIST_PARITY if pc == "jacobi" else DIST_PARITY_IC0
+                say("procgrid 8p parity " + check(
+                    key, [r["parity"][key] for r in ranks],
+                    refs.get(f"parity {key}"), table[(mat, mname, mode)]))
+        done = {k for ranks in (res, res8) for k in
+                (ranks[0]["parity"] if ranks else ())}
+        want = {"|".join(k + (pc,)) for name in DIST_MESHES
+                for k, pc, _ in parity_cases(name)}
+        if want - done:
+            bad.append(f"parity cases not run: {sorted(want - done)}")
+    except Exception:
+        traceback.print_exc()
+        failed.append("procgrid parity")
+
+    try:
+        if not res:
+            raise AssertionError("no process-grid times (8p's ranks failed)")
+        times = refs.get("times", {})
+        rows = {}
+        for key, got in res[0]["times"].items():
+            name, lay, k = key.split()
+            rows[key] = {f: v for f, v in got.items()
+                         if f not in ("x", "digest", "loop", "traces")}
+            rows[key]["tile_mesh_us"] = times.get(
+                f"{name} {lay}" if k == "k=1" else f"{name} {lay} {k}")
+            rows[key]["local_us"] = times.get("local" if k == "k=1"
+                                              else f"local {k}")
+            for r in res:
+                pulled = r["times"][key]["wire_bytes"].get("pull_shard")
+                if lay == "halo" and pulled != got["model_halo_bytes"]:
+                    bad.append(f"{key} rank {r['rank']}: pulled {pulled} "
+                               f"bytes a step, model "
+                               f"{got['model_halo_bytes']}")
+        say(f"procgrid 8p µs a loop step (unguarded pcg, {PROC_STEPS} steps "
+            f"minus 0, one call each; rank 0's wall, staging and gloo on the "
+            f"host clock; wire = bytes rank 0 received a step) on "
+            f"{smi_line()}: " + json.dumps(rows))
+    except Exception:
+        traceback.print_exc()
+        failed.append("procgrid times")
+    if bad:
+        say(f"procgrid 8p FAILED checks: {bad}")
+        failed.append("procgrid checks")
+    say(f"procgrid phase: {now() - t_phase:.1f} s")
 
 
 def lm_prompts(cfg, shape, seed: int = LM_SEED):
@@ -5560,7 +5920,11 @@ def earlier_phases(failed: list) -> tuple:
     ft_phase(failed)
 
     # -- 8. the tile grid ------------------------------------------------------
-    grid_phase(failed)
+    refs = grid_phase(failed)
+
+    # -- 8p. the tile grid one process a tile -----------------------------------
+    procgrid_phase(failed, refs)
+    del refs
 
     # -- 9. LM serving -----------------------------------------------------------
     lm = lm_phase(failed)

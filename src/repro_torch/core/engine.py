@@ -71,6 +71,21 @@ triangular solve is one ``sptrsv_solve_dot`` over the merged level
 schedule.  On a halo layout the pipelined methods split the matvec into
 interior and frontier passes (``matvec_start`` / ``matvec_finish``).
 ``build_sptrsv`` compiles the block-staged distributed lower solve.
+
+The same engine runs one tile a process on a process grid
+(``mesh=rank.mesh(...)``, a ``launch.mesh.ProcessMesh``; ``launch.procs``
+spawns the ranks).  Every rank runs the same deterministic host build --
+the partition, the comm plan, the factors -- and uploads only its own
+tile's ELL block, Jacobi diagonal and block-IC(0) factors; its vectors
+are its (u,) / (k, u) shard of the padded global vector, its tile stack
+(1, u).  The NoC calls become messages between the ranks (``core.noc``),
+the dots gather the ranks' partials and add them in tile order, and the
+shard substrates add the ranks' [rr, rz] in rank order.  ``plan(b)``
+takes the same global ``b`` on every rank and returns the same global
+``x`` and info on every rank (one all_gather of the shards at the end).
+Its loop runs eagerly (``loop.ProgramCell(capture=False)``,
+``info["loop"] == "eager"``): the host-side collectives cannot sit in a
+CUDA graph.
 """
 
 from __future__ import annotations
@@ -241,9 +256,11 @@ class AzulEngine:
     ----------
     a : CSR | Stencil       square sparse matrix (host side), or a
                             matrix-free stencil operator
-    mesh : TileMesh | None  None: one device, no NoC.  A
+    mesh : TileMesh | ProcessMesh | None  None: one device, no NoC.  A
                             ``launch.mesh.make_mesh`` grid: the tile grid
-                            on the mesh's device (module docstring)
+                            on the mesh's device; a ``ProcessMesh``: this
+                            rank's tile of a process grid (module
+                            docstring)
     mode : "2d" | "1d"      tile-grid partition (2d = Azul's NoC pattern)
     row_axes / col_axes :   mesh axis names of the grid's rows and columns
                             (default ("data",) x ("model",); a multipod
@@ -289,12 +306,13 @@ class AzulEngine:
                  fused="auto", layout: str = "auto", reorder: str = "none",
                  format: str = "auto", device=DEFAULT_DEVICE):
         if mesh is not None:
-            from ..launch.mesh import TileMesh
+            from ..launch.mesh import ProcessMesh, TileMesh
 
-            if not isinstance(mesh, TileMesh):
+            if not isinstance(mesh, (TileMesh, ProcessMesh)):
                 raise TypeError(
                     "mesh must be a repro_torch.launch.mesh.TileMesh "
-                    f"(make_mesh), got {type(mesh).__name__}")
+                    "(make_mesh) or ProcessMesh (make_process_mesh), got "
+                    f"{type(mesh).__name__}")
             if (device != DEFAULT_DEVICE
                     and torch.device(device) != mesh.device):
                 raise ValueError(f"device {device!r} differs from the mesh's "
@@ -415,7 +433,8 @@ class AzulEngine:
     def from_dist_state(cls, mesh, state: dict, precond: str = "jacobi",
                         fused="auto", layout: str = "auto") -> "AzulEngine":
         """A tile-grid engine over an already partitioned operator on
-        ``mesh`` (a ``TileMesh``): ``state`` holds the host arrays of a
+        ``mesh`` (a ``TileMesh``, or a ``ProcessMesh``, whose rank takes
+        its own tile of every array): ``state`` holds the host arrays of a
         distributed engine -- ``mode``, ``row_axes``/``col_axes``, ``n``,
         ``n_pad``, ``u``, ``br``, ``bc``, the stacked ``cols``/``vals``,
         ``dinv``, ``pad2g`` (or None), the comm plan's fields under
@@ -446,8 +465,9 @@ class AzulEngine:
         eng.comm_plan = commplan.CommPlan(**cp)
         eng.partition_plan = None
         eng._set_blocks(np.asarray(state["cols"]), vals)
-        eng._dinv_pad = torch.tensor(np.asarray(state["dinv"], vals.dtype),
-                                     device=eng.device)
+        eng._dinv_pad = torch.tensor(
+            np.asarray(state["dinv"], vals.dtype)[eng._shard()],
+            device=eng.device)
         blk = state.get("block_ic0")
         if (blk is not None) != (precond == "block_ic0"):
             raise ValueError("block_ic0 planes go with precond='block_ic0', "
@@ -528,13 +548,21 @@ class AzulEngine:
 
     # -- vector embedding ---------------------------------------------------
 
+    def _shard(self) -> slice:
+        """The slice of a padded global vector this process holds: all of
+        it, but a process grid's rank its own tile's u-shard."""
+        mesh = self.mesh
+        if mesh is None or not mesh.per_process:
+            return slice(None)
+        return slice(mesh.local.start * self.u, mesh.local.stop * self.u)
+
     def to_device_vec(self, v: np.ndarray) -> torch.Tensor:
         """Embed a global (n,) vector, or a (k, n) batch, into the padded
         (n_pad,) / (k, n_pad) device layout (zeros past n; on an
         nnz-balanced or 1d tile grid through ``pad2g``).  With
         ``reorder`` active the engine's row permutation applies here (and
         inverts in :meth:`from_device_vec`), so callers always speak the
-        original ordering."""
+        original ordering.  A process grid's rank keeps its own shard."""
         v = np.asarray(v)
         if self._row_perm is not None:
             v = v[..., self._row_perm]
@@ -544,11 +572,18 @@ class AzulEngine:
             out[..., valid] = v[..., self._pad2g[valid]]
         else:
             out[..., : self.n] = v
+        out = np.ascontiguousarray(out[..., self._shard()])
         return torch.from_numpy(out).to(self.device)
 
     def from_device_vec(self, v: torch.Tensor) -> np.ndarray:
         """Extract the global (n,) / (k, n) vectors from the padded
-        layout (waits for the device: the copy to the host)."""
+        layout (waits for the device: the copy to the host).  A process
+        grid's ranks gather their shards first (a collective: every rank
+        calls it)."""
+        if self.mesh is not None and self.mesh.per_process:
+            g = self.mesh.gather(v.unsqueeze(-2), self.mesh.axis_names,
+                                 "from_device_vec")
+            v = g.reshape(v.shape[:-1] + (self.n_pad,))
         if self._pad2g is not None:
             vh = v.cpu().numpy()
             out = np.zeros(vh.shape[:-1] + (self.n,), vh.dtype)
@@ -603,13 +638,13 @@ class AzulEngine:
         vals = self.vals_template()
         if self.mode == "1d":
             cols = self.cols_template()
-            tiles = np.arange(cols.shape[0])[:, None, None]
+            tiles = np.arange(self.tiles)[self.mesh.local][:, None, None]
             return ((cols // self.u) != tiles) & (vals != 0)
         imask = (self.comm_plan.interior_mask
                  if self.comm_plan is not None else None)
         if imask is None:
             return vals != 0
-        return (~imask[:, :, None]) & (vals != 0)
+        return (~imask[self.mesh.local][:, :, None]) & (vals != 0)
 
     def _host_vals(self, vals) -> np.ndarray:
         """A caller's value buffer as a contiguous host array of the
@@ -804,11 +839,13 @@ class AzulEngine:
         self._setup_diag_and_precond(segs, pad2g)
 
     def _set_blocks(self, cols: np.ndarray, vals: np.ndarray) -> None:
-        """Pin the stacked (tiles, rows_p, w) blocks on the device; the
-        host columns stay for the layouts' offset kernel columns."""
-        self._cols_host = np.ascontiguousarray(cols, np.int32)
+        """Pin the stacked (tiles, rows_p, w) blocks of this process's
+        tiles (all of them, or a rank's own) on the device; the host
+        columns stay for the layouts' offset kernel columns."""
+        loc = self.mesh.local
+        self._cols_host = np.ascontiguousarray(cols[loc], np.int32)
         self.cols = torch.tensor(self._cols_host, device=self.device)
-        self.vals = torch.tensor(np.asarray(vals, self.dtype),
+        self.vals = torch.tensor(np.asarray(vals[loc], self.dtype),
                                  device=self.device)
 
     def _setup_diag_and_precond(self, seg_ranges, pad2g) -> None:
@@ -820,7 +857,7 @@ class AzulEngine:
         else:
             valid = pad2g < self.n
             di[valid] = 1.0 / dg_g[pad2g[valid]]
-        self._dinv_pad = torch.tensor(di, device=self.device)
+        self._dinv_pad = torch.tensor(di[self._shard()], device=self.device)
         if self.precond == "block_ic0":
             rows_p, l_pack, u_pack = self._prep_precond_blocks(seg_ranges)
             ks = np.asarray([max(r1 - r0, 1) for r0, r1 in seg_ranges],
@@ -829,8 +866,10 @@ class AzulEngine:
 
     def _set_block_ic0(self, rows_p, l_pack, u_pack, ks) -> None:
         self._pc_blocks = (rows_p, l_pack, u_pack, ks)
-        self._block_ic0 = _BlockIC0(rows_p, l_pack, u_pack, ks, self.u,
-                                    self.device, self.dtype)
+        loc = self.mesh.local
+        self._block_ic0 = _BlockIC0(rows_p, tuple(a[loc] for a in l_pack),
+                                    tuple(a[loc] for a in u_pack), ks[loc],
+                                    self.u, self.device, self.dtype)
 
     def _prep_precond_blocks(self, seg_ranges):
         """Factor every vector segment's diagonal block (block-Jacobi
@@ -920,8 +959,8 @@ class AzulEngine:
         into the flat tile-stacked buffer, built on first use."""
         got = self._flat_cols.get(layout)
         if got is None:
-            base = (self.comm_plan.cols_halo if layout == "halo"
-                    else self._cols_host)
+            base = (self.comm_plan.cols_halo[self.mesh.local]
+                    if layout == "halo" else self._cols_host)
             got = torch.tensor(_offset_cols(base, self._buffer_len(layout)),
                                device=self.device)
             self._flat_cols[layout] = got
@@ -932,8 +971,13 @@ class AzulEngine:
 
     def _stack(self, x: torch.Tensor) -> torch.Tensor:
         """A padded global (..., n_pad) vector as its (..., P, u) tile
-        stack (a view)."""
-        return x.view(x.shape[:-1] + (self.tiles, self.u))
+        stack (a view); a rank's (..., u) shard as its (..., 1, u)."""
+        return x.view(x.shape[:-1] + (self.mesh.local_size, self.u))
+
+    @property
+    def _n_local(self) -> int:
+        """Length of this process's vectors: n_pad, or a rank's u."""
+        return self.mesh.local_size * self.u
 
     def _pull(self, xs: torch.Tensor, axes) -> tuple:
         """The halo shards: one ``pull_shard`` per scheduled hop."""
@@ -954,9 +998,9 @@ class AzulEngine:
                 return noc.gather_along(xc, mesh, row_axes)
 
             def scatter(yp):
-                yp = yp.view(yp.shape[:-1] + (self.tiles, self.br))
+                yp = yp.view(yp.shape[:-1] + (mesh.local_size, self.br))
                 y = noc.reduce_scatter_along(yp, mesh, col_axes)
-                return y.reshape(y.shape[:-2] + (self.n_pad,))
+                return y.reshape(y.shape[:-2] + (self._n_local,))
 
             return gather, scatter
 
@@ -978,10 +1022,10 @@ class AzulEngine:
         indices are built here, before any capture."""
         gather, scatter = self._comm(layout)
         cols = self._kernel_cols(layout)
-        gather(torch.zeros(self.n_pad, dtype=self.torch_dtype,
+        gather(torch.zeros(self._n_local, dtype=self.torch_dtype,
                            device=self.device))
-        scatter(torch.zeros(self.tiles * self.br, dtype=self.torch_dtype,
-                            device=self.device))
+        scatter(torch.zeros(self.mesh.local_size * self.br,
+                            dtype=self.torch_dtype, device=self.device))
 
         def mv(x, vals):
             return scatter(_block_apply(cols, vals, gather(x)))
@@ -994,31 +1038,50 @@ class AzulEngine:
             mv = self._matvecs[layout] = self._mk_matvec(layout)
         return mv
 
-    def _tdot(self, u: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-        """The grid's dot, unrecorded: every tile's partial over its
-        shard, the partials added in tile order (the psum); () for (n,)
-        vectors, (k, 1) for (k, n) batches.  A batch reduces lane by lane,
+    def _tparts(self, u: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+        """Every tile's partial of dot(u, v) over its shard: (L,) for (n,)
+        vectors, (k, L) for (k, n) batches.  A batch reduces lane by lane,
         each lane as an (n,) solve reduces its vector, so lane j's bits do
         not depend on k (a reduction over a (k, P, u) block is laid out by
         its shape on the card)."""
         if u.dim() == 1:
-            return noc.tile_sum(torch.sum(self._stack(u * v), dim=-1),
-                                self.mesh)
-        parts = torch.stack([torch.sum(self._stack(a * b), dim=-1)
-                             for a, b in zip(u, v)])
-        return noc.tile_sum(parts, self.mesh).unsqueeze(-1)
+            return torch.sum(self._stack(u * v), dim=-1)
+        return torch.stack([torch.sum(self._stack(a * b), dim=-1)
+                            for a, b in zip(u, v)])
+
+    def _tdots(self, *vs: torch.Tensor) -> torch.Tensor:
+        """N stacked dots of flat ``(a1, b1, a2, b2, ...)`` pairs,
+        unrecorded: the tiles' partials added in tile order (the psum), one
+        ``tile_sum`` for all N; (N,) for (n,) vectors, (N, k, 1) for (k, n)
+        batches."""
+        parts = [self._tparts(a, b) for a, b in zip(vs[::2], vs[1::2])]
+        # one pair: a view, not a stack's copy (one node less a step)
+        parts = (parts[0].unsqueeze(0) if len(parts) == 1
+                 else torch.stack(parts))
+        s = noc.tile_sum(parts, self.mesh)
+        return s if vs[0].dim() == 1 else s.unsqueeze(-1)
 
     def _dot(self, u: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-        """The grid's dot: :meth:`_tdot`, one all-reduce."""
+        """The grid's dot, one all-reduce: () for (n,) vectors, (k, 1) for
+        (k, n) batches."""
         noc.record("all-reduce")
-        return self._tdot(u, v)
+        return self._tdots(u, v)[0]
 
     def _dot2(self, *vs: torch.Tensor) -> torch.Tensor:
         """N stacked dots, ONE reduction (the pipelined recurrence's):
         flat ``(a1, b1, a2, b2, ...)`` pairs."""
         noc.record("all-reduce")
-        return torch.stack([self._tdot(a, b)
-                            for a, b in zip(vs[::2], vs[1::2])])
+        return self._tdots(*vs)
+
+    def _psum(self, *shares: torch.Tensor) -> tuple:
+        """Sums over every tile from this process's shares of them (a
+        kernel's in-stream reductions over its shard): the shares
+        themselves on a ``TileMesh``, the ranks' shares added in rank
+        order (one collective for all of them) on a ``ProcessMesh``.
+        Unrecorded."""
+        if not self.mesh.per_process:
+            return shares
+        return tuple(noc.rank_sum(torch.stack(shares), self.mesh).unbind(0))
 
     def _mk_matvec_split(self):
         """The communication-hiding SpMV as a ``(start, finish)`` pair
@@ -1050,7 +1113,7 @@ class AzulEngine:
             return scatter(_block_apply(cols, vi, x_int)
                            + _block_apply(cols, vf, x_ext))
 
-        start(torch.zeros(self.n_pad, dtype=self.torch_dtype,
+        start(torch.zeros(self._n_local, dtype=self.torch_dtype,
                           device=self.device))
         return start, finish
 
@@ -1061,7 +1124,7 @@ class AzulEngine:
         (``comm_plan.interior_mask``)."""
         if self._vals_split_dev is None:
             vals = self.vals_template()
-            mask = self.comm_plan.interior_mask[:, :, None]
+            mask = self.comm_plan.interior_mask[self.mesh.local][:, :, None]
             vi = np.where(mask, vals, 0).astype(vals.dtype)
             vf = np.where(mask, 0, vals).astype(vals.dtype)
             self._vals_split_dev = tuple(
@@ -1074,7 +1137,7 @@ class AzulEngine:
         (injectable overlap plans split their runtime values with it)."""
         if self._imask_dev is None:
             self._imask_dev = torch.tensor(
-                self.comm_plan.interior_mask.reshape(-1, 1),
+                self.comm_plan.interior_mask[self.mesh.local].reshape(-1, 1),
                 device=self.device)
         return self._imask_dev
 
@@ -1120,9 +1183,9 @@ class AzulEngine:
                 return r
         sub = None
         if kind == "fused_shard":
-            sub = fused_shard_substrate(amv, dinv, self._tdot)
+            sub = fused_shard_substrate(amv, dinv, self._tdots, self._psum)
         elif kind == "fused_shard_ic0":
-            sub = fused_shard_ic0_substrate(amv, ps, self._tdot)
+            sub = fused_shard_ic0_substrate(amv, ps, self._tdots, self._psum)
         if self._overlaps(sdef, spec, kind):
             start, finish = self._mk_matvec_split()
             if spec.injectable:
@@ -1141,7 +1204,7 @@ class AzulEngine:
                 def fin(h):
                     return finish(h, vi, vf)
             sub = sub._replace(matvec_start=start, matvec_finish=fin)
-        cell = ProgramCell()
+        cell = ProgramCell(capture=not self.mesh.per_process)
         ctx = registry.SolveContext(
             matvec=amv, psolve=ps, dinv=dinv, substrate=sub,
             iters=spec.iters, tol=spec.tol, max_iters=spec.max_iters,
@@ -1278,6 +1341,8 @@ class AzulEngine:
             "layout": spec.layout,
             "reorder": spec.reorder,
             "format": spec.format,
+            "loop": ("captured" if cell.capture and self.device.type == "cuda"
+                     else "eager"),
         }
         _OBS.counter(
             "repro_plan_format_total",
@@ -1307,39 +1372,44 @@ class _BlockSptrsv:
     def __init__(self, eng, l_csr: CSR):
         from ..kernels import ops
 
-        pr, pc, u, mesh = eng.pr, eng.pc, eng.u, eng.mesh
+        pr, pc, mesh = eng.pr, eng.pc, eng.mesh
         plan = plan_2d(l_csr, pr, pc, width_pad=eng._width_pad,
                        row_pad=eng._row_pad, dtype=eng.dtype)
         if plan.n_padded != eng.n_pad:
             raise ValueError("triangular matrix padding mismatch with engine")
         br = plan.block_rows
-        p = pr * pc
-        # every diagonal tile's level schedule of its own block, merged
-        # level by level over the tiles (rows at offset t*br)
+        # this process's tiles (all of them, or a rank's own); every
+        # diagonal one's level schedule of its own block, merged level by
+        # level over the tiles (local tile j's rows at offset j*br)
+        tiles = range(pr * pc)[mesh.local]
+        p = len(tiles)
         nl = l_csr.shape[0]
         scheds = {}
-        for i in range(pr):
+        for j, t in enumerate(tiles):
+            i = t // pc
             r0, r1 = min(i * br, nl), min((i + 1) * br, nl)
-            if r1 > r0:
-                scheds[i * pc + i] = build_schedule(tile_csr(l_csr, r0, r1,
-                                                             r0, r1))
+            if t == i * pc + i and r1 > r0:
+                scheds[j] = build_schedule(tile_csr(l_csr, r0, r1, r0, r1))
         n_lv = max([sc.n_levels for sc in scheds.values()] + [1])
         w_lv = max([sc.max_width for sc in scheds.values()] + [8])
         rows = np.full((n_lv, p * w_lv), p * br, np.int64)
-        for t, sc in scheds.items():
+        for j, sc in scheds.items():
             sr = np.asarray(sc.rows, np.int64)
-            sr = np.where(sr >= sc.n, p * br, sr + t * br)
-            rows[: sr.shape[0], t * w_lv: t * w_lv + sr.shape[1]] = sr
+            sr = np.where(sr >= sc.n, p * br, sr + j * br)
+            rows[: sr.shape[0], j * w_lv: j * w_lv + sr.shape[1]] = sr
         dloc = np.ones((p, br), eng.dtype)
         dg = np.ones(eng.n_pad, np.float64)
         dg[:nl] = _host_diag(l_csr, 0, nl)
         dg[dg == 0] = 1.0
-        for i in range(pr):
-            dloc[i * pc + i] = (1.0 / dg[i * br: (i + 1) * br]).astype(
-                eng.dtype)
+        for j, t in enumerate(tiles):
+            i = t // pc
+            if t == i * pc + i:
+                dloc[j] = (1.0 / dg[i * br: (i + 1) * br]).astype(eng.dtype)
         dev = eng.device
-        self.cols = torch.tensor(_offset_cols(plan.cols, br), device=dev)
-        self.vals = torch.tensor(plan.vals.reshape(p * br, -1), device=dev)
+        self.cols = torch.tensor(_offset_cols(plan.cols[mesh.local], br),
+                                 device=dev)
+        self.vals = torch.tensor(plan.vals[mesh.local].reshape(p * br, -1),
+                                 device=dev)
         self.dinv = torch.tensor(dloc.reshape(-1), device=dev)
         self.rows = torch.tensor(rows.astype(np.int32), device=dev)
         self.pack = ops.sptrsv_solve_pack(self.cols, self.rows, p * br)
@@ -1348,7 +1418,8 @@ class _BlockSptrsv:
         self.eng, self.br, self.p = eng, br, p
 
     def device_fn(self, b: torch.Tensor) -> torch.Tensor:
-        """x (n_pad,) for b (n_pad,), both padded global vectors."""
+        """x for b, both this process's part of the padded global vectors
+        ((n_pad,), or a rank's (u,) shard)."""
         from ..kernels import ops
 
         eng, br, p, mesh = self.eng, self.br, self.p, self.eng.mesh

@@ -13,8 +13,8 @@ Two ways to run the loop:
   entry where ``live`` is false (``torch.where`` on the 0-d flag; an entry
   the body returns as the very tensor it was given passes through), and
   the host reads ``cond`` once a round;
-* from a CUDA graph, inside a plan (a :class:`ProgramCell` is active and
-  the state is on the card): the loop is captured once, as a WHILE node
+* from a CUDA graph, inside a plan (a :class:`ProgramCell` that
+  captures is active and the state is on the card): the loop is captured once, as a WHILE node
   (``kernels.graph.loop``) whose body is a round -- each step in a
   conditional node (``kernels.graph.cond``) whose IF body is ``body`` and
   whose ELSE body copies the entries the body replaced back from the
@@ -28,6 +28,12 @@ a captured loop reads the state's buffers, and anything else it closes
 over is what it was at capture.  An entry may be updated in place (the
 solvers' residual trace is); the body must then keep the update
 harmless where ``live`` is false, since no select undoes it.
+
+A plan on a process grid (``launch.mesh.ProcessMesh``) runs its loop
+eagerly on the card too (``ProgramCell(capture=False)``): its messages go
+through host-side collectives, which a CUDA graph cannot hold.  Every rank
+reads the same flag a round -- ``cond`` reads only reduced values -- so
+every rank runs the same steps and meets the others in every collective.
 
 Launch counts need nothing here: each kernel counts its own launches on
 the card (``kernels.build.launch_counter``), a replayed one included.
@@ -82,9 +88,12 @@ class ProgramCell:
     there is nothing to capture, and a build is a new signature.
     ``captures`` counts the loops captured, ``capture_s`` is the wall of
     the last capture, ``step_nodes`` the node count of its step body,
-    ``replays`` the graph replays so far (one a call)."""
+    ``replays`` the graph replays so far (one a call).  With
+    ``capture=False`` the loops run eagerly wherever the state lies, and
+    a build is a new signature, as on the CPU."""
 
-    def __init__(self):
+    def __init__(self, capture: bool = True):
+        self.capture = capture
         self.traces = 0
         self.captures = 0
         self.replays = 0
@@ -155,7 +164,7 @@ def while_loop(cond, body, state):
     if _TRACING.get():
         return _check(body(state), state)
     cell = _ACTIVE.get()
-    if cell is not None and state[0].is_cuda:
+    if cell is not None and cell.capture and state[0].is_cuda:
         graph = cell._loop(cond, body, state)
         with torch.cuda.device(state[0].device):
             cell.replays += 1

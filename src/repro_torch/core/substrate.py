@@ -322,17 +322,18 @@ def fused_ic0_local_substrate(cols, vals, apply_dot,
                            _pipe_dots_local(_lane_dot), pipe_update)
 
 
-def _shard_stream_ops(matvec, tdot):
-    """The tile grid's (dot, fold_matvec_dot, pipe_dots).  ``tdot(u, v)``
-    is the engine's dot without its collective record: tile partials
-    added in tile order.  Each of these stands for one psum of the JAX
-    program and records it (``noc.record``); the fold is p' = z + beta*p
-    around the NoC matvec, a plain composition (JAX ``substrate.py``)."""
+def _shard_stream_ops(matvec, tdots):
+    """The tile grid's (dot, fold_matvec_dot, pipe_dots).  ``tdots(a1, b1,
+    a2, b2, ...)`` is the engine's stack of dots without its collective
+    record: tile partials added in tile order.  Each of these stands for
+    one psum of the JAX program and records it (``noc.record``); the fold
+    is p' = z + beta*p around the NoC matvec, a plain composition (JAX
+    ``substrate.py``)."""
     from . import noc
 
     def dot(u, v):
         noc.record("all-reduce")
-        return tdot(u, v)
+        return tdots(u, v)[0]
 
     def fold_matvec_dot(z, p, beta):
         p = z + beta * p
@@ -341,48 +342,56 @@ def _shard_stream_ops(matvec, tdot):
 
     def pipe_dots(r, u, w):
         noc.record("all-reduce")           # ONE stacked reduction
-        return torch.stack([tdot(r, u), tdot(w, u), tdot(r, r)])
+        return tdots(r, u, w, u, r, r)
 
     return dot, fold_matvec_dot, pipe_dots
 
 
-def fused_shard_substrate(matvec, dinv, tdot) -> SolverSubstrate:
+def fused_shard_substrate(matvec, dinv, tdots, psum) -> SolverSubstrate:
     """The tile grid's fused substrate.  ``matvec`` is the engine's
-    NoC-composed SpMV over the padded global vector, ``dinv`` the (n_pad,)
-    Jacobi inverse diagonal (or None), ``tdot`` the engine's dot (tile
-    partials in tile order, unrecorded).  ``update`` is ``cg_update`` over
-    every tile at once: its [rr, rz] are one reduction, where the JAX
-    program psums one stack of the tiles' partials."""
+    NoC-composed SpMV over the padded global vector (a rank's shard of
+    it on a process grid), ``dinv`` the Jacobi inverse diagonal of the
+    same part (or None), ``tdots`` the engine's stacked dots (tile
+    partials in tile order, unrecorded), ``psum(*shares)`` the sums over
+    every tile of this process's shares.  ``update`` is ``cg_update`` over
+    every tile this process holds at once: its [rr, rz] are one reduction
+    (``psum``: nothing left to add on one device, the ranks' shares added
+    in rank order on a process grid), where the JAX program psums one
+    stack of the tiles' partials."""
     from . import noc
 
-    dot, fold_matvec_dot, pipe_dots = _shard_stream_ops(matvec, tdot)
+    dot, fold_matvec_dot, pipe_dots = _shard_stream_ops(matvec, tdots)
 
     def psolve(r):
         return r * dinv if dinv is not None else r
 
     def update(alpha, x, r, p, ap):
-        out = ops.cg_update(alpha, x, r, p, ap, dinv)
+        xo, ro, z, rr, rz = ops.cg_update(alpha, x, r, p, ap, dinv)
         noc.record("all-reduce")           # [rr, rz]: one reduction
-        return out
+        rr, rz = psum(rr, rz)
+        return xo, ro, z, rr, rz
 
     return SolverSubstrate("fused_shard", matvec, psolve, dot,
                            fold_matvec_dot, update, pipe_dots, pipe_update)
 
 
-def fused_shard_ic0_substrate(matvec, psolve_local, tdot) -> SolverSubstrate:
+def fused_shard_ic0_substrate(matvec, psolve_local, tdots,
+                              psum) -> SolverSubstrate:
     """The tile grid's substrate for ``precond="block_ic0"``: the tiles'
     block-IC(0) solves (``psolve_local``, no collective: each tile factors
     its own diagonal block) after a ``cg_update`` with the identity, and
-    [rr, rz] as one reduction, as in :func:`fused_shard_substrate`."""
+    [rr, rz] as one reduction, as in :func:`fused_shard_substrate` (on a
+    process grid rr's rank sum and rz's dot are two collectives)."""
     from . import noc
 
-    dot, fold_matvec_dot, pipe_dots = _shard_stream_ops(matvec, tdot)
+    dot, fold_matvec_dot, pipe_dots = _shard_stream_ops(matvec, tdots)
 
     def update(alpha, x, r, p, ap):
         xo, ro, _, rr, _ = ops.cg_update(alpha, x, r, p, ap, None)
         z = psolve_local(ro)
-        rz = tdot(ro, z)
+        rz = tdots(ro, z)[0]
         noc.record("all-reduce")           # [rr, rz]: one reduction
+        (rr,) = psum(rr)
         return xo, ro, z, rr, rz
 
     return SolverSubstrate("fused_shard_ic0", matvec, psolve_local, dot,

@@ -7,7 +7,8 @@ axis names.  A
 mesh is anything with a ``shape`` mapping axis name to size
 (``launch.sharding.MeshShape``, ``launch.mesh.TileMesh``).
 ``remesh_restore``, which restores a checkpoint onto a mesh of several
-cards, waits for the process-per-card backend (ROADMAP Queue 1 item 10).
+cards, waits for placement on a ``launch.mesh.ProcessMesh`` (ROADMAP Queue
+1 item 11b, on item 10's process grid).
 """
 
 from __future__ import annotations

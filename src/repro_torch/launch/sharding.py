@@ -30,7 +30,8 @@ them): the leaf's path (as the tree gives it, list indices as ints) ->
 spec, in the tree's leaf order.
 
 ``named`` and ``tree_named``, which place tensors across cards, wait for
-the process-per-card backend (ROADMAP Queue 1 item 10).
+``torch.distributed.tensor`` placements on a ``launch.mesh.ProcessMesh``
+(ROADMAP Queue 1 item 11b, on item 10's process grid).
 """
 
 from __future__ import annotations

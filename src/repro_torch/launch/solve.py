@@ -22,6 +22,20 @@ grid (``launch.mesh.make_mesh`` over ("data", "model") on ``--device``)
 with ``--mode``, ``--layout``, ``--reorder`` and ``--balance``, and the
 JSON adds the plan's modeled NoC record (``noc``).
 
+One process a tile:
+
+    # the 2x2 grid as 4 ranks (launch.procs spawns them; gloo stages
+    # the messages through host memory, so they may share the card)
+    PYTHONPATH=src python -m repro_torch.launch.solve --matrix lap2d_32 \
+        --method pcg_tol --mesh-shape 2x2 --processes --dist-backend gloo
+
+``--processes`` runs the ``--mesh-shape`` grid on a
+``launch.mesh.ProcessMesh``: it spawns R*C ranks (``launch.procs``), or,
+under ``torchrun`` (``RANK``/``WORLD_SIZE`` in the environment), joins
+the group torchrun set up.  Rank 0 prints the verdict, the one-process
+grid's with ``"processes": R*C`` added.  ``--dist-backend nccl`` needs a
+card a rank.
+
 Fault tolerance, as in ``repro.launch.solve``:
 
     # inject a NaN into the streamed values at iteration 15 and let the
@@ -42,6 +56,8 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
+import sys
 
 import numpy as np
 import scipy.sparse as sp
@@ -49,7 +65,7 @@ import scipy.sparse as sp
 from ..core import registry
 
 
-def main(argv=None):
+def _parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser()
     ap.add_argument("--matrix", default="lap2d_32")
     ap.add_argument("--method", default="pcg",
@@ -71,6 +87,14 @@ def main(argv=None):
     ap.add_argument("--mode", default="2d", choices=("1d", "2d"))
     ap.add_argument("--mesh-shape", default="",
                     help="e.g. 2x2 -- a tile grid; empty = one device")
+    ap.add_argument("--processes", action="store_true",
+                    help="run the --mesh-shape grid one process a tile "
+                         "(spawned here, or the ranks of torchrun)")
+    ap.add_argument("--dist-backend", default="gloo",
+                    choices=("gloo", "nccl"),
+                    help="torch.distributed backend of --processes: gloo "
+                         "stages messages through host memory (ranks may "
+                         "share a card); nccl needs a card a rank")
     ap.add_argument("--layout", default="auto",
                     choices=("auto", "halo", "dense"),
                     help="tile-grid comm layout: halo = the compiled pull "
@@ -99,8 +123,57 @@ def main(argv=None):
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
                     help="cuda runs the hand-written kernels; cpu runs "
                          "their plain PyTorch versions")
-    args = ap.parse_args(argv)
+    return ap
 
+
+def main(argv=None):
+    argv = sys.argv[1:] if argv is None else list(argv)
+    args = _parser().parse_args(argv)
+    if args.processes:
+        return _processes(args, argv)
+    out, rc = verdict(args)
+    print(json.dumps(out, indent=1))
+    return rc
+
+
+def _processes(args, argv) -> int:
+    """``--processes``: the solve on every rank of a process grid; rank 0
+    prints the verdict."""
+    if not args.mesh_shape:
+        raise SystemExit("--processes needs --mesh-shape")
+    if args.inject:
+        raise SystemExit("--inject runs on one process (fault tolerance on "
+                         "a process grid is not ported yet)")
+    shape = tuple(int(x) for x in args.mesh_shape.split("x"))
+    size = int(np.prod(shape))
+    if "RANK" in os.environ and "WORLD_SIZE" in os.environ:
+        from .mesh import make_process_mesh
+
+        mesh = make_process_mesh(shape, ("data", "model")[: len(shape)],
+                                 backend=args.dist_backend,
+                                 device=args.device)
+        out, rc = verdict(args, mesh)
+        if mesh.rank == 0:
+            print(json.dumps(out, indent=1))
+        return rc
+    from . import procs
+
+    out, rc = procs.run(_rank_verdict, size, (argv,),
+                        backend=args.dist_backend, device=args.device)[0]
+    print(json.dumps(out, indent=1))
+    return rc
+
+
+def _rank_verdict(rank, argv: list) -> tuple:
+    """A spawned rank of ``--processes``: its (verdict, exit code)."""
+    args = _parser().parse_args(argv)
+    shape = tuple(int(x) for x in args.mesh_shape.split("x"))
+    return verdict(args, rank.mesh(shape, ("data", "model")[: len(shape)]))
+
+
+def verdict(args, mesh=None) -> tuple:
+    """(the printed JSON, the exit code) of one solve; ``mesh`` a rank's
+    ``ProcessMesh`` under ``--processes``."""
     from ..core.engine import AzulEngine
     from ..core.plan import SolveSpec
     from ..data.matrices import suite
@@ -116,8 +189,7 @@ def main(argv=None):
             mats.update(suite("large"))
         m = mats[args.matrix]
 
-    mesh = None
-    if args.mesh_shape:
+    if mesh is None and args.mesh_shape:
         from .mesh import make_mesh
         shape = tuple(int(x) for x in args.mesh_shape.split("x"))
         mesh = make_mesh(shape, ("data", "model")[: len(shape)],
@@ -166,8 +238,7 @@ def main(argv=None):
             "rel_residual": rep.rel_residual, "rel_error": rel,
             "device": str(eng.device),
         }
-        print(json.dumps(out, indent=1))
-        return 0 if rep.status == "converged" else 1
+        return out, 0 if rep.status == "converged" else 1
 
     plan = eng.plan(spec)
     x, norms = plan(b)
@@ -192,8 +263,9 @@ def main(argv=None):
     if plan.spec.tol is not None:
         out["tol"] = plan.spec.tol
         out["iters_run"] = int(plan.last_iters)
-    print(json.dumps(out, indent=1))
-    return 0
+    if args.processes:
+        out["processes"] = mesh.size
+    return out, 0
 
 
 if __name__ == "__main__":

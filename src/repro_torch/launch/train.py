@@ -17,8 +17,8 @@ step donates its state (``build_train_step(..., donate=True)``, the JAX
 launcher's ``donate_argnums=(0,)``).  Each step's time includes reading its
 loss back, so it is the step's time on the device.  With ``--ckpt-dir``
 the loop runs under ``ft.RestartManager`` (periodic async checkpoints, NaN
-guard, resume).  ``--mesh single|multi`` exits 2: the sharding rules and a
-multi-card backend are not ported (ROADMAP Queue 1 items 10-11).
+guard, resume).  ``--mesh single|multi`` exits 2: placing the state on a
+process grid is not ported (ROADMAP Queue 1 item 11b, on items 10-11).
 """
 
 from __future__ import annotations
@@ -58,9 +58,9 @@ def main(argv=None):
                          init_train_state, warmup_cosine)
 
     if args.mesh:
-        ap.error(f"--mesh {args.mesh}: the sharding rules (launch/sharding.py) "
-                 "and a multi-card backend are not ported (ROADMAP Queue 1 "
-                 "items 10-11); the port trains on one card")
+        ap.error(f"--mesh {args.mesh}: placing the state on a process grid "
+                 "(launch.mesh.ProcessMesh) is not ported (ROADMAP Queue 1 "
+                 "item 11b, on items 10-11); the port trains on one card")
     if args.arch not in names():
         ap.error(f"--arch {args.arch!r}: unknown architecture; available: "
                  f"{', '.join(names())}")

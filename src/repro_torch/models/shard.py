@@ -5,8 +5,9 @@ The JAX package pins the sharding of hot activations with
 ``constrain(x, kind)`` inside ``use_mesh_axes(mesh, ...)``.  The port runs a
 model on one card, so ``constrain`` is the identity here, inside the
 context or not; the call sites keep the JAX names so that a sharded model
-has its seams.  A model sharded across cards waits for the process-per-card
-backend (ROADMAP Queue 1 item 10).
+has its seams.  A model sharded across cards waits for its placement on a
+``launch.mesh.ProcessMesh`` (ROADMAP Queue 1 item 11b, on item 10's
+process grid).
 """
 
 from __future__ import annotations

@@ -129,15 +129,16 @@ def build_train_step(
 
     ``grad_shardings`` places gradients across cards in the JAX package; on
     one card there is nothing to constrain, and a tree here raises until
-    the process-per-card backend exists (ROADMAP Queue 1 item 10).
+    gradients are placed on a ``ProcessMesh`` (ROADMAP Queue 1 item 11b,
+    on item 10's process grid).
     ``donate``: update the given state's tensors in place (module
     docstring).
     """
     if grad_shardings is not None:
         raise NotImplementedError(
-            "grad_shardings: gradients sharded across cards wait for the "
-            "process-per-card backend (ROADMAP Queue 1 item 10); one card "
-            "has nothing to constrain")
+            "grad_shardings: gradients sharded across cards wait for their "
+            "placement on a ProcessMesh (ROADMAP Queue 1 item 11b, on item "
+            "10's process grid); one card has nothing to constrain")
 
     def train_step(state: TrainState, batch):
         params = state.params

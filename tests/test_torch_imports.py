@@ -26,7 +26,9 @@ from repro_torch.device import resolve_device
 from repro_torch.launch import serve as serve_cli
 from repro_torch.launch import solve as solve_cli
 from repro_torch.launch import train as train_cli
-from repro_torch.launch.mesh import make_mesh, make_production_mesh
+from repro_torch.launch import procs
+from repro_torch.launch.mesh import (make_mesh, make_process_mesh,
+                                     make_production_mesh)
 from repro_torch.models import model as lm
 from repro_torch.serve import SolveService
 
@@ -88,7 +90,8 @@ def test_port_imports_without_jax_or_repro():
                  "repro_torch.train.optim", "repro_torch.train.step",
                  "repro_torch.launch.train", "repro_torch.roofline",
                  "repro_torch.roofline.analyze", "repro_torch.launch.sharding",
-                 "repro_torch.launch.dryrun", "repro_torch.ft.remesh"):
+                 "repro_torch.launch.dryrun", "repro_torch.ft.remesh",
+                 "repro_torch.launch.procs"):
         assert name in r.stdout.split(), name
 
 
@@ -126,7 +129,7 @@ def test_entry_points_default_to_cuda():
                formats.hyb_from_csr, formats.bcsr_from_csr, resolve_device,
                SolveService.__init__, make_mesh, make_production_mesh,
                lm.init_params, lm.init_caches, convert.lm_params_from_numpy,
-               convert.train_state_from_numpy):
+               convert.train_state_from_numpy, make_process_mesh, procs.run):
         assert inspect.signature(fn).parameters["device"].default == "cuda", fn
     m = laplacian_2d(4)
     if torch.cuda.is_available():
@@ -156,6 +159,12 @@ def test_entry_points_default_to_cuda():
         make_mesh((2, 2), ("data", "model"))
     with pytest.raises(RuntimeError, match="cuda"):
         solve_cli.main(["--matrix", "lap2d_32", "--mesh-shape", "2x2"])
+    # a process grid's ranks run on the card unless the caller says cpu
+    with pytest.raises(RuntimeError, match="cuda"):
+        procs.run(print, 2, backend="gloo")
+    with pytest.raises(RuntimeError, match="cuda"):
+        solve_cli.main(["--matrix", "lap2d_32", "--mesh-shape", "2x2",
+                        "--processes"])
     # the LM zoo: a model, its caches' host, the CLI's --arch
     smoke = configs.get_smoke("granite-3-8b")
     with pytest.raises(RuntimeError, match="cuda"):
