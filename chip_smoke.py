@@ -267,10 +267,10 @@ prints no result line):
                reload.  6f: ``python -m repro_torch.launch.serve --solver
                --operators lap2d_96,banded_10k --requests 12 --iters 2000
                --tol 1e-10`` as a subprocess (exit 0, verify_maxerr <=
-               1e-6), and again with ``--load-gen open --rate 50
-               --requests 40`` (40 converged, no retrace, the outcomes'
-               largest true relative residual <= 1e-8); both with
-               ``degraded_batches`` 0.
+               1e-6), and beside it (both at once) with ``--load-gen open
+               --rate 50 --requests 40`` (40 converged, no retrace, the
+               outcomes' largest true relative residual <= 1e-8); both
+               with ``degraded_batches`` 0.
 
 7. ft      -- fault-tolerant solves (``repro_torch.ft``) on the service's
                operator, laplacian_3d(100) (n = 1,000,000), f64 Jacobi
@@ -333,7 +333,7 @@ prints no result line):
                ``sptrsv_solve_dot`` a step.  8g: DIST_PARITY and
                DIST_PARITY_IC0 within one.  8h: microseconds a loop step,
                grid against local, one RHS and k = 8 (warm unguarded pcg,
-               300 steps minus 0, medians of 3 calls), the guarded pcg_tol
+               GRID_STEPS steps minus 0, medians of 3 calls), the guarded pcg_tol
                wall over its iterations, the step's graph nodes and the NoC
                gathers' words, each NoC stage's time on the card, beside
                the card's name and power limit.  Phase 8 also solves 8p's
@@ -408,10 +408,10 @@ prints no result line):
                smoke config with
                grad_accum 2 and with int8 compression by loss and
                grad_norm.  10b: ``launch.train --arch granite-3-8b
-               --optimizer adafactor --batch 4 --seq 1024 --steps 5`` in
+               --optimizer adafactor --batch 4 --seq 1024 --steps 3`` in
                process (the published config, 8,372,187,136 params, bf16,
                remat on): every loss finite, loss_first near ln(vocab),
-               the warm step (median of steps 2-5), tokens/s, the share of
+               the warm step (median of steps 2-3), tokens/s, the share of
                the 989.4 TFLOP/s bf16 peak (6 N T model FLOPs a step),
                peak memory; then the same step in parts on the card (CUDA
                events: forward+backward, clip, optimizer) and under
@@ -453,6 +453,34 @@ prints no result line):
                candidate must run, ``lookup`` return the winner and
                ``ell_spmv.pick_variant`` (the rows-or-group wrappers'
                rule, which consults the cache) pick it.
+12. meshtrain -- the LM train state on a process grid: 4 gloo ranks on
+               the card (``launch.procs``) as a 2x2 (data, model)
+               ``ProcessMesh``, each running ``launch.train.
+               train_on_mesh`` (the state placed by ``state_specs`` and
+               ``sharding.named``, cut to the rank's slices, trained with
+               ``grad_shardings``); no CUDA kernel of the port's own.  The
+               one-process counterparts run first, on the card.  12a: the
+               f32 smoke configs of granite-3-8b and dbrx-132b (its
+               expert banks' specs) with AdamW and Adafactor, MESH_STEPS
+               steps of MESH_PARITY_SHAPE from the same seed-0 state:
+               losses and grad_norm within MESH_RTOL of the one-process
+               step, the params gathered after within MESH_PARAM_TOL x
+               max|p|, every rank's metrics and gathered params bitwise
+               equal and each rank's slices bitwise the gathered state's,
+               each rank's held bytes equal to ``sharding.device_bytes``,
+               the bytes a rank receives each step equal to
+               ``roofline.collect.train_step_bytes`` exactly.  12b:
+               granite-3-8b's published width cut to MESH_FULL_LAYERS
+               layers, bf16, Adafactor, MESH_FULL_SHAPE: the losses within
+               MESH_FULL_LOSS_RTOL of the one-process step's and bitwise
+               equal across ranks, held bytes and wire bytes as in 12a,
+               each rank's ``max_memory_allocated`` while it builds its
+               state at most its ``device_bytes`` plus two of the largest
+               whole f32 draw (no rank holds the whole state); ms a step
+               (median of steps 2-3) with its staging and gloo parts
+               (``mesh.stats``), each rank's ``max_memory_allocated`` over
+               the steps against its ``device_bytes``, beside the card's
+               name and power limit.
 
 The last three lines are the kernels JSON, the card's
 ``nvidia-smi --query-gpu=name,power.limit`` line, and the result JSON.
@@ -594,8 +622,9 @@ SERVE_GRID = 100
 SERVE_BATCH, SERVE_CHUNK, SERVE_BUDGET = 8, 25, 20000
 # requests drained, then run_load's: cut from 64 each to keep phase 6 near
 # 90 s on the card (64 and 64 took 30.3 s and 63.0 s; 32 and 32, 17.3 s
-# and 40.2 s)
-SERVE_DRAIN, SERVE_LOAD = 32, 16
+# and 40.2 s); then from 32 and 16 (21.3 s and 29.5 s) to make room for
+# phase 12 in the script's time limit
+SERVE_DRAIN, SERVE_LOAD = 16, 8
 JOIN_BUDGET = 200                    # lap2d_1024's bitwise join: maxiter
 # phase 7, fault-tolerant solves: the service's operator, f64 Jacobi pcg_tol
 # at tol 1e-8 in chunks of launch/serve.py's 25, the faults at iteration 100
@@ -676,11 +705,13 @@ TRAIN_LR = 3e-3                     # 10a: warmup_cosine(TRAIN_LR, 1, 10)
 TRAIN_PARAM_SHARE = 0.999
 TRAIN_SHAPE = (2, 32)               # 10a: (batch, seq)
 TRAIN_FULL = "granite-3-8b"         # 10b: the published config, bf16
+TRAIN_STEPS = 3                     # 10b: launch.train's steps and the parts'
+                                    # (3, not 5: time for phase 12)
 TRAIN_FULL_ARGV = ["--arch", TRAIN_FULL, "--optimizer", "adafactor",
-                   "--batch", "4", "--seq", "1024", "--steps", "5"]
+                   "--batch", "4", "--seq", "1024", "--steps", str(TRAIN_STEPS)]
 TRAIN_ADAMW = "h2o-danube-1.8b"     # 10b: the launcher's default AdamW
 TRAIN_ADAMW_ARGV = ["--arch", TRAIN_ADAMW, "--batch", "4", "--seq", "1024",
-                    "--steps", "5"]
+                    "--steps", str(TRAIN_STEPS)]
 TRAIN_REMAT_LAYERS = 4              # 10d: granite's width, 4 layers
 BF16_PEAK_FLOPS = 989.4e12          # H100 SXM dense bf16 (data sheet)
 
@@ -698,6 +729,29 @@ DRY_PEAK_TOL = 0.03
 TIMER_WIDTHS = (12, 16)             # the rows kernels' W
 TIMER_BLOCKS = (4, 16)              # bcsr_spmm's bm = bn, on lap2d_1024
 TIMER_REPS = 20
+
+# phase 12, the LM train state on a process grid: 4 gloo ranks on the card
+# as a 2x2 (data, model) ProcessMesh.  12a: the f32 smoke configs against
+# the one-process step on the card; loss and grad_norm rtol 1e-5 (the CPU
+# tests' tolerances: only the order of f32 sums differs), the params after
+# the steps within MESH_PARAM_TOL x max|p| (AdamW's early updates are
+# sign-like, so a near-zero grad moves its element up to 2 lr apart: the
+# 1e-4 the CPU tests hold AdamW's params to; Adafactor is smooth in g).
+# 12b: granite-3-8b's published width cut to MESH_FULL_LAYERS layers, bf16,
+# Adafactor; its losses within MESH_FULL_LOSS_RTOL of the one-process step
+# on the card: bf16 rounds at 2^-8 = 3.9e-3, and the two runs round the
+# sharded batch's products and the gradient sums differently.
+MESH_GRID, MESH_AXES = (2, 2), ("data", "model")
+MESH_STEPS = 3
+MESH_PARITY = (("granite-3-8b", "adamw"), ("granite-3-8b", "adafactor"),
+               ("dbrx-132b", "adamw"), ("dbrx-132b", "adafactor"))
+MESH_PARITY_SHAPE = (4, 32)
+MESH_RTOL = 1e-5
+MESH_PARAM_TOL = {"adamw": 1e-4, "adafactor": 1e-5}
+MESH_FULL_LAYERS = 2
+MESH_FULL_SHAPE = (4, 512)
+MESH_FULL_LOSS_RTOL = 2e-2
+MESH_DEADLINE_S = 300.0
 
 
 def ft_scenario(engines: dict, case: dict, b):
@@ -1032,7 +1086,8 @@ def ft_phase(failed: list) -> None:
 
 GRID_MESHES = (("2x2", "2d"), ("4x1", "1d"))
 GRID_IC0 = 512                      # laplacian_2d(512) block-IC(0) grid
-GRID_STEPS = 300                    # loop steps of phase 8's step timing
+GRID_STEPS = 100                    # loop steps of phase 8's step timing (100,
+                                    # not 300: time for phase 12)
 GRID_KERNELS = ("ell_spmv", "ell_spmm", "cg_update", "cg_update_batched",
                 "sptrsv_solve_dot")
 
@@ -2253,7 +2308,7 @@ def train_phase(failed: list) -> dict:
         rc, res, cli_s = cli_json(train_cli.main, argv)
         peak = torch.cuda.max_memory_allocated() - base
         losses = res["losses"]
-        if rc != 0 or res["arch"] != arch or res["steps"] != 5 \
+        if rc != 0 or res["arch"] != arch or res["steps"] != TRAIN_STEPS \
                 or not all(math.isfinite(x) for x in losses):
             raise AssertionError(f"launch.train {argv}: rc {rc}, {res}")
         n = M.param_count(M.init_params(cfg, None, "meta"))
@@ -2272,7 +2327,8 @@ def train_phase(failed: list) -> dict:
                "peak_share": floor_ms / warm, "peak_bytes": peak,
                "cli_s": cli_s}
         say(f"train {label} {' '.join(argv)}: " + json.dumps(out))
-        say(f"train {label}: warm step {warm:.1f} ms (median of steps 2-5), "
+        say(f"train {label}: warm step {warm:.1f} ms (median of steps "
+            f"2-{TRAIN_STEPS}), "
             f"{tokens / warm * 1e3:.0f} tokens/s, {floor_ms / warm:.1%} of the "
             f"989.4 TFLOP/s bf16 peak (6 N T = {flops:.3e} FLOPs, floor "
             f"{floor_ms:.1f} ms), loss {losses[0]:.4f} -> {losses[-1]:.4f} "
@@ -2282,7 +2338,7 @@ def train_phase(failed: list) -> dict:
 
     def step_parts(cfg, opt, argv, label):
         """The launcher's donated step in its parts, timed by CUDA events
-        (median of 4 steps after one warm-up), then one step under the
+        (median of the steps after one warm-up), then one step under the
         profiler."""
         batch, seq = int(argv[argv.index("--batch") + 1]), int(argv[argv.index("--seq") + 1])
         params = M.init_params(
@@ -2296,7 +2352,7 @@ def train_phase(failed: list) -> dict:
         pipe = TokenPipeline(cfg.vocab_size, batch, seq, seed=0)
         leaves = M.param_leaves(state.params)
         parts = {"forward+backward": [], "clip": [], "optimizer": [], "step": []}
-        for i in range(5):
+        for i in range(TRAIN_STEPS):
             ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
             b = as_batch(pipe.batch_at(i), "cuda")
             ev[0].record()
@@ -2318,7 +2374,7 @@ def train_phase(failed: list) -> dict:
                 parts["step"].append(ev[0].elapsed_time(ev[3]))
         med = {k: float(np.median(v)) for k, v in parts.items()}
         step = T.build_train_step(cfg, opt, donate=True)
-        b = pipe.batch_at(5)
+        b = pipe.batch_at(TRAIN_STEPS)
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             state, m = step(state, b)
             torch.cuda.synchronize()
@@ -2332,7 +2388,7 @@ def train_phase(failed: list) -> dict:
         if not kern:
             raise AssertionError("the profiler saw no kernel in a train step")
         say(f"train {label} step parts on the card (ms, CUDA events, median of "
-            f"4): " + json.dumps(med) + f"; under the profiler one step "
+            f"{TRAIN_STEPS - 1}): " + json.dumps(med) + f"; under the profiler one step "
             f"launched {len(kern)} kernels, {kern_ms:.1f} ms of them on the "
             f"card; the largest: "
             + json.dumps([(k[:60], round(v, 2)) for k, v in top]))
@@ -2671,6 +2727,229 @@ def roofline_phase(failed: list, lm: dict, trained: dict) -> None:
         autotune.clear_memo()
     torch.cuda.empty_cache()
     say(f"roofline phase: {now() - t_phase:.1f} s")
+
+
+def mesh_reference(cfg, opt_name: str, shape) -> dict:
+    """The one-process counterpart of ``launch.train.train_on_mesh`` on the
+    card: the same seed-0 model, optimizer and batches, ``MESH_STEPS``
+    donated steps in the launcher's own ``train_loop``; losses, grad
+    norms, each step's ms (ended by reading its loss) and (f32) the params
+    as numpy."""
+    import torch
+
+    from repro_torch import convert
+    from repro_torch import train as T
+    from repro_torch.data import TokenPipeline
+    from repro_torch.launch.train import make_optimizer, train_loop
+    from repro_torch.models import model as M
+
+    params = M.init_params(cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
+    opt = make_optimizer(opt_name, 3e-3, MESH_STEPS)
+    state = T.init_train_state(params, opt)
+    del params
+    out = {"grad_norms": []}
+    state, out["losses"], times = train_loop(
+        state, T.build_train_step(cfg, opt, donate=True),
+        TokenPipeline(cfg.vocab_size, *shape, seed=0), MESH_STEPS, verbose=False,
+        on_step=lambda i, m: out["grad_norms"].append(float(m["grad_norm"])))
+    out["step_ms"] = [1e3 * t for t in times]
+    if cfg.param_dtype == "float32":
+        out["params"] = convert.lm_params_to_numpy(state.params)
+    return out
+
+
+def _held_is_gathered(state, full, pls) -> bool:
+    """Every tensor this rank holds equals its slice of the gathered
+    state, bit for bit (the slices other ranks sent equal this rank's)."""
+    import torch
+
+    from repro_torch.launch.sharding import tree_leaves
+    from repro_torch.models.model import LayerStack
+
+    whole = lambda v: torch.stack(list(v)) if isinstance(v, LayerStack) else v
+    for f in ("params", "opt_state"):
+        mine, got = tree_leaves(getattr(state, f)), tree_leaves(getattr(full, f))
+        for path, pl in getattr(pls, f).items():
+            if not torch.equal(whole(mine[path]).cpu(), whole(got[path])[pl.held]):
+                return False
+    return True
+
+
+def meshtrain_rank(rank, t_spawn: float) -> dict:
+    """A rank of phase 12 (module docstring): ``launch.train.
+    train_on_mesh`` on the 2x2 grid, 12a's smoke configs (gathered after)
+    then 12b's cut granite-3-8b."""
+    import torch
+
+    from repro_torch import convert
+    from repro_torch.configs import get, get_smoke
+    from repro_torch.launch import sharding as SH
+    from repro_torch.launch.train import train_on_mesh
+    from repro_torch.obs.clock import now
+
+    keep = ("losses", "grad_norms", "step_ms", "wire_bytes", "stage_s",
+            "comm_s", "held_bytes", "device_bytes", "build_peak_bytes",
+            "peak_bytes")
+    out = {"rank": rank.rank, "start_s": now() - t_spawn, "parity": {}}
+    mesh = rank.mesh(MESH_GRID, MESH_AXES)
+    t0 = now()
+    for arch, opt_name in MESH_PARITY:
+        cfg = get_smoke(arch).replace(param_dtype="float32", compute_dtype="float32")
+        res = train_on_mesh(mesh, cfg, steps=MESH_STEPS, batch=MESH_PARITY_SHAPE[0],
+                            seq=MESH_PARITY_SHAPE[1], optimizer=opt_name)
+        full = SH.gather(res["state"], res["placements"])
+        got = {k: res[k] for k in keep}
+        got["params"] = convert.lm_params_to_numpy(full.params)
+        got["held_is_gathered"] = _held_is_gathered(res["state"], full, res["placements"])
+        out["parity"][f"{arch} {opt_name}"] = got
+        del res, full
+    out["parity_s"] = now() - t0
+    torch.cuda.empty_cache()
+    t0 = now()
+    cfg = get(TRAIN_FULL).replace(n_layers=MESH_FULL_LAYERS)
+    res = train_on_mesh(mesh, cfg, steps=MESH_STEPS, batch=MESH_FULL_SHAPE[0],
+                        seq=MESH_FULL_SHAPE[1], optimizer="adafactor")
+    out["full"] = {k: res[k] for k in keep}
+    out["full_s"] = now() - t0
+    return out
+
+
+def meshtrain_phase(failed: list) -> None:
+    """Phase 12: the LM train state on a 2x2 process grid (module
+    docstring).  Any check that fails adds "meshtrain" to ``failed``."""
+    import numpy as np
+    import torch
+
+    from repro_torch import train as T
+    from repro_torch.configs import get, get_smoke
+    from repro_torch.launch import procs
+    from repro_torch.launch.sharding import MeshShape
+    from repro_torch.models import model as M
+    from repro_torch.obs.clock import now
+    from repro_torch.roofline.collect import train_step_bytes
+
+    t_phase = now()
+    smi = smi_line()
+    try:
+        f32 = lambda c: c.replace(param_dtype="float32", compute_dtype="float32")
+        cases = {f"{a} {o}": (f32(get_smoke(a)), o) for a, o in MESH_PARITY}
+        full_cfg = get(TRAIN_FULL).replace(n_layers=MESH_FULL_LAYERS)
+        t0 = now()
+        refs = {k: mesh_reference(cfg, o, MESH_PARITY_SHAPE) for k, (cfg, o) in cases.items()}
+        full_ref = mesh_reference(full_cfg, "adafactor", MESH_FULL_SHAPE)
+        torch.cuda.empty_cache()
+        ref_s = now() - t0
+        t0 = now()
+        ranks = procs.run(meshtrain_rank, MESH_GRID[0] * MESH_GRID[1], (t0,),
+                          backend="gloo", device="cuda", timeout_s=MESH_DEADLINE_S)
+        run_s = now() - t0
+        grid = MeshShape(dict(zip(MESH_AXES, MESH_GRID)))
+
+        def model_bytes(cfg, opt_name):
+            state = T.init_train_state(M.init_params(cfg, None, "meta"),
+                                       getattr(T, opt_name)(T.warmup_cosine(1e-3, 1, 2)))
+            want = train_step_bytes(cfg, state, grid)
+            return want.pop("total_bytes"), want
+
+        bad = []
+        rel = lambda a, b: float(np.max(np.abs(np.subtract(a, b)) / np.abs(b)))
+        for key, (cfg, opt_name) in cases.items():
+            ref, got = refs[key], [r["parity"][key] for r in ranks]
+            r0 = got[0]
+            e_loss, e_gn = rel(r0["losses"], ref["losses"]), rel(r0["grad_norms"], ref["grad_norms"])
+            e_p = max(float(np.abs(r0p - w).max() / np.abs(w).max())
+                      for r0p, w in zip(_np_leaves(r0["params"]), _np_leaves(ref["params"])))
+            total, want = model_bytes(cfg, opt_name)
+            same = all(g["losses"] == r0["losses"] and g["grad_norms"] == r0["grad_norms"]
+                       and all(np.array_equal(a, b) for a, b in
+                               zip(_np_leaves(g["params"]), _np_leaves(r0["params"])))
+                       for g in got)
+            if not (e_loss <= MESH_RTOL and e_gn <= MESH_RTOL
+                    and e_p <= MESH_PARAM_TOL[opt_name] and same
+                    and all(g["held_is_gathered"] for g in got)
+                    and all(g["held_bytes"] == g["device_bytes"] for g in got)
+                    and all(w == want for g in got for w in g["wire_bytes"])):
+                bad.append(key)
+            say(f"meshtrain 12a {key} (f32 smoke, {MESH_STEPS} steps, 2x2, 4 gloo "
+                f"ranks): loss {e_loss:.2e}, grad_norm {e_gn:.2e} of the one-process "
+                f"step's; params {e_p:.2e} of max|p| (tol {MESH_PARAM_TOL[opt_name]}); "
+                f"ranks bitwise equal {same}; held bytes "
+                f"{[g['held_bytes'] for g in got]} = device_bytes "
+                f"{r0['device_bytes']}; wire bytes a step {sum(r0['wire_bytes'][0].values())} "
+                f"(model {total}) {r0['wire_bytes'][0]}")
+        got = [r["full"] for r in ranks]
+        r0 = got[0]
+        total, want = model_bytes(full_cfg, "adafactor")
+        # a rank builds its state one drawn tensor at a time: its slices
+        # and at most one whole f32 draw and that draw's slice
+        draw = 4 * max(p.numel() for p in M.init_params(full_cfg, None, "meta").parameters())
+        e_loss = rel(r0["losses"], full_ref["losses"])
+        warm = float(np.median(r0["step_ms"][1:]))
+        stage = 1e3 * float(np.median(r0["stage_s"][1:]))
+        comm = 1e3 * float(np.median(r0["comm_s"][1:]))
+        ok = (e_loss <= MESH_FULL_LOSS_RTOL
+              and all(np.isfinite(g["losses"]).all() for g in got)
+              and all(g["losses"] == r0["losses"] for g in got)
+              and all(g["held_bytes"] == g["device_bytes"] for g in got)
+              and all(w == want for g in got for w in g["wire_bytes"])
+              and all(g["build_peak_bytes"] <= g["device_bytes"] + 2 * draw
+                      for g in got))
+        if not ok:
+            bad.append("12b")
+        full = {"params": M.param_count(M.init_params(full_cfg, None, "meta")),
+                "losses": r0["losses"], "one_process_losses": full_ref["losses"],
+                "one_process_step_ms": full_ref["step_ms"],
+                "loss_rel_err": e_loss, "step_ms": [g["step_ms"] for g in got],
+                "warm_step_ms": warm, "stage_ms": stage, "gloo_ms": comm,
+                "rest_ms": warm - stage - comm,
+                "wire_bytes_per_step": r0["wire_bytes"][1], "model_bytes": total,
+                "held_bytes": [g["held_bytes"] for g in got],
+                "device_bytes": r0["device_bytes"],
+                "build_peak_bytes": [g["build_peak_bytes"] for g in got],
+                "build_bound_bytes": r0["device_bytes"] + 2 * draw,
+                "peak_bytes": [g["peak_bytes"] for g in got],
+                "rank_start_s": [r["start_s"] for r in ranks],
+                "parity_s": ranks[0]["parity_s"], "full_s": ranks[0]["full_s"],
+                "reference_s": ref_s, "ranks_s": run_s}
+        say("meshtrain 12b " + json.dumps(full))
+        say(f"meshtrain 12b {TRAIN_FULL} ({MESH_FULL_LAYERS} of 40 layers, published "
+            f"width, bf16, Adafactor, {MESH_FULL_SHAPE[0]} x {MESH_FULL_SHAPE[1]}) on "
+            f"2x2, 4 gloo ranks on one card: {warm:.1f} ms a step (median of steps "
+            f"2-{MESH_STEPS}; staging {stage:.1f}, gloo {comm:.1f}, rest "
+            f"{warm - stage - comm:.1f}; the one-process step "
+            f"{float(np.median(full_ref['step_ms'][1:])):.1f}); a rank receives "
+            f"{sum(r0['wire_bytes'][1].values()) / 1e6:.1f} MB a step (model "
+            f"{total / 1e6:.1f}); building the state peaks at "
+            f"{[round(g['build_peak_bytes'] / 1e9, 2) for g in got]} GB, the steps at "
+            f"{[None if g['peak_bytes'] is None else round(g['peak_bytes'] / 1e9, 2) for g in got]} GB against "
+            f"device_bytes {r0['device_bytes'] / 1e9:.2f} GB a rank; losses "
+            f"{[round(x, 4) for x in r0['losses']]} against the one-process "
+            f"{[round(x, 4) for x in full_ref['losses']]} ({e_loss:.2e}, tol "
+            f"{MESH_FULL_LOSS_RTOL}); on {smi}")
+        if bad:
+            raise AssertionError(f"phase 12 checks failed: {bad}")
+    except Exception:
+        traceback.print_exc()
+        failed.append("meshtrain")
+    say(f"meshtrain phase: {now() - t_phase:.1f} s")
+
+
+def _np_leaves(tree) -> list:
+    """The numpy leaves of a nested dict/list tree, in key order."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in _np_leaves(tree[k])]
+    if isinstance(tree, list):
+        return [x for v in tree for x in _np_leaves(v)]
+    return [tree]
+
+
+def say_phase(label: str, t0: float) -> float:
+    """Print ``label: N s`` since ``t0``; the time now."""
+    from repro_torch.obs.clock import now
+
+    t = now()
+    say(f"{label}: {t - t0:.1f} s")
+    return t
 
 
 def say(*parts) -> None:
@@ -4055,22 +4334,24 @@ def service_phase(m_main, failed: list) -> None:
     del eng2
     say(f"service phases 6a-6e: {now() - t_phase:.1f} s")
 
-    # -- 6f. the CLI -----------------------------------------------------------
+    # -- 6f. the CLI: the drain and the load generator side by side ------------
     try:
         env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
         cmd = [sys.executable, "-m", "repro_torch.launch.serve", "--solver",
                "--operators", "lap2d_96,banded_10k", "--requests", "12",
                "--iters", "2000", "--tol", "1e-10"]
-        for extra in ([], ["--load-gen", "open", "--rate", "50",
-                           "--requests", "40"]):
-            t0 = now()
-            r = subprocess.run(cmd + extra, env=env, capture_output=True,
-                               text=True, timeout=600, cwd=ROOT)
+        extras = ([], ["--load-gen", "open", "--rate", "50", "--requests", "40"])
+        t0 = now()
+        with ThreadPoolExecutor(len(extras)) as ex:
+            runs = list(ex.map(lambda extra: subprocess.run(
+                cmd + extra, env=env, capture_output=True, text=True,
+                timeout=600, cwd=ROOT), extras))
+        for extra, r in zip(extras, runs):
             if r.returncode != 0:
                 raise AssertionError(f"launch.serve {extra}: exit "
                                      f"{r.returncode}\n{r.stderr[-3000:]}")
             out = json.loads(r.stdout)
-            say(f"service CLI {' '.join(extra) or 'drain'} ({now() - t0:.1f} "
+            say(f"service CLI {' '.join(extra) or 'drain'} (both {now() - t0:.1f} "
                 f"s): " + json.dumps(out))
             if extra:
                 ok = (out["completed"] == 40 and not out["rejected"]
@@ -4111,6 +4392,11 @@ def main() -> int:
 
     # -- 11. the roofline, the dry run and the timer -----------------------------
     roofline_phase(failed, lm, trained)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- 12. the LM train state on a process grid --------------------------------
+    meshtrain_phase(failed)
 
     if failed:
         say("FAILED phases: " + ", ".join(failed))
@@ -4147,6 +4433,7 @@ def earlier_phases(failed: list) -> tuple:
     card = torch.cuda.get_device_name(0)
     smi = smi_line()
     say(f"torch {torch.__version__} cuda {torch.version.cuda} on {card}")
+    t_mark = now()
 
     # -- 1. build ------------------------------------------------------------
     t0 = now()
@@ -4159,6 +4446,7 @@ def earlier_phases(failed: list) -> tuple:
     say(f"build ok: {build_s:.1f} s into {build.BUILD_ROOT / build.build_key()}")
     say(f"card: {smi}")
 
+    t_mark = say_phase("phase 1 (build)", t_mark)
     # -- 2. kernels vs plain versions ---------------------------------------
     gen = torch.Generator(device="cuda").manual_seed(0)
     m_main = laplacian_2d(MAIN_GRID)
@@ -4320,6 +4608,7 @@ def earlier_phases(failed: list) -> tuple:
         traceback.print_exc()
         failed.append("kernels ops-only")
 
+    t_mark = say_phase("phases 2-2d (kernels)", t_mark)
     # -- 3. parity on the small suite ---------------------------------------
     try:
         rng = np.random.default_rng(0)
@@ -4550,6 +4839,7 @@ def earlier_phases(failed: list) -> tuple:
         traceback.print_exc()
         failed.append("parity pipelined, cg, jacobi")
 
+    t_mark = say_phase("phases 3-3d (parity)", t_mark)
     # -- 4. the full-size main path -----------------------------------------
     launches, us_per_iter, main_runs = {}, None, {}
     try:
@@ -5142,6 +5432,7 @@ def earlier_phases(failed: list) -> tuple:
         traceback.print_exc()
         failed.append("compiled plans")
 
+    t_mark = say_phase("phases 4-4i (main path)", t_mark)
     # -- 5. times at the main-path shape ------------------------------------
     rows_out = []
     try:
@@ -5912,6 +6203,8 @@ def earlier_phases(failed: list) -> tuple:
     except Exception:
         traceback.print_exc()
         failed.append("times ops-only")
+
+    say_phase("phases 5-5i (times, A/B)", t_mark)
 
     # -- 6. the solve service ------------------------------------------------
     service_phase(m_main, failed)

@@ -34,10 +34,13 @@ Guarantees:
 Leaves restore as numpy arrays, or as tensors on the device of the
 matching leaf of ``tree_like`` where that leaf is a tensor.
 ``restore(..., sharding_tree=)`` places leaves directly: a matching tree
-whose leaves are a ``launch.mesh.TileMesh`` (the leaf goes onto the
-mesh's device, where every tile of the grid lives -- the port's
-placement of a JAX ``NamedSharding``), a ``torch.device`` or device
-string, or None (the leaf keeps the placement above).
+whose leaves are a ``launch.sharding.Placement`` (the port's JAX
+``NamedSharding``: on a ``launch.mesh.ProcessMesh`` each rank reads the
+whole leaf and keeps its own slice, on its device; where one process
+holds every tile, the whole leaf on the mesh's device), a
+``launch.mesh.TileMesh`` (the leaf onto the mesh's device), a
+``torch.device`` or device string, or None (the leaf keeps the placement
+above).
 """
 
 from __future__ import annotations
@@ -68,7 +71,11 @@ def _leaves(tree, path=()):
     """(path, leaf) pairs in jax's flattening order."""
     if tree is None:
         return
-    if isinstance(tree, dict):
+    if isinstance(tree, dict) and tree and all(isinstance(k, tuple) for k in tree):
+        # a leaves dict (``param_leaves``, ``launch.sharding``): path -> leaf
+        for k in sorted(tree):
+            yield path + tuple(str(q) for q in k), tree[k]
+    elif isinstance(tree, dict):
         for k in sorted(tree):
             yield from _leaves(tree[k], path + (str(k),))
     elif _is_namedtuple(tree):
@@ -269,6 +276,7 @@ def restore(tree_like, directory: str, step: int | None = None,
     ``sharding_tree``: an optional matching tree of placements (module
     docstring) for direct placement onto a mesh."""
     flat = _flatten(tree_like)
+    placed = {} if sharding_tree is None else _flatten(sharding_tree)
     if step is not None:
         out, used = _load_step(directory, step, flat), step
     else:
@@ -283,16 +291,23 @@ def restore(tree_like, directory: str, step: int | None = None,
                 continue       # torn step: fall back to the previous one
         if out is None:
             raise FileNotFoundError(f"no valid checkpoint under {directory}")
+    for key in placed:
+        if key not in out:
+            raise KeyError(f"sharding_tree leaf {key!r} is not a leaf "
+                           "of tree_like")
     for key, like in flat.items():
+        where = placed.get(key)
+        if hasattr(where, "held"):          # a launch.sharding.Placement
+            arr = np.array(out[key][where.held])
+            dev = getattr(where.mesh, "device", "cpu")
+            t = _to_tensor(arr, torch.empty(0, device=dev))
+            out[key] = LayerStack(t.unbind(0)) if isinstance(like, LayerStack) else t
+            continue
         if isinstance(like, LayerStack):
             out[key] = LayerStack(_to_tensor(out[key], like[0]).unbind(0))
         elif isinstance(like, torch.Tensor):
             out[key] = _to_tensor(out[key], like)
-    if sharding_tree is not None:
-        for key, where in _flatten(sharding_tree).items():
-            if key not in out:
-                raise KeyError(f"sharding_tree leaf {key!r} is not a leaf "
-                               "of tree_like")
+        if where is not None:
             dev = getattr(where, "device", where)
             out[key] = torch.as_tensor(out[key]).to(torch.device(dev))
     return _unflatten(tree_like, out), used

@@ -464,11 +464,19 @@ def _field(state, name: str):
     return state[name] if isinstance(state, dict) else getattr(state, name)
 
 
-def train_state_from_numpy(cfg, tree, device=DEFAULT_DEVICE) -> TrainState:
+def train_state_from_numpy(cfg, tree, device=DEFAULT_DEVICE,
+                           placements=None) -> TrainState:
     """The port's ``TrainState`` on ``device`` holding exactly the arrays of
     ``tree`` (a JAX ``TrainState`` with numpy leaves, or a dict of its
     four fields): the params cast to ``cfg.param_dtype``, the optimizer
-    state and ``ef`` as they are, ``step`` as int32."""
+    state and ``ef`` as they are, ``step`` as int32.  With ``placements``
+    (``launch.sharding.named``'s ``TrainState`` of them) the state is
+    built on the host, then each rank keeps its slices on the mesh's
+    device (``sharding.place``) and ``device`` is not used."""
+    if placements is not None:
+        from .launch import sharding
+
+        return sharding.place(train_state_from_numpy(cfg, tree, "cpu"), placements)
     dev = resolve_device(device)
     to_dev = lambda a: torch.from_numpy(np.array(_host(a))).to(dev)
     return TrainState(
@@ -479,9 +487,15 @@ def train_state_from_numpy(cfg, tree, device=DEFAULT_DEVICE) -> TrainState:
         _map_leaves(to_dev, _field(tree, "ef")))
 
 
-def train_state_to_numpy(state: TrainState) -> dict:
+def train_state_to_numpy(state: TrainState, placements=None) -> dict:
     """``state`` as a dict of the JAX ``TrainState``'s fields with numpy
-    leaves (bfloat16 params as float32)."""
+    leaves (bfloat16 params as float32); with ``placements`` ``state`` is
+    a rank's slices, gathered whole first (``sharding.gather``: every rank
+    gets the whole tree)."""
+    if placements is not None:
+        from .launch import sharding
+
+        state = sharding.gather(state, placements)
     return {"params": lm_params_to_numpy(state.params),
             "opt_state": _map_leaves(_numpy, state.opt_state),
             "step": np.asarray(int(state.step), np.int32),

@@ -33,9 +33,12 @@ they do not:
   devices (a count of every op, where XLA's ``cost_analysis`` counts a
   loop body once; so not under ``cost_analysis``), and
   ``counted_flops_total``;
-* ``collectives`` -- ``{"total_bytes": 0.0}`` on ``card``; ``None`` on
-  ``single`` and ``multi``, whose collective bytes wait for a multi-card
-  backend (``roofline.analyze`` then has no collective term);
+* ``collectives`` -- ``{"total_bytes": 0.0}`` on ``card``; on ``single``
+  and ``multi`` a train cell's bytes one device receives in a step of
+  the port's sharded step (``roofline.collect.train_step_bytes``:
+  ``total_bytes`` and ``by_call``), so ``roofline.analyze`` has a
+  collective term there; ``None`` for prefill and decode there (serving
+  is not placed on a process grid yet);
 * ``build_s``, ``run_s`` -- seconds to build the cell on ``meta`` and to
   run its step there (the JAX ``lower_s`` / ``compile_s`` have no
   counterpart).
@@ -161,6 +164,7 @@ def build_cell(arch: str, shape, mesh_kind: str, probe_layers: int | None = None
 
     from ..configs import SHAPES, get
     from ..models import model as M
+    from ..roofline.collect import train_step_bytes
     from ..train import (adafactor, adamw, build_train_step, init_train_state,
                          warmup_cosine)
     from . import sharding as SH
@@ -248,6 +252,10 @@ def build_cell(arch: str, shape, mesh_kind: str, probe_layers: int | None = None
                              "labels": (global_batch, seq)})
         parts["batch"] = tok_bytes(batch)
         alias = parts["params"] + parts["opt_state"] + parts["step"]
+        if mesh.size > 1:
+            coll = train_step_bytes(cfg, state, mesh, st_specs, grad_accum)
+            meta["collectives"] = {"total_bytes": float(coll.pop("total_bytes")),
+                                   "by_call": coll}
         step_fn = build_train_step(cfg, opt, grad_accum=grad_accum, donate=True)
 
         def run():
@@ -323,7 +331,7 @@ def run_cell(arch: str, shape, mesh_kind: str, out_dir: str = "",
         argument_bytes_by_part=parts,
         counted_flops=counter.flops / devices,
         counted_flops_total=counter.flops,
-        collectives={"total_bytes": 0.0} if card else None,
+        collectives={"total_bytes": 0.0} if card else meta.get("collectives"),
     )
     suffix = f"__probe{probe_layers}" if probe_layers is not None else ""
     if variant:

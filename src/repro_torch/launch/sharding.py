@@ -29,9 +29,21 @@ Each ``*_specs`` returns a dict (``state_specs`` a ``TrainState`` of
 them): the leaf's path (as the tree gives it, list indices as ints) ->
 spec, in the tree's leaf order.
 
-``named`` and ``tree_named``, which place tensors across cards, wait for
-``torch.distributed.tensor`` placements on a ``launch.mesh.ProcessMesh``
-(ROADMAP Queue 1 item 11b, on item 10's process grid).
+Placement (:func:`named`, :func:`tree_named`): each leaf's spec,
+validated on the mesh, becomes a :class:`Placement` -- the spec, the
+``torch.distributed.tensor`` placements (``Shard``/``Replicate`` a mesh
+axis, in the mesh's axis order) and the index slices each tile holds.
+Tile ``t`` is the row-major flat index over the mesh's axes (rank ``t`` of
+a ``launch.mesh.ProcessMesh``, as ``jax.make_mesh`` lays its devices
+out); a spec entry of several axes splits its dim major-to-minor in the
+entry's order, as JAX does, so every tile's slices are those of JAX's
+``NamedSharding.devices_indices_map``.  :func:`place` keeps a rank's
+slice of every leaf of a tree and frees the rest; :func:`gather` is its
+inverse.  Data moves only through the ``ProcessMesh``'s own staged calls
+(``gather``, ``all_to_all``), never DTensor's ``redistribute``: the gloo
+backend has no reduce-scatter and takes no card tensors, and every byte
+is counted in ``mesh.stats``.  Every sum across ranks is added in rank
+(coordinate) order, so ranks that hold the same slice hold the same bits.
 """
 
 from __future__ import annotations
@@ -40,14 +52,17 @@ import math
 
 import torch
 
+import numpy as np
+
 from ..ft.remesh import spec as _spec
 from ..ft.remesh import validate_spec
-from ..models.model import LayerStack, Model, param_leaves
+from ..models.model import LayerStack, Model, param_leaves, replace_params
 
 __all__ = [
     "MeshShape", "MESHES", "param_specs", "opt_specs", "cache_specs",
     "batch_specs", "state_specs", "tree_leaves", "cache_leaves",
-    "leaf_shape", "local_shape", "device_bytes",
+    "leaf_shape", "local_shape", "device_bytes", "Placement", "named",
+    "tree_named", "place", "gather", "held_bytes",
 ]
 
 _F = "data"     # FSDP axis
@@ -308,3 +323,235 @@ def device_bytes(leaves: dict, specs: dict, mesh) -> int:
     ``specs`` (path -> spec) on ``mesh``."""
     return sum(math.prod(local_shape(leaf_shape(leaf), specs[path], mesh))
                * _itemsize(leaf) for path, leaf in leaves.items())
+
+
+# -- placement on a mesh ---------------------------------------------------------
+
+
+def _entry_axes(entry) -> tuple:
+    return () if entry is None else (entry,) if isinstance(entry, str) else tuple(entry)
+
+
+class Placement:
+    """One leaf's placement on ``mesh`` (module docstring).
+
+    ``shape`` is the whole leaf's, ``spec`` its spec validated on the mesh
+    (axes that do not divide dropped), ``local_shape`` the slice one tile
+    holds, ``axes`` the mesh axes that split it (in mesh order).  A mesh of
+    shapes alone (:class:`MeshShape`) gives the slices; a
+    ``launch.mesh.ProcessMesh`` also places and moves the data of its rank
+    (``held``, :meth:`shard`, :meth:`gather`, :meth:`reduce_scatter`,
+    :meth:`sum_over`); on a ``TileMesh`` the process holds every tile, so
+    it holds the whole leaf."""
+
+    def __init__(self, mesh, spec: tuple, shape: tuple):
+        self.mesh = mesh
+        self.shape = tuple(int(d) for d in shape)
+        self.spec = validate_spec(self.shape, tuple(spec), mesh)
+        self.local_shape = local_shape(self.shape, self.spec, mesh)
+        used = {a for e in self.spec for a in _entry_axes(e)}
+        self.axes = tuple(a for a in mesh.axis_names if a in used)
+
+    def __repr__(self) -> str:
+        return f"Placement({self.shape}, {self.spec}, on {dict(self.mesh.shape)})"
+
+    @property
+    def per_process(self) -> bool:
+        return bool(getattr(self.mesh, "per_process", False))
+
+    def dim_axes(self, dims) -> tuple:
+        """The mesh axes that split ``dims``, each dim's major to minor."""
+        return tuple(a for d in dims for a in _entry_axes(self.spec[d]))
+
+    @property
+    def placements(self) -> tuple:
+        """``torch.distributed.tensor`` placements, one a mesh axis in the
+        mesh's order: ``Shard(d)`` where the axis splits dim d, else
+        ``Replicate()``.  DTensor splits a dim over several mesh axes in
+        mesh order, so a multi-axis entry must list its axes so."""
+        from torch.distributed.tensor import Replicate, Shard
+
+        names = self.mesh.axis_names
+        for e in self.spec:
+            ax = _entry_axes(e)
+            if list(ax) != sorted(ax, key=names.index):
+                raise ValueError(f"spec entry {e!r} is not in the mesh's axis "
+                                 f"order {names}: no DTensor placement")
+        return tuple(next((Shard(d) for d, e in enumerate(self.spec)
+                           if a in _entry_axes(e)), Replicate()) for a in names)
+
+    def index(self, tile: int) -> tuple:
+        """The slices of the leaf that tile ``tile`` holds (JAX's
+        ``devices_indices_map`` entry of the mesh's tile-th device)."""
+        names = self.mesh.axis_names
+        sizes = [int(self.mesh.shape[a]) for a in names]
+        coords = dict(zip(names, np.unravel_index(int(tile), sizes)))
+        out = []
+        for d, e in enumerate(self.spec):
+            ax = _entry_axes(e)
+            i = int(np.ravel_multi_index([coords[a] for a in ax],
+                                         [int(self.mesh.shape[a]) for a in ax])) if ax else 0
+            n = self.local_shape[d]
+            out.append(slice(i * n, (i + 1) * n))
+        return tuple(out)
+
+    @property
+    def held(self) -> tuple:
+        """The slices this process holds: its rank's on a ``ProcessMesh``,
+        the whole leaf where one process holds every tile."""
+        if self.per_process:
+            return self.index(self.mesh.rank)
+        return tuple(slice(0, n) for n in self.shape)
+
+    def row(self) -> "Placement":
+        """A layer's placement of a stacked leaf (its layer axis is never
+        split)."""
+        if self.spec[0] is not None:
+            raise ValueError(f"{self}: the leading layer axis is split")
+        return Placement(self.mesh, self.spec[1:], self.shape[1:])
+
+    # -- data ------------------------------------------------------------------
+
+    def shard(self, leaf):
+        """This process's slice of ``leaf`` (a tensor, a numpy array, or a
+        ``LayerStack`` of a stacked leaf's layers) as a tensor of its own on
+        the mesh's device; the whole leaf is left to be freed."""
+        if isinstance(leaf, LayerStack):
+            r = self.row()
+            return LayerStack(r.shard(t) for t in leaf)
+        dev = getattr(self.mesh, "device", None)
+        held = self.held
+        if isinstance(leaf, torch.Tensor):
+            t = leaf.detach()[held]
+        else:
+            t = torch.from_numpy(np.array(np.asarray(leaf)[held]))
+        dev = t.device if dev is None else torch.device(dev)
+        return t.to(dev) if t.device != dev else t.clone()
+
+    def gather(self, x: torch.Tensor, what: str = "gather") -> torch.Tensor:
+        """The whole leaf from this rank's slice ``x``: one ``all_gather``
+        over the axes that split it (``mesh.gather``), the slices put in
+        place; ``x`` itself where nothing splits it or one process holds
+        every tile."""
+        if not self.per_process or not self.axes:
+            return x
+        got = self.mesh.gather(x.reshape(1, -1), self.axes, what)
+        t = got.reshape([int(self.mesh.shape[a]) for a in self.axes]
+                        + list(self.local_shape))
+        perm = []
+        for d, e in enumerate(self.spec):
+            perm += [self.axes.index(a) for a in _entry_axes(e)]
+            perm.append(len(self.axes) + d)
+        return t.permute(perm).reshape(self.shape)
+
+    def gather_leaf(self, leaf, what: str = "gather") -> torch.Tensor:
+        """:meth:`gather` of a held leaf (a ``LayerStack``'s layers stacked
+        into one message), as a tensor of its own on the host."""
+        if isinstance(leaf, LayerStack):
+            full = self.gather(torch.stack(list(leaf)), what).to("cpu", copy=True)
+            return LayerStack(full.unbind(0))
+        return self.gather(leaf, what).to("cpu", copy=True)
+
+    def reduce_scatter(self, full: torch.Tensor, axes, what: str) -> torch.Tensor:
+        """This rank's slice of the sum of ``full`` over the members of its
+        group along ``axes`` (the batch axes: the ranks that computed other
+        parts of the batch): one ``all_to_all`` sends each member its slice,
+        and the received slices are added in coordinate order, in f32, cast
+        back to ``full``'s dtype."""
+        held = self.held
+        if not self.per_process:
+            return full[held]
+        axes = self.mesh.axes(axes)
+        mem = [int(q) for q in self.mesh.group(axes)[1][self.mesh.rank]] \
+            if axes else [self.mesh.rank]
+        if len(mem) == 1:
+            return full[held].contiguous()
+        send = torch.stack([full[self.index(q)].reshape(-1) for q in mem])
+        got = self.mesh.all_to_all(send.unsqueeze(0), axes, what)[0]
+        acc = got[0].float()
+        for c in range(1, len(mem)):
+            acc = acc + got[c].float()
+        return acc.to(full.dtype).view(self.local_shape)
+
+    def sum_over(self, part: torch.Tensor, dims, what: str,
+                 op: str = "sum") -> torch.Tensor:
+        """The sum (``op="max"``: the max) over every slice along ``dims`` of
+        ``part``, this rank's partial over its slice of those dims: the
+        partials of the ranks that hold the other slices (its group along
+        the axes that split ``dims``) gathered and added in coordinate
+        order.  ``part`` itself where no axis splits ``dims`` or one process
+        holds every tile."""
+        axes = self.dim_axes(dims)
+        if not self.per_process or not axes:
+            return part
+        got = self.mesh.gather(part.reshape(1, -1), axes, what)[0]
+        acc = got[0]
+        for c in range(1, got.shape[0]):
+            acc = acc + got[c] if op == "sum" else torch.maximum(acc, got[c])
+        return acc.view(part.shape)
+
+
+def named(mesh, spec_tree, shape_tree):
+    """specs -> :class:`Placement` s, validated against the leaves' shapes
+    (axes that do not divide dropped -> replicated).  ``spec_tree`` is a
+    spec, a dict path -> spec (``param_specs`` ...) or a ``TrainState`` of
+    them (``state_specs``); ``shape_tree`` the matching tree of leaves
+    (a ``Model``, nested dicts, a leaves dict, a ``TrainState``)."""
+    from ..train.step import TrainState
+
+    if isinstance(spec_tree, TrainState):
+        return TrainState(*(None if s is None else named(mesh, s, getattr(shape_tree, f))
+                            for f, s in zip(TrainState._fields, spec_tree)))
+    if not isinstance(spec_tree, dict):
+        return Placement(mesh, spec_tree, leaf_shape(shape_tree))
+    leaves = tree_leaves(shape_tree)
+    return {path: Placement(mesh, spec, leaf_shape(leaves[path]))
+            for path, spec in spec_tree.items()}
+
+
+def tree_named(mesh, tree, fsdp: bool = True):
+    return named(mesh, param_specs(tree, fsdp), tree)
+
+
+def _map_placed(fn, tree, placements):
+    """``tree`` with each leaf replaced by ``fn(placement, leaf)``, its
+    structure kept (a ``Model`` over the new tensors)."""
+    from ..train.optim import tree_from_paths
+    from ..train.step import TrainState
+
+    if isinstance(tree, TrainState):
+        return TrainState(*(_map_placed(fn, t, p) for t, p in zip(tree, placements)))
+    if tree is None:
+        return None
+    if isinstance(placements, Placement):
+        return fn(placements, tree)
+    new = {k: fn(placements[k], v) for k, v in tree_leaves(tree).items()}
+    if isinstance(tree, Model):
+        return replace_params(tree, new)
+    return new if _is_leaves(tree) else tree_from_paths(new)
+
+
+def place(tree, placements):
+    """``tree`` (whole leaves: a ``TrainState`` as
+    ``convert.train_state_from_numpy`` or a checkpoint gives it, a
+    ``Model``, nested dicts; numpy or tensors) with each leaf cut to the
+    slice this process holds under ``placements`` (:func:`named`'s tree),
+    on the mesh's device.  The whole leaves are not kept."""
+    return _map_placed(lambda pl, v: pl.shard(v), tree, placements)
+
+
+def gather(tree, placements):
+    """The inverse of :func:`place`: every leaf whole, on the host (one
+    ``all_gather`` a leaf on a ``ProcessMesh``; every rank gets them, in
+    tile order)."""
+    return _map_placed(lambda pl, v: pl.gather_leaf(v), tree, placements)
+
+
+def held_bytes(tree) -> int:
+    """Bytes of the tensors ``tree`` holds (a ``TrainState``'s four
+    fields, a ``Model``, nested dicts)."""
+    from ..train.step import TrainState
+
+    trees = tree if isinstance(tree, TrainState) else (tree,)
+    return sum(math.prod(leaf_shape(v)) * _itemsize(v)
+               for t in trees for v in tree_leaves(t).values())

@@ -17,17 +17,195 @@ step donates its state (``build_train_step(..., donate=True)``, the JAX
 launcher's ``donate_argnums=(0,)``).  Each step's time includes reading its
 loss back, so it is the step's time on the device.  With ``--ckpt-dir``
 the loop runs under ``ft.RestartManager`` (periodic async checkpoints, NaN
-guard, resume).  ``--mesh single|multi`` exits 2: placing the state on a
-process grid is not ported (ROADMAP Queue 1 item 11b, on items 10-11).
+guard, resume).
+
+``--mesh single|multi`` builds the JAX launcher's production mesh, (16,
+16) over ("data", "model") or (2, 16, 16) over ("pod", "data", "model"),
+as a ``launch.mesh.ProcessMesh`` of the group ``torchrun`` set up (a
+rank a tile: 256 or 512 ranks; another world size, or no group, exits 2
+naming the ranks needed), places the state by ``state_specs`` and
+``sharding.named`` (each rank draws its slices alone, never the whole
+state: :func:`placed_state`) and trains it with ``grad_shardings``
+(:func:`train_on_mesh`, which the tests and ``chip_smoke.py`` call on a
+2x2 grid); rank 0 prints the step lines and the closing JSON, with
+``"processes"``.  Both paths run one loop, :func:`train_loop`.
+``--dist-backend`` is ``gloo`` (ranks may share a card) or ``nccl`` (a
+card a rank; written, not yet run).  ``--ckpt-dir`` with ``--mesh`` exits
+2: the restart manager on a process grid is ROADMAP Queue 1 item 13.
+
+    torchrun --nproc_per_node 256 -m repro_torch.launch.train \
+        --arch granite-3-8b --mesh single --dist-backend nccl
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import math
+import os
 
 import numpy as np
 import torch
+
+from .mesh import AXES, BACKENDS
+
+
+def make_optimizer(name: str, lr: float, steps: int):
+    """``--optimizer``'s optimizer on the launcher's schedule,
+    ``warmup_cosine(lr, min(20, steps // 5 + 1), steps)``."""
+    from ..train import adafactor, adamw, warmup_cosine
+
+    opt_fn = adamw if name == "adamw" else adafactor
+    return opt_fn(warmup_cosine(lr, min(20, steps // 5 + 1), steps))
+
+
+def train_loop(state, step_fn, pipe, steps: int, *, verbose: bool = True,
+               on_step=None):
+    """``steps`` steps of ``step_fn`` from ``state`` on ``pipe``'s batches,
+    as the JAX launcher's loop: each step's time ends with reading its
+    loss back, ``StepTimer`` flags stragglers, and with ``verbose`` the
+    stragglers and every 20th and the last step's loss are printed.
+    ``on_step(i, metrics)`` is called after each step.  Returns the final
+    state, the losses and the steps' times in seconds."""
+    from ..ft import StepTimer
+    from ..obs import clock
+
+    timer = StepTimer()
+    losses, times = [], []
+    for i in range(steps):
+        t0 = clock.now()
+        state, metrics = step_fn(state, pipe.batch_at(i))
+        losses.append(float(metrics["loss"]))
+        dt = clock.now() - t0
+        times.append(dt)
+        rep = timer.observe(i, dt)
+        if on_step is not None:
+            on_step(i, metrics)
+        if verbose and rep.is_straggler:
+            print(f"[straggler] step {i}: {dt:.3f}s vs median {rep.median:.3f}s")
+        if verbose and (i % 20 == 0 or i == steps - 1):
+            print(f"step {i:5d} loss {losses[-1]:.4f} ({dt*1e3:.0f} ms)")
+    return state, losses, times
+
+
+def placed_state(mesh, cfg, opt, compress: bool = False):
+    """The launcher's seed-0 train state of ``cfg`` placed on ``mesh`` by
+    ``state_specs`` and ``sharding.named``, built so that this process
+    never holds the whole of it: each param is cut to the rank's slice as
+    it is drawn (``init_params(placements=)``), and the optimizer state
+    (and the int8 error feedback) starts from those slices.  Returns the
+    state, its placements and ``sharding.device_bytes`` of the specs (the
+    bytes the state must hold)."""
+    from ..models import model as M
+    from ..train import init_train_state
+    from . import sharding as SH
+
+    shapes = init_train_state(M.init_params(cfg, None, "meta"), opt,
+                              compress=compress)
+    specs = SH.state_specs(shapes, cfg.fsdp, mesh)
+    pls = SH.named(mesh, specs, shapes)
+    fields = [f for f in ("params", "opt_state", "ef") if getattr(shapes, f) is not None]
+    want = sum(SH.device_bytes(SH.tree_leaves(getattr(shapes, f)), getattr(specs, f), mesh)
+               for f in fields) + shapes.step.element_size()
+    dev = mesh.device
+    params = M.init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev,
+                           placements=pls.params)
+    state = init_train_state(params, opt, compress=compress)
+    for f in fields:
+        for path, leaf in SH.tree_leaves(getattr(state, f)).items():
+            if SH.leaf_shape(leaf) != getattr(pls, f)[path].local_shape:
+                raise ValueError(f"{f} {path}: {SH.leaf_shape(leaf)} built, the "
+                                 f"placement holds {getattr(pls, f)[path].local_shape}")
+    return state, pls, want
+
+
+def train_on_mesh(mesh, cfg, *, steps: int, batch: int, seq: int,
+                  lr: float = 3e-3, grad_accum: int = 1,
+                  compress_grads: bool = False, optimizer: str = "adamw",
+                  verbose: bool = False) -> dict:
+    """Train ``cfg`` on every rank of ``mesh`` (a ``ProcessMesh``): the
+    state of :func:`placed_state` (the one-process launcher's numbers, cut
+    to the rank's slices), ``steps`` donated steps with ``grad_shardings``
+    on ``TokenPipeline(seed=0)`` batches in :func:`train_loop`.  Returns
+    ``losses`` and ``grad_norms``, ``step_ms`` (each step ended by reading
+    its loss), ``wire_bytes`` (``mesh.stats``' bytes this rank received, a
+    dict a step), ``stage_s``/``comm_s`` a step, ``held_bytes`` (the
+    rank's state), ``device_bytes`` (``sharding.device_bytes`` of the
+    specs), on a card ``build_peak_bytes`` (``max_memory_allocated`` while
+    the state was built, above what was allocated before) and ``peak_bytes`` (over the steps, from the
+    placed state on), the final ``state`` and its ``placements``."""
+    from ..data import TokenPipeline
+    from ..train import build_train_step
+    from . import sharding as SH
+
+    dev = mesh.device
+    cuda = dev.type == "cuda"
+    opt = make_optimizer(optimizer, lr, steps)
+    if cuda:
+        torch.cuda.reset_peak_memory_stats(dev)
+        base = torch.cuda.memory_allocated(dev)
+    state, pls, want = placed_state(mesh, cfg, opt, compress_grads)
+    out = {"grad_norms": [], "wire_bytes": [], "stage_s": [], "comm_s": [],
+           "held_bytes": SH.held_bytes(state), "device_bytes": want,
+           "build_peak_bytes": torch.cuda.max_memory_allocated(dev) - base
+           if cuda else None}
+    if cuda:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+    step_fn = build_train_step(cfg, opt, grad_accum=grad_accum,
+                               compress_grads=compress_grads,
+                               grad_shardings=pls.params, donate=True)
+
+    def on_step(i, metrics):
+        out["grad_norms"].append(float(metrics["grad_norm"]))
+        out["wire_bytes"].append(dict(mesh.stats.wire_bytes))
+        out["stage_s"].append(mesh.stats.stage_s)
+        out["comm_s"].append(mesh.stats.comm_s)
+        mesh.stats.reset()
+
+    mesh.stats.reset()
+    state, out["losses"], times = train_loop(
+        state, step_fn, TokenPipeline(cfg.vocab_size, batch, seq, seed=0), steps,
+        verbose=verbose, on_step=on_step)
+    out["step_ms"] = [1e3 * t for t in times]
+    out["peak_bytes"] = torch.cuda.max_memory_allocated(dev) if cuda else None
+    out["state"], out["placements"] = state, pls
+    return out
+
+
+def _mesh_main(ap, args, cfg) -> dict | None:
+    """``--mesh``: the production mesh of the group torchrun set up; rank
+    0's closing JSON fields (None on the other ranks)."""
+    import torch.distributed as dist
+
+    from .mesh import make_process_mesh
+
+    multi = args.mesh == "multi"
+    shape = (2, 16, 16) if multi else (16, 16)
+    axes = AXES["multi" if multi else "single"]
+    need = math.prod(shape)
+    if dist.is_initialized():
+        have = f"the process group has {dist.get_world_size()}"
+        world = dist.get_world_size()
+    elif "RANK" in os.environ and "WORLD_SIZE" in os.environ:
+        world = int(os.environ["WORLD_SIZE"])
+        have = f"torchrun started {world}"
+    else:
+        world, have = None, "there is no process group and no torchrun environment"
+    if world != need:
+        ap.error(f"--mesh {args.mesh}: the production mesh {shape} over {axes} "
+                 f"needs {need} ranks, a rank a tile (torchrun --nproc_per_node "
+                 f"{need}, or {need} ranks over several hosts); {have}")
+    if args.ckpt_dir:
+        ap.error("--ckpt-dir with --mesh: the restart manager on a process "
+                 "grid is not ported (ROADMAP Queue 1 item 13)")
+    mesh = make_process_mesh(shape, axes, backend=args.dist_backend,
+                             device=args.device)
+    res = train_on_mesh(mesh, cfg, steps=args.steps, batch=args.batch,
+                        seq=args.seq, lr=args.lr, grad_accum=args.grad_accum,
+                        compress_grads=args.compress_grads,
+                        optimizer=args.optimizer, verbose=mesh.rank == 0)
+    return None if mesh.rank else res
 
 
 def main(argv=None):
@@ -46,58 +224,54 @@ def main(argv=None):
     ap.add_argument("--optimizer", default="adamw", choices=("adamw", "adafactor"))
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
                     help="where the model trains; cuda raises without a card")
+    ap.add_argument("--dist-backend", default="gloo", choices=BACKENDS,
+                    help="torch.distributed backend of --mesh: gloo (ranks "
+                         "may share a card) or nccl (a card a rank)")
     args = ap.parse_args(argv)
 
     from ..configs import get, get_smoke, names
     from ..data import TokenPipeline
     from ..device import resolve_device
-    from ..ft import RestartManager, StepTimer
+    from ..ft import RestartManager
     from ..models import model as M
-    from ..obs import clock
-    from ..train import (adafactor, adamw, build_train_step,
-                         init_train_state, warmup_cosine)
+    from ..train import build_train_step, init_train_state
 
-    if args.mesh:
-        ap.error(f"--mesh {args.mesh}: placing the state on a process grid "
-                 "(launch.mesh.ProcessMesh) is not ported (ROADMAP Queue 1 "
-                 "item 11b, on items 10-11); the port trains on one card")
     if args.arch not in names():
         ap.error(f"--arch {args.arch!r}: unknown architecture; available: "
                  f"{', '.join(names())}")
-    dev = resolve_device(args.device)
     cfg = get_smoke(args.arch) if args.smoke else get(args.arch)
+    if args.mesh:
+        res = _mesh_main(ap, args, cfg)
+        if res is not None:
+            _print_result(cfg, args, res["losses"],
+                          [t / 1e3 for t in res["step_ms"]],
+                          processes=16 * 16 * (2 if args.mesh == "multi" else 1))
+        return 0
+    dev = resolve_device(args.device)
     params = M.init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev)
-    opt_fn = adamw if args.optimizer == "adamw" else adafactor
-    opt = opt_fn(warmup_cosine(args.lr, min(20, args.steps // 5 + 1), args.steps))
+    opt = make_optimizer(args.optimizer, args.lr, args.steps)
     state = init_train_state(params, opt, compress=args.compress_grads)
     del params
     train_step = build_train_step(cfg, opt, grad_accum=args.grad_accum,
                                   compress_grads=args.compress_grads,
                                   donate=True)
-
     pipe = TokenPipeline(cfg.vocab_size, args.batch, args.seq, seed=0)
-    timer = StepTimer()
 
     if args.ckpt_dir:
         rm = RestartManager(args.ckpt_dir, save_every=args.save_every)
         res = rm.run(state, train_step, pipe, total_steps=args.steps)
         losses, times = res.losses, res.step_times
     else:
-        losses, times = [], []
-        for i in range(args.steps):
-            t0 = clock.now()
-            state, metrics = train_step(state, pipe.batch_at(i))
-            losses.append(float(metrics["loss"]))
-            dt = clock.now() - t0
-            times.append(dt)
-            rep = timer.observe(i, dt)
-            if rep.is_straggler:
-                print(f"[straggler] step {i}: {dt:.3f}s vs median {rep.median:.3f}s")
-            if i % 20 == 0 or i == args.steps - 1:
-                print(f"step {i:5d} loss {losses[-1]:.4f} ({dt*1e3:.0f} ms)")
+        state, losses, times = train_loop(state, train_step, pipe, args.steps)
     del state
+    _print_result(cfg, args, losses, times)
+    return 0
 
-    print(json.dumps({
+
+def _print_result(cfg, args, losses, times, processes=None) -> None:
+    """The JAX launcher's closing JSON, plus ``losses`` and ``step_ms``
+    (and ``processes`` on a mesh)."""
+    out = {
         "arch": cfg.name, "steps": len(losses),
         "loss_first": losses[0] if losses else None,
         "loss_last": losses[-1] if losses else None,
@@ -105,8 +279,10 @@ def main(argv=None):
         "tokens_per_s": args.batch * args.seq / float(np.mean(times[1:]))
         if len(times) > 1 else None,
         "losses": losses, "step_ms": [1e3 * t for t in times],
-    }, indent=1))
-    return 0
+    }
+    if processes is not None:
+        out["processes"] = processes
+    print(json.dumps(out, indent=1))
 
 
 if __name__ == "__main__":

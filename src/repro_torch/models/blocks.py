@@ -23,6 +23,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from . import shard
+
 __all__ = [
     "dtype_of", "Init", "pad_dim1", "rms_norm", "layer_norm", "Norm",
     "Linear", "MLP", "rope_freqs", "apply_rope", "Embed", "cross_entropy",
@@ -41,12 +43,18 @@ class Init:
     ``torch.Generator`` on ``device``) and the param ``dtype``.  Values are
     drawn in f32 and cast, as the JAX init casts its f32 draws.  With
     ``generator=None`` tensors are left uninitialised (``torch.empty``):
-    the shapes for a conversion or, on the ``meta`` device, for counting."""
+    the shapes for a conversion or, on the ``meta`` device, for counting.
+    ``keep``, if given, maps each drawn tensor, in the order they are
+    drawn, to the part of it to keep (``model.init_params(placements=)``
+    keeps a process's slice)."""
 
-    def __init__(self, generator, device, dtype):
+    def __init__(self, generator, device, dtype, keep=None):
         self.gen, self.device, self.dtype = generator, torch.device(device), dtype
+        self.keep = keep
 
     def _param(self, t: torch.Tensor) -> nn.Parameter:
+        if self.keep is not None:
+            t = self.keep(t)
         return nn.Parameter(t.to(self.dtype), requires_grad=False)
 
     def _empty(self, shape) -> nn.Parameter:
@@ -203,11 +211,14 @@ class Embed(nn.Module):
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
                   mask: torch.Tensor | None = None) -> torch.Tensor:
     """Mean token NLL; logits (..., V) f32-upcast for the softmax; with
-    ``mask`` the masked mean over ``max(sum(mask), 1)``."""
+    ``mask`` the masked mean over ``max(sum(mask), 1)``.  On a
+    ``ProcessMesh`` a rank's share of the whole batch's mean (the count is
+    the whole batch's, ``shard.batch_sum``)."""
     logits = logits.float()
     logz = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
     nll = logz - gold
     if mask is not None:
-        return torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)
-    return torch.mean(nll)
+        return torch.sum(nll * mask) / torch.clamp(shard.batch_sum(torch.sum(mask)),
+                                                   min=1.0)
+    return torch.mean(nll) / shard.batch_shards()

@@ -245,11 +245,17 @@ class Model(nn.Module):
 
 
 def init_params(cfg: ModelConfig, generator: torch.Generator | None = None,
-                device="cuda") -> Model:
+                device="cuda", placements: dict | None = None) -> Model:
     """The model of ``cfg`` in ``cfg.param_dtype`` on ``device``, drawn from
     ``generator`` (a ``torch.Generator`` on that device) with the JAX init's
     distributions and scales.  ``generator=None`` leaves the values
-    uninitialised; on ``device="meta"`` that builds the shapes alone."""
+    uninitialised; on ``device="meta"`` that builds the shapes alone.
+
+    ``placements`` (path -> ``launch.sharding.Placement`` of each
+    :func:`param_leaves` leaf, as ``sharding.named`` gives them) cuts each
+    tensor to the slice this process holds as soon as it is drawn, so the
+    process never holds more than its slices and one whole tensor: the
+    values are the whole init's, sliced."""
     dev = torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
@@ -257,7 +263,38 @@ def init_params(cfg: ModelConfig, generator: torch.Generator | None = None,
             "False; pass device='cpu' to run on the CPU")
     if generator is not None and generator.device.type != dev.type:
         raise ValueError(f"generator on {generator.device}, params on {dev}")
-    return Model(cfg, Init(generator, dev, dtype_of(cfg.param_dtype)))
+    keep = None
+    if placements is not None:
+        order = iter(_draw_placements(cfg, placements))
+        keep = lambda t: next(order).shard(t)
+    return Model(cfg, Init(generator, dev, dtype_of(cfg.param_dtype), keep))
+
+
+class _DrawOrder(Init):
+    """A shapes-only init (``meta``) that records its parameters in the
+    order they are drawn."""
+
+    def __init__(self, dtype):
+        super().__init__(None, "meta", dtype)
+        self.drawn = []
+
+    def _param(self, t: torch.Tensor) -> nn.Parameter:
+        p = super()._param(t)
+        self.drawn.append(p)
+        return p
+
+
+def _draw_placements(cfg: ModelConfig, placements: dict) -> list:
+    """The placement of each tensor ``Model(cfg, ...)`` draws, in draw
+    order: its leaf's, or for a layer of a stacked leaf that leaf's
+    ``row()``."""
+    order = _DrawOrder(dtype_of(cfg.param_dtype))
+    where = {}
+    for name, prm in Model(cfg, order).named_parameters():
+        path, layer = jax_path(name)
+        pl = placements[tuple(path)]
+        where[id(prm)] = pl if layer is None else pl.row()
+    return [where[id(p)] for p in order.drawn]
 
 
 def _embed_tokens(params: Model, cfg, tokens):
@@ -291,9 +328,12 @@ def forward(params: Model, cfg: ModelConfig, tokens=None, input_embeds=None,
     x = _embed_inputs(params, cfg, tokens, input_embeds, prefix_embeds)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     remat = train and cfg.remat
+    call = shard.layer_call()
     for group in params.groups:
         for layer in group:
-            if remat:
+            if call is not None:
+                x, a = call(layer, x, cfg)
+            elif remat:
                 x, a = checkpoint(layer, x, cfg, use_reentrant=False)
             else:
                 x, a = layer(x, cfg)
@@ -321,7 +361,10 @@ def loss_fn(params: Model, cfg: ModelConfig, tokens, labels, mask=None,
     exist at once: ``c = min(loss_chunk, S)`` tokens a chunk when that
     divides S, else one chunk; each chunk gives ``[sum nll, sum mask]``,
     the chunks are summed in order, and the loss is ``sum nll / max(sum
-    mask, 1)``.  A vision prefix is dropped before the CE."""
+    mask, 1)``.  A vision prefix is dropped before the CE.  On a
+    ``ProcessMesh`` (``shard.use_mesh_axes``) the mask's sum is the whole
+    batch's (``shard.batch_sum``), so the ranks' losses add up to the
+    loss of the whole batch."""
     x, aux = forward(params, cfg, tokens=tokens, prefix_embeds=prefix_embeds,
                      train=True)
     npfx = prefix_embeds.shape[1] if prefix_embeds is not None else 0
@@ -340,7 +383,7 @@ def loss_fn(params: Model, cfg: ModelConfig, tokens, labels, mask=None,
         gold = torch.gather(lg, -1, lc[..., None])[..., 0]
         nll = (torch.logsumexp(lg, dim=-1) - gold) * mc
         tot = tot + torch.stack([nll.sum(), mc.sum()])
-    loss = tot[0] / torch.clamp(tot[1], min=1.0)
+    loss = tot[0] / torch.clamp(shard.batch_sum(tot[1]), min=1.0)
 
     if cfg.mtp_depth and hasattr(params, "mtp"):
         # MTP: predict token t+1+k from [h_t ; emb(tok_{t+k})] (deepseek-v3)

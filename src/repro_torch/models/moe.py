@@ -128,8 +128,12 @@ def moe_apply(p: MoE, x, cfg, capacity_factor: float | None = None):
     if hasattr(p, "shared"):
         y = y + p.shared(x)
 
-    # Switch-style load-balance aux: E * sum_e f_e * P_e
+    # Switch-style load-balance aux: E * sum_e f_e * P_e.  On a ProcessMesh
+    # f_e is the whole batch's (the shards' mean) and a rank adds its share
+    # of P_e's mean, so the ranks' aux terms add up to the whole batch's.
+    nb = shard.batch_shards()
     me = torch.mean(r["probs"], dim=(0, 1))             # (E,)
     ce = torch.mean(F.one_hot(r["idx"], e).float().sum(dim=2), dim=(0, 1)) / k
-    aux = e * torch.sum(me * ce) * cfg.router_aux_coef
+    ce = shard.batch_sum(ce) / nb
+    aux = e * torch.sum(me * ce) * cfg.router_aux_coef / nb
     return y, aux

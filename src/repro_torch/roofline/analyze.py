@@ -21,11 +21,13 @@ on *active* params; MODEL_FLOPS / PEAK_FLOPS is the step's floor at the
 bf16 peak, and MODEL / analytic FLOPs the useful share of the computed
 work.
 
-Collective bytes are 0 on one card.  On a mesh of several devices they
-are unknown until the port has a multi-card backend (no compiled HLO to
-read them from): a cell then carries ``None``, ``t_collective`` is
-``None``, ``dominant`` is picked from the terms that are known, and
-``note`` says the term is missing -- missing bytes are never read as 0.
+Collective bytes are 0 on one card.  On a mesh of several devices a
+train cell carries the bytes of the port's sharded step
+(``roofline.collect``, via ``launch.dryrun``); where a cell has none
+(prefill and decode, whose serving is not placed on a process grid yet)
+it carries ``None``, ``t_collective`` is ``None``, ``dominant`` is picked
+from the terms that are known, and ``note`` says the term is missing --
+missing bytes are never read as 0.
 """
 
 from __future__ import annotations
@@ -47,8 +49,8 @@ _NOTES = {
     "memory": "cut HBM traffic: fuse vector ops, quantize caches/params, raise arithmetic intensity",
     "collective": "cut wire bytes: 2D layouts, overlap collectives with compute, compress",
 }
-_NO_COLLECTIVE = ("; collective term missing: this mesh's collective bytes "
-                  "are not known until a multi-card backend exists")
+_NO_COLLECTIVE = ("; collective term missing: this cell's collective bytes "
+                  "are not known (serving is not placed on a process grid)")
 
 
 def _active_params(cfg) -> int:

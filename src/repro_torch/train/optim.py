@@ -132,16 +132,26 @@ def warmup_cosine(peak_lr: float, warmup: int, total: int, floor: float = 0.1):
     return lr
 
 
-def clip_by_global_norm(grads: dict, max_norm: float, inplace: bool = False):
+def _all_dims(pl) -> tuple:
+    return tuple(range(len(pl.shape)))
+
+
+def clip_by_global_norm(grads: dict, max_norm: float, inplace: bool = False,
+                        placements: dict | None = None):
     """(grads scaled to global norm <= ``max_norm``, the norm before).  The
     norm sums each leaf's f32 squares in leaf order; each grad is scaled
-    in f32 and cast back to its dtype (in place with ``inplace``)."""
+    in f32 and cast back to its dtype (in place with ``inplace``).  With
+    ``placements`` (path -> ``launch.sharding.Placement``) each grad is a
+    rank's slice and each leaf's sum of squares is added over its slices
+    (``Placement.sum_over``) before the leaves are."""
     total = None
-    for leaf in grads.values():
+    for path, leaf in grads.items():
         sq = None
         for g in rows(leaf):
             s = torch.sum(torch.square(g.float()))
             sq = s if sq is None else sq + s
+        if placements is not None:
+            sq = placements[path].sum_over(sq, _all_dims(placements[path]), "clip")
         total = sq if total is None else total + sq
     gn = torch.sqrt(total)
     scale = torch.clamp(max_norm / torch.clamp(gn, min=1e-9), max=1.0)
@@ -164,7 +174,8 @@ def adamw(lr_fn, b1=0.9, b2=0.95, eps=1e-8, weight_decay=0.1) -> Optimizer:
         return {"m": tree_from_paths({k: stacked_zeros(v) for k, v in leaves.items()}),
                 "v": tree_from_paths({k: stacked_zeros(v) for k, v in leaves.items()})}
 
-    def update(grads, state, params, step, inplace=False):
+    def update(grads, state, params, step, inplace=False, placements=None):
+        del placements           # elementwise: a rank's slices update alone
         params = leaves_of(params)
         lr = lr_fn(step)
         t = step.float() + 1.0
@@ -199,7 +210,12 @@ def adamw(lr_fn, b1=0.9, b2=0.95, eps=1e-8, weight_decay=0.1) -> Optimizer:
 def adafactor(lr_fn, decay=0.8, eps=1e-30, clip_thresh=1.0, weight_decay=0.0) -> Optimizer:
     """Factored second-moment optimizer (Shazeer & Stern).  Leaves of two
     or more dims (a stack counts its layer axis) keep per-row/per-col EMAs
-    of g^2 over the last two dims; 0/1-D leaves keep a full v."""
+    of g^2 over the last two dims; 0/1-D leaves keep a full v.
+
+    ``update(..., placements=)`` (path -> ``launch.sharding.Placement``)
+    takes a rank's slices of grads, params and state: a mean over a dim
+    that the placement splits, and the per-leaf RMS, add the other
+    slices' partial sums (``Placement.sum_over``)."""
 
     def init(params):
         st = {}
@@ -212,8 +228,21 @@ def adafactor(lr_fn, decay=0.8, eps=1e-30, clip_thresh=1.0, weight_decay=0.0) ->
                 st[path] = {"v": stacked_zeros(leaf)}
         return {"f": tree_from_paths(st)}
 
-    def _v_est(vr, vc):
-        denom = torch.clamp(torch.mean(vr, dim=-1, keepdim=True), min=eps)
+    def _mean(x, dim, upl, keepdim=False, of=None):
+        """The whole leaf's mean of ``x`` over ``dim`` (the leaf's dim
+        ``of``, default ``dim``) from this rank's slice."""
+        of = (dim if of is None else of) % len(upl.shape) if upl is not None else None
+        if upl is None or not upl.dim_axes((of,)):
+            return torch.mean(x, dim=dim, keepdim=keepdim)
+        part = torch.sum(x, dim=dim, keepdim=keepdim)
+        return upl.sum_over(part, (of,), "adafactor") / upl.shape[of]
+
+    def _denom(vr, upl):
+        """mean(vr, -1) over the whole leaf, clamped (vr's last dim is the
+        leaf's dim -2)."""
+        return torch.clamp(_mean(vr, -1, upl, keepdim=True, of=-2), min=eps)
+
+    def _v_est(vr, vc, denom):
         return (vr[..., None] * vc[..., None, :]) / denom[..., None]
 
     def _apply(p, u, lr, scale):
@@ -225,7 +254,7 @@ def adafactor(lr_fn, decay=0.8, eps=1e-30, clip_thresh=1.0, weight_decay=0.0) ->
             newp = newp - lr * weight_decay * pf
         return newp.to(p.dtype)
 
-    def update(grads, state, params, step, inplace=False):
+    def update(grads, state, params, step, inplace=False, placements=None):
         params = leaves_of(params)
         lr = lr_fn(step)
         t = step.float() + 1.0
@@ -237,6 +266,8 @@ def adafactor(lr_fn, decay=0.8, eps=1e-30, clip_thresh=1.0, weight_decay=0.0) ->
                 s = tree_get(state["f"], path)
                 ps, gs = rows(leaf), rows(grads[path])
                 stacked = isinstance(leaf, LayerStack)
+                pl = None if placements is None else placements[path]
+                upl = pl
                 if stacked and ps[0].ndim < 2:
                     # a stack of vectors: factored across layers x width,
                     # as one (L, d) leaf
@@ -248,32 +279,35 @@ def adafactor(lr_fn, decay=0.8, eps=1e-30, clip_thresh=1.0, weight_decay=0.0) ->
                     # a time, the clipping RMS over the whole stack
                     srows = [{"vr": r, "vc": c}
                              for r, c in zip(s["vr"].unbind(0), s["vc"].unbind(0))]
+                    upl = None if pl is None else pl.row()
                 else:
                     srows = [s]
                 # pass 1: the second-moment EMAs and sum(u*u) over the leaf
-                ssq, n = None, 0
+                ssq, dens = None, []
                 for g, sr in zip(gs, srows):
                     g = g.float()
                     g2 = g * g + eps
                     if "vr" in sr:
-                        sr["vr"].mul_(beta).add_((1 - beta) * torch.mean(g2, dim=-1))
-                        sr["vc"].mul_(beta).add_((1 - beta) * torch.mean(g2, dim=-2))
-                        u = g / torch.sqrt(_v_est(sr["vr"], sr["vc"]))
+                        sr["vr"].mul_(beta).add_((1 - beta) * _mean(g2, -1, upl))
+                        sr["vc"].mul_(beta).add_((1 - beta) * _mean(g2, -2, upl))
+                        dens.append(_denom(sr["vr"], upl))
+                        u = g / torch.sqrt(_v_est(sr["vr"], sr["vc"], dens[-1]))
                     else:
                         sr["v"].mul_(beta).add_((1 - beta) * g2)
                         u = g / torch.sqrt(sr["v"])
                     del g2
                     q = torch.sum(u * u)
                     ssq = q if ssq is None else ssq + q
-                    n += u.numel()
+                if pl is not None:
+                    ssq = pl.sum_over(ssq, _all_dims(pl), "adafactor")
                 # update clipping (RMS <= clip_thresh), then pass 2
-                rms = torch.sqrt(ssq / n)
+                rms = torch.sqrt(ssq / math.prod(_shape(leaf) if pl is None else pl.shape))
                 scale = torch.clamp(rms / clip_thresh, min=1.0)
                 out = []
-                for g, sr, p in zip(gs, srows, ps):
+                for i, (g, sr, p) in enumerate(zip(gs, srows, ps)):
                     g = g.float()
                     if "vr" in sr:
-                        u = g / torch.sqrt(_v_est(sr["vr"], sr["vc"]))
+                        u = g / torch.sqrt(_v_est(sr["vr"], sr["vc"], dens[i]))
                     else:
                         u = g / torch.sqrt(sr["v"])
                     out.append(_apply(p, u, lr, scale))

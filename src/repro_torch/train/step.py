@@ -18,10 +18,32 @@ The gradients are PyTorch autograd's over the model's plain-torch layers
 no kernel of the port is on this path).  The params require grad only for
 the length of the backward pass.  Metrics (``loss``, ``grad_norm``,
 ``step``) stay device tensors: the step reads nothing back to the host.
+
+On a ``launch.mesh.ProcessMesh`` (``grad_shardings``: the params'
+``launch.sharding.Placement`` s) the step runs on every rank, on the
+rank's slices of the state (``sharding.place``):
+
+* the batch splits over the batch axes (everything but ``model``); ranks
+  along ``model`` compute on the same batch shard;
+* each layer's params are gathered to whole just before the layer's
+  forward, and again in its backward (every layer runs under
+  ``torch.utils.checkpoint``, so its whole params live only inside it);
+  the other params are gathered once a micro-batch;
+* each micro-batch's gradient of a param is reduce-scattered to its
+  placement (one ``all_to_all`` over the batch axes, the slices added in
+  rank order: the JAX package's ``grad_shardings``), never all-reduced;
+* the loss divides by the whole batch's mask count and the MoE aux takes
+  the whole batch's routing fractions (``models.shard.batch_sum``); the
+  global norm, Adafactor's means over split dims and per-leaf RMS and the
+  int8 compressor's ``amax`` add the other slices' partials
+  (``Placement.sum_over``), all in rank order, so every rank reports the
+  same bits;
+* the optimizer updates each rank's slices (in place with ``donate``).
 """
 
 from __future__ import annotations
 
+import math
 from typing import NamedTuple
 
 import torch
@@ -53,9 +75,10 @@ def init_train_state(params: M.Model, optimizer: Optimizer,
                       ef)
 
 
-def _compress_grads(grads: dict, ef, inplace: bool):
+def _compress_grads(grads: dict, ef, inplace: bool, placements=None):
     """int8 quantize->dequantize with error feedback; returns (g~, new_ef).
-    Each JAX leaf has one scale, ``max|g + e| / 127`` over all its layers;
+    Each JAX leaf has one scale, ``max|g + e| / 127`` over all its layers
+    (and all its slices, with ``placements``);
     ``torch.round`` rounds half to even, as ``jnp.round``.  The grads are
     overwritten (they are the step's own); ``ef`` only with ``inplace``."""
     ef = _fresh(ef, inplace)
@@ -65,6 +88,10 @@ def _compress_grads(grads: dict, ef, inplace: bool):
         for g, e in zip(rows(leaf), es):
             a = torch.max(torch.abs(g.float() + e))
             amax = a if amax is None else torch.maximum(amax, a)
+        if placements is not None:
+            pl = placements[path]
+            amax = pl.sum_over(amax, tuple(range(len(pl.shape))), "compress",
+                               op="max")
         scale = torch.clamp(amax, min=1e-12) / 127.0
         for g, e in zip(rows(leaf), es):
             g32 = g.float() + e
@@ -84,20 +111,25 @@ def as_batch(batch: dict, device) -> dict:
     return out
 
 
-def value_and_grad(cfg, params: M.Model, batch: dict, leaves=None):
+def _loss(cfg, params, batch):
+    return M.loss_fn(params, cfg, batch["tokens"], batch["labels"],
+                     mask=batch.get("mask"), prefix_embeds=batch.get("prefix_embeds"))
+
+
+def value_and_grad(cfg, params: M.Model, batch: dict, leaves=None, loss_of=_loss):
     """(loss, grads) of ``loss_fn`` on ``batch`` (tensors on the params'
     device) by autograd: grads keyed as ``param_leaves(params)`` (or
     ``leaves``), a stack's as a ``LayerStack``, zeros for a param the loss
-    does not reach.  The params require grad for the backward pass only."""
+    does not reach.  The params require grad for the backward pass only.
+    ``loss_of(cfg, params, batch) -> (loss, extras)`` stands in for
+    ``loss_fn`` (the step on a ``ProcessMesh`` gathers params first)."""
     leaves = M.param_leaves(params) if leaves is None else leaves
     flat = [t for leaf in leaves.values() for t in rows(leaf)]
     try:
         for t in flat:
             t.requires_grad_(True)
         with torch.enable_grad():
-            loss, _ = M.loss_fn(params, cfg, batch["tokens"], batch["labels"],
-                                mask=batch.get("mask"),
-                                prefix_embeds=batch.get("prefix_embeds"))
+            loss, _ = loss_of(cfg, params, batch)
             gs = torch.autograd.grad(loss, flat, allow_unused=True)
     finally:
         for t in flat:
@@ -127,56 +159,80 @@ def build_train_step(
     dim is split into microbatches, run in order on the same params; their
     f32 gradients are summed in that order, then divided.
 
-    ``grad_shardings`` places gradients across cards in the JAX package; on
-    one card there is nothing to constrain, and a tree here raises until
-    gradients are placed on a ``ProcessMesh`` (ROADMAP Queue 1 item 11b,
-    on item 10's process grid).
+    ``grad_shardings``: the params' placements (path -> ``Placement``, as
+    ``launch.sharding.named(mesh, param_specs(params), params)`` gives
+    them).  On a ``ProcessMesh`` the step is the sharded one of the module
+    docstring and takes the state as ``sharding.place`` leaves it on each
+    rank, and the whole batch (each rank keeps its rows); where one
+    process holds every tile (a ``TileMesh``, a ``MeshShape``, the 1 x 1
+    ``card`` mesh) there is nothing to constrain and the step is the one
+    without ``grad_shardings``.
     ``donate``: update the given state's tensors in place (module
     docstring).
     """
+    mesh, pls = None, None
     if grad_shardings is not None:
-        raise NotImplementedError(
-            "grad_shardings: gradients sharded across cards wait for their "
-            "placement on a ProcessMesh (ROADMAP Queue 1 item 11b, on item "
-            "10's process grid); one card has nothing to constrain")
+        meshes = {id(pl.mesh): pl.mesh for pl in grad_shardings.values()}
+        if len(meshes) != 1:
+            raise ValueError("grad_shardings: every placement must be on one "
+                             f"mesh, got {len(meshes)}")
+        if getattr(next(iter(meshes.values())), "per_process", False):
+            pls = dict(grad_shardings)
+            mesh = next(iter(meshes.values()))
+    on_mesh = {} if pls is None else {"placements": pls}
 
     def train_step(state: TrainState, batch):
         params = state.params
         leaves = M.param_leaves(params)
-        batch = as_batch(batch, params.device)
-        if grad_accum > 1:
+        if mesh is None:
+            batch = as_batch(batch, params.device)
             mbs = [{k: v.reshape(grad_accum, v.shape[0] // grad_accum,
                                  *v.shape[1:])[i] for k, v in batch.items()}
-                   for i in range(grad_accum)]
-            gsum, lsum = None, torch.zeros((), dtype=torch.float32,
-                                           device=params.device)
-            for mb in mbs:
-                loss, g = value_and_grad(cfg, params, mb, leaves)
-                if gsum is None:
-                    gsum = {k: LayerStack(x.float() for x in v)
-                            if isinstance(v, LayerStack) else v.float()
-                            for k, v in g.items()}
-                else:
-                    for k, v in g.items():
-                        for a, b in zip(rows(gsum[k]), rows(v)):
-                            a.add_(b.float())
-                lsum = lsum + loss
-                del g
+                   for i in range(grad_accum)] if grad_accum > 1 else [batch]
+            grad_of = lambda mb: value_and_grad(cfg, params, mb, leaves)
+        else:
+            mbs = _local_micros(batch, mesh, grad_accum)
+            grad_of = _mesh_grad_of(cfg, params, leaves, pls, mesh)
+        gsum, losses = None, []
+        for mb in mbs:
+            loss, g = grad_of(mb)
+            losses.append(loss)
+            if grad_accum == 1:
+                gsum = g
+            elif gsum is None:
+                gsum = {k: LayerStack(x.float() for x in v)
+                        if isinstance(v, LayerStack) else v.float()
+                        for k, v in g.items()}
+            else:
+                for k, v in g.items():
+                    for a, b in zip(rows(gsum[k]), rows(v)):
+                        a.add_(b.float())
+            del g
+        if mesh is not None:
+            # each rank's loss is its share of the whole batch's
+            losses = list(_batch_sum(mesh, torch.stack(losses)).unbind(0))
+        if grad_accum > 1:
             for v in gsum.values():
                 for a in rows(v):
                     a.div_(grad_accum)
-            grads, loss = gsum, lsum / grad_accum
+            lsum = torch.zeros((), dtype=torch.float32, device=params.device)
+            for x in losses:
+                lsum = lsum + x
+            loss = lsum / grad_accum
         else:
-            loss, grads = value_and_grad(cfg, params, batch, leaves)
+            loss = losses[0]
+        grads = gsum
 
         ef = state.ef
         with torch.no_grad():
             if compress_grads and ef is not None:
-                grads, ef = _compress_grads(grads, ef, inplace=donate)
-            grads, gnorm = clip_by_global_norm(grads, max_grad_norm, inplace=True)
+                grads, ef = _compress_grads(grads, ef, inplace=donate, **on_mesh)
+            grads, gnorm = clip_by_global_norm(grads, max_grad_norm,
+                                               inplace=True, **on_mesh)
             new_leaves, new_opt = optimizer.update(
-                grads, state.opt_state, leaves, state.step, inplace=donate)
-        del grads
+                grads, state.opt_state, leaves, state.step, inplace=donate,
+                **on_mesh)
+        del grads, gsum
         new_params = params if donate else M.replace_params(params, new_leaves)
         metrics = {"loss": loss, "grad_norm": gnorm, "step": state.step}
         return TrainState(new_params, new_opt, state.step + 1, ef), metrics
@@ -184,3 +240,109 @@ def build_train_step(
     train_step.donate = donate
     return train_step
 
+
+
+# -- the step on a ProcessMesh ---------------------------------------------------
+
+
+class _Gather(torch.autograd.Function):
+    """A param's slice -> the whole param (``Placement.gather``); its
+    backward reduce-scatters the whole gradient to the slice over the
+    batch axes (``Placement.reduce_scatter``)."""
+
+    @staticmethod
+    def forward(ctx, part, pl, baxes):
+        ctx.pl, ctx.baxes = pl, baxes
+        full = pl.gather(part, "param_gather")
+        return part.view_as(part) if full is part else full
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.pl.reduce_scatter(g, ctx.baxes, "grad_reduce_scatter"), None, None
+
+
+class _LossOf(torch.nn.Module):
+    """``loss_fn`` of a model as a module's forward, so that
+    ``torch.func.functional_call`` can run it over gathered params."""
+
+    def __init__(self, model, cfg):
+        super().__init__()
+        self.model = model
+        self.cfg = cfg
+
+    def forward(self, mb):
+        return _loss(self.cfg, self.model, mb)
+
+
+def _local_micros(batch: dict, mesh, grad_accum: int) -> list:
+    """The rank's rows of each micro-batch of the whole ``batch``: micro m
+    is rows [m B/ga, (m+1) B/ga), split over the batch axes
+    (``batch_specs``' rule), on the mesh's device."""
+    from ..launch.mesh import batch_axes
+    from ..launch.sharding import Placement
+
+    baxes = batch_axes(mesh)
+    nb = math.prod(int(mesh.shape[a]) for a in baxes)
+    out = [{} for _ in range(grad_accum)]
+    for k, v in batch.items():
+        if v is None:
+            continue
+        t = torch.as_tensor(v)
+        if t.shape[0] % (grad_accum * nb):
+            raise ValueError(f"batch {k!r}: {t.shape[0]} rows do not split into "
+                             f"{grad_accum} micro-batches over {nb} batch shards")
+        parts = t.reshape(grad_accum, t.shape[0] // grad_accum, *t.shape[1:])
+        for m in range(grad_accum):
+            part = parts[m]
+            pl = Placement(mesh, (baxes,) + (None,) * (part.ndim - 1),
+                           tuple(part.shape))
+            x = pl.shard(part)
+            out[m][k] = x.long() if k in ("tokens", "labels") else x
+    return out
+
+
+def _batch_sum(mesh, x):
+    """``x`` added over the batch shards (``models.shard.batch_sum``)."""
+    from ..launch.mesh import batch_axes
+    from ..models import shard
+
+    with shard.use_mesh_axes(mesh, batch_axes(mesh), "model"):
+        return shard.batch_sum(x)
+
+
+def _mesh_grad_of(cfg, params, leaves, pls: dict, mesh):
+    """``mb -> (loss, grads)`` of a rank on ``mesh`` (module docstring): the
+    top-level params gathered once, each layer's gathered inside its own
+    ``torch.utils.checkpoint`` (again in the recompute), the gradients
+    reduce-scattered to the rank's slices by ``_Gather``'s backward."""
+    from torch.func import functional_call
+    from torch.utils.checkpoint import checkpoint
+
+    from ..launch.mesh import batch_axes
+    from ..models import shard
+
+    baxes = batch_axes(mesh)
+    row_of = {}
+    for path, leaf in leaves.items():
+        r = pls[path].row() if isinstance(leaf, LayerStack) else pls[path]
+        for t in rows(leaf):
+            row_of[id(t)] = r
+    top = [(n, t) for n, t in params.named_parameters() if not n.startswith("groups.")]
+
+    def run_layer(layer, x, cfg_):
+        names, parts = zip(*layer.named_parameters())
+        lpls = [row_of[id(t)] for t in parts]
+
+        def run(x, *sh):
+            full = {n: _Gather.apply(t, p, baxes) for n, t, p in zip(names, sh, lpls)}
+            return functional_call(layer, full, (x, cfg_))
+        return checkpoint(run, x, *parts, use_reentrant=False)
+
+    def gathered_loss(cfg_, params_, mb):
+        full = {"model." + n: _Gather.apply(t, row_of[id(t)], baxes) for n, t in top}
+        return functional_call(_LossOf(params_, cfg_), full, (mb,))
+
+    def grad_of(mb):
+        with shard.use_mesh_axes(mesh, baxes, "model"), shard.running_layers(run_layer):
+            return value_and_grad(cfg, params, mb, leaves, loss_of=gathered_loss)
+    return grad_of

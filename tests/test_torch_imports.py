@@ -91,7 +91,8 @@ def test_port_imports_without_jax_or_repro():
                  "repro_torch.launch.train", "repro_torch.roofline",
                  "repro_torch.roofline.analyze", "repro_torch.launch.sharding",
                  "repro_torch.launch.dryrun", "repro_torch.ft.remesh",
-                 "repro_torch.launch.procs"):
+                 "repro_torch.launch.procs", "repro_torch.roofline.collect",
+                 "repro_torch.models.shard"):
         assert name in r.stdout.split(), name
 
 

@@ -318,16 +318,25 @@ def test_solve_cli_joins_the_group_torchrun_set_up():
 
 @pytest.mark.parametrize("mode", ["raise", "hang"])
 def test_a_failed_rank_fails_the_run_without_a_hang(tmp_path, mode):
-    from repro_torch.obs.clock import now
+    """A rank that raises reaches the parent as its traceback soon after
+    the ranks are up (both pid files written, after the group formed):
+    the deadline is far above any spawn time, so a loaded host's slow
+    start cannot fire it first; the time from the last pid file to the
+    parent's raise is held instead.  A rank that hangs fires the short
+    deadline.  Either way no rank is left running."""
+    import time
 
-    deadline = 6.0
-    t0 = now()
+    deadline = 60.0 if mode == "raise" else 6.0
+    t0 = time.time()
     with pytest.raises((RuntimeError, TimeoutError)) as ei:
         procs.run(rank_fails, 2, (str(tmp_path), mode), backend="gloo",
                   device="cpu", timeout_s=deadline)
-    assert now() - t0 < deadline + 15
+    t_end = time.time()
+    assert t_end - t0 < deadline + 15
     if mode == "raise":
         assert "rank 1 fails on purpose" in str(ei.value)
+        t_up = max(f.stat().st_mtime for f in tmp_path.glob("*.pid"))
+        assert t_end - t_up < 10.0
     else:
         assert isinstance(ei.value, TimeoutError)
     for f in tmp_path.glob("*.pid"):

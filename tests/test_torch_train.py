@@ -518,10 +518,36 @@ def test_donated_step_updates_in_place():
 
 
 def test_grad_shardings_raise():
+    """A placement tree where one process holds every tile (the 1 x 1
+    ``card`` mesh, a ``TileMesh``) gives the step without
+    ``grad_shardings``, bit for bit; placements on two meshes raise.  (The
+    step on a ``ProcessMesh``: tests/test_torch_meshtrain.py.)"""
+    from repro_torch.launch import sharding as SH
+    from repro_torch.launch.mesh import make_mesh
+
     cfg = f32(configs.get_smoke("granite-3-8b"))
-    with pytest.raises(NotImplementedError, match="item 10"):
-        T.build_train_step(cfg, T.adamw(T.warmup_cosine(1e-3, 1, 2)),
-                           grad_shardings={})
+    opt = T.adafactor(T.warmup_cosine(3e-3, 1, 10))
+    model = M.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    b = batch_of(cfg)
+    states, metrics = [], []
+    for mesh in (None, SH.MESHES["card"], make_mesh((2, 2), ("data", "model"), "cpu")):
+        gsh = None if mesh is None else SH.tree_named(mesh, model)
+        state = T.init_train_state(M.replace_params(model, {
+            k: T.optim.LayerStack(t.clone() for t in v) if isinstance(v, M.LayerStack)
+            else v.clone() for k, v in M.param_leaves(model).items()}), opt)
+        step = T.build_train_step(cfg, opt, grad_shardings=gsh)
+        for _ in range(2):
+            state, m = step(state, b)
+        states.append(state)
+        metrics.append(m)
+    for state, m in zip(states[1:], metrics[1:]):
+        assert all(torch.equal(m[k], metrics[0][k]) for k in m)
+        for a, w in zip(_tensors(state), _tensors(states[0])):
+            assert torch.equal(a, w)
+    mixed = SH.tree_named(SH.MESHES["card"], model)
+    mixed[next(iter(mixed))] = next(iter(SH.tree_named(SH.MESHES["single"], model).values()))
+    with pytest.raises(ValueError, match="one mesh"):
+        T.build_train_step(cfg, opt, grad_shardings=mixed)
 
 
 # -- tests/test_substrates.py's training behaviours, on the port ------------------
@@ -618,7 +644,9 @@ def test_cli_mesh_exits_2_and_the_default_device_is_cuda(capsys):
             train_cli.main(["--arch", "granite-3-8b", "--smoke", "--mesh", mesh,
                             "--device", "cpu"])
         assert exc.value.code == 2
-        assert "item" in capsys.readouterr().err
+        err = capsys.readouterr().err
+        assert f"needs {256 * (1 + (mesh == 'multi'))} ranks" in err
+        assert "no process group and no torchrun environment" in err
     with pytest.raises(SystemExit) as exc:
         train_cli.main(["--arch", "nope", "--device", "cpu"])
     assert exc.value.code == 2
