@@ -452,17 +452,26 @@ prints no result line):
                each candidate's µs, the winner, the bytes bound; every
                candidate must run, ``lookup`` return the winner and
                ``ell_spmv.pick_variant`` (the rows-or-group wrappers'
-               rule, which consults the cache) pick it.
+               rule, which consults the cache) pick it.  Then the launch
+               floor: one CUDA graph of LEVEL_PROBE one-element adds
+               (``sptrsv_level_step``'s 2,047 levels) replayed, its time
+               over the nodes: a graph node's own cost.
 12. meshtrain -- the LM train state on a process grid: 4 gloo ranks on
                the card (``launch.procs``) as a 2x2 (data, model)
                ``ProcessMesh``, each running ``launch.train.
                train_on_mesh`` (the state placed by ``state_specs`` and
                ``sharding.named``, cut to the rank's slices, trained with
-               ``grad_shardings``); no CUDA kernel of the port's own.  The
-               one-process counterparts run first, on the card.  12a: the
-               f32 smoke configs of granite-3-8b and dbrx-132b (its
-               expert banks' specs) with AdamW and Adafactor, MESH_STEPS
-               steps of MESH_PARITY_SHAPE from the same seed-0 state:
+               ``grad_shardings``: the split step, each rank running its
+               own heads, d_ff columns, experts and vocab rows where they
+               divide, ``models.shard.split_kinds``); no CUDA kernel of
+               the port's own.  The one-process counterparts run first,
+               on the card.  12a: the f32 smoke configs of granite-3-8b
+               and dbrx-132b (experts a rank) with AdamW and Adafactor,
+               deepseek-v3-671b (MLA, a shared expert, MTP) with
+               Adafactor, paligemma-3b (kv = 1 whole on every rank, tied
+               tables) and recurrentgemma-9b (split attention beside whole
+               rec layers) with AdamW, MESH_PARITY_STEPS steps of
+               MESH_PARITY_SHAPE from the same seed-0 state:
                losses and grad_norm within MESH_RTOL of the one-process
                step, the params gathered after within MESH_PARAM_TOL x
                max|p|, every rank's metrics and gathered params bitwise
@@ -478,9 +487,11 @@ prints no result line):
                state at most its ``device_bytes`` plus two of the largest
                whole f32 draw (no rank holds the whole state); ms a step
                (median of steps 2-3) with its staging and gloo parts
-               (``mesh.stats``), each rank's ``max_memory_allocated`` over
-               the steps against its ``device_bytes``, beside the card's
-               name and power limit.
+               (``mesh.stats``), the wire bytes by call against
+               ``train_step_bytes``, each rank's forward+backward time by
+               CUDA events, each rank's ``max_memory_allocated`` over the
+               steps against its ``device_bytes``, beside the card's name
+               and power limit.
 
 The last three lines are the kernels JSON, the card's
 ``nvidia-smi --query-gpu=name,power.limit`` line, and the result JSON.
@@ -729,6 +740,7 @@ DRY_PEAK_TOL = 0.03
 TIMER_WIDTHS = (12, 16)             # the rows kernels' W
 TIMER_BLOCKS = (4, 16)              # bcsr_spmm's bm = bn, on lap2d_1024
 TIMER_REPS = 20
+LEVEL_PROBE = 2047                  # 11c: nodes of the launch-floor graph
 
 # phase 12, the LM train state on a process grid: 4 gloo ranks on the card
 # as a 2x2 (data, model) ProcessMesh.  12a: the f32 smoke configs against
@@ -742,9 +754,13 @@ TIMER_REPS = 20
 # on the card: bf16 rounds at 2^-8 = 3.9e-3, and the two runs round the
 # sharded batch's products and the gradient sums differently.
 MESH_GRID, MESH_AXES = (2, 2), ("data", "model")
-MESH_STEPS = 3
+MESH_STEPS = 3                      # 12b
+MESH_PARITY_STEPS = 2               # 12a: an update and a step after it
+                                    # (3 would not fit seven configs)
 MESH_PARITY = (("granite-3-8b", "adamw"), ("granite-3-8b", "adafactor"),
-               ("dbrx-132b", "adamw"), ("dbrx-132b", "adafactor"))
+               ("dbrx-132b", "adamw"), ("dbrx-132b", "adafactor"),
+               ("deepseek-v3-671b", "adafactor"), ("paligemma-3b", "adamw"),
+               ("recurrentgemma-9b", "adamw"))
 MESH_PARITY_SHAPE = (4, 32)
 MESH_RTOL = 1e-5
 MESH_PARAM_TOL = {"adamw": 1e-4, "adafactor": 1e-5}
@@ -2716,6 +2732,7 @@ def roofline_phase(failed: list, lm: dict, trained: dict) -> None:
                 f"{len(losers)}: " + json.dumps(
                     [(r["op"], r["shape"], r["winner"]) for r in losers])
                 + "; ell_spmv and ell_spmm pick the recorded winners")
+        launch_floor(smi)
     except Exception:
         traceback.print_exc()
         failed.append("timer")
@@ -2729,9 +2746,48 @@ def roofline_phase(failed: list, lm: dict, trained: dict) -> None:
     say(f"roofline phase: {now() - t_phase:.1f} s")
 
 
-def mesh_reference(cfg, opt_name: str, shape) -> dict:
+def launch_floor(smi: str) -> float:
+    """11c's probe: a CUDA graph of LEVEL_PROBE one-element in-place adds,
+    replayed TIMER_REPS times after a warm replay; the microseconds a
+    node, by CUDA events (the count checked from the tensor's value)."""
+    import gc
+
+    import torch
+
+    probe = torch.zeros(1, device="cuda")
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        probe.add_(1.0)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    gc.disable()
+    try:
+        with torch.cuda.graph(graph):
+            for _ in range(LEVEL_PROBE):
+                probe.add_(1.0)
+    finally:
+        gc.enable()
+    graph.replay()
+    e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    e0.record()
+    for _ in range(TIMER_REPS):
+        graph.replay()
+    e1.record()
+    torch.cuda.synchronize()
+    want = 1 + LEVEL_PROBE * (1 + TIMER_REPS)
+    if float(probe) != want:
+        raise AssertionError(f"launch floor: {float(probe)} adds, {want} launched")
+    us = e0.elapsed_time(e1) * 1e3 / (TIMER_REPS * LEVEL_PROBE)
+    say(f"launch floor: a graph of {LEVEL_PROBE} one-element adds replays in "
+        f"{us * LEVEL_PROBE / 1e3:.4f} ms, {us:.4f} us a node (sptrsv_level_step's "
+        f"bytes bound 0.0428 us a level); on {smi}")
+    return us
+
+
+def mesh_reference(cfg, opt_name: str, shape, steps: int = MESH_STEPS) -> dict:
     """The one-process counterpart of ``launch.train.train_on_mesh`` on the
-    card: the same seed-0 model, optimizer and batches, ``MESH_STEPS``
+    card: the same seed-0 model, optimizer and batches, ``steps``
     donated steps in the launcher's own ``train_loop``; losses, grad
     norms, each step's ms (ended by reading its loss) and (f32) the params
     as numpy."""
@@ -2744,13 +2800,13 @@ def mesh_reference(cfg, opt_name: str, shape) -> dict:
     from repro_torch.models import model as M
 
     params = M.init_params(cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
-    opt = make_optimizer(opt_name, 3e-3, MESH_STEPS)
+    opt = make_optimizer(opt_name, 3e-3, steps)
     state = T.init_train_state(params, opt)
     del params
     out = {"grad_norms": []}
     state, out["losses"], times = train_loop(
         state, T.build_train_step(cfg, opt, donate=True),
-        TokenPipeline(cfg.vocab_size, *shape, seed=0), MESH_STEPS, verbose=False,
+        TokenPipeline(cfg.vocab_size, *shape, seed=0), steps, verbose=False,
         on_step=lambda i, m: out["grad_norms"].append(float(m["grad_norm"])))
     out["step_ms"] = [1e3 * t for t in times]
     if cfg.param_dtype == "float32":
@@ -2789,13 +2845,13 @@ def meshtrain_rank(rank, t_spawn: float) -> dict:
 
     keep = ("losses", "grad_norms", "step_ms", "wire_bytes", "stage_s",
             "comm_s", "held_bytes", "device_bytes", "build_peak_bytes",
-            "peak_bytes")
+            "peak_bytes", "fwd_bwd_ms", "split_kinds")
     out = {"rank": rank.rank, "start_s": now() - t_spawn, "parity": {}}
     mesh = rank.mesh(MESH_GRID, MESH_AXES)
     t0 = now()
     for arch, opt_name in MESH_PARITY:
         cfg = get_smoke(arch).replace(param_dtype="float32", compute_dtype="float32")
-        res = train_on_mesh(mesh, cfg, steps=MESH_STEPS, batch=MESH_PARITY_SHAPE[0],
+        res = train_on_mesh(mesh, cfg, steps=MESH_PARITY_STEPS, batch=MESH_PARITY_SHAPE[0],
                             seq=MESH_PARITY_SHAPE[1], optimizer=opt_name)
         full = SH.gather(res["state"], res["placements"])
         got = {k: res[k] for k in keep}
@@ -2835,7 +2891,8 @@ def meshtrain_phase(failed: list) -> None:
         cases = {f"{a} {o}": (f32(get_smoke(a)), o) for a, o in MESH_PARITY}
         full_cfg = get(TRAIN_FULL).replace(n_layers=MESH_FULL_LAYERS)
         t0 = now()
-        refs = {k: mesh_reference(cfg, o, MESH_PARITY_SHAPE) for k, (cfg, o) in cases.items()}
+        refs = {k: mesh_reference(cfg, o, MESH_PARITY_SHAPE, MESH_PARITY_STEPS)
+                for k, (cfg, o) in cases.items()}
         full_ref = mesh_reference(full_cfg, "adafactor", MESH_FULL_SHAPE)
         torch.cuda.empty_cache()
         ref_s = now() - t0
@@ -2845,10 +2902,10 @@ def meshtrain_phase(failed: list) -> None:
         run_s = now() - t0
         grid = MeshShape(dict(zip(MESH_AXES, MESH_GRID)))
 
-        def model_bytes(cfg, opt_name):
+        def model_bytes(cfg, opt_name, shape):
             state = T.init_train_state(M.init_params(cfg, None, "meta"),
                                        getattr(T, opt_name)(T.warmup_cosine(1e-3, 1, 2)))
-            want = train_step_bytes(cfg, state, grid)
+            want = train_step_bytes(cfg, state, grid, batch=shape)
             return want.pop("total_bytes"), want
 
         bad = []
@@ -2859,7 +2916,7 @@ def meshtrain_phase(failed: list) -> None:
             e_loss, e_gn = rel(r0["losses"], ref["losses"]), rel(r0["grad_norms"], ref["grad_norms"])
             e_p = max(float(np.abs(r0p - w).max() / np.abs(w).max())
                       for r0p, w in zip(_np_leaves(r0["params"]), _np_leaves(ref["params"])))
-            total, want = model_bytes(cfg, opt_name)
+            total, want = model_bytes(cfg, opt_name, MESH_PARITY_SHAPE)
             same = all(g["losses"] == r0["losses"] and g["grad_norms"] == r0["grad_norms"]
                        and all(np.array_equal(a, b) for a, b in
                                zip(_np_leaves(g["params"]), _np_leaves(r0["params"])))
@@ -2870,16 +2927,16 @@ def meshtrain_phase(failed: list) -> None:
                     and all(g["held_bytes"] == g["device_bytes"] for g in got)
                     and all(w == want for g in got for w in g["wire_bytes"])):
                 bad.append(key)
-            say(f"meshtrain 12a {key} (f32 smoke, {MESH_STEPS} steps, 2x2, 4 gloo "
+            say(f"meshtrain 12a {key} (f32 smoke, {MESH_PARITY_STEPS} steps, 2x2, 4 gloo "
                 f"ranks): loss {e_loss:.2e}, grad_norm {e_gn:.2e} of the one-process "
                 f"step's; params {e_p:.2e} of max|p| (tol {MESH_PARAM_TOL[opt_name]}); "
                 f"ranks bitwise equal {same}; held bytes "
                 f"{[g['held_bytes'] for g in got]} = device_bytes "
                 f"{r0['device_bytes']}; wire bytes a step {sum(r0['wire_bytes'][0].values())} "
-                f"(model {total}) {r0['wire_bytes'][0]}")
+                f"(model {total}) {r0['wire_bytes'][0]}; split {r0['split_kinds']}")
         got = [r["full"] for r in ranks]
         r0 = got[0]
-        total, want = model_bytes(full_cfg, "adafactor")
+        total, want = model_bytes(full_cfg, "adafactor", MESH_FULL_SHAPE)
         # a rank builds its state one drawn tensor at a time: its slices
         # and at most one whole f32 draw and that draw's slice
         draw = 4 * max(p.numel() for p in M.init_params(full_cfg, None, "meta").parameters())
@@ -2903,6 +2960,8 @@ def meshtrain_phase(failed: list) -> None:
                 "warm_step_ms": warm, "stage_ms": stage, "gloo_ms": comm,
                 "rest_ms": warm - stage - comm,
                 "wire_bytes_per_step": r0["wire_bytes"][1], "model_bytes": total,
+                "model_by_call": want, "split_kinds": r0["split_kinds"],
+                "fwd_bwd_ms": [g["fwd_bwd_ms"] for g in got],
                 "held_bytes": [g["held_bytes"] for g in got],
                 "device_bytes": r0["device_bytes"],
                 "build_peak_bytes": [g["build_peak_bytes"] for g in got],
@@ -2919,7 +2978,11 @@ def meshtrain_phase(failed: list) -> None:
             f"{warm - stage - comm:.1f}; the one-process step "
             f"{float(np.median(full_ref['step_ms'][1:])):.1f}); a rank receives "
             f"{sum(r0['wire_bytes'][1].values()) / 1e6:.1f} MB a step (model "
-            f"{total / 1e6:.1f}); building the state peaks at "
+            f"{total / 1e6:.1f}; by call "
+            f"{ {k: round(v / 1e6, 3) for k, v in r0['wire_bytes'][1].items()} } MB); "
+            f"forward+backward by CUDA events "
+            f"{[round(float(np.median(g['fwd_bwd_ms'][1:])), 1) for g in got]} ms a rank; "
+            f"building the state peaks at "
             f"{[round(g['build_peak_bytes'] / 1e9, 2) for g in got]} GB, the steps at "
             f"{[None if g['peak_bytes'] is None else round(g['peak_bytes'] / 1e9, 2) for g in got]} GB against "
             f"device_bytes {r0['device_bytes'] / 1e9:.2f} GB a rank; losses "

@@ -23,22 +23,31 @@ they do not:
 * ``memory_analysis`` -- bytes per device: ``argument_size_in_bytes`` and
   ``output_size_in_bytes`` from the leaf shapes split by the validated
   specs of ``launch.sharding`` (exact); ``alias_size_in_bytes``, the
-  donated inputs (train state, decode caches); ``temp_size_in_bytes``, on
-  ``card`` the peak of live bytes the step creates less what it returns,
-  and ``None`` on the other meshes (the port has no SPMD compiler to say
-  what one device holds);
+  donated inputs (train state, decode caches); ``temp_size_in_bytes``, the
+  peak of live bytes the step creates less what it returns: on ``card``
+  the whole step's, and for a train cell on ``single``/``multi`` rank 0's
+  (below); ``None`` for prefill and decode there (serving is not placed
+  on a process grid yet);
 * ``argument_bytes_by_part`` -- the argument bytes by input (params,
   opt_state, step, ef, batch; caches, tokens);
-* ``counted_flops`` -- the counted FLOPs of the whole step over the
-  devices (a count of every op, where XLA's ``cost_analysis`` counts a
-  loop body once; so not under ``cost_analysis``), and
-  ``counted_flops_total``;
+* ``counted_flops`` -- the counted FLOPs a device runs (a count of every
+  op, where XLA's ``cost_analysis`` counts a loop body once; so not under
+  ``cost_analysis``): a train cell's on ``single``/``multi`` rank 0's own
+  count, otherwise the whole step's over the devices; and
+  ``counted_flops_total``, that times the devices;
 * ``collectives`` -- ``{"total_bytes": 0.0}`` on ``card``; on ``single``
-  and ``multi`` a train cell's bytes one device receives in a step of
-  the port's sharded step (``roofline.collect.train_step_bytes``:
-  ``total_bytes`` and ``by_call``), so ``roofline.analyze`` has a
-  collective term there; ``None`` for prefill and decode there (serving
-  is not placed on a process grid yet);
+  and ``multi`` a train cell's bytes rank 0 receives in its step
+  (``total_bytes`` and ``by_call``, counted by the stand-in; equal to
+  ``roofline.collect.train_step_bytes``), so ``roofline.analyze`` has a
+  collective term there; ``None`` for prefill and decode there.
+
+A train cell on ``single``/``multi`` runs rank 0's step of the port's
+split train step (``build_train_step(grad_shardings=)``) on ``meta``,
+over :class:`StandInMesh`: a stand-in of a ``launch.mesh.ProcessMesh``
+with no processes, whose ``gather`` and ``all_to_all`` return what the
+real ones would return on rank 0 (its shapes, new storage) and count the
+bytes.  Its ``sp`` and ``ep`` variants are refused there (the split step
+takes neither yet).
 * ``build_s``, ``run_s`` -- seconds to build the cell on ``meta`` and to
   run its step there (the JAX ``lower_s`` / ``compile_s`` have no
   counterpart).
@@ -64,7 +73,10 @@ from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_leaves
 from torch.utils.flop_counter import flop_registry
 
-__all__ = ["StepCounter", "build_cell", "run_cell", "main", "MESH_KINDS"]
+from .mesh import NocStats, _Grid
+
+__all__ = ["StepCounter", "StandInMesh", "build_cell", "run_cell", "main",
+           "MESH_KINDS"]
 
 MESH_KINDS = ("single", "multi", "card")
 
@@ -144,6 +156,40 @@ class StepCounter(TorchDispatchMode):
     def _free(self, key, n):
         if self._refs.pop(key, None) is not None:
             self.live -= n
+
+
+class StandInMesh(_Grid):
+    """Rank ``rank`` of a ``launch.mesh.ProcessMesh`` of ``shape`` (axis
+    name -> size) on ``meta``, with no processes: ``gather`` and
+    ``all_to_all`` return new tensors of the shapes the real calls return
+    and count the bytes this rank would receive in ``stats`` (a
+    ``NocStats``), as the real calls do."""
+
+    per_process = True
+
+    def __init__(self, shape: dict, rank: int = 0):
+        super().__init__(tuple(shape.values()), tuple(shape))
+        self.rank = rank
+        self.coords = tuple(int(c) for c in self._coords[rank])
+        self.local, self.local_size = slice(rank, rank + 1), 1
+        self.device = torch.device("meta")
+        self.stats = NocStats()
+
+    def _members(self, axes, what: str) -> int:
+        self.stats.calls[what] += 1
+        return self.group(self.axes(axes))[1].shape[1]
+
+    def gather(self, xs, axes, what: str):
+        p = self._members(axes, what)
+        if p > 1:
+            self.stats.wire_bytes[what] += (p - 1) * xs.numel() * xs.element_size()
+        return xs.new_empty(xs.shape[:-1] + (p, xs.shape[-1]))
+
+    def all_to_all(self, xs, axes, what: str):
+        p = self._members(axes, what)
+        if p > 1:
+            self.stats.wire_bytes[what] += (p - 1) * (xs.numel() // p) * xs.element_size()
+        return xs.new_empty(xs.shape)
 
 
 def _meta_batch(shape: dict):
@@ -252,14 +298,40 @@ def build_cell(arch: str, shape, mesh_kind: str, probe_layers: int | None = None
                              "labels": (global_batch, seq)})
         parts["batch"] = tok_bytes(batch)
         alias = parts["params"] + parts["opt_state"] + parts["step"]
-        if mesh.size > 1:
-            coll = train_step_bytes(cfg, state, mesh, st_specs, grad_accum)
-            meta["collectives"] = {"total_bytes": float(coll.pop("total_bytes")),
-                                   "by_call": coll}
-        step_fn = build_train_step(cfg, opt, grad_accum=grad_accum, donate=True)
+        if mesh.size == 1:
+            step_fn = build_train_step(cfg, opt, grad_accum=grad_accum, donate=True)
+
+            def run():
+                st, metrics = step_fn(state, batch)
+                out_b = alias + replicated(metrics.values())
+                return (st, metrics), parts, out_b, alias
+            return run, meta
+        if var["sp"] or var["ep"]:
+            raise ValueError(
+                f"variant {variant!r}: the split train step on a process grid "
+                "takes neither sp nor ep yet (ROADMAP Queue 1 item 11c)")
+        # rank 0's step on a stand-in of the process grid, its state cut to
+        # its slices as launch.train.placed_state builds it
+        rank = StandInMesh(mesh.shape)
+        pls = SH.named(rank, st_specs, state)
+        local = init_train_state(M.init_params(cfg, None, "meta",
+                                               placements=pls.params), opt)
+        step_fn = build_train_step(cfg, opt, grad_accum=grad_accum,
+                                   grad_shardings=pls.params, donate=True)
+        want = train_step_bytes(cfg, state, mesh, st_specs, grad_accum,
+                                batch=(global_batch, seq))
+        want.pop("total_bytes")
+        meta["rank_step"] = True
 
         def run():
-            st, metrics = step_fn(state, batch)
+            rank.stats.reset()
+            st, metrics = step_fn(local, batch)
+            by_call = {k: v for k, v in rank.stats.wire_bytes.items() if v}
+            if by_call != want:
+                raise RuntimeError(f"{arch} {shape} on {mesh_kind}: rank 0 "
+                                   f"received {by_call}, collect models {want}")
+            meta["collectives"] = {"total_bytes": float(sum(by_call.values())),
+                                   "by_call": by_call}
             out_b = alias + replicated(metrics.values())
             return (st, metrics), parts, out_b, alias
         return run, meta
@@ -318,6 +390,7 @@ def run_cell(arch: str, shape, mesh_kind: str, out_dir: str = "",
 
     devices = meta["devices"]
     card = mesh_kind == "card"
+    rank_step = meta.pop("rank_step", False)
     result = dict(meta)
     result.update(
         build_s=round(t1 - t0, 2),
@@ -326,11 +399,12 @@ def run_cell(arch: str, shape, mesh_kind: str, out_dir: str = "",
             "argument_size_in_bytes": sum(parts.values()),
             "output_size_in_bytes": out_b,
             "alias_size_in_bytes": alias,
-            "temp_size_in_bytes": (counter.peak - returned) if card else None,
+            "temp_size_in_bytes": (counter.peak - returned)
+            if card or rank_step else None,
         },
         argument_bytes_by_part=parts,
-        counted_flops=counter.flops / devices,
-        counted_flops_total=counter.flops,
+        counted_flops=counter.flops if rank_step else counter.flops / devices,
+        counted_flops_total=counter.flops * devices if rank_step else counter.flops,
         collectives={"total_bytes": 0.0} if card else meta.get("collectives"),
     )
     suffix = f"__probe{probe_layers}" if probe_layers is not None else ""

@@ -380,20 +380,38 @@ class Placement:
         return tuple(next((Shard(d) for d, e in enumerate(self.spec)
                            if a in _entry_axes(e)), Replicate()) for a in names)
 
-    def index(self, tile: int) -> tuple:
+    def index(self, tile: int, over=None) -> tuple:
         """The slices of the leaf that tile ``tile`` holds (JAX's
-        ``devices_indices_map`` entry of the mesh's tile-th device)."""
+        ``devices_indices_map`` entry of the mesh's tile-th device); with
+        ``over`` (a subset of :attr:`axes`) its slices within the tensor
+        :meth:`gather` over ``over`` gives."""
         names = self.mesh.axis_names
         sizes = [int(self.mesh.shape[a]) for a in names]
         coords = dict(zip(names, np.unravel_index(int(tile), sizes)))
+        over = self._over(over)
         out = []
         for d, e in enumerate(self.spec):
-            ax = _entry_axes(e)
+            ax = [a for a in _entry_axes(e) if a in over]
             i = int(np.ravel_multi_index([coords[a] for a in ax],
                                          [int(self.mesh.shape[a]) for a in ax])) if ax else 0
             n = self.local_shape[d]
             out.append(slice(i * n, (i + 1) * n))
         return tuple(out)
+
+    def _over(self, over) -> tuple:
+        """``over`` (None: every axis that splits the leaf) as the axes of
+        :attr:`axes` it names, in mesh order."""
+        if over is None:
+            return self.axes
+        return tuple(a for a in self.axes if a in over)
+
+    def gathered_shape(self, over=None) -> tuple:
+        """The shape :meth:`gather` over ``over`` returns: each dim's slice
+        times the tiles of the gathered axes that split it."""
+        over = self._over(over)
+        return tuple(n * math.prod(int(self.mesh.shape[a]) for a in _entry_axes(e)
+                                   if a in over)
+                     for n, e in zip(self.local_shape, self.spec))
 
     @property
     def held(self) -> tuple:
@@ -428,21 +446,30 @@ class Placement:
         dev = t.device if dev is None else torch.device(dev)
         return t.to(dev) if t.device != dev else t.clone()
 
-    def gather(self, x: torch.Tensor, what: str = "gather") -> torch.Tensor:
+    def gather(self, x: torch.Tensor, what: str = "gather", over=None) -> torch.Tensor:
         """The whole leaf from this rank's slice ``x``: one ``all_gather``
         over the axes that split it (``mesh.gather``), the slices put in
         place; ``x`` itself where nothing splits it or one process holds
-        every tile."""
-        if not self.per_process or not self.axes:
+        every tile.  With ``over``, a subset of those axes: gathered over
+        them alone, the slice this rank holds over the rest (a dim split
+        by several axes must list the kept ones first)."""
+        axes = self._over(over)
+        if not self.per_process or not axes:
             return x
-        got = self.mesh.gather(x.reshape(1, -1), self.axes, what)
-        t = got.reshape([int(self.mesh.shape[a]) for a in self.axes]
+        for e in self.spec:
+            ax = _entry_axes(e)
+            kept = [a in axes for a in ax]
+            if kept != sorted(kept):
+                raise ValueError(f"{self}: gathering {axes} of entry {e!r} "
+                                 "leaves no contiguous slice")
+        got = self.mesh.gather(x.reshape(1, -1), axes, what)
+        t = got.reshape([int(self.mesh.shape[a]) for a in axes]
                         + list(self.local_shape))
         perm = []
         for d, e in enumerate(self.spec):
-            perm += [self.axes.index(a) for a in _entry_axes(e)]
-            perm.append(len(self.axes) + d)
-        return t.permute(perm).reshape(self.shape)
+            perm += [axes.index(a) for a in _entry_axes(e) if a in axes]
+            perm.append(len(axes) + d)
+        return t.permute(perm).reshape(self.gathered_shape(axes))
 
     def gather_leaf(self, leaf, what: str = "gather") -> torch.Tensor:
         """:meth:`gather` of a held leaf (a ``LayerStack``'s layers stacked
@@ -452,21 +479,24 @@ class Placement:
             return LayerStack(full.unbind(0))
         return self.gather(leaf, what).to("cpu", copy=True)
 
-    def reduce_scatter(self, full: torch.Tensor, axes, what: str) -> torch.Tensor:
+    def reduce_scatter(self, full: torch.Tensor, axes, what: str,
+                       over=None) -> torch.Tensor:
         """This rank's slice of the sum of ``full`` over the members of its
         group along ``axes`` (the batch axes: the ranks that computed other
         parts of the batch): one ``all_to_all`` sends each member its slice,
         and the received slices are added in coordinate order, in f32, cast
-        back to ``full``'s dtype."""
-        held = self.held
+        back to ``full``'s dtype.  ``full`` is the whole leaf, or with
+        ``over`` the tensor :meth:`gather` over ``over`` gives (the members
+        differ only on axes of ``over``)."""
+        mine = self.index(self.mesh.rank, over) if self.per_process else self.held
         if not self.per_process:
-            return full[held]
+            return full[mine]
         axes = self.mesh.axes(axes)
         mem = [int(q) for q in self.mesh.group(axes)[1][self.mesh.rank]] \
             if axes else [self.mesh.rank]
         if len(mem) == 1:
-            return full[held].contiguous()
-        send = torch.stack([full[self.index(q)].reshape(-1) for q in mem])
+            return full[mine].contiguous()
+        send = torch.stack([full[self.index(q, over)].reshape(-1) for q in mem])
         got = self.mesh.all_to_all(send.unsqueeze(0), axes, what)[0]
         acc = got[0].float()
         for c in range(1, len(mem)):

@@ -27,8 +27,11 @@ naming the ranks needed), places the state by ``state_specs`` and
 ``sharding.named`` (each rank draws its slices alone, never the whole
 state: :func:`placed_state`) and trains it with ``grad_shardings``
 (:func:`train_on_mesh`, which the tests and ``chip_smoke.py`` call on a
-2x2 grid); rank 0 prints the step lines and the closing JSON, with
-``"processes"``.  Both paths run one loop, :func:`train_loop`.
+2x2 grid): the split step, each rank computing its own heads, ``d_ff``
+columns, experts and vocab rows; rank 0 prints the step lines and the
+closing JSON, with ``"processes"`` and ``"split_kinds"`` (the step's
+table of what splits over ``model``, ``models.shard.split_kinds``).
+Both paths run one loop, :func:`train_loop`.
 ``--dist-backend`` is ``gloo`` (ranks may share a card) or ``nccl`` (a
 card a rank; written, not yet run).  ``--ckpt-dir`` with ``--mesh`` exits
 2: the restart manager on a process grid is ROADMAP Queue 1 item 13.
@@ -131,7 +134,9 @@ def train_on_mesh(mesh, cfg, *, steps: int, batch: int, seq: int,
     its loss), ``wire_bytes`` (``mesh.stats``' bytes this rank received, a
     dict a step), ``stage_s``/``comm_s`` a step, ``held_bytes`` (the
     rank's state), ``device_bytes`` (``sharding.device_bytes`` of the
-    specs), on a card ``build_peak_bytes`` (``max_memory_allocated`` while
+    specs), ``split_kinds`` (the step's table of what splits over
+    ``model``), on a card ``fwd_bwd_ms`` (each step's forward and backward
+    passes by CUDA events), ``build_peak_bytes`` (``max_memory_allocated`` while
     the state was built, above what was allocated before) and ``peak_bytes`` (over the steps, from the
     placed state on), the final ``state`` and its ``placements``."""
     from ..data import TokenPipeline
@@ -155,9 +160,15 @@ def train_on_mesh(mesh, cfg, *, steps: int, batch: int, seq: int,
     step_fn = build_train_step(cfg, opt, grad_accum=grad_accum,
                                compress_grads=compress_grads,
                                grad_shardings=pls.params, donate=True)
+    out["split_kinds"] = step_fn.split_kinds
+
+    out["fwd_bwd_ms"] = []
 
     def on_step(i, metrics):
         out["grad_norms"].append(float(metrics["grad_norm"]))
+        if cuda:
+            e0, e1 = step_fn.fwd_bwd_events
+            out["fwd_bwd_ms"].append(e0.elapsed_time(e1))
         out["wire_bytes"].append(dict(mesh.stats.wire_bytes))
         out["stage_s"].append(mesh.stats.stage_s)
         out["comm_s"].append(mesh.stats.comm_s)
@@ -245,7 +256,8 @@ def main(argv=None):
         if res is not None:
             _print_result(cfg, args, res["losses"],
                           [t / 1e3 for t in res["step_ms"]],
-                          processes=16 * 16 * (2 if args.mesh == "multi" else 1))
+                          processes=16 * 16 * (2 if args.mesh == "multi" else 1),
+                          split_kinds=res["split_kinds"])
         return 0
     dev = resolve_device(args.device)
     params = M.init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev)
@@ -268,9 +280,10 @@ def main(argv=None):
     return 0
 
 
-def _print_result(cfg, args, losses, times, processes=None) -> None:
+def _print_result(cfg, args, losses, times, processes=None,
+                  split_kinds=None) -> None:
     """The JAX launcher's closing JSON, plus ``losses`` and ``step_ms``
-    (and ``processes`` on a mesh)."""
+    (and ``processes`` and ``split_kinds`` on a mesh)."""
     out = {
         "arch": cfg.name, "steps": len(losses),
         "loss_first": losses[0] if losses else None,
@@ -282,6 +295,7 @@ def _print_result(cfg, args, losses, times, processes=None) -> None:
     }
     if processes is not None:
         out["processes"] = processes
+        out["split_kinds"] = split_kinds
     print(json.dumps(out, indent=1))
 
 

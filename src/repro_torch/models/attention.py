@@ -201,14 +201,40 @@ class Attention(nn.Module):
 
 
 def _qkv(p: Attention, x, cfg, pos):
+    """q, k, v of the heads ``p`` holds.  Given a rank's H/m heads of
+    ``wq`` (the train step on a ``ProcessMesh``), q is the rank's heads
+    (after ``shard.to_model``); k and v are its kv heads where ``wk``/``wv``
+    are split too, else computed whole on every rank (their gradient added
+    over ``model``) and cut to the groups of the rank's q heads."""
     b, s, _ = x.shape
-    h, kvh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
-    q = shard.constrain(p.wq(x).reshape(b, s, h, hd), "heads")
-    k = shard.constrain(p.wk(x).reshape(b, s, kvh, hd), "kv")
-    v = shard.constrain(p.wv(x).reshape(b, s, kvh, hd), "kv")
+    hd = cfg.hd
+    h, kvh = p.wq.w.shape[1] // hd, p.wk.w.shape[1] // hd
+    split = h < cfg.n_heads
+    xs = shard.to_model(x) if split else x
+    q = shard.constrain(p.wq(xs).reshape(b, s, h, hd), "heads", cfg.n_heads)
+    if split and kvh == cfg.n_kv_heads:
+        kv = shard.to_model(torch.cat([p.wk(x), p.wv(x)], -1))
+        k, v = kv[..., :kvh * hd], kv[..., kvh * hd:]
+    else:
+        k, v = p.wk(xs), p.wv(xs)
+    k = shard.constrain(k.reshape(b, s, kvh, hd), "kv")
+    v = shard.constrain(v.reshape(b, s, kvh, hd), "kv")
+    if split and kvh == cfg.n_kv_heads:
+        k, v = _rank_groups(k, h, cfg), _rank_groups(v, h, cfg)
     q = apply_rope(q, pos, cfg.rope_theta)
     k = apply_rope(k, pos, cfg.rope_theta)
     return q, k, v
+
+
+def _rank_groups(t, h: int, cfg):
+    """The kv heads of whole ``t`` (B, S, KV, D) that this rank's ``h`` q
+    heads attend to: their one group's head where they lie in one group,
+    else one head a q head."""
+    g = cfg.n_heads // cfg.n_kv_heads
+    h0 = shard.model_index() * h
+    if g % h == 0:
+        return t[:, :, h0 // g:h0 // g + 1]
+    return t.repeat_interleave(g, dim=2)[:, :, h0:h0 + h]
 
 
 def _positions(b: int, s: int, device):
@@ -226,7 +252,8 @@ def attn_forward(p: Attention, x, cfg, pos=None, return_kv=False):
         prefix_len=cfg.n_prefix_tokens if cfg.prefix_lm else 0,
         softcap=cfg.logit_softcap,
     )
-    o = p.wo(o.reshape(b, s, -1))
+    o = o.reshape(b, s, -1)
+    o = p.wo.row(o) if q.shape[2] < cfg.n_heads else p.wo(o)
     if return_kv:
         return o, (k, v)
     return o
@@ -284,13 +311,20 @@ class MLA(nn.Module):
 
 
 def _mla_qkv(p: MLA, x, cfg, pos):
+    """q (nope, rope parts), the latent c_kv and the shared k_rope of the
+    heads ``p`` holds: with a rank's H/m heads of ``wq_b`` (the train step
+    on a ``ProcessMesh``) the latent query enters them through
+    ``shard.to_model``."""
     b, s, _ = x.shape
-    h = cfg.n_heads
     nope, rope = cfg.qk_nope_dim, cfg.qk_rope_dim
     kr = cfg.kv_lora_rank
+    h = p.wq_b.w.shape[1] // (nope + rope)
 
-    q = p.wq_b(p.q_norm(p.wq_a(x)))
-    q = shard.constrain(q.reshape(b, s, h, nope + rope), "heads")
+    cq = p.q_norm(p.wq_a(x))
+    if h < cfg.n_heads:
+        cq = shard.to_model(cq)
+    q = shard.constrain(p.wq_b(cq).reshape(b, s, h, nope + rope), "heads",
+                        cfg.n_heads)
     q_nope, q_rope = q[..., :nope], q[..., nope:]
     q_rope = apply_rope(q_rope, pos, cfg.rope_theta)
 
@@ -302,22 +336,29 @@ def _mla_qkv(p: MLA, x, cfg, pos):
 
 def mla_forward(p: MLA, x, cfg, pos=None):
     """Full-sequence MLA (prefill): expand K, V from the latent and run
-    flash attention with KV heads == H."""
+    flash attention with KV heads == H (the heads ``p`` holds: a rank's
+    H/m on a ``ProcessMesh``, whose latent and k_rope enter them through
+    ``shard.to_model`` and whose ``wo`` is row-parallel)."""
     b, s, _ = x.shape
-    h = cfg.n_heads
-    nope, vd = cfg.qk_nope_dim, cfg.v_head_dim
+    nope, vd, kr = cfg.qk_nope_dim, cfg.v_head_dim, cfg.kv_lora_rank
+    h = p.wkv_b.w.shape[1] // (nope + vd)
+    split = h < cfg.n_heads
     if pos is None:
         pos = _positions(b, s, x.device)
     q_nope, q_rope, c_kv, k_rope = _mla_qkv(p, x, cfg, pos)
-    kv = shard.constrain(p.wkv_b(c_kv).reshape(b, s, h, nope + vd), "heads")
+    if split:
+        lat = shard.to_model(torch.cat([c_kv, k_rope[:, :, 0]], dim=-1))
+        c_kv, k_rope = lat[..., :kr], lat[..., None, kr:]
+    kv = shard.constrain(p.wkv_b(c_kv).reshape(b, s, h, nope + vd), "heads",
+                         cfg.n_heads)
     k_nope, v = kv[..., :nope], kv[..., nope:]
     k = torch.cat([k_nope, k_rope.expand(b, s, h, cfg.qk_rope_dim)], dim=-1)
     q = torch.cat([q_nope, q_rope], dim=-1)
     # pad V's head_dim up to K's so flash can run one pass; slice after.
     dq = q.shape[-1]
     v_pad = torch.cat([v, v.new_zeros(v.shape[:-1] + (dq - vd,))], dim=-1)
-    o = flash_attention(q, k, v_pad, causal=True)[..., :vd]
-    return p.wo(o.reshape(b, s, h * vd))
+    o = flash_attention(q, k, v_pad, causal=True)[..., :vd].reshape(b, s, h * vd)
+    return p.wo.row(o) if split else p.wo(o)
 
 
 def init_mla_cache(batch, max_len, cfg, dtype=torch.bfloat16, device="cuda"):

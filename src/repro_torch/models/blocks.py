@@ -150,23 +150,40 @@ class Linear(nn.Module):
             y = y + self.b.to(x.dtype)
         return y
 
+    def row(self, x):
+        """A row-parallel application: this rank's rows of ``w`` give a
+        partial product, added over ``model`` (``shard.from_model``); the
+        bias, whole on every rank, is added once after the sum."""
+        y = shard.from_model(x @ self.w.to(x.dtype), "tp_fwd")
+        if hasattr(self, "b"):
+            y = y + self.b.to(x.dtype)
+        return y
+
 
 def _gelu(x):
     return F.gelu(x, approximate="tanh")     # jax.nn.gelu's default form
 
 
 class MLP(nn.Module):
-    """``{"wi", "wg", "wo"}`` (swiglu / geglu) or ``{"wi", "wo"}`` (gelu)."""
+    """``{"wi", "wg", "wo"}`` (swiglu / geglu) or ``{"wi", "wo"}`` (gelu).
+    Given a rank's ``d_ff`` columns of ``wi``/``wg`` and rows of ``wo``
+    (fewer than ``d_ff``: the train step on a ``ProcessMesh``), it runs
+    them: column-parallel ``wi``/``wg`` after ``shard.to_model``,
+    row-parallel ``wo``."""
 
     def __init__(self, d: int, d_ff: int, act: str, init: Init):
         super().__init__()
         self.act = act
+        self.d_ff = d_ff
         self.wi = Linear(d, d_ff, init)
         if act in ("swiglu", "geglu"):
             self.wg = Linear(d, d_ff, init)
         self.wo = Linear(d_ff, d, init)
 
     def forward(self, x):
+        split = self.wi.w.shape[1] < self.d_ff
+        if split:
+            x = shard.to_model(x)
         h = self.wi(x)
         if self.act == "swiglu":
             h = F.silu(self.wg(x)) * h
@@ -174,7 +191,7 @@ class MLP(nn.Module):
             h = _gelu(self.wg(x)) * h
         else:
             h = _gelu(h)
-        return self.wo(h)
+        return self.wo.row(h) if split else self.wo(h)
 
 
 # -- RoPE -------------------------------------------------------------------

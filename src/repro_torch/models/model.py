@@ -43,7 +43,7 @@ from .attention import (
     MLA, Attention, _mla_qkv, _positions, _prime_kv_cache, attn_decode,
     attn_forward, init_kv_cache, init_mla_cache, mla_decode, mla_forward,
 )
-from .blocks import MLP, Embed, Init, Linear, Norm, cross_entropy, dtype_of
+from .blocks import MLP, Embed, Init, Linear, Norm, dtype_of
 from .config import ModelConfig
 from .moe import MoE, moe_apply
 from .rglru import RGLRU, init_rglru_state, rglru_decode, rglru_forward
@@ -297,9 +297,24 @@ def _draw_placements(cfg: ModelConfig, placements: dict) -> list:
     return [where[id(p)] for p in order.drawn]
 
 
+def _lookup(table, cfg, tokens, dtype):
+    """The rows of ``table`` (cast to ``dtype``) at ``tokens``.  Given a
+    rank's V/m vocab rows (the train step on a ``ProcessMesh``): its rows
+    where a token falls in them, zeros elsewhere, added over ``model``
+    (one rank's row and zeros: the sum is exact)."""
+    v = table.shape[0]
+    if v == cfg.vocab_size:
+        return table.to(dtype)[tokens]
+    v0 = shard.model_index() * v
+    mine = (tokens >= v0) & (tokens < v0 + v)
+    rows = table.to(dtype)[torch.where(mine, tokens - v0, 0)]
+    rows = torch.where(mine[..., None], rows, torch.zeros_like(rows))
+    return shard.from_model(rows, "vocab_embed")
+
+
 def _embed_tokens(params: Model, cfg, tokens):
     cdt = dtype_of(cfg.compute_dtype)
-    emb = params.embed.table.to(cdt)[tokens]
+    emb = _lookup(params.embed.table, cfg, tokens, cdt)
     if cfg.norm == "rmsnorm" and cfg.family in ("vlm",):
         emb = emb * torch.tensor(math.sqrt(float(cfg.d_model)), dtype=cdt)
     return emb
@@ -344,8 +359,35 @@ def forward(params: Model, cfg: ModelConfig, tokens=None, input_embeds=None,
 
 
 def logits_from_hidden(params: Model, cfg, x):
+    """(..., V) logits of hidden ``x``; given a rank's V/m rows of the
+    table, the rank's vocab columns (``x`` enters them through
+    ``shard.to_model``)."""
     table = (params.embed if cfg.tie_embeddings else params.head).table
-    return shard.constrain(x @ table.to(x.dtype).T, "logits")
+    if table.shape[0] < cfg.vocab_size:
+        x = shard.to_model(x)
+    return shard.constrain(x @ table.to(x.dtype).T, "logits", cfg.vocab_size)
+
+
+def _token_nll(params: Model, cfg, x, labels):
+    """Each token's f32 NLL of ``labels`` under the logits of hidden
+    ``x``: ``logsumexp - gold``.  With the rank's vocab columns alone
+    (vocab-parallel): the max over ``model``, then the sums of
+    ``exp(logit - max)`` and of the gold logit (from the rank that owns
+    it, zeros elsewhere) over ``model``, each added in coordinate order,
+    so every rank gets the same bits."""
+    lg = logits_from_hidden(params, cfg, x).float()
+    vl = lg.shape[-1]
+    if vl == cfg.vocab_size:
+        gold = torch.gather(lg, -1, labels[..., None])[..., 0]
+        return torch.logsumexp(lg, dim=-1) - gold
+    v0 = shard.model_index() * vl
+    mx = shard.model_max(lg.detach().amax(dim=-1), "vocab_ce")
+    mine = (labels >= v0) & (labels < v0 + vl)
+    gold = torch.gather(lg, -1, torch.where(mine, labels - v0, 0)[..., None])[..., 0]
+    gold = torch.where(mine, gold, torch.zeros_like(gold))
+    se = torch.exp(lg - mx[..., None]).sum(dim=-1)
+    both = shard.from_model(torch.stack([se, gold]), "vocab_ce")
+    return mx + torch.log(both[0]) - both[1]
 
 
 def _shift(t, k: int):
@@ -379,9 +421,7 @@ def loss_fn(params: Model, cfg: ModelConfig, tokens, labels, mask=None,
     tot = torch.zeros(2, dtype=torch.float32, device=x.device)
     for i in range(nc):
         lc, mc = labels[:, i * c:(i + 1) * c], mask[:, i * c:(i + 1) * c]
-        lg = logits_from_hidden(params, cfg, x_txt[:, i * c:(i + 1) * c]).float()
-        gold = torch.gather(lg, -1, lc[..., None])[..., 0]
-        nll = (torch.logsumexp(lg, dim=-1) - gold) * mc
+        nll = _token_nll(params, cfg, x_txt[:, i * c:(i + 1) * c], lc) * mc
         tot = tot + torch.stack([nll.sum(), mc.sum()])
     loss = tot[0] / torch.clamp(shard.batch_sum(tot[1]), min=1.0)
 
@@ -389,13 +429,16 @@ def loss_fn(params: Model, cfg: ModelConfig, tokens, labels, mask=None,
         # MTP: predict token t+1+k from [h_t ; emb(tok_{t+k})] (deepseek-v3)
         h = x_txt
         for k, mp in enumerate(params.mtp, start=1):
-            emb_next = params.embed.table.to(h.dtype)[_shift(tokens, k)]
+            emb_next = _lookup(params.embed.table, cfg, _shift(tokens, k), h.dtype)
             h = mp.proj(torch.cat([h, emb_next], dim=-1))
             h, _ = mp.block(h, cfg)
             h = mp.norm(h)
-            lg = logits_from_hidden(params, cfg, h)
-            loss = loss + 0.3 * cross_entropy(lg, _shift(labels, k),
-                                              _shift(mask, k))
+            # blocks.cross_entropy's masked mean, vocab-parallel where the
+            # table is split
+            mk = _shift(mask, k)
+            nll = _token_nll(params, cfg, h, _shift(labels, k))
+            loss = loss + 0.3 * (torch.sum(nll * mk) / torch.clamp(
+                shard.batch_sum(torch.sum(mk)), min=1.0))
     return loss + aux, {"aux": aux}
 
 

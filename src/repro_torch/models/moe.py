@@ -88,7 +88,9 @@ def route(logits: torch.Tensor, k: int, cap: int) -> dict:
 
 def moe_apply(p: MoE, x, cfg, capacity_factor: float | None = None):
     """x: (B, S, D) -> (y, aux_loss).  Routing groups = sequences (prefill,
-    capacity-dropped) or the whole batch (decode, drop-free)."""
+    capacity-dropped) or the whole batch (decode, drop-free).  With a
+    rank's E/m experts (``wi``'s leading dim below ``cfg.n_experts``) the
+    rank runs those and the combine adds ``y`` over ``model``."""
     b, s, d = x.shape
     e, k = cfg.n_experts, cfg.top_k
     cf = capacity_factor if capacity_factor is not None else cfg.moe_capacity_factor
@@ -105,22 +107,40 @@ def moe_apply(p: MoE, x, cfg, capacity_factor: float | None = None):
     r = route(p.router(xg), k, cap)
     keep, e_flat = r["keep"], r["idx"].reshape(g, t * k)
     pos_c = torch.clamp(r["pos"], max=cap - 1)
+    gates = r["gates"]
+
+    # experts a rank: given a rank's E/m expert banks (the train step on a
+    # ProcessMesh) it fills and runs their buffers alone; every rank along
+    # model routes the same way, and the tokens and gates enter the rank's
+    # experts through shard.to_model
+    el = p.wi.shape[0]
+    split = el < e
+    if split:
+        e0 = shard.model_index() * el
+        mine = (e_flat >= e0) & (e_flat < e0 + el)
+        keep = keep & mine
+        e_flat = torch.where(mine, e_flat - e0, 0)
+        xd, gates = shard.to_model(xg), shard.to_model(gates)
+    else:
+        xd = xg
 
     # dispatch: scatter tokens into the (G, E, C, D) expert buffers
-    x_rep = torch.repeat_interleave(xg, k, dim=1)       # (G, T*k, D)
+    x_rep = torch.repeat_interleave(xd, k, dim=1)       # (G, T*k, D)
     x_rep = torch.where(keep[..., None], x_rep, torch.zeros_like(x_rep))
-    buf = xg.new_zeros((g, e, cap, d))
+    buf = xg.new_zeros((g, el, cap, d))
     gi = torch.arange(g, device=x.device)[:, None].expand(g, t * k)
     buf.index_put_((gi, e_flat, pos_c), x_rep, accumulate=True)
-    buf = shard.constrain(buf, "moe_buf")
+    buf = shard.constrain(buf, "moe_buf", e)
 
-    yb = shard.constrain(_expert_ffn(p, buf, cfg.act), "moe_buf")  # (G,E,C,D)
+    yb = shard.constrain(_expert_ffn(p, buf, cfg.act), "moe_buf", e)  # (G,E,C,D)
 
     # combine: gather back and weight by gates
     y_tok = shard.constrain(yb[gi, e_flat, pos_c], "batch_only")  # (G,T*k,D)
     y_tok = torch.where(keep[..., None], y_tok, torch.zeros_like(y_tok))
-    gates_flat = r["gates"].reshape(g, t * k, 1).to(y_tok.dtype)
+    gates_flat = gates.reshape(g, t * k, 1).to(y_tok.dtype)
     y = torch.sum((y_tok * gates_flat).reshape(g, t, k, d), dim=2)
+    if split:
+        y = shard.from_model(y, "moe_combine")
 
     if s == 1:
         y = y.reshape(b, 1, d)

@@ -7,11 +7,24 @@ The JAX package pins the sharding of hot activations with
 ``jax.lax.with_sharding_constraint`` is the identity on values, and so is
 the port's ``constrain``: under ``use_mesh_axes`` with a ``ProcessMesh``
 it validates the kind's spec against the activation's global shape (the
-batch dim times the batch shards), as the JAX one does, and returns
-``x``; on one card it is the identity and checks nothing.  The port's
-process grid splits the batch over the batch axes and keeps the rest of
-each activation whole on every rank (storage is placed over ``model``,
-compute is not split over it).
+batch dim times the batch shards), as the JAX one does, and checks the
+rank's local shape (a dim the spec puts on ``model`` holds 1/m of its
+``whole`` size where m divides it), then returns ``x``; on one card it is
+the identity and checks nothing.
+
+The process grid splits the batch over the batch axes, and the compute of
+the layers :func:`split_kinds` names over ``model`` (Megatron's pattern,
+as the JAX package's placement implies): a rank runs its own heads,
+``d_ff`` columns, experts and vocab rows, read from the local shapes of
+the params the train step hands it.  Two crossings join the ranks along
+``model``: :func:`to_model` (the identity forward; its backward adds the
+gradient over ``model``) in front of a column-parallel product, and
+:func:`from_model` (adds over ``model`` forward; the identity backward)
+after a row-parallel one.  :func:`model_max` is the vocab-parallel loss's
+max.  Every sum gathers the partials (``mesh.gather``) and adds them in
+coordinate order, so every rank along ``model`` gets the same bits; each
+is counted in ``mesh.stats`` under its call site's name.  All of them are
+the identity outside a ``ProcessMesh``.
 
 A rank of a ``ProcessMesh`` holds its batch shard, so where the loss
 reduces over the batch it needs the other shards' numbers too:
@@ -28,8 +41,12 @@ from __future__ import annotations
 import math
 from contextlib import contextmanager
 
+import torch
+
 __all__ = ["use_mesh_axes", "active", "constrain", "batch_sum",
-           "batch_shards", "running_layers", "layer_call"]
+           "batch_shards", "running_layers", "layer_call", "model_shards",
+           "model_index", "to_model", "from_model", "model_sum", "model_max",
+           "SPLIT_LAYERS", "split_kinds"]
 
 _CTX: dict = {"on": False}
 
@@ -87,10 +104,20 @@ def _spec_for(kind: str, ndim: int, shape: tuple = ()) -> tuple:
     return (spec + (None,) * (ndim - len(spec)))[:ndim]
 
 
-def constrain(x, kind: str):
+def _model_dims(kind: str, ndim: int) -> list:
+    """The dims the kind's spec puts on ``model``."""
+    m = _CTX["model"]
+    return [d for d, e in enumerate(_spec_for(kind, ndim))
+            if e == m or (isinstance(e, tuple) and m in e)]
+
+
+def constrain(x, kind: str, whole: int | None = None):
     """``x``; under ``use_mesh_axes`` with a ``ProcessMesh``, first the
-    kind's spec validated against ``x``'s global shape (module
-    docstring)."""
+    kind's spec validated against ``x``'s global shape, and with ``whole``
+    (the global size of the dim the spec puts on ``model``) the rank's
+    local size of that dim checked: ``whole / m`` where m divides
+    ``whole``, else ``whole`` (module docstring).  Raises ``ValueError``
+    on a local shape the split does not give."""
     mesh = _process_mesh()
     if mesh is None:
         return x
@@ -99,6 +126,16 @@ def constrain(x, kind: str):
     shape = tuple(x.shape)
     if shape:
         shape = (shape[0] * batch_shards(),) + shape[1:]
+    if whole is not None:
+        m = model_shards()
+        want = whole // m if whole % m == 0 else whole
+        for d in _model_dims(kind, x.ndim):
+            if x.shape[d] != want:
+                raise ValueError(
+                    f"constrain {kind!r}: dim {d} holds {x.shape[d]} on this "
+                    f"rank; split over {m} ranks along {_CTX['model']!r} the "
+                    f"whole {whole} leaves {want}")
+            shape = shape[:d] + (whole,) + shape[d + 1:]
     validate_spec(shape, _spec_for(kind, x.ndim, shape), mesh)
     return x
 
@@ -143,3 +180,133 @@ def running_layers(call):
 def layer_call():
     """The installed layer runner, or None."""
     return _CTX.get("layer_call")
+
+
+# -- the model axis ----------------------------------------------------------
+
+
+def model_shards() -> int:
+    """Ranks along ``model`` on the installed ``ProcessMesh``, else 1."""
+    mesh = _process_mesh()
+    return 1 if mesh is None else int(mesh.shape[_CTX["model"]])
+
+
+def model_index() -> int:
+    """This rank's coordinate along ``model`` on the installed
+    ``ProcessMesh``, else 0."""
+    mesh = _process_mesh()
+    if mesh is None:
+        return 0
+    return int(mesh.coords[mesh.axis_names.index(_CTX["model"])])
+
+
+def _model_gather(x, what: str):
+    """(m, numel) of this rank's ``x`` and its group's along ``model``, in
+    coordinate order."""
+    return _process_mesh().gather(x.detach().reshape(1, -1), (_CTX["model"],),
+                                  what)[0]
+
+
+def model_sum(x, what: str):
+    """``x`` added over the ranks along ``model`` in coordinate order, in
+    f32 and cast back to ``x``'s dtype; values only.  The identity
+    outside a ``ProcessMesh`` or with one rank along ``model``."""
+    if model_shards() == 1:
+        return x
+    got = _model_gather(x, what)
+    acc = got[0].float()
+    for c in range(1, got.shape[0]):
+        acc = acc + got[c].float()
+    return acc.to(x.dtype).view(x.shape)
+
+
+def model_max(x, what: str):
+    """The elementwise max of ``x`` over the ranks along ``model`` (exact
+    in any order); values only."""
+    if model_shards() == 1:
+        return x
+    return _model_gather(x, what).amax(dim=0).view(x.shape)
+
+
+class _ToModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x):
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return model_sum(g, "tp_bwd")
+
+
+class _FromModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, what):
+        return model_sum(x, what)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def to_model(x):
+    """Where a value every rank along ``model`` holds whole enters the
+    rank's own part of a split computation: the identity forward; the
+    backward adds the ranks' partial gradients over ``model``
+    (``tp_bwd``)."""
+    return x if model_shards() == 1 else _ToModel.apply(x)
+
+
+def from_model(x, what: str):
+    """The ranks' partials of a split computation added over ``model``
+    (``what``); the backward hands each rank the whole gradient."""
+    return x if model_shards() == 1 else _FromModel.apply(x, what)
+
+
+# -- what splits -------------------------------------------------------------
+
+# layer kinds whose compute splits over ``model``; ``rec`` (RG-LRU) and
+# ``ssm`` (mamba2) layers run whole on every rank
+SPLIT_LAYERS = ("attn_mlp", "attn_moe", "attn")
+
+
+def _base_kinds(cfg) -> list:
+    kinds = []
+    for kind, _ in cfg.layer_groups():
+        for k in (kind[5:].split(",") if kind.startswith("unit:") else [kind]):
+            if k not in kinds:
+                kinds.append(k)
+    if cfg.mtp_depth and "attn_mlp" not in kinds:
+        kinds.append("attn_mlp")           # the MTP heads' blocks
+    return kinds
+
+
+def split_kinds(cfg, m: int) -> dict:
+    """The one table of what the train step on a ``ProcessMesh`` with
+    ``m`` ranks along ``model`` splits: ``{"layers": {kind: {part:
+    bool}}, "vocab": bool}`` for each layer kind of ``cfg`` (a ``unit:``
+    group's sub-blocks, the MTP heads' block).  A part splits where its
+    units divide by ``m``: ``heads`` (wq/wo, MLA's wq_b/wkv_b/wo), ``kv``
+    (wk/wv: kv heads, and only with the heads), ``mlp`` (d_ff),
+    ``experts`` (E), ``shared`` (the shared experts' d_ff); ``vocab`` the
+    tables' rows.  A part that does not split, and every part of a kind
+    outside :data:`SPLIT_LAYERS`, runs whole (its params gathered whole,
+    as in the step without the split)."""
+    div = lambda n: bool(n) and m > 1 and n % m == 0
+    layers = {}
+    for kind in _base_kinds(cfg):
+        if kind not in SPLIT_LAYERS:
+            layers[kind] = {"mix": False, "mlp": False} if kind == "rec" else {"mix": False}
+            continue
+        heads = div(cfg.n_heads)
+        parts = {"heads": heads}
+        if not cfg.use_mla:
+            parts["kv"] = heads and div(cfg.n_kv_heads)
+        if kind == "attn_moe":
+            parts["experts"] = div(cfg.n_experts)
+            if cfg.n_shared_experts:
+                parts["shared"] = div(cfg.n_shared_experts
+                                      * (cfg.d_ff_expert or cfg.d_ff))
+        else:
+            parts["mlp"] = div(cfg.d_ff)
+        layers[kind] = parts
+    return {"layers": layers, "vocab": div(cfg.vocab_size)}

@@ -13,12 +13,29 @@ of the batch axes, each micro-batch:
 
 * ``param_gather``: each layer's params gathered twice (the forward, and
   the backward's recompute), every other param once: ``(p - 1)`` times
-  the slice's bytes a gather;
+  the slice's bytes a gather, where a param of a part the step splits
+  over ``model`` (``models.shard.split_kinds``) is gathered over the
+  batch axes alone (``p`` the tiles of those);
 * ``grad_reduce_scatter``: every param's gradient (its dtype) to its
   slice, ``(b - 1)`` slices;
 * ``batch_sum``: the loss's mask count (1 f32), each MoE layer's routing
   fractions (``E`` f32, in the forward and again in the recompute), each
   MTP head's count; ``(b - 1)`` of each;
+
+* the sums over ``model`` of the split compute (``m - 1`` of each, in
+  the tensor's dtype; ``B`` the rank's rows of the micro-batch, ``S``
+  its tokens, ``D`` d_model), each split layer's in its forward, again
+  in its recompute, and once in its backward (an MTP head's block:
+  forward and backward): ``tp_fwd`` one (B, S, D) a row-parallel
+  product (attention's ``wo``, the MLP's and the shared experts' ``wo``),
+  ``moe_combine`` one (B, S, D) a split MoE; ``tp_bwd`` one (B, S, D) a
+  column-parallel input (GQA attention, MLP, shared experts, the MoE's
+  tokens, the logits), and (B, S, 2 KV hd) for whole k and v, (B, S,
+  q_lora_rank) and (B, S, kv_lora_rank + rope) for MLA's latents (in
+  place of its input's), (B, S, top_k) f32 for the MoE's gates; with
+  the tables' rows split, ``vocab_embed`` one (B, S, D) a lookup (the
+  tokens and each MTP head's) and ``vocab_ce`` three (B, S) f32 a
+  cross-entropy (the max, the sum of exp and the gold logit);
 
 and once a step ``batch_sum`` of the micro-batches' losses (``ga`` f32),
 ``clip`` one f32 a leaf, ``compress`` (int8 compression) one f32 a leaf,
@@ -26,8 +43,9 @@ each ``(p - 1)`` times, and ``adafactor``: a factored leaf's partial row
 and column means and its row means' partial sums where the dim they
 reduce is split (f32, over the tiles that split that dim), and one f32 a
 leaf for its RMS.  AdamW moves nothing.  Checked against
-``mesh.stats.wire_bytes`` of real steps (tests/test_torch_meshtrain.py;
-``chip_smoke.py`` phase 12).
+``mesh.stats.wire_bytes`` of real steps (tests/test_torch_meshtrain.py,
+tests/test_torch_tpsplit.py; ``chip_smoke.py`` phase 12) and of
+``launch.dryrun``'s stand-in.
 """
 
 from __future__ import annotations
@@ -50,18 +68,23 @@ def _tiles(pl) -> int:
 
 
 def train_step_bytes(cfg, state, mesh, specs=None, grad_accum: int = 1,
-                     compress_grads: bool = False) -> dict:
+                     compress_grads: bool = False, batch=None) -> dict:
     """``{call: bytes}`` one rank receives in one step of the sharded train
     step of ``state`` (a ``TrainState``; shapes and dtypes are read, so it
     may live on ``meta``) placed by ``specs`` (default
     ``state_specs(state, cfg.fsdp, mesh)``) on ``mesh`` (a ``ProcessMesh``
-    or a ``MeshShape``), plus ``"total_bytes"``."""
+    or a ``MeshShape``), plus ``"total_bytes"``.  ``batch``, the whole
+    batch's (rows, tokens a row), sizes the sums over ``model``; it is
+    needed wherever the mesh has more than one rank along ``model``."""
     from ..launch.mesh import batch_axes
     from ..launch.sharding import (Placement, _itemsize, leaf_shape,
                                    state_specs, tree_leaves)
+    from ..train.step import _gather_over, _split_table
 
     specs = state_specs(state, cfg.fsdp, mesh) if specs is None else specs
     b = math.prod(int(mesh.shape[a]) for a in batch_axes(mesh))
+    m = int(dict(mesh.shape).get("model", 1))
+    table = _split_table(cfg, mesh)
     leaves = tree_leaves(state.params)
     adafactor = "f" in state.opt_state
     out: Counter = Counter()
@@ -73,20 +96,77 @@ def train_step_bytes(cfg, state, mesh, specs=None, grad_accum: int = 1,
         rows = shape[0] if stacked else 1
         row_bytes = math.prod(pl.local_shape[1:] if stacked else pl.local_shape) * size
         gathers = 2 if stacked else 1
-        p = _tiles(pl)
+        if stacked:
+            kind = cfg.layer_groups()[path[1]][0]
+            over = _gather_over(table, kind, ".".join(map(str, path[2:])), pl)
+        else:
+            over = _gather_over(table, None, ".".join(map(str, path)), pl)
+        p = _tiles(pl) if over is None else math.prod(int(mesh.shape[a]) for a in over)
         out["param_gather"] += grad_accum * gathers * rows * (p - 1) * row_bytes
         out["grad_reduce_scatter"] += grad_accum * rows * (b - 1) * row_bytes
-        out["clip"] += (p - 1) * _F32
+        p_all = _tiles(pl)
+        out["clip"] += (p_all - 1) * _F32
         if compress_grads:
-            out["compress"] += (p - 1) * _F32
+            out["compress"] += (p_all - 1) * _F32
         if adafactor:
-            out["adafactor"] += (p - 1) * _F32 + _factored_bytes(pl, stacked)
+            out["adafactor"] += (p_all - 1) * _F32 + _factored_bytes(pl, stacked)
+    if m > 1:
+        if batch is None:
+            raise ValueError(f"train_step_bytes: {m} ranks along 'model' split "
+                             "the compute; pass batch=(rows, seq)")
+        for call, n in _split_bytes(cfg, table, batch[0] // (b * grad_accum),
+                                    batch[1]).items():
+            out[call] += grad_accum * (m - 1) * n
     moe = sum(n for kind, n in cfg.layer_groups() if kind == "attn_moe")
     per_micro = 1 + 2 * moe * cfg.n_experts + cfg.mtp_depth
     out["batch_sum"] += (b - 1) * _F32 * (grad_accum * per_micro + grad_accum)
     got = {k: v for k, v in out.items() if v}
     got["total_bytes"] = sum(got.values())
     return got
+
+
+def _split_bytes(cfg, table: dict, rows: int, seq: int) -> dict:
+    """``{call: bytes}`` of one rank's part of the sums over ``model`` in
+    one micro-batch of ``rows`` x ``seq`` tokens (module docstring), to
+    be multiplied by ``m - 1``."""
+    from ..models.blocks import dtype_of
+
+    c = dtype_of(cfg.compute_dtype).itemsize
+    tok = rows * seq
+    act = tok * cfg.d_model * c
+    out: Counter = Counter()
+
+    def layer(kind: str, fwd: int):
+        parts = table["layers"][kind]
+        if parts.get("heads"):
+            out["tp_fwd"] += fwd * act
+            if cfg.use_mla:
+                out["tp_bwd"] += tok * c * (cfg.q_lora_rank + cfg.kv_lora_rank
+                                            + cfg.qk_rope_dim)
+            else:
+                out["tp_bwd"] += act
+                if not parts["kv"]:
+                    out["tp_bwd"] += tok * c * 2 * cfg.n_kv_heads * cfg.hd
+        for part in ("mlp", "shared"):
+            if parts.get(part):
+                out["tp_fwd"] += fwd * act
+                out["tp_bwd"] += act
+        if parts.get("experts"):
+            out["moe_combine"] += fwd * act
+            out["tp_bwd"] += act + tok * cfg.top_k * _F32
+
+    for kind, n in cfg.layer_groups():
+        for _ in range(n):
+            for k in (kind[5:].split(",") if kind.startswith("unit:") else [kind]):
+                layer(k, 2)                 # the forward and the recompute
+    for _ in range(cfg.mtp_depth):
+        layer("attn_mlp", 1)
+    if table["vocab"]:
+        heads = 1 + cfg.mtp_depth
+        out["vocab_embed"] += heads * act
+        out["vocab_ce"] += heads * 3 * tok * _F32
+        out["tp_bwd"] += heads * act
+    return out
 
 
 def _factored_bytes(pl, stacked: bool) -> int:

@@ -24,14 +24,24 @@ On a ``launch.mesh.ProcessMesh`` (``grad_shardings``: the params'
 rank's slices of the state (``sharding.place``):
 
 * the batch splits over the batch axes (everything but ``model``); ranks
-  along ``model`` compute on the same batch shard;
-* each layer's params are gathered to whole just before the layer's
-  forward, and again in its backward (every layer runs under
-  ``torch.utils.checkpoint``, so its whole params live only inside it);
-  the other params are gathered once a micro-batch;
-* each micro-batch's gradient of a param is reduce-scattered to its
-  placement (one ``all_to_all`` over the batch axes, the slices added in
-  rank order: the JAX package's ``grad_shardings``), never all-reduced;
+  along ``model`` compute on the same batch shard, and split the compute
+  of the parts ``models.shard.split_kinds`` names (``train_step.
+  split_kinds``): each runs its own heads, ``d_ff`` columns, experts and
+  vocab rows (Megatron's column- and row-parallel products, joined by
+  ``shard.to_model``/``from_model``, every sum added in coordinate
+  order);
+* each layer's params are gathered just before the layer's forward, and
+  again in its backward (every layer runs under
+  ``torch.utils.checkpoint``, its recompute never stopped early, so its
+  gathered params live only inside it); the other params are gathered
+  once a micro-batch.  A param of a split part is gathered over the
+  batch axes only, to the rank's ``model`` slice; every other one to
+  whole;
+* each micro-batch's gradient of a param -- the rank's ``model`` slice of
+  a split one, the whole (and the same on every rank along ``model``)
+  otherwise -- is reduce-scattered to its placement (one ``all_to_all``
+  over the batch axes, the slices added in rank order: the JAX package's
+  ``grad_shardings``), never all-reduced;
 * the loss divides by the whole batch's mask count and the MoE aux takes
   the whole batch's routing fractions (``models.shard.batch_sum``); the
   global norm, Adafactor's means over split dims and per-leaf RMS and the
@@ -169,6 +179,11 @@ def build_train_step(
     without ``grad_shardings``.
     ``donate``: update the given state's tensors in place (module
     docstring).
+
+    On a ``ProcessMesh`` the returned function carries ``split_kinds``
+    (``models.shard.split_kinds``: what the step splits over ``model``)
+    and, on a card, ``fwd_bwd_events``: the CUDA events around the last
+    step's forward and backward passes.
     """
     mesh, pls = None, None
     if grad_shardings is not None:
@@ -193,6 +208,10 @@ def build_train_step(
         else:
             mbs = _local_micros(batch, mesh, grad_accum)
             grad_of = _mesh_grad_of(cfg, params, leaves, pls, mesh)
+        events = None
+        if mesh is not None and mesh.device.type == "cuda":
+            events = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            events[0].record()
         gsum, losses = None, []
         for mb in mbs:
             loss, g = grad_of(mb)
@@ -208,6 +227,9 @@ def build_train_step(
                     for a, b in zip(rows(gsum[k]), rows(v)):
                         a.add_(b.float())
             del g
+        if events is not None:
+            events[1].record()
+            train_step.fwd_bwd_events = events
         if mesh is not None:
             # each rank's loss is its share of the whole batch's
             losses = list(_batch_sum(mesh, torch.stack(losses)).unbind(0))
@@ -238,6 +260,7 @@ def build_train_step(
         return TrainState(new_params, new_opt, state.step + 1, ef), metrics
 
     train_step.donate = donate
+    train_step.split_kinds = None if mesh is None else _split_table(cfg, mesh)
     return train_step
 
 
@@ -246,19 +269,21 @@ def build_train_step(
 
 
 class _Gather(torch.autograd.Function):
-    """A param's slice -> the whole param (``Placement.gather``); its
-    backward reduce-scatters the whole gradient to the slice over the
-    batch axes (``Placement.reduce_scatter``)."""
+    """A param's slice -> the param gathered over ``over`` (all its axes
+    with None: the whole param; ``Placement.gather``); its backward
+    reduce-scatters that gradient to the slice over the batch axes
+    (``Placement.reduce_scatter``)."""
 
     @staticmethod
-    def forward(ctx, part, pl, baxes):
-        ctx.pl, ctx.baxes = pl, baxes
-        full = pl.gather(part, "param_gather")
+    def forward(ctx, part, pl, baxes, over):
+        ctx.pl, ctx.baxes, ctx.over = pl, baxes, over
+        full = pl.gather(part, "param_gather", over)
         return part.view_as(part) if full is part else full
 
     @staticmethod
     def backward(ctx, g):
-        return ctx.pl.reduce_scatter(g, ctx.baxes, "grad_reduce_scatter"), None, None
+        return (ctx.pl.reduce_scatter(g, ctx.baxes, "grad_reduce_scatter", ctx.over),
+                None, None, None)
 
 
 class _LossOf(torch.nn.Module):
@@ -310,36 +335,92 @@ def _batch_sum(mesh, x):
         return shard.batch_sum(x)
 
 
+def _split_table(cfg, mesh) -> dict:
+    """``shard.split_kinds`` for the mesh's ranks along ``model``."""
+    from ..models import shard
+
+    return shard.split_kinds(cfg, int(dict(mesh.shape).get("model", 1)))
+
+
+def _part_of(kind: str, name: str) -> tuple:
+    """(layer kind, part of ``shard.split_kinds``, or None) of the param
+    ``name`` of a layer of ``kind`` (a ``unit:`` layer's sub-block by its
+    own kind)."""
+    if kind.startswith("unit:"):
+        sub, name = name.split(".", 1)
+        kind = kind[5:].split(",")[int(sub[1:])]
+    q = name.split(".")
+    if q[0] == "mix" and q[1] in ("wk", "wv"):
+        return kind, "kv"
+    if q[0] == "mix" and q[1] in ("wq", "wo", "wq_b", "wkv_b"):
+        return kind, "heads"
+    if q[0] == "ffn" and q[1] == "shared":
+        return kind, "shared"
+    if q[0] == "ffn" and q[1] in ("wi", "wg", "wo"):
+        return kind, ("experts" if len(q) == 2 else "mlp")
+    return kind, None
+
+
+def _gather_over(table: dict, kind: str, name: str, pl):
+    """The axes to gather the param ``name`` of a layer of ``kind`` over:
+    the batch axes alone for a part the table splits (the rank keeps its
+    ``model`` slice), None (every axis: whole) otherwise.  ``kind`` None
+    is a top-level param: a table (vocab) or an MTP head's."""
+    if kind is None:
+        q = name.split(".")
+        if q[0] in ("embed", "head"):
+            split = table["vocab"]
+        elif q[0] == "mtp" and q[2] == "block":
+            kind, part = _part_of("attn_mlp", ".".join(q[3:]))
+            split = table["layers"][kind].get(part, False)
+        else:
+            split = False
+    else:
+        kind, part = _part_of(kind, name)
+        split = table["layers"][kind].get(part, False)
+    return tuple(a for a in pl.axes if a != "model") if split else None
+
+
 def _mesh_grad_of(cfg, params, leaves, pls: dict, mesh):
     """``mb -> (loss, grads)`` of a rank on ``mesh`` (module docstring): the
     top-level params gathered once, each layer's gathered inside its own
-    ``torch.utils.checkpoint`` (again in the recompute), the gradients
-    reduce-scattered to the rank's slices by ``_Gather``'s backward."""
+    ``torch.utils.checkpoint`` (again in the recompute, which runs the
+    whole layer), the gradients reduce-scattered to the rank's slices by
+    ``_Gather``'s backward; a split part's params gathered over the batch
+    axes alone (:func:`_gather_over`)."""
     from torch.func import functional_call
-    from torch.utils.checkpoint import checkpoint
+    from torch.utils.checkpoint import checkpoint, set_checkpoint_early_stop
 
     from ..launch.mesh import batch_axes
     from ..models import shard
 
     baxes = batch_axes(mesh)
+    table = _split_table(cfg, mesh)
     row_of = {}
     for path, leaf in leaves.items():
         r = pls[path].row() if isinstance(leaf, LayerStack) else pls[path]
         for t in rows(leaf):
             row_of[id(t)] = r
-    top = [(n, t) for n, t in params.named_parameters() if not n.startswith("groups.")]
+    top = [(n, t, row_of[id(t)]) for n, t in params.named_parameters()
+           if not n.startswith("groups.")]
+    top = [(n, t, p, _gather_over(table, None, n, p)) for n, t, p in top]
 
     def run_layer(layer, x, cfg_):
         names, parts = zip(*layer.named_parameters())
         lpls = [row_of[id(t)] for t in parts]
+        overs = [_gather_over(table, layer.kind, n, p) for n, p in zip(names, lpls)]
 
         def run(x, *sh):
-            full = {n: _Gather.apply(t, p, baxes) for n, t, p in zip(names, sh, lpls)}
+            full = {n: _Gather.apply(t, p, baxes, o)
+                    for n, t, p, o in zip(names, sh, lpls, overs)}
             return functional_call(layer, full, (x, cfg_))
-        return checkpoint(run, x, *parts, use_reentrant=False)
+        # the whole layer again in the recompute: its sums over ``model``
+        # run there as in the forward, whatever the backward still needs
+        with set_checkpoint_early_stop(False):
+            return checkpoint(run, x, *parts, use_reentrant=False)
 
     def gathered_loss(cfg_, params_, mb):
-        full = {"model." + n: _Gather.apply(t, row_of[id(t)], baxes) for n, t in top}
+        full = {"model." + n: _Gather.apply(t, p, baxes, o) for n, t, p, o in top}
         return functional_call(_LossOf(params_, cfg_), full, (mb,))
 
     def grad_of(mb):

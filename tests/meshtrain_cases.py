@@ -273,7 +273,7 @@ def rank_main(rank, dirs: dict) -> dict:
     out = {"cases": {cid: train_case(mesh, cid) for cid in CASES},
            "update": {o: update_case(mesh, o) for o in ("adamw", "adafactor")},
            "dtensor": dtensor_case(mesh), "constrain": constrain_case(mesh)}
-    res = train_on_mesh(mesh, configs.get_smoke("granite-3-8b"), steps=3,
+    res = train_on_mesh(mesh, case_cfg("granite-3-8b"), steps=3,
                         batch=BATCH, seq=SEQ)
     out["cli"] = {k: res[k] for k in ("losses", "held_bytes", "device_bytes")}
     out["mesh_exit"] = {m: _mesh_cli(["--arch", "granite-3-8b", "--smoke",

@@ -18,6 +18,10 @@
   [0.85, 1.00] (measured 0.9109 and 0.8934).
 * The live-bytes count on ``meta`` equals the same count of the same step
   run on the CPU with real tensors.
+* A train cell on ``single``/``multi`` (granite-3-8b, dbrx-132b) runs rank
+  0's split step on ``StandInMesh``: temporaries counted, collective bytes
+  equal to ``roofline.collect.train_step_bytes`` call by call, counted
+  FLOPs rank 0's own.
 """
 
 import json
@@ -213,3 +217,42 @@ def test_cli(tmp_path, capsys):
     with pytest.raises(SystemExit):
         dryrun.main(["--arch", "mamba2-370m", "--shape", "decode_32k",
                      "--mesh", "v5e"])
+
+
+@pytest.mark.parametrize("mesh", ["single", "multi"])
+@pytest.mark.parametrize("arch", ["granite-3-8b", "dbrx-132b"])
+def test_train_cell_runs_rank_0_of_the_split_step(arch, mesh):
+    """A train cell on a production mesh runs rank 0's split step on the
+    stand-in: its temporaries are counted, its collective bytes are
+    ``train_step_bytes``' call by call, and its FLOPs are rank 0's own
+    count of that step."""
+    import torch
+
+    from repro_torch import train as T
+    from repro_torch.models import model as M
+    from repro_torch.roofline.collect import train_step_bytes
+
+    shape = ("train", 32, 64)
+    res = dryrun.run_cell(arch, shape, mesh, probe_layers=1)
+    assert res["memory_analysis"]["temp_size_in_bytes"] > 0
+    cfg = configs.get(arch).replace(n_layers=1)
+    opt = T.adamw(T.warmup_cosine(1e-4, 100, 10_000))
+    shapes = T.init_train_state(M.init_params(cfg, None, "meta"), opt)
+    m = SH.MESHES[mesh]
+    want = train_step_bytes(cfg, shapes, m, grad_accum=res["grad_accum"],
+                            batch=(64, 32))
+    assert res["collectives"] == {"total_bytes": float(want.pop("total_bytes")),
+                                  "by_call": want}
+    rank = dryrun.StandInMesh(m.shape)
+    pls = SH.named(rank, SH.state_specs(shapes, cfg.fsdp, rank), shapes)
+    state = T.init_train_state(M.init_params(cfg, None, "meta",
+                                             placements=pls.params), opt)
+    step = T.build_train_step(cfg, opt, grad_accum=res["grad_accum"],
+                              grad_shardings=pls.params, donate=True)
+    batch = {k: torch.empty((64, 32), dtype=torch.int32, device="meta")
+             for k in ("tokens", "labels")}
+    counter = dryrun.StepCounter()
+    with counter:
+        step(state, batch)
+    assert res["counted_flops"] == counter.flops
+    assert res["counted_flops_total"] == counter.flops * res["devices"]
