@@ -492,6 +492,45 @@ prints no result line):
                CUDA events, each rank's ``max_memory_allocated`` over the
                steps against its ``device_bytes``, beside the card's name
                and power limit.
+13. procft  -- fault tolerance on a process grid: 4 gloo ranks on the card
+               (``launch.procs``, one spawn, PROC_DEADLINE_S), while the
+               parent runs the one-process grid's references on the card
+               (``TileMesh``) and then lets the ranks time 13b.  13a: the
+               PROC_FT scenarios (tests/test_torch_dist_serve.py's
+               FT_SCENARIOS on the 1d 4x1 grid; nan and bitflip at 25 on
+               the 2d 2x2 grid of laplacian_2d(32)) and PROC_FT_CKPT (a
+               checkpointed solve that gives up, then a fresh manager
+               that resumes from its directory) through
+               ``ft.SolveRestartManager`` on every rank: each report equal
+               to the one-process grid's and to the JAX package's
+               (constants), x within PROC_RTOL of the one-process grid's,
+               the ranks' reports and x bitwise equal; each rank's launch
+               counts (zeroed just before, read just after) printed, with
+               ``ell_spmv`` and ``cg_update`` above 0 on every rank.  13b:
+               laplacian_3d(SERVE_GRID) on the 2x2 halo grid, f64 Jacobi
+               pcg_tol 1e-8 in chunks of FT_CHUNK, a halo_perturb at FT_AT
+               (seed 1), checkpointed: converged, with the one-process 2x2
+               grid's report; the wall beside the uninterrupted grid
+               solve's, a chunk's plan call, audit and checkpoint save
+               (rank 0's host clock) and the bytes a rank receives in a
+               chunk (``mesh.stats``).  13c: granite-3-8b at its published
+               width cut to MESH_FULL_LAYERS layers (12b's config), bf16,
+               Adafactor, MESH_FULL_SHAPE: ``train_on_mesh(ckpt_dir=,
+               save_every=1)`` for PROC_FT_TRAIN_STEPS steps with a
+               failure injected at step 1, then a fresh placed state that
+               the manager resumes from step 1, then an uninterrupted run:
+               the resumed step's loss and the final state (every tensor
+               each rank holds) bitwise the uninterrupted run's; leaves of
+               each kind read back from the last checkpoint bitwise what
+               was saved; the checkpoint's bytes the whole state's; rank
+               0 alone holding host copies; save ms (gathers and write),
+               restore ms, rank 0's host bytes and each rank's peak RSS
+               (VmHWM) and card peak.  Then the f32 smoke config (AdamW,
+               PROC_FT_SMOKE_STEPS steps, a NaN forced at PROC_FT_NAN_AT,
+               a checkpoint every PROC_FT_SAVE_EVERY steps) under the
+               manager on the placed state: counts equal to the
+               one-process manager's on the card, losses within
+               MESH_RTOL, ranks equal.
 
 The last three lines are the kernels JSON, the card's
 ``nvidia-smi --query-gpu=name,power.limit`` line, and the result JSON.
@@ -768,6 +807,54 @@ MESH_FULL_LAYERS = 2
 MESH_FULL_SHAPE = (4, 512)
 MESH_FULL_LOSS_RTOL = 2e-2
 MESH_DEADLINE_S = 300.0
+
+# phase 13, fault tolerance on a process grid: 4 gloo ranks on the card.
+# 13a, PROC_FT: (case, the JAX package's report) -- the scenarios of
+# tests/test_torch_dist_serve.py's FT_SCENARIOS (laplacian_2d(16) on the 1d
+# 4x1 grid, b = A x with x from default_rng(1)), then nan and bitflip at
+# iteration 25, seed 1, on the 2d 2x2 grid of laplacian_2d(32) (x from
+# default_rng(0), launch/solve.py's b); f64 Jacobi, tol 1e-8, max_iters 400.
+# A report is ft_summary's (status, iterations, chunks, restarts, each
+# fault's (label, global_iter, bad_iter)), the JAX package's on the CPU
+# (8 forced host devices); tests/test_torch_procft.py computes them anew.
+# PROC_FT_CKPT: a checkpointed solve on the 2x2 grid that gives up (a stuck
+# NaN from iteration 50, max_restarts 1), then a fresh manager on its
+# directory with no fault, which resumes (its report and resumed_from).
+_L16 = dict(grid=16, mesh="4x1", mode="1d", x_seed=1, chunk=20)
+_L32 = dict(grid=32, mesh="2x2", mode="2d", x_seed=0, chunk=FT_CHUNK)
+PROC_FT = (
+    (dict(_L16, method="pcg_tol", fault=dict(kind="halo_perturb", seed=2,
+                                             count=4, iteration=15)),
+     ("converged", 72, 5, 1, (("breakdown", 0, 2),))),
+    (dict(_L16, method="pcg_pipelined_tol",
+          fault=dict(kind="halo_perturb", seed=3, count=8, iteration=30)),
+     ("converged", 72, 5, 1, (("breakdown", 20, 1),))),
+    (dict(_L16, method="pcg_tol", fault=None),
+     ("converged", 72, 4, 0, ())),
+    (dict(_L32, method="pcg_tol", fault=dict(kind="nan", seed=1, iteration=25)),
+     ("converged", 165, 8, 1, (("breakdown", 25, 0),))),
+    (dict(_L32, method="pcg_tol", fault=dict(kind="bitflip", seed=1,
+                                             iteration=25)),
+     ("converged", 165, 8, 1, (("breakdown", 25, 0),))),
+)
+PROC_FT_CKPT = (
+    dict(_L32, method="pcg_tol", max_restarts=1,
+         fault=dict(kind="nan", seed=1, iteration=50, transient=False)),
+    ("breakdown", 50, 4, 2, (("breakdown", 50, 0),) * 2),
+    (("converged", 115, 5, 0, ()), 50),
+)
+PROC_FT_TOL, PROC_FT_BUDGET = 1e-8, 400
+# 13b: the service's operator (laplacian_3d(SERVE_GRID)) on the 2x2 halo
+# grid (8p's cell), f64 Jacobi pcg_tol 1e-8 in chunks of FT_CHUNK, a
+# halo_perturb at FT_AT, seed 1, checkpointed; 13c: granite-3-8b at its
+# published width cut to MESH_FULL_LAYERS layers (12b's), bf16, Adafactor,
+# MESH_FULL_SHAPE, a checkpoint every step: PROC_FT_TRAIN_STEPS steps with
+# a failure injected at step 1, then a fresh placed state resumed from it;
+# PROC_FT_SMOKE: the f32 smoke config, AdamW, a NaN forced at step
+# PROC_FT_NAN_AT, a checkpoint every PROC_FT_SAVE_EVERY steps
+PROC_FT_TRAIN_STEPS = 2
+PROC_FT_SMOKE_STEPS, PROC_FT_NAN_AT, PROC_FT_SAVE_EVERY = 6, 3, 2
+PROC_FT_SMOKE_SHAPE = (4, 32)
 
 
 def ft_scenario(engines: dict, case: dict, b):
@@ -2997,6 +3084,456 @@ def meshtrain_phase(failed: list) -> None:
     say(f"meshtrain phase: {now() - t_phase:.1f} s")
 
 
+def ft_grid_solve(engines: dict, meshes: dict, case: dict, ckdir=None,
+                  fault: bool = True):
+    """One PROC_FT case on ``meshes[case["mesh"]]`` (a TileMesh or a rank's
+    ProcessMesh; its engine built once into ``engines``): the
+    FTSolveReport of ``ft.SolveRestartManager``."""
+    import numpy as np
+    import scipy.sparse as sp
+
+    from repro_torch import ft
+    from repro_torch.core.engine import AzulEngine
+    from repro_torch.core.plan import SolveSpec
+    from repro_torch.data.matrices import laplacian_2d
+
+    m = laplacian_2d(case["grid"])
+    key = (case["grid"], case["mesh"], case["mode"])
+    if key not in engines:
+        _, _, ra, ca = DIST_MESHES[case["mesh"]]
+        engines[key] = AzulEngine(m, mesh=meshes[case["mesh"]],
+                                  mode=case["mode"], row_axes=ra, col_axes=ca,
+                                  dtype=np.float64)
+    eng = engines[key]
+    a = sp.csr_matrix((m.data, m.indices, m.indptr), shape=m.shape)
+    b = a @ np.random.default_rng(case["x_seed"]).standard_normal(m.shape[0])
+    mgr = ft.SolveRestartManager(
+        eng, SolveSpec(method=case["method"], tol=PROC_FT_TOL,
+                       max_iters=PROC_FT_BUDGET),
+        chunk=case["chunk"], max_restarts=case.get("max_restarts", 3),
+        checkpoint_dir=ckdir)
+    inj = (ft.FaultInjector(eng, ft.FaultSpec(**case["fault"]))
+           if fault and case["fault"] is not None else None)
+    return mgr.solve(b, injector=inj)
+
+
+def proc_ft_cases(engines: dict, meshes: dict, root: str, rank: int = 0) -> dict:
+    """13a's solves on ``meshes``: each PROC_FT case, then PROC_FT_CKPT's
+    two runs on one directory under ``root``; each report's fields, x's
+    digest and (``rank`` 0) x."""
+    def row(rep):
+        return {"summary": ft_summary(rep), "resumed_from": rep.resumed_from,
+                "digest": _digest(rep.x), "x": rep.x if rank == 0 else None}
+
+    got = [row(ft_grid_solve(engines, meshes, case)) for case, _ in PROC_FT]
+    case, d = PROC_FT_CKPT[0], os.path.join(root, "13a")
+    got.append(row(ft_grid_solve(engines, meshes, case, d)))
+    got.append(row(ft_grid_solve(engines, meshes, case, d, fault=False)))
+    return got
+
+
+def nan_once(step_fn, at: int, pipe):
+    """``step_fn`` reporting a NaN loss the first time it is given batch
+    ``at`` (tests/test_torch_train_ft.py's)."""
+    import numpy as np
+
+    bad = pipe.batch_at(at)["tokens"]
+    seen = []
+
+    def step(state, batch):
+        new, m = step_fn(state, batch)
+        if not seen and np.array_equal(np.asarray(batch["tokens"]), bad):
+            seen.append(1)
+            m = dict(m, loss=m["loss"] * float("nan"))
+        return new, m
+
+    step.donate = step_fn.donate
+    return step
+
+
+def proc_ft_smoke(mesh, root: str) -> dict:
+    """13c's f32 smoke case under ``ft.RestartManager``: on ``mesh`` (a
+    rank's ProcessMesh) the placed state, else the one-process state on
+    the card; the counts (resumed_from, final step, losses kept,
+    rollbacks) and the losses."""
+    import torch
+
+    from repro_torch import ft
+    from repro_torch import train as T
+    from repro_torch.configs import get_smoke
+    from repro_torch.data import TokenPipeline
+    from repro_torch.launch.train import make_optimizer, placed_state
+    from repro_torch.models import model as M
+
+    cfg = get_smoke(TRAIN_FULL).replace(param_dtype="float32",
+                                        compute_dtype="float32")
+    opt = make_optimizer("adamw", 3e-3, PROC_FT_SMOKE_STEPS)
+    if mesh is None:
+        state = T.init_train_state(M.init_params(
+            cfg, torch.Generator(device="cuda").manual_seed(0), "cuda"), opt)
+        pls, kw = None, {}
+    else:
+        state, pls, _ = placed_state(mesh, cfg, opt)
+        kw = {"grad_shardings": pls.params}
+    step_fn = T.build_train_step(cfg, opt, donate=True, **kw)
+    pipe = TokenPipeline(cfg.vocab_size, *PROC_FT_SMOKE_SHAPE, seed=0)
+    rm = ft.RestartManager(os.path.join(root, "13c_smoke"),
+                           save_every=PROC_FT_SAVE_EVERY)
+    res = rm.run(state, nan_once(step_fn, PROC_FT_NAN_AT, pipe), pipe,
+                 PROC_FT_SMOKE_STEPS, placements=pls)
+    return {"counts": [res.resumed_from, int(res.state.step), len(res.losses),
+                       res.nan_rollbacks], "losses": res.losses}
+
+
+def proc_ft_full_engine(mesh):
+    """13b's engine on ``mesh`` and its b: laplacian_3d(SERVE_GRID) on the
+    2x2 halo grid, b = A x with x from default_rng(0)."""
+    import numpy as np
+    import scipy.sparse as sp
+
+    from repro_torch.core.engine import AzulEngine
+    from repro_torch.data.matrices import laplacian_3d
+
+    m = laplacian_3d(SERVE_GRID)
+    a = sp.csr_matrix((m.data, m.indices, m.indptr), shape=m.shape)
+    b = a @ np.random.default_rng(0).standard_normal(m.shape[0])
+    _, _, ra, ca = DIST_MESHES["2x2"]
+    return AzulEngine(m, mesh=mesh, mode="2d", row_axes=ra, col_axes=ca,
+                      dtype=np.float64, layout="halo"), b
+
+
+def proc_ft_full(eng, b, ckdir: str, timer: bool = False):
+    """13b's fault-tolerant solve: f64 Jacobi pcg_tol at MAIN_TOL in chunks
+    of FT_CHUNK, a halo_perturb at FT_AT (seed 1), checkpointed into
+    ``ckdir``; (the manager, the report)."""
+    from repro_torch import ft
+    from repro_torch.core.plan import SolveSpec
+
+    mgr = ft.SolveRestartManager(
+        eng, SolveSpec(method="pcg_tol", tol=MAIN_TOL, max_iters=SERVE_BUDGET),
+        chunk=FT_CHUNK, checkpoint_dir=ckdir,
+        timer=ft.StepTimer() if timer else None)
+    inj = ft.FaultInjector(eng, ft.FaultSpec(kind="halo_perturb",
+                                             iteration=FT_AT, seed=1))
+    return mgr, mgr.solve(b, injector=inj)
+
+
+def _held_equal(a, b) -> bool:
+    """Every tensor two placed states hold bit for bit equal."""
+    import torch
+
+    from repro_torch.checkpoint.manager import _flatten
+    from repro_torch.models.model import LayerStack
+
+    fa, fb = _flatten(a), _flatten(b)
+    whole = lambda v: torch.stack(list(v)) if isinstance(v, LayerStack) else v
+    return fa.keys() == fb.keys() and all(
+        torch.equal(whole(fa[k]), whole(fb[k])) for k in fa)
+
+
+def procft_rank(rank, t_spawn: float, root: str, go: str) -> dict:
+    """A rank of phase 13 (module docstring): 13a's solves on the 2x2 and
+    4x1 grids, then (once the file ``go`` exists: the parent's references
+    are done) 13b's full-size solve and 13c's training."""
+    import gc
+    import time
+
+    import numpy as np
+    import torch
+
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.configs import get
+    from repro_torch.core.plan import SolveSpec
+    from repro_torch.kernels import ops
+    from repro_torch.launch.sharding import tree_leaves
+    from repro_torch.launch.train import train_on_mesh
+    from repro_torch.obs.clock import now
+
+    r = rank.rank
+    out = {"rank": r, "start_s": now() - t_spawn}
+    meshes = {name: rank.mesh(*DIST_MESHES[name][:2]) for name in ("2x2", "4x1")}
+    mesh = meshes["2x2"]
+    # -- 13a: the launch counts zeroed just before, read just after
+    t0 = now()
+    ops.reset_launch_counts()
+    out["a"] = proc_ft_cases({}, meshes, root, r)
+    out["a_launches"] = ops.launch_counts()
+    out["a_s"] = now() - t0
+    # -- 13b
+    t0 = now()
+    eng, b = proc_ft_full_engine(mesh)
+    out["b_build_s"] = now() - t0
+    t0 = now()
+    while not os.path.exists(go):
+        if now() - t0 > PROC_DEADLINE_S:
+            raise TimeoutError(f"no {go} after {PROC_DEADLINE_S} s")
+        time.sleep(0.05)
+    out["wait_s"] = now() - t0
+    plain = eng.plan(SolveSpec(method="pcg_tol", tol=MAIN_TOL,
+                               max_iters=SERVE_BUDGET))
+    t0 = now()
+    plain(b)
+    out["b_uninterrupted"] = {"s": now() - t0, "iters": int(plain.last_iters),
+                              "status": plain.last_status_names}
+    del plain
+    ops.reset_launch_counts()
+    t0 = now()
+    mgr, rep = proc_ft_full(eng, b, os.path.join(root, "13b"), timer=True)
+    out["b_s"] = now() - t0
+    out["b_launches"] = ops.launch_counts()
+    out["b"] = {"summary": ft_summary(rep), "digest": _digest(rep.x),
+                "x": rep.x if r == 0 else None,
+                "rel_residual": rep.rel_residual,
+                "stragglers": rep.straggler_chunks}
+    # a chunk by part, on this rank's host clock: the plan call (a chunk of
+    # FT_CHUNK steps from zero), the audit, a checkpoint save to disk
+    bnorm = float(np.linalg.norm(b))
+    eng.mesh.stats.reset()
+    t0 = now()
+    mgr._plan(b)
+    parts = {"plan_call_s": now() - t0,
+             "wire_bytes": sum(eng.mesh.stats.wire_bytes.values())}
+    t0 = now()
+    mgr._true_rel(rep.x, b, bnorm)
+    parts["audit_s"] = now() - t0
+    t0 = now()
+    mgr._save(rep.x, b, 10 ** 6)
+    mgr.mgr.wait()
+    parts["save_s"] = now() - t0
+    out["b_parts"] = parts
+    del eng, mgr, meshes
+    gc.collect()
+    torch.cuda.empty_cache()
+    # -- 13c: a failure at step 1, a fresh state resumed, an uninterrupted run
+    cfg = get(TRAIN_FULL).replace(n_layers=MESH_FULL_LAYERS)
+    kw = dict(steps=PROC_FT_TRAIN_STEPS, batch=MESH_FULL_SHAPE[0],
+              seq=MESH_FULL_SHAPE[1], optimizer="adafactor")
+    d = os.path.join(root, "13c")
+    t0 = now()
+    try:
+        train_on_mesh(mesh, cfg, ckpt_dir=d, save_every=1, inject_failure_at=1,
+                      **kw)
+        out["c_raised"] = None
+    except RuntimeError as e:
+        out["c_raised"] = str(e)
+    out["c_failed_run_s"] = now() - t0
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = now()
+    res = train_on_mesh(mesh, cfg, ckpt_dir=d, save_every=1, **kw)
+    out["c_resumed_s"] = now() - t0
+    out["c"] = {k: res[k] for k in ("losses", "resumed_from", "nan_rollbacks",
+                                    "checkpoint", "peak_bytes", "step_ms",
+                                    "held_bytes")}
+    # restored == saved, leaf by leaf for a few leaves of each kind (bf16
+    # params, the f32 optimizer state, the step): step 2 read back onto
+    # the placements against the state the resumed run saved
+    pls, state = res["placements"], res["state"]
+    pick, like, whole = {}, {}, state.step.element_size()
+    for f in ("params", "opt_state"):
+        leaves, held = tree_leaves(getattr(pls, f)), tree_leaves(getattr(state, f))
+        for path, pl in leaves.items():
+            t = held[path][0] if isinstance(held[path], list) else held[path]
+            whole += int(np.prod(pl.shape)) * t.element_size()
+        for path in sorted(leaves, key=str)[:: max(1, len(leaves) // 3)]:
+            pick[("." + f,) + tuple(path)] = leaves[path]
+            like[("." + f,) + tuple(path)] = held[path]
+    got, used = CheckpointManager(d, mesh=mesh).restore(like, pick)
+    out["c_restored"] = {"step": used, "leaves": len(pick),
+                         "equal": _held_equal(got, like)}
+    out["c_state_bytes"] = whole
+    if r == 0:
+        with open(os.path.join(d, f"step_{used:08d}", "manifest.json")) as f:
+            man = json.load(f)
+        out["c_ckpt_bytes"] = sum(
+            int(np.prod(v["shape"])) * (2 if v["dtype"] == "bfloat16"
+                                        else np.dtype(v["dtype"]).itemsize)
+            for v in man["leaves"].values())
+    # this process's peak RSS since it started (ru_maxrss would carry the
+    # parent's across the spawn's exec); None where the kernel's status
+    # file has no VmHWM line (not measured)
+    with open("/proc/self/status") as f:
+        hwm = [int(line.split()[1]) * 1024 for line in f
+               if line.startswith("VmHWM:")]
+    out["c_host_peak_bytes"] = hwm[0] if hwm else None
+    saved_state = state
+    del res, state, got, like
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = now()
+    ref = train_on_mesh(mesh, cfg, **kw)
+    out["c_reference_s"] = now() - t0
+    out["c_reference_losses"] = ref["losses"]
+    out["c_final_equal"] = _held_equal(ref["state"], saved_state)
+    del ref, saved_state
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = now()
+    out["c_smoke"] = proc_ft_smoke(mesh, root)
+    out["c_smoke_s"] = now() - t0
+    return out
+
+
+def procft_phase(failed: list) -> None:
+    """Phase 13: fault tolerance on a 2x2 process grid (module docstring).
+    Any check that fails adds "procft" to ``failed``."""
+    import numpy as np
+
+    from repro_torch.launch import procs
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.obs.clock import now
+
+    t_phase = now()
+    smi = smi_line()
+    bad = []
+    from repro_torch.kernels import build
+
+    build.library()             # here, before the ranks' thread needs it
+    with tempfile.TemporaryDirectory() as tmp, ThreadPoolExecutor(1) as ex:
+        go = os.path.join(tmp, "go")
+        ranks_dir = os.path.join(tmp, "ranks")
+        t0 = now()
+        run = ex.submit(procs.run, procft_rank, 4, (t0, ranks_dir, go),
+                        backend="gloo", device="cuda",
+                        timeout_s=PROC_DEADLINE_S)
+        # the one-process grid's references on the card, while the ranks
+        # start and run 13a
+        refs = {}
+        try:
+            meshes = {name: make_mesh(*DIST_MESHES[name][:2])
+                      for name in ("2x2", "4x1")}
+            t1 = now()
+            refs["a"] = proc_ft_cases({}, meshes, os.path.join(tmp, "one"))
+            refs["a_s"] = now() - t1
+            t1 = now()
+            eng, b = proc_ft_full_engine(meshes["2x2"])
+            _, rep = proc_ft_full(eng, b, os.path.join(tmp, "one", "13b"))
+            refs["b"] = {"summary": ft_summary(rep), "x": rep.x,
+                         "s": now() - t1}
+            del eng
+            refs["c_smoke"] = proc_ft_smoke(None, os.path.join(tmp, "one"))
+        except Exception:
+            traceback.print_exc()
+            failed.append("procft one-process references")
+        finally:
+            Path(go).touch()
+        try:
+            ranks = run.result()
+        except Exception:
+            traceback.print_exc()
+            failed.append("procft ranks")
+            ranks = []
+        run_s = now() - t0
+    if not ranks or len(refs) < 4:
+        say(f"procft phase: {now() - t_phase:.1f} s")
+        return
+    r0 = ranks[0]
+    try:
+        # -- 13a
+        names = [f"{c['mesh']} {c['method']} {(c['fault'] or {}).get('kind')}"
+                 for c, _ in PROC_FT] + ["2x2 ckpt gave up", "2x2 ckpt resumed"]
+        wants = ([w for _, w in PROC_FT] + [PROC_FT_CKPT[1], PROC_FT_CKPT[2][0]])
+        rows = []
+        for i, (name, want) in enumerate(zip(names, wants)):
+            got, one = r0["a"][i], refs["a"][i]
+            rel = float(np.abs(got["x"] - one["x"]).max() / np.abs(one["x"]).max())
+            same = all(r["a"][i]["digest"] == got["digest"]
+                       and r["a"][i]["summary"] == got["summary"] for r in ranks)
+            ok = (got["summary"] == one["summary"] == want and rel <= PROC_RTOL
+                  and same)
+            if i == len(names) - 1:
+                ok = ok and got["resumed_from"] == one["resumed_from"] \
+                    == PROC_FT_CKPT[2][1]
+            if not ok:
+                bad.append(f"13a {name}")
+            rows.append(f"{name}: {got['summary']} (one-process grid "
+                        f"{'same' if got['summary'] == one['summary'] else one['summary']}, "
+                        f"JAX {'same' if got['summary'] == want else want}), x "
+                        f"{rel:.2e}, ranks bitwise {same}")
+        launches = [{k: r["a_launches"].get(k, 0) for k in ("ell_spmv", "cg_update")}
+                    for r in ranks]
+        if not all(v > 0 for d in launches for v in d.values()):
+            bad.append("13a launches")
+        say("procft 13a (4 gloo ranks on the card; reports as the one-process grid's "
+            "on the card and the JAX package's): " + "; ".join(rows))
+        say(f"procft 13a launches a rank: {json.dumps([r['a_launches'] for r in ranks])}")
+        # -- 13b
+        got, one = r0["b"], refs["b"]
+        rel = float(np.abs(got["x"] - one["x"]).max() / np.abs(one["x"]).max())
+        same = all(r["b"]["digest"] == got["digest"] and r["b"]["summary"] == got["summary"]
+                   and r["b"]["stragglers"] == got["stragglers"] for r in ranks)
+        if not (got["summary"] == one["summary"] and got["summary"][0] == "converged"
+                and same):
+            bad.append("13b")
+        say(f"procft 13b laplacian_3d({SERVE_GRID}) 2x2 halo, halo_perturb at {FT_AT} "
+            f"(chunk {FT_CHUNK}, checkpointed), 4 gloo ranks on {smi}: "
+            + json.dumps({
+                "report": got["summary"], "one_process_report": one["summary"],
+                "x_rel": rel, "ranks_bitwise": same,
+                "stragglers": got["stragglers"], "wall_s": r0["b_s"],
+                "uninterrupted": r0["b_uninterrupted"],
+                "one_process_ft_s": one["s"], "chunk_parts_rank0": r0["b_parts"],
+                "wire_bytes_a_chunk": [r["b_parts"]["wire_bytes"] for r in ranks],
+                "launches": [r["b_launches"] for r in ranks],
+                "build_s": [r["b_build_s"] for r in ranks],
+                "wait_s": [r["wait_s"] for r in ranks]}))
+        # -- 13c
+        c = r0["c"]
+        ckpt = c["checkpoint"]
+        ok = (all(r["c_raised"] == "injected failure at step 1" for r in ranks)
+              and c["resumed_from"] == 1 and c["nan_rollbacks"] == 0
+              and c["losses"] == r0["c_reference_losses"][1:]
+              and all(r["c"]["losses"] == c["losses"] for r in ranks)
+              and all(r["c_final_equal"] and r["c_restored"]["equal"] for r in ranks)
+              and r0["c_ckpt_bytes"] == r0["c_state_bytes"]
+              and all(r["c"]["checkpoint"]["host_bytes"] == 0 for r in ranks[1:])
+              and ckpt["host_bytes"] == r0["c_state_bytes"])
+        if not ok:
+            bad.append("13c")
+        say(f"procft 13c {TRAIN_FULL} ({MESH_FULL_LAYERS} of 40 layers, bf16, Adafactor, "
+            f"{MESH_FULL_SHAPE[0]} x {MESH_FULL_SHAPE[1]}, 2x2) on {smi}: " + json.dumps({
+                "raised": [r["c_raised"] for r in ranks],
+                "resumed_from": c["resumed_from"], "resumed_losses": c["losses"],
+                "uninterrupted_losses": r0["c_reference_losses"],
+                "resumed_final_state_bitwise": [r["c_final_equal"] for r in ranks],
+                "restored_leaves_bitwise": [r["c_restored"] for r in ranks],
+                "checkpoint_bytes": r0["c_ckpt_bytes"],
+                "state_bytes": r0["c_state_bytes"],
+                "save_ms": 1e3 * (ckpt["gather_s"] + ckpt["write_s"]),
+                "save_gather_ms": 1e3 * ckpt["gather_s"],
+                "save_write_ms": 1e3 * ckpt["write_s"],
+                "restore_ms": [1e3 * r["c"]["checkpoint"]["restore_s"] for r in ranks],
+                "rank0_host_bytes": ckpt["host_bytes"],
+                "host_peak_bytes": [r["c_host_peak_bytes"] for r in ranks],
+                "card_peak_bytes": [r["c"]["peak_bytes"] for r in ranks],
+                "held_bytes": [r["c"]["held_bytes"] for r in ranks],
+                "step_ms": c["step_ms"],
+                "failed_run_s": r0["c_failed_run_s"], "resumed_run_s": r0["c_resumed_s"],
+                "reference_s": r0["c_reference_s"]}))
+        s, one = r0["c_smoke"], refs["c_smoke"]
+        e = float(np.max(np.abs(np.subtract(s["losses"], one["losses"]))
+                         / np.abs(one["losses"])))
+        if not (s["counts"] == one["counts"] and s["counts"][3] == 1 and e <= MESH_RTOL
+                and all(r["c_smoke"] == s for r in ranks)):
+            bad.append("13c smoke")
+        say(f"procft 13c f32 smoke {TRAIN_FULL}, AdamW, NaN at {PROC_FT_NAN_AT}, "
+            f"save_every {PROC_FT_SAVE_EVERY}: counts {s['counts']} (one process "
+            f"{one['counts']}), losses {e:.2e} of the one-process manager's (tol {MESH_RTOL})")
+        say(f"procft 13 times: ranks {run_s:.1f} s (slowest start "
+            f"{max(r['start_s'] for r in ranks):.1f}, 13a {r0['a_s']:.1f}, 13b build "
+            f"{r0['b_build_s']:.1f} wait {r0['wait_s']:.1f} solve {r0['b_s']:.1f}, 13c "
+            f"{r0['c_failed_run_s']:.1f} + {r0['c_resumed_s']:.1f} + "
+            f"{r0['c_reference_s']:.1f} + smoke {r0['c_smoke_s']:.1f}); "
+            f"one-process references 13a {refs['a_s']:.1f} s, 13b {refs['b']['s']:.1f} s")
+    except Exception:
+        traceback.print_exc()
+        bad.append("checks raised")
+    if bad:
+        say(f"procft 13 FAILED checks: {bad}")
+        failed.append("procft")
+    say(f"procft phase: {now() - t_phase:.1f} s")
+
+
 def _np_leaves(tree) -> list:
     """The numpy leaves of a nested dict/list tree, in key order."""
     if isinstance(tree, dict):
@@ -4460,6 +4997,11 @@ def main() -> int:
 
     # -- 12. the LM train state on a process grid --------------------------------
     meshtrain_phase(failed)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- 13. fault tolerance on a process grid ------------------------------------
+    procft_phase(failed)
 
     if failed:
         say("FAILED phases: " + ", ".join(failed))

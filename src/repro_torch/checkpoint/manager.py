@@ -31,6 +31,20 @@ Guarantees:
     arrays, then writes on a background thread, so a solve overlaps
     checkpoint I/O with compute.
 
+A state placed on a process grid (``launch.sharding.Placement`` s on a
+``launch.mesh.ProcessMesh``, passed as ``placements=``, a tree matching
+the state's) is saved as its whole leaves: each placed leaf is gathered
+over the mesh, on every rank, one leaf at a time and in the flattening
+order (the gathers are collectives; a layer group's leaf a layer at a
+time), and rank 0 alone writes, so the files are those of the
+one-process save of the same global state.  No rank holds more than one
+whole leaf (one layer of a stacked leaf) on its device at a time; rank 0
+holds the host copies of every leaf until they are written (the whole
+state's bytes), the other ranks none.  :class:`CheckpointManager` with
+``mesh=`` runs on every rank: rank 0 writes, ``latest_step`` is rank 0's
+(broadcast), and a restore waits for rank 0's writer and meets the other
+ranks at a barrier before any rank reads.
+
 Leaves restore as numpy arrays, or as tensors on the device of the
 matching leaf of ``tree_like`` where that leaf is a tensor.
 ``restore(..., sharding_tree=)`` places leaves directly: a matching tree
@@ -51,11 +65,13 @@ import os
 import re
 import shutil
 import threading
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
 
 from ..models.model import LayerStack, Model, param_leaves, replace_params
+from ..obs.clock import now
 
 __all__ = ["save", "restore", "latest_step", "CheckpointManager",
            "CorruptCheckpointError"]
@@ -100,6 +116,9 @@ def _unflatten(tree, flat: dict, path=()):
     ``Model`` becomes a new one over the leaves' tensors)."""
     if tree is None:
         return None
+    if isinstance(tree, dict) and tree and all(isinstance(k, tuple) for k in tree):
+        return {k: flat[_SEP.join(path + tuple(str(q) for q in k))]
+                for k in tree}
     if isinstance(tree, dict):
         return {k: _unflatten(v, flat, path + (str(k),))
                 for k, v in tree.items()}
@@ -133,13 +152,46 @@ def _host(leaf) -> np.ndarray:
     return np.array(leaf, copy=True)
 
 
+_SUM_ROWS = 128       # buffer-size chunks a block of the content sum
+_SUM_THREADS = 4
+
+
+def _f64(arr: np.ndarray) -> np.ndarray:
+    """``arr`` widened to float64 (bfloat16 through its float32 bits)."""
+    if arr.dtype == _BF16:
+        f32 = (arr.view(np.uint16).astype(np.uint32) << 16).view(np.float32)
+        return f32.astype(np.float64)
+    return arr.astype(np.float64)
+
+
+def _f64_sum(arr: np.ndarray) -> float:
+    """``float(np.sum(_f64(arr)))`` bit for bit, without the whole float64
+    copy.  numpy sums a contiguous array as a running sum, in order, of the
+    pairwise sums of its ``np.getbufsize()``-element chunks; here the
+    chunks' pairwise sums are taken a block of _SUM_ROWS chunks at a time
+    (each block widened alone) on _SUM_THREADS threads, and added in
+    order by ``np.cumsum``."""
+    flat = np.ascontiguousarray(arr).reshape(-1)
+    n, w = flat.size, np.getbufsize()
+    k = n // w
+    if k <= _SUM_ROWS:
+        return float(np.sum(_f64(flat))) if n else 0.0
+
+    def block(i):
+        return np.add.reduce(_f64(flat[i * w:min(i + _SUM_ROWS, k) * w])
+                             .reshape(-1, w), axis=1)
+
+    with ThreadPoolExecutor(_SUM_THREADS) as ex:
+        sums = list(ex.map(block, range(0, k, _SUM_ROWS)))
+    if n > k * w:
+        sums.append(np.array([np.sum(_f64(flat[k * w:]))]))
+    return float(np.cumsum(np.concatenate(sums))[-1])
+
+
 def _meta(arr: np.ndarray) -> tuple:
     """(dtype name, f64 content sum) of a host leaf, as the manifest
     records them."""
-    if arr.dtype == _BF16:
-        f32 = (arr.view(np.uint16).astype(np.uint32) << 16).view(np.float32)
-        return "bfloat16", float(np.sum(f32.astype(np.float64))) if arr.size else 0.0
-    return str(arr.dtype), float(np.sum(arr.astype(np.float64))) if arr.size else 0.0
+    return ("bfloat16" if arr.dtype == _BF16 else str(arr.dtype)), _f64_sum(arr)
 
 
 def _to_tensor(arr: np.ndarray, like) -> torch.Tensor:
@@ -150,9 +202,68 @@ def _to_tensor(arr: np.ndarray, like) -> torch.Tensor:
     return t.to(like.device)
 
 
-def save(tree, directory: str, step: int, keep: int | None = 3) -> str:
-    return _save_flat({k: _host(v) for k, v in _flatten(tree).items()},
-                      directory, step, keep)
+def grid_of(placements):
+    """The ``launch.mesh.ProcessMesh`` of a tree of placements (None when
+    none of them is on one: no placements, or one process holds every
+    tile)."""
+    if placements is None:
+        return None
+    for pl in _flatten(placements).values():
+        if getattr(pl, "per_process", False):
+            return pl.mesh
+    return None
+
+
+def _writes(mesh) -> bool:
+    """Does this process write the checkpoints: rank 0 of a process grid,
+    or the one process."""
+    return not getattr(mesh, "per_process", False) or mesh.rank == 0
+
+
+def _whole_host(leaf, pl, keep: bool):
+    """The host copy of ``leaf`` whole (None where this process keeps
+    none): gathered over the mesh first where ``pl`` places it on a
+    process grid -- a ``LayerStack`` a layer at a time (the messages the
+    train step's per-layer gathers send), stacked on the host."""
+    if not getattr(pl, "per_process", False):
+        return _host(leaf) if keep else None
+    if isinstance(leaf, LayerStack):
+        row, layers = pl.row(), []
+        for t in leaf:
+            whole = row.gather(t.detach(), "checkpoint")
+            if keep:
+                layers.append(_host(whole))
+            del whole
+        return np.stack(layers) if keep else None
+    whole = pl.gather(leaf.detach(), "checkpoint")
+    return _host(whole) if keep else None
+
+
+def _host_tree(tree, placements=None, keep: bool = True) -> dict:
+    """flat key -> the host copy of each whole leaf of ``tree`` (module
+    docstring: the gathers run on every rank, one leaf at a time; only a
+    ``keep`` process keeps the copies)."""
+    placed = {} if placements is None else _flatten(placements)
+    out = {}
+    for key, leaf in _flatten(tree).items():
+        got = _whole_host(leaf, placed.get(key), keep)
+        if keep:
+            out[key] = got
+    return out
+
+
+def save(tree, directory: str, step: int, keep: int | None = 3,
+         placements=None) -> str:
+    """Write ``tree`` as step ``step``; with ``placements`` on a process
+    grid every rank calls it, rank 0 writes, and it returns on every rank
+    once the step is on disk (module docstring)."""
+    mesh = grid_of(placements)
+    host = _host_tree(tree, placements, _writes(mesh))
+    final = (_save_flat(host, directory, step, keep) if _writes(mesh)
+             else os.path.join(directory, f"step_{step:08d}"))
+    if mesh is not None:
+        mesh.barrier()
+    return final
 
 
 def _save_flat(flat: dict, directory: str, step: int, keep: int | None) -> str:
@@ -314,29 +425,68 @@ def restore(tree_like, directory: str, step: int | None = None,
 
 
 class CheckpointManager:
-    """Async wrapper with a single in-flight writer thread."""
+    """Async wrapper with a single in-flight writer thread.
 
-    def __init__(self, directory: str, keep: int = 3):
+    ``mesh`` (a ``launch.mesh.ProcessMesh``): the manager of one run on
+    every rank of the grid (module docstring) -- every rank calls each
+    method in the same order.  None, or a ``TileMesh``, is the one
+    process's manager.  ``stats`` holds what the last save cost
+    (``gather_s``, the snapshot to host arrays on the main thread with
+    its gathers; ``host_bytes``, the host copies this process held;
+    ``write_s`` once written) and the last restore (``restore_s``, the
+    barrier's wait included)."""
+
+    def __init__(self, directory: str, keep: int = 3, mesh=None):
         self.dir = directory
         self.keep = keep
+        self.mesh = mesh
+        self.stats: dict = {}
         self._thread: threading.Thread | None = None
 
-    def save_async(self, tree, step: int):
-        """Snapshot ``tree`` to host arrays now, write it on a thread."""
+    def save_async(self, tree, step: int, placements=None):
+        """Snapshot ``tree`` to host arrays now (gathering the leaves that
+        ``placements`` places on the grid), write it on a thread."""
         self.wait()
-        host = {k: _host(v) for k, v in _flatten(tree).items()}
-        self._thread = threading.Thread(
-            target=_save_flat, args=(host, self.dir, step, self.keep),
-            daemon=True)
-        self._thread.start()
+        if (grid_of(placements) is not None
+                and not getattr(self.mesh, "per_process", False)):
+            raise ValueError("placements on a process grid need the "
+                             "manager of that grid (CheckpointManager(mesh=))")
+        writes = _writes(self.mesh)
+        t0 = now()
+        host = _host_tree(tree, placements, writes)
+        self.stats.pop("write_s", None)
+        self.stats.update(step=step, gather_s=now() - t0,
+                          host_bytes=sum(a.nbytes for a in host.values()))
+        if writes:
+            self._thread = threading.Thread(
+                target=self._write, args=(host, step), daemon=True)
+            self._thread.start()
+
+    def _write(self, host: dict, step: int) -> None:
+        t0 = now()
+        _save_flat(host, self.dir, step, self.keep)
+        self.stats["write_s"] = now() - t0
 
     def wait(self):
+        """Drain this process's writer (rank 0's on a grid; a local wait,
+        not a collective)."""
         if self._thread is not None:
             self._thread.join()
             self._thread = None
 
     def restore(self, tree_like, sharding_tree=None, step=None):
-        return restore(tree_like, self.dir, step, sharding_tree)
+        """:func:`restore` from the manager's directory; on a grid after
+        rank 0's writer is drained and every rank has met at a barrier."""
+        t0 = now()
+        self.wait()
+        if self.mesh is not None:
+            self.mesh.barrier()
+        got = restore(tree_like, self.dir, step, sharding_tree)
+        self.stats["restore_s"] = now() - t0
+        return got
 
     def latest_step(self):
-        return latest_step(self.dir)
+        """The newest valid step (None when there is none): on a grid rank
+        0's answer, on every rank."""
+        got = latest_step(self.dir) if _writes(self.mesh) else None
+        return got if self.mesh is None else self.mesh.broadcast(got)

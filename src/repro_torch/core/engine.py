@@ -635,16 +635,38 @@ class AzulEngine:
         if self.mode == "local":
             raise ValueError("halo faults need a distributed engine "
                              "(single-device engines have no exchange)")
-        vals = self.vals_template()
+        return self._halo_mask(self.mesh.local)
+
+    def grid_vals_template(self) -> np.ndarray:
+        """:meth:`vals_template` over every tile of the grid, (tiles,
+        rows_p, w), whichever tiles this process holds (on a process grid
+        a rank holds one; the host build that every rank runs keeps them
+        all): the layout ``ft.FaultInjector`` draws its entries over, so a
+        rank corrupts its share of the one-process grid's draws.  A local
+        engine's and a ``TileMesh`` grid's is :meth:`vals_template`."""
+        if self.mode == "local" or not self.mesh.per_process:
+            return self.vals_template()
+        return np.array(self._host_blocks[1], copy=True)
+
+    def grid_halo_entry_mask(self) -> np.ndarray:
+        """:meth:`halo_entry_mask` over every tile of the grid, the mask
+        of :meth:`grid_vals_template`."""
+        if self.mode == "local":
+            return self.halo_entry_mask()
+        return self._halo_mask(slice(None))
+
+    def _halo_mask(self, tiles: slice) -> np.ndarray:
+        """:meth:`halo_entry_mask` of the grid's tiles ``tiles``, from the
+        host blocks."""
+        cols, vals = (a[tiles] for a in self._host_blocks)
         if self.mode == "1d":
-            cols = self.cols_template()
-            tiles = np.arange(self.tiles)[self.mesh.local][:, None, None]
-            return ((cols // self.u) != tiles) & (vals != 0)
+            ids = np.arange(self.tiles)[tiles][:, None, None]
+            return ((cols // self.u) != ids) & (vals != 0)
         imask = (self.comm_plan.interior_mask
                  if self.comm_plan is not None else None)
         if imask is None:
             return vals != 0
-        return (~imask[self.mesh.local][:, :, None]) & (vals != 0)
+        return (~imask[tiles][:, :, None]) & (vals != 0)
 
     def _host_vals(self, vals) -> np.ndarray:
         """A caller's value buffer as a contiguous host array of the
@@ -841,11 +863,13 @@ class AzulEngine:
     def _set_blocks(self, cols: np.ndarray, vals: np.ndarray) -> None:
         """Pin the stacked (tiles, rows_p, w) blocks of this process's
         tiles (all of them, or a rank's own) on the device; the host
-        columns stay for the layouts' offset kernel columns."""
+        blocks of every tile stay (the layouts' offset kernel columns, the
+        halo masks, :meth:`grid_vals_template`)."""
         loc = self.mesh.local
+        self._host_blocks = (np.asarray(cols), np.asarray(vals, self.dtype))
         self._cols_host = np.ascontiguousarray(cols[loc], np.int32)
         self.cols = torch.tensor(self._cols_host, device=self.device)
-        self.vals = torch.tensor(np.asarray(vals[loc], self.dtype),
+        self.vals = torch.tensor(self._host_blocks[1][loc],
                                  device=self.device)
 
     def _setup_diag_and_precond(self, seg_ranges, pad2g) -> None:

@@ -145,6 +145,13 @@ class FaultInjector:
     realizes ``delay`` faults as an actual sleep the StepTimer can see.
     ``restart()`` tells the injector a recovery restart happened --
     transient faults stop firing after that.
+
+    On a process grid (an engine on a ``launch.mesh.ProcessMesh``) every
+    rank builds its injector with the same spec: the entries are drawn
+    over the whole grid's stacked layout (``engine.grid_vals_template``),
+    so the ranks' corrupted tiles, stacked in rank order, are the
+    one-process grid's corrupted operand, and each rank's ``vals_for``
+    is its own tile of it (``engine.vals_template``'s layout).
     """
 
     def __init__(self, engine, spec: FaultSpec):
@@ -155,9 +162,13 @@ class FaultInjector:
         self._clean = engine.vals_template()
         self._corrupt = None
         if spec.kind != "delay":
-            mask = (engine.halo_entry_mask()
+            # the draws over every tile of the grid, as the one-process
+            # grid makes them; a rank of a process grid keeps its tile's
+            mask = (engine.grid_halo_entry_mask()
                     if spec.kind in _HALO_KINDS else None)
-            self._corrupt = corrupt_vals(self._clean, spec, mask)
+            bad = corrupt_vals(engine.grid_vals_template(), spec, mask)
+            tiles = slice(None) if engine.mesh is None else engine.mesh.local
+            self._corrupt = np.ascontiguousarray(bad[tiles])
 
     def fires_in(self, start: int, stop: int) -> bool:
         """Does the fault hit the chunk covering iterations [start, stop)?"""

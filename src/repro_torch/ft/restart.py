@@ -9,6 +9,15 @@ donating step (``build_train_step(..., donate=True)``) a NaN loss has
 already been written into the state, so a rollback with no checkpoint to
 restore raises instead of carrying on.
 
+On a process grid (a state placed by ``launch.sharding.named`` on a
+``launch.mesh.ProcessMesh``, ``run(..., placements=)``) the loop runs on
+every rank: the checkpoints hold whole leaves (each save gathers the
+state leaf by leaf on every rank and rank 0 writes; a restore puts each
+rank's slices back onto the placements, as ``ft.remesh_restore`` does),
+``latest_step`` is rank 0's, broadcast, and the NaN guard reads the
+loss, which the placed step sums in rank order -- so every rank takes
+the same decisions, and they are the one-process loop's.
+
 ``SolveRestartManager`` drives a tolerance-mode plan in fixed-size chunks
 (restarted CG: each chunk warm-starts from the current iterate -- a few
 more iterations, full recoverability), verifies every chunk against the
@@ -31,6 +40,15 @@ Every chunk is one call of ONE chunk-sized injectable plan,
 and replayed for clean and corrupted chunks alike (the plan copies ``v``
 into its own value buffer).  As in the JAX package, the iterate comes back
 to the host every chunk and the audit runs ``engine.spmv`` on it.
+
+On a process grid (an engine on a ``ProcessMesh``) every rank runs the
+same chunk loop on its eager injectable plan: ``plan`` and
+``engine.spmv`` take and return the global vectors, the same bits on
+every rank, so every rank reaches the same verdict.  A chunk's time for
+the ``StepTimer`` is the slowest rank's (a max over the ranks), as the
+JAX package's one controller times one wall.  Only rank 0 writes the
+checkpoints; before any rank reads one, rank 0's writer is drained and
+the ranks meet at a barrier, and whether to resume is rank 0's answer.
 """
 
 from __future__ import annotations
@@ -39,7 +57,7 @@ from dataclasses import dataclass
 
 import numpy as np
 
-from ..checkpoint.manager import CheckpointManager
+from ..checkpoint.manager import CheckpointManager, grid_of
 from ..obs import REGISTRY as _OBS
 from ..obs import clock as _clock
 from ..obs import span as _span
@@ -78,17 +96,25 @@ class RestartManager:
         self.skip_bad_batch = skip_bad_batch
 
     def run(self, state, train_step, pipeline, total_steps: int,
-            inject_failure_at: int | None = None) -> TrainLoopResult:
+            inject_failure_at: int | None = None,
+            placements=None) -> TrainLoopResult:
         """Run (or resume) training to ``total_steps``.
 
         ``inject_failure_at``: test hook -- raises RuntimeError at the given
         step to exercise the restart path (tests call run() twice).  Each
         step's loss is read back to the host (the NaN guard needs it), so
         ``step_times`` are the steps' times on the device.
+        ``placements``: the state's placements (``launch.sharding.named``'s
+        tree, as ``launch.train.placed_state`` returns it) where ``state``
+        is placed on a process grid; every rank of the grid calls ``run``
+        (module docstring).
         """
+        grid = grid_of(placements)
+        if grid is not None:
+            self.mgr.mesh = grid
         resumed = self.mgr.latest_step()
         if resumed is not None:
-            state, _ = self.mgr.restore(state)
+            state, _ = self.mgr.restore(state, placements)
             start = int(state.step)
         else:
             start = 0
@@ -112,7 +138,7 @@ class RestartManager:
                 self.mgr.wait()     # an in-flight save counts as the last
                 prev = self.mgr.latest_step()
                 if prev is not None:
-                    state, _ = self.mgr.restore(state)
+                    state, _ = self.mgr.restore(state, placements)
                     step = int(state.step)
                 elif getattr(train_step, "donate", False):
                     raise RuntimeError(
@@ -127,7 +153,7 @@ class RestartManager:
             losses.append(loss)
             step += 1
             if step % self.save_every == 0 or step == total_steps:
-                self.mgr.save_async(state, step)
+                self.mgr.save_async(state, step, placements)
         self.mgr.wait()
         return TrainLoopResult(state, losses, resumed, rollbacks, times)
 
@@ -202,7 +228,7 @@ class SolveRestartManager:
         self.budget = int(spec.max_iters if spec.max_iters is not None
                           else spec.iters)
         self.timer = timer
-        self.mgr = (CheckpointManager(checkpoint_dir)
+        self.mgr = (CheckpointManager(checkpoint_dir, mesh=engine.mesh)
                     if checkpoint_dir else None)
         self.save_every = int(save_every)
         # one chunk-sized injectable plan, built once, reused for every
@@ -213,6 +239,16 @@ class SolveRestartManager:
             max_iters=self.chunk))
 
     # -- internals ----------------------------------------------------------
+
+    def _slowest(self, dt: float) -> float:
+        """A chunk's wall time, the slowest rank's on a process grid."""
+        mesh = self.engine.mesh
+        if mesh is None or not mesh.per_process:
+            return dt
+        import torch
+
+        mine = torch.full((1, 1), dt, dtype=torch.float64, device=mesh.device)
+        return float(mesh.gather(mine, mesh.axis_names, "ft_chunk_s").max())
 
     def _true_rel(self, x: np.ndarray, b: np.ndarray, bnorm: float) -> float:
         return float(np.linalg.norm(b - self.engine.spmv(x)) / bnorm)
@@ -288,7 +324,7 @@ class SolveRestartManager:
             dt = _clock.now() - t0
             chunks += 1
             if self.timer is not None:
-                rep = self.timer.observe(chunks, dt)
+                rep = self.timer.observe(chunks, self._slowest(dt))
                 if rep.is_straggler:
                     stragglers.append(chunks)
             sname = self._plan.last_status_names

@@ -3,8 +3,9 @@
 Port of ``repro.launch.mesh``.  The JAX package places one tile on each
 device of a ``jax.sharding.Mesh``.  The port has two kinds of mesh, with
 one surface (``shape``, ``axis_names``, ``size``, ``device``, ``axes()``,
-``group()``, ``index()``, and ``local`` / ``local_size``, the tiles this
-process holds):
+``group()``, ``index()``, ``local`` / ``local_size``, the tiles this
+process holds, and ``barrier()`` / ``broadcast()``, the host control of
+the ranks, which do nothing where one process holds every tile):
 
 * a :class:`TileMesh` puts every tile of the grid on one device, in one
   process.  Tile ``t`` is the row-major flat index over the axes (the
@@ -143,6 +144,13 @@ class TileMesh(_Grid):
         self.device = resolve_device(device)
         self.local = slice(0, self.size)
         self.local_size = self.size
+
+    def barrier(self) -> None:
+        """One process holds every tile: nothing to wait for."""
+
+    def broadcast(self, obj, src: int = 0):
+        """One process holds every tile: ``obj`` itself."""
+        return obj
 
     def __repr__(self) -> str:
         return (f"TileMesh({self.devices_shape}, {self.axis_names}, "
@@ -358,6 +366,28 @@ class ProcessMesh(_Grid):
             return xs.clone()
         self.stats.wire_bytes[what] += buf.numel() * buf.element_size()
         return self._dev(buf)
+
+    # -- host control ---------------------------------------------------------
+
+    def barrier(self) -> None:
+        """Wait until every rank of the mesh's world group reaches here."""
+        import torch.distributed as dist
+
+        if self.backend == "nccl":
+            dist.barrier(device_ids=[self.device.index])
+        else:
+            dist.barrier()
+
+    def broadcast(self, obj, src: int = 0):
+        """Rank ``src``'s ``obj`` (a small picklable host object) on every
+        rank; the other ranks' ``obj`` is ignored."""
+        import torch.distributed as dist
+
+        box = [obj if self.rank == src else None]
+        dist.broadcast_object_list(box, src=src,
+                                   device=self.device if self.backend == "nccl"
+                                   else None)
+        return box[0]
 
     def __repr__(self) -> str:
         return (f"ProcessMesh({self.devices_shape}, {self.axis_names}, "

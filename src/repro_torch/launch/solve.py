@@ -49,7 +49,16 @@ Fault tolerance, as in ``repro.launch.solve``:
 fault sleeps 0.5 s) and prints its report; ``--checkpoint-dir`` persists
 the solver state every chunk, and a rerun resumes from it.  The exit code
 is 1 unless the report says ``converged``.  The ``halo_*`` kinds need a
-tile grid (``--mesh-shape``) and raise without one.
+tile grid (``--mesh-shape``) and raise without one.  With ``--processes``
+every rank runs the restart manager (``ft.SolveRestartManager`` on its
+``ProcessMesh``: the faults drawn over the whole grid, each rank
+corrupting its own tile; only rank 0 writes ``--checkpoint-dir``); rank
+0 prints the one-process grid's report with ``"processes": R*C`` added,
+and every rank exits 1 unless it says ``converged``:
+
+    PYTHONPATH=src python -m repro_torch.launch.solve --matrix lap2d_32 \
+        --method pcg_tol --mesh-shape 2x2 --processes --inject halo_drop \
+        --inject-at 15 --ft-chunk 20 --checkpoint-dir ckpt
 """
 
 from __future__ import annotations
@@ -141,9 +150,6 @@ def _processes(args, argv) -> int:
     prints the verdict."""
     if not args.mesh_shape:
         raise SystemExit("--processes needs --mesh-shape")
-    if args.inject:
-        raise SystemExit("--inject runs on one process (fault tolerance on "
-                         "a process grid is not ported yet)")
     shape = tuple(int(x) for x in args.mesh_shape.split("x"))
     size = int(np.prod(shape))
     if "RANK" in os.environ and "WORLD_SIZE" in os.environ:
@@ -238,6 +244,8 @@ def verdict(args, mesh=None) -> tuple:
             "rel_residual": rep.rel_residual, "rel_error": rel,
             "device": str(eng.device),
         }
+        if args.processes:
+            out["processes"] = mesh.size
         return out, 0 if rep.status == "converged" else 1
 
     plan = eng.plan(spec)

@@ -33,11 +33,18 @@ closing JSON, with ``"processes"`` and ``"split_kinds"`` (the step's
 table of what splits over ``model``, ``models.shard.split_kinds``).
 Both paths run one loop, :func:`train_loop`.
 ``--dist-backend`` is ``gloo`` (ranks may share a card) or ``nccl`` (a
-card a rank; written, not yet run).  ``--ckpt-dir`` with ``--mesh`` exits
-2: the restart manager on a process grid is ROADMAP Queue 1 item 13.
+card a rank; written, not yet run).  ``--ckpt-dir`` with ``--mesh`` runs
+the placed state under ``ft.RestartManager`` on every rank
+(``train_on_mesh(ckpt_dir=)``): every ``--save-every`` steps the state is
+gathered leaf by leaf and rank 0 writes the whole leaves (the files of a
+one-process save of the same state), a rerun resumes from the newest
+valid step with each rank's slices restored onto its placements, and the
+NaN guard rolls back; rank 0's closing JSON adds ``resumed_from`` and
+``nan_rollbacks``.
 
     torchrun --nproc_per_node 256 -m repro_torch.launch.train \
-        --arch granite-3-8b --mesh single --dist-backend nccl
+        --arch granite-3-8b --mesh single --dist-backend nccl \
+        --ckpt-dir ckpt --save-every 50
 """
 
 from __future__ import annotations
@@ -125,7 +132,9 @@ def placed_state(mesh, cfg, opt, compress: bool = False):
 def train_on_mesh(mesh, cfg, *, steps: int, batch: int, seq: int,
                   lr: float = 3e-3, grad_accum: int = 1,
                   compress_grads: bool = False, optimizer: str = "adamw",
-                  verbose: bool = False) -> dict:
+                  verbose: bool = False, ckpt_dir: str = "",
+                  save_every: int = 50,
+                  inject_failure_at: int | None = None) -> dict:
     """Train ``cfg`` on every rank of ``mesh`` (a ``ProcessMesh``): the
     state of :func:`placed_state` (the one-process launcher's numbers, cut
     to the rank's slices), ``steps`` donated steps with ``grad_shardings``
@@ -138,7 +147,16 @@ def train_on_mesh(mesh, cfg, *, steps: int, batch: int, seq: int,
     ``model``), on a card ``fwd_bwd_ms`` (each step's forward and backward
     passes by CUDA events), ``build_peak_bytes`` (``max_memory_allocated`` while
     the state was built, above what was allocated before) and ``peak_bytes`` (over the steps, from the
-    placed state on), the final ``state`` and its ``placements``."""
+    placed state on), the final ``state`` and its ``placements``.
+
+    With ``ckpt_dir`` the steps run under ``ft.RestartManager(ckpt_dir,
+    save_every)`` on the placed state (``run(..., placements=)``, every
+    rank: resume from the newest valid checkpoint, saves of the whole
+    leaves by rank 0, the NaN guard; ``inject_failure_at`` is its test
+    hook) in place of :func:`train_loop`, and the result adds
+    ``resumed_from``, ``nan_rollbacks`` and ``checkpoint`` (the manager's
+    ``stats`` of its last save and restore); ``losses`` are then the
+    steps this call took, from the resumed step on."""
     from ..data import TokenPipeline
     from ..train import build_train_step
     from . import sharding as SH
@@ -174,10 +192,29 @@ def train_on_mesh(mesh, cfg, *, steps: int, batch: int, seq: int,
         out["comm_s"].append(mesh.stats.comm_s)
         mesh.stats.reset()
 
+    pipe = TokenPipeline(cfg.vocab_size, batch, seq, seed=0)
     mesh.stats.reset()
-    state, out["losses"], times = train_loop(
-        state, step_fn, TokenPipeline(cfg.vocab_size, batch, seq, seed=0), steps,
-        verbose=verbose, on_step=on_step)
+    if ckpt_dir:
+        from ..ft import RestartManager
+
+        def observed(st, b):
+            # a step's wire bytes are its own, not a save's between steps
+            mesh.stats.reset()
+            new, metrics = step_fn(st, b)
+            on_step(None, metrics)
+            return new, metrics
+
+        observed.donate = step_fn.donate
+        rm = RestartManager(ckpt_dir, save_every=save_every)
+        res = rm.run(state, observed, pipe, steps,
+                     inject_failure_at=inject_failure_at, placements=pls)
+        state, out["losses"], times = res.state, res.losses, res.step_times
+        out["resumed_from"], out["nan_rollbacks"] = (res.resumed_from,
+                                                    res.nan_rollbacks)
+        out["checkpoint"] = dict(rm.mgr.stats)
+    else:
+        state, out["losses"], times = train_loop(
+            state, step_fn, pipe, steps, verbose=verbose, on_step=on_step)
     out["step_ms"] = [1e3 * t for t in times]
     out["peak_bytes"] = torch.cuda.max_memory_allocated(dev) if cuda else None
     out["state"], out["placements"] = state, pls
@@ -207,15 +244,13 @@ def _mesh_main(ap, args, cfg) -> dict | None:
         ap.error(f"--mesh {args.mesh}: the production mesh {shape} over {axes} "
                  f"needs {need} ranks, a rank a tile (torchrun --nproc_per_node "
                  f"{need}, or {need} ranks over several hosts); {have}")
-    if args.ckpt_dir:
-        ap.error("--ckpt-dir with --mesh: the restart manager on a process "
-                 "grid is not ported (ROADMAP Queue 1 item 13)")
     mesh = make_process_mesh(shape, axes, backend=args.dist_backend,
                              device=args.device)
     res = train_on_mesh(mesh, cfg, steps=args.steps, batch=args.batch,
                         seq=args.seq, lr=args.lr, grad_accum=args.grad_accum,
                         compress_grads=args.compress_grads,
-                        optimizer=args.optimizer, verbose=mesh.rank == 0)
+                        optimizer=args.optimizer, verbose=mesh.rank == 0,
+                        ckpt_dir=args.ckpt_dir, save_every=args.save_every)
     return None if mesh.rank else res
 
 
@@ -254,10 +289,12 @@ def main(argv=None):
     if args.mesh:
         res = _mesh_main(ap, args, cfg)
         if res is not None:
+            extra = {"processes": 16 * 16 * (2 if args.mesh == "multi" else 1),
+                     "split_kinds": res["split_kinds"]}
+            if args.ckpt_dir:
+                extra |= {k: res[k] for k in ("resumed_from", "nan_rollbacks")}
             _print_result(cfg, args, res["losses"],
-                          [t / 1e3 for t in res["step_ms"]],
-                          processes=16 * 16 * (2 if args.mesh == "multi" else 1),
-                          split_kinds=res["split_kinds"])
+                          [t / 1e3 for t in res["step_ms"]], extra)
         return 0
     dev = resolve_device(args.device)
     params = M.init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev)
@@ -280,10 +317,10 @@ def main(argv=None):
     return 0
 
 
-def _print_result(cfg, args, losses, times, processes=None,
-                  split_kinds=None) -> None:
+def _print_result(cfg, args, losses, times, extra=None) -> None:
     """The JAX launcher's closing JSON, plus ``losses`` and ``step_ms``
-    (and ``processes`` and ``split_kinds`` on a mesh)."""
+    and ``extra`` (on a mesh ``processes`` and ``split_kinds``, with
+    ``--ckpt-dir`` ``resumed_from`` and ``nan_rollbacks``)."""
     out = {
         "arch": cfg.name, "steps": len(losses),
         "loss_first": losses[0] if losses else None,
@@ -293,9 +330,7 @@ def _print_result(cfg, args, losses, times, processes=None,
         if len(times) > 1 else None,
         "losses": losses, "step_ms": [1e3 * t for t in times],
     }
-    if processes is not None:
-        out["processes"] = processes
-        out["split_kinds"] = split_kinds
+    out |= extra or {}
     print(json.dumps(out, indent=1))
 
 

@@ -5,7 +5,9 @@
   ported (``set_torch_bridge`` in place of ``set_jax_bridge``), and every public
   signature equals ``repro``'s by ``inspect.signature``, less the
   parameters of features not ported yet, with a trailing ``device`` where
-  the port takes one.
+  the port takes one and the trailing grid parameters of ``PORT_ONLY``
+  (the placements of a state on a process grid, a checkpoint manager's
+  mesh).
 * ``reorder="rcm"``: the permutation and the permuted matrix equal the
   JAX package's, solves reach its counts (Jacobi and block-IC(0)) and
   agree with ``reorder="none"``; vectors round-trip the permutation.
@@ -130,6 +132,17 @@ SIGNATURES = {
     "checkpoint.CheckpointManager.latest_step": set(),
 }
 
+# trailing parameters only the port has, after the JAX package's: where a
+# state is placed on a process grid (a JAX array carries its sharding, a
+# torch tensor does not), the checkpoints and the training loop are told
+# the placements, and the manager its mesh
+PORT_ONLY = {
+    "checkpoint.save": ("placements",),
+    "checkpoint.CheckpointManager.__init__": ("mesh",),
+    "checkpoint.CheckpointManager.save_async": ("placements",),
+    "ft.RestartManager.run": ("placements",),
+}
+
 PORT = {"core": core, "serve": serve, "obs": obs, "ft": ft,
         "checkpoint": checkpoint}
 JAX = {"core": jcore, "serve": jserve, "obs": jobs, "ft": jft,
@@ -167,6 +180,10 @@ def test_signatures_are_the_jax_packages(path):
     got = list(inspect.signature(_resolve(PORT, path)).parameters)
     if got and got[-1] == "device" and "device" not in want:
         got = got[:-1]
+    extra = list(PORT_ONLY.get(path, ()))
+    if extra:
+        assert got[-len(extra):] == extra
+        got = got[:-len(extra)]
     assert got == want
 
 
