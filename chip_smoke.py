@@ -531,6 +531,31 @@ prints no result line):
                manager on the placed state: counts equal to the
                one-process manager's on the card, losses within
                MESH_RTOL, ranks equal.
+14. procserve -- the solve service on a process grid, on the ranks of
+               phase 13's spawn after 13c (its checks fail "procserve").
+               14a: SERVICE_PARITY's PROC_SERVE script on the 2x2 halo
+               ``ProcessMesh``: per request the iterations and status of
+               the one-process grid's service on the card and of the JAX
+               package's 2x2-mesh service (SERVICE_PARITY), x within
+               PROC_SERVE_RTOL x max|x| of the one-process grid's, the
+               ranks bitwise equal; ``launch.serve PROC_SERVE_ARGV
+               --processes`` under torchrun's environment in the ranks:
+               rank 0's JSON the one-process grid's with ``processes``
+               added.  14b: laplacian_3d(SERVE_GRID) on the 2x2 halo grid
+               (13b's engine), f64 Jacobi pcg_tol 1e-8, max_batch
+               SERVE_BATCH, chunks of SERVE_CHUNK, PROC_SERVE_DRAIN
+               requests drained: converged with the one-process grid's iterations
+               (its drain runs after the ranks end), x within PROC_RTOL,
+               ranks bitwise; solves/s, latency p50 and max, a chunk's
+               wall on rank 0 by part (the drain's mean chunk, host
+               copies timed apart, the mean chunk less those copies, the
+               tick's clock collectives), the bytes a rank receives a
+               tick (``mesh.stats``), each rank's
+               ``max_memory_allocated`` over the drain, beside the
+               one-process grid's drain.  Each part's launches a rank
+               (zeroed just before, read just after: 14b's at the first
+               submit and the last tick), ``ell_spmm`` and
+               ``cg_update_batched`` above 0 on every rank.
 
 The last three lines are the kernels JSON, the card's
 ``nvidia-smi --query-gpu=name,power.limit`` line, and the result JSON.
@@ -649,7 +674,7 @@ PIPE_METHOD = "pcg_pipelined_tol"
 # pcg_tol and pcg_pipelined_tol, ELL, BCSR and the stencil alike): lane 0
 # is the one-RHS solve (the same counts as before the loop ran on the card)
 MAIN_LANES = (1190, 1241, 1624, 1301, 1669, 1494, 1658, 1548)
-PLAN_CALLS = 3                     # calls of each plan in phase 4i
+PLAN_CALLS = 2                     # calls of each plan in phase 4i
 # phase 6, the solve service.  SERVICE_PARITY: the JAX package's service
 # (CPU, f64, SERVICE_OPERATOR) on fixed scripts -- submit `first` requests,
 # tick `ticks` times, submit the rest mid-solve, drain -- per request its
@@ -853,8 +878,24 @@ PROC_FT_TOL, PROC_FT_BUDGET = 1e-8, 400
 # PROC_FT_SMOKE: the f32 smoke config, AdamW, a NaN forced at step
 # PROC_FT_NAN_AT, a checkpoint every PROC_FT_SAVE_EVERY steps
 PROC_FT_TRAIN_STEPS = 2
+PROC_FT_DEADLINE_S = 480.0          # phase 13 and 14's spawn (2 x 8p's)
 PROC_FT_SMOKE_STEPS, PROC_FT_NAN_AT, PROC_FT_SAVE_EVERY = 6, 3, 2
 PROC_FT_SMOKE_SHAPE = (4, 32)
+# phase 14, the solve service on a process grid (in phase 13's spawn).  14a:
+# SERVICE_PARITY's PROC_SERVE script on the 2x2 grid (halo) against the
+# one-process grid's service on the card and the JAX package's 2x2-mesh
+# service (SERVICE_PARITY's counts; tests/test_torch_procserve.py computes
+# them anew), x within PROC_SERVE_RTOL x max|x|; launch.serve
+# PROC_SERVE_ARGV once with --processes.  14b: laplacian_3d(SERVE_GRID) on
+# the 2x2 halo grid (13b's engine), Jacobi pcg_tol MAIN_TOL, max_batch
+# SERVE_BATCH, chunks of SERVE_CHUNK, PROC_SERVE_DRAIN requests drained (one
+# batch at k_pad = SERVE_BATCH)
+PROC_SERVE = "lap2d_32"
+PROC_SERVE_RTOL = 1e-12
+PROC_SERVE_ARGV = ["--solver", "--matrix", PROC_SERVE, "--mesh-shape", "2x2"]
+PROC_SERVE_DRAIN = 8
+PROC_SERVE_TIMES = ("wall_s", "solves_per_s")    # the CLI JSON's wall times
+PROC_SERVE_KERNELS = ("ell_spmv", "ell_spmm", "cg_update", "cg_update_batched")
 
 
 def ft_scenario(engines: dict, case: dict, b):
@@ -3218,6 +3259,244 @@ def proc_ft_full(eng, b, ckdir: str, timer: bool = False):
     return mgr, mgr.solve(b, injector=inj)
 
 
+def proc_serve_parity(mesh) -> dict:
+    """14a's script on ``mesh`` (a rank's ProcessMesh, or the one-process
+    TileMesh) in the halo layout: per request its iterations and status,
+    x end to end and its digest, and the service's counts."""
+    import numpy as np
+
+    from repro_torch.data.matrices import suite
+    from repro_torch.serve import SolveService
+
+    script = SERVICE_PARITY[PROC_SERVE]
+    m = suite("small")[PROC_SERVE]
+    svc = SolveService(max_batch=script["max_batch"], chunk=script["chunk"],
+                       device=mesh.device)
+    svc.register_operator(PROC_SERVE, m, layout="halo", mesh=mesh,
+                          **dict(SERVICE_OPERATOR, dtype=np.float64))
+    outs = service_script(svc, m, script)
+    x = np.concatenate([o.x for o in outs])
+    return {"iters": tuple(int(o.iters) for o in outs),
+            "status": tuple(o.status for o in outs), "x": x,
+            "digest": _digest(x), "ticks": svc.stats["ticks"],
+            "chunks": svc.stats["chunks"]}
+
+
+def proc_serve_cli(processes: bool) -> tuple:
+    """``launch.serve PROC_SERVE_ARGV`` in this process (with
+    ``--processes``: a rank under torchrun's environment, which joins the
+    group): (exit code, the JSON it printed, or None)."""
+    import contextlib
+    import io
+
+    from repro_torch.launch import serve as serve_cli
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        code = serve_cli.main(PROC_SERVE_ARGV
+                              + (["--processes"] if processes else []))
+    text = buf.getvalue()
+    return code, json.loads(text[text.index("{"):]) if "{" in text else None
+
+
+def proc_serve_rhs(n: int):
+    """14b's PROC_SERVE_DRAIN right-hand sides: b = A x, the x rows from
+    default_rng(0) (phase 6's first rows)."""
+    import numpy as np
+    import scipy.sparse as sp
+
+    from repro_torch.data.matrices import laplacian_3d
+
+    m = laplacian_3d(SERVE_GRID)
+    a = sp.csr_matrix((m.data, m.indices, m.indptr), shape=m.shape)
+    xs = np.random.default_rng(0).standard_normal((PROC_SERVE_DRAIN, n))
+    return np.ascontiguousarray((a @ xs.T).T)
+
+
+def proc_serve_drain(eng, rhs, keep_x: bool) -> dict:
+    """14b on ``eng`` (a rank's grid engine or the one-process grid's):
+    the rows of ``rhs`` submitted and drained through a service; solves/s,
+    each request's latency from submit (this process's clock), the
+    outcomes (x where ``keep_x``), the bytes this rank received each tick
+    by NoC call (``mesh.stats``, a process grid), the kernel launches and
+    the card's peak allocation of the drain alone (counts and peak reset
+    just before the first submit, read just after the last tick), and,
+    a chunk's wall by part: the drain's chunks (the service's own
+    ``repro_serve_chunk_seconds``, its mean), the host copies in and
+    out at the first batch's k_pad timed apart after the drain, the mean
+    chunk less those copies (``program_est``: not timed inside a chunk),
+    and the clock collectives a tick and a chunk add (``_agreed``)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.plan import SolveSpec
+    from repro_torch.kernels import ops
+    from repro_torch.obs.clock import now
+    from repro_torch.serve import SolveService
+    from repro_torch.serve.service import _M_CHUNK_S
+
+    grid = eng.mesh.per_process
+    svc = SolveService(max_batch=SERVE_BATCH, chunk=SERVE_CHUNK,
+                       queue_max=None, device=eng.device)
+    svc.register_operator("lap3d", engine=eng, spec=SolveSpec(
+        method="pcg_tol", tol=MAIN_TOL, max_iters=SERVE_BUDGET))
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    sent = {svc.submit(row): now() for row in rhs}
+    done, finished, ticks = {}, {}, []
+    t0 = now()
+    while svc.pending() or svc.active():
+        if grid:
+            eng.mesh.stats.reset()
+        out = svc.tick()
+        if grid:
+            ticks.append(dict(eng.mesh.stats.wire_bytes))
+        done.update(out)
+        finished.update({rid: now() for rid in out})
+    drain_s = now() - t0
+    launches = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    lat = np.array([finished[r] - sent[r] for r in sent]) * 1e3
+    x = np.concatenate([done[r].x for r in sent])
+    got = {"drain_s": drain_s, "solves_per_s": len(sent) / drain_s,
+           "p50_ms": float(np.percentile(lat, 50)), "max_ms": float(lat.max()),
+           "iters": [int(done[r].iters) for r in sent],
+           "status": [done[r].status for r in sent], "digest": _digest(x),
+           "x": x if keep_x else None, "ticks": svc.stats["ticks"],
+           "chunks": svc.stats["chunks"], "tick_bytes": ticks,
+           "launches": launches, "peak_bytes": peak}
+    chunk = _M_CHUNK_S.labels(service=svc._obs_label)
+    chunk_s = chunk.sum / chunk.count
+    k_pad = svc._bucket(len(rhs), SERVE_BATCH)
+    batch = np.zeros((k_pad, eng.n))
+    batch[: len(rhs)] = rhs[:k_pad]
+    t0 = now()
+    xd = eng.to_device_vec(batch), eng.to_device_vec(batch)
+    torch.cuda.synchronize()
+    eng.from_device_vec(xd[1])
+    copies = now() - t0
+    t0 = now()
+    svc._agreed(now())
+    svc._agreed(now(), 0.0)
+    clock = now() - t0
+    got["split_ms"] = {"chunk_mean": chunk_s * 1e3,
+                       "program_est": (chunk_s - copies) * 1e3,
+                       "host_copies": copies * 1e3, "tick_clock": clock * 1e3}
+    return got
+
+
+def proc_serve_rank(mesh, eng, rank: int, size: int) -> dict:
+    """Phase 14 on a rank of phase 13's spawn: 14a's script and CLI, then
+    14b's drain on ``eng`` (13b's engine); each part's launch counts
+    zeroed just before it and read just after, and its wall."""
+    from repro_torch.kernels import ops
+    from repro_torch.obs.clock import now
+
+    out = {}
+    t0 = now()
+    ops.reset_launch_counts()
+    out["a"] = proc_serve_parity(mesh)
+    out["a_launches"] = ops.launch_counts()
+    out["a_s"] = now() - t0
+    if rank:
+        out["a"]["x"] = None
+    t0 = now()
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(size))
+    out["cli"] = proc_serve_cli(True)
+    out["cli_s"] = now() - t0
+    t0 = now()
+    out["b"] = proc_serve_drain(eng, proc_serve_rhs(eng.n), keep_x=rank == 0)
+    out["b_launches"] = out["b"]["launches"]
+    out["b_s"] = now() - t0
+    return out
+
+
+def procserve_report(ranks: list, refs: dict, smi: str) -> list:
+    """Phase 14's checks and lines: the ranks' results (``ranks[r]
+    ["serve"]``) against the one-process grid's (``refs``); the names of
+    the checks that failed."""
+    import numpy as np
+
+    say(f"procserve 14 on {smi}")
+    bad = []
+    rs = [r["serve"] for r in ranks]
+    s0, script = rs[0], SERVICE_PARITY[PROC_SERVE]
+    # -- 14a
+    got, one = s0["a"], refs["s_a"]
+    rel = float(np.abs(got["x"] - one["x"]).max() / np.abs(one["x"]).max())
+    same = all(r["a"]["digest"] == got["digest"] and r["a"]["iters"] == got["iters"]
+               and r["a"]["status"] == got["status"] for r in rs)
+    if not (got["iters"] == one["iters"] == script["iters"]
+            and got["status"] == one["status"] == script["status"]
+            and rel <= PROC_SERVE_RTOL and same):
+        bad.append("14a parity")
+    say(f"procserve 14a {PROC_SERVE} script (chunk {script['chunk']}, max_batch "
+        f"{script['max_batch']}) on the 2x2 halo grid, 4 gloo ranks: iters "
+        f"{list(got['iters'])} (one-process grid {list(one['iters'])}, JAX "
+        f"{list(script['iters'])}), status {sorted(set(got['status']))}, x "
+        f"{rel:.2e} of the one-process grid's, ranks bitwise {same}, "
+        f"{got['ticks']} ticks / {got['chunks']} chunks in {s0['a_s']:.1f} s "
+        f"(one-process grid {refs['s_a_s']:.1f} s)")
+    (code, many), (ocode, one_json) = s0["cli"], refs["s_cli"]
+    ok = code == ocode == 0 and many is not None and one_json is not None
+    if ok:
+        many = dict(many)
+        ok = many.pop("processes", None) == 4 and set(many) == set(one_json)
+        for k, v in (one_json.items() if ok else ()):
+            if k == "verify_maxerr":
+                ok = ok and abs(many[k] - v) <= 1e-6 * abs(v)
+            elif k not in PROC_SERVE_TIMES:
+                ok = ok and many[k] == v
+        ok = ok and all(r["cli"] == (0, None) for r in rs[1:])
+    if not ok:
+        bad.append("14a launch.serve --processes")
+    say(f"procserve 14a launch.serve {' '.join(PROC_SERVE_ARGV)} --processes: "
+        f"rank 0 {json.dumps(s0['cli'][1])}; one process {json.dumps(one_json)}; "
+        f"{'as' if ok else 'NOT as'} the one-process grid's with processes "
+        f"added ({s0['cli_s']:.1f} s)")
+    # -- 14b
+    got, one = s0["b"], refs["s_b"]
+    rel = float(np.abs(got["x"] - one["x"]).max() / np.abs(one["x"]).max())
+    same = all(r["b"]["digest"] == got["digest"] and r["b"]["iters"] == got["iters"]
+               for r in rs)
+    if not (got["status"] == one["status"] == ["converged"] * PROC_SERVE_DRAIN
+            and got["iters"] == one["iters"] and rel <= PROC_RTOL and same):
+        bad.append("14b drain")
+    per_tick = [sum(t.values()) for t in got["tick_bytes"]]
+    say(f"procserve 14b laplacian_3d({SERVE_GRID}) 2x2 halo, {PROC_SERVE_DRAIN} "
+        f"requests, max_batch {SERVE_BATCH}, chunk {SERVE_CHUNK}, 4 gloo ranks on "
+        f"{smi}: " + json.dumps({
+            "solves_per_s": got["solves_per_s"], "drain_s": got["drain_s"],
+            "latency_p50_ms": got["p50_ms"], "latency_max_ms": got["max_ms"],
+            "iters": got["iters"], "one_process_iters": one["iters"],
+            "x_rel": rel, "ranks_bitwise": same,
+            "ticks": got["ticks"], "chunks": got["chunks"],
+            "chunk_split_ms_rank0": got["split_ms"],
+            "wire_bytes_a_tick_rank0": {"mean": float(np.mean(per_tick)),
+                                        "max": max(per_tick),
+                                        "second_tick": got["tick_bytes"][1]
+                                        if len(per_tick) > 1 else None},
+            "wire_bytes_a_tick_mean": [float(np.mean([sum(t.values())
+                                                      for t in r["b"]["tick_bytes"]]))
+                                       for r in rs],
+            "max_memory_allocated": [r["b"]["peak_bytes"] for r in rs],
+            "one_process_grid": {"solves_per_s": one["solves_per_s"],
+                                 "drain_s": one["drain_s"],
+                                 "latency_p50_ms": one["p50_ms"],
+                                 "latency_max_ms": one["max_ms"],
+                                 "chunk_split_ms": one["split_ms"]},
+            "wall_s": [r["b_s"] for r in rs]}))
+    # -- the launches: every rank ran the grid's kernels in each part
+    for part in ("a", "b"):
+        counts = [r[f"{part}_launches"] for r in rs]
+        need = ("ell_spmm", "cg_update_batched")
+        if not all(c.get(k, 0) > 0 for c in counts for k in need):
+            bad.append(f"14{part} launches")
+        say(f"procserve 14{part} launches a rank: " + json.dumps(
+            [{k: c.get(k, 0) for k in PROC_SERVE_KERNELS} for c in counts]))
+    return bad
+
+
 def _held_equal(a, b) -> bool:
     """Every tensor two placed states hold bit for bit equal."""
     import torch
@@ -3301,7 +3580,7 @@ def procft_rank(rank, t_spawn: float, root: str, go: str) -> dict:
     mgr.mgr.wait()
     parts["save_s"] = now() - t0
     out["b_parts"] = parts
-    del eng, mgr, meshes
+    del mgr, meshes                 # 13b's engine serves again in 14b
     gc.collect()
     torch.cuda.empty_cache()
     # -- 13c: a failure at step 1, a fresh state resumed, an uninterrupted run
@@ -3371,6 +3650,12 @@ def procft_rank(rank, t_spawn: float, root: str, go: str) -> dict:
     t0 = now()
     out["c_smoke"] = proc_ft_smoke(mesh, root)
     out["c_smoke_s"] = now() - t0
+    gc.collect()
+    torch.cuda.empty_cache()
+    # -- 14: the solve service on the grid
+    t0 = now()
+    out["serve"] = proc_serve_rank(mesh, eng, r, rank.size)
+    out["serve_s"] = now() - t0
     return out
 
 
@@ -3395,9 +3680,9 @@ def procft_phase(failed: list) -> None:
         t0 = now()
         run = ex.submit(procs.run, procft_rank, 4, (t0, ranks_dir, go),
                         backend="gloo", device="cuda",
-                        timeout_s=PROC_DEADLINE_S)
-        # the one-process grid's references on the card, while the ranks
-        # start and run 13a
+                        timeout_s=PROC_FT_DEADLINE_S)
+        # the one-process grid's references on the card (13a-13c's and
+        # 14's), while the ranks start and run 13a
         refs = {}
         try:
             meshes = {name: make_mesh(*DIST_MESHES[name][:2])
@@ -3406,16 +3691,26 @@ def procft_phase(failed: list) -> None:
             refs["a"] = proc_ft_cases({}, meshes, os.path.join(tmp, "one"))
             refs["a_s"] = now() - t1
             t1 = now()
-            eng, b = proc_ft_full_engine(meshes["2x2"])
-            _, rep = proc_ft_full(eng, b, os.path.join(tmp, "one", "13b"))
+            one_eng, b = proc_ft_full_engine(meshes["2x2"])
+            _, rep = proc_ft_full(one_eng, b, os.path.join(tmp, "one", "13b"))
             refs["b"] = {"summary": ft_summary(rep), "x": rep.x,
                          "s": now() - t1}
-            del eng
             refs["c_smoke"] = proc_ft_smoke(None, os.path.join(tmp, "one"))
+            # 14a's one-process grid references
+            t1 = now()
+            refs["s_a"] = proc_serve_parity(meshes["2x2"])
+            refs["s_a_s"] = now() - t1
+            refs["s_cli"] = proc_serve_cli(False)
+            # 14b's one-process grid drain, on 13b's engine
+            t1 = now()
+            refs["s_b"] = proc_serve_drain(one_eng, proc_serve_rhs(one_eng.n),
+                                           keep_x=True)
+            refs["s_b_s"] = now() - t1
         except Exception:
             traceback.print_exc()
             failed.append("procft one-process references")
         finally:
+            one_eng = None
             Path(go).touch()
         try:
             ranks = run.result()
@@ -3424,7 +3719,7 @@ def procft_phase(failed: list) -> None:
             failed.append("procft ranks")
             ranks = []
         run_s = now() - t0
-    if not ranks or len(refs) < 4:
+    if not ranks or not all(k in refs for k in ("a", "b", "c_smoke")):
         say(f"procft phase: {now() - t_phase:.1f} s")
         return
     r0 = ranks[0]
@@ -3531,7 +3826,20 @@ def procft_phase(failed: list) -> None:
     if bad:
         say(f"procft 13 FAILED checks: {bad}")
         failed.append("procft")
-    say(f"procft phase: {now() - t_phase:.1f} s")
+    # -- 14: the solve service on the grid
+    try:
+        bad = procserve_report(ranks, refs, smi)
+    except Exception:
+        traceback.print_exc()
+        bad = ["checks raised"]
+    say(f"procserve 14 times: ranks {json.dumps([round(r['serve_s'], 1) for r in ranks])} s "
+        f"(rank 0: 14a {r0['serve']['a_s']:.1f}, cli {r0['serve']['cli_s']:.1f}, "
+        f"14b {r0['serve']['b_s']:.1f}); one-process grid 14a "
+        f"{refs['s_a_s']:.1f} s, 14b {refs['s_b_s']:.1f} s")
+    if bad:
+        say(f"procserve 14 FAILED checks: {bad}")
+        failed.append("procserve")
+    say(f"procft phase (13 and 14): {now() - t_phase:.1f} s")
 
 
 def _np_leaves(tree) -> list:

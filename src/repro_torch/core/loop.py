@@ -12,7 +12,11 @@ Two ways to run the loop:
   the CPU): each step runs ``body`` and keeps the old value of every
   entry where ``live`` is false (``torch.where`` on the 0-d flag; an entry
   the body returns as the very tensor it was given passes through), and
-  the host reads ``cond`` once a round;
+  the host reads ``cond`` once a round.  Where the state is on the CPU,
+  or a plan runs its loop uncaptured by design (a process grid's, below),
+  the host reads ``live`` every step instead and the loop ends at the
+  first step it is false: the round's later steps would all be gated and
+  change nothing, so the result is the same bit for bit;
 * from a CUDA graph, inside a plan (a :class:`ProgramCell` that
   captures is active and the state is on the card): the loop is captured once, as a WHILE node
   (``kernels.graph.loop``) whose body is a round -- each step in a
@@ -169,9 +173,14 @@ def while_loop(cond, body, state):
         with torch.cuda.device(state[0].device):
             cell.replays += 1
             return graph.run(state)
+    # the flag is on the host already (the CPU), or read every step anyway
+    # (a process grid's messages): stop at the step that ends the loop
+    stop = not state[0].is_cuda or (cell is not None and not cell.capture)
     while bool(cond(state)):
         for _ in range(CHUNK):
             live = cond(state)
+            if stop and not bool(live):
+                break
             state = _gate(live, _check(body(state), state), state)
     return state
 

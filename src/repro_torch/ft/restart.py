@@ -245,10 +245,7 @@ class SolveRestartManager:
         mesh = self.engine.mesh
         if mesh is None or not mesh.per_process:
             return dt
-        import torch
-
-        mine = torch.full((1, 1), dt, dtype=torch.float64, device=mesh.device)
-        return float(mesh.gather(mine, mesh.axis_names, "ft_chunk_s").max())
+        return float(mesh.host_gather([dt], "ft_chunk_s").max())
 
     def _true_rel(self, x: np.ndarray, b: np.ndarray, bnorm: float) -> float:
         return float(np.linalg.norm(b - self.engine.spmv(x)) / bnorm)

@@ -4,8 +4,9 @@ Port of ``repro.launch.mesh``.  The JAX package places one tile on each
 device of a ``jax.sharding.Mesh``.  The port has two kinds of mesh, with
 one surface (``shape``, ``axis_names``, ``size``, ``device``, ``axes()``,
 ``group()``, ``index()``, ``local`` / ``local_size``, the tiles this
-process holds, and ``barrier()`` / ``broadcast()``, the host control of
-the ranks, which do nothing where one process holds every tile):
+process holds, and ``barrier()`` / ``broadcast()`` / ``host_gather()``,
+the host control of the ranks, which do nothing where one process holds
+every tile):
 
 * a :class:`TileMesh` puts every tile of the grid on one device, in one
   process.  Tile ``t`` is the row-major flat index over the axes (the
@@ -148,9 +149,14 @@ class TileMesh(_Grid):
     def barrier(self) -> None:
         """One process holds every tile: nothing to wait for."""
 
-    def broadcast(self, obj, src: int = 0):
+    def broadcast(self, obj, src: int = 0, what: str = "broadcast"):
         """One process holds every tile: ``obj`` itself."""
         return obj
+
+    def host_gather(self, values, what: str) -> np.ndarray:
+        """One process holds every tile: ``values`` as a (1, m) float64
+        array."""
+        return np.asarray([values], np.float64)
 
     def __repr__(self) -> str:
         return (f"TileMesh({self.devices_shape}, {self.axis_names}, "
@@ -378,16 +384,40 @@ class ProcessMesh(_Grid):
         else:
             dist.barrier()
 
-    def broadcast(self, obj, src: int = 0):
+    def broadcast(self, obj, src: int = 0, what: str = "broadcast"):
         """Rank ``src``'s ``obj`` (a small picklable host object) on every
-        rank; the other ranks' ``obj`` is ignored."""
+        rank; the other ranks' ``obj`` is ignored.  Two collectives over
+        the world group (the pickle's length, then its bytes), counted in
+        ``stats`` under ``what`` (the bytes on the ranks that receive)."""
+        import pickle
+
         import torch.distributed as dist
 
-        box = [obj if self.rank == src else None]
-        dist.broadcast_object_list(box, src=src,
-                                   device=self.device if self.backend == "nccl"
-                                   else None)
-        return box[0]
+        dev = self.device if self.backend == "nccl" else torch.device("cpu")
+        mine = self.rank == src
+        data = pickle.dumps(obj) if mine else b""
+        size = torch.tensor([len(data)], dtype=torch.int64, device=dev)
+        t0 = now()
+        dist.broadcast(size, src)
+        n = int(size.item())
+        buf = (torch.frombuffer(bytearray(data), dtype=torch.uint8).to(dev)
+               if mine else torch.empty(n, dtype=torch.uint8, device=dev))
+        dist.broadcast(buf, src)
+        self.stats.comm_s += now() - t0
+        self.stats.calls[what] += 1
+        if mine:
+            return obj
+        self.stats.wire_bytes[what] += n
+        return pickle.loads(buf.cpu().numpy().tobytes())
+
+    def host_gather(self, values, what: str) -> np.ndarray:
+        """Every rank's ``values`` (m host floats), in rank order: a (size,
+        m) float64 array, the same on every rank (one ``gather`` over
+        every axis; a ranked max or sum of a host reading is a reduction
+        of its column)."""
+        mine = torch.tensor([values], dtype=torch.float64, device=self.device)
+        got = self.gather(mine, self.axis_names, what)
+        return got.reshape(self.size, -1).cpu().numpy()
 
     def __repr__(self) -> str:
         return (f"ProcessMesh({self.devices_shape}, {self.axis_names}, "

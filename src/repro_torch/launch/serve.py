@@ -22,6 +22,11 @@ and LM generation over the model zoo.
     PYTHONPATH=src python -m repro_torch.launch.serve --solver \
         --matrix lap2d_32 --mesh-shape 2x2 --requests 12
 
+    # the same grid one process a tile: 4 ranks spawned here (or the
+    # ranks of torchrun), rank 0 prints
+    PYTHONPATH=src python -m repro_torch.launch.serve --solver \
+        --matrix lap2d_32 --mesh-shape 2x2 --processes --dist-backend gloo
+
 The ``--solver`` path of ``repro.launch.serve``, with its flags and its
 printed JSON fields, plus ``degraded_batches`` (always 0 on the card,
 where a kernel failure raises) and, under ``--load-gen``,
@@ -29,7 +34,14 @@ where a kernel failure raises) and, under ``--load-gen``,
 ``||b - A x|| / ||b||`` of the outcomes.  ``--device cpu`` runs the kernels' plain versions
 (the default ``cuda`` raises without a card).  ``--mesh-shape RxC``
 serves every operator on an R x C tile grid (``launch.mesh.make_mesh``
-over ("data", "model") on the ``--device``).
+over ("data", "model") on the ``--device``).  With ``--processes`` the
+grid runs one process a tile (``launch.mesh.ProcessMesh`` over
+``--dist-backend``): the R*C ranks are spawned here through
+``launch.procs``, or, under ``torchrun`` (``RANK`` and ``WORLD_SIZE`` in
+the environment), this process is one of them.  Every rank runs the
+service as one program (rank 0's clock decides every tick); rank 0 prints
+the one-process grid's JSON with ``"processes": R*C`` added and alone
+serves ``--metrics-port``.
 
 ``--arch NAME`` (any of ``repro_torch.configs.names()``; ``--smoke`` for
 the reduced same-family config) builds the model on ``--device`` from
@@ -43,17 +55,61 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
+import sys
 
 import numpy as np
 import torch
 
 
-def _solver_main(args) -> int:
+def _grid_shape(args) -> tuple:
+    shape = tuple(int(x) for x in args.mesh_shape.split("x"))
+    if len(shape) != 2:
+        raise SystemExit("--mesh-shape must be RxC, e.g. 2x2")
+    return shape
+
+
+def _solver_main(args, argv: list) -> int:
+    """``--solver``: one process, or with ``--processes`` every rank of a
+    process grid; prints the JSON of :func:`solver_verdict`."""
+    if not args.processes:
+        out, rc = solver_verdict(args)
+        print(json.dumps(out, indent=1))
+        return rc
+    if not args.mesh_shape:
+        raise SystemExit("--processes needs --mesh-shape")
+    shape = _grid_shape(args)
+    if "RANK" in os.environ and "WORLD_SIZE" in os.environ:
+        from .mesh import make_process_mesh
+
+        mesh = make_process_mesh(shape, ("data", "model"),
+                                 backend=args.dist_backend, device=args.device)
+        out, rc = solver_verdict(args, mesh)
+        if mesh.rank == 0:
+            print(json.dumps(out, indent=1))
+        return rc
+    from . import procs
+
+    out, rc = procs.run(_rank_verdict, shape[0] * shape[1], (argv,),
+                        backend=args.dist_backend, device=args.device)[0]
+    print(json.dumps(out, indent=1))
+    return rc
+
+
+def _rank_verdict(rank, argv: list) -> tuple:
+    """A spawned rank of ``--solver --processes``: its (JSON, exit code)."""
+    args = _parser().parse_args(argv)
+    return solver_verdict(args, rank.mesh(_grid_shape(args),
+                                          ("data", "model")))
+
+
+def solver_verdict(args, mesh=None) -> tuple:
     """Serve sparse solves through :class:`repro_torch.serve.SolveService`:
     register one operator per ``--operators`` name (or ``--matrix``),
     submit ``--requests`` RHS round-robin, and drain the continuous-
     batching tick loop -- or hand the service to the load generator
-    (``--load-gen open|closed``)."""
+    (``--load-gen open|closed``).  Returns (the printed JSON, the exit
+    code); ``mesh`` is a rank's ``ProcessMesh`` under ``--processes``."""
     import scipy.sparse as sp
 
     from ..core.plan import SolveSpec
@@ -61,10 +117,11 @@ def _solver_main(args) -> int:
     from ..obs import clock, start_metrics_server
     from ..serve import SolveService, run_load
 
-    mats = suite("small")
-    mats.update(suite("large"))
     names = [s for s in (args.operators.split(",") if args.operators
                          else [args.matrix]) if s]
+    mats = suite("small")
+    if any(name not in mats for name in names):
+        mats.update(suite("large"))
     for name in names:
         if name not in mats:
             raise SystemExit(
@@ -72,17 +129,15 @@ def _solver_main(args) -> int:
             )
 
     metrics_srv = None
-    if args.metrics_port is not None:
+    if args.metrics_port is not None and (mesh is None or mesh.rank == 0):
         # scrape target up BEFORE any work so a poller sees the whole run
         metrics_srv = start_metrics_server(port=args.metrics_port)
-        print(f"metrics: {metrics_srv.url}")
-    mesh = None
-    if args.mesh_shape:
+        print(f"metrics: {metrics_srv.url}", flush=True)
+    grid = {} if mesh is None else {"processes": mesh.size}
+    if mesh is None and args.mesh_shape:
         from .mesh import make_mesh
-        shape = tuple(int(x) for x in args.mesh_shape.split("x"))
-        if len(shape) != 2:
-            raise SystemExit("--mesh-shape must be RxC, e.g. 2x2")
-        mesh = make_mesh(shape, ("data", "model"), device=args.device)
+        mesh = make_mesh(_grid_shape(args), ("data", "model"),
+                         device=args.device)
     try:
         # one frozen spec drives every operator's warm pool; the service
         # builds per-(operator, bucket) plans from it
@@ -128,9 +183,9 @@ def _solver_main(args) -> int:
                    for rid, o in seen.items()]
             res.update({"matrix": names[0], "n": n0, "method": args.method,
                         "degraded_batches": svc.stats["degraded_batches"],
-                        "verify_rel_residual": max(rel, default=-1.0)})
-            print(json.dumps(res, indent=1))
-            return 0
+                        "verify_rel_residual": max(rel, default=-1.0),
+                        **grid})
+            return res, 0
 
         x_true, ids = {}, []
         for i in range(args.requests):
@@ -164,8 +219,8 @@ def _solver_main(args) -> int:
             out["tol"] = args.tol
             out["iters_mean"] = round(float(np.mean(its)), 2)
             out["iters_max"] = int(np.max(its))
-        print(json.dumps(out, indent=1))
-        return 0
+        out.update(grid)
+        return out, 0
     finally:
         if metrics_srv is not None:
             metrics_srv.close()
@@ -218,7 +273,7 @@ def _arch_main(args, ap) -> int:
     return 0
 
 
-def main(argv=None):
+def _parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default=None,
                     help="LM generation with this architecture "
@@ -257,6 +312,14 @@ def main(argv=None):
                     help="relative residual target for --method pcg_tol")
     ap.add_argument("--mesh-shape", default="",
                     help="e.g. 2x2 -- a tile grid; empty = one device")
+    ap.add_argument("--processes", action="store_true",
+                    help="--solver: run the --mesh-shape grid one process "
+                         "a tile (spawned here, or the ranks of torchrun)")
+    ap.add_argument("--dist-backend", default="gloo",
+                    choices=("gloo", "nccl"),
+                    help="torch.distributed backend of --processes: gloo "
+                         "stages messages through host memory (ranks may "
+                         "share a card); nccl needs a card a rank")
     ap.add_argument("--layout", default="auto",
                     choices=("auto", "halo", "dense"),
                     help="tile-grid comm layout (halo = the compiled pull "
@@ -270,10 +333,16 @@ def main(argv=None):
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
                     help="cuda runs the hand-written kernels; cpu runs "
                          "their plain PyTorch versions")
+    return ap
+
+
+def main(argv=None):
+    argv = sys.argv[1:] if argv is None else list(argv)
+    ap = _parser()
     args = ap.parse_args(argv)
 
     if args.solver:
-        return _solver_main(args)
+        return _solver_main(args, argv)
     if args.arch is None:
         ap.error("--arch is required unless --solver is given")
     return _arch_main(args, ap)

@@ -22,6 +22,12 @@ The harness is synchronous single-threaded (the service is ticked
 inline); latency for an open-loop request is measured from its
 *scheduled* arrival time, so a backlog correctly charges queue wait to
 the requests that suffered it.
+
+On a process grid (a service whose operators run on a
+``launch.mesh.ProcessMesh``) every rank runs the harness: before each
+tick rank 0's clock decides which open-loop arrivals are due
+(``service.agree``) and every rank submits those, so the ranks' services
+stay one program.  Latencies and throughput are each rank's own clock's.
 """
 
 from __future__ import annotations
@@ -91,7 +97,12 @@ def run_load(service: SolveService, make_rhs: Callable[[int], np.ndarray],
         nxt = 0
         while nxt < requests or service.pending() or service.active():
             now = _clock.now() - t0
-            while nxt < requests and arrivals[nxt] <= now:
+            due = nxt
+            while due < requests and arrivals[due] <= now:
+                due += 1
+            # on a process grid rank 0's clock says what is due
+            due = service.agree(due, "serve_arrivals")
+            while nxt < due:
                 _submit(nxt, t0 + arrivals[nxt])
                 nxt += 1
             if nxt < requests and not service.pending() \

@@ -63,6 +63,24 @@ requests), so old low-priority work ages up instead of starving.
 The legacy ``SolveServer`` surface survives as a thin shim over this
 class (see ``serve/solve_server.py``): same validation, same pools, same
 stats dict, bit-identical outcomes.
+
+Process grids
+-------------
+Operators built on a ``launch.mesh.ProcessMesh`` (one process a tile)
+make the service one program on every rank: each rank registers the same
+operators, submits the same requests and ticks in step, and its plans
+meet the other ranks' in their NoC messages, so x comes back whole on
+every rank.  Every clock read that decides anything (admission and
+aging, deadlines, the straggler watchdog, the legacy deadline path) goes
+through one method, ``_agreed``, which takes rank 0's reading: a tick
+costs one ``mesh.broadcast`` (rank 0's time and its stamps of the
+requests submitted since the last tick) and a chunk one ``host_gather``
+(rank 0's time, the slowest rank's chunk time).  Any other host decision
+a caller makes around the service (the open loop's due arrivals) takes
+rank 0's value through ``agree``.  An operator charges the
+grid's bytes, summed over the ranks, so evictions and reloads fall where
+they fall on the one-process grid.  The ranks therefore return the same
+outcomes, bit for bit, even when their clocks disagree.
 """
 
 from __future__ import annotations
@@ -259,7 +277,12 @@ class _Pending:
     max_iters: int | None
     deadline: float | None
     priority: float
-    t_submit: float
+    t_submit: float               # the stamp decisions read (rank 0's)
+    t_local: float | None = None  # this process's stamp, for metrics
+
+    def __post_init__(self):
+        if self.t_local is None:
+            self.t_local = self.t_submit
 
 
 @dataclass
@@ -362,6 +385,11 @@ class SolveService:
         self._next_id = 0
         self._chunk_seq = 0             # StepTimer step index
         self._use_seq = 0               # LRU clock
+        # a process grid the operators run on (``_agreed``): None in one
+        # process; _stamped is the first request id whose submit stamp is
+        # still this rank's own
+        self._mesh = None
+        self._stamped = 0
         self._obs_label = f"s{next(_SVC_SEQ)}"
         # one stats dict serves both surfaces: the legacy keys keep their
         # exact legacy meaning (the SolveServer shim binds this dict), the
@@ -416,6 +444,9 @@ class SolveService:
                             reorder=reorder, mesh=mesh, device=self.device)
         if engine is None:
             engine = self._build_engine(a, build_kwargs)
+        mesh = getattr(engine, "mesh", None)
+        if mesh is not None and mesh.per_process:
+            self._mesh = mesh
         cspec = canonicalize(replace(spec, batch=None), engine)
         op = _Operator(
             name=name, engine=engine, spec=spec, cspec=cspec,
@@ -423,7 +454,7 @@ class SolveService:
             max_batch=self.max_batch if max_batch is None else int(max_batch),
             chunk=self.chunk if chunk is None else int(chunk),
             n=engine.n, dtype=np.dtype(engine.dtype),
-            bytes=int(engine.device_bytes()),
+            bytes=self._device_bytes(engine),
             matrix=a, build_kwargs=build_kwargs,
         )
         if op.max_batch < 1:
@@ -469,6 +500,52 @@ class SolveService:
                           layout=build_kwargs["layout"],
                           reorder=build_kwargs["reorder"],
                           device=build_kwargs["device"])
+
+    def _device_bytes(self, engine) -> int:
+        """The footprint an operator charges to the budget: its engine's
+        device bytes, summed over the ranks on a process grid (each holds
+        its own tiles), so every rank charges what the one-process grid
+        charges and ``_fit_memory`` decides the same everywhere."""
+        mine = int(engine.device_bytes())
+        mesh = getattr(engine, "mesh", None)
+        if mesh is None or not mesh.per_process:
+            return mine
+        return int(mesh.host_gather([mine], "serve_bytes").sum())
+
+    def agree(self, value, what: str):
+        """Rank 0's ``value`` of a host decision (a picklable object)
+        where the service's operators run on a process grid, one
+        ``mesh.broadcast`` named ``what``; ``value`` itself in one
+        process.  Every rank calls it at the same point."""
+        if self._mesh is None:
+            return value
+        return self._mesh.broadcast(value, what=what)
+
+    def _agreed(self, now: float, dt: float | None = None):
+        """The clock reading a decision takes: ``now``, read by the caller
+        on this process's clock (and a chunk's measured ``dt``), itself in
+        one process.  On a process grid rank 0's reading decides on every
+        rank, so every rank admits, ages, expires and flags alike.
+        Without ``dt`` (a tick's, or a legacy batch's, start) one
+        :meth:`agree` carries rank 0's ``now`` and its submit stamps of
+        the requests queued since the last such call, which replace this
+        rank's ``t_submit``; with ``dt`` one ``host_gather`` of every
+        rank's ``(now, dt)`` gives ``(rank 0's now, the slowest rank's
+        dt)``.  Clock reads that only feed metrics stay local (a request's
+        ``t_local``)."""
+        mesh = self._mesh
+        if mesh is None:
+            return now if dt is None else (now, dt)
+        if dt is not None:
+            got = mesh.host_gather([now, dt], "serve_chunk_clock")
+            return float(got[0, 0]), float(got[:, 1].max())
+        fresh = [p for p in self._queue if p.rid >= self._stamped]
+        now, stamps = self.agree((now, [p.t_submit for p in fresh]),
+                                 "serve_tick_clock")
+        for p, t in zip(fresh, stamps):
+            p.t_submit = t
+        self._stamped = self._next_id
+        return now
 
     def _info(self, op: _Operator) -> OperatorInfo:
         return OperatorInfo(
@@ -751,14 +828,15 @@ class SolveService:
         their iterate into the next chunk.
         """
         self.stats["ticks"] += 1
-        now = _clock.now()
+        t_tick = _clock.now()
+        now = self._agreed(t_tick)
         with _span("tick", kind="tick", service=self._obs_label):
             self._admit(now)
             out: dict[int, SolveOutcome] = {}
             for op in list(self._operators.values()):
                 if op.lanes:
                     out.update(self._run_op_chunk(op))
-        _M_TICK_S.observe(_clock.now() - now, service=self._obs_label)
+        _M_TICK_S.observe(_clock.now() - t_tick, service=self._obs_label)
         self.stats["completed"] += len(out)
         return out
 
@@ -797,6 +875,7 @@ class SolveService:
         _M_CHUNK_S.observe(dt, service=self._obs_label)
         _assert_steady(self.plan_for(op, k_pad, "cb"))
         self._chunk_seq += 1
+        now, dt = self._agreed(_clock.now(), dt)
         rep = self.timer.observe(self._chunk_seq, dt)
         if rep.is_straggler:
             self.stats["straggler_chunks"].append(self._chunk_seq)
@@ -808,7 +887,6 @@ class SolveService:
         its = (np.atleast_1d(np.asarray(used.last_iters)).astype(np.int64)
                if op.tolerance else np.full(k_pad, op.chunk, np.int64))
         statuses = self._statuses(used, k_pad)
-        now = _clock.now()
         survivors: list[_Lane] = []
         out: dict[int, SolveOutcome] = {}
         for i, lane in enumerate(op.lanes):
@@ -871,7 +949,7 @@ class SolveService:
         bn = lane.bnorm if lane.bnorm > 0 else 1.0
         rel = float(trace[min(it_final, trace.shape[0] - 1)]) / bn
         _M_OUTCOMES.inc(service=self._obs_label, status=status)
-        _M_LATENCY_S.observe(_clock.now() - lane.req.t_submit,
+        _M_LATENCY_S.observe(_clock.now() - lane.req.t_local,
                              service=self._obs_label)
         return SolveOutcome(
             lane.req.rid, xi, trace, batch_size=k_pad,
@@ -957,7 +1035,7 @@ class SolveService:
         snap = [("maxiter", -1.0, 0)] * k_pad   # (status, rel, iters)
         total_iters = np.zeros(k_pad, np.int64)
         traces = [[] for _ in range(k_pad)]
-        t0 = _clock.now()
+        t0 = self._agreed(_clock.now())
         it_done = 0
         while it_done < budget and not done.all():
             tc = _clock.now()
@@ -968,6 +1046,7 @@ class SolveService:
             _M_CHUNK_S.observe(dt, service=self._obs_label)
             plan.assert_steady()
             self._chunk_seq += 1
+            now, dt = self._agreed(_clock.now(), dt)
             rep = self.timer.observe(self._chunk_seq, dt)
             if rep.is_straggler:
                 self.stats["straggler_chunks"].append(self._chunk_seq)
@@ -979,7 +1058,7 @@ class SolveService:
             statuses = self._statuses(plan, k_pad)
             x = np.asarray(x2)
             it_done += self.deadline_chunk
-            elapsed = _clock.now() - t0
+            elapsed = now - t0
             for i, p in enumerate(take):
                 if done[i]:
                     continue

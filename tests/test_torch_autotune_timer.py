@@ -21,6 +21,7 @@ import torch
 from repro.kernels import autotune as jat
 from repro_torch.kernels import autotune as at
 from repro_torch.obs import clock
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 @pytest.fixture

@@ -46,6 +46,7 @@ from repro_torch.data import matrices
 from repro_torch.kernels import ops
 
 from test_torch_kernels import ELL_CASES, _close, _ell, _t
+from torch_threads import one_torch_thread  # noqa: F401
 
 REPO = Path(__file__).resolve().parents[1]
 LANES = [1, 3, 8]

@@ -11,8 +11,8 @@ package's (``repro.checkpoint``).
   collects the same steps.
 * Tensors: saved as their host arrays, restored as tensors where the
   template leaf is one; ``CheckpointManager.save_async`` snapshots its
-  leaves when it is called.  ``sharding_tree`` raises, naming ROADMAP item
-  10.
+  leaves when it is called.  ``sharding_tree`` places the leaves it names
+  on their mesh or device (None keeps the leaf where it is).
 * A fault-tolerant solve resumes from the other package's checkpoints.
 """
 
@@ -33,6 +33,7 @@ from repro_torch import ft
 from repro_torch.core import AzulEngine, SolveSpec
 from repro_torch.data.matrices import laplacian_2d
 from repro_torch.launch.mesh import make_mesh
+from torch_threads import one_torch_thread  # noqa: F401
 
 pytestmark = pytest.mark.faults
 

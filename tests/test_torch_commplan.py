@@ -21,6 +21,7 @@ from repro.core import partition as jpartition
 from repro.data import matrices as jmat
 from repro_torch.core import commplan, partition
 from repro_torch.data import matrices as tmat
+from torch_threads import one_torch_thread  # noqa: F401
 
 GRIDS = ((2, 2), (4, 1), (2, 4), (4, 2))
 KINDS = ("banded", "random", "lap2d")

@@ -64,6 +64,7 @@ from repro_torch import train as T
 from repro_torch.data import TokenPipeline
 from repro_torch.launch import serve as serve_cli
 from repro_torch.models import model as M
+from torch_threads import one_torch_thread  # noqa: F401
 
 pytestmark = pytest.mark.gpu
 

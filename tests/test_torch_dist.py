@@ -42,6 +42,7 @@ from repro_torch.data import matrices as tmat
 from repro_torch.launch.mesh import (AXES, TileMesh, batch_axes, make_mesh,
                                      make_production_mesh)
 from test_torch_dist_cases import MESHES, eng_case, matrix, rhs, run_jax
+from torch_threads import one_torch_thread  # noqa: F401
 
 K = 4
 SPEC = dict(iters=40, max_iters=400, tol=1e-8)
@@ -105,7 +106,6 @@ def _solves():
 
 
 SOLVES = _solves()
-
 
 
 def _noc_cases():
@@ -277,16 +277,6 @@ for bad in ("1d", "rcm", "nnz"):
 np.savez(sys.argv[2], json=json.dumps(js), **res)
 print("JAX_DIST_DONE")
 """
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _one_torch_thread():
-    """The port's side runs small tensors: one intra-op thread, restored
-    after the module (the test workers share the machine)."""
-    was = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(was)
 
 
 @pytest.fixture(scope="module")

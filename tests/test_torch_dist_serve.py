@@ -40,6 +40,7 @@ from repro_torch.launch import solve as solve_cli
 from repro_torch.launch.mesh import make_mesh
 from repro_torch.serve import SolveService
 from test_torch_dist_cases import MESHES, REPO, matrix, rhs, run_jax
+from torch_threads import one_torch_thread  # noqa: F401
 
 sys.path.insert(0, str(REPO))
 import chip_smoke as CHIP  # noqa: E402
@@ -154,16 +155,6 @@ js["ft/reports"] = reports
 np.savez(sys.argv[2], json=json.dumps(js), **res)
 print("JAX_DIST_SERVE_DONE")
 """
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _one_torch_thread():
-    """The port's side runs small tensors: one intra-op thread, restored
-    after the module (the test workers share the machine)."""
-    was = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(was)
 
 
 @pytest.fixture(scope="module")

@@ -40,6 +40,7 @@ from repro_torch import configs
 from repro_torch.launch import dryrun
 from repro_torch.launch import sharding as SH
 from repro_torch.roofline import analyze as A
+from torch_threads import one_torch_thread  # noqa: F401
 
 JAX_CELL_KEYS = {"arch", "shape", "mesh", "kind", "seq", "global_batch",
                  "devices", "n_params", "layer_groups", "probe_layers",

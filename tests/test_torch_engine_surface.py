@@ -18,8 +18,9 @@
   and local ``hlo_summary``, ``warn_deprecated`` and the deprecated
   ``engine.solve`` shim, ``precond_names`` / ``unregister_precond``.
 * ``python -m repro_torch.launch.serve --device cpu --solver`` prints the
-  JAX CLI's keys; ``--arch`` refuses, naming its ROADMAP item, and
-  ``--mesh-shape 2x2`` serves on a tile grid.
+  JAX CLI's keys; an unknown ``--arch``, and neither ``--arch`` nor
+  ``--solver``, exit non-zero naming what is wrong, and ``--mesh-shape
+  2x2`` serves on a tile grid.
 """
 
 import contextlib
@@ -51,6 +52,7 @@ from repro_torch.data.matrices import laplacian_2d
 from repro_torch.data.matrices import suite as torch_suite
 from repro_torch.launch import serve as serve_cli
 from repro_torch.launch.mesh import make_mesh
+from torch_threads import one_torch_thread  # noqa: F401
 
 NOT_PORTED = {
     "core": set(),

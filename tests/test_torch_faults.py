@@ -47,6 +47,7 @@ from repro_torch.core.stencil import lap2d_stencil
 from repro_torch.data.matrices import laplacian_2d
 from repro_torch.launch import solve as solve_cli
 from repro_torch.obs import clock
+from torch_threads import one_torch_thread  # noqa: F401
 
 pytestmark = pytest.mark.faults
 

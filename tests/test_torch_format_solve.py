@@ -45,6 +45,7 @@ from repro_torch.core.engine import AzulEngine
 from repro_torch.core.plan import SolveSpec
 from repro_torch.data import matrices
 from repro_torch.kernels import autotune, bcsr_spmm, ops
+from torch_threads import one_torch_thread  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TOL = dict(rtol=1e-12, atol=1e-12)

@@ -21,6 +21,7 @@ from repro_torch.core import formats
 from repro_torch.core.engine import AzulEngine
 from repro_torch.data import matrices
 from repro_torch.kernels import autotune
+from torch_threads import one_torch_thread  # noqa: F401
 
 # the names of suite("small") in both packages
 SMALL = ("lap2d_32", "lap3d_10", "banded_1k", "rspd_1k", "skew_1k", "rmat_1k")

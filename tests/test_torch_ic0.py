@@ -51,6 +51,7 @@ from repro_torch.core.formats import ell_from_csr
 from repro_torch.core.plan import SolveSpec
 from repro_torch.data import matrices
 from repro_torch.kernels import ops
+from torch_threads import one_torch_thread  # noqa: F401
 
 REPO = Path(__file__).resolve().parents[1]
 TOL = dict(rtol=1e-12, atol=1e-12)

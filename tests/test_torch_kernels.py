@@ -21,6 +21,7 @@ from repro.kernels.ell_spmv import ell_spmv as pallas_ell_spmv
 from repro.kernels.spmv_dot import ell_spmv_pfold_dot as pallas_pfold_dot
 from repro.kernels.vecops import cg_update as pallas_cg_update
 from repro_torch.kernels import bcsr_spmm, ell_spmv, ops, spmv_dot, sptrsv, vecops
+from torch_threads import one_torch_thread  # noqa: F401
 
 TOL = dict(rtol=1e-12, atol=1e-12)
 

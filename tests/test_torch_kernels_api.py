@@ -33,6 +33,7 @@ from repro.kernels.spmv_dot import ell_spmm_dot as pallas_spmm_dot
 from repro.kernels.spmv_dot import ell_spmv_dot as pallas_spmv_dot
 from repro.kernels.vecops import axpy_dot as pallas_axpy_dot
 from repro_torch.kernels import ops, spmv_dot, sptrsv, vecops
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 def _tol(f64: bool) -> dict:

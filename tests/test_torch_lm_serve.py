@@ -31,6 +31,7 @@ from repro_torch import configs, convert
 from repro_torch.launch import serve as serve_cli
 from repro_torch.models import model as M
 from repro_torch.serve import SlotServer, generate
+from torch_threads import one_torch_thread  # noqa: F401
 
 ARCHS = sorted(configs.names())
 BATCH, PROMPT, STEPS = 2, 12, 6
@@ -44,14 +45,6 @@ KEYS = {"arch", "batch", "gen", "wall_s", "tokens_per_s",
 
 def f32(cfg):
     return cfg.replace(param_dtype="float32", compute_dtype="float32")
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    was = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(was)
 
 
 @pytest.fixture(scope="module")

@@ -54,6 +54,7 @@ from repro_torch.launch import train as train_cli
 from repro_torch.models import model as M
 from repro_torch.roofline.collect import train_step_bytes
 from test_torch_dist_cases import run_jax
+from torch_threads import one_torch_thread  # noqa: F401
 
 DEADLINE_S = 300.0
 
@@ -113,14 +114,6 @@ for src, d in A["jax_ckpts"].items():
 np.savez(sys.argv[2], json=json.dumps(js), **res)
 print("JAX_MESHTRAIN_DONE")
 """
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _one_torch_thread():
-    was = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(was)
 
 
 def _flat(tree, prefix=()) -> dict:

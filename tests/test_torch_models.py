@@ -39,6 +39,7 @@ from repro_torch.models import model as M
 from repro_torch.models import moe as MO
 from repro_torch.models import rglru as R
 from repro_torch.models import ssm as S
+from torch_threads import one_torch_thread  # noqa: F401
 
 ARCHS = sorted(configs.names())
 BATCH, SEQ, STEPS = 2, 24, 8
@@ -64,14 +65,6 @@ def as_jax(a):
 
 def as_torch(a):
     return None if a is None else torch.as_tensor(a)
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    was = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(was)
 
 
 def _jax_greedy(jp, cfg, toks, pfx, steps, max_len):

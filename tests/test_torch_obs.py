@@ -35,6 +35,7 @@ from repro_torch.core import AzulEngine, SolveSpec
 from repro_torch.data.matrices import laplacian_2d
 from repro_torch.ft.straggler import StepTimer
 from repro_torch.obs.clock import FakeClock
+from torch_threads import one_torch_thread  # noqa: F401
 
 GOLDEN = "\n".join([
     "# HELP depth current queue depth",

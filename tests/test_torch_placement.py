@@ -30,6 +30,7 @@ from repro_torch.launch import sharding as SH
 from repro_torch.launch.mesh import batch_axes
 from repro_torch.models import model as M
 from test_torch_dist_cases import run_jax
+from torch_threads import one_torch_thread  # noqa: F401
 
 ARCHS = sorted(configs.names())
 MESHES = {"2x2": ((2, 2), ("data", "model")), "4x1": ((4, 1), ("data", "model")),

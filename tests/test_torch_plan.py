@@ -35,6 +35,7 @@ from repro_torch.core.plan import SolveSpec
 from repro_torch.core.registry import (SolverDef, register_solver,
                                        unregister_solver)
 from repro_torch.data import matrices
+from torch_threads import one_torch_thread  # noqa: F401
 
 CHUNKS = (1, 7, 64)
 K = 4

@@ -44,7 +44,6 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
-import torch
 
 import procft_cases as C
 from repro import checkpoint as JC
@@ -61,6 +60,7 @@ from repro_torch.launch import train as train_cli
 from repro_torch.launch.mesh import make_mesh
 from repro_torch.obs import clock
 from test_torch_dist_cases import MESHES, REPO, run_jax
+from torch_threads import one_torch_thread  # noqa: F401
 
 sys.path.insert(0, str(REPO))
 import chip_smoke as CHIP  # noqa: E402
@@ -122,14 +122,6 @@ for kind, argv in A["cli"].items():
 np.savez(sys.argv[2], json=json.dumps(js))
 print("JAX_PROCFT_DONE")
 """
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _one_torch_thread():
-    was = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(was)
 
 
 _TILE: dict = {}

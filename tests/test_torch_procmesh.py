@@ -45,6 +45,7 @@ from repro_torch.launch import procs
 from repro_torch.launch import solve as solve_cli
 from repro_torch.launch.mesh import ProcessMesh, make_mesh, make_process_mesh
 from test_torch_dist_cases import MESHES, REPO, run_jax
+from torch_threads import one_torch_thread  # noqa: F401
 
 sys.path.insert(0, str(REPO))
 import chip_smoke as CHIP  # noqa: E402
@@ -98,14 +99,6 @@ for sid in C["solves"]:
 np.savez(sys.argv[2], json=json.dumps(js), **res)
 print("JAX_PROCMESH_DONE")
 """
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _one_torch_thread():
-    was = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(was)
 
 
 @pytest.fixture(scope="module")

@@ -21,6 +21,7 @@ from repro import configs as jconfigs
 from repro.roofline import analyze as JA
 from repro_torch import configs
 from repro_torch.roofline import analyze as A
+from torch_threads import one_torch_thread  # noqa: F401
 
 ARCHS = sorted(configs.names())
 CELLS = [(a, s) for a in ARCHS for s in configs.cells(configs.get(a))]

@@ -45,6 +45,7 @@ from repro_torch.serve import (
     run_load,
 )
 from repro_torch.serve.service import _Pending
+from torch_threads import one_torch_thread  # noqa: F401
 
 TOL = 1e-8
 REL = 1e-9

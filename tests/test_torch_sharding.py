@@ -33,6 +33,7 @@ from repro_torch import train as T
 from repro_torch.ft.remesh import validate_spec
 from repro_torch.launch import sharding as SH
 from repro_torch.models import model as M
+from torch_threads import one_torch_thread  # noqa: F401
 
 ARCHS = sorted(configs.names())
 MESHES = ("single", "multi")

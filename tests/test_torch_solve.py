@@ -29,6 +29,7 @@ from repro_torch.core.formats import csr_from_scipy as tcsr
 from repro_torch.core.plan import SolveSpec
 from repro_torch.data import matrices
 from repro_torch.kernels import autotune
+from torch_threads import one_torch_thread  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # the JAX package's pcg_tol counts on these (ROADMAP Recent, BENCH_pcg.json)

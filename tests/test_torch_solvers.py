@@ -31,6 +31,7 @@ from repro_torch.core.engine import AzulEngine
 from repro_torch.core.plan import SolveSpec
 from repro_torch.core.stencil import lap2d_stencil
 from repro_torch.data import matrices
+from torch_threads import one_torch_thread  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # pcg_pipelined_tol = pcg_tol counts of the JAX package (CPU, f64, tol 1e-8)

@@ -41,6 +41,7 @@ from repro_torch.launch import train as train_cli
 from repro_torch.models import blocks as B
 from repro_torch.models import model as M
 from repro_torch.models.config import ModelConfig
+from torch_threads import one_torch_thread  # noqa: F401
 
 ARCHS = sorted(configs.names())
 BATCH, SEQ = 2, 16
@@ -50,14 +51,6 @@ GRAD_RTOL = 1e-4
 SUB = dict(n_layers=2, d_model=32, n_heads=4, n_kv_heads=2, head_dim=8,
            d_ff=64, vocab_size=64, param_dtype="float32",
            compute_dtype="float32", remat=True)
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    was = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(was)
 
 
 def f32(cfg):

@@ -37,6 +37,7 @@ from repro_torch.ft import RestartManager
 from repro_torch.ft.restart import TrainLoopResult
 from repro_torch.models import model as M
 from repro_torch.models.config import ModelConfig
+from torch_threads import one_torch_thread  # noqa: F401
 
 pytestmark = pytest.mark.faults
 
@@ -44,14 +45,6 @@ SUB = dict(n_layers=2, d_model=32, n_heads=4, n_kv_heads=2, head_dim=8,
            d_ff=64, vocab_size=64, param_dtype="float32",
            compute_dtype="float32", remat=True)
 NAN_AT = 6
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    was = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(was)
 
 
 @pytest.fixture(scope="module")

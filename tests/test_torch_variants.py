@@ -44,6 +44,7 @@ from repro_torch.core.levels import build_schedule
 from repro_torch.core.precond import ic0
 from repro_torch.data.matrices import laplacian_2d
 from repro_torch.kernels import autotune, bcsr_spmm, ell_spmv, ops, spmv_dot, sptrsv
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 @pytest.fixture(autouse=True)
