@@ -113,10 +113,10 @@ prints no result line):
                2 x (loop steps + 1), the p-fold and the update once a
                step, ell_spmv at least once; converged within 1% of the
                JAX package's 457 iterations; true relative residual
-               <= 1e-7.  Then lap2d_256 on the fused and on the reference
+               <= 1e-7.  Then lap2d_128 on the fused and on the reference
                substrate (plain torch, a Python loop over the levels):
                the same status, iterations within 1% of each other and of
-               the JAX package's 164.
+               the JAX package's 96.
                Then the BCSR main path: the same b through
                ``AzulEngine(m, format="bcsr")`` (8 x 8 blocks), one RHS and
                k = 8: bcsr_spmm launched loop steps + 1 times (every
@@ -346,8 +346,8 @@ prints no result line):
                engines and solve the Jacobi parity cases, wait for the 8,
                then run the main path with their
                launch counts zeroed just before and read just after:
-               ``proc_spec``'s PROC_STEPS steps of unguarded ``pcg`` (an
-               eager round) on 2x2 dense, 2x2 halo and 1d-4 halo, one RHS
+               ``proc_spec``'s PROC_STEPS steps of unguarded ``pcg`` (half
+               an eager round) on 2x2 dense, 2x2 halo and 1d-4 halo, one RHS
                and k = 8, each x within PROC_RTOL of phase 8's one-process
                solve, and the block-IC(0) parity solve; every rank
                launches ``ell_spmv``, ``ell_spmm``, ``cg_update``,
@@ -357,7 +357,7 @@ prints no result line):
                phase 8's.  Every rank's x bitwise equal (digests), every
                plan eager with traces 1; each halo rank's received pull
                bytes a step equal to the comm plan's modeled halo words x
-               8 exactly.  The times: µs a step (32 steps minus 0, one
+               8 exactly.  The times: µs a step (PROC_STEPS steps minus 0, one
                call each, rank 0's host clock), its staging and gloo parts
                and the bytes received by NoC call, beside phase 8's
                one-process grid and local step, the card's name and power
@@ -382,11 +382,12 @@ prints no result line):
                same weights decoding into an int8 KV cache: each of
                LM_INT8_STEPS decode steps' logits within LM_INT8_BOUND x
                max|ref| of forward on the same tokens.  9c: dbrx-132b's
-               published config cut to 2 layers (16 experts of d_ff 10752
-               at d_model 6144), bf16: prefill and decode times, the
-               prefill's drops, decode drop-free (every assignment kept);
-               then the same weights in f32 prefill on the card and on the
-               CPU with the same experts and the same drops in both layers.
+               published config cut to LM_MOE_LAYERS layers (16 experts of
+               d_ff 10752 at d_model 6144), bf16: prefill and decode times,
+               the prefill's drops, decode drop-free (every assignment
+               kept); then the same weights in f32 prefill on the card and
+               on the CPU with the same experts and the same drops in
+               every layer.
 10. train   -- LM training (``models.model.loss_fn``, ``train``,
                ``ft.RestartManager``, ``launch.train``), after phases 1-9
                have released what they hold (their plans, graphs and pools:
@@ -462,16 +463,18 @@ prints no result line):
                train_on_mesh`` (the state placed by ``state_specs`` and
                ``sharding.named``, cut to the rank's slices, trained with
                ``grad_shardings``: the split step, each rank running its
-               own heads, d_ff columns, experts and vocab rows where they
-               divide, ``models.shard.split_kinds``); no CUDA kernel of
-               the port's own.  The one-process counterparts run first,
-               on the card.  12a: the f32 smoke configs of granite-3-8b
-               and dbrx-132b (experts a rank) with AdamW and Adafactor,
+               own heads, d_ff columns, experts, vocab rows, SSD heads and
+               RG-LRU width where they divide,
+               ``models.shard.split_kinds``); no CUDA kernel of the port's
+               own.  The one-process counterparts run first, on the card.
+               12a: the f32 smoke configs of granite-3-8b and dbrx-132b
+               (experts a rank) with AdamW and Adafactor,
                deepseek-v3-671b (MLA, a shared expert, MTP) with
                Adafactor, paligemma-3b (kv = 1 whole on every rank, tied
-               tables) and recurrentgemma-9b (split attention beside whole
-               rec layers) with AdamW, MESH_PARITY_STEPS steps of
-               MESH_PARITY_SHAPE from the same seed-0 state:
+               tables), recurrentgemma-9b (split RG-LRU layers and MLPs
+               beside split attention) and mamba2-370m (split SSD heads)
+               with AdamW, MESH_PARITY_STEPS steps of MESH_PARITY_SHAPE
+               from the same seed-0 state:
                losses and grad_norm within MESH_RTOL of the one-process
                step, the params gathered after within MESH_PARAM_TOL x
                max|p|, every rank's metrics and gathered params bitwise
@@ -491,7 +494,12 @@ prints no result line):
                ``train_step_bytes``, each rank's forward+backward time by
                CUDA events, each rank's ``max_memory_allocated`` over the
                steps against its ``device_bytes``, beside the card's name
-               and power limit.
+               and power limit.  12c: the same checks and numbers for
+               MESH_FULL's two other cells, the mamba2 and RG-LRU splits
+               at full width: mamba2-370m's published config whole (48
+               layers, 32 SSD heads) with AdamW, and recurrentgemma-9b's
+               published width cut to one (rec, rec, attn) unit with
+               Adafactor, with the step's ``split_kinds`` table.
 13. procft  -- fault tolerance on a process grid: 4 gloo ranks on the card
                (``launch.procs``, one spawn, PROC_DEADLINE_S), while the
                parent runs the one-process grid's references on the card
@@ -507,15 +515,15 @@ prints no result line):
                the ranks' reports and x bitwise equal; each rank's launch
                counts (zeroed just before, read just after) printed, with
                ``ell_spmv`` and ``cg_update`` above 0 on every rank.  13b:
-               laplacian_3d(SERVE_GRID) on the 2x2 halo grid, f64 Jacobi
+               laplacian_3d(PROC_GRID) on the 2x2 halo grid, f64 Jacobi
                pcg_tol 1e-8 in chunks of FT_CHUNK, a halo_perturb at FT_AT
                (seed 1), checkpointed: converged, with the one-process 2x2
                grid's report; the wall beside the uninterrupted grid
                solve's, a chunk's plan call, audit and checkpoint save
                (rank 0's host clock) and the bytes a rank receives in a
                chunk (``mesh.stats``).  13c: granite-3-8b at its published
-               width cut to MESH_FULL_LAYERS layers (12b's config), bf16,
-               Adafactor, MESH_FULL_SHAPE: ``train_on_mesh(ckpt_dir=,
+               width cut to PROC_FT_TRAIN_LAYERS layers, bf16, Adafactor,
+               MESH_FULL_SHAPE: ``train_on_mesh(ckpt_dir=,
                save_every=1)`` for PROC_FT_TRAIN_STEPS steps with a
                failure injected at step 1, then a fresh placed state that
                the manager resumes from step 1, then an uninterrupted run:
@@ -541,7 +549,7 @@ prints no result line):
                ranks bitwise equal; ``launch.serve PROC_SERVE_ARGV
                --processes`` under torchrun's environment in the ranks:
                rank 0's JSON the one-process grid's with ``processes``
-               added.  14b: laplacian_3d(SERVE_GRID) on the 2x2 halo grid
+               added.  14b: laplacian_3d(PROC_GRID) on the 2x2 halo grid
                (13b's engine), f64 Jacobi pcg_tol 1e-8, max_batch
                SERVE_BATCH, chunks of SERVE_CHUNK, PROC_SERVE_DRAIN
                requests drained: converged with the one-process grid's iterations
@@ -615,9 +623,9 @@ MAIN_TOL = 1e-8
 MAIN_MAX_ITERS = 10000
 MAIN_MAX_TRUE_RESIDUAL = 1e-7      # ||b - A x|| / ||b|| in f64 on the host
 # block_ic0 pcg_tol counts of the JAX package (CPU, f64, tol 1e-8, the main
-# path's b): lap2d_1024 on the kernels, lap2d_256 on both substrates
+# path's b): lap2d_1024 on the kernels, lap2d_128 on both substrates
 MAIN_IC0_ITERS = 457
-REF_IC0_GRID, REF_IC0_ITERS = 256, 164
+REF_IC0_GRID, REF_IC0_ITERS = 128, 96
 CHAIN_ROWS = 2047                  # the levels of lap2d_1024's factors
 # the format portfolio.  Per-format parity: the JAX package's pcg_tol count
 # (CPU, f64, tol 1e-8, Jacobi) and its format="auto" choice, b = A x with x
@@ -760,7 +768,8 @@ LM_RTOL = 1e-4                      # 9a: max |card - cpu| <= LM_RTOL max |cpu|
 LM_FULL = "granite-3-8b"            # 9b: the published config, bf16
 LM_FULL_ARGV = ["--arch", LM_FULL, "--batch", "4", "--prompt-len", "32",
                 "--gen", "16", "--slots", "--seed", str(LM_SEED)]
-LM_MOE = "dbrx-132b"                # 9c: the published config, n_layers 2
+LM_MOE = "dbrx-132b"                # 9c: the published config, LM_MOE_LAYERS
+LM_MOE_LAYERS = 1                   # (2 until the 12c cells came)
 LM_INT8_BOUND = 6e-2                # 9d: tests/test_models.py::test_int8_kv_cache_close
 LM_INT8_STEPS = 4
 
@@ -817,21 +826,28 @@ LEVEL_PROBE = 2047                  # 11c: nodes of the launch-floor graph
 # Adafactor; its losses within MESH_FULL_LOSS_RTOL of the one-process step
 # on the card: bf16 rounds at 2^-8 = 3.9e-3, and the two runs round the
 # sharded batch's products and the gradient sums differently.
+# 12c: the mamba2 and RG-LRU splits at full width, as 12b: mamba2-370m's
+# published config whole (48 layers, 32 SSD heads), AdamW; recurrentgemma-9b's
+# published width cut to one (rec, rec, attn) unit, Adafactor.
 MESH_GRID, MESH_AXES = (2, 2), ("data", "model")
-MESH_STEPS = 3                      # 12b
+MESH_STEPS = 3                      # 12b, 12c
 MESH_PARITY_STEPS = 2               # 12a: an update and a step after it
-                                    # (3 would not fit seven configs)
+                                    # (3 would not fit eight configs)
 MESH_PARITY = (("granite-3-8b", "adamw"), ("granite-3-8b", "adafactor"),
                ("dbrx-132b", "adamw"), ("dbrx-132b", "adafactor"),
                ("deepseek-v3-671b", "adafactor"), ("paligemma-3b", "adamw"),
-               ("recurrentgemma-9b", "adamw"))
+               ("recurrentgemma-9b", "adamw"), ("mamba2-370m", "adamw"))
 MESH_PARITY_SHAPE = (4, 32)
 MESH_RTOL = 1e-5
 MESH_PARAM_TOL = {"adamw": 1e-4, "adafactor": 1e-5}
 MESH_FULL_LAYERS = 2
 MESH_FULL_SHAPE = (4, 512)
 MESH_FULL_LOSS_RTOL = 2e-2
-MESH_DEADLINE_S = 300.0
+# the full-width cells: label -> (arch, layers kept (None: all), optimizer)
+MESH_FULL = {"12b": (TRAIN_FULL, MESH_FULL_LAYERS, "adafactor"),
+             "12c ssm": ("mamba2-370m", None, "adamw"),
+             "12c rec": ("recurrentgemma-9b", 3, "adafactor")}
+MESH_DEADLINE_S = 600.0
 
 # phase 13, fault tolerance on a process grid: 4 gloo ranks on the card.
 # 13a, PROC_FT: (case, the JAX package's report) -- the scenarios of
@@ -869,15 +885,18 @@ PROC_FT_CKPT = (
     (("converged", 115, 5, 0, ()), 50),
 )
 PROC_FT_TOL, PROC_FT_BUDGET = 1e-8, 400
-# 13b: the service's operator (laplacian_3d(SERVE_GRID)) on the 2x2 halo
-# grid (8p's cell), f64 Jacobi pcg_tol 1e-8 in chunks of FT_CHUNK, a
-# halo_perturb at FT_AT, seed 1, checkpointed; 13c: granite-3-8b at its
-# published width cut to MESH_FULL_LAYERS layers (12b's), bf16, Adafactor,
+# 13b: laplacian_3d(PROC_GRID) on the 2x2 halo grid, f64 Jacobi pcg_tol 1e-8
+# in chunks of FT_CHUNK, a halo_perturb at FT_AT, seed 1, checkpointed (the
+# service's operator, laplacian_3d(SERVE_GRID) = 8p's cell, until the 12c
+# cells came: PERF.md section 4); 13c: granite-3-8b at its
+# published width cut to PROC_FT_TRAIN_LAYERS layers (12b's 2 until the 12c
+# cells came), bf16, Adafactor,
 # MESH_FULL_SHAPE, a checkpoint every step: PROC_FT_TRAIN_STEPS steps with
 # a failure injected at step 1, then a fresh placed state resumed from it;
 # PROC_FT_SMOKE: the f32 smoke config, AdamW, a NaN forced at step
 # PROC_FT_NAN_AT, a checkpoint every PROC_FT_SAVE_EVERY steps
-PROC_FT_TRAIN_STEPS = 2
+PROC_GRID = 64                      # 13b and 14b: n = 262,144
+PROC_FT_TRAIN_STEPS, PROC_FT_TRAIN_LAYERS = 2, 1
 PROC_FT_DEADLINE_S = 480.0          # phase 13 and 14's spawn (2 x 8p's)
 PROC_FT_SMOKE_STEPS, PROC_FT_NAN_AT, PROC_FT_SAVE_EVERY = 6, 3, 2
 PROC_FT_SMOKE_SHAPE = (4, 32)
@@ -886,14 +905,14 @@ PROC_FT_SMOKE_SHAPE = (4, 32)
 # one-process grid's service on the card and the JAX package's 2x2-mesh
 # service (SERVICE_PARITY's counts; tests/test_torch_procserve.py computes
 # them anew), x within PROC_SERVE_RTOL x max|x|; launch.serve
-# PROC_SERVE_ARGV once with --processes.  14b: laplacian_3d(SERVE_GRID) on
+# PROC_SERVE_ARGV once with --processes.  14b: laplacian_3d(PROC_GRID) on
 # the 2x2 halo grid (13b's engine), Jacobi pcg_tol MAIN_TOL, max_batch
 # SERVE_BATCH, chunks of SERVE_CHUNK, PROC_SERVE_DRAIN requests drained (one
-# batch at k_pad = SERVE_BATCH)
+# batch at k_pad 4; 8 until the 12c cells came, see PERF.md section 4)
 PROC_SERVE = "lap2d_32"
 PROC_SERVE_RTOL = 1e-12
 PROC_SERVE_ARGV = ["--solver", "--matrix", PROC_SERVE, "--mesh-shape", "2x2"]
-PROC_SERVE_DRAIN = 8
+PROC_SERVE_DRAIN = 4
 PROC_SERVE_TIMES = ("wall_s", "solves_per_s")    # the CLI JSON's wall times
 PROC_SERVE_KERNELS = ("ell_spmv", "ell_spmm", "cg_update", "cg_update_batched")
 
@@ -1605,7 +1624,7 @@ def grid_phase(failed: list) -> dict:
 
 PROC_CASES = (("2x2", "dense"), ("2x2", "halo"), ("4x1", "halo"))
 PROC_MODES = {"2x2": "2d", "4x1": "1d"}
-PROC_STEPS = 32                     # 8p's full-size solves: a round of pcg
+PROC_STEPS = 16                     # 8p's full-size solves: half a round of pcg
 PROC_DEADLINE_S = 240.0             # the parent's deadline for a spawn
 PROC_RTOL = 1e-10                   # x against the one-process grid's, f64
 PROC_KERNELS = ("ell_spmv", "ell_spmm", "cg_update", "cg_update_batched",
@@ -2125,13 +2144,13 @@ def lm_phase(failed: list) -> dict:
         traceback.print_exc()
         failed.append("lm full width")
 
-    # -- 9c: dbrx-132b at its published width, 2 layers -------------------
+    # -- 9c: dbrx-132b at its published width, LM_MOE_LAYERS layers -------
     try:
         torch.cuda.synchronize()
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         base = torch.cuda.memory_allocated()
-        cfg = get(LM_MOE).replace(n_layers=2)
+        cfg = get(LM_MOE).replace(n_layers=LM_MOE_LAYERS)
         params = M.init_params(
             cfg, torch.Generator(device="cuda").manual_seed(LM_SEED), "cuda")
         wbytes = sum(p.numel() * p.element_size() for p in params.parameters())
@@ -2177,10 +2196,10 @@ def lm_phase(failed: list) -> dict:
         peak = torch.cuda.max_memory_allocated() - base
 
         # prefill's assignments in f32, card against CPU, the same weights
-        # (the bf16 ones upcast).  The CPU holds the f32 model (31 GB); the
-        # card runs the same prefill a layer at a time, one layer's f32
-        # weights (12.7 GB) on it at once: the plans phases 1-8 keep leave
-        # too little room for the whole f32 model
+        # (the bf16 ones upcast).  The CPU holds the f32 model (15.5 GB a
+        # layer); the card runs the same prefill a layer at a time, one
+        # layer's f32 weights (12.7 GB) on it at once: the plans phases 1-8
+        # keep leave too little room for a whole f32 model
         cfg32 = cfg.replace(param_dtype="float32", compute_dtype="float32")
         cpu = M.init_params(cfg32, None, "cpu")
         with torch.no_grad():
@@ -2215,7 +2234,7 @@ def lm_phase(failed: list) -> dict:
                 raise AssertionError(f"MoE layer {li}: f32 prefill assignments "
                                      "differ between the card and the CPU")
         drops32 = [int((~r["keep"]).sum()) for r in on_card]
-        say(f"lm moe {LM_MOE} (published width, n_layers 2: 16 experts of "
+        say(f"lm moe {LM_MOE} (published width, n_layers {LM_MOE_LAYERS}: 16 experts of "
             f"d_ff 10752 at d_model 6144, top-4; bf16, {wbytes} weight bytes, "
             f"peak {peak / 1e9:.3f} GB above the earlier phases): prefill "
             f"4 x 32 {moe_pre_ms:.3f} ms "
@@ -2224,7 +2243,7 @@ def lm_phase(failed: list) -> dict:
             f"{float(np.median(moe_dec)):.3f} ms a step (median of {steps}; "
             f"bound {wbytes / HBM_BYTES_PER_S * 1e3:.3f} ms), drop-free; f32 "
             f"prefill on the card and the CPU ({cpu_s:.1f} s): the same "
-            f"experts and the same drops ({drops32}) in both layers")
+            f"experts and the same drops ({drops32}) in every layer")
         del cpu, x
     except Exception:
         traceback.print_exc()
@@ -2959,14 +2978,23 @@ def _held_is_gathered(state, full, pls) -> bool:
     return True
 
 
+def mesh_full_cfg(label: str):
+    """The config of MESH_FULL's cell ``label``: the published one, cut to
+    its layers."""
+    from repro_torch.configs import get
+
+    arch, layers, _ = MESH_FULL[label]
+    return get(arch) if layers is None else get(arch).replace(n_layers=layers)
+
+
 def meshtrain_rank(rank, t_spawn: float) -> dict:
     """A rank of phase 12 (module docstring): ``launch.train.
     train_on_mesh`` on the 2x2 grid, 12a's smoke configs (gathered after)
-    then 12b's cut granite-3-8b."""
+    then MESH_FULL's cells (12b, 12c)."""
     import torch
 
     from repro_torch import convert
-    from repro_torch.configs import get, get_smoke
+    from repro_torch.configs import get_smoke
     from repro_torch.launch import sharding as SH
     from repro_torch.launch.train import train_on_mesh
     from repro_torch.obs.clock import now
@@ -2974,7 +3002,7 @@ def meshtrain_rank(rank, t_spawn: float) -> dict:
     keep = ("losses", "grad_norms", "step_ms", "wire_bytes", "stage_s",
             "comm_s", "held_bytes", "device_bytes", "build_peak_bytes",
             "peak_bytes", "fwd_bwd_ms", "split_kinds")
-    out = {"rank": rank.rank, "start_s": now() - t_spawn, "parity": {}}
+    out = {"rank": rank.rank, "start_s": now() - t_spawn, "parity": {}, "full": {}}
     mesh = rank.mesh(MESH_GRID, MESH_AXES)
     t0 = now()
     for arch, opt_name in MESH_PARITY:
@@ -2988,14 +3016,85 @@ def meshtrain_rank(rank, t_spawn: float) -> dict:
         out["parity"][f"{arch} {opt_name}"] = got
         del res, full
     out["parity_s"] = now() - t0
-    torch.cuda.empty_cache()
-    t0 = now()
-    cfg = get(TRAIN_FULL).replace(n_layers=MESH_FULL_LAYERS)
-    res = train_on_mesh(mesh, cfg, steps=MESH_STEPS, batch=MESH_FULL_SHAPE[0],
-                        seq=MESH_FULL_SHAPE[1], optimizer="adafactor")
-    out["full"] = {k: res[k] for k in keep}
-    out["full_s"] = now() - t0
+    for label, (_, _, opt_name) in MESH_FULL.items():
+        torch.cuda.empty_cache()
+        t0 = now()
+        res = train_on_mesh(mesh, mesh_full_cfg(label), steps=MESH_STEPS,
+                            batch=MESH_FULL_SHAPE[0], seq=MESH_FULL_SHAPE[1],
+                            optimizer=opt_name)
+        out["full"][label] = {k: res[k] for k in keep}
+        out["full"][label]["s"] = now() - t0
+        del res
     return out
+
+
+def meshtrain_full(label: str, got: list, ref: dict, ranks: list, model_bytes,
+                   smi: str) -> bool:
+    """Checks and prints MESH_FULL's cell ``label`` (``got``: each rank's
+    ``train_on_mesh`` numbers, ``ref``: the one-process step's on the card);
+    True where every check holds."""
+    import numpy as np
+
+    from repro_torch.configs import get
+    from repro_torch.models import model as M
+
+    arch, layers, opt_name = MESH_FULL[label]
+    cfg = mesh_full_cfg(label)
+    r0 = got[0]
+    total, want = model_bytes(cfg, opt_name, MESH_FULL_SHAPE)
+    # a rank builds its state one drawn tensor at a time: its slices
+    # and at most one whole f32 draw and that draw's slice
+    meta = M.init_params(cfg, None, "meta")
+    draw = 4 * max(p.numel() for p in meta.parameters())
+    e_loss = float(np.max(np.abs(np.subtract(r0["losses"], ref["losses"]))
+                          / np.abs(ref["losses"])))
+    warm = float(np.median(r0["step_ms"][1:]))
+    stage = 1e3 * float(np.median(r0["stage_s"][1:]))
+    comm = 1e3 * float(np.median(r0["comm_s"][1:]))
+    ok = (e_loss <= MESH_FULL_LOSS_RTOL
+          and all(np.isfinite(g["losses"]).all() for g in got)
+          and all(g["losses"] == r0["losses"] for g in got)
+          and all(g["held_bytes"] == g["device_bytes"] for g in got)
+          and all(w == want for g in got for w in g["wire_bytes"])
+          and all(g["build_peak_bytes"] <= g["device_bytes"] + 2 * draw
+                  for g in got))
+    full = {"params": M.param_count(meta), "optimizer": opt_name,
+            "losses": r0["losses"], "one_process_losses": ref["losses"],
+            "one_process_step_ms": ref["step_ms"],
+            "loss_rel_err": e_loss, "step_ms": [g["step_ms"] for g in got],
+            "warm_step_ms": warm, "stage_ms": stage, "gloo_ms": comm,
+            "rest_ms": warm - stage - comm,
+            "wire_bytes_per_step": r0["wire_bytes"][1], "model_bytes": total,
+            "model_by_call": want, "split_kinds": r0["split_kinds"],
+            "fwd_bwd_ms": [g["fwd_bwd_ms"] for g in got],
+            "held_bytes": [g["held_bytes"] for g in got],
+            "device_bytes": r0["device_bytes"],
+            "build_peak_bytes": [g["build_peak_bytes"] for g in got],
+            "build_bound_bytes": r0["device_bytes"] + 2 * draw,
+            "peak_bytes": [g["peak_bytes"] for g in got],
+            "rank_start_s": [r["start_s"] for r in ranks],
+            "cell_s": r0["s"], "reference_s": ref["s"]}
+    say(f"meshtrain {label} " + json.dumps(full))
+    cut = "all" if layers is None else f"{layers} of {get(arch).n_layers}"
+    say(f"meshtrain {label} {arch} ({cut} layers, published width, bf16, "
+        f"{opt_name}, {MESH_FULL_SHAPE[0]} x {MESH_FULL_SHAPE[1]}) on 2x2, 4 gloo ranks "
+        f"on one card: {warm:.1f} ms a step (median of steps 2-{MESH_STEPS}; staging "
+        f"{stage:.1f}, gloo {comm:.1f}, rest {warm - stage - comm:.1f}; the "
+        f"one-process step {float(np.median(ref['step_ms'][1:])):.1f}); a rank "
+        f"receives {sum(r0['wire_bytes'][1].values()) / 1e6:.1f} MB a step (model "
+        f"{total / 1e6:.1f}; by call "
+        f"{ {k: round(v / 1e6, 3) for k, v in r0['wire_bytes'][1].items()} } MB); "
+        f"forward+backward by CUDA events "
+        f"{[round(float(np.median(g['fwd_bwd_ms'][1:])), 1) for g in got]} ms a rank; "
+        f"building the state peaks at "
+        f"{[round(g['build_peak_bytes'] / 1e9, 2) for g in got]} GB, the steps at "
+        f"{[None if g['peak_bytes'] is None else round(g['peak_bytes'] / 1e9, 2) for g in got]} GB; "
+        f"held {[g['held_bytes'] for g in got]} bytes against device_bytes "
+        f"{r0['device_bytes']} a rank; losses "
+        f"{[round(x, 4) for x in r0['losses']]} against the one-process "
+        f"{[round(x, 4) for x in ref['losses']]} ({e_loss:.2e}, tol "
+        f"{MESH_FULL_LOSS_RTOL}); split {r0['split_kinds']}; on {smi}")
+    return ok
 
 
 def meshtrain_phase(failed: list) -> None:
@@ -3005,7 +3104,7 @@ def meshtrain_phase(failed: list) -> None:
     import torch
 
     from repro_torch import train as T
-    from repro_torch.configs import get, get_smoke
+    from repro_torch.configs import get_smoke
     from repro_torch.launch import procs
     from repro_torch.launch.sharding import MeshShape
     from repro_torch.models import model as M
@@ -3017,12 +3116,16 @@ def meshtrain_phase(failed: list) -> None:
     try:
         f32 = lambda c: c.replace(param_dtype="float32", compute_dtype="float32")
         cases = {f"{a} {o}": (f32(get_smoke(a)), o) for a, o in MESH_PARITY}
-        full_cfg = get(TRAIN_FULL).replace(n_layers=MESH_FULL_LAYERS)
         t0 = now()
         refs = {k: mesh_reference(cfg, o, MESH_PARITY_SHAPE, MESH_PARITY_STEPS)
                 for k, (cfg, o) in cases.items()}
-        full_ref = mesh_reference(full_cfg, "adafactor", MESH_FULL_SHAPE)
-        torch.cuda.empty_cache()
+        full_refs = {}
+        for label, (_, _, opt_name) in MESH_FULL.items():
+            t1 = now()
+            full_refs[label] = mesh_reference(mesh_full_cfg(label), opt_name,
+                                              MESH_FULL_SHAPE)
+            full_refs[label]["s"] = now() - t1
+            torch.cuda.empty_cache()
         ref_s = now() - t0
         t0 = now()
         ranks = procs.run(meshtrain_rank, MESH_GRID[0] * MESH_GRID[1], (t0,),
@@ -3062,61 +3165,12 @@ def meshtrain_phase(failed: list) -> None:
                 f"{[g['held_bytes'] for g in got]} = device_bytes "
                 f"{r0['device_bytes']}; wire bytes a step {sum(r0['wire_bytes'][0].values())} "
                 f"(model {total}) {r0['wire_bytes'][0]}; split {r0['split_kinds']}")
-        got = [r["full"] for r in ranks]
-        r0 = got[0]
-        total, want = model_bytes(full_cfg, "adafactor", MESH_FULL_SHAPE)
-        # a rank builds its state one drawn tensor at a time: its slices
-        # and at most one whole f32 draw and that draw's slice
-        draw = 4 * max(p.numel() for p in M.init_params(full_cfg, None, "meta").parameters())
-        e_loss = rel(r0["losses"], full_ref["losses"])
-        warm = float(np.median(r0["step_ms"][1:]))
-        stage = 1e3 * float(np.median(r0["stage_s"][1:]))
-        comm = 1e3 * float(np.median(r0["comm_s"][1:]))
-        ok = (e_loss <= MESH_FULL_LOSS_RTOL
-              and all(np.isfinite(g["losses"]).all() for g in got)
-              and all(g["losses"] == r0["losses"] for g in got)
-              and all(g["held_bytes"] == g["device_bytes"] for g in got)
-              and all(w == want for g in got for w in g["wire_bytes"])
-              and all(g["build_peak_bytes"] <= g["device_bytes"] + 2 * draw
-                      for g in got))
-        if not ok:
-            bad.append("12b")
-        full = {"params": M.param_count(M.init_params(full_cfg, None, "meta")),
-                "losses": r0["losses"], "one_process_losses": full_ref["losses"],
-                "one_process_step_ms": full_ref["step_ms"],
-                "loss_rel_err": e_loss, "step_ms": [g["step_ms"] for g in got],
-                "warm_step_ms": warm, "stage_ms": stage, "gloo_ms": comm,
-                "rest_ms": warm - stage - comm,
-                "wire_bytes_per_step": r0["wire_bytes"][1], "model_bytes": total,
-                "model_by_call": want, "split_kinds": r0["split_kinds"],
-                "fwd_bwd_ms": [g["fwd_bwd_ms"] for g in got],
-                "held_bytes": [g["held_bytes"] for g in got],
-                "device_bytes": r0["device_bytes"],
-                "build_peak_bytes": [g["build_peak_bytes"] for g in got],
-                "build_bound_bytes": r0["device_bytes"] + 2 * draw,
-                "peak_bytes": [g["peak_bytes"] for g in got],
-                "rank_start_s": [r["start_s"] for r in ranks],
-                "parity_s": ranks[0]["parity_s"], "full_s": ranks[0]["full_s"],
-                "reference_s": ref_s, "ranks_s": run_s}
-        say("meshtrain 12b " + json.dumps(full))
-        say(f"meshtrain 12b {TRAIN_FULL} ({MESH_FULL_LAYERS} of 40 layers, published "
-            f"width, bf16, Adafactor, {MESH_FULL_SHAPE[0]} x {MESH_FULL_SHAPE[1]}) on "
-            f"2x2, 4 gloo ranks on one card: {warm:.1f} ms a step (median of steps "
-            f"2-{MESH_STEPS}; staging {stage:.1f}, gloo {comm:.1f}, rest "
-            f"{warm - stage - comm:.1f}; the one-process step "
-            f"{float(np.median(full_ref['step_ms'][1:])):.1f}); a rank receives "
-            f"{sum(r0['wire_bytes'][1].values()) / 1e6:.1f} MB a step (model "
-            f"{total / 1e6:.1f}; by call "
-            f"{ {k: round(v / 1e6, 3) for k, v in r0['wire_bytes'][1].items()} } MB); "
-            f"forward+backward by CUDA events "
-            f"{[round(float(np.median(g['fwd_bwd_ms'][1:])), 1) for g in got]} ms a rank; "
-            f"building the state peaks at "
-            f"{[round(g['build_peak_bytes'] / 1e9, 2) for g in got]} GB, the steps at "
-            f"{[None if g['peak_bytes'] is None else round(g['peak_bytes'] / 1e9, 2) for g in got]} GB against "
-            f"device_bytes {r0['device_bytes'] / 1e9:.2f} GB a rank; losses "
-            f"{[round(x, 4) for x in r0['losses']]} against the one-process "
-            f"{[round(x, 4) for x in full_ref['losses']]} ({e_loss:.2e}, tol "
-            f"{MESH_FULL_LOSS_RTOL}); on {smi}")
+        for label in MESH_FULL:
+            if not meshtrain_full(label, [r["full"][label] for r in ranks],
+                                  full_refs[label], ranks, model_bytes, smi):
+                bad.append(label)
+        say(f"meshtrain times: references {ref_s:.1f} s, ranks {run_s:.1f} s (12a "
+            f"{ranks[0]['parity_s']:.1f} s on rank 0)")
         if bad:
             raise AssertionError(f"phase 12 checks failed: {bad}")
     except Exception:
@@ -3227,7 +3281,7 @@ def proc_ft_smoke(mesh, root: str) -> dict:
 
 
 def proc_ft_full_engine(mesh):
-    """13b's engine on ``mesh`` and its b: laplacian_3d(SERVE_GRID) on the
+    """13b's engine on ``mesh`` and its b: laplacian_3d(PROC_GRID) on the
     2x2 halo grid, b = A x with x from default_rng(0)."""
     import numpy as np
     import scipy.sparse as sp
@@ -3235,7 +3289,7 @@ def proc_ft_full_engine(mesh):
     from repro_torch.core.engine import AzulEngine
     from repro_torch.data.matrices import laplacian_3d
 
-    m = laplacian_3d(SERVE_GRID)
+    m = laplacian_3d(PROC_GRID)
     a = sp.csr_matrix((m.data, m.indices, m.indptr), shape=m.shape)
     b = a @ np.random.default_rng(0).standard_normal(m.shape[0])
     _, _, ra, ca = DIST_MESHES["2x2"]
@@ -3307,7 +3361,7 @@ def proc_serve_rhs(n: int):
 
     from repro_torch.data.matrices import laplacian_3d
 
-    m = laplacian_3d(SERVE_GRID)
+    m = laplacian_3d(PROC_GRID)
     a = sp.csr_matrix((m.data, m.indices, m.indptr), shape=m.shape)
     xs = np.random.default_rng(0).standard_normal((PROC_SERVE_DRAIN, n))
     return np.ascontiguousarray((a @ xs.T).T)
@@ -3463,7 +3517,7 @@ def procserve_report(ranks: list, refs: dict, smi: str) -> list:
             and got["iters"] == one["iters"] and rel <= PROC_RTOL and same):
         bad.append("14b drain")
     per_tick = [sum(t.values()) for t in got["tick_bytes"]]
-    say(f"procserve 14b laplacian_3d({SERVE_GRID}) 2x2 halo, {PROC_SERVE_DRAIN} "
+    say(f"procserve 14b laplacian_3d({PROC_GRID}) 2x2 halo, {PROC_SERVE_DRAIN} "
         f"requests, max_batch {SERVE_BATCH}, chunk {SERVE_CHUNK}, 4 gloo ranks on "
         f"{smi}: " + json.dumps({
             "solves_per_s": got["solves_per_s"], "drain_s": got["drain_s"],
@@ -3584,7 +3638,7 @@ def procft_rank(rank, t_spawn: float, root: str, go: str) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     # -- 13c: a failure at step 1, a fresh state resumed, an uninterrupted run
-    cfg = get(TRAIN_FULL).replace(n_layers=MESH_FULL_LAYERS)
+    cfg = get(TRAIN_FULL).replace(n_layers=PROC_FT_TRAIN_LAYERS)
     kw = dict(steps=PROC_FT_TRAIN_STEPS, batch=MESH_FULL_SHAPE[0],
               seq=MESH_FULL_SHAPE[1], optimizer="adafactor")
     d = os.path.join(root, "13c")
@@ -3760,7 +3814,7 @@ def procft_phase(failed: list) -> None:
         if not (got["summary"] == one["summary"] and got["summary"][0] == "converged"
                 and same):
             bad.append("13b")
-        say(f"procft 13b laplacian_3d({SERVE_GRID}) 2x2 halo, halo_perturb at {FT_AT} "
+        say(f"procft 13b laplacian_3d({PROC_GRID}) 2x2 halo, halo_perturb at {FT_AT} "
             f"(chunk {FT_CHUNK}, checkpointed), 4 gloo ranks on {smi}: "
             + json.dumps({
                 "report": got["summary"], "one_process_report": one["summary"],
@@ -3785,7 +3839,7 @@ def procft_phase(failed: list) -> None:
               and ckpt["host_bytes"] == r0["c_state_bytes"])
         if not ok:
             bad.append("13c")
-        say(f"procft 13c {TRAIN_FULL} ({MESH_FULL_LAYERS} of 40 layers, bf16, Adafactor, "
+        say(f"procft 13c {TRAIN_FULL} ({PROC_FT_TRAIN_LAYERS} of 40 layers, bf16, Adafactor, "
             f"{MESH_FULL_SHAPE[0]} x {MESH_FULL_SHAPE[1]}, 2x2) on {smi}: " + json.dumps({
                 "raised": [r["c_raised"] for r in ranks],
                 "resumed_from": c["resumed_from"], "resumed_losses": c["losses"],
@@ -5877,7 +5931,7 @@ def earlier_phases(failed: list) -> tuple:
                                  f"{ic0_main['status']} (JAX package: "
                                  f"{MAIN_IC0_ITERS}, converged)")
         # the reference substrate loops over the levels in Python: at
-        # lap2d_1024 that is minutes, so it runs at lap2d_256
+        # lap2d_1024 that is minutes, so it runs at lap2d_128
         m = laplacian_2d(REF_IC0_GRID)
         a = sp.csr_matrix((m.data, m.indices, m.indptr), shape=m.shape)
         x_true = np.random.default_rng(0).standard_normal(m.shape[0])

@@ -28,9 +28,12 @@ naming the ranks needed), places the state by ``state_specs`` and
 state: :func:`placed_state`) and trains it with ``grad_shardings``
 (:func:`train_on_mesh`, which the tests and ``chip_smoke.py`` call on a
 2x2 grid): the split step, each rank computing its own heads, ``d_ff``
-columns, experts and vocab rows; rank 0 prints the step lines and the
-closing JSON, with ``"processes"`` and ``"split_kinds"`` (the step's
-table of what splits over ``model``, ``models.shard.split_kinds``).
+columns, experts, vocab rows, SSD heads and RG-LRU width; rank 0 prints
+the step lines and the closing JSON, with ``"processes"`` and
+``"split_kinds"`` (the step's table of what splits over ``model``,
+``models.shard.split_kinds``: by layer kind its parts ``heads``, ``kv``,
+``mlp``, ``experts``, ``shared`` and ``lru``, each true or false, and
+``vocab``).
 Both paths run one loop, :func:`train_loop`.
 ``--dist-backend`` is ``gloo`` (ranks may share a card) or ``nccl`` (a
 card a rank; written, not yet run).  ``--ckpt-dir`` with ``--mesh`` runs

@@ -96,10 +96,20 @@ def pad_dim1(x: torch.Tensor, n: int) -> torch.Tensor:
 # -- norms ------------------------------------------------------------------
 
 
-def rms_norm(scale: torch.Tensor, x: torch.Tensor, eps: float = 1e-6):
+def rms_norm(scale: torch.Tensor, x: torch.Tensor, eps: float = 1e-6,
+             whole: int | None = None):
+    """RMSNorm over ``x``'s last dim.  With ``whole``, ``x`` and ``scale``
+    are a rank's slice of a norm ``whole`` wide split over ``model``: the
+    rank's sum of squares is added over ``model`` (``shard.model_allsum``,
+    ``norm_sum``) before it divides by ``whole``."""
     dt = x.dtype
     x = x.float()
-    x = x * torch.rsqrt(torch.mean(x * x, dim=-1, keepdim=True) + eps)
+    if whole is None:
+        ms = torch.mean(x * x, dim=-1, keepdim=True)
+    else:
+        ms = shard.model_allsum(torch.sum(x * x, dim=-1, keepdim=True),
+                                "norm_sum") / whole
+    x = x * torch.rsqrt(ms + eps)
     return (x * scale.float()).to(dt)
 
 

@@ -46,10 +46,15 @@ class RGLRU(nn.Module):
         self.out = Linear(w, d, init)
 
 
-def _gates(p: RGLRU, xc):
-    r = torch.sigmoid(p.w_a(xc).float())
-    i = torch.sigmoid(p.w_x(xc).float())
-    log_a = -_C * F.softplus(p.lam.float()) * r
+def _gates(p: RGLRU, xc, whole=None, lam=None):
+    """(a, b) of the recurrence at ``xc``.  On a rank of a split layer
+    ``whole`` is every rank's ``xc`` (``w_a``/``w_x`` hold all their input
+    rows and the rank's output columns) and ``lam`` the rank's slice."""
+    whole = xc if whole is None else whole
+    lam = p.lam if lam is None else lam
+    r = torch.sigmoid(p.w_a(whole).float())
+    i = torch.sigmoid(p.w_x(whole).float())
+    log_a = -_C * F.softplus(lam.float()) * r
     a = torch.exp(log_a)
     gated_x = i * xc.float()
     b = torch.sqrt(torch.clamp(1.0 - a * a, min=1e-12)) * gated_x
@@ -71,14 +76,31 @@ def linear_scan(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 def rglru_forward(p: RGLRU, x, cfg, return_state=False):
-    """x: (B, S, D) -> (B, S, D).  Parallel scan over the recurrence."""
-    xb = shard.constrain(p.in_x(x), "act_bsf")
-    gate = shard.constrain(p.in_g(x), "act_bsf")
-    xc, _ = _conv1d_causal(p.conv_w.to(x.dtype), p.conv_b.to(x.dtype), xb)
-    a, b = _gates(p, xc)                                # (B, S, W) f32
+    """x: (B, S, D) -> (B, S, D).  Parallel scan over the recurrence.
+    Given a rank's W/m columns of ``in_x`` (the train step on a
+    ``ProcessMesh``), it runs the rank's slice of the lru width:
+    column-parallel ``in_x``/``in_g`` after ``shard.to_model``, its conv
+    channels, ``conv_b`` and ``lam``, the gates from every rank's conv
+    output (``shard.model_concat``, ``lru_gather``), the scan on its
+    width, row-parallel ``out``."""
+    w = cfg.lru_width or cfg.d_model
+    k = p.in_x.w.shape[1]
+    split = k < w
+    conv_b, lam = p.conv_b, p.lam
+    if split:
+        x = shard.to_model(x)
+        r = shard.model_index()
+        conv_b, lam = conv_b[r * k:(r + 1) * k], lam[r * k:(r + 1) * k]
+    xb = shard.constrain(p.in_x(x), "act_bsf", w)
+    gate = shard.constrain(p.in_g(x), "act_bsf", w)
+    xc, _ = _conv1d_causal(p.conv_w.to(x.dtype), conv_b.to(x.dtype), xb)
+    a, b = _gates(p, xc, shard.model_concat(xc, "lru_gather") if split else xc,
+                  lam)                                  # (B, S, W) f32
+    a = shard.constrain(a, "act_bsf", w)
+    b = shard.constrain(b, "act_bsf", w)
     h = linear_scan(a, b)
     y = (h * _gelu(gate.float())).to(x.dtype)
-    out = p.out(y)
+    out = p.out.row(y) if split else p.out(y)
     if return_state:
         return out, {"h": h[:, -1]}
     return out

@@ -13,15 +13,21 @@ rank's local shape (a dim the spec puts on ``model`` holds 1/m of its
 the identity and checks nothing.
 
 The process grid splits the batch over the batch axes, and the compute of
-the layers :func:`split_kinds` names over ``model`` (Megatron's pattern,
-as the JAX package's placement implies): a rank runs its own heads,
-``d_ff`` columns, experts and vocab rows, read from the local shapes of
-the params the train step hands it.  Two crossings join the ranks along
-``model``: :func:`to_model` (the identity forward; its backward adds the
-gradient over ``model``) in front of a column-parallel product, and
+every layer kind over ``model`` where :func:`split_kinds` says its units
+divide (Megatron's pattern, as the JAX package's placement implies): a
+rank runs its own heads, ``d_ff`` columns, experts, vocab rows, SSD heads
+(mamba2) and RG-LRU width, read from the local shapes of the params the
+train step hands it.  Two crossings join the ranks along ``model``:
+:func:`to_model` (the identity forward; its backward adds the gradient
+over ``model``) in front of a column-parallel product, and
 :func:`from_model` (adds over ``model`` forward; the identity backward)
 after a row-parallel one.  :func:`model_max` is the vocab-parallel loss's
-max.  Every sum gathers the partials (``mesh.gather``) and adds them in
+max; :func:`model_allsum` (adds over ``model`` forward and backward) the
+gated RMSNorm's sum of squares over a split width; :func:`model_concat`
+(gathers a split activation's last dim forward; the backward hands each
+rank its slice of the gradient added over ``model``) the RG-LRU gates'
+input.  Every sum gathers the partials (``mesh.gather``, or one
+``mesh.all_to_all`` for :func:`model_concat`'s backward) and adds them in
 coordinate order, so every rank along ``model`` gets the same bits; each
 is counted in ``mesh.stats`` under its call site's name.  All of them are
 the identity outside a ``ProcessMesh``.
@@ -46,7 +52,7 @@ import torch
 __all__ = ["use_mesh_axes", "active", "constrain", "batch_sum",
            "batch_shards", "running_layers", "layer_call", "model_shards",
            "model_index", "to_model", "from_model", "model_sum", "model_max",
-           "SPLIT_LAYERS", "split_kinds"]
+           "model_allsum", "model_concat", "ssd_heads", "split_kinds"]
 
 _CTX: dict = {"on": False}
 
@@ -248,6 +254,37 @@ class _FromModel(torch.autograd.Function):
         return g, None
 
 
+class _AllSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, what):
+        ctx.what = what
+        return model_sum(x, what)
+
+    @staticmethod
+    def backward(ctx, g):
+        return model_sum(g, ctx.what), None
+
+
+class _Concat(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, what):
+        ctx.what, ctx.shape = what, x.shape
+        got = _model_gather(x, what)                   # (m, numel)
+        m = got.shape[0]
+        return got.view(m, -1, x.shape[-1]).movedim(0, 1).reshape(
+            *x.shape[:-1], m * x.shape[-1])
+
+    @staticmethod
+    def backward(ctx, g):
+        m, k = model_shards(), ctx.shape[-1]
+        send = g.reshape(-1, m, k).movedim(1, 0).reshape(1, m, -1)
+        got = _process_mesh().all_to_all(send, (_CTX["model"],), ctx.what)[0]
+        acc = got[0].float()
+        for c in range(1, m):
+            acc = acc + got[c].float()
+        return acc.to(g.dtype).view(ctx.shape), None
+
+
 def to_model(x):
     """Where a value every rank along ``model`` holds whole enters the
     rank's own part of a split computation: the identity forward; the
@@ -262,11 +299,29 @@ def from_model(x, what: str):
     return x if model_shards() == 1 else _FromModel.apply(x, what)
 
 
+def model_allsum(x, what: str):
+    """The ranks' partials added over ``model`` where every rank's result
+    depends on every partial: the sum forward, and the sum of the ranks'
+    gradients backward (``to_model(from_model(x))`` in one call a way),
+    both counted as ``what``."""
+    return x if model_shards() == 1 else _AllSum.apply(x, what)
+
+
+def model_concat(x, what: str):
+    """The ranks' slices of a split activation's last dim, concatenated
+    in coordinate order (one ``mesh.gather``, ``what``); the backward
+    hands each rank its slice of the gradient added over ``model`` (one
+    ``mesh.all_to_all``, ``what``)."""
+    return x if model_shards() == 1 else _Concat.apply(x, what)
+
+
 # -- what splits -------------------------------------------------------------
 
-# layer kinds whose compute splits over ``model``; ``rec`` (RG-LRU) and
-# ``ssm`` (mamba2) layers run whole on every rank
-SPLIT_LAYERS = ("attn_mlp", "attn_moe", "attn")
+
+def ssd_heads(cfg) -> int:
+    """A mamba2 layer's SSD heads, ``ssm_expand d_model / ssm_headdim``
+    (not ``n_heads``)."""
+    return cfg.ssm_expand * cfg.d_model // cfg.ssm_headdim
 
 
 def _base_kinds(cfg) -> list:
@@ -285,17 +340,22 @@ def split_kinds(cfg, m: int) -> dict:
     ``m`` ranks along ``model`` splits: ``{"layers": {kind: {part:
     bool}}, "vocab": bool}`` for each layer kind of ``cfg`` (a ``unit:``
     group's sub-blocks, the MTP heads' block).  A part splits where its
-    units divide by ``m``: ``heads`` (wq/wo, MLA's wq_b/wkv_b/wo), ``kv``
-    (wk/wv: kv heads, and only with the heads), ``mlp`` (d_ff),
-    ``experts`` (E), ``shared`` (the shared experts' d_ff); ``vocab`` the
-    tables' rows.  A part that does not split, and every part of a kind
-    outside :data:`SPLIT_LAYERS`, runs whole (its params gathered whole,
-    as in the step without the split)."""
+    units divide by ``m``: ``heads`` (wq/wo, MLA's wq_b/wkv_b/wo; an
+    ``ssm`` layer's SSD heads, :func:`ssd_heads`), ``kv`` (wk/wv: kv
+    heads, and only with the heads), ``mlp`` (d_ff, also a ``rec``
+    layer's MLP), ``experts`` (E), ``shared`` (the shared experts' d_ff),
+    ``lru`` (a ``rec`` layer's RG-LRU width); ``vocab`` the tables' rows.
+    A part that does not split runs whole (its params gathered whole, as
+    in the step without the split)."""
     div = lambda n: bool(n) and m > 1 and n % m == 0
     layers = {}
     for kind in _base_kinds(cfg):
-        if kind not in SPLIT_LAYERS:
-            layers[kind] = {"mix": False, "mlp": False} if kind == "rec" else {"mix": False}
+        if kind == "ssm":
+            layers[kind] = {"heads": div(ssd_heads(cfg))}
+            continue
+        if kind == "rec":
+            layers[kind] = {"lru": div(cfg.lru_width or cfg.d_model),
+                            "mlp": div(cfg.d_ff)}
             continue
         heads = div(cfg.n_heads)
         parts = {"heads": heads}

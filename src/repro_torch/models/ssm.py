@@ -18,15 +18,14 @@ import torch.nn.functional as F
 from torch import nn
 
 from . import shard
-from .blocks import Init, Linear, Norm, pad_dim1
+from .blocks import Init, Linear, Norm, pad_dim1, rms_norm
 
 __all__ = ["SSM", "ssm_forward", "ssm_decode", "init_ssm_state", "ssd_chunked"]
 
 
 def _dims(cfg):
     din = cfg.ssm_expand * cfg.d_model
-    nheads = din // cfg.ssm_headdim
-    return din, nheads, cfg.ssm_headdim, cfg.ssm_d_state
+    return din, shard.ssd_heads(cfg), cfg.ssm_headdim, cfg.ssm_d_state
 
 
 class SSM(nn.Module):
@@ -131,32 +130,66 @@ def _conv1d_causal(w, bias, x, state=None):
     return y, None
 
 
-def _ssd_inputs(p: SSM, xbc, dt, cfg):
-    din, nh, hp, n = _dims(cfg)
+def _ssd_inputs(xbc, dt, dt_bias, a_log, n: int):
+    """x, B, C of the conv output ``xbc`` ([x | B | C], B and C ``n``
+    wide), softplus(dt + dt_bias) and A = -exp(A_log)."""
     xbc = F.silu(xbc)
+    din = xbc.shape[-1] - 2 * n
     xs = xbc[..., :din]
     b = xbc[..., din:din + n]
     c = xbc[..., din + n:]
-    dt = F.softplus(dt.float() + p.dt_bias.float())
-    a = -torch.exp(p.A_log.float())
+    dt = F.softplus(dt.float() + dt_bias.float())
+    a = -torch.exp(a_log.float())
     return xs, b, c, dt, a
 
 
-def ssm_forward(p: SSM, x, cfg, return_state=False):
-    """Full-sequence Mamba-2 block.  x: (B, S, D)."""
+def _rank_params(p: SSM, x, cfg, dl: int):
+    """This rank's share of a layer split over ``model`` (``out_proj``
+    holds its ``dl`` = din/m rows; ``in_proj``, the conv and the head
+    vectors arrive whole, since JAX's column split of ``in_proj`` runs over
+    [z | x | B | C | dt] and its conv split over [x | B | C], neither on a
+    rank's heads): ``x``'s projection by its columns of z, x and dt beside
+    the whole B and C (after ``shard.to_model``), its conv channels of x
+    beside B's and C's, its heads' ``dt_bias``/``A_log``/``D`` and its
+    slice of the gated norm's ``scale``."""
     din, nh, hp, n = _dims(cfg)
-    z, xbc, dt = _split_proj(p, x, cfg)
-    xbc, _ = _conv1d_causal(p.conv_w.to(x.dtype), p.conv_b.to(x.dtype), xbc)
-    xs, b, c, dt, a = _ssd_inputs(p, xbc, dt, cfg)
+    h, r = dl // hp, shard.model_index()
+    own = lambda t, lo, k: t[..., lo + r * k:lo + (r + 1) * k]
+    w = p.in_proj.w
+    w = torch.cat([own(w, 0, dl), own(w, din, dl), w[:, 2 * din:2 * din + 2 * n],
+                   own(w, 2 * din + 2 * n, h)], -1)
+    conv = [torch.cat([own(t, 0, dl), t[..., din:]], -1) for t in (p.conv_w, p.conv_b)]
+    return (shard.to_model(x) @ w.to(x.dtype), *conv, own(p.dt_bias, 0, h),
+            own(p.A_log, 0, h), own(p.D, 0, h), own(p.norm.scale, 0, dl))
 
-    xh = shard.constrain(xs.reshape(*xs.shape[:-1], nh, hp), "ssd_heads")
+
+def ssm_forward(p: SSM, x, cfg, return_state=False):
+    """Full-sequence Mamba-2 block.  x: (B, S, D).  Given a rank's din/m
+    rows of ``out_proj`` (the train step on a ``ProcessMesh``), it runs the
+    rank's SSD heads (:func:`_rank_params`): the gated norm's sum of
+    squares added over ``model``, ``out_proj`` row-parallel."""
+    din, nh, hp, n = _dims(cfg)
+    dl = p.out_proj.w.shape[0]
+    split = dl < din
+    if split:
+        zxbcdt, conv_w, conv_b, dt_bias, a_log, d, scale = _rank_params(p, x, cfg, dl)
+    else:
+        zxbcdt = p.in_proj(x)
+        conv_w, conv_b, dt_bias, a_log, d, scale = (
+            p.conv_w, p.conv_b, p.dt_bias, p.A_log, p.D, p.norm.scale)
+    z, xbc, dt = (zxbcdt[..., :dl], zxbcdt[..., dl:2 * dl + 2 * n],
+                  zxbcdt[..., 2 * dl + 2 * n:])
+    xbc, _ = _conv1d_causal(conv_w.to(x.dtype), conv_b.to(x.dtype), xbc)
+    xs, b, c, dt, a = _ssd_inputs(xbc, dt, dt_bias, a_log, n)
+
+    xh = shard.constrain(xs.reshape(*xs.shape[:-1], dl // hp, hp), "ssd_heads", nh)
     y, state = ssd_chunked(xh.float(), dt, a, b.float(), c.float(),
                            cfg.ssm_chunk)
-    y = shard.constrain(y, "ssd_heads")
-    y = y + xh.float() * p.D.float()[:, None]
-    y = y.reshape(*xs.shape[:-1], din).to(x.dtype)
-    y = p.norm(y * F.silu(z))
-    out = p.out_proj(y)
+    y = shard.constrain(y, "ssd_heads", nh)
+    y = y + xh.float() * d.float()[:, None]
+    y = y.reshape(*xs.shape[:-1], dl).to(x.dtype)
+    y = rms_norm(scale, y * F.silu(z), whole=din if split else None)
+    out = p.out_proj.row(y) if split else p.out_proj(y)
     if return_state:
         return out, state
     return out
@@ -178,7 +211,7 @@ def ssm_decode(p: SSM, x, cfg, state):
     xbc, conv_state = _conv1d_causal(
         p.conv_w.to(x.dtype), p.conv_b.to(x.dtype), xbc,
         state["conv"].to(x.dtype))
-    xs, b, c, dt, a = _ssd_inputs(p, xbc, dt, cfg)
+    xs, b, c, dt, a = _ssd_inputs(xbc, dt, p.dt_bias, p.A_log, n)
 
     xh = xs.reshape(-1, nh, hp).float()                 # (B,H,P)
     dt1 = dt[:, 0]                                      # (B,H)

@@ -15,9 +15,11 @@ of the batch axes, each micro-batch:
   the backward's recompute), every other param once: ``(p - 1)`` times
   the slice's bytes a gather, where a param of a part the step splits
   over ``model`` (``models.shard.split_kinds``) is gathered over the
-  batch axes alone (``p`` the tiles of those);
+  batch axes alone (``p`` the tiles of those), but for those a rank cuts
+  its share from (``train.step._CUT``), gathered whole;
 * ``grad_reduce_scatter``: every param's gradient (its dtype) to its
-  slice, ``(b - 1)`` slices;
+  slice, ``(b - 1)`` slices, a ``_CUT`` param's ``(b m - 1)`` (added over
+  ``model`` too);
 * ``batch_sum``: the loss's mask count (1 f32), each MoE layer's routing
   fractions (``E`` f32, in the forward and again in the recompute), each
   MTP head's count; ``(b - 1)`` of each;
@@ -30,12 +32,17 @@ of the batch axes, each micro-batch:
   product (attention's ``wo``, the MLP's and the shared experts' ``wo``),
   ``moe_combine`` one (B, S, D) a split MoE; ``tp_bwd`` one (B, S, D) a
   column-parallel input (GQA attention, MLP, shared experts, the MoE's
-  tokens, the logits), and (B, S, 2 KV hd) for whole k and v, (B, S,
-  q_lora_rank) and (B, S, kv_lora_rank + rope) for MLA's latents (in
-  place of its input's), (B, S, top_k) f32 for the MoE's gates; with
-  the tables' rows split, ``vocab_embed`` one (B, S, D) a lookup (the
-  tokens and each MTP head's) and ``vocab_ce`` three (B, S) f32 a
-  cross-entropy (the max, the sum of exp and the gold logit);
+  tokens, the logits, mamba2's ``in_proj``, RG-LRU's ``in_x``/``in_g``),
+  and (B, S, 2 KV hd) for whole k and v, (B, S, q_lora_rank) and (B, S,
+  kv_lora_rank + rope) for MLA's latents (in place of its input's), (B,
+  S, top_k) f32 for the MoE's gates (mamba2's ``out_proj`` and RG-LRU's
+  ``out`` are row-parallel products); ``norm_sum`` one (B, S) f32 a
+  mamba2 layer's gated norm, in the backward too; ``lru_gather`` one (B,
+  S, W/m) an RG-LRU layer (its conv output gathered; in the backward one
+  ``all_to_all`` of the same size); with the tables' rows split,
+  ``vocab_embed`` one (B, S, D) a lookup (the tokens and each MTP head's)
+  and ``vocab_ce`` three (B, S) f32 a cross-entropy (the max, the sum of
+  exp and the gold logit);
 
 and once a step ``batch_sum`` of the micro-batches' losses (``ga`` f32),
 ``clip`` one f32 a leaf, ``compress`` (int8 compression) one f32 a leaf,
@@ -82,7 +89,8 @@ def train_step_bytes(cfg, state, mesh, specs=None, grad_accum: int = 1,
     from ..train.step import _gather_over, _split_table
 
     specs = state_specs(state, cfg.fsdp, mesh) if specs is None else specs
-    b = math.prod(int(mesh.shape[a]) for a in batch_axes(mesh))
+    baxes = batch_axes(mesh)
+    b = math.prod(int(mesh.shape[a]) for a in baxes)
     m = int(dict(mesh.shape).get("model", 1))
     table = _split_table(cfg, mesh)
     leaves = tree_leaves(state.params)
@@ -98,12 +106,15 @@ def train_step_bytes(cfg, state, mesh, specs=None, grad_accum: int = 1,
         gathers = 2 if stacked else 1
         if stacked:
             kind = cfg.layer_groups()[path[1]][0]
-            over = _gather_over(table, kind, ".".join(map(str, path[2:])), pl)
+            over, sums = _gather_over(table, kind, ".".join(map(str, path[2:])),
+                                      pl, baxes)
         else:
-            over = _gather_over(table, None, ".".join(map(str, path)), pl)
+            over, sums = _gather_over(table, None, ".".join(map(str, path)), pl,
+                                      baxes)
         p = _tiles(pl) if over is None else math.prod(int(mesh.shape[a]) for a in over)
+        s = math.prod(int(mesh.shape[a]) for a in sums)
         out["param_gather"] += grad_accum * gathers * rows * (p - 1) * row_bytes
-        out["grad_reduce_scatter"] += grad_accum * rows * (b - 1) * row_bytes
+        out["grad_reduce_scatter"] += grad_accum * rows * (s - 1) * row_bytes
         p_all = _tiles(pl)
         out["clip"] += (p_all - 1) * _F32
         if compress_grads:
@@ -115,7 +126,7 @@ def train_step_bytes(cfg, state, mesh, specs=None, grad_accum: int = 1,
             raise ValueError(f"train_step_bytes: {m} ranks along 'model' split "
                              "the compute; pass batch=(rows, seq)")
         for call, n in _split_bytes(cfg, table, batch[0] // (b * grad_accum),
-                                    batch[1]).items():
+                                    batch[1], m).items():
             out[call] += grad_accum * (m - 1) * n
     moe = sum(n for kind, n in cfg.layer_groups() if kind == "attn_moe")
     per_micro = 1 + 2 * moe * cfg.n_experts + cfg.mtp_depth
@@ -125,10 +136,10 @@ def train_step_bytes(cfg, state, mesh, specs=None, grad_accum: int = 1,
     return got
 
 
-def _split_bytes(cfg, table: dict, rows: int, seq: int) -> dict:
+def _split_bytes(cfg, table: dict, rows: int, seq: int, m: int) -> dict:
     """``{call: bytes}`` of one rank's part of the sums over ``model`` in
-    one micro-batch of ``rows`` x ``seq`` tokens (module docstring), to
-    be multiplied by ``m - 1``."""
+    one micro-batch of ``rows`` x ``seq`` tokens (module docstring) with
+    ``m`` ranks along ``model``, to be multiplied by ``m - 1``."""
     from ..models.blocks import dtype_of
 
     c = dtype_of(cfg.compute_dtype).itemsize
@@ -138,6 +149,16 @@ def _split_bytes(cfg, table: dict, rows: int, seq: int) -> dict:
 
     def layer(kind: str, fwd: int):
         parts = table["layers"][kind]
+        if kind == "ssm":
+            if parts["heads"]:
+                out["tp_fwd"] += fwd * act
+                out["tp_bwd"] += act
+                out["norm_sum"] += (fwd + 1) * tok * _F32
+            return
+        if parts.get("lru"):
+            out["tp_fwd"] += fwd * act
+            out["tp_bwd"] += act
+            out["lru_gather"] += (fwd + 1) * tok * (cfg.lru_width or cfg.d_model) // m * c
         if parts.get("heads"):
             out["tp_fwd"] += fwd * act
             if cfg.use_mla:

@@ -26,22 +26,26 @@ rank's slices of the state (``sharding.place``):
 * the batch splits over the batch axes (everything but ``model``); ranks
   along ``model`` compute on the same batch shard, and split the compute
   of the parts ``models.shard.split_kinds`` names (``train_step.
-  split_kinds``): each runs its own heads, ``d_ff`` columns, experts and
-  vocab rows (Megatron's column- and row-parallel products, joined by
-  ``shard.to_model``/``from_model``, every sum added in coordinate
-  order);
+  split_kinds``): each runs its own heads, ``d_ff`` columns, experts,
+  vocab rows, SSD heads and RG-LRU width (Megatron's column- and
+  row-parallel products, joined by ``shard.to_model``/``from_model``, the
+  gated norm's ``model_allsum`` and the RG-LRU gates' ``model_concat``,
+  every sum added in coordinate order);
 * each layer's params are gathered just before the layer's forward, and
   again in its backward (every layer runs under
   ``torch.utils.checkpoint``, its recompute never stopped early, so its
   gathered params live only inside it); the other params are gathered
   once a micro-batch.  A param of a split part is gathered over the
-  batch axes only, to the rank's ``model`` slice; every other one to
-  whole;
+  batch axes only, to the rank's ``model`` slice, except those a rank
+  cuts its share from (``_CUT``: mamba2's ``in_proj``, conv and head
+  vectors, RG-LRU's ``conv_b`` and ``lam``), gathered whole; every other
+  one to whole;
 * each micro-batch's gradient of a param -- the rank's ``model`` slice of
   a split one, the whole (and the same on every rank along ``model``)
   otherwise -- is reduce-scattered to its placement (one ``all_to_all``
   over the batch axes, the slices added in rank order: the JAX package's
-  ``grad_shardings``), never all-reduced;
+  ``grad_shardings``), never all-reduced; a ``_CUT`` param's, which
+  covers the rank's share only, over the batch axes and ``model``;
 * the loss divides by the whole batch's mask count and the MoE aux takes
   the whole batch's routing fractions (``models.shard.batch_sum``); the
   global norm, Adafactor's means over split dims and per-leaf RMS and the
@@ -271,19 +275,20 @@ def build_train_step(
 class _Gather(torch.autograd.Function):
     """A param's slice -> the param gathered over ``over`` (all its axes
     with None: the whole param; ``Placement.gather``); its backward
-    reduce-scatters that gradient to the slice over the batch axes
-    (``Placement.reduce_scatter``)."""
+    reduce-scatters that gradient to the slice over ``sum_axes`` (the
+    batch axes, with ``model`` too where a rank computed only its share of
+    it; ``Placement.reduce_scatter``)."""
 
     @staticmethod
-    def forward(ctx, part, pl, baxes, over):
-        ctx.pl, ctx.baxes, ctx.over = pl, baxes, over
+    def forward(ctx, part, pl, sum_axes, over):
+        ctx.pl, ctx.sum_axes, ctx.over = pl, sum_axes, over
         full = pl.gather(part, "param_gather", over)
         return part.view_as(part) if full is part else full
 
     @staticmethod
     def backward(ctx, g):
-        return (ctx.pl.reduce_scatter(g, ctx.baxes, "grad_reduce_scatter", ctx.over),
-                None, None, None)
+        return (ctx.pl.reduce_scatter(g, ctx.sum_axes, "grad_reduce_scatter",
+                                      ctx.over), None, None, None)
 
 
 class _LossOf(torch.nn.Module):
@@ -342,43 +347,68 @@ def _split_table(cfg, mesh) -> dict:
     return shard.split_kinds(cfg, int(dict(mesh.shape).get("model", 1)))
 
 
+# the params of a split part that a rank takes whole and cuts its share
+# from: JAX's placement of them does not line up with the rank's heads or
+# lru slice (``in_proj``'s columns [z | x | B | C | dt], the conv's [x | B
+# | C]) or keeps them whole (the head and channel vectors, the gated
+# norm's scale).  Gathered whole; each rank's gradient covers its share
+# only (and a partial of B and C), so it is added over ``model`` as well
+# as the batch axes
+_CUT = {"ssm": ("in_proj", "conv_w", "conv_b", "dt_bias", "A_log", "D", "norm"),
+        "rec": ("conv_b", "lam")}
+
+
 def _part_of(kind: str, name: str) -> tuple:
-    """(layer kind, part of ``shard.split_kinds``, or None) of the param
-    ``name`` of a layer of ``kind`` (a ``unit:`` layer's sub-block by its
-    own kind)."""
+    """(layer kind, part of ``shard.split_kinds`` or None, the param is
+    one of a split part's :data:`_CUT`) of the param ``name`` of a layer of
+    ``kind`` (a ``unit:`` layer's sub-block by its own kind)."""
     if kind.startswith("unit:"):
         sub, name = name.split(".", 1)
         kind = kind[5:].split(",")[int(sub[1:])]
     q = name.split(".")
+    cut = q[0] == "mix" and q[1] in _CUT.get(kind, ())
+    if kind == "ssm":
+        return kind, ("heads" if q[0] == "mix" else None), cut
+    if kind == "rec" and q[0] == "mix":
+        return kind, "lru", cut
     if q[0] == "mix" and q[1] in ("wk", "wv"):
-        return kind, "kv"
+        return kind, "kv", False
     if q[0] == "mix" and q[1] in ("wq", "wo", "wq_b", "wkv_b"):
-        return kind, "heads"
+        return kind, "heads", False
     if q[0] == "ffn" and q[1] == "shared":
-        return kind, "shared"
+        return kind, "shared", False
     if q[0] == "ffn" and q[1] in ("wi", "wg", "wo"):
-        return kind, ("experts" if len(q) == 2 else "mlp")
-    return kind, None
+        return kind, ("experts" if len(q) == 2 else "mlp"), False
+    return kind, None, False
 
 
-def _gather_over(table: dict, kind: str, name: str, pl):
-    """The axes to gather the param ``name`` of a layer of ``kind`` over:
-    the batch axes alone for a part the table splits (the rank keeps its
-    ``model`` slice), None (every axis: whole) otherwise.  ``kind`` None
-    is a top-level param: a table (vocab) or an MTP head's."""
+def _gather_over(table: dict, kind: str, name: str, pl, baxes: tuple) -> tuple:
+    """(the axes to gather the param ``name`` of a layer of ``kind`` over,
+    the axes to add its gradient over).  A part the table splits: gathered
+    over the batch axes alone (the rank keeps its ``model`` slice), its
+    gradient added over ``baxes``; one of its :data:`_CUT` params
+    gathered whole (None), its gradient added over ``baxes`` and
+    ``model``.  Anything else: whole, over ``baxes``.  ``kind`` None is a
+    top-level param: a table (vocab) or an MTP head's."""
+    cut = False
     if kind is None:
         q = name.split(".")
         if q[0] in ("embed", "head"):
             split = table["vocab"]
         elif q[0] == "mtp" and q[2] == "block":
-            kind, part = _part_of("attn_mlp", ".".join(q[3:]))
+            kind, part, _ = _part_of("attn_mlp", ".".join(q[3:]))
             split = table["layers"][kind].get(part, False)
         else:
             split = False
     else:
-        kind, part = _part_of(kind, name)
+        kind, part, cut = _part_of(kind, name)
         split = table["layers"][kind].get(part, False)
-    return tuple(a for a in pl.axes if a != "model") if split else None
+    if split and cut:
+        return None, tuple(a for a in pl.mesh.axis_names
+                           if a in baxes or a == "model")
+    if split:
+        return tuple(a for a in pl.axes if a != "model"), baxes
+    return None, baxes
 
 
 def _mesh_grad_of(cfg, params, leaves, pls: dict, mesh):
@@ -403,16 +433,17 @@ def _mesh_grad_of(cfg, params, leaves, pls: dict, mesh):
             row_of[id(t)] = r
     top = [(n, t, row_of[id(t)]) for n, t in params.named_parameters()
            if not n.startswith("groups.")]
-    top = [(n, t, p, _gather_over(table, None, n, p)) for n, t, p in top]
+    top = [(n, t, p, *_gather_over(table, None, n, p, baxes)) for n, t, p in top]
 
     def run_layer(layer, x, cfg_):
         names, parts = zip(*layer.named_parameters())
         lpls = [row_of[id(t)] for t in parts]
-        overs = [_gather_over(table, layer.kind, n, p) for n, p in zip(names, lpls)]
+        overs = [_gather_over(table, layer.kind, n, p, baxes)
+                 for n, p in zip(names, lpls)]
 
         def run(x, *sh):
-            full = {n: _Gather.apply(t, p, baxes, o)
-                    for n, t, p, o in zip(names, sh, lpls, overs)}
+            full = {n: _Gather.apply(t, p, s, o)
+                    for n, t, p, (o, s) in zip(names, sh, lpls, overs)}
             return functional_call(layer, full, (x, cfg_))
         # the whole layer again in the recompute: its sums over ``model``
         # run there as in the forward, whatever the backward still needs
@@ -420,7 +451,7 @@ def _mesh_grad_of(cfg, params, leaves, pls: dict, mesh):
             return checkpoint(run, x, *parts, use_reentrant=False)
 
     def gathered_loss(cfg_, params_, mb):
-        full = {"model." + n: _Gather.apply(t, p, baxes, o) for n, t, p, o in top}
+        full = {"model." + n: _Gather.apply(t, p, s, o) for n, t, p, o, s in top}
         return functional_call(_LossOf(params_, cfg_), full, (mb,))
 
     def grad_of(mb):

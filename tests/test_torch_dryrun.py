@@ -18,10 +18,11 @@
   [0.85, 1.00] (measured 0.9109 and 0.8934).
 * The live-bytes count on ``meta`` equals the same count of the same step
   run on the CPU with real tensors.
-* A train cell on ``single``/``multi`` (granite-3-8b, dbrx-132b) runs rank
-  0's split step on ``StandInMesh``: temporaries counted, collective bytes
-  equal to ``roofline.collect.train_step_bytes`` call by call, counted
-  FLOPs rank 0's own.
+* A train cell on ``single``/``multi`` (granite-3-8b, dbrx-132b; and
+  mamba2-370m on ``single``) runs rank 0's split step on ``StandInMesh``:
+  temporaries counted, collective bytes equal to
+  ``roofline.collect.train_step_bytes`` call by call, counted FLOPs rank
+  0's own.
 """
 
 import json
@@ -220,13 +221,16 @@ def test_cli(tmp_path, capsys):
                      "--mesh", "v5e"])
 
 
-@pytest.mark.parametrize("mesh", ["single", "multi"])
-@pytest.mark.parametrize("arch", ["granite-3-8b", "dbrx-132b"])
+@pytest.mark.parametrize("arch,mesh", [
+    ("granite-3-8b", "single"), ("dbrx-132b", "single"),
+    ("granite-3-8b", "multi"), ("dbrx-132b", "multi"),
+    ("mamba2-370m", "single")])
 def test_train_cell_runs_rank_0_of_the_split_step(arch, mesh):
     """A train cell on a production mesh runs rank 0's split step on the
     stand-in: its temporaries are counted, its collective bytes are
     ``train_step_bytes``' call by call, and its FLOPs are rank 0's own
-    count of that step."""
+    count of that step.  mamba2-370m's 32 SSD heads split over the 16
+    ranks along ``model``."""
     import torch
 
     from repro_torch import train as T
@@ -257,3 +261,6 @@ def test_train_cell_runs_rank_0_of_the_split_step(arch, mesh):
         step(state, batch)
     assert res["counted_flops"] == counter.flops
     assert res["counted_flops_total"] == counter.flops * res["devices"]
+    if arch == "mamba2-370m":
+        assert step.split_kinds["layers"] == {"ssm": {"heads": True}}
+        assert res["collectives"]["by_call"]["norm_sum"] > 0

@@ -1,7 +1,8 @@
 """The LM train step's compute split over ``model`` on a
 ``launch.mesh.ProcessMesh`` (``models.shard``'s ``to_model``/
-``from_model``, column/row-parallel attention and MLP, MLA, experts a
-rank, vocab-parallel embedding and loss, ``train.step``'s gathers over
+``from_model``/``model_allsum``/``model_concat``, column/row-parallel
+attention and MLP, MLA, experts a rank, mamba2's SSD heads, RG-LRU's
+width, vocab-parallel embedding and loss, ``train.step``'s gathers over
 the batch axes), held to the JAX package's sharded step and to the port's
 one-process step on the CPU.
 
@@ -11,7 +12,8 @@ One module fixture spawns 4 gloo ranks once on a 2x2 (``data``,
 devices runs the same cases on a 2x2 ``jax.sharding.Mesh`` with
 ``grad_shardings``, from the same first state (the port's seed-0 model,
 handed over as numpy) on the same batches.  Each case runs 3 steps of an
-f32 smoke config, batch 4 x 16:
+f32 smoke config (mamba2's in SSD chunks of 8 on both sides), batch 4 x
+16:
 
 * loss and ``grad_norm`` within rtol 1e-5 of both references at every
   step, the ranks' metrics bitwise equal;
@@ -21,11 +23,16 @@ f32 smoke config, batch 4 x 16:
 * the wire bytes of every step equal to ``roofline.collect.
   train_step_bytes``, call by call, and the step's ``split_kinds``
   table splitting what the config's units allow;
-* granite's rank 0 step (on ``dryrun.StandInMesh``, which receives what
-  the real rank 0 does) counts under 0.35 of the one-process step's
-  FLOPs (``dryrun.StepCounter``);
-* ``shard.constrain`` raises on a ``heads`` activation whose ``model``
-  dim is whole where the split gives a rank H/m.
+* granite's, mamba2's and recurrentgemma's rank 0 step (on
+  ``dryrun.StandInMesh``, which receives what the real rank 0 does)
+  counts under 0.35 of the one-process step's FLOPs
+  (``dryrun.StepCounter``);
+* ``shard.constrain`` raises on a ``heads``, ``ssd_heads`` or ``act_bsf``
+  activation whose ``model`` dim is whole where the split gives a rank
+  1/m of it;
+* the two crossings of the mamba2 and RG-LRU splits on small tensors:
+  forward bits equal on every rank, each rank's gradient its slice of
+  the whole computation's.
 """
 
 from concurrent.futures import ThreadPoolExecutor
@@ -68,7 +75,8 @@ def key(path):
 
 mesh = make_mesh(C.GRID, C.AXES)
 for cid, (arch, opt_name) in C.CASES.items():
-    cfg = jconfigs.get_smoke(arch).replace(param_dtype="float32", compute_dtype="float32")
+    cfg = jconfigs.get_smoke(arch).replace(param_dtype="float32", compute_dtype="float32",
+                                           **C.WIDTHS.get(arch, {}))
     shapes = jax.eval_shape(lambda: JM.init_params(jax.random.PRNGKey(0), cfg))
     params = jax.tree_util.tree_map_with_path(
         lambda p, _: jnp.asarray(init[f"{arch}/{key(p)}"]), shapes)
@@ -107,7 +115,7 @@ def sides(tmp_path_factory):
     tmp = tmp_path_factory.mktemp("tpsplit")
     init = {}
     for arch in {a for a, _ in C.CASES.values()}:
-        model = MC.init_state(MC.case_cfg(arch), "adamw").params
+        model = MC.init_state(C.case_cfg(arch), "adamw").params
         for path, v in _flat(convert.lm_params_to_numpy(model)).items():
             init[arch + "/" + "/".join(map(str, path))] = v
     np.savez(tmp / "init.npz", **init)
@@ -155,7 +163,7 @@ def test_params_match_jax_and_one_process(sides, cid):
 def test_wire_bytes_equal_collect(sides, cid):
     _, ranks, _ = sides
     arch, opt_name = C.CASES[cid]
-    cfg = MC.case_cfg(arch)
+    cfg = C.case_cfg(arch)
     want = train_step_bytes(cfg, MC.init_state(cfg, opt_name),
                             SH.MeshShape(dict(zip(C.AXES, C.GRID))),
                             batch=(C.BATCH, C.SEQ))
@@ -169,8 +177,9 @@ def test_wire_bytes_equal_collect(sides, cid):
 
 def test_split_kinds_follow_the_units(sides):
     """The step's table: everything splits at m = 2 but the kv heads of
-    the kv = 1 configs and the rec layers; granite-3-8b's published vocab
-    (49,155) keeps its tables whole."""
+    the kv = 1 configs; granite-3-8b's published vocab (49,155) keeps its
+    tables whole; mamba2 splits by its SSD heads (the published config's
+    32, where ``n_heads`` is 1)."""
     from repro_torch import configs
     from repro_torch.models import shard
 
@@ -183,21 +192,27 @@ def test_split_kinds_follow_the_units(sides):
         "attn_mlp": {"heads": True, "mlp": True},
         "attn_moe": {"heads": True, "experts": True, "shared": True}}
     assert got["paligemma_adamw"]["layers"]["attn_mlp"]["kv"] is False
-    assert got["recurrentgemma_adamw"]["layers"]["rec"] == {"mix": False, "mlp": False}
+    assert got["recurrentgemma_adamw"]["layers"]["rec"] == {"lru": True, "mlp": True}
     assert got["recurrentgemma_adamw"]["layers"]["attn"]["heads"] is True
+    assert got["mamba2_adamw"] == {"layers": {"ssm": {"heads": True}}, "vocab": True}
+    mamba = configs.get("mamba2-370m")
+    assert mamba.n_heads == 1 and shard.ssd_heads(mamba) == 32
+    assert shard.split_kinds(mamba, 16)["layers"]["ssm"] == {"heads": True}
+    assert shard.split_kinds(mamba, 64)["layers"]["ssm"] == {"heads": False}
+    assert shard.split_kinds(configs.get("recurrentgemma-9b"), 16)["layers"][
+        "rec"] == {"lru": True, "mlp": True}
     full = shard.split_kinds(configs.get("granite-3-8b"), 2)
     assert full["vocab"] is False and full["layers"]["attn_mlp"]["kv"] is True
     assert shard.split_kinds(configs.get("granite-3-8b"), 16)["layers"][
         "attn_mlp"] == {"heads": True, "kv": False, "mlp": True}
 
 
-def test_rank_flops_under_a_third(sides):
-    """Rank 0's step of granite on the stand-in of the 2x2 grid: its wire
-    bytes are the real rank 0's, and it counts under 0.35 of the
-    one-process step's FLOPs (about 1/4: the batch and the compute each
-    split in two)."""
-    _, ranks, _ = sides
-    cfg = MC.case_cfg("granite-3-8b")
+def _rank_flops(cid: str) -> dict:
+    """{one process: counted FLOPs, rank 0: ...} of the case's step at its
+    batch, rank 0's on the stand-in of the 2x2 grid (its wire bytes the
+    real rank 0's), and the stand-in's wire bytes."""
+    arch, _ = C.CASES[cid]
+    cfg = C.case_cfg(arch)
     batch = {k: torch.as_tensor(v, device="meta") for k, v in
              MC.batch_at(cfg, 0).items()}
     counts = {}
@@ -217,7 +232,27 @@ def test_rank_flops_under_a_third(sides):
         with counter:
             step(state, batch)
         counts[grid is None] = counter.flops
-    assert dict(mesh.stats.wire_bytes) == ranks[0]["cases"]["granite_adamw"]["wire_bytes"][0]
+    return counts, dict(mesh.stats.wire_bytes)
+
+
+def test_rank_flops_under_a_third(sides):
+    """Rank 0's step of granite on the stand-in of the 2x2 grid: its wire
+    bytes are the real rank 0's, and it counts under 0.35 of the
+    one-process step's FLOPs (about 1/4: the batch and the compute each
+    split in two)."""
+    _, ranks, _ = sides
+    counts, wire = _rank_flops("granite_adamw")
+    assert wire == ranks[0]["cases"]["granite_adamw"]["wire_bytes"][0]
+    assert counts[False] < 0.35 * counts[True], counts
+
+
+@pytest.mark.parametrize("cid", ["mamba2_adamw", "recurrentgemma_adamw"])
+def test_rank_flops_under_a_third_ssm_rec(sides, cid):
+    """The same for mamba2 (SSD heads split; B and C whole on every rank)
+    and recurrentgemma (RG-LRU width and MLPs split)."""
+    _, ranks, _ = sides
+    counts, wire = _rank_flops(cid)
+    assert wire == ranks[0]["cases"][cid]["wire_bytes"][0]
     assert counts[False] < 0.35 * counts[True], counts
 
 
@@ -228,3 +263,78 @@ def test_constrain_checks_the_rank_shape(sides):
         assert got["half"] and got["unchecked"]
         assert got["whole"] and "leaves 2" in got["whole"]
         assert got["shards"] == (2, r["coords"][1])
+
+
+def test_constrain_checks_ssd_heads_and_lru_width(sides):
+    _, ranks, _ = sides
+    for r in ranks:
+        got = r["constrain"]
+        assert got["ssd_half"] and got["bsf_half"]
+        assert got["ssd_whole"] and "'ssd_heads'" in got["ssd_whole"] \
+            and "leaves 4" in got["ssd_whole"]
+        assert got["bsf_whole"] and "'act_bsf'" in got["bsf_whole"] \
+            and "leaves 32" in got["bsf_whole"]
+
+
+def test_crossings_match_the_whole_computation(sides):
+    """``model_allsum`` (the gated norm's sum of squares) and
+    ``model_concat`` (the RG-LRU gates' input): the forward bits equal on
+    every rank (the concatenation the whole activation itself), each
+    rank's gradient its slice of the whole computation's, in f32; one
+    (2, 3) f32 sum a call each way and one (2, 3, 4) f32 slice each way
+    on the wire."""
+    from repro_torch.models.blocks import rms_norm
+
+    _, ranks, _ = sides
+    x, g, w, scale = C.crossing_inputs()
+    xs = [x.clone().requires_grad_(True) for _ in range(2)]
+    torch.autograd.backward(rms_norm(scale, xs[0]), g)
+    torch.autograd.backward(xs[1] @ w, g)
+    first = ranks[0]["crossings"]
+    np.testing.assert_allclose(first["allsum"][..., 0],
+                               (x * x).sum(-1).numpy(), rtol=1e-6)
+    assert np.array_equal(first["concat"], x.numpy())
+    for r in ranks:
+        got = r["crossings"]
+        assert np.array_equal(got["allsum"], first["allsum"])
+        assert np.array_equal(got["concat"], first["concat"])
+        own = slice(4 * r["coords"][1], 4 * r["coords"][1] + 4)
+        for key, t in (("norm_grad", xs[0]), ("concat_grad", xs[1])):
+            np.testing.assert_allclose(got[key], t.grad[..., own].numpy(),
+                                       rtol=1e-5, atol=1e-6)
+        assert got["wire_bytes"] == {"norm_sum": 3 * 24, "lru_gather": 2 * 96}
+
+
+@pytest.mark.parametrize("smoke,heads", [(True, False), (False, True)])
+def test_train_cli_mesh_json_shows_the_ssm_split(monkeypatch, capsys, smoke, heads):
+    """``launch.train --mesh single``'s closing JSON carries the step's
+    ``split_kinds`` with mamba2's ``ssm.heads`` part: under a world of the
+    mesh's 256 ranks (stubbed: the mesh is ``dryrun.StandInMesh`` of the
+    16 x 16 grid, and ``train_on_mesh`` builds the split step on ``meta``
+    and runs no step), the smoke config's 8 SSD heads do not divide by 16
+    ranks along ``model``, the published config's 32 do."""
+    import json
+
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.launch import train as train_cli
+
+    def fake_train(mesh, cfg, **kw):
+        opt = train_cli.make_optimizer(kw["optimizer"], kw["lr"], kw["steps"])
+        shapes = T.init_train_state(M.init_params(cfg, None, "meta"), opt)
+        pls = SH.named(mesh, SH.param_specs(shapes.params, cfg.fsdp, mesh),
+                       shapes.params)
+        step = T.build_train_step(cfg, opt, grad_shardings=pls)
+        return {"losses": [1.0, 0.5], "step_ms": [10.0, 9.0],
+                "split_kinds": step.split_kinds}
+
+    monkeypatch.setenv("RANK", "0")
+    monkeypatch.setenv("WORLD_SIZE", "256")
+    monkeypatch.setattr(mesh_mod, "make_process_mesh", lambda shape, axes, **k:
+                        dryrun.StandInMesh(dict(zip(axes, shape))))
+    monkeypatch.setattr(train_cli, "train_on_mesh", fake_train)
+    argv = ["--arch", "mamba2-370m", "--mesh", "single", "--device", "cpu",
+            "--steps", "2"] + (["--smoke"] if smoke else [])
+    assert train_cli.main(argv) == 0
+    out = json.loads(capsys.readouterr().out)
+    assert out["processes"] == 256
+    assert out["split_kinds"]["layers"] == {"ssm": {"heads": heads}}
