@@ -346,8 +346,8 @@ prints no result line):
                engines and solve the Jacobi parity cases, wait for the 8,
                then run the main path with their
                launch counts zeroed just before and read just after:
-               ``proc_spec``'s PROC_STEPS steps of unguarded ``pcg`` (half
-               an eager round) on 2x2 dense, 2x2 halo and 1d-4 halo, one RHS
+               ``proc_spec``'s PROC_STEPS steps of unguarded ``pcg`` (a
+               quarter of an eager round) on 2x2 dense, 2x2 halo and 1d-4 halo, one RHS
                and k = 8, each x within PROC_RTOL of phase 8's one-process
                solve, and the block-IC(0) parity solve; every rank
                launches ``ell_spmv``, ``ell_spmm``, ``cg_update``,
@@ -496,10 +496,22 @@ prints no result line):
                steps against its ``device_bytes``, beside the card's name
                and power limit.  12c: the same checks and numbers for
                MESH_FULL's two other cells, the mamba2 and RG-LRU splits
-               at full width: mamba2-370m's published config whole (48
-               layers, 32 SSD heads) with AdamW, and recurrentgemma-9b's
+               at full width: mamba2-370m's published width cut to 16 of
+               48 layers (32 SSD heads) with AdamW, and recurrentgemma-9b's
                published width cut to one (rec, rec, attn) unit with
-               Adafactor, with the step's ``split_kinds`` table.
+               Adafactor, with the step's ``split_kinds`` table.  12a's
+               last five cases run the step's options (the dry run's
+               ``--variant``): granite-3-8b AdamW ``sp``, dbrx-132b
+               Adafactor ``ep``, deepseek-v3-671b Adafactor ``sp,ep``,
+               mamba2-370m AdamW ``sp``, recurrentgemma-9b AdamW ``sp``,
+               each held to the same one-process step as its arch and
+               optimizer, with the same checks.  12d: 12b's granite cell
+               with ``sp``, and dbrx-132b's published width cut to one
+               layer, bf16, Adafactor, with ``ep`` (its 16 expert banks
+               over the grid, four a rank, never gathered): the checks and
+               numbers of 12b, dbrx's wire bytes at most MESH_EP_MAX_BYTES
+               a rank a step, each beside ``collect``'s bytes of the same
+               cell without its variant.
 13. procft  -- fault tolerance on a process grid: 4 gloo ranks on the card
                (``launch.procs``, one spawn, PROC_DEADLINE_S), while the
                parent runs the one-process grid's references on the card
@@ -827,26 +839,41 @@ LEVEL_PROBE = 2047                  # 11c: nodes of the launch-floor graph
 # on the card: bf16 rounds at 2^-8 = 3.9e-3, and the two runs round the
 # sharded batch's products and the gradient sums differently.
 # 12c: the mamba2 and RG-LRU splits at full width, as 12b: mamba2-370m's
-# published config whole (48 layers, 32 SSD heads), AdamW; recurrentgemma-9b's
-# published width cut to one (rec, rec, attn) unit, Adafactor.
+# published width cut to 16 of 48 layers (32 SSD heads), AdamW;
+# recurrentgemma-9b's published width cut to one (rec, rec, attn) unit,
+# Adafactor.
 MESH_GRID, MESH_AXES = (2, 2), ("data", "model")
 MESH_STEPS = 3                      # 12b, 12c
 MESH_PARITY_STEPS = 2               # 12a: an update and a step after it
                                     # (3 would not fit eight configs)
-MESH_PARITY = (("granite-3-8b", "adamw"), ("granite-3-8b", "adafactor"),
-               ("dbrx-132b", "adamw"), ("dbrx-132b", "adafactor"),
-               ("deepseek-v3-671b", "adafactor"), ("paligemma-3b", "adamw"),
-               ("recurrentgemma-9b", "adamw"), ("mamba2-370m", "adamw"))
+# (arch, optimizer, variant): the variant's tokens are the dry run's, "sp"
+# (seq_parallel) and "ep" (ep_stationary), the step's options; a variant's
+# case is held to the same one-process step as its arch and optimizer's
+MESH_PARITY = (("granite-3-8b", "adamw", ""), ("granite-3-8b", "adafactor", ""),
+               ("dbrx-132b", "adamw", ""), ("dbrx-132b", "adafactor", ""),
+               ("deepseek-v3-671b", "adafactor", ""), ("paligemma-3b", "adamw", ""),
+               ("recurrentgemma-9b", "adamw", ""), ("mamba2-370m", "adamw", ""),
+               ("granite-3-8b", "adamw", "sp"), ("dbrx-132b", "adafactor", "ep"),
+               ("deepseek-v3-671b", "adafactor", "sp,ep"),
+               ("mamba2-370m", "adamw", "sp"), ("recurrentgemma-9b", "adamw", "sp"))
 MESH_PARITY_SHAPE = (4, 32)
 MESH_RTOL = 1e-5
 MESH_PARAM_TOL = {"adamw": 1e-4, "adafactor": 1e-5}
 MESH_FULL_LAYERS = 2
 MESH_FULL_SHAPE = (4, 512)
 MESH_FULL_LOSS_RTOL = 2e-2
-# the full-width cells: label -> (arch, layers kept (None: all), optimizer)
-MESH_FULL = {"12b": (TRAIN_FULL, MESH_FULL_LAYERS, "adafactor"),
-             "12c ssm": ("mamba2-370m", None, "adamw"),
-             "12c rec": ("recurrentgemma-9b", 3, "adafactor")}
+# the full-width cells: label -> (arch, layers kept (None: all), optimizer,
+# variant).  12d: 12b's granite cell with sp, and dbrx-132b's published
+# width cut to one layer with ep (its 16 experts over the 2x2 grid, four a
+# rank, never gathered), beside collect's bytes of the cell without the
+# variant (dbrx's step without ep moves 6.2 GB a rank: too slow on gloo);
+# MESH_EP_MAX_BYTES bounds what a rank of 12d ep receives in a step
+MESH_FULL = {"12b": (TRAIN_FULL, MESH_FULL_LAYERS, "adafactor", ""),
+             "12c ssm": ("mamba2-370m", 16, "adamw", ""),
+             "12c rec": ("recurrentgemma-9b", 3, "adafactor", ""),
+             "12d sp": (TRAIN_FULL, MESH_FULL_LAYERS, "adafactor", "sp"),
+             "12d ep": ("dbrx-132b", 1, "adafactor", "ep")}
+MESH_EP_MAX_BYTES = 2e9
 MESH_DEADLINE_S = 600.0
 
 # phase 13, fault tolerance on a process grid: 4 gloo ranks on the card.
@@ -895,7 +922,7 @@ PROC_FT_TOL, PROC_FT_BUDGET = 1e-8, 400
 # a failure injected at step 1, then a fresh placed state resumed from it;
 # PROC_FT_SMOKE: the f32 smoke config, AdamW, a NaN forced at step
 # PROC_FT_NAN_AT, a checkpoint every PROC_FT_SAVE_EVERY steps
-PROC_GRID = 64                      # 13b and 14b: n = 262,144
+PROC_GRID = 48                      # 13b and 14b: n = 110,592
 PROC_FT_TRAIN_STEPS, PROC_FT_TRAIN_LAYERS = 2, 1
 PROC_FT_DEADLINE_S = 480.0          # phase 13 and 14's spawn (2 x 8p's)
 PROC_FT_SMOKE_STEPS, PROC_FT_NAN_AT, PROC_FT_SAVE_EVERY = 6, 3, 2
@@ -1624,7 +1651,7 @@ def grid_phase(failed: list) -> dict:
 
 PROC_CASES = (("2x2", "dense"), ("2x2", "halo"), ("4x1", "halo"))
 PROC_MODES = {"2x2": "2d", "4x1": "1d"}
-PROC_STEPS = 16                     # 8p's full-size solves: half a round of pcg
+PROC_STEPS = 8                      # 8p's full-size solves: a quarter round of pcg
 PROC_DEADLINE_S = 240.0             # the parent's deadline for a spawn
 PROC_RTOL = 1e-10                   # x against the one-process grid's, f64
 PROC_KERNELS = ("ell_spmv", "ell_spmm", "cg_update", "cg_update_batched",
@@ -2983,8 +3010,19 @@ def mesh_full_cfg(label: str):
     its layers."""
     from repro_torch.configs import get
 
-    arch, layers, _ = MESH_FULL[label]
+    arch, layers, _, _ = MESH_FULL[label]
     return get(arch) if layers is None else get(arch).replace(n_layers=layers)
+
+
+def mesh_options(variant: str) -> dict:
+    """The train step's options of a phase-12 variant ("sp", "ep",
+    "sp,ep"; the dry run's tokens)."""
+    toks = set(filter(None, variant.split(",")))
+    return {"seq_parallel": "sp" in toks, "ep_stationary": "ep" in toks}
+
+
+def mesh_case_key(arch: str, opt_name: str, variant: str) -> str:
+    return f"{arch} {opt_name}" + (f" {variant}" if variant else "")
 
 
 def meshtrain_rank(rank, t_spawn: float) -> dict:
@@ -3005,23 +3043,24 @@ def meshtrain_rank(rank, t_spawn: float) -> dict:
     out = {"rank": rank.rank, "start_s": now() - t_spawn, "parity": {}, "full": {}}
     mesh = rank.mesh(MESH_GRID, MESH_AXES)
     t0 = now()
-    for arch, opt_name in MESH_PARITY:
+    for arch, opt_name, variant in MESH_PARITY:
         cfg = get_smoke(arch).replace(param_dtype="float32", compute_dtype="float32")
         res = train_on_mesh(mesh, cfg, steps=MESH_PARITY_STEPS, batch=MESH_PARITY_SHAPE[0],
-                            seq=MESH_PARITY_SHAPE[1], optimizer=opt_name)
+                            seq=MESH_PARITY_SHAPE[1], optimizer=opt_name,
+                            **mesh_options(variant))
         full = SH.gather(res["state"], res["placements"])
         got = {k: res[k] for k in keep}
         got["params"] = convert.lm_params_to_numpy(full.params)
         got["held_is_gathered"] = _held_is_gathered(res["state"], full, res["placements"])
-        out["parity"][f"{arch} {opt_name}"] = got
+        out["parity"][mesh_case_key(arch, opt_name, variant)] = got
         del res, full
     out["parity_s"] = now() - t0
-    for label, (_, _, opt_name) in MESH_FULL.items():
+    for label, (_, _, opt_name, variant) in MESH_FULL.items():
         torch.cuda.empty_cache()
         t0 = now()
         res = train_on_mesh(mesh, mesh_full_cfg(label), steps=MESH_STEPS,
                             batch=MESH_FULL_SHAPE[0], seq=MESH_FULL_SHAPE[1],
-                            optimizer=opt_name)
+                            optimizer=opt_name, **mesh_options(variant))
         out["full"][label] = {k: res[k] for k in keep}
         out["full"][label]["s"] = now() - t0
         del res
@@ -3038,10 +3077,12 @@ def meshtrain_full(label: str, got: list, ref: dict, ranks: list, model_bytes,
     from repro_torch.configs import get
     from repro_torch.models import model as M
 
-    arch, layers, opt_name = MESH_FULL[label]
+    arch, layers, opt_name, variant = MESH_FULL[label]
     cfg = mesh_full_cfg(label)
     r0 = got[0]
-    total, want = model_bytes(cfg, opt_name, MESH_FULL_SHAPE)
+    opts = mesh_options(variant)
+    total, want = model_bytes(cfg, opt_name, MESH_FULL_SHAPE, **opts)
+    without = model_bytes(cfg, opt_name, MESH_FULL_SHAPE)[0] if variant else None
     # a rank builds its state one drawn tensor at a time: its slices
     # and at most one whole f32 draw and that draw's slice
     meta = M.init_params(cfg, None, "meta")
@@ -3057,7 +3098,9 @@ def meshtrain_full(label: str, got: list, ref: dict, ranks: list, model_bytes,
           and all(g["held_bytes"] == g["device_bytes"] for g in got)
           and all(w == want for g in got for w in g["wire_bytes"])
           and all(g["build_peak_bytes"] <= g["device_bytes"] + 2 * draw
-                  for g in got))
+                  for g in got)
+          and (not opts["ep_stationary"]
+               or sum(r0["wire_bytes"][1].values()) <= MESH_EP_MAX_BYTES))
     full = {"params": M.param_count(meta), "optimizer": opt_name,
             "losses": r0["losses"], "one_process_losses": ref["losses"],
             "one_process_step_ms": ref["step_ms"],
@@ -3065,7 +3108,9 @@ def meshtrain_full(label: str, got: list, ref: dict, ranks: list, model_bytes,
             "warm_step_ms": warm, "stage_ms": stage, "gloo_ms": comm,
             "rest_ms": warm - stage - comm,
             "wire_bytes_per_step": r0["wire_bytes"][1], "model_bytes": total,
-            "model_by_call": want, "split_kinds": r0["split_kinds"],
+            "model_by_call": want, "variant": variant,
+            "model_bytes_without_variant": without,
+            "split_kinds": r0["split_kinds"],
             "fwd_bwd_ms": [g["fwd_bwd_ms"] for g in got],
             "held_bytes": [g["held_bytes"] for g in got],
             "device_bytes": r0["device_bytes"],
@@ -3076,8 +3121,12 @@ def meshtrain_full(label: str, got: list, ref: dict, ranks: list, model_bytes,
             "cell_s": r0["s"], "reference_s": ref["s"]}
     say(f"meshtrain {label} " + json.dumps(full))
     cut = "all" if layers is None else f"{layers} of {get(arch).n_layers}"
+    beside = "" if without is None else (
+        f"; {variant}: the same cell without it is modelled at "
+        f"{without / 1e6:.1f} MB a rank a step, {total / without:.3f} of it kept")
     say(f"meshtrain {label} {arch} ({cut} layers, published width, bf16, "
-        f"{opt_name}, {MESH_FULL_SHAPE[0]} x {MESH_FULL_SHAPE[1]}) on 2x2, 4 gloo ranks "
+        f"{opt_name}{', ' + variant if variant else ''}, {MESH_FULL_SHAPE[0]} x "
+        f"{MESH_FULL_SHAPE[1]}) on 2x2, 4 gloo ranks "
         f"on one card: {warm:.1f} ms a step (median of steps 2-{MESH_STEPS}; staging "
         f"{stage:.1f}, gloo {comm:.1f}, rest {warm - stage - comm:.1f}; the "
         f"one-process step {float(np.median(ref['step_ms'][1:])):.1f}); a rank "
@@ -3093,7 +3142,7 @@ def meshtrain_full(label: str, got: list, ref: dict, ranks: list, model_bytes,
         f"{r0['device_bytes']} a rank; losses "
         f"{[round(x, 4) for x in r0['losses']]} against the one-process "
         f"{[round(x, 4) for x in ref['losses']]} ({e_loss:.2e}, tol "
-        f"{MESH_FULL_LOSS_RTOL}); split {r0['split_kinds']}; on {smi}")
+        f"{MESH_FULL_LOSS_RTOL}); split {r0['split_kinds']}{beside}; on {smi}")
     return ok
 
 
@@ -3115,12 +3164,23 @@ def meshtrain_phase(failed: list) -> None:
     smi = smi_line()
     try:
         f32 = lambda c: c.replace(param_dtype="float32", compute_dtype="float32")
-        cases = {f"{a} {o}": (f32(get_smoke(a)), o) for a, o in MESH_PARITY}
+        cases = {mesh_case_key(a, o, v): (f32(get_smoke(a)), o, v)
+                 for a, o, v in MESH_PARITY}
         t0 = now()
-        refs = {k: mesh_reference(cfg, o, MESH_PARITY_SHAPE, MESH_PARITY_STEPS)
-                for k, (cfg, o) in cases.items()}
+        # one reference an (arch, optimizer): the variants' numbers are the
+        # step's without them
+        refs = {}
+        for a, o, _ in MESH_PARITY:
+            if (a, o) not in refs:
+                refs[a, o] = mesh_reference(f32(get_smoke(a)), o, MESH_PARITY_SHAPE,
+                                            MESH_PARITY_STEPS)
         full_refs = {}
-        for label, (_, _, opt_name) in MESH_FULL.items():
+        for label, (arch, layers, opt_name, _) in MESH_FULL.items():
+            same = next((k for k, c in MESH_FULL.items() if k in full_refs
+                         and c[:3] == (arch, layers, opt_name)), None)
+            if same is not None:
+                full_refs[label] = full_refs[same]
+                continue
             t1 = now()
             full_refs[label] = mesh_reference(mesh_full_cfg(label), opt_name,
                                               MESH_FULL_SHAPE)
@@ -3133,21 +3193,23 @@ def meshtrain_phase(failed: list) -> None:
         run_s = now() - t0
         grid = MeshShape(dict(zip(MESH_AXES, MESH_GRID)))
 
-        def model_bytes(cfg, opt_name, shape):
+        def model_bytes(cfg, opt_name, shape, **opts):
             state = T.init_train_state(M.init_params(cfg, None, "meta"),
                                        getattr(T, opt_name)(T.warmup_cosine(1e-3, 1, 2)))
-            want = train_step_bytes(cfg, state, grid, batch=shape)
+            want = train_step_bytes(cfg, state, grid, batch=shape, **opts)
             return want.pop("total_bytes"), want
 
         bad = []
         rel = lambda a, b: float(np.max(np.abs(np.subtract(a, b)) / np.abs(b)))
-        for key, (cfg, opt_name) in cases.items():
-            ref, got = refs[key], [r["parity"][key] for r in ranks]
+        for key, (cfg, opt_name, variant) in cases.items():
+            ref = refs[key.split(" ")[0], opt_name]
+            got = [r["parity"][key] for r in ranks]
             r0 = got[0]
             e_loss, e_gn = rel(r0["losses"], ref["losses"]), rel(r0["grad_norms"], ref["grad_norms"])
             e_p = max(float(np.abs(r0p - w).max() / np.abs(w).max())
                       for r0p, w in zip(_np_leaves(r0["params"]), _np_leaves(ref["params"])))
-            total, want = model_bytes(cfg, opt_name, MESH_PARITY_SHAPE)
+            total, want = model_bytes(cfg, opt_name, MESH_PARITY_SHAPE,
+                                      **mesh_options(variant))
             same = all(g["losses"] == r0["losses"] and g["grad_norms"] == r0["grad_norms"]
                        and all(np.array_equal(a, b) for a, b in
                                zip(_np_leaves(g["params"]), _np_leaves(r0["params"])))

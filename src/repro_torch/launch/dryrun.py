@@ -46,8 +46,10 @@ split train step (``build_train_step(grad_shardings=)``) on ``meta``,
 over :class:`StandInMesh`: a stand-in of a ``launch.mesh.ProcessMesh``
 with no processes, whose ``gather`` and ``all_to_all`` return what the
 real ones would return on rank 0 (its shapes, new storage) and count the
-bytes.  Its ``sp`` and ``ep`` variants are refused there (the split step
-takes neither yet).
+bytes.  Its ``sp`` and ``ep`` variants run that step with
+``seq_parallel`` / ``ep_stationary`` (``train.build_train_step``; the
+state placed by ``state_specs(..., ep_stationary=)``), and ``collect``
+models them.
 * ``build_s``, ``run_s`` -- seconds to build the cell on ``meta`` and to
   run its step there (the JAX ``lower_s`` / ``compile_s`` have no
   counterpart).
@@ -306,20 +308,17 @@ def build_cell(arch: str, shape, mesh_kind: str, probe_layers: int | None = None
                 out_b = alias + replicated(metrics.values())
                 return (st, metrics), parts, out_b, alias
             return run, meta
-        if var["sp"] or var["ep"]:
-            raise ValueError(
-                f"variant {variant!r}: the split train step on a process grid "
-                "takes neither sp nor ep yet (ROADMAP Queue 1 item 11c)")
         # rank 0's step on a stand-in of the process grid, its state cut to
         # its slices as launch.train.placed_state builds it
         rank = StandInMesh(mesh.shape)
         pls = SH.named(rank, st_specs, state)
         local = init_train_state(M.init_params(cfg, None, "meta",
                                                placements=pls.params), opt)
+        opts = {"seq_parallel": var["sp"], "ep_stationary": ep}
         step_fn = build_train_step(cfg, opt, grad_accum=grad_accum,
-                                   grad_shardings=pls.params, donate=True)
+                                   grad_shardings=pls.params, donate=True, **opts)
         want = train_step_bytes(cfg, state, mesh, st_specs, grad_accum,
-                                batch=(global_batch, seq))
+                                batch=(global_batch, seq), **opts)
         want.pop("total_bytes")
         meta["rank_step"] = True
 

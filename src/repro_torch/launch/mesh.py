@@ -42,7 +42,8 @@ from ..device import DEFAULT_DEVICE, resolve_device
 from ..obs.clock import now
 
 __all__ = ["TileMesh", "ProcessMesh", "make_production_mesh", "make_mesh",
-           "make_process_mesh", "batch_axes", "AXES", "BACKENDS",
+           "make_process_mesh", "leave_process_group", "batch_axes", "AXES",
+           "BACKENDS",
            "GROUP_TIMEOUT_S"]
 
 AXES = {"single": ("data", "model"), "multi": ("pod", "data", "model")}
@@ -472,7 +473,8 @@ def make_process_mesh(shape, axes, *, backend: str,
     import torch.distributed as dist
 
     size = int(np.prod([int(s) for s in shape]))
-    if not dist.is_initialized():
+    joined = not dist.is_initialized()
+    if joined:
         if "RANK" not in os.environ:
             raise RuntimeError(
                 "no process group: run under torchrun or launch.procs, or "
@@ -482,7 +484,24 @@ def make_process_mesh(shape, axes, *, backend: str,
                                 timeout=timedelta(seconds=GROUP_TIMEOUT_S))
     else:
         pin_device(backend, device, dist.get_rank(), size)
-    return ProcessMesh(shape, axes, backend, device)
+    mesh = ProcessMesh(shape, axes, backend, device)
+    mesh.joined = joined
+    return mesh
+
+
+def leave_process_group(mesh) -> None:
+    """End this rank's part in the group :func:`make_process_mesh` joined
+    for it (the torchrun path): one barrier, then the group destroyed here.
+    A gloo group left to the interpreter's exit can abort the process as
+    its threads are torn down ("terminate called without an active
+    exception", exit code -6, under a loaded host), failing the run after
+    its result.  Nothing where the caller's group was joined
+    (``launch.procs``, the caller's own ``init_process_group``)."""
+    if getattr(mesh, "joined", False):
+        import torch.distributed as dist
+
+        mesh.barrier()
+        dist.destroy_process_group()
 
 
 def make_production_mesh(*, multi_pod: bool = False,

@@ -80,13 +80,14 @@ def _solver_main(args, argv: list) -> int:
         raise SystemExit("--processes needs --mesh-shape")
     shape = _grid_shape(args)
     if "RANK" in os.environ and "WORLD_SIZE" in os.environ:
-        from .mesh import make_process_mesh
+        from .mesh import leave_process_group, make_process_mesh
 
         mesh = make_process_mesh(shape, ("data", "model"),
                                  backend=args.dist_backend, device=args.device)
         out, rc = solver_verdict(args, mesh)
         if mesh.rank == 0:
-            print(json.dumps(out, indent=1))
+            print(json.dumps(out, indent=1), flush=True)
+        leave_process_group(mesh)
         return rc
     from . import procs
 

@@ -153,14 +153,15 @@ def _processes(args, argv) -> int:
     shape = tuple(int(x) for x in args.mesh_shape.split("x"))
     size = int(np.prod(shape))
     if "RANK" in os.environ and "WORLD_SIZE" in os.environ:
-        from .mesh import make_process_mesh
+        from .mesh import leave_process_group, make_process_mesh
 
         mesh = make_process_mesh(shape, ("data", "model")[: len(shape)],
                                  backend=args.dist_backend,
                                  device=args.device)
         out, rc = verdict(args, mesh)
         if mesh.rank == 0:
-            print(json.dumps(out, indent=1))
+            print(json.dumps(out, indent=1), flush=True)
+        leave_process_group(mesh)
         return rc
     from . import procs
 

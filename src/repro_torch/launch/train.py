@@ -101,21 +101,23 @@ def train_loop(state, step_fn, pipe, steps: int, *, verbose: bool = True,
     return state, losses, times
 
 
-def placed_state(mesh, cfg, opt, compress: bool = False):
+def placed_state(mesh, cfg, opt, compress: bool = False,
+                 ep_stationary: bool = False):
     """The launcher's seed-0 train state of ``cfg`` placed on ``mesh`` by
-    ``state_specs`` and ``sharding.named``, built so that this process
-    never holds the whole of it: each param is cut to the rank's slice as
-    it is drawn (``init_params(placements=)``), and the optimizer state
-    (and the int8 error feedback) starts from those slices.  Returns the
-    state, its placements and ``sharding.device_bytes`` of the specs (the
-    bytes the state must hold)."""
+    ``state_specs`` (``ep_stationary``: its expert-stationary rules) and
+    ``sharding.named``, built so that this process never holds the whole
+    of it: each param is cut to the rank's slice as it is drawn
+    (``init_params(placements=)``), and the optimizer state (and the int8
+    error feedback) starts from those slices.  Returns the state, its
+    placements and ``sharding.device_bytes`` of the specs (the bytes the
+    state must hold)."""
     from ..models import model as M
     from ..train import init_train_state
     from . import sharding as SH
 
     shapes = init_train_state(M.init_params(cfg, None, "meta"), opt,
                               compress=compress)
-    specs = SH.state_specs(shapes, cfg.fsdp, mesh)
+    specs = SH.state_specs(shapes, cfg.fsdp, mesh, ep_stationary=ep_stationary)
     pls = SH.named(mesh, specs, shapes)
     fields = [f for f in ("params", "opt_state", "ef") if getattr(shapes, f) is not None]
     want = sum(SH.device_bytes(SH.tree_leaves(getattr(shapes, f)), getattr(specs, f), mesh)
@@ -137,11 +139,17 @@ def train_on_mesh(mesh, cfg, *, steps: int, batch: int, seq: int,
                   compress_grads: bool = False, optimizer: str = "adamw",
                   verbose: bool = False, ckpt_dir: str = "",
                   save_every: int = 50,
-                  inject_failure_at: int | None = None) -> dict:
+                  inject_failure_at: int | None = None,
+                  seq_parallel: bool = False,
+                  ep_stationary: bool = False) -> dict:
     """Train ``cfg`` on every rank of ``mesh`` (a ``ProcessMesh``): the
     state of :func:`placed_state` (the one-process launcher's numbers, cut
     to the rank's slices), ``steps`` donated steps with ``grad_shardings``
-    on ``TokenPipeline(seed=0)`` batches in :func:`train_loop`.  Returns
+    on ``TokenPipeline(seed=0)`` batches in :func:`train_loop`;
+    ``seq_parallel`` and ``ep_stationary`` are the step's options
+    (``train.build_train_step``; the JAX launcher has no flag for them,
+    its dry run's ``--variant`` reaches them, as ``launch.dryrun``'s
+    does).  Returns
     ``losses`` and ``grad_norms``, ``step_ms`` (each step ended by reading
     its loss), ``wire_bytes`` (``mesh.stats``' bytes this rank received, a
     dict a step), ``stage_s``/``comm_s`` a step, ``held_bytes`` (the
@@ -170,7 +178,7 @@ def train_on_mesh(mesh, cfg, *, steps: int, batch: int, seq: int,
     if cuda:
         torch.cuda.reset_peak_memory_stats(dev)
         base = torch.cuda.memory_allocated(dev)
-    state, pls, want = placed_state(mesh, cfg, opt, compress_grads)
+    state, pls, want = placed_state(mesh, cfg, opt, compress_grads, ep_stationary)
     out = {"grad_norms": [], "wire_bytes": [], "stage_s": [], "comm_s": [],
            "held_bytes": SH.held_bytes(state), "device_bytes": want,
            "build_peak_bytes": torch.cuda.max_memory_allocated(dev) - base
@@ -180,7 +188,9 @@ def train_on_mesh(mesh, cfg, *, steps: int, batch: int, seq: int,
         torch.cuda.reset_peak_memory_stats(dev)
     step_fn = build_train_step(cfg, opt, grad_accum=grad_accum,
                                compress_grads=compress_grads,
-                               grad_shardings=pls.params, donate=True)
+                               grad_shardings=pls.params, donate=True,
+                               seq_parallel=seq_parallel,
+                               ep_stationary=ep_stationary)
     out["split_kinds"] = step_fn.split_kinds
 
     out["fwd_bwd_ms"] = []
@@ -229,7 +239,7 @@ def _mesh_main(ap, args, cfg) -> dict | None:
     0's closing JSON fields (None on the other ranks)."""
     import torch.distributed as dist
 
-    from .mesh import make_process_mesh
+    from .mesh import leave_process_group, make_process_mesh
 
     multi = args.mesh == "multi"
     shape = (2, 16, 16) if multi else (16, 16)
@@ -254,6 +264,7 @@ def _mesh_main(ap, args, cfg) -> dict | None:
                         compress_grads=args.compress_grads,
                         optimizer=args.optimizer, verbose=mesh.rank == 0,
                         ckpt_dir=args.ckpt_dir, save_every=args.save_every)
+    leave_process_group(mesh)
     return None if mesh.rank else res
 
 

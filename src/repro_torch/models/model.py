@@ -98,29 +98,32 @@ class Layer(nn.Module):
                 for i in range(len(_split_kinds(self.kind)))]
 
     def _ffn(self, x, cfg):
-        h2 = self.norm2(x)
+        h2 = shard.seq_gather(self.norm2(x))
         if self.kind == "attn_moe":
             y, aux = moe_apply(self.ffn, h2, cfg)
         else:
             y, aux = self.ffn(h2), None
-        return x + y, aux
+        return x + _stream(y, x), aux
 
     def forward(self, x, cfg: ModelConfig):
-        """Full-sequence application -> (x, aux)."""
+        """Full-sequence application -> (x, aux).  Under
+        ``shard.seq_parallel`` ``x`` is the rank's tokens: each part runs
+        on its normed input's whole sequence (``shard.seq_gather``) and
+        hands back the rank's tokens."""
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         if self.kind.startswith("unit:"):
             for sub in self.subs():
                 x, a = sub(x, cfg)
                 aux = aux + a
             return x, aux
-        h = self.norm1(x)
+        h = shard.seq_gather(self.norm1(x))
         if self.kind == "ssm":
-            return x + ssm_forward(self.mix, h, cfg), aux
+            return x + _stream(ssm_forward(self.mix, h, cfg), x), aux
         if self.kind == "rec":
-            x = x + rglru_forward(self.mix, h, cfg)
+            y = rglru_forward(self.mix, h, cfg)
         else:
-            x = x + (mla_forward if cfg.use_mla else attn_forward)(self.mix, h, cfg)
-        x, a = self._ffn(x, cfg)
+            y = (mla_forward if cfg.use_mla else attn_forward)(self.mix, h, cfg)
+        x, a = self._ffn(x + _stream(y, x), cfg)
         return x, (aux if a is None else a)
 
     def decode(self, x, cfg: ModelConfig, cache, pos: int):
@@ -180,6 +183,13 @@ class Layer(nn.Module):
             x = x + y
         x, _ = self._ffn(x, cfg)
         return x, cache
+
+
+def _stream(y, x):
+    """A part's output ``y`` on the residual stream ``x``'s tokens: a split
+    part's sum already is (``shard.from_model``); a whole part's output
+    of the whole sequence is cut to the rank's (``shard.seq_local``)."""
+    return y if y.shape[1] == x.shape[1] else shard.seq_local(y)
 
 
 def init_layer_cache(kind: str, cfg: ModelConfig, batch: int, max_len: int,
@@ -301,10 +311,13 @@ def _lookup(table, cfg, tokens, dtype):
     """The rows of ``table`` (cast to ``dtype``) at ``tokens``.  Given a
     rank's V/m vocab rows (the train step on a ``ProcessMesh``): its rows
     where a token falls in them, zeros elsewhere, added over ``model``
-    (one rank's row and zeros: the sum is exact)."""
+    (one rank's row and zeros: the sum is exact).  Under
+    ``shard.seq_parallel`` the rows of the rank's tokens: the sum a
+    reduce-scatter, or a whole table's rows of every token cut to the
+    rank's (``shard.seq_split``)."""
     v = table.shape[0]
     if v == cfg.vocab_size:
-        return table.to(dtype)[tokens]
+        return shard.seq_split(table.to(dtype)[tokens])
     v0 = shard.model_index() * v
     mine = (tokens >= v0) & (tokens < v0 + v)
     rows = table.to(dtype)[torch.where(mine, tokens - v0, 0)]
@@ -330,6 +343,9 @@ def _embed_inputs(params, cfg, tokens=None, input_embeds=None,
         parts.append(input_embeds.to(cdt))
     if tokens is not None:
         parts.append(_embed_tokens(params, cfg, tokens))
+    if shard.seq_parallel() and (tokens is None or len(parts) > 1):
+        raise ValueError("sequence parallelism takes token inputs alone "
+                         "(no prefix or input embeddings)")
     x = parts[0] if len(parts) == 1 else torch.cat(parts, dim=1)
     return shard.constrain(x, "act_bsd")
 
@@ -386,8 +402,31 @@ def _token_nll(params: Model, cfg, x, labels):
     gold = torch.gather(lg, -1, torch.where(mine, labels - v0, 0)[..., None])[..., 0]
     gold = torch.where(mine, gold, torch.zeros_like(gold))
     se = torch.exp(lg - mx[..., None]).sum(dim=-1)
-    both = shard.from_model(torch.stack([se, gold]), "vocab_ce")
+    both = shard.model_add(torch.stack([se, gold]), "vocab_ce")
     return mx + torch.log(both[0]) - both[1]
+
+
+def _ce_total(params: Model, cfg, x, labels, mask, chunk: int):
+    """[sum of the masked NLL, sum of the mask] of hidden ``x`` against
+    ``labels`` (B, S), in sequence chunks of ``chunk`` tokens where they
+    divide S (else one), the same on every rank along ``model``.  Under
+    ``shard.seq_parallel`` ``x`` holds the rank's tokens, and the
+    cross-entropy takes the whole sequence: the rank's vocab columns
+    through ``shard.seq_gather``, a whole table through
+    ``shard.seq_whole``."""
+    table = (params.embed if cfg.tie_embeddings else params.head).table
+    split = table.shape[0] < cfg.vocab_size
+    x = shard.seq_gather(x) if split else shard.seq_whole(x)
+    s = x.shape[1]
+    c = min(chunk, s)
+    nc = s // c if s % c == 0 else 1
+    c = s // nc
+    tot = torch.zeros(2, dtype=torch.float32, device=x.device)
+    for i in range(nc):
+        lc, mc = labels[:, i * c:(i + 1) * c], mask[:, i * c:(i + 1) * c]
+        nll = _token_nll(params, cfg, x[:, i * c:(i + 1) * c], lc) * mc
+        tot = tot + torch.stack([nll.sum(), mc.sum()])
+    return tot
 
 
 def _shift(t, k: int):
@@ -411,18 +450,11 @@ def loss_fn(params: Model, cfg: ModelConfig, tokens, labels, mask=None,
                      train=True)
     npfx = prefix_embeds.shape[1] if prefix_embeds is not None else 0
     x_txt = x[:, npfx:] if npfx else x
-    b, s, _ = x_txt.shape
-    c = min(loss_chunk, s)
-    nc = s // c if s % c == 0 else 1
-    c = s // nc
+    b, s = labels.shape
     labels = labels.long()
     if mask is None:
         mask = torch.ones((b, s), dtype=torch.float32, device=x.device)
-    tot = torch.zeros(2, dtype=torch.float32, device=x.device)
-    for i in range(nc):
-        lc, mc = labels[:, i * c:(i + 1) * c], mask[:, i * c:(i + 1) * c]
-        nll = _token_nll(params, cfg, x_txt[:, i * c:(i + 1) * c], lc) * mc
-        tot = tot + torch.stack([nll.sum(), mc.sum()])
+    tot = _ce_total(params, cfg, x_txt, labels, mask, loss_chunk)
     loss = tot[0] / torch.clamp(shard.batch_sum(tot[1]), min=1.0)
 
     if cfg.mtp_depth and hasattr(params, "mtp"):
@@ -433,12 +465,10 @@ def loss_fn(params: Model, cfg: ModelConfig, tokens, labels, mask=None,
             h = mp.proj(torch.cat([h, emb_next], dim=-1))
             h, _ = mp.block(h, cfg)
             h = mp.norm(h)
-            # blocks.cross_entropy's masked mean, vocab-parallel where the
-            # table is split
-            mk = _shift(mask, k)
-            nll = _token_nll(params, cfg, h, _shift(labels, k))
-            loss = loss + 0.3 * (torch.sum(nll * mk) / torch.clamp(
-                shard.batch_sum(torch.sum(mk)), min=1.0))
+            # blocks.cross_entropy's masked mean in one chunk,
+            # vocab-parallel where the table is split
+            tk = _ce_total(params, cfg, h, _shift(labels, k), _shift(mask, k), s)
+            loss = loss + 0.3 * (tk[0] / torch.clamp(shard.batch_sum(tk[1]), min=1.0))
     return loss + aux, {"aux": aux}
 
 

@@ -16,6 +16,32 @@ Token-choice routing with per-group capacity, the JAX semantics exactly:
 Dispatch scatters tokens into a (G, E, C, D) buffer, the experts run as
 batched products over E, and combine gathers back -- plain torch, as the
 JAX package writes it in plain jnp.
+
+On a ``launch.mesh.ProcessMesh`` (the train step's split over ``model``)
+a rank given E/m expert banks runs those: every rank along ``model``
+routes its batch shard alike, fills the buffers of its own experts and
+adds ``y`` over ``model`` in the combine.  With ``ep_stationary`` the
+banks never move and the tokens do (the JAX package's rule, the paper's
+discipline of keeping the operand still):
+
+* E divides by the batch axes times ``model`` (d m): the placement gives
+  a rank E/(d m) whole banks, ``(data, model)`` major to minor.  The
+  buffer of a ``model`` index's E/m experts (d chunks, one an owner along
+  ``data``) goes by one all-to-all over ``data`` to the ranks that own
+  them (``shard.expert_dispatch``); each runs its banks over every batch
+  shard's groups, and the outputs come back by the reverse all-to-all
+  (``shard.expert_return``);
+* E divides by m only: a rank holds E/m banks and their ffn columns over
+  ``data``; the buffers are gathered over ``data`` (``shard.
+  batch_gather``), the rank's columns give a partial output, and the
+  partials are reduce-scattered back to their batch shards
+  (``shard.batch_scatter``).
+
+Either way no expert weight is gathered, and a bank's gradient stays on
+its rank.  Under ``shard.seq_parallel`` the layer hands ``moe_apply``
+the whole sequence (a routing group is a sequence), and the aux term's
+gradient flows through the rank's tokens alone
+(``shard.own_tokens_grad``).
 """
 
 from __future__ import annotations
@@ -86,11 +112,25 @@ def route(logits: torch.Tensor, k: int, cap: int) -> dict:
             "keep": pos < cap}
 
 
+def _own_experts(e_flat, el: int, spread: bool):
+    """(mine, slot) of each assignment's expert on this rank's buffer: its
+    ``model`` index's experts, E/m slots; ``spread`` (``ep_stationary``'s
+    E/(d m) banks a rank, ``(data, model)`` major to minor) numbers them
+    by the owner's ``data`` coordinate, then the bank."""
+    m, j = shard.model_shards(), shard.model_index()
+    if not spread:
+        e0 = j * el
+        return (e_flat >= e0) & (e_flat < e0 + el), e_flat - e0
+    own = e_flat // el
+    return own % m == j, (own // m) * el + e_flat % el
+
+
 def moe_apply(p: MoE, x, cfg, capacity_factor: float | None = None):
     """x: (B, S, D) -> (y, aux_loss).  Routing groups = sequences (prefill,
     capacity-dropped) or the whole batch (decode, drop-free).  With a
     rank's E/m experts (``wi``'s leading dim below ``cfg.n_experts``) the
-    rank runs those and the combine adds ``y`` over ``model``."""
+    rank runs those and the combine adds ``y`` over ``model``; with
+    ``ep_stationary`` as the module docstring says."""
     b, s, d = x.shape
     e, k = cfg.n_experts, cfg.top_k
     cf = capacity_factor if capacity_factor is not None else cfg.moe_capacity_factor
@@ -115,11 +155,15 @@ def moe_apply(p: MoE, x, cfg, capacity_factor: float | None = None):
     # experts through shard.to_model
     el = p.wi.shape[0]
     split = el < e
+    ep = split and shard.ep_stationary()
+    spread = ep and el * shard.model_shards() < e     # E/(d m) banks a rank
+    if ep and p.wi.shape[1] != d:
+        raise ValueError("ep_stationary: the expert banks must be placed by "
+                         "state_specs(..., ep_stationary=True)")
     if split:
-        e0 = shard.model_index() * el
-        mine = (e_flat >= e0) & (e_flat < e0 + el)
+        mine, slot = _own_experts(e_flat, el, spread)
         keep = keep & mine
-        e_flat = torch.where(mine, e_flat - e0, 0)
+        e_flat = torch.where(mine, slot, 0)
         xd, gates = shard.to_model(xg), shard.to_model(gates)
     else:
         xd = xg
@@ -127,12 +171,21 @@ def moe_apply(p: MoE, x, cfg, capacity_factor: float | None = None):
     # dispatch: scatter tokens into the (G, E, C, D) expert buffers
     x_rep = torch.repeat_interleave(xd, k, dim=1)       # (G, T*k, D)
     x_rep = torch.where(keep[..., None], x_rep, torch.zeros_like(x_rep))
-    buf = xg.new_zeros((g, el, cap, d))
+    ne = e // shard.model_shards() if split else el   # the buffer's experts
+    buf = xg.new_zeros((g, ne, cap, d))
     gi = torch.arange(g, device=x.device)[:, None].expand(g, t * k)
     buf.index_put_((gi, e_flat, pos_c), x_rep, accumulate=True)
+    if spread:
+        buf = shard.expert_dispatch(buf)
+    elif ep:
+        buf = shard.batch_gather(buf)
     buf = shard.constrain(buf, "moe_buf", e)
 
     yb = shard.constrain(_expert_ffn(p, buf, cfg.act), "moe_buf", e)  # (G,E,C,D)
+    if spread:
+        yb = shard.expert_return(yb)
+    elif ep:
+        yb = shard.batch_scatter(yb)
 
     # combine: gather back and weight by gates
     y_tok = shard.constrain(yb[gi, e_flat, pos_c], "batch_only")  # (G,T*k,D)
@@ -146,13 +199,16 @@ def moe_apply(p: MoE, x, cfg, capacity_factor: float | None = None):
         y = y.reshape(b, 1, d)
 
     if hasattr(p, "shared"):
-        y = y + p.shared(x)
+        sh = p.shared(x)
+        if sh.shape[1] != y.shape[1]:        # under seq_parallel: one split, one whole
+            sh, y = (shard.seq_local(t) if t.shape[1] == s else t for t in (sh, y))
+        y = y + sh
 
     # Switch-style load-balance aux: E * sum_e f_e * P_e.  On a ProcessMesh
     # f_e is the whole batch's (the shards' mean) and a rank adds its share
     # of P_e's mean, so the ranks' aux terms add up to the whole batch's.
     nb = shard.batch_shards()
-    me = torch.mean(r["probs"], dim=(0, 1))             # (E,)
+    me = torch.mean(shard.own_tokens_grad(r["probs"]), dim=(0, 1))   # (E,)
     ce = torch.mean(F.one_hot(r["idx"], e).float().sum(dim=2), dim=(0, 1)) / k
     ce = shard.batch_sum(ce) / nb
     aux = e * torch.sum(me * ce) * cfg.router_aux_coef / nb

@@ -6,11 +6,12 @@ The JAX package pins the sharding of hot activations with
 ``constrain(x, kind)`` inside ``use_mesh_axes(mesh, ...)``.
 ``jax.lax.with_sharding_constraint`` is the identity on values, and so is
 the port's ``constrain``: under ``use_mesh_axes`` with a ``ProcessMesh``
-it validates the kind's spec against the activation's global shape (the
-batch dim times the batch shards), as the JAX one does, and checks the
-rank's local shape (a dim the spec puts on ``model`` holds 1/m of its
-``whole`` size where m divides it), then returns ``x``; on one card it is
-the identity and checks nothing.
+it validates the kind's spec against the activation's global shape (each
+dim's local size times the tiles of its spec entry), as the JAX one does,
+and checks the rank's local shape (a dim the spec puts on ``model``,
+alone or with other axes, holds its ``whole`` size over those tiles where
+they divide it), then returns ``x``; on one card it is the identity and
+checks nothing.
 
 The process grid splits the batch over the batch axes, and the compute of
 every layer kind over ``model`` where :func:`split_kinds` says its units
@@ -27,10 +28,30 @@ gated RMSNorm's sum of squares over a split width; :func:`model_concat`
 (gathers a split activation's last dim forward; the backward hands each
 rank its slice of the gradient added over ``model``) the RG-LRU gates'
 input.  Every sum gathers the partials (``mesh.gather``, or one
-``mesh.all_to_all`` for :func:`model_concat`'s backward) and adds them in
+``mesh.all_to_all`` for a reduce-scatter) and adds them in
 coordinate order, so every rank along ``model`` gets the same bits; each
 is counted in ``mesh.stats`` under its call site's name.  All of them are
 the identity outside a ``ProcessMesh``.
+
+With ``seq_parallel`` (Megatron-SP, the JAX package's ``sp``) the
+residual stream between layers is split over ``model`` along the
+sequence as well: a rank holds (B/d, S/m, D), its own S/m tokens
+(:func:`seq_parallel`; the train step installs it only where m divides
+S, as ``validate_spec`` drops an axis that does not divide).  A layer
+gathers its normed input's sequence (:func:`seq_gather`: an all-gather
+forward, a reduce-scatter of the gradient backward, both ``sp_gather``),
+runs everything that mixes positions on the whole sequence, and a split
+part's row-parallel sum becomes a reduce-scatter back to the rank's
+tokens (:func:`from_model`: ``sp_scatter`` both ways); :func:`to_model`
+is then the identity both ways (the layer's gather adds the ranks'
+partial gradients), and a part that runs whole keeps its own tokens of
+its output (:func:`seq_local`).  A whole vocab's lookup and
+cross-entropy run whole and alike on every rank, so their table's
+gradient is whole on each (:func:`seq_split`, :func:`seq_whole`: one
+all-gather a way, no sum).  With ``ep_stationary`` the expert banks
+stay on their ranks and the tokens move (:func:`expert_dispatch`,
+:func:`expert_return`, :func:`batch_gather`, :func:`batch_scatter`; see
+``models.moe``).
 
 A rank of a ``ProcessMesh`` holds its batch shard, so where the loss
 reduces over the batch it needs the other shards' numbers too:
@@ -51,8 +72,12 @@ import torch
 
 __all__ = ["use_mesh_axes", "active", "constrain", "batch_sum",
            "batch_shards", "running_layers", "layer_call", "model_shards",
-           "model_index", "to_model", "from_model", "model_sum", "model_max",
-           "model_allsum", "model_concat", "ssd_heads", "split_kinds"]
+           "model_index", "to_model", "from_model", "model_add", "model_sum",
+           "model_max", "model_allsum", "model_concat", "ssd_heads",
+           "split_kinds", "seq_parallel", "ep_stationary", "seq_splits",
+           "seq_gather", "seq_whole", "seq_split", "seq_local",
+           "own_tokens_grad", "expert_dispatch",
+           "expert_return", "batch_gather", "batch_scatter", "EP_AXIS"]
 
 _CTX: dict = {"on": False}
 
@@ -110,39 +135,47 @@ def _spec_for(kind: str, ndim: int, shape: tuple = ()) -> tuple:
     return (spec + (None,) * (ndim - len(spec)))[:ndim]
 
 
-def _model_dims(kind: str, ndim: int) -> list:
-    """The dims the kind's spec puts on ``model``."""
-    m = _CTX["model"]
-    return [d for d, e in enumerate(_spec_for(kind, ndim))
-            if e == m or (isinstance(e, tuple) and m in e)]
+def _entry_axes(e) -> tuple:
+    return () if e is None else (e,) if isinstance(e, str) else tuple(
+        a for x in e for a in ((x,) if isinstance(x, str) else x))
 
 
 def constrain(x, kind: str, whole: int | None = None):
     """``x``; under ``use_mesh_axes`` with a ``ProcessMesh``, first the
-    kind's spec validated against ``x``'s global shape, and with ``whole``
-    (the global size of the dim the spec puts on ``model``) the rank's
-    local size of that dim checked: ``whole / m`` where m divides
-    ``whole``, else ``whole`` (module docstring).  Raises ``ValueError``
-    on a local shape the split does not give."""
+    kind's spec validated against ``x``'s global shape (each dim's local
+    size times the tiles of its spec entry), and with ``whole`` (the
+    global size of the dim the spec puts on ``model``, alone or in a
+    tuple of axes) the rank's local size of that dim checked: ``whole``
+    over the entry's tiles where they divide it, else ``whole`` (module
+    docstring).  Raises ``ValueError`` on a local shape the split does
+    not give."""
     mesh = _process_mesh()
     if mesh is None:
         return x
     from ..ft.remesh import validate_spec
 
-    shape = tuple(x.shape)
-    if shape:
-        shape = (shape[0] * batch_shards(),) + shape[1:]
-    if whole is not None:
-        m = model_shards()
-        want = whole // m if whole % m == 0 else whole
-        for d in _model_dims(kind, x.ndim):
+    m_ax = _CTX["model"]
+    shape = list(x.shape)
+    on_m = [d for d, e in enumerate(_spec_for(kind, x.ndim))
+            if m_ax in _entry_axes(e)]
+    hint = tuple(whole if whole is not None and d in on_m else n
+                 for d, n in enumerate(shape))
+    spec = _spec_for(kind, x.ndim, hint)
+    for d, e in enumerate(spec):
+        axes = _entry_axes(e)
+        n = math.prod(int(mesh.shape[a]) for a in axes)
+        if whole is not None and m_ax in axes:
+            want = whole // n if whole % n == 0 else whole
             if x.shape[d] != want:
+                over = axes[0] if len(axes) == 1 else axes
                 raise ValueError(
                     f"constrain {kind!r}: dim {d} holds {x.shape[d]} on this "
-                    f"rank; split over {m} ranks along {_CTX['model']!r} the "
+                    f"rank; split over {n} ranks along {over!r} the "
                     f"whole {whole} leaves {want}")
-            shape = shape[:d] + (whole,) + shape[d + 1:]
-    validate_spec(shape, _spec_for(kind, x.ndim, shape), mesh)
+            shape[d] = whole
+        else:
+            shape[d] *= n
+    validate_spec(tuple(shape), spec, mesh)
     return x
 
 
@@ -265,37 +298,33 @@ class _AllSum(torch.autograd.Function):
         return model_sum(g, ctx.what), None
 
 
-class _Concat(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, x, what):
-        ctx.what, ctx.shape = what, x.shape
-        got = _model_gather(x, what)                   # (m, numel)
-        m = got.shape[0]
-        return got.view(m, -1, x.shape[-1]).movedim(0, 1).reshape(
-            *x.shape[:-1], m * x.shape[-1])
-
-    @staticmethod
-    def backward(ctx, g):
-        m, k = model_shards(), ctx.shape[-1]
-        send = g.reshape(-1, m, k).movedim(1, 0).reshape(1, m, -1)
-        got = _process_mesh().all_to_all(send, (_CTX["model"],), ctx.what)[0]
-        acc = got[0].float()
-        for c in range(1, m):
-            acc = acc + got[c].float()
-        return acc.to(g.dtype).view(ctx.shape), None
-
-
 def to_model(x):
     """Where a value every rank along ``model`` holds whole enters the
     rank's own part of a split computation: the identity forward; the
     backward adds the ranks' partial gradients over ``model``
-    (``tp_bwd``)."""
-    return x if model_shards() == 1 else _ToModel.apply(x)
+    (``tp_bwd``).  Under :func:`seq_parallel` the identity both ways: the
+    layer gathered ``x``'s sequence (:func:`seq_gather`), whose backward
+    adds those partials."""
+    return x if model_shards() == 1 or seq_parallel() else _ToModel.apply(x)
 
 
 def from_model(x, what: str):
     """The ranks' partials of a split computation added over ``model``
-    (``what``); the backward hands each rank the whole gradient."""
+    (``what``); the backward hands each rank the whole gradient.  Under
+    :func:`seq_parallel` ``x`` is a partial of the whole sequence, and the
+    sum is a reduce-scatter to this rank's tokens (``sp_scatter``; its
+    backward all-gathers the gradient's sequence)."""
+    if model_shards() == 1:
+        return x
+    if seq_parallel():
+        return _Scatter.apply(x, (_CTX["model"],), 1, "sp_scatter")
+    return _FromModel.apply(x, what)
+
+
+def model_add(x, what: str):
+    """:func:`from_model` without the sequence: the partials added over
+    ``model`` forward (``what``), the identity backward, whatever the
+    residual stream's split (the vocab-parallel loss's sums)."""
     return x if model_shards() == 1 else _FromModel.apply(x, what)
 
 
@@ -312,7 +341,248 @@ def model_concat(x, what: str):
     in coordinate order (one ``mesh.gather``, ``what``); the backward
     hands each rank its slice of the gradient added over ``model`` (one
     ``mesh.all_to_all``, ``what``)."""
-    return x if model_shards() == 1 else _Concat.apply(x, what)
+    if model_shards() == 1:
+        return x
+    return _Gather.apply(x, (_CTX["model"],), x.ndim - 1, what)
+
+
+# -- the sequence over model (seq_parallel) and the experts (ep_stationary) ----
+
+# the param rules' FSDP axis, which ``ep_stationary`` puts the expert banks
+# (or their ffn columns) on beside ``model``
+EP_AXIS = "data"
+
+
+def seq_parallel() -> bool:
+    """The residual stream is split over ``model`` along the sequence:
+    ``seq_parallel`` installed with a ``ProcessMesh`` of more than one
+    rank along ``model`` (module docstring)."""
+    return bool(_CTX.get("seq_parallel")) and model_shards() > 1
+
+
+def seq_splits(seq: int, m: int) -> bool:
+    """Whether ``seq_parallel`` splits a sequence of ``seq`` tokens over
+    ``m`` ranks along ``model``: m > 1 divides it (else the axis is
+    dropped, as ``validate_spec`` drops it, and the stream stays whole)."""
+    return m > 1 and seq % m == 0
+
+
+def ep_stationary() -> bool:
+    """``ep_stationary`` installed with a ``ProcessMesh``: a split MoE's
+    expert banks stay where the placement put them (``models.moe``)."""
+    return bool(_CTX.get("ep_stationary")) and _process_mesh() is not None
+
+
+def _chunks(x, p: int, dim: int):
+    """``x`` cut into ``p`` equal chunks along ``dim``, as the (1, p, n)
+    stack ``mesh.all_to_all`` sends."""
+    n = x.shape[dim] // p
+    return x.reshape(*x.shape[:dim], p, n, *x.shape[dim + 1:]).movedim(
+        dim, 0).reshape(1, p, -1)
+
+
+def _joined(got, shape: tuple, dim: int):
+    """(p, n) chunks of ``shape`` each, in coordinate order, joined
+    along ``dim``."""
+    p = got.shape[0]
+    t = got.reshape(p, *shape).movedim(0, dim)
+    return t.reshape(*shape[:dim], p * shape[dim], *shape[dim + 1:])
+
+
+def _all_gather(x, axes: tuple, dim: int, what: str):
+    """This rank's ``x`` and its group's along ``axes``, joined along
+    ``dim`` in coordinate order (one ``mesh.gather``)."""
+    got = _process_mesh().gather(x.detach().reshape(1, -1), axes, what)[0]
+    return _joined(got, tuple(x.shape), dim)
+
+
+def _reduce_scatter(x, axes: tuple, dim: int, what: str):
+    """This rank's chunk along ``dim`` of ``x`` added over its group along
+    ``axes``: one ``mesh.all_to_all`` sends each member its chunk, and the
+    received chunks are added in coordinate order, in f32, cast back."""
+    mesh = _process_mesh()
+    p = int(mesh.group(axes)[1].shape[1])
+    got = mesh.all_to_all(_chunks(x.detach(), p, dim), axes, what)[0]
+    acc = got[0].float()
+    for c in range(1, p):
+        acc = acc + got[c].float()
+    shape = list(x.shape)
+    shape[dim] //= p
+    return acc.to(x.dtype).view(shape)
+
+
+def _exchange(x, axes: tuple, split: int, join: int, what: str):
+    """Chunk c of ``x`` along ``split`` to the member at coordinate c of
+    this rank's group along ``axes``, the chunks received joined along
+    ``join`` in coordinate order (one ``mesh.all_to_all``)."""
+    mesh = _process_mesh()
+    p = int(mesh.group(axes)[1].shape[1])
+    got = mesh.all_to_all(_chunks(x.detach(), p, split), axes, what)[0]
+    shape = list(x.shape)
+    shape[split] //= p
+    return _joined(got, tuple(shape), join)
+
+
+class _Gather(torch.autograd.Function):
+    """An all-gather along ``dim`` over ``axes`` forward; its backward
+    reduce-scatters the gradient (both counted as ``what``)."""
+
+    @staticmethod
+    def forward(ctx, x, axes, dim, what):
+        ctx.args = axes, dim, what
+        return _all_gather(x, axes, dim, what)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _reduce_scatter(g, *ctx.args), None, None, None
+
+
+class _Scatter(torch.autograd.Function):
+    """A reduce-scatter along ``dim`` over ``axes`` forward; its backward
+    all-gathers the gradient (both counted as ``what``)."""
+
+    @staticmethod
+    def forward(ctx, x, axes, dim, what):
+        ctx.args = axes, dim, what
+        return _reduce_scatter(x, axes, dim, what)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_gather(g, *ctx.args), None, None, None
+
+
+class _GatherWhole(torch.autograd.Function):
+    """An all-gather along ``dim`` over ``axes`` forward; the backward keeps
+    this rank's chunk of a gradient every rank computed whole."""
+
+    @staticmethod
+    def forward(ctx, x, axes, dim, what):
+        ctx.n, ctx.dim = x.shape[dim], dim
+        ctx.r = int(_process_mesh().group(axes)[0][_process_mesh().rank])
+        return _all_gather(x, axes, dim, what)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.narrow(ctx.dim, ctx.r * ctx.n, ctx.n), None, None, None
+
+
+class _SplitGather(torch.autograd.Function):
+    """This rank's chunk along ``dim`` of a value every rank holds whole
+    forward; the backward all-gathers the gradient over ``axes``."""
+
+    @staticmethod
+    def forward(ctx, x, axes, dim, what):
+        ctx.args = axes, dim, what
+        p = int(_process_mesh().group(axes)[1].shape[1])
+        r = int(_process_mesh().group(axes)[0][_process_mesh().rank])
+        n = x.shape[dim] // p
+        return x.narrow(dim, r * n, n).clone()
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_gather(g, *ctx.args), None, None, None
+
+
+class _Exchange(torch.autograd.Function):
+    """An all-to-all (chunks along ``split`` out, joined along ``join``);
+    its backward is the reverse one (both counted as ``what``)."""
+
+    @staticmethod
+    def forward(ctx, x, axes, split, join, what):
+        ctx.args = axes, split, join, what
+        return _exchange(x, axes, split, join, what)
+
+    @staticmethod
+    def backward(ctx, g):
+        axes, split, join, what = ctx.args
+        return _exchange(g, axes, join, split, what), None, None, None, None
+
+
+def seq_gather(x):
+    """Under :func:`seq_parallel`: the rank's tokens of ``x`` (B, S/m,
+    ...) -> the whole sequence (B, S, ...), gathered over ``model`` in
+    coordinate order; the backward adds the ranks' gradients and keeps
+    this rank's tokens (both ``sp_gather``).  ``x`` itself otherwise."""
+    if not seq_parallel():
+        return x
+    return _Gather.apply(x, (_CTX["model"],), 1, "sp_gather")
+
+
+def seq_whole(x):
+    """Under :func:`seq_parallel`: the whole sequence of ``x`` for a part
+    every rank runs whole and alike (a whole vocab's cross-entropy); the
+    backward keeps this rank's tokens of the gradient, which every rank
+    computed whole (the forward ``sp_gather``; no sum).  ``x`` itself
+    otherwise."""
+    if not seq_parallel():
+        return x
+    return _GatherWhole.apply(x, (_CTX["model"],), 1, "sp_gather")
+
+
+def seq_split(t):
+    """Under :func:`seq_parallel`: this rank's tokens of a ``t`` every rank
+    computed whole and alike (a whole vocab's lookup); the backward
+    gathers the ranks' gradients, so every rank's is the whole one
+    (``sp_gather``).  ``t`` itself otherwise."""
+    if not seq_parallel():
+        return t
+    return _SplitGather.apply(t, (_CTX["model"],), 1, "sp_gather")
+
+
+def seq_local(t):
+    """Under :func:`seq_parallel`: this rank's S/m tokens (dim 1) of a
+    ``t`` every rank holds whole; the backward pads zeros (a whole part's
+    output, the tokens and labels of the rank's slice).  ``t`` itself
+    otherwise."""
+    if not seq_parallel():
+        return t
+    n = t.shape[1] // model_shards()
+    r = model_index()
+    return t[:, r * n:(r + 1) * n]
+
+
+def own_tokens_grad(t):
+    """``t`` (B, S, ...), the same on every rank along ``model``; under
+    :func:`seq_parallel` its gradient flows back through this rank's
+    tokens only, so that the ranks' gradients add up to the whole one (a
+    term of the loss each rank computes whole: the MoE aux's mean of the
+    router's probabilities).  ``t`` itself otherwise."""
+    if not seq_parallel():
+        return t
+    n = t.shape[1] // model_shards()
+    r = model_index()
+    mine = torch.zeros(t.shape[1], dtype=torch.bool, device=t.device)
+    mine[r * n:(r + 1) * n] = True
+    return torch.where(mine.view(1, -1, *[1] * (t.ndim - 2)), t, t.detach())
+
+
+def expert_dispatch(buf):
+    """``ep_stationary`` with the experts spread over ``EP_AXIS`` and
+    ``model``: this rank's dispatch buffer (G, E/m, C, D), the experts of
+    its ``model`` index in ``EP_AXIS`` coordinate order, E/(d m) a rank
+    -> (d G, E/(d m), C, D), every batch shard's groups for the experts
+    this rank holds, by one all-to-all over ``EP_AXIS`` (``ep_dispatch``;
+    the backward the reverse one)."""
+    return _Exchange.apply(buf, (EP_AXIS,), 1, 0, "ep_dispatch")
+
+
+def expert_return(yb):
+    """The inverse of :func:`expert_dispatch` (``ep_return``)."""
+    return _Exchange.apply(yb, (EP_AXIS,), 0, 1, "ep_return")
+
+
+def batch_gather(buf):
+    """``ep_stationary`` with the experts on ``model`` and their ffn
+    columns on ``EP_AXIS``: every batch shard's (G, ...) buffers joined
+    over ``EP_AXIS`` (``ep_gather``; the backward reduce-scatters)."""
+    return _Gather.apply(buf, (EP_AXIS,), 0, "ep_gather")
+
+
+def batch_scatter(yb):
+    """The partial outputs of this rank's ffn columns (d G, ...) added
+    over ``EP_AXIS``, this rank's G groups kept (``ep_scatter``; the
+    backward all-gathers)."""
+    return _Scatter.apply(yb, (EP_AXIS,), 0, "ep_scatter")
 
 
 # -- what splits -------------------------------------------------------------

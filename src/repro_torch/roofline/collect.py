@@ -44,6 +44,31 @@ of the batch axes, each micro-batch:
   and ``vocab_ce`` three (B, S) f32 a cross-entropy (the max, the sum of
   exp and the gold logit);
 
+With ``seq_parallel`` (where m > 1 divides S; ``S/m`` a rank's tokens)
+the sums over ``model`` above give way to the sequence's crossings, each
+``(m - 1)`` times a (B, S/m, D) slice in the compute dtype, per layer in
+its forward, recompute and backward (an MTP head's block: forward and
+backward): ``sp_gather`` one a layer's part (its mixer, its MLP or MoE:
+the normed input's all-gather, its gradient's reduce-scatter),
+``sp_scatter`` one a split part's row-parallel sum (attention's or the
+mixer's ``wo``, the MLP's, the MoE's combine and its shared experts', a
+split vocab's lookups: a reduce-scatter, the gradient's all-gather);
+``norm_sum``, ``lru_gather`` and ``vocab_ce`` stay, over the whole
+sequence; a cross-entropy gathers its hidden sequence (``sp_gather``:
+both ways for a split vocab; forward only for a whole one, whose lookups
+gather their gradient backward, ``sp_gather`` too); no ``tp_bwd``.
+Every param no split part owns but a whole vocab's tables adds its
+gradient over ``model`` too (``(b m - 1)`` slices).
+
+With ``ep_stationary`` the expert banks add nothing to ``param_gather``
+or ``grad_reduce_scatter`` (``pod`` aside), and each split MoE layer
+moves its dispatch buffers over ``data`` (``d`` ranks), ``(d - 1)``
+times (G, E/m, C, D) / d a call where the experts spread over ``data``
+and ``model`` (``ep_dispatch`` and ``ep_return``: all-to-alls), else
+``(d - 1)`` times (G, E/m, C, D) (``ep_gather``, ``ep_scatter``), each
+in the layer's forward, recompute and backward; G the rank's rows, C the
+capacity of a group of S tokens.
+
 and once a step ``batch_sum`` of the micro-batches' losses (``ga`` f32),
 ``clip`` one f32 a leaf, ``compress`` (int8 compression) one f32 a leaf,
 each ``(p - 1)`` times, and ``adafactor``: a factored leaf's partial row
@@ -65,6 +90,10 @@ __all__ = ["train_step_bytes"]
 _F32 = 4
 
 
+def _mesh_size(mesh) -> int:
+    return math.prod(int(v) for v in dict(mesh.shape).values())
+
+
 def _split(pl, dim: int) -> int:
     """Tiles that split ``dim`` of a placement's leaf."""
     return math.prod(int(pl.mesh.shape[a]) for a in pl.dim_axes((dim % len(pl.shape),)))
@@ -75,24 +104,31 @@ def _tiles(pl) -> int:
 
 
 def train_step_bytes(cfg, state, mesh, specs=None, grad_accum: int = 1,
-                     compress_grads: bool = False, batch=None) -> dict:
+                     compress_grads: bool = False, batch=None,
+                     seq_parallel: bool = False, ep_stationary: bool = False) -> dict:
     """``{call: bytes}`` one rank receives in one step of the sharded train
     step of ``state`` (a ``TrainState``; shapes and dtypes are read, so it
     may live on ``meta``) placed by ``specs`` (default
-    ``state_specs(state, cfg.fsdp, mesh)``) on ``mesh`` (a ``ProcessMesh``
-    or a ``MeshShape``), plus ``"total_bytes"``.  ``batch``, the whole
-    batch's (rows, tokens a row), sizes the sums over ``model``; it is
-    needed wherever the mesh has more than one rank along ``model``."""
+    ``state_specs(state, cfg.fsdp, mesh, ep_stationary=)``) on ``mesh`` (a
+    ``ProcessMesh`` or a ``MeshShape``), plus ``"total_bytes"``.
+    ``batch``, the whole batch's (rows, tokens a row), sizes the sums over
+    ``model``; it is needed wherever the mesh has more than one rank
+    along ``model``.  ``seq_parallel``, ``ep_stationary``: the step's
+    options (``train.build_train_step``)."""
     from ..launch.mesh import batch_axes
     from ..launch.sharding import (Placement, _itemsize, leaf_shape,
                                    state_specs, tree_leaves)
+    from ..models.shard import seq_splits
     from ..train.step import _gather_over, _split_table
 
-    specs = state_specs(state, cfg.fsdp, mesh) if specs is None else specs
+    specs = (state_specs(state, cfg.fsdp, mesh, ep_stationary=ep_stationary)
+             if specs is None else specs)
     baxes = batch_axes(mesh)
     b = math.prod(int(mesh.shape[a]) for a in baxes)
     m = int(dict(mesh.shape).get("model", 1))
     table = _split_table(cfg, mesh)
+    sp = bool(seq_parallel) and batch is not None and seq_splits(batch[1], m)
+    opts = {"seq_parallel": sp, "ep_stationary": bool(ep_stationary)}
     leaves = tree_leaves(state.params)
     adafactor = "f" in state.opt_state
     out: Counter = Counter()
@@ -107,10 +143,10 @@ def train_step_bytes(cfg, state, mesh, specs=None, grad_accum: int = 1,
         if stacked:
             kind = cfg.layer_groups()[path[1]][0]
             over, sums = _gather_over(table, kind, ".".join(map(str, path[2:])),
-                                      pl, baxes)
+                                      pl, baxes, **opts)
         else:
             over, sums = _gather_over(table, None, ".".join(map(str, path)), pl,
-                                      baxes)
+                                      baxes, **opts)
         p = _tiles(pl) if over is None else math.prod(int(mesh.shape[a]) for a in over)
         s = math.prod(int(mesh.shape[a]) for a in sums)
         out["param_gather"] += grad_accum * gathers * rows * (p - 1) * row_bytes
@@ -125,9 +161,15 @@ def train_step_bytes(cfg, state, mesh, specs=None, grad_accum: int = 1,
         if batch is None:
             raise ValueError(f"train_step_bytes: {m} ranks along 'model' split "
                              "the compute; pass batch=(rows, seq)")
-        for call, n in _split_bytes(cfg, table, batch[0] // (b * grad_accum),
-                                    batch[1], m).items():
+        split = _sp_bytes if sp else _split_bytes
+        for call, n in split(cfg, table, batch[0] // (b * grad_accum),
+                             batch[1], m).items():
             out[call] += grad_accum * (m - 1) * n
+        if ep_stationary:
+            d = int(dict(mesh.shape).get("data", 1))
+            for call, n in _ep_bytes(cfg, table, batch[0] // (b * grad_accum),
+                                     batch[1], m, d, _mesh_size(mesh)).items():
+                out[call] += grad_accum * (d - 1) * n
     moe = sum(n for kind, n in cfg.layer_groups() if kind == "attn_moe")
     per_micro = 1 + 2 * moe * cfg.n_experts + cfg.mtp_depth
     out["batch_sum"] += (b - 1) * _F32 * (grad_accum * per_micro + grad_accum)
@@ -176,17 +218,78 @@ def _split_bytes(cfg, table: dict, rows: int, seq: int, m: int) -> dict:
             out["moe_combine"] += fwd * act
             out["tp_bwd"] += act + tok * cfg.top_k * _F32
 
-    for kind, n in cfg.layer_groups():
-        for _ in range(n):
-            for k in (kind[5:].split(",") if kind.startswith("unit:") else [kind]):
-                layer(k, 2)                 # the forward and the recompute
-    for _ in range(cfg.mtp_depth):
-        layer("attn_mlp", 1)
+    for kind, fwd in _layers(cfg):
+        layer(kind, fwd)
     if table["vocab"]:
         heads = 1 + cfg.mtp_depth
         out["vocab_embed"] += heads * act
         out["vocab_ce"] += heads * 3 * tok * _F32
         out["tp_bwd"] += heads * act
+    return out
+
+
+def _layers(cfg):
+    """(layer kind, forwards) of every layer the step runs: each of a
+    group's layers (a ``unit:`` layer's sub-blocks) in its forward and
+    recompute, each MTP head's block once."""
+    for kind, n in cfg.layer_groups():
+        for _ in range(n):
+            for k in (kind[5:].split(",") if kind.startswith("unit:") else [kind]):
+                yield k, 2
+    for _ in range(cfg.mtp_depth):
+        yield "attn_mlp", 1
+
+
+def _sp_bytes(cfg, table: dict, rows: int, seq: int, m: int) -> dict:
+    """:func:`_split_bytes` under ``seq_parallel`` (module docstring)."""
+    from ..models.blocks import dtype_of
+
+    c = dtype_of(cfg.compute_dtype).itemsize
+    tok = rows * seq
+    sl = tok // m * cfg.d_model * c            # a rank's tokens of (B, S, D)
+    out: Counter = Counter()
+    for kind, fwd in _layers(cfg):
+        parts = table["layers"][kind]
+        ways = fwd + 1                          # forward(s) and the backward
+        out["sp_gather"] += ways * sl * (1 if kind == "ssm" else 2)
+        mixer = parts.get({"ssm": "heads", "rec": "lru"}.get(kind, "heads"))
+        ffn = [parts.get(p) for p in ("mlp", "experts", "shared")]
+        out["sp_scatter"] += ways * sl * (bool(mixer) + sum(map(bool, ffn)))
+        if kind == "ssm" and mixer:
+            out["norm_sum"] += ways * tok * _F32
+        if kind == "rec" and mixer:
+            out["lru_gather"] += ways * tok * (cfg.lru_width or cfg.d_model) // m * c
+    heads = 1 + cfg.mtp_depth
+    # a split vocab's: the cross-entropies' hidden gathered both ways, the
+    # lookups' reduce-scatter; a whole one's: the hidden gathered forward,
+    # the lookups' gradients backward
+    out["sp_gather"] += heads * 2 * sl
+    if table["vocab"]:
+        out["sp_scatter"] += heads * 2 * sl
+        out["vocab_ce"] += heads * 3 * tok * _F32
+    return out
+
+
+def _ep_bytes(cfg, table: dict, rows: int, seq: int, m: int, d: int,
+              total: int) -> dict:
+    """``ep_stationary``'s calls over ``data`` (``d`` of the mesh's
+    ``total`` ranks) of one micro-batch of ``rows`` x ``seq`` tokens, to
+    be multiplied by ``d - 1`` (module docstring)."""
+    from ..models.blocks import dtype_of
+    from ..models.moe import capacity
+
+    out: Counter = Counter()
+    if d == 1 or not table["layers"].get("attn_moe", {}).get("experts"):
+        return out
+    c = dtype_of(cfg.compute_dtype).itemsize
+    e = cfg.n_experts
+    cap = capacity(seq, cfg.top_k, e, cfg.moe_capacity_factor)
+    buf = rows * (e // m) * cap * cfg.d_model * c      # (G, E/m, C, D)
+    spread = e % total == 0                   # the param rule's (data, model) branch
+    moe = sum(n for kind, n in cfg.layer_groups() if kind == "attn_moe")
+    names = ("ep_dispatch", "ep_return") if spread else ("ep_gather", "ep_scatter")
+    for name in names:
+        out[name] += moe * 3 * (buf // d if spread else buf)
     return out
 
 

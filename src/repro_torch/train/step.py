@@ -53,6 +53,27 @@ rank's slices of the state (``sharding.place``):
   (``Placement.sum_over``), all in rank order, so every rank reports the
   same bits;
 * the optimizer updates each rank's slices (in place with ``donate``).
+
+Two options of ``build_train_step`` change the split (the JAX package's
+``use_mesh_axes(..., seq_parallel=, ep_stationary=)``, which its dry run
+reaches through ``--variant sp,ep``); both give the numbers of the step
+without them, within the order of f32 sums:
+
+* ``seq_parallel`` (Megatron-SP): where m > 1 ranks along ``model``
+  divide the sequence, a rank's residual stream between layers is its
+  S/m tokens (``models.shard.seq_gather``/``seq_local``; the
+  row-parallel sums become reduce-scatters, the column-parallel inputs
+  all-gathers, and each layer's checkpoint keeps 1/m of its input).  A
+  param no split part owns then sees the rank's tokens alone, so its
+  gradient is added over ``model`` as well as the batch axes -- but a
+  whole vocab's tables: their lookup and cross-entropy run whole on
+  every rank (``shard.seq_split``/``seq_whole``), their gradient whole;
+* ``ep_stationary``: the expert banks are placed by
+  ``state_specs(..., ep_stationary=True)`` (E over ``data`` and
+  ``model``, or E over ``model`` and their ffn columns over ``data``)
+  and are never gathered: the tokens move to them (``models.moe``), and
+  a bank's gradient is complete on its rank (added over the batch axes
+  its placement does not split alone: ``pod`` on ``multi``).
 """
 
 from __future__ import annotations
@@ -164,6 +185,8 @@ def build_train_step(
     compress_grads: bool = False,
     grad_shardings=None,
     donate: bool = False,
+    seq_parallel: bool = False,
+    ep_stationary: bool = False,
 ):
     """Returns train_step(state, batch) -> (state, metrics).
 
@@ -182,12 +205,16 @@ def build_train_step(
     ``card`` mesh) there is nothing to constrain and the step is the one
     without ``grad_shardings``.
     ``donate``: update the given state's tensors in place (module
-    docstring).
+    docstring).  ``seq_parallel``, ``ep_stationary``: the options of the
+    step on a ``ProcessMesh`` (module docstring; ``ep_stationary`` needs
+    the placements of ``state_specs(..., ep_stationary=True)``); the step
+    without a ``ProcessMesh`` is the same with or without them.
 
     On a ``ProcessMesh`` the returned function carries ``split_kinds``
-    (``models.shard.split_kinds``: what the step splits over ``model``)
-    and, on a card, ``fwd_bwd_events``: the CUDA events around the last
-    step's forward and backward passes.
+    (``models.shard.split_kinds``: what the step splits over ``model``,
+    with ``"seq_parallel": True`` / ``"ep_stationary": True`` where the
+    option is on) and, on a card, ``fwd_bwd_events``: the CUDA events
+    around the last step's forward and backward passes.
     """
     mesh, pls = None, None
     if grad_shardings is not None:
@@ -199,6 +226,7 @@ def build_train_step(
             pls = dict(grad_shardings)
             mesh = next(iter(meshes.values()))
     on_mesh = {} if pls is None else {"placements": pls}
+    opts = {"seq_parallel": bool(seq_parallel), "ep_stationary": bool(ep_stationary)}
 
     def train_step(state: TrainState, batch):
         params = state.params
@@ -211,7 +239,7 @@ def build_train_step(
             grad_of = lambda mb: value_and_grad(cfg, params, mb, leaves)
         else:
             mbs = _local_micros(batch, mesh, grad_accum)
-            grad_of = _mesh_grad_of(cfg, params, leaves, pls, mesh)
+            grad_of = _mesh_grad_of(cfg, params, leaves, pls, mesh, opts)
         events = None
         if mesh is not None and mesh.device.type == "cuda":
             events = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
@@ -264,7 +292,8 @@ def build_train_step(
         return TrainState(new_params, new_opt, state.step + 1, ef), metrics
 
     train_step.donate = donate
-    train_step.split_kinds = None if mesh is None else _split_table(cfg, mesh)
+    train_step.split_kinds = None if mesh is None else (
+        _split_table(cfg, mesh) | {k: True for k, v in opts.items() if v})
     return train_step
 
 
@@ -382,21 +411,27 @@ def _part_of(kind: str, name: str) -> tuple:
     return kind, None, False
 
 
-def _gather_over(table: dict, kind: str, name: str, pl, baxes: tuple) -> tuple:
+def _gather_over(table: dict, kind: str, name: str, pl, baxes: tuple,
+                 seq_parallel: bool = False, ep_stationary: bool = False) -> tuple:
     """(the axes to gather the param ``name`` of a layer of ``kind`` over,
     the axes to add its gradient over).  A part the table splits: gathered
     over the batch axes alone (the rank keeps its ``model`` slice), its
     gradient added over ``baxes``; one of its :data:`_CUT` params
     gathered whole (None), its gradient added over ``baxes`` and
-    ``model``.  Anything else: whole, over ``baxes``.  ``kind`` None is a
-    top-level param: a table (vocab) or an MTP head's."""
-    cut = False
+    ``model``; with ``ep_stationary`` an expert bank not gathered at all
+    (``()``), its gradient added over the batch axes its placement leaves
+    whole.  Anything else: whole, over ``baxes`` (and ``model`` with
+    ``seq_parallel``, but for a whole vocab's tables, which every rank
+    runs whole: module docstring).  ``kind`` None is a top-level param: a
+    table (vocab) or an MTP head's."""
+    with_model = tuple(a for a in pl.mesh.axis_names if a in baxes or a == "model")
+    cut, part, tables = False, None, False
     if kind is None:
         q = name.split(".")
         if q[0] in ("embed", "head"):
-            split = table["vocab"]
+            split, tables = table["vocab"], True
         elif q[0] == "mtp" and q[2] == "block":
-            kind, part, _ = _part_of("attn_mlp", ".".join(q[3:]))
+            kind, part, cut = _part_of("attn_mlp", ".".join(q[3:]))
             split = table["layers"][kind].get(part, False)
         else:
             split = False
@@ -404,20 +439,23 @@ def _gather_over(table: dict, kind: str, name: str, pl, baxes: tuple) -> tuple:
         kind, part, cut = _part_of(kind, name)
         split = table["layers"][kind].get(part, False)
     if split and cut:
-        return None, tuple(a for a in pl.mesh.axis_names
-                           if a in baxes or a == "model")
+        return None, with_model
+    if split and part == "experts" and ep_stationary:
+        return (), tuple(a for a in baxes if a not in pl.axes)
     if split:
         return tuple(a for a in pl.axes if a != "model"), baxes
-    return None, baxes
+    return None, with_model if seq_parallel and not tables else baxes
 
 
-def _mesh_grad_of(cfg, params, leaves, pls: dict, mesh):
+def _mesh_grad_of(cfg, params, leaves, pls: dict, mesh, opts: dict):
     """``mb -> (loss, grads)`` of a rank on ``mesh`` (module docstring): the
     top-level params gathered once, each layer's gathered inside its own
     ``torch.utils.checkpoint`` (again in the recompute, which runs the
     whole layer), the gradients reduce-scattered to the rank's slices by
     ``_Gather``'s backward; a split part's params gathered over the batch
-    axes alone (:func:`_gather_over`)."""
+    axes alone (:func:`_gather_over`).  ``opts``: ``seq_parallel`` (on
+    where the micro-batch's sequence splits, ``shard.seq_splits``) and
+    ``ep_stationary``."""
     from torch.func import functional_call
     from torch.utils.checkpoint import checkpoint, set_checkpoint_early_stop
 
@@ -426,6 +464,7 @@ def _mesh_grad_of(cfg, params, leaves, pls: dict, mesh):
 
     baxes = batch_axes(mesh)
     table = _split_table(cfg, mesh)
+    m = int(dict(mesh.shape).get("model", 1))
     row_of = {}
     for path, leaf in leaves.items():
         r = pls[path].row() if isinstance(leaf, LayerStack) else pls[path]
@@ -433,12 +472,12 @@ def _mesh_grad_of(cfg, params, leaves, pls: dict, mesh):
             row_of[id(t)] = r
     top = [(n, t, row_of[id(t)]) for n, t in params.named_parameters()
            if not n.startswith("groups.")]
-    top = [(n, t, p, *_gather_over(table, None, n, p, baxes)) for n, t, p in top]
+    live = {}                     # this micro-batch's options
 
     def run_layer(layer, x, cfg_):
         names, parts = zip(*layer.named_parameters())
         lpls = [row_of[id(t)] for t in parts]
-        overs = [_gather_over(table, layer.kind, n, p, baxes)
+        overs = [_gather_over(table, layer.kind, n, p, baxes, **live)
                  for n, p in zip(names, lpls)]
 
         def run(x, *sh):
@@ -451,10 +490,14 @@ def _mesh_grad_of(cfg, params, leaves, pls: dict, mesh):
             return checkpoint(run, x, *parts, use_reentrant=False)
 
     def gathered_loss(cfg_, params_, mb):
-        full = {"model." + n: _Gather.apply(t, p, s, o) for n, t, p, o, s in top}
+        full = {"model." + n: _Gather.apply(t, p, *reversed(
+            _gather_over(table, None, n, p, baxes, **live))) for n, t, p in top}
         return functional_call(_LossOf(params_, cfg_), full, (mb,))
 
     def grad_of(mb):
-        with shard.use_mesh_axes(mesh, baxes, "model"), shard.running_layers(run_layer):
+        live.update(opts, seq_parallel=opts["seq_parallel"]
+                   and shard.seq_splits(mb["tokens"].shape[1], m))
+        with shard.use_mesh_axes(mesh, baxes, "model", **live), \
+                shard.running_layers(run_layer):
             return value_and_grad(cfg, params, mb, leaves, loss_of=gathered_loss)
     return grad_of

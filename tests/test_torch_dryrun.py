@@ -23,6 +23,13 @@
   temporaries counted, collective bytes equal to
   ``roofline.collect.train_step_bytes`` call by call, counted FLOPs rank
   0's own.
+* Its ``sp`` and ``ep`` variants (granite-3-8b ``sp`` and
+  deepseek-v3-671b ``ep`` at ``train_4k`` on ``single``, dbrx-132b
+  ``sp,ep`` on ``multi``) run the step with ``seq_parallel`` /
+  ``ep_stationary``: collectives ``collect``'s, granite's sums over
+  ``model`` at most 1/7 of the cell's without ``sp``, deepseek's expert
+  banks adding nothing to the params' gathers or the gradients'
+  reduce-scatters.
 """
 
 import json
@@ -264,3 +271,69 @@ def test_train_cell_runs_rank_0_of_the_split_step(arch, mesh):
     if arch == "mamba2-370m":
         assert step.split_kinds["layers"] == {"ssm": {"heads": True}}
         assert res["collectives"]["by_call"]["norm_sum"] > 0
+
+
+# the calls over ``model`` of the split compute (everything but the
+# params', the gradients' and the optimizer's)
+MODEL_CALLS = {"tp_fwd", "tp_bwd", "moe_combine", "vocab_embed", "vocab_ce",
+               "norm_sum", "lru_gather", "sp_gather", "sp_scatter"}
+
+
+def _cell_bytes(arch, shape, mesh, res, **opts):
+    """``train_step_bytes`` of the dry run's cell (its probe config, its
+    optimizer and accumulation) with ``opts``."""
+    from repro_torch import train as T
+    from repro_torch.configs import SHAPES
+    from repro_torch.models import model as M
+    from repro_torch.roofline.collect import train_step_bytes
+
+    _, seq, rows = SHAPES[shape] if isinstance(shape, str) else shape
+    cfg = configs.get(arch)
+    cfg = cfg.replace(n_layers=(cfg.first_dense_layers or 0) + 1)
+    opt = getattr(T, res["optimizer"])(T.warmup_cosine(1e-4, 100, 10_000))
+    shapes = T.init_train_state(M.init_params(cfg, None, "meta"), opt)
+    return cfg, shapes, train_step_bytes(cfg, shapes, SH.MESHES[mesh],
+                                         grad_accum=res["grad_accum"],
+                                         batch=(rows, seq), **opts)
+
+
+@pytest.mark.parametrize("arch,shape,mesh,variant", [
+    ("granite-3-8b", "train_4k", "single", "sp"),
+    ("deepseek-v3-671b", "train_4k", "single", "ep"),
+    ("dbrx-132b", ("train", 32, 64), "multi", "sp,ep")])
+def test_sp_ep_train_cells_run_rank_0_of_the_split_step(arch, shape, mesh, variant):
+    """The ``sp``/``ep`` train cells on the production meshes run rank 0's
+    step with the options (no longer refused): temporaries counted,
+    collectives equal to ``collect``'s model of the options.  granite's
+    sums over ``model`` fall to at most 1/7 of the cell's without ``sp``
+    (about 2/m of the whole-sequence sums at m = 16); deepseek's 256
+    experts, one a rank, add nothing to ``param_gather`` or
+    ``grad_reduce_scatter``: those calls' bytes are the cell's without
+    ``ep`` less what its expert banks cost there, counted here from their
+    shapes (each bank's (E/16, D/16, F) slice gathered over ``data`` in
+    the layer's forward and recompute, its gradient reduce-scattered
+    once)."""
+    opts = {"seq_parallel": "sp" in variant, "ep_stationary": "ep" in variant}
+    res = dryrun.run_cell(arch, shape, mesh, probe_layers=1, variant=variant)
+    assert res["variant"] == variant
+    assert res["memory_analysis"]["temp_size_in_bytes"] > 0
+    cfg, shapes, want = _cell_bytes(arch, shape, mesh, res, **opts)
+    assert res["collectives"] == {"total_bytes": float(want.pop("total_bytes")),
+                                  "by_call": want}
+    _, _, base = _cell_bytes(arch, shape, mesh, res)
+    if arch == "granite-3-8b":
+        sums = lambda got: sum(v for k, v in got.items() if k in MODEL_CALLS)
+        assert 0 < sums(want) <= sums(base) / 7
+        assert not {"tp_fwd", "tp_bwd"} & set(want)
+    if arch == "deepseek-v3-671b":
+        ga, banks = res["grad_accum"], 0
+        for path, leaf in SH.tree_leaves(shapes.params).items():
+            if path[-1] in ("wi", "wg", "wo") and len(SH.leaf_shape(leaf)) == 4:
+                layers, e, a, b = SH.leaf_shape(leaf)
+                banks += layers * (e // 16) * a * b // 16 * 2 * 15
+        assert banks > 0
+        assert want["param_gather"] == base["param_gather"] - 2 * ga * banks
+        assert want["grad_reduce_scatter"] == base["grad_reduce_scatter"] - ga * banks
+        assert {"ep_dispatch", "ep_return"} <= set(want)
+    if arch == "dbrx-132b":
+        assert {"sp_gather", "sp_scatter", "ep_gather", "ep_scatter"} <= set(want)
