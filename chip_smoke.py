@@ -577,6 +577,34 @@ prints no result line):
                submit and the last tick), ``ell_spmm`` and
                ``cg_update_batched`` above 0 on every rank.
 
+15. meshserve -- LM serving on a process grid, on the ranks of phase
+               12's spawn after 12d (``launch.serve.serve_on_mesh``: the
+               params placed by ``param_specs``, the caches by
+               ``cache_specs``, their sequence over ``model``; its checks
+               fail "meshserve").  15a: the CPU tests' f32 smoke cases
+               (SERVE_MESH: granite-3-8b as GQA with fsdp, nofsdp, int8kv
+               and sp, deepseek-v3-671b, dbrx-132b ep, mamba2-370m,
+               recurrentgemma-9b's wrapping ring) against the one-process
+               generation on the card: tokens equal, each step's logits
+               within SERVE_MESH_RTOL of max|logit|, the ranks' bitwise
+               equal, the prefill's and each decode step's wire bytes
+               ``roofline.collect.serve_step_bytes``' and held bytes
+               ``device_bytes``, exactly.  15b: granite-3-8b published
+               (SERVE_FULL: 40 layers, bf16, weights-stationary
+               ``nofsdp``), SERVE_FULL_SHAPE, on the 2x2 grid, decoding
+               the one-process run's tokens (teacher forcing), held to
+               the f32 run on the same weights: the grid's largest step's
+               logit error against it within SERVE_FULL_F32_FACTOR times
+               the largest of the one-process bf16 runs' (the whole batch
+               and its halves); the error against the one-process bf16
+               run beside SERVE_FULL_RTOL (printed, not held: bf16's own
+               floor lies above it), the argmax agreement, prefill ms and
+               decode ms a step with
+               staging, gloo and rest, bytes by call against
+               ``serve_step_bytes``, held bytes against ``device_bytes``
+               and each rank's peak, beside the card's name and power
+               limit and the one-process run's times.
+
 The last three lines are the kernels JSON, the card's
 ``nvidia-smi --query-gpu=name,power.limit`` line, and the result JSON.
 """
@@ -843,7 +871,7 @@ LEVEL_PROBE = 2047                  # 11c: nodes of the launch-floor graph
 # recurrentgemma-9b's published width cut to one (rec, rec, attn) unit,
 # Adafactor.
 MESH_GRID, MESH_AXES = (2, 2), ("data", "model")
-MESH_STEPS = 3                      # 12b, 12c
+MESH_STEPS = 2                      # 12b, 12c, 12d
 MESH_PARITY_STEPS = 2               # 12a: an update and a step after it
                                     # (3 would not fit eight configs)
 # (arch, optimizer, variant): the variant's tokens are the dry run's, "sp"
@@ -875,6 +903,48 @@ MESH_FULL = {"12b": (TRAIN_FULL, MESH_FULL_LAYERS, "adafactor", ""),
              "12d ep": ("dbrx-132b", 1, "adafactor", "ep")}
 MESH_EP_MAX_BYTES = 2e9
 MESH_DEADLINE_S = 600.0
+
+# phase 15, LM serving on a process grid (in phase 12's spawn).  15a: the
+# cases of tests/test_torch_meshserve.py (id -> (arch, the dry run's
+# variant, max_len (None: prompt + tokens), the smoke config's changes)),
+# f32, SERVE_MESH_SHAPE (batch, prompt, tokens); only the order of f32 sums
+# differs from the one-process run, so 1e-4 of max|logit| as on the CPU.
+# 15b: SERVE_FULL (arch, layers kept (None: all), variant) at
+# SERVE_FULL_SHAPE in bf16; the grid decodes the one-process run's tokens,
+# so that a near-tie cannot end the comparison.  The reference is the
+# one-process run in f32 on the same (bf16-drawn) weights.  A bf16 run at
+# 40 layers lies 1.6-2.1e-2 of max|logit| from it on an H100 (PERF.md),
+# and the grid is a bf16 run too, with a rank's GEMM shapes and one more
+# bf16 rounding a row-parallel sum (its partials, as the JAX package's
+# sharded cells sum them); so its largest step's error against the f32
+# run is held to SERVE_FULL_F32_FACTOR times the largest of the
+# one-process bf16 runs' (the whole batch and its two halves, each its
+# own GEMM shapes), measured beside it: on an H100 the three bf16 runs'
+# largest errors were 1.95-2.09e-2 (the grid's 2.04e-2), a spread of
+# 1.07, and a step's two one-process errors 0.85-1.08 of each other
+# (PERF.md), so 1.25 passes any of them and no grid 25% worse.
+# SERVE_FULL_RTOL, against the bf16 run, is printed: bf16's own floor
+# lies above it.
+# A 15b rank holds half of the published 16.7 GB of weights (nofsdp: split
+# over model alone); SERVE_FULL_MARGIN is what a rank and the parent need
+# beside the weights (their CUDA contexts, the caches, the activations).
+SERVE_MESH = {
+    "granite_fsdp": ("granite-3-8b", "", None, {"n_kv_heads": 2}),
+    "granite_nofsdp": ("granite-3-8b", "nofsdp", None, {"n_kv_heads": 2}),
+    "granite_int8kv": ("granite-3-8b", "int8kv", None, {"n_kv_heads": 2}),
+    "granite_sp": ("granite-3-8b", "sp", None, {"n_kv_heads": 2}),
+    "deepseek": ("deepseek-v3-671b", "", None, {}),
+    "dbrx_ep": ("dbrx-132b", "ep", None, {}),
+    "mamba2": ("mamba2-370m", "", None, {}),
+    "recurrentgemma_wrap": ("recurrentgemma-9b", "", 20, {}),
+}
+SERVE_MESH_SHAPE = (4, 16, 8)
+SERVE_MESH_RTOL = 1e-4
+SERVE_FULL = ("granite-3-8b", None, "nofsdp")
+SERVE_FULL_SHAPE = (4, 32, 16)
+SERVE_FULL_RTOL = 2e-2
+SERVE_FULL_F32_FACTOR = 1.25
+SERVE_FULL_MARGIN = 4e9
 
 # phase 13, fault tolerance on a process grid: 4 gloo ranks on the card.
 # 13a, PROC_FT: (case, the JAX package's report) -- the scenarios of
@@ -3025,10 +3095,12 @@ def mesh_case_key(arch: str, opt_name: str, variant: str) -> str:
     return f"{arch} {opt_name}" + (f" {variant}" if variant else "")
 
 
-def meshtrain_rank(rank, t_spawn: float) -> dict:
+def meshtrain_rank(rank, t_spawn: float, feed=None) -> dict:
     """A rank of phase 12 (module docstring): ``launch.train.
     train_on_mesh`` on the 2x2 grid, 12a's smoke configs (gathered after)
-    then MESH_FULL's cells (12b, 12c)."""
+    then MESH_FULL's cells (12b, 12c, 12d); then phase 15's serving
+    (:func:`meshserve_rank`; ``feed``, 15b's teacher-forced tokens, None
+    where the parent could not make them)."""
     import torch
 
     from repro_torch import convert
@@ -3064,7 +3136,303 @@ def meshtrain_rank(rank, t_spawn: float) -> dict:
         out["full"][label] = {k: res[k] for k in keep}
         out["full"][label]["s"] = now() - t0
         del res
+    torch.cuda.empty_cache()
+    try:
+        out["serve"] = meshserve_rank(mesh, feed)
+    except Exception:
+        out["serve"] = {"error": traceback.format_exc()}
     return out
+
+
+def serve_mesh_cfg(cid: str):
+    """15a's case ``cid``: its f32 smoke config, before its variant."""
+    from repro_torch.configs import get_smoke
+
+    arch, _, _, widths = SERVE_MESH[cid]
+    return get_smoke(arch).replace(param_dtype="float32", compute_dtype="float32",
+                                   **widths)
+
+
+def serve_full_cfg():
+    from repro_torch.configs import get
+
+    arch, layers, _ = SERVE_FULL
+    return get(arch) if layers is None else get(arch).replace(n_layers=layers)
+
+
+def meshserve_rank(mesh, feed) -> dict:
+    """Phase 15 on a rank of phase 12's spawn (module docstring):
+    ``serve_on_mesh`` for 15a's cases, then 15b."""
+    import torch
+
+    from repro_torch.launch.serve import serve_on_mesh
+    from repro_torch.obs.clock import now
+
+    keep = ("tokens", "logits", "wire_bytes", "stage_s", "comm_s", "held_bytes",
+            "device_bytes", "prefill_ms", "decode_ms", "peak_bytes", "max_len")
+    out = {"parity": {}}
+    t0 = now()
+    b, s, g = SERVE_MESH_SHAPE
+    for cid, (_, variant, ml, _) in SERVE_MESH.items():
+        res = serve_on_mesh(mesh, serve_mesh_cfg(cid), batch=b, prompt_len=s, gen=g,
+                            variant=variant, max_len=ml)
+        out["parity"][cid] = {k: res[k] for k in keep}
+    out["parity_s"] = now() - t0
+    if feed is None:
+        return out
+    torch.cuda.empty_cache()
+    t0 = now()
+    b, s, g = SERVE_FULL_SHAPE
+    res = serve_on_mesh(mesh, serve_full_cfg(), batch=b, prompt_len=s, gen=g,
+                        variant=SERVE_FULL[2], feed=feed)
+    out["full"] = {k: res[k] for k in keep}
+    out["full"]["s"] = now() - t0
+    return out
+
+
+def serve_reference(cfg, shape, max_len=None, keep_params: bool = False) -> dict:
+    """The one-process generation on the card of ``serve_on_mesh``'s run:
+    the seed-0 model, its prompts (``default_rng(0)``, ids from 1),
+    greedy; tokens, each step's last logits (f32 numpy), the prefill's
+    and each decode step's ms (each ended by a sync) and the peak memory
+    above what was allocated before (and with ``keep_params`` the
+    model)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.models import model as M
+    from repro_torch.obs.clock import now
+    from repro_torch.serve import generate
+
+    b, s, g = shape
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    params = M.init_params(cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
+    prompts = np.random.default_rng(0).integers(1, cfg.vocab_size, size=(b, s))
+    out = {"logits": [], "ms": []}
+    t = [0.0]
+
+    def on_step(i, logits, caches):
+        torch.cuda.synchronize()
+        out["ms"].append(1e3 * (now() - t[0]))
+        out["logits"].append(logits[:, -1].float().cpu().numpy())
+        t[0] = now()
+
+    t[0] = now()
+    toks = generate(params, cfg, torch.as_tensor(prompts, device="cuda"), g,
+                    max_len=max_len, on_step=on_step)
+    out["tokens"] = toks.cpu().numpy()
+    out["peak_bytes"] = torch.cuda.max_memory_allocated() - base
+    if keep_params:
+        out["params"] = params
+        return out
+    del params
+    torch.cuda.empty_cache()
+    return out
+
+
+def serve_full_reference(cfg) -> dict:
+    """15b's one-process references (module docstring): the bf16 run of
+    :func:`serve_reference`, then on the same weights its halves of the
+    batch and the f32 run (the weights cast up), both decoding its
+    tokens; ``bf16_vs_f32`` (``{"batch", "halves"}``: each step's logit
+    error of the bf16 runs against the f32 run) and ``halves_vs_bf16``."""
+    import numpy as np
+    import torch
+
+    from repro_torch.models import model as M
+    from repro_torch.serve import generate
+
+    b, s, g = SERVE_FULL_SHAPE
+    out = serve_reference(cfg, SERVE_FULL_SHAPE, keep_params=True)
+    params = out.pop("params")
+    prompts = torch.as_tensor(np.random.default_rng(0).integers(
+        1, cfg.vocab_size, size=(b, s)), device="cuda")
+    toks = torch.as_tensor(out["tokens"], device="cuda")
+
+    def forced(p, c, rows):
+        got = []
+        generate(p, c, prompts[rows], g, feed=toks[rows, :g - 1],
+                 on_step=lambda i, lg, _: got.append(lg[:, -1].float().cpu().numpy()))
+        return got
+
+    halves = [forced(params, cfg, slice(0, b // 2)), forced(params, cfg, slice(b // 2, b))]
+    with torch.no_grad():
+        for prm in params.parameters():
+            prm.data = prm.data.float()
+    out["f32_logits"] = forced(params, cfg.replace(param_dtype="float32",
+                                                   compute_dtype="float32"), slice(0, b))
+    del params
+    torch.cuda.empty_cache()
+    halves = [np.concatenate(h) for h in zip(*halves)]
+    out["halves_vs_bf16"] = logit_errs(halves, out["logits"])
+    out["bf16_vs_f32"] = {"batch": logit_errs(out["logits"], out["f32_logits"]),
+                          "halves": logit_errs(halves, out["f32_logits"])}
+    return out
+
+
+def logit_errs(got, want) -> list:
+    """Each step's max |got - want| over max |want|."""
+    import numpy as np
+
+    return [float(np.abs(a - w).max() / np.abs(w).max()) for a, w in zip(got, want)]
+
+
+def meshserve_refs(failed: list) -> tuple:
+    """Phase 15's one-process references on the card (15a's cases, then
+    15b's run where the ranks' weights fit beside what the card holds)
+    and 15b's teacher-forced tokens (None where 15b cannot run); a
+    failure adds "meshserve" to ``failed``."""
+    import torch
+
+    from repro_torch.launch.dryrun import _parse_variant
+    from repro_torch.models import model as M
+
+    refs, feed = {}, None
+    try:
+        for cid, (_, variant, ml, _) in SERVE_MESH.items():
+            cfg = serve_mesh_cfg(cid)
+            if _parse_variant(variant)["int8kv"]:
+                cfg = cfg.replace(kv_cache_dtype="int8")
+            refs[cid] = serve_reference(cfg, SERVE_MESH_SHAPE, ml)
+        free, total_mem = torch.cuda.mem_get_info()
+        cfg = serve_full_cfg()
+        weights = 2 * M.param_count(M.init_params(cfg, None, "meta"))
+        need = 4 * (weights / 2 + SERVE_FULL_MARGIN)
+        say(f"meshserve 15b: {free / 1e9:.1f} of {total_mem / 1e9:.1f} GB free "
+            f"before the spawn; the ranks need about {need / 1e9:.1f} GB "
+            f"({weights / 2e9:.2f} GB of weights a rank)")
+        if free < max(need, weights + SERVE_FULL_MARGIN):
+            raise RuntimeError("15b does not fit: cut SERVE_FULL's layers")
+        refs["full"] = serve_full_reference(cfg)
+        feed = refs["full"]["tokens"][:, :SERVE_FULL_SHAPE[2] - 1]
+    except Exception:
+        traceback.print_exc()
+        failed.append("meshserve")
+    return refs, feed
+
+
+def meshserve_report(ranks: list, refs: dict, smi: str) -> list:
+    """Phase 15's checks and lines (module docstring); the failed parts."""
+    import numpy as np
+
+    from repro_torch.launch.dryrun import _parse_variant
+    from repro_torch.launch.sharding import MeshShape
+    from repro_torch.models import model as M
+    from repro_torch.roofline.collect import serve_step_bytes
+
+    bad = []
+    if any("error" in r["serve"] for r in ranks):
+        say("meshserve rank error: " + next(r["serve"]["error"] for r in ranks
+                                           if "error" in r["serve"]))
+        return ["meshserve ranks"]
+    grid = MeshShape(dict(zip(MESH_AXES, MESH_GRID)))
+
+    def model_bytes(cfg, variant, shape, max_len):
+        var = _parse_variant(variant)
+        if var["int8kv"]:
+            cfg = cfg.replace(kv_cache_dtype="int8")
+        if var["nofsdp"]:
+            cfg = cfg.replace(fsdp=False)
+        params = M.init_params(cfg, None, "meta")
+        kw = dict(max_len=max_len, seq_parallel=var["sp"], ep_stationary=var["ep"])
+        pre = serve_step_bytes(cfg, params, grid, "prefill", shape[0], shape[1], **kw)
+        dec = serve_step_bytes(cfg, params, grid, "decode", shape[0], shape[1],
+                               pick=True, **kw)
+        return pre, dec
+
+    def err(got, want):
+        return max(float(np.abs(a - w).max() / np.abs(w).max())
+                   for a, w in zip(got, want))
+
+    b, s, g = SERVE_MESH_SHAPE
+    for cid, (arch, variant, ml, _) in SERVE_MESH.items():
+        got = [r["serve"]["parity"][cid] for r in ranks]
+        r0, ref = got[0], refs[cid]
+        pre, dec = model_bytes(serve_mesh_cfg(cid), variant, SERVE_MESH_SHAPE,
+                               r0["max_len"])
+        pre_t, dec_t = pre.pop("total_bytes"), dec.pop("total_bytes")
+        e = err(r0["logits"], ref["logits"])
+        same = all(all(np.array_equal(a, c) for a, c in zip(x["logits"], r0["logits"]))
+                   and np.array_equal(x["tokens"], r0["tokens"]) for x in got)
+        ok = (np.array_equal(r0["tokens"], ref["tokens"]) and e <= SERVE_MESH_RTOL
+              and same and all(x["held_bytes"] == x["device_bytes"] for x in got)
+              and all(x["wire_bytes"][0] == pre and all(w == dec for w in x["wire_bytes"][1:])
+                      for x in got))
+        if not ok:
+            bad.append(f"15a {cid}")
+        say(f"meshserve 15a {cid} ({arch}{', ' + variant if variant else ''}, f32 "
+            f"smoke, {b} x {s}, {g} tokens, max_len {r0['max_len']}, 2x2, 4 gloo ranks): "
+            f"tokens equal the one-process run's on the card "
+            f"{bool(np.array_equal(r0['tokens'], ref['tokens']))}; logits {e:.2e} of "
+            f"max|logit| (tol {SERVE_MESH_RTOL}); ranks bitwise {same}; held "
+            f"{[x['held_bytes'] for x in got]} = device_bytes {r0['device_bytes']}; "
+            f"prefill bytes {sum(r0['wire_bytes'][0].values())} (model {pre_t}), a "
+            f"decode step {sum(r0['wire_bytes'][1].values())} (model {dec_t}) "
+            f"{r0['wire_bytes'][1]}; prefill {r0['prefill_ms']:.1f} ms, decode "
+            f"{float(np.median(r0['decode_ms'])):.1f} ms a step")
+    say(f"meshserve 15a: {ranks[0]['serve']['parity_s']:.1f} s on rank 0")
+    if "full" not in ranks[0]["serve"] or "full" not in refs:
+        return bad + ["15b not run"]
+    got = [r["serve"]["full"] for r in ranks]
+    r0, ref = got[0], refs["full"]
+    b, s, g = SERVE_FULL_SHAPE
+    arch, layers, variant = SERVE_FULL
+    cfg = serve_full_cfg()
+    pre, dec = model_bytes(cfg, variant, SERVE_FULL_SHAPE, r0["max_len"])
+    pre_t, dec_t = pre.pop("total_bytes"), dec.pop("total_bytes")
+    errs = logit_errs(r0["logits"], ref["logits"])
+    errs32 = logit_errs(r0["logits"], ref["f32_logits"])
+    bf16 = max(max(e) for e in ref["bf16_vs_f32"].values())
+    tol32 = SERVE_FULL_F32_FACTOR * bf16
+    agree = float(np.mean([np.mean(np.argmax(a, -1) == np.argmax(w, -1))
+                           for a, w in zip(r0["logits"], ref["logits"])]))
+    dms = float(np.median(r0["decode_ms"]))
+    stage = 1e3 * float(np.median(r0["stage_s"][1:]))
+    comm = 1e3 * float(np.median(r0["comm_s"][1:]))
+    ok = (max(errs32) <= tol32
+          and all(np.isfinite(x).all() for x in r0["logits"])
+          and all(x["held_bytes"] == x["device_bytes"] for x in got)
+          and all(x["wire_bytes"][0] == pre and all(w == dec for w in x["wire_bytes"][1:])
+                  for x in got))
+    if not ok:
+        bad.append("15b")
+    full = {"arch": arch, "layers": cfg.n_layers, "variant": variant,
+            "shape": SERVE_FULL_SHAPE, "max_logit_rel_err": max(errs),
+            "logit_rel_err": errs, "within_plan_rtol": max(errs) <= SERVE_FULL_RTOL,
+            "halves_vs_bf16": ref["halves_vs_bf16"], "logit_rel_err_f32": errs32,
+            "bf16_vs_f32": ref["bf16_vs_f32"], "tol_f32": tol32,
+            "f32_ratio": max(errs32) / bf16,
+            "argmax_agreement": agree,
+            "prefill_ms": r0["prefill_ms"], "decode_ms": r0["decode_ms"],
+            "decode_ms_median": dms, "stage_ms": stage, "gloo_ms": comm,
+            "rest_ms": dms - stage - comm,
+            "prefill_bytes": r0["wire_bytes"][0], "decode_bytes": r0["wire_bytes"][1],
+            "model_prefill": pre, "model_decode": dec,
+            "held_bytes": [x["held_bytes"] for x in got],
+            "device_bytes": r0["device_bytes"],
+            "peak_bytes": [x["peak_bytes"] for x in got],
+            "one_process_ms": ref["ms"], "one_process_peak_bytes": ref["peak_bytes"],
+            "cell_s": r0["s"]}
+    say("meshserve 15b " + json.dumps(full))
+    say(f"meshserve 15b {arch} ({cfg.n_layers} layers, published width, bf16, "
+        f"{variant}, {b} x {s}, {g} tokens teacher-forced) on 2x2, 4 gloo ranks on "
+        f"one card: prefill {r0['prefill_ms']:.1f} ms, decode {dms:.1f} ms a step "
+        f"(median; staging {stage:.1f}, gloo {comm:.1f}, rest {dms - stage - comm:.1f}; "
+        f"the one-process run's {ref['ms'][0]:.1f} and "
+        f"{float(np.median(ref['ms'][1:])):.1f}); a rank receives "
+        f"{sum(r0['wire_bytes'][1].values()) / 1e3:.1f} kB a decode step (model "
+        f"{dec_t / 1e3:.1f}) and {sum(r0['wire_bytes'][0].values()) / 1e6:.2f} MB in "
+        f"the prefill (model {pre_t / 1e6:.2f}); logits within {max(errs32):.2e} of "
+        f"max|logit| of the f32 run's (tol {tol32:.2e}: {SERVE_FULL_F32_FACTOR} x the "
+        f"one-process bf16 runs' {bf16:.2e}; ratio {max(errs32) / bf16:.3f}), "
+        f"{max(errs):.2e} of the bf16 run's (within {SERVE_FULL_RTOL}: "
+        f"{max(errs) <= SERVE_FULL_RTOL}; its halves {max(ref['halves_vs_bf16']):.2e}), "
+        f"argmax agreement {agree:.4f}; held "
+        f"{[x['held_bytes'] for x in got]} against device_bytes {r0['device_bytes']}; "
+        f"peaks {[round(x['peak_bytes'] / 1e9, 2) for x in got]} GB; on {smi}")
+    return bad
 
 
 def meshtrain_full(label: str, got: list, ref: dict, ranks: list, model_bytes,
@@ -3187,8 +3555,12 @@ def meshtrain_phase(failed: list) -> None:
             full_refs[label]["s"] = now() - t1
             torch.cuda.empty_cache()
         ref_s = now() - t0
+        # phase 15's references on the card, before the ranks start
         t0 = now()
-        ranks = procs.run(meshtrain_rank, MESH_GRID[0] * MESH_GRID[1], (t0,),
+        serve_refs, feed = meshserve_refs(failed)
+        serve_ref_s = now() - t0
+        t0 = now()
+        ranks = procs.run(meshtrain_rank, MESH_GRID[0] * MESH_GRID[1], (t0, feed),
                           backend="gloo", device="cuda", timeout_s=MESH_DEADLINE_S)
         run_s = now() - t0
         grid = MeshShape(dict(zip(MESH_AXES, MESH_GRID)))
@@ -3231,8 +3603,18 @@ def meshtrain_phase(failed: list) -> None:
             if not meshtrain_full(label, [r["full"][label] for r in ranks],
                                   full_refs[label], ranks, model_bytes, smi):
                 bad.append(label)
-        say(f"meshtrain times: references {ref_s:.1f} s, ranks {run_s:.1f} s (12a "
+        say(f"meshtrain times: references {ref_s:.1f} s (phase 15's "
+            f"{serve_ref_s:.1f}), ranks {run_s:.1f} s (12a "
             f"{ranks[0]['parity_s']:.1f} s on rank 0)")
+        try:
+            served = meshserve_report(ranks, serve_refs, smi)
+        except Exception:
+            traceback.print_exc()
+            served = ["meshserve report"]
+        if served:
+            say(f"phase 15 checks failed: {served}")
+            if "meshserve" not in failed:
+                failed.append("meshserve")
         if bad:
             raise AssertionError(f"phase 12 checks failed: {bad}")
     except Exception:
@@ -5419,7 +5801,7 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
-    # -- 12. the LM train state on a process grid --------------------------------
+    # -- 12. the LM train state on a process grid (and 15, LM serving there) ------
     meshtrain_phase(failed)
     gc.collect()
     torch.cuda.empty_cache()

@@ -44,9 +44,13 @@ def bcsr_spmm_ref(block_cols: torch.Tensor, blocks: torch.Tensor,
     blocks:     (nbr, w, bm, bn)
     x:          (nbc * bn, R)
     returns     (nbr * bm, R)
+
+    x is made contiguous first, so the summation order is the same for
+    every layout of x (the solver passes the transposed view of an (R, N)
+    tensor).
     """
     nbr, w, bm, bn = blocks.shape
-    xr = x.reshape(-1, bn, x.shape[-1])          # (nbc, bn, R)
+    xr = x.contiguous().reshape(-1, bn, x.shape[-1])          # (nbc, bn, R)
     xg = xr[block_cols]                          # (nbr, w, bn, R)
     y = torch.einsum("iwmn,iwnr->imr", blocks, xg)
     return y.reshape(nbr * bm, x.shape[-1])

@@ -25,31 +25,36 @@ they do not:
   specs of ``launch.sharding`` (exact); ``alias_size_in_bytes``, the
   donated inputs (train state, decode caches); ``temp_size_in_bytes``, the
   peak of live bytes the step creates less what it returns: on ``card``
-  the whole step's, and for a train cell on ``single``/``multi`` rank 0's
-  (below); ``None`` for prefill and decode there (serving is not placed
-  on a process grid yet);
+  the whole step's, and on ``single``/``multi`` rank 0's (below);
 * ``argument_bytes_by_part`` -- the argument bytes by input (params,
   opt_state, step, ef, batch; caches, tokens);
 * ``counted_flops`` -- the counted FLOPs a device runs (a count of every
   op, where XLA's ``cost_analysis`` counts a loop body once; so not under
-  ``cost_analysis``): a train cell's on ``single``/``multi`` rank 0's own
-  count, otherwise the whole step's over the devices; and
-  ``counted_flops_total``, that times the devices;
+  ``cost_analysis``): on ``single``/``multi`` rank 0's own count, on
+  ``card`` the whole step's; and ``counted_flops_total``, that times the
+  devices;
 * ``collectives`` -- ``{"total_bytes": 0.0}`` on ``card``; on ``single``
-  and ``multi`` a train cell's bytes rank 0 receives in its step
-  (``total_bytes`` and ``by_call``, counted by the stand-in; equal to
-  ``roofline.collect.train_step_bytes``), so ``roofline.analyze`` has a
-  collective term there; ``None`` for prefill and decode there.
+  and ``multi`` the bytes rank 0 receives in its step (``total_bytes``
+  and ``by_call``, counted by the stand-in; equal to ``roofline.
+  collect.train_step_bytes`` for a train cell and ``serve_step_bytes``
+  for a prefill or decode cell), so ``roofline.analyze`` has a
+  collective term there.
 
-A train cell on ``single``/``multi`` runs rank 0's step of the port's
-split train step (``build_train_step(grad_shardings=)``) on ``meta``,
-over :class:`StandInMesh`: a stand-in of a ``launch.mesh.ProcessMesh``
-with no processes, whose ``gather`` and ``all_to_all`` return what the
-real ones would return on rank 0 (its shapes, new storage) and count the
-bytes.  Its ``sp`` and ``ep`` variants run that step with
-``seq_parallel`` / ``ep_stationary`` (``train.build_train_step``; the
-state placed by ``state_specs(..., ep_stationary=)``), and ``collect``
-models them.
+A cell on ``single``/``multi`` runs rank 0's step on ``meta``, over
+:class:`StandInMesh`: a stand-in of a ``launch.mesh.ProcessMesh`` with
+no processes, whose ``gather`` and ``all_to_all`` return what the real
+ones would return on rank 0 (its shapes, new storage) and count the
+bytes.  A train cell's step is the port's split train step
+(``build_train_step(grad_shardings=)``); its ``sp`` and ``ep`` variants
+run it with ``seq_parallel`` / ``ep_stationary`` (the state placed by
+``state_specs(..., ep_stationary=)``), and ``collect`` models them.  A
+prefill or decode cell's is ``models.model.prefill`` / ``decode_step``
+under ``serve.engine.on_mesh``: rank 0's slices of the params
+(``param_specs(..., fsdp=cfg.fsdp, ep_stationary=)``; ``nofsdp`` keeps
+them off the batch axes) and of the caches (``cache_specs``, their
+sequence over ``model``), its rows of the tokens, a decode step at
+position ``seq - 1``; ``int8kv``, ``nofsdp``, ``sp`` (a prefill's) and
+``ep`` as the JAX package's ``build_cell`` takes them.
 * ``build_s``, ``run_s`` -- seconds to build the cell on ``meta`` and to
   run its step there (the JAX ``lower_s`` / ``compile_s`` have no
   counterpart).
@@ -335,36 +340,62 @@ def build_cell(arch: str, shape, mesh_kind: str, probe_layers: int | None = None
             return (st, metrics), parts, out_b, alias
         return run, meta
 
+    c_leaves = SH.cache_leaves(M.init_caches(cfg, global_batch, seq, device="meta"))
+    c_specs = SH.cache_specs(c_leaves, baxes, cfg.seq_shard_decode)
+    c_bytes = SH.device_bytes(c_leaves, c_specs, mesh)
+    tokens = _meta_batch({"tokens": (global_batch, seq if kind == "prefill" else 1)})[
+        "tokens"]
     if kind == "prefill":
-        tokens = _meta_batch({"tokens": (global_batch, seq)})["tokens"]
-        parts = {"params": p_bytes, "tokens": tok_bytes({"tokens": tokens})}
-        cache_like = M.init_caches(cfg, global_batch, seq, device="meta")
-        c_leaves = SH.cache_leaves(cache_like)
-        c_bytes = SH.device_bytes(
-            c_leaves, SH.cache_specs(c_leaves, baxes, cfg.seq_shard_decode), mesh)
-        del cache_like, c_leaves
+        parts, alias = {"params": p_bytes, "tokens": tok_bytes({"tokens": tokens})}, 0
+    else:
+        parts = {"params": p_bytes, "caches": c_bytes,
+                 "tokens": tok_bytes({"tokens": tokens}), "pos": 4}
+        alias = c_bytes
+    serve = None
+    if mesh.size > 1:
+        # rank 0's step on a stand-in of the process grid: its slices of
+        # the params and caches, its rows of the tokens
+        from ..roofline.collect import serve_step_bytes
+        from ..serve.engine import on_mesh
 
-        def run():
-            with torch.inference_mode():
-                logits, caches, _ = M.prefill(params, cfg, tokens=tokens.long(),
-                                              max_len=seq)
-            return (logits, caches), parts, replicated([logits]) + c_bytes, 0
-        return run, meta
+        rank = StandInMesh(mesh.shape)
+        pls = SH.named(rank, SH.param_specs(params, cfg.fsdp, mesh, ep), params)
+        c_pls = SH.named(rank, c_specs, c_leaves)
+        want = serve_step_bytes(cfg, params, mesh, kind, global_batch, seq,
+                                max_len=seq, seq_parallel=var["sp"],
+                                ep_stationary=ep)
+        want.pop("total_bytes")
+        params = M.init_params(cfg, None, "meta", placements=pls)
+        tokens = tokens[:SH.Placement(rank, (baxes, None), tokens.shape).local_shape[0]]
+        serve = lambda: on_mesh(params, cfg, pls, c_pls, seq,
+                                seq_parallel=var["sp"], ep_stationary=ep)
+        meta["rank_step"] = True
+    caches = None if kind == "prefill" else M.init_caches(
+        cfg, global_batch, seq, device="meta",
+        placements=None if serve is None else c_pls)
 
-    # decode: one decode step over a primed cache of length `seq`
-    caches = M.init_caches(cfg, global_batch, seq, device="meta")
-    c_leaves = SH.cache_leaves(caches)
-    c_bytes = SH.device_bytes(
-        c_leaves, SH.cache_specs(c_leaves, baxes, cfg.seq_shard_decode), mesh)
-    tokens = _meta_batch({"tokens": (global_batch, 1)})["tokens"]
-    parts = {"params": p_bytes, "caches": c_bytes,
-             "tokens": tok_bytes({"tokens": tokens}), "pos": 4}
+    def step():
+        if kind == "prefill":
+            logits, new, _ = M.prefill(params, cfg, tokens=tokens.long(), max_len=seq)
+        else:
+            logits, new = M.decode_step(params, cfg, caches, tokens.long(), seq - 1)
+        return logits, new
 
     def run():
         with torch.inference_mode():
-            logits, new = M.decode_step(params, cfg, caches, tokens.long(),
-                                        seq - 1)
-        return (logits, new), parts, replicated([logits]) + c_bytes, c_bytes
+            if serve is None:
+                logits, new = step()
+            else:
+                rank.stats.reset()
+                with serve():
+                    logits, new = step()
+                by_call = {k: v for k, v in rank.stats.wire_bytes.items() if v}
+                if by_call != want:
+                    raise RuntimeError(f"{arch} {shape} on {mesh_kind}: rank 0 "
+                                       f"received {by_call}, collect models {want}")
+                meta["collectives"] = {"total_bytes": float(sum(by_call.values())),
+                                       "by_call": by_call}
+        return (logits, new), parts, replicated([logits]) + c_bytes, alias
     return run, meta
 
 

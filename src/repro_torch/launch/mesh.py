@@ -252,8 +252,11 @@ class ProcessMesh(_Grid):
         key = (key, tuple(shape), dtype)
         buf = self._bufs.get(key)
         if buf is None:
-            buf = self._bufs[key] = torch.empty(shape, dtype=dtype,
-                                                pin_memory=True)
+            # a normal tensor even when made under inference mode (a
+            # serving step), so that later calls outside it may refill it
+            with torch.inference_mode(False):
+                buf = self._bufs[key] = torch.empty(shape, dtype=dtype,
+                                                    pin_memory=True)
         return buf
 
     def _host(self, t: torch.Tensor, key) -> torch.Tensor:

@@ -49,6 +49,13 @@ the reduced same-family config) builds the model on ``--device`` from
 ``--prompt-len`` tokens and prints the JAX package's JSON keys (``arch``,
 ``batch``, ``gen``, ``wall_s``, ``tokens_per_s``, and with ``--slots``
 ``slot_server_completed``).
+
+:func:`serve_on_mesh` runs the same generation on every rank of a
+``launch.mesh.ProcessMesh`` (a function, as ``launch.train.
+train_on_mesh`` is; the JAX launcher has no flag for it either): the
+params placed by ``param_specs`` (``fsdp``, or weights-stationary under
+the ``nofsdp`` variant), the caches by ``cache_specs``, the JAX package's
+sharded serving cells (``repro.launch.dryrun``'s prefill and decode).
 """
 
 from __future__ import annotations
@@ -272,6 +279,119 @@ def _arch_main(args, ap) -> int:
         result["slot_server_completed"] = len(done)
     print(json.dumps(result, indent=1))
     return 0
+
+
+def serve_on_mesh(mesh, cfg, *, batch: int, prompt_len: int, gen: int,
+                  variant: str = "", max_len: int | None = None,
+                  feed=None) -> dict:
+    """Generate ``gen`` tokens for ``batch`` prompts of ``prompt_len``
+    tokens on every rank of ``mesh`` (a ``ProcessMesh``), as
+    ``--arch`` does in one process: the model drawn from seed 0, each
+    param cut to the rank's slice as it is drawn (``init_params(
+    placements=)``, placed by ``param_specs(..., cfg.fsdp, ep_stationary=)``),
+    the caches allocated as the rank's slices of ``cache_specs``
+    (``init_caches(placements=)``), the rank's rows of the launcher's
+    prompts (``default_rng(0)``, ids from 1),
+    ``serve.generate`` under ``serve.engine.on_mesh``.  ``variant``:
+    ``launch.dryrun``'s flags ``int8kv``, ``nofsdp`` (``cfg.fsdp`` off:
+    weights-stationary serving), ``sp`` and ``ep``.  ``max_len`` defaults to ``prompt_len + gen``
+    (capped at ``cfg.max_seq_len``); ``feed`` ((batch, gen - 1) ids)
+    decodes those (``generate``'s teacher forcing).
+
+    Returns ``tokens`` (batch, gen) gathered whole (numpy), ``prefill_ms``
+    and ``decode_ms`` (one a decode step, each ended by a device sync,
+    the pick of its input token included), and for the prefill then
+    each decode step ``wire_bytes`` (``mesh.stats``' bytes this rank
+    received, by call), ``stage_s`` and ``comm_s``; ``held_bytes`` (the
+    rank's params and caches) and ``device_bytes`` (``sharding.
+    device_bytes`` of the specs), ``max_len``, and on a card
+    ``peak_bytes`` (``max_memory_allocated`` from the placed params on);
+    ``logits``, the prefill's and each step's last position ((batch, V)
+    numpy, gathered whole outside the timed step), and ``caches`` (path
+    -> the whole leaf after the last step, numpy)."""
+    from ..models import model as M
+    from ..obs import clock
+    from ..serve.engine import generate, on_mesh
+    from . import sharding as SH
+    from .dryrun import _parse_variant
+    from .mesh import batch_axes
+
+    var = _parse_variant(variant)
+    if var["int8kv"]:
+        cfg = cfg.replace(kv_cache_dtype="int8")
+    if var["nofsdp"]:
+        cfg = cfg.replace(fsdp=False)
+    ep = var["ep"]
+    max_len = max_len or min(cfg.max_seq_len, prompt_len + gen)
+    dev = mesh.device
+    cuda = dev.type == "cuda"
+    baxes = batch_axes(mesh)
+
+    shapes = M.init_params(cfg, None, "meta")
+    p_specs = SH.param_specs(shapes, cfg.fsdp, mesh, ep)
+    pls = SH.named(mesh, p_specs, shapes)
+    c_leaves = SH.cache_leaves(M.init_caches(cfg, batch, max_len, "meta"))
+    c_specs = SH.cache_specs(c_leaves, baxes, cfg.seq_shard_decode)
+    c_pls = SH.named(mesh, c_specs, c_leaves)
+    want = (SH.device_bytes(SH.tree_leaves(shapes), p_specs, mesh)
+            + SH.device_bytes(c_leaves, c_specs, mesh))
+    if cuda:
+        torch.cuda.reset_peak_memory_stats(dev)
+    params = M.init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev,
+                           placements=pls)
+
+    def rows_of(a):
+        a = np.asarray(a)
+        return SH.Placement(mesh, (baxes, None), a.shape).shard(a).long()
+
+    tokens = rows_of(np.random.default_rng(0).integers(1, cfg.vocab_size,
+                                                       size=(batch, prompt_len)))
+    out = {"max_len": max_len, "wire_bytes": [], "stage_s": [], "comm_s": [],
+           "step_ms": [], "logits": [], "held_bytes": SH.held_bytes(params),
+           "device_bytes": want}
+    kept = {}
+    clock_at = [0.0]
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize(dev)
+
+    def on_step(i, logits, caches):
+        sync()
+        out["step_ms"].append(1e3 * (clock.now() - clock_at[0]))
+        out["wire_bytes"].append({k: v for k, v in mesh.stats.wire_bytes.items() if v})
+        out["stage_s"].append(mesh.stats.stage_s)
+        out["comm_s"].append(mesh.stats.comm_s)
+        if i == 0:
+            out["held_bytes"] += SH.held_bytes(SH.cache_leaves(caches))
+        lg = logits[:, -1].float()
+        spec = (baxes, "model" if lg.shape[-1] < cfg.vocab_size else None)
+        whole = SH.Placement(mesh, spec, (batch, cfg.vocab_size)).gather(lg)
+        out["logits"].append(whole.cpu().numpy())
+        kept["caches"] = caches
+        mesh.stats.reset()
+        sync()
+        clock_at[0] = clock.now()
+
+    with on_mesh(params, cfg, pls, c_pls, max_len, seq_parallel=var["sp"],
+                 ep_stationary=ep):
+        mesh.stats.reset()
+        sync()
+        clock_at[0] = clock.now()
+        got = generate(params, cfg, tokens, gen, max_len=max_len,
+                       feed=None if feed is None else rows_of(feed),
+                       on_step=on_step)
+    out["prefill_ms"], out["decode_ms"] = out["step_ms"][0], out["step_ms"][1:]
+    del out["step_ms"]
+    out["peak_bytes"] = torch.cuda.max_memory_allocated(dev) if cuda else None
+    out["tokens"] = SH.Placement(mesh, (baxes, None), (batch, gen)).gather(
+        got).cpu().numpy()
+    as_np = lambda t: (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+    out["caches"] = {
+        "/".join(map(str, path)): np.stack([as_np(t) for t in
+                                            c_pls[path].gather_leaf(leaf)])
+        for path, leaf in SH.cache_leaves(kept["caches"]).items()}
+    return out
 
 
 def _parser() -> argparse.ArgumentParser:

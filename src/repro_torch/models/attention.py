@@ -143,9 +143,17 @@ def init_kv_cache(batch, max_len, n_kv, hd, dtype=torch.bfloat16, quant=False,
             "v": torch.zeros(shape, dtype=dtype, device=device)}
 
 
-def _cache_write(cache, k_new, v_new, pos: int):
-    """Write one token (B,1,KV,D) at ring slot pos % W, in place."""
-    slot = pos % cache["k"].shape[1]
+def _cache_write(cache, k_new, v_new, pos: int, window: int | None = None):
+    """Write one token (B,1,KV,D) at ring slot pos % W, in place.  On a
+    cache whose slots are split over ``model`` (a placed serving run,
+    ``shard.cache_slots``) only the rank that holds the slot writes it,
+    at its own index; the others write nothing (the JAX package's masked
+    select)."""
+    w_loc = cache["k"].shape[1]
+    w, lo = shard.cache_slots(w_loc, window)
+    slot = pos % w - lo
+    if not 0 <= slot < w_loc:
+        return cache
     if "k_s" in cache:
         kq, ks = quantize_kv(k_new)
         vq, vs = quantize_kv(v_new)
@@ -166,20 +174,47 @@ def _cache_read(cache, dtype):
     return cache["k"].to(dtype), cache["v"].to(dtype)
 
 
-def _prime_kv_cache(cache, k, v):
+def _prime_kv_cache(cache, k, v, window: int | None = None):
     """Prefill: the last ``min(W, S)`` tokens of k/v (B,S,KV,D) into their
-    ring slots ``(S - nkeep + arange(nkeep)) % W``."""
-    sq, w = k.shape[1], cache["k"].shape[1]
+    ring slots ``(S - nkeep + arange(nkeep)) % W``.
+
+    In a placed serving run k/v may be the rank's KV/m heads and the
+    cache the rank's W/m slots of every head: the rank builds the whole
+    ring of its heads, and one ``all_to_all`` over ``model`` turns heads
+    into slots (``shard.kv_exchange``); with whole k/v it keeps its
+    slots; with whole slots it gathers the heads (``kv_write``)."""
+    sq, w_loc = k.shape[1], cache["k"].shape[1]
+    w, lo = shard.cache_slots(w_loc, window)
     nkeep = min(w, sq)
     slots = (sq - nkeep + torch.arange(nkeep, device=k.device)) % w
     if "k_s" in cache:
         kq, ks = quantize_kv(k[:, -nkeep:])
         vq, vs = quantize_kv(v[:, -nkeep:])
-        for name, t in (("k", kq), ("v", vq), ("k_s", ks), ("v_s", vs)):
-            cache[name][:, slots] = t
+        vals = {"k": kq, "v": vq, "k_s": ks, "v_s": vs}
     else:
-        cache["k"][:, slots] = k[:, -nkeep:].to(cache["k"].dtype)
-        cache["v"][:, slots] = v[:, -nkeep:].to(cache["v"].dtype)
+        vals = {"k": k[:, -nkeep:].to(cache["k"].dtype),
+                "v": v[:, -nkeep:].to(cache["v"].dtype)}
+    heads_split = k.shape[2] < cache["k"].shape[2]
+    if w_loc == w and not heads_split:
+        for name, t in vals.items():
+            cache[name][:, slots] = t
+        return cache
+    # the rank's ring of its heads, each dtype's tensors in one message
+    groups = [[n for n in vals if vals[n].dtype == dt]
+              for dt in dict.fromkeys(t.dtype for t in vals.values())]
+    for names in groups:
+        lasts = [vals[n].shape[-1] for n in names]
+        t = torch.cat([vals[n] for n in names], -1)
+        ring = t.new_zeros((t.shape[0], w) + tuple(t.shape[2:]))
+        ring[:, slots] = t
+        if heads_split and w_loc < w:
+            ring = shard.kv_exchange(ring, 1, 2)
+        elif heads_split:
+            ring = shard.model_gather(ring, 2, "kv_write")
+        else:
+            ring = ring[:, lo:lo + w_loc]
+        for n, part in zip(names, torch.split(ring, lasts, -1)):
+            cache[n].copy_(part)
     return cache
 
 
@@ -200,12 +235,14 @@ class Attention(nn.Module):
         self.wo = Linear(h * hd, d, init)
 
 
-def _qkv(p: Attention, x, cfg, pos):
+def _qkv(p: Attention, x, cfg, pos, keep_kv: bool = False):
     """q, k, v of the heads ``p`` holds.  Given a rank's H/m heads of
-    ``wq`` (the train step on a ``ProcessMesh``), q is the rank's heads
-    (after ``shard.to_model``); k and v are its kv heads where ``wk``/``wv``
-    are split too, else computed whole on every rank (their gradient added
-    over ``model``) and cut to the groups of the rank's q heads."""
+    ``wq`` (a split over ``model`` on a ``ProcessMesh``), q is the rank's
+    heads (after ``shard.to_model``); k and v are its kv heads where
+    ``wk``/``wv`` are split too, else computed whole on every rank (their
+    gradient added over ``model``) and cut to the groups of the rank's q
+    heads.  ``keep_kv``: also return (k, v) before that cut (the rank's
+    kv heads, or all of them), which the caches take."""
     b, s, _ = x.shape
     hd = cfg.hd
     h, kvh = p.wq.w.shape[1] // hd, p.wk.w.shape[1] // hd
@@ -219,11 +256,12 @@ def _qkv(p: Attention, x, cfg, pos):
         k, v = p.wk(xs), p.wv(xs)
     k = shard.constrain(k.reshape(b, s, kvh, hd), "kv")
     v = shard.constrain(v.reshape(b, s, kvh, hd), "kv")
-    if split and kvh == cfg.n_kv_heads:
-        k, v = _rank_groups(k, h, cfg), _rank_groups(v, h, cfg)
     q = apply_rope(q, pos, cfg.rope_theta)
     k = apply_rope(k, pos, cfg.rope_theta)
-    return q, k, v
+    kept = (k, v)
+    if split and kvh == cfg.n_kv_heads:
+        k, v = _rank_groups(k, h, cfg), _rank_groups(v, h, cfg)
+    return (q, k, v, kept) if keep_kv else (q, k, v)
 
 
 def _rank_groups(t, h: int, cfg):
@@ -246,7 +284,7 @@ def attn_forward(p: Attention, x, cfg, pos=None, return_kv=False):
     b, s, _ = x.shape
     if pos is None:
         pos = _positions(b, s, x.device)
-    q, k, v = _qkv(p, x, cfg, pos)
+    q, k, v, kept = _qkv(p, x, cfg, pos, keep_kv=True)
     o = flash_attention(
         q, k, v, causal=True, window=cfg.sliding_window,
         prefix_len=cfg.n_prefix_tokens if cfg.prefix_lm else 0,
@@ -255,28 +293,71 @@ def attn_forward(p: Attention, x, cfg, pos=None, return_kv=False):
     o = o.reshape(b, s, -1)
     o = p.wo.row(o) if q.shape[2] < cfg.n_heads else p.wo(o)
     if return_kv:
-        return o, (k, v)
+        return o, kept
     return o
+
+
+def _partials(s, valid, v, einsum: str):
+    """This rank's softmax partials over its slots (``shard.
+    softmax_combine``): the weighted values, the running max and the sum
+    of the weights of the f32 scores ``s`` (slots last), masked by
+    ``valid``."""
+    s = torch.where(valid, s, -math.inf)
+    mx = s.amax(dim=-1)
+    safe = torch.where(torch.isfinite(mx), mx, torch.zeros_like(mx))
+    pe = torch.where(valid, torch.exp(s - safe[..., None]), 0.0)
+    return torch.einsum(einsum, pe, v), mx, pe.sum(dim=-1)
 
 
 def attn_decode(p: Attention, x, cfg, cache, pos: int):
     """One-token decode.  x: (B, 1, D); pos: the current index.  The cache
     is a ring buffer of W slots; attention runs over all of it, each slot
-    masked by the absolute position it holds."""
+    masked by the absolute position it holds.
+
+    In a placed serving run the cache may hold the rank's W/m slots of
+    every kv head (``shard.cache_slots``): the new token's k/v is made
+    whole where the rank computed its kv heads (``kv_write``) and the
+    slot's owner writes it, q is gathered over ``model`` (``q_gather``),
+    each rank scores its slots of every head (the mask from the global
+    slot indices) and the partials merge over ``model``
+    (``shard.softmax_combine``), which hands each rank its heads for the
+    row-parallel ``wo``."""
     b = x.shape[0]
-    h, kvh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
-    g = h // kvh
+    hd = cfg.hd
     posv = torch.full((b, 1), pos, dtype=torch.long, device=x.device)
-    q, k_new, v_new = _qkv(p, x, cfg, posv)
-    cache = _cache_write(cache, k_new, v_new, pos)
+    q, _, _, (k_new, v_new) = _qkv(p, x, cfg, posv, keep_kv=True)
+    h = q.shape[2]
+    split = h < cfg.n_heads
+    if k_new.shape[2] < cache["k"].shape[2]:
+        kv = shard.model_gather(torch.cat([k_new, v_new], -1), 2, "kv_write")
+        k_new, v_new = kv[..., :hd], kv[..., hd:]
+    cache = _cache_write(cache, k_new, v_new, pos, cfg.sliding_window)
     k, v = _cache_read(cache, torch.float32)     # (B, W, KV, D)
-    w = k.shape[1]
+    w_loc = k.shape[1]
+    w, lo = shard.cache_slots(w_loc, cfg.sliding_window)
     # ring-buffer absolute positions: slot t holds token pos - ((pos - t) % W)
-    slots = torch.arange(w, device=x.device)
+    slots = lo + torch.arange(w_loc, device=x.device)
     age = (pos - slots) % w
     valid = (pos - age) >= 0
     if cfg.sliding_window:
         valid = valid & (age < cfg.sliding_window)
+    if w_loc < w:
+        qa = shard.model_gather(q, 2, "q_gather") if split else q
+        kvh, nh = cfg.n_kv_heads, cfg.n_heads
+        s = torch.einsum("bqkgd,bckd->bqkgc",
+                         qa.reshape(b, 1, kvh, nh // kvh, hd).float(), k) / math.sqrt(hd)
+        if cfg.logit_softcap:
+            s = cfg.logit_softcap * torch.tanh(s / cfg.logit_softcap)
+        acc, mx, sm = _partials(s, valid[None, None, None, None, :], v,
+                                "bqkgc,bckd->bqkgd")
+        o = shard.softmax_combine(acc.reshape(b, nh, hd), mx.reshape(b, nh),
+                                  sm.reshape(b, nh), to_heads=split)
+        o = o.reshape(b, 1, -1).to(x.dtype)
+        return (p.wo.row(o) if split else p.wo(o)), cache
+    if split:
+        k, v = _rank_groups(k, h, cfg), _rank_groups(v, h, cfg)
+    kvh = k.shape[2]
+    g = h // kvh
     s = torch.einsum("bqkgd,bckd->bqkgc",
                      q.reshape(b, 1, kvh, g, hd).float(), k) / math.sqrt(hd)
     if cfg.logit_softcap:
@@ -285,7 +366,7 @@ def attn_decode(p: Attention, x, cfg, cache, pos: int):
     pr = torch.softmax(s, dim=-1)
     o = torch.einsum("bqkgc,bckd->bqkgd", pr, v)
     o = o.reshape(b, 1, h * hd).to(x.dtype)
-    return p.wo(o), cache
+    return (p.wo.row(o) if split else p.wo(o)), cache
 
 
 # ---------------------------------------------------------------------------
@@ -375,17 +456,28 @@ def mla_decode(p: MLA, x, cfg, cache, pos: int):
     """Absorbed-form MLA decode: scores and values computed directly in the
     latent space (per-head absorption of wkv_b), O(kr) per cached token.
     The latent cache is written at slot ``pos`` (no ring: a ``pos`` past
-    the cache writes nothing, as the JAX package's masked select)."""
+    the cache writes nothing, as the JAX package's masked select).
+
+    With a rank's H/m heads (``wq_b``/``wkv_b``/``wo`` split over
+    ``model``) it runs those; in a placed serving run whose latent cache
+    holds the rank's S/m slots (``shard.cache_slots``) the slot's owner
+    writes the new latent, the heads' absorbed queries are gathered over
+    ``model`` (``q_gather``), each rank scores its slots of every head
+    and the partial contexts merge over ``model``
+    (``shard.softmax_combine``), back to the rank's heads."""
     b = x.shape[0]
-    h = cfg.n_heads
     nope, rope, vd = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
     kr = cfg.kv_lora_rank
+    h = p.wkv_b.w.shape[1] // (nope + vd)
+    split = h < cfg.n_heads
     posv = torch.full((b, 1), pos, dtype=torch.long, device=x.device)
     q_nope, q_rope, c_kv_new, k_rope_new = _mla_qkv(p, x, cfg, posv)
 
-    if 0 <= pos < cache["ckv"].shape[1]:
-        cache["ckv"][:, pos] = c_kv_new[:, 0].to(cache["ckv"].dtype)
-        cache["kr"][:, pos] = k_rope_new[:, 0, 0].to(cache["kr"].dtype)
+    s_loc = cache["ckv"].shape[1]
+    s_all, lo = shard.cache_slots(s_loc)
+    if 0 <= pos - lo < s_loc:
+        cache["ckv"][:, pos - lo] = c_kv_new[:, 0].to(cache["ckv"].dtype)
+        cache["kr"][:, pos - lo] = k_rope_new[:, 0, 0].to(cache["kr"].dtype)
 
     wkv = p.wkv_b.w.reshape(kr, h, nope + vd)
     w_uk = wkv[..., :nope]                              # (kr, H, nope)
@@ -395,14 +487,23 @@ def mla_decode(p: MLA, x, cfg, cache, pos: int):
     q_eff = torch.einsum("bqhn,khn->bhk", q_nope.float(), w_uk.float())
     ckv = cache["ckv"].float()                          # (B, S, kr)
     krope = cache["kr"].float()                         # (B, S, rope)
-    s_lat = torch.einsum("bhk,bsk->bhs", q_eff, ckv)
-    s_rope = torch.einsum("bqhr,bsr->bhs", q_rope.float(), krope)
     scale = 1.0 / math.sqrt(nope + rope)
-    s = (s_lat + s_rope) * scale
-    mask = torch.arange(ckv.shape[1], device=x.device) <= pos
-    s = torch.where(mask[None, None, :], s, -math.inf)
-    pr = torch.softmax(s, dim=-1)
-    ctx = torch.einsum("bhs,bsk->bhk", pr, ckv)         # context in latent space
+    mask = lo + torch.arange(s_loc, device=x.device) <= pos
+    if s_loc < s_all:
+        qq = torch.cat([q_eff, q_rope[:, 0].float()], -1)
+        if split:
+            qq = shard.model_gather(qq, 1, "q_gather")
+        s = (torch.einsum("bhk,bsk->bhs", qq[..., :kr], ckv)
+             + torch.einsum("bhr,bsr->bhs", qq[..., kr:], krope)) * scale
+        acc, mx, sm = _partials(s, mask[None, None, :], ckv, "bhs,bsk->bhk")
+        ctx = shard.softmax_combine(acc, mx, sm, to_heads=split)
+    else:
+        s_lat = torch.einsum("bhk,bsk->bhs", q_eff, ckv)
+        s_rope = torch.einsum("bqhr,bsr->bhs", q_rope.float(), krope)
+        s = (s_lat + s_rope) * scale
+        s = torch.where(mask[None, None, :], s, -math.inf)
+        pr = torch.softmax(s, dim=-1)
+        ctx = torch.einsum("bhs,bsk->bhk", pr, ckv)     # context in latent space
     o = torch.einsum("bhk,khv->bhv", ctx, w_uv.float())
     o = o.reshape(b, 1, h * vd).to(x.dtype)
-    return p.wo(o), cache
+    return (p.wo.row(o) if split else p.wo(o)), cache

@@ -97,10 +97,10 @@ class Layer(nn.Module):
         return [getattr(self, f"l{i}")
                 for i in range(len(_split_kinds(self.kind)))]
 
-    def _ffn(self, x, cfg):
+    def _ffn(self, x, cfg, with_aux: bool = True):
         h2 = shard.seq_gather(self.norm2(x))
         if self.kind == "attn_moe":
-            y, aux = moe_apply(self.ffn, h2, cfg)
+            y, aux = moe_apply(self.ffn, h2, cfg, with_aux=with_aux)
         else:
             y, aux = self.ffn(h2), None
         return x + _stream(y, x), aux
@@ -143,46 +143,62 @@ class Layer(nn.Module):
             y, cache = mla_decode(self.mix, h, cfg, cache, pos)
         else:
             y, cache = attn_decode(self.mix, h, cfg, cache, pos)
-        x, _ = self._ffn(x + y, cfg)
+        x, _ = self._ffn(x + y, cfg, with_aux=False)
         return x, cache
 
-    def prefill(self, x, cfg: ModelConfig, max_len: int):
-        """Full-sequence application that also returns the primed cache."""
+    def prefill(self, x, cfg: ModelConfig, max_len: int, cache=None):
+        """Full-sequence application that also returns the primed cache,
+        written into ``cache`` where given (in a placed serving run, the
+        rank's share of it: ``init_caches(placements=)``).  Under
+        ``shard.seq_parallel`` ``x`` is the rank's tokens, as in
+        :meth:`forward`."""
         if self.kind.startswith("unit:"):
             caches = {}
             for i, sub in enumerate(self.subs()):
-                x, caches[f"l{i}"] = sub.prefill(x, cfg, max_len)
+                x, caches[f"l{i}"] = sub.prefill(
+                    x, cfg, max_len, None if cache is None else cache[f"l{i}"])
             return x, caches
-        b, sq, _ = x.shape
-        h = self.norm1(x)
+        b = x.shape[0]
+        h = shard.seq_gather(self.norm1(x))
+        sq = h.shape[1]
+        if cache is None:
+            cache = init_layer_cache(self.kind, cfg, b, max_len, x.dtype, x.device)
         if self.kind == "ssm":
             y, state = ssm_forward(self.mix, h, cfg, return_state=True)
             din = cfg.ssm_expand * cfg.d_model
             conv_dim = din + 2 * cfg.ssm_d_state
             xbc = self.mix.in_proj(h)[..., din:din + conv_dim]
             conv = _last_rows(xbc, cfg.ssm_d_conv - 1)
-            return x + y, {"ssd": state, "conv": conv.float()}
+            return x + _stream(y, x), _fill(cache, {"ssd": state, "conv": conv})
         if self.kind == "rec":
             y, state = rglru_forward(self.mix, h, cfg, return_state=True)
             conv = _last_rows(self.mix.in_x(h), cfg.conv1d_width - 1)
-            x = x + y
-            cache = {"h": state["h"], "conv": conv}
+            cache = _fill(cache, {"h": state["h"], "conv": conv})
         elif cfg.use_mla:
             pos = _positions(b, sq, x.device)
             y = mla_forward(self.mix, h, cfg)
             _, _, c_kv, k_rope = _mla_qkv(self.mix, h, cfg, pos)
-            cache = init_layer_cache(self.kind, cfg, b, max_len, x.dtype, x.device)
-            cache["ckv"][:, :sq] = c_kv.to(cache["ckv"].dtype)
-            cache["kr"][:, :sq] = k_rope[:, :, 0].to(cache["kr"].dtype)
-            x = x + y
+            s_loc = cache["ckv"].shape[1]
+            _, lo = shard.cache_slots(s_loc)
+            n = max(0, min(sq - lo, s_loc))
+            cache["ckv"][:, :n] = c_kv[:, lo:lo + n].to(cache["ckv"].dtype)
+            cache["kr"][:, :n] = k_rope[:, lo:lo + n, 0].to(cache["kr"].dtype)
         else:
             y, (k, v) = attn_forward(self.mix, h, cfg, return_kv=True)
-            cache = _prime_kv_cache(
-                init_layer_cache(self.kind, cfg, b, max_len, x.dtype, x.device),
-                k, v)
-            x = x + y
-        x, _ = self._ffn(x, cfg)
+            cache = _prime_kv_cache(cache, k, v, cfg.sliding_window)
+        x, _ = self._ffn(x + _stream(y, x), cfg, with_aux=False)
         return x, cache
+
+
+def _fill(cache: dict, got: dict) -> dict:
+    """``cache`` (a layer's state) with each entry set from ``got``: the
+    whole value, or this rank's share of its last dim where the cache
+    holds a share (the width ``cache_specs`` splits over ``model``)."""
+    r = shard.model_index()
+    for k, v in got.items():
+        n = cache[k].shape[-1]
+        cache[k].copy_(v if v.shape[-1] == n else v[..., r * n:(r + 1) * n])
+    return cache
 
 
 def _stream(y, x):
@@ -477,39 +493,92 @@ def loss_fn(params: Model, cfg: ModelConfig, tokens, labels, mask=None,
 # ---------------------------------------------------------------------------
 
 
-def init_caches(cfg: ModelConfig, batch: int, max_len: int, device="cuda"):
+def init_caches(cfg: ModelConfig, batch: int, max_len: int, device="cuda",
+                placements: dict | None = None):
     """Empty caches for ``batch`` sequences of up to ``max_len`` tokens, in
-    the compute dtype, on ``device``."""
+    the compute dtype, on ``device``.  ``placements`` (path ->
+    ``launch.sharding.Placement`` of each ``sharding.cache_leaves`` leaf
+    of these caches, as ``sharding.named`` of ``cache_specs`` gives
+    them) allocates each tensor as the slice this process holds."""
     dtype = dtype_of(cfg.compute_dtype)
-    return [[init_layer_cache(kind, cfg, batch, max_len, dtype, device)
-             for _ in range(count)] for kind, count in cfg.layer_groups()]
+    if placements is None:
+        return [[init_layer_cache(kind, cfg, batch, max_len, dtype, device)
+                 for _ in range(count)] for kind, count in cfg.layer_groups()]
+    whole = init_caches(cfg, batch, max_len, "meta")
+    return [[_placed_cache(c, (g,), placements, device) for c in layers]
+            for g, layers in enumerate(whole)]
+
+
+def _placed_cache(tree, path: tuple, placements: dict, device):
+    if isinstance(tree, dict):
+        return {k: _placed_cache(v, path + (k,), placements, device)
+                for k, v in tree.items()}
+    pl = placements[path].row()
+    if pl.shape != tuple(tree.shape):
+        raise ValueError(f"cache {path}: placed for {pl.shape}, the caches of "
+                         f"this call are {tuple(tree.shape)}")
+    return torch.zeros(pl.local_shape, dtype=tree.dtype, device=device)
 
 
 def prefill(params: Model, cfg: ModelConfig, tokens=None, input_embeds=None,
             prefix_embeds=None, max_len: int | None = None):
     """Run the prompt; return (last-token logits (B, 1, V), caches, next
-    position)."""
+    position).  In a placed serving run (``serve.engine.on_mesh``) the
+    rank's rows, its share of the compute and of the caches (logits: its
+    vocab columns where the tables split); ``seq_parallel`` where
+    ``model`` divides the prompt."""
+    run = shard.serve_runner()
+    args = (cfg, tokens, input_embeds, prefix_embeds, max_len)
+    if run is None:
+        return _prefill(params, *args)
+    n = sum(t.shape[1] for t in (prefix_embeds, input_embeds, tokens)
+            if t is not None)
+    with shard.sequence_split(shard.seq_splits(n, shard.model_shards())):
+        return run.top(params, _prefill, *args)
+
+
+def _layer_call(run, layer, method: str, *args):
+    return getattr(layer, method)(*args) if run is None else \
+        run.layer(layer, method, *args)
+
+
+def _prefill(params: Model, cfg, tokens, input_embeds, prefix_embeds, max_len):
     x = _embed_inputs(params, cfg, tokens, input_embeds, prefix_embeds)
-    s = x.shape[1]
+    s = x.shape[1] * (shard.model_shards() if shard.seq_parallel() else 1)
     max_len = max_len or cfg.max_seq_len
+    run = shard.serve_runner()
+    pls = shard.cache_placements()
+    placed = None if pls is None else init_caches(
+        cfg, x.shape[0] * shard.batch_shards(), max_len, x.device, placements=pls)
     caches = []
-    for group in params.groups:
+    for g, group in enumerate(params.groups):
         cg = []
-        for layer in group:
-            x, c = layer.prefill(x, cfg, max_len)
+        for i, layer in enumerate(group):
+            c = None if placed is None else placed[g][i]
+            x, c = _layer_call(run, layer, "prefill", x, cfg, max_len, c)
             cg.append(c)
         caches.append(cg)
-    x = params.final_norm(x)
-    return logits_from_hidden(params, cfg, x[:, -1:]), caches, s
+    x = shard.seq_last(params.final_norm(x))
+    return logits_from_hidden(params, cfg, x), caches, s
 
 
 def decode_step(params: Model, cfg: ModelConfig, caches, tokens, pos: int):
     """One decode step.  tokens: (B, 1) integer ids; pos: the index being
-    written.  Returns (logits (B, 1, V), caches)."""
+    written.  Returns (logits (B, 1, V), caches).  In a placed serving run
+    as :func:`prefill` says, the stream whole (one token)."""
+    run = shard.serve_runner()
+    if run is None:
+        return _decode_step(params, cfg, caches, tokens, pos)
+    with shard.sequence_split(False):
+        return run.top(params, _decode_step, cfg, caches, tokens, pos)
+
+
+def _decode_step(params: Model, cfg, caches, tokens, pos: int):
+    run = shard.serve_runner()
     x = _embed_tokens(params, cfg, tokens)
     for group, cg in zip(params.groups, caches):
         for i, layer in enumerate(group):
-            x, cg[i] = layer.decode(x, cfg, cg[i], pos)
+            x, cg[i] = _layer_call(run, layer, "decode", x, cfg, cg[i], pos)
     x = params.final_norm(x)
     return logits_from_hidden(params, cfg, x), caches
 

@@ -125,12 +125,20 @@ def _own_experts(e_flat, el: int, spread: bool):
     return own % m == j, (own // m) * el + e_flat % el
 
 
-def moe_apply(p: MoE, x, cfg, capacity_factor: float | None = None):
+def moe_apply(p: MoE, x, cfg, capacity_factor: float | None = None,
+              with_aux: bool = True):
     """x: (B, S, D) -> (y, aux_loss).  Routing groups = sequences (prefill,
     capacity-dropped) or the whole batch (decode, drop-free).  With a
     rank's E/m experts (``wi``'s leading dim below ``cfg.n_experts``) the
     rank runs those and the combine adds ``y`` over ``model``; with
-    ``ep_stationary`` as the module docstring says."""
+    ``ep_stationary`` as the module docstring says.  ``with_aux=False``
+    (serving, which drops the aux loss) returns None for it and adds
+    nothing over the batch shards.
+
+    On a ``ProcessMesh`` a decode step's group is the rank's B/d tokens
+    where the JAX package's is the whole batch: the capacity is the
+    group's size either way, so no assignment is dropped and each token's
+    output is the same."""
     b, s, d = x.shape
     e, k = cfg.n_experts, cfg.top_k
     cf = capacity_factor if capacity_factor is not None else cfg.moe_capacity_factor
@@ -203,6 +211,8 @@ def moe_apply(p: MoE, x, cfg, capacity_factor: float | None = None):
         if sh.shape[1] != y.shape[1]:        # under seq_parallel: one split, one whole
             sh, y = (shard.seq_local(t) if t.shape[1] == s else t for t in (sh, y))
         y = y + sh
+    if not with_aux:
+        return y, None
 
     # Switch-style load-balance aux: E * sum_e f_e * P_e.  On a ProcessMesh
     # f_e is the whole batch's (the shards' mean) and a rank adds its share

@@ -116,13 +116,26 @@ def init_rglru_state(batch, cfg, dtype=torch.float32, device="cuda"):
 
 
 def rglru_decode(p: RGLRU, x, cfg, state):
-    """One-token step.  x: (B, 1, D)."""
+    """One-token step.  x: (B, 1, D).  Given a rank's W/m columns of
+    ``in_x`` it runs the rank's slice of the lru width as
+    :func:`rglru_forward` does, on its slice of the ``h`` and ``conv``
+    states (``cache_specs`` puts their width over ``model`` too)."""
+    w = cfg.lru_width or cfg.d_model
+    k = p.in_x.w.shape[1]
+    split = k < w
+    conv_b, lam = p.conv_b, p.lam
+    if split:
+        x = shard.to_model(x)
+        r = shard.model_index()
+        conv_b, lam = conv_b[r * k:(r + 1) * k], lam[r * k:(r + 1) * k]
     xb = p.in_x(x)
     gate = p.in_g(x)
     xc, conv_state = _conv1d_causal(
-        p.conv_w.to(x.dtype), p.conv_b.to(x.dtype), xb,
+        p.conv_w.to(x.dtype), conv_b.to(x.dtype), xb,
         state["conv"].to(x.dtype))
-    a, b = _gates(p, xc)                                # (B, 1, W)
+    a, b = _gates(p, xc, shard.model_concat(xc, "lru_gather") if split else xc,
+                  lam)                                  # (B, 1, W)
     h = a[:, 0] * state["h"] + b[:, 0]
     y = (h[:, None] * _gelu(gate.float())).to(x.dtype)
-    return p.out(y), {"h": h, "conv": conv_state.to(state["conv"].dtype)}
+    out = p.out.row(y) if split else p.out(y)
+    return out, {"h": h, "conv": conv_state.to(state["conv"].dtype)}

@@ -77,7 +77,10 @@ __all__ = ["use_mesh_axes", "active", "constrain", "batch_sum",
            "split_kinds", "seq_parallel", "ep_stationary", "seq_splits",
            "seq_gather", "seq_whole", "seq_split", "seq_local",
            "own_tokens_grad", "expert_dispatch",
-           "expert_return", "batch_gather", "batch_scatter", "EP_AXIS"]
+           "expert_return", "batch_gather", "batch_scatter", "EP_AXIS",
+           "serving", "serve_runner", "cache_placements", "cache_slots",
+           "sequence_split", "model_gather", "softmax_combine",
+           "model_argmax", "seq_last", "kv_exchange"]
 
 _CTX: dict = {"on": False}
 
@@ -186,6 +189,20 @@ def batch_shards() -> int:
     if mesh is None:
         return 1
     return math.prod(int(mesh.shape[a]) for a in _CTX["batch"])
+
+
+def batch_index() -> int:
+    """This rank's index among the batch shards on the installed
+    ``ProcessMesh`` (its coordinates along the batch axes, row-major, as
+    ``launch.sharding.Placement`` numbers a dim's tiles), else 0."""
+    mesh = _process_mesh()
+    if mesh is None:
+        return 0
+    names = mesh.axis_names
+    idx = 0
+    for a in _CTX["batch"]:
+        idx = idx * int(mesh.shape[a]) + int(mesh.coords[names.index(a)])
+    return idx
 
 
 def batch_sum(x):
@@ -640,3 +657,150 @@ def split_kinds(cfg, m: int) -> dict:
             parts["mlp"] = div(cfg.d_ff)
         layers[kind] = parts
     return {"layers": layers, "vocab": div(cfg.vocab_size)}
+
+
+# -- serving on a ProcessMesh ----------------------------------------------------
+
+
+@contextmanager
+def serving(runner, cache_pls: dict, cache_len: int):
+    """Install a placed serving run for the duration of a call:
+    ``runner`` (``serve.engine``'s: ``runner.top(params, fn, *args)`` and
+    ``runner.layer(layer, method, *args)`` run a call of ``models.model``
+    over the params gathered as the placement needs), the caches'
+    placements (``launch.sharding.named`` of ``cache_specs``, keyed by
+    ``cache_leaves``' paths) and their whole length ``cache_len`` (the
+    ``max_len`` they were made for)."""
+    prev = {k: _CTX.get(k) for k in ("serve", "cache_pls", "cache_len")}
+    _CTX.update(serve=runner, cache_pls=cache_pls, cache_len=int(cache_len))
+    try:
+        yield
+    finally:
+        _CTX.update(prev)
+
+
+def serve_runner():
+    """The installed serving runner (:func:`serving`), or None."""
+    return _CTX.get("serve") if _process_mesh() is not None else None
+
+
+def cache_placements():
+    """The installed caches' placements (:func:`serving`), or None."""
+    return _CTX.get("cache_pls") if serve_runner() is not None else None
+
+
+def cache_slots(n_local: int, window: int | None = None) -> tuple:
+    """(whole slots, this rank's first slot) of a cache whose sequence
+    dim holds ``n_local`` slots on this rank: the installed
+    ``cache_len`` (capped at ``window``, a sliding window's ring), split
+    over ``model`` where the rank holds fewer; ``(n_local, 0)`` outside
+    a placed serving run."""
+    whole = _CTX.get("cache_len") if serve_runner() is not None else None
+    if whole is None:
+        return n_local, 0
+    whole = min(whole, window) if window else whole
+    if n_local == whole:
+        return whole, 0
+    if n_local * model_shards() != whole:
+        raise ValueError(f"a cache of {n_local} slots on this rank is no split "
+                         f"of {whole} over {model_shards()} ranks")
+    return whole, model_index() * n_local
+
+
+@contextmanager
+def sequence_split(on: bool):
+    """``seq_parallel`` as ``on`` says for the duration of a call (a decode
+    step's one token keeps the stream whole, :func:`seq_splits`)."""
+    prev = _CTX.get("seq_parallel")
+    _CTX["seq_parallel"] = bool(prev) and bool(on)
+    try:
+        yield
+    finally:
+        _CTX["seq_parallel"] = prev
+
+
+def model_gather(x, dim: int, what: str):
+    """The ranks' slices of ``x`` along ``dim`` joined over ``model`` in
+    coordinate order (one ``mesh.gather``); values only.  ``x`` itself
+    with one rank along ``model``."""
+    if model_shards() == 1:
+        return x
+    return _all_gather(x, (_CTX["model"],), dim, what)
+
+
+def kv_exchange(x, split: int, join: int, what: str = "kv_exchange"):
+    """Chunk c of ``x`` along ``split`` to the rank at ``model``
+    coordinate c, the chunks received joined along ``join`` (one
+    ``mesh.all_to_all``): a prefill's ring of the rank's kv heads turned
+    into every head's slots of the rank's share of the ring."""
+    if model_shards() == 1:
+        return x
+    return _exchange(x, (_CTX["model"],), split, join, what)
+
+
+def softmax_combine(acc, mx, sm, to_heads: bool, what: str = "decode_combine"):
+    """One softmax over slots split over ``model`` (flash-decoding across
+    ranks): each rank's partials over its slots -- ``acc`` (B, H, dv),
+    the f32 sums of its weights times the values, ``mx`` (B, H) its
+    running max (-inf where it holds no valid slot) and ``sm`` (B, H) the
+    sum of its weights ``exp(s - mx)`` -- merged in coordinate order:
+    ``sum_r acc_r e^(mx_r - M) / sum_r sm_r e^(mx_r - M)``, M the max
+    over the ranks.  ``to_heads``: one ``mesh.all_to_all`` hands each
+    rank its H/m heads' partials of every rank, and it returns (B, H/m,
+    dv); otherwise one ``mesh.gather`` and (B, H, dv).  Outside a split
+    (one rank along ``model``) ``acc / sm``."""
+    m = model_shards()
+    if m == 1:
+        return acc / torch.clamp(sm, min=1e-30)[..., None]
+    b, h, dv = acc.shape
+    packed = torch.cat([acc, mx[..., None], sm[..., None]], -1)
+    if to_heads:
+        got = _process_mesh().all_to_all(_chunks(packed, m, 1),
+                                         (_CTX["model"],), what)[0]
+        h //= m
+    else:
+        got = _model_gather(packed, what)
+    parts = got.reshape(m, b, h, dv + 2)
+    mxs = parts[..., dv]
+    top = mxs.amax(dim=0)
+    top = torch.where(torch.isfinite(top), top, torch.zeros_like(top))
+    num = den = None
+    for c in range(m):
+        a = torch.where(torch.isfinite(mxs[c]), torch.exp(mxs[c] - top),
+                        torch.zeros_like(top))
+        t_num, t_den = parts[c, ..., :dv] * a[..., None], parts[c, ..., dv + 1] * a
+        num = t_num if num is None else num + t_num
+        den = t_den if den is None else den + t_den
+    return num / torch.clamp(den, min=1e-30)[..., None]
+
+
+def model_argmax(x, what: str = "vocab_argmax"):
+    """The argmax over the last dim of ``x`` (B, V/m), this rank's vocab
+    columns, over the whole vocab: each rank's first max and its id,
+    gathered over ``model`` and taken in coordinate order with a strict
+    comparison, so a tie goes to the lowest id (``torch.argmax``'s
+    rule).  Returns (B,) int64 ids, the same on every rank along
+    ``model``."""
+    v = x.shape[-1]
+    val, idx = torch.max(x.float(), dim=-1)
+    if model_shards() == 1:
+        return idx
+    ids = (idx + model_index() * v).double()
+    got = _model_gather(torch.stack([val.double(), ids], -1), what)
+    got = got.reshape(got.shape[0], *val.shape, 2)
+    best, best_id = got[0, ..., 0], got[0, ..., 1]
+    for c in range(1, got.shape[0]):
+        more = got[c, ..., 0] > best
+        best = torch.where(more, got[c, ..., 0], best)
+        best_id = torch.where(more, got[c, ..., 1], best_id)
+    return best_id.long()
+
+
+def seq_last(x):
+    """Under :func:`seq_parallel`: the last token of the whole sequence of
+    ``x`` (B, S/m, D), which the last rank along ``model`` holds: every
+    rank's last token gathered (``sp_gather``) and the last rank's kept.
+    ``x[:, -1:]`` otherwise."""
+    if not seq_parallel():
+        return x[:, -1:]
+    return _all_gather(x[:, -1:], (_CTX["model"],), 1, "sp_gather")[:, -1:]

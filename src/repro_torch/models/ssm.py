@@ -47,15 +47,6 @@ class SSM(nn.Module):
         self.out_proj = Linear(din, d, init)
 
 
-def _split_proj(p: SSM, x, cfg):
-    din, nh, hp, n = _dims(cfg)
-    zxbcdt = p.in_proj(x)
-    z = zxbcdt[..., :din]
-    xbc = zxbcdt[..., din:2 * din + 2 * n]
-    dt = zxbcdt[..., 2 * din + 2 * n:]
-    return z, xbc, dt
-
-
 def _segsum(a):
     """Stable 'segment sum' producing the lower-triangular cumulative-decay
     matrix: out[i, j] = sum_{j < k <= i} a[k] (=-inf above diagonal)."""
@@ -205,24 +196,75 @@ def init_ssm_state(batch, cfg, dtype=torch.float32, device="cuda"):
 
 
 def ssm_decode(p: SSM, x, cfg, state):
-    """One-token recurrent step.  x: (B, 1, D)."""
-    din, nh, hp, n = _dims(cfg)
-    z, xbc, dt = _split_proj(p, x, cfg)
-    xbc, conv_state = _conv1d_causal(
-        p.conv_w.to(x.dtype), p.conv_b.to(x.dtype), xbc,
-        state["conv"].to(x.dtype))
-    xs, b, c, dt, a = _ssd_inputs(xbc, dt, p.dt_bias, p.A_log, n)
+    """One-token recurrent step.  x: (B, 1, D).
 
-    xh = xs.reshape(-1, nh, hp).float()                 # (B,H,P)
+    Given a rank's din/m rows of ``out_proj`` it runs the rank's SSD heads
+    as :func:`ssm_forward` does (:func:`_rank_params`), on its heads of
+    the ``ssd`` state.  The conv state's channels [x | B | C] are split
+    evenly over ``model`` by ``cache_specs``, which does not line up with
+    the rank's x channels beside the whole B and C: one gather over
+    ``model`` (``conv_gather``) brings every rank's state and new x
+    channels, the rank convolves its own channels and keeps its share of
+    the new state."""
+    din, nh, hp, n = _dims(cfg)
+    conv_dim = din + 2 * n
+    dl = p.out_proj.w.shape[0]
+    split = dl < din
+    if split:
+        zxbcdt, conv_w, conv_b, dt_bias, a_log, d, scale = _rank_params(p, x, cfg, dl)
+    else:
+        zxbcdt = p.in_proj(x)
+        conv_w, conv_b, dt_bias, a_log, d, scale = (
+            p.conv_w, p.conv_b, p.dt_bias, p.A_log, p.D, p.norm.scale)
+    z, xbc, dt = (zxbcdt[..., :dl], zxbcdt[..., dl:2 * dl + 2 * n],
+                  zxbcdt[..., 2 * dl + 2 * n:])
+    cs = state["conv"]
+    c_loc = cs.shape[-1]
+    if not split and c_loc == conv_dim:
+        xbc, conv_state = _conv1d_causal(conv_w.to(x.dtype), conv_b.to(x.dtype),
+                                         xbc, cs.to(x.dtype))
+    else:
+        xbc, conv_state = _placed_conv(cs, xbc, conv_w, conv_b, dl, din, split)
+    xs, b, c, dt, a = _ssd_inputs(xbc, dt, dt_bias, a_log, n)
+
+    xh = xs.reshape(-1, dl // hp, hp).float()           # (B,H,P)
     dt1 = dt[:, 0]                                      # (B,H)
     dec = torch.exp(a[None] * dt1)                      # (B,H)
     # state update: s = dec*s + dt * x (outer) b
     upd = torch.einsum("bh,bhp,bn->bhpn", dt1, xh, b[:, 0].float())
     s_new = state["ssd"].float() * dec[..., None, None] + upd
     y = torch.einsum("bn,bhpn->bhp", c[:, 0].float(), s_new)
-    y = y + xh * p.D.float()[:, None]
-    y = y.reshape(-1, 1, din).to(x.dtype)
-    y = p.norm(y * F.silu(z))
-    out = p.out_proj(y)
+    y = y + xh * d.float()[:, None]
+    y = y.reshape(-1, 1, dl).to(x.dtype)
+    y = rms_norm(scale, y * F.silu(z), whole=din if split else None)
+    out = p.out_proj.row(y) if split else p.out_proj(y)
     return out, {"ssd": s_new.to(state["ssd"].dtype),
                  "conv": conv_state.to(state["conv"].dtype)}
+
+
+def _placed_conv(cs, xbc, conv_w, conv_b, dl: int, din: int, split: bool):
+    """:func:`ssm_decode`'s conv step on a rank (its docstring): ``cs`` the
+    rank's share of the (B, K-1, C) state (or all of it), ``xbc`` the new
+    input of the rank's channels [x_r | B | C] (or all of them).  Returns
+    the conv output of those channels and the rank's share of the new
+    state, both in ``xbc``'s dtype."""
+    bsz, km1, c_loc = cs.shape
+    cdt = xbc.dtype
+    conv_dim = din + xbc.shape[-1] - dl
+    m, r = shard.model_shards(), shard.model_index()
+    state_split = c_loc < conv_dim
+    send = ([cs.float().reshape(bsz, -1)] if state_split else []) + (
+        [xbc[:, 0, :dl].float()] if split else [])
+    got = shard.model_gather(torch.cat(send, -1), 1, "conv_gather")
+    got = got.reshape(bsz, m, -1)
+    off = km1 * c_loc if state_split else 0
+    whole = (torch.cat(list(got[:, :, :off].reshape(bsz, m, km1, c_loc).unbind(1)), -1)
+             if state_split else cs)
+    x_all = got[:, :, off:].reshape(bsz, din) if split else xbc[:, 0, :din].float()
+    row = torch.cat([x_all.to(cdt), xbc[:, 0, dl:]], -1)
+    window = torch.cat([whole.to(cdt), row[:, None]], 1)          # (B, K, C)
+    mine = (torch.cat([window[..., r * dl:(r + 1) * dl], window[..., din:]], -1)
+            if split else window)
+    y = torch.einsum("bkc,kc->bc", mine, conv_w.to(cdt))[:, None, :] + conv_b.to(cdt)
+    new = window[:, 1:]
+    return y, (new[..., r * c_loc:(r + 1) * c_loc] if state_split else new)

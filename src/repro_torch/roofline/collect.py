@@ -78,6 +78,37 @@ leaf for its RMS.  AdamW moves nothing.  Checked against
 ``mesh.stats.wire_bytes`` of real steps (tests/test_torch_meshtrain.py,
 tests/test_torch_tpsplit.py; ``chip_smoke.py`` phase 12) and of
 ``launch.dryrun``'s stand-in.
+
+:func:`serve_step_bytes` counts one prefill or one decode step of the
+placed serving run (``serve.engine.on_mesh``; ``launch.serve.
+serve_on_mesh``) the same way, forward only, ``B`` the rank's rows and
+``S`` the prompt's tokens (1 for a decode step):
+
+* ``param_gather``: each param the step reads (the layers', the tables
+  and the final norm; not the MTP heads) gathered once, as above (none
+  under ``fsdp=False`` but for what must be whole on every rank);
+* the split's sums over ``model`` of a forward (``tp_fwd``,
+  ``moe_combine``, ``norm_sum``, ``lru_gather``, ``vocab_embed``; under
+  ``seq_parallel``, where it splits a prefill's prompt, ``sp_gather``
+  and ``sp_scatter`` as above, plus one (B, 1, D) ``sp_gather`` of the
+  last token), and ``ep_stationary``'s dispatch calls (a decode step's
+  group is the rank's B tokens, its capacity B);
+* the caches, whose sequence (W slots: ``max_len``, a sliding window's
+  ring capped at its window) ``cache_specs`` puts over ``model`` where m
+  divides it: a prefill whose rank computed its KV/m heads turns them
+  into its slots by one ``kv_exchange`` (an all-to-all of the ring, (B,
+  W/m, KV/m, 2 hd) received from each other rank, in the cache's dtype;
+  int8 codes and f32 scales in two), or with whole slots gathers them
+  (``kv_write``, (B, W, KV/m, ...)); a decode step gathers the new
+  token's k/v heads (``kv_write``, (B, 1, KV/m, 2 hd)), and over split
+  slots the queries (``q_gather``: (B, H/m, hd), MLA's absorbed (B, H/m,
+  kv_lora_rank + rope) f32) and the softmax partials (``decode_combine``:
+  (B, H/m, dv + 2) f32 from each rank by one all-to-all, or (B, H, dv +
+  2) by a gather where the heads do not split); mamba2's conv state and
+  new x channels (``conv_gather``: (B, (K-1) C/m + din/m) f32);
+* with ``pick`` (a decode step of ``serve_on_mesh``, which picks its
+  input token from the last logits) the argmax over a split vocab
+  (``vocab_argmax``, (B, 2) f64).
 """
 
 from __future__ import annotations
@@ -85,7 +116,7 @@ from __future__ import annotations
 import math
 from collections import Counter
 
-__all__ = ["train_step_bytes"]
+__all__ = ["train_step_bytes", "serve_step_bytes"]
 
 _F32 = 4
 
@@ -271,10 +302,12 @@ def _sp_bytes(cfg, table: dict, rows: int, seq: int, m: int) -> dict:
 
 
 def _ep_bytes(cfg, table: dict, rows: int, seq: int, m: int, d: int,
-              total: int) -> dict:
+              total: int, cap: int | None = None, ways: int = 3) -> dict:
     """``ep_stationary``'s calls over ``data`` (``d`` of the mesh's
     ``total`` ranks) of one micro-batch of ``rows`` x ``seq`` tokens, to
-    be multiplied by ``d - 1`` (module docstring)."""
+    be multiplied by ``d - 1`` (module docstring): each in a layer's
+    ``ways`` passes (forward, recompute and backward).  ``cap``: the
+    capacity of a group (default that of ``seq`` tokens)."""
     from ..models.blocks import dtype_of
     from ..models.moe import capacity
 
@@ -283,13 +316,13 @@ def _ep_bytes(cfg, table: dict, rows: int, seq: int, m: int, d: int,
         return out
     c = dtype_of(cfg.compute_dtype).itemsize
     e = cfg.n_experts
-    cap = capacity(seq, cfg.top_k, e, cfg.moe_capacity_factor)
+    cap = capacity(seq, cfg.top_k, e, cfg.moe_capacity_factor) if cap is None else cap
     buf = rows * (e // m) * cap * cfg.d_model * c      # (G, E/m, C, D)
     spread = e % total == 0                   # the param rule's (data, model) branch
     moe = sum(n for kind, n in cfg.layer_groups() if kind == "attn_moe")
     names = ("ep_dispatch", "ep_return") if spread else ("ep_gather", "ep_scatter")
     for name in names:
-        out[name] += moe * 3 * (buf // d if spread else buf)
+        out[name] += moe * ways * (buf // d if spread else buf)
     return out
 
 
@@ -308,3 +341,149 @@ def _factored_bytes(pl, stacked: bool) -> int:
         got += (_split(upl, -2) - 1) * (math.prod(loc[:-2] + loc[-1:])
                                         + math.prod(loc[:-2]))
     return rows * got * _F32
+
+
+def serve_step_bytes(cfg, params, mesh, kind: str, batch: int, seq: int, *,
+                     max_len: int, specs=None, pick: bool = False,
+                     seq_parallel: bool = False, ep_stationary: bool = False) -> dict:
+    """``{call: bytes}`` one rank receives in one ``kind`` step
+    (``"prefill"`` of ``seq`` tokens, or ``"decode"``) of the placed
+    serving run (module docstring) of ``batch`` sequences whose caches
+    hold ``max_len`` tokens, ``params`` (a ``Model``; shapes and dtypes
+    are read, so it may live on ``meta``) placed by ``specs`` (default
+    ``param_specs(params, cfg.fsdp, mesh, ep_stationary=)``) on ``mesh``,
+    plus ``"total_bytes"``."""
+    from ..launch.mesh import batch_axes
+    from ..launch.sharding import (Placement, _itemsize, leaf_shape,
+                                   param_specs, tree_leaves)
+    from ..models.blocks import dtype_of
+    from ..models.shard import seq_splits
+    from ..train.step import _gather_over, _split_table
+
+    specs = (param_specs(params, cfg.fsdp, mesh, ep_stationary)
+             if specs is None else specs)
+    baxes = batch_axes(mesh)
+    m = int(dict(mesh.shape).get("model", 1))
+    table = _split_table(cfg, mesh)
+    out: Counter = Counter()
+    for path, leaf in tree_leaves(params).items():
+        if path[0] == "mtp":
+            continue
+        shape = leaf_shape(leaf)
+        pl = Placement(mesh, specs[path], shape)
+        stacked = path[0] == "groups"
+        rows = shape[0] if stacked else 1
+        row_bytes = math.prod(pl.local_shape[1:] if stacked else pl.local_shape) \
+            * _itemsize(leaf)
+        lkind = cfg.layer_groups()[path[1]][0] if stacked else None
+        name = ".".join(map(str, path[2:] if stacked else path))
+        over, _ = _gather_over(table, lkind, name, pl, baxes,
+                               ep_stationary=ep_stationary)
+        p = math.prod(int(mesh.shape[a]) for a in (pl.axes if over is None else over))
+        out["param_gather"] += rows * (p - 1) * row_bytes
+    if m > 1:
+        rows = Placement(mesh, (baxes, None), (batch, 1)).local_shape[0]
+        tok = rows * (1 if kind == "decode" else seq)
+        sp = kind == "prefill" and seq_parallel and seq_splits(seq, m)
+        c = dtype_of(cfg.compute_dtype).itemsize
+        for call, n in _serve_split_bytes(cfg, table, rows, tok, m, c, sp).items():
+            out[call] += (m - 1) * n
+        for call, n in _serve_cache_bytes(cfg, table, kind, rows, m, c,
+                                          max_len).items():
+            out[call] += (m - 1) * n
+        if ep_stationary:
+            d = int(dict(mesh.shape).get("data", 1))
+            group = (1, rows) if kind == "decode" else (rows, None)
+            for call, n in _ep_bytes(cfg, table, group[0], seq, m, d,
+                                     _mesh_size(mesh), cap=group[1],
+                                     ways=1).items():
+                out[call] += (d - 1) * n
+        if pick and kind == "decode" and table["vocab"]:
+            out["vocab_argmax"] += (m - 1) * rows * 2 * 8
+    got = {k: v for k, v in out.items() if v}
+    got["total_bytes"] = sum(got.values())
+    return got
+
+
+def _serve_layers(cfg):
+    """The layer kinds a serving step runs, one a layer (a ``unit:``
+    layer's sub-blocks), the MTP heads left out."""
+    for kind, n in cfg.layer_groups():
+        for _ in range(n):
+            yield from (kind[5:].split(",") if kind.startswith("unit:") else [kind])
+
+
+def _serve_split_bytes(cfg, table: dict, rows: int, tok: int, m: int, c: int,
+                       sp: bool) -> dict:
+    """The split's sums over ``model`` in one serving forward of ``tok``
+    tokens (``rows`` of them a sequence's last), to be multiplied by
+    ``m - 1`` (module docstring)."""
+    act = tok * cfg.d_model * c
+    sl = act // m                               # a rank's tokens under sp
+    lru = (cfg.lru_width or cfg.d_model) // m
+    out: Counter = Counter()
+    for kind in _serve_layers(cfg):
+        parts = table["layers"][kind]
+        mixer = parts.get({"ssm": "heads", "rec": "lru"}.get(kind, "heads"))
+        ffn = [parts.get(p) for p in ("mlp", "experts", "shared")]
+        if kind == "ssm" and mixer:
+            out["norm_sum"] += tok * _F32
+        if kind == "rec" and mixer:
+            out["lru_gather"] += tok * lru * c
+        if sp:
+            out["sp_gather"] += sl * (1 if kind == "ssm" else 2)
+            out["sp_scatter"] += sl * (bool(mixer) + sum(map(bool, ffn)))
+            continue
+        out["tp_fwd"] += act * (bool(mixer) + bool(parts.get("mlp"))
+                                + bool(parts.get("shared")))
+        out["moe_combine"] += act * bool(parts.get("experts"))
+    if sp:
+        out["sp_gather"] += rows * cfg.d_model * c
+        out["sp_scatter"] += sl * table["vocab"]
+    else:
+        out["vocab_embed"] += act * table["vocab"]
+    return out
+
+
+def _serve_cache_bytes(cfg, table: dict, kind: str, rows: int, m: int, c: int,
+                       max_len: int) -> dict:
+    """The caches' calls of one serving step (module docstring), to be
+    multiplied by ``m - 1``."""
+    out: Counter = Counter()
+    h, kvh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    for lk in _serve_layers(cfg):
+        parts = table["layers"][lk]
+        if lk == "ssm":
+            din = cfg.ssm_expand * cfg.d_model
+            conv = din + 2 * cfg.ssm_d_state
+            n = ((cfg.ssm_d_conv - 1) * conv // m if conv % m == 0 else 0) + \
+                (din // m if parts["heads"] else 0)
+            if kind == "decode" and n:
+                out["conv_gather"] += rows * n * _F32
+            continue
+        if lk == "rec":
+            continue
+        heads = parts["heads"]
+        if cfg.use_mla:
+            w, dv, q = max_len, cfg.kv_lora_rank, cfg.kv_lora_rank + cfg.qk_rope_dim
+            qb = _F32
+        else:
+            w = min(max_len, cfg.sliding_window) if cfg.sliding_window else max_len
+            dv, q, qb = hd, hd, c
+        slots = cfg.seq_shard_decode and w % m == 0
+        if not cfg.use_mla and parts["kv"]:
+            if kind == "decode":
+                out["kv_write"] += rows * (kvh // m) * 2 * hd * c
+            else:
+                per = ([(2 * hd, 1), (2, _F32)] if cfg.kv_cache_dtype == "int8"
+                       else [(2 * hd, c)])
+                ring = sum(rows * (kvh // m) * last * size for last, size in per)
+                if slots:
+                    out["kv_exchange"] += ring * w // m
+                else:
+                    out["kv_write"] += ring * w
+        if kind == "decode" and slots:
+            if heads:
+                out["q_gather"] += rows * (h // m) * q * qb
+            out["decode_combine"] += rows * (h // m if heads else h) * (dv + 2) * _F32
+    return out

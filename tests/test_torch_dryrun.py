@@ -7,8 +7,8 @@
   shape, the int32 batch.
 * The cell's JSON keys: the JAX cell's where they mean the same, the
   port's new ones (``counted_flops``, ``argument_bytes_by_part``,
-  ``build_s``, ``run_s``); ``collectives`` 0 on ``card`` and null on
-  ``single``/``multi``, temporaries null there; the CLI.
+  ``build_s``, ``run_s``); ``collectives`` 0 on ``card``, a decode
+  cell's rank-0 bytes and temporaries on ``single``/``multi``; the CLI.
 * The counted-FLOP band: counted / ``analytic_cell`` within
   [0.80, 1.30] for all ten smoke configs, and at most 1 for the dense
   attention stacks, where the count only leaves work out (the embedding
@@ -30,9 +30,15 @@
   ``model`` at most 1/7 of the cell's without ``sp``, deepseek's expert
   banks adding nothing to the params' gathers or the gradients'
   reduce-scatters.
+* A prefill and a decode cell on ``single`` and ``multi`` (probe 1, and
+  the ``nofsdp``, ``int8kv``, ``sp`` and ``ep`` variants) run rank 0's
+  serving step on ``StandInMesh``: temporaries counted, collective bytes
+  equal to ``roofline.collect.serve_step_bytes`` call by call, counted
+  FLOPs rank 0's own; ``nofsdp`` gathers no weight a split part owns.
 """
 
 import json
+import math
 
 import jax
 import numpy as np
@@ -140,16 +146,17 @@ def test_cell_json_keys(mesh, tmp_path):
         "argument_size_in_bytes", "output_size_in_bytes",
         "alias_size_in_bytes", "temp_size_in_bytes"}
     assert saved["devices"] == {"single": 256, "multi": 512, "card": 1}[mesh]
+    assert saved["memory_analysis"]["temp_size_in_bytes"] > 0
     if mesh == "card":
         assert saved["collectives"] == {"total_bytes": 0.0}
-        assert saved["memory_analysis"]["temp_size_in_bytes"] > 0
     else:
-        assert saved["collectives"] is None
-        assert saved["memory_analysis"]["temp_size_in_bytes"] is None
+        by_call = saved["collectives"]["by_call"]
+        assert saved["collectives"]["total_bytes"] == sum(by_call.values()) > 0
+        assert by_call["conv_gather"] > 0
     assert saved["counted_flops"] * saved["devices"] == saved["counted_flops_total"] > 0
     row = A.roofline_row(saved, configs.get("mamba2-370m").replace(n_layers=1))
     assert row.counted_flops == saved["counted_flops"]
-    assert (row.t_collective is None) == (mesh != "card")
+    assert row.t_collective is not None
 
 
 def test_train_cell_follows_the_jax_rules():
@@ -221,7 +228,7 @@ def test_cli(tmp_path, capsys):
                         "--mesh", "single", "--probe-layers", "1",
                         "--out", str(tmp_path)]) == 0
     res = json.loads(capsys.readouterr().out)
-    assert res["collective_bytes_per_device"] is None and "collectives" not in res
+    assert res["collective_bytes_per_device"] > 0 and "collectives" not in res
     assert (tmp_path / "mamba2-370m__decode_32k__single__probe1.json").exists()
     with pytest.raises(SystemExit):
         dryrun.main(["--arch", "mamba2-370m", "--shape", "decode_32k",
@@ -337,3 +344,78 @@ def test_sp_ep_train_cells_run_rank_0_of_the_split_step(arch, shape, mesh, varia
         assert {"ep_dispatch", "ep_return"} <= set(want)
     if arch == "dbrx-132b":
         assert {"sp_gather", "sp_scatter", "ep_gather", "ep_scatter"} <= set(want)
+
+
+@pytest.mark.parametrize("arch,kind,mesh,variant", [
+    ("granite-3-8b", "prefill", "single", ""),
+    ("granite-3-8b", "decode", "single", ""),
+    ("granite-3-8b", "prefill", "multi", "sp"),
+    ("granite-3-8b", "decode", "multi", "nofsdp,int8kv"),
+    ("deepseek-v3-671b", "decode", "single", ""),
+    ("dbrx-132b", "prefill", "multi", "ep"),
+    ("recurrentgemma-9b", "decode", "multi", "")])
+def test_serve_cells_run_rank_0_of_the_placed_step(arch, kind, mesh, variant):
+    """A prefill or decode cell on a production mesh runs rank 0's serving
+    step on the stand-in (``serve.engine.on_mesh``): its temporaries are
+    counted, its collective bytes are ``serve_step_bytes``' call by call,
+    and its FLOPs are rank 0's own count.  A decode step over caches whose
+    sequence is split over ``model`` merges its softmax there
+    (``decode_combine``); ``nofsdp`` leaves the weights of the split parts
+    where they are (granite's whole k/v projections, whose 8 kv heads do
+    not split over 16 ranks, are all it gathers)."""
+    import torch
+
+    from repro_torch.models import model as M
+    from repro_torch.roofline.collect import serve_step_bytes
+    from repro_torch.serve.engine import on_mesh
+
+    shape = (kind, 64, 32)
+    res = dryrun.run_cell(arch, shape, mesh, probe_layers=1, variant=variant)
+    assert res["memory_analysis"]["temp_size_in_bytes"] > 0
+    cfg = configs.get(arch)
+    cfg = cfg.replace(n_layers=(cfg.first_dense_layers or 0) + 1) \
+        if cfg.family != "hybrid" else cfg.replace(n_layers=len(cfg.block_pattern))
+    if "int8kv" in variant:
+        cfg = cfg.replace(kv_cache_dtype="int8")
+    if "nofsdp" in variant:
+        cfg = cfg.replace(fsdp=False)
+    m = SH.MESHES[mesh]
+    params = M.init_params(cfg, None, "meta")
+    opts = {"seq_parallel": "sp" in variant, "ep_stationary": "ep" in variant}
+    want = serve_step_bytes(cfg, params, m, kind, 32, 64, max_len=64, **opts)
+    assert res["collectives"] == {"total_bytes": float(want.pop("total_bytes")),
+                                  "by_call": want}
+    if kind == "decode":
+        assert want["decode_combine"] > 0
+    if "nofsdp" in variant:
+        kv = SH.tree_leaves(params)
+        whole_kv = sum(SH.leaf_shape(kv[p])[0] * math.prod(SH.leaf_shape(kv[p])[1:])
+                       // 16 * 15 * 2 for p in kv if p[-2] in ("wk", "wv"))
+        assert want["param_gather"] == whole_kv
+    if "sp" in variant:
+        assert {"sp_gather", "sp_scatter"} <= set(want) and "tp_fwd" not in want
+    if "ep" in variant:
+        # dbrx's 16 experts, one a rank along model, their ffn columns over data
+        assert {"ep_gather", "ep_scatter"} <= set(want)
+    # rank 0's FLOPs: the same step counted here
+    rank = dryrun.StandInMesh(m.shape)
+    from repro_torch.launch.mesh import batch_axes
+
+    baxes = batch_axes(m)
+    pls = SH.named(rank, SH.param_specs(params, cfg.fsdp, m, opts["ep_stationary"]),
+                   params)
+    c_leaves = SH.cache_leaves(M.init_caches(cfg, 32, 64, "meta"))
+    c_pls = SH.named(rank, SH.cache_specs(c_leaves, baxes, cfg.seq_shard_decode),
+                     c_leaves)
+    local = M.init_params(cfg, None, "meta", placements=pls)
+    rows = SH.Placement(rank, (baxes, None), (32, 1)).local_shape[0]
+    counter = dryrun.StepCounter()
+    with counter, torch.inference_mode(), on_mesh(local, cfg, pls, c_pls, 64, **opts):
+        if kind == "prefill":
+            M.prefill(local, cfg, tokens=torch.empty((rows, 64), dtype=torch.long,
+                                                     device="meta"), max_len=64)
+        else:
+            caches = M.init_caches(cfg, 32, 64, "meta", placements=c_pls)
+            M.decode_step(local, cfg, caches, torch.empty((rows, 1), dtype=torch.long,
+                                                          device="meta"), 63)
+    assert res["counted_flops"] == counter.flops > 0

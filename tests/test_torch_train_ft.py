@@ -278,3 +278,101 @@ def test_bf16_train_state_checkpoint(tmp_path):
         for a, b in zip(got.params.parameters(), state.params.parameters()):
             assert a.dtype == torch.bfloat16 and torch.equal(a, b)
         assert int(got.step) == 0
+
+
+# -- where the int8-compressed runs part -------------------------------------------
+
+
+def test_int8_compressor_matches_jax_on_identical_grads():
+    """The compressor is the JAX package's bit for bit: from the same
+    gradients and error feedback (a stacked leaf and a plain one, with
+    elements placed exactly on rounding boundaries) the dequantized
+    gradients and the new residuals are equal, the scale ``max|g + e| /
+    127`` taken over the whole stacked leaf."""
+    from repro.train import step as JS
+    from repro_torch.train import step as PS
+    from repro_torch.train.optim import LayerStack
+
+    rng = np.random.default_rng(3)
+    g = {"a": rng.standard_normal((3, 8, 16)).astype(np.float32),
+         "b": rng.standard_normal((40,)).astype(np.float32)}
+    e = {k: (1e-3 * rng.standard_normal(v.shape)).astype(np.float32)
+         for k, v in g.items()}
+    scale = np.float32(np.abs(g["b"] + e["b"]).max()) / np.float32(127.0)
+    e["b"][:4] = 0.0
+    g["b"][:4] = np.float32([0.5, 1.5, -2.5, 3.5]) * scale      # half-way codes
+    jg, je = JS._compress_grads({k: jnp.asarray(v) for k, v in g.items()},
+                                {k: jnp.asarray(v) for k, v in e.items()})
+    pg = {("a",): LayerStack(torch.from_numpy(g["a"].copy()).unbind(0)),
+          ("b",): torch.from_numpy(g["b"].copy())}
+    pe = {"a": torch.from_numpy(e["a"].copy()), "b": torch.from_numpy(e["b"].copy())}
+    got, ef = PS._compress_grads(pg, pe, inplace=False)
+    assert np.array_equal(torch.stack(list(got[("a",)])).numpy(), np.asarray(jg["a"]))
+    assert np.array_equal(got[("b",)].numpy(), np.asarray(jg["b"]))
+    for k in ("a", "b"):
+        assert np.array_equal(ef[k].numpy(), np.asarray(je[k])), k
+
+
+def test_one_int8_code_apart_upstream_parts_the_embedding():
+    """Why the ``ef`` cross-restore cases can miss their 99% on some hosts:
+    from JAX's state after two compressed steps, the port's two further
+    steps are deterministic (run twice, equal); but with one element of
+    ``wk``'s error feedback moved by about one int8 step of its leaf -- so
+    that its code is one apart, which is what a gradient differing in its
+    last f32 bits gives at a rounding boundary -- every later gradient
+    moves, ``embed.table``'s scale with them, and some of the table's
+    params part by code-sized amounts, 100 times the checks' 1e-5 of
+    max|p| (how many depends on the data and the host's sums: on an
+    AVX-512 host the ``ef`` cases part in 1.1% and 5.7% of the table)."""
+    cfg = _cfg()
+    jstate, jstep = _jax_state(cfg, True)
+    pipe = TokenPipeline(cfg.vocab_size, 2, 16, seed=1)
+    for i in range(2):
+        jstate, _ = jstep(jstate, {k: jnp.asarray(v) for k, v in pipe.batch_at(i).items()})
+    base = jax.tree.map(np.asarray, jstate)
+    step = _port_step(cfg, True)
+    tables = []
+    for nudge in (False, False, True):
+        st = jax.tree.map(np.copy, base)
+        if nudge:
+            e = st.ef["groups"][0]["mix"]["wk"]["w"]
+            e[0, 1, 4] += 2 * np.abs(e).max()
+        s = convert.train_state_from_numpy(cfg, st, "cpu")
+        for i in (2, 3):
+            s, _ = step(s, pipe.batch_at(i))
+        tables.append(convert.train_state_to_numpy(s)["params"]["embed"]["table"])
+    assert np.array_equal(tables[0], tables[1])
+    d = np.abs(tables[2] - tables[0])
+    top = np.abs(tables[0]).max()
+    assert d.max() > 1e-3 * top
+    assert (d > 1e-5 * top).any()
+
+
+def test_grads_from_an_identical_state_agree_to_f32_order():
+    """From the same state (JAX's after two compressed steps) the port's
+    gradient of ``embed.table`` is JAX's within 1e-6 of max|g| (the order
+    of f32 sums), and one compressed step of each keeps every param of the
+    table within 1e-5 of max|p|: the packages part only after chained
+    steps, where such differences meet a rounding boundary (the test
+    above)."""
+    from repro_torch.train import step as PS
+
+    cfg = _cfg()
+    jstate, jstep = _jax_state(cfg, True)
+    pipe = TokenPipeline(cfg.vocab_size, 2, 16, seed=1)
+    jb = lambda i: {k: jnp.asarray(v) for k, v in pipe.batch_at(i).items()}
+    for i in range(2):
+        jstate, _ = jstep(jstate, jb(i))
+    state = convert.train_state_from_numpy(cfg, jax.tree.map(np.asarray, jstate), "cpu")
+
+    def jloss(p):
+        return JM.loss_fn(p, cfg, jb(2)["tokens"], jb(2)["labels"])[0]
+
+    jg = np.asarray(jax.jit(jax.grad(jloss))(jstate.params)["embed"]["table"])
+    _, pg = PS.value_and_grad(cfg, state.params, PS.as_batch(pipe.batch_at(2), "cpu"))
+    assert np.abs(pg[("embed", "table")].numpy() - jg).max() <= 1e-6 * np.abs(jg).max()
+    jnew, _ = jstep(jstate, jb(2))
+    new, _ = _port_step(cfg, True)(state, pipe.batch_at(2))
+    w = np.asarray(jnew.params["embed"]["table"])
+    a = convert.train_state_to_numpy(new)["params"]["embed"]["table"]
+    assert np.abs(a - w).max() <= 1e-5 * np.abs(w).max()
