@@ -45,9 +45,16 @@ prints no result line):
                level solves (n = 24 and 72) against scipy; on every
                triangular case above and lap2d_1024's L factor (2047
                levels) each level against its plain version from the same
-               x, the functional and in-place solves bitwise equal, and
+               x and bitwise against the first design (``variant=
+               "first"``), the functional and in-place solves bitwise
+               equal, the in-place solve bitwise the first design's, and
                the solved x against sptrsv_solve_dot's, within the
-               tolerance.
+               tolerance; on lap2d_1024's L, the in-place solve with a
+               torch op rewriting b on the stream before each level (a
+               copy, or a multiply by 1; b is NaN between levels), eager
+               and as one CUDA graph, bitwise the solve without it: the
+               new design's programmatic wait orders its reads after
+               that op.
 3. parity   -- lap2d_32 and banded_1k, float64 Jacobi pcg_tol at tol 1e-8,
                against the JAX package's iteration counts (94 and 9); the
                card may sum in another order, so +-1 iteration passes.
@@ -195,9 +202,13 @@ prints no result line):
                bound, and one PyTorch call of the same function: CSR @ x
                then torch.dot; CSR @ dense (n, 8) then (X * Y).sum(0);
                torch.add then torch.dot), sptrsv_level_step at the widest
-               level of lap2d_1024's L and the whole 2047-launch solve
-               eager and as one graph beside sptrsv_solve_dot's, and one
-               Jacobi pipelined step by part (graph replays).
+               level of lap2d_1024's L (20 in one graph) and the whole
+               2047-launch solve as one graph, the first design against
+               the new one in mirrored order (first, new, new, first; the
+               new one without programmatic dependent launch and with
+               scalar row loads between), eager beside, and
+               sptrsv_solve_dot's; and one Jacobi pipelined step by part
+               (graph replays).
                The A/B phases: ell_spmv at 1,048,576 x 8 (f64, f32) and at
                the skewed 2^20 ELL (W = 264), the first slice's group design
                against the kept variant, each timed twice in mirrored order
@@ -454,9 +465,12 @@ prints no result line):
                candidate must run, ``lookup`` return the winner and
                ``ell_spmv.pick_variant`` (the rows-or-group wrappers'
                rule, which consults the cache) pick it.  Then the launch
-               floor: one CUDA graph of LEVEL_PROBE one-element adds
+               floors: one CUDA graph of LEVEL_PROBE one-element adds
                (``sptrsv_level_step``'s 2,047 levels) replayed, its time
-               over the nodes: a graph node's own cost.
+               over the nodes: a graph node's own cost; and one graph of
+               LEVEL_PROBE no-work kernels chained by programmatic
+               dependent launch, the node floor under the level step's
+               new design.
 12. meshtrain -- the LM train state on a process grid: 4 gloo ranks on
                the card (``launch.procs``) as a 2x2 (data, model)
                ``ProcessMesh``, each running ``launch.train.
@@ -2990,42 +3004,64 @@ def roofline_phase(failed: list, lm: dict, trained: dict) -> None:
     say(f"roofline phase: {now() - t_phase:.1f} s")
 
 
-def launch_floor(smi: str) -> float:
+def launch_floor(smi: str) -> dict:
     """11c's probe: a CUDA graph of LEVEL_PROBE one-element in-place adds,
-    replayed TIMER_REPS times after a warm replay; the microseconds a
-    node, by CUDA events (the count checked from the tensor's value)."""
+    and one of LEVEL_PROBE no-work kernels each launched programmatic-
+    dependent on the one before (csrc/sptrsv.cu pdl_noop_kernel: the
+    wait and the trigger, one count), each replayed TIMER_REPS times after
+    a warm replay; the microseconds a node, by CUDA events (the counts
+    checked from the tensors' values).  The second is the floor under a
+    chain of sptrsv_level_step's new design."""
     import gc
 
     import torch
+    from repro_torch.kernels import build, sptrsv
 
+    dev = torch.device("cuda")
+    sptrsv.pdl_ready(dev)
     probe = torch.zeros(1, device="cuda")
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        probe.add_(1.0)
-    torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    gc.disable()
-    try:
-        with torch.cuda.graph(graph):
-            for _ in range(LEVEL_PROBE):
-                probe.add_(1.0)
-    finally:
-        gc.enable()
-    graph.replay()
-    e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-    e0.record()
-    for _ in range(TIMER_REPS):
+    count = torch.zeros(1, dtype=torch.int64, device="cuda")
+    noop = build.plain_entry("repro_pdl_noop")
+
+    def pdl_one():
+        build.check(noop(count.data_ptr(), 1, build.stream_handle(dev)),
+                    "pdl_noop")
+
+    us = {}
+    for name, one, tensor in (("add", lambda: probe.add_(1.0), probe),
+                              ("pdl", pdl_one, count)):
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            one()
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        gc.disable()
+        try:
+            with torch.cuda.graph(graph):
+                for _ in range(LEVEL_PROBE):
+                    one()
+        finally:
+            gc.enable()
         graph.replay()
-    e1.record()
-    torch.cuda.synchronize()
-    want = 1 + LEVEL_PROBE * (1 + TIMER_REPS)
-    if float(probe) != want:
-        raise AssertionError(f"launch floor: {float(probe)} adds, {want} launched")
-    us = e0.elapsed_time(e1) * 1e3 / (TIMER_REPS * LEVEL_PROBE)
+        e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        e0.record()
+        for _ in range(TIMER_REPS):
+            graph.replay()
+        e1.record()
+        torch.cuda.synchronize()
+        want = 1 + LEVEL_PROBE * (1 + TIMER_REPS)
+        if float(tensor) != want:
+            raise AssertionError(f"launch floor ({name}): {float(tensor)} "
+                                 f"nodes ran, {want} launched")
+        us[name] = e0.elapsed_time(e1) * 1e3 / (TIMER_REPS * LEVEL_PROBE)
+        del graph
     say(f"launch floor: a graph of {LEVEL_PROBE} one-element adds replays in "
-        f"{us * LEVEL_PROBE / 1e3:.4f} ms, {us:.4f} us a node (sptrsv_level_step's "
-        f"bytes bound 0.0428 us a level); on {smi}")
+        f"{us['add'] * LEVEL_PROBE / 1e3:.4f} ms, {us['add']:.4f} us a node; "
+        f"{LEVEL_PROBE} no-work kernels chained by programmatic dependent "
+        f"launch in {us['pdl'] * LEVEL_PROBE / 1e3:.4f} ms, {us['pdl']:.4f} "
+        f"us a node (sptrsv_level_step's bytes bound 0.0428 us a level); "
+        f"on {smi}")
     return us
 
 
@@ -4987,28 +5023,82 @@ def factor_diag(ell):
     return torch.where(d == 0, 1.0, d)
 
 
-def level_solve(cols, vals, diag, b, rows, n: int, inplace: bool):
+def level_solve(cols, vals, diag, b, rows, n: int, inplace: bool,
+                variant=None):
     """x (n + 1,) solved level by level with sptrsv_level_step: through
-    ``ops`` (a new x each level), or in place (``out=x``)."""
+    ``ops`` (a new x each level), or in place (``out=x``) with the
+    wrapper's ``variant``."""
     import torch
     from repro_torch.kernels import ops, sptrsv
 
     x = torch.zeros(n + 1, dtype=vals.dtype, device=vals.device)
     for lv in rows:
         if inplace:
-            sptrsv.sptrsv_level_step(cols, vals, diag, b, x, lv, out=x)
+            sptrsv.sptrsv_level_step(cols, vals, diag, b, x, lv, out=x,
+                                     variant=variant)
         else:
             x = ops.sptrsv_level_step(cols, vals, diag, b, x, lv)
     return x
 
 
+def check_level_rewrite(cols, vals, diag, b, rows, n: int, label: str) -> str:
+    """The in-place level solve with ``b`` rewritten on the stream before
+    each level -- a copy (a memcpy) on odd levels, a multiply by 1 (a
+    kernel) on even ones, and NaN written over it after each level -- eager
+    and captured into one CUDA graph (replayed on an x of 7s): both
+    bitwise the solve without the rewrites.  A read of b that came before
+    the rewrite had landed would see NaN.  Returns what was checked."""
+    import gc
+
+    import torch
+    from repro_torch.kernels import sptrsv
+
+    want = level_solve(cols, vals, diag, b, rows, n, inplace=True)
+    bw, nan = b.clone(), torch.full_like(b, float("nan"))
+    x = torch.zeros(n + 1, dtype=vals.dtype, device=vals.device)
+
+    def chain():
+        x.zero_()
+        for i, lv in enumerate(rows):
+            if i % 2:
+                bw.copy_(b)
+            else:
+                torch.mul(b, 1.0, out=bw)
+            sptrsv.sptrsv_level_step(cols, vals, diag, bw, x, lv, out=x)
+            bw.copy_(nan)
+
+    chain()
+    if not torch.equal(x, want):
+        raise AssertionError(f"sptrsv_level_step {label}: the eager solve "
+                             "with b rewritten before each level differs")
+    graph = torch.cuda.CUDAGraph()
+    gc.disable()
+    try:
+        with torch.cuda.graph(graph):
+            chain()
+    finally:
+        gc.enable()
+    x.fill_(7.0)
+    graph.replay()
+    torch.cuda.synchronize()
+    if not torch.equal(x, want):
+        raise AssertionError(f"sptrsv_level_step {label}: the graph of the "
+                             "solve with b rewritten before each level differs")
+    del graph
+    aligned = (cols.data_ptr() | vals.data_ptr()) % 16 == 0
+    return (f"variant {sptrsv.level_step_variant(cols.shape[1], vals.dtype, aligned)}"
+            f", b rewritten before each of {len(rows)} levels: eager and "
+            "graph bitwise the solve without it")
+
+
 def check_level_step(ell, rows, n: int, dtype: str, gen, label: str):
     """sptrsv_level_step on one factor: each level against its plain
-    version from the same x, within the tolerance; the functional and the
-    in-place solves, and a second in-place solve, bitwise equal; the
-    solved x within RTOL x max|x| of sptrsv_solve_dot's (which multiplies
-    by the inverse diagonal).  Returns (max abs error of a level, of the
-    solve)."""
+    version from the same x, within the tolerance, and bitwise against the
+    first design; the functional and the in-place solves, a second
+    in-place solve and the first design's in-place solve bitwise equal;
+    the solved x within RTOL x max|x| of sptrsv_solve_dot's (which
+    multiplies by the inverse diagonal).  Returns (max abs error of a
+    level, of the solve)."""
     import torch
     from repro_torch.kernels import ops, sptrsv
 
@@ -5022,14 +5112,21 @@ def check_level_step(ell, rows, n: int, dtype: str, gen, label: str):
         err = max(err, compare(f"sptrsv_level_step {label}", (got,),
                                (sptrsv.sptrsv_level_step_plain(
                                    cols, vals, diag, b, x, lv),), dtype))
+        if not torch.equal(got, sptrsv.sptrsv_level_step(
+                cols, vals, diag, b, x, lv, variant="first")):
+            raise AssertionError(f"sptrsv_level_step {label}: a level differs "
+                                 "from the first design's bits")
         x = got
     rows = torch.as_tensor(rows, device=vals.device)
     x_in = level_solve(cols, vals, diag, b, rows, n, inplace=True)
     if not (torch.equal(x, x_in)
             and torch.equal(x_in, level_solve(cols, vals, diag, b, rows, n,
-                                              inplace=True))):
+                                              inplace=True))
+            and torch.equal(x_in, level_solve(cols, vals, diag, b, rows, n,
+                                              inplace=True, variant="first"))):
         raise AssertionError(f"sptrsv_level_step {label}: the functional and "
-                             "in-place solves, or two solves, differ")
+                             "in-place solves, two solves, or the first "
+                             "design's solve differ")
     xs, _ = sptrsv.sptrsv_solve_dot(cols, vals, dinv, b, pack)
     solve_err = compare(f"sptrsv_level_step {label} solve vs sptrsv_solve_dot",
                         (x[:n],), (xs[:n],), dtype)
@@ -6008,12 +6105,22 @@ def earlier_phases(failed: list) -> tuple:
             key = f"lap2d_1024 L ({f.sched_l.n_levels} levels)"
             errs[key] = check_level_step(f.ell_l, f.sched_l.rows, f.n, dname,
                                          gen, f"{dname} lap2d_1024 L")
+            lvals = f.ell_l.vals.to(getattr(torch, dname))
+            bl = torch.zeros(lvals.shape[0], dtype=lvals.dtype, device="cuda")
+            bl[:f.n] = torch.randn(f.n, generator=gen, device="cuda",
+                                   dtype=lvals.dtype)
+            say(f"sptrsv_level_step {dname} lap2d_1024 L: " + check_level_rewrite(
+                f.ell_l.cols, lvals, factor_diag(f.ell_l).to(lvals.dtype), bl,
+                torch.as_tensor(f.sched_l.rows, device="cuda"), f.n,
+                f"{dname} lap2d_1024 L"))
+            del lvals, bl
             if dname == "float64":
                 main_errs["sptrsv_level_step"] = errs[key][0]
             say(f"sptrsv_level_step {dname}: max abs err (a level, the solve "
                 "vs sptrsv_solve_dot) " + json.dumps(errs))
         say("ops kernels ok (rtol f64 1e-12, f32 1e-5; axpy_dot's z, the "
-            "layouts, lane j vs k = 1, second launches and the in-place solve "
+            "layouts, lane j vs k = 1, second launches, the in-place solve, "
+            "the level step's first design and its solve with b rewritten "
             "bitwise equal)")
     except Exception:
         traceback.print_exc()
@@ -7529,7 +7636,9 @@ def earlier_phases(failed: list) -> tuple:
             f"{times['ell_spmm_dot'][0]:.4f} ms)")
 
         # sptrsv_level_step: one level at the widest of lap2d_1024's L
-        # factor, then the whole solve, one launch a level
+        # factor, then the whole solve, one launch a level: the first
+        # design against the new one in mirrored order (first, new, new,
+        # first), the levers of the new one between
         f = ic0_engine()._ic0
         ell, sched = f.ell_l, f.sched_l
         lcols, lvals, n = ell.cols, ell.vals, f.n
@@ -7540,14 +7649,40 @@ def earlier_phases(failed: list) -> tuple:
         widest = int(np.argmax(sched.counts))
         lv = srows[widest]
         xs = torch.zeros(n + 1, dtype=torch.float64, device="cuda")
-        one = lambda: sptrsv.sptrsv_level_step(lcols, lvals, diag, bl, xs, lv,
-                                               out=xs)
-        one_ms, one_eager = device_ms(one), eager_ms(one)
+        w_l = lcols.shape[1]
+        new_v = sptrsv.level_step_variant(
+            w_l, lvals.dtype, (lcols.data_ptr() | lvals.data_ptr()) % 16 == 0)
+
+        def one_of(variant, pdl=True):
+            return lambda: sptrsv.sptrsv_level_step(
+                lcols, lvals, diag, bl, xs, lv, out=xs, variant=variant,
+                pdl=pdl)
+
+        def full_of(variant, pdl=True):
+            def full():
+                xs.zero_()
+                for lvl in srows:
+                    sptrsv.sptrsv_level_step(lcols, lvals, diag, bl, xs, lvl,
+                                             out=xs, variant=variant, pdl=pdl)
+            return full
+
+        # (label, variant, pdl) in run order: the A/B mirrored, and between
+        # its halves the new design without PDL and with scalar row loads
+        cases = [("first", "first", True), (new_v, new_v, True),
+                 (f"{new_v} no PDL", new_v, False), ("wave", "wave", True),
+                 (new_v, new_v, True), ("first", "first", True)]
+        runs = [(label, device_ms(one_of(variant, pdl)),
+                 device_ms(full_of(variant, pdl), reps=1, windows=5))
+                for label, variant, pdl in cases]
+        best = lambda label, i: min(r[i] for r in runs if r[0] == label)
+        one_ms, full_graph = best(new_v, 1), best(new_v, 2)
+        one_first, full_first = best("first", 1), best("first", 2)
+        one_eager = eager_ms(one_of(None))
+        full_eager = eager_ms(full_of(None), reps=2, windows=3)
         one_plain = eager_ms(lambda: sptrsv.sptrsv_level_step_plain(
             lcols, lvals, diag, bl, xs, lv), reps=10, windows=3)
         # what one level needs: its distinct factor rows (cols, vals, b,
         # diag), the x entries they gather, the ids, the values written
-        w_l = lcols.shape[1]
         lr = torch.clamp(lv.long(), max=lcols.shape[0] - 1)
         u_rows = torch.unique(lr)
         u_x = torch.unique(torch.clamp(lcols[u_rows].long(), max=n))
@@ -7555,29 +7690,21 @@ def earlier_phases(failed: list) -> tuple:
         nbytes = (u_rows.numel() * w_l * (4 + e) + 2 * u_rows.numel() * e
                   + lv.numel() * 4 + u_x.numel() * e + u_out.numel() * e)
         one_bound = nbytes / HBM_BYTES_PER_S * 1e3
-
-        def full():
-            xs.zero_()
-            for lvl in srows:
-                sptrsv.sptrsv_level_step(lcols, lvals, diag, bl, xs, lvl, out=xs)
-
-        full_eager = eager_ms(full, reps=2, windows=3)
-        try:
-            full_graph, full_how = device_ms(full, reps=1, windows=5), "one graph"
-        except RuntimeError as exc:
-            torch.cuda.synchronize()
-            full_graph, full_how = None, f"not capturable ({exc!r})"
         say(f"time sptrsv_level_step lap2d_1024 L, widest level {widest} "
-            f"({int(sched.counts[widest])} rows of {lv.numel()} ids, w={w_l}): "
-            f"{one_ms:.5f} ms on the card, {one_eager:.5f} ms launched from "
-            f"Python (plain {one_plain:.4f} ms, eager: its boolean scatter "
-            f"syncs; bound {one_bound:.6f} ms, {nbytes} bytes)")
+            f"({int(sched.counts[widest])} rows of {lv.numel()} ids, w={w_l}), "
+            f"(ms a level, 20 in one graph; ms the {sched.n_levels}-level "
+            f"solve as one graph) in run order: " + json.dumps(runs))
+        say(f"time sptrsv_level_step lap2d_1024 L: {new_v} {one_ms:.5f} ms a "
+            f"level on the card (first design {one_first:.5f}), "
+            f"{one_eager:.5f} ms launched from Python (plain {one_plain:.4f} "
+            f"ms, eager: its boolean scatter syncs; bound {one_bound:.6f} ms, "
+            f"{nbytes} bytes; node floors in phase 11c)")
         say(f"time level-by-level solve of lap2d_1024's L ({sched.n_levels} "
-            f"launches): {full_eager:.4f} ms launched from Python, "
-            f"{full_graph} ms as {full_how}; sptrsv_solve_dot on the same "
-            f"factor: {sptrsv_times.get('L')} ms ({sptrsv_times.get('how')}), "
-            f"torch triangular_solve (reversed U): "
-            f"{sptrsv_times.get('library')} ms")
+            f"launches): {full_graph:.4f} ms as one graph (first design "
+            f"{full_first:.4f} ms), {full_eager:.4f} ms launched from Python; "
+            f"sptrsv_solve_dot on the same factor: {sptrsv_times.get('L')} ms "
+            f"({sptrsv_times.get('how')}), torch triangular_solve (reversed "
+            f"U): {sptrsv_times.get('library')} ms")
         rows_out.append({
             "name": "sptrsv_level_step", "route": "cuda",
             "source": SOURCES["sptrsv_level_step"][0],

@@ -77,15 +77,20 @@ _SIGNATURES = {
     "repro_axpy_dot": (_P, _P, _P, _P, _P, _P, _I64, _I64, _P, _P),
     "repro_sptrsv_level_step": (_P, _P, _P, _P, _P, _P, _P, _I32, _I64, _I32,
                                 _I64, _P, _P),
+    "repro_sptrsv_level_wave": (_P, _P, _P, _P, _P, _P, _P, _I32, _I32, _I32,
+                                _I32, _I32, _I32, _P, _P),
 }
 
-# entry points with one version for every dtype (csrc/graph.cu)
+# entry points with one version for every dtype (csrc/graph.cu, and
+# csrc/sptrsv.cu's programmatic-launch check and no-work kernel)
 _PLAIN_SIGNATURES = {
     "repro_graph_cond": (_P, _P, _I32, _I32, _P, _P),
     "repro_graph_set": (_P, ctypes.c_uint64, _P),
     "repro_graph_body_begin": (_P, _P),
     "repro_graph_body_end": (_P,),
     "repro_graph_nodes": (_P, _P),
+    "repro_pdl_capture_check": (),
+    "repro_pdl_noop": (_P, _I32, _P),
 }
 
 _LIB = None

@@ -70,25 +70,62 @@
 // The clamps are the JAX op's: its gathers clamp out-of-range ids, and a
 // padded row of a factor whose rows_p >= n + 2 holds columns past n.  It
 // divides by diag where sptrsv_solve_dot multiplies by dinv, and sums
-// every slot (a masked slot adds 0 * x, as the JAX op's does).
+// every slot (a masked slot adds 0 * x, as the JAX op's does): the
+// products, then the sum in slot order from 0, each rounded, then the
+// difference and the quotient (sub_rn, div_rn).  Every variant runs this
+// arithmetic, so all give the same bits.
 //
-// What bounds it on the H100: the launch.  A level of lap2d_1024's IC(0)
-// factor has at most 1024 rows: ~100 KB of factor rows, b, diag and x
-// gathers, 30 ns at 3.35 TB/s, against a few microseconds to launch and
-// drain a kernel.  A whole solve is one launch a level (2047 at
-// lap2d_1024), where sptrsv_solve_dot keeps one cooperative launch and
-// pays a grid barrier a level instead.
+// What bounds it on the H100: latency.  A level of lap2d_1024's IC(0)
+// factor has at most 1024 rows: ~143 KB of ids, factor rows, b, diag, x
+// gathers and x stores, 0.043 us at 3.35 TB/s, against a microsecond or
+// more to launch and drain a kernel, and the chain of dependent loads a
+// row makes.  A whole solve is one launch a level (2047 at lap2d_1024),
+// where sptrsv_solve_dot keeps one launch and pays a barrier a level.
 //
-// Design: one thread a row of the level, the slots summed in order
-// (product, then sum, each rounded), the quotient by div_rn.  The kernel
-// reads x_in and writes x_out.  The wrapper makes x_out a copy of x_in,
-// so the op stays functional; x_out may also be x_in itself (a solve
-// that updates x level by level).  That is legal: a level's rows read
-// only x of earlier levels, never of their own (the masked diagonal slot
-// reads x[r] but multiplies it by 0, and x[r] is finite before and
+// Design (the wrapper picks the variant, sptrsv.py level_step_variant):
+//   * vec / wave: the width W is compiled (1-8 and 16, as the other
+//     gathers).  A thread owns one row: it loads the row's id, then all W
+//     cols and vals at once (16-byte loads in "vec", where W % 4 == 0 and
+//     cols and vals are 16-byte aligned), b[lr] and diag beside them, then
+//     all W x gathers before the first product: three dependent round
+//     trips a row (id, row, x) where the first design makes about 2W + 1.
+//     Ids are 32-bit (the wrapper sends a factor whose rows_p * W or n + 1
+//     passes 2^31 - 1 to "first"); 64 threads a block (a 1024-row level on
+//     16 SMs).  The launch is programmatic-dependent
+//     (cudaLaunchKernelEx with cudaLaunchAttributeProgrammaticStreamSeriali-
+//     zation): each block first lets the next launch begin
+//     (griddepcontrol.launch_dependents), then waits for the grids before
+//     it (griddepcontrol.wait) BEFORE ITS FIRST READ -- an op earlier on
+//     the stream may have written b, diag, level_rows, cols, vals or x, and
+//     the wait is the only ordering the kernel has against it -- so no
+//     load and no launch count comes before it.  Only a prefetch of the
+//     level's ids into L2 does (prefetch.global.L2: it returns no value,
+//     and L2 is where every store lands, so it cannot make a read after
+//     the wait older); in a chain it takes the first round trip's miss
+//     off the chain.  What overlaps is the next level's launch and that
+//     prefetch with this level's load chain, not data.  Stream
+//     capture keeps the programmatic edge between two such kernels (CUDA
+//     12.3+; the wrapper checks it once a device, repro_pdl_capture_check,
+//     and raises if not).  The launch count is added by one thread after
+//     its row, still once a launch.
+//   * first: the first design, any W, 64-bit ids: one thread a row, the
+//     slot loop over a runtime w (each slot's x load waits on its cols
+//     load), launched plainly.
+// Every variant reads x_in and writes x_out.  The wrapper makes x_out a
+// copy of x_in, so the op stays functional; x_out may also be x_in itself
+// (a solve that updates x level by level).  That is legal: a level's rows
+// read only x of earlier levels, never of their own (the masked diagonal
+// slot reads x[r] but multiplies it by 0, and x[r] is finite before and
 // after), and the sentinel slot is read only through zero-valued
 // padding.  So x is read through a plain pointer, not a const
-// __restrict__ one: no read depends on a write of the same launch.
+// __restrict__ one: no real row's read depends on a write of the same
+// launch.  The one exception is the sentinel slot's own value: a padding
+// id past rows_p - 1 (the schedule's sentinel n where rows_p == n) solves
+// the clamped row rows_p - 1, whose inputs the same level may write, so in
+// place what lands in slot n can depend on the threads' order; no real
+// row reads it through a nonzero value.  The new
+// design reads x with __ldcg (L2, where the previous level's stores from
+// other SMs land).
 
 #include <atomic>
 #include <cooperative_groups.h>
@@ -530,6 +567,200 @@ int launch_level_step(const void* cols, const void* vals, const void* diag,
   return (int)cudaGetLastError();
 }
 
+// -- the redesign: compiled W, one wave of gathers, programmatic launch
+
+constexpr int kLevelThreads = 64;     // sptrsv.py LEVEL_THREADS
+
+__device__ __forceinline__ void pdl_launch_dependents() {
+  asm volatile("griddepcontrol.launch_dependents;" ::: "memory");
+}
+
+__device__ __forceinline__ void pdl_wait() {
+  asm volatile("griddepcontrol.wait;" ::: "memory");
+}
+
+template <typename T, int W, bool kVec>
+__global__ void __launch_bounds__(kLevelThreads)
+sptrsv_level_wave_kernel(const int* __restrict__ cols,
+                         const T* __restrict__ vals,
+                         const T* __restrict__ diag, const T* __restrict__ b,
+                         const int* __restrict__ level_rows, const T* x_in,
+                         T* x_out, int wl, int rows_p, int n,
+                         unsigned long long* launches) {
+  pdl_launch_dependents();
+  const int i = blockIdx.x * kLevelThreads + threadIdx.x;
+  // the level's ids into L2 while the grid before drains: a prefetch
+  // returns no value, and L2 is where every store lands, so it cannot
+  // bring back a value older than the wait's
+  if (i < wl && (i & 31) == 0)
+    asm volatile("prefetch.global.L2 [%0];" ::"l"(level_rows + i));
+  pdl_wait();                          // before the first read of anything
+  const int id = i < wl ? level_rows[i] : -1;
+  if (id >= 0) {                       // schedules hold ids >= 0
+    const int lr = min(id, rows_p - 1);
+    const int* crow = cols + lr * W;   // rows_p * W < 2^31 (the wrapper)
+    const T* vrow = vals + lr * W;
+    int c[W];
+    T v[W];
+    if constexpr (kVec) {
+      using V = typename Vec16<T>::type;
+      constexpr int kPer = 16 / (int)sizeof(T);
+#pragma unroll
+      for (int q = 0; q < W / 4; ++q) {
+        const int4 c4 = reinterpret_cast<const int4*>(crow)[q];
+        c[4 * q] = c4.x; c[4 * q + 1] = c4.y;
+        c[4 * q + 2] = c4.z; c[4 * q + 3] = c4.w;
+      }
+#pragma unroll
+      for (int q = 0; q < W / kPer; ++q) {
+        const V a = reinterpret_cast<const V*>(vrow)[q];
+        const T* av = reinterpret_cast<const T*>(&a);
+#pragma unroll
+        for (int k = 0; k < kPer; ++k) v[q * kPer + k] = av[k];
+      }
+    } else {
+#pragma unroll
+      for (int s = 0; s < W; ++s) { c[s] = crow[s]; v[s] = vrow[s]; }
+    }
+    const T bl = b[lr];
+    const T d = diag[min(id, n - 1)];
+    T xc[W];
+#pragma unroll
+    for (int s = 0; s < W; ++s) xc[s] = __ldcg(x_in + min(c[s], n));
+    T sum = T(0);
+#pragma unroll
+    for (int s = 0; s < W; ++s)
+      sum = repro::add_rn(sum, repro::mul_rn(c[s] != lr ? v[s] : T(0), xc[s]));
+    const T xr = repro::div_rn(repro::sub_rn(bl, sum), d);
+    if (id <= n) x_out[id] = xr;
+  }
+  if ((blockIdx.x | threadIdx.x) == 0) atomicAdd(launches, 1ull);
+}
+
+// The launch attribute that makes a launch programmatic-dependent on the
+// kernel before it on the stream; `on` = 0 launches plainly.
+struct PdlLaunch {
+  cudaLaunchConfig_t cfg = {};
+  cudaLaunchAttribute attr[1];
+  PdlLaunch(unsigned blocks, unsigned threads, int on, cudaStream_t s) {
+    cfg.gridDim = dim3(blocks);
+    cfg.blockDim = dim3(threads);
+    cfg.stream = s;
+    attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+    attr[0].val.programmaticStreamSerializationAllowed = 1;
+    cfg.attrs = attr;
+    cfg.numAttrs = on ? 1 : 0;
+  }
+};
+
+inline int launch_error(cudaError_t err) {
+  if (err != cudaSuccess) {
+    (void)cudaGetLastError();   // clear it: the wrapper raises
+    return (int)err;
+  }
+  return (int)cudaGetLastError();
+}
+
+template <typename T, int W>
+int launch_wave_w(const void* cols, const void* vals, const void* diag,
+                  const void* b, const void* level_rows, const void* x_in,
+                  void* x_out, int wl, int rows_p, int n, int vec, int pdl,
+                  unsigned long long* launches, cudaStream_t s) {
+  auto kern = vec ? sptrsv_level_wave_kernel<T, W, W % 4 == 0>
+                  : sptrsv_level_wave_kernel<T, W, false>;
+  PdlLaunch l((unsigned)((wl + kLevelThreads - 1) / kLevelThreads),
+              kLevelThreads, pdl, s);
+  return launch_error(cudaLaunchKernelEx(
+      &l.cfg, kern, (const int*)cols, (const T*)vals, (const T*)diag,
+      (const T*)b, (const int*)level_rows, (const T*)x_in, (T*)x_out, wl,
+      rows_p, n, launches));
+}
+
+template <typename T>
+int launch_wave(const void* cols, const void* vals, const void* diag,
+                const void* b, const void* level_rows, const void* x_in,
+                void* x_out, int32_t wl, int32_t rows_p, int32_t w, int32_t n,
+                int32_t vec, int32_t pdl, unsigned long long* launches,
+                void* stream) {
+  if (wl <= 0 || rows_p <= 0 || w <= 0 || n <= 0 || n == INT32_MAX ||
+      (int64_t)rows_p * w > INT32_MAX ||
+      (vec && (w % 4 || ((uintptr_t)cols | (uintptr_t)vals) % 16)))
+    return (int)cudaErrorInvalidValue;
+  auto s = (cudaStream_t)stream;
+#define WIDTH(W)                                                              \
+  return launch_wave_w<T, W>(cols, vals, diag, b, level_rows, x_in, x_out,    \
+                             wl, rows_p, n, vec, pdl, launches, s)
+  switch (w) {
+    case 1: WIDTH(1);
+    case 2: WIDTH(2);
+    case 3: WIDTH(3);
+    case 4: WIDTH(4);
+    case 5: WIDTH(5);
+    case 6: WIDTH(6);
+    case 7: WIDTH(7);
+    case 8: WIDTH(8);
+    case 16: WIDTH(16);
+    default: return (int)cudaErrorInvalidValue;
+  }
+#undef WIDTH
+}
+
+// A kernel that does no work but the programmatic wait and trigger, and
+// adds one to *count (if given): the launch floor of a PDL chain
+// (chip_smoke.py 11c) and the capture check below.
+__global__ void pdl_noop_kernel(unsigned long long* count) {
+  pdl_launch_dependents();
+  pdl_wait();
+  if (count != nullptr && (blockIdx.x | threadIdx.x) == 0) atomicAdd(count, 1ull);
+}
+
+int launch_noop(unsigned long long* count, int pdl, cudaStream_t s) {
+  PdlLaunch l(1, 32, pdl, s);
+  return launch_error(cudaLaunchKernelEx(&l.cfg, pdl_noop_kernel, count));
+}
+
+// Whether stream capture keeps the programmatic edge between two
+// programmatic-dependent launches: capture two on a stream of its own,
+// read the one edge's type, and instantiate the graph.  0 if it does;
+// cudaErrorNotSupported if the edge is a full one or the toolkit cannot
+// say (before CUDA 12.3, graphs had no edge types); else the CUDA error.
+int pdl_capture_check() {
+#if CUDART_VERSION < 12030
+  return (int)cudaErrorNotSupported;
+#else
+  cudaStream_t s = nullptr;
+  cudaGraph_t g = nullptr;
+  cudaGraphExec_t exec = nullptr;
+  cudaError_t err = cudaStreamCreateWithFlags(&s, cudaStreamNonBlocking);
+  if (err == cudaSuccess)
+    err = cudaStreamBeginCapture(s, cudaStreamCaptureModeThreadLocal);
+  if (err == cudaSuccess) {
+    int e1 = launch_noop(nullptr, 1, s);
+    int e2 = launch_noop(nullptr, 1, s);
+    err = cudaStreamEndCapture(s, &g);
+    if (e1 != 0 || e2 != 0) err = (cudaError_t)(e1 != 0 ? e1 : e2);
+  }
+  cudaGraphNode_t from[2], to[2];
+  cudaGraphEdgeData data[2];
+  size_t edges = 2;
+  if (err == cudaSuccess)
+#if CUDART_VERSION >= 13000
+    err = cudaGraphGetEdges(g, from, to, data, &edges);
+#else
+    err = cudaGraphGetEdges_v2(g, from, to, data, &edges);
+#endif
+  if (err == cudaSuccess &&
+      (edges != 1 || data[0].type != cudaGraphDependencyTypeProgrammatic))
+    err = cudaErrorNotSupported;
+  if (err == cudaSuccess) err = cudaGraphInstantiate(&exec, g, 0);
+  if (exec != nullptr) (void)cudaGraphExecDestroy(exec);
+  if (g != nullptr) (void)cudaGraphDestroy(g);
+  if (s != nullptr) (void)cudaStreamDestroy(s);
+  (void)cudaGetLastError();
+  return (int)err;
+#endif
+}
+
 }  // namespace
 
 // Blocks of sptrsv_solve_dot_kernel that can be co-resident on the current
@@ -569,6 +800,35 @@ extern "C" int repro_sptrsv_level_step_f64(
     int64_t rows_p, int32_t w, int64_t n, void* launches, void* stream) {
   return launch_level_step<double>(cols, vals, diag, b, level_rows, x_in,
                                    x_out, wl, rows_p, w, n, (unsigned long long*)launches, stream);
+}
+
+extern "C" int repro_sptrsv_level_wave_f32(
+    const void* cols, const void* vals, const void* diag, const void* b,
+    const void* level_rows, const void* x_in, void* x_out, int32_t wl,
+    int32_t rows_p, int32_t w, int32_t n, int32_t vec, int32_t pdl,
+    void* launches, void* stream) {
+  return launch_wave<float>(cols, vals, diag, b, level_rows, x_in, x_out, wl,
+                            rows_p, w, n, vec, pdl,
+                            (unsigned long long*)launches, stream);
+}
+
+extern "C" int repro_sptrsv_level_wave_f64(
+    const void* cols, const void* vals, const void* diag, const void* b,
+    const void* level_rows, const void* x_in, void* x_out, int32_t wl,
+    int32_t rows_p, int32_t w, int32_t n, int32_t vec, int32_t pdl,
+    void* launches, void* stream) {
+  return launch_wave<double>(cols, vals, diag, b, level_rows, x_in, x_out, wl,
+                             rows_p, w, n, vec, pdl,
+                             (unsigned long long*)launches, stream);
+}
+
+// 0 if stream capture keeps programmatic edges on the current device.
+extern "C" int repro_pdl_capture_check() { return pdl_capture_check(); }
+
+// One no-work programmatic-dependent launch (plain with pdl = 0) that adds
+// one to *count.
+extern "C" int repro_pdl_noop(void* count, int32_t pdl, void* stream) {
+  return launch_noop((unsigned long long*)count, pdl, (cudaStream_t)stream);
 }
 
 extern "C" int repro_sptrsv_cluster_f32(

@@ -19,7 +19,11 @@ values.
 :func:`sptrsv_level_step` solves one level and replaces
 ``repro.kernels.sptrsv.sptrsv_level_step`` (``:64``) with the gather and
 scatter of its ``ops`` wrapper; its plain version is
-:func:`sptrsv_level_step_plain`.
+:func:`sptrsv_level_step_plain`.  It has three variants
+(:data:`LEVEL_VARIANTS`) that give the same bits; the two of the redesign
+compile the ELL width and launch programmatic-dependent on the kernel
+before them, and :func:`level_step_variant` picks one from the width, the
+dtype, the alignment of cols and vals and the index range.
 """
 
 from __future__ import annotations
@@ -37,7 +41,8 @@ __all__ = ["SptrsvPack", "solve_pack", "dependency_codes",
            "sptrsv_solve_dot", "sptrsv_solve_dot_plain", "grid_blocks",
            "solve_variant", "cluster_geometry", "cluster_max_threads",
            "SOLVE_VARIANTS", "sptrsv_level_step",
-           "sptrsv_level_step_plain"]
+           "sptrsv_level_step_plain", "LEVEL_VARIANTS", "LEVEL_WIDTHS",
+           "LEVEL_THREADS", "level_step_variant", "pdl_ready"]
 
 _THREADS = 256      # csrc/common.cuh kThreads
 
@@ -47,6 +52,13 @@ SOLVE_VARIANTS = ("cluster", "cooperative")
 CLUSTER_MAX_BLOCKS = 16          # non-portable cluster size on the H100
 CLUSTER_BLOCK_THREADS = 32       # the fewest threads a cluster block has
 CLUSTER_MAX_THREADS = 256        # csrc/sptrsv.cu kClusterThreads
+# sptrsv_level_step: "vec" (compiled W, 16-byte row loads), "wave"
+# (compiled W, scalar loads), both programmatic-dependent launches;
+# "first" (the first design: any W, 64-bit ids, a plain launch)
+LEVEL_VARIANTS = ("vec", "wave", "first")
+LEVEL_WIDTHS = (1, 2, 3, 4, 5, 6, 7, 8, 16)     # csrc/sptrsv.cu launch_wave
+LEVEL_THREADS = 64                              # csrc/sptrsv.cu kLevelThreads
+_INT32_MAX = (1 << 31) - 1
 # csrc/sptrsv.cu: the cluster kernel's dependency codes
 DEP_SKIP, DEP_ZERO = -1, -(1 << 31)
 DEP_WINDOW, DEP_SLOT_BITS = 8, 12
@@ -315,10 +327,56 @@ def sptrsv_solve_dot(cols: torch.Tensor, vals: torch.Tensor,
     return x, pp.reshape(())
 
 
+def level_step_variant(width: int, dtype: torch.dtype, aligned: bool = True,
+                       index32: bool = True) -> str:
+    """The ``sptrsv_level_step`` kernel for a factor of ELL width ``width``
+    in ``dtype`` (float32 or float64; else TypeError) whose cols and vals
+    are ``aligned`` to 16 bytes and whose ids fit 32 bits (``index32``:
+    rows_p * width and n + 1 at most 2^31 - 1): "vec" where the width is
+    compiled (:data:`LEVEL_WIDTHS`), a row is whole 16-byte vectors of
+    cols and of values (width % 4 == 0, in either dtype) and the operands
+    are aligned; "wave" at the other compiled widths; else "first".  A
+    pure function of its arguments."""
+    if dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"sptrsv_level_step: dtype must be float32 or "
+                        f"float64, got {dtype}")
+    if width not in LEVEL_WIDTHS or not index32:
+        return "first"
+    return "vec" if aligned and width % 4 == 0 else "wave"
+
+
+_PDL_READY: set = set()
+
+
+def pdl_ready(device: torch.device) -> None:
+    """Check once a device that the card launches programmatic-dependent
+    kernels and that stream capture keeps the programmatic edge between
+    them (CUDA 12.3 or later); raises if not.  The check captures a graph
+    of its own, so its first call must come before any capture."""
+    idx = device.index if device.index is not None else torch.cuda.current_device()
+    if idx in _PDL_READY:
+        return
+    if torch.cuda.is_current_stream_capturing():
+        raise RuntimeError(
+            f"sptrsv_level_step: the first launch on cuda:{idx} is inside a "
+            "CUDA graph capture; launch once (or call sptrsv.pdl_ready) "
+            "before capturing")
+    with torch.cuda.device(idx):
+        err = build.plain_entry("repro_pdl_capture_check")()
+    if err != 0:
+        raise RuntimeError(
+            f"sptrsv_level_step: stream capture on cuda:{idx} does not keep "
+            f"programmatic launch edges (CUDA error {err}; needs CUDA 12.3 "
+            "or later); force variant='first'")
+    _PDL_READY.add(idx)
+
+
 def sptrsv_level_step(cols: torch.Tensor, vals: torch.Tensor,
                       diag: torch.Tensor, b: torch.Tensor, x: torch.Tensor,
                       level_rows: torch.Tensor,
-                      out: torch.Tensor | None = None) -> torch.Tensor:
+                      out: torch.Tensor | None = None,
+                      variant: str | None = None,
+                      pdl: bool = True) -> torch.Tensor:
     """One level of the lower solve on the card (the contract of
     :func:`sptrsv_level_step_plain`): ``cols``/``vals`` (rows_p, w) padded
     ELL of L, ``diag`` its diagonal (at least n entries), ``b`` (rows_p,),
@@ -326,7 +384,13 @@ def sptrsv_level_step(cols: torch.Tensor, vals: torch.Tensor,
     >= 0.  The solved values are written into ``out`` and ``out`` is
     returned: by default a copy of ``x``, which stays untouched.  ``out``
     may be ``x`` itself (a solve that updates x level by level; the
-    kernel's header says why that is legal)."""
+    kernel's header says why that is legal).
+
+    ``variant`` forces one of :data:`LEVEL_VARIANTS` (:func:`level_step_variant`'s
+    by default; "vec" and "wave" raise where the width, the alignment or
+    the index range does not admit them).  Every variant gives the same
+    bits.  ``pdl=False`` launches "vec" and "wave" without the
+    programmatic edge (the A/B in chip_smoke.py); "first" never has it."""
     if cols.dim() != 2 or cols.shape != vals.shape:
         raise ValueError(f"sptrsv_level_step: cols {tuple(cols.shape)} vs "
                          f"vals {tuple(vals.shape)}")
@@ -350,10 +414,32 @@ def sptrsv_level_step(cols: torch.Tensor, vals: torch.Tensor,
     if out.shape != x.shape:
         raise ValueError(f"sptrsv_level_step: out {tuple(out.shape)} vs x "
                          f"{tuple(x.shape)}")
-    fn = build.entry("repro_sptrsv_level_step", dt)
-    build.check(fn(cols.data_ptr(), vals.data_ptr(), diag.data_ptr(),
-                   b.data_ptr(), level_rows.data_ptr(), x.data_ptr(),
-                   out.data_ptr(), level_rows.numel(), rows_p, w, n,
-                   build.launch_counter("sptrsv_level_step", dev),
-                   build.stream_handle(dev)), "sptrsv_level_step")
+    aligned = (cols.data_ptr() | vals.data_ptr()) % 16 == 0
+    index32 = rows_p * w <= _INT32_MAX and n < _INT32_MAX
+    rule = level_step_variant(w, dt, aligned, index32)
+    if variant is None:
+        variant = rule
+    elif variant not in LEVEL_VARIANTS:
+        raise ValueError(f"sptrsv_level_step: variant {variant!r} not in "
+                         f"{LEVEL_VARIANTS}")
+    elif variant != "first" and (rule == "first" or (variant == "vec"
+                                                     and rule != "vec")):
+        raise ValueError(
+            f"sptrsv_level_step: variant {variant!r} takes W in "
+            f"{LEVEL_WIDTHS} and 32-bit ids ('vec' also W % 4 == 0 and "
+            f"16-byte aligned cols and vals); got W = {w}, aligned "
+            f"{aligned}, rows_p * W = {rows_p * w}")
+    head = (cols.data_ptr(), vals.data_ptr(), diag.data_ptr(), b.data_ptr(),
+            level_rows.data_ptr(), x.data_ptr(), out.data_ptr(),
+            level_rows.numel(), rows_p, w, n)
+    tail = (build.launch_counter("sptrsv_level_step", dev),
+            build.stream_handle(dev))
+    if variant == "first":
+        err = build.entry("repro_sptrsv_level_step", dt)(*head, *tail)
+    else:
+        if pdl:
+            pdl_ready(dev)
+        err = build.entry("repro_sptrsv_level_wave", dt)(
+            *head, int(variant == "vec"), int(pdl), *tail)
+    build.check(err, "sptrsv_level_step")
     return out

@@ -18,7 +18,11 @@ JAX sweep shapes and the engine's 8 x 8 blocks, lane by lane bitwise
 independent of R; the SELL and HYB matvecs (plain PyTorch, fixed-order
 row sums) repeat bit for bit, lane j of a batch equals its solo call, and
 both equal the CPU's bits; plans on every format reach the CPU's counts.
-Every variant of a redesigned kernel gives its first design's bits.  A
+Every variant of a redesigned kernel gives its first design's bits;
+``sptrsv_level_step``'s redesign at every compiled width (1-8, 16),
+aligned and not, and its programmatic wait: a solve with b rewritten on
+the stream before each level, eager and in one graph, bitwise the solve
+without it, one launch a level counted on every replay.  A
 plan captures its loop once and its replays equal a direct call of the
 same solver bit for bit, with the launches its kernels counted on the
 card.  The solve service: a request that joins a running cohort while
@@ -673,6 +677,163 @@ def test_sptrsv_level_step_kernel_matches_plain(cuda, case, dtype):
     pack = ops.sptrsv_solve_pack(cols, rows, n)
     xs, _ = sptrsv.sptrsv_solve_dot(cols, vals, 1.0 / diag, b, pack)
     _close((x[:n],), (xs[:n],), dtype)
+
+
+def _level_chain(cols, vals, diag, b, rows, n, variant=None):
+    """x solved in place level by level with ``variant``."""
+    x = torch.zeros(n + 1, dtype=vals.dtype, device=vals.device)
+    for lv in rows:
+        sptrsv.sptrsv_level_step(cols, vals, diag, b, x, lv, out=x,
+                                 variant=variant)
+    return x
+
+
+def _level_count():
+    return ops.launch_counts()["sptrsv_level_step"]
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+@pytest.mark.parametrize("case", ["rand1000", "chain", "diag", "ic0_L",
+                                  "sentinel"])
+def test_level_step_new_design_equals_first(cuda, case, dtype):
+    """The variant the rule picks gives the first design's bits level by
+    level from the same x and over the in-place solve; each call is one
+    launch.  The rule picks the new design ("vec") at W = 8 and 16;
+    rand1000's W = 24 is not compiled, so there it picks "first" and a
+    forced new variant raises."""
+    cols, vals, diag, b, rows, n = _level_inputs(case, dtype, cuda)
+    rule = sptrsv.level_step_variant(cols.shape[1], dtype)
+    assert rule == ("first" if case == "rand1000" else "vec")
+    if rule == "first":
+        with pytest.raises(ValueError, match="variant 'wave'"):
+            sptrsv.sptrsv_level_step(cols, vals, diag, b, b[:n + 1], rows[0],
+                                     variant="wave")
+    x = torch.zeros(n + 1, dtype=dtype, device=cuda)
+    before = _level_count()
+    for lv in rows:
+        got = sptrsv.sptrsv_level_step(cols, vals, diag, b, x, lv)
+        assert torch.equal(got, sptrsv.sptrsv_level_step(
+            cols, vals, diag, b, x, lv, variant="first"))
+        x = got
+    assert _level_count() == before + 2 * len(rows)
+    assert torch.equal(_level_chain(cols, vals, diag, b, rows, n),
+                       _level_chain(cols, vals, diag, b, rows, n, "first"))
+
+
+def _width_factor(width, dtype, device, misaligned=False):
+    """A random lower factor whose rows hold exactly min(r + 1, width)
+    entries (diagonal last), as padded ELL of width ``width``; with
+    ``misaligned``, vals is a view 8 bytes into its storage."""
+    n = 1500
+    rng = np.random.default_rng(width)
+    r_, c_ = [], []
+    for r in range(n):
+        k = min(r, width - 1)
+        r_ += [r] * (k + 1)
+        c_ += list(rng.choice(r, size=k, replace=False)) + [r]
+    m = sp.csr_matrix((rng.uniform(0.1, 1.0, len(r_)), (r_, c_)), shape=(n, n))
+    m = (m + sp.diags(np.asarray(abs(m).sum(1)).ravel())).tocsr()
+    ell = ell_from_csr(csr_from_scipy(m), row_pad=8, width_pad=1,
+                       dtype=np.float64, device=device)
+    cols, vals = ell.cols, ell.vals.to(dtype)
+    assert cols.shape[1] == width
+    if misaligned:
+        store = torch.empty(vals.numel() + 2, dtype=dtype, device=device)
+        off = 1 if dtype == torch.float64 else 2
+        vals = store[off: off + vals.numel()].view(vals.shape).copy_(vals)
+    diag = torch.where(cols == torch.arange(cols.shape[0], device=device)[:, None],
+                       vals, 0.0).sum(1)
+    diag = torch.where(diag == 0, 1.0, diag)
+    b = torch.zeros(cols.shape[0], dtype=dtype, device=device)
+    b[:n] = torch.from_numpy(rng.standard_normal(n)).to(device, dtype)
+    rows = torch.from_numpy(build_schedule(m).rows).to(device)
+    return cols, vals, diag, b, rows, n
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+@pytest.mark.parametrize("width", [1, 2, 3, 4, 5, 6, 7, 8, 16])
+def test_level_step_compiled_widths_equal_first(cuda, width, dtype):
+    """At every compiled width each new variant the operands admit ("vec"
+    needs W % 4 == 0 and 16-byte aligned cols and vals) solves to the
+    first design's bits, a level's launch counted once; misaligned vals
+    take "wave", and a forced "vec" on them raises."""
+    for misaligned in (False, True):
+        cols, vals, diag, b, rows, n = _width_factor(width, dtype, cuda,
+                                                     misaligned)
+        aligned = (cols.data_ptr() | vals.data_ptr()) % 16 == 0
+        assert aligned != misaligned
+        rule = sptrsv.level_step_variant(width, dtype, aligned)
+        assert rule == ("vec" if aligned and width % 4 == 0 else "wave")
+        want = _level_chain(cols, vals, diag, b, rows, n, "first")
+        for variant in (None, "wave") + (("vec",) if rule == "vec" else ()):
+            before = _level_count()
+            assert torch.equal(_level_chain(cols, vals, diag, b, rows, n,
+                                            variant), want)
+            assert _level_count() == before + len(rows)
+        if rule != "vec":
+            with pytest.raises(ValueError, match="variant 'vec'"):
+                sptrsv.sptrsv_level_step(cols, vals, diag, b, want, rows[0],
+                                         variant="vec")
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+def test_level_step_first_at_an_uncompiled_width(cuda, dtype):
+    """W = 12 is not compiled: the rule and a forced "first" launch the
+    first design (within the tolerance of the plain version), a forced
+    new variant raises, nothing is launched for it."""
+    cols, vals, diag, b, rows, n = _width_factor(12, dtype, cuda)
+    assert sptrsv.level_step_variant(12, dtype) == "first"
+    x = torch.zeros(n + 1, dtype=dtype, device=cuda)
+    for lv in rows[:40]:
+        got = sptrsv.sptrsv_level_step(cols, vals, diag, b, x, lv)
+        assert torch.equal(got, sptrsv.sptrsv_level_step(
+            cols, vals, diag, b, x, lv, variant="first"))
+        _close((got,), (sptrsv.sptrsv_level_step_plain(cols, vals, diag, b,
+                                                       x, lv),), dtype)
+        x = got
+    before = _level_count()
+    for variant in ("vec", "wave"):
+        with pytest.raises(ValueError, match=f"variant '{variant}'"):
+            sptrsv.sptrsv_level_step(cols, vals, diag, b, x, rows[0],
+                                     variant=variant)
+    assert _level_count() == before
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+def test_level_step_waits_for_the_op_before_it(cuda, dtype):
+    """The in-place solve of lap2d_64's IC(0) L with ``b`` rewritten on
+    the stream before each level (a copy on odd levels, a multiply by 1 on
+    even ones, NaN over it after each): eager, and as one CUDA graph
+    replayed on an x of 7s, bitwise the solve without the rewrites (a read
+    of b before the rewrite had landed would see NaN), with one launch a
+    level counted on every replay."""
+    cols, vals, diag, b, rows, n = _level_inputs("ic0_L", dtype, cuda)
+    want = _level_chain(cols, vals, diag, b, rows, n)
+    bw, nan = b.clone(), torch.full_like(b, float("nan"))
+    x = torch.zeros(n + 1, dtype=dtype, device=cuda)
+
+    def chain():
+        x.zero_()
+        for i, lv in enumerate(rows):
+            if i % 2:
+                bw.copy_(b)
+            else:
+                torch.mul(b, 1.0, out=bw)
+            sptrsv.sptrsv_level_step(cols, vals, diag, bw, x, lv, out=x)
+            bw.copy_(nan)
+
+    chain()
+    assert torch.equal(x, want)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        chain()
+    for _ in range(2):
+        x.fill_(7.0)
+        before = _level_count()
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(x, want)
+        assert _level_count() == before + len(rows)
 
 
 def test_off_path_wrappers_check_operands(cuda):

@@ -9,7 +9,9 @@ and float64, k 1-5) for the SpMV + dot pair; those of
 ``tests/test_kernels.py`` (level-step full solves at n = 24 and 72 against
 scipy, ``axpy_dot`` at n = 1024 and 4096); and a factor whose padded rows
 (rows_p >= n + 2) hold columns past n, with level lists carrying ids past
-n, which exercises the sentinel clamps and the dropped scatter.
+n, which exercises the sentinel clamps and the dropped scatter; and
+lap2d_32's IC(0) L factor level by level, with a numpy model of the card
+kernel writing x in place (``out=x``) in two thread orders.
 
 Tolerances, as in the JAX tests: 1e-12 in float64; in float32 1e-4 for
 the vectors and rtol 1e-5 (atol 1e-4) for the dots.  Only the summation
@@ -183,6 +185,77 @@ def test_sptrsv_level_step_plain_matches_jax(interpret, n, f64, sentinel):
         x = got.numpy()
     ref_x = solve_triangular(_lower(n).toarray(), b[:n].astype(np.float64),
                              lower=True)
+    np.testing.assert_allclose(x[:n], ref_x, atol=1e-10 if f64 else 5e-4)
+
+
+def _level_kernel_model(cols, vals, diag, b, x, level_rows, order):
+    """A numpy model of the card's level step writing into ``x`` in place
+    (``out=x``): the entries of ``level_rows`` taken one at a time in
+    ``order`` (the threads' order is not fixed), each reading x as the
+    writes before it left it; the kernel's arithmetic in x's dtype, each
+    product and each partial sum rounded, in slot order from 0, then the
+    difference and the quotient."""
+    n = x.shape[0] - 1
+    rows_p = cols.shape[0]
+    for i in order:
+        idx = int(level_rows[i])
+        lr = min(idx, rows_p - 1)
+        s = x.dtype.type(0)
+        for c, v in zip(cols[lr], vals[lr]):
+            s = s + (v if c != lr else x.dtype.type(0)) * x[min(int(c), n)]
+        xr = (b[lr] - s) / diag[min(idx, n - 1)]
+        if idx <= n:
+            x[idx] = xr
+    return x
+
+
+@pytest.mark.parametrize("f64", [False, True])
+def test_sptrsv_level_step_in_place_on_ic0_factor(interpret, f64):
+    """lap2d_32's IC(0) L factor level by level: a model of the kernel
+    updating x in place (out=x) gives the same bits for the real rows
+    whether its entries run in forward or reversed order (no real row of a
+    level reads a value the level writes), and the plain version is within
+    the tolerance of it there; the plain version is within the tolerance
+    of JAX's op in interpret mode from the same x, the sentinel slot
+    included; the solve matches scipy's.  The sentinel slot itself is
+    exempt in place: rows_p == n here, so the schedule's padding id n
+    solves the clamped row n - 1, whose inputs the same level may write
+    (csrc/sptrsv.cu's header)."""
+    from scipy.linalg import solve_triangular
+
+    from repro.core.precond import ic0 as jax_ic0
+    from repro.data.matrices import laplacian_2d
+
+    dtype = np.float64 if f64 else np.float32
+    f = jax_ic0(laplacian_2d(32), dtype=dtype)
+    n = f.n
+    cols, vals = np.asarray(f.ell_l.cols), np.asarray(f.ell_l.vals)
+    diag = np.asarray(extract_diag_ell(f.ell_l))
+    diag = np.where(diag == 0, 1.0, diag).astype(dtype)
+    b = np.zeros(cols.shape[0], dtype)
+    b[:n] = np.random.default_rng(5).standard_normal(n)
+    rows = np.asarray(f.sched_l.rows)
+    assert rows.max() == n == cols.shape[0]   # padding ids clamp to row n - 1
+    jc, jv, jd, jb = (jnp.asarray(a) for a in (cols, vals, diag, b))
+    tc, tv, td, tb = (_t(a) for a in (cols, vals, diag, b))
+    tol = _tol(f64)["vec"]
+    x = np.zeros(n + 1, dtype)
+    for lv in rows:
+        model = _level_kernel_model(cols, vals, diag, b, x.copy(), lv,
+                                    range(lv.shape[0]))
+        back = _level_kernel_model(cols, vals, diag, b, x.copy(), lv,
+                                   range(lv.shape[0] - 1, -1, -1))
+        assert np.array_equal(model[:n], back[:n])
+        got = ops.sptrsv_level_step(tc, tv, td, tb, _t(x), _t(lv)).numpy()
+        np.testing.assert_allclose(got[:n], model[:n], rtol=0, atol=tol)
+        want = jops.sptrsv_level_step(jc, jv, jd, jb, jnp.asarray(x),
+                                      jnp.asarray(lv), tl=8)
+        np.testing.assert_allclose(got, np.asarray(want), rtol=0, atol=tol)
+        x = model
+    lower = np.zeros((n, n))
+    np.add.at(lower, (np.repeat(np.arange(n), cols.shape[1]), cols[:n].ravel()),
+              vals[:n].ravel())
+    ref_x = solve_triangular(lower, b[:n].astype(np.float64), lower=True)
     np.testing.assert_allclose(x[:n], ref_x, atol=1e-10 if f64 else 5e-4)
 
 

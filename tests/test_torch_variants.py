@@ -25,6 +25,11 @@ numpy model of that design's ``block_sum`` and of the rows kernel's
 ``vblock_sum`` (shuffles within a warp that owns whole blocks) shows the
 two give the same partials bit for bit.
 
+``sptrsv_level_step`` picks its redesign ("vec", "wave") or its first
+design from the ELL width, the dtype, the alignment and the index range
+(``sptrsv.level_step_variant``); a numpy model of the new kernel's
+thread-to-row map shows every id of a ragged level solved exactly once.
+
 ``ell_spmm`` takes the same rule and the same rows grid.  ``bcsr_spmm``
 picks its smem variant from (bm, bn, dtype, x's layout, alignment)
 alone; its grids cover every (row, lane), and a numpy model of the smem
@@ -457,6 +462,65 @@ def test_bcsr_smem_layout(bm, bn, k, itemsize):
                  for b in range(b0, b0 + 32 // bm)]
         assert all(not (x & y) for i, x in enumerate(banks)
                    for y in banks[i + 1:])
+
+
+# -- sptrsv_level_step ---------------------------------------------------------
+
+
+@pytest.mark.parametrize("aligned", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=str)
+@pytest.mark.parametrize("width", list(range(1, 18)))
+def test_level_step_variant_is_a_function_of_the_shape(width, dtype, aligned):
+    """The redesign where its width is compiled (1-8 and 16), with 16-byte
+    row loads only where a row is whole vectors of cols and of values and
+    the operands are aligned; the first design elsewhere and wherever the
+    ids do not fit 32 bits."""
+    got = sptrsv.level_step_variant(width, dtype, aligned)
+    assert got in sptrsv.LEVEL_VARIANTS
+    assert got == sptrsv.level_step_variant(width, dtype, aligned)
+    compiled = width <= 8 or width == 16
+    want = ("first" if not compiled
+            else "vec" if aligned and width % 4 == 0 else "wave")
+    assert got == want
+    assert sptrsv.level_step_variant(width, dtype, aligned,
+                                     index32=False) == "first"
+    assert (width in sptrsv.LEVEL_WIDTHS) == compiled
+
+
+def test_level_step_variant_refuses_other_dtypes():
+    with pytest.raises(TypeError, match="float32 or float64"):
+        sptrsv.level_step_variant(8, torch.float16)
+
+
+def _level_kernel_writes(level_rows: np.ndarray, n: int) -> np.ndarray:
+    """A numpy model of sptrsv_level_wave_kernel's thread-to-row map
+    (csrc/sptrsv.cu launch_wave_w): ceil(W / LEVEL_THREADS) blocks, thread
+    t of block k takes entry i = k * LEVEL_THREADS + t where i < W, and
+    writes x[id] for an id >= 0 that is <= n.  Returns how many times each
+    slot of x (n + 1) is written."""
+    wl = level_rows.shape[0]
+    threads = sptrsv.LEVEL_THREADS
+    blocks = -(-wl // threads)
+    i = (np.arange(blocks)[:, None] * threads + np.arange(threads)[None, :]).ravel()
+    ids = np.where(i < wl, level_rows[np.minimum(i, wl - 1)], -1)
+    return np.bincount(ids[(ids >= 0) & (ids <= n)], minlength=n + 1)
+
+
+@pytest.mark.parametrize("wl", [1, 255, 256, 257, 1024, 4095])
+def test_level_step_grid_solves_every_id_once(wl):
+    """Every real id of a ragged level is solved exactly once, ids past n
+    (the schedule's padding) never."""
+    n = 5000
+    rng = np.random.default_rng(wl)
+    real = max(wl - wl // 7, 1)
+    ids = np.concatenate([rng.choice(n, size=real, replace=False),
+                          np.full(wl - real, n + 3)]).astype(np.int32)
+    rng.shuffle(ids)
+    writes = _level_kernel_writes(ids, n)
+    want = np.zeros(n + 1, np.int64)
+    want[ids[ids <= n]] = 1
+    assert np.array_equal(writes, want)
+    assert sptrsv.LEVEL_THREADS % 32 == 0             # whole warps
 
 
 # -- sptrsv_solve_dot --------------------------------------------------------
